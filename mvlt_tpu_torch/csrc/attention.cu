@@ -1,0 +1,122 @@
+// K2 `biased_attention`: for each (group g, head h)
+//   ctx[g*N + i, h*Dh + d] = sum_j softmax_j((q_i * scale) . k_j + bias_ij) * v_jd
+// read from fused QKV rows (rows = G*N, 3C) in bf16, for sm_90a.
+//
+//   bias_ij = pattern[g % P, h, i, j]   (optional; the Swin relative-position
+//                                        bias, with the -100 shift mask folded
+//                                        in for SW-MSA blocks)
+//           + kbias[g, j]               (optional; BERT key padding, -10000)
+//
+// Replaces the attention core of the TPU kernels in
+// mvlt_tpu/ops/pallas_attn.py: `_attend` as called from `_full_body`
+// (`_full_kernel`, `_full_shift_kernel`), `_block_kernel` and
+// `_attn_ln_kernel`. It holds their exact (interpret-mode) math: scores in
+// f32 from q scaled in f32, a max-subtracted softmax with an exact divide,
+// probabilities rounded to bf16 before the PV product, PV accumulated in f32.
+//
+// Bound: tiny per block (N <= 128, Dh <= 64: at most ~2 MFLOP), so the cost is
+// reading QKV once and writing ctx once. One block per (group, head) keeps the
+// whole N x N score tile in shared memory and masks its own ragged edge, so
+// the port needs neither the TPU's pad-to-8 rows nor its window-pair merge.
+// Scalar FMA from shared memory; tensor cores and several heads per block are
+// later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_N = 128;
+constexpr int MAX_DH = 64;
+
+__global__ void __launch_bounds__(THREADS)
+attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ pattern,
+                 const float* __restrict__ kbias, __nv_bfloat16* __restrict__ ctx, int N, int C,
+                 int Dh, int P, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  const int ldk = Dh + 1;  // odd row stride: threads on consecutive keys hit distinct banks
+  const int lds = N + 1;
+  float* Q = sm;                 // N x Dh, pre-scaled
+  float* Kt = Q + N * Dh;        // N x ldk
+  float* V = Kt + N * ldk;       // N x Dh
+  float* S = V + N * Dh;         // N x lds
+
+  const int h = blockIdx.x;
+  const int g = blockIdx.y;
+  const int nH = gridDim.x;
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)g * N;
+  const int ld = 3 * C;
+
+  for (int e = tid; e < N * Dh; e += THREADS) {
+    int n = e / Dh, d = e % Dh;
+    const __nv_bfloat16* r = qkv + (row0 + n) * ld + h * Dh + d;
+    Q[n * Dh + d] = __bfloat162float(r[0]) * scale;
+    Kt[n * ldk + d] = __bfloat162float(r[C]);
+    V[n * Dh + d] = __bfloat162float(r[2 * C]);
+  }
+  __syncthreads();
+
+  const float* pb = pattern ? pattern + ((size_t)(g % P) * nH + h) * N * N : nullptr;
+  const float* kb = kbias ? kbias + (size_t)g * N : nullptr;
+  for (int e = tid; e < N * N; e += THREADS) {
+    int i = e / N, j = e % N;
+    const float* q = Q + i * Dh;
+    const float* k = Kt + j * ldk;
+    float s = 0.f;
+    for (int d = 0; d < Dh; ++d) s = fmaf(q[d], k[d], s);
+    if (pb) s += pb[i * N + j];
+    if (kb) s += kb[j];
+    S[i * lds + j] = s;
+  }
+  __syncthreads();
+
+  // one warp per row: max-subtracted softmax, exact divide, bf16-rounded p
+  const int lane = tid & 31;
+  for (int i = tid >> 5; i < N; i += THREADS / 32) {
+    float* srow = S + i * lds;
+    float mx = -INFINITY;
+    for (int j = lane; j < N; j += 32) mx = fmaxf(mx, srow[j]);
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    float sum = 0.f;
+    for (int j = lane; j < N; j += 32) {
+      float p = expf(srow[j] - mx);
+      srow[j] = p;
+      sum += p;
+    }
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    for (int j = lane; j < N; j += 32) srow[j] = __bfloat162float(__float2bfloat16(srow[j] / sum));
+  }
+  __syncthreads();
+
+  for (int e = tid; e < N * Dh; e += THREADS) {
+    int i = e / Dh, d = e % Dh;
+    const float* p = S + i * lds;
+    float acc = 0.f;
+    for (int j = 0; j < N; ++j) acc = fmaf(p[j], V[j * Dh + d], acc);
+    ctx[(row0 + i) * C + h * Dh + d] = __float2bfloat16(acc);
+  }
+}
+
+}  // namespace
+
+extern "C" int mvlt_attention(const void* qkv, const void* pattern, const void* kbias, void* ctx, int G,
+                              int N, int C, int nH, int P, float scale, void* stream) {
+  if (N < 1 || N > MAX_N || C % nH != 0 || C / nH > MAX_DH) return (int)cudaErrorInvalidValue;
+  const int Dh = C / nH;
+  const size_t smem = sizeof(float) * ((size_t)N * Dh * 2 + (size_t)N * (Dh + 1) + (size_t)N * (N + 1));
+  static size_t attr_bytes = 0;  // above 48 KB needs the opt-in
+  if (smem > attr_bytes) {
+    cudaError_t e = cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_bytes = smem;
+  }
+  dim3 grid(nH, G);
+  attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(pattern),
+      static_cast<const float*>(kbias), static_cast<__nv_bfloat16*>(ctx), N, C, Dh, P, scale);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,257 @@
+"""Swin Transformer backbone of the port (counterpart of
+``mvlt_tpu/models/backbones/swin.py``), inference path.
+
+The layout follows the JAX package: NHWC images, patch embedding as a
+reshape + dense over (ph, pw, c)-flattened patches, window-major token rows
+inside a block. The block dispatch mirrors the JAX routing on the TPU, so
+that every one of the six counterparts in :mod:`mvlt_tpu_torch.ops.blocks`
+runs on the flagship path:
+
+- W-MSA and SW-MSA blocks of a stage whose block weights fit the TPU's VMEM
+  run ``swin_full_block`` (the SW-MSA one with the shift folded in);
+- wider stages (Swin-S stage 4, C = 768) run LN1 -> ``window_block_attention``
+  (+x folded into its proj) -> ``fused_mlp_preln``, see
+  :func:`uses_half_blocks`.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from mvlt_tpu.config import SwinConfig
+from mvlt_tpu_torch.ops.layers import SWIN_LN_EPS, Dense, LayerNorm, Mlp
+
+
+@functools.lru_cache(maxsize=None)
+def relative_position_index(wh: int, ww: int) -> np.ndarray:
+    """(N, N) pairwise relative-position index inside a (wh, ww) window
+    (swin.py:53-64)."""
+    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"))
+    flat = coords.reshape(2, -1)
+    rel = (flat[:, :, None] - flat[:, None, :]).transpose(1, 2, 0)
+    rel[:, :, 0] += wh - 1
+    rel[:, :, 1] += ww - 1
+    rel[:, :, 0] *= 2 * ww - 1
+    return rel.sum(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def shifted_window_mask(H: int, W: int, window: int, shift: int) -> np.ndarray:
+    """Additive SW-MSA mask (nW, N, N), 0 / -100 (swin.py:88-103)."""
+    img = np.zeros((H, W), np.int32)
+    slices = (slice(0, -window), slice(-window, -shift), slice(-shift, None))
+    cnt = 0
+    for h in slices:
+        for w in slices:
+            img[h, w] = cnt
+            cnt += 1
+    img = img.reshape(H // window, window, W // window, window)
+    win = img.transpose(0, 2, 1, 3).reshape(-1, window * window)
+    diff = win[:, None, :] - win[:, :, None]
+    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B * nW, window*window, C)."""
+    B, H, W, C = x.shape
+    x = x.view(B, H // window, window, W // window, window, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, C)
+
+
+def window_reverse(windows: torch.Tensor, window: int, H: int,
+                   W: int) -> torch.Tensor:
+    """Inverse of :func:`window_partition`."""
+    C = windows.shape[-1]
+    B = windows.shape[0] // (H * W // window // window)
+    x = windows.view(B, H // window, W // window, window, window, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, C)
+
+
+def uses_half_blocks(dim: int) -> bool:
+    """Whether a Swin block of width ``dim`` runs as two halves.
+
+    On the TPU the whole-block kernel needs its 12*C^2 bf16 weights in
+    12 MB of VMEM (``weights_fit``, swin.py:272); wider blocks take the
+    pre-LN halves (swin.py:307-313). At those widths ``swin_attn_half``
+    finds no 8-aligned window group and falls back to LN1 + ``_block_kernel``
+    + residual (pallas_attn.py:3289), followed by ``fused_mlp_preln``. At
+    Swin-S 224 that is stage 4 (C = 768). The port keeps this routing so that
+    the flagship path runs each of the six counterparts."""
+    return 12 * dim * dim * 2 > 12 * 1024 * 1024
+
+
+class SwinBlock(nn.Module):
+    """(S)W-MSA + MLP block, pre-LN, deterministic (swin.py:235-366)."""
+
+    def __init__(self, dim: int, input_resolution: Tuple[int, int],
+                 num_heads: int, window_size: int, shift_size: int,
+                 mlp_ratio: float, qkv_bias: bool, qk_scale, *,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        H, W = input_resolution
+        window, shift = window_size, shift_size
+        if min(input_resolution) <= window:
+            # window no smaller than the map: one window, no shift
+            # (swin.py:259-262; Swin-S stage 4 at 7x7)
+            window, shift = min(input_resolution), 0
+        self.dim, self.resolution = dim, (H, W)
+        self.window, self.shift, self.num_heads = window, shift, num_heads
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.norm1 = LayerNorm(dim, SWIN_LN_EPS, device=device)
+        self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype=dtype, device=device)
+        self.proj = Dense(dim, dim, dtype=dtype, device=device)
+        self.relative_position_bias_table = nn.Parameter(torch.empty(
+            (2 * window - 1) ** 2, num_heads, dtype=torch.float32,
+            device=device))
+        self.norm2 = LayerNorm(dim, SWIN_LN_EPS, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+        N = window * window
+        self.register_buffer("rel_index", torch.as_tensor(
+            relative_position_index(window, window).reshape(-1),
+            device=device), persistent=False)
+        mask = (shifted_window_mask(H, W, window, shift) if shift
+                else np.zeros((1, N, N), np.float32))
+        self.register_buffer("shift_mask", torch.as_tensor(mask, device=device),
+                             persistent=False)
+        self._bias_key, self._bias = None, None
+
+    def attention_bias(self) -> torch.Tensor:
+        """(P, nH, N, N) f32: the relative-position bias from its table, plus
+        the -100 shift mask per window when shifted (P = nW, else 1).
+        Recomputed only when the table changes."""
+        t = self.relative_position_bias_table
+        key = (t.data_ptr(), t._version)
+        if key != self._bias_key:
+            N = self.window * self.window
+            rel = t.detach()[self.rel_index].view(N, N, -1).permute(2, 0, 1)
+            self._bias = (rel[None] + self.shift_mask[:, None]).contiguous()
+            self._bias_key = key
+        return self._bias
+
+    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+        H, W = self.resolution
+        B, L, C = x.shape
+        window, shift = self.window, self.shift
+        windows = window_partition(x.view(B, H, W, C), window)
+        bias = self.attention_bias()
+        if uses_half_blocks(C):
+            y = self._half_blocks(windows, bias, ops)
+        else:
+            params = (self.norm1.weight, self.norm1.bias, self.qkv.weight,
+                      self.qkv.bias, self.proj.weight, self.proj.bias,
+                      self.norm2.weight, self.norm2.bias,
+                      self.mlp.fc1.weight, self.mlp.fc1.bias,
+                      self.mlp.fc2.weight, self.mlp.fc2.bias)
+            y = ops.swin_full_block(
+                windows, params, bias, self.scale, self.num_heads,
+                shift_spec=(H, W, window, shift) if shift else None)
+        return window_reverse(y, window, H, W).reshape(B, L, C)
+
+    def _half_blocks(self, windows, bias, ops):
+        """LN1 -> window_block_attention (+x) -> fused_mlp_preln."""
+        if self.shift:
+            # the half route serves only stages whose map fits one window
+            # (Swin-S / Swin-B stage 4); a shifted wide stage is not ported
+            raise NotImplementedError(
+                f"shifted Swin block at width {self.dim} (half-block route)")
+        h = self.norm1(windows, ops)
+        y = ops.window_block_attention(
+            h, self.qkv.weight, self.qkv.bias, self.proj.weight,
+            self.proj.bias, bias, self.scale, self.num_heads,
+            residual=windows)
+        return ops.fused_mlp_preln(y, self.norm2.weight, self.norm2.bias,
+                                   self.mlp.fc1.weight, self.mlp.fc1.bias,
+                                   self.mlp.fc2.weight, self.mlp.fc2.bias)
+
+
+class PatchMerging(nn.Module):
+    """2x2 patch merging: concat -> LN -> dense without bias
+    (swin.py:536-557)."""
+
+    def __init__(self, input_resolution: Tuple[int, int], dim: int, *,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        self.resolution = input_resolution
+        self.norm = LayerNorm(4 * dim, SWIN_LN_EPS, device=device)
+        self.reduction = Dense(4 * dim, 2 * dim, bias=False, dtype=dtype,
+                               device=device)
+
+    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+        H, W = self.resolution
+        B, L, C = x.shape
+        x = x.view(B, H, W, C)
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                       x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+        x = x.reshape(B, (H // 2) * (W // 2), 4 * C)
+        return self.reduction(self.norm(x, ops), ops)
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping patchify as reshape + dense over (ph, pw, c)-flattened
+    NHWC patches, then LN (swin.py:560-584)."""
+
+    def __init__(self, patch_size: int, in_chans: int, embed_dim: int,
+                 patch_norm: bool, *, dtype: torch.dtype, device):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = Dense(patch_size * patch_size * in_chans, embed_dim,
+                          dtype=dtype, device=device)
+        self.norm = (LayerNorm(embed_dim, SWIN_LN_EPS, device=device)
+                     if patch_norm else None)
+
+    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+        B, H, W, C = x.shape
+        p = self.patch_size
+        x = x.reshape(B, H // p, p, W // p, p, C).permute(0, 1, 3, 2, 4, 5)
+        x = self.proj(x.reshape(B, (H // p) * (W // p), p * p * C), ops)
+        return x if self.norm is None else self.norm(x, ops)
+
+
+class SwinTransformer(nn.Module):
+    """Hierarchical Swin encoder returning all final-stage tokens
+    (B, H/32 * W/32, num_features) after the final LN (swin.py:587-649)."""
+
+    def __init__(self, config: SwinConfig, *, dtype: torch.dtype, device):
+        super().__init__()
+        cfg = config
+        if cfg.ape:
+            raise NotImplementedError(
+                "absolute position embedding (ape=True) is not ported yet; "
+                "see ROADMAP.md queue A")
+        self.config, self.dtype = cfg, dtype
+        self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans,
+                                      cfg.embed_dim, cfg.patch_norm,
+                                      dtype=dtype, device=device)
+        self.stages = nn.ModuleList()
+        self.downsamples = nn.ModuleList()
+        for i in range(cfg.num_layers):
+            dim = int(cfg.embed_dim * 2 ** i)
+            res = (cfg.patches_resolution[0] // 2 ** i,
+                   cfg.patches_resolution[1] // 2 ** i)
+            self.stages.append(nn.ModuleList([
+                SwinBlock(dim, res, cfg.num_heads[i], cfg.window_size,
+                          0 if j % 2 == 0 else cfg.window_size // 2,
+                          cfg.mlp_ratio, cfg.qkv_bias, cfg.qk_scale,
+                          dtype=dtype, device=device)
+                for j in range(cfg.depths[i])]))
+            if i < cfg.num_layers - 1:
+                self.downsamples.append(PatchMerging(res, dim, dtype=dtype,
+                                                     device=device))
+        self.norm = LayerNorm(cfg.num_features, SWIN_LN_EPS, device=device)
+
+    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+        cfg = self.config
+        if x.shape[1] == cfg.in_chans and x.shape[1] != x.shape[2]:
+            x = x.permute(0, 2, 3, 1)            # NCHW accepted (swin.py:605)
+        x = self.patch_embed(x.to(self.dtype), ops)
+        for i, blocks in enumerate(self.stages):
+            for block in blocks:
+                x = block(x, ops)
+            if i < len(self.downsamples):
+                x = self.downsamples[i](x, ops)
+        return self.norm(x, ops)

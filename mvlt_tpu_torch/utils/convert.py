@@ -1,0 +1,110 @@
+"""Bridge from the JAX package's flax parameter tree to the port's
+``state_dict``.
+
+``vqa_params_from_flax`` maps every leaf of a flax ``VQAModel`` tree
+(``mvlt_tpu/models/heads.py:65``) exactly once:
+
+- a flax Dense ``kernel`` (in, out) becomes a port ``weight`` (out, in);
+- the fusion layers' separate ``query`` / ``key`` / ``value`` Denses are
+  concatenated into the port's one fused ``qkv`` Dense (fusion.py:122-126);
+- LayerNorm ``scale`` becomes ``weight``; an ``embedding`` table keeps its
+  layout.
+
+A leaf that no rule maps, a leaf mapped twice, or a fused q/k/v missing a
+part raises ``KeyError``. Load the result with
+``model.load_state_dict(sd)`` (strict), which raises on a port parameter
+the tree did not provide and casts each tensor to its parameter's dtype.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_QKV = ("query", "key", "value")
+
+# flax path (joined with '/') -> port module path; first match wins
+_RULES = [
+    (r"conv/backbone/patch_embed/(proj|norm)", r"conv.backbone.patch_embed.\1"),
+    (r"conv/backbone/layers_(\d+)_blocks_(\d+)/attn/(qkv|proj)",
+     r"conv.backbone.stages.\1.\2.\3"),
+    (r"conv/backbone/layers_(\d+)_blocks_(\d+)/attn",
+     r"conv.backbone.stages.\1.\2"),
+    (r"conv/backbone/layers_(\d+)_blocks_(\d+)/(norm1|norm2)",
+     r"conv.backbone.stages.\1.\2.\3"),
+    (r"conv/backbone/layers_(\d+)_blocks_(\d+)/mlp/(fc1|fc2)",
+     r"conv.backbone.stages.\1.\2.mlp.\3"),
+    (r"conv/backbone/layers_(\d+)_downsample/(norm|reduction)",
+     r"conv.backbone.downsamples.\1.\2"),
+    (r"conv/backbone/norm", r"conv.backbone.norm"),
+    (r"conv/resnet_fc", r"conv.resnet_fc"),
+    (r"fusion/(word|position|token_type)_embeddings",
+     r"fusion.\1_embeddings"),
+    (r"fusion/layer_(\d+)/attention/(query|key|value)",
+     r"fusion.layers.\1.qkv:\2"),
+    (r"fusion/layer_(\d+)/attention/(out|out_layernorm)",
+     r"fusion.layers.\1.\2"),
+    (r"fusion/layer_(\d+)/(intermediate|output|output_layernorm)",
+     r"fusion.layers.\1.\2"),
+    (r"fusion/pooler/dense", r"fusion.pooler"),
+    (r"final_mlp", r"final_mlp"),
+]
+# flax leaf name -> suffix of the port parameter
+_LEAF = {"kernel": ".weight", "bias": ".bias", "scale": ".weight",
+         "embedding": "",
+         "relative_position_bias_table": ".relative_position_bias_table"}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _port_name(path: str):
+    """(port key, q/k/v slot or None, is_dense_kernel) for one flax leaf."""
+    module, leaf = path.rsplit("/", 1)
+    for pattern, repl in _RULES:
+        if leaf in _LEAF and re.fullmatch(pattern, module):
+            target, _, part = re.sub(pattern, repl, module).partition(":")
+            slot = _QKV.index(part) if part else None
+            return target + _LEAF[leaf], slot, leaf == "kernel"
+    raise KeyError(f"no port parameter for flax leaf {path!r}")
+
+
+def vqa_params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """flax ``VQAModel`` variables (or their ``params``) -> port state_dict
+    of float32 tensors."""
+    params = variables.get("params", variables)
+    flat = _flatten(params)
+    sd: Dict[str, torch.Tensor] = {}
+    parts: Dict[str, list] = {}
+    for path, value in flat.items():
+        key, slot, is_kernel = _port_name(path)
+        value = np.array(value, np.float32)             # own, writable copy
+        if is_kernel:
+            value = value.T                       # (in, out) -> (out, in)
+        if slot is not None:
+            group = parts.setdefault(key, [None] * len(_QKV))
+            if group[slot] is not None:
+                raise KeyError(f"flax leaf {path!r} mapped twice onto {key!r}")
+            group[slot] = value
+            continue
+        if key in sd:
+            raise KeyError(f"flax leaf {path!r} mapped twice onto {key!r}")
+        sd[key] = torch.from_numpy(np.ascontiguousarray(value))
+    for key, group in parts.items():
+        missing = [_QKV[i] for i, g in enumerate(group) if g is None]
+        if missing:
+            raise KeyError(f"fused {key!r} is missing its {missing} part(s)")
+        sd[key] = torch.from_numpy(np.ascontiguousarray(
+            np.concatenate(group, axis=0)))
+    return sd

@@ -1,0 +1,105 @@
+"""The flax -> port parameter bridge: every leaf of a flax ``VQAModel`` tree
+maps exactly once onto the port's ``state_dict``; a missing or an extra
+leaf raises."""
+
+import copy
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mvlt_tpu.config import MVLTConfig, SwinConfig
+from mvlt_tpu.models.heads import VQAModel as JaxVQA
+from mvlt_tpu_torch.models.heads import VQAModel
+from mvlt_tpu_torch.utils.convert import vqa_params_from_flax
+
+torch.set_num_threads(2)
+
+
+def _config(hidden):
+    cfg = MVLTConfig.for_vqa(result_num=6)
+    return dataclasses.replace(
+        cfg, conv="swin",
+        swin=SwinConfig(img_size=16, patch_size=4, embed_dim=16,
+                        depths=(2, 1), num_heads=(2, 4), window_size=2,
+                        drop_path_rate=0.0),
+        fusion=dataclasses.replace(cfg.fusion, hidden_size=hidden,
+                                   num_hidden_layers=2, num_attention_heads=2,
+                                   intermediate_size=64, vocab_size=200))
+
+
+def _flax_params(cfg):
+    shapes = jax.eval_shape(lambda: JaxVQA(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 3, 16, 16)),
+        jnp.ones((1, 5), jnp.int32)))
+    rng = np.random.default_rng(0)
+    return jax.tree.map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _leaves(v, path)
+        else:
+            yield path, v
+
+
+@pytest.mark.parametrize("hidden", [32, 48])
+def test_every_leaf_maps_exactly_once(hidden):
+    """hidden 32 equals the backbone width (no resnet_fc), 48 does not."""
+    cfg = _config(hidden)
+    variables = _flax_params(cfg)
+    sd = vqa_params_from_flax(variables)
+    model = VQAModel(cfg)
+    model.load_state_dict(sd)                            # strict
+    assert set(sd) == set(model.state_dict())
+    leaves = dict(_leaves(variables["params"]))
+    assert sum(v.size for v in leaves.values()) == \
+        sum(t.numel() for t in sd.values())
+    assert ("conv.resnet_fc.weight" in sd) == (hidden != 32)
+    # layouts: Dense kernels transpose, q/k/v concatenate in that order
+    p = variables["params"]
+    np.testing.assert_array_equal(
+        sd["final_mlp.weight"].numpy(), p["final_mlp"]["kernel"].T)
+    att = p["fusion"]["layer_1"]["attention"]
+    np.testing.assert_array_equal(
+        sd["fusion.layers.1.qkv.weight"].numpy(),
+        np.concatenate([att[n]["kernel"].T for n in ("query", "key", "value")]))
+    np.testing.assert_array_equal(
+        sd["fusion.layers.1.qkv.bias"].numpy(),
+        np.concatenate([att[n]["bias"] for n in ("query", "key", "value")]))
+    np.testing.assert_array_equal(
+        sd["conv.backbone.stages.0.1.relative_position_bias_table"].numpy(),
+        p["conv"]["backbone"]["layers_0_blocks_1"]["attn"]
+        ["relative_position_bias_table"])
+    assert sd["fusion.word_embeddings"].shape[0] == cfg.fusion.vocab_size + 1
+
+
+def test_extra_leaf_raises():
+    variables = _flax_params(_config(32))
+    bad = copy.deepcopy(variables)
+    bad["params"]["fusion"]["layer_0"]["attention"]["rotary"] = {
+        "kernel": np.zeros((2, 2), np.float32)}
+    with pytest.raises(KeyError, match="no port parameter"):
+        vqa_params_from_flax(bad)
+
+
+def test_missing_qkv_part_raises():
+    variables = _flax_params(_config(32))
+    bad = copy.deepcopy(variables)
+    del bad["params"]["fusion"]["layer_1"]["attention"]["key"]["kernel"]
+    with pytest.raises(KeyError, match="missing"):
+        vqa_params_from_flax(bad)
+
+
+def test_missing_leaf_fails_strict_load():
+    cfg = _config(32)
+    bad = copy.deepcopy(_flax_params(cfg))
+    del bad["params"]["conv"]["backbone"]["layers_1_blocks_0"]["norm2"]
+    with pytest.raises(RuntimeError, match="Missing key"):
+        VQAModel(cfg).load_state_dict(vqa_params_from_flax(bad))
