@@ -2,20 +2,32 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU (built for H100).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It imports
-nothing of JAX. Phases, each of which raises on failure:
+nothing of JAX and nothing of the JAX package. Phases, each of which raises
+on failure:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile the port's three CUDA kernels from ``mvlt_tpu_torch/csrc``
-   with nvcc (sm_90a) into ``build/torch_kernels/``;
+2. build: compile the port's CUDA kernels from ``mvlt_tpu_torch/csrc`` with
+   nvcc (sm_90a, one process per source, all at once) into
+   ``build/torch_kernels/``;
 3. kernel checks: hold K1 ``gemm``, K2 ``biased_attention``, K3
-   ``layernorm`` and the six TPU-kernel counterparts of
+   ``layernorm`` and the six forward counterparts of
    ``mvlt_tpu_torch.ops.blocks`` against their plain PyTorch versions on the
-   card, in bf16 at the flagship batch-8 shapes, and time both;
+   card, in bf16 at the flagship batch-8 shapes; then K1's backward modes,
+   K4 ``biased_attention_bwd``, K5 ``layernorm_bwd`` / ``column_sum`` and
+   the two backward counterparts at the train step's shapes. Each is timed
+   beside its plain version, the library call that computes the same
+   function (never called by the port) and its bound on an H100 SXM (the
+   larger of FLOPs / 989 TFLOP/s and bytes / 3.35 TB/s);
 4. forward: run the flagship VQA forward (Swin-S @224 + BERT-base, bf16,
    batch 8, question length 23 with padding) through the kernels, check the
    launch counts, compare its logits with the same model on the plain
    versions, and time both;
-5. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` last.
+5. train: build the VQA finetune train step (ResNet-101 @224 + BERT-base,
+   batch 32, bf16 compute with f32 masters, AdamW) twice from one seed, on
+   the kernels and on the plain versions; check the launch counts of one
+   step, every parameter's gradient of step 1 and the losses of 3 steps
+   against the plain run, then time the steps in turns;
+6. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 REPO = pathlib.Path(__file__).resolve().parent
 
@@ -39,6 +52,22 @@ KERNEL_BAR = 2.0 ** -7
 BLOCK_BAR = 2.0 ** -5
 # the whole forward chains 136 counterpart calls and 40 other kernel calls.
 LOGITS_BAR = 0.05
+# train step, kernels vs plain, both bf16 with the same rounding points: a
+# bf16 step that flips in one of the ~250 kernel calls of a step passes
+# through 12 layers, the pooler and the head. Per tensor of the fusion
+# encoder, the heads and resnet_fc, relative to the plain gradient's max|.|.
+GRAD_BAR = 0.05
+# The ResNet's gradients are those differences carried back through 104
+# BatchNorm backwards in bf16, and a BN bias gradient is a sum over
+# B*H*W = 32*112*112 positions with heavy cancellation: its largest element
+# moved by 0.23 x max|grad| at the stem in one run. The backbone is held in
+# relative Frobenius norm per tensor instead. Losses: relative.
+BACKBONE_GRAD_BAR = 0.25
+LOSS_BAR = 1e-2
+TRAIN_BATCH, TRAIN_STEPS = 32, 3
+
+# H100 SXM peaks (NVIDIA data sheet; dense bf16 tensor cores, HBM3)
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 # calls per flagship forward of each TPU kernel on the JAX path, traced with
 # the TPU kernel gates forced on: port function -> (count, TPU kernel)
@@ -50,13 +79,27 @@ EXPECTED = {
     "fused_attn_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2156"),
     "fused_mlp_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2817"),
 }
-# the three hand-written kernels and the TPU code whose pieces each carries
+# calls per VQA train step of each TPU kernel on the JAX path (12 layers,
+# forward and backward)
+EXPECTED_TRAIN = {
+    "fused_attn_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2156"),
+    "fused_mlp_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2817"),
+    "seq_attention_core_bwd": (12, "mvlt_tpu/ops/pallas_attn.py:2413"),
+    "mlp_ln_half_bwd": (12, "mvlt_tpu/ops/pallas_attn.py:2931"),
+}
+# the hand-written kernels and the TPU code whose pieces each carries
 KERNEL_SOURCES = {
     "gemm": ("mvlt_tpu_torch/csrc/gemm.cu", "mvlt_tpu/ops/pallas_attn.py:571"),
     "biased_attention": ("mvlt_tpu_torch/csrc/attention.cu",
                          "mvlt_tpu/ops/pallas_attn.py:512"),
     "layernorm": ("mvlt_tpu_torch/csrc/layernorm.cu",
                   "mvlt_tpu/ops/pallas_attn.py:494"),
+    "biased_attention_bwd": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
+                             "mvlt_tpu/ops/pallas_attn.py:2413"),
+    "layernorm_bwd": ("mvlt_tpu_torch/csrc/layernorm_bwd.cu",
+                      "mvlt_tpu/ops/pallas_attn.py:2970"),
+    "column_sum": ("mvlt_tpu_torch/csrc/layernorm_bwd.cu",
+                   "mvlt_tpu/ops/pallas_attn.py:3003"),
 }
 
 
@@ -83,57 +126,171 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _tensors(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def bound(flops: float, nbytes: float):
+    """(least ms on an H100 SXM, what bounds it) for one call."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 class Checker:
-    """Runs each kernel case against its plain twin and keeps the numbers."""
+    """Runs each kernel case against its plain twin and keeps the numbers:
+    per row (kernel name) the max abs error and the sums over its cases of
+    the kernel's, the plain version's and the library call's times and of
+    the bound."""
 
     def __init__(self):
         self.rows = {}
 
-    def case(self, name: str, kernel_fn, plain_fn, bar: float) -> None:
-        got = kernel_fn()
-        want = plain_fn()
+    def case(self, name: str, kernel_fn, plain_fn, bar: float, *,
+             flops: float, nbytes: float, library_fn=None,
+             floor: float = 1.0) -> None:
+        """``bar`` is a multiple of the largest |value| of each plain output
+        (at least ``floor``); ``flops`` / ``nbytes`` are what the function
+        must do and move (each input read once, each output written once)."""
+        got, want = _tensors(kernel_fn()), _tensors(plain_fn())
         torch.cuda.synchronize()
-        assert got.shape == want.shape and got.dtype == want.dtype, \
-            (name, got.shape, want.shape, got.dtype, want.dtype)
-        assert torch.isfinite(got).all(), f"{name}: non-finite output"
-        err = (got.float() - want.float()).abs().max().item()
-        scale = want.float().abs().max().item()
-        limit = bar * max(scale, 1.0)
-        if not err <= limit:
-            raise AssertionError(f"{name}: max abs err {err} > {limit} "
-                                 f"(bar {bar} x max|plain| {scale})")
+        assert len(got) == len(want), (name, len(got), len(want))
+        err = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert g.shape == w.shape and g.dtype == w.dtype, \
+                (name, i, g.shape, w.shape, g.dtype, w.dtype)
+            assert torch.isfinite(g).all(), f"{name}: non-finite output {i}"
+            e = (g.float() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            limit = bar * max(scale, floor)
+            if not e <= limit:
+                raise AssertionError(f"{name}: output {i} max abs err {e} > "
+                                     f"{limit} (bar {bar} x max|plain| {scale})")
+            err = max(err, e)
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
-        row = self.rows.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
-                                          "plain_ms": 0.0})
+        lib_ms = cuda_ms(library_fn) if library_fn is not None else None
+        b_ms, b_by = bound(flops, nbytes)
+        row = self.rows.setdefault(name, {
+            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0, "_ops": 0.0, "_bytes": 0.0, "_nolib": False})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += ms                # summed over the cases of one kernel
         row["plain_ms"] += plain_ms
-        print(f"check {name}: max_abs_err {err:.3g} (limit {limit:.3g}) "
-              f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms", flush=True)
+        row["bound_ms"] += b_ms
+        row["_ops" if b_by == "operations" else "_bytes"] += b_ms
+        if lib_ms is None:
+            row["_nolib"] = True
+        else:
+            row["library_ms"] += lib_ms
+        lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"check {name}: max_abs_err {err:.3g} kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms library {lib} bound {b_ms:.4f} ms ({b_by}; "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)", flush=True)
+
+    def row(self, name: str) -> dict:
+        r = dict(self.rows[name])
+        r["bound_by"] = "operations" if r.pop("_ops") >= r.pop("_bytes") \
+            else "bytes"
+        if r.pop("_nolib"):
+            r["library_ms"] = None
+        return r
+
+
+class Inputs:
+    """Seeded bf16 / f32 tensors on the card."""
+
+    def __init__(self, dev, seed: int = 0):
+        self.dev = dev
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def rnd(self, *shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=self.gen) * std).to(self.dev, dtype)
+
+    def dense(self, k, n):
+        return self.rnd(n, k, std=k ** -0.5), self.rnd(n, std=0.1)
+
+    def ln(self, c):
+        return (self.rnd(c, std=0.1, dtype=torch.float32) + 1.0,
+                self.rnd(c, std=0.1, dtype=torch.float32))
+
+    def perm(self, m):
+        return torch.randperm(m, generator=self.gen).to(self.dev, torch.int32)
+
+    def key_bias(self, lengths, S):
+        return torch.where(torch.arange(S)[None] < torch.tensor(lengths)[:, None],
+                           0.0, -10000.0).to(self.dev)
+
+
+# ---- library compositions (timed only; the port never calls them) --------
+
+def lib_attention(qkv, G, N, nH, mask, scale):
+    """SDPA over fused rows; ``mask`` an additive bf16 mask broadcastable to
+    (G, nH, N, N), or None."""
+    C = qkv.shape[1] // 3
+    t = qkv.view(G, N, 3, nH, C // nH).permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(t[0], t[1], t[2], attn_mask=mask,
+                                       scale=scale)
+    return o.permute(0, 2, 1, 3).reshape(G * N, C)
+
+
+def bf16_ln(g, b):
+    return g.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+def lib_swin_block(x, params, mask, scale, nH, gather=None, scatter=None):
+    BW, N, C = x.shape
+    (ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2) = params
+    rows = x.reshape(BW * N, C)
+    src = rows if gather is None else rows.index_select(0, gather)
+    h = F.layer_norm(src, (C,), ln1s, ln1b, 1e-5)
+    ctx = lib_attention(F.linear(h, wqkv, bqkv), BW, N, nH, mask, scale)
+    res1 = F.linear(ctx, wproj, bproj) + src
+    h2 = F.layer_norm(res1, (C,), ln2s, ln2b, 1e-5)
+    out = F.linear(F.gelu(F.linear(h2, w1, b1)), w2, b2) + res1
+    if scatter is not None:
+        out = out.index_select(0, scatter)
+    return out.view(BW, N, C)
+
+
+def lib_attn_ln(x, wqkv, bqkv, wproj, bproj, mask, lns, lnb, scale, nH,
+                eps=1e-12):
+    B, N, C = x.shape
+    rows = x.reshape(B * N, C)
+    ctx = lib_attention(F.linear(rows, wqkv, bqkv), B, N, nH, mask, scale)
+    return F.layer_norm(F.linear(ctx, wproj, bproj) + rows, (C,), lns, lnb,
+                        eps).view(B, N, C)
+
+
+def lib_mlp_ln(x, w1, b1, w2, b2, lns, lnb, eps=1e-12):
+    rows = x.reshape(-1, x.shape[-1])
+    y = F.linear(F.gelu(F.linear(rows, w1, b1)), w2, b2) + rows
+    return F.layer_norm(y, (x.shape[-1],), lns, lnb, eps).view(x.shape)
+
+
+def library_backward(forward, inputs, cotangent):
+    """A function that times only the backward of ``forward(*inputs)``:
+    the graph is built once and ``torch.autograd.grad`` replays it."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = forward(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, cotangent,
+                                       retain_graph=True)
 
 
 def kernel_checks(chk: Checker, dev) -> None:
+    """The PR-2 forward cases at the flagship batch-8 shapes."""
     from mvlt_tpu_torch.models.backbones.swin import shifted_window_mask
     from mvlt_tpu_torch.ops import blocks
     from mvlt_tpu_torch.ops import kernels as K
 
-    gen = torch.Generator().manual_seed(0)
+    inp = Inputs(dev)
+    rnd, dense, ln, perm = inp.rnd, inp.dense, inp.ln, inp.perm
     bf = torch.bfloat16
 
-    def rnd(*shape, std=1.0, dtype=bf):
-        return (torch.randn(*shape, generator=gen) * std).to(dev, dtype)
-
-    def dense(k, n):
-        return rnd(n, k, std=k ** -0.5), rnd(n, std=0.1)
-
-    def ln(c):
-        return rnd(c, std=0.1, dtype=torch.float32) + 1.0, \
-            rnd(c, std=0.1, dtype=torch.float32)
-
-    def perm(m):
-        return torch.randperm(m, generator=gen).to(dev, torch.int32)
-
-    # K1 at the flagship's product shapes (M, K, N, gelu, residual, indices)
+    # K1 at the flagship's product shapes (M, K, N, gelu, residual, indices);
+    # library: F.linear (cuBLAS), the product alone
     for M, Kd, N, gelu, res, idx in [
             (25088, 96, 288, False, False, False),   # stage-1 qkv
             (25088, 384, 96, False, True, True),     # stage-1 SW-MSA fc2
@@ -145,10 +302,15 @@ def kernel_checks(chk: Checker, dev) -> None:
         r = rnd(M, N) if res else None
         ri, si = (perm(M), perm(M)) if idx else (None, None)
         kw = dict(gelu=gelu, residual=r, residual_index=ri, store_index=si)
+        out = torch.empty(M, N, dtype=bf, device=dev)
         chk.case("gemm", lambda: K.gemm(a, w, b, **kw),
-                 lambda: K.gemm_plain(a, w, b, **kw), KERNEL_BAR)
+                 lambda: K.gemm_plain(a, w, b, **kw), KERNEL_BAR,
+                 library_fn=lambda: F.linear(a, w, b),
+                 flops=2.0 * M * N * Kd,
+                 nbytes=nbytes(a, w, b, r, ri, si, out))
 
-    # K2: Swin windows (shift patterns per window at stages 1-3), BERT rows
+    # K2: Swin windows (shift patterns per window at stages 1-3), BERT rows;
+    # library: SDPA with the bias expanded to a bf16 float mask
     for G, N, C, nH, P, padded in [(512, 49, 96, 3, 64, False),
                                    (32, 49, 384, 12, 4, False),
                                    (8, 49, 768, 24, 1, False),
@@ -157,71 +319,259 @@ def kernel_checks(chk: Checker, dev) -> None:
         pat = rnd(P, nH, N, N, dtype=torch.float32) if P else None
         kb = None
         if padded:
-            kb = torch.where(torch.rand(G, N, generator=gen) < 0.2,
+            kb = torch.where(torch.rand(G, N, generator=inp.gen) < 0.2,
                              -10000.0, 0.0).to(dev)
+        mask = (pat.to(bf)[torch.arange(G, device=dev) % P] if P
+                else kb.to(bf)[:, None, None, :])
         sc = (C // nH) ** -0.5
+        ctx = torch.empty(G * N, C, dtype=bf, device=dev)
         chk.case("biased_attention",
                  lambda: K.biased_attention(qkv, nH, N, sc, pat, kb),
                  lambda: K.biased_attention_plain(qkv, nH, N, sc, pat, kb),
-                 KERNEL_BAR)
+                 KERNEL_BAR,
+                 library_fn=lambda: lib_attention(qkv, G, N, nH, mask, sc),
+                 flops=4.0 * G * nH * N * N * (C // nH),
+                 nbytes=nbytes(qkv, pat, kb, ctx))
 
-    # K3: stage-1 LN1 with the shift gather, stage-3 merge norm, BERT LN
+    # K3: stage-1 LN1 with the shift gather, stage-3 merge norm, BERT LN;
+    # library: F.layer_norm (bf16 gamma / beta), without the gather
     for M, C, idx, eps in [(25088, 96, True, 1e-5), (392, 1536, False, 1e-5),
                            (592, 768, False, 1e-12)]:
         x = rnd(M, C, std=2.0) + 0.5
         g, b = ln(C)
+        gb, bb = bf16_ln(g, b)
         ri = perm(M) if idx else None
         chk.case("layernorm", lambda: K.layernorm(x, g, b, eps, ri),
-                 lambda: K.layernorm_plain(x, g, b, eps, ri), KERNEL_BAR)
+                 lambda: K.layernorm_plain(x, g, b, eps, ri), KERNEL_BAR,
+                 library_fn=lambda: F.layer_norm(x, (C,), gb, bb, eps),
+                 flops=8.0 * M * C, nbytes=nbytes(x, g, b, ri, x))
 
     # the six counterparts at stages 1-3 / stage 4 / BERT, batch 8
     for res, C, nH in [(56, 96, 3), (28, 192, 6), (14, 384, 12)]:
         N, nW = 49, (res // 7) ** 2
-        x = rnd(8 * nW, N, C)
+        BW = 8 * nW
+        x = rnd(BW, N, C)
         params = (*ln(C), *dense(C, 3 * C), *dense(C, C), *ln(C),
                   *dense(C, 4 * C), *dense(4 * C, C))
+        lparams = (*bf16_ln(*params[0:2]), *params[2:6],
+                   *bf16_ln(*params[6:8]), *params[8:])
         rel = rnd(1, nH, N, N, dtype=torch.float32)
         mask = torch.as_tensor(shifted_window_mask(res, res, 7, 3), device=dev)
         shifted = (rel + mask[:, None]).contiguous()
         sc = (C // nH) ** -0.5
+        cost = dict(flops=2.0 * BW * N * C * 12 * C
+                    + 4.0 * BW * nH * N * N * (C // nH),
+                    nbytes=nbytes(x, *params, x))
         chk.case("swin_full_block",
                  lambda: blocks.swin_full_block(x, params, rel, sc, nH),
                  lambda: blocks.swin_full_block_plain(x, params, rel, sc, nH),
-                 BLOCK_BAR)
+                 BLOCK_BAR,
+                 library_fn=lambda: lib_swin_block(x, lparams, rel.to(bf), sc,
+                                                   nH),
+                 nbytes=cost["nbytes"] + nbytes(rel), flops=cost["flops"])
         spec = (res, res, 7, 3)
+        gather = blocks._shift_index(8, res, res, 7, 3, dev).long()
+        scatter = torch.argsort(gather)
+        smask = shifted.to(bf)[torch.arange(BW, device=dev) % nW]
         chk.case("swin_full_block_shift",
                  lambda: blocks.swin_full_block(x, params, shifted, sc, nH,
                                                 shift_spec=spec),
                  lambda: blocks.swin_full_block_plain(x, params, shifted, sc,
                                                       nH, shift_spec=spec),
-                 BLOCK_BAR)
+                 BLOCK_BAR,
+                 library_fn=lambda: lib_swin_block(x, lparams, smask, sc, nH,
+                                                   gather, scatter),
+                 nbytes=cost["nbytes"] + nbytes(shifted, gather),
+                 flops=cost["flops"])
 
     C, nH = 768, 24
     x, h = rnd(8, 49, C), rnd(8, 49, C)
     (wq, bq), (wp, bp) = dense(C, 3 * C), dense(C, C)
     rel = rnd(1, nH, 49, 49, dtype=torch.float32)
     sc = (C // nH) ** -0.5
+
+    def lib_window(h, x):
+        rows = h.reshape(-1, C)
+        ctx = lib_attention(F.linear(rows, wq, bq), 8, 49, nH, rel.to(bf), sc)
+        return (F.linear(ctx, wp, bp) + x.reshape(-1, C)).view(8, 49, C)
+
     chk.case("window_block_attention",
              lambda: blocks.window_block_attention(h, wq, bq, wp, bp, rel, sc,
                                                    nH, residual=x),
              lambda: blocks.window_block_attention_plain(
-                 h, wq, bq, wp, bp, rel, sc, nH, residual=x), BLOCK_BAR)
+                 h, wq, bq, wp, bp, rel, sc, nH, residual=x), BLOCK_BAR,
+             library_fn=lambda: lib_window(h, x),
+             flops=2.0 * 392 * C * 4 * C + 4.0 * 8 * nH * 49 * 49 * (C // nH),
+             nbytes=nbytes(h, x, wq, bq, wp, bp, rel, x))
     mlp = (*ln(C), *dense(C, 4 * C), *dense(4 * C, C))
+    lmlp = (*bf16_ln(*mlp[:2]), *mlp[2:])
+
+    def lib_preln(x, lns, lnb, w1, b1, w2, b2):
+        rows = x.reshape(-1, C)
+        hh = F.layer_norm(rows, (C,), lns, lnb, 1e-5)
+        return (F.linear(F.gelu(F.linear(hh, w1, b1)), w2, b2) + rows).view(
+            x.shape)
+
     chk.case("fused_mlp_preln", lambda: blocks.fused_mlp_preln(x, *mlp),
-             lambda: blocks.fused_mlp_preln_plain(x, *mlp), BLOCK_BAR)
+             lambda: blocks.fused_mlp_preln_plain(x, *mlp), BLOCK_BAR,
+             library_fn=lambda: lib_preln(x, *lmlp),
+             flops=2.0 * 392 * C * 8 * C, nbytes=nbytes(x, *mlp, x))
 
     C, nH, S = 768, 12, 74
     x = rnd(8, S, C)
-    lengths = torch.tensor([74, 70, 60, 55, 74, 53, 66, 58])
-    kb = torch.where(torch.arange(S)[None] < lengths[:, None], 0.0,
-                     -10000.0).to(dev)
+    kb = inp.key_bias([74, 70, 60, 55, 74, 53, 66, 58], S)
     attn = (*dense(C, 3 * C), *dense(C, C), kb, *ln(C), (C // nH) ** -0.5,
             nH, 1e-12)
+    lattn = (*attn[:4], kb.to(bf)[:, None, None, :], *bf16_ln(*attn[5:7]),
+             *attn[7:9])
     chk.case("fused_attn_ln", lambda: blocks.fused_attn_ln(x, *attn),
-             lambda: blocks.fused_attn_ln_plain(x, *attn), BLOCK_BAR)
+             lambda: blocks.fused_attn_ln_plain(x, *attn), BLOCK_BAR,
+             library_fn=lambda: lib_attn_ln(x, *lattn),
+             flops=2.0 * 8 * S * C * 4 * C + 4.0 * 8 * nH * S * S * (C // nH),
+             nbytes=nbytes(x, *attn[:7], x))
     bert_mlp = (*dense(C, 4 * C), *dense(4 * C, C), *ln(C), 1e-12)
+    lbert = (*bert_mlp[:4], *bf16_ln(*bert_mlp[4:6]))
     chk.case("fused_mlp_ln", lambda: blocks.fused_mlp_ln(x, *bert_mlp),
-             lambda: blocks.fused_mlp_ln_plain(x, *bert_mlp), BLOCK_BAR)
+             lambda: blocks.fused_mlp_ln_plain(x, *bert_mlp), BLOCK_BAR,
+             library_fn=lambda: lib_mlp_ln(x, *lbert),
+             flops=2.0 * 8 * S * C * 8 * C, nbytes=nbytes(x, *bert_mlp[:6], x))
+
+
+def train_kernel_checks(chk: Checker, dev) -> None:
+    """K1's backward modes, K4, K5 and the two backward counterparts at the
+    VQA train step's shapes: B*S = 32*74 = 2368 rows, C 768, I 3072, 12
+    heads, a padded key bias."""
+    from mvlt_tpu_torch.ops import blocks
+    from mvlt_tpu_torch.ops import kernels as K
+
+    inp = Inputs(dev, seed=1)
+    rnd, dense, ln = inp.rnd, inp.dense, inp.ln
+    bf, f32 = torch.bfloat16, torch.float32
+    B, S, C, I, nH = TRAIN_BATCH, 74, 768, 3072, 12
+    M = B * S
+    x, dy = rnd(M, C), rnd(M, C, std=0.1)
+    (w1, b1), (w2, b2) = dense(C, I), dense(I, C)
+    a1 = rnd(M, I, dtype=f32)
+    m = rnd(M, I)
+    dres = rnd(M, C, std=0.1, dtype=f32)
+    dI = rnd(M, I, std=0.1)
+    dqkv = rnd(M, 3 * C, std=0.1)
+
+    def out(*shape, dtype=bf):
+        return torch.empty(*shape, dtype=dtype, device=dev)
+
+    # K1 backward modes (bar relative to max|plain| per output, floor 1)
+    cases = [
+        # fc1 recompute: GELU out + the saved f32 pre-activation
+        (dict(a=x, w=w1, b=b1, gelu=True, save_preact=True),
+         lambda: F.linear(x, w1, b1), (M, C, I), (x, w1, b1, out(M, I),
+                                                  out(M, I, dtype=f32))),
+        # dctx = da @ Wproj (nn)
+        (dict(a=dy, w=w2[:, :C].contiguous(), layout="nn"), None, (M, C, C),
+         None),
+        # da1 = dmlp @ W2 * gelu'(a1) (nn, GELU' epilogue)
+        (dict(a=dy, w=w2, layout="nn", gelu_grad=a1),
+         lambda: torch.matmul(dy, w2), (M, C, I), (dy, w2, a1, out(M, I))),
+        # dx = da1 @ W1 + dres (nn, f32 residual, f32 out)
+        (dict(a=dI, w=w1, layout="nn", residual=dres, out_dtype=f32),
+         lambda: torch.matmul(dI, w1), (M, I, C),
+         (dI, w1, dres, out(M, C, dtype=f32))),
+        # dW2 = dmlp^T m (tn, f32 out)
+        (dict(a=dy, w=m, layout="tn", out_dtype=f32),
+         lambda: torch.matmul(dy.t(), m), (C, M, I),
+         (dy, m, out(C, I, dtype=f32))),
+        # dW1 = da1^T x (tn, f32 out)
+        (dict(a=dI, w=x, layout="tn", out_dtype=f32),
+         lambda: torch.matmul(dI.t(), x), (I, M, C),
+         (dI, x, out(I, C, dtype=f32))),
+        # dWqkv = dqkv^T x (tn, f32 out)
+        (dict(a=dqkv, w=x, layout="tn", out_dtype=f32),
+         lambda: torch.matmul(dqkv.t(), x), (3 * C, M, C),
+         (dqkv, x, out(3 * C, C, dtype=f32))),
+    ]
+    for kw, lib, (mm, kk, nn_), io in cases:
+        kw = dict(kw)
+        a, w, b = kw.pop("a"), kw.pop("w"), kw.pop("b", None)
+        if lib is None:                      # dctx: (M, C) @ (C, C)
+            lib = lambda a=a, w=w: torch.matmul(a, w)  # noqa: E731
+            io = (a, w, out(mm, nn_))
+        chk.case("gemm", lambda a=a, w=w, b=b, kw=kw: K.gemm(a, w, b, **kw),
+                 lambda a=a, w=w, b=b, kw=kw: K.gemm_plain(a, w, b, **kw),
+                 KERNEL_BAR, library_fn=lib, flops=2.0 * mm * kk * nn_,
+                 nbytes=nbytes(*io))
+
+    # K4 and its counterpart: the attention core VJP at S = 74, 12 heads
+    lengths = [74 - (7 * i) % 30 for i in range(B)]
+    kb = inp.key_bias(lengths, S)
+    qkv = rnd(M, 3 * C, std=0.5)
+    dctx = rnd(M, C)
+    sc = (C // nH) ** -0.5
+    Dh = C // nH
+    t = qkv.view(B, S, 3, nH, Dh).permute(2, 0, 3, 1, 4)
+    lib_k4 = library_backward(
+        lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=kb.to(bf)[:, None, None, :], scale=sc),
+        (t[0].contiguous(), t[1].contiguous(), t[2].contiguous()),
+        dctx.view(B, S, nH, Dh).permute(0, 2, 1, 3).contiguous())
+    k4_cost = dict(flops=10.0 * B * nH * S * S * Dh,
+                   nbytes=nbytes(qkv, dctx, kb, qkv, kb))
+    chk.case("biased_attention_bwd",
+             lambda: K.biased_attention_bwd(qkv, dctx, nH, S, sc, kb),
+             lambda: K.biased_attention_bwd_plain(qkv, dctx, nH, S, sc, kb),
+             KERNEL_BAR, library_fn=lib_k4, floor=1e-6, **k4_cost)
+    q3, d3 = qkv.view(B, S, 3 * C), dctx.view(B, S, C)
+    chk.case("seq_attention_core_bwd",
+             lambda: blocks.seq_attention_core_bwd(q3, d3, kb, None, None, sc,
+                                                   nH),
+             lambda: blocks.seq_attention_core_bwd_plain(q3, d3, kb, None,
+                                                         None, sc, nH),
+             KERNEL_BAR, library_fn=lib_k4, floor=1e-6, **k4_cost)
+
+    # K5: LN VJP from the f32 pre-LN sum; the column sum over (M, I)
+    res = rnd(M, C, std=2.0, dtype=f32) + 0.3
+    lns, lnb = ln(C)
+    g = rnd(M, C)
+
+    def lib_ln_bwd_forward(r, s, b):
+        return F.layer_norm(r, (C,), s, b, 1e-12)
+
+    ln_grads = library_backward(lib_ln_bwd_forward, (res, lns, lnb), g.float())
+
+    def lib_k5():
+        dr, ds, db = ln_grads()
+        return dr, dr.sum(0)
+
+    chk.case("layernorm_bwd", lambda: K.layernorm_bwd(res, lns, g, 1e-12),
+             lambda: K.layernorm_bwd_plain(res, lns, g, 1e-12), KERNEL_BAR,
+             library_fn=lib_k5, floor=1e-6, flops=12.0 * M * C,
+             nbytes=nbytes(res, lns, g, res, g) + 12 * C)
+    chk.case("column_sum", lambda: K.column_sum(dI),
+             lambda: K.column_sum_plain(dI), KERNEL_BAR, floor=1e-6,
+             library_fn=lambda: torch.sum(dI, 0, dtype=f32),
+             flops=1.0 * M * I, nbytes=nbytes(dI) + 4 * I)
+
+    # the MLP-half VJP at the train shapes; library: the autograd backward
+    # of the same forward built from F.linear / F.gelu / F.layer_norm in bf16
+    xr = rnd(M, C)
+    w1m, b1m = dense(C, I)
+    w2m, b2m = dense(I, C)
+    with torch.no_grad():
+        mm_ = F.gelu(F.linear(xr.float(), w1m.float(), b1m.float()))
+        res2 = (F.linear(mm_.to(bf).float(), w2m.float(), b2m.float())
+                + xr.float()).contiguous()
+    lib_mlp = library_backward(
+        lambda xx, a, b, c, d: lib_mlp_ln(xx, a, b, c, d, lns.to(bf),
+                                          lnb.to(bf)),
+        (xr, w1m, b1m, w2m, b2m), g)
+    chk.case("mlp_ln_half_bwd",
+             lambda: blocks.mlp_ln_half_bwd(xr, res2, g, None, w1m, b1m, w2m,
+                                            lns),
+             lambda: blocks.mlp_ln_half_bwd_plain(xr, res2, g, None, w1m, b1m,
+                                                  w2m, lns),
+             BLOCK_BAR, library_fn=lib_mlp, floor=1e-6,
+             flops=5 * 2.0 * M * C * I,
+             nbytes=nbytes(xr, res2, g, w1m, b1m, w2m, lns) + 4 * (
+                 M * C + 2 * C * I + I + 3 * C))
 
 
 def launch_counts() -> dict:
@@ -265,8 +615,38 @@ def main() -> int:
 
     chk = Checker()
     kernel_checks(chk, dev)
+    train_kernel_checks(chk, dev)
+    by_path = {"vqa_forward": forward_phase(dev, card),
+               "vqa_train_step": train_phase(dev, card)}
 
+    def launches(name):
+        return {path: c.get(name, 0) for path, c in by_path.items()}
+
+    rows = []
+    counterparts = {**EXPECTED, **EXPECTED_TRAIN}
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces})
+    for name, (_, replaces) in counterparts.items():
+        rows.append({"name": name, "route": "cuda",
+                     "source": "mvlt_tpu_torch/ops/blocks.py",
+                     "replaces": replaces})
+    for row in rows:
+        per_path = launches(row["name"])
+        row.update(launches=sum(per_path.values()),
+                   launches_by_path=per_path, **chk.row(row["name"]))
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def forward_phase(dev, card: str) -> dict:
+    """The flagship b8 VQA forward: launch counts, logits vs plain, times.
+    Returns the launch counts of one forward."""
     from mvlt_tpu_torch.flagship import build_vqa_forward
+    from mvlt_tpu_torch.ops import kernels
     t0 = time.perf_counter()
     forward, (image, question) = build_vqa_forward(batch=8, device=dev)
     print(f"flagship model built in {time.perf_counter() - t0:.1f} s; "
@@ -280,7 +660,7 @@ def main() -> int:
         if counts[name] != want:
             raise AssertionError(f"{name} ran {counts[name]} times in one "
                                  f"forward, expected {want}")
-    for k in kernels.KERNELS:
+    for k in kernels.FORWARD_KERNELS:
         if counts[k.__name__] <= 0:
             raise AssertionError(f"kernel {k.__name__} never launched")
 
@@ -309,22 +689,111 @@ def main() -> int:
           f"({8e3 / ms_k:.1f} samples/s), plain {ms_p:.3f} ms "
           f"({8e3 / ms_p:.1f} samples/s); runs {json.dumps(times)}",
           flush=True)
+    del forward
+    return counts
 
-    rows = []
-    for name, (source, replaces) in KERNEL_SOURCES.items():
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": counts[name],
-                     **chk.rows[name]})
-    for name, (_, replaces) in EXPECTED.items():
-        rows.append({"name": name, "route": "cuda",
-                     "source": "mvlt_tpu_torch/ops/blocks.py",
-                     "replaces": replaces, "launches": counts[name],
-                     **chk.rows[name]})
-    print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+
+def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
+    """The VQA finetune train step (ResNet-101 + BERT-base, b32) on the
+    kernels and on the plain versions from one seed: launch counts of one
+    step, step-1 gradients and the losses of TRAIN_STEPS steps against the
+    plain run, then step times in turns. Returns the launch counts of one
+    step."""
+    from mvlt_tpu_torch.flagship import build_vqa_train_step
+    from mvlt_tpu_torch.ops import kernels
+    B = TRAIN_BATCH
+    t0 = time.perf_counter()
+    step_k, batch = build_vqa_train_step(batch=B, device=dev)
+    step_p, batch_p = build_vqa_train_step(batch=B, device=dev, plain=True)
+    n_params = sum(p.numel() for p in step_k.model.parameters())
+    print(f"train step built twice in {time.perf_counter() - t0:.1f} s: "
+          f"{n_params} parameters, image {tuple(batch['image'].shape)}, "
+          f"question {tuple(batch['question'].shape)}", flush=True)
+
+    reset_counts()
+    out_k = step_k(batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"launches in one train step: {json.dumps(counts)}", flush=True)
+    for name, (want, _) in EXPECTED_TRAIN.items():
+        if counts[name] != want:
+            raise AssertionError(f"{name} ran {counts[name]} times in one "
+                                 f"train step, expected {want}")
+    for k in kernels.KERNELS:
+        if counts[k.__name__] <= 0:
+            raise AssertionError(f"kernel {k.__name__} never launched in the "
+                                 "train step")
+    out_p = step_p(batch_p)
+    torch.cuda.synchronize()
+
+    stats, failures = [], []
+    for (name, pk), (_, pp) in zip(step_k.model.named_parameters(),
+                                   step_p.model.named_parameters()):
+        gk, gp = pk.grad, pp.grad
+        if gk is None or gp is None or not torch.isfinite(gk).all():
+            raise AssertionError(f"gradient of {name} missing or non-finite")
+        diff = (gk - gp).float()
+        scale = gp.abs().max().item()
+        rel = diff.abs().max().item() / scale if scale > 0 else 0.0
+        norm = gp.float().norm().item()
+        frob = diff.norm().item() / norm if norm > 0 else 0.0
+        backbone = name.startswith("conv.backbone.")
+        stats.append((rel, frob, name))
+        if (frob if backbone else rel) > (BACKBONE_GRAD_BAR if backbone
+                                          else GRAD_BAR):
+            failures.append((name, rel, frob))
+    head = [s_ for s_ in stats if not s_[2].startswith("conv.backbone.")]
+    back = [s_ for s_ in stats if s_[2].startswith("conv.backbone.")]
+    w_head, w_back = max(head), max(back, key=lambda s_: s_[1])
+    print(f"step-1 gradients, kernels vs plain, {len(stats)} tensors: fusion "
+          f"/ heads / resnet_fc worst {w_head[2]} max abs err "
+          f"{w_head[0]:.4g} x max|plain grad| (bar {GRAD_BAR}); backbone "
+          f"worst {w_back[2]} relative Frobenius {w_back[1]:.4g} (bar "
+          f"{BACKBONE_GRAD_BAR}); largest max-abs ratios "
+          f"{[(n, round(r, 4)) for r, _, n in sorted(stats)[-4:]]}",
+          flush=True)
+    if failures:
+        raise AssertionError(f"{len(failures)} gradients beyond the bar: "
+                             f"{failures[:5]}")
+
+    losses = {"kernels": [out_k["loss"].item()],
+              "plain": [out_p["loss"].item()]}
+    acc = [out_k["accuracy"].item()]
+    for _ in range(TRAIN_STEPS - 1):
+        losses["kernels"].append(step_k(batch)["loss"].item())
+        losses["plain"].append(step_p(batch_p)["loss"].item())
+    print(f"losses of {TRAIN_STEPS} steps: {json.dumps(losses)}; step-1 "
+          f"accuracy {acc[0]:.4f}", flush=True)
+    for i, (lk, lp) in enumerate(zip(losses["kernels"], losses["plain"])):
+        if not (abs(lk - lp) <= LOSS_BAR * abs(lp) and lk == lk):
+            raise AssertionError(f"step {i + 1} loss {lk} vs plain {lp} "
+                                 f"beyond {LOSS_BAR} relative")
+
+    times, peak, resident = {"kernels": [], "plain": []}, None, None
+    for which in ("plain", "kernels", "kernels", "plain"):
+        step, b = (step_k, batch) if which == "kernels" else (step_p, batch_p)
+        step(b)
+        torch.cuda.synchronize()
+        measure = which == "kernels" and peak is None
+        if measure:
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            step(b)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3 / timed_steps)
+        if measure:
+            peak = torch.cuda.max_memory_allocated()
+    ms_k = sum(times["kernels"]) / 2
+    ms_p = sum(times["plain"]) / 2
+    print(f"VQA train step b{B} on {card}: kernels {ms_k:.3f} ms/step "
+          f"({B * 1e3 / ms_k:.1f} samples/s), plain {ms_p:.3f} ms/step "
+          f"({B * 1e3 / ms_p:.1f} samples/s); runs {json.dumps(times)}; "
+          f"peak memory in a kernel step {peak / 2 ** 30:.3f} GiB "
+          f"(with {resident / 2 ** 30:.3f} GiB resident, both models)",
+          flush=True)
+    return counts
 
 
 if __name__ == "__main__":

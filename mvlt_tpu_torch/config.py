@@ -1,0 +1,180 @@
+"""Configuration tree of the port: its own copy of the dataclasses and
+constructors of ``mvlt_tpu/config.py`` that it uses, with the same field
+names and defaults, so one config describes a model in both packages
+(``dataclasses.asdict`` of the two agree; ``tests/test_torch_train.py``).
+
+Defaults mirror the reference (``modules/config.py:4-72``) and its Swin
+YAMLs, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class FusionConfig:
+    """BERT-base fusion encoder (reference ``modules/model.py:16-33``). The
+    word-embedding table has ``vocab_size + 1`` rows (``model.py:21``)."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    hidden_act: str = "gelu"  # exact (erf) GELU
+    hidden_dropout_prob: float = 0.0
+    attention_probs_dropout_prob: float = 0.0
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 3
+    initializer_range: float = 0.02
+    layer_norm_eps: float = 1e-12
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def embedding_rows(self) -> int:
+        return self.vocab_size + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinConfig:
+    """Swin transformer backbone (reference Swin YAMLs)."""
+
+    img_size: int = 224
+    patch_size: int = 4
+    in_chans: int = 3
+    embed_dim: int = 96
+    depths: Tuple[int, ...] = (2, 2, 18, 2)
+    num_heads: Tuple[int, ...] = (3, 6, 12, 24)
+    window_size: int = 7
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    qk_scale: Optional[float] = None
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.3
+    ape: bool = False
+    patch_norm: bool = True
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.depths)
+
+    @property
+    def num_features(self) -> int:
+        return int(self.embed_dim * 2 ** (self.num_layers - 1))
+
+    @property
+    def patches_resolution(self) -> Tuple[int, int]:
+        return (self.img_size // self.patch_size,
+                self.img_size // self.patch_size)
+
+
+def swin_small() -> SwinConfig:
+    """Swin-S (reference ``swin_small_patch4_window7_224.yaml``)."""
+    return SwinConfig(embed_dim=96, depths=(2, 2, 18, 2),
+                      num_heads=(3, 6, 12, 24), drop_path_rate=0.3)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNetConfig:
+    """Bottleneck ResNet (torchvision layout; reference
+    ``modules/visual_feature_extractor.py:7-44``)."""
+
+    layers: Tuple[int, ...] = (3, 4, 23, 3)  # resnet101
+    width: int = 64
+
+    @property
+    def out_channels(self) -> int:
+        return 512 * 4
+
+    @property
+    def feature_channels(self) -> int:
+        """Channels of the last stage's map: ``out_channels`` for the four
+        stages of ResNet-50/101, fewer for a shallower test config."""
+        return self.width * 2 ** (len(self.layers) - 1) * 4
+
+
+def resnet101() -> ResNetConfig:
+    return ResNetConfig(layers=(3, 4, 23, 3))
+
+
+def resnet50() -> ResNetConfig:
+    return ResNetConfig(layers=(3, 4, 6, 3))
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    """ViT-B/16 (reference ``modules/visual_feature_extractor.py:65-107``);
+    kept so the config tree matches, the backbone is not ported yet."""
+
+    image_size: int = 224
+    patch_size: int = 16
+    num_layers: int = 12
+    num_heads: int = 12
+    hidden_dim: int = 768
+    mlp_dim: int = 3072
+    dropout: float = 0.0
+    attention_dropout: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MVLTConfig:
+    """Top-level model config shared by the task heads (reference
+    ``MVLBertConfig``, ``modules/config.py:4-27``)."""
+
+    fusion: FusionConfig = dataclasses.field(default_factory=FusionConfig)
+    # backbone: 'swin' | 'resnet101' | 'resnet50' | 'vit' | 'linear'
+    conv: str = "swin"
+    swin: SwinConfig = dataclasses.field(default_factory=swin_small)
+    resnet: ResNetConfig = dataclasses.field(default_factory=resnet101)
+    vit: ViTConfig = dataclasses.field(default_factory=ViTConfig)
+
+    mlm_task: bool = True
+    itm_task: bool = True
+    result_num: int = 224
+    max_length: int = 40
+    is_decoder: bool = False
+    mlm_gather_k: int = 16
+
+    remat_backbone: bool = False
+    remat_fusion: bool = False
+
+    pad_token_id: int = 0
+    eos_token_id: int = 104     # [END]
+    cls_token_id: int = 101     # [CLS]
+    sep_token_id: int = 102     # [SEP]
+    mask_token_id: int = 103    # [MASK]
+
+    # AdamW of the reference loops (run_vqa.py:85)
+    lr: float = 4e-5
+    weight_decay: float = 1e-4
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    adam_eps: float = 1e-6
+    adam_mu_dtype: str = "float32"
+
+    def __post_init__(self):
+        # every special token is looked up in the word-embedding table
+        vocab = self.fusion.vocab_size
+        for name in ("pad_token_id", "eos_token_id", "cls_token_id",
+                     "sep_token_id", "mask_token_id"):
+            tid = getattr(self, name)
+            if not 0 <= tid < vocab:
+                raise ValueError(
+                    f"{name}={tid} is outside the word-embedding vocab "
+                    f"(vocab_size={vocab}); pass in-vocab special ids "
+                    f"when shrinking the vocab.")
+
+    @staticmethod
+    def for_vqa(**kw) -> "MVLTConfig":
+        base = dict(
+            fusion=FusionConfig(hidden_dropout_prob=0.1,
+                                attention_probs_dropout_prob=0.1),
+            result_num=224, lr=4e-5)
+        base.update(kw)
+        return MVLTConfig(**base)

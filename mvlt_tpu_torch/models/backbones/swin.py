@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from mvlt_tpu.config import SwinConfig
+from mvlt_tpu_torch.config import SwinConfig
 from mvlt_tpu_torch.ops.layers import SWIN_LN_EPS, Dense, LayerNorm, Mlp
 
 

@@ -7,6 +7,12 @@ reference, the word-embedding table has ``vocab_size + 1`` rows and the
 embeddings enter the encoder with no LayerNorm (fusion.py:8-14, 331-343).
 Each post-LN BERT layer runs ``fused_attn_ln`` then ``fused_mlp_ln``, with
 q / k / v held as one fused (3H, H) dense (fusion.py:122-126).
+
+Dense weights and embeddings are cast to the compute dtype at every use (as
+the JAX layers do with ``.astype(cdt)``), so a model whose parameters are
+float32 masters trains in bf16: the counterparts run as autograd Functions
+whenever a gradient is needed, and their weight grads return through the
+cast to the f32 masters. LayerNorm parameters stay f32.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mvlt_tpu.config import FusionConfig
+from mvlt_tpu_torch.config import FusionConfig
 from mvlt_tpu_torch.ops import masks
 from mvlt_tpu_torch.ops.layers import Dense, LayerNorm
 
@@ -36,14 +42,17 @@ class EncoderLayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, kbias: torch.Tensor,
                 ops) -> torch.Tensor:
-        h = ops.fused_attn_ln(hidden, self.qkv.weight, self.qkv.bias,
-                              self.out.weight, self.out.bias, kbias,
+        dt = hidden.dtype
+
+        def w(dense):
+            return dense.weight.to(dt), dense.bias.to(dt)
+
+        h = ops.fused_attn_ln(hidden, *w(self.qkv), *w(self.out), kbias,
                               self.out_layernorm.weight,
                               self.out_layernorm.bias, self.scale,
                               self.num_heads, self.eps)
-        return ops.fused_mlp_ln(h, self.intermediate.weight,
-                                self.intermediate.bias, self.output.weight,
-                                self.output.bias, self.output_layernorm.weight,
+        return ops.fused_mlp_ln(h, *w(self.intermediate), *w(self.output),
+                                self.output_layernorm.weight,
                                 self.output_layernorm.bias, self.eps)
 
 
@@ -53,9 +62,10 @@ class FusionEncoder(nn.Module):
 
     def __init__(self, cfg: FusionConfig, *, add_pooling_layer: bool,
                  cls_token_id: int, sep_token_id: int, dtype: torch.dtype,
-                 device):
+                 device, compute_dtype=None):
         super().__init__()
         H = cfg.hidden_size
+        self.compute_dtype = compute_dtype or dtype
         self.cls_token_id, self.sep_token_id = cls_token_id, sep_token_id
 
         def table(rows):
@@ -74,15 +84,16 @@ class FusionEncoder(nn.Module):
         B, num_obj = image_feature.shape[:2]
         obj_end = num_obj + 1                            # index of [SEP]
         total = num_obj + text_idx.shape[1] + 2
+        dt = self.compute_dtype
         word = self.word_embeddings
-        cls = word[self.cls_token_id].expand(B, 1, -1)
-        sep = word[self.sep_token_id].expand(B, 1, -1)
-        vl = torch.cat([cls, image_feature.to(word.dtype), sep,
-                        word[text_idx.long()]], dim=1)
+        cls = word[self.cls_token_id].to(dt).expand(B, 1, -1)
+        sep = word[self.sep_token_id].to(dt).expand(B, 1, -1)
+        vl = torch.cat([cls, image_feature.to(dt), sep,
+                        word[text_idx.long()].to(dt)], dim=1)
         pos = torch.arange(total, device=vl.device)
         token_type = (pos <= obj_end).long()
-        hidden = (vl + self.token_type_embeddings[token_type][None]
-                  + self.position_embeddings[pos][None])
+        hidden = (vl + self.token_type_embeddings[token_type].to(dt)[None]
+                  + self.position_embeddings[pos].to(dt)[None])
 
         mask = masks.bidirectional_key_mask(image_mask, text_mask)
         kbias = masks.mask_to_bias(mask)                          # (B, S)

@@ -1,12 +1,13 @@
-"""The six TPU kernels of the VQA forward, rebuilt from K1-K3.
+"""The TPU kernels of the VQA forward and of the fusion encoder's training
+step, rebuilt from K1-K5.
 
 Each public function is named after its JAX counterpart in
 ``mvlt_tpu/ops/pallas_attn.py`` and takes the same arguments, with dense
 weights in the PyTorch ``(out, in)`` layout. It is composed only of the
-kernels of :mod:`mvlt_tpu_torch.ops.kernels` (``gemm``, ``biased_attention``,
-``layernorm``) and pure layout ops (reshape, row index). Beside each is its
-``*_plain`` twin, the same composition over the kernels' plain versions, and
-each kernel twin counts its CUDA calls in ``.launches``.
+kernels of :mod:`mvlt_tpu_torch.ops.kernels` and pure layout ops (reshape,
+row index). Beside each is its ``*_plain`` twin, the same composition over
+the kernels' plain versions, and each kernel twin counts its CUDA calls in
+``.launches``.
 
 ===========================  ==========================================
 port function                TPU kernel it replaces
@@ -17,7 +18,24 @@ port function                TPU kernel it replaces
 ``fused_mlp_preln``          ``_mlp_preln_kernel`` (:3359)
 ``fused_attn_ln``            ``_attn_ln_kernel`` (:2156)
 ``fused_mlp_ln``             ``_mlp_ln_kernel`` (:2817)
+``seq_attention_core_bwd``   ``_seq_core_bwd_kernel`` (:2413), on K4
+``mlp_ln_half_bwd``          ``_mlp_ln_bwd_kernel`` (:2931), on K1 + K5
 ===========================  ==========================================
+
+Training. When an input of ``fused_attn_ln`` or ``fused_mlp_ln`` requires
+grad, it runs as a ``torch.autograd.Function`` (the counterpart of the JAX
+``custom_vjp``). Its forward is the same composition with the pre-LN sum
+written in f32 by K1 and saved, as the store-residual forwards save it
+(``_attn_ln_fwd`` :2403, ``_mlp_ln_fwd`` :2925); the attention half also
+saves qkv and ctx, and takes its pre-LN sum from that save instead of
+JAX's recompute from ctx (the same value up to summation order). The
+backwards follow ``_attn_ln_bwd_stored``'s bf16 branch (:2653-2672) and
+``mlp_ln_half_bwd``: the LN VJP on K5, the products on K1 (``tn`` for the
+weight grads, ``nn`` for the input grads, the GELU derivative in the
+epilogue of dm), the attention core on K4. Weight grads come back in the
+dtype of the weight that went in, as ``.astype(w.dtype)`` does in JAX. One
+bf16 rounding differs: db1 is the column sum of the bf16 da1 that feeds the
+next two products, where the TPU kernel sums its f32 da1.
 
 They hold the math of the JAX interpret path (``fast=False``), not the TPU
 fast path. The TPU layout choices are dropped: windows are not merged into
@@ -47,6 +65,12 @@ KERNEL_OPS = SimpleNamespace(gemm=kernels.gemm,
 PLAIN_OPS = SimpleNamespace(gemm=kernels.gemm_plain,
                             attention=kernels.biased_attention_plain,
                             layernorm=kernels.layernorm_plain)
+KERNEL_OPS.attention_bwd = kernels.biased_attention_bwd
+KERNEL_OPS.layernorm_bwd = kernels.layernorm_bwd
+KERNEL_OPS.column_sum = kernels.column_sum
+PLAIN_OPS.attention_bwd = kernels.biased_attention_bwd_plain
+PLAIN_OPS.layernorm_bwd = kernels.layernorm_bwd_plain
+PLAIN_OPS.column_sum = kernels.column_sum_plain
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,8 +142,86 @@ def _fused_mlp_preln(p, x, ln2s, ln2b, w1, b1, w2, b2):
     return p.gemm(m, w2, b2, residual=rows).view(x.shape)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def _cast(t, like):
+    return None if t is None else t.to(like.dtype)
+
+
+class _AttnLN(torch.autograd.Function):
+    """``fused_attn_ln`` with its store-residual backward."""
+
+    @staticmethod
+    def forward(ctx, p, x, wqkv, bqkv, wproj, bproj, kbias, lns, lnb,
+                scale, num_heads, eps):
+        B, N, C = x.shape
+        rows = x.reshape(B * N, C).contiguous()
+        qkv = p.gemm(rows, wqkv, bqkv)
+        attn = p.attention(qkv, num_heads, N, scale, key_bias=kbias)
+        res = p.gemm(attn, wproj, bproj, residual=rows,
+                     out_dtype=torch.float32)
+        out = p.layernorm(res, lns, lnb, eps, out_dtype=x.dtype)
+        ctx.save_for_backward(rows, wqkv, bqkv, wproj, bproj, kbias, lns,
+                              qkv, attn, res)
+        ctx.p, ctx.dims = p, (B, N, C, scale, num_heads, eps)
+        return out.view(B, N, C)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, (B, N, C, scale, num_heads, eps) = ctx.p, ctx.dims
+        rows, wqkv, bqkv, wproj, bproj, kbias, lns, qkv, attn, res = \
+            ctx.saved_tensors
+        f32 = torch.float32
+        g2 = g.reshape(B * N, C).to(rows.dtype).contiguous()
+        dres, da, dlns, dlnb, dbproj = p.layernorm_bwd(res, lns, g2, eps)
+        dwproj = p.gemm(da, attn, layout="tn", out_dtype=f32)
+        dctx = p.gemm(da, wproj, layout="nn")
+        dqkv, dkbias = p.seq_attention_core_bwd(
+            qkv.view(B, N, 3 * C), dctx.view(B, N, C), kbias, None, None,
+            scale, num_heads)
+        dqkv = dqkv.reshape(B * N, 3 * C)
+        dwqkv = p.gemm(dqkv, rows, layout="tn", out_dtype=f32)
+        dbqkv = p.column_sum(dqkv) if bqkv is not None else None
+        dx = p.gemm(dqkv, wqkv, layout="nn", residual=dres,
+                    out_dtype=rows.dtype)
+        return (None, dx.view(B, N, C), _cast(dwqkv, wqkv), _cast(dbqkv, bqkv),
+                _cast(dwproj, wproj), _cast(dbproj, bproj),
+                dkbias if ctx.needs_input_grad[6] else None, dlns, dlnb,
+                None, None, None)
+
+
+class _MlpLN(torch.autograd.Function):
+    """``fused_mlp_ln`` with its store-residual backward."""
+
+    @staticmethod
+    def forward(ctx, p, x, w1, b1, w2, b2, lns, lnb, eps):
+        rows = x.reshape(-1, x.shape[-1]).contiguous()
+        m = p.gemm(rows, w1, b1, gelu=True)
+        res = p.gemm(m, w2, b2, residual=rows, out_dtype=torch.float32)
+        out = p.layernorm(res, lns, lnb, eps, out_dtype=x.dtype)
+        ctx.save_for_backward(rows, w1, b1, w2, b2, lns, res)
+        ctx.p, ctx.shape, ctx.eps = p, x.shape, eps
+        return out.view(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, w1, b1, w2, b2, lns, res = ctx.saved_tensors
+        g2 = g.reshape(rows.shape).to(rows.dtype).contiguous()
+        dx, dw1, db1, dw2, db2, dlns, dlnb = ctx.p.mlp_ln_half_bwd(
+            rows, res, g2, None, w1, b1, w2, lns, ctx.eps)
+        return (None, dx.to(rows.dtype).view(ctx.shape), _cast(dw1, w1),
+                _cast(db1, b1), _cast(dw2, w2), _cast(db2, b2), dlns, dlnb,
+                None)
+
+
 def _fused_attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, lns, lnb,
                    scale: float, num_heads: int, eps: float = 1e-12):
+    if _needs_grad(x, wqkv, bqkv, wproj, bproj, lns, lnb):
+        return _AttnLN.apply(p, x, wqkv, bqkv, wproj, bproj, kbias, lns, lnb,
+                             scale, num_heads, eps)
     B, N, C = x.shape
     rows = x.reshape(B * N, C)
     qkv = p.gemm(rows, wqkv, bqkv)
@@ -129,10 +231,38 @@ def _fused_attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, lns, lnb,
 
 
 def _fused_mlp_ln(p, x, w1, b1, w2, b2, lns, lnb, eps: float = 1e-12):
+    if _needs_grad(x, w1, b1, w2, b2, lns, lnb):
+        return _MlpLN.apply(p, x, w1, b1, w2, b2, lns, lnb, eps)
     rows = x.reshape(-1, x.shape[-1])
     m = p.gemm(rows, w1, b1, gelu=True)
     res = p.gemm(m, w2, b2, residual=rows)
     return p.layernorm(res, lns, lnb, eps).view(x.shape)
+
+
+def _seq_attention_core_bwd(p, qkv, dctx, kbias, qbias, amask, scale: float,
+                            num_heads: int):
+    B, N, C3 = qkv.shape
+    dqkv, dkbias = p.attention_bwd(
+        qkv.reshape(B * N, C3), dctx.reshape(B * N, C3 // 3), num_heads, N,
+        scale, key_bias=kbias, qbias=qbias, amask=amask)
+    return dqkv.view(B, N, C3), dkbias
+
+
+def _mlp_ln_half_bwd(p, x2, res2, g2, hmask2, w1, b1, w2, lns,
+                     eps: float = 1e-12):
+    if hmask2 is not None:
+        raise NotImplementedError(
+            "the hmask option of mlp_ln_half_bwd comes with the pretrain "
+            "slice (ROADMAP.md queue B, item 2)")
+    f32 = torch.float32
+    dres, dmlp, dlns, dlnb, db2 = p.layernorm_bwd(res2, lns, g2, eps)
+    m, a1 = p.gemm(x2, w1, b1, gelu=True, save_preact=True)   # fc1 recompute
+    dw2 = p.gemm(dmlp, m, layout="tn", out_dtype=f32)
+    da1 = p.gemm(dmlp, w2, layout="nn", gelu_grad=a1)
+    db1 = p.column_sum(da1)
+    dw1 = p.gemm(da1, x2, layout="tn", out_dtype=f32)
+    dx = p.gemm(da1, w1, layout="nn", residual=dres, out_dtype=f32)
+    return dx, dw1, db1, dw2, db2, dlns, dlnb
 
 
 def _twins(body, doc: str):
@@ -187,5 +317,22 @@ Post-LN BERT attention half ``LN(x + proj(attn(x)))`` on (B, N, C), with a
 fused_mlp_ln, fused_mlp_ln_plain = _twins(_fused_mlp_ln, """\
 Post-LN BERT MLP half ``LN(x + fc2(GELU(fc1 x)))`` over rows of (..., C).""")
 
+seq_attention_core_bwd, seq_attention_core_bwd_plain = _twins(
+    _seq_attention_core_bwd, """\
+VJP of the attention core of ``fused_attn_ln`` wrt (qkv, kbias), from the
+saved fused rows: qkv (B, N, 3C), dctx (B, N, C), kbias (B, N) f32. Returns
+``(dqkv (B, N, 3C) in qkv.dtype, dkbias (B, N) f32)``. ``qbias`` and
+``amask`` must be None (they come with the pretrain slice).""")
+
+mlp_ln_half_bwd, mlp_ln_half_bwd_plain = _twins(_mlp_ln_half_bwd, """\
+Backward of the post-LN MLP half from the saved f32 pre-LN sum: x2, g2
+(M, C), res2 (M, C) f32, w1 (I, C), b1 (I,), w2 (C, I), lns (C,). Returns
+``(dx (M, C) f32 with the residual term, dw1, db1, dw2, db2, dlns, dlnb)``,
+weight grads f32 in the port's (out, in) layout. K5 LN VJP -> K1 fc1
+recompute (GELU and the f32 pre-activation) -> K1 tn dW2 -> K1 nn dm with
+the GELU' epilogue -> K5 column sum db1 -> K1 tn dW1 -> K1 nn dx (+dres).
+``hmask2`` must be None (it comes with the pretrain slice).""")
+
 COUNTERPARTS = (swin_full_block, window_block_attention, fused_mlp_preln,
-                fused_attn_ln, fused_mlp_ln)
+                fused_attn_ln, fused_mlp_ln, seq_attention_core_bwd,
+                mlp_ln_half_bwd)

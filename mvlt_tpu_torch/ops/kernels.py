@@ -1,22 +1,25 @@
-"""The port's three hand-written Hopper kernels, their wrappers, and the plain
+"""The port's hand-written Hopper kernels, their wrappers, and the plain
 PyTorch version of each.
 
-K1 ``gemm``, K2 ``biased_attention`` and K3 ``layernorm`` are CUDA C++ for
-``sm_90a`` (sources in ``mvlt_tpu_torch/csrc/``). They are compiled with
-``nvcc`` at first use into ``build/torch_kernels/`` (one shared library per
-source, all built in parallel) and bound with ``ctypes``. Every TPU kernel on
-the VQA forward is rebuilt from these three in :mod:`mvlt_tpu_torch.ops.blocks`.
+K1 ``gemm``, K2 ``biased_attention``, K3 ``layernorm``, K4
+``biased_attention_bwd`` and K5 ``layernorm_bwd`` / ``column_sum`` are CUDA
+C++ for ``sm_90a`` (sources in ``mvlt_tpu_torch/csrc/``). They are compiled
+with ``nvcc`` at first use into ``build/torch_kernels/`` (one shared library
+per source, all built in parallel) and bound with ``ctypes``. Every TPU
+kernel on the ported paths is rebuilt from these in
+:mod:`mvlt_tpu_torch.ops.blocks`.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates its output
-with ``torch.empty``, launches on PyTorch's current stream, raises if the
-launch was refused, and adds one to its ``launches`` count. A wrapper takes
-its plain version only because its input lies on the CPU; on a CUDA tensor it
-launches the kernel or raises.
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs and scratch with ``torch.empty``, launches on PyTorch's current
+stream, raises if the launch was refused, and adds one to its ``launches``
+count. A wrapper takes its plain version only because its input lies on the
+CPU; on a CUDA tensor it launches the kernel or raises.
 
 The plain versions compute in float32 from the (possibly bf16) inputs and
 round once at the end, which is the numerics of the kernels and of the JAX
-interpret path (``fast=False``): f32 accumulation, exact erf GELU, a
-max-subtracted softmax with an exact divide, two-pass LN moments.
+interpret path (``fast=False``): f32 accumulation, exact erf GELU and its
+exact derivative, a max-subtracted softmax with an exact divide, two-pass LN
+moments.
 """
 
 from __future__ import annotations
@@ -35,13 +38,20 @@ import torch.nn.functional as F
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = {"gemm": "gemm.cu", "attention": "attention.cu", "layernorm": "layernorm.cu"}
+SOURCES = {"gemm": "gemm.cu", "attention": "attention.cu",
+           "layernorm": "layernorm.cu", "attention_bwd": "attention_bwd.cu",
+           "layernorm_bwd": "layernorm_bwd.cu"}
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "mvlt_gemm": [_vp] * 7 + [_int] * 4 + [_vp],
+    "mvlt_gemm": [_vp] * 8 + [_int] * 6 + [_vp],
     "mvlt_attention": [_vp] * 4 + [_int] * 5 + [_float, _vp],
-    "mvlt_layernorm": [_vp] * 5 + [_int, _int, _float, _vp],
+    "mvlt_layernorm": [_vp] * 5 + [_int, _int, _float, _int, _vp],
+    "mvlt_attention_bwd": [_vp] * 6 + [_int] * 4 + [_float, _vp],
+    "mvlt_layernorm_bwd": [_vp] * 7 + [_int, _int, _float, _vp],
+    "mvlt_layernorm_bwd_blocks": [_int],
+    "mvlt_column_sum": [_vp, _int, _vp, _vp, _int, _int, _vp],
+    "mvlt_column_sum_chunks": [_int, _int],
 }
 
 _build_lock = threading.Lock()
@@ -141,45 +151,90 @@ def _rows(x: torch.Tensor, idx: Optional[torch.Tensor]) -> torch.Tensor:
 # K1 gemm
 # ---------------------------------------------------------------------------
 
+_LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
+
+
+def gelu_grad_exact(a: torch.Tensor) -> torch.Tensor:
+    """d/da of the erf GELU ``a * Phi(a)``: ``Phi(a) + a * phi(a)``
+    (``_gelu_grad``, pallas_attn.py:1604, exact path), in f32."""
+    a = a.float()
+    return 0.5 * (1.0 + torch.erf(a * 0.7071067811865476)) + \
+        a * torch.exp(-0.5 * a * a) * 0.3989422804014327
+
+
 def gemm_plain(a, w, bias=None, *, gelu: bool = False, residual=None,
-               residual_index=None, store_index=None):
-    """``out[store_index[m]] = epi(a[m] @ w.T + bias)``, where ``epi`` is an
-    optional exact GELU then ``+ residual[residual_index[m]]``; f32 inside.
-    a: (M, K); w: (N, K) (PyTorch Linear layout); bias: (N,)."""
-    y = a.float() @ w.float().t()
+               residual_index=None, store_index=None, layout: str = "nt",
+               out_dtype=None, gelu_grad=None, save_preact: bool = False):
+    """``out[store_index[m]] = epi(op(a, w)[m] + bias)``; f32 inside.
+
+    ``layout``: ``"nt"`` a (M, K) @ w (N, K)^T (the PyTorch Linear layout),
+    ``"nn"`` a (M, K) @ w (K, N), ``"tn"`` a (K, M)^T @ w (K, N). ``epi`` is,
+    in order: an optional exact GELU, or a product with the exact GELU
+    derivative of the f32 pre-activation ``gelu_grad`` (M, N); then
+    ``+ residual[residual_index[m]]``. The output has ``out_dtype`` (default
+    ``a.dtype``). With ``save_preact`` it returns ``(out, pre)``, ``pre`` the
+    f32 value before the GELU, in unscattered row order."""
+    af, wf = a.float(), w.float()
+    if layout == "nt":
+        y = af @ wf.t()
+    elif layout == "nn":
+        y = af @ wf
+    elif layout == "tn":
+        y = af.t() @ wf
+    else:
+        raise ValueError(f"unknown layout {layout!r}")
     if bias is not None:
         y = y + bias.float()
+    pre = y if save_preact else None
+    if gelu_grad is not None:
+        y = y * gelu_grad_exact(gelu_grad)
     if gelu:
         y = F.gelu(y)
     if residual is not None:
         y = y + _rows(residual, residual_index).float()
-    y = y.to(a.dtype)
-    if store_index is None:
-        return y
-    out = torch.empty_like(y)
-    out[store_index.long()] = y
-    return out
+    y = y.to(out_dtype or a.dtype)
+    if store_index is not None:
+        out = torch.empty_like(y)
+        out[store_index.long()] = y
+        y = out
+    return (y, pre) if save_preact else y
 
 
 def gemm(a, w, bias=None, *, gelu: bool = False, residual=None,
-         residual_index=None, store_index=None):
+         residual_index=None, store_index=None, layout: str = "nt",
+         out_dtype=None, gelu_grad=None, save_preact: bool = False):
     """K1 wrapper; same contract as :func:`gemm_plain`. On CUDA: bf16
-    operands, K and N multiples of 8, int32 row indices, and ``store_index``
-    a permutation of the rows (every output row is written)."""
+    operands and bias, a bf16 or f32 residual, a bf16 or f32 output, the
+    contiguous dims of both operands multiples of 8, int32 row indices, and
+    ``store_index`` a permutation of the rows (every output row is
+    written)."""
     if not a.is_cuda:
         return gemm_plain(a, w, bias, gelu=gelu, residual=residual,
                           residual_index=residual_index,
-                          store_index=store_index)
-    dev, bf = a.device, torch.bfloat16
+                          store_index=store_index, layout=layout,
+                          out_dtype=out_dtype, gelu_grad=gelu_grad,
+                          save_preact=save_preact)
+    dev, bf, f32 = a.device, torch.bfloat16, torch.float32
+    _require(layout in _LAYOUTS, f"unknown layout {layout!r}")
     _cuda_arg(a, "a", bf, dev, 2)
     _cuda_arg(w, "w", bf, dev, 2)
-    M, K = a.shape
-    N = w.shape[0]
-    _require(w.shape[1] == K, f"w {tuple(w.shape)} does not match a {tuple(a.shape)}")
-    _require(K % 8 == 0 and N % 8 == 0, f"K={K} and N={N} must be multiples of 8")
+    if layout == "tn":
+        K, M = a.shape
+    else:
+        M, K = a.shape
+    if layout == "nt":
+        N, wk = w.shape
+    else:
+        wk, N = w.shape
+    _require(wk == K, f"w {tuple(w.shape)} does not match a {tuple(a.shape)} "
+                      f"in layout {layout}")
+    inner = M if layout == "tn" else K
+    _require(inner % 8 == 0 and N % 8 == 0,
+             f"the contiguous dims ({inner}, {N}) must be multiples of 8")
     _cuda_arg(bias, "bias", bf, dev, 1)
     _require(bias is None or bias.shape[0] == N, "bias must have N entries")
-    _cuda_arg(residual, "residual", bf, dev, 2)
+    res_f32 = residual is not None and residual.dtype == f32
+    _cuda_arg(residual, "residual", f32 if res_f32 else bf, dev, 2)
     _require(residual is None or residual.shape[1] == N, "residual must have N columns")
     _require(residual is not None or residual_index is None,
              "residual_index needs a residual")
@@ -188,13 +243,25 @@ def gemm(a, w, bias=None, *, gelu: bool = False, residual=None,
         _require(idx is None or idx.shape[0] == M, f"{name} must have M entries")
     _require(residual is None or residual_index is not None or residual.shape[0] == M,
              "residual must have M rows")
-    y = torch.empty((M, N), dtype=bf, device=dev)
+    _require(not (gelu and gelu_grad is not None), "gelu and gelu_grad exclude each other")
+    _require(not (save_preact and gelu_grad is not None),
+             "save_preact and gelu_grad exclude each other")
+    _cuda_arg(gelu_grad, "gelu_grad", f32, dev, 2)
+    _require(gelu_grad is None or tuple(gelu_grad.shape) == (M, N),
+             f"gelu_grad must be ({M}, {N})")
+    out_dtype = out_dtype or bf
+    _require(out_dtype in (bf, f32), f"out_dtype {out_dtype} is not bf16 or f32")
+    y = torch.empty((M, N), dtype=out_dtype, device=dev)
+    pre = torch.empty((M, N), dtype=f32, device=dev) if save_preact else gelu_grad
+    epi = 2 if gelu_grad is not None else int(gelu)
+    flags = int(out_dtype == f32) | (2 * int(res_f32))
     lib = build()["gemm"]
     _check(lib.mvlt_gemm(_ptr(a), _ptr(w), _ptr(bias), _ptr(residual),
                          _ptr(residual_index), _ptr(store_index), _ptr(y),
-                         M, N, K, int(gelu), _stream(dev)), "gemm")
+                         _ptr(pre), M, N, K, _LAYOUTS[layout], epi, flags,
+                         _stream(dev)), "gemm")
     gemm.launches += 1
-    return y
+    return (y, pre) if save_preact else y
 
 
 gemm.launches = 0
@@ -268,20 +335,25 @@ biased_attention.launches = 0
 # K3 layernorm
 # ---------------------------------------------------------------------------
 
-def layernorm_plain(x, gamma, beta, eps: float, row_index=None):
-    """``LN(x[row_index]) * gamma + beta`` over the last dim, f32 moments."""
+def layernorm_plain(x, gamma, beta, eps: float, row_index=None,
+                    out_dtype=None):
+    """``LN(x[row_index]) * gamma + beta`` over the last dim, f32 moments;
+    the output has ``out_dtype`` (default ``x.dtype``)."""
     y = F.layer_norm(_rows(x, row_index).float(), (x.shape[-1],),
                      gamma.float(), beta.float(), eps)
-    return y.to(x.dtype)
+    return y.to(out_dtype or x.dtype)
 
 
-def layernorm(x, gamma, beta, eps: float, row_index=None):
+def layernorm(x, gamma, beta, eps: float, row_index=None, out_dtype=None):
     """K3 wrapper; same contract as :func:`layernorm_plain`. On CUDA: bf16
-    x (rows, C), f32 gamma / beta, int32 row_index."""
+    or f32 x (rows, C), bf16 output, f32 gamma / beta, int32 row_index."""
     if not x.is_cuda:
-        return layernorm_plain(x, gamma, beta, eps, row_index)
+        return layernorm_plain(x, gamma, beta, eps, row_index, out_dtype)
     dev = x.device
-    _cuda_arg(x, "x", torch.bfloat16, dev, 2)
+    x_f32 = x.dtype == torch.float32
+    _cuda_arg(x, "x", torch.float32 if x_f32 else torch.bfloat16, dev, 2)
+    _require((out_dtype or x.dtype) == torch.bfloat16,
+             "layernorm writes bf16 on CUDA; pass out_dtype=torch.bfloat16")
     C = x.shape[1]
     for name, t in (("gamma", gamma), ("beta", beta)):
         _cuda_arg(t, name, torch.float32, dev, 1)
@@ -292,11 +364,173 @@ def layernorm(x, gamma, beta, eps: float, row_index=None):
     lib = build()["layernorm"]
     _check(lib.mvlt_layernorm(_ptr(x), _ptr(row_index), _ptr(gamma),
                               _ptr(beta), _ptr(y), M, C, float(eps),
-                              _stream(dev)), "layernorm")
+                              int(x_f32), _stream(dev)), "layernorm")
     layernorm.launches += 1
     return y
 
 
 layernorm.launches = 0
 
-KERNELS = (gemm, biased_attention, layernorm)
+
+
+# ---------------------------------------------------------------------------
+# K4 biased_attention_bwd
+# ---------------------------------------------------------------------------
+
+_PRETRAIN_SLICE = ("the {} option of the attention backward comes with the "
+                   "pretrain slice (ROADMAP.md queue B, item 2)")
+
+
+def _no_masks(qbias, amask) -> None:
+    for name, t in (("qbias", qbias), ("amask", amask)):
+        if t is not None:
+            raise NotImplementedError(_PRETRAIN_SLICE.format(name))
+
+
+def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
+                               scale: float, key_bias=None, qbias=None,
+                               amask=None):
+    """VJP of :func:`biased_attention_plain` (key-bias mode) from the saved
+    fused rows. qkv: (G*N, 3C); dctx: (G*N, C); key_bias: (G, N) f32.
+    Returns ``(dqkv (G*N, 3C) in qkv.dtype, dkbias (G, N) f32)``, dkbias
+    the column sum of ds over rows and heads (``_seq_core_bwd_kernel``)."""
+    _no_masks(qbias, amask)
+    rows, C3 = qkv.shape
+    C, N = C3 // 3, seq_n
+    G, Dh = rows // N, C // num_heads
+    t = qkv.float().view(G, N, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
+    q, k, v = t[0] * scale, t[1], t[2]
+    dc = dctx.float().view(G, N, num_heads, Dh).permute(0, 2, 1, 3)
+    s = q @ k.transpose(-1, -2)                                 # (G, nH, N, N)
+    if key_bias is not None:
+        s = s + key_bias.float()[:, None, None, :]
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    dv = p.transpose(-1, -2) @ dc
+    dp = dc @ v.transpose(-1, -2)
+    pdp = p * dp
+    ds = pdp - p * pdp.sum(-1, keepdim=True)
+    dq = (ds @ k) * scale
+    dk = ds.transpose(-1, -2) @ q
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(rows, C3)
+    return dqkv.to(qkv.dtype), ds.sum(dim=(1, 2))
+
+
+def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
+                         key_bias=None, qbias=None, amask=None):
+    """K4 wrapper; same contract as :func:`biased_attention_bwd_plain`. On
+    CUDA: bf16 qkv and dctx, f32 key bias, N <= 128 and head dim <= 64."""
+    _no_masks(qbias, amask)
+    if not qkv.is_cuda:
+        return biased_attention_bwd_plain(qkv, dctx, num_heads, seq_n, scale,
+                                          key_bias)
+    dev, bf = qkv.device, torch.bfloat16
+    _cuda_arg(qkv, "qkv", bf, dev, 2)
+    rows, C3 = qkv.shape
+    N = seq_n
+    _require(C3 % 3 == 0 and (C3 // 3) % num_heads == 0,
+             f"qkv width {C3} is not 3 * heads * head_dim")
+    C = C3 // 3
+    _require(0 < N <= 128 and rows % N == 0, f"rows {rows} not groups of N={N} <= 128")
+    _require(C // num_heads <= 64, f"head dim {C // num_heads} > 64")
+    G = rows // N
+    _cuda_arg(dctx, "dctx", bf, dev, 2)
+    _require(tuple(dctx.shape) == (rows, C), f"dctx must be ({rows}, {C})")
+    _cuda_arg(key_bias, "key_bias", torch.float32, dev, 2)
+    _require(key_bias is None or tuple(key_bias.shape) == (G, N),
+             f"key_bias must be ({G}, {N})")
+    dqkv = torch.empty((rows, C3), dtype=bf, device=dev)
+    part = torch.empty((G, num_heads, N), dtype=torch.float32, device=dev)
+    dkb = torch.empty((G, N), dtype=torch.float32, device=dev)
+    lib = build()["attention_bwd"]
+    _check(lib.mvlt_attention_bwd(_ptr(qkv), _ptr(dctx), _ptr(key_bias),
+                                  _ptr(dqkv), _ptr(part), _ptr(dkb), G, N, C,
+                                  num_heads, float(scale), _stream(dev)),
+           "biased_attention_bwd")
+    biased_attention_bwd.launches += 1
+    return dqkv, dkb
+
+
+biased_attention_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5 layernorm_bwd, column_sum
+# ---------------------------------------------------------------------------
+
+def layernorm_bwd_plain(res, gamma, g, eps: float):
+    """VJP of ``LN(res) * gamma + beta`` over rows of the f32 pre-LN sum
+    ``res`` (M, C) for the upstream gradient ``g`` (M, C). Returns
+    ``(dres f32, dres in g.dtype, dgamma, dbeta, db)``, the last three f32
+    column sums: ``sum g * xhat``, ``sum g`` and ``sum dres``."""
+    r_ = res.float()
+    mu = r_.mean(-1, keepdim=True)
+    var = ((r_ - mu) ** 2).mean(-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    xhat = (r_ - mu) * r
+    gf = g.float()
+    dxhat = gf * gamma.float()
+    dres = r * (dxhat - dxhat.mean(-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return (dres, dres.to(g.dtype), (gf * xhat).sum(0), gf.sum(0),
+            dres.sum(0))
+
+
+def layernorm_bwd(res, gamma, g, eps: float):
+    """K5 wrapper; same contract as :func:`layernorm_bwd_plain`. On CUDA:
+    f32 res and gamma, bf16 g, C <= 1024."""
+    if not res.is_cuda:
+        return layernorm_bwd_plain(res, gamma, g, eps)
+    dev, f32 = res.device, torch.float32
+    _cuda_arg(res, "res", f32, dev, 2)
+    M, C = res.shape
+    _require(C <= 1024, f"C={C} > 1024")
+    _cuda_arg(gamma, "gamma", f32, dev, 1)
+    _require(gamma.shape[0] == C, f"gamma must have {C} entries")
+    _cuda_arg(g, "g", torch.bfloat16, dev, 2)
+    _require(tuple(g.shape) == (M, C), f"g must be ({M}, {C})")
+    lib = build()["layernorm_bwd"]
+    dres = torch.empty((M, C), dtype=f32, device=dev)
+    dres_bf = torch.empty((M, C), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((lib.mvlt_layernorm_bwd_blocks(M), 3 * C), dtype=f32,
+                       device=dev)
+    sums = torch.empty((3, C), dtype=f32, device=dev)
+    _check(lib.mvlt_layernorm_bwd(_ptr(res), _ptr(gamma), _ptr(g), _ptr(dres),
+                                  _ptr(dres_bf), _ptr(part), _ptr(sums), M, C,
+                                  float(eps), _stream(dev)), "layernorm_bwd")
+    layernorm_bwd.launches += 1
+    return dres, dres_bf, sums[0], sums[1], sums[2]
+
+
+layernorm_bwd.launches = 0
+
+
+def column_sum_plain(x):
+    """Sum over the rows of an (M, N) matrix, in f32."""
+    return x.float().sum(0)
+
+
+def column_sum(x):
+    """K5 column sum; same contract as :func:`column_sum_plain`. On CUDA:
+    bf16 or f32 x."""
+    if not x.is_cuda:
+        return column_sum_plain(x)
+    dev, f32 = x.device, torch.float32
+    x_f32 = x.dtype == f32
+    _cuda_arg(x, "x", f32 if x_f32 else torch.bfloat16, dev, 2)
+    M, N = x.shape
+    lib = build()["layernorm_bwd"]
+    part = torch.empty((lib.mvlt_column_sum_chunks(M, N), N), dtype=f32,
+                       device=dev)
+    out = torch.empty((N,), dtype=f32, device=dev)
+    _check(lib.mvlt_column_sum(_ptr(x), int(x_f32), _ptr(part), _ptr(out), M,
+                               N, _stream(dev)), "column_sum")
+    column_sum.launches += 1
+    return out
+
+
+column_sum.launches = 0
+
+# the kernels of the inference forward, and every kernel
+FORWARD_KERNELS = (gemm, biased_attention, layernorm)
+KERNELS = FORWARD_KERNELS + (biased_attention_bwd, layernorm_bwd, column_sum)

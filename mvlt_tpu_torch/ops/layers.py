@@ -3,8 +3,10 @@
 Numerics follow the JAX package: exact (erf) GELU, LayerNorm eps 1e-5 in
 Swin and 1e-12 in the BERT fusion stack. Parameters live in the PyTorch
 layout: a dense weight is ``(out, in)`` where flax keeps ``(in, out)``.
-Dense weights and embeddings are stored in the compute dtype, cast once at
-load time; LayerNorm parameters and the relative-position tables stay in
+Dense weights and embeddings are stored in the parameter dtype: the compute
+dtype for serving (cast once at load time), float32 masters for training
+(cast to the compute dtype at every use, so the cast's backward returns f32
+grads); LayerNorm parameters and the relative-position tables stay in
 float32, as the JAX kernels take them.
 """
 
@@ -23,9 +25,24 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x.float()).to(x.dtype)
 
 
+def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
+                               ignore_index: int = -100) -> torch.Tensor:
+    """Mean cross entropy over labels != ignore_index, in f32 (0 if none is
+    valid); ``mvlt_tpu/ops/layers.py:92``, torch ``F.cross_entropy``
+    parity. logits: (..., classes); labels: (...) int."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
 class Dense(nn.Module):
-    """A dense layer's parameters: ``weight`` (out, in), optional ``bias``.
-    The product itself runs through ``ops.gemm`` (K1 or its plain version)."""
+    """A dense layer's parameters: ``weight`` (out, in), optional ``bias``,
+    cast to the input's dtype at use. Serving runs the product through
+    ``ops.gemm`` (K1 or its plain version); where a gradient is needed it is
+    a plain ``F.linear`` (the JAX package leaves these layers to XLA)."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True, *,
                  dtype: torch.dtype, device):
@@ -37,9 +54,12 @@ class Dense(nn.Module):
                      if bias else None)
 
     def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return F.linear(x, w, b)
         shape = x.shape
-        y = ops.gemm(x.reshape(-1, shape[-1]).contiguous(), self.weight,
-                     self.bias)
+        y = ops.gemm(x.reshape(-1, shape[-1]).contiguous(), w, b)
         return y.view(*shape[:-1], y.shape[-1])
 
 

@@ -5,10 +5,13 @@
 (``mvlt_tpu/models/heads.py:65``) exactly once:
 
 - a flax Dense ``kernel`` (in, out) becomes a port ``weight`` (out, in);
+  a Conv ``kernel`` (H, W, in, out) becomes an OIHW ``weight``;
 - the fusion layers' separate ``query`` / ``key`` / ``value`` Denses are
   concatenated into the port's one fused ``qkv`` Dense (fusion.py:122-126);
-- LayerNorm ``scale`` becomes ``weight``; an ``embedding`` table keeps its
-  layout.
+- LayerNorm and BatchNorm ``scale`` becomes ``weight``; an ``embedding``
+  table keeps its layout;
+- the ResNet's ``batch_stats`` ``mean`` / ``var`` become the BatchNorms'
+  ``running_mean`` / ``running_var`` buffers.
 
 A leaf that no rule maps, a leaf mapped twice, or a fused q/k/v missing a
 part raises ``KeyError``. Load the result with
@@ -40,6 +43,9 @@ _RULES = [
     (r"conv/backbone/layers_(\d+)_downsample/(norm|reduction)",
      r"conv.backbone.downsamples.\1.\2"),
     (r"conv/backbone/norm", r"conv.backbone.norm"),
+    (r"conv/backbone/stem/(conv|bn)", r"conv.backbone.stem.\1"),
+    (r"conv/backbone/(layer\d+_\d+)/(conv1|conv2|conv3|downsample)/(conv|bn)",
+     r"conv.backbone.blocks.\1.\2.\3"),
     (r"conv/resnet_fc", r"conv.resnet_fc"),
     (r"fusion/(word|position|token_type)_embeddings",
      r"fusion.\1_embeddings"),
@@ -54,7 +60,7 @@ _RULES = [
 ]
 # flax leaf name -> suffix of the port parameter
 _LEAF = {"kernel": ".weight", "bias": ".bias", "scale": ".weight",
-         "embedding": "",
+         "embedding": "", "mean": ".running_mean", "var": ".running_var",
          "relative_position_bias_table": ".relative_position_bias_table"}
 
 
@@ -82,16 +88,22 @@ def _port_name(path: str):
 
 def vqa_params_from_flax(variables) -> Dict[str, torch.Tensor]:
     """flax ``VQAModel`` variables (or their ``params``) -> port state_dict
-    of float32 tensors."""
-    params = variables.get("params", variables)
-    flat = _flatten(params)
+    of float32 tensors. A ``batch_stats`` collection beside ``params`` maps
+    onto the BatchNorm buffers."""
+    flat = _flatten(variables.get("params", variables))
+    if "params" in variables:
+        for path, value in _flatten(variables.get("batch_stats", {})).items():
+            if path in flat:
+                raise KeyError(f"batch_stats leaf {path!r} shadows a parameter")
+            flat[path] = value
     sd: Dict[str, torch.Tensor] = {}
     parts: Dict[str, list] = {}
     for path, value in flat.items():
         key, slot, is_kernel = _port_name(path)
         value = np.array(value, np.float32)             # own, writable copy
         if is_kernel:
-            value = value.T                       # (in, out) -> (out, in)
+            # Dense (in, out) -> (out, in); Conv HWIO -> OIHW
+            value = value.T if value.ndim == 2 else value.transpose(3, 2, 0, 1)
         if slot is not None:
             group = parts.setdefault(key, [None] * len(_QKV))
             if group[slot] is not None:

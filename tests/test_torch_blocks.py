@@ -232,3 +232,170 @@ def test_layernorm_plain_row_gather():
     got = kernels.layernorm(x, g, b, 1e-5, row_index=idx)
     want = torch.nn.functional.layer_norm(x[idx.long()], (12,), g, b, 1e-5)
     torch.testing.assert_close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the fusion encoder's training path: backward counterparts, K4 / K5 plain
+# versions and the autograd Functions, in float32 at 1e-4
+# ---------------------------------------------------------------------------
+
+def _np(rng, *shape, std=1.0):
+    return (rng.normal(size=shape) * std).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32, copy=True))
+
+
+@pytest.mark.parametrize("B,N,C,nH", [(4, 13, 32, 4), (2, 16, 48, 2)])
+def test_seq_attention_core_bwd(B, N, C, nH):
+    """``_seq_core_bwd_kernel`` (pallas_attn.py:2413) in interpret mode, as
+    test_pallas_attn.py:701 runs it: dqkv and dkbias, with a ragged N (13)
+    and a padded key bias."""
+    rng = np.random.default_rng(110 + N)
+    qkv, dctx = _np(rng, B, N, 3 * C, std=0.3), _np(rng, B, N, C)
+    kb = np.where(rng.random((B, N)) > 0.2, 0.0, -10000.0).astype(np.float32)
+    scale = (C // nH) ** -0.5
+    want = pa.seq_attention_core_bwd(jnp.asarray(qkv), jnp.asarray(dctx),
+                                     jnp.asarray(kb), None, None, scale, nH,
+                                     interpret=True)
+    got = blocks.seq_attention_core_bwd_plain(_t(qkv), _t(dctx), _t(kb), None,
+                                              None, scale, nH)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+    assert got[0].shape == (B, N, 3 * C) and got[1].shape == (B, N)
+
+
+def test_seq_attention_core_bwd_refuses_masks():
+    qkv, dctx = torch.zeros(1, 4, 24), torch.zeros(1, 4, 8)
+    kb = torch.zeros(1, 4)
+    for qbias, amask in ((torch.zeros(1, 4, 4), None),
+                         (None, torch.ones(1, 2, 4, 4))):
+        with pytest.raises(NotImplementedError, match="pretrain slice"):
+            blocks.seq_attention_core_bwd(qkv, dctx, kb, qbias, amask, 0.5, 2)
+
+
+@pytest.mark.parametrize("M", [48, 37])
+def test_mlp_ln_half_bwd(M):
+    """``_mlp_ln_bwd_kernel`` (pallas_attn.py:2931) in interpret mode, as
+    test_pallas_attn.py:898 runs it: all seven outputs; the port's weight
+    grads are in its (out, in) layout."""
+    rng = np.random.default_rng(120 + M)
+    C, H = 32, 128
+    x, g = _np(rng, M, C, std=0.5), _np(rng, M, C)
+    w1, b1 = _np(rng, C, H, std=0.1), _np(rng, H, std=0.1)
+    w2, b2 = _np(rng, H, C, std=0.1), _np(rng, C, std=0.1)
+    lns = _np(rng, C, std=0.1) + 1.0
+    m = jax.nn.gelu(jnp.asarray(x) @ w1 + b1, approximate=False)
+    res = np.asarray(m @ w2 + b2 + x, np.float32)
+    want = pa.mlp_ln_half_bwd(*(jnp.asarray(a) for a in (x, res, g)), None,
+                              *(jnp.asarray(a) for a in (w1, b1, w2, lns)),
+                              eps=1e-12, interpret=True)
+    got = blocks.mlp_ln_half_bwd_plain(_t(x), _t(res), _t(g), None,
+                                       _t(w1.T), _t(b1), _t(w2.T), _t(lns),
+                                       1e-12)
+    for name, gt, w in zip("dx dw1 db1 dw2 db2 dlns dlnb".split(), got, want):
+        w = np.asarray(w)
+        if name in ("dw1", "dw2"):
+            w = w.T
+        np.testing.assert_allclose(gt.numpy(), w, atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+    with pytest.raises(NotImplementedError, match="pretrain slice"):
+        blocks.mlp_ln_half_bwd(_t(x), _t(res), _t(g), torch.ones(M, C),
+                               _t(w1.T), _t(b1), _t(w2.T), _t(lns))
+
+
+def test_layernorm_bwd_plain_matches_jax_vjp():
+    """K5's contract: dres, dgamma, dbeta and db = sum dres against
+    ``jax.vjp`` of the kernels' ``_ln``."""
+    rng = np.random.default_rng(130)
+    M, C = 19, 40
+    res, g = _np(rng, M, C, std=2.0) + 0.3, _np(rng, M, C)
+    gam, bet = _np(rng, C, std=0.1) + 1.0, _np(rng, C, std=0.1)
+    _, vjp = jax.vjp(lambda r, s, b: pa._ln(r, s, b, eps=1e-12),
+                     jnp.asarray(res), jnp.asarray(gam), jnp.asarray(bet))
+    dres, dgam, dbet = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    got = kernels.layernorm_bwd(_t(res), _t(gam), _t(g), 1e-12)
+    for gt, w in zip(got, (dres, dres, dgam, dbet, dres.sum(0))):
+        np.testing.assert_allclose(gt.numpy(), w, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(kernels.column_sum(_t(g)).numpy(), g.sum(0),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_gemm_plain_layouts_and_gelu_grad():
+    """K1's backward modes on the plain version: ``nn``, ``tn``, the saved
+    f32 pre-activation, the GELU-derivative epilogue (against ``jax.vjp``
+    of the exact GELU) and an f32 residual into an f32 output."""
+    rng = np.random.default_rng(131)
+    a, w, b = _np(rng, 6, 8), _np(rng, 8, 5), _np(rng, 5)
+    torch.testing.assert_close(kernels.gemm(_t(a), _t(w), layout="nn"),
+                               _t(a @ w))
+    torch.testing.assert_close(kernels.gemm(_t(a.T), _t(w), layout="tn"),
+                               _t(a @ w))
+    m, pre = kernels.gemm(_t(a), _t(w.T), _t(b), gelu=True, save_preact=True)
+    torch.testing.assert_close(pre, _t(a @ w + b))
+    dy = _np(rng, 6, 5)
+    _, vjp = jax.vjp(lambda u: jax.nn.gelu(u, approximate=False),
+                     jnp.asarray(a @ w + b))
+    want = np.asarray(vjp(jnp.asarray(dy))[0])
+    got = kernels.gemm(_t(dy), _t(np.eye(5, dtype=np.float32)), layout="nn",
+                       gelu_grad=pre)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    r = _np(rng, 6, 5)
+    got = kernels.gemm(_t(a).to(torch.bfloat16), _t(w).to(torch.bfloat16),
+                       layout="nn", residual=_t(r), out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    want = (_t(a).to(torch.bfloat16).float() @ _t(w).to(torch.bfloat16).float()
+            + _t(r))
+    torch.testing.assert_close(got, want)
+
+
+def _vjp_case(rng, half):
+    """Inputs, cotangent and the JAX VJP of one fused half (interpret)."""
+    B, N, C, nH = 3, 11, 32, 4
+    x, gy = _np(rng, B, N, C, std=0.5), _np(rng, B, N, C)
+    lns, lnb = _np(rng, C, std=0.1) + 1.0, _np(rng, C, std=0.1)
+    if half == "attn":
+        w = [_np(rng, C, 3 * C, std=0.1), _np(rng, 3 * C, std=0.1),
+             _np(rng, C, C, std=0.1), _np(rng, C, std=0.1)]
+        kb = np.where(np.arange(N)[None] < np.array([11, 6, 9])[:, None],
+                      0.0, -10000.0).astype(np.float32)
+        scale = (C // nH) ** -0.5
+        fn = lambda x_, a, b, c, d, s, t: pa.fused_attn_ln(  # noqa: E731
+            x_, a, b, c, d, jnp.asarray(kb), s, t, scale, nH, 1e-12,
+            interpret=True)
+        port = lambda p, x_, a, b, c, d, s, t: blocks.fused_attn_ln_plain(  # noqa: E731
+            x_, a, b, c, d, _t(kb), s, t, scale, nH, 1e-12)
+    else:
+        w = [_np(rng, C, 4 * C, std=0.1), _np(rng, 4 * C, std=0.1),
+             _np(rng, 4 * C, C, std=0.1), _np(rng, C, std=0.1)]
+        fn = lambda x_, a, b, c, d, s, t: pa.fused_mlp_ln(  # noqa: E731
+            x_, a, b, c, d, s, t, 1e-12, interpret=True)
+        port = lambda p, x_, a, b, c, d, s, t: blocks.fused_mlp_ln_plain(  # noqa: E731
+            x_, a, b, c, d, s, t, 1e-12)
+    args = [x, *w, lns, lnb]
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in args))
+    return args, gy, np.asarray(out), [np.asarray(g) for g in vjp(
+        jnp.asarray(gy))], port
+
+
+@pytest.mark.parametrize("half", ["attn", "mlp"])
+def test_fused_half_autograd_matches_jax_vjp(half):
+    """With inputs that require grad, ``fused_attn_ln`` / ``fused_mlp_ln``
+    run as autograd Functions (store-residual forward, K1/K4/K5 backward);
+    output and every input gradient against ``jax.vjp`` of the JAX kernels
+    in interpret mode (the custom VJPs ``_attn_ln_bwd_stored`` /
+    ``_mlp_ln_bwd_stored``)."""
+    rng = np.random.default_rng(140)
+    args, gy, want_out, want, port = _vjp_case(rng, half)
+    t = [_t(a).requires_grad_() for a in args]
+    # dense weights in the port's (out, in) layout
+    t_port = [t[0], t[1].t(), t[2], t[3].t(), t[4], t[5], t[6]]
+    out = port(None, *t_port)
+    out.backward(_t(gy))
+    np.testing.assert_allclose(out.detach().numpy(), want_out, atol=1e-4,
+                               rtol=1e-4)
+    for i, (tt, w) in enumerate(zip(t, want)):
+        np.testing.assert_allclose(tt.grad.numpy(), w, atol=1e-4, rtol=1e-4,
+                                   err_msg=f"input {i}")

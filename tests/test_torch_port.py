@@ -138,3 +138,81 @@ def test_cuda_swin_block_matches_plain(cuda_device):
     assert (got.float() - want.float()).abs().max() <= \
         2 ** -5 * max(1.0, want.float().abs().max().item())
     assert np.isfinite(got.float().cpu().numpy()).all()
+
+
+def test_port_imports_nothing_of_mvlt_tpu():
+    """Importing the port, its entry points, its train step and
+    ``chip_smoke`` leaves no ``mvlt_tpu`` / ``mvlt_tpu.*`` module (and no
+    JAX) in ``sys.modules``: the port keeps its own copies of host modules."""
+    code = textwrap.dedent("""
+        import sys
+        import mvlt_tpu_torch
+        from mvlt_tpu_torch import flagship
+        from mvlt_tpu_torch.train import steps, state
+        from mvlt_tpu_torch.models.backbones import resnet
+        import chip_smoke
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("mvlt_tpu", "jax", "jaxlib", "flax"))
+        print("FOREIGN_MODULES", bad)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "FOREIGN_MODULES []" in out.stdout, out.stdout
+
+
+def _rnd(g, *shape, std=1.0, dt=torch.bfloat16, dev="cuda"):
+    return (torch.randn(*shape, generator=g) * std).to(dev, dt)
+
+
+def _near(got, want, bar):
+    scale = max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= bar * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nn", "tn"])
+def test_cuda_gemm_backward_modes_match_plain(cuda_device, layout):
+    """K1's ``nn`` / ``tn`` layouts with a ragged contraction (``tn`` over
+    rows of any count, ``nn`` over a multiple of 8), f32 output, f32
+    residual, the saved pre-activation and the GELU' epilogue."""
+    g = torch.Generator().manual_seed(7)
+    M, K, N = 72, (104 if layout == "nn" else 100), 40
+    a = _rnd(g, *((M, K) if layout == "nn" else (K, M)), dev=cuda_device)
+    w = _rnd(g, K, N, std=K ** -0.5, dev=cuda_device)
+    r = _rnd(g, M, N, dt=torch.float32, dev=cuda_device)
+    for kw in (dict(out_dtype=torch.float32, residual=r), dict()):
+        _near(kernels.gemm(a, w, layout=layout, **kw),
+              kernels.gemm_plain(a, w, layout=layout, **kw), 2 ** -7)
+    a1 = _rnd(g, M, N, dt=torch.float32, dev=cuda_device)
+    _near(kernels.gemm(a, w, layout=layout, gelu_grad=a1),
+          kernels.gemm_plain(a, w, layout=layout, gelu_grad=a1), 2 ** -7)
+    if layout == "nn":
+        wt = w.t().contiguous()
+        y, pre = kernels.gemm(a, wt, gelu=True, save_preact=True)
+        y0, pre0 = kernels.gemm_plain(a, wt, gelu=True, save_preact=True)
+        _near(y, y0, 2 ** -7)
+        _near(pre, pre0, 1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_bwd_and_layernorm_bwd_match_plain(cuda_device):
+    """K4 at a ragged N with a padded key bias, K5 and its column sum."""
+    g = torch.Generator().manual_seed(8)
+    G, N, C, nH = 3, 37, 64, 2
+    qkv = _rnd(g, G * N, 3 * C, std=0.5, dev=cuda_device)
+    dctx = _rnd(g, G * N, C, dev=cuda_device)
+    kb = torch.where(torch.rand(G, N, generator=g) < 0.2, -10000.0,
+                     0.0).to(cuda_device)
+    got = kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.125, kb)
+    want = kernels.biased_attention_bwd_plain(qkv, dctx, nH, N, 0.125, kb)
+    _near(got[0], want[0], 2 ** -7)
+    _near(got[1], want[1], 1e-4)
+    res = _rnd(g, 50, 96, std=2.0, dt=torch.float32, dev=cuda_device)
+    gam = _rnd(g, 96, dt=torch.float32, dev=cuda_device) + 1.0
+    gy = _rnd(g, 50, 96, dev=cuda_device)
+    for a, b in zip(kernels.layernorm_bwd(res, gam, gy, 1e-12),
+                    kernels.layernorm_bwd_plain(res, gam, gy, 1e-12)):
+        _near(a, b, 2 ** -7)
+    _near(kernels.column_sum(gy), kernels.column_sum_plain(gy), 1e-4)
+    torch.cuda.synchronize()
