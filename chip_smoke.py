@@ -14,10 +14,15 @@ on failure:
    ``mvlt_tpu_torch.ops.blocks`` against their plain PyTorch versions on the
    card, in bf16 at the flagship batch-8 shapes; then K1's backward modes,
    K4 ``biased_attention_bwd``, K5 ``layernorm_bwd`` / ``column_sum`` and
-   the two backward counterparts at the train step's shapes. Each is timed
-   beside its plain version, the library call that computes the same
-   function (never called by the port) and its bound on an H100 SXM (the
-   larger of FLOPs / 989 TFLOP/s and bytes / 3.35 TB/s);
+   the two backward counterparts at the train step's shapes; then the mask
+   options at the pretrain step's shapes (B*S = 32*131 rows, 12 heads): K2
+   and K4 with qbias and amask, K4 at N = 128, K1's epilogue multiplier, K5
+   with hmask, the two masked forward counterparts and the two backward
+   ones with their masks, and the shared-memory reckoning of K2 / K4
+   against the compiled one. Each is timed beside its plain version, the
+   library call that computes the same function (never called by the port)
+   and its bound on an H100 SXM (the larger of FLOPs / 989 TFLOP/s and
+   bytes / 3.35 TB/s);
 4. forward: run the flagship VQA forward (Swin-S @224 + BERT-base, bf16,
    batch 8, question length 23 with padding) through the kernels, check the
    launch counts, compare its logits with the same model on the plain
@@ -27,7 +32,14 @@ on failure:
    the kernels and on the plain versions; check the launch counts of one
    step, every parameter's gradient of step 1 and the losses of 3 steps
    against the plain run, then time the steps in turns;
-6. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` last.
+6. pretrain: build the MLM+ITM pretrain train step (ResNet-101 @224 +
+   BERT-base over S = 1 + 49 + 1 + 80 = 131, two MLM heads + ITM, batch 32,
+   bf16 compute with f32 masters, fusion dropouts 0.1, AdamW) twice from one
+   seed, the plain run replaying the kernel run's dropout masks; check the
+   gradients from the initial parameters in both mask modes, the launch
+   counts of one step and the losses of 3 steps (bidirectional, seq2seq,
+   bidirectional), then time the steps in turns;
+7. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -65,6 +77,8 @@ GRAD_BAR = 0.05
 BACKBONE_GRAD_BAR = 0.25
 LOSS_BAR = 1e-2
 TRAIN_BATCH, TRAIN_STEPS = 32, 3
+PRETRAIN_TEXT = 80
+PRETRAIN_MODES = (False, True, False)          # seq2seq per step
 
 # H100 SXM peaks (NVIDIA data sheet; dense bf16 tensor cores, HBM3)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -84,6 +98,13 @@ EXPECTED = {
 EXPECTED_TRAIN = {
     "fused_attn_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2156"),
     "fused_mlp_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2817"),
+    "seq_attention_core_bwd": (12, "mvlt_tpu/ops/pallas_attn.py:2413"),
+    "mlp_ln_half_bwd": (12, "mvlt_tpu/ops/pallas_attn.py:2931"),
+}
+# calls per pretrain step (12 layers, forward and backward, dropout on)
+EXPECTED_PRETRAIN = {
+    "fused_attn_ln_masked": (12, "mvlt_tpu/ops/pallas_attn.py:2721"),
+    "fused_mlp_ln_masked": (12, "mvlt_tpu/ops/pallas_attn.py:3194"),
     "seq_attention_core_bwd": (12, "mvlt_tpu/ops/pallas_attn.py:2413"),
     "mlp_ln_half_bwd": (12, "mvlt_tpu/ops/pallas_attn.py:2931"),
 }
@@ -574,6 +595,212 @@ def train_kernel_checks(chk: Checker, dev) -> None:
                  M * C + 2 * C * I + I + 3 * C))
 
 
+def lib_masked_attention(qkv, G, N, nH, bias, amask, scale):
+    """bf16 matmul / softmax / mul / matmul over fused rows; ``bias``
+    broadcastable to (G, nH, N, N). SDPA takes no probability mask."""
+    C = qkv.shape[1] // 3
+    t = qkv.view(G, N, 3, nH, C // nH).permute(2, 0, 3, 1, 4)
+    s = torch.matmul(t[0], t[1].transpose(-1, -2)) * scale + bias
+    p = torch.softmax(s, dim=-1) * amask
+    return torch.matmul(p, t[2]).permute(0, 2, 1, 3).reshape(G * N, C)
+
+
+def pretrain_kernel_checks(chk: Checker, dev) -> None:
+    """The mask options at the pretrain step's shapes: B*S = 32*131 = 4192
+    rows, C 768, I 3072, 12 heads; a seq2seq qbias, a key-padding bias, and
+    dropout masks of 0 or 1/0.9 in bf16."""
+    from mvlt_tpu_torch.ops import blocks
+    from mvlt_tpu_torch.ops import kernels as K
+    from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
+
+    # the wrappers' shared-memory reckoning is the compiled one
+    libs = K.build()
+    for n in range(1, 161):
+        assert K.attention_smem_bytes(n, 64) == \
+            libs["attention"].mvlt_attention_smem(n, 64), n
+        assert K.attention_bwd_smem_bytes(n, 64) == \
+            libs["attention_bwd"].mvlt_attention_bwd_smem(n, 64), n
+    optin = K.smem_optin(dev)
+    print(f"shared memory per block (opt-in): {optin} bytes; K2 admits N <= "
+          f"{K.max_attention_n(64, optin)}, K4 N <= "
+          f"{K.max_attention_n(64, optin, backward=True)} at head dim 64",
+          flush=True)
+
+    inp = Inputs(dev, seed=2)
+    rnd, dense, ln = inp.rnd, inp.dense, inp.ln
+    bf, f32 = torch.bfloat16, torch.float32
+    B, S, C, I, nH = TRAIN_BATCH, 1 + 49 + 1 + PRETRAIN_TEXT, 768, 3072, 12
+    M, Dh = B * S, C // nH
+    sc = Dh ** -0.5
+
+    def keep_mask(*shape):
+        return ((torch.rand(*shape, generator=inp.gen) < 0.9).to(bf)
+                / 0.9).to(dev)
+
+    lengths = [S - (11 * i) % 75 for i in range(B)]
+    kb = inp.key_bias(lengths, S)
+    qb = mask_to_bias(seq2seq_fusion_mask(B, 50, S, dev)).contiguous()
+    amask, hmask = keep_mask(B, nH, S, S), keep_mask(M, C)
+    qkv = rnd(M, 3 * C, std=0.5)
+    dctx = rnd(M, C)
+    x = rnd(M, C)
+
+    # K2 with amask, in both mask modes
+    for kbias, qbias in ((kb, None), (None, qb)):
+        bias = (kb.to(bf)[:, None, None, :] if qbias is None
+                else qb.to(bf)[:, None])
+        chk.case("biased_attention",
+                 lambda: K.biased_attention(qkv, nH, S, sc, None, kbias,
+                                            qbias, amask),
+                 lambda: K.biased_attention_plain(qkv, nH, S, sc, None, kbias,
+                                                  qbias, amask),
+                 KERNEL_BAR,
+                 library_fn=lambda: lib_masked_attention(qkv, B, S, nH, bias,
+                                                         amask, sc),
+                 flops=4.0 * B * nH * S * S * Dh,
+                 nbytes=nbytes(qkv, kbias, qbias, amask, dctx))
+
+    # K4 with qbias / amask at N = 131, and at N = 128 (the largest N the
+    # earlier layout claimed and could not launch)
+    q4 = qkv.view(B, S, 3, nH, Dh).permute(2, 0, 3, 1, 4)
+    d4 = dctx.view(B, S, nH, Dh).permute(0, 2, 1, 3).contiguous()
+    for kbias, qbias in ((kb, None), (None, qb)):
+        bias = (kb.to(bf)[:, None, None, :] if qbias is None
+                else qb.to(bf)[:, None])
+        lib = library_backward(
+            lambda q, k, v, bias=bias: torch.matmul(
+                torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * sc
+                              + bias, dim=-1) * amask, v),
+            (q4[0].contiguous(), q4[1].contiguous(), q4[2].contiguous()), d4)
+        cost = dict(flops=10.0 * B * nH * S * S * Dh,
+                    nbytes=nbytes(qkv, dctx, kbias, qbias, amask, qkv, kb))
+        chk.case("biased_attention_bwd",
+                 lambda kbias=kbias, qbias=qbias: K.biased_attention_bwd(
+                     qkv, dctx, nH, S, sc, kbias, qbias, amask),
+                 lambda kbias=kbias, qbias=qbias: K.biased_attention_bwd_plain(
+                     qkv, dctx, nH, S, sc, kbias, qbias, amask),
+                 KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+        q3, d3 = qkv.view(B, S, 3 * C), dctx.view(B, S, C)
+        chk.case("seq_attention_core_bwd",
+                 lambda kbias=kbias, qbias=qbias: blocks.seq_attention_core_bwd(
+                     q3, d3, kbias, qbias, amask, sc, nH),
+                 lambda kbias=kbias, qbias=qbias:
+                 blocks.seq_attention_core_bwd_plain(q3, d3, kbias, qbias,
+                                                     amask, sc, nH),
+                 KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+    N8 = 128
+    q8, c8 = rnd(B * N8, 3 * C, std=0.5), rnd(B * N8, C)
+    kb8 = inp.key_bias([N8 - (5 * i) % 40 for i in range(B)], N8)
+    t8 = q8.view(B, N8, 3, nH, Dh).permute(2, 0, 3, 1, 4)
+    chk.case("biased_attention_bwd",
+             lambda: K.biased_attention_bwd(q8, c8, nH, N8, sc, kb8),
+             lambda: K.biased_attention_bwd_plain(q8, c8, nH, N8, sc, kb8),
+             KERNEL_BAR, floor=1e-6,
+             library_fn=library_backward(
+                 lambda q, k, v: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=kb8.to(bf)[:, None, None, :],
+                     scale=sc),
+                 (t8[0].contiguous(), t8[1].contiguous(), t8[2].contiguous()),
+                 c8.view(B, N8, nH, Dh).permute(0, 2, 1, 3).contiguous()),
+             flops=10.0 * B * nH * N8 * N8 * Dh,
+             nbytes=nbytes(q8, c8, kb8, q8, kb8))
+    try:
+        K.biased_attention_bwd(rnd(B * 141, 3 * C), rnd(B * 141, C), nH, 141,
+                               sc)
+    except ValueError as e:
+        print(f"K4 refuses N = 141 before launching: {e}", flush=True)
+    else:
+        raise AssertionError("K4 took N = 141, beyond its shared memory")
+
+    # K1's epilogue multiplier: proj (+x, f32 out) and fc2 (+x, f32 out)
+    for Kd in (C, I):
+        a, (w, b) = rnd(M, Kd), dense(Kd, C)
+        chk.case("gemm",
+                 lambda a=a, w=w, b=b: K.gemm(a, w, b, residual=x, emask=hmask,
+                                              out_dtype=f32),
+                 lambda a=a, w=w, b=b: K.gemm_plain(a, w, b, residual=x,
+                                                    emask=hmask, out_dtype=f32),
+                 KERNEL_BAR,
+                 library_fn=lambda a=a, w=w, b=b: F.linear(a, w, b) * hmask + x,
+                 flops=2.0 * M * Kd * C,
+                 nbytes=nbytes(a, w, b, x, hmask) + 4 * M * C)
+
+    # K5 with hmask
+    res = rnd(M, C, std=2.0, dtype=f32) + 0.3
+    lns, lnb = ln(C)
+    g = rnd(M, C)
+    ln_grads = library_backward(
+        lambda r, s_, b_: F.layer_norm(r, (C,), s_, b_, 1e-12), (res, lns, lnb),
+        g.float())
+
+    def lib_k5():
+        dr = ln_grads()[0]
+        da = dr * hmask
+        return dr, da, da.sum(0)
+
+    chk.case("layernorm_bwd",
+             lambda: K.layernorm_bwd(res, lns, g, 1e-12, hmask=hmask),
+             lambda: K.layernorm_bwd_plain(res, lns, g, 1e-12, hmask=hmask),
+             KERNEL_BAR, library_fn=lib_k5, floor=1e-6, flops=14.0 * M * C,
+             nbytes=nbytes(res, lns, g, hmask, res, g) + 12 * C)
+
+    # the masked forward counterparts (B, S, C); library: F.linear, the
+    # masked attention above, F.layer_norm, in bf16
+    x3, h3 = x.view(B, S, C), hmask.view(B, S, C)
+    (wq, bq), (wp, bp) = dense(C, 3 * C), dense(C, C)
+    lns2, lnb2 = ln(C)
+    lgb = bf16_ln(lns2, lnb2)
+    for kbias, qbias in ((kb, None), (None, qb)):
+        bias = (kb.to(bf)[:, None, None, :] if qbias is None
+                else qb.to(bf)[:, None])
+        args = (x3, wq, bq, wp, bp, kbias, qbias, amask, h3, lns2, lnb2, sc,
+                nH, 1e-12)
+
+        def lib_attn(bias=bias):
+            ctx = lib_masked_attention(F.linear(x, wq, bq), B, S, nH, bias,
+                                       amask, sc)
+            return F.layer_norm(F.linear(ctx, wp, bp) * hmask + x, (C,),
+                                *lgb, 1e-12).view(B, S, C)
+
+        chk.case("fused_attn_ln_masked",
+                 lambda args=args: blocks.fused_attn_ln_masked(*args),
+                 lambda args=args: blocks.fused_attn_ln_masked_plain(*args),
+                 BLOCK_BAR, library_fn=lib_attn,
+                 flops=2.0 * M * C * 4 * C + 4.0 * B * nH * S * S * Dh,
+                 nbytes=nbytes(x, wq, bq, wp, bp, kbias, qbias, amask, hmask,
+                               lns2, lnb2, x))
+    (w1, b1), (w2, b2) = dense(C, I), dense(I, C)
+    mlp = (x3, w1, b1, w2, b2, h3, lns2, lnb2, 1e-12)
+
+    def lib_mlp(xx=x, h=hmask):
+        y = F.linear(F.gelu(F.linear(xx, w1, b1)), w2, b2) * h + xx
+        return F.layer_norm(y, (C,), *lgb, 1e-12).view(B, S, C)
+
+    chk.case("fused_mlp_ln_masked", lambda: blocks.fused_mlp_ln_masked(*mlp),
+             lambda: blocks.fused_mlp_ln_masked_plain(*mlp), BLOCK_BAR,
+             library_fn=lib_mlp, flops=2.0 * M * C * 2 * I,
+             nbytes=nbytes(x, w1, b1, w2, b2, hmask, lns2, lnb2, x))
+
+    # the MLP-half VJP with hmask; library: the autograd backward of lib_mlp
+    with torch.no_grad():
+        mm_ = F.gelu(F.linear(x.float(), w1.float(), b1.float()))
+        res2 = (F.linear(mm_.to(bf).float(), w2.float(), b2.float())
+                * hmask.float() + x.float()).contiguous()
+    lib_bwd = library_backward(
+        lambda xx, a_, b_, c_, d_: (F.layer_norm(
+            F.linear(F.gelu(F.linear(xx, a_, b_)), c_, d_) * hmask + xx, (C,),
+            *lgb, 1e-12)), (x, w1, b1, w2, b2), g)
+    chk.case("mlp_ln_half_bwd",
+             lambda: blocks.mlp_ln_half_bwd(x, res2, g, hmask, w1, b1, w2,
+                                            lns2),
+             lambda: blocks.mlp_ln_half_bwd_plain(x, res2, g, hmask, w1, b1,
+                                                  w2, lns2),
+             BLOCK_BAR, library_fn=lib_bwd, floor=1e-6,
+             flops=5 * 2.0 * M * C * I,
+             nbytes=nbytes(x, res2, g, hmask, w1, b1, w2, lns2) + 4 * (
+                 M * C + 2 * C * I + I + 3 * C))
+
+
 def launch_counts() -> dict:
     from mvlt_tpu_torch.ops import blocks, kernels
     counts = {k.__name__: k.launches for k in kernels.KERNELS}
@@ -616,14 +843,16 @@ def main() -> int:
     chk = Checker()
     kernel_checks(chk, dev)
     train_kernel_checks(chk, dev)
+    pretrain_kernel_checks(chk, dev)
     by_path = {"vqa_forward": forward_phase(dev, card),
-               "vqa_train_step": train_phase(dev, card)}
+               "vqa_train_step": train_phase(dev, card),
+               "pretrain_train_step": pretrain_phase(dev, card)}
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
 
     rows = []
-    counterparts = {**EXPECTED, **EXPECTED_TRAIN}
+    counterparts = {**EXPECTED, **EXPECTED_TRAIN, **EXPECTED_PRETRAIN}
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces})
@@ -640,6 +869,44 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def compare_grads(model_k, model_p, what: str) -> None:
+    """Every parameter's gradient, kernels vs plain: the fusion encoder, the
+    heads and ``resnet_fc`` by max abs err over max|plain grad| (GRAD_BAR),
+    the ResNet by relative Frobenius norm (BACKBONE_GRAD_BAR). A parameter
+    the loss does not reach has no gradient on either side."""
+    stats, failures = [], []
+    for (name, pk), (_, pp) in zip(model_k.named_parameters(),
+                                   model_p.named_parameters()):
+        gk, gp = pk.grad, pp.grad
+        if gk is None and gp is None:
+            continue
+        if gk is None or gp is None or not torch.isfinite(gk).all():
+            raise AssertionError(f"gradient of {name} missing or non-finite")
+        diff = (gk - gp).float()
+        scale = gp.abs().max().item()
+        rel = diff.abs().max().item() / scale if scale > 0 else 0.0
+        norm = gp.float().norm().item()
+        frob = diff.norm().item() / norm if norm > 0 else 0.0
+        backbone = name.startswith("conv.backbone.")
+        stats.append((rel, frob, name))
+        if (frob if backbone else rel) > (BACKBONE_GRAD_BAR if backbone
+                                          else GRAD_BAR):
+            failures.append((name, rel, frob))
+    head = [s_ for s_ in stats if not s_[2].startswith("conv.backbone.")]
+    back = [s_ for s_ in stats if s_[2].startswith("conv.backbone.")]
+    w_head, w_back = max(head), max(back, key=lambda s_: s_[1])
+    print(f"{what}, kernels vs plain, {len(stats)} tensors: fusion "
+          f"/ heads / resnet_fc worst {w_head[2]} max abs err "
+          f"{w_head[0]:.4g} x max|plain grad| (bar {GRAD_BAR}); backbone "
+          f"worst {w_back[2]} relative Frobenius {w_back[1]:.4g} (bar "
+          f"{BACKBONE_GRAD_BAR}); largest max-abs ratios "
+          f"{[(n, round(r, 4)) for r, _, n in sorted(stats)[-4:]]}",
+          flush=True)
+    if failures:
+        raise AssertionError(f"{len(failures)} gradients beyond the bar: "
+                             f"{failures[:5]}")
 
 
 def forward_phase(dev, card: str) -> dict:
@@ -725,36 +992,7 @@ def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
                                  "train step")
     out_p = step_p(batch_p)
     torch.cuda.synchronize()
-
-    stats, failures = [], []
-    for (name, pk), (_, pp) in zip(step_k.model.named_parameters(),
-                                   step_p.model.named_parameters()):
-        gk, gp = pk.grad, pp.grad
-        if gk is None or gp is None or not torch.isfinite(gk).all():
-            raise AssertionError(f"gradient of {name} missing or non-finite")
-        diff = (gk - gp).float()
-        scale = gp.abs().max().item()
-        rel = diff.abs().max().item() / scale if scale > 0 else 0.0
-        norm = gp.float().norm().item()
-        frob = diff.norm().item() / norm if norm > 0 else 0.0
-        backbone = name.startswith("conv.backbone.")
-        stats.append((rel, frob, name))
-        if (frob if backbone else rel) > (BACKBONE_GRAD_BAR if backbone
-                                          else GRAD_BAR):
-            failures.append((name, rel, frob))
-    head = [s_ for s_ in stats if not s_[2].startswith("conv.backbone.")]
-    back = [s_ for s_ in stats if s_[2].startswith("conv.backbone.")]
-    w_head, w_back = max(head), max(back, key=lambda s_: s_[1])
-    print(f"step-1 gradients, kernels vs plain, {len(stats)} tensors: fusion "
-          f"/ heads / resnet_fc worst {w_head[2]} max abs err "
-          f"{w_head[0]:.4g} x max|plain grad| (bar {GRAD_BAR}); backbone "
-          f"worst {w_back[2]} relative Frobenius {w_back[1]:.4g} (bar "
-          f"{BACKBONE_GRAD_BAR}); largest max-abs ratios "
-          f"{[(n, round(r, 4)) for r, _, n in sorted(stats)[-4:]]}",
-          flush=True)
-    if failures:
-        raise AssertionError(f"{len(failures)} gradients beyond the bar: "
-                             f"{failures[:5]}")
+    compare_grads(step_k.model, step_p.model, "step-1 gradients")
 
     losses = {"kernels": [out_k["loss"].item()],
               "plain": [out_p["loss"].item()]}
@@ -793,6 +1031,113 @@ def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
           f"peak memory in a kernel step {peak / 2 ** 30:.3f} GiB "
           f"(with {resident / 2 ** 30:.3f} GiB resident, both models)",
           flush=True)
+    return counts
+
+
+def pretrain_phase(dev, card: str, timed_steps: int = 6) -> dict:
+    """The MLM+ITM pretrain train step (ResNet-101 + BERT-base, S = 131, b32,
+    dropout 0.1) on the kernels and on the plain versions from one seed;
+    the plain run replays the dropout masks the kernel run drew. Gradients
+    from the initial parameters in both mask modes, the launch counts of one
+    step, the losses of 3 steps, then step times in turns. Returns the
+    launch counts of one step."""
+    from mvlt_tpu_torch.flagship import build_pretrain_train_step
+    from mvlt_tpu_torch.ops import kernels
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    from mvlt_tpu_torch.train.steps import seq2seq_coin_flip
+    B = TRAIN_BATCH
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    step_k, batch = build_pretrain_train_step(batch=B, text_len=PRETRAIN_TEXT,
+                                              device=dev)
+    step_p, batch_p = build_pretrain_train_step(
+        batch=B, text_len=PRETRAIN_TEXT, device=dev, plain=True)
+    n_params = sum(p.numel() for p in step_k.model.parameters())
+    labels = (batch["caption_label"] != -100).sum().item()
+    print(f"pretrain step built twice in {time.perf_counter() - t0:.1f} s: "
+          f"{n_params} parameters, image {tuple(batch['image'].shape)}, "
+          f"caption {tuple(batch['caption_masked'].shape)}, {labels} MLM "
+          f"labels, padded caption tokens "
+          f"{(batch['caption_masked'] == 0).sum().item()}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def recording():
+        return DropoutMasks(gen, record=True)
+
+    keys = ("image", "caption_masked", "caption_label", "itm_label")
+    for seq2seq in (False, True):
+        masks = recording()
+        for model, b, plain, src in (
+                (step_k.model, batch, False, masks),
+                (step_p.model, batch_p, True, None)):
+            model.zero_grad(set_to_none=True)
+            src = src or DropoutMasks.replay(masks.recorded)
+            loss, _ = model.loss(*(b[k] for k in keys), seq2seq=seq2seq,
+                                 plain=plain, masks=src)
+            loss.backward()
+        torch.cuda.synchronize()
+        compare_grads(step_k.model, step_p.model,
+                      f"initial gradients ({'seq2seq' if seq2seq else 'bidirectional'})")
+        del masks
+
+    losses, counts = {"kernels": [], "plain": []}, None
+    for i, seq2seq in enumerate(PRETRAIN_MODES):
+        step_k.masks = recording()
+        if i == 0:
+            reset_counts()
+        out_k = step_k(batch, seq2seq)
+        torch.cuda.synchronize()
+        if i == 0:
+            counts = launch_counts()
+            print(f"launches in one pretrain step: {json.dumps(counts)}",
+                  flush=True)
+            for name, (want, _) in EXPECTED_PRETRAIN.items():
+                if counts[name] != want:
+                    raise AssertionError(f"{name} ran {counts[name]} times in "
+                                         f"one pretrain step, expected {want}")
+            for k in kernels.KERNELS:
+                if counts[k.__name__] <= 0:
+                    raise AssertionError(f"kernel {k.__name__} never launched "
+                                         "in the pretrain step")
+        step_p.masks = DropoutMasks.replay(step_k.masks.recorded)
+        out_p = step_p(batch_p, seq2seq)
+        losses["kernels"].append({k: v.item() for k, v in out_k.items()})
+        losses["plain"].append({k: v.item() for k, v in out_p.items()})
+    print(f"losses of {len(PRETRAIN_MODES)} steps (seq2seq "
+          f"{list(PRETRAIN_MODES)}): {json.dumps(losses)}", flush=True)
+    for i, (lk, lp) in enumerate(zip(losses["kernels"], losses["plain"])):
+        for name in ("loss", "mlm_loss", "itm_loss"):
+            a, b = lk[name], lp[name]
+            if not (abs(a - b) <= LOSS_BAR * abs(b) and a == a):
+                raise AssertionError(f"step {i + 1} {name} {a} vs plain {b} "
+                                     f"beyond {LOSS_BAR} relative")
+
+    times, peak, resident = {"kernels": [], "plain": []}, None, None
+    for which in ("plain", "kernels", "kernels", "plain"):
+        step, b = (step_k, batch) if which == "kernels" else (step_p, batch_p)
+        step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
+        flips = torch.Generator().manual_seed(0)
+        step(b, seq2seq_coin_flip(flips))
+        torch.cuda.synchronize()
+        measure = which == "kernels" and peak is None
+        if measure:
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            step(b, seq2seq_coin_flip(flips))
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3 / timed_steps)
+        if measure:
+            peak = torch.cuda.max_memory_allocated()
+    ms_k = sum(times["kernels"]) / 2
+    ms_p = sum(times["plain"]) / 2
+    print(f"MLM+ITM pretrain step b{B} (S = 131) on {card}: kernels "
+          f"{ms_k:.3f} ms/step ({B * 1e3 / ms_k:.1f} samples/s), plain "
+          f"{ms_p:.3f} ms/step ({B * 1e3 / ms_p:.1f} samples/s); runs "
+          f"{json.dumps(times)}; peak memory in a kernel step "
+          f"{peak / 2 ** 30:.3f} GiB (with {resident / 2 ** 30:.3f} GiB "
+          "resident, both models)", flush=True)
     return counts
 
 

@@ -178,3 +178,12 @@ class MVLTConfig:
             result_num=224, lr=4e-5)
         base.update(kw)
         return MVLTConfig(**base)
+
+    @staticmethod
+    def for_pretrain(**kw) -> "MVLTConfig":
+        base = dict(
+            fusion=FusionConfig(hidden_dropout_prob=0.1,
+                                attention_probs_dropout_prob=0.1),
+            itm_task=False, max_length=150, lr=4e-5)
+        base.update(kw)
+        return MVLTConfig(**base)

@@ -6,6 +6,11 @@
 //                                        bias, with the -100 shift mask folded
 //                                        in for SW-MSA blocks)
 //           + kbias[g, j]               (optional; BERT key padding, -10000)
+//           + qbias[g, i, j]            (optional; the seq2seq / UniLM mask,
+//                                        per sample, shared by the heads)
+// and, optionally, the softmax output is multiplied by amask[g, h, i, j] (the
+// attention-dropout mask, 0 or 1/keep, bf16) before p is rounded to bf16 for
+// the PV product: the interpret path of `_attn_ln_kernel` :2220-2233.
 //
 // Replaces the attention core of the TPU kernels in
 // mvlt_tpu/ops/pallas_attn.py: `_attend` as called from `_full_body`
@@ -14,12 +19,15 @@
 // f32 from q scaled in f32, a max-subtracted softmax with an exact divide,
 // probabilities rounded to bf16 before the PV product, PV accumulated in f32.
 //
-// Bound: tiny per block (N <= 128, Dh <= 64: at most ~2 MFLOP), so the cost is
-// reading QKV once and writing ctx once. One block per (group, head) keeps the
-// whole N x N score tile in shared memory and masks its own ragged edge, so
-// the port needs neither the TPU's pad-to-8 rows nor its window-pair merge.
-// Scalar FMA from shared memory; tensor cores and several heads per block are
-// later work.
+// Bound: tiny per block (N <= 162, Dh <= 64: at most ~7 MFLOP), so the cost is
+// reading QKV (and the masks) once and writing ctx once. One block per
+// (group, head) keeps the whole N x N score tile in shared memory and masks
+// its own ragged edge, so the port needs neither the TPU's pad-to-8 rows nor
+// its window-pair merge; qbias and amask are read from device memory where
+// used, with no tile of their own. At Dh = 64 the tiles admit N <= 162 within
+// the 232,448 bytes a block may opt in to (`smem_bytes` below; the wrapper in
+// ops/kernels.py mirrors it). Scalar FMA from shared memory; tensor cores and
+// several heads per block are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -28,12 +36,22 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_N = 128;
 constexpr int MAX_DH = 64;
+constexpr size_t H100_SMEM_OPTIN = 232448;
+
+// q (pre-scaled) and v: N x Dh f32; k: N x (Dh + 1); scores: N x (N + 1)
+__host__ __device__ constexpr size_t smem_bytes(int N, int Dh) {
+  return sizeof(float) * ((size_t)N * Dh * 2 + (size_t)N * (Dh + 1) + (size_t)N * (N + 1));
+}
+// the largest N at MAX_DH on an H100
+constexpr int MAX_N = 162;
+static_assert(smem_bytes(MAX_N, MAX_DH) <= H100_SMEM_OPTIN && smem_bytes(MAX_N + 1, MAX_DH) > H100_SMEM_OPTIN,
+              "MAX_N follows smem_bytes");
 
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ pattern,
-                 const float* __restrict__ kbias, __nv_bfloat16* __restrict__ ctx, int N, int C,
+                 const float* __restrict__ kbias, const float* __restrict__ qbias,
+                 const __nv_bfloat16* __restrict__ amask, __nv_bfloat16* __restrict__ ctx, int N, int C,
                  int Dh, int P, float scale) {
   extern __shared__ __align__(16) float sm[];
   const int ldk = Dh + 1;  // odd row stride: threads on consecutive keys hit distinct banks
@@ -61,6 +79,7 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict_
 
   const float* pb = pattern ? pattern + ((size_t)(g % P) * nH + h) * N * N : nullptr;
   const float* kb = kbias ? kbias + (size_t)g * N : nullptr;
+  const float* qb = qbias ? qbias + (size_t)g * N * N : nullptr;
   for (int e = tid; e < N * N; e += THREADS) {
     int i = e / N, j = e % N;
     const float* q = Q + i * Dh;
@@ -69,12 +88,15 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict_
     for (int d = 0; d < Dh; ++d) s = fmaf(q[d], k[d], s);
     if (pb) s += pb[i * N + j];
     if (kb) s += kb[j];
+    if (qb) s += qb[i * N + j];
     S[i * lds + j] = s;
   }
   __syncthreads();
 
-  // one warp per row: max-subtracted softmax, exact divide, bf16-rounded p
+  // one warp per row: max-subtracted softmax, exact divide, the dropout mask
+  // in f32, then p rounded to bf16
   const int lane = tid & 31;
+  const __nv_bfloat16* am = amask ? amask + ((size_t)g * nH + h) * N * N : nullptr;
   for (int i = tid >> 5; i < N; i += THREADS / 32) {
     float* srow = S + i * lds;
     float mx = -INFINITY;
@@ -87,7 +109,11 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict_
       sum += p;
     }
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int j = lane; j < N; j += 32) srow[j] = __bfloat162float(__float2bfloat16(srow[j] / sum));
+    for (int j = lane; j < N; j += 32) {
+      float p = srow[j] / sum;
+      if (am) p *= __bfloat162float(am[i * N + j]);
+      srow[j] = __bfloat162float(__float2bfloat16(p));
+    }
   }
   __syncthreads();
 
@@ -100,13 +126,35 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict_
   }
 }
 
+int smem_optin() {
+  static int bytes = -1;  // queried once
+  if (bytes < 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+      bytes = -1;
+  }
+  return bytes;
+}
+
 }  // namespace
 
-extern "C" int mvlt_attention(const void* qkv, const void* pattern, const void* kbias, void* ctx, int G,
-                              int N, int C, int nH, int P, float scale, void* stream) {
-  if (N < 1 || N > MAX_N || C % nH != 0 || C / nH > MAX_DH) return (int)cudaErrorInvalidValue;
+// The shared memory a block may opt in to on the current device (-1 if the query failed).
+extern "C" int mvlt_smem_optin(void) { return smem_optin(); }
+
+// Shared memory one block needs for (N, Dh); the wrapper checks it against the card's opt-in limit.
+extern "C" long long mvlt_attention_smem(int N, int Dh) { return (long long)smem_bytes(N, Dh); }
+
+// pattern (P, nH, N, N) f32, kbias (G, N) f32, qbias (G, N, N) f32 and amask (G, nH, N, N) bf16 may
+// each be null.
+extern "C" int mvlt_attention(const void* qkv, const void* pattern, const void* kbias, const void* qbias,
+                              const void* amask, void* ctx, int G, int N, int C, int nH, int P, float scale,
+                              void* stream) {
+  if (N < 1 || nH < 1 || C % nH != 0 || C / nH > MAX_DH) return (int)cudaErrorInvalidValue;
   const int Dh = C / nH;
-  const size_t smem = sizeof(float) * ((size_t)N * Dh * 2 + (size_t)N * (Dh + 1) + (size_t)N * (N + 1));
+  const size_t smem = smem_bytes(N, Dh);
+  const int optin = smem_optin();
+  if (optin < 0 || smem > (size_t)optin) return (int)cudaErrorInvalidValue;
   static size_t attr_bytes = 0;  // above 48 KB needs the opt-in
   if (smem > attr_bytes) {
     cudaError_t e = cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -117,6 +165,7 @@ extern "C" int mvlt_attention(const void* qkv, const void* pattern, const void* 
   dim3 grid(nH, G);
   attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(pattern),
-      static_cast<const float*>(kbias), static_cast<__nv_bfloat16*>(ctx), N, C, Dh, P, scale);
+      static_cast<const float*>(kbias), static_cast<const float*>(qbias),
+      static_cast<const __nv_bfloat16*>(amask), static_cast<__nv_bfloat16*>(ctx), N, C, Dh, P, scale);
   return (int)cudaGetLastError();
 }

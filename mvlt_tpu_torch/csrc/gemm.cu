@@ -19,6 +19,9 @@
 //   store the pre-activation to P[m, n] (optional, f32; the fc1 recompute)
 //   exact erf GELU                      (epi 1)
 //   * gelu'(P[m, n])                    (epi 2; P is an f32 input, dA1 = dM * gelu'(a1))
+//   * E[m, n]                           (optional bf16 multiplier: the hidden-dropout
+//                                        mask, `attn * hmask` at pallas_attn.py:2241-2243
+//                                        and the fc2 output of `_mlp_ln_kernel` :2836)
 //   + R[ridx ? ridx[m] : m, n]          (optional residual, bf16 or f32, optional row gather)
 //   store to row sidx ? sidx[m] : m     (optional row scatter), bf16 or f32
 //
@@ -100,6 +103,7 @@ struct Args {
   const int* sidx;
   void* Y;
   float* P;  // pre-activation: written (epi 0/1) or read (epi 2)
+  const __nv_bfloat16* E;  // epilogue multiplier (M, N), row m unscattered
   int M, N, K, epi, flags;
 };
 
@@ -271,6 +275,11 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Args p) {
           v0 = gelu_erf(v0);
           v1 = gelu_erf(v1);
         }
+        if (p.E) {
+          float2 e2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.E + pi));
+          v0 *= e2.x;
+          v1 *= e2.y;
+        }
         if (p.R) {
           size_t ri = (size_t)rrow * N + n;
           if (res_f32) {
@@ -325,12 +334,14 @@ cudaError_t dispatch(const Args& p, cudaStream_t s) {
 
 // layout: 0 NT, 1 NN, 2 TN; epi: 0 none, 1 GELU, 2 GELU'; flags: 1 f32 output, 2 f32 residual.
 // P: f32 (M, N) pre-activation, written when given with epi 0/1, read with epi 2.
+// E: bf16 (M, N) multiplier applied before the residual add, or null.
 extern "C" int mvlt_gemm(const void* A, const void* B, const void* bias, const void* R, const void* ridx,
-                         const void* sidx, void* Y, void* P, int M, int N, int K, int layout, int epi,
-                         int flags, void* stream) {
+                         const void* sidx, void* Y, void* P, const void* E, int M, int N, int K, int layout,
+                         int epi, int flags, void* stream) {
   Args p{static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(B),
          static_cast<const __nv_bfloat16*>(bias), R, static_cast<const int*>(ridx),
-         static_cast<const int*>(sidx), Y, static_cast<float*>(P), M, N, K, epi, flags};
+         static_cast<const int*>(sidx), Y, static_cast<float*>(P), static_cast<const __nv_bfloat16*>(E),
+         M, N, K, epi, flags};
   if (epi == EPI_GELU_GRAD && P == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (layout) {

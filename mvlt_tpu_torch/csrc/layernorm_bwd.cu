@@ -7,9 +7,12 @@
 // res (M, C), with gamma (C,) f32 and the upstream gradient g (M, C) bf16:
 //   xhat = (res - mean) * r,  r = rsqrt(var + eps)   (two-pass moments, as K3)
 //   dxhat = g * gamma
-//   dres = r * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))   (f32, + optional bf16 copy)
-// and the column sums over rows
-//   dgamma = sum g * xhat,  dbeta = sum g,  db = sum dres   (the fc2 / proj bias grad).
+//   dres = r * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))   (f32, for the residual path)
+//   da   = dres * hmask                  (optional bf16 hidden-dropout mask; da = dres without it)
+// with an optional bf16 copy of da (the cotangent of the proj / fc2 output), and
+// the column sums over rows
+//   dgamma = sum g * xhat,  dbeta = sum g,  db = sum da   (the fc2 / proj bias grad:
+//   `da` / `dbproj` at pallas_attn.py:2651,2663 and `dmlp` / `db2` at :2984,2989).
 // `column_sum` is the plain column sum of a bf16 or f32 (M, N) matrix (db1 over
 // the (M, 3072) fc1 cotangent, dbqkv over dQKV).
 //
@@ -46,8 +49,9 @@ __device__ __forceinline__ void fold(float (*red)[CPL * 32], const float (&acc)[
 template <int CPL>
 __global__ void __launch_bounds__(WARPS * 32)
 ln_bwd_kernel(const float* __restrict__ res, const float* __restrict__ gamma,
-              const __nv_bfloat16* __restrict__ g, float* __restrict__ dres,
-              __nv_bfloat16* __restrict__ dres_bf, float* __restrict__ part, int M, int C, float eps) {
+              const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ hmask,
+              float* __restrict__ dres, __nv_bfloat16* __restrict__ dres_bf, float* __restrict__ part,
+              int M, int C, float eps) {
   __shared__ float red[WARPS][CPL * 32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -104,6 +108,7 @@ ln_bwd_kernel(const float* __restrict__ res, const float* __restrict__ gamma,
       if (c >= C) continue;
       float d = r * (gv[t] * gam[t] - mdx - x[t] * mdxx);
       dres[(size_t)m * C + c] = d;
+      if (hmask) d *= __bfloat162float(hmask[(size_t)m * C + c]);
       if (dres_bf) dres_bf[(size_t)m * C + c] = __float2bfloat16(d);
       acc_g[t] += gv[t] * x[t];
       acc_b[t] += gv[t];
@@ -146,10 +151,11 @@ __global__ void reduce_kernel(const float* __restrict__ part, float* __restrict_
 }
 
 template <int CPL>
-cudaError_t ln_bwd_launch(const float* res, const float* gamma, const __nv_bfloat16* g, float* dres,
-                          __nv_bfloat16* dres_bf, float* part, int M, int C, float eps, cudaStream_t s) {
+cudaError_t ln_bwd_launch(const float* res, const float* gamma, const __nv_bfloat16* g,
+                          const __nv_bfloat16* hmask, float* dres, __nv_bfloat16* dres_bf, float* part, int M,
+                          int C, float eps, cudaStream_t s) {
   int blocks = (M + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  ln_bwd_kernel<CPL><<<blocks, WARPS * 32, 0, s>>>(res, gamma, g, dres, dres_bf, part, M, C, eps);
+  ln_bwd_kernel<CPL><<<blocks, WARPS * 32, 0, s>>>(res, gamma, g, hmask, dres, dres_bf, part, M, C, eps);
   return cudaGetLastError();
 }
 
@@ -158,22 +164,24 @@ cudaError_t ln_bwd_launch(const float* res, const float* gamma, const __nv_bfloa
 // Scratch rows the caller must provide to mvlt_layernorm_bwd (part: rows x 3C f32).
 extern "C" int mvlt_layernorm_bwd_blocks(int M) { return (M + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK; }
 
-// sums: (3, C) f32 out = [dgamma; dbeta; db]; dres_bf may be null.
-extern "C" int mvlt_layernorm_bwd(const void* res, const void* gamma, const void* g, void* dres, void* dres_bf,
-                                  void* part, void* sums, int M, int C, float eps, void* stream) {
+// sums: (3, C) f32 out = [dgamma; dbeta; db]; hmask and dres_bf may be null.
+extern "C" int mvlt_layernorm_bwd(const void* res, const void* gamma, const void* g, const void* hmask,
+                                  void* dres, void* dres_bf, void* part, void* sums, int M, int C, float eps,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto r = static_cast<const float*>(res);
   auto ga = static_cast<const float*>(gamma);
   auto gg = static_cast<const __nv_bfloat16*>(g);
+  auto hm = static_cast<const __nv_bfloat16*>(hmask);
   auto d = static_cast<float*>(dres);
   auto db = static_cast<__nv_bfloat16*>(dres_bf);
   auto pt = static_cast<float*>(part);
   cudaError_t e;
-  if (C <= 128) e = ln_bwd_launch<4>(r, ga, gg, d, db, pt, M, C, eps, s);
-  else if (C <= 256) e = ln_bwd_launch<8>(r, ga, gg, d, db, pt, M, C, eps, s);
-  else if (C <= 512) e = ln_bwd_launch<16>(r, ga, gg, d, db, pt, M, C, eps, s);
-  else if (C <= 768) e = ln_bwd_launch<24>(r, ga, gg, d, db, pt, M, C, eps, s);
-  else if (C <= 1024) e = ln_bwd_launch<32>(r, ga, gg, d, db, pt, M, C, eps, s);
+  if (C <= 128) e = ln_bwd_launch<4>(r, ga, gg, hm, d, db, pt, M, C, eps, s);
+  else if (C <= 256) e = ln_bwd_launch<8>(r, ga, gg, hm, d, db, pt, M, C, eps, s);
+  else if (C <= 512) e = ln_bwd_launch<16>(r, ga, gg, hm, d, db, pt, M, C, eps, s);
+  else if (C <= 768) e = ln_bwd_launch<24>(r, ga, gg, hm, d, db, pt, M, C, eps, s);
+  else if (C <= 1024) e = ln_bwd_launch<32>(r, ga, gg, hm, d, db, pt, M, C, eps, s);
   else return (int)cudaErrorInvalidValue;
   if (e != cudaSuccess) return (int)e;
   int W = 3 * C;

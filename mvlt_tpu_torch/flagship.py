@@ -7,6 +7,12 @@
   fusion (S = 1 + 49 + 1 + 23 = 74) + pooler + 224 answers, forward +
   backward + AdamW, bf16 compute with f32 master weights, fusion dropouts
   0.0 (the JAX ``make_vqa_step`` path, ``train/steps.py:236``).
+- The MLM+ITM pretrain train step: ResNet-101 @224 + ``resnet_fc`` +
+  BERT-base fusion over S = 1 + 49 + 1 + 80 = 131 in either mask mode, the
+  two MLM heads on the gathered label positions and ``itm_mlp``, forward +
+  backward + AdamW, bf16 compute with f32 masters, fusion dropouts 0.1 (the
+  JAX ``make_pretrain_step`` path, ``train/steps.py:251``; text length 80
+  as ``run_pretrain.py:31``).
 
 Weights are random, drawn from a numpy seed: normal(0, 0.02) for every dense
 and conv weight, bias, embedding and relative-position table, and LayerNorm
@@ -24,10 +30,10 @@ import torch
 
 from mvlt_tpu_torch.config import MVLTConfig, resnet101, swin_small
 from mvlt_tpu_torch.models.backbones.resnet import BatchNorm
-from mvlt_tpu_torch.models.heads import VQAModel
-from mvlt_tpu_torch.ops.layers import LayerNorm
+from mvlt_tpu_torch.models.heads import PretrainModel, VQAModel
+from mvlt_tpu_torch.ops.layers import DropoutMasks, LayerNorm
 from mvlt_tpu_torch.train.state import make_optimizer
-from mvlt_tpu_torch.train.steps import make_vqa_step
+from mvlt_tpu_torch.train.steps import make_pretrain_step, make_vqa_step
 
 
 def flagship_vqa_config() -> MVLTConfig:
@@ -42,6 +48,21 @@ def flagship_vqa_train_config() -> MVLTConfig:
         cfg, conv="resnet101", resnet=resnet101(),
         fusion=dataclasses.replace(cfg.fusion, hidden_dropout_prob=0.0,
                                    attention_probs_dropout_prob=0.0))
+
+
+def flagship_pretrain_config() -> MVLTConfig:
+    """MLM+ITM pretraining: ``for_pretrain`` (fusion dropouts 0.1) with the
+    ResNet-101 backbone, ITM on, text length 80."""
+    return MVLTConfig.for_pretrain(conv="resnet101", resnet=resnet101(),
+                                   itm_task=True, max_length=80)
+
+
+def _need_cuda(device, what: str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what}(device='cuda') needs a CUDA device and "
+                           "torch.cuda.is_available() is False")
+    return device
 
 
 @torch.no_grad()
@@ -83,10 +104,7 @@ def build_vqa_forward(batch: int = 8, seq_len: int = 23,
     ``forward(image, question, plain=False)`` returns the (B, 224) logits;
     ``forward.model`` is the seeded :class:`VQAModel`. ``device='cuda'``
     without a CUDA device raises: the flagship never falls back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_vqa_forward(device='cuda') needs a CUDA "
-                           "device and torch.cuda.is_available() is False")
+    device = _need_cuda(device, "build_vqa_forward")
     model = VQAModel(flagship_vqa_config(), dtype=dtype, device=device)
     init_seeded_(model, seed)
     image, question = example_inputs(batch, seq_len, seed)
@@ -118,10 +136,7 @@ def build_vqa_train_step(batch: int = 32, seq_len: int = 23, device="cuda",
     :func:`flagship_vqa_train_config`) and ``image_size`` shrink it for
     tests. ``device='cuda'`` without a CUDA
     device raises: the train step never falls back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_vqa_train_step(device='cuda') needs a CUDA "
-                           "device and torch.cuda.is_available() is False")
+    device = _need_cuda(device, "build_vqa_train_step")
     cfg = config or flagship_vqa_train_config()
     model = VQAModel(cfg, dtype=torch.float32, device=device,
                      compute_dtype=compute_dtype)
@@ -133,6 +148,66 @@ def build_vqa_train_step(batch: int = 32, seq_len: int = 23, device="cuda",
     data = {"image": image.to(device), "question": question.to(device),
             "label": label.to(device)}
     return step, data
+
+
+def example_pretrain_batch(batch: int, text_len: int, seed: int = 0,
+                           image_size: int = 224, vocab: int = 30000,
+                           mask_token_id: int = 103) -> dict:
+    """A pretrain batch from ``numpy.random.default_rng(seed)``: ``image``
+    (B, 3, H, W) f32; captions of 5..``text_len`` real tokens in [1, vocab)
+    with zero padding after them; each caption masked as the data pipeline
+    masks it (``mvlt_tpu/data/transforms.py:125-137``: min(10, max(1,
+    round(0.2 n))) of its n real positions, 80% [MASK], 10% a random token,
+    10% kept), ``caption_label`` the original token there and -100
+    elsewhere; ``itm_label`` in {0, 1}. Ids are int64."""
+    rng = np.random.default_rng(seed)
+    image = rng.normal(size=(batch, 3, image_size, image_size))
+    tokens = rng.integers(1, vocab, size=(batch, text_len))
+    lengths = rng.integers(min(5, text_len), text_len + 1, size=batch)
+    tokens[np.arange(text_len)[None, :] >= lengths[:, None]] = 0
+    caption, label = tokens.copy(), np.full_like(tokens, -100)
+    for b, n in enumerate(lengths):
+        for i in rng.permutation(n)[:min(10, max(1, round(n * 0.2)))]:
+            label[b, i] = tokens[b, i]
+            p = rng.random()
+            if p < 0.8:
+                caption[b, i] = mask_token_id
+            elif p < 0.9:
+                caption[b, i] = rng.integers(1, vocab)
+    itm = rng.integers(0, 2, size=batch)
+    as_long = lambda a: torch.from_numpy(a.astype(np.int64))  # noqa: E731
+    return {"image": torch.from_numpy(image.astype(np.float32)),
+            "caption_masked": as_long(caption),
+            "caption_label": as_long(label), "itm_label": as_long(itm)}
+
+
+def build_pretrain_train_step(batch: int = 32, text_len: int = 80,
+                              device="cuda", seed: int = 0,
+                              plain: bool = False,
+                              compute_dtype: torch.dtype = torch.bfloat16,
+                              config: MVLTConfig = None,
+                              image_size: int = 224) -> Tuple[Callable, dict]:
+    """(step, batch) for the MLM+ITM pretrain train step.
+    ``step(batch, seq2seq)`` runs forward + backward + AdamW in that mask
+    mode and returns ``{"mlm_loss", "itm_loss", "loss"}``; ``step.model`` /
+    ``step.optimizer`` are the seeded :class:`PretrainModel` (f32 masters,
+    ``compute_dtype`` math) and its AdamW, ``step.masks`` its dropout-mask
+    source (a generator on ``device`` seeded with ``seed``). ``plain=True``
+    runs the kernels' plain versions. ``config`` (default
+    :func:`flagship_pretrain_config`) and ``image_size`` shrink it for
+    tests. ``device='cuda'`` without a CUDA device raises: the train step
+    never falls back to the CPU."""
+    device = _need_cuda(device, "build_pretrain_train_step")
+    cfg = config or flagship_pretrain_config()
+    model = PretrainModel(cfg, dtype=torch.float32, device=device,
+                          compute_dtype=compute_dtype)
+    init_seeded_(model, seed)
+    data = example_pretrain_batch(batch, text_len, seed, image_size,
+                                  vocab=min(30000, cfg.fusion.vocab_size),
+                                  mask_token_id=cfg.mask_token_id)
+    step = make_pretrain_step(model, make_optimizer(model, cfg), plain=plain)
+    step.masks = DropoutMasks(torch.Generator(device=device).manual_seed(seed))
+    return step, {k: v.to(device) for k, v in data.items()}
 
 
 def entry():

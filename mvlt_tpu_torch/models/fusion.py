@@ -1,12 +1,24 @@
 """Single-stream fusion encoder of the port (counterpart of
-``mvlt_tpu/models/fusion.py``), the non-cached bidirectional path.
+``mvlt_tpu/models/fusion.py``), the non-cached path in both mask modes.
 
 Sequence ``[CLS] <image tokens> [SEP] <text tokens>``; token type 1 for
 positions <= obj_end and 0 for the text; positions a plain arange. As in the
 reference, the word-embedding table has ``vocab_size + 1`` rows and the
-embeddings enter the encoder with no LayerNorm (fusion.py:8-14, 331-343).
-Each post-LN BERT layer runs ``fused_attn_ln`` then ``fused_mlp_ln``, with
-q / k / v held as one fused (3H, H) dense (fusion.py:122-126).
+embeddings enter the encoder with no LayerNorm and no dropout
+(fusion.py:8-14, 331-352). Each post-LN BERT layer runs its attention half
+then its MLP half, with q / k / v held as one fused (3H, H) dense
+(fusion.py:122-126), routed as the JAX kernel gates route them
+(fusion.py:113-179, 236-262): ``fused_attn_ln`` / ``fused_mlp_ln`` when
+nothing is masked, ``fused_attn_ln_masked`` when a dropout mask or the
+seq2seq bias is live, ``fused_mlp_ln_masked`` under hidden dropout.
+
+Masks. The bidirectional mode adds the (B, S) key-padding bias; the seq2seq
+(UniLM) mode adds a (B, S, S) per-query bias and no key bias (JAX passes a
+zero key bias there, fusion.py:130-132; adding nothing is the same), and
+ignores text padding, as the reference does. In training (a mask source
+given) each layer draws, in JAX's order, the attention-dropout mask
+(B, nH, S, S), the attention output's hidden-dropout mask (B, S, H) and the
+MLP output's (B, S, H), each only where its rate is above 0.
 
 Dense weights and embeddings are cast to the compute dtype at every use (as
 the JAX layers do with ``.astype(cdt)``), so a model whose parameters are
@@ -21,7 +33,7 @@ import torch
 from torch import nn
 
 from mvlt_tpu_torch.config import FusionConfig
-from mvlt_tpu_torch.ops import masks
+from mvlt_tpu_torch.ops import masks as mask_lib
 from mvlt_tpu_torch.ops.layers import Dense, LayerNorm
 
 
@@ -39,21 +51,41 @@ class EncoderLayer(nn.Module):
                             device=device)
         self.output_layernorm = LayerNorm(H, eps, device=device)
         self.scale = cfg.head_dim ** -0.5
+        self.attn_dropout = cfg.attention_probs_dropout_prob
+        self.hidden_dropout = cfg.hidden_dropout_prob
 
-    def forward(self, hidden: torch.Tensor, kbias: torch.Tensor,
-                ops) -> torch.Tensor:
+    def forward(self, hidden: torch.Tensor, kbias, ops, qbias=None,
+                masks=None) -> torch.Tensor:
+        """kbias (B, S) f32 or None, qbias (B, S, S) f32 or None; ``masks``
+        (a :class:`DropoutMasks`) turns training dropout on."""
         dt = hidden.dtype
+        B, S, H = hidden.shape
 
         def w(dense):
             return dense.weight.to(dt), dense.bias.to(dt)
 
-        h = ops.fused_attn_ln(hidden, *w(self.qkv), *w(self.out), kbias,
-                              self.out_layernorm.weight,
-                              self.out_layernorm.bias, self.scale,
-                              self.num_heads, self.eps)
-        return ops.fused_mlp_ln(h, *w(self.intermediate), *w(self.output),
-                                self.output_layernorm.weight,
-                                self.output_layernorm.bias, self.eps)
+        def mask(rate, shape):
+            if masks is None or rate <= 0.0:
+                return None
+            return masks.scaled(1.0 - rate, shape, dt, hidden.device)
+
+        amask = mask(self.attn_dropout, (B, self.num_heads, S, S))
+        hmask = mask(self.hidden_dropout, (B, S, H))
+        ln1 = (self.out_layernorm.weight, self.out_layernorm.bias)
+        if qbias is None and amask is None and hmask is None:
+            h = ops.fused_attn_ln(hidden, *w(self.qkv), *w(self.out), kbias,
+                                  *ln1, self.scale, self.num_heads, self.eps)
+        else:
+            h = ops.fused_attn_ln_masked(hidden, *w(self.qkv), *w(self.out),
+                                         kbias, qbias, amask, hmask, *ln1,
+                                         self.scale, self.num_heads, self.eps)
+        ln2 = (self.output_layernorm.weight, self.output_layernorm.bias)
+        hmask = mask(self.hidden_dropout, (B, S, H))
+        if hmask is None:
+            return ops.fused_mlp_ln(h, *w(self.intermediate), *w(self.output),
+                                    *ln2, self.eps)
+        return ops.fused_mlp_ln_masked(h, *w(self.intermediate),
+                                       *w(self.output), hmask, *ln2, self.eps)
 
 
 class FusionEncoder(nn.Module):
@@ -80,7 +112,11 @@ class FusionEncoder(nn.Module):
         self.pooler = (Dense(H, H, dtype=dtype, device=device)
                        if add_pooling_layer else None)
 
-    def forward(self, text_idx, text_mask, image_feature, image_mask, ops):
+    def forward(self, text_idx, text_mask, image_feature, image_mask, ops,
+                seq2seq: bool = False, masks=None):
+        """Returns (hidden (B, S, H), pooled (B, H) or None). ``seq2seq``
+        selects the UniLM mask; ``masks`` (a :class:`DropoutMasks`) turns
+        training dropout on."""
         B, num_obj = image_feature.shape[:2]
         obj_end = num_obj + 1                            # index of [SEP]
         total = num_obj + text_idx.shape[1] + 2
@@ -95,10 +131,15 @@ class FusionEncoder(nn.Module):
         hidden = (vl + self.token_type_embeddings[token_type].to(dt)[None]
                   + self.position_embeddings[pos].to(dt)[None])
 
-        mask = masks.bidirectional_key_mask(image_mask, text_mask)
-        kbias = masks.mask_to_bias(mask)                          # (B, S)
+        if seq2seq:
+            kbias, qbias = None, mask_lib.mask_to_bias(
+                mask_lib.seq2seq_fusion_mask(B, obj_end, total,
+                                             vl.device)).contiguous()
+        else:
+            kbias, qbias = mask_lib.mask_to_bias(
+                mask_lib.bidirectional_key_mask(image_mask, text_mask)), None
         for layer in self.layers:
-            hidden = layer(hidden, kbias, ops)
+            hidden = layer(hidden, kbias, ops, qbias, masks)
         pooled = None
         if self.pooler is not None:
             first = self.pooler(hidden[:, 0], ops)

@@ -1,30 +1,41 @@
-"""Task heads of the port (counterpart of ``mvlt_tpu/models/heads.py``).
-This slice ports ``VQAModel`` (heads.py:65-94), its forward and its loss;
-the pretraining, retrieval and caption heads come with their slices."""
+"""Task heads of the port (counterpart of ``mvlt_tpu/models/heads.py``):
+``VQAModel`` (heads.py:65-94), its forward and its loss, and the MLM+ITM
+``PretrainModel`` (heads.py:97-156) with its heads. The retrieval and
+caption heads come with their slices.
+
+The heads' products and LayerNorms sit outside any TPU kernel in JAX, so in
+training they are plain PyTorch (``F.linear``, ``F.layer_norm``)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from mvlt_tpu_torch.config import MVLTConfig
 from mvlt_tpu_torch.models.backbones.adapter import VisualAdapter
 from mvlt_tpu_torch.models.fusion import FusionEncoder
 from mvlt_tpu_torch.ops.blocks import KERNEL_OPS, PLAIN_OPS
-from mvlt_tpu_torch.ops.layers import Dense, cross_entropy_ignore_index
+from mvlt_tpu_torch.ops.layers import (Dense, LayerNorm,
+                                       cross_entropy_ignore_index,
+                                       gather_label_positions, gelu_exact)
 
 
-class VQAModel(nn.Module):
-    """``MVLBertForVQA``: visual adapter -> fusion encoder -> pooled [CLS] ->
-    linear. The head's dropout is the identity (the forward is
-    deterministic; the loss requires zero fusion dropouts).
+def _check_masks(config: MVLTConfig, masks) -> None:
+    f = config.fusion
+    if masks is None and (f.hidden_dropout_prob or
+                          f.attention_probs_dropout_prob):
+        raise ValueError("training with fusion dropout needs a mask source "
+                         "(masks=DropoutMasks(...)); the train steps pass "
+                         "theirs")
 
-    ``dtype`` is the parameters' dtype; ``compute_dtype`` (default: the
-    same) the activations'. Serving builds the model in bf16; training
-    builds f32 masters with bf16 compute."""
 
-    def __init__(self, config: MVLTConfig, *, dtype: torch.dtype = torch.float32,
-                 device="cpu", compute_dtype=None):
+class _Backbone(nn.Module):
+    """Visual adapter + fusion encoder with its pooler, shared by the task
+    models."""
+
+    def __init__(self, config: MVLTConfig, *, dtype: torch.dtype, device,
+                 compute_dtype=None):
         super().__init__()
         cfg = config
         self.config = cfg
@@ -35,15 +46,42 @@ class VQAModel(nn.Module):
                                     sep_token_id=cfg.sep_token_id,
                                     dtype=dtype, device=device,
                                     compute_dtype=compute_dtype)
-        self.final_mlp = Dense(cfg.fusion.hidden_size, cfg.result_num,
-                               dtype=dtype, device=device)
 
-    def _logits(self, image, question, ops, train: bool):
+    def _encode(self, image, text, ops, train: bool, seq2seq: bool = False,
+                masks=None):
         feat = self.conv(image, ops, train=train)
-        text_mask = question > 0
         image_mask = torch.ones(feat.shape[:2], dtype=torch.bool,
                                 device=feat.device)
-        _, pooled = self.fusion(question, text_mask, feat, image_mask, ops)
+        hidden, pooled = self.fusion(text, text > 0, feat, image_mask, ops,
+                                     seq2seq=seq2seq, masks=masks)
+        return feat.shape[1] + 1, hidden, pooled      # obj_end: [SEP]
+
+
+class VQAModel(_Backbone):
+    """``MVLBertForVQA``: visual adapter -> fusion encoder -> pooled [CLS] ->
+    dropout -> linear. The forward is deterministic; the loss trains with
+    the fusion dropouts and the pooled output's dropout
+    (``hidden_dropout_prob``, heads.py:75,86) from a mask source.
+
+    ``dtype`` is the parameters' dtype; ``compute_dtype`` (default: the
+    same) the activations'. Serving builds the model in bf16; training
+    builds f32 masters with bf16 compute."""
+
+    def __init__(self, config: MVLTConfig, *, dtype: torch.dtype = torch.float32,
+                 device="cpu", compute_dtype=None):
+        super().__init__(config, dtype=dtype, device=device,
+                         compute_dtype=compute_dtype)
+        self.final_mlp = Dense(config.fusion.hidden_size, config.result_num,
+                               dtype=dtype, device=device)
+
+    def _logits(self, image, question, ops, train: bool, masks=None):
+        _, _, pooled = self._encode(image, question, ops, train, masks=masks)
+        rate = self.config.fusion.hidden_dropout_prob
+        if masks is not None and rate > 0.0:
+            # flax nn.Dropout: where(mask, x / keep, 0)
+            keep = 1.0 - rate
+            m = masks.draw(keep, pooled.shape, pooled.device)
+            pooled = torch.where(m, pooled / keep, torch.zeros_like(pooled))
         return self.final_mlp(pooled, ops)
 
     @torch.no_grad()
@@ -57,17 +95,97 @@ class VQAModel(nn.Module):
         return torch.softmax(logits.float(), dim=-1).to(logits.dtype), logits
 
     def loss(self, image: torch.Tensor, question: torch.Tensor,
-             label: torch.Tensor, plain: bool = False):
+             label: torch.Tensor, plain: bool = False, masks=None):
         """Training forward (``heads.py:90-94``): BatchNorms on batch
         statistics (their running averages updated), fusion encoder on the
-        autograd counterparts. Returns (mean CE over labels != -100 in f32,
-        logits)."""
-        f = self.config.fusion
-        if f.hidden_dropout_prob or f.attention_probs_dropout_prob:
-            raise NotImplementedError(
-                "fusion dropout in training (the hmask / amask options) comes "
-                "with the pretrain slice (ROADMAP.md queue B, item 2); set the "
-                "fusion dropouts to 0.0")
+        autograd counterparts, dropout masks from ``masks`` (a
+        :class:`DropoutMasks`; needed when a dropout rate is above 0).
+        Returns (mean CE over labels != -100 in f32, logits)."""
+        _check_masks(self.config, masks)
         logits = self._logits(image, question,
-                              PLAIN_OPS if plain else KERNEL_OPS, train=True)
+                              PLAIN_OPS if plain else KERNEL_OPS, train=True,
+                              masks=masks)
         return cross_entropy_ignore_index(logits, label), logits
+
+
+class HeadTransform(nn.Module):
+    """HF ``BertPredictionHeadTransform``: dense + exact GELU + LayerNorm
+    (statistics in f32, output in the input's dtype)."""
+
+    def __init__(self, hidden: int, eps: float, *, dtype: torch.dtype,
+                 device):
+        super().__init__()
+        self.transform_dense = Dense(hidden, hidden, dtype=dtype,
+                                     device=device)
+        self.transform_layernorm = LayerNorm(hidden, eps, device=device)
+
+    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+        x = gelu_exact(self.transform_dense(x, ops))
+        ln = self.transform_layernorm
+        return F.layer_norm(x.float(), (x.shape[-1],), ln.weight, ln.bias,
+                            ln.eps).to(x.dtype)
+
+
+class MLMHead(nn.Module):
+    """HF ``BertOnlyMLMHead``: transform + decoder to vocab logits."""
+
+    def __init__(self, hidden: int, vocab: int, eps: float, *,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        self.transform = HeadTransform(hidden, eps, dtype=dtype,
+                                       device=device)
+        self.decoder = Dense(hidden, vocab, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+        return self.decoder(self.transform(x, ops), ops)
+
+
+class PretrainModel(_Backbone):
+    """``MVLBertForPretraining``: visual adapter -> fusion encoder (either
+    mask mode) -> the MLM head of that mode on the gathered label positions
+    (``mlm_gather_k``), and ``itm_mlp`` on the pooled [CLS]. ``device`` has
+    no default: the caller says where the model lives."""
+
+    def __init__(self, config: MVLTConfig, *, dtype: torch.dtype = torch.float32,
+                 device, compute_dtype=None):
+        super().__init__(config, dtype=dtype, device=device,
+                         compute_dtype=compute_dtype)
+        f = config.fusion
+        head = dict(dtype=dtype, device=device)
+        self.mlm_head_seq2seq = MLMHead(f.hidden_size, f.vocab_size,
+                                        f.layer_norm_eps, **head)
+        self.mlm_head_bidir = MLMHead(f.hidden_size, f.vocab_size,
+                                      f.layer_norm_eps, **head)
+        self.itm_mlp = Dense(f.hidden_size, 2, **head)
+
+    def loss(self, image: torch.Tensor, caption_masked: torch.Tensor,
+             caption_label: torch.Tensor, itm_label: torch.Tensor = None,
+             seq2seq: bool = False, plain: bool = False, masks=None):
+        """Training forward (``heads.py:117-156``). image (B, C, H, W);
+        caption_masked (B, L) ids, 0 = padding; caption_label (B, L), -100
+        where no token is predicted; itm_label (B,) in {0, 1}. ``seq2seq``
+        picks the UniLM mask and its MLM head. Returns (loss, {"mlm_loss",
+        "itm_loss", "loss"}), the loss in f32: MLM CE [+ ITM CE]."""
+        _check_masks(self.config, masks)
+        cfg = self.config
+        ops = PLAIN_OPS if plain else KERNEL_OPS
+        obj_end, hidden, pooled = self._encode(image, caption_masked, ops,
+                                               True, seq2seq, masks)
+        text = hidden[:, obj_end + 1:obj_end + 1 + caption_masked.shape[1]]
+        label = caption_label
+        if cfg.mlm_gather_k:
+            text, label = gather_label_positions(text, label,
+                                                 cfg.mlm_gather_k)
+        head = self.mlm_head_seq2seq if seq2seq else self.mlm_head_bidir
+        metrics = {}
+        loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        if cfg.mlm_task:
+            metrics["mlm_loss"] = cross_entropy_ignore_index(head(text, ops),
+                                                             label)
+            loss = loss + metrics["mlm_loss"]
+        if cfg.itm_task:
+            metrics["itm_loss"] = cross_entropy_ignore_index(
+                self.itm_mlp(pooled, ops), itm_label)
+            loss = loss + metrics["itm_loss"]
+        metrics["loss"] = loss
+        return loss, metrics

@@ -1,5 +1,5 @@
 """The TPU kernels of the VQA forward and of the fusion encoder's training
-step, rebuilt from K1-K5.
+steps (VQA finetune, MLM+ITM pretrain), rebuilt from K1-K5.
 
 Each public function is named after its JAX counterpart in
 ``mvlt_tpu/ops/pallas_attn.py`` and takes the same arguments, with dense
@@ -17,10 +17,24 @@ port function                TPU kernel it replaces
 ``window_block_attention``   ``_block_kernel`` (:166)
 ``fused_mlp_preln``          ``_mlp_preln_kernel`` (:3359)
 ``fused_attn_ln``            ``_attn_ln_kernel`` (:2156)
+``fused_attn_ln_masked``     ``_attn_ln_kernel`` with qbias / amask /
+                             hmask (entry ``fused_attn_ln_masked`` :2721)
 ``fused_mlp_ln``             ``_mlp_ln_kernel`` (:2817)
+``fused_mlp_ln_masked``      ``_mlp_ln_kernel`` with hmask (entry :3194)
 ``seq_attention_core_bwd``   ``_seq_core_bwd_kernel`` (:2413), on K4
 ``mlp_ln_half_bwd``          ``_mlp_ln_bwd_kernel`` (:2931), on K1 + K5
 ===========================  ==========================================
+
+The masked twins take the dropout masks as inputs, as the JAX kernels do
+(values 0 or 1/keep in the compute dtype): ``amask`` (B, nH, N, N)
+multiplies the softmax output before p is rounded for the PV product (K2),
+``hmask`` (B, N, C) multiplies the proj / fc2 output before the residual
+add (K1's epilogue multiplier); ``qbias`` (B, N, N) f32 is the seq2seq
+mask, added to the scores. In the backward, K5 applies hmask to the
+cotangent that enters the products and to the bias gradient, and K4 takes
+qbias and amask. JAX pads N to a multiple of 8 with a -1e9 key bias in
+the backward (pallas_attn.py:2618-2630), a TPU layout choice; the port
+keeps N ragged.
 
 Training. When an input of ``fused_attn_ln`` or ``fused_mlp_ln`` requires
 grad, it runs as a ``torch.autograd.Function`` (the counterpart of the JAX
@@ -43,7 +57,8 @@ pairs and rows are not padded to multiples of 8, since K2 takes any N <= 128.
 One bf16 rounding differs from the fused TPU kernels: the residual sums
 that the TPU kernel keeps in f32 between its halves (``res1`` in
 ``_full_body``, ``x + attn`` before the post-LN) are rounded to the compute
-dtype where one K1 hands them to the next kernel. In float32 the two agree.
+dtype where one K1 hands them to the next kernel (in the inference forwards;
+the training forwards keep them in f32). In float32 the two agree.
 """
 
 from __future__ import annotations
@@ -151,36 +166,47 @@ def _cast(t, like):
     return None if t is None else t.to(like.dtype)
 
 
+def _rows2(t):
+    """(..., C) -> contiguous (rows, C), or None."""
+    return None if t is None else t.reshape(-1, t.shape[-1]).contiguous()
+
+
 class _AttnLN(torch.autograd.Function):
-    """``fused_attn_ln`` with its store-residual backward."""
+    """``fused_attn_ln`` / ``fused_attn_ln_masked`` with the store-residual
+    backward (``_attn_ln_bwd_stored``, bf16 branch :2653-2672)."""
 
     @staticmethod
-    def forward(ctx, p, x, wqkv, bqkv, wproj, bproj, kbias, lns, lnb,
-                scale, num_heads, eps):
+    def forward(ctx, p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, amask,
+                hmask, lns, lnb, scale, num_heads, eps):
         B, N, C = x.shape
         rows = x.reshape(B * N, C).contiguous()
+        hm = _rows2(hmask)
         qkv = p.gemm(rows, wqkv, bqkv)
-        attn = p.attention(qkv, num_heads, N, scale, key_bias=kbias)
-        res = p.gemm(attn, wproj, bproj, residual=rows,
+        attn = p.attention(qkv, num_heads, N, scale, key_bias=kbias,
+                           qbias=qbias, amask=amask)
+        res = p.gemm(attn, wproj, bproj, residual=rows, emask=hm,
                      out_dtype=torch.float32)
         out = p.layernorm(res, lns, lnb, eps, out_dtype=x.dtype)
-        ctx.save_for_backward(rows, wqkv, bqkv, wproj, bproj, kbias, lns,
-                              qkv, attn, res)
+        ctx.save_for_backward(rows, wqkv, bqkv, wproj, bproj, kbias, qbias,
+                              amask, hm, lns, qkv, attn, res)
         ctx.p, ctx.dims = p, (B, N, C, scale, num_heads, eps)
         return out.view(B, N, C)
 
     @staticmethod
     def backward(ctx, g):
         p, (B, N, C, scale, num_heads, eps) = ctx.p, ctx.dims
-        rows, wqkv, bqkv, wproj, bproj, kbias, lns, qkv, attn, res = \
-            ctx.saved_tensors
+        (rows, wqkv, bqkv, wproj, bproj, kbias, qbias, amask, hm, lns, qkv,
+         attn, res) = ctx.saved_tensors
         f32 = torch.float32
         g2 = g.reshape(B * N, C).to(rows.dtype).contiguous()
-        dres, da, dlns, dlnb, dbproj = p.layernorm_bwd(res, lns, g2, eps)
+        # da = dres * hmask feeds the proj products and dbproj; the residual
+        # path takes the unmasked dres
+        dres, da, dlns, dlnb, dbproj = p.layernorm_bwd(res, lns, g2, eps,
+                                                       hmask=hm)
         dwproj = p.gemm(da, attn, layout="tn", out_dtype=f32)
         dctx = p.gemm(da, wproj, layout="nn")
         dqkv, dkbias = p.seq_attention_core_bwd(
-            qkv.view(B, N, 3 * C), dctx.view(B, N, C), kbias, None, None,
+            qkv.view(B, N, 3 * C), dctx.view(B, N, C), kbias, qbias, amask,
             scale, num_heads)
         dqkv = dqkv.reshape(B * N, 3 * C)
         dwqkv = p.gemm(dqkv, rows, layout="tn", out_dtype=f32)
@@ -189,54 +215,80 @@ class _AttnLN(torch.autograd.Function):
                     out_dtype=rows.dtype)
         return (None, dx.view(B, N, C), _cast(dwqkv, wqkv), _cast(dbqkv, bqkv),
                 _cast(dwproj, wproj), _cast(dbproj, bproj),
-                dkbias if ctx.needs_input_grad[6] else None, dlns, dlnb,
-                None, None, None)
+                dkbias if ctx.needs_input_grad[6] else None, None, None, None,
+                dlns, dlnb, None, None, None)
 
 
 class _MlpLN(torch.autograd.Function):
-    """``fused_mlp_ln`` with its store-residual backward."""
+    """``fused_mlp_ln`` / ``fused_mlp_ln_masked`` with the store-residual
+    backward (``mlp_ln_half_bwd``)."""
 
     @staticmethod
-    def forward(ctx, p, x, w1, b1, w2, b2, lns, lnb, eps):
+    def forward(ctx, p, x, w1, b1, w2, b2, hmask, lns, lnb, eps):
         rows = x.reshape(-1, x.shape[-1]).contiguous()
+        hm = _rows2(hmask)
         m = p.gemm(rows, w1, b1, gelu=True)
-        res = p.gemm(m, w2, b2, residual=rows, out_dtype=torch.float32)
+        res = p.gemm(m, w2, b2, residual=rows, emask=hm,
+                     out_dtype=torch.float32)
         out = p.layernorm(res, lns, lnb, eps, out_dtype=x.dtype)
-        ctx.save_for_backward(rows, w1, b1, w2, b2, lns, res)
+        ctx.save_for_backward(rows, w1, b1, w2, b2, hm, lns, res)
         ctx.p, ctx.shape, ctx.eps = p, x.shape, eps
         return out.view(x.shape)
 
     @staticmethod
     def backward(ctx, g):
-        rows, w1, b1, w2, b2, lns, res = ctx.saved_tensors
+        rows, w1, b1, w2, b2, hm, lns, res = ctx.saved_tensors
         g2 = g.reshape(rows.shape).to(rows.dtype).contiguous()
         dx, dw1, db1, dw2, db2, dlns, dlnb = ctx.p.mlp_ln_half_bwd(
-            rows, res, g2, None, w1, b1, w2, lns, ctx.eps)
+            rows, res, g2, hm, w1, b1, w2, lns, ctx.eps)
         return (None, dx.to(rows.dtype).view(ctx.shape), _cast(dw1, w1),
-                _cast(db1, b1), _cast(dw2, w2), _cast(db2, b2), dlns, dlnb,
-                None)
+                _cast(db1, b1), _cast(dw2, w2), _cast(db2, b2), None, dlns,
+                dlnb, None)
+
+
+def _attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, amask, hmask,
+             lns, lnb, scale, num_heads, eps):
+    if _needs_grad(x, wqkv, bqkv, wproj, bproj, lns, lnb):
+        return _AttnLN.apply(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias,
+                             amask, hmask, lns, lnb, scale, num_heads, eps)
+    B, N, C = x.shape
+    rows = x.reshape(B * N, C)
+    qkv = p.gemm(rows, wqkv, bqkv)
+    ctx = p.attention(qkv, num_heads, N, scale, key_bias=kbias, qbias=qbias,
+                      amask=amask)
+    res = p.gemm(ctx, wproj, bproj, residual=rows, emask=_rows2(hmask))
+    return p.layernorm(res, lns, lnb, eps).view(B, N, C)
+
+
+def _mlp_ln(p, x, w1, b1, w2, b2, hmask, lns, lnb, eps):
+    if _needs_grad(x, w1, b1, w2, b2, lns, lnb):
+        return _MlpLN.apply(p, x, w1, b1, w2, b2, hmask, lns, lnb, eps)
+    rows = x.reshape(-1, x.shape[-1])
+    m = p.gemm(rows, w1, b1, gelu=True)
+    res = p.gemm(m, w2, b2, residual=rows, emask=_rows2(hmask))
+    return p.layernorm(res, lns, lnb, eps).view(x.shape)
 
 
 def _fused_attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, lns, lnb,
                    scale: float, num_heads: int, eps: float = 1e-12):
-    if _needs_grad(x, wqkv, bqkv, wproj, bproj, lns, lnb):
-        return _AttnLN.apply(p, x, wqkv, bqkv, wproj, bproj, kbias, lns, lnb,
-                             scale, num_heads, eps)
-    B, N, C = x.shape
-    rows = x.reshape(B * N, C)
-    qkv = p.gemm(rows, wqkv, bqkv)
-    ctx = p.attention(qkv, num_heads, N, scale, key_bias=kbias)
-    res = p.gemm(ctx, wproj, bproj, residual=rows)
-    return p.layernorm(res, lns, lnb, eps).view(B, N, C)
+    return _attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, None, None, None,
+                    lns, lnb, scale, num_heads, eps)
+
+
+def _fused_attn_ln_masked(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias,
+                          amask, hmask, lns, lnb, scale: float,
+                          num_heads: int, eps: float = 1e-12):
+    return _attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, amask,
+                    hmask, lns, lnb, scale, num_heads, eps)
 
 
 def _fused_mlp_ln(p, x, w1, b1, w2, b2, lns, lnb, eps: float = 1e-12):
-    if _needs_grad(x, w1, b1, w2, b2, lns, lnb):
-        return _MlpLN.apply(p, x, w1, b1, w2, b2, lns, lnb, eps)
-    rows = x.reshape(-1, x.shape[-1])
-    m = p.gemm(rows, w1, b1, gelu=True)
-    res = p.gemm(m, w2, b2, residual=rows)
-    return p.layernorm(res, lns, lnb, eps).view(x.shape)
+    return _mlp_ln(p, x, w1, b1, w2, b2, None, lns, lnb, eps)
+
+
+def _fused_mlp_ln_masked(p, x, w1, b1, w2, b2, hmask, lns, lnb,
+                         eps: float = 1e-12):
+    return _mlp_ln(p, x, w1, b1, w2, b2, hmask, lns, lnb, eps)
 
 
 def _seq_attention_core_bwd(p, qkv, dctx, kbias, qbias, amask, scale: float,
@@ -250,12 +302,9 @@ def _seq_attention_core_bwd(p, qkv, dctx, kbias, qbias, amask, scale: float,
 
 def _mlp_ln_half_bwd(p, x2, res2, g2, hmask2, w1, b1, w2, lns,
                      eps: float = 1e-12):
-    if hmask2 is not None:
-        raise NotImplementedError(
-            "the hmask option of mlp_ln_half_bwd comes with the pretrain "
-            "slice (ROADMAP.md queue B, item 2)")
     f32 = torch.float32
-    dres, dmlp, dlns, dlnb, db2 = p.layernorm_bwd(res2, lns, g2, eps)
+    dres, dmlp, dlns, dlnb, db2 = p.layernorm_bwd(res2, lns, g2, eps,
+                                                  hmask=hmask2)
     m, a1 = p.gemm(x2, w1, b1, gelu=True, save_preact=True)   # fc1 recompute
     dw2 = p.gemm(dmlp, m, layout="tn", out_dtype=f32)
     da1 = p.gemm(dmlp, w2, layout="nn", gelu_grad=a1)
@@ -317,12 +366,27 @@ Post-LN BERT attention half ``LN(x + proj(attn(x)))`` on (B, N, C), with a
 fused_mlp_ln, fused_mlp_ln_plain = _twins(_fused_mlp_ln, """\
 Post-LN BERT MLP half ``LN(x + fc2(GELU(fc1 x)))`` over rows of (..., C).""")
 
+fused_attn_ln_masked, fused_attn_ln_masked_plain = _twins(
+    _fused_attn_ln_masked, """\
+Training / seq2seq twin of ``fused_attn_ln``:
+``LN(x + proj(attn(x)) * hmask)``, the softmax of ``q k^T * scale + kbias +
+qbias`` multiplied by ``amask`` before the PV product. kbias (B, N) f32 or
+None, qbias (B, N, N) f32 or None, amask (B, nH, N, N) and hmask (B, N, C)
+in the compute dtype or None. K1 qkv -> K2 (kbias, qbias, amask) -> K1 proj
+(emask = hmask, + x) -> K3.""")
+
+fused_mlp_ln_masked, fused_mlp_ln_masked_plain = _twins(
+    _fused_mlp_ln_masked, """\
+Training twin of ``fused_mlp_ln``: ``LN(x + fc2(GELU(fc1 x)) * hmask)`` over
+rows of (..., C); hmask has the shape of x. K1 fc1+GELU -> K1 fc2
+(emask = hmask, + x) -> K3.""")
+
 seq_attention_core_bwd, seq_attention_core_bwd_plain = _twins(
     _seq_attention_core_bwd, """\
-VJP of the attention core of ``fused_attn_ln`` wrt (qkv, kbias), from the
-saved fused rows: qkv (B, N, 3C), dctx (B, N, C), kbias (B, N) f32. Returns
-``(dqkv (B, N, 3C) in qkv.dtype, dkbias (B, N) f32)``. ``qbias`` and
-``amask`` must be None (they come with the pretrain slice).""")
+VJP of the attention core of ``fused_attn_ln(_masked)`` wrt (qkv, kbias),
+from the saved fused rows: qkv (B, N, 3C), dctx (B, N, C), kbias (B, N) f32
+or None, qbias (B, N, N) f32 or None, amask (B, nH, N, N) or None. Returns
+``(dqkv (B, N, 3C) in qkv.dtype, dkbias (B, N) f32)``.""")
 
 mlp_ln_half_bwd, mlp_ln_half_bwd_plain = _twins(_mlp_ln_half_bwd, """\
 Backward of the post-LN MLP half from the saved f32 pre-LN sum: x2, g2
@@ -331,8 +395,9 @@ Backward of the post-LN MLP half from the saved f32 pre-LN sum: x2, g2
 weight grads f32 in the port's (out, in) layout. K5 LN VJP -> K1 fc1
 recompute (GELU and the f32 pre-activation) -> K1 tn dW2 -> K1 nn dm with
 the GELU' epilogue -> K5 column sum db1 -> K1 tn dW1 -> K1 nn dx (+dres).
-``hmask2`` must be None (it comes with the pretrain slice).""")
+``hmask2`` (M, C) or None: the fc2 output's dropout mask; K5 applies it to
+dmlp and db2 (``_mlp_ln_bwd_kernel`` :2984-2989).""")
 
 COUNTERPARTS = (swin_full_block, window_block_attention, fused_mlp_preln,
-                fused_attn_ln, fused_mlp_ln, seq_attention_core_bwd,
-                mlp_ln_half_bwd)
+                fused_attn_ln, fused_mlp_ln, fused_attn_ln_masked,
+                fused_mlp_ln_masked, seq_attention_core_bwd, mlp_ln_half_bwd)

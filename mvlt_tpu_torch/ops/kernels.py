@@ -43,15 +43,20 @@ SOURCES = {"gemm": "gemm.cu", "attention": "attention.cu",
            "layernorm_bwd": "layernorm_bwd.cu"}
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_i64 = ctypes.c_longlong
+# C function -> (argument types, result type)
 _SIGNATURES = {
-    "mvlt_gemm": [_vp] * 8 + [_int] * 6 + [_vp],
-    "mvlt_attention": [_vp] * 4 + [_int] * 5 + [_float, _vp],
-    "mvlt_layernorm": [_vp] * 5 + [_int, _int, _float, _int, _vp],
-    "mvlt_attention_bwd": [_vp] * 6 + [_int] * 4 + [_float, _vp],
-    "mvlt_layernorm_bwd": [_vp] * 7 + [_int, _int, _float, _vp],
-    "mvlt_layernorm_bwd_blocks": [_int],
-    "mvlt_column_sum": [_vp, _int, _vp, _vp, _int, _int, _vp],
-    "mvlt_column_sum_chunks": [_int, _int],
+    "mvlt_gemm": ([_vp] * 9 + [_int] * 6 + [_vp], _int),
+    "mvlt_attention": ([_vp] * 6 + [_int] * 5 + [_float, _vp], _int),
+    "mvlt_attention_smem": ([_int, _int], _i64),
+    "mvlt_smem_optin": ([], _int),
+    "mvlt_layernorm": ([_vp] * 5 + [_int, _int, _float, _int, _vp], _int),
+    "mvlt_attention_bwd": ([_vp] * 8 + [_int] * 4 + [_float, _vp], _int),
+    "mvlt_attention_bwd_smem": ([_int, _int], _i64),
+    "mvlt_layernorm_bwd": ([_vp] * 8 + [_int, _int, _float, _vp], _int),
+    "mvlt_layernorm_bwd_blocks": ([_int], _int),
+    "mvlt_column_sum": ([_vp, _int, _vp, _vp, _int, _int, _vp], _int),
+    "mvlt_column_sum_chunks": ([_int, _int], _int),
 }
 
 _build_lock = threading.Lock()
@@ -105,10 +110,10 @@ def build() -> dict:
         libs = {}
         for name, target in targets.items():
             lib = ctypes.CDLL(str(target))
-            for fn, argtypes in _SIGNATURES.items():
+            for fn, (argtypes, restype) in _SIGNATURES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
+                    getattr(lib, fn).restype = restype
             libs[name] = lib
         _libs.update(libs)
         return _libs
@@ -164,13 +169,15 @@ def gelu_grad_exact(a: torch.Tensor) -> torch.Tensor:
 
 def gemm_plain(a, w, bias=None, *, gelu: bool = False, residual=None,
                residual_index=None, store_index=None, layout: str = "nt",
-               out_dtype=None, gelu_grad=None, save_preact: bool = False):
+               out_dtype=None, gelu_grad=None, save_preact: bool = False,
+               emask=None):
     """``out[store_index[m]] = epi(op(a, w)[m] + bias)``; f32 inside.
 
     ``layout``: ``"nt"`` a (M, K) @ w (N, K)^T (the PyTorch Linear layout),
     ``"nn"`` a (M, K) @ w (K, N), ``"tn"`` a (K, M)^T @ w (K, N). ``epi`` is,
     in order: an optional exact GELU, or a product with the exact GELU
-    derivative of the f32 pre-activation ``gelu_grad`` (M, N); then
+    derivative of the f32 pre-activation ``gelu_grad`` (M, N); then a product
+    with ``emask`` (M, N) (the hidden-dropout mask); then
     ``+ residual[residual_index[m]]``. The output has ``out_dtype`` (default
     ``a.dtype``). With ``save_preact`` it returns ``(out, pre)``, ``pre`` the
     f32 value before the GELU, in unscattered row order."""
@@ -190,6 +197,8 @@ def gemm_plain(a, w, bias=None, *, gelu: bool = False, residual=None,
         y = y * gelu_grad_exact(gelu_grad)
     if gelu:
         y = F.gelu(y)
+    if emask is not None:
+        y = y * emask.float()
     if residual is not None:
         y = y + _rows(residual, residual_index).float()
     y = y.to(out_dtype or a.dtype)
@@ -202,18 +211,19 @@ def gemm_plain(a, w, bias=None, *, gelu: bool = False, residual=None,
 
 def gemm(a, w, bias=None, *, gelu: bool = False, residual=None,
          residual_index=None, store_index=None, layout: str = "nt",
-         out_dtype=None, gelu_grad=None, save_preact: bool = False):
+         out_dtype=None, gelu_grad=None, save_preact: bool = False,
+         emask=None):
     """K1 wrapper; same contract as :func:`gemm_plain`. On CUDA: bf16
-    operands and bias, a bf16 or f32 residual, a bf16 or f32 output, the
-    contiguous dims of both operands multiples of 8, int32 row indices, and
-    ``store_index`` a permutation of the rows (every output row is
+    operands, bias and emask, a bf16 or f32 residual, a bf16 or f32 output,
+    the contiguous dims of both operands multiples of 8, int32 row indices,
+    and ``store_index`` a permutation of the rows (every output row is
     written)."""
     if not a.is_cuda:
         return gemm_plain(a, w, bias, gelu=gelu, residual=residual,
                           residual_index=residual_index,
                           store_index=store_index, layout=layout,
                           out_dtype=out_dtype, gelu_grad=gelu_grad,
-                          save_preact=save_preact)
+                          save_preact=save_preact, emask=emask)
     dev, bf, f32 = a.device, torch.bfloat16, torch.float32
     _require(layout in _LAYOUTS, f"unknown layout {layout!r}")
     _cuda_arg(a, "a", bf, dev, 2)
@@ -249,6 +259,9 @@ def gemm(a, w, bias=None, *, gelu: bool = False, residual=None,
     _cuda_arg(gelu_grad, "gelu_grad", f32, dev, 2)
     _require(gelu_grad is None or tuple(gelu_grad.shape) == (M, N),
              f"gelu_grad must be ({M}, {N})")
+    _cuda_arg(emask, "emask", bf, dev, 2)
+    _require(emask is None or tuple(emask.shape) == (M, N),
+             f"emask must be ({M}, {N})")
     out_dtype = out_dtype or bf
     _require(out_dtype in (bf, f32), f"out_dtype {out_dtype} is not bf16 or f32")
     y = torch.empty((M, N), dtype=out_dtype, device=dev)
@@ -258,7 +271,8 @@ def gemm(a, w, bias=None, *, gelu: bool = False, residual=None,
     lib = build()["gemm"]
     _check(lib.mvlt_gemm(_ptr(a), _ptr(w), _ptr(bias), _ptr(residual),
                          _ptr(residual_index), _ptr(store_index), _ptr(y),
-                         _ptr(pre), M, N, K, _LAYOUTS[layout], epi, flags,
+                         _ptr(pre), _ptr(emask), M, N, K, _LAYOUTS[layout],
+                         epi, flags,
                          _stream(dev)), "gemm")
     gemm.launches += 1
     return (y, pre) if save_preact else y
@@ -268,17 +282,111 @@ gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K2 biased_attention
+# K2 biased_attention, and the shared memory of K2 and K4
 # ---------------------------------------------------------------------------
 
+# the shared memory a block may opt in to on an H100 (227 KB)
+H100_SMEM_OPTIN = 232448
+
+
+def attention_smem_bytes(N: int, Dh: int) -> int:
+    """Shared memory of one K2 block (``smem_bytes`` in csrc/attention.cu):
+    f32 q and v (N x Dh), k (N x (Dh + 1)) and the scores (N x (N + 1))."""
+    return 4 * (2 * N * Dh + N * (Dh + 1) + N * (N + 1))
+
+
+def attention_bwd_smem_bytes(N: int, Dh: int) -> int:
+    """Shared memory of one K4 block (``smem_bytes`` in
+    csrc/attention_bwd.cu): bf16 q, k, v and dctx rows of Dh + 2, and the f32
+    p and ds tiles (N x (N + 1))."""
+    return 2 * 4 * N * (Dh + 2) + 4 * 2 * N * (N + 1)
+
+
+def max_attention_n(Dh: int, smem_optin: int = H100_SMEM_OPTIN, *,
+                    backward: bool = False) -> int:
+    """The largest N whose K2 (or, with ``backward``, K4) block fits in
+    ``smem_optin`` bytes at head dim ``Dh``."""
+    need = attention_bwd_smem_bytes if backward else attention_smem_bytes
+    n = 0
+    while need(n + 1, Dh) <= smem_optin:
+        n += 1
+    return n
+
+
+_optin: dict = {}
+
+
+def smem_optin(device: torch.device) -> int:
+    """``cudaDevAttrMaxSharedMemoryPerBlockOptin`` of ``device``, queried
+    once."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _optin:
+        with torch.cuda.device(idx):
+            value = build()["attention"].mvlt_smem_optin()
+        if value <= 0:
+            raise RuntimeError("could not query the shared memory per block")
+        _optin[idx] = value
+    return _optin[idx]
+
+
+def check_attention_fits(N: int, Dh: int, smem_optin: int, *,
+                         backward: bool = False) -> None:
+    """Raise ``ValueError`` unless a K2 (K4) block for (N, Dh) fits in
+    ``smem_optin`` bytes of shared memory."""
+    need = (attention_bwd_smem_bytes if backward else attention_smem_bytes)(N, Dh)
+    kernel = "biased_attention_bwd" if backward else "biased_attention"
+    _require(need <= smem_optin,
+             f"{kernel}: N={N}, head dim {Dh} needs {need} bytes of shared "
+             f"memory per block, the card allows {smem_optin} (N <= "
+             f"{max_attention_n(Dh, smem_optin, backward=backward)} at this "
+             "head dim)")
+
+
+def _check_masks(qbias, amask, G: int, num_heads: int, N: int) -> None:
+    _require(qbias is None or tuple(qbias.shape) == (G, N, N),
+             f"qbias must be ({G}, {N}, {N}), got "
+             f"{None if qbias is None else tuple(qbias.shape)}")
+    _require(amask is None or tuple(amask.shape) == (G, num_heads, N, N),
+             f"amask must be ({G}, {num_heads}, {N}, {N}), got "
+             f"{None if amask is None else tuple(amask.shape)}")
+
+
+def _attention_geometry(qkv, num_heads: int, seq_n: int, backward: bool):
+    """(G, C, Dh) of fused rows on the card, after the shape and
+    shared-memory checks."""
+    rows, C3 = qkv.shape
+    N = seq_n
+    _require(C3 % 3 == 0 and (C3 // 3) % num_heads == 0,
+             f"qkv width {C3} is not 3 * heads * head_dim")
+    C = C3 // 3
+    Dh = C // num_heads
+    _require(0 < N and rows % N == 0, f"rows {rows} not groups of N={N}")
+    _require(Dh <= 64, f"head dim {Dh} > 64")
+    _require(Dh % 2 == 0 or not backward, f"head dim {Dh} is odd")
+    check_attention_fits(N, Dh, smem_optin(qkv.device), backward=backward)
+    return rows // N, C, Dh
+
+
+def _cuda_masks(qbias, amask, G, num_heads, N, dev) -> None:
+    _cuda_arg(qbias, "qbias", torch.float32, dev, 3)
+    _cuda_arg(amask, "amask", torch.bfloat16, dev, 4)
+    _check_masks(qbias, amask, G, num_heads, N)
+
+
 def biased_attention_plain(qkv, num_heads: int, seq_n: int, scale: float,
-                           pattern=None, key_bias=None):
+                           pattern=None, key_bias=None, qbias=None,
+                           amask=None):
     """qkv: (G*N, 3C) fused rows, groups of ``seq_n`` consecutive rows.
     pattern: (P, nH, N, N) f32 additive bias, group g uses ``pattern[g % P]``;
-    key_bias: (G, N) f32 additive per-key bias. Returns ctx (G*N, C)."""
+    key_bias: (G, N) f32 additive per-key bias; qbias: (G, N, N) f32
+    additive per-sample bias (the seq2seq mask, shared by the heads); amask:
+    (G, nH, N, N) multiplier of the softmax output (the attention-dropout
+    mask), applied before p is rounded to the compute dtype. Returns ctx
+    (G*N, C)."""
     rows, C3 = qkv.shape
     C, N = C3 // 3, seq_n
     G, Dh = rows // N, C3 // 3 // num_heads
+    _check_masks(qbias, amask, G, num_heads, N)
     t = qkv.float().view(G, N, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
     q, k, v = t[0] * scale, t[1], t[2]
     s = q @ k.transpose(-1, -2)                                # (G, nH, N, N)
@@ -287,28 +395,30 @@ def biased_attention_plain(qkv, num_heads: int, seq_n: int, scale: float,
         s = s + pattern.float()[torch.arange(G, device=qkv.device) % P]
     if key_bias is not None:
         s = s + key_bias.float()[:, None, None, :]
-    p = torch.softmax(s, dim=-1).to(qkv.dtype).float()
+    if qbias is not None:
+        s = s + qbias.float()[:, None]
+    p = torch.softmax(s, dim=-1)
+    if amask is not None:
+        p = p * amask.float()
+    p = p.to(qkv.dtype).float()
     ctx = (p @ v).to(qkv.dtype)                                # (G, nH, N, Dh)
     return ctx.permute(0, 2, 1, 3).reshape(rows, C)
 
 
 def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
-                     pattern=None, key_bias=None):
+                     pattern=None, key_bias=None, qbias=None, amask=None):
     """K2 wrapper; same contract as :func:`biased_attention_plain`. On CUDA:
-    bf16 qkv, f32 biases, N <= 128 and head dim <= 64."""
+    bf16 qkv and amask, f32 biases, an even head dim <= 64, and N within the
+    card's shared memory (:func:`check_attention_fits`; N <= 162 at head
+    dim 64 on an H100)."""
     if not qkv.is_cuda:
         return biased_attention_plain(qkv, num_heads, seq_n, scale,
-                                      pattern, key_bias)
+                                      pattern, key_bias, qbias, amask)
     dev = qkv.device
     _cuda_arg(qkv, "qkv", torch.bfloat16, dev, 2)
-    rows, C3 = qkv.shape
+    rows = qkv.shape[0]
     N = seq_n
-    _require(C3 % 3 == 0 and (C3 // 3) % num_heads == 0,
-             f"qkv width {C3} is not 3 * heads * head_dim")
-    C = C3 // 3
-    _require(0 < N <= 128 and rows % N == 0, f"rows {rows} not groups of N={N} <= 128")
-    _require(C // num_heads <= 64, f"head dim {C // num_heads} > 64")
-    G = rows // N
+    G, C, _ = _attention_geometry(qkv, num_heads, N, backward=False)
     _cuda_arg(pattern, "pattern", torch.float32, dev, 4)
     P = 1
     if pattern is not None:
@@ -319,11 +429,13 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
     _cuda_arg(key_bias, "key_bias", torch.float32, dev, 2)
     _require(key_bias is None or tuple(key_bias.shape) == (G, N),
              f"key_bias must be ({G}, {N})")
+    _cuda_masks(qbias, amask, G, num_heads, N, dev)
     ctx = torch.empty((rows, C), dtype=torch.bfloat16, device=dev)
     lib = build()["attention"]
     _check(lib.mvlt_attention(_ptr(qkv), _ptr(pattern), _ptr(key_bias),
-                              _ptr(ctx), G, N, C, num_heads, P, float(scale),
-                              _stream(dev)), "biased_attention")
+                              _ptr(qbias), _ptr(amask), _ptr(ctx), G, N, C,
+                              num_heads, P, float(scale), _stream(dev)),
+           "biased_attention")
     biased_attention.launches += 1
     return ctx
 
@@ -377,37 +489,35 @@ layernorm.launches = 0
 # K4 biased_attention_bwd
 # ---------------------------------------------------------------------------
 
-_PRETRAIN_SLICE = ("the {} option of the attention backward comes with the "
-                   "pretrain slice (ROADMAP.md queue B, item 2)")
-
-
-def _no_masks(qbias, amask) -> None:
-    for name, t in (("qbias", qbias), ("amask", amask)):
-        if t is not None:
-            raise NotImplementedError(_PRETRAIN_SLICE.format(name))
-
-
 def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
                                scale: float, key_bias=None, qbias=None,
                                amask=None):
-    """VJP of :func:`biased_attention_plain` (key-bias mode) from the saved
-    fused rows. qkv: (G*N, 3C); dctx: (G*N, C); key_bias: (G, N) f32.
-    Returns ``(dqkv (G*N, 3C) in qkv.dtype, dkbias (G, N) f32)``, dkbias
-    the column sum of ds over rows and heads (``_seq_core_bwd_kernel``)."""
-    _no_masks(qbias, amask)
+    """VJP of :func:`biased_attention_plain` (pattern-free) from the saved
+    fused rows. qkv: (G*N, 3C); dctx: (G*N, C); key_bias: (G, N) f32;
+    qbias: (G, N, N) f32; amask: (G, nH, N, N). Returns ``(dqkv (G*N, 3C)
+    in qkv.dtype, dkbias (G, N) f32)``, dkbias the column sum of ds over
+    rows and heads (``_seq_core_bwd_kernel``). The unmasked p enters ds and
+    ``p * amask`` enters dv (pallas_attn.py:2482-2501)."""
     rows, C3 = qkv.shape
     C, N = C3 // 3, seq_n
     G, Dh = rows // N, C // num_heads
+    _check_masks(qbias, amask, G, num_heads, N)
     t = qkv.float().view(G, N, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
     q, k, v = t[0] * scale, t[1], t[2]
     dc = dctx.float().view(G, N, num_heads, Dh).permute(0, 2, 1, 3)
     s = q @ k.transpose(-1, -2)                                 # (G, nH, N, N)
     if key_bias is not None:
         s = s + key_bias.float()[:, None, None, :]
+    if qbias is not None:
+        s = s + qbias.float()[:, None]
     e = torch.exp(s - s.amax(-1, keepdim=True))
     p = e / e.sum(-1, keepdim=True)
-    dv = p.transpose(-1, -2) @ dc
+    am = None if amask is None else amask.float()
+    pa = p if am is None else p * am
+    dv = pa.transpose(-1, -2) @ dc
     dp = dc @ v.transpose(-1, -2)
+    if am is not None:
+        dp = dp * am
     pdp = p * dp
     ds = pdp - p * pdp.sum(-1, keepdim=True)
     dq = (ds @ k) * scale
@@ -419,33 +529,31 @@ def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
 def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
                          key_bias=None, qbias=None, amask=None):
     """K4 wrapper; same contract as :func:`biased_attention_bwd_plain`. On
-    CUDA: bf16 qkv and dctx, f32 key bias, N <= 128 and head dim <= 64."""
-    _no_masks(qbias, amask)
+    CUDA: bf16 qkv, dctx and amask, f32 biases, an even head dim <= 64, and
+    N within the card's shared memory (:func:`check_attention_fits`; N <=
+    140 at head dim 64 on an H100)."""
     if not qkv.is_cuda:
         return biased_attention_bwd_plain(qkv, dctx, num_heads, seq_n, scale,
-                                          key_bias)
+                                          key_bias, qbias, amask)
     dev, bf = qkv.device, torch.bfloat16
     _cuda_arg(qkv, "qkv", bf, dev, 2)
     rows, C3 = qkv.shape
     N = seq_n
-    _require(C3 % 3 == 0 and (C3 // 3) % num_heads == 0,
-             f"qkv width {C3} is not 3 * heads * head_dim")
-    C = C3 // 3
-    _require(0 < N <= 128 and rows % N == 0, f"rows {rows} not groups of N={N} <= 128")
-    _require(C // num_heads <= 64, f"head dim {C // num_heads} > 64")
-    G = rows // N
+    G, C, _ = _attention_geometry(qkv, num_heads, N, backward=True)
     _cuda_arg(dctx, "dctx", bf, dev, 2)
     _require(tuple(dctx.shape) == (rows, C), f"dctx must be ({rows}, {C})")
     _cuda_arg(key_bias, "key_bias", torch.float32, dev, 2)
     _require(key_bias is None or tuple(key_bias.shape) == (G, N),
              f"key_bias must be ({G}, {N})")
+    _cuda_masks(qbias, amask, G, num_heads, N, dev)
     dqkv = torch.empty((rows, C3), dtype=bf, device=dev)
     part = torch.empty((G, num_heads, N), dtype=torch.float32, device=dev)
     dkb = torch.empty((G, N), dtype=torch.float32, device=dev)
     lib = build()["attention_bwd"]
     _check(lib.mvlt_attention_bwd(_ptr(qkv), _ptr(dctx), _ptr(key_bias),
-                                  _ptr(dqkv), _ptr(part), _ptr(dkb), G, N, C,
-                                  num_heads, float(scale), _stream(dev)),
+                                  _ptr(qbias), _ptr(amask), _ptr(dqkv),
+                                  _ptr(part), _ptr(dkb), G, N, C, num_heads,
+                                  float(scale), _stream(dev)),
            "biased_attention_bwd")
     biased_attention_bwd.launches += 1
     return dqkv, dkb
@@ -458,11 +566,13 @@ biased_attention_bwd.launches = 0
 # K5 layernorm_bwd, column_sum
 # ---------------------------------------------------------------------------
 
-def layernorm_bwd_plain(res, gamma, g, eps: float):
+def layernorm_bwd_plain(res, gamma, g, eps: float, hmask=None):
     """VJP of ``LN(res) * gamma + beta`` over rows of the f32 pre-LN sum
     ``res`` (M, C) for the upstream gradient ``g`` (M, C). Returns
-    ``(dres f32, dres in g.dtype, dgamma, dbeta, db)``, the last three f32
-    column sums: ``sum g * xhat``, ``sum g`` and ``sum dres``."""
+    ``(dres f32, da in g.dtype, dgamma, dbeta, db)``, ``da = dres * hmask``
+    (the cotangent of a proj / fc2 output that the hidden-dropout mask
+    ``hmask`` (M, C) multiplied; ``dres`` without it), the last three f32
+    column sums: ``sum g * xhat``, ``sum g`` and ``sum da``."""
     r_ = res.float()
     mu = r_.mean(-1, keepdim=True)
     var = ((r_ - mu) ** 2).mean(-1, keepdim=True)
@@ -472,15 +582,15 @@ def layernorm_bwd_plain(res, gamma, g, eps: float):
     dxhat = gf * gamma.float()
     dres = r * (dxhat - dxhat.mean(-1, keepdim=True)
                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    return (dres, dres.to(g.dtype), (gf * xhat).sum(0), gf.sum(0),
-            dres.sum(0))
+    da = dres if hmask is None else dres * hmask.float()
+    return (dres, da.to(g.dtype), (gf * xhat).sum(0), gf.sum(0), da.sum(0))
 
 
-def layernorm_bwd(res, gamma, g, eps: float):
+def layernorm_bwd(res, gamma, g, eps: float, hmask=None):
     """K5 wrapper; same contract as :func:`layernorm_bwd_plain`. On CUDA:
-    f32 res and gamma, bf16 g, C <= 1024."""
+    f32 res and gamma, bf16 g and hmask, C <= 1024."""
     if not res.is_cuda:
-        return layernorm_bwd_plain(res, gamma, g, eps)
+        return layernorm_bwd_plain(res, gamma, g, eps, hmask)
     dev, f32 = res.device, torch.float32
     _cuda_arg(res, "res", f32, dev, 2)
     M, C = res.shape
@@ -489,15 +599,19 @@ def layernorm_bwd(res, gamma, g, eps: float):
     _require(gamma.shape[0] == C, f"gamma must have {C} entries")
     _cuda_arg(g, "g", torch.bfloat16, dev, 2)
     _require(tuple(g.shape) == (M, C), f"g must be ({M}, {C})")
+    _cuda_arg(hmask, "hmask", torch.bfloat16, dev, 2)
+    _require(hmask is None or tuple(hmask.shape) == (M, C),
+             f"hmask must be ({M}, {C})")
     lib = build()["layernorm_bwd"]
     dres = torch.empty((M, C), dtype=f32, device=dev)
     dres_bf = torch.empty((M, C), dtype=torch.bfloat16, device=dev)
     part = torch.empty((lib.mvlt_layernorm_bwd_blocks(M), 3 * C), dtype=f32,
                        device=dev)
     sums = torch.empty((3, C), dtype=f32, device=dev)
-    _check(lib.mvlt_layernorm_bwd(_ptr(res), _ptr(gamma), _ptr(g), _ptr(dres),
-                                  _ptr(dres_bf), _ptr(part), _ptr(sums), M, C,
-                                  float(eps), _stream(dev)), "layernorm_bwd")
+    _check(lib.mvlt_layernorm_bwd(_ptr(res), _ptr(gamma), _ptr(g),
+                                  _ptr(hmask), _ptr(dres), _ptr(dres_bf),
+                                  _ptr(part), _ptr(sums), M, C, float(eps),
+                                  _stream(dev)), "layernorm_bwd")
     layernorm_bwd.launches += 1
     return dres, dres_bf, sums[0], sums[1], sums[2]
 

@@ -25,6 +25,72 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x.float()).to(x.dtype)
 
 
+def gather_label_positions(hidden: torch.Tensor, labels: torch.Tensor,
+                           k: int, ignore_index: int = -100):
+    """Up to ``k`` positions per sample whose label is not ``ignore_index``,
+    in their original order (``mvlt_tpu/ops/layers.py:119-147``): a stable
+    argsort of ``labels == ignore_index`` puts the valid positions first,
+    then the first ``min(k, L)`` are taken; valid positions beyond ``k`` are
+    dropped. hidden: (B, L, H); labels: (B, L). Returns ``(hidden_g (B, k,
+    H), labels_g (B, k))``."""
+    k = min(k, labels.shape[1])
+    order = torch.argsort((labels == ignore_index).to(torch.int32), dim=-1,
+                          stable=True)
+    idx = order[:, :k]
+    hidden_g = hidden.gather(1, idx[..., None].expand(-1, -1, hidden.shape[-1]))
+    return hidden_g, labels.gather(1, idx)
+
+
+class DropoutMasks:
+    """Where the train steps' dropout masks come from: ``draw(keep, shape,
+    device)`` returns a bool keep-mask, ``bernoulli(keep)`` per element.
+
+    ``DropoutMasks(generator)`` draws on the generator's device from that
+    explicit ``torch.Generator`` (the JAX package draws with
+    ``jax.random.bernoulli`` from its dropout key; the two streams differ).
+    With ``record=True`` each draw is also kept, in order, in ``recorded``.
+    ``DropoutMasks.replay(masks)`` hands out the given masks in order
+    instead, checking each shape: two runs that replay one list see the same
+    masks, and a test can replay the masks JAX drew."""
+
+    def __init__(self, generator: torch.Generator = None, *,
+                 record: bool = False):
+        self.generator = generator
+        self.recorded = [] if record else None
+        self._replay = None
+
+    @classmethod
+    def replay(cls, masks) -> "DropoutMasks":
+        src = cls()
+        src._replay = iter(list(masks))
+        return src
+
+    def draw(self, keep: float, shape, device) -> torch.Tensor:
+        shape = tuple(shape)
+        if self._replay is not None:
+            mask = next(self._replay, None)
+            if mask is None:
+                raise RuntimeError("no recorded dropout mask left to replay")
+            mask = torch.as_tensor(mask).to(device=device, dtype=torch.bool)
+            if tuple(mask.shape) != shape:
+                raise ValueError(f"replayed mask {tuple(mask.shape)} where "
+                                 f"{shape} was drawn")
+        else:
+            mask = torch.rand(shape, generator=self.generator,
+                              device=self.generator.device) < keep
+            mask = mask.to(device)
+        if self.recorded is not None:
+            self.recorded.append(mask)
+        return mask
+
+    def scaled(self, keep: float, shape, dtype: torch.dtype,
+               device) -> torch.Tensor:
+        """The multiplicative mask the fused kernels take: 0 or 1/keep in
+        ``dtype`` (JAX's ``.astype(cdt) / keep``: 1.109375 in bf16 at keep
+        0.9)."""
+        return self.draw(keep, shape, device).to(dtype) / keep
+
+
 def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
                                ignore_index: int = -100) -> torch.Tensor:
     """Mean cross entropy over labels != ignore_index, in f32 (0 if none is

@@ -1,7 +1,8 @@
-"""Attention masks of the bidirectional fusion path (counterpart of
-``mvlt_tpu/ops/masks.py:22-70``): the reference's key mask
-``[1, image_mask, 1, text_mask]`` and its additive ``(1 - m) * -10000``
-bias. The seq2seq and decode masks come with the decode slice."""
+"""Attention masks of the fusion encoder (counterpart of
+``mvlt_tpu/ops/masks.py:22-70``): the reference's bidirectional key mask
+``[1, image_mask, 1, text_mask]``, its seq2seq (UniLM) mask, and their
+additive ``(1 - m) * -10000`` bias. The decode mask comes with the decode
+slice."""
 
 from __future__ import annotations
 
@@ -18,10 +19,24 @@ def bidirectional_key_mask(image_mask: torch.Tensor,
     return torch.cat([ones, image_mask.bool(), ones, text_mask.bool()], dim=1)
 
 
+def seq2seq_fusion_mask(batch: int, obj_end: int, total: int,
+                        device=None) -> torch.Tensor:
+    """(B, S, S) bool: causal, with every column of the image prefix
+    (col <= obj_end) visible. As in the reference, text padding is ignored
+    in this mode: padded keys stay visible (masks.py:9-10,36-41)."""
+    idx = torch.arange(total, device=device)
+    row, col = idx[:, None], idx[None, :]
+    mask = (col <= row) | (col <= obj_end)
+    return mask[None].expand(batch, total, total)
+
+
 def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
-    """(B, S) bool key mask -> (B, S) float32 additive key bias with the
-    -10000 fill (the (B, 1, 1, S) bias of the JAX package, squeezed to the
-    per-key form its fused kernel takes, fusion.py:128-129)."""
-    if mask.dim() != 2:
-        raise ValueError(f"expected a (B, S) key mask, got {tuple(mask.shape)}")
+    """Bool mask -> float32 additive bias with the -10000 fill. A (B, S) key
+    mask gives the (B, S) key bias (the JAX package's (B, 1, 1, S) squeezed
+    to the per-key form its fused kernel takes, fusion.py:128-129); a
+    (B, S, S) mask gives the (B, S, S) per-query bias (its (B, 1, S, S)
+    squeezed to the kernel's qbias, fusion.py:130-132)."""
+    if mask.dim() not in (2, 3):
+        raise ValueError(f"expected a (B, S) or (B, S, S) mask, got "
+                         f"{tuple(mask.shape)}")
     return (1.0 - mask.float()) * NEG_BIAS

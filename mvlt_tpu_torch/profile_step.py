@@ -1,15 +1,18 @@
-"""Where the device time of the VQA finetune train step goes, on one GPU.
+"""Where the device time of a train step goes, on one GPU.
 
-    python -m mvlt_tpu_torch.profile_step [--batch 32] [--steps 3]
+    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain] [--batch 32] [--steps 3]
 
-Builds the flagship train step (:func:`mvlt_tpu_torch.flagship.
-build_vqa_train_step`), runs two warm-up steps, then traces ``--steps``
-steps with ``torch.profiler`` and prints the device time per step by kernel
-family (the port's kernels K1-K5, cuDNN convolutions and BatchNorm, cuBLAS
-products, the optimizer, the rest), the device busy share of the traced
-window, the unprofiled step times with the SM clock and power sampled
-before and after them, and the card's name and power limit. Needs a CUDA
-device.
+Builds the VQA finetune train step (``--path vqa``, the default:
+:func:`mvlt_tpu_torch.flagship.build_vqa_train_step`) or the MLM+ITM
+pretrain train step (``--path pretrain``:
+:func:`~mvlt_tpu_torch.flagship.build_pretrain_train_step`, text length 80,
+the mask mode of each step from a seeded coin flip), runs two warm-up
+steps, then traces ``--steps`` steps with ``torch.profiler`` and prints the
+device time per step by kernel family (the port's kernels K1-K5, cuDNN
+convolutions and BatchNorm, cuBLAS products, the optimizer, the rest), the
+device busy share of the traced window, the unprofiled step times with the
+SM clock and power sampled before and after them, and the card's name and
+power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,9 +43,9 @@ FAMILIES = [
     ("wgrad", "cuDNN convolutions (ResNet)"),
     ("conv", "cuDNN convolutions (ResNet)"),
     ("cudnn", "cuDNN convolutions (ResNet)"),
-    ("gemm", "cuBLAS products (resnet_fc, pooler, head)"),
-    ("nvjet", "cuBLAS products (resnet_fc, pooler, head)"),
-    ("cutlass", "cuBLAS products (resnet_fc, pooler, head)"),
+    ("gemm", "cuBLAS products (resnet_fc, pooler, heads)"),
+    ("nvjet", "cuBLAS products (resnet_fc, pooler, heads)"),
+    ("cutlass", "cuBLAS products (resnet_fc, pooler, heads)"),
     ("max_pool", "ResNet max-pool"),
 ]
 
@@ -69,6 +72,7 @@ def family(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--path", choices=("vqa", "pretrain"), default="vqa")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
@@ -79,9 +83,17 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mvlt_tpu_torch.flagship import build_vqa_train_step
+    from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.train.steps import seq2seq_coin_flip
     card = smi("name,power.limit")
-    step, batch = build_vqa_train_step(batch=args.batch, device="cuda")
+    if args.path == "vqa":
+        step, batch = flagship.build_vqa_train_step(batch=args.batch,
+                                                    device="cuda")
+    else:
+        pre_step, batch = flagship.build_pretrain_train_step(
+            batch=args.batch, device="cuda")
+        flips = torch.Generator().manual_seed(0)
+        step = lambda b: pre_step(b, seq2seq_coin_flip(flips))  # noqa: E731
     for _ in range(2):
         step(batch)
     torch.cuda.synchronize()
@@ -120,7 +132,7 @@ def main() -> int:
     print(card)
     print(f"{SAMPLE} before / after the unprofiled steps: {clocks}")
     print(f"unprofiled step times (ms): {[round(t, 3) for t in step_ms]}")
-    print(f"VQA train step b{args.batch}: {unprofiled_ms:.3f} ms/step unprofiled, "
+    print(f"{args.path} train step b{args.batch}: {unprofiled_ms:.3f} ms/step unprofiled, "
           f"{wall_ms:.3f} ms/step under the profiler; device time "
           f"{total:.3f} ms/step, busy share {total / wall_ms:.3f}")
     print(f"{'family':58s} {'ms/step':>9s} {'share':>6s} {'launches':>8s}")

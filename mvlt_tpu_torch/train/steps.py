@@ -1,5 +1,9 @@
 """Train steps of the port (counterpart of ``mvlt_tpu/train/steps.py``),
-single device. A step is forward + backward + optimizer update, eager."""
+single device. A step is forward + backward + optimizer update, eager.
+
+Each step draws its dropout masks from ``step.masks``, a
+:class:`~mvlt_tpu_torch.ops.layers.DropoutMasks` (by default one on the
+model's device, seeded with 0); replace it to record or replay masks."""
 
 from __future__ import annotations
 
@@ -7,7 +11,21 @@ from typing import Callable, Dict
 
 import torch
 
+from mvlt_tpu_torch.ops.layers import DropoutMasks
+
 Batch = Dict[str, torch.Tensor]
+
+
+def seq2seq_coin_flip(generator: torch.Generator) -> bool:
+    """The reference's per-batch ``random.random() < 0.5`` between the
+    seq2seq and bidirectional masks (model.py:390-394, ``steps.py:31-34``),
+    from an explicit generator: reproducible and loggable."""
+    return bool(torch.rand((), generator=generator) < 0.5)
+
+
+def _masks(model) -> DropoutMasks:
+    device = next(model.parameters()).device
+    return DropoutMasks(torch.Generator(device=device).manual_seed(0))
 
 
 def make_vqa_step(model, optimizer: torch.optim.Optimizer, *,
@@ -25,11 +43,47 @@ def make_vqa_step(model, optimizer: torch.optim.Optimizer, *,
         image, question, label = (batch[k].to(device)
                                   for k in ("image", "question", "label"))
         optimizer.zero_grad(set_to_none=True)
-        loss, logits = model.loss(image, question, label, plain=plain)
+        loss, logits = model.loss(image, question, label, plain=plain,
+                                  masks=step.masks)
         loss.backward()
         optimizer.step()
         acc = (logits.argmax(-1) == label).float().mean()
         return {"loss": loss.detach(), "accuracy": acc}
 
     step.model, step.optimizer = model, optimizer
+    step.masks = _masks(model)
+    return step
+
+
+def make_pretrain_step(model, optimizer: torch.optim.Optimizer, *,
+                       plain: bool = False):
+    """``step(batch, seq2seq) -> {"mlm_loss", "itm_loss", "loss"}`` for a
+    :class:`PretrainModel` (``steps.py:251-263``): MLM (+ ITM) CE in the
+    mask mode ``seq2seq`` (a plain bool per call, as JAX compiles one
+    program per mode), then one optimizer update. ``batch`` holds ``image``
+    (B, 3, H, W), ``caption_masked`` (B, L), ``caption_label`` (B, L) and
+    ``itm_label`` (B,); it is moved to the model's device. After a step the
+    parameters' ``.grad`` hold that step's gradients: zeros for the MLM
+    head of the other mode, which the loss does not reach, so that AdamW
+    moves its moments and decays its weights as optax does for every
+    parameter. ``plain=True`` runs the kernels' plain versions."""
+    device = next(model.parameters()).device
+
+    def step(batch: Batch, seq2seq: bool) -> Dict[str, torch.Tensor]:
+        args = [batch[k].to(device) for k in ("image", "caption_masked",
+                                               "caption_label")]
+        itm = batch.get("itm_label")
+        optimizer.zero_grad(set_to_none=False)
+        loss, metrics = model.loss(*args, None if itm is None else
+                                   itm.to(device), seq2seq=bool(seq2seq),
+                                   plain=plain, masks=step.masks)
+        loss.backward()
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    step.model, step.optimizer = model, optimizer
+    step.masks = _masks(model)
     return step

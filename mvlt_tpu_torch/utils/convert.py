@@ -1,8 +1,9 @@
 """Bridge from the JAX package's flax parameter tree to the port's
 ``state_dict``.
 
-``vqa_params_from_flax`` maps every leaf of a flax ``VQAModel`` tree
-(``mvlt_tpu/models/heads.py:65``) exactly once:
+``params_from_flax`` (also named ``vqa_params_from_flax`` and
+``pretrain_params_from_flax``) maps every leaf of a flax ``VQAModel`` or
+``PretrainModel`` tree (``mvlt_tpu/models/heads.py:65,97``) exactly once:
 
 - a flax Dense ``kernel`` (in, out) becomes a port ``weight`` (out, in);
   a Conv ``kernel`` (H, W, in, out) becomes an OIHW ``weight``;
@@ -11,7 +12,10 @@
 - LayerNorm and BatchNorm ``scale`` becomes ``weight``; an ``embedding``
   table keeps its layout;
 - the ResNet's ``batch_stats`` ``mean`` / ``var`` become the BatchNorms'
-  ``running_mean`` / ``running_var`` buffers.
+  ``running_mean`` / ``running_var`` buffers;
+- the pretrain heads keep their flax names: ``mlm_head_{seq2seq,bidir}/
+  transform/{transform_dense,transform_layernorm}``, ``.../decoder`` and
+  ``itm_mlp``.
 
 A leaf that no rule maps, a leaf mapped twice, or a fused q/k/v missing a
 part raises ``KeyError``. Load the result with
@@ -57,6 +61,10 @@ _RULES = [
      r"fusion.layers.\1.\2"),
     (r"fusion/pooler/dense", r"fusion.pooler"),
     (r"final_mlp", r"final_mlp"),
+    (r"(mlm_head_(?:seq2seq|bidir))/transform/"
+     r"(transform_dense|transform_layernorm)", r"\1.transform.\2"),
+    (r"(mlm_head_(?:seq2seq|bidir))/decoder", r"\1.decoder"),
+    (r"itm_mlp", r"itm_mlp"),
 ]
 # flax leaf name -> suffix of the port parameter
 _LEAF = {"kernel": ".weight", "bias": ".bias", "scale": ".weight",
@@ -86,10 +94,10 @@ def _port_name(path: str):
     raise KeyError(f"no port parameter for flax leaf {path!r}")
 
 
-def vqa_params_from_flax(variables) -> Dict[str, torch.Tensor]:
-    """flax ``VQAModel`` variables (or their ``params``) -> port state_dict
-    of float32 tensors. A ``batch_stats`` collection beside ``params`` maps
-    onto the BatchNorm buffers."""
+def params_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """flax ``VQAModel`` / ``PretrainModel`` variables (or their ``params``)
+    -> port state_dict of float32 tensors. A ``batch_stats`` collection
+    beside ``params`` maps onto the BatchNorm buffers."""
     flat = _flatten(variables.get("params", variables))
     if "params" in variables:
         for path, value in _flatten(variables.get("batch_stats", {})).items():
@@ -120,3 +128,6 @@ def vqa_params_from_flax(variables) -> Dict[str, torch.Tensor]:
         sd[key] = torch.from_numpy(np.ascontiguousarray(
             np.concatenate(group, axis=0)))
     return sd
+
+
+vqa_params_from_flax = pretrain_params_from_flax = params_from_flax

@@ -1,6 +1,7 @@
-"""The port's six TPU-kernel counterparts (plain twins, as the CPU runs
-them) against the JAX Pallas kernels in interpret mode, on the same inputs
-drawn from a numpy seed.
+"""The port's TPU-kernel counterparts (plain twins, as the CPU runs them)
+against the JAX Pallas kernels in interpret mode, on the same inputs drawn
+from a numpy seed: the six forward ones, the masked training forwards and
+the two backward ones, with every mask option.
 
 float32: atol = rtol = 1e-4 (the same math; only summation order differs).
 bfloat16: the port rounds the residual sum to bf16 where one kernel hands
@@ -268,12 +269,176 @@ def test_seq_attention_core_bwd(B, N, C, nH):
 
 
 def test_seq_attention_core_bwd_refuses_masks():
+    """Masks whose shape does not fit (B, N, N) / (B, nH, N, N) are
+    refused, by the kernel twin and the plain one."""
     qkv, dctx = torch.zeros(1, 4, 24), torch.zeros(1, 4, 8)
     kb = torch.zeros(1, 4)
-    for qbias, amask in ((torch.zeros(1, 4, 4), None),
-                         (None, torch.ones(1, 2, 4, 4))):
-        with pytest.raises(NotImplementedError, match="pretrain slice"):
-            blocks.seq_attention_core_bwd(qkv, dctx, kb, qbias, amask, 0.5, 2)
+    for qbias, amask in ((torch.zeros(1, 3, 4), None),
+                         (None, torch.ones(1, 1, 4, 4)),
+                         (None, torch.ones(2, 2, 4, 4))):
+        for fn in (blocks.seq_attention_core_bwd,
+                   blocks.seq_attention_core_bwd_plain):
+            with pytest.raises(ValueError, match="qbias|amask"):
+                fn(qkv, dctx, kb, qbias, amask, 0.5, 2)
+
+
+def _masks_np(rng, B, nH, N, C):
+    """A causal -10000 qbias, a real 0 or 1/0.9 attention-dropout mask and
+    a hidden-dropout mask (test_pallas_attn.py:643-647)."""
+    causal = np.triu(np.full((N, N), -10000.0), 1).astype(np.float32)
+    qbias = np.repeat(causal[None], B, 0)
+    amask = ((rng.random((B, nH, N, N)) > 0.1) / 0.9).astype(np.float32)
+    hmask = ((rng.random((B, N, C)) > 0.1) / 0.9).astype(np.float32)
+    return qbias, amask, hmask
+
+
+# the combinations of test_pallas_attn.py:651-652 and :731-732
+ATTN_MASKS = [(True, True, True), (False, True, False), (True, False, False),
+              (False, False, True)]
+CORE_MASKS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize("qb,am", CORE_MASKS)
+def test_seq_attention_core_bwd_masked(qb, am):
+    """``_seq_core_bwd_kernel`` with qbias / amask (interpret mode, as
+    test_pallas_attn.py:700 runs it): dqkv and dkbias at a ragged N, with a
+    real dropout mask (a mask of ones would not tell p from p * amask)."""
+    rng = np.random.default_rng(150)
+    B, N, C, nH = 3, 13, 32, 4
+    qkv, dctx = _np(rng, B, N, 3 * C, std=0.3), _np(rng, B, N, C)
+    kb = np.where(rng.random((B, N)) > 0.2, 0.0, -10000.0).astype(np.float32)
+    qbias, amask, _ = _masks_np(rng, B, nH, N, C)
+    qbias, amask = (qbias if qb else None), (amask if am else None)
+    scale = (C // nH) ** -0.5
+    want = pa.seq_attention_core_bwd(
+        jnp.asarray(qkv), jnp.asarray(dctx), jnp.asarray(kb),
+        None if qbias is None else jnp.asarray(qbias),
+        None if amask is None else jnp.asarray(amask), scale, nH,
+        interpret=True)
+    got = blocks.seq_attention_core_bwd_plain(
+        _t(qkv), _t(dctx), _t(kb), None if qbias is None else _t(qbias),
+        None if amask is None else _t(amask), scale, nH)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("qb,am,hm", ATTN_MASKS)
+def test_fused_attn_ln_masked_matches_jax_vjp(qb, am, hm):
+    """``fused_attn_ln_masked`` (``_attn_ln_kernel`` with has_qbias /
+    has_amask / has_hmask, interpret mode) and its custom VJP
+    (``_attn_ln_bwd_stored``): the output and the gradients of x, the
+    weights and the LN parameters, f32 at 1e-4. The port runs its autograd
+    Function over the plain versions."""
+    rng = np.random.default_rng(151)
+    B, N, C, nH = 3, 11, 32, 4
+    x, gy = _np(rng, B, N, C, std=0.5), _np(rng, B, N, C)
+    w = [_np(rng, C, 3 * C, std=0.1), _np(rng, 3 * C, std=0.1),
+         _np(rng, C, C, std=0.1), _np(rng, C, std=0.1)]
+    lns, lnb = _np(rng, C, std=0.1) + 1.0, _np(rng, C, std=0.1)
+    kb = np.where(np.arange(N)[None] < np.array([11, 6, 9])[:, None],
+                  0.0, -10000.0).astype(np.float32)
+    qbias, amask, hmask = _masks_np(rng, B, nH, N, C)
+    masks = [m if on else None for m, on in ((qbias, qb), (amask, am),
+                                             (hmask, hm))]
+    jmasks = [None if m is None else jnp.asarray(m) for m in masks]
+    scale = (C // nH) ** -0.5
+    args = [x, *w, lns, lnb]
+
+    def fn(x_, a, b, c, d, s, t):
+        return pa.fused_attn_ln_masked(x_, a, b, c, d, jnp.asarray(kb),
+                                       *jmasks, s, t, scale, nH, 1e-12, 8,
+                                       True)
+
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in args))
+    want = vjp(jnp.asarray(gy))
+    t = [_t(a).requires_grad_() for a in args]
+    got = blocks.fused_attn_ln_masked_plain(
+        t[0], t[1].t(), t[2], t[3].t(), t[4], _t(kb),
+        *(None if m is None else _t(m) for m in masks), t[5], t[6], scale,
+        nH, 1e-12)
+    got.backward(_t(gy))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                               atol=1e-4, rtol=1e-4)
+    for i, (tt, wg) in enumerate(zip(t, want)):
+        np.testing.assert_allclose(tt.grad.numpy(), np.asarray(wg), atol=1e-4,
+                                   rtol=1e-4, err_msg=f"input {i}")
+
+
+def test_fused_mlp_ln_masked_matches_jax_vjp():
+    """``fused_mlp_ln_masked`` (``_mlp_ln_kernel`` with has_hmask,
+    interpret mode) and its custom VJP: output and every input gradient,
+    f32 at 1e-4."""
+    rng = np.random.default_rng(152)
+    B, N, C = 3, 11, 32
+    x, gy = _np(rng, B, N, C, std=0.5), _np(rng, B, N, C)
+    w = [_np(rng, C, 4 * C, std=0.1), _np(rng, 4 * C, std=0.1),
+         _np(rng, 4 * C, C, std=0.1), _np(rng, C, std=0.1)]
+    lns, lnb = _np(rng, C, std=0.1) + 1.0, _np(rng, C, std=0.1)
+    hmask = _masks_np(rng, B, 1, N, C)[2]
+    args = [x, *w, lns, lnb]
+
+    def fn(x_, a, b, c, d, s, t):
+        return pa.fused_mlp_ln_masked(x_, a, b, c, d, jnp.asarray(hmask), s,
+                                      t, 1e-12, 16, True)
+
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in args))
+    want = vjp(jnp.asarray(gy))
+    t = [_t(a).requires_grad_() for a in args]
+    got = blocks.fused_mlp_ln_masked_plain(t[0], t[1].t(), t[2], t[3].t(),
+                                           t[4], _t(hmask), t[5], t[6], 1e-12)
+    got.backward(_t(gy))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                               atol=1e-4, rtol=1e-4)
+    for i, (tt, wg) in enumerate(zip(t, want)):
+        np.testing.assert_allclose(tt.grad.numpy(), np.asarray(wg), atol=1e-4,
+                                   rtol=1e-4, err_msg=f"input {i}")
+
+
+def test_attention_shared_memory_fits_every_admitted_n():
+    """The shared-memory reckoning of K2 and K4 (mirrors of ``smem_bytes``
+    in csrc/attention.cu and csrc/attention_bwd.cu): at head dim 64 every N
+    up to the pretrain step's 131 fits the 232,448 bytes an H100 block may
+    opt in to, and the admitted bound is exactly where the next N stops
+    fitting. (K4's earlier layout, four f32 N x Dh tiles, needed
+    4 * (2 N Dh + 2 N (Dh + 1) + 2 N (N + 1)) bytes: 234,112 at N = 118.)"""
+    optin, Dh = kernels.H100_SMEM_OPTIN, 64
+    assert optin == 232448
+    for n in range(1, 132):
+        assert kernels.attention_smem_bytes(n, Dh) <= optin, n
+        assert kernels.attention_bwd_smem_bytes(n, Dh) <= optin, n
+    assert kernels.attention_bwd_smem_bytes(131, Dh) == 207504
+    for backward, need, top in (
+            (False, kernels.attention_smem_bytes, 162),
+            (True, kernels.attention_bwd_smem_bytes, 140)):
+        n = kernels.max_attention_n(Dh, optin, backward=backward)
+        assert n == top
+        assert need(n, Dh) <= optin < need(n + 1, Dh)
+        kernels.check_attention_fits(n, Dh, optin, backward=backward)
+        with pytest.raises(ValueError, match=f"N={n + 1}, head dim 64"):
+            kernels.check_attention_fits(n + 1, Dh, optin, backward=backward)
+
+
+def test_gemm_plain_emask_and_layernorm_bwd_hmask():
+    """K1's epilogue multiplier sits after the bias and before the residual
+    add; K5 with hmask returns the unmasked dres, the masked cotangent and
+    its column sum (the proj / fc2 bias gradient)."""
+    rng = np.random.default_rng(153)
+    a, w, b, r = _np(rng, 6, 8), _np(rng, 4, 8), _np(rng, 4), _np(rng, 6, 4)
+    e = ((rng.random((6, 4)) > 0.3) / 0.7).astype(np.float32)
+    got = kernels.gemm(_t(a), _t(w), _t(b), residual=_t(r), emask=_t(e))
+    np.testing.assert_allclose(got.numpy(), (a @ w.T + b) * e + r, atol=1e-5,
+                               rtol=1e-5)
+    res, g = _np(rng, 5, 12, std=2.0), _np(rng, 5, 12)
+    gam = _np(rng, 12, std=0.1) + 1.0
+    h = ((rng.random((5, 12)) > 0.2) / 0.8).astype(np.float32)
+    plain = kernels.layernorm_bwd(_t(res), _t(gam), _t(g), 1e-12)
+    masked = kernels.layernorm_bwd(_t(res), _t(gam), _t(g), 1e-12,
+                                   hmask=_t(h))
+    torch.testing.assert_close(masked[0], plain[0])
+    torch.testing.assert_close(masked[1], plain[0] * _t(h))
+    torch.testing.assert_close(masked[2:4], plain[2:4])
+    torch.testing.assert_close(masked[4], (plain[0] * _t(h)).sum(0))
 
 
 @pytest.mark.parametrize("M", [48, 37])
@@ -301,9 +466,21 @@ def test_mlp_ln_half_bwd(M):
             w = w.T
         np.testing.assert_allclose(gt.numpy(), w, atol=1e-4, rtol=1e-4,
                                    err_msg=name)
-    with pytest.raises(NotImplementedError, match="pretrain slice"):
-        blocks.mlp_ln_half_bwd(_t(x), _t(res), _t(g), torch.ones(M, C),
-                               _t(w1.T), _t(b1), _t(w2.T), _t(lns))
+    # the hmask2 option (the fc2 output's dropout mask, a real one), as
+    # ``_mlp_ln_bwd_stored`` passes it (pallas_attn.py:3123-3126)
+    h = ((rng.random((M, C)) > 0.1) / 0.9).astype(np.float32)
+    res = np.asarray((m @ w2 + b2) * h + x, np.float32)
+    want = pa.mlp_ln_half_bwd(*(jnp.asarray(a) for a in (x, res, g, h)),
+                              *(jnp.asarray(a) for a in (w1, b1, w2, lns)),
+                              eps=1e-12, interpret=True)
+    got = blocks.mlp_ln_half_bwd(_t(x), _t(res), _t(g), _t(h), _t(w1.T),
+                                 _t(b1), _t(w2.T), _t(lns))
+    for name, gt, w in zip("dx dw1 db1 dw2 db2 dlns dlnb".split(), got, want):
+        w = np.asarray(w)
+        if name in ("dw1", "dw2"):
+            w = w.T
+        np.testing.assert_allclose(gt.numpy(), w, atol=1e-4, rtol=1e-4,
+                                   err_msg=f"{name} with hmask")
 
 
 def test_layernorm_bwd_plain_matches_jax_vjp():

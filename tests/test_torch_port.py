@@ -149,6 +149,7 @@ def test_port_imports_nothing_of_mvlt_tpu():
         import mvlt_tpu_torch
         from mvlt_tpu_torch import flagship
         from mvlt_tpu_torch.train import steps, state
+        from mvlt_tpu_torch.models.heads import PretrainModel
         from mvlt_tpu_torch.models.backbones import resnet
         import chip_smoke
         bad = sorted(m for m in sys.modules
@@ -215,4 +216,54 @@ def test_cuda_attention_bwd_and_layernorm_bwd_match_plain(cuda_device):
                     kernels.layernorm_bwd_plain(res, gam, gy, 1e-12)):
         _near(a, b, 2 ** -7)
     _near(kernels.column_sum(gy), kernels.column_sum_plain(gy), 1e-4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [131, 128, 37])
+def test_cuda_masked_attention_fwd_bwd_match_plain(cuda_device, N):
+    """K2 and K4 with a seq2seq qbias and a real dropout mask, then K4 with
+    a key bias alone, at N = 131 (the pretrain step's), 128 (the largest N
+    the earlier K4 layout claimed and could not launch) and a ragged 37."""
+    g = torch.Generator().manual_seed(N)
+    G, C, nH = 3, 128, 2
+    qkv = _rnd(g, G * N, 3 * C, std=0.5, dev=cuda_device)
+    dctx = _rnd(g, G * N, C, dev=cuda_device)
+    causal = torch.triu(torch.full((N, N), -10000.0), 1)
+    qb = causal.expand(G, N, N).contiguous().to(cuda_device)
+    am = ((torch.rand(G, nH, N, N, generator=g) < 0.9).float() / 0.9).to(
+        cuda_device, torch.bfloat16)
+    kb = torch.where(torch.rand(G, N, generator=g) < 0.2, -10000.0,
+                     0.0).to(cuda_device)
+    for kbias, qbias, amask in ((None, qb, am), (kb, None, am), (kb, None, None)):
+        _near(kernels.biased_attention(qkv, nH, N, 0.125, None, kbias, qbias,
+                                       amask),
+              kernels.biased_attention_plain(qkv, nH, N, 0.125, None, kbias,
+                                             qbias, amask), 2 ** -7)
+        got = kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.125, kbias,
+                                           qbias, amask)
+        want = kernels.biased_attention_bwd_plain(qkv, dctx, nH, N, 0.125,
+                                                  kbias, qbias, amask)
+        _near(got[0], want[0], 2 ** -7)
+        _near(got[1], want[1], 1e-4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_gemm_emask_and_layernorm_bwd_hmask_match_plain(cuda_device):
+    g = torch.Generator().manual_seed(9)
+    M, K, N = 72, 96, 64
+    a = _rnd(g, M, K, dev=cuda_device)
+    w = _rnd(g, N, K, std=K ** -0.5, dev=cuda_device)
+    r = _rnd(g, M, N, dt=torch.float32, dev=cuda_device)
+    e = ((torch.rand(M, N, generator=g) < 0.9).float() / 0.9).to(
+        cuda_device, torch.bfloat16)
+    kw = dict(residual=r, emask=e, out_dtype=torch.float32)
+    _near(kernels.gemm(a, w, **kw), kernels.gemm_plain(a, w, **kw), 2 ** -7)
+    res = _rnd(g, M, N, std=2.0, dt=torch.float32, dev=cuda_device)
+    gam = _rnd(g, N, dt=torch.float32, dev=cuda_device) + 1.0
+    gy = _rnd(g, M, N, dev=cuda_device)
+    for x, y in zip(kernels.layernorm_bwd(res, gam, gy, 1e-12, hmask=e),
+                    kernels.layernorm_bwd_plain(res, gam, gy, 1e-12, hmask=e)):
+        _near(x, y, 2 ** -7)
     torch.cuda.synchronize()

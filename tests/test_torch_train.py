@@ -32,7 +32,7 @@ from mvlt_tpu_torch import config as pcfg
 from mvlt_tpu_torch import flagship
 from mvlt_tpu_torch.models.backbones.resnet import ResNet
 from mvlt_tpu_torch.models.heads import VQAModel
-from mvlt_tpu_torch.ops.layers import cross_entropy_ignore_index
+from mvlt_tpu_torch.ops.layers import DropoutMasks, cross_entropy_ignore_index
 from mvlt_tpu_torch.train.state import make_optimizer
 from mvlt_tpu_torch.train.steps import make_vqa_step
 from mvlt_tpu_torch.utils.convert import vqa_params_from_flax
@@ -109,7 +109,8 @@ def _jax_grads(cfg, variables, inputs, dtype=jnp.float32):
             {"params": params, "batch_stats": variables["batch_stats"]},
             jnp.asarray(image), jnp.asarray(question, jnp.int32),
             jnp.asarray(label, jnp.int32), deterministic=False,
-            method=model.loss, mutable=["batch_stats"])
+            method=model.loss, mutable=["batch_stats"],
+            rngs={"dropout": jax.random.PRNGKey(3)})
         return loss
 
     loss, grads = jax.jit(jax.value_and_grad(loss_fn))(variables["params"])
@@ -259,8 +260,8 @@ def test_resnet_tree_maps_every_leaf_once(tiny):
         model.load_state_dict(missing)
 
 
-@pytest.mark.parametrize("make", ["for_vqa", "swin_small", "resnet101",
-                                  "resnet50"])
+@pytest.mark.parametrize("make", ["for_vqa", "for_pretrain", "swin_small",
+                                  "resnet101", "resnet50"])
 def test_config_copy_matches_jax(make):
     ours = getattr(pcfg.MVLTConfig, make, None) or getattr(pcfg, make)
     theirs = getattr(jcfg.MVLTConfig, make, None) or getattr(jcfg, make)
@@ -315,11 +316,32 @@ def test_build_vqa_train_step_on_cuda_raises_without_cuda():
         flagship.build_vqa_train_step(batch=1, device="cuda")
 
 
-def test_loss_refuses_fusion_dropout(tiny):
-    cfg, variables, (image, question, label) = tiny
+def test_grads_match_jax_with_fusion_dropout(tiny, monkeypatch):
+    """Fusion dropouts 0.1 (the ``for_vqa`` default) and the pooled output's
+    dropout, f32, the JAX side on its fused encoder: each mask JAX takes is
+    drawn from numpy by a patched ``jax.random.bernoulli`` and replayed to
+    the port in the same order (as tests/test_torch_pretrain.py does). The
+    loss within 1e-5 and every gradient within 1e-4 x max|grad|. Without a
+    mask source the port's loss refuses to train with dropout."""
+    cfg, variables, inputs = tiny
     drop = dataclasses.replace(cfg, fusion=dataclasses.replace(
-        cfg.fusion, hidden_dropout_prob=0.1))
-    model = VQAModel(_port_config(drop))
-    with pytest.raises(NotImplementedError, match="pretrain slice"):
-        model.loss(torch.from_numpy(image), torch.from_numpy(question),
-                   torch.from_numpy(label))
+        cfg.fusion, hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1))
+    monkeypatch.setenv("MVLT_FORCE_FUSED_ENCODER", "1")
+    rng, drawn = np.random.default_rng(6), []
+
+    def bernoulli(key, p=0.5, shape=None, mode="low"):
+        drawn.append(rng.random(tuple(shape)) < p)
+        return jnp.asarray(drawn[-1])
+
+    monkeypatch.setattr(jax.random, "bernoulli", bernoulli)
+    want_loss, want = _jax_grads(drop, variables, inputs)
+    assert len(drawn) == 2 * 3 + 1 and drawn[-1].shape == (B, 32)
+    model = _port_model(drop, variables)
+    tin = [torch.from_numpy(np.asarray(a)) for a in inputs]
+    with pytest.raises(ValueError, match="mask source"):
+        model.loss(*tin)
+    loss, _ = model.loss(*tin, masks=DropoutMasks.replay(drawn))
+    loss.backward()
+    assert abs(float(loss.detach()) - want_loss) <= 1e-5 * max(1.0, want_loss)
+    _assert_grads_close({n: p.grad for n, p in model.named_parameters()},
+                        want, 1e-4)
