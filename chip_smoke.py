@@ -39,7 +39,15 @@ on failure:
    gradients from the initial parameters in both mask modes, the launch
    counts of one step and the losses of 3 steps (bidirectional, seq2seq,
    bidirectional), then time the steps in turns;
-7. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` last.
+7. swin: at the Swin-S b32 shapes of each stage, K1's row scale, K4's
+   pattern mode (one pattern and one per window; two calls bitwise equal),
+   K5's pre-LN form and the scaled column sum, and the Swin training
+   counterparts (the whole / half block forward, the three backward pieces,
+   each block forward + backward); then the pretrain step of record
+   (Swin-S @224 with DropPath 0.3 + BERT-base, S = 131, b32, dropout 0.1)
+   as phase 6 drives the ResNet one, the plain run replaying the kernel
+   run's DropPath and dropout masks;
+8. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -75,6 +83,15 @@ GRAD_BAR = 0.05
 # moved by 0.23 x max|grad| at the stem in one run. The backbone is held in
 # relative Frobenius norm per tensor instead. Losses: relative.
 BACKBONE_GRAD_BAR = 0.25
+# The Swin backbone has no BatchNorm: its gradients pass through the 24
+# blocks' store-residual backwards, LayerNorms and DropPath scales, with
+# the same rounding points on both sides, so each tensor is held to the
+# encoder's max-abs bar, the relative-position tables included. A table's
+# gradient sums ds over up to 2048 windows (stage 1 at b32), and cancelling
+# sums could have asked for a Frobenius bar, but the measurement did not:
+# on an H100 the tables' worst max abs err was 0.029 x max|plain grad| and
+# the other Swin tensors' 0.024, in both mask modes (PERF.md, section 6).
+SWIN_GRAD_BAR = 0.05
 LOSS_BAR = 1e-2
 TRAIN_BATCH, TRAIN_STEPS = 32, 3
 PRETRAIN_TEXT = 80
@@ -107,6 +124,22 @@ EXPECTED_PRETRAIN = {
     "fused_mlp_ln_masked": (12, "mvlt_tpu/ops/pallas_attn.py:3194"),
     "seq_attention_core_bwd": (12, "mvlt_tpu/ops/pallas_attn.py:2413"),
     "mlp_ln_half_bwd": (12, "mvlt_tpu/ops/pallas_attn.py:2931"),
+}
+# calls per Swin-S pretrain step (24 Swin blocks: stages 1-3 on the whole
+# block, block 0 without DropPath, every second one shifted; stage 4 on the
+# half block; each block's stored backward; then the fusion encoder as
+# in the ResNet pretrain step)
+EXPECTED_SWIN_PRETRAIN = {
+    "swin_full_block_train": (11, "mvlt_tpu/ops/pallas_attn.py:760"),
+    "swin_full_block_train_shift": (11, "mvlt_tpu/ops/pallas_attn.py:868"),
+    "swin_half_block": (2, "mvlt_tpu/ops/pallas_attn.py:3467"),
+    "attention_core": (2, "mvlt_tpu/ops/pallas_attn.py:3614"),
+    "attention_core_bwd": (24, "mvlt_tpu/ops/pallas_attn.py:3782"),
+    "swin_mlp_half_bwd": (24, "mvlt_tpu/ops/pallas_attn.py:1618"),
+    "swin_qkv_tail_bwd": (24, "mvlt_tpu/ops/pallas_attn.py:1787"),
+    **EXPECTED_PRETRAIN,
+    "swin_full_block": (0, "mvlt_tpu/ops/pallas_attn.py:652"),
+    "window_block_attention": (0, "mvlt_tpu/ops/pallas_attn.py:166"),
 }
 # the hand-written kernels and the TPU code whose pieces each carries
 KERNEL_SOURCES = {
@@ -148,7 +181,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def _tensors(out):
-    return list(out) if isinstance(out, (tuple, list)) else [out]
+    """The tensors of an output, in order, leaving out None."""
+    out = list(out) if isinstance(out, (tuple, list)) else [out]
+    return [t for t in out if t is not None]
 
 
 def bound(flops: float, nbytes: float):
@@ -261,16 +296,18 @@ def bf16_ln(g, b):
     return g.to(torch.bfloat16), b.to(torch.bfloat16)
 
 
-def lib_swin_block(x, params, mask, scale, nH, gather=None, scatter=None):
+def lib_swin_block(x, params, mask, scale, nH, gather=None, scatter=None,
+                   dp=(1.0, 1.0)):
+    """``dp``: per-row DropPath multipliers (M, 1) of the two branches."""
     BW, N, C = x.shape
     (ln1s, ln1b, wqkv, bqkv, wproj, bproj, ln2s, ln2b, w1, b1, w2, b2) = params
     rows = x.reshape(BW * N, C)
     src = rows if gather is None else rows.index_select(0, gather)
     h = F.layer_norm(src, (C,), ln1s, ln1b, 1e-5)
     ctx = lib_attention(F.linear(h, wqkv, bqkv), BW, N, nH, mask, scale)
-    res1 = F.linear(ctx, wproj, bproj) + src
+    res1 = F.linear(ctx, wproj, bproj) * dp[0] + src
     h2 = F.layer_norm(res1, (C,), ln2s, ln2b, 1e-5)
-    out = F.linear(F.gelu(F.linear(h2, w1, b1)), w2, b2) + res1
+    out = F.linear(F.gelu(F.linear(h2, w1, b1)), w2, b2) * dp[1] + res1
     if scatter is not None:
         out = out.index_select(0, scatter)
     return out.view(BW, N, C)
@@ -619,7 +656,7 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
         assert K.attention_smem_bytes(n, 64) == \
             libs["attention"].mvlt_attention_smem(n, 64), n
         assert K.attention_bwd_smem_bytes(n, 64) == \
-            libs["attention_bwd"].mvlt_attention_bwd_smem(n, 64), n
+            libs["attention_bwd"].mvlt_attention_bwd_smem(n, 64, 0), n
     optin = K.smem_optin(dev)
     print(f"shared memory per block (opt-in): {optin} bytes; K2 admits N <= "
           f"{K.max_attention_n(64, optin)}, K4 N <= "
@@ -801,12 +838,251 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
                  M * C + 2 * C * I + I + 3 * C))
 
 
+# Swin-S @224 stages: (map side, C, heads); 49-token windows, head dim 32
+SWIN_STAGES = [(56, 96, 3), (28, 192, 6), (14, 384, 12), (7, 768, 24)]
+
+
+def _swin_dp(inp, dev, B: int, keep: float = 0.7):
+    """A (B,) f32 DropPath multiplier, 0 or 1/keep, image 0 dropped."""
+    m = (torch.rand(B, generator=inp.gen) < keep).float()
+    m[0] = 0.0
+    return (m * float(torch.tensor(1.0) / torch.tensor(keep))).to(dev)
+
+
+def check_block_grads(fn, fn_plain, x, params, bias, cotangent, what: str,
+                      **kw) -> None:
+    """One Swin training block, forward and backward through its autograd
+    Function, kernels vs plain on the same inputs: the output, dx, every
+    parameter grad and the pattern grad within BLOCK_BAR x max|plain| (floor
+    1e-6). Not timed: its pieces are."""
+    outs = []
+    for f in (fn, fn_plain):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, bias, *params)]
+        y = f(leaves[0], leaves[2:], leaves[1], **kw)
+        y.backward(cotangent)
+        outs.append([y.detach()] + [t.grad for t in leaves])
+    torch.cuda.synchronize()
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(*outs)):
+        assert torch.isfinite(g).all(), f"{what}: non-finite output {i}"
+        err = (g.float() - w.float()).abs().max().item()
+        scale = max(w.float().abs().max().item(), 1e-6)
+        if not err <= BLOCK_BAR * scale:
+            raise AssertionError(f"{what}: forward/backward output {i} max abs "
+                                 f"err {err} > {BLOCK_BAR} x {scale}")
+        worst = max(worst, err / scale)
+    print(f"check {what} forward + backward: worst max abs err "
+          f"{worst:.3g} x max|plain| over {len(outs[0])} outputs", flush=True)
+
+
+def swin_kernel_checks(chk: Checker, dev) -> None:
+    """The Swin training slice at the Swin-S b32 shapes of each stage (M =
+    32 * H * W rows): K1's row scale, K4's pattern mode (one pattern, and
+    one per window at the shifted stages; two calls bitwise equal), K5's
+    pre-LN form and the scaled column sum, and the training counterparts:
+    the whole / half block's forward, the three backward pieces, and each
+    block forward + backward through its autograd Function, shifted and
+    unshifted, with DropPath multipliers that zero some images."""
+    from mvlt_tpu_torch.models.backbones.swin import shifted_window_mask
+    from mvlt_tpu_torch.ops import blocks
+    from mvlt_tpu_torch.ops import kernels as K
+
+    inp = Inputs(dev, seed=3)
+    rnd, dense, ln = inp.rnd, inp.dense, inp.ln
+    bf, f32 = torch.bfloat16, torch.float32
+    B, N = TRAIN_BATCH, 49
+    libs = K.build()
+    for n in range(1, 141):
+        assert K.attention_bwd_smem_bytes(n, 32, True) == \
+            libs["attention_bwd"].mvlt_attention_bwd_smem(n, 32, 1), n
+    for res, C, nH in SWIN_STAGES:
+        nW = (res // 7) ** 2
+        BW, I, Dh = B * nW, 4 * C, C // nH
+        M, sc, shifted = BW * N, Dh ** -0.5, nW > 1
+        rows = M // B
+        dp1, dp2 = _swin_dp(inp, dev, B), _swin_dp(inp, dev, B)
+        r1, r2 = (d.repeat_interleave(rows)[:, None] for d in (dp1, dp2))
+        x = rnd(M, C)
+        (wq, bq), (wp, bp) = dense(C, 3 * C), dense(C, C)
+        (w1, b1), (w2, b2) = dense(C, I), dense(I, C)
+        ln1, ln2 = ln(C), ln(C)
+        params = (*ln1, wq, bq, wp, bp, *ln2, w1, b1, w2, b2)
+        lparams = (*bf16_ln(*ln1), wq, bq, wp, bp, *bf16_ln(*ln2), w1, b1, w2,
+                   b2)
+        rel = rnd(1, nH, N, N, std=0.5, dtype=f32)
+        patterns = [rel]
+        if shifted:
+            mask = torch.as_tensor(shifted_window_mask(res, res, 7, 3),
+                                   device=dev)
+            patterns.append((rel + mask[:, None]).contiguous())
+        tag = f"stage {C}"
+
+        # K1 with the row scale: proj (+x, f32 res1) and fc2 (+res1, scatter)
+        ctx, m, res1 = rnd(M, C), rnd(M, I), rnd(M, C, std=2.0, dtype=f32)
+        si = blocks._shift_index(B, res, res, 7, 3, dev) if shifted else None
+        for a, w, b, kw, lib in (
+                (ctx, wp, bp, dict(residual=x, row_scale=dp1, out_dtype=f32),
+                 lambda: F.linear(ctx, wp, bp) * r1 + x),
+                (m, w2, b2, dict(residual=res1, row_scale=dp2, store_index=si),
+                 lambda: F.linear(m, w2, b2) * r2 + res1)):
+            out = torch.empty(M, C, dtype=kw.get("out_dtype", bf), device=dev)
+            chk.case("gemm", lambda a=a, w=w, b=b, kw=kw: K.gemm(a, w, b, **kw),
+                     lambda a=a, w=w, b=b, kw=kw: K.gemm_plain(a, w, b, **kw),
+                     KERNEL_BAR, library_fn=lib,
+                     flops=2.0 * M * a.shape[1] * C,
+                     nbytes=nbytes(a, w, b, kw["residual"], kw["row_scale"],
+                                   kw.get("store_index"), out))
+
+        # K4 in pattern mode and attention_core_bwd, P = 1 and P = nW;
+        # library: the autograd backward of the bf16 composition with the
+        # patterns gathered per window
+        qkv, dctx = rnd(M, 3 * C, std=0.5), rnd(M, C)
+        t = qkv.view(BW, N, 3, nH, Dh).permute(2, 0, 3, 1, 4)
+        for pat in patterns:
+            P = pat.shape[0]
+            lib = library_backward(
+                lambda q, k, v, pat=pat: torch.matmul(torch.softmax(
+                    torch.matmul(q, k.transpose(-1, -2)) * sc + pat.to(bf)[
+                        torch.arange(BW, device=dev) % P], dim=-1), v),
+                (t[0].contiguous(), t[1].contiguous(), t[2].contiguous()),
+                dctx.view(BW, N, nH, Dh).permute(0, 2, 1, 3).contiguous())
+            cost = dict(flops=10.0 * BW * nH * N * N * Dh,
+                        nbytes=nbytes(qkv, dctx, pat, qkv, pat))
+            chk.case("biased_attention_bwd",
+                     lambda pat=pat: K.biased_attention_bwd(
+                         qkv, dctx, nH, N, sc, pattern=pat),
+                     lambda pat=pat: K.biased_attention_bwd_plain(
+                         qkv, dctx, nH, N, sc, pattern=pat),
+                     KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+            chk.case("attention_core_bwd",
+                     lambda pat=pat: blocks.attention_core_bwd(qkv, dctx, pat,
+                                                               N, sc, nH),
+                     lambda pat=pat: blocks.attention_core_bwd_plain(
+                         qkv, dctx, pat, N, sc, nH),
+                     KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+            one = K.biased_attention_bwd(qkv, dctx, nH, N, sc, pattern=pat)
+            two = K.biased_attention_bwd(qkv, dctx, nH, N, sc, pattern=pat)
+            torch.cuda.synchronize()
+            if not (torch.equal(one[0], two[0]) and torch.equal(one[2], two[2])):
+                raise AssertionError(f"K4 pattern mode ({tag}, P = {P}) is not "
+                                     "bitwise reproducible")
+        print(f"K4 pattern mode at {tag}: two calls bitwise equal for P = "
+              f"{[p.shape[0] for p in patterns]}", flush=True)
+
+        # K5 in pre-LN form: the MLP half's (f32 res1, f32 dh2, the block's
+        # bf16 cotangent as the incoming residual, da scaled by dp1) and the
+        # qkv tail's (bf16 x, f32 dh1, f32 dres1); the scaled column sum
+        gb, dh = rnd(M, C), rnd(M, C, dtype=f32)
+        for r_, (gam, beta), gres, rs in ((res1, ln2, gb, dp1),
+                                          (x, ln1, res1, None)):
+            ln_grads = library_backward(
+                lambda a_, s_, b_: F.layer_norm(a_, (C,), s_, b_, 1e-5),
+                (r_.float(), gam, beta), dh)
+
+            def lib_k5(ln_grads=ln_grads, gres=gres, rs=rs):
+                dr = ln_grads()[0] + gres
+                da = dr if rs is None else dr * r1
+                return dr, da, da.sum(0)
+
+            kw = dict(gres=gres, row_scale=rs, out_dtype=bf)
+            chk.case("layernorm_bwd",
+                     lambda r_=r_, gam=gam, kw=kw: K.layernorm_bwd(
+                         r_, gam, dh, 1e-5, **kw),
+                     lambda r_=r_, gam=gam, kw=kw: K.layernorm_bwd_plain(
+                         r_, gam, dh, 1e-5, **kw),
+                     KERNEL_BAR, library_fn=lib_k5, floor=1e-6,
+                     flops=16.0 * M * C,
+                     nbytes=nbytes(r_, gam, dh, gres, rs) + 6 * M * C + 12 * C)
+        chk.case("column_sum", lambda: K.column_sum(gb, row_scale=dp2),
+                 lambda: K.column_sum_plain(gb, row_scale=dp2), KERNEL_BAR,
+                 floor=1e-6, library_fn=lambda: (gb.float() * r2).sum(0),
+                 flops=2.0 * M * C, nbytes=nbytes(gb, dp2, gb) + 4 * C)
+
+        # the backward pieces; library: autograd backwards of the bf16
+        # F.layer_norm / F.linear / F.gelu compositions they differentiate
+        g = rnd(M, C)
+        lib_mlp = library_backward(
+            lambda r_, a_, b_, c_, d_, s_, e_: r_ + F.linear(F.gelu(F.linear(
+                F.layer_norm(r_, (C,), s_, e_, 1e-5), a_, b_)), c_, d_) * r2,
+            (res1.to(bf), w1, b1, w2, b2, *bf16_ln(*ln2)), g)
+        dp = (dp1, dp2)
+        chk.case("swin_mlp_half_bwd",
+                 lambda: blocks.swin_mlp_half_bwd(x, ctx, g, wp, bp, *ln2, w1,
+                                                  b1, w2, dp),
+                 lambda: blocks.swin_mlp_half_bwd_plain(x, ctx, g, wp, bp,
+                                                        *ln2, w1, b1, w2, dp),
+                 BLOCK_BAR, library_fn=lib_mlp, floor=1e-6,
+                 flops=42.0 * M * C * C,
+                 nbytes=nbytes(x, ctx, g, wp, bp, *ln2, w1, b1, w2, dp1, dp2)
+                 + 6 * M * C + 4 * (2 * C * I + C * C + I + 4 * C))
+        dq = rnd(M, 3 * C, std=0.1)
+        lib_tail = library_backward(
+            lambda a_, w_, b_, s_, e_: F.linear(
+                F.layer_norm(a_, (C,), s_, e_, 1e-5), w_, b_),
+            (x, wq, bq, *bf16_ln(*ln1)), dq)
+        chk.case("swin_qkv_tail_bwd",
+                 lambda: blocks.swin_qkv_tail_bwd(x, dq, res1, wq, *ln1),
+                 lambda: blocks.swin_qkv_tail_bwd_plain(x, dq, res1, wq,
+                                                        *ln1),
+                 BLOCK_BAR, library_fn=lib_tail, floor=1e-6,
+                 flops=12.0 * M * C * C,
+                 nbytes=nbytes(x, dq, res1, wq, *ln1) + 2 * M * C
+                 + 4 * (3 * C * C + 5 * C))
+
+        # the block forward (no grad: the training form, from its dp) and the
+        # block forward + backward, on kernels vs plain
+        xw = x.view(BW, N, C)
+        cost = dict(flops=2.0 * M * C * 12 * C + 4.0 * BW * nH * N * N * Dh)
+        if C < 768:
+            cases = [("swin_full_block_train", patterns[0], None)]
+            if shifted:
+                cases.append(("swin_full_block_train_shift", patterns[1],
+                              (res, res, 7, 3)))
+            fn, fn_plain = blocks.swin_full_block, blocks.swin_full_block_plain
+        else:
+            cases = [("swin_half_block", patterns[0], None)]
+            fn, fn_plain = blocks.swin_half_block, blocks.swin_half_block_plain
+            chk.case("attention_core",
+                     lambda: blocks.attention_core(qkv.view(BW, N, 3 * C),
+                                                   rel, sc, nH),
+                     lambda: blocks.attention_core_plain(
+                         qkv.view(BW, N, 3 * C), rel, sc, nH), KERNEL_BAR,
+                     library_fn=lambda: lib_attention(qkv, BW, N, nH,
+                                                      rel.to(bf), sc),
+                     flops=4.0 * BW * nH * N * N * Dh,
+                     nbytes=nbytes(qkv, rel) + 2 * M * C)
+        for name, pat, spec in cases:
+            gather = scatter = None
+            if spec is not None:
+                gather = si.long()
+                scatter = torch.argsort(gather)
+            lmask = pat.to(bf)[torch.arange(BW, device=dev) % pat.shape[0]]
+            with torch.no_grad():
+                chk.case(name,
+                         lambda pat=pat, spec=spec: fn(
+                             xw, params, pat, sc, nH, shift_spec=spec, dp=dp),
+                         lambda pat=pat, spec=spec: fn_plain(
+                             xw, params, pat, sc, nH, shift_spec=spec, dp=dp),
+                         BLOCK_BAR,
+                         library_fn=lambda lmask=lmask, gather=gather,
+                         scatter=scatter: lib_swin_block(
+                             xw, lparams, lmask, sc, nH, gather, scatter,
+                             dp=(r1.to(bf), r2.to(bf))),
+                         nbytes=nbytes(x, *params, pat, dp1, dp2, x), **cost)
+            check_block_grads(fn, fn_plain, xw, params, pat, g.view(BW, N, C),
+                              f"{name} ({tag})", scale=sc, num_heads=nH,
+                              shift_spec=spec, dp=dp)
+
+
 def launch_counts() -> dict:
     from mvlt_tpu_torch.ops import blocks, kernels
     counts = {k.__name__: k.launches for k in kernels.KERNELS}
     for fn in blocks.COUNTERPARTS:
         counts[fn.__name__] = fn.launches
-    counts["swin_full_block_shift"] = blocks.swin_full_block.shift_launches
+    full = blocks.swin_full_block
+    counts.update(swin_full_block_shift=full.shift_launches,
+                  swin_full_block_train=full.train_launches,
+                  swin_full_block_train_shift=full.train_shift_launches)
     return counts
 
 
@@ -815,7 +1091,8 @@ def reset_counts() -> None:
     for fn in kernels.KERNELS:
         fn.launches = 0
     for fn in blocks.COUNTERPARTS:
-        fn.launches = fn.shift_launches = 0
+        for c in blocks.COUNTS:
+            setattr(fn, c, 0)
 
 
 def main() -> int:
@@ -844,15 +1121,19 @@ def main() -> int:
     kernel_checks(chk, dev)
     train_kernel_checks(chk, dev)
     pretrain_kernel_checks(chk, dev)
+    swin_kernel_checks(chk, dev)
     by_path = {"vqa_forward": forward_phase(dev, card),
                "vqa_train_step": train_phase(dev, card),
-               "pretrain_train_step": pretrain_phase(dev, card)}
+               "pretrain_train_step": pretrain_phase(dev, card),
+               "swin_pretrain_train_step": pretrain_phase(dev, card,
+                                                          swin=True)}
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
 
     rows = []
-    counterparts = {**EXPECTED, **EXPECTED_TRAIN, **EXPECTED_PRETRAIN}
+    counterparts = {**EXPECTED, **EXPECTED_TRAIN, **EXPECTED_PRETRAIN,
+                    **EXPECTED_SWIN_PRETRAIN}
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces})
@@ -871,12 +1152,29 @@ def main() -> int:
     return 0
 
 
-def compare_grads(model_k, model_p, what: str) -> None:
-    """Every parameter's gradient, kernels vs plain: the fusion encoder, the
-    heads and ``resnet_fc`` by max abs err over max|plain grad| (GRAD_BAR),
-    the ResNet by relative Frobenius norm (BACKBONE_GRAD_BAR). A parameter
-    the loss does not reach has no gradient on either side."""
-    stats, failures = [], []
+def resnet_bars(name: str):
+    """(group, norm, bar) of a parameter of the ResNet-101 models."""
+    if name.startswith("conv.backbone."):
+        return "ResNet backbone", "frob", BACKBONE_GRAD_BAR
+    return "fusion / heads / resnet_fc", "max", GRAD_BAR
+
+
+def swin_bars(name: str):
+    """(group, norm, bar) of a parameter of the Swin-S pretrain model."""
+    if name.endswith(".relative_position_bias_table"):
+        return "Swin relative-position tables", "max", SWIN_GRAD_BAR
+    if name.startswith("conv.backbone."):
+        return "Swin backbone", "max", SWIN_GRAD_BAR
+    return "fusion / heads", "max", GRAD_BAR
+
+
+def compare_grads(model_k, model_p, what: str, bars=resnet_bars) -> None:
+    """Every parameter's gradient, kernels vs plain, held to the bar that
+    ``bars(name)`` gives its group: ``"max"`` the max abs err over
+    max|plain grad|, ``"frob"`` the relative Frobenius norm of the
+    difference. A parameter the loss does not reach has no gradient on
+    either side."""
+    stats, failures, worst = [], [], {}
     for (name, pk), (_, pp) in zip(model_k.named_parameters(),
                                    model_p.named_parameters()):
         gk, gp = pk.grad, pp.grad
@@ -889,20 +1187,19 @@ def compare_grads(model_k, model_p, what: str) -> None:
         rel = diff.abs().max().item() / scale if scale > 0 else 0.0
         norm = gp.float().norm().item()
         frob = diff.norm().item() / norm if norm > 0 else 0.0
-        backbone = name.startswith("conv.backbone.")
+        group, kind, bar = bars(name)
+        value = frob if kind == "frob" else rel
         stats.append((rel, frob, name))
-        if (frob if backbone else rel) > (BACKBONE_GRAD_BAR if backbone
-                                          else GRAD_BAR):
+        if value > worst.get(group, (-1.0,))[0]:
+            worst[group] = (value, name, kind, bar)
+        if value > bar:
             failures.append((name, rel, frob))
-    head = [s_ for s_ in stats if not s_[2].startswith("conv.backbone.")]
-    back = [s_ for s_ in stats if s_[2].startswith("conv.backbone.")]
-    w_head, w_back = max(head), max(back, key=lambda s_: s_[1])
-    print(f"{what}, kernels vs plain, {len(stats)} tensors: fusion "
-          f"/ heads / resnet_fc worst {w_head[2]} max abs err "
-          f"{w_head[0]:.4g} x max|plain grad| (bar {GRAD_BAR}); backbone "
-          f"worst {w_back[2]} relative Frobenius {w_back[1]:.4g} (bar "
-          f"{BACKBONE_GRAD_BAR}); largest max-abs ratios "
-          f"{[(n, round(r, 4)) for r, _, n in sorted(stats)[-4:]]}",
+    groups = "; ".join(
+        f"{group} worst {name} {'relative Frobenius' if kind == 'frob' else 'max abs err / max|plain grad|'} "
+        f"{value:.4g} (bar {bar})"
+        for group, (value, name, kind, bar) in worst.items())
+    print(f"{what}, kernels vs plain, {len(stats)} tensors: {groups}; largest "
+          f"max-abs ratios {[(n, round(r, 4)) for r, _, n in sorted(stats)[-4:]]}",
           flush=True)
     if failures:
         raise AssertionError(f"{len(failures)} gradients beyond the bar: "
@@ -1034,27 +1331,32 @@ def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
     return counts
 
 
-def pretrain_phase(dev, card: str, timed_steps: int = 6) -> dict:
-    """The MLM+ITM pretrain train step (ResNet-101 + BERT-base, S = 131, b32,
+def pretrain_phase(dev, card: str, timed_steps: int = 6,
+                   swin: bool = False) -> dict:
+    """The MLM+ITM pretrain train step (ResNet-101, or with ``swin`` the
+    step of record on Swin-S with DropPath 0.3, + BERT-base, S = 131, b32,
     dropout 0.1) on the kernels and on the plain versions from one seed;
-    the plain run replays the dropout masks the kernel run drew. Gradients
-    from the initial parameters in both mask modes, the launch counts of one
-    step, the losses of 3 steps, then step times in turns. Returns the
-    launch counts of one step."""
-    from mvlt_tpu_torch.flagship import build_pretrain_train_step
+    the plain run replays the DropPath and dropout masks the kernel run
+    drew. Gradients from the initial parameters in both mask modes, the
+    launch counts of one step, the losses of 3 steps, then step times in
+    turns. Returns the launch counts of one step."""
+    from mvlt_tpu_torch import flagship
     from mvlt_tpu_torch.ops import kernels
     from mvlt_tpu_torch.ops.layers import DropoutMasks
     from mvlt_tpu_torch.train.steps import seq2seq_coin_flip
     B = TRAIN_BATCH
+    build = (flagship.build_swin_pretrain_train_step if swin
+             else flagship.build_pretrain_train_step)
+    expected = EXPECTED_SWIN_PRETRAIN if swin else EXPECTED_PRETRAIN
+    label = "Swin-S pretrain step" if swin else "pretrain step"
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    step_k, batch = build_pretrain_train_step(batch=B, text_len=PRETRAIN_TEXT,
-                                              device=dev)
-    step_p, batch_p = build_pretrain_train_step(
-        batch=B, text_len=PRETRAIN_TEXT, device=dev, plain=True)
+    step_k, batch = build(batch=B, text_len=PRETRAIN_TEXT, device=dev)
+    step_p, batch_p = build(batch=B, text_len=PRETRAIN_TEXT, device=dev,
+                            plain=True)
     n_params = sum(p.numel() for p in step_k.model.parameters())
     labels = (batch["caption_label"] != -100).sum().item()
-    print(f"pretrain step built twice in {time.perf_counter() - t0:.1f} s: "
+    print(f"{label} built twice in {time.perf_counter() - t0:.1f} s: "
           f"{n_params} parameters, image {tuple(batch['image'].shape)}, "
           f"caption {tuple(batch['caption_masked'].shape)}, {labels} MLM "
           f"labels, padded caption tokens "
@@ -1077,7 +1379,9 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6) -> dict:
             loss.backward()
         torch.cuda.synchronize()
         compare_grads(step_k.model, step_p.model,
-                      f"initial gradients ({'seq2seq' if seq2seq else 'bidirectional'})")
+                      f"{label} initial gradients "
+                      f"({'seq2seq' if seq2seq else 'bidirectional'})",
+                      swin_bars if swin else resnet_bars)
         del masks
 
     losses, counts = {"kernels": [], "plain": []}, None
@@ -1089,16 +1393,16 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6) -> dict:
         torch.cuda.synchronize()
         if i == 0:
             counts = launch_counts()
-            print(f"launches in one pretrain step: {json.dumps(counts)}",
+            print(f"launches in one {label}: {json.dumps(counts)}",
                   flush=True)
-            for name, (want, _) in EXPECTED_PRETRAIN.items():
+            for name, (want, _) in expected.items():
                 if counts[name] != want:
                     raise AssertionError(f"{name} ran {counts[name]} times in "
-                                         f"one pretrain step, expected {want}")
+                                         f"one {label}, expected {want}")
             for k in kernels.KERNELS:
                 if counts[k.__name__] <= 0:
                     raise AssertionError(f"kernel {k.__name__} never launched "
-                                         "in the pretrain step")
+                                         f"in the {label}")
         step_p.masks = DropoutMasks.replay(step_k.masks.recorded)
         out_p = step_p(batch_p, seq2seq)
         losses["kernels"].append({k: v.item() for k, v in out_k.items()})
@@ -1132,7 +1436,7 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6) -> dict:
             peak = torch.cuda.max_memory_allocated()
     ms_k = sum(times["kernels"]) / 2
     ms_p = sum(times["plain"]) / 2
-    print(f"MLM+ITM pretrain step b{B} (S = 131) on {card}: kernels "
+    print(f"MLM+ITM {label} b{B} (S = 131) on {card}: kernels "
           f"{ms_k:.3f} ms/step ({B * 1e3 / ms_k:.1f} samples/s), plain "
           f"{ms_p:.3f} ms/step ({B * 1e3 / ms_p:.1f} samples/s); runs "
           f"{json.dumps(times)}; peak memory in a kernel step "

@@ -80,6 +80,18 @@ def swin_small() -> SwinConfig:
                       num_heads=(3, 6, 12, 24), drop_path_rate=0.3)
 
 
+def swin_base() -> SwinConfig:
+    """Swin-B (reference ``swin_base_patch4_window7_224.yaml``)."""
+    return SwinConfig(embed_dim=128, depths=(2, 2, 18, 2),
+                      num_heads=(4, 8, 16, 32), drop_path_rate=0.5)
+
+
+def swin_tiny_test() -> SwinConfig:
+    """A tiny Swin for unit tests (not in the reference)."""
+    return SwinConfig(img_size=32, patch_size=4, embed_dim=8, depths=(1, 1),
+                      num_heads=(2, 4), window_size=4, drop_path_rate=0.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class ResNetConfig:
     """Bottleneck ResNet (torchvision layout; reference

@@ -22,6 +22,11 @@
 //   * E[m, n]                           (optional bf16 multiplier: the hidden-dropout
 //                                        mask, `attn * hmask` at pallas_attn.py:2241-2243
 //                                        and the fc2 output of `_mlp_ln_kernel` :2836)
+//   * S[m / s_div]                      (optional f32 row scale: the Swin DropPath
+//                                        multipliers, `attn * dp1` and `mlp * dp2` in
+//                                        `_full_body` :630,647 and `_swin_tail_kernel`
+//                                        :3485,3492; s_div rows share one value, so a
+//                                        per-image scale needs no per-row copy)
 //   + R[ridx ? ridx[m] : m, n]          (optional residual, bf16 or f32, optional row gather)
 //   store to row sidx ? sidx[m] : m     (optional row scatter), bf16 or f32
 //
@@ -104,7 +109,8 @@ struct Args {
   void* Y;
   float* P;  // pre-activation: written (epi 0/1) or read (epi 2)
   const __nv_bfloat16* E;  // epilogue multiplier (M, N), row m unscattered
-  int M, N, K, epi, flags;
+  const float* S;          // row scale, row m reads S[m / s_div]
+  int M, N, K, epi, flags, s_div;
 };
 
 // smem elements of one stage of each operand
@@ -253,6 +259,7 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Args p) {
       if (m >= M) continue;
       int rrow = p.R ? (p.ridx ? p.ridx[m] : m) : 0;
       int orow = p.sidx ? p.sidx[m] : m;
+      const float rs = p.S ? p.S[m / p.s_div] : 1.f;
 #pragma unroll
       for (int j = 0; j < NT_; ++j) {
         int n = n0 + wn * WN + j * 8 + (lane & 3) * 2;
@@ -279,6 +286,10 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(Args p) {
           float2 e2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.E + pi));
           v0 *= e2.x;
           v1 *= e2.y;
+        }
+        if (p.S) {
+          v0 *= rs;
+          v1 *= rs;
         }
         if (p.R) {
           size_t ri = (size_t)rrow * N + n;
@@ -335,14 +346,16 @@ cudaError_t dispatch(const Args& p, cudaStream_t s) {
 // layout: 0 NT, 1 NN, 2 TN; epi: 0 none, 1 GELU, 2 GELU'; flags: 1 f32 output, 2 f32 residual.
 // P: f32 (M, N) pre-activation, written when given with epi 0/1, read with epi 2.
 // E: bf16 (M, N) multiplier applied before the residual add, or null.
+// S: f32 row scale applied after E, row m reads S[m / s_div], or null.
 extern "C" int mvlt_gemm(const void* A, const void* B, const void* bias, const void* R, const void* ridx,
-                         const void* sidx, void* Y, void* P, const void* E, int M, int N, int K, int layout,
-                         int epi, int flags, void* stream) {
+                         const void* sidx, void* Y, void* P, const void* E, const void* S, int M, int N, int K,
+                         int layout, int epi, int flags, int s_div, void* stream) {
   Args p{static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(B),
          static_cast<const __nv_bfloat16*>(bias), R, static_cast<const int*>(ridx),
          static_cast<const int*>(sidx), Y, static_cast<float*>(P), static_cast<const __nv_bfloat16*>(E),
-         M, N, K, epi, flags};
+         static_cast<const float*>(S), M, N, K, epi, flags, s_div};
   if (epi == EPI_GELU_GRAD && P == nullptr) return (int)cudaErrorInvalidValue;
+  if (S != nullptr && s_div < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (layout) {
     case NT: return (int)dispatch<NT>(p, s);

@@ -13,6 +13,10 @@
   backward + AdamW, bf16 compute with f32 masters, fusion dropouts 0.1 (the
   JAX ``make_pretrain_step`` path, ``train/steps.py:251``; text length 80
   as ``run_pretrain.py:31``).
+- The pretrain train step of record: the same step on Swin-S @224 (no
+  ``resnet_fc``: 768 is the fusion width), DropPath 0.3 as a linspace over
+  the 24 blocks, fusion dropouts 0.1, b32, text length 80 (the model that
+  ``bench.py:197-239`` ``measure_pretrain_step`` trains).
 
 Weights are random, drawn from a numpy seed: normal(0, 0.02) for every dense
 and conv weight, bias, embedding and relative-position table, and LayerNorm
@@ -55,6 +59,14 @@ def flagship_pretrain_config() -> MVLTConfig:
     ResNet-101 backbone, ITM on, text length 80."""
     return MVLTConfig.for_pretrain(conv="resnet101", resnet=resnet101(),
                                    itm_task=True, max_length=80)
+
+
+def flagship_swin_pretrain_config() -> MVLTConfig:
+    """The pretrain model of record: ``for_vqa(result_num=224)`` with Swin-S
+    (DropPath 0.3), ITM on, text length 80, as ``bench.py:212-213`` builds
+    it from ``flagship_vqa_config()``."""
+    return dataclasses.replace(flagship_vqa_config(), itm_task=True,
+                               max_length=80)
 
 
 def _need_cuda(device, what: str) -> torch.device:
@@ -187,7 +199,9 @@ def build_pretrain_train_step(batch: int = 32, text_len: int = 80,
                               compute_dtype: torch.dtype = torch.bfloat16,
                               config: MVLTConfig = None,
                               image_size: int = 224) -> Tuple[Callable, dict]:
-    """(step, batch) for the MLM+ITM pretrain train step.
+    """(step, batch) for the MLM+ITM pretrain train step (ResNet-101; with
+    ``config=flagship_swin_pretrain_config()`` the Swin-S step of record, as
+    :func:`build_swin_pretrain_train_step` builds it).
     ``step(batch, seq2seq)`` runs forward + backward + AdamW in that mask
     mode and returns ``{"mlm_loss", "itm_loss", "loss"}``; ``step.model`` /
     ``step.optimizer`` are the seeded :class:`PretrainModel` (f32 masters,
@@ -208,6 +222,24 @@ def build_pretrain_train_step(batch: int = 32, text_len: int = 80,
     step = make_pretrain_step(model, make_optimizer(model, cfg), plain=plain)
     step.masks = DropoutMasks(torch.Generator(device=device).manual_seed(seed))
     return step, {k: v.to(device) for k, v in data.items()}
+
+
+def build_swin_pretrain_train_step(batch: int = 32, text_len: int = 80,
+                                   device="cuda", seed: int = 0,
+                                   plain: bool = False,
+                                   compute_dtype: torch.dtype = torch.bfloat16,
+                                   config: MVLTConfig = None,
+                                   image_size: int = 224
+                                   ) -> Tuple[Callable, dict]:
+    """(step, batch) for the pretrain train step of record: Swin-S @224 +
+    BERT-base over S = 131, DropPath 0.3 and fusion dropouts 0.1, the
+    step's mask source drawing the backbone's DropPath multipliers before
+    the fusion's masks. The contract of :func:`build_pretrain_train_step`;
+    ``config`` defaults to :func:`flagship_swin_pretrain_config`.
+    ``device='cuda'`` without a CUDA device raises."""
+    return build_pretrain_train_step(
+        batch, text_len, device, seed, plain, compute_dtype,
+        config or flagship_swin_pretrain_config(), image_size)
 
 
 def entry():

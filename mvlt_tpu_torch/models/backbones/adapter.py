@@ -2,7 +2,10 @@
 ``mvlt_tpu/models/backbones/adapter.py:42-98``) for ``conv='swin'`` and
 ``conv in ('resnet101', 'resnet50')``: the backbone, a trailing exact GELU,
 and ``resnet_fc`` to the fusion width (always for ResNet, only when the
-width differs for Swin)."""
+width differs for Swin). Both backbones train with float32 master
+parameters and bf16 compute: dense weights are cast at use, so their f32
+grads come back through the cast; LayerNorm parameters and the Swin
+relative-position tables stay float32."""
 
 from __future__ import annotations
 
@@ -23,13 +26,9 @@ class VisualAdapter(nn.Module):
         self.dtype = compute_dtype or dtype
         hidden = cfg.fusion.hidden_size
         if conv in ("swin", "swintransformer"):
-            if self.dtype != dtype:
-                raise NotImplementedError(
-                    "the Swin backbone runs with its parameters in the compute "
-                    "dtype; its training path is the Swin training slice "
-                    "(ROADMAP.md queue B)")
             self.nchw = False
-            self.backbone = SwinTransformer(cfg.swin, dtype=dtype, device=device)
+            self.backbone = SwinTransformer(cfg.swin, dtype=dtype, device=device,
+                                            compute_dtype=self.dtype)
             width = cfg.swin.num_features
         elif conv in ("resnet101", "resnet50"):
             self.nchw = True
@@ -43,9 +42,11 @@ class VisualAdapter(nn.Module):
         if self.nchw or width != hidden:
             self.resnet_fc = Dense(width, hidden, dtype=dtype, device=device)
 
-    def forward(self, image: torch.Tensor, ops, train: bool = False) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, ops, train: bool = False,
+                masks=None) -> torch.Tensor:
         """image: float (B, C, H, W) -> (B, N, hidden) in the compute dtype.
-        ``train`` puts the ResNet's BatchNorms on batch statistics."""
+        ``train`` puts the ResNet's BatchNorms on batch statistics; ``masks``
+        (a :class:`DropoutMasks`) turns the Swin backbone's DropPath on."""
         if image.dim() != 4 or image.dtype == torch.uint8:
             raise NotImplementedError(
                 "two-view (B, 2, C, H, W) and uint8 inputs are not ported yet "
@@ -54,7 +55,7 @@ class VisualAdapter(nn.Module):
             tokens = self.backbone(image.to(self.dtype), train)
         else:
             x = image.permute(0, 2, 3, 1).to(self.dtype)            # NHWC
-            tokens = self.backbone(x, ops)
+            tokens = self.backbone(x, ops, masks)
         tokens = gelu_exact(tokens)
         if self.resnet_fc is not None:
             tokens = self.resnet_fc(tokens, ops)

@@ -1,17 +1,29 @@
 """Swin Transformer backbone of the port (counterpart of
-``mvlt_tpu/models/backbones/swin.py``), inference path.
+``mvlt_tpu/models/backbones/swin.py``): the serving path and the training
+path.
 
 The layout follows the JAX package: NHWC images, patch embedding as a
 reshape + dense over (ph, pw, c)-flattened patches, window-major token rows
 inside a block. The block dispatch mirrors the JAX routing on the TPU, so
-that every one of the six counterparts in :mod:`mvlt_tpu_torch.ops.blocks`
-runs on the flagship path:
+that the counterparts in :mod:`mvlt_tpu_torch.ops.blocks` run as the TPU
+kernels ran:
 
-- W-MSA and SW-MSA blocks of a stage whose block weights fit the TPU's VMEM
-  run ``swin_full_block`` (the SW-MSA one with the shift folded in);
-- wider stages (Swin-S stage 4, C = 768) run LN1 -> ``window_block_attention``
-  (+x folded into its proj) -> ``fused_mlp_preln``, see
-  :func:`uses_half_blocks`.
+- serving: W-MSA and SW-MSA blocks of a stage whose block weights fit the
+  TPU's VMEM run ``swin_full_block`` (the SW-MSA one with the shift folded
+  in); wider stages (Swin-S stage 4, C = 768) run LN1 ->
+  ``window_block_attention`` (+x folded into its proj) -> ``fused_mlp_preln``,
+  see :func:`uses_half_blocks`;
+- training (a gradient is needed, or DropPath multipliers are drawn):
+  narrow stages run ``swin_full_block``'s training form (``swin.py:285-303``),
+  wide stages ``swin_half_block`` (``swin.py:318-336``), both with the
+  store-residual backward. Each block with a DropPath rate above 0 draws its
+  two (B,) multipliers from the step's mask source
+  (:func:`~mvlt_tpu_torch.ops.layers.drop_path_multipliers`); the rates are
+  a linspace over all blocks (``swin.py:620``).
+
+The relative-position bias is built as JAX builds it, ``onehot @ table``
+(``rel_bias_from_table``, ``swin.py:67-85``), so its backward is a product and
+not a scatter with atomics; serving caches the built bias.
 """
 
 from __future__ import annotations
@@ -24,7 +36,8 @@ import torch
 from torch import nn
 
 from mvlt_tpu_torch.config import SwinConfig
-from mvlt_tpu_torch.ops.layers import SWIN_LN_EPS, Dense, LayerNorm, Mlp
+from mvlt_tpu_torch.ops.layers import (SWIN_LN_EPS, Dense, LayerNorm, Mlp,
+                                       drop_path_multipliers)
 
 
 @functools.lru_cache(maxsize=None)
@@ -38,6 +51,16 @@ def relative_position_index(wh: int, ww: int) -> np.ndarray:
     rel[:, :, 1] += ww - 1
     rel[:, :, 0] *= 2 * ww - 1
     return rel.sum(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def relative_position_onehot(wh: int, ww: int) -> np.ndarray:
+    """(N*N, (2wh-1)(2ww-1)) float32 one-hot of
+    :func:`relative_position_index` (``_rel_index_onehot``, swin.py:67-78)."""
+    idx = relative_position_index(wh, ww).reshape(-1)
+    oh = np.zeros((idx.size, (2 * wh - 1) * (2 * ww - 1)), np.float32)
+    oh[np.arange(idx.size), idx] = 1.0
+    return oh
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,12 +109,13 @@ def uses_half_blocks(dim: int) -> bool:
 
 
 class SwinBlock(nn.Module):
-    """(S)W-MSA + MLP block, pre-LN, deterministic (swin.py:235-366)."""
+    """(S)W-MSA + MLP block, pre-LN, with stochastic depth at rate
+    ``drop_path`` in training (swin.py:235-366)."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int, shift_size: int,
-                 mlp_ratio: float, qkv_bias: bool, qk_scale, *,
-                 dtype: torch.dtype, device):
+                 mlp_ratio: float, qkv_bias: bool, qk_scale,
+                 drop_path: float = 0.0, *, dtype: torch.dtype, device):
         super().__init__()
         H, W = input_resolution
         window, shift = window_size, shift_size
@@ -101,6 +125,7 @@ class SwinBlock(nn.Module):
             window, shift = min(input_resolution), 0
         self.dim, self.resolution = dim, (H, W)
         self.window, self.shift, self.num_heads = window, shift, num_heads
+        self.drop_path = drop_path
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.norm1 = LayerNorm(dim, SWIN_LN_EPS, device=device)
         self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype=dtype, device=device)
@@ -111,45 +136,64 @@ class SwinBlock(nn.Module):
         self.norm2 = LayerNorm(dim, SWIN_LN_EPS, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
         N = window * window
-        self.register_buffer("rel_index", torch.as_tensor(
-            relative_position_index(window, window).reshape(-1),
-            device=device), persistent=False)
+        self.register_buffer("rel_onehot", torch.as_tensor(
+            relative_position_onehot(window, window), device=device),
+            persistent=False)
         mask = (shifted_window_mask(H, W, window, shift) if shift
                 else np.zeros((1, N, N), np.float32))
         self.register_buffer("shift_mask", torch.as_tensor(mask, device=device),
                              persistent=False)
         self._bias_key, self._bias = None, None
 
+    def _build_bias(self) -> torch.Tensor:
+        N = self.window * self.window
+        rel = (self.rel_onehot @ self.relative_position_bias_table).view(
+            N, N, -1).permute(2, 0, 1)
+        return (rel[None] + self.shift_mask[:, None]).contiguous()
+
     def attention_bias(self) -> torch.Tensor:
         """(P, nH, N, N) f32: the relative-position bias from its table, plus
-        the -100 shift mask per window when shifted (P = nW, else 1).
-        Recomputed only when the table changes."""
+        the -100 shift mask per window when shifted (P = nW, else 1). Where a
+        gradient is needed it is built with its graph; serving recomputes it
+        only when the table changes."""
         t = self.relative_position_bias_table
+        if torch.is_grad_enabled() and t.requires_grad:
+            return self._build_bias()
         key = (t.data_ptr(), t._version)
         if key != self._bias_key:
-            N = self.window * self.window
-            rel = t.detach()[self.rel_index].view(N, N, -1).permute(2, 0, 1)
-            self._bias = (rel[None] + self.shift_mask[:, None]).contiguous()
+            with torch.no_grad():
+                self._bias = self._build_bias()
             self._bias_key = key
         return self._bias
 
-    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ops, masks=None) -> torch.Tensor:
+        """x (B, H*W, C); ``masks`` (a :class:`DropoutMasks`) turns DropPath
+        on."""
         H, W = self.resolution
         B, L, C = x.shape
         window, shift = self.window, self.shift
         windows = window_partition(x.view(B, H, W, C), window)
         bias = self.attention_bias()
-        if uses_half_blocks(C):
+        dt = windows.dtype
+        params = (self.norm1.weight, self.norm1.bias, self.qkv.weight.to(dt),
+                  self.qkv.bias.to(dt), self.proj.weight.to(dt),
+                  self.proj.bias.to(dt), self.norm2.weight, self.norm2.bias,
+                  self.mlp.fc1.weight.to(dt), self.mlp.fc1.bias.to(dt),
+                  self.mlp.fc2.weight.to(dt), self.mlp.fc2.bias.to(dt))
+        dp = drop_path_multipliers(masks, self.drop_path, B, x.device)
+        spec = (H, W, window, shift) if shift else None
+        train = dp is not None or (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (windows, bias, *params)))
+        if train:
+            block = (ops.swin_half_block if uses_half_blocks(C)
+                     else ops.swin_full_block)
+            y = block(windows, params, bias, self.scale, self.num_heads,
+                      shift_spec=spec, dp=dp)
+        elif uses_half_blocks(C):
             y = self._half_blocks(windows, bias, ops)
         else:
-            params = (self.norm1.weight, self.norm1.bias, self.qkv.weight,
-                      self.qkv.bias, self.proj.weight, self.proj.bias,
-                      self.norm2.weight, self.norm2.bias,
-                      self.mlp.fc1.weight, self.mlp.fc1.bias,
-                      self.mlp.fc2.weight, self.mlp.fc2.bias)
-            y = ops.swin_full_block(
-                windows, params, bias, self.scale, self.num_heads,
-                shift_spec=(H, W, window, shift) if shift else None)
+            y = ops.swin_full_block(windows, params, bias, self.scale,
+                                    self.num_heads, shift_spec=spec)
         return window_reverse(y, window, H, W).reshape(B, L, C)
 
     def _half_blocks(self, windows, bias, ops):
@@ -214,16 +258,21 @@ class PatchEmbed(nn.Module):
 
 class SwinTransformer(nn.Module):
     """Hierarchical Swin encoder returning all final-stage tokens
-    (B, H/32 * W/32, num_features) after the final LN (swin.py:587-649)."""
+    (B, H/32 * W/32, num_features) after the final LN (swin.py:587-649).
+    ``dtype`` is the parameters' dtype, ``compute_dtype`` (default: the
+    same) the activations'."""
 
-    def __init__(self, config: SwinConfig, *, dtype: torch.dtype, device):
+    def __init__(self, config: SwinConfig, *, dtype: torch.dtype, device,
+                 compute_dtype=None):
         super().__init__()
         cfg = config
         if cfg.ape:
             raise NotImplementedError(
                 "absolute position embedding (ape=True) is not ported yet; "
                 "see ROADMAP.md queue A")
-        self.config, self.dtype = cfg, dtype
+        self.config, self.dtype = cfg, compute_dtype or dtype
+        # stochastic depth: a linspace over all blocks (swin.py:620)
+        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans,
                                       cfg.embed_dim, cfg.patch_norm,
                                       dtype=dtype, device=device)
@@ -233,25 +282,32 @@ class SwinTransformer(nn.Module):
             dim = int(cfg.embed_dim * 2 ** i)
             res = (cfg.patches_resolution[0] // 2 ** i,
                    cfg.patches_resolution[1] // 2 ** i)
+            offset = sum(cfg.depths[:i])
             self.stages.append(nn.ModuleList([
                 SwinBlock(dim, res, cfg.num_heads[i], cfg.window_size,
                           0 if j % 2 == 0 else cfg.window_size // 2,
                           cfg.mlp_ratio, cfg.qkv_bias, cfg.qk_scale,
-                          dtype=dtype, device=device)
+                          float(dpr[offset + j]), dtype=dtype, device=device)
                 for j in range(cfg.depths[i])]))
             if i < cfg.num_layers - 1:
                 self.downsamples.append(PatchMerging(res, dim, dtype=dtype,
                                                      device=device))
         self.norm = LayerNorm(cfg.num_features, SWIN_LN_EPS, device=device)
 
-    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ops, masks=None) -> torch.Tensor:
+        """``masks`` (a :class:`DropoutMasks`) turns DropPath on; its draws
+        come in block order."""
         cfg = self.config
+        if masks is not None and (cfg.drop_rate or cfg.attn_drop_rate):
+            raise NotImplementedError(
+                "Swin training with drop_rate / attn_drop_rate above 0 is not "
+                "ported (the JAX kernel routes need both at 0, swin.py:285)")
         if x.shape[1] == cfg.in_chans and x.shape[1] != x.shape[2]:
             x = x.permute(0, 2, 3, 1)            # NCHW accepted (swin.py:605)
         x = self.patch_embed(x.to(self.dtype), ops)
         for i, blocks in enumerate(self.stages):
             for block in blocks:
-                x = block(x, ops)
+                x = block(x, ops, masks)
             if i < len(self.downsamples):
                 x = self.downsamples[i](x, ops)
         return self.norm(x, ops)

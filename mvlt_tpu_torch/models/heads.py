@@ -23,11 +23,13 @@ from mvlt_tpu_torch.ops.layers import (Dense, LayerNorm,
 
 def _check_masks(config: MVLTConfig, masks) -> None:
     f = config.fusion
+    swin = config.conv.lower() in ("swin", "swintransformer")
     if masks is None and (f.hidden_dropout_prob or
-                          f.attention_probs_dropout_prob):
-        raise ValueError("training with fusion dropout needs a mask source "
-                         "(masks=DropoutMasks(...)); the train steps pass "
-                         "theirs")
+                          f.attention_probs_dropout_prob or
+                          (swin and config.swin.drop_path_rate)):
+        raise ValueError("training with fusion dropout or Swin DropPath needs "
+                         "a mask source (masks=DropoutMasks(...)); the train "
+                         "steps pass theirs")
 
 
 class _Backbone(nn.Module):
@@ -49,7 +51,9 @@ class _Backbone(nn.Module):
 
     def _encode(self, image, text, ops, train: bool, seq2seq: bool = False,
                 masks=None):
-        feat = self.conv(image, ops, train=train)
+        # the backbone draws its masks (Swin DropPath) before the fusion
+        # encoder, as JAX runs them
+        feat = self.conv(image, ops, train=train, masks=masks)
         image_mask = torch.ones(feat.shape[:2], dtype=torch.bool,
                                 device=feat.device)
         hidden, pooled = self.fusion(text, text > 0, feat, image_mask, ops,

@@ -1,5 +1,6 @@
-"""The TPU kernels of the VQA forward and of the fusion encoder's training
-steps (VQA finetune, MLM+ITM pretrain), rebuilt from K1-K5.
+"""The TPU kernels of the VQA forward, of the fusion encoder's training
+steps (VQA finetune, MLM+ITM pretrain) and of the Swin backbone's training
+step, rebuilt from K1-K5.
 
 Each public function is named after its JAX counterpart in
 ``mvlt_tpu/ops/pallas_attn.py`` and takes the same arguments, with dense
@@ -23,6 +24,20 @@ port function                TPU kernel it replaces
 ``fused_mlp_ln_masked``      ``_mlp_ln_kernel`` with hmask (entry :3194)
 ``seq_attention_core_bwd``   ``_seq_core_bwd_kernel`` (:2413), on K4
 ``mlp_ln_half_bwd``          ``_mlp_ln_bwd_kernel`` (:2931), on K1 + K5
+``swin_full_block(dp=...)``  ``_full_kernel_dp`` / ``_save`` / ``_dp_save``
+  and under autograd         (:730-772, entry ``_full_forward_inner``
+                             :1296), on K1-K3
+``... (shift_spec, dp)``     ``_full_shift_kernel_dp`` / ``_save`` /
+                             ``_dp_save`` (:807-895)
+``swin_half_block``          ``_ln_matmul_kernel`` (:3456) +
+                             ``_swin_tail_kernel`` (:3467), entry :3573
+``attention_core``           ``_core_fwd_kernel`` (:3614), on K2
+``attention_core_bwd``       ``_core_bwd_kernel2d`` (:3782, entry
+                             ``attention_core_bwd_flat`` :3898) and
+                             ``_core_bwd_kernel`` (:3637, entry :4067),
+                             on K4's pattern mode
+``swin_mlp_half_bwd``        ``_swin_mlp_bwd_kernel`` (:1618), K1 + K3 + K5
+``swin_qkv_tail_bwd``        ``_swin_qkv_tail_kernel`` (:1787), K1 + K3 + K5
 ===========================  ==========================================
 
 The masked twins take the dropout masks as inputs, as the JAX kernels do
@@ -51,9 +66,31 @@ dtype of the weight that went in, as ``.astype(w.dtype)`` does in JAX. One
 bf16 rounding differs: db1 is the column sum of the bf16 da1 that feeds the
 next two products, where the TPU kernel sums its f32 da1.
 
+Swin training. ``swin_full_block`` with DropPath multipliers ``dp`` or
+under autograd, and ``swin_half_block``, run the training forward of
+``_full_body`` / ``_half_train_forward``: LN1 (K3, gathering the shifted
+windows) -> K1 qkv -> the attention core (K2 with the bias patterns; the
+half block through ``attention_core``) -> K1 proj with the f32 row scale dp1
+and the residual x, written in f32 (res1) -> K3 LN2 -> K1 fc1 + GELU -> K1
+fc2 with dp2 and the residual res1 (scattered back when shifted). Under
+autograd they are a ``torch.autograd.Function`` that saves x, qkv and ctx
+(and recomputes res1, as ``_swin_mlp_bwd_kernel`` does); its backward is
+``_stored_block_bwd`` (pallas_attn.py:1877-2007): ``swin_mlp_half_bwd`` ->
+K1 dWproj / dctx -> ``attention_core_bwd`` -> ``swin_qkv_tail_bwd``. Shifted
+blocks keep qkv and ctx in the shifted layout; x and the block's cotangent
+are gathered into it and dx scattered back (``_full_bwd_stored_shift``
+:2010). The pattern gradient is per pattern (P = nW when shifted); the
+relative-position table takes its sum through the autograd of the bias. The
+DropPath multipliers are (B,) f32, one per image, which K1 and K5 index by
+``row // (M // B)``: the shifted layout moves rows only within an image.
+
 They hold the math of the JAX interpret path (``fast=False``), not the TPU
 fast path. The TPU layout choices are dropped: windows are not merged into
-pairs and rows are not padded to multiples of 8, since K2 takes any N <= 128.
+pairs, rows are not padded to multiples of 8, and no VMEM admission rule
+(``weights_fit``, ``shift_kernel_feasible``, ``_vmem_cap``) picks a kernel
+variant; K2 and K4 take any N whose tiles fit the card's shared memory
+(:func:`~mvlt_tpu_torch.ops.kernels.check_attention_fits`: N <= 162 for K2
+and N <= 140 for K4 at head dim 64 on an H100).
 One bf16 rounding differs from the fused TPU kernels: the residual sums
 that the TPU kernel keeps in f32 between its halves (``res1`` in
 ``_full_body``, ``x + attn`` before the post-LN) are rounded to the compute
@@ -120,7 +157,10 @@ def _shift_index(n_img: int, H: int, W: int, window: int, shift: int,
 
 
 def _swin_full_block(p, x, params, bias, scale: float, num_heads: int, *,
-                     shift_spec=None):
+                     shift_spec=None, dp=None):
+    if _swin_trains(x, params, bias, dp):
+        return _swin_train(p, x, params, bias, scale, num_heads, shift_spec,
+                           dp, half=False)
     BW, N, C = x.shape
     (ln1s, ln1b, wqkv, bqkv, wproj, bproj,
      ln2s, ln2b, w1, b1, w2, b2) = params
@@ -169,6 +209,160 @@ def _cast(t, like):
 def _rows2(t):
     """(..., C) -> contiguous (rows, C), or None."""
     return None if t is None else t.reshape(-1, t.shape[-1]).contiguous()
+
+
+def _swin_trains(x, params, bias, dp) -> bool:
+    """Whether a Swin block runs its training form: DropPath multipliers
+    are given, or a gradient is needed."""
+    return dp is not None or _needs_grad(x, bias, *params)
+
+
+def _swin_train_forward(p, rows, params, bias, scale, num_heads, N, idx, dp,
+                        half):
+    """The training forward on (M, C) raw rows; returns (out (M, C) in
+    ``rows.dtype``, unshifted; qkv and ctx in the (shifted) window layout)."""
+    (ln1s, ln1b, wqkv, bqkv, wproj, bproj,
+     ln2s, ln2b, w1, b1, w2, b2) = params
+    dp1, dp2 = (None, None) if dp is None else dp
+    C = rows.shape[1]
+    h = p.layernorm(rows, ln1s, ln1b, SWIN_LN_EPS, row_index=idx)
+    qkv = p.gemm(h, wqkv, bqkv)
+    if half:
+        ctx = p.attention_core(qkv.view(-1, N, 3 * C), bias, scale,
+                               num_heads).view(-1, C)
+    else:
+        ctx = p.attention(qkv, num_heads, N, scale, pattern=bias)
+    res1 = p.gemm(ctx, wproj, bproj, residual=rows, residual_index=idx,
+                  row_scale=dp1, out_dtype=torch.float32)
+    h2 = p.layernorm(res1, ln2s, ln2b, SWIN_LN_EPS, out_dtype=rows.dtype)
+    m = p.gemm(h2, w1, b1, gelu=True)
+    out = p.gemm(m, w2, b2, residual=res1, row_scale=dp2, store_index=idx,
+                 out_dtype=rows.dtype)
+    return out, qkv, ctx
+
+
+class _SwinBlock(torch.autograd.Function):
+    """The Swin block's training forward with the store-residual backward
+    (``_full_fwd`` / ``_swin_half_block_fwd`` and ``_stored_block_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, p, x, bias, dp1, dp2, scale, num_heads, shift_spec, half,
+                *params):
+        BW, N, C = x.shape
+        rows = x.reshape(BW * N, C).contiguous()
+        idx = _block_shift_index(BW * N, shift_spec, x.device)
+        dp = None if dp1 is None else (dp1, dp2)
+        out, qkv, cx = _swin_train_forward(p, rows, params, bias, scale,
+                                           num_heads, N, idx, dp, half)
+        ctx.save_for_backward(rows, bias, dp1, dp2, qkv, cx, *params)
+        ctx.p, ctx.dims = p, (BW, N, C, scale, num_heads, idx)
+        return out.view(BW, N, C)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, (BW, N, C, scale, num_heads, idx) = ctx.p, ctx.dims
+        rows, bias, dp1, dp2, qkv, cx, *params = ctx.saved_tensors
+        (ln1s, ln1b, wqkv, bqkv, wproj, bproj,
+         ln2s, ln2b, w1, b1, w2, b2) = params
+        f32 = torch.float32
+        g2 = g.reshape(BW * N, C).to(rows.dtype).contiguous()
+        xs = rows
+        if idx is not None:                     # into the shifted layout
+            g2, xs = (t.index_select(0, idx.long()) for t in (g2, rows))
+        dp = None if dp1 is None else (dp1, dp2)
+        (dres1, da, dbproj, dw1, db1, dw2, db2, dln2s,
+         dln2b) = p.swin_mlp_half_bwd(xs, cx, g2, wproj, bproj, ln2s, ln2b,
+                                      w1, b1, w2, dp)
+        dwproj = p.gemm(da, cx, layout="tn", out_dtype=f32)
+        dctx = p.gemm(da, wproj, layout="nn")
+        dqkv, dbias = p.attention_core_bwd(qkv, dctx, bias, N, scale,
+                                           num_heads)
+        dx, dwqkv, dbqkv, dln1s, dln1b = p.swin_qkv_tail_bwd(
+            xs, dqkv, dres1, wqkv, ln1s, ln1b)
+        if idx is not None:                     # back to the unshifted rows
+            out = torch.empty_like(dx)
+            out[idx.long()] = dx
+            dx = out
+        grads = (dln1s, dln1b, dwqkv, dbqkv, dwproj, dbproj, dln2s, dln2b,
+                 dw1, db1, dw2, db2)
+        return (None, dx.view(BW, N, C),
+                dbias if ctx.needs_input_grad[2] else None,
+                None, None, None, None, None, None,
+                *(_cast(d, w) for d, w in zip(grads, params)))
+
+
+def _block_shift_index(M: int, shift_spec, device):
+    if shift_spec is None:
+        return None
+    H, W, window, shift = shift_spec
+    return _shift_index(M // (H * W), H, W, window, shift, device)
+
+
+def _swin_train(p, x, params, bias, scale, num_heads, shift_spec, dp, half):
+    dp1, dp2 = (None, None) if dp is None else dp
+    if _needs_grad(x, bias, *params):
+        return _SwinBlock.apply(p, x, bias, dp1, dp2, scale, num_heads,
+                                shift_spec, half, *params)
+    BW, N, C = x.shape
+    rows = x.reshape(BW * N, C)
+    idx = _block_shift_index(BW * N, shift_spec, x.device)
+    out, _, _ = _swin_train_forward(p, rows, params, bias, scale, num_heads,
+                                    N, idx, dp, half)
+    return out.view(BW, N, C)
+
+
+def _swin_half_block(p, x, params, bias, scale: float, num_heads: int, *,
+                     shift_spec=None, dp=None):
+    return _swin_train(p, x, params, bias, scale, num_heads, shift_spec, dp,
+                       half=True)
+
+
+def _attention_core(p, qkv, bias, scale: float, num_heads: int):
+    BW, N, C3 = qkv.shape
+    ctx = p.attention(qkv.reshape(BW * N, C3), num_heads, N, scale,
+                      pattern=bias)
+    return ctx.view(BW, N, C3 // 3)
+
+
+def _attention_core_bwd(p, qkv2, dctx2, bias, n: int, scale: float,
+                        num_heads: int):
+    dqkv2, _, dbias = p.attention_bwd(qkv2, dctx2, num_heads, n, scale,
+                                      pattern=bias)
+    return dqkv2, dbias
+
+
+def _swin_mlp_half_bwd(p, x2, ctx2, g2, wproj, bproj, ln2s, ln2b, w1, b1, w2,
+                       dp=None, eps: float = SWIN_LN_EPS):
+    f32 = torch.float32
+    dp1, dp2 = (None, None) if dp is None else dp
+    res1 = p.gemm(ctx2, wproj, bproj, residual=x2, row_scale=dp1,
+                  out_dtype=f32)                        # res1 recompute
+    h2 = p.layernorm(res1, ln2s, ln2b, eps, out_dtype=x2.dtype)
+    m, a1 = p.gemm(h2, w1, b1, gelu=True, save_preact=True)
+    if dp2 is None:
+        dmlp, db2 = g2, p.column_sum(g2)
+    else:
+        db2, dmlp = p.column_sum(g2, row_scale=dp2)     # g * dp2 and its sum
+    dw2 = p.gemm(dmlp, m, layout="tn", out_dtype=f32)
+    da1 = p.gemm(dmlp, w2, layout="nn", gelu_grad=a1)
+    db1 = p.column_sum(da1)
+    dw1 = p.gemm(da1, h2, layout="tn", out_dtype=f32)
+    dh2 = p.gemm(da1, w1, layout="nn", out_dtype=f32)
+    dres1, da, dln2s, dln2b, dbproj = p.layernorm_bwd(
+        res1, ln2s, dh2, eps, gres=g2, row_scale=dp1, out_dtype=x2.dtype)
+    return dres1, da, dbproj, dw1, db1, dw2, db2, dln2s, dln2b
+
+
+def _swin_qkv_tail_bwd(p, x2, dqkv2, dres1, wqkv, ln1s, ln1b,
+                       eps: float = SWIN_LN_EPS):
+    f32 = torch.float32
+    h1 = p.layernorm(x2, ln1s, ln1b, eps)                # LN1 recompute
+    dwqkv = p.gemm(dqkv2, h1, layout="tn", out_dtype=f32)
+    dbqkv = p.column_sum(dqkv2)
+    dh1 = p.gemm(dqkv2, wqkv, layout="nn", out_dtype=f32)
+    _, dx, dln1s, dln1b, _ = p.layernorm_bwd(x2, ln1s, dh1, eps, gres=dres1,
+                                             out_dtype=x2.dtype)
+    return dx, dwqkv, dbqkv, dln1s, dln1b
 
 
 class _AttnLN(torch.autograd.Function):
@@ -314,17 +508,31 @@ def _mlp_ln_half_bwd(p, x2, res2, g2, hmask2, w1, b1, w2, lns,
     return dx, dw1, db1, dw2, db2, dlns, dlnb
 
 
-def _twins(body, doc: str):
-    """(kernel twin with a ``launches`` count, plain twin) of ``body``. A
-    call with a ``shift_spec`` counts in ``shift_launches`` instead: the
-    shifted Swin block replaces a TPU kernel of its own."""
+# the launch counts of a counterpart, one per TPU kernel it can stand for
+COUNTS = ("launches", "shift_launches", "train_launches",
+          "train_shift_launches")
+
+
+def _shift_count(x, args, kw) -> str:
+    return "shift_launches" if kw.get("shift_spec") is not None else "launches"
+
+
+def _full_block_count(x, args, kw) -> str:
+    train = _swin_trains(x, args[0], args[1], kw.get("dp"))
+    return ("train_" if train else "") + _shift_count(x, args, kw)
+
+
+def _twins(body, doc: str, count=_shift_count):
+    """(kernel twin with launch counts, plain twin) of ``body``. A kernel
+    call adds one to the count that ``count(x, args, kw)`` names: a call
+    with a ``shift_spec`` counts in ``shift_launches``, as the shifted Swin
+    block replaces a TPU kernel of its own; ``swin_full_block``'s training
+    form counts in ``train_launches`` / ``train_shift_launches``."""
     def kernel_twin(x, *args, **kw):
         out = body(KERNEL_OPS, x, *args, **kw)
         if x.is_cuda:
-            if kw.get("shift_spec") is not None:
-                kernel_twin.shift_launches += 1
-            else:
-                kernel_twin.launches += 1
+            name = count(x, args, kw)
+            setattr(kernel_twin, name, getattr(kernel_twin, name) + 1)
         return out
 
     def plain_twin(x, *args, **kw):
@@ -334,7 +542,8 @@ def _twins(body, doc: str):
     kernel_twin.__name__, kernel_twin.__doc__ = name, doc
     plain_twin.__name__ = name + "_plain"
     plain_twin.__doc__ = f"Plain PyTorch twin of :func:`{name}`."
-    kernel_twin.launches = kernel_twin.shift_launches = 0
+    for c in COUNTS:
+        setattr(kernel_twin, c, 0)
     setattr(KERNEL_OPS, name, kernel_twin)
     setattr(PLAIN_OPS, name, plain_twin)
     return kernel_twin, plain_twin
@@ -347,7 +556,12 @@ LN1 -> K1 qkv -> K2 -> K1 proj (+x) -> LN2 -> K1 fc1+GELU -> K1 fc2 (+res1).
 b2); ``bias``: (P, nH, N, N) f32 patterns, window g uses ``bias[g % P]``.
 With ``shift_spec=(H, W, window, shift)`` x and the output are in the
 UNSHIFTED window-major layout (as ``_full_forward_shift``, pallas_attn.py
-:994) and ``bias`` must carry the shift mask per window (P = nW).""")
+:994) and ``bias`` must carry the shift mask per window (P = nW).
+``dp``: None or the DropPath multipliers (dp1, dp2) of the attention and MLP
+branches, each (B,) f32 (0 or 1/keep per image). With ``dp``, or when a
+gradient is needed, the block runs its training form (res1 kept in f32; an
+autograd Function under grad) and counts in ``train_launches`` /
+``train_shift_launches``.""", count=_full_block_count)
 
 window_block_attention, window_block_attention_plain = _twins(
     _window_block_attention, """\
@@ -398,6 +612,53 @@ the GELU' epilogue -> K5 column sum db1 -> K1 tn dW1 -> K1 nn dx (+dres).
 ``hmask2`` (M, C) or None: the fc2 output's dropout mask; K5 applies it to
 dmlp and db2 (``_mlp_ln_bwd_kernel`` :2984-2989).""")
 
+swin_half_block, swin_half_block_plain = _twins(_swin_half_block, """\
+Wide-stage Swin block for training (``swin_half_block``, pallas_attn.py
+:3573) on (BW, N, C) raw windows, with the arguments of
+``swin_full_block``: LN1 -> K1 qkv (``_ln_matmul_kernel``) ->
+``attention_core`` -> the tail (``_swin_tail_kernel``: K1 proj with dp1 and
++x in f32 -> K3 LN2 -> K1 fc1+GELU -> K1 fc2 with dp2 and +res1). The same
+math and kernels as ``swin_full_block``'s training form; an autograd
+Function under grad, with the same backward.""")
+
+attention_core, attention_core_plain = _twins(_attention_core, """\
+``softmax(q k^T * scale + bias[g % P]) v`` on fused-qkv windows (K2 with
+patterns): qkv (BW, N, 3C), bias (P, nH, N, N) f32 with BW % P == 0.
+Returns ctx (BW, N, C).""")
+
+attention_core_bwd, attention_core_bwd_plain = _twins(_attention_core_bwd, """\
+VJP of ``attention_core`` wrt (qkv, bias) on flat rows (K4's pattern mode):
+qkv2 (BW*n, 3C), dctx2 (BW*n, C), bias (P, nH, n, n) f32 with BW % P == 0.
+Returns ``(dqkv2 (BW*n, 3C) in qkv2.dtype, dbias (P, nH, n, n) f32)``,
+dbias the sum of ds over the windows that share a pattern, in a fixed
+order. Serves both ``attention_core_bwd_flat`` and the per-window
+``attention_core_bwd``, whose difference is a TPU layout choice.""")
+
+swin_mlp_half_bwd, swin_mlp_half_bwd_plain = _twins(_swin_mlp_half_bwd, """\
+Backward of the pre-LN Swin block's MLP half over flattened (shifted) rows:
+x2, ctx2 (M, C) and the block output's cotangent g2 (M, C) in the compute
+dtype, weights in the (out, in) layout, ``dp`` None or (dp1, dp2) (B,) f32.
+Recomputes res1 = x + dp1 * (ctx Wproj^T + bproj) (K1, row scale, f32 out),
+LN2 (K3) and fc1 + GELU (K1, saving the pre-activation); then K5 column sum
+of g * dp2 (its scaled copy dmlp and db2), K1 tn dW2, K1 nn da1 with the
+GELU' epilogue, K5 db1, K1 tn dW1, K1 nn dh2 (f32), and K5 in pre-LN form:
+dres1 = g + LN2^T(dh2), da = dres1 * dp1 and their sums. Returns ``(dres1
+(M, C) f32, da (M, C) in the compute dtype, dbproj, dw1, db1, dw2, db2,
+dln2s, dln2b)``, sums f32. ``ddp1`` / ``ddp2`` of ``_swin_mlp_bwd_kernel``
+are not computed: the DropPath multipliers come from a Bernoulli draw,
+where their cotangent stops, and no parameter depends on them (b2 enters
+only ddp2, so the port does not take it).""")
+
+swin_qkv_tail_bwd, swin_qkv_tail_bwd_plain = _twins(_swin_qkv_tail_bwd, """\
+Backward of the pre-LN Swin block's qkv head over flattened (shifted) rows:
+x2 (M, C) and dqkv2 (M, 3C) in the compute dtype, dres1 (M, C) f32. LN1
+recompute (K3) -> K1 tn dWqkv -> K5 column sum dbqkv -> K1 nn dh1 (f32) ->
+K5 in pre-LN form with dres1 as the incoming residual gradient. Returns
+``(dx (M, C) in the compute dtype, dwqkv, dbqkv, dln1s, dln1b)``, sums
+f32.""")
+
 COUNTERPARTS = (swin_full_block, window_block_attention, fused_mlp_preln,
                 fused_attn_ln, fused_mlp_ln, fused_attn_ln_masked,
-                fused_mlp_ln_masked, seq_attention_core_bwd, mlp_ln_half_bwd)
+                fused_mlp_ln_masked, seq_attention_core_bwd, mlp_ln_half_bwd,
+                swin_half_block, attention_core, attention_core_bwd,
+                swin_mlp_half_bwd, swin_qkv_tail_bwd)

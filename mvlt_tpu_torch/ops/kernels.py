@@ -46,16 +46,18 @@ _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _i64 = ctypes.c_longlong
 # C function -> (argument types, result type)
 _SIGNATURES = {
-    "mvlt_gemm": ([_vp] * 9 + [_int] * 6 + [_vp], _int),
+    "mvlt_gemm": ([_vp] * 10 + [_int] * 7 + [_vp], _int),
     "mvlt_attention": ([_vp] * 6 + [_int] * 5 + [_float, _vp], _int),
     "mvlt_attention_smem": ([_int, _int], _i64),
     "mvlt_smem_optin": ([], _int),
     "mvlt_layernorm": ([_vp] * 5 + [_int, _int, _float, _int, _vp], _int),
-    "mvlt_attention_bwd": ([_vp] * 8 + [_int] * 4 + [_float, _vp], _int),
-    "mvlt_attention_bwd_smem": ([_int, _int], _i64),
-    "mvlt_layernorm_bwd": ([_vp] * 8 + [_int, _int, _float, _vp], _int),
+    "mvlt_attention_bwd": ([_vp] * 11 + [_int] * 5 + [_float, _vp], _int),
+    "mvlt_attention_bwd_smem": ([_int] * 3, _i64),
+    "mvlt_attention_bwd_chunks": ([_int] * 3, _int),
+    "mvlt_layernorm_bwd": ([_vp] * 10 + [_int, _int, _float, _int, _int, _vp],
+                           _int),
     "mvlt_layernorm_bwd_blocks": ([_int], _int),
-    "mvlt_column_sum": ([_vp, _int, _vp, _vp, _int, _int, _vp], _int),
+    "mvlt_column_sum": ([_vp, _int] + [_vp] * 4 + [_int] * 3 + [_vp], _int),
     "mvlt_column_sum_chunks": ([_int, _int], _int),
 }
 
@@ -152,6 +154,27 @@ def _rows(x: torch.Tensor, idx: Optional[torch.Tensor]) -> torch.Tensor:
     return x if idx is None else x.index_select(0, idx.long())
 
 
+def _row_scale_plain(scale: Optional[torch.Tensor], M: int):
+    """A (S,) row scale as the (M, 1) f32 column it stands for: row m takes
+    ``scale[m // (M // S)]``."""
+    if scale is None:
+        return None
+    _require(scale.dim() == 1 and M % scale.shape[0] == 0,
+             f"row_scale {tuple(scale.shape)} does not divide {M} rows")
+    return scale.float().repeat_interleave(M // scale.shape[0])[:, None]
+
+
+def _cuda_row_scale(scale: Optional[torch.Tensor], M: int,
+                    device: torch.device) -> int:
+    """Check a (S,) f32 row scale on the card; returns the rows per value."""
+    if scale is None:
+        return 1
+    _cuda_arg(scale, "row_scale", torch.float32, device, 1)
+    _require(scale.shape[0] > 0 and M % scale.shape[0] == 0,
+             f"row_scale of {scale.shape[0]} values does not divide {M} rows")
+    return M // scale.shape[0]
+
+
 # ---------------------------------------------------------------------------
 # K1 gemm
 # ---------------------------------------------------------------------------
@@ -170,14 +193,16 @@ def gelu_grad_exact(a: torch.Tensor) -> torch.Tensor:
 def gemm_plain(a, w, bias=None, *, gelu: bool = False, residual=None,
                residual_index=None, store_index=None, layout: str = "nt",
                out_dtype=None, gelu_grad=None, save_preact: bool = False,
-               emask=None):
+               emask=None, row_scale=None):
     """``out[store_index[m]] = epi(op(a, w)[m] + bias)``; f32 inside.
 
     ``layout``: ``"nt"`` a (M, K) @ w (N, K)^T (the PyTorch Linear layout),
     ``"nn"`` a (M, K) @ w (K, N), ``"tn"`` a (K, M)^T @ w (K, N). ``epi`` is,
     in order: an optional exact GELU, or a product with the exact GELU
     derivative of the f32 pre-activation ``gelu_grad`` (M, N); then a product
-    with ``emask`` (M, N) (the hidden-dropout mask); then
+    with ``emask`` (M, N) (the hidden-dropout mask); then a product with the
+    f32 ``row_scale`` (S,), row m taking ``row_scale[m // (M // S)]`` (the
+    DropPath multipliers, one per image); then
     ``+ residual[residual_index[m]]``. The output has ``out_dtype`` (default
     ``a.dtype``). With ``save_preact`` it returns ``(out, pre)``, ``pre`` the
     f32 value before the GELU, in unscattered row order."""
@@ -199,6 +224,8 @@ def gemm_plain(a, w, bias=None, *, gelu: bool = False, residual=None,
         y = F.gelu(y)
     if emask is not None:
         y = y * emask.float()
+    if row_scale is not None:
+        y = y * _row_scale_plain(row_scale, y.shape[0])
     if residual is not None:
         y = y + _rows(residual, residual_index).float()
     y = y.to(out_dtype or a.dtype)
@@ -212,18 +239,19 @@ def gemm_plain(a, w, bias=None, *, gelu: bool = False, residual=None,
 def gemm(a, w, bias=None, *, gelu: bool = False, residual=None,
          residual_index=None, store_index=None, layout: str = "nt",
          out_dtype=None, gelu_grad=None, save_preact: bool = False,
-         emask=None):
+         emask=None, row_scale=None):
     """K1 wrapper; same contract as :func:`gemm_plain`. On CUDA: bf16
-    operands, bias and emask, a bf16 or f32 residual, a bf16 or f32 output,
-    the contiguous dims of both operands multiples of 8, int32 row indices,
-    and ``store_index`` a permutation of the rows (every output row is
-    written)."""
+    operands, bias and emask, an f32 row scale, a bf16 or f32 residual, a
+    bf16 or f32 output, the contiguous dims of both operands multiples of 8,
+    int32 row indices, and ``store_index`` a permutation of the rows (every
+    output row is written)."""
     if not a.is_cuda:
         return gemm_plain(a, w, bias, gelu=gelu, residual=residual,
                           residual_index=residual_index,
                           store_index=store_index, layout=layout,
                           out_dtype=out_dtype, gelu_grad=gelu_grad,
-                          save_preact=save_preact, emask=emask)
+                          save_preact=save_preact, emask=emask,
+                          row_scale=row_scale)
     dev, bf, f32 = a.device, torch.bfloat16, torch.float32
     _require(layout in _LAYOUTS, f"unknown layout {layout!r}")
     _cuda_arg(a, "a", bf, dev, 2)
@@ -262,6 +290,7 @@ def gemm(a, w, bias=None, *, gelu: bool = False, residual=None,
     _cuda_arg(emask, "emask", bf, dev, 2)
     _require(emask is None or tuple(emask.shape) == (M, N),
              f"emask must be ({M}, {N})")
+    s_div = _cuda_row_scale(row_scale, M, dev)
     out_dtype = out_dtype or bf
     _require(out_dtype in (bf, f32), f"out_dtype {out_dtype} is not bf16 or f32")
     y = torch.empty((M, N), dtype=out_dtype, device=dev)
@@ -271,8 +300,8 @@ def gemm(a, w, bias=None, *, gelu: bool = False, residual=None,
     lib = build()["gemm"]
     _check(lib.mvlt_gemm(_ptr(a), _ptr(w), _ptr(bias), _ptr(residual),
                          _ptr(residual_index), _ptr(store_index), _ptr(y),
-                         _ptr(pre), _ptr(emask), M, N, K, _LAYOUTS[layout],
-                         epi, flags,
+                         _ptr(pre), _ptr(emask), _ptr(row_scale), M, N, K,
+                         _LAYOUTS[layout], epi, flags, s_div,
                          _stream(dev)), "gemm")
     gemm.launches += 1
     return (y, pre) if save_preact else y
@@ -295,11 +324,13 @@ def attention_smem_bytes(N: int, Dh: int) -> int:
     return 4 * (2 * N * Dh + N * (Dh + 1) + N * (N + 1))
 
 
-def attention_bwd_smem_bytes(N: int, Dh: int) -> int:
+def attention_bwd_smem_bytes(N: int, Dh: int, pattern: bool = False) -> int:
     """Shared memory of one K4 block (``smem_bytes`` in
-    csrc/attention_bwd.cu): bf16 q, k, v and dctx rows of Dh + 2, and the f32
-    p and ds tiles (N x (N + 1))."""
-    return 2 * 4 * N * (Dh + 2) + 4 * 2 * N * (N + 1)
+    csrc/attention_bwd.cu): bf16 q, k, v and dctx rows of Dh + 2, the f32
+    p and ds tiles (N x (N + 1)) and, in pattern mode, the f32 N x N sum of
+    ds over the block's windows."""
+    return (2 * 4 * N * (Dh + 2) + 4 * 2 * N * (N + 1)
+            + (4 * N * N if pattern else 0))
 
 
 def max_attention_n(Dh: int, smem_optin: int = H100_SMEM_OPTIN, *,
@@ -330,10 +361,11 @@ def smem_optin(device: torch.device) -> int:
 
 
 def check_attention_fits(N: int, Dh: int, smem_optin: int, *,
-                         backward: bool = False) -> None:
-    """Raise ``ValueError`` unless a K2 (K4) block for (N, Dh) fits in
-    ``smem_optin`` bytes of shared memory."""
-    need = (attention_bwd_smem_bytes if backward else attention_smem_bytes)(N, Dh)
+                         backward: bool = False, pattern: bool = False) -> None:
+    """Raise ``ValueError`` unless a K2 (K4, with ``pattern`` in its pattern
+    mode) block for (N, Dh) fits in ``smem_optin`` bytes of shared memory."""
+    need = (attention_bwd_smem_bytes(N, Dh, pattern) if backward
+            else attention_smem_bytes(N, Dh))
     kernel = "biased_attention_bwd" if backward else "biased_attention"
     _require(need <= smem_optin,
              f"{kernel}: N={N}, head dim {Dh} needs {need} bytes of shared "
@@ -351,7 +383,8 @@ def _check_masks(qbias, amask, G: int, num_heads: int, N: int) -> None:
              f"{None if amask is None else tuple(amask.shape)}")
 
 
-def _attention_geometry(qkv, num_heads: int, seq_n: int, backward: bool):
+def _attention_geometry(qkv, num_heads: int, seq_n: int, backward: bool,
+                        pattern: bool = False):
     """(G, C, Dh) of fused rows on the card, after the shape and
     shared-memory checks."""
     rows, C3 = qkv.shape
@@ -363,7 +396,8 @@ def _attention_geometry(qkv, num_heads: int, seq_n: int, backward: bool):
     _require(0 < N and rows % N == 0, f"rows {rows} not groups of N={N}")
     _require(Dh <= 64, f"head dim {Dh} > 64")
     _require(Dh % 2 == 0 or not backward, f"head dim {Dh} is odd")
-    check_attention_fits(N, Dh, smem_optin(qkv.device), backward=backward)
+    check_attention_fits(N, Dh, smem_optin(qkv.device), backward=backward,
+                         pattern=pattern)
     return rows // N, C, Dh
 
 
@@ -489,23 +523,39 @@ layernorm.launches = 0
 # K4 biased_attention_bwd
 # ---------------------------------------------------------------------------
 
+def _pattern_geometry(pattern, G: int, num_heads: int, N: int) -> int:
+    P = pattern.shape[0]
+    _require(tuple(pattern.shape[1:]) == (num_heads, N, N),
+             f"pattern {tuple(pattern.shape)} is not (P, {num_heads}, {N}, {N})")
+    _require(P > 0 and G % P == 0,
+             f"{G} groups do not divide among {P} patterns (G % P != 0)")
+    return P
+
+
 def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
                                scale: float, key_bias=None, qbias=None,
-                               amask=None):
-    """VJP of :func:`biased_attention_plain` (pattern-free) from the saved
-    fused rows. qkv: (G*N, 3C); dctx: (G*N, C); key_bias: (G, N) f32;
-    qbias: (G, N, N) f32; amask: (G, nH, N, N). Returns ``(dqkv (G*N, 3C)
-    in qkv.dtype, dkbias (G, N) f32)``, dkbias the column sum of ds over
-    rows and heads (``_seq_core_bwd_kernel``). The unmasked p enters ds and
-    ``p * amask`` enters dv (pallas_attn.py:2482-2501)."""
+                               amask=None, pattern=None):
+    """VJP of :func:`biased_attention_plain` from the saved fused rows. qkv:
+    (G*N, 3C); dctx: (G*N, C); key_bias: (G, N) f32; qbias: (G, N, N) f32;
+    amask: (G, nH, N, N); pattern: (P, nH, N, N) f32, group g using
+    ``pattern[g % P]``, G % P == 0. Without a pattern it returns ``(dqkv
+    (G*N, 3C) in qkv.dtype, dkbias (G, N) f32)``, dkbias the column sum of ds
+    over rows and heads (``_seq_core_bwd_kernel``); with one, ``(dqkv,
+    dkbias or None when no key_bias is given, dpattern (P, nH, N, N) f32)``,
+    dpattern the sum of ds over the G / P groups that share a pattern (the
+    relative-position bias gradient of ``_core_bwd_kernel``). The unmasked p
+    enters ds and ``p * amask`` enters dv (pallas_attn.py:2482-2501)."""
     rows, C3 = qkv.shape
     C, N = C3 // 3, seq_n
     G, Dh = rows // N, C // num_heads
     _check_masks(qbias, amask, G, num_heads, N)
+    P = None if pattern is None else _pattern_geometry(pattern, G, num_heads, N)
     t = qkv.float().view(G, N, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
     q, k, v = t[0] * scale, t[1], t[2]
     dc = dctx.float().view(G, N, num_heads, Dh).permute(0, 2, 1, 3)
     s = q @ k.transpose(-1, -2)                                 # (G, nH, N, N)
+    if pattern is not None:
+        s = s + pattern.float()[torch.arange(G, device=qkv.device) % P]
     if key_bias is not None:
         s = s + key_bias.float()[:, None, None, :]
     if qbias is not None:
@@ -523,40 +573,60 @@ def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
     dq = (ds @ k) * scale
     dk = ds.transpose(-1, -2) @ q
     dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(rows, C3)
-    return dqkv.to(qkv.dtype), ds.sum(dim=(1, 2))
+    dkb = ds.sum(dim=(1, 2))
+    if pattern is None:
+        return dqkv.to(qkv.dtype), dkb
+    dpat = ds.view(G // P, P, num_heads, N, N).sum(0)
+    return (dqkv.to(qkv.dtype), dkb if key_bias is not None else None, dpat)
 
 
 def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
-                         key_bias=None, qbias=None, amask=None):
+                         key_bias=None, qbias=None, amask=None, pattern=None):
     """K4 wrapper; same contract as :func:`biased_attention_bwd_plain`. On
-    CUDA: bf16 qkv, dctx and amask, f32 biases, an even head dim <= 64, and
-    N within the card's shared memory (:func:`check_attention_fits`; N <=
-    140 at head dim 64 on an H100)."""
+    CUDA: bf16 qkv, dctx and amask, f32 biases and patterns, an even head dim
+    <= 64, and N within the card's shared memory
+    (:func:`check_attention_fits`; N <= 140 at head dim 64 on an H100). The
+    sums over groups run in a fixed order: two calls on the same inputs give
+    bitwise-equal gradients."""
     if not qkv.is_cuda:
         return biased_attention_bwd_plain(qkv, dctx, num_heads, seq_n, scale,
-                                          key_bias, qbias, amask)
-    dev, bf = qkv.device, torch.bfloat16
+                                          key_bias, qbias, amask, pattern)
+    dev, bf, f32 = qkv.device, torch.bfloat16, torch.float32
     _cuda_arg(qkv, "qkv", bf, dev, 2)
     rows, C3 = qkv.shape
     N = seq_n
-    G, C, _ = _attention_geometry(qkv, num_heads, N, backward=True)
+    G, C, _ = _attention_geometry(qkv, num_heads, N, backward=True,
+                                  pattern=pattern is not None)
     _cuda_arg(dctx, "dctx", bf, dev, 2)
     _require(tuple(dctx.shape) == (rows, C), f"dctx must be ({rows}, {C})")
-    _cuda_arg(key_bias, "key_bias", torch.float32, dev, 2)
+    _cuda_arg(key_bias, "key_bias", f32, dev, 2)
     _require(key_bias is None or tuple(key_bias.shape) == (G, N),
              f"key_bias must be ({G}, {N})")
     _cuda_masks(qbias, amask, G, num_heads, N, dev)
-    dqkv = torch.empty((rows, C3), dtype=bf, device=dev)
-    part = torch.empty((G, num_heads, N), dtype=torch.float32, device=dev)
-    dkb = torch.empty((G, N), dtype=torch.float32, device=dev)
+    _cuda_arg(pattern, "pattern", f32, dev, 4)
+    P = 1 if pattern is None else _pattern_geometry(pattern, G, num_heads, N)
     lib = build()["attention_bwd"]
-    _check(lib.mvlt_attention_bwd(_ptr(qkv), _ptr(dctx), _ptr(key_bias),
-                                  _ptr(qbias), _ptr(amask), _ptr(dqkv),
-                                  _ptr(part), _ptr(dkb), G, N, C, num_heads,
-                                  float(scale), _stream(dev)),
+    dqkv = torch.empty((rows, C3), dtype=bf, device=dev)
+    part = dkb = dpat_part = dpat = None
+    if pattern is None or key_bias is not None:
+        part = torch.empty((G, num_heads, N), dtype=f32, device=dev)
+        dkb = torch.empty((G, N), dtype=f32, device=dev)
+    if pattern is not None:
+        chunks = lib.mvlt_attention_bwd_chunks(G, P, num_heads)
+        _require(chunks > 0, "could not split the pattern groups")
+        dpat_part = torch.empty((chunks, P, num_heads, N, N), dtype=f32,
+                                device=dev)
+        dpat = torch.empty((P, num_heads, N, N), dtype=f32, device=dev)
+    _check(lib.mvlt_attention_bwd(_ptr(qkv), _ptr(dctx), _ptr(pattern),
+                                  _ptr(key_bias), _ptr(qbias), _ptr(amask),
+                                  _ptr(dqkv), _ptr(part), _ptr(dkb),
+                                  _ptr(dpat_part), _ptr(dpat), G, N, C,
+                                  num_heads, P, float(scale), _stream(dev)),
            "biased_attention_bwd")
     biased_attention_bwd.launches += 1
-    return dqkv, dkb
+    if pattern is None:
+        return dqkv, dkb
+    return dqkv, dkb, dpat
 
 
 biased_attention_bwd.launches = 0
@@ -566,13 +636,18 @@ biased_attention_bwd.launches = 0
 # K5 layernorm_bwd, column_sum
 # ---------------------------------------------------------------------------
 
-def layernorm_bwd_plain(res, gamma, g, eps: float, hmask=None):
-    """VJP of ``LN(res) * gamma + beta`` over rows of the f32 pre-LN sum
-    ``res`` (M, C) for the upstream gradient ``g`` (M, C). Returns
-    ``(dres f32, da in g.dtype, dgamma, dbeta, db)``, ``da = dres * hmask``
-    (the cotangent of a proj / fc2 output that the hidden-dropout mask
-    ``hmask`` (M, C) multiplied; ``dres`` without it), the last three f32
-    column sums: ``sum g * xhat``, ``sum g`` and ``sum da``."""
+def layernorm_bwd_plain(res, gamma, g, eps: float, hmask=None, gres=None,
+                        row_scale=None, out_dtype=None):
+    """VJP of ``LN(res) * gamma + beta`` over rows of the pre-LN sum ``res``
+    (M, C) for the upstream gradient ``g`` (M, C). Returns ``(dres f32, da,
+    dgamma, dbeta, db)``: ``dres`` the LN VJP plus the optional incoming
+    residual gradient ``gres`` (M, C) (the pre-LN form: ``dres1 = g +
+    LN2^T(dh2)`` of a Swin block); ``da = dres * hmask * row_scale`` in
+    ``out_dtype`` (default ``g.dtype``), the cotangent of a proj / fc2
+    output that the hidden-dropout mask ``hmask`` (M, C) and the f32 row
+    scale ``row_scale`` (S,) multiplied (row m takes ``row_scale[m // (M //
+    S)]``: the DropPath multiplier); the last three f32 column sums: ``sum g
+    * xhat``, ``sum g`` and ``sum da`` (unrounded)."""
     r_ = res.float()
     mu = r_.mean(-1, keepdim=True)
     var = ((r_ - mu) ** 2).mean(-1, keepdim=True)
@@ -582,35 +657,55 @@ def layernorm_bwd_plain(res, gamma, g, eps: float, hmask=None):
     dxhat = gf * gamma.float()
     dres = r * (dxhat - dxhat.mean(-1, keepdim=True)
                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    if gres is not None:
+        dres = dres + gres.float()
     da = dres if hmask is None else dres * hmask.float()
-    return (dres, da.to(g.dtype), (gf * xhat).sum(0), gf.sum(0), da.sum(0))
+    if row_scale is not None:
+        da = da * _row_scale_plain(row_scale, da.shape[0])
+    return (dres, da.to(out_dtype or g.dtype), (gf * xhat).sum(0), gf.sum(0),
+            da.sum(0))
 
 
-def layernorm_bwd(res, gamma, g, eps: float, hmask=None):
+def layernorm_bwd(res, gamma, g, eps: float, hmask=None, gres=None,
+                  row_scale=None, out_dtype=None):
     """K5 wrapper; same contract as :func:`layernorm_bwd_plain`. On CUDA:
-    f32 res and gamma, bf16 g and hmask, C <= 1024."""
+    f32 or bf16 res, f32 gamma and row_scale, bf16 or f32 g and gres, bf16
+    hmask, a bf16 da, C <= 1024."""
     if not res.is_cuda:
-        return layernorm_bwd_plain(res, gamma, g, eps, hmask)
-    dev, f32 = res.device, torch.float32
-    _cuda_arg(res, "res", f32, dev, 2)
+        return layernorm_bwd_plain(res, gamma, g, eps, hmask, gres, row_scale,
+                                   out_dtype)
+    dev, f32, bf = res.device, torch.float32, torch.bfloat16
+    res_bf = res.dtype == bf
+    _cuda_arg(res, "res", bf if res_bf else f32, dev, 2)
     M, C = res.shape
     _require(C <= 1024, f"C={C} > 1024")
     _cuda_arg(gamma, "gamma", f32, dev, 1)
     _require(gamma.shape[0] == C, f"gamma must have {C} entries")
-    _cuda_arg(g, "g", torch.bfloat16, dev, 2)
+    g_f32 = g.dtype == f32
+    _cuda_arg(g, "g", f32 if g_f32 else bf, dev, 2)
     _require(tuple(g.shape) == (M, C), f"g must be ({M}, {C})")
-    _cuda_arg(hmask, "hmask", torch.bfloat16, dev, 2)
+    gres_f32 = gres is not None and gres.dtype == f32
+    _cuda_arg(gres, "gres", f32 if gres_f32 else bf, dev, 2)
+    _require(gres is None or tuple(gres.shape) == (M, C),
+             f"gres must be ({M}, {C})")
+    _cuda_arg(hmask, "hmask", bf, dev, 2)
     _require(hmask is None or tuple(hmask.shape) == (M, C),
              f"hmask must be ({M}, {C})")
+    s_div = _cuda_row_scale(row_scale, M, dev)
+    _require((out_dtype or g.dtype) == bf,
+             "layernorm_bwd writes da in bf16 on CUDA; pass "
+             "out_dtype=torch.bfloat16")
     lib = build()["layernorm_bwd"]
     dres = torch.empty((M, C), dtype=f32, device=dev)
-    dres_bf = torch.empty((M, C), dtype=torch.bfloat16, device=dev)
+    dres_bf = torch.empty((M, C), dtype=bf, device=dev)
     part = torch.empty((lib.mvlt_layernorm_bwd_blocks(M), 3 * C), dtype=f32,
                        device=dev)
     sums = torch.empty((3, C), dtype=f32, device=dev)
+    flags = int(res_bf) | 2 * int(g_f32) | 4 * int(gres_f32)
     _check(lib.mvlt_layernorm_bwd(_ptr(res), _ptr(gamma), _ptr(g),
-                                  _ptr(hmask), _ptr(dres), _ptr(dres_bf),
-                                  _ptr(part), _ptr(sums), M, C, float(eps),
+                                  _ptr(hmask), _ptr(gres), _ptr(row_scale),
+                                  _ptr(dres), _ptr(dres_bf), _ptr(part),
+                                  _ptr(sums), M, C, float(eps), flags, s_div,
                                   _stream(dev)), "layernorm_bwd")
     layernorm_bwd.launches += 1
     return dres, dres_bf, sums[0], sums[1], sums[2]
@@ -619,28 +714,38 @@ def layernorm_bwd(res, gamma, g, eps: float, hmask=None):
 layernorm_bwd.launches = 0
 
 
-def column_sum_plain(x):
-    """Sum over the rows of an (M, N) matrix, in f32."""
-    return x.float().sum(0)
+def column_sum_plain(x, row_scale=None):
+    """Sum over the rows of an (M, N) matrix, in f32. With an f32
+    ``row_scale`` (S,) (row m takes ``row_scale[m // (M // S)]``) it returns
+    ``(sum of x * scale, x * scale in x.dtype)``."""
+    if row_scale is None:
+        return x.float().sum(0)
+    xs = x.float() * _row_scale_plain(row_scale, x.shape[0])
+    return xs.sum(0), xs.to(x.dtype)
 
 
-def column_sum(x):
+def column_sum(x, row_scale=None):
     """K5 column sum; same contract as :func:`column_sum_plain`. On CUDA:
-    bf16 or f32 x."""
+    bf16 or f32 x (bf16 with a row scale), f32 row_scale."""
     if not x.is_cuda:
-        return column_sum_plain(x)
+        return column_sum_plain(x, row_scale)
     dev, f32 = x.device, torch.float32
     x_f32 = x.dtype == f32
+    _require(not (x_f32 and row_scale is not None),
+             "column_sum with a row scale takes bf16 x")
     _cuda_arg(x, "x", f32 if x_f32 else torch.bfloat16, dev, 2)
     M, N = x.shape
+    s_div = _cuda_row_scale(row_scale, M, dev)
+    xs = None if row_scale is None else torch.empty_like(x)
     lib = build()["layernorm_bwd"]
     part = torch.empty((lib.mvlt_column_sum_chunks(M, N), N), dtype=f32,
                        device=dev)
     out = torch.empty((N,), dtype=f32, device=dev)
-    _check(lib.mvlt_column_sum(_ptr(x), int(x_f32), _ptr(part), _ptr(out), M,
-                               N, _stream(dev)), "column_sum")
+    _check(lib.mvlt_column_sum(_ptr(x), int(x_f32), _ptr(row_scale), _ptr(xs),
+                               _ptr(part), _ptr(out), M, N, s_div,
+                               _stream(dev)), "column_sum")
     column_sum.launches += 1
-    return out
+    return out if row_scale is None else (out, xs)
 
 
 column_sum.launches = 0

@@ -12,6 +12,7 @@ float32, as the JAX kernels take them.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -91,6 +92,22 @@ class DropoutMasks:
         return self.draw(keep, shape, device).to(dtype) / keep
 
 
+def drop_path_multipliers(masks, rate: float, batch: int, device):
+    """The DropPath multipliers of one Swin block in training: ``(dp1,
+    dp2)`` for its attention and MLP branches, each (B,) float32, 0 or
+    ``1 / keep`` per image (the value that JAX's ``m.astype(f32) / keep``
+    gives: 1.4285714 at rate 0.3, not a bf16 value), or None when ``masks``
+    is None or the rate is 0 (no draw, as ``swin.py:291-300,324-333``).
+    Two (B,) ``bernoulli(keep)`` draws from ``masks``, attention branch
+    first."""
+    if masks is None or rate <= 0.0:
+        return None
+    keep = 1.0 - rate
+    scale = float(np.float32(1.0) / np.float32(keep))
+    return tuple(masks.draw(keep, (batch,), device).float() * scale
+                 for _ in range(2))
+
+
 def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
                                ignore_index: int = -100) -> torch.Tensor:
     """Mean cross entropy over labels != ignore_index, in f32 (0 if none is
@@ -130,8 +147,11 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm parameters (float32 ``weight`` / ``bias``) and its eps; the
-    normalisation runs through ``ops.layernorm`` (K3 or its plain version)."""
+    """LayerNorm parameters (float32 ``weight`` / ``bias``) and its eps.
+    Serving runs the normalisation through ``ops.layernorm`` (K3 or its
+    plain version); where a gradient is needed it is ``F.layer_norm`` in
+    float32, rounded to the input's dtype (the JAX package leaves these
+    norms, outside its kernels, to XLA)."""
 
     def __init__(self, dim: int, eps: float, *, device):
         super().__init__()
@@ -143,6 +163,10 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
         shape = x.shape
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or self.weight.requires_grad):
+            return F.layer_norm(x.float(), (shape[-1],), self.weight,
+                                self.bias, self.eps).to(x.dtype)
         y = ops.layernorm(x.reshape(-1, shape[-1]).contiguous(), self.weight,
                           self.bias, self.eps)
         return y.view(shape)

@@ -1,15 +1,18 @@
 """Where the device time of a train step goes, on one GPU.
 
-    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain] [--batch 32] [--steps 3]
+    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain] [--batch 32] [--steps 3]
 
 Builds the VQA finetune train step (``--path vqa``, the default:
-:func:`mvlt_tpu_torch.flagship.build_vqa_train_step`) or the MLM+ITM
-pretrain train step (``--path pretrain``:
-:func:`~mvlt_tpu_torch.flagship.build_pretrain_train_step`, text length 80,
-the mask mode of each step from a seeded coin flip), runs two warm-up
-steps, then traces ``--steps`` steps with ``torch.profiler`` and prints the
-device time per step by kernel family (the port's kernels K1-K5, cuDNN
-convolutions and BatchNorm, cuBLAS products, the optimizer, the rest), the
+:func:`mvlt_tpu_torch.flagship.build_vqa_train_step`), the MLM+ITM
+pretrain train step on ResNet-101 (``--path pretrain``:
+:func:`~mvlt_tpu_torch.flagship.build_pretrain_train_step`) or the pretrain
+step of record on Swin-S with DropPath 0.3 (``--path swin_pretrain``:
+:func:`~mvlt_tpu_torch.flagship.build_swin_pretrain_train_step`), both at
+text length 80 with the mask mode of each step from a seeded coin flip,
+runs two warm-up steps, then traces ``--steps`` steps with
+``torch.profiler`` and prints the device time per step by kernel family
+(the port's kernels K1-K5, cuDNN convolutions and BatchNorm, cuBLAS
+products, PyTorch's LayerNorm, the optimizer, the rest), the
 device busy share of the traced window, the unprofiled step times with the
 SM clock and power sampled before and after them, and the card's name and
 power limit. Needs a CUDA device.
@@ -26,9 +29,12 @@ import torch
 # kernel-name fragment -> family, first match wins; the port's kernels live
 # in an anonymous namespace
 OURS = "namespace)::"
+CUBLAS = ("cuBLAS products (resnet_fc, pooler, heads; Swin patch embed and "
+          "merge)")
 FAMILIES = [
     (OURS + "attention_bwd_kernel", "K4 biased_attention_bwd"),
     (OURS + "sum_heads_kernel", "K4 biased_attention_bwd"),
+    (OURS + "sum_chunks_kernel", "K4 biased_attention_bwd"),
     (OURS + "attention_kernel", "K2 biased_attention"),
     (OURS + "ln_bwd_kernel", "K5 layernorm_bwd"),
     (OURS + "colsum_kernel", "K5 column_sum"),
@@ -43,9 +49,10 @@ FAMILIES = [
     ("wgrad", "cuDNN convolutions (ResNet)"),
     ("conv", "cuDNN convolutions (ResNet)"),
     ("cudnn", "cuDNN convolutions (ResNet)"),
-    ("gemm", "cuBLAS products (resnet_fc, pooler, heads)"),
-    ("nvjet", "cuBLAS products (resnet_fc, pooler, heads)"),
-    ("cutlass", "cuBLAS products (resnet_fc, pooler, heads)"),
+    ("layer_norm", "PyTorch LayerNorm (Swin patch embed / merge / final)"),
+    ("gemm", CUBLAS),
+    ("nvjet", CUBLAS),
+    ("cutlass", CUBLAS),
     ("max_pool", "ResNet max-pool"),
 ]
 
@@ -72,7 +79,8 @@ def family(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("vqa", "pretrain"), default="vqa")
+    ap.add_argument("--path", choices=("vqa", "pretrain", "swin_pretrain"),
+                    default="vqa")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
@@ -90,8 +98,10 @@ def main() -> int:
         step, batch = flagship.build_vqa_train_step(batch=args.batch,
                                                     device="cuda")
     else:
-        pre_step, batch = flagship.build_pretrain_train_step(
-            batch=args.batch, device="cuda")
+        build = (flagship.build_swin_pretrain_train_step
+                 if args.path == "swin_pretrain"
+                 else flagship.build_pretrain_train_step)
+        pre_step, batch = build(batch=args.batch, device="cuda")
         flips = torch.Generator().manual_seed(0)
         step = lambda b: pre_step(b, seq2seq_coin_flip(flips))  # noqa: E731
     for _ in range(2):

@@ -267,3 +267,96 @@ def test_cuda_gemm_emask_and_layernorm_bwd_hmask_match_plain(cuda_device):
                     kernels.layernorm_bwd_plain(res, gam, gy, 1e-12, hmask=e)):
         _near(x, y, 2 ** -7)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 4])
+def test_cuda_pattern_attention_bwd_matches_plain_and_repeats(cuda_device, P):
+    """K4's window-pattern mode at Swin windows (N = 49, head dim 32) with
+    one pattern and one per window: dqkv and dpattern against the plain
+    version, two calls bitwise equal, and G % P != 0 refused on the host."""
+    g = torch.Generator().manual_seed(40 + P)
+    G, N, C, nH = 16, 49, 64, 2
+    qkv = _rnd(g, G * N, 3 * C, std=0.5, dev=cuda_device)
+    dctx = _rnd(g, G * N, C, dev=cuda_device)
+    pat = _rnd(g, P, nH, N, N, dt=torch.float32, dev=cuda_device)
+    got = kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.2, pattern=pat)
+    want = kernels.biased_attention_bwd_plain(qkv, dctx, nH, N, 0.2,
+                                              pattern=pat)
+    assert got[1] is None and want[1] is None
+    _near(got[0], want[0], 2 ** -7)
+    _near(got[2], want[2], 1e-4)
+    again = kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.2, pattern=pat)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[2], again[2])
+    with pytest.raises(ValueError, match="G % P"):
+        kernels.biased_attention_bwd(qkv[:15 * N], dctx[:15 * N], nH, N, 0.2,
+                                     pattern=pat[:1].expand(2, -1, -1, -1)
+                                     .contiguous())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_row_scale_and_preln_backward_match_plain(cuda_device):
+    """K1's f32 row scale (per image), K5's pre-LN form (bf16 res, f32 g,
+    an incoming residual gradient, a row scale on da) and the scaled column
+    sum against their plain versions."""
+    g = torch.Generator().manual_seed(10)
+    M, K, N = 96, 64, 32
+    a = _rnd(g, M, K, dev=cuda_device)
+    w = _rnd(g, N, K, std=K ** -0.5, dev=cuda_device)
+    r = _rnd(g, M, N, dt=torch.float32, dev=cuda_device)
+    s = torch.tensor([0.0, 1.25, 1.25, 0.0], device=cuda_device)
+    kw = dict(residual=r, row_scale=s, out_dtype=torch.float32)
+    _near(kernels.gemm(a, w, **kw), kernels.gemm_plain(a, w, **kw), 2 ** -7)
+    x = _rnd(g, M, N, dev=cuda_device)
+    gam = _rnd(g, N, dt=torch.float32, dev=cuda_device) + 1.0
+    dh = _rnd(g, M, N, dt=torch.float32, dev=cuda_device)
+    for gres, rs in ((r, None), (x, s)):
+        kw = dict(gres=gres, row_scale=rs, out_dtype=torch.bfloat16)
+        for y, y0 in zip(kernels.layernorm_bwd(x, gam, dh, 1e-5, **kw),
+                         kernels.layernorm_bwd_plain(x, gam, dh, 1e-5, **kw)):
+            _near(y, y0, 2 ** -7)
+    for y, y0 in zip(kernels.column_sum(x, row_scale=s),
+                     kernels.column_sum_plain(x, row_scale=s)):
+        _near(y, y0, 1e-4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_swin_vqa_loss_trains_the_backbone(cuda_device):
+    """A tiny Swin VQA loss on the card gives every ``conv.*`` parameter a
+    finite, nonzero gradient: the Swin blocks run their autograd Function,
+    the LayerNorms outside them ``F.layer_norm`` and the relative-position
+    bias keeps its graph (with bf16 parameters and with f32 masters)."""
+    import dataclasses
+
+    from mvlt_tpu_torch.config import MVLTConfig, SwinConfig
+    from mvlt_tpu_torch.models.heads import VQAModel
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+
+    cfg = MVLTConfig.for_vqa(result_num=5)
+    cfg = dataclasses.replace(cfg, swin=SwinConfig(
+        img_size=64, patch_size=4, embed_dim=32, depths=(2, 2),
+        num_heads=(2, 4), window_size=4, drop_path_rate=0.2),
+        fusion=dataclasses.replace(cfg.fusion, hidden_size=64,
+                                   num_hidden_layers=1, num_attention_heads=2,
+                                   intermediate_size=128, vocab_size=200))
+    # 8 images, so that DropPath (rate up to 0.2) keeps every branch alive
+    # in some image and every parameter gets a nonzero gradient
+    image, question = flagship.example_inputs(8, 8, image_size=64, vocab=200)
+    label = torch.arange(8) % 5
+    for dtype in (torch.bfloat16, torch.float32):
+        model = flagship.init_seeded_(VQAModel(
+            cfg, dtype=dtype, device=cuda_device,
+            compute_dtype=torch.bfloat16))
+        before = blocks.swin_full_block.train_launches
+        loss, _ = model.loss(image.to(cuda_device), question.to(cuda_device),
+                             label.to(cuda_device),
+                             masks=DropoutMasks(torch.Generator(
+                                 device=cuda_device).manual_seed(0)))
+        loss.backward()
+        assert blocks.swin_full_block.train_launches > before
+        for name, p in model.named_parameters():
+            if name.startswith("conv."):
+                assert p.grad is not None, name
+                assert torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0, name

@@ -261,7 +261,8 @@ def test_resnet_tree_maps_every_leaf_once(tiny):
 
 
 @pytest.mark.parametrize("make", ["for_vqa", "for_pretrain", "swin_small",
-                                  "resnet101", "resnet50"])
+                                  "swin_base", "swin_tiny_test", "resnet101",
+                                  "resnet50"])
 def test_config_copy_matches_jax(make):
     ours = getattr(pcfg.MVLTConfig, make, None) or getattr(pcfg, make)
     theirs = getattr(jcfg.MVLTConfig, make, None) or getattr(jcfg, make)
