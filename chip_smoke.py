@@ -47,12 +47,25 @@ on failure:
    (Swin-S @224 with DropPath 0.3 + BERT-base, S = 131, b32, dropout 0.1)
    as phase 6 drives the ResNet one, the plain run replaying the kernel
    run's DropPath and dropout masks;
-8. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` last.
+8. switches: the opt-in modes of K2 and K4 at the shapes the step of record
+   gives them: in-kernel Philox dropout (``MVLT_KERNEL_DROPOUT``) at B*S =
+   32*131, 12 heads, in the key-bias and seq2seq modes (the drawn mask
+   bitwise equal to ``adrop_mask_plain``, its keep fraction, two calls
+   bitwise equal), and the stored softmax (``MVLT_STOREP``) at Swin-S stage
+   3 (128 windows of 49, C 384, 12 heads, one pattern and four), with the
+   counterparts that run them; then the Swin-S step of record with both
+   switches set, driven as in phase 7 (the plain run replaying the seeds
+   and masks), its launch counts, and its step time and peak memory in
+   turns with the switches off (off, on, on, off);
+9. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -140,6 +153,33 @@ EXPECTED_SWIN_PRETRAIN = {
     **EXPECTED_PRETRAIN,
     "swin_full_block": (0, "mvlt_tpu/ops/pallas_attn.py:652"),
     "window_block_attention": (0, "mvlt_tpu/ops/pallas_attn.py:166"),
+    # the opt-in modes stay off by default
+    "fused_attn_ln_adrop": (0, "mvlt_tpu/ops/pallas_attn.py:2770"),
+    "seq_attention_core_bwd_adrop": (0, "mvlt_tpu/ops/pallas_attn.py:2485"),
+    "swin_full_block_train_store_p": (0, "mvlt_tpu/ops/pallas_attn.py:791"),
+    "swin_full_block_train_shift_store_p": (
+        0, "mvlt_tpu/ops/pallas_attn.py:928"),
+    "attention_core_bwd_store_p": (0, "mvlt_tpu/ops/pallas_attn.py:3859"),
+    "biased_attention_adrop": (0, None), "biased_attention_save_p": (0, None),
+    "biased_attention_bwd_adrop": (0, None),
+    "biased_attention_bwd_stored_p": (0, None),
+}
+# the Swin-S step with MVLT_KERNEL_DROPOUT and MVLT_STOREP set: every fusion
+# layer on the in-kernel dropout, its backward regenerating the mask; the 18
+# stage-3 blocks (9 unshifted, 9 shifted) storing p, their backward from it
+SWITCHES = ("MVLT_KERNEL_DROPOUT", "MVLT_STOREP")
+EXPECTED_SWITCHES = {
+    **EXPECTED_SWIN_PRETRAIN,
+    "fused_attn_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:2721"),
+    "fused_attn_ln_adrop": (12, "mvlt_tpu/ops/pallas_attn.py:2770"),
+    "seq_attention_core_bwd_adrop": (12, "mvlt_tpu/ops/pallas_attn.py:2485"),
+    "swin_full_block_train_store_p": (9, "mvlt_tpu/ops/pallas_attn.py:791"),
+    "swin_full_block_train_shift_store_p": (
+        9, "mvlt_tpu/ops/pallas_attn.py:928"),
+    "attention_core_bwd_store_p": (18, "mvlt_tpu/ops/pallas_attn.py:3859"),
+    "biased_attention_adrop": (12, None), "biased_attention_save_p": (18, None),
+    "biased_attention_bwd_adrop": (12, None),
+    "biased_attention_bwd_stored_p": (18, None),
 }
 # the hand-written kernels and the TPU code whose pieces each carries
 KERNEL_SOURCES = {
@@ -154,6 +194,28 @@ KERNEL_SOURCES = {
                       "mvlt_tpu/ops/pallas_attn.py:2970"),
     "column_sum": ("mvlt_tpu_torch/csrc/layernorm_bwd.cu",
                    "mvlt_tpu/ops/pallas_attn.py:3003"),
+    # the opt-in modes of K2 / K4, each a row of its own
+    "biased_attention_adrop": ("mvlt_tpu_torch/csrc/attention.cu",
+                               "mvlt_tpu/ops/pallas_attn.py:2133"),
+    "biased_attention_save_p": ("mvlt_tpu_torch/csrc/attention.cu",
+                                "mvlt_tpu/ops/pallas_attn.py:774"),
+    "biased_attention_bwd_adrop": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
+                                   "mvlt_tpu/ops/pallas_attn.py:2485"),
+    "biased_attention_bwd_stored_p": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
+                                      "mvlt_tpu/ops/pallas_attn.py:3859"),
+}
+# the modes' counts on the kernel wrappers (``kernels.MODE_COUNTS``)
+MODE_ROWS = {"adrop_launches": "adrop", "save_p_launches": "save_p",
+             "stored_p_launches": "stored_p"}
+# the modes' counts on the counterparts (``blocks.COUNTS``)
+COUNTERPART_MODES = {
+    "swin_full_block": {"shift_launches": "shift",
+                        "train_launches": "train",
+                        "train_shift_launches": "train_shift",
+                        "train_store_p_launches": "train_store_p",
+                        "train_shift_store_p_launches": "train_shift_store_p"},
+    "attention_core_bwd": {"store_p_launches": "store_p"},
+    "seq_attention_core_bwd": {"adrop_launches": "adrop"},
 }
 
 
@@ -1074,15 +1136,264 @@ def swin_kernel_checks(chk: Checker, dev) -> None:
                               shift_spec=spec, dp=dp)
 
 
+def lib_dropout_attention(qkv, G, N, nH, mask, scale, rate):
+    """SDPA with its own dropout over fused rows: the same function as K2's
+    in-kernel dropout, with PyTorch's random stream."""
+    C = qkv.shape[1] // 3
+    t = qkv.view(G, N, 3, nH, C // nH).permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(t[0], t[1], t[2], attn_mask=mask,
+                                       dropout_p=rate, scale=scale)
+    return o.permute(0, 2, 1, 3).reshape(G * N, C)
+
+
+def optin_kernel_checks(chk: Checker, dev) -> None:
+    """The opt-in modes of K2 and K4 and the counterparts that run them, at
+    the shapes of the Swin-S step of record: in-kernel dropout at B*S =
+    32*131, 12 heads, head dim 64, rate 0.1, key-bias and seq2seq modes;
+    the stored softmax at Swin-S stage 3 (b32: 128 windows of 49, C 384,
+    12 heads, head dim 32; one pattern, and four: the shifted blocks)."""
+    from mvlt_tpu_torch.ops import blocks
+    from mvlt_tpu_torch.ops import kernels as K
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
+
+    inp = Inputs(dev, seed=4)
+    rnd, dense, ln = inp.rnd, inp.dense, inp.ln
+    bf, f32 = torch.bfloat16, torch.float32
+    B, S, C, nH, rate = TRAIN_BATCH, 1 + 49 + 1 + PRETRAIN_TEXT, 768, 12, 0.1
+    M, Dh = B * S, C // nH
+    sc = Dh ** -0.5
+    seed = torch.tensor([40503, 12345], dtype=torch.int32, device=dev)
+    adrop = (seed, rate)
+    kb = inp.key_bias([S - (11 * i) % 75 for i in range(B)], S)
+    qb = mask_to_bias(seq2seq_fusion_mask(B, 50, S, dev)).contiguous()
+    qkv, dctx, x = rnd(M, 3 * C, std=0.5), rnd(M, C), rnd(M, C)
+    hmask = ((torch.rand(M, C, generator=inp.gen) < 0.9).to(bf) / 0.9).to(dev)
+    q4 = qkv.view(B, S, 3, nH, Dh).permute(2, 0, 3, 1, 4)
+    d4 = dctx.view(B, S, nH, Dh).permute(0, 2, 1, 3).contiguous()
+    (wq, bq), (wp, bp) = dense(C, 3 * C), dense(C, C)
+    lns, lnb = ln(C)
+    lgb = bf16_ln(lns, lnb)
+    for kbias, qbias in ((kb, None), (None, qb)):
+        tag = "key bias" if qbias is None else "seq2seq"
+        bias = (kb.to(bf)[:, None, None, :] if qbias is None
+                else qb.to(bf)[:, None])
+        kw = dict(key_bias=kbias, qbias=qbias)
+        # K2 (a): the drawn mask is the plain Philox mask, bit for bit
+        ctx, mask = K.biased_attention(qkv, nH, S, sc, adrop=adrop,
+                                       save_mask=True, **kw)
+        again = K.biased_attention(qkv, nH, S, sc, adrop=adrop, **kw)
+        want = K.adrop_mask_plain(seed, B, nH, S, rate)
+        torch.cuda.synchronize()
+        if not torch.equal(mask, want):
+            raise AssertionError(f"K2's Philox mask ({tag}) differs from "
+                                 f"adrop_mask_plain at "
+                                 f"{(mask != want).sum().item()} elements")
+        if not torch.equal(ctx, again):
+            raise AssertionError(f"K2 with in-kernel dropout ({tag}) is not "
+                                 "bitwise reproducible")
+        kept = (mask > 0).float().mean().item()
+        if not abs(kept - 0.9) <= 1e-3:
+            raise AssertionError(f"keep fraction {kept} over {mask.numel()} "
+                                 "draws is not 0.9 +- 0.001")
+        print(f"K2 in-kernel dropout ({tag}): mask bitwise equal to "
+              f"adrop_mask_plain, keep fraction {kept:.6f} over "
+              f"{mask.numel()} draws, two calls bitwise equal", flush=True)
+        # what one fusion layer spends on attention dropout either way: the
+        # explicit mask (the step's draw, K2 and K4 reading it) against K2
+        # drawing it and K4 regenerating it
+        src = DropoutMasks(torch.Generator(device=dev).manual_seed(0))
+        amask = src.scaled(0.9, (B, nH, S, S), bf, dev)
+        tm = {"draw": cuda_ms(lambda: src.scaled(0.9, (B, nH, S, S), bf,
+                                                 dev)),
+             "K2 amask": cuda_ms(lambda kw=kw: K.biased_attention(
+                 qkv, nH, S, sc, amask=amask, **kw)),
+             "K4 amask": cuda_ms(lambda kw=kw: K.biased_attention_bwd(
+                 qkv, dctx, nH, S, sc, amask=amask, **kw)),
+             "K2 adrop": cuda_ms(lambda kw=kw: K.biased_attention(
+                 qkv, nH, S, sc, adrop=adrop, **kw)),
+             "K4 adrop": cuda_ms(lambda kw=kw: K.biased_attention_bwd(
+                 qkv, dctx, nH, S, sc, adrop=adrop, **kw))}
+        print(f"attention dropout per layer ({tag}), ms: "
+              f"{json.dumps({k: round(v, 4) for k, v in tm.items()})}; "
+              f"explicit mask "
+              f"{tm['draw'] + tm['K2 amask'] + tm['K4 amask']:.4f}, "
+              f"in-kernel {tm['K2 adrop'] + tm['K4 adrop']:.4f}", flush=True)
+        chk.case("biased_attention_adrop",
+                 lambda kw=kw: K.biased_attention(qkv, nH, S, sc, adrop=adrop,
+                                                  **kw),
+                 lambda kw=kw: K.biased_attention_plain(qkv, nH, S, sc,
+                                                        adrop=adrop, **kw),
+                 KERNEL_BAR,
+                 library_fn=lambda bias=bias: lib_dropout_attention(
+                     qkv, B, S, nH, bias, sc, rate),
+                 flops=4.0 * B * nH * S * S * Dh,
+                 nbytes=nbytes(qkv, kbias, qbias, seed, dctx))
+        # K4 (a) and its counterpart, the mask regenerated
+        lib = library_backward(
+            lambda q, k, v, bias=bias: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, dropout_p=rate, scale=sc),
+            (q4[0].contiguous(), q4[1].contiguous(), q4[2].contiguous()), d4)
+        cost = dict(flops=10.0 * B * nH * S * S * Dh,
+                    nbytes=nbytes(qkv, dctx, kbias, qbias, seed, qkv, kb))
+        chk.case("biased_attention_bwd_adrop",
+                 lambda kw=kw: K.biased_attention_bwd(qkv, dctx, nH, S, sc,
+                                                      adrop=adrop, **kw),
+                 lambda kw=kw: K.biased_attention_bwd_plain(
+                     qkv, dctx, nH, S, sc, adrop=adrop, **kw),
+                 KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+        q3, d3 = qkv.view(B, S, 3 * C), dctx.view(B, S, C)
+        chk.case("seq_attention_core_bwd_adrop",
+                 lambda kbias=kbias, qbias=qbias: blocks.seq_attention_core_bwd(
+                     q3, d3, kbias, qbias, None, sc, nH, adrop=adrop),
+                 lambda kbias=kbias, qbias=qbias:
+                 blocks.seq_attention_core_bwd_plain(q3, d3, kbias, qbias,
+                                                     None, sc, nH, adrop=adrop),
+                 KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+        # the attention half with in-kernel dropout; library: F.linear, SDPA
+        # with dropout, F.layer_norm
+        args = (x.view(B, S, C), wq, bq, wp, bp, kbias, qbias,
+                hmask.view(B, S, C), lns, lnb, seed, sc, nH, rate, 1e-12)
+
+        def lib_attn(bias=bias):
+            c = lib_dropout_attention(F.linear(x, wq, bq), B, S, nH, bias, sc,
+                                      rate)
+            return F.layer_norm(F.linear(c, wp, bp) * hmask + x, (C,), *lgb,
+                                1e-12).view(B, S, C)
+
+        chk.case("fused_attn_ln_adrop",
+                 lambda args=args: blocks.fused_attn_ln_adrop(*args),
+                 lambda args=args: blocks.fused_attn_ln_adrop_plain(*args),
+                 BLOCK_BAR, library_fn=lib_attn,
+                 flops=2.0 * M * C * 4 * C + 4.0 * B * nH * S * S * Dh,
+                 nbytes=nbytes(x, wq, bq, wp, bp, kbias, qbias, hmask, lns,
+                               lnb, seed, x))
+
+    # the stored softmax at Swin-S stage 3, b32
+    res, C, nH, N = 14, 384, 12, 49
+    nW = (res // 7) ** 2
+    BW, Dh, I = B * nW, C // nH, 4 * C
+    M, sc = BW * N, Dh ** -0.5
+    qkv, dctx, x, g = (rnd(M, 3 * C, std=0.5), rnd(M, C), rnd(M, C),
+                       rnd(M, C))
+    rel = rnd(1, nH, N, N, std=0.5, dtype=f32)
+    from mvlt_tpu_torch.models.backbones.swin import shifted_window_mask
+    mask = torch.as_tensor(shifted_window_mask(res, res, 7, 3), device=dev)
+    t = qkv.view(BW, N, 3, nH, Dh).permute(2, 0, 3, 1, 4)
+    for pat in (rel, (rel + mask[:, None]).contiguous()):
+        P = pat.shape[0]
+        lmask = pat.to(bf)[torch.arange(BW, device=dev) % P]
+        out_p = torch.empty(BW, nH, N, N, dtype=bf, device=dev)
+        # K2 (b): ctx and p within one bf16 step of the plain version's
+        chk.case("biased_attention_save_p",
+                 lambda pat=pat: K.biased_attention(qkv, nH, N, sc, pat,
+                                                    save_p=True),
+                 lambda pat=pat: K.biased_attention_plain(qkv, nH, N, sc, pat,
+                                                          save_p=True),
+                 KERNEL_BAR, flops=4.0 * BW * nH * N * N * Dh,
+                 nbytes=nbytes(qkv, pat, x, out_p))
+        _, p = K.biased_attention(qkv, nH, N, sc, pat, save_p=True)
+        # K4 (b) against its plain version on the same p, and against K4's
+        # recompute mode; dpattern bitwise equal over two calls
+        lib = library_backward(
+            lambda q, k, v, lmask=lmask: torch.matmul(torch.softmax(
+                torch.matmul(q, k.transpose(-1, -2)) * sc + lmask, dim=-1), v),
+            (t[0].contiguous(), t[1].contiguous(), t[2].contiguous()),
+            dctx.view(BW, N, nH, Dh).permute(0, 2, 1, 3).contiguous())
+        cost = dict(flops=8.0 * BW * nH * N * N * Dh,
+                    nbytes=nbytes(p, qkv, dctx, qkv, pat))
+        chk.case("biased_attention_bwd_stored_p",
+                 lambda pat=pat, p=p: K.biased_attention_bwd(
+                     qkv, dctx, nH, N, sc, pattern=pat, p=p),
+                 lambda pat=pat, p=p: K.biased_attention_bwd_plain(
+                     qkv, dctx, nH, N, sc, pattern=pat, p=p),
+                 KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+        chk.case("attention_core_bwd_store_p",
+                 lambda pat=pat, p=p: blocks.attention_core_bwd(
+                     qkv, dctx, pat, N, sc, nH, p2=p),
+                 lambda pat=pat, p=p: blocks.attention_core_bwd_plain(
+                     qkv, dctx, pat, N, sc, nH, p2=p),
+                 KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+        one = K.biased_attention_bwd(qkv, dctx, nH, N, sc, pattern=pat, p=p)
+        two = K.biased_attention_bwd(qkv, dctx, nH, N, sc, pattern=pat, p=p)
+        rec = K.biased_attention_bwd(qkv, dctx, nH, N, sc, pattern=pat)
+        torch.cuda.synchronize()
+        if not (torch.equal(one[0], two[0]) and torch.equal(one[2], two[2])):
+            raise AssertionError(f"K4 from the stored p (P = {P}) is not "
+                                 "bitwise reproducible")
+        diffs = []
+        for a, b in ((one[0], rec[0]), (one[2], rec[2])):
+            e = (a.float() - b.float()).abs().max().item()
+            diffs.append(e / max(b.float().abs().max().item(), 1e-6))
+        if not max(diffs) <= BLOCK_BAR:
+            raise AssertionError(f"K4 from the stored p (P = {P}) is "
+                                 f"{diffs} x max|recompute| from K4's "
+                                 f"recompute mode, beyond {BLOCK_BAR}")
+        print(f"K4 stored p at stage 3, P = {P}: two calls bitwise equal; "
+              f"dqkv / dpattern {diffs[0]:.3g} / {diffs[1]:.3g} x max| | "
+              "from K4's recompute mode (bf16 p against f32 p)", flush=True)
+        tm = {"K2": cuda_ms(lambda pat=pat: K.biased_attention(
+                 qkv, nH, N, sc, pat)),
+             "K2 save_p": cuda_ms(lambda pat=pat: K.biased_attention(
+                 qkv, nH, N, sc, pat, save_p=True)),
+             "K4 recompute": cuda_ms(lambda pat=pat: K.biased_attention_bwd(
+                 qkv, dctx, nH, N, sc, pattern=pat)),
+             "K4 stored p": cuda_ms(lambda pat=pat, p=p: K.biased_attention_bwd(
+                 qkv, dctx, nH, N, sc, pattern=pat, p=p))}
+        print(f"stage 3, P = {P}, one block's attention core, ms: "
+              f"{json.dumps({k: round(v, 4) for k, v in tm.items()})}",
+              flush=True)
+
+    # the stage-3 training blocks storing p: the forward under autograd
+    # (timed; p saved for the backward), then forward + backward held to the
+    # plain versions
+    (wq, bq), (wp, bp) = dense(C, 3 * C), dense(C, C)
+    (w1, b1), (w2, b2) = dense(C, I), dense(I, C)
+    ln1, ln2 = ln(C), ln(C)
+    params = (*ln1, wq, bq, wp, bp, *ln2, w1, b1, w2, b2)
+    lparams = (*bf16_ln(*ln1), wq, bq, wp, bp, *bf16_ln(*ln2), w1, b1, w2, b2)
+    dp = (_swin_dp(inp, dev, B), _swin_dp(inp, dev, B))
+    r1, r2 = (d.repeat_interleave(M // B)[:, None].to(bf) for d in dp)
+    xw, gw = x.view(BW, N, C), g.view(BW, N, C)
+    gather = blocks._shift_index(B, res, res, 7, 3, dev).long()
+    scatter = torch.argsort(gather)
+    for name, pat, spec in (
+            ("swin_full_block_train_store_p", rel, None),
+            ("swin_full_block_train_shift_store_p",
+             (rel + mask[:, None]).contiguous(), (res, res, 7, 3))):
+        lmask = pat.to(bf)[torch.arange(BW, device=dev) % pat.shape[0]]
+        leaves = [t_.detach().clone().requires_grad_() for t_ in params]
+        xg = xw.detach().clone().requires_grad_()
+        kw = dict(shift_spec=spec, dp=dp, store_p=True)
+        chk.case(name,
+                 lambda pat=pat, kw=kw: blocks.swin_full_block(
+                     xg, leaves, pat, sc, nH, **kw),
+                 lambda pat=pat, kw=kw: blocks.swin_full_block_plain(
+                     xg, leaves, pat, sc, nH, **kw),
+                 BLOCK_BAR,
+                 library_fn=lambda lmask=lmask, spec=spec: lib_swin_block(
+                     xw, lparams, lmask, sc, nH,
+                     None if spec is None else gather,
+                     None if spec is None else scatter, dp=(r1, r2)),
+                 flops=2.0 * M * C * 12 * C + 4.0 * BW * nH * N * N * Dh,
+                 nbytes=nbytes(x, *params, pat, *dp, x)
+                 + 2 * BW * nH * N * N)
+        check_block_grads(blocks.swin_full_block,
+                          blocks.swin_full_block_plain, xw, params, pat, gw,
+                          f"{name} (stage 384)", scale=sc, num_heads=nH,
+                          **kw)
+
+
 def launch_counts() -> dict:
     from mvlt_tpu_torch.ops import blocks, kernels
     counts = {k.__name__: k.launches for k in kernels.KERNELS}
+    for k, modes in kernels.MODE_COUNTS.items():
+        for attr in modes:
+            counts[f"{k.__name__}_{MODE_ROWS[attr]}"] = getattr(k, attr)
     for fn in blocks.COUNTERPARTS:
         counts[fn.__name__] = fn.launches
-    full = blocks.swin_full_block
-    counts.update(swin_full_block_shift=full.shift_launches,
-                  swin_full_block_train=full.train_launches,
-                  swin_full_block_train_shift=full.train_shift_launches)
+        for attr, suffix in COUNTERPART_MODES.get(fn.__name__, {}).items():
+            counts[f"{fn.__name__}_{suffix}"] = getattr(fn, attr)
     return counts
 
 
@@ -1090,9 +1401,32 @@ def reset_counts() -> None:
     from mvlt_tpu_torch.ops import blocks, kernels
     for fn in kernels.KERNELS:
         fn.launches = 0
+    for fn, modes in kernels.MODE_COUNTS.items():
+        for attr in modes:
+            setattr(fn, attr, 0)
     for fn in blocks.COUNTERPARTS:
         for c in blocks.COUNTS:
             setattr(fn, c, 0)
+
+
+@contextlib.contextmanager
+def switches(on: bool):
+    """``MVLT_KERNEL_DROPOUT`` and ``MVLT_STOREP`` set to 1 (``on``) or
+    removed, for the calls inside; the model reads them at call time."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    for k in SWITCHES:
+        if on:
+            os.environ[k] = "1"
+        else:
+            os.environ.pop(k, None)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def main() -> int:
@@ -1122,22 +1456,28 @@ def main() -> int:
     train_kernel_checks(chk, dev)
     pretrain_kernel_checks(chk, dev)
     swin_kernel_checks(chk, dev)
-    by_path = {"vqa_forward": forward_phase(dev, card),
-               "vqa_train_step": train_phase(dev, card),
-               "pretrain_train_step": pretrain_phase(dev, card),
-               "swin_pretrain_train_step": pretrain_phase(dev, card,
-                                                          swin=True)}
+    optin_kernel_checks(chk, dev)
+    with switches(False):
+        by_path = {"vqa_forward": forward_phase(dev, card),
+                   "vqa_train_step": train_phase(dev, card),
+                   "pretrain_train_step": pretrain_phase(dev, card),
+                   "swin_pretrain_train_step": pretrain_phase(dev, card,
+                                                              swin=True)}
+    by_path["swin_pretrain_switches_train_step"] = pretrain_phase(
+        dev, card, timed_steps=10, swin=True, with_switches=True)
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
 
     rows = []
     counterparts = {**EXPECTED, **EXPECTED_TRAIN, **EXPECTED_PRETRAIN,
-                    **EXPECTED_SWIN_PRETRAIN}
+                    **EXPECTED_SWITCHES}
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces})
     for name, (_, replaces) in counterparts.items():
+        if name in KERNEL_SOURCES:
+            continue
         rows.append({"name": name, "route": "cuda",
                      "source": "mvlt_tpu_torch/ops/blocks.py",
                      "replaces": replaces})
@@ -1332,14 +1672,18 @@ def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
 
 
 def pretrain_phase(dev, card: str, timed_steps: int = 6,
-                   swin: bool = False) -> dict:
+                   swin: bool = False, with_switches: bool = False) -> dict:
     """The MLM+ITM pretrain train step (ResNet-101, or with ``swin`` the
     step of record on Swin-S with DropPath 0.3, + BERT-base, S = 131, b32,
     dropout 0.1) on the kernels and on the plain versions from one seed;
     the plain run replays the DropPath and dropout masks the kernel run
     drew. Gradients from the initial parameters in both mask modes, the
     launch counts of one step, the losses of 3 steps, then step times in
-    turns. Returns the launch counts of one step."""
+    turns. With ``with_switches`` (Swin-S), all of that runs with
+    ``MVLT_KERNEL_DROPOUT`` and ``MVLT_STOREP`` set (the plain run replays
+    the kernel run's seeds as well), and the turns are the kernel step with
+    the switches off and on (off, on, on, off), each with its peak memory.
+    Returns the launch counts of one step."""
     from mvlt_tpu_torch import flagship
     from mvlt_tpu_torch.ops import kernels
     from mvlt_tpu_torch.ops.layers import DropoutMasks
@@ -1347,8 +1691,12 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     B = TRAIN_BATCH
     build = (flagship.build_swin_pretrain_train_step if swin
              else flagship.build_pretrain_train_step)
-    expected = EXPECTED_SWIN_PRETRAIN if swin else EXPECTED_PRETRAIN
+    expected = (EXPECTED_SWITCHES if with_switches
+                else EXPECTED_SWIN_PRETRAIN if swin else EXPECTED_PRETRAIN)
     label = "Swin-S pretrain step" if swin else "pretrain step"
+    if with_switches:
+        label += " with MVLT_KERNEL_DROPOUT=1 MVLT_STOREP=1"
+    gc.collect()          # a step refers to itself: free the last phase's
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     step_k, batch = build(batch=B, text_len=PRETRAIN_TEXT, device=dev)
@@ -1367,46 +1715,48 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
         return DropoutMasks(gen, record=True)
 
     keys = ("image", "caption_masked", "caption_label", "itm_label")
-    for seq2seq in (False, True):
-        masks = recording()
-        for model, b, plain, src in (
-                (step_k.model, batch, False, masks),
-                (step_p.model, batch_p, True, None)):
-            model.zero_grad(set_to_none=True)
-            src = src or DropoutMasks.replay(masks.recorded)
-            loss, _ = model.loss(*(b[k] for k in keys), seq2seq=seq2seq,
-                                 plain=plain, masks=src)
-            loss.backward()
-        torch.cuda.synchronize()
-        compare_grads(step_k.model, step_p.model,
-                      f"{label} initial gradients "
-                      f"({'seq2seq' if seq2seq else 'bidirectional'})",
-                      swin_bars if swin else resnet_bars)
-        del masks
-
     losses, counts = {"kernels": [], "plain": []}, None
-    for i, seq2seq in enumerate(PRETRAIN_MODES):
-        step_k.masks = recording()
-        if i == 0:
-            reset_counts()
-        out_k = step_k(batch, seq2seq)
-        torch.cuda.synchronize()
-        if i == 0:
-            counts = launch_counts()
-            print(f"launches in one {label}: {json.dumps(counts)}",
-                  flush=True)
-            for name, (want, _) in expected.items():
-                if counts[name] != want:
-                    raise AssertionError(f"{name} ran {counts[name]} times in "
-                                         f"one {label}, expected {want}")
-            for k in kernels.KERNELS:
-                if counts[k.__name__] <= 0:
-                    raise AssertionError(f"kernel {k.__name__} never launched "
-                                         f"in the {label}")
-        step_p.masks = DropoutMasks.replay(step_k.masks.recorded)
-        out_p = step_p(batch_p, seq2seq)
-        losses["kernels"].append({k: v.item() for k, v in out_k.items()})
-        losses["plain"].append({k: v.item() for k, v in out_p.items()})
+    with switches(with_switches):
+        for seq2seq in (False, True):
+            masks = recording()
+            for model, b, plain, src in (
+                    (step_k.model, batch, False, masks),
+                    (step_p.model, batch_p, True, None)):
+                model.zero_grad(set_to_none=True)
+                src = src or DropoutMasks.replay(masks.recorded)
+                loss, _ = model.loss(*(b[k] for k in keys), seq2seq=seq2seq,
+                                     plain=plain, masks=src)
+                loss.backward()
+            torch.cuda.synchronize()
+            compare_grads(step_k.model, step_p.model,
+                          f"{label} initial gradients "
+                          f"({'seq2seq' if seq2seq else 'bidirectional'})",
+                          swin_bars if swin else resnet_bars)
+            del masks
+
+        for i, seq2seq in enumerate(PRETRAIN_MODES):
+            step_k.masks = recording()
+            if i == 0:
+                reset_counts()
+            out_k = step_k(batch, seq2seq)
+            torch.cuda.synchronize()
+            if i == 0:
+                counts = launch_counts()
+                print(f"launches in one {label}: {json.dumps(counts)}",
+                      flush=True)
+                for name, (want, _) in expected.items():
+                    if counts[name] != want:
+                        raise AssertionError(
+                            f"{name} ran {counts[name]} times in one "
+                            f"{label}, expected {want}")
+                for k in kernels.KERNELS:
+                    if counts[k.__name__] <= 0:
+                        raise AssertionError(f"kernel {k.__name__} never "
+                                             f"launched in the {label}")
+            step_p.masks = DropoutMasks.replay(step_k.masks.recorded)
+            out_p = step_p(batch_p, seq2seq)
+            losses["kernels"].append({k: v.item() for k, v in out_k.items()})
+            losses["plain"].append({k: v.item() for k, v in out_p.items()})
     print(f"losses of {len(PRETRAIN_MODES)} steps (seq2seq "
           f"{list(PRETRAIN_MODES)}): {json.dumps(losses)}", flush=True)
     for i, (lk, lp) in enumerate(zip(losses["kernels"], losses["plain"])):
@@ -1416,32 +1766,46 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
                 raise AssertionError(f"step {i + 1} {name} {a} vs plain {b} "
                                      f"beyond {LOSS_BAR} relative")
 
-    times, peak, resident = {"kernels": [], "plain": []}, None, None
-    for which in ("plain", "kernels", "kernels", "plain"):
-        step, b = (step_k, batch) if which == "kernels" else (step_p, batch_p)
-        step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
-        flips = torch.Generator().manual_seed(0)
-        step(b, seq2seq_coin_flip(flips))
-        torch.cuda.synchronize()
-        measure = which == "kernels" and peak is None
-        if measure:
-            resident = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(timed_steps):
+    # turns: plain vs kernels, or the kernel step with the switches off / on
+    turns = (("off", "on", "on", "off") if with_switches
+             else ("plain", "kernels", "kernels", "plain"))
+    times = {t: [] for t in turns}
+    peak, resident = {}, {}
+    for which in turns:
+        step, b = (step_p, batch_p) if which == "plain" else (step_k, batch)
+        with switches(which == "on"):
+            step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
+            flips = torch.Generator().manual_seed(0)
             step(b, seq2seq_coin_flip(flips))
-        torch.cuda.synchronize()
-        times[which].append((time.perf_counter() - t0) * 1e3 / timed_steps)
-        if measure:
-            peak = torch.cuda.max_memory_allocated()
-    ms_k = sum(times["kernels"]) / 2
-    ms_p = sum(times["plain"]) / 2
-    print(f"MLM+ITM {label} b{B} (S = 131) on {card}: kernels "
-          f"{ms_k:.3f} ms/step ({B * 1e3 / ms_k:.1f} samples/s), plain "
-          f"{ms_p:.3f} ms/step ({B * 1e3 / ms_p:.1f} samples/s); runs "
-          f"{json.dumps(times)}; peak memory in a kernel step "
-          f"{peak / 2 ** 30:.3f} GiB (with {resident / 2 ** 30:.3f} GiB "
-          "resident, both models)", flush=True)
+            torch.cuda.synchronize()
+            measure = which != "plain" and which not in peak
+            if measure:
+                resident[which] = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(timed_steps):
+                step(b, seq2seq_coin_flip(flips))
+            torch.cuda.synchronize()
+            times[which].append((time.perf_counter() - t0) * 1e3 / timed_steps)
+            if measure:
+                peak[which] = torch.cuda.max_memory_allocated()
+    ms = {t: sum(v) / len(v) for t, v in times.items()}
+    gib = {t: f"{v / 2 ** 30:.3f} GiB (with {resident[t] / 2 ** 30:.3f} GiB "
+              "resident, both models)" for t, v in peak.items()}
+    if with_switches:
+        print(f"MLM+ITM Swin-S pretrain step b{B} (S = 131) on {card}, "
+              f"kernels: switches off {ms['off']:.3f} ms/step "
+              f"({B * 1e3 / ms['off']:.1f} samples/s), on {ms['on']:.3f} "
+              f"ms/step ({B * 1e3 / ms['on']:.1f} samples/s); runs "
+              f"{json.dumps(times)}; peak memory off {gib['off']}, on "
+              f"{gib['on']}", flush=True)
+    else:
+        ms_k, ms_p = ms["kernels"], ms["plain"]
+        print(f"MLM+ITM {label} b{B} (S = 131) on {card}: kernels "
+              f"{ms_k:.3f} ms/step ({B * 1e3 / ms_k:.1f} samples/s), plain "
+              f"{ms_p:.3f} ms/step ({B * 1e3 / ms_p:.1f} samples/s); runs "
+              f"{json.dumps(times)}; peak memory in a kernel step "
+              f"{gib['kernels']}", flush=True)
     return counts
 
 

@@ -12,6 +12,18 @@
 // attention-dropout mask, 0 or 1/keep, bf16) before p is rounded to bf16 for
 // the PV product: the interpret path of `_attn_ln_kernel` :2220-2233.
 //
+// Two opt-in modes, neither with shared memory of its own:
+// (a) in-kernel dropout (`fused_attn_ln_adrop` :2770, `_adrop_mask` :2133):
+//     from a (2,) int32 seed in device memory, the kernel draws the mask of
+//     element (g, h, i, j) with Philox (philox.cuh; g is the absolute sample)
+//     and multiplies the f32 softmax by it (0 or f32(1/keep)) where amask
+//     enters; `mask_out` (G, nH, N, N) f32, when given, receives the mask it
+//     drew (`save_amask` :2161, a debug output);
+// (b) stored p (`_full_kernel_save_p` :774 and the other `_save_p` kernels):
+//     `p_out` (G, nH, N, N) receives the normalised softmax (exact divide,
+//     before any dropout mask) rounded to bf16, the p that the PV product
+//     uses, for K4's stored-p backward.
+//
 // Replaces the attention core of the TPU kernels in
 // mvlt_tpu/ops/pallas_attn.py: `_attend` as called from `_full_body`
 // (`_full_kernel`, `_full_shift_kernel`), `_block_kernel` and
@@ -33,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -51,8 +65,9 @@ static_assert(smem_bytes(MAX_N, MAX_DH) <= H100_SMEM_OPTIN && smem_bytes(MAX_N +
 __global__ void __launch_bounds__(THREADS)
 attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ pattern,
                  const float* __restrict__ kbias, const float* __restrict__ qbias,
-                 const __nv_bfloat16* __restrict__ amask, __nv_bfloat16* __restrict__ ctx, int N, int C,
-                 int Dh, int P, float scale) {
+                 const __nv_bfloat16* __restrict__ amask, const int* __restrict__ seed, uint32_t thresh,
+                 float kept, __nv_bfloat16* __restrict__ ctx, __nv_bfloat16* __restrict__ p_out,
+                 float* __restrict__ mask_out, int N, int C, int Dh, int P, float scale) {
   extern __shared__ __align__(16) float sm[];
   const int ldk = Dh + 1;  // odd row stride: threads on consecutive keys hit distinct banks
   const int lds = N + 1;
@@ -93,10 +108,14 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict_
   }
   __syncthreads();
 
-  // one warp per row: max-subtracted softmax, exact divide, the dropout mask
-  // in f32, then p rounded to bf16
+  // one warp per row: max-subtracted softmax, exact divide, (b) the stored
+  // p, the dropout mask in f32 (given, or (a) drawn), then p rounded to bf16
   const int lane = tid & 31;
-  const __nv_bfloat16* am = amask ? amask + ((size_t)g * nH + h) * N * N : nullptr;
+  const size_t tile = ((size_t)g * nH + h) * N * N;
+  const __nv_bfloat16* am = amask ? amask + tile : nullptr;
+  __nv_bfloat16* po = p_out ? p_out + tile : nullptr;
+  float* mo = mask_out ? mask_out + tile : nullptr;
+  const uint32_t key = seed ? mvlt::adrop_key(seed) : 0u;
   for (int i = tid >> 5; i < N; i += THREADS / 32) {
     float* srow = S + i * lds;
     float mx = -INFINITY;
@@ -111,7 +130,13 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict_
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
     for (int j = lane; j < N; j += 32) {
       float p = srow[j] / sum;
+      if (po) po[i * N + j] = __float2bfloat16(p);
       if (am) p *= __bfloat162float(am[i * N + j]);
+      if (seed) {
+        const float m = mvlt::adrop_keep(key, g, h, (uint32_t)(i * N + j), thresh) ? kept : 0.f;
+        if (mo) mo[i * N + j] = m;
+        p *= m;
+      }
       srow[j] = __bfloat162float(__float2bfloat16(p));
     }
   }
@@ -146,11 +171,16 @@ extern "C" int mvlt_smem_optin(void) { return smem_optin(); }
 extern "C" long long mvlt_attention_smem(int N, int Dh) { return (long long)smem_bytes(N, Dh); }
 
 // pattern (P, nH, N, N) f32, kbias (G, N) f32, qbias (G, N, N) f32 and amask (G, nH, N, N) bf16 may
-// each be null.
+// each be null. seed: null, or (2,) int32 16-bit halves for mode (a), which keeps an element iff its
+// Philox word < thresh and then multiplies by kept; amask must be null with it, and nH <= 256.
+// p_out (G, nH, N, N) bf16 (mode (b)) and mask_out (G, nH, N, N) f32 (mode (a) only) may be null.
 extern "C" int mvlt_attention(const void* qkv, const void* pattern, const void* kbias, const void* qbias,
-                              const void* amask, void* ctx, int G, int N, int C, int nH, int P, float scale,
-                              void* stream) {
+                              const void* amask, const void* seed, void* ctx, void* p_out, void* mask_out,
+                              int G, int N, int C, int nH, int P, float scale, unsigned int thresh,
+                              float kept, void* stream) {
   if (N < 1 || nH < 1 || C % nH != 0 || C / nH > MAX_DH) return (int)cudaErrorInvalidValue;
+  if (seed != nullptr && (amask != nullptr || nH > 256)) return (int)cudaErrorInvalidValue;
+  if (mask_out != nullptr && seed == nullptr) return (int)cudaErrorInvalidValue;
   const int Dh = C / nH;
   const size_t smem = smem_bytes(N, Dh);
   const int optin = smem_optin();
@@ -166,6 +196,8 @@ extern "C" int mvlt_attention(const void* qkv, const void* pattern, const void* 
   attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(pattern),
       static_cast<const float*>(kbias), static_cast<const float*>(qbias),
-      static_cast<const __nv_bfloat16*>(amask), static_cast<__nv_bfloat16*>(ctx), N, C, Dh, P, scale);
+      static_cast<const __nv_bfloat16*>(amask), static_cast<const int*>(seed), thresh, kept,
+      static_cast<__nv_bfloat16*>(ctx), static_cast<__nv_bfloat16*>(p_out), static_cast<float*>(mask_out), N, C,
+      Dh, P, scale);
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,18 @@
 // share a relative-position / shift-mask pattern), in f32. p (unmasked)
 // enters ds and pa enters dv, as at pallas_attn.py:2482-2501.
 //
+// Two opt-in modes, neither with shared memory of its own (K4 uses 207,504
+// of the 232,448 bytes at N = 131, head dim 64; N = 141 stays refused):
+// (a) regenerated dropout (`_seq_core_bwd_kernel` with `adrop_rate`, :2485):
+//     the mask is redrawn from the (2,) int32 device seed with K2's Philox
+//     stream (philox.cuh), bit for bit, where amask enters: in dp and in pa;
+// (b) stored p (`_core_bwd_storep_kernel` :3859 and `_core_bwd_from_p`
+//     :3747-3770): p (G, nH, N, N) bf16, saved by K2's mode (b), is read
+//     into the p tile in place of the QK^T recompute and the exp; dv takes
+//     the bf16 p and ds = p * dp - p * rowsum(p * dp) runs in f32 from it.
+//     The key bias and the patterns no longer enter p; dkbias and the
+//     fixed-order pattern sums are written as before.
+//
 // Bound: about 5 N^2 Dh multiply-adds per (g, h) against one read of the
 // block's q, k, v, dctx (and the masks) and one write of dq, dk, dv: at
 // N = 131, Dh = 64 that is ~50 flop per byte, so on the tensor cores this
@@ -48,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -71,7 +85,9 @@ __global__ void __launch_bounds__(THREADS)
 attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dctx,
                      const float* __restrict__ pattern, const float* __restrict__ kbias,
                      const float* __restrict__ qbias, const __nv_bfloat16* __restrict__ amask,
-                     __nv_bfloat16* __restrict__ dqkv, float* __restrict__ dkb_part,
+                     const int* __restrict__ seed, uint32_t thresh, float kept,
+                     const __nv_bfloat16* __restrict__ pstore, __nv_bfloat16* __restrict__ dqkv,
+                     float* __restrict__ dkb_part,
                      float* __restrict__ dpat_part, int N, int C, int Dh, int P, int per, int wpb, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldb = Dh + 2;  // bf16 row
@@ -92,6 +108,7 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16*
   const int ld = 3 * C;
   const int hd = Dh / 2;  // bf16 pairs in a head row
   const float* pb = pattern ? pattern + ((size_t)pat * nH + h) * N * N : nullptr;
+  const uint32_t key = seed ? mvlt::adrop_key(seed) : 0u;
   if (pattern)
     for (int e = tid; e < N * N; e += THREADS) A[e] = 0.f;
 
@@ -112,60 +129,82 @@ attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16*
     }
     __syncthreads();
 
-    // scores and dp = (dctx v^T) * amask
+    // scores (or (b) the stored p) and dp = (dctx v^T) * mask
     const float* kb = kbias ? kbias + (size_t)g * N : nullptr;
     const float* qb = qbias ? qbias + (size_t)g * N * N : nullptr;
-    const __nv_bfloat16* am = amask ? amask + ((size_t)g * nH + h) * N * N : nullptr;
+    const size_t tile = ((size_t)g * nH + h) * N * N;
+    const __nv_bfloat16* am = amask ? amask + tile : nullptr;
+    const __nv_bfloat16* ps = pstore ? pstore + tile : nullptr;
+    const bool masked = am != nullptr || seed != nullptr;
     for (int e = tid; e < N * N; e += THREADS) {
       int i = e / N, j = e % N;
-      const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(Q + i * ldb);
-      const __nv_bfloat162* k = reinterpret_cast<const __nv_bfloat162*>(K + j * ldb);
       const __nv_bfloat162* dc = reinterpret_cast<const __nv_bfloat162*>(D + i * ldb);
       const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(V + j * ldb);
-      float sc = 0.f, dp = 0.f;
-      for (int d = 0; d < hd; ++d) {
-        float2 qf = __bfloat1622float2(q[d]), kf = __bfloat1622float2(k[d]);
-        float2 cf = __bfloat1622float2(dc[d]), vf = __bfloat1622float2(v[d]);
-        sc = fmaf(qf.x * scale, kf.x, sc);
-        sc = fmaf(qf.y * scale, kf.y, sc);
-        dp = fmaf(cf.x, vf.x, dp);
-        dp = fmaf(cf.y, vf.y, dp);
+      float dp = 0.f;
+      if (ps) {
+        for (int d = 0; d < hd; ++d) {
+          float2 cf = __bfloat1622float2(dc[d]), vf = __bfloat1622float2(v[d]);
+          dp = fmaf(cf.x, vf.x, dp);
+          dp = fmaf(cf.y, vf.y, dp);
+        }
+        Pm[i * lds + j] = __bfloat162float(ps[e]);
+      } else {
+        const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(Q + i * ldb);
+        const __nv_bfloat162* k = reinterpret_cast<const __nv_bfloat162*>(K + j * ldb);
+        float sc = 0.f;
+        for (int d = 0; d < hd; ++d) {
+          float2 qf = __bfloat1622float2(q[d]), kf = __bfloat1622float2(k[d]);
+          float2 cf = __bfloat1622float2(dc[d]), vf = __bfloat1622float2(v[d]);
+          sc = fmaf(qf.x * scale, kf.x, sc);
+          sc = fmaf(qf.y * scale, kf.y, sc);
+          dp = fmaf(cf.x, vf.x, dp);
+          dp = fmaf(cf.y, vf.y, dp);
+        }
+        if (pb) sc += pb[e];
+        if (kb) sc += kb[j];
+        if (qb) sc += qb[e];
+        Pm[i * lds + j] = sc;
       }
-      if (pb) sc += pb[e];
-      if (kb) sc += kb[j];
-      if (qb) sc += qb[e];
       if (am) dp *= __bfloat162float(am[e]);
-      Pm[i * lds + j] = sc;
+      if (seed) dp *= mvlt::adrop_keep(key, g, h, (uint32_t)e, thresh) ? kept : 0.f;
       S[i * lds + j] = dp;
     }
     __syncthreads();
 
-    // one warp per row: p by the max-subtracted softmax with an exact divide,
-    // ds = p * dp - p * rowsum(p * dp), then Pm holds pa = p * amask
+    // one warp per row: p by the max-subtracted softmax with an exact divide
+    // (or (b) as stored), ds = p * dp - p * rowsum(p * dp), then Pm holds
+    // pa = p * mask
     for (int i = tid >> 5; i < N; i += THREADS / 32) {
       float* prow = Pm + i * lds;
       float* srow = S + i * lds;
-      float mx = -INFINITY;
-      for (int j = lane; j < N; j += 32) mx = fmaxf(mx, prow[j]);
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      float sum = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        float e = expf(prow[j] - mx);
-        prow[j] = e;
-        sum += e;
-      }
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
       float rd = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        float pv = prow[j] / sum;
-        prow[j] = pv;
-        rd = fmaf(pv, srow[j], rd);
+      if (ps) {
+        for (int j = lane; j < N; j += 32) rd = fmaf(prow[j], srow[j], rd);
+      } else {
+        float mx = -INFINITY;
+        for (int j = lane; j < N; j += 32) mx = fmaxf(mx, prow[j]);
+        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        float sum = 0.f;
+        for (int j = lane; j < N; j += 32) {
+          float e = expf(prow[j] - mx);
+          prow[j] = e;
+          sum += e;
+        }
+        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        for (int j = lane; j < N; j += 32) {
+          float pv = prow[j] / sum;
+          prow[j] = pv;
+          rd = fmaf(pv, srow[j], rd);
+        }
       }
       for (int o = 16; o > 0; o >>= 1) rd += __shfl_xor_sync(0xffffffffu, rd, o);
       for (int j = lane; j < N; j += 32) {
         float pv = prow[j];
         srow[j] = pv * srow[j] - pv * rd;
-        if (am) prow[j] = pv * __bfloat162float(am[i * N + j]);
+        if (!masked) continue;
+        const uint32_t e = (uint32_t)(i * N + j);
+        if (am) prow[j] = pv * __bfloat162float(am[e]);
+        else prow[j] = pv * (mvlt::adrop_keep(key, g, h, e, thresh) ? kept : 0.f);
       }
     }
     __syncthreads();
@@ -269,14 +308,18 @@ extern "C" int mvlt_attention_bwd_chunks(int G, int P, int nH) {
 }
 
 // pattern (P, nH, N, N) f32 with G % P == 0, kbias (G, N) f32, qbias (G, N, N) f32 and amask
-// (G, nH, N, N) bf16 may each be null. dkb_part: (G, nH, N) f32 scratch and dkbias (G, N) f32, both
-// null to skip the key-bias gradient. With a pattern, dpat_part: (chunks, P, nH, N, N) f32 scratch
-// (`mvlt_attention_bwd_chunks`) and dpattern (P, nH, N, N) f32.
+// (G, nH, N, N) bf16 may each be null. seed: null, or (2,) int32 16-bit halves for mode (a), with K2's
+// thresh and kept; amask must be null with it, and nH <= 256. pstore: null, or (G, nH, N, N) bf16 p for
+// mode (b). dkb_part: (G, nH, N) f32 scratch and dkbias (G, N) f32, both null to skip the key-bias
+// gradient. With a pattern, dpat_part: (chunks, P, nH, N, N) f32 scratch (`mvlt_attention_bwd_chunks`)
+// and dpattern (P, nH, N, N) f32.
 extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void* pattern, const void* kbias,
-                                  const void* qbias, const void* amask, void* dqkv, void* dkb_part,
-                                  void* dkbias, void* dpat_part, void* dpattern, int G, int N, int C, int nH,
-                                  int P, float scale, void* stream) {
+                                  const void* qbias, const void* amask, const void* seed, const void* pstore,
+                                  void* dqkv, void* dkb_part, void* dkbias, void* dpat_part, void* dpattern,
+                                  int G, int N, int C, int nH, int P, float scale, unsigned int thresh,
+                                  float kept, void* stream) {
   if (N < 1 || nH < 1 || C % nH != 0 || C / nH > MAX_DH || (C / nH) % 2 != 0) return (int)cudaErrorInvalidValue;
+  if (seed != nullptr && (amask != nullptr || nH > 256)) return (int)cudaErrorInvalidValue;
   if ((dkb_part == nullptr) != (dkbias == nullptr)) return (int)cudaErrorInvalidValue;
   if (pattern != nullptr && (P < 1 || G % P != 0 || dpat_part == nullptr || dpattern == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -301,7 +344,8 @@ extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void*
   attention_bwd_kernel<<<dim3(nH, stride, chunks), THREADS, smem, s>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(dctx),
       static_cast<const float*>(pattern), static_cast<const float*>(kbias), static_cast<const float*>(qbias),
-      static_cast<const __nv_bfloat16*>(amask), static_cast<__nv_bfloat16*>(dqkv), static_cast<float*>(dkb_part),
+      static_cast<const __nv_bfloat16*>(amask), static_cast<const int*>(seed), thresh, kept,
+      static_cast<const __nv_bfloat16*>(pstore), static_cast<__nv_bfloat16*>(dqkv), static_cast<float*>(dkb_part),
       static_cast<float*>(dpat_part), N, C, Dh, stride, per, wpb, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -19,7 +19,10 @@ kernels ran:
   store-residual backward. Each block with a DropPath rate above 0 draws its
   two (B,) multipliers from the step's mask source
   (:func:`~mvlt_tpu_torch.ops.layers.drop_path_multipliers`); the rates are
-  a linspace over all blocks (``swin.py:620``).
+  a linspace over all blocks (``swin.py:620``). With ``MVLT_STOREP`` set
+  (and ``MVLT_NO_STOREP`` not), a whole-block training block with >= 12
+  heads whose window-pair-merged N is <= 128 stores its softmax for the
+  backward (:func:`stores_p`; the 18 stage-3 blocks of Swin-S).
 
 The relative-position bias is built as JAX builds it, ``onehot @ table``
 (``rel_bias_from_table``, ``swin.py:67-85``), so its backward is a product and
@@ -38,6 +41,7 @@ from torch import nn
 from mvlt_tpu_torch.config import SwinConfig
 from mvlt_tpu_torch.ops.layers import (SWIN_LN_EPS, Dense, LayerNorm, Mlp,
                                        drop_path_multipliers)
+from mvlt_tpu_torch.utils.env import env_flag
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,6 +110,23 @@ def uses_half_blocks(dim: int) -> bool:
     Swin-S 224 that is stage 4 (C = 768). The port keeps this routing so that
     the flagship path runs each of the six counterparts."""
     return 12 * dim * dim * 2 > 12 * 1024 * 1024
+
+
+def stores_p(num_heads: int, N: int, n_windows: int, n_patterns: int,
+             shifted: bool) -> bool:
+    """Whether a whole-block training block stores its softmax p for the
+    backward: JAX's semantic gate (pallas_attn.py:1059-1061, 1318-1320),
+    read at call time. ``MVLT_STOREP`` set, ``MVLT_NO_STOREP`` not, at least
+    12 heads, and the window-pair-merged N at most 128: the shifted kernel
+    always merges pairs (2N); the unshifted one when ``_can_merge_pairs``
+    holds (N <= 64, an even window count, one pattern or an even number).
+    The port does not merge pairs, and JAX's VMEM admission rules, which can
+    still send a block to a route without stored p, are TPU layout choices
+    that it does not mirror (ROADMAP, section C)."""
+    merge = shifted or (N <= 64 and n_windows % 2 == 0
+                        and (n_patterns == 1 or n_patterns % 2 == 0))
+    return (num_heads >= 12 and (2 * N if merge else N) <= 128
+            and env_flag("MVLT_STOREP") and not env_flag("MVLT_NO_STOREP"))
 
 
 class SwinBlock(nn.Module):
@@ -184,11 +205,15 @@ class SwinBlock(nn.Module):
         spec = (H, W, window, shift) if shift else None
         train = dp is not None or (torch.is_grad_enabled() and any(
             t.requires_grad for t in (windows, bias, *params)))
-        if train:
-            block = (ops.swin_half_block if uses_half_blocks(C)
-                     else ops.swin_full_block)
-            y = block(windows, params, bias, self.scale, self.num_heads,
-                      shift_spec=spec, dp=dp)
+        if train and uses_half_blocks(C):
+            y = ops.swin_half_block(windows, params, bias, self.scale,
+                                    self.num_heads, shift_spec=spec, dp=dp)
+        elif train:
+            store = stores_p(self.num_heads, window * window,
+                             windows.shape[0], bias.shape[0], bool(shift))
+            y = ops.swin_full_block(windows, params, bias, self.scale,
+                                    self.num_heads, shift_spec=spec, dp=dp,
+                                    store_p=store)
         elif uses_half_blocks(C):
             y = self._half_blocks(windows, bias, ops)
         else:

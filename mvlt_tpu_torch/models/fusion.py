@@ -10,7 +10,11 @@ then its MLP half, with q / k / v held as one fused (3H, H) dense
 (fusion.py:122-126), routed as the JAX kernel gates route them
 (fusion.py:113-179, 236-262): ``fused_attn_ln`` / ``fused_mlp_ln`` when
 nothing is masked, ``fused_attn_ln_masked`` when a dropout mask or the
-seq2seq bias is live, ``fused_mlp_ln_masked`` under hidden dropout.
+seq2seq bias is live, ``fused_mlp_ln_masked`` under hidden dropout, and
+``fused_attn_ln_adrop`` when ``MVLT_KERNEL_DROPOUT`` is set, the compute
+dtype is bf16 and attention dropout is on in training (fusion.py:143-150):
+the layer then draws a (2,) seed in place of the attention-dropout mask
+and the kernels draw the mask themselves.
 
 Masks. The bidirectional mode adds the (B, S) key-padding bias; the seq2seq
 (UniLM) mode adds a (B, S, S) per-query bias and no key bias (JAX passes a
@@ -18,7 +22,8 @@ zero key bias there, fusion.py:130-132; adding nothing is the same), and
 ignores text padding, as the reference does. In training (a mask source
 given) each layer draws, in JAX's order, the attention-dropout mask
 (B, nH, S, S), the attention output's hidden-dropout mask (B, S, H) and the
-MLP output's (B, S, H), each only where its rate is above 0.
+MLP output's (B, S, H), each only where its rate is above 0 (with in-kernel
+dropout the seed takes the attention mask's place in that order).
 
 Dense weights and embeddings are cast to the compute dtype at every use (as
 the JAX layers do with ``.astype(cdt)``), so a model whose parameters are
@@ -35,6 +40,7 @@ from torch import nn
 from mvlt_tpu_torch.config import FusionConfig
 from mvlt_tpu_torch.ops import masks as mask_lib
 from mvlt_tpu_torch.ops.layers import Dense, LayerNorm
+from mvlt_tpu_torch.utils.env import env_flag
 
 
 class EncoderLayer(nn.Module):
@@ -69,10 +75,20 @@ class EncoderLayer(nn.Module):
                 return None
             return masks.scaled(1.0 - rate, shape, dt, hidden.device)
 
-        amask = mask(self.attn_dropout, (B, self.num_heads, S, S))
+        # in-kernel attention dropout: JAX's gate, read at call time
+        adrop = (masks is not None and self.attn_dropout > 0.0
+                 and dt == torch.bfloat16 and env_flag("MVLT_KERNEL_DROPOUT"))
+        seed = masks.seed(hidden.device) if adrop else None
+        amask = None if adrop else mask(self.attn_dropout,
+                                        (B, self.num_heads, S, S))
         hmask = mask(self.hidden_dropout, (B, S, H))
         ln1 = (self.out_layernorm.weight, self.out_layernorm.bias)
-        if qbias is None and amask is None and hmask is None:
+        if adrop:
+            h = ops.fused_attn_ln_adrop(hidden, *w(self.qkv), *w(self.out),
+                                        kbias, qbias, hmask, *ln1, seed,
+                                        self.scale, self.num_heads,
+                                        self.attn_dropout, self.eps)
+        elif qbias is None and amask is None and hmask is None:
             h = ops.fused_attn_ln(hidden, *w(self.qkv), *w(self.out), kbias,
                                   *ln1, self.scale, self.num_heads, self.eps)
         else:

@@ -38,6 +38,18 @@ port function                TPU kernel it replaces
                              on K4's pattern mode
 ``swin_mlp_half_bwd``        ``_swin_mlp_bwd_kernel`` (:1618), K1 + K3 + K5
 ``swin_qkv_tail_bwd``        ``_swin_qkv_tail_kernel`` (:1787), K1 + K3 + K5
+``fused_attn_ln_adrop``      ``_attn_ln_kernel`` with ``adrop_rate``
+                             (entry ``fused_attn_ln_adrop`` :2770,
+                             ``_adrop_mask`` :2133), on K1 + K2(adrop) +
+                             K1 + K3; backward ``_seq_core_bwd_kernel``
+                             with ``adrop_rate`` (:2485) on K4(adrop)
+``swin_full_block(store_p)`` ``_full_kernel_save_p`` / ``_dp_save_p``
+                             (:774, :791) on K2(save_p)
+``... (shift_spec, store_p)``  ``_full_shift_kernel_save_p`` /
+                             ``_dp_save_p`` (:896, :928)
+``attention_core_bwd(p2=)``  ``_core_bwd_storep_kernel`` (:3859, entry
+                             ``attention_core_bwd_flat`` :3898 with
+                             ``p2``), on K4(stored p)
 ===========================  ==========================================
 
 The masked twins take the dropout masks as inputs, as the JAX kernels do
@@ -84,6 +96,16 @@ relative-position table takes its sum through the autograd of the bias. The
 DropPath multipliers are (B,) f32, one per image, which K1 and K5 index by
 ``row // (M // B)``: the shifted layout moves rows only within an image.
 
+Opt-in modes (the JAX package's switches, routed by the model). In-kernel
+attention dropout (``MVLT_KERNEL_DROPOUT``): ``fused_attn_ln_adrop`` takes a
+(2,) int32 device seed and the rate in place of amask; K2 draws the mask
+with Philox and K4 regenerates it from the saved seed, so no mask tensor is
+made or stored. Stored softmax (``MVLT_STOREP``): ``swin_full_block(...,
+store_p=True)`` under autograd has K2 write p (bf16, (BW, nH, N, N)) in the
+window order in which qkv and ctx are kept (shifted when shifted), and the
+backward hands it to ``attention_core_bwd(p2=...)`` (K4 from the stored p)
+unless ``MVLT_NO_STOREP`` is set by then.
+
 They hold the math of the JAX interpret path (``fast=False``), not the TPU
 fast path. The TPU layout choices are dropped: windows are not merged into
 pairs, rows are not padded to multiples of 8, and no VMEM admission rule
@@ -108,6 +130,7 @@ import torch
 
 from mvlt_tpu_torch.ops import kernels
 from mvlt_tpu_torch.ops.layers import SWIN_LN_EPS
+from mvlt_tpu_torch.utils.env import env_flag
 
 # What a forward runs: the kernels, or the same composition on their plain
 # versions. The counterparts below are added to both namespaces.
@@ -157,10 +180,10 @@ def _shift_index(n_img: int, H: int, W: int, window: int, shift: int,
 
 
 def _swin_full_block(p, x, params, bias, scale: float, num_heads: int, *,
-                     shift_spec=None, dp=None):
+                     shift_spec=None, dp=None, store_p: bool = False):
     if _swin_trains(x, params, bias, dp):
         return _swin_train(p, x, params, bias, scale, num_heads, shift_spec,
-                           dp, half=False)
+                           dp, half=False, store_p=store_p)
     BW, N, C = x.shape
     (ln1s, ln1b, wqkv, bqkv, wproj, bproj,
      ln2s, ln2b, w1, b1, w2, b2) = params
@@ -218,18 +241,24 @@ def _swin_trains(x, params, bias, dp) -> bool:
 
 
 def _swin_train_forward(p, rows, params, bias, scale, num_heads, N, idx, dp,
-                        half):
+                        half, store_p=False):
     """The training forward on (M, C) raw rows; returns (out (M, C) in
-    ``rows.dtype``, unshifted; qkv and ctx in the (shifted) window layout)."""
+    ``rows.dtype``, unshifted; qkv and ctx in the (shifted) window layout;
+    with ``store_p`` the softmax (BW, nH, N, N) in that layout, else
+    None)."""
     (ln1s, ln1b, wqkv, bqkv, wproj, bproj,
      ln2s, ln2b, w1, b1, w2, b2) = params
     dp1, dp2 = (None, None) if dp is None else dp
     C = rows.shape[1]
     h = p.layernorm(rows, ln1s, ln1b, SWIN_LN_EPS, row_index=idx)
     qkv = p.gemm(h, wqkv, bqkv)
+    pst = None
     if half:
         ctx = p.attention_core(qkv.view(-1, N, 3 * C), bias, scale,
                                num_heads).view(-1, C)
+    elif store_p:
+        ctx, pst = p.attention(qkv, num_heads, N, scale, pattern=bias,
+                               save_p=True)
     else:
         ctx = p.attention(qkv, num_heads, N, scale, pattern=bias)
     res1 = p.gemm(ctx, wproj, bproj, residual=rows, residual_index=idx,
@@ -238,30 +267,34 @@ def _swin_train_forward(p, rows, params, bias, scale, num_heads, N, idx, dp,
     m = p.gemm(h2, w1, b1, gelu=True)
     out = p.gemm(m, w2, b2, residual=res1, row_scale=dp2, store_index=idx,
                  out_dtype=rows.dtype)
-    return out, qkv, ctx
+    return out, qkv, ctx, pst
 
 
 class _SwinBlock(torch.autograd.Function):
     """The Swin block's training forward with the store-residual backward
-    (``_full_fwd`` / ``_swin_half_block_fwd`` and ``_stored_block_bwd``)."""
+    (``_full_fwd`` / ``_swin_half_block_fwd`` and ``_stored_block_bwd``);
+    with ``store_p`` the forward also saves the softmax and the backward
+    starts from it (``_full_kernel_save_p``, ``attention_core_bwd_flat``'s
+    ``p2`` path)."""
 
     @staticmethod
     def forward(ctx, p, x, bias, dp1, dp2, scale, num_heads, shift_spec, half,
-                *params):
+                store_p, *params):
         BW, N, C = x.shape
         rows = x.reshape(BW * N, C).contiguous()
         idx = _block_shift_index(BW * N, shift_spec, x.device)
         dp = None if dp1 is None else (dp1, dp2)
-        out, qkv, cx = _swin_train_forward(p, rows, params, bias, scale,
-                                           num_heads, N, idx, dp, half)
-        ctx.save_for_backward(rows, bias, dp1, dp2, qkv, cx, *params)
+        out, qkv, cx, pst = _swin_train_forward(p, rows, params, bias, scale,
+                                                num_heads, N, idx, dp, half,
+                                                store_p)
+        ctx.save_for_backward(rows, bias, dp1, dp2, qkv, cx, pst, *params)
         ctx.p, ctx.dims = p, (BW, N, C, scale, num_heads, idx)
         return out.view(BW, N, C)
 
     @staticmethod
     def backward(ctx, g):
         p, (BW, N, C, scale, num_heads, idx) = ctx.p, ctx.dims
-        rows, bias, dp1, dp2, qkv, cx, *params = ctx.saved_tensors
+        rows, bias, dp1, dp2, qkv, cx, pst, *params = ctx.saved_tensors
         (ln1s, ln1b, wqkv, bqkv, wproj, bproj,
          ln2s, ln2b, w1, b1, w2, b2) = params
         f32 = torch.float32
@@ -275,8 +308,11 @@ class _SwinBlock(torch.autograd.Function):
                                       w1, b1, w2, dp)
         dwproj = p.gemm(da, cx, layout="tn", out_dtype=f32)
         dctx = p.gemm(da, wproj, layout="nn")
+        # the kill switch is read again here, as attention_core_bwd_flat
+        # reads it (pallas_attn.py:3943)
+        p2 = None if pst is None or env_flag("MVLT_NO_STOREP") else pst
         dqkv, dbias = p.attention_core_bwd(qkv, dctx, bias, N, scale,
-                                           num_heads)
+                                           num_heads, p2=p2)
         dx, dwqkv, dbqkv, dln1s, dln1b = p.swin_qkv_tail_bwd(
             xs, dqkv, dres1, wqkv, ln1s, ln1b)
         if idx is not None:                     # back to the unshifted rows
@@ -287,7 +323,7 @@ class _SwinBlock(torch.autograd.Function):
                  dw1, db1, dw2, db2)
         return (None, dx.view(BW, N, C),
                 dbias if ctx.needs_input_grad[2] else None,
-                None, None, None, None, None, None,
+                None, None, None, None, None, None, None,
                 *(_cast(d, w) for d, w in zip(grads, params)))
 
 
@@ -298,16 +334,18 @@ def _block_shift_index(M: int, shift_spec, device):
     return _shift_index(M // (H * W), H, W, window, shift, device)
 
 
-def _swin_train(p, x, params, bias, scale, num_heads, shift_spec, dp, half):
+def _swin_train(p, x, params, bias, scale, num_heads, shift_spec, dp, half,
+                store_p=False):
+    """The training form; p is stored only where a backward will read it."""
     dp1, dp2 = (None, None) if dp is None else dp
     if _needs_grad(x, bias, *params):
         return _SwinBlock.apply(p, x, bias, dp1, dp2, scale, num_heads,
-                                shift_spec, half, *params)
+                                shift_spec, half, store_p, *params)
     BW, N, C = x.shape
     rows = x.reshape(BW * N, C)
     idx = _block_shift_index(BW * N, shift_spec, x.device)
-    out, _, _ = _swin_train_forward(p, rows, params, bias, scale, num_heads,
-                                    N, idx, dp, half)
+    out, _, _, _ = _swin_train_forward(p, rows, params, bias, scale,
+                                       num_heads, N, idx, dp, half)
     return out.view(BW, N, C)
 
 
@@ -325,9 +363,9 @@ def _attention_core(p, qkv, bias, scale: float, num_heads: int):
 
 
 def _attention_core_bwd(p, qkv2, dctx2, bias, n: int, scale: float,
-                        num_heads: int):
+                        num_heads: int, p2=None):
     dqkv2, _, dbias = p.attention_bwd(qkv2, dctx2, num_heads, n, scale,
-                                      pattern=bias)
+                                      pattern=bias, p=p2)
     return dqkv2, dbias
 
 
@@ -366,31 +404,34 @@ def _swin_qkv_tail_bwd(p, x2, dqkv2, dres1, wqkv, ln1s, ln1b,
 
 
 class _AttnLN(torch.autograd.Function):
-    """``fused_attn_ln`` / ``fused_attn_ln_masked`` with the store-residual
-    backward (``_attn_ln_bwd_stored``, bf16 branch :2653-2672)."""
+    """``fused_attn_ln`` / ``fused_attn_ln_masked`` / ``fused_attn_ln_adrop``
+    with the store-residual backward (``_attn_ln_bwd_stored``, bf16 branch
+    :2653-2672). With in-kernel dropout it saves the (2,) seed, not a
+    mask."""
 
     @staticmethod
     def forward(ctx, p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, amask,
-                hmask, lns, lnb, scale, num_heads, eps):
+                hmask, lns, lnb, seed, rate, scale, num_heads, eps):
         B, N, C = x.shape
         rows = x.reshape(B * N, C).contiguous()
         hm = _rows2(hmask)
+        adrop = None if seed is None else (seed, rate)
         qkv = p.gemm(rows, wqkv, bqkv)
         attn = p.attention(qkv, num_heads, N, scale, key_bias=kbias,
-                           qbias=qbias, amask=amask)
+                           qbias=qbias, amask=amask, adrop=adrop)
         res = p.gemm(attn, wproj, bproj, residual=rows, emask=hm,
                      out_dtype=torch.float32)
         out = p.layernorm(res, lns, lnb, eps, out_dtype=x.dtype)
         ctx.save_for_backward(rows, wqkv, bqkv, wproj, bproj, kbias, qbias,
-                              amask, hm, lns, qkv, attn, res)
-        ctx.p, ctx.dims = p, (B, N, C, scale, num_heads, eps)
+                              amask, hm, lns, qkv, attn, res, seed)
+        ctx.p, ctx.dims = p, (B, N, C, scale, num_heads, eps, rate)
         return out.view(B, N, C)
 
     @staticmethod
     def backward(ctx, g):
-        p, (B, N, C, scale, num_heads, eps) = ctx.p, ctx.dims
+        p, (B, N, C, scale, num_heads, eps, rate) = ctx.p, ctx.dims
         (rows, wqkv, bqkv, wproj, bproj, kbias, qbias, amask, hm, lns, qkv,
-         attn, res) = ctx.saved_tensors
+         attn, res, seed) = ctx.saved_tensors
         f32 = torch.float32
         g2 = g.reshape(B * N, C).to(rows.dtype).contiguous()
         # da = dres * hmask feeds the proj products and dbproj; the residual
@@ -401,7 +442,7 @@ class _AttnLN(torch.autograd.Function):
         dctx = p.gemm(da, wproj, layout="nn")
         dqkv, dkbias = p.seq_attention_core_bwd(
             qkv.view(B, N, 3 * C), dctx.view(B, N, C), kbias, qbias, amask,
-            scale, num_heads)
+            scale, num_heads, adrop=None if seed is None else (seed, rate))
         dqkv = dqkv.reshape(B * N, 3 * C)
         dwqkv = p.gemm(dqkv, rows, layout="tn", out_dtype=f32)
         dbqkv = p.column_sum(dqkv) if bqkv is not None else None
@@ -410,7 +451,7 @@ class _AttnLN(torch.autograd.Function):
         return (None, dx.view(B, N, C), _cast(dwqkv, wqkv), _cast(dbqkv, bqkv),
                 _cast(dwproj, wproj), _cast(dbproj, bproj),
                 dkbias if ctx.needs_input_grad[6] else None, None, None, None,
-                dlns, dlnb, None, None, None)
+                dlns, dlnb, None, None, None, None, None)
 
 
 class _MlpLN(torch.autograd.Function):
@@ -441,15 +482,17 @@ class _MlpLN(torch.autograd.Function):
 
 
 def _attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, amask, hmask,
-             lns, lnb, scale, num_heads, eps):
+             lns, lnb, scale, num_heads, eps, adrop=None):
     if _needs_grad(x, wqkv, bqkv, wproj, bproj, lns, lnb):
+        seed, rate = (None, 0.0) if adrop is None else adrop
         return _AttnLN.apply(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias,
-                             amask, hmask, lns, lnb, scale, num_heads, eps)
+                             amask, hmask, lns, lnb, seed, rate, scale,
+                             num_heads, eps)
     B, N, C = x.shape
     rows = x.reshape(B * N, C)
     qkv = p.gemm(rows, wqkv, bqkv)
     ctx = p.attention(qkv, num_heads, N, scale, key_bias=kbias, qbias=qbias,
-                      amask=amask)
+                      amask=amask, adrop=adrop)
     res = p.gemm(ctx, wproj, bproj, residual=rows, emask=_rows2(hmask))
     return p.layernorm(res, lns, lnb, eps).view(B, N, C)
 
@@ -476,6 +519,14 @@ def _fused_attn_ln_masked(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias,
                     hmask, lns, lnb, scale, num_heads, eps)
 
 
+def _fused_attn_ln_adrop(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, hmask,
+                         lns, lnb, adrop_seed, scale: float, num_heads: int,
+                         adrop_rate: float, eps: float = 1e-12):
+    return _attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, None, hmask,
+                    lns, lnb, scale, num_heads, eps,
+                    adrop=(adrop_seed, adrop_rate))
+
+
 def _fused_mlp_ln(p, x, w1, b1, w2, b2, lns, lnb, eps: float = 1e-12):
     return _mlp_ln(p, x, w1, b1, w2, b2, None, lns, lnb, eps)
 
@@ -486,11 +537,11 @@ def _fused_mlp_ln_masked(p, x, w1, b1, w2, b2, hmask, lns, lnb,
 
 
 def _seq_attention_core_bwd(p, qkv, dctx, kbias, qbias, amask, scale: float,
-                            num_heads: int):
+                            num_heads: int, adrop=None):
     B, N, C3 = qkv.shape
     dqkv, dkbias = p.attention_bwd(
         qkv.reshape(B * N, C3), dctx.reshape(B * N, C3 // 3), num_heads, N,
-        scale, key_bias=kbias, qbias=qbias, amask=amask)
+        scale, key_bias=kbias, qbias=qbias, amask=amask, adrop=adrop)
     return dqkv.view(B, N, C3), dkbias
 
 
@@ -508,9 +559,12 @@ def _mlp_ln_half_bwd(p, x2, res2, g2, hmask2, w1, b1, w2, lns,
     return dx, dw1, db1, dw2, db2, dlns, dlnb
 
 
-# the launch counts of a counterpart, one per TPU kernel it can stand for
+# the launch counts of a counterpart, one per TPU kernel it can stand for,
+# and the counts of the opt-in modes within them
 COUNTS = ("launches", "shift_launches", "train_launches",
-          "train_shift_launches")
+          "train_shift_launches", "train_store_p_launches",
+          "train_shift_store_p_launches", "store_p_launches",
+          "adrop_launches")
 
 
 def _shift_count(x, args, kw) -> str:
@@ -522,17 +576,38 @@ def _full_block_count(x, args, kw) -> str:
     return ("train_" if train else "") + _shift_count(x, args, kw)
 
 
-def _twins(body, doc: str, count=_shift_count):
+def _full_block_mode(x, args, kw):
+    """A training block that stores p (under autograd) also counts in
+    ``train_store_p_launches`` / ``train_shift_store_p_launches``."""
+    if not (kw.get("store_p") and _needs_grad(x, args[1], *args[0])):
+        return None
+    return _full_block_count(x, args, kw).replace("launches",
+                                                  "store_p_launches")
+
+
+def _kw_mode(key: str, name: str):
+    """A mode count: ``name`` when the keyword ``key`` is given."""
+    return lambda x, args, kw: name if kw.get(key) is not None else None
+
+
+def _twins(body, doc: str, count=_shift_count, mode=None):
     """(kernel twin with launch counts, plain twin) of ``body``. A kernel
     call adds one to the count that ``count(x, args, kw)`` names: a call
     with a ``shift_spec`` counts in ``shift_launches``, as the shifted Swin
     block replaces a TPU kernel of its own; ``swin_full_block``'s training
-    form counts in ``train_launches`` / ``train_shift_launches``."""
+    form counts in ``train_launches`` / ``train_shift_launches``. An opt-in
+    mode also counts in the count that ``mode(x, args, kw)`` names, if
+    any; ``kernel_twin.counts_for(x, args, kw)`` names the counts a call
+    adds to."""
+    def counts_for(x, args, kw):
+        return tuple(filter(None, (count(x, args, kw),
+                                   mode and mode(x, args, kw))))
+
     def kernel_twin(x, *args, **kw):
         out = body(KERNEL_OPS, x, *args, **kw)
         if x.is_cuda:
-            name = count(x, args, kw)
-            setattr(kernel_twin, name, getattr(kernel_twin, name) + 1)
+            for name in counts_for(x, args, kw):
+                setattr(kernel_twin, name, getattr(kernel_twin, name) + 1)
         return out
 
     def plain_twin(x, *args, **kw):
@@ -540,6 +615,7 @@ def _twins(body, doc: str, count=_shift_count):
 
     name = body.__name__.lstrip("_")
     kernel_twin.__name__, kernel_twin.__doc__ = name, doc
+    kernel_twin.counts_for = counts_for
     plain_twin.__name__ = name + "_plain"
     plain_twin.__doc__ = f"Plain PyTorch twin of :func:`{name}`."
     for c in COUNTS:
@@ -561,7 +637,11 @@ UNSHIFTED window-major layout (as ``_full_forward_shift``, pallas_attn.py
 branches, each (B,) f32 (0 or 1/keep per image). With ``dp``, or when a
 gradient is needed, the block runs its training form (res1 kept in f32; an
 autograd Function under grad) and counts in ``train_launches`` /
-``train_shift_launches``.""", count=_full_block_count)
+``train_shift_launches``. ``store_p``: under autograd, K2 also writes the
+softmax (BW, nH, N, N) in the compute dtype and the backward starts from it
+(K4 stored-p); such a call also counts in ``train_store_p_launches`` /
+``train_shift_store_p_launches``.""", count=_full_block_count,
+    mode=_full_block_mode)
 
 window_block_attention, window_block_attention_plain = _twins(
     _window_block_attention, """\
@@ -589,6 +669,16 @@ None, qbias (B, N, N) f32 or None, amask (B, nH, N, N) and hmask (B, N, C)
 in the compute dtype or None. K1 qkv -> K2 (kbias, qbias, amask) -> K1 proj
 (emask = hmask, + x) -> K3.""")
 
+fused_attn_ln_adrop, fused_attn_ln_adrop_plain = _twins(
+    _fused_attn_ln_adrop, """\
+``fused_attn_ln_masked`` with in-kernel attention dropout (JAX's argument
+order): no amask; ``adrop_seed`` a (2,) int32 tensor of two 16-bit halves on
+x's device, ``adrop_rate`` the dropout rate. K1 qkv -> K2 (kbias, qbias,
+the Philox mask of ``kernels.adrop_mask_plain(adrop_seed, B, nH, N,
+adrop_rate)``, values 0 or f32(1/keep)) -> K1 proj (emask = hmask, + x) ->
+K3. Under autograd the seed is saved and the backward's K4 regenerates the
+same mask.""")
+
 fused_mlp_ln_masked, fused_mlp_ln_masked_plain = _twins(
     _fused_mlp_ln_masked, """\
 Training twin of ``fused_mlp_ln``: ``LN(x + fc2(GELU(fc1 x)) * hmask)`` over
@@ -599,8 +689,10 @@ seq_attention_core_bwd, seq_attention_core_bwd_plain = _twins(
     _seq_attention_core_bwd, """\
 VJP of the attention core of ``fused_attn_ln(_masked)`` wrt (qkv, kbias),
 from the saved fused rows: qkv (B, N, 3C), dctx (B, N, C), kbias (B, N) f32
-or None, qbias (B, N, N) f32 or None, amask (B, nH, N, N) or None. Returns
-``(dqkv (B, N, 3C) in qkv.dtype, dkbias (B, N) f32)``.""")
+or None, qbias (B, N, N) f32 or None, amask (B, nH, N, N) or None; ``adrop``
+None or the forward's ``(seed, rate)``, whose mask K4 regenerates (counted
+also in ``adrop_launches``). Returns ``(dqkv (B, N, 3C) in qkv.dtype,
+dkbias (B, N) f32)``.""", mode=_kw_mode("adrop", "adrop_launches"))
 
 mlp_ln_half_bwd, mlp_ln_half_bwd_plain = _twins(_mlp_ln_half_bwd, """\
 Backward of the post-LN MLP half from the saved f32 pre-LN sum: x2, g2
@@ -632,7 +724,11 @@ qkv2 (BW*n, 3C), dctx2 (BW*n, C), bias (P, nH, n, n) f32 with BW % P == 0.
 Returns ``(dqkv2 (BW*n, 3C) in qkv2.dtype, dbias (P, nH, n, n) f32)``,
 dbias the sum of ds over the windows that share a pattern, in a fixed
 order. Serves both ``attention_core_bwd_flat`` and the per-window
-``attention_core_bwd``, whose difference is a TPU layout choice.""")
+``attention_core_bwd``, whose difference is a TPU layout choice. ``p2``:
+None, or the softmax (BW, nH, n, n) that ``swin_full_block(...,
+store_p=True)`` saved, used in place of the QK^T / exp recompute (K4
+stored-p, ``_core_bwd_storep_kernel``; counted also in
+``store_p_launches``).""", mode=_kw_mode("p2", "store_p_launches"))
 
 swin_mlp_half_bwd, swin_mlp_half_bwd_plain = _twins(_swin_mlp_half_bwd, """\
 Backward of the pre-LN Swin block's MLP half over flattened (shifted) rows:
@@ -661,4 +757,4 @@ COUNTERPARTS = (swin_full_block, window_block_attention, fused_mlp_preln,
                 fused_attn_ln, fused_mlp_ln, fused_attn_ln_masked,
                 fused_mlp_ln_masked, seq_attention_core_bwd, mlp_ln_half_bwd,
                 swin_half_block, attention_core, attention_core_bwd,
-                swin_mlp_half_bwd, swin_qkv_tail_bwd)
+                swin_mlp_half_bwd, swin_qkv_tail_bwd, fused_attn_ln_adrop)

@@ -9,6 +9,12 @@ per source, all built in parallel) and bound with ``ctypes``. Every TPU
 kernel on the ported paths is rebuilt from these in
 :mod:`mvlt_tpu_torch.ops.blocks`.
 
+K2 and K4 have two opt-in modes each: in-kernel attention dropout from a
+device seed (``adrop=(seed, rate)``; the Philox stream of
+``csrc/philox.cuh``, whose plain version is :func:`adrop_mask_plain`), and
+the stored softmax (K2 ``save_p=True`` writes p, K4 ``p=`` reads it). Each
+mode has a launch count of its own beside ``launches`` (``MODE_COUNTS``).
+
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on PyTorch's current
 stream, raises if the launch was refused, and adds one to its ``launches``
@@ -33,6 +39,7 @@ import subprocess
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -42,16 +49,19 @@ SOURCES = {"gemm": "gemm.cu", "attention": "attention.cu",
            "layernorm": "layernorm.cu", "attention_bwd": "attention_bwd.cu",
            "layernorm_bwd": "layernorm_bwd.cu"}
 
-_vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _int, _float, _uint = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                            ctypes.c_uint)
 _i64 = ctypes.c_longlong
 # C function -> (argument types, result type)
 _SIGNATURES = {
     "mvlt_gemm": ([_vp] * 10 + [_int] * 7 + [_vp], _int),
-    "mvlt_attention": ([_vp] * 6 + [_int] * 5 + [_float, _vp], _int),
+    "mvlt_attention": ([_vp] * 9 + [_int] * 5 + [_float, _uint, _float, _vp],
+                       _int),
     "mvlt_attention_smem": ([_int, _int], _i64),
     "mvlt_smem_optin": ([], _int),
     "mvlt_layernorm": ([_vp] * 5 + [_int, _int, _float, _int, _vp], _int),
-    "mvlt_attention_bwd": ([_vp] * 11 + [_int] * 5 + [_float, _vp], _int),
+    "mvlt_attention_bwd": ([_vp] * 13 + [_int] * 5
+                           + [_float, _uint, _float, _vp], _int),
     "mvlt_attention_bwd_smem": ([_int] * 3, _i64),
     "mvlt_attention_bwd_chunks": ([_int] * 3, _int),
     "mvlt_layernorm_bwd": ([_vp] * 10 + [_int, _int, _float, _int, _int, _vp],
@@ -79,16 +89,18 @@ def _nvcc() -> str:
 
 def build() -> dict:
     """Compile every kernel source (one ``nvcc`` each, all started together)
-    unless a library built from the same source bytes exists, then load them.
+    unless a library built from the same source and header bytes exists,
+    then load them.
     Returns ``{name: ctypes.CDLL}``; raises if any build fails."""
     with _build_lock:
         if _libs:
             return _libs
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs, targets = {}, {}
+        headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
         for name, src in SOURCES.items():
             path = _CSRC / src
-            digest = hashlib.sha1(path.read_bytes()).hexdigest()[:12]
+            digest = hashlib.sha1(path.read_bytes() + headers).hexdigest()[:12]
             target = BUILD_DIR / f"{name}-{digest}.so"
             targets[name] = target
             if target.exists():
@@ -311,6 +323,83 @@ gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The attention-dropout stream of K2 / K4 (csrc/philox.cuh), plain
+# ---------------------------------------------------------------------------
+
+_U32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: torch.Tensor, m: int):
+    """(high, low) 32-bit words of ``a * m`` for int64 ``a`` in [0, 2^32)
+    and a 32-bit constant ``m``: the product is split at 16 bits of ``m`` so
+    that no partial leaves int64's positive range (on the CPU and on the
+    card alike)."""
+    p0 = a * (m & 0xFFFF)                     # < 2^48
+    p1 = a * (m >> 16)                        # < 2^48
+    mid = p0 + ((p1 & 0xFFFF) << 16)          # < 2^49
+    return (p1 >> 16) + (mid >> 32), mid & _U32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 on int64 tensors (or ints) holding 32-bit words:
+    ``counter`` four words, ``key`` two, broadcast together; returns the
+    four output words. The plain version of ``mvlt::philox4x32_10``."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(torch.as_tensor(c0), _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(torch.as_tensor(c2), _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+    return c0, c1, c2, c3
+
+
+def adrop_constants(rate: float):
+    """(keep threshold T, kept value) of attention dropout at ``rate``: an
+    element is kept iff its 32-bit word is below T = min(int(keep * 2^32),
+    2^32 - 1) and is then f32(1 / keep), as ``_adrop_mask`` (pallas_attn.py
+    :2150-2153) keeps and scales."""
+    keep = 1.0 - float(rate)
+    _require(0.0 < keep < 1.0, f"attention dropout rate {rate} not in (0, 1)")
+    return min(int(keep * 2 ** 32), 2 ** 32 - 1), float(np.float32(1.0 / keep))
+
+
+def _adrop_seed(seed: torch.Tensor) -> None:
+    _require(tuple(seed.shape) == (2,) and seed.dtype == torch.int32,
+             f"adrop seed must be a (2,) int32 tensor, got "
+             f"{tuple(seed.shape)} {seed.dtype}")
+
+
+def adrop_mask_plain(seed: torch.Tensor, B: int, num_heads: int, N: int,
+                     rate: float) -> torch.Tensor:
+    """The attention-dropout mask that K2 draws and K4 regenerates, (B, nH,
+    N, N) f32 of 0 or f32(1 / keep), on ``seed``'s device and without a
+    host read of it. ``seed``: (2,) int32, two 16-bit halves (hi, lo).
+    Element (b, h, i, j) takes word ``e % 4`` of Philox4x32-10 with key
+    ``(hi * 65536 + lo, 0)`` and counter ``(e // 4, b * 256 + h, 0, 0)``,
+    e = i * N + j, b the absolute sample: it depends on nothing but the
+    seed, b, h, i, j and N."""
+    _adrop_seed(seed)
+    _require(num_heads <= 256, f"{num_heads} heads > 256")
+    thresh, kept = adrop_constants(rate)
+    dev, i64 = seed.device, torch.int64
+    s = seed.to(i64)
+    key0 = s[0] * 65536 + s[1]                # 0-d, stays on the device
+    e = torch.arange(N * N, device=dev, dtype=i64)
+    b = torch.arange(B, device=dev, dtype=i64)[:, None, None]
+    h = torch.arange(num_heads, device=dev, dtype=i64)[None, :, None]
+    words = philox4x32_10((e >> 2, b * 256 + h, 0, 0), (key0, 0))
+    sel = e & 3
+    w = torch.where(sel == 0, words[0], torch.where(
+        sel == 1, words[1], torch.where(sel == 2, words[2], words[3])))
+    mask = torch.where(w < thresh, torch.tensor(kept, device=dev),
+                       torch.tensor(0.0, device=dev))
+    return mask.view(B, num_heads, N, N)
+
+
+# ---------------------------------------------------------------------------
 # K2 biased_attention, and the shared memory of K2 and K4
 # ---------------------------------------------------------------------------
 
@@ -407,20 +496,52 @@ def _cuda_masks(qbias, amask, G, num_heads, N, dev) -> None:
     _check_masks(qbias, amask, G, num_heads, N)
 
 
+def _check_adrop(adrop, amask, save_mask: bool = False) -> None:
+    _require(adrop is None or amask is None,
+             "adrop and amask exclude each other")
+    _require(adrop is not None or not save_mask, "save_mask needs adrop")
+    if adrop is not None:
+        _adrop_seed(adrop[0])
+
+
+def _cuda_adrop(adrop, num_heads: int, dev):
+    """(seed, threshold, kept value) of ``adrop`` on the card."""
+    if adrop is None:
+        return None, 0, 0.0
+    seed, rate = adrop
+    _cuda_arg(seed, "adrop seed", torch.int32, dev, 1)
+    _require(num_heads <= 256, f"{num_heads} heads > 256")
+    return (seed, *adrop_constants(rate))
+
+
+def _with_extras(ctx, p, mask):
+    """ctx alone, or ``(ctx, [p], [mask])`` with the outputs asked for."""
+    extras = tuple(t for t in (p, mask) if t is not None)
+    return (ctx,) + extras if extras else ctx
+
+
 def biased_attention_plain(qkv, num_heads: int, seq_n: int, scale: float,
                            pattern=None, key_bias=None, qbias=None,
-                           amask=None):
+                           amask=None, *, adrop=None, save_p: bool = False,
+                           save_mask: bool = False):
     """qkv: (G*N, 3C) fused rows, groups of ``seq_n`` consecutive rows.
     pattern: (P, nH, N, N) f32 additive bias, group g uses ``pattern[g % P]``;
     key_bias: (G, N) f32 additive per-key bias; qbias: (G, N, N) f32
     additive per-sample bias (the seq2seq mask, shared by the heads); amask:
     (G, nH, N, N) multiplier of the softmax output (the attention-dropout
-    mask), applied before p is rounded to the compute dtype. Returns ctx
-    (G*N, C)."""
+    mask), applied before p is rounded to the compute dtype. ``adrop``:
+    ``(seed, rate)`` in place of amask, the mask
+    ``adrop_mask_plain(seed, G, nH, N, rate)`` (group g is sample g).
+    Returns ctx (G*N, C), or with ``save_p`` / ``save_mask`` the tuple
+    ``(ctx, [p], [mask])``: p (G, nH, N, N) the softmax before any dropout
+    mask in qkv's dtype, mask (G, nH, N, N) f32 the dropout mask drawn."""
     rows, C3 = qkv.shape
     C, N = C3 // 3, seq_n
     G, Dh = rows // N, C3 // 3 // num_heads
     _check_masks(qbias, amask, G, num_heads, N)
+    _check_adrop(adrop, amask, save_mask)
+    if adrop is not None:
+        amask = adrop_mask_plain(adrop[0], G, num_heads, N, adrop[1])
     t = qkv.float().view(G, N, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
     q, k, v = t[0] * scale, t[1], t[2]
     s = q @ k.transpose(-1, -2)                                # (G, nH, N, N)
@@ -432,22 +553,30 @@ def biased_attention_plain(qkv, num_heads: int, seq_n: int, scale: float,
     if qbias is not None:
         s = s + qbias.float()[:, None]
     p = torch.softmax(s, dim=-1)
+    pst = p.to(qkv.dtype) if save_p else None
     if amask is not None:
         p = p * amask.float()
     p = p.to(qkv.dtype).float()
     ctx = (p @ v).to(qkv.dtype)                                # (G, nH, N, Dh)
-    return ctx.permute(0, 2, 1, 3).reshape(rows, C)
+    return _with_extras(ctx.permute(0, 2, 1, 3).reshape(rows, C), pst,
+                        amask if save_mask else None)
 
 
 def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
-                     pattern=None, key_bias=None, qbias=None, amask=None):
+                     pattern=None, key_bias=None, qbias=None, amask=None, *,
+                     adrop=None, save_p: bool = False,
+                     save_mask: bool = False):
     """K2 wrapper; same contract as :func:`biased_attention_plain`. On CUDA:
-    bf16 qkv and amask, f32 biases, an even head dim <= 64, and N within the
-    card's shared memory (:func:`check_attention_fits`; N <= 162 at head
-    dim 64 on an H100)."""
+    bf16 qkv and amask, f32 biases, an int32 device seed, an even head dim
+    <= 64, at most 256 heads with ``adrop``, and N within the card's shared
+    memory (:func:`check_attention_fits`; N <= 162 at head dim 64 on an
+    H100). ``adrop`` counts in ``adrop_launches``, ``save_p`` in
+    ``save_p_launches``, both also in ``launches``."""
     if not qkv.is_cuda:
         return biased_attention_plain(qkv, num_heads, seq_n, scale,
-                                      pattern, key_bias, qbias, amask)
+                                      pattern, key_bias, qbias, amask,
+                                      adrop=adrop, save_p=save_p,
+                                      save_mask=save_mask)
     dev = qkv.device
     _cuda_arg(qkv, "qkv", torch.bfloat16, dev, 2)
     rows = qkv.shape[0]
@@ -464,17 +593,26 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
     _require(key_bias is None or tuple(key_bias.shape) == (G, N),
              f"key_bias must be ({G}, {N})")
     _cuda_masks(qbias, amask, G, num_heads, N, dev)
+    _check_adrop(adrop, amask, save_mask)
+    seed, thresh, kept = _cuda_adrop(adrop, num_heads, dev)
     ctx = torch.empty((rows, C), dtype=torch.bfloat16, device=dev)
+    tiles = (G, num_heads, N, N)
+    pst = torch.empty(tiles, dtype=torch.bfloat16, device=dev) if save_p else None
+    mask = torch.empty(tiles, dtype=torch.float32, device=dev) if save_mask else None
     lib = build()["attention"]
     _check(lib.mvlt_attention(_ptr(qkv), _ptr(pattern), _ptr(key_bias),
-                              _ptr(qbias), _ptr(amask), _ptr(ctx), G, N, C,
-                              num_heads, P, float(scale), _stream(dev)),
+                              _ptr(qbias), _ptr(amask), _ptr(seed), _ptr(ctx),
+                              _ptr(pst), _ptr(mask), G, N, C, num_heads, P,
+                              float(scale), thresh, kept, _stream(dev)),
            "biased_attention")
     biased_attention.launches += 1
-    return ctx
+    biased_attention.adrop_launches += adrop is not None
+    biased_attention.save_p_launches += save_p
+    return _with_extras(ctx, pst, mask)
 
 
 biased_attention.launches = 0
+biased_attention.adrop_launches = biased_attention.save_p_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -534,7 +672,8 @@ def _pattern_geometry(pattern, G: int, num_heads: int, N: int) -> int:
 
 def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
                                scale: float, key_bias=None, qbias=None,
-                               amask=None, pattern=None):
+                               amask=None, pattern=None, *, adrop=None,
+                               p=None):
     """VJP of :func:`biased_attention_plain` from the saved fused rows. qkv:
     (G*N, 3C); dctx: (G*N, C); key_bias: (G, N) f32; qbias: (G, N, N) f32;
     amask: (G, nH, N, N); pattern: (P, nH, N, N) f32, group g using
@@ -544,24 +683,35 @@ def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
     dkbias or None when no key_bias is given, dpattern (P, nH, N, N) f32)``,
     dpattern the sum of ds over the G / P groups that share a pattern (the
     relative-position bias gradient of ``_core_bwd_kernel``). The unmasked p
-    enters ds and ``p * amask`` enters dv (pallas_attn.py:2482-2501)."""
+    enters ds and ``p * amask`` enters dv (pallas_attn.py:2482-2501).
+    ``adrop``: ``(seed, rate)`` in place of amask, the mask regenerated by
+    :func:`adrop_mask_plain`. ``p``: the softmax that
+    ``biased_attention(..., save_p=True)`` stored, (G, nH, N, N), used in
+    place of the recomputed one (``_core_bwd_storep_kernel``, :3859)."""
     rows, C3 = qkv.shape
     C, N = C3 // 3, seq_n
     G, Dh = rows // N, C // num_heads
     _check_masks(qbias, amask, G, num_heads, N)
+    _check_adrop(adrop, amask)
+    _check_stored_p(p, G, num_heads, N)
+    if adrop is not None:
+        amask = adrop_mask_plain(adrop[0], G, num_heads, N, adrop[1])
     P = None if pattern is None else _pattern_geometry(pattern, G, num_heads, N)
     t = qkv.float().view(G, N, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
     q, k, v = t[0] * scale, t[1], t[2]
     dc = dctx.float().view(G, N, num_heads, Dh).permute(0, 2, 1, 3)
-    s = q @ k.transpose(-1, -2)                                 # (G, nH, N, N)
-    if pattern is not None:
-        s = s + pattern.float()[torch.arange(G, device=qkv.device) % P]
-    if key_bias is not None:
-        s = s + key_bias.float()[:, None, None, :]
-    if qbias is not None:
-        s = s + qbias.float()[:, None]
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    p = e / e.sum(-1, keepdim=True)
+    if p is not None:
+        p = p.float()
+    else:
+        s = q @ k.transpose(-1, -2)                             # (G, nH, N, N)
+        if pattern is not None:
+            s = s + pattern.float()[torch.arange(G, device=qkv.device) % P]
+        if key_bias is not None:
+            s = s + key_bias.float()[:, None, None, :]
+        if qbias is not None:
+            s = s + qbias.float()[:, None]
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e / e.sum(-1, keepdim=True)
     am = None if amask is None else amask.float()
     pa = p if am is None else p * am
     dv = pa.transpose(-1, -2) @ dc
@@ -580,17 +730,27 @@ def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
     return (dqkv.to(qkv.dtype), dkb if key_bias is not None else None, dpat)
 
 
+def _check_stored_p(p, G: int, num_heads: int, N: int) -> None:
+    _require(p is None or tuple(p.shape) == (G, num_heads, N, N),
+             f"stored p must be ({G}, {num_heads}, {N}, {N}), got "
+             f"{None if p is None else tuple(p.shape)}")
+
+
 def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
-                         key_bias=None, qbias=None, amask=None, pattern=None):
+                         key_bias=None, qbias=None, amask=None, pattern=None,
+                         *, adrop=None, p=None):
     """K4 wrapper; same contract as :func:`biased_attention_bwd_plain`. On
-    CUDA: bf16 qkv, dctx and amask, f32 biases and patterns, an even head dim
-    <= 64, and N within the card's shared memory
-    (:func:`check_attention_fits`; N <= 140 at head dim 64 on an H100). The
-    sums over groups run in a fixed order: two calls on the same inputs give
-    bitwise-equal gradients."""
+    CUDA: bf16 qkv, dctx, amask and p, f32 biases and patterns, an int32
+    device seed, an even head dim <= 64, at most 256 heads with ``adrop``,
+    and N within the card's shared memory (:func:`check_attention_fits`; N
+    <= 140 at head dim 64 on an H100). The sums over groups run in a fixed
+    order: two calls on the same inputs give bitwise-equal gradients.
+    ``adrop`` counts in ``adrop_launches``, ``p`` in ``stored_p_launches``,
+    both also in ``launches``."""
     if not qkv.is_cuda:
         return biased_attention_bwd_plain(qkv, dctx, num_heads, seq_n, scale,
-                                          key_bias, qbias, amask, pattern)
+                                          key_bias, qbias, amask, pattern,
+                                          adrop=adrop, p=p)
     dev, bf, f32 = qkv.device, torch.bfloat16, torch.float32
     _cuda_arg(qkv, "qkv", bf, dev, 2)
     rows, C3 = qkv.shape
@@ -603,6 +763,10 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
     _require(key_bias is None or tuple(key_bias.shape) == (G, N),
              f"key_bias must be ({G}, {N})")
     _cuda_masks(qbias, amask, G, num_heads, N, dev)
+    _check_adrop(adrop, amask)
+    seed, thresh, kept = _cuda_adrop(adrop, num_heads, dev)
+    _cuda_arg(p, "p", bf, dev, 4)
+    _check_stored_p(p, G, num_heads, N)
     _cuda_arg(pattern, "pattern", f32, dev, 4)
     P = 1 if pattern is None else _pattern_geometry(pattern, G, num_heads, N)
     lib = build()["attention_bwd"]
@@ -619,17 +783,21 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
         dpat = torch.empty((P, num_heads, N, N), dtype=f32, device=dev)
     _check(lib.mvlt_attention_bwd(_ptr(qkv), _ptr(dctx), _ptr(pattern),
                                   _ptr(key_bias), _ptr(qbias), _ptr(amask),
-                                  _ptr(dqkv), _ptr(part), _ptr(dkb),
-                                  _ptr(dpat_part), _ptr(dpat), G, N, C,
-                                  num_heads, P, float(scale), _stream(dev)),
+                                  _ptr(seed), _ptr(p), _ptr(dqkv), _ptr(part),
+                                  _ptr(dkb), _ptr(dpat_part), _ptr(dpat), G,
+                                  N, C, num_heads, P, float(scale), thresh,
+                                  kept, _stream(dev)),
            "biased_attention_bwd")
     biased_attention_bwd.launches += 1
+    biased_attention_bwd.adrop_launches += adrop is not None
+    biased_attention_bwd.stored_p_launches += p is not None
     if pattern is None:
         return dqkv, dkb
     return dqkv, dkb, dpat
 
 
 biased_attention_bwd.launches = 0
+biased_attention_bwd.adrop_launches = biased_attention_bwd.stored_p_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -753,3 +921,6 @@ column_sum.launches = 0
 # the kernels of the inference forward, and every kernel
 FORWARD_KERNELS = (gemm, biased_attention, layernorm)
 KERNELS = FORWARD_KERNELS + (biased_attention_bwd, layernorm_bwd, column_sum)
+# the opt-in modes' launch counts, beside each kernel's ``launches``
+MODE_COUNTS = {biased_attention: ("adrop_launches", "save_p_launches"),
+               biased_attention_bwd: ("adrop_launches", "stored_p_launches")}

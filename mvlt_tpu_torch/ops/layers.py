@@ -52,7 +52,9 @@ class DropoutMasks:
     With ``record=True`` each draw is also kept, in order, in ``recorded``.
     ``DropoutMasks.replay(masks)`` hands out the given masks in order
     instead, checking each shape: two runs that replay one list see the same
-    masks, and a test can replay the masks JAX drew."""
+    masks, and a test can replay the masks JAX drew. ``seed(device)`` draws
+    the (2,) seed of in-kernel attention dropout in the same order, and is
+    recorded and replayed as the masks are."""
 
     def __init__(self, generator: torch.Generator = None, *,
                  record: bool = False):
@@ -66,23 +68,42 @@ class DropoutMasks:
         src._replay = iter(list(masks))
         return src
 
-    def draw(self, keep: float, shape, device) -> torch.Tensor:
-        shape = tuple(shape)
+    def _take(self, what: str, shape, dtype: torch.dtype, device,
+              fresh) -> torch.Tensor:
+        """The next replayed draw, checked against ``shape``, or ``fresh()``
+        drawn on the generator's device; moved to ``device`` and
+        recorded."""
         if self._replay is not None:
-            mask = next(self._replay, None)
-            if mask is None:
-                raise RuntimeError("no recorded dropout mask left to replay")
-            mask = torch.as_tensor(mask).to(device=device, dtype=torch.bool)
-            if tuple(mask.shape) != shape:
-                raise ValueError(f"replayed mask {tuple(mask.shape)} where "
+            t = next(self._replay, None)
+            if t is None:
+                raise RuntimeError(f"no recorded dropout {what} left to "
+                                   "replay")
+            t = torch.as_tensor(t).to(device=device, dtype=dtype)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"replayed {what} {tuple(t.shape)} where "
                                  f"{shape} was drawn")
         else:
-            mask = torch.rand(shape, generator=self.generator,
-                              device=self.generator.device) < keep
-            mask = mask.to(device)
+            t = fresh().to(device)
         if self.recorded is not None:
-            self.recorded.append(mask)
-        return mask
+            self.recorded.append(t)
+        return t
+
+    def draw(self, keep: float, shape, device) -> torch.Tensor:
+        shape = tuple(shape)
+        return self._take("mask", shape, torch.bool, device, lambda: torch.rand(
+            shape, generator=self.generator,
+            device=self.generator.device) < keep)
+
+    def seed(self, device) -> torch.Tensor:
+        """A (2,) int32 seed of two 16-bit halves on ``device``, for the
+        kernels' in-kernel attention dropout (JAX's ``jax.random.randint(key,
+        (2,), 0, 2 ** 16)``, fusion.py:148-150). It is drawn on the
+        generator's device and never read on the host: no synchronisation."""
+        return self._take("seed", (2,), torch.int32, device,
+                          lambda: torch.randint(
+                              0, 2 ** 16, (2,), generator=self.generator,
+                              device=self.generator.device,
+                              dtype=torch.int32))
 
     def scaled(self, keep: float, shape, dtype: torch.dtype,
                device) -> torch.Tensor:

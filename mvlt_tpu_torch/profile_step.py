@@ -15,12 +15,16 @@ runs two warm-up steps, then traces ``--steps`` steps with
 products, PyTorch's LayerNorm, the optimizer, the rest), the
 device busy share of the traced window, the unprofiled step times with the
 SM clock and power sampled before and after them, and the card's name and
-power limit. Needs a CUDA device.
+power limit. Needs a CUDA device. The opt-in kernel switches are read
+from the environment, e.g. the step of record with both:
+
+    MVLT_KERNEL_DROPOUT=1 MVLT_STOREP=1 python -m mvlt_tpu_torch.profile_step --path swin_pretrain
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 import time
 
@@ -61,6 +65,7 @@ FAMILIES = [
 # kernels and would count their kernels twice
 ANNOTATIONS = ("Optimizer.", "ProfilerStep", "aten::", "autograd::")
 SAMPLE = "clocks.sm,power.draw,temperature.gpu"
+SWITCHES = ("MVLT_KERNEL_DROPOUT", "MVLT_STOREP", "MVLT_NO_STOREP")
 
 
 def smi(query: str) -> str:
@@ -140,6 +145,8 @@ def main() -> int:
     kernels = [(t, n // args.steps, name) for name, (t, n) in per_kernel.items()]
     total = sum(fams.values())
     print(card)
+    on = {k: os.environ[k] for k in SWITCHES if k in os.environ}
+    print(f"switches: {on or 'none set'}")
     print(f"{SAMPLE} before / after the unprofiled steps: {clocks}")
     print(f"unprofiled step times (ms): {[round(t, 3) for t in step_ms]}")
     print(f"{args.path} train step b{args.batch}: {unprofiled_ms:.3f} ms/step unprofiled, "

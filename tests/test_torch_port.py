@@ -360,3 +360,94 @@ def test_cuda_swin_vqa_loss_trains_the_backbone(cuda_device):
             if name.startswith("conv."):
                 assert p.grad is not None, name
                 assert torch.isfinite(p.grad).all() and p.grad.abs().sum() > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["kbias", "qbias"])
+def test_cuda_attention_adrop_matches_plain(cuda_device, mode):
+    """K2 and K4 with in-kernel dropout (a device seed, rate 0.1) at N = 131
+    and a ragged 37: K2's drawn mask bitwise equal to ``adrop_mask_plain``,
+    two calls bitwise equal, ctx and K4's gradients against the plain
+    versions, which take that mask."""
+    g = torch.Generator().manual_seed(50)
+    seed = torch.tensor([40503, 777], dtype=torch.int32, device=cuda_device)
+    for N in (131, 37):
+        G, C, nH = 3, 128, 2
+        qkv = _rnd(g, G * N, 3 * C, std=0.5, dev=cuda_device)
+        dctx = _rnd(g, G * N, C, dev=cuda_device)
+        kb = torch.where(torch.rand(G, N, generator=g) < 0.2, -10000.0,
+                         0.0).to(cuda_device)
+        qb = torch.triu(torch.full((N, N), -10000.0), 1).expand(
+            G, N, N).contiguous().to(cuda_device)
+        kw = dict(key_bias=kb) if mode == "kbias" else dict(qbias=qb)
+        ctx, mask = kernels.biased_attention(qkv, nH, N, 0.125, adrop=(
+            seed, 0.1), save_mask=True, **kw)
+        again = kernels.biased_attention(qkv, nH, N, 0.125,
+                                         adrop=(seed, 0.1), **kw)
+        assert torch.equal(mask, kernels.adrop_mask_plain(seed, G, nH, N, 0.1))
+        assert torch.equal(ctx, again)
+        _near(ctx, kernels.biased_attention_plain(qkv, nH, N, 0.125,
+                                                  adrop=(seed, 0.1), **kw),
+              2 ** -7)
+        got = kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.125,
+                                           adrop=(seed, 0.1), **kw)
+        want = kernels.biased_attention_bwd_plain(qkv, dctx, nH, N, 0.125,
+                                                  adrop=(seed, 0.1), **kw)
+        _near(got[0], want[0], 2 ** -7)
+        _near(got[1], want[1], 1e-4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 4])
+def test_cuda_stored_p_attention_matches_plain(cuda_device, P):
+    """K2 storing p and K4 from the stored p at Swin-S stage-3 windows (N =
+    49, C 384, 12 heads, 16 windows), one pattern and one per window: p
+    within bf16 rounding of the plain softmax, K4 against its plain version
+    on the same p and near its recompute mode, dpattern bitwise equal over
+    two calls."""
+    g = torch.Generator().manual_seed(60 + P)
+    G, N, C, nH = 16, 49, 384, 12
+    qkv = _rnd(g, G * N, 3 * C, std=0.5, dev=cuda_device)
+    dctx = _rnd(g, G * N, C, dev=cuda_device)
+    pat = _rnd(g, P, nH, N, N, dt=torch.float32, dev=cuda_device)
+    sc = (C // nH) ** -0.5
+    ctx, p = kernels.biased_attention(qkv, nH, N, sc, pat, save_p=True)
+    ctx0, p0 = kernels.biased_attention_plain(qkv, nH, N, sc, pat, save_p=True)
+    assert p.dtype == torch.bfloat16 and p.shape == (G, nH, N, N)
+    _near(ctx, ctx0, 2 ** -7)
+    # one bf16 step below 1 (2^-7) where the two f32 values round apart
+    assert (p.float() - p0.float()).abs().max().item() <= 2 ** -7
+    got = kernels.biased_attention_bwd(qkv, dctx, nH, N, sc, pattern=pat, p=p)
+    want = kernels.biased_attention_bwd_plain(qkv, dctx, nH, N, sc,
+                                              pattern=pat, p=p)
+    _near(got[0], want[0], 2 ** -7)
+    _near(got[2], want[2], 1e-4)
+    recompute = kernels.biased_attention_bwd(qkv, dctx, nH, N, sc,
+                                             pattern=pat)
+    _near(got[0], recompute[0], 2 ** -5)
+    again = kernels.biased_attention_bwd(qkv, dctx, nH, N, sc, pattern=pat,
+                                         p=p)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[2], again[2])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_stored_p_attention_key_bias_mode(cuda_device):
+    """K4 from the stored p without a pattern (the key-bias mode, one group
+    a block) at N = 131, head dim 64, with a padded key bias: dqkv and
+    dkbias against the plain version on the same p."""
+    g = torch.Generator().manual_seed(70)
+    G, N, C, nH = 3, 131, 128, 2
+    qkv = _rnd(g, G * N, 3 * C, std=0.5, dev=cuda_device)
+    dctx = _rnd(g, G * N, C, dev=cuda_device)
+    kb = torch.where(torch.rand(G, N, generator=g) < 0.2, -10000.0,
+                     0.0).to(cuda_device)
+    _, p = kernels.biased_attention(qkv, nH, N, 0.125, key_bias=kb,
+                                    save_p=True)
+    got = kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.125, kb, p=p)
+    want = kernels.biased_attention_bwd_plain(qkv, dctx, nH, N, 0.125, kb,
+                                              p=p)
+    _near(got[0], want[0], 2 ** -7)
+    _near(got[1], want[1], 1e-4)
+    torch.cuda.synchronize()
