@@ -57,12 +57,24 @@ on failure:
    switches set, driven as in phase 7 (the plain run replaying the seeds
    and masks), its launch counts, and its step time and peak memory in
    turns with the switches off (off, on, on, off);
-9. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` last.
+9. attn_impl: the counterparts of the last TPU kernels against their plain
+   versions: row 8 (``window_attention``, K2 reading q, k, v through strides,
+   and its backward on K4's pattern mode) at every Swin-S stage at b32, row
+   7 (``swin_attn_half``) at window 12 and C = 768, row 9
+   (``fused_seq_attention`` and its backward) at BERT-base b32, row 10
+   (``full_forward_windows``) at Swin-S stage 3; then the flagship forward
+   and the Swin-S step of record with the backbone on
+   ``attn_impl='pallas'`` (row 8 in all 24 blocks), driven as in phases 4
+   and 7 (logits / gradients / losses against the plain versions, launch
+   counts), each timed in turns with the backbone on 'auto';
+10. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+    last.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -70,6 +82,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 import torch.nn.functional as F
@@ -122,6 +135,9 @@ EXPECTED = {
     "fused_mlp_preln": (2, "mvlt_tpu/ops/pallas_attn.py:3359"),
     "fused_attn_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2156"),
     "fused_mlp_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2817"),
+    # the 'pallas' route's kernel stays off on 'auto'
+    "window_attention": (0, "mvlt_tpu/ops/pallas_attn.py:40"),
+    "swin_attn_half": (0, "mvlt_tpu/ops/pallas_attn.py:3228"),
 }
 # calls per VQA train step of each TPU kernel on the JAX path (12 layers,
 # forward and backward)
@@ -163,6 +179,8 @@ EXPECTED_SWIN_PRETRAIN = {
     "biased_attention_adrop": (0, None), "biased_attention_save_p": (0, None),
     "biased_attention_bwd_adrop": (0, None),
     "biased_attention_bwd_stored_p": (0, None),
+    "window_attention": (0, "mvlt_tpu/ops/pallas_attn.py:40"),
+    "window_attention_bwd": (0, "mvlt_tpu/ops/pallas_attn.py:128"),
 }
 # the Swin-S step with MVLT_KERNEL_DROPOUT and MVLT_STOREP set: every fusion
 # layer on the in-kernel dropout, its backward regenerating the mask; the 18
@@ -180,6 +198,43 @@ EXPECTED_SWITCHES = {
     "biased_attention_adrop": (12, None), "biased_attention_save_p": (18, None),
     "biased_attention_bwd_adrop": (12, None),
     "biased_attention_bwd_stored_p": (18, None),
+}
+# the TPU kernels that no entry point reaches at Swin-S 224 (ROADMAP.md B
+# before PR 8): their counterparts are held to their plain versions in
+# attn_impl_kernel_checks, and no path launches them
+UNREACHED = {
+    "swin_attn_half": (0, "mvlt_tpu/ops/pallas_attn.py:3228"),
+    "fused_seq_attention": (0, "mvlt_tpu/ops/pallas_attn.py:334"),
+    # the VJP that JAX runs in XLA (_seq_bwd)
+    "fused_seq_attention_bwd": (0, "mvlt_tpu/ops/pallas_attn.py:440"),
+    "full_forward_windows": (0, "mvlt_tpu/ops/pallas_attn.py:1161"),
+}
+# the flagship forward with the backbone on attn_impl='pallas': row 8 in
+# each of the 24 Swin blocks (Dense / LN on K1 / K3 around it), no fused
+# Swin kernel; the fusion encoder as on 'auto'
+EXPECTED_PALLAS = {
+    "window_attention": (24, "mvlt_tpu/ops/pallas_attn.py:40"),
+    "biased_attention_heads": (24, None),
+    "swin_full_block": (0, "mvlt_tpu/ops/pallas_attn.py:652"),
+    "swin_full_block_shift": (0, "mvlt_tpu/ops/pallas_attn.py:702"),
+    "window_block_attention": (0, "mvlt_tpu/ops/pallas_attn.py:166"),
+    "fused_mlp_preln": (0, "mvlt_tpu/ops/pallas_attn.py:3359"),
+    "fused_attn_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2156"),
+    "fused_mlp_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2817"),
+    "window_attention_bwd": (0, "mvlt_tpu/ops/pallas_attn.py:128"),
+    **UNREACHED,
+}
+# the Swin-S step of record with the backbone on 'pallas': 24 row-8
+# forwards under autograd and their 24 backwards on K4's pattern mode (the
+# Dense / LN / GELU layers on F.linear / F.layer_norm, as JAX leaves them to
+# XLA), no Swin block kernel; the fusion encoder as on 'auto'
+EXPECTED_SWIN_PALLAS = {
+    **{k: (0, v[1]) for k, v in EXPECTED_SWIN_PRETRAIN.items()},
+    **EXPECTED_PRETRAIN,
+    "window_attention": (24, "mvlt_tpu/ops/pallas_attn.py:40"),
+    "window_attention_bwd": (24, "mvlt_tpu/ops/pallas_attn.py:128"),
+    "biased_attention_heads": (24, None),
+    **UNREACHED,
 }
 # the hand-written kernels and the TPU code whose pieces each carries
 KERNEL_SOURCES = {
@@ -203,10 +258,13 @@ KERNEL_SOURCES = {
                                    "mvlt_tpu/ops/pallas_attn.py:2485"),
     "biased_attention_bwd_stored_p": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
                                       "mvlt_tpu/ops/pallas_attn.py:3859"),
+    # K2's head-major layout (q, k, v through strides)
+    "biased_attention_heads": ("mvlt_tpu_torch/csrc/attention.cu",
+                               "mvlt_tpu/ops/pallas_attn.py:40"),
 }
 # the modes' counts on the kernel wrappers (``kernels.MODE_COUNTS``)
 MODE_ROWS = {"adrop_launches": "adrop", "save_p_launches": "save_p",
-             "stored_p_launches": "stored_p"}
+             "stored_p_launches": "stored_p", "heads_launches": "heads"}
 # the modes' counts on the counterparts (``blocks.COUNTS``)
 COUNTERPART_MODES = {
     "swin_full_block": {"shift_launches": "shift",
@@ -1384,6 +1442,161 @@ def optin_kernel_checks(chk: Checker, dev) -> None:
                           **kw)
 
 
+def attn_impl_kernel_checks(chk: Checker, dev) -> None:
+    """The last four TPU kernels' counterparts at the shapes of the
+    ``attn_impl='pallas'`` route and of their JAX callers: row 8
+    (``window_attention``, K2 head-major, and its backward on K4's pattern
+    mode) at every Swin-S stage at b32 (N = 49, head dim 32; one pattern and
+    one per window), q, k, v as the route makes them (views of the qkv
+    product's rows); row 7 (``swin_attn_half``) at b32 with window 12 and C =
+    768, 24 heads (N = 144: the one-window stage 4 of a 384 image); row 9
+    (``fused_seq_attention``, forward and backward) at BERT-base b32, S = 74
+    and 131, with a padded key bias; row 10 (``full_forward_windows``) at
+    Swin-S stage 3, b32, shifted (128 windows, C 384, 12 heads, 4
+    patterns)."""
+    from mvlt_tpu_torch.models.backbones.swin import shifted_window_mask
+    from mvlt_tpu_torch.ops import blocks
+    from mvlt_tpu_torch.ops import kernels as K
+
+    inp = Inputs(dev, seed=5)
+    rnd, dense, ln = inp.rnd, inp.dense, inp.ln
+    bf, f32 = torch.bfloat16, torch.float32
+    B, N = TRAIN_BATCH, 49
+
+    # row 8 at the four stages; library: SDPA with the patterns gathered per
+    # window as a bf16 mask, and the autograd backward of the bf16
+    # matmul-softmax-matmul composition
+    for res, C, nH in SWIN_STAGES:
+        nW = (res // 7) ** 2
+        BW, Dh = B * nW, C // nH
+        sc = Dh ** -0.5
+        qkv = rnd(BW, N, 3 * C, std=0.5)
+        q, k, v = qkv.view(BW, N, 3, nH, Dh).permute(2, 0, 3, 1, 4).unbind(0)
+        g = rnd(BW, N, C).view(BW, N, nH, Dh).permute(0, 2, 1, 3)
+        rel = rnd(1, nH, N, N, std=0.5, dtype=f32)
+        patterns = [rel]
+        if nW > 1:
+            mask = torch.as_tensor(shifted_window_mask(res, res, 7, 3),
+                                   device=dev)
+            patterns.append((rel + mask[:, None]).contiguous())
+        ctx = torch.empty(BW, N, C, dtype=bf, device=dev)
+        for pat in patterns:
+            P = pat.shape[0]
+            lmask = pat.to(bf)[torch.arange(BW, device=dev) % P]
+            cost = dict(flops=4.0 * BW * nH * N * N * Dh,
+                        nbytes=nbytes(q, k, v, pat, ctx))
+            # K2's head-major mode, and the counterpart that runs it
+            for name, fn, plain in (
+                    ("biased_attention_heads",
+                     lambda p_: K.biased_attention_heads(q, k, v, sc, p_),
+                     lambda p_: K.biased_attention_heads_plain(q, k, v, sc,
+                                                                p_)),
+                    ("window_attention",
+                     lambda p_: blocks.window_attention(q, k, v, p_, sc),
+                     lambda p_: blocks.window_attention_plain(q, k, v, p_,
+                                                              sc))):
+                chk.case(name, lambda fn=fn, pat=pat: fn(pat),
+                         lambda plain=plain, pat=pat: plain(pat), KERNEL_BAR,
+                         library_fn=lambda lmask=lmask:
+                         F.scaled_dot_product_attention(
+                             q, k, v, attn_mask=lmask, scale=sc), **cost)
+            lib = library_backward(
+                lambda q_, k_, v_, lmask=lmask: torch.matmul(torch.softmax(
+                    torch.matmul(q_, k_.transpose(-1, -2)) * sc + lmask,
+                    dim=-1), v_),
+                (q.contiguous(), k.contiguous(), v.contiguous()),
+                g.contiguous())
+            chk.case("window_attention_bwd",
+                     lambda pat=pat: blocks.window_attention_bwd(
+                         q, k, v, pat, g, sc),
+                     lambda pat=pat: blocks.window_attention_bwd_plain(
+                         q, k, v, pat, g, sc),
+                     KERNEL_BAR, library_fn=lib, floor=1e-6,
+                     flops=10.0 * BW * nH * N * N * Dh,
+                     nbytes=nbytes(q, k, v, g, pat, q, k, v, pat))
+
+    # row 7: one 12 x 12 window per image at C = 768 (b32); library:
+    # F.layer_norm, F.linear, SDPA, F.linear, + x in bf16
+    C, nH, N7 = 768, 24, 144
+    Dh, sc = C // nH, (C // nH) ** -0.5
+    x = rnd(B, N7, C)
+    ln1 = ln(C)
+    (wq, bq), (wp, bp) = dense(C, 3 * C), dense(C, C)
+    rel = rnd(1, nH, N7, N7, std=0.5, dtype=f32)
+    half = (x, *ln1, wq, bq, wp, bp, rel, sc, nH)
+
+    def lib_half():
+        rows = x.view(-1, C)
+        h = F.layer_norm(rows, (C,), *bf16_ln(*ln1), 1e-5)
+        c = lib_attention(F.linear(h, wq, bq), B, N7, nH, rel.to(bf), sc)
+        return (F.linear(c, wp, bp) + rows).view(B, N7, C)
+
+    chk.case("swin_attn_half", lambda: blocks.swin_attn_half(*half),
+             lambda: blocks.swin_attn_half_plain(*half), BLOCK_BAR,
+             library_fn=lib_half,
+             flops=2.0 * B * N7 * C * 4 * C + 4.0 * B * nH * N7 * N7 * Dh,
+             nbytes=nbytes(x, *ln1, wq, bq, wp, bp, rel, x))
+
+    # row 9 at BERT-base b32, S = 74 and 131, forward and backward; library:
+    # F.linear, SDPA with the key bias, F.linear, and its autograd backward
+    C, nH = 768, 12
+    Dh, sc = C // nH, (C // nH) ** -0.5
+    (wq, bq), (wp, bp) = dense(C, 3 * C), dense(C, C)
+    for S in (74, 1 + 49 + 1 + PRETRAIN_TEXT):
+        M = B * S
+        x, g = rnd(B, S, C), rnd(B, S, C)
+        kb = inp.key_bias([S - (7 * i) % (S // 2) for i in range(B)], S)
+        kmask = kb.to(bf)[:, None, None, :]
+
+        def lib_seq(x_, wq_, bq_, wp_, bp_, S=S, kmask=kmask):
+            c = lib_attention(F.linear(x_.reshape(-1, C), wq_, bq_), B, S,
+                              nH, kmask, sc)
+            return F.linear(c, wp_, bp_).view(B, S, C)
+
+        seq = (x, wq, bq, wp, bp, kb, sc, nH)
+        chk.case("fused_seq_attention",
+                 lambda seq=seq: blocks.fused_seq_attention(*seq),
+                 lambda seq=seq: blocks.fused_seq_attention_plain(*seq),
+                 BLOCK_BAR, library_fn=lambda x=x, lib_seq=lib_seq: lib_seq(
+                     x, wq, bq, wp, bp),
+                 flops=2.0 * M * C * 4 * C + 4.0 * B * nH * S * S * Dh,
+                 nbytes=nbytes(x, wq, bq, wp, bp, kb, x))
+        x2 = x.view(M, C)
+        qkv2 = K.gemm(x2, wq, bq)
+        ctx2 = K.biased_attention(qkv2, nH, S, sc, key_bias=kb)
+        bwd = (x2, qkv2, ctx2, g.view(M, C), wq, wp, kb, S, sc, nH)
+        chk.case("fused_seq_attention_bwd",
+                 lambda bwd=bwd: blocks.fused_seq_attention_bwd(*bwd),
+                 lambda bwd=bwd: blocks.fused_seq_attention_bwd_plain(*bwd),
+                 BLOCK_BAR, floor=1e-6,
+                 library_fn=library_backward(lib_seq, (x, wq, bq, wp, bp), g),
+                 flops=2 * 2.0 * M * C * 4 * C
+                 + 10.0 * B * nH * S * S * Dh,
+                 nbytes=nbytes(x2, qkv2, ctx2, g, wq, wp, kb, x2)
+                 + 4 * (4 * C * C + 4 * C))
+
+    # row 10 at Swin-S stage 3, b32, shifted: four patterns; library: the
+    # bf16 F.layer_norm / F.linear / SDPA / F.gelu block
+    res, C, nH = 14, 384, 12
+    nW = (res // 7) ** 2
+    BW, Dh, sc = B * nW, C // nH, (C // nH) ** -0.5
+    x = rnd(BW, N, C)
+    params = (*ln(C), *dense(C, 3 * C), *dense(C, C), *ln(C),
+              *dense(C, 4 * C), *dense(4 * C, C))
+    lparams = (*bf16_ln(*params[0:2]), *params[2:6], *bf16_ln(*params[6:8]),
+               *params[8:])
+    mask = torch.as_tensor(shifted_window_mask(res, res, 7, 3), device=dev)
+    pat = (rnd(1, nH, N, N, std=0.5, dtype=f32) + mask[:, None]).contiguous()
+    lmask = pat.to(bf)[torch.arange(BW, device=dev) % nW]
+    chk.case("full_forward_windows",
+             lambda: blocks.full_forward_windows(x, params, pat, sc, nH),
+             lambda: blocks.full_forward_windows_plain(x, params, pat, sc,
+                                                       nH), BLOCK_BAR,
+             library_fn=lambda: lib_swin_block(x, lparams, lmask, sc, nH),
+             flops=2.0 * BW * N * C * 12 * C + 4.0 * BW * nH * N * N * Dh,
+             nbytes=nbytes(x, *params, pat, x))
+
+
 def launch_counts() -> dict:
     from mvlt_tpu_torch.ops import blocks, kernels
     counts = {k.__name__: k.launches for k in kernels.KERNELS}
@@ -1429,6 +1642,16 @@ def switches(on: bool):
                 os.environ[k] = v
 
 
+def backbone_route(attn_impl: str):
+    """A context in which models are built with their Swin backbone on
+    ``attn_impl``, set as the JAX package's tests set it: the adapter's
+    ``SwinTransformer`` patched with ``functools.partial(...,
+    attn_impl=...)`` (the adapter passes no option, as in JAX)."""
+    from mvlt_tpu_torch.models.backbones import adapter, swin
+    return mock.patch.object(adapter, "SwinTransformer", functools.partial(
+        swin.SwinTransformer, attn_impl=attn_impl))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -1457,6 +1680,7 @@ def main() -> int:
     pretrain_kernel_checks(chk, dev)
     swin_kernel_checks(chk, dev)
     optin_kernel_checks(chk, dev)
+    attn_impl_kernel_checks(chk, dev)
     with switches(False):
         by_path = {"vqa_forward": forward_phase(dev, card),
                    "vqa_train_step": train_phase(dev, card),
@@ -1465,13 +1689,19 @@ def main() -> int:
                                                               swin=True)}
     by_path["swin_pretrain_switches_train_step"] = pretrain_phase(
         dev, card, timed_steps=10, swin=True, with_switches=True)
+    with switches(False):
+        by_path["vqa_forward_pallas"] = forward_phase(dev, card,
+                                                      attn_impl="pallas")
+        by_path["swin_pretrain_pallas_train_step"] = pretrain_phase(
+            dev, card, timed_steps=4, swin=True, attn_impl="pallas")
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
 
     rows = []
     counterparts = {**EXPECTED, **EXPECTED_TRAIN, **EXPECTED_PRETRAIN,
-                    **EXPECTED_SWITCHES}
+                    **EXPECTED_SWITCHES, **EXPECTED_PALLAS,
+                    **EXPECTED_SWIN_PALLAS}
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces})
@@ -1546,21 +1776,28 @@ def compare_grads(model_k, model_p, what: str, bars=resnet_bars) -> None:
                              f"{failures[:5]}")
 
 
-def forward_phase(dev, card: str) -> dict:
-    """The flagship b8 VQA forward: launch counts, logits vs plain, times.
-    Returns the launch counts of one forward."""
+def forward_phase(dev, card: str, attn_impl: str = "auto") -> dict:
+    """The flagship b8 VQA forward with the backbone on ``attn_impl``:
+    launch counts, logits vs plain, times (in turns with the plain versions,
+    or, on 'pallas', with the forward on 'auto'). Returns the launch counts
+    of one forward."""
     from mvlt_tpu_torch.flagship import build_vqa_forward
     from mvlt_tpu_torch.ops import kernels
+    pallas = attn_impl == "pallas"
+    gc.collect()
     t0 = time.perf_counter()
-    forward, (image, question) = build_vqa_forward(batch=8, device=dev)
-    print(f"flagship model built in {time.perf_counter() - t0:.1f} s; "
-          f"padded question tokens {(question == 0).sum().item()}", flush=True)
+    with backbone_route(attn_impl):
+        forward, (image, question) = build_vqa_forward(batch=8, device=dev)
+    print(f"flagship model (attn_impl={attn_impl!r}) built in "
+          f"{time.perf_counter() - t0:.1f} s; padded question tokens "
+          f"{(question == 0).sum().item()}", flush=True)
     reset_counts()
     logits = forward(image, question)
     torch.cuda.synchronize()
     counts = launch_counts()
-    print(f"launches in one forward: {json.dumps(counts)}", flush=True)
-    for name, (want, _) in EXPECTED.items():
+    print(f"launches in one forward (attn_impl={attn_impl!r}): "
+          f"{json.dumps(counts)}", flush=True)
+    for name, (want, _) in (EXPECTED_PALLAS if pallas else EXPECTED).items():
         if counts[name] != want:
             raise AssertionError(f"{name} ran {counts[name]} times in one "
                                  f"forward, expected {want}")
@@ -1582,18 +1819,23 @@ def forward_phase(dev, card: str) -> dict:
         raise AssertionError(f"forward logits differ from plain: {err} > "
                              f"{LOGITS_BAR * scale}")
 
-    times = {"kernels": [], "plain": []}
-    for which in ("plain", "kernels", "kernels", "plain"):
-        times[which].append(cuda_ms(
-            lambda: forward(image, question, plain=(which == "plain")),
-            iters=10, warmup=2))
-    ms_k = sum(times["kernels"]) / 2
-    ms_p = sum(times["plain"]) / 2
-    print(f"flagship b8 forward on {card}: kernels {ms_k:.3f} ms "
-          f"({8e3 / ms_k:.1f} samples/s), plain {ms_p:.3f} ms "
-          f"({8e3 / ms_p:.1f} samples/s); runs {json.dumps(times)}",
-          flush=True)
-    del forward
+    if pallas:            # the same weights on 'auto', timed in turns
+        auto, _ = build_vqa_forward(batch=8, device=dev)
+        calls = {"auto": lambda: auto(image, question),
+                 "pallas": lambda: forward(image, question)}
+        turns = ("auto", "pallas", "pallas", "auto")
+    else:
+        calls = {"plain": lambda: forward(image, question, plain=True),
+                 "kernels": lambda: forward(image, question)}
+        turns = ("plain", "kernels", "kernels", "plain")
+    times = {t: [] for t in calls}
+    for which in turns:
+        times[which].append(cuda_ms(calls[which], iters=10, warmup=2))
+    ms = {t: sum(v) / 2 for t, v in times.items()}
+    print(f"flagship b8 forward on {card}: " + ", ".join(
+        f"{t} {v:.3f} ms ({8e3 / v:.1f} samples/s)" for t, v in ms.items())
+        + f"; runs {json.dumps(times)}", flush=True)
+    del forward, calls
     return counts
 
 
@@ -1672,7 +1914,8 @@ def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
 
 
 def pretrain_phase(dev, card: str, timed_steps: int = 6,
-                   swin: bool = False, with_switches: bool = False) -> dict:
+                   swin: bool = False, with_switches: bool = False,
+                   attn_impl: str = "auto") -> dict:
     """The MLM+ITM pretrain train step (ResNet-101, or with ``swin`` the
     step of record on Swin-S with DropPath 0.3, + BERT-base, S = 131, b32,
     dropout 0.1) on the kernels and on the plain versions from one seed;
@@ -1683,7 +1926,10 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     ``MVLT_KERNEL_DROPOUT`` and ``MVLT_STOREP`` set (the plain run replays
     the kernel run's seeds as well), and the turns are the kernel step with
     the switches off and on (off, on, on, off), each with its peak memory.
-    Returns the launch counts of one step."""
+    With ``attn_impl='pallas'`` (Swin-S) the backbone is on that route in
+    both runs, and the turns are the kernel step on 'auto' and on 'pallas'
+    (auto, pallas, pallas, auto), each with its peak memory. Returns the
+    launch counts of one step."""
     from mvlt_tpu_torch import flagship
     from mvlt_tpu_torch.ops import kernels
     from mvlt_tpu_torch.ops.layers import DropoutMasks
@@ -1691,17 +1937,22 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     B = TRAIN_BATCH
     build = (flagship.build_swin_pretrain_train_step if swin
              else flagship.build_pretrain_train_step)
+    pallas = attn_impl == "pallas"
     expected = (EXPECTED_SWITCHES if with_switches
+                else EXPECTED_SWIN_PALLAS if pallas
                 else EXPECTED_SWIN_PRETRAIN if swin else EXPECTED_PRETRAIN)
     label = "Swin-S pretrain step" if swin else "pretrain step"
     if with_switches:
         label += " with MVLT_KERNEL_DROPOUT=1 MVLT_STOREP=1"
+    if pallas:
+        label += " with attn_impl='pallas'"
     gc.collect()          # a step refers to itself: free the last phase's
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    step_k, batch = build(batch=B, text_len=PRETRAIN_TEXT, device=dev)
-    step_p, batch_p = build(batch=B, text_len=PRETRAIN_TEXT, device=dev,
-                            plain=True)
+    with backbone_route(attn_impl):
+        step_k, batch = build(batch=B, text_len=PRETRAIN_TEXT, device=dev)
+        step_p, batch_p = build(batch=B, text_len=PRETRAIN_TEXT, device=dev,
+                                plain=True)
     n_params = sum(p.numel() for p in step_k.model.parameters())
     labels = (batch["caption_label"] != -100).sum().item()
     print(f"{label} built twice in {time.perf_counter() - t0:.1f} s: "
@@ -1766,13 +2017,20 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
                 raise AssertionError(f"step {i + 1} {name} {a} vs plain {b} "
                                      f"beyond {LOSS_BAR} relative")
 
-    # turns: plain vs kernels, or the kernel step with the switches off / on
+    # turns: plain vs kernels, the kernel step with the switches off / on,
+    # or the kernel step on 'auto' / 'pallas'
     turns = (("off", "on", "on", "off") if with_switches
+             else ("auto", "pallas", "pallas", "auto") if pallas
              else ("plain", "kernels", "kernels", "plain"))
+    steps = {"plain": (step_p, batch_p)}
+    if pallas:
+        del step_p, steps["plain"]
+        gc.collect()
+        steps["auto"] = build(batch=B, text_len=PRETRAIN_TEXT, device=dev)
     times = {t: [] for t in turns}
     peak, resident = {}, {}
     for which in turns:
-        step, b = (step_p, batch_p) if which == "plain" else (step_k, batch)
+        step, b = steps.get(which, (step_k, batch))
         with switches(which == "on"):
             step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
             flips = torch.Generator().manual_seed(0)
@@ -1792,13 +2050,15 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     ms = {t: sum(v) / len(v) for t, v in times.items()}
     gib = {t: f"{v / 2 ** 30:.3f} GiB (with {resident[t] / 2 ** 30:.3f} GiB "
               "resident, both models)" for t, v in peak.items()}
-    if with_switches:
+    if with_switches or pallas:
+        a, b = turns[:2]
+        what = "switches" if with_switches else "attn_impl"
         print(f"MLM+ITM Swin-S pretrain step b{B} (S = 131) on {card}, "
-              f"kernels: switches off {ms['off']:.3f} ms/step "
-              f"({B * 1e3 / ms['off']:.1f} samples/s), on {ms['on']:.3f} "
-              f"ms/step ({B * 1e3 / ms['on']:.1f} samples/s); runs "
-              f"{json.dumps(times)}; peak memory off {gib['off']}, on "
-              f"{gib['on']}", flush=True)
+              f"kernels: {what} {a} {ms[a]:.3f} ms/step "
+              f"({B * 1e3 / ms[a]:.1f} samples/s), {b} {ms[b]:.3f} "
+              f"ms/step ({B * 1e3 / ms[b]:.1f} samples/s); runs "
+              f"{json.dumps(times)}; peak memory {a} {gib[a]}, {b} "
+              f"{gib[b]}", flush=True)
     else:
         ms_k, ms_p = ms["kernels"], ms["plain"]
         print(f"MLM+ITM {label} b{B} (S = 131) on {card}: kernels "

@@ -1,6 +1,14 @@
 // K2 `biased_attention`: for each (group g, head h)
-//   ctx[g*N + i, h*Dh + d] = sum_j softmax_j((q_i * scale) . k_j + bias_ij) * v_jd
-// read from fused QKV rows (rows = G*N, 3C) in bf16, for sm_90a.
+//   ctx[g, h, i, d] = sum_j softmax_j((q_i * scale) . k_j + bias_ij) * v_jd
+// in bf16, for sm_90a. q, k and v are read, and ctx written, through explicit
+// element strides per group, head and row (the head dim is contiguous), so one
+// kernel takes two layouts without a copy:
+//   packed rows: q, k, v the three C-wide column blocks of fused QKV rows
+//     (G*N, 3C) (strides N*3C, Dh, 3C), ctx rows (G*N, C) (N*C, Dh, C): the
+//     fused TPU kernels' layout;
+//   head-major: q, k, v (G, nH, N, Dh) as `window_attention` (pallas_attn.py
+//     :112, body `_kernel` :40) takes them, ctx written as (G, N, nH, Dh) rows
+//     that the proj reads without a transpose.
 //
 //   bias_ij = pattern[g % P, h, i, j]   (optional; the Swin relative-position
 //                                        bias, with the -100 shift mask folded
@@ -26,10 +34,12 @@
 //
 // Replaces the attention core of the TPU kernels in
 // mvlt_tpu/ops/pallas_attn.py: `_attend` as called from `_full_body`
-// (`_full_kernel`, `_full_shift_kernel`), `_block_kernel` and
-// `_attn_ln_kernel`. It holds their exact (interpret-mode) math: scores in
-// f32 from q scaled in f32, a max-subtracted softmax with an exact divide,
-// probabilities rounded to bf16 before the PV product, PV accumulated in f32.
+// (`_full_kernel`, `_full_shift_kernel`), `_block_kernel`, `_attn_ln_kernel`,
+// `_attn_half_kernel`, `_seq_attn_kernel` and `_full_kernel_windows`, and
+// the whole of `_kernel` (`window_attention`). It holds their exact
+// (interpret-mode) math: scores in f32 from q scaled in f32, a max-subtracted
+// softmax with an exact divide, probabilities rounded to bf16 before the PV
+// product, PV accumulated in f32.
 //
 // Bound: tiny per block (N <= 162, Dh <= 64: at most ~7 MFLOP), so the cost is
 // reading QKV (and the masks) once and writing ctx once. One block per
@@ -63,11 +73,13 @@ static_assert(smem_bytes(MAX_N, MAX_DH) <= H100_SMEM_OPTIN && smem_bytes(MAX_N +
               "MAX_N follows smem_bytes");
 
 __global__ void __launch_bounds__(THREADS)
-attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ pattern,
+attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, long long in_g, long long in_h, long long in_n,
+                 long long out_g, long long out_h, long long out_n, const float* __restrict__ pattern,
                  const float* __restrict__ kbias, const float* __restrict__ qbias,
                  const __nv_bfloat16* __restrict__ amask, const int* __restrict__ seed, uint32_t thresh,
                  float kept, __nv_bfloat16* __restrict__ ctx, __nv_bfloat16* __restrict__ p_out,
-                 float* __restrict__ mask_out, int N, int C, int Dh, int P, float scale) {
+                 float* __restrict__ mask_out, int N, int Dh, int P, float scale) {
   extern __shared__ __align__(16) float sm[];
   const int ldk = Dh + 1;  // odd row stride: threads on consecutive keys hit distinct banks
   const int lds = N + 1;
@@ -80,15 +92,14 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict_
   const int g = blockIdx.y;
   const int nH = gridDim.x;
   const int tid = threadIdx.x;
-  const size_t row0 = (size_t)g * N;
-  const int ld = 3 * C;
+  const long long in0 = g * in_g + h * in_h;
 
   for (int e = tid; e < N * Dh; e += THREADS) {
     int n = e / Dh, d = e % Dh;
-    const __nv_bfloat16* r = qkv + (row0 + n) * ld + h * Dh + d;
-    Q[n * Dh + d] = __bfloat162float(r[0]) * scale;
-    Kt[n * ldk + d] = __bfloat162float(r[C]);
-    V[n * Dh + d] = __bfloat162float(r[2 * C]);
+    const long long off = in0 + n * in_n + d;
+    Q[n * Dh + d] = __bfloat162float(q[off]) * scale;
+    Kt[n * ldk + d] = __bfloat162float(k[off]);
+    V[n * Dh + d] = __bfloat162float(v[off]);
   }
   __syncthreads();
 
@@ -142,12 +153,13 @@ attention_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict_
   }
   __syncthreads();
 
+  const long long out0 = g * out_g + h * out_h;
   for (int e = tid; e < N * Dh; e += THREADS) {
     int i = e / Dh, d = e % Dh;
     const float* p = S + i * lds;
     float acc = 0.f;
     for (int j = 0; j < N; ++j) acc = fmaf(p[j], V[j * Dh + d], acc);
-    ctx[(row0 + i) * C + h * Dh + d] = __float2bfloat16(acc);
+    ctx[out0 + i * out_n + d] = __float2bfloat16(acc);
   }
 }
 
@@ -170,18 +182,20 @@ extern "C" int mvlt_smem_optin(void) { return smem_optin(); }
 // Shared memory one block needs for (N, Dh); the wrapper checks it against the card's opt-in limit.
 extern "C" long long mvlt_attention_smem(int N, int Dh) { return (long long)smem_bytes(N, Dh); }
 
-// pattern (P, nH, N, N) f32, kbias (G, N) f32, qbias (G, N, N) f32 and amask (G, nH, N, N) bf16 may
-// each be null. seed: null, or (2,) int32 16-bit halves for mode (a), which keeps an element iff its
-// Philox word < thresh and then multiplies by kept; amask must be null with it, and nH <= 256.
+// q, k, v: bf16, element (g, h, n, d) at g * in_g + h * in_h + n * in_n + d; ctx: bf16, element
+// (g, h, i, d) at g * out_g + h * out_h + i * out_n + d. pattern (P, nH, N, N) f32, kbias (G, N) f32,
+// qbias (G, N, N) f32 and amask (G, nH, N, N) bf16 may each be null. seed: null, or (2,) int32 16-bit
+// halves for mode (a), which keeps an element iff its Philox word < thresh and then multiplies by kept;
+// amask must be null with it, and nH <= 256.
 // p_out (G, nH, N, N) bf16 (mode (b)) and mask_out (G, nH, N, N) f32 (mode (a) only) may be null.
-extern "C" int mvlt_attention(const void* qkv, const void* pattern, const void* kbias, const void* qbias,
-                              const void* amask, const void* seed, void* ctx, void* p_out, void* mask_out,
-                              int G, int N, int C, int nH, int P, float scale, unsigned int thresh,
-                              float kept, void* stream) {
-  if (N < 1 || nH < 1 || C % nH != 0 || C / nH > MAX_DH) return (int)cudaErrorInvalidValue;
+extern "C" int mvlt_attention(const void* q, const void* k, const void* v, long long in_g, long long in_h,
+                              long long in_n, void* ctx, long long out_g, long long out_h, long long out_n,
+                              const void* pattern, const void* kbias, const void* qbias, const void* amask,
+                              const void* seed, void* p_out, void* mask_out, int G, int N, int nH, int Dh,
+                              int P, float scale, unsigned int thresh, float kept, void* stream) {
+  if (N < 1 || nH < 1 || Dh < 1 || Dh > MAX_DH) return (int)cudaErrorInvalidValue;
   if (seed != nullptr && (amask != nullptr || nH > 256)) return (int)cudaErrorInvalidValue;
   if (mask_out != nullptr && seed == nullptr) return (int)cudaErrorInvalidValue;
-  const int Dh = C / nH;
   const size_t smem = smem_bytes(N, Dh);
   const int optin = smem_optin();
   if (optin < 0 || smem > (size_t)optin) return (int)cudaErrorInvalidValue;
@@ -193,11 +207,13 @@ extern "C" int mvlt_attention(const void* qkv, const void* pattern, const void* 
     attr_bytes = smem;
   }
   dim3 grid(nH, G);
+  using bf = const __nv_bfloat16*;
   attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(pattern),
+      static_cast<bf>(q), static_cast<bf>(k), static_cast<bf>(v), in_g, in_h, in_n, out_g, out_h, out_n,
+      static_cast<const float*>(pattern),
       static_cast<const float*>(kbias), static_cast<const float*>(qbias),
       static_cast<const __nv_bfloat16*>(amask), static_cast<const int*>(seed), thresh, kept,
-      static_cast<__nv_bfloat16*>(ctx), static_cast<__nv_bfloat16*>(p_out), static_cast<float*>(mask_out), N, C,
+      static_cast<__nv_bfloat16*>(ctx), static_cast<__nv_bfloat16*>(p_out), static_cast<float*>(mask_out), N,
       Dh, P, scale);
   return (int)cudaGetLastError();
 }

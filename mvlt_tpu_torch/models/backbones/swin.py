@@ -24,6 +24,15 @@ kernels ran:
   heads whose window-pair-merged N is <= 128 stores its softmax for the
   backward (:func:`stores_p`; the 18 stage-3 blocks of Swin-S).
 
+``SwinTransformer(..., attn_impl='pallas')`` routes every block, serving and
+training, through JAX's plain route (``swin.py:338-366``) with
+``window_attention`` as the attention: LN1 -> qkv dense -> ``window_attention``
+-> proj dense -> ``x + DropPath`` -> LN2 -> ``Mlp`` -> ``+ DropPath``, the
+shift done by roll, each DropPath mask a (B, 1, 1) draw as flax draws it
+(:func:`~mvlt_tpu_torch.ops.layers.drop_path_masks`). ``'auto'`` (the
+default) is the routing above; JAX's other values are not ported
+(:func:`check_attn_impl`). ``VisualAdapter`` passes no option, as in JAX.
+
 The relative-position bias is built as JAX builds it, ``onehot @ table``
 (``rel_bias_from_table``, ``swin.py:67-85``), so its backward is a product and
 not a scatter with atomics; serving caches the built bias.
@@ -40,6 +49,7 @@ from torch import nn
 
 from mvlt_tpu_torch.config import SwinConfig
 from mvlt_tpu_torch.ops.layers import (SWIN_LN_EPS, Dense, LayerNorm, Mlp,
+                                       drop_path, drop_path_masks,
                                        drop_path_multipliers)
 from mvlt_tpu_torch.utils.env import env_flag
 
@@ -104,12 +114,57 @@ def uses_half_blocks(dim: int) -> bool:
 
     On the TPU the whole-block kernel needs its 12*C^2 bf16 weights in
     12 MB of VMEM (``weights_fit``, swin.py:272); wider blocks take the
-    pre-LN halves (swin.py:307-313). At those widths ``swin_attn_half``
-    finds no 8-aligned window group and falls back to LN1 + ``_block_kernel``
-    + residual (pallas_attn.py:3289), followed by ``fused_mlp_preln``. At
-    Swin-S 224 that is stage 4 (C = 768). The port keeps this routing so that
-    the flagship path runs each of the six counterparts."""
+    pre-LN halves (swin.py:307-313): ``swin_attn_half`` then
+    ``fused_mlp_preln``. At Swin-S 224 that is stage 4 (C = 768). The port
+    keeps this routing so that the flagship path runs each of the six
+    counterparts."""
     return 12 * dim * dim * 2 > 12 * 1024 * 1024
+
+
+def attn_half_admits(n_windows: int, N: int, C: int, n_patterns: int,
+                     group: int = 16) -> bool:
+    """Whether JAX's ``swin_attn_half`` runs its own kernel
+    (``_attn_half_kernel``) on (n_windows, N, C) windows with
+    ``n_patterns`` bias patterns, rather than its fallback, LN1 +
+    ``_block_kernel`` + residual (``_block_forward_with_ln_fallback``,
+    pallas_attn.py:3326). A copy of the pair-merge rule (``_can_merge_pairs``
+    / ``_merge_window_pairs``, :227-246) and the group search (:3279-3293):
+    a group of G windows (halved from ``group``, or ``group // 2`` merged)
+    must be 8-row aligned, divide the windows and the patterns, and keep
+    its working set within 4 MiB unless G is 1. At Swin-S 224, stage 4 (N =
+    49, merged 98) falls back; a C = 768 stage of window 12 (N = 144) or 8
+    (merged N = 128) admits."""
+    BW, n, P, G = n_windows, N, n_patterns, group
+    if n <= 64 and BW % 2 == 0 and (P == 1 or P % 2 == 0):
+        BW, n, P, G = BW // 2, 2 * n, max(P // 2, 1), max(group // 2, 1)
+
+    def misfit(G):
+        return (G * n) % 8 != 0 or BW % G != 0 or (P > 1 and P % G != 0)
+    while G > 1 and (misfit(G) or G * n * C * (4 + 3 + 2) * 4 > 4 * 1024 ** 2):
+        G //= 2
+    return not misfit(G)
+
+
+# JAX's attn_impl values that the port does not route (JAX's interpret
+# modes run its Pallas kernels on the CPU, for its tests)
+_UNPORTED_ATTN_IMPLS = ("xla", "pallas_block", "interpret", "interpret_full",
+                        "interpret_half", "interpret_block")
+
+
+def check_attn_impl(attn_impl: str) -> str:
+    """``attn_impl`` if the port routes it (``'auto'`` or ``'pallas'``);
+    JAX's other values raise ``NotImplementedError``, anything else
+    ``ValueError``."""
+    if attn_impl in ("auto", "pallas"):
+        return attn_impl
+    if attn_impl in _UNPORTED_ATTN_IMPLS:
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r} is not ported: the port routes 'auto' "
+            "and 'pallas'; 'xla' and 'pallas_block' are ROADMAP.md queue A, "
+            "and the 'interpret*' values are the JAX package's CPU modes")
+    raise ValueError(f"unknown attn_impl {attn_impl!r}: the port routes "
+                     "'auto' and 'pallas' (ROADMAP.md queue A lists the rest "
+                     "of the JAX package's values)")
 
 
 def stores_p(num_heads: int, N: int, n_windows: int, n_patterns: int,
@@ -136,8 +191,10 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float, qkv_bias: bool, qk_scale,
-                 drop_path: float = 0.0, *, dtype: torch.dtype, device):
+                 drop_path: float = 0.0, *, dtype: torch.dtype, device,
+                 attn_impl: str = "auto"):
         super().__init__()
+        self.attn_impl = check_attn_impl(attn_impl)
         H, W = input_resolution
         window, shift = window_size, shift_size
         if min(input_resolution) <= window:
@@ -190,6 +247,8 @@ class SwinBlock(nn.Module):
     def forward(self, x: torch.Tensor, ops, masks=None) -> torch.Tensor:
         """x (B, H*W, C); ``masks`` (a :class:`DropoutMasks`) turns DropPath
         on."""
+        if self.attn_impl == "pallas":
+            return self._pallas_forward(x, ops, masks)
         H, W = self.resolution
         B, L, C = x.shape
         window, shift = self.window, self.shift
@@ -221,18 +280,50 @@ class SwinBlock(nn.Module):
                                     self.num_heads, shift_spec=spec)
         return window_reverse(y, window, H, W).reshape(B, L, C)
 
+    def _pallas_forward(self, x, ops, masks):
+        """JAX's plain route (swin.py:338-366) with ``window_attention``."""
+        H, W = self.resolution
+        B, L, C = x.shape
+        window, shift, nH = self.window, self.shift, self.num_heads
+        h = self.norm1(x, ops).view(B, H, W, C)
+        if shift:
+            h = torch.roll(h, (-shift, -shift), (1, 2))
+        windows = window_partition(h, window)
+        BW, N = windows.shape[:2]
+        q, k, v = self.qkv(windows, ops).view(BW, N, 3, nH, C // nH).permute(
+            2, 0, 3, 1, 4).unbind(0)
+        ctx = ops.window_attention(q, k, v, self.attention_bias(), self.scale)
+        a = self.proj(ctx.transpose(1, 2).reshape(BW, N, C), ops)
+        a = window_reverse(a, window, H, W)
+        if shift:
+            a = torch.roll(a, (shift, shift), (1, 2))
+        m1, m2 = drop_path_masks(masks, self.drop_path, B, x.device) or (
+            None, None)
+        x = x + drop_path(a.reshape(B, L, C), m1, self.drop_path)
+        y = self.mlp(self.norm2(x, ops), ops)
+        return x + drop_path(y, m2, self.drop_path)
+
     def _half_blocks(self, windows, bias, ops):
-        """LN1 -> window_block_attention (+x) -> fused_mlp_preln."""
+        """``swin_attn_half`` where JAX's would run its own kernel
+        (:func:`attn_half_admits`), else its fallback, LN1 ->
+        ``window_block_attention`` (+x); then ``fused_mlp_preln``."""
         if self.shift:
             # the half route serves only stages whose map fits one window
             # (Swin-S / Swin-B stage 4); a shifted wide stage is not ported
             raise NotImplementedError(
                 f"shifted Swin block at width {self.dim} (half-block route)")
-        h = self.norm1(windows, ops)
-        y = ops.window_block_attention(
-            h, self.qkv.weight, self.qkv.bias, self.proj.weight,
-            self.proj.bias, bias, self.scale, self.num_heads,
-            residual=windows)
+        BW, N, C = windows.shape
+        if attn_half_admits(BW, N, C, bias.shape[0]):
+            y = ops.swin_attn_half(windows, self.norm1.weight,
+                                   self.norm1.bias, self.qkv.weight,
+                                   self.qkv.bias, self.proj.weight,
+                                   self.proj.bias, bias, self.scale,
+                                   self.num_heads)
+        else:
+            y = ops.window_block_attention(
+                self.norm1(windows, ops), self.qkv.weight, self.qkv.bias,
+                self.proj.weight, self.proj.bias, bias, self.scale,
+                self.num_heads, residual=windows)
         return ops.fused_mlp_preln(y, self.norm2.weight, self.norm2.bias,
                                    self.mlp.fc1.weight, self.mlp.fc1.bias,
                                    self.mlp.fc2.weight, self.mlp.fc2.bias)
@@ -285,12 +376,14 @@ class SwinTransformer(nn.Module):
     """Hierarchical Swin encoder returning all final-stage tokens
     (B, H/32 * W/32, num_features) after the final LN (swin.py:587-649).
     ``dtype`` is the parameters' dtype, ``compute_dtype`` (default: the
-    same) the activations'."""
+    same) the activations'. ``attn_impl`` ('auto' or 'pallas') goes to
+    every block, as JAX's option does."""
 
     def __init__(self, config: SwinConfig, *, dtype: torch.dtype, device,
-                 compute_dtype=None):
+                 compute_dtype=None, attn_impl: str = "auto"):
         super().__init__()
         cfg = config
+        self.attn_impl = check_attn_impl(attn_impl)
         if cfg.ape:
             raise NotImplementedError(
                 "absolute position embedding (ape=True) is not ported yet; "
@@ -312,7 +405,8 @@ class SwinTransformer(nn.Module):
                 SwinBlock(dim, res, cfg.num_heads[i], cfg.window_size,
                           0 if j % 2 == 0 else cfg.window_size // 2,
                           cfg.mlp_ratio, cfg.qkv_bias, cfg.qk_scale,
-                          float(dpr[offset + j]), dtype=dtype, device=device)
+                          float(dpr[offset + j]), dtype=dtype, device=device,
+                          attn_impl=attn_impl)
                 for j in range(cfg.depths[i])]))
             if i < cfg.num_layers - 1:
                 self.downsamples.append(PatchMerging(res, dim, dtype=dtype,

@@ -1,6 +1,8 @@
 """The TPU kernels of the VQA forward, of the fusion encoder's training
-steps (VQA finetune, MLM+ITM pretrain) and of the Swin backbone's training
-step, rebuilt from K1-K5.
+steps (VQA finetune, MLM+ITM pretrain), of the Swin backbone's training
+step and of its ``attn_impl='pallas'`` route, and the three that no entry
+point reaches, rebuilt from K1-K5: every ``pl.pallas_call`` of
+``mvlt_tpu/ops/pallas_attn.py`` has a counterpart here.
 
 Each public function is named after its JAX counterpart in
 ``mvlt_tpu/ops/pallas_attn.py`` and takes the same arguments, with dense
@@ -50,6 +52,19 @@ port function                TPU kernel it replaces
 ``attention_core_bwd(p2=)``  ``_core_bwd_storep_kernel`` (:3859, entry
                              ``attention_core_bwd_flat`` :3898 with
                              ``p2``), on K4(stored p)
+``window_attention``         ``_kernel`` (:40, entry ``window_attention``
+                             :112), on K2's head-major mode; backward
+                             ``window_attention_bwd`` (``_bwd`` :128) on
+                             K4's pattern mode
+``swin_attn_half``           ``_attn_half_kernel`` (:3228, entry :3272),
+                             on K3 + K1 + K2 + K1
+``fused_seq_attention``      ``_seq_attn_kernel`` (:334, entry :386), on
+                             K1 + K2 + K1; backward
+                             ``fused_seq_attention_bwd`` (``_seq_bwd``
+                             :440) on K1 + K4 + K5
+``full_forward_windows``     ``_full_kernel_windows`` (:1161, entry
+                             ``_full_forward_windows`` :1206), as
+                             ``swin_full_block``
 ===========================  ==========================================
 
 The masked twins take the dropout masks as inputs, as the JAX kernels do
@@ -140,6 +155,8 @@ KERNEL_OPS = SimpleNamespace(gemm=kernels.gemm,
 PLAIN_OPS = SimpleNamespace(gemm=kernels.gemm_plain,
                             attention=kernels.biased_attention_plain,
                             layernorm=kernels.layernorm_plain)
+KERNEL_OPS.attention_heads = kernels.biased_attention_heads
+PLAIN_OPS.attention_heads = kernels.biased_attention_heads_plain
 KERNEL_OPS.attention_bwd = kernels.biased_attention_bwd
 KERNEL_OPS.layernorm_bwd = kernels.layernorm_bwd
 KERNEL_OPS.column_sum = kernels.column_sum
@@ -559,6 +576,122 @@ def _mlp_ln_half_bwd(p, x2, res2, g2, hmask2, w1, b1, w2, lns,
     return dx, dw1, db1, dw2, db2, dlns, dlnb
 
 
+def _full_forward_windows(p, x, params, bias, scale: float, num_heads: int):
+    return _swin_full_block(p, x, params, bias, scale, num_heads)
+
+
+def _swin_attn_half(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias,
+                    scale: float, num_heads: int):
+    if _needs_grad(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias):
+        raise NotImplementedError(
+            "swin_attn_half has no backward in the port: the JAX package "
+            "reaches it only in serving (deterministic=True); its VJP "
+            "(_attn_half_bwd, pallas_attn.py:3345) is ROADMAP.md queue A")
+    BW, N, C = x.shape
+    rows = x.reshape(BW * N, C)
+    h = p.layernorm(rows, ln1s, ln1b, SWIN_LN_EPS)
+    qkv = p.gemm(h, wqkv, bqkv)
+    ctx = p.attention(qkv, num_heads, N, scale, pattern=bias)
+    return p.gemm(ctx, wproj, bproj, residual=rows).view(BW, N, C)
+
+
+class _WindowAttention(torch.autograd.Function):
+    """``window_attention`` with the VJP of ``_bwd`` (pallas_attn.py:128)."""
+
+    @staticmethod
+    def forward(ctx, p, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.p, ctx.scale = p, scale
+        return p.attention_heads(q, k, v, scale, pattern=bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, dbias = ctx.p.window_attention_bwd(q, k, v, bias, g,
+                                                       ctx.scale)
+        return (None, dq, dk, dv, dbias if ctx.needs_input_grad[4] else None,
+                None)
+
+
+def _window_attention(p, q, k, v, bias, scale: float):
+    if len({q.stride(), k.stride(), v.stride()}) > 1:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    if _needs_grad(q, k, v, bias):
+        return _WindowAttention.apply(p, q, k, v, bias, scale)
+    return p.attention_heads(q, k, v, scale, pattern=bias)
+
+
+def _window_attention_bwd(p, q, k, v, bias, g, scale: float):
+    BW, nH, N, Dh = q.shape
+    C = nH * Dh
+    # into fused rows for K4's pattern mode, and dqkv back out as views
+    qkv = torch.empty(BW, N, 3, nH, Dh, dtype=q.dtype, device=q.device)
+    for i, t in enumerate((q, k, v)):
+        qkv[:, :, i].copy_(t.transpose(1, 2))
+    dctx = g.to(q.dtype).transpose(1, 2).reshape(BW * N, C).contiguous()
+    dqkv, _, dbias = p.attention_bwd(qkv.view(BW * N, 3 * C), dctx, nH, N,
+                                     scale, pattern=bias)
+    dq, dk, dv = dqkv.view(BW, N, 3, nH, Dh).permute(2, 0, 3, 1, 4).unbind(0)
+    return dq, dk, dv, dbias
+
+
+class _SeqAttention(torch.autograd.Function):
+    """``fused_seq_attention`` with the VJP of ``_seq_bwd`` (pallas_attn.py
+    :440) on saved fused rows."""
+
+    @staticmethod
+    def forward(ctx, p, x, wqkv, bqkv, wproj, bproj, kbias, scale,
+                num_heads):
+        B, N, C = x.shape
+        rows = x.reshape(B * N, C).contiguous()
+        qkv = p.gemm(rows, wqkv, bqkv)
+        attn = p.attention(qkv, num_heads, N, scale, key_bias=kbias)
+        ctx.save_for_backward(rows, qkv, attn, wqkv, bqkv, wproj, bproj,
+                              kbias)
+        ctx.p, ctx.dims = p, (B, N, C, scale, num_heads)
+        return p.gemm(attn, wproj, bproj).view(B, N, C)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, (B, N, C, scale, num_heads) = ctx.p, ctx.dims
+        rows, qkv, attn, wqkv, bqkv, wproj, bproj, kbias = ctx.saved_tensors
+        dx, dwqkv, dbqkv, dwproj, dbproj = p.fused_seq_attention_bwd(
+            rows, qkv, attn, g.reshape(B * N, C), wqkv, wproj, kbias, N,
+            scale, num_heads)
+        return (None, dx.view(B, N, C), _cast(dwqkv, wqkv), _cast(dbqkv, bqkv),
+                _cast(dwproj, wproj), _cast(dbproj, bproj), None, None, None)
+
+
+def _fused_seq_attention(p, x, wqkv, bqkv, wproj, bproj, kbias, scale: float,
+                         num_heads: int):
+    if _needs_grad(kbias):
+        raise NotImplementedError(
+            "fused_seq_attention gives the key bias no gradient: it is a "
+            "padding mask (JAX's _seq_bwd returns one; ROADMAP.md section C)")
+    if _needs_grad(x, wqkv, bqkv, wproj, bproj):
+        return _SeqAttention.apply(p, x, wqkv, bqkv, wproj, bproj, kbias,
+                                   scale, num_heads)
+    B, N, C = x.shape
+    qkv = p.gemm(x.reshape(B * N, C), wqkv, bqkv)
+    ctx = p.attention(qkv, num_heads, N, scale, key_bias=kbias)
+    return p.gemm(ctx, wproj, bproj).view(B, N, C)
+
+
+def _fused_seq_attention_bwd(p, x2, qkv2, ctx2, g2, wqkv, wproj, kbias,
+                             seq_n: int, scale: float, num_heads: int):
+    f32 = torch.float32
+    g2 = g2.to(x2.dtype).contiguous()
+    dwproj = p.gemm(g2, ctx2, layout="tn", out_dtype=f32)
+    dbproj = p.column_sum(g2)
+    dctx = p.gemm(g2, wproj, layout="nn")
+    dqkv, _ = p.attention_bwd(qkv2, dctx, num_heads, seq_n, scale,
+                              key_bias=kbias)
+    dwqkv = p.gemm(dqkv, x2, layout="tn", out_dtype=f32)
+    dbqkv = p.column_sum(dqkv)
+    dx = p.gemm(dqkv, wqkv, layout="nn")
+    return dx, dwqkv, dbqkv, dwproj, dbproj
+
+
 # the launch counts of a counterpart, one per TPU kernel it can stand for,
 # and the counts of the opt-in modes within them
 COUNTS = ("launches", "shift_launches", "train_launches",
@@ -753,8 +886,65 @@ K5 in pre-LN form with dres1 as the incoming residual gradient. Returns
 ``(dx (M, C) in the compute dtype, dwqkv, dbqkv, dln1s, dln1b)``, sums
 f32.""")
 
+window_attention, window_attention_plain = _twins(_window_attention, """\
+Swin window attention alone (``window_attention``, pallas_attn.py:112): q,
+k, v (BW, nH, N, Dh), bias (P, nH, N, N) f32, window w using ``bias[w %
+P]``. Returns ctx (BW, nH, N, Dh) in q's dtype: K2 in its head-major mode,
+reading q, k, v where they lie (views of the qkv product's rows are taken
+as they are) and writing ctx as (BW, N, nH, Dh) rows, of which the result
+is a view. Under autograd a ``torch.autograd.Function`` whose backward is
+``window_attention_bwd``.""")
+
+window_attention_bwd, window_attention_bwd_plain = _twins(
+    _window_attention_bwd, """\
+VJP of ``window_attention`` (``_bwd``, pallas_attn.py:128-147) for the
+cotangent g (BW, nH, N, Dh): K4's pattern mode on q, k, v copied into fused
+(BW*N, 3C) rows. p is recomputed in f32 and is not rounded (as in ``_bwd``);
+dbias is ds summed over the windows that share a pattern, in a fixed order
+(``segment_sum`` over w % P). Returns ``(dq, dk, dv)`` in q's dtype, views
+of one (BW, N, 3, nH, Dh) buffer, and ``dbias`` (P, nH, N, N) f32.""")
+
+swin_attn_half, swin_attn_half_plain = _twins(_swin_attn_half, """\
+Pre-LN Swin attention half ``x + proj(attn(qkv(LN1 x)))`` on (BW, N, C)
+windows (``swin_attn_half``, pallas_attn.py:3272, body ``_attn_half_kernel``
+:3228): K3 LN1 (f32 moments) -> K1 qkv -> K2 (patterns) -> K1 proj with x
+added in f32 in the epilogue. Serving only, as in JAX (which reaches it with
+``deterministic=True``): under autograd it raises.""")
+
+fused_seq_attention, fused_seq_attention_plain = _twins(
+    _fused_seq_attention, """\
+Fused qkv + bidirectional self-attention + out projection of the fusion
+encoder (``fused_seq_attention``, pallas_attn.py:386, body
+``_seq_attn_kernel`` :334): x (B, N, C), kbias (B, N) f32 additive key bias
+or None. K1 qkv -> K2 (key bias, N ragged: JAX pads N to a multiple of 8
+with a -1e9 key bias) -> K1 proj; no LN, no residual. Under autograd a
+``torch.autograd.Function`` whose backward is ``fused_seq_attention_bwd``;
+kbias gets no gradient and must not require one.""")
+
+fused_seq_attention_bwd, fused_seq_attention_bwd_plain = _twins(
+    _fused_seq_attention_bwd, """\
+VJP of ``fused_seq_attention`` (``_seq_bwd``, pallas_attn.py:440) from the
+saved rows x2 (M, C), qkv2 (M, 3C), ctx2 (M, C) and the cotangent g2 (M,
+C), M = B * seq_n: K1 tn dWproj, K5 column sum dbproj, K1 nn dctx, K4 with
+the key bias (the attention core, as in ``seq_attention_core_bwd``), K1 tn
+dWqkv, K5 column sum dbqkv, K1 nn dx. Returns ``(dx (M, C) in x2's dtype,
+dwqkv, dbqkv, dwproj, dbproj)``, the weight and bias grads f32 in the port's
+(out, in) layout.""")
+
+full_forward_windows, full_forward_windows_plain = _twins(
+    _full_forward_windows, """\
+The per-window whole Swin block (``_full_forward_windows``, pallas_attn.py
+:1206, body ``_full_kernel_windows`` :1161): the math of
+``swin_full_block`` (row 2) on x (BW, N, C), ``params`` its 12-tensor
+tuple, bias (P, nH, N, N). The TPU reaches it only as a layout fallback
+that no geometry takes (:1356); the port runs it on the same composition,
+K3 + K1 + K2 + K1 + K3 + K1 + K1.""")
+
 COUNTERPARTS = (swin_full_block, window_block_attention, fused_mlp_preln,
                 fused_attn_ln, fused_mlp_ln, fused_attn_ln_masked,
                 fused_mlp_ln_masked, seq_attention_core_bwd, mlp_ln_half_bwd,
                 swin_half_block, attention_core, attention_core_bwd,
-                swin_mlp_half_bwd, swin_qkv_tail_bwd, fused_attn_ln_adrop)
+                swin_mlp_half_bwd, swin_qkv_tail_bwd, fused_attn_ln_adrop,
+                window_attention, window_attention_bwd, swin_attn_half,
+                fused_seq_attention, fused_seq_attention_bwd,
+                full_forward_windows)

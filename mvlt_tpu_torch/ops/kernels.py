@@ -12,8 +12,11 @@ kernel on the ported paths is rebuilt from these in
 K2 and K4 have two opt-in modes each: in-kernel attention dropout from a
 device seed (``adrop=(seed, rate)``; the Philox stream of
 ``csrc/philox.cuh``, whose plain version is :func:`adrop_mask_plain`), and
-the stored softmax (K2 ``save_p=True`` writes p, K4 ``p=`` reads it). Each
-mode has a launch count of its own beside ``launches`` (``MODE_COUNTS``).
+the stored softmax (K2 ``save_p=True`` writes p, K4 ``p=`` reads it). K2
+reads q, k, v through explicit strides, so it also takes separate head-major
+(G, nH, N, Dh) tensors (:func:`biased_attention_heads`, the layout of
+``window_attention``). Each mode has a launch count of its own beside
+``launches`` (``MODE_COUNTS``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on PyTorch's current
@@ -55,8 +58,8 @@ _i64 = ctypes.c_longlong
 # C function -> (argument types, result type)
 _SIGNATURES = {
     "mvlt_gemm": ([_vp] * 10 + [_int] * 7 + [_vp], _int),
-    "mvlt_attention": ([_vp] * 9 + [_int] * 5 + [_float, _uint, _float, _vp],
-                       _int),
+    "mvlt_attention": ([_vp] * 3 + [_i64] * 3 + [_vp] + [_i64] * 3 + [_vp] * 7
+                       + [_int] * 5 + [_float, _uint, _float, _vp], _int),
     "mvlt_attention_smem": ([_int, _int], _i64),
     "mvlt_smem_optin": ([], _int),
     "mvlt_layernorm": ([_vp] * 5 + [_int, _int, _float, _int, _vp], _int),
@@ -599,20 +602,88 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
     tiles = (G, num_heads, N, N)
     pst = torch.empty(tiles, dtype=torch.bfloat16, device=dev) if save_p else None
     mask = torch.empty(tiles, dtype=torch.float32, device=dev) if save_mask else None
-    lib = build()["attention"]
-    _check(lib.mvlt_attention(_ptr(qkv), _ptr(pattern), _ptr(key_bias),
-                              _ptr(qbias), _ptr(amask), _ptr(seed), _ptr(ctx),
-                              _ptr(pst), _ptr(mask), G, N, C, num_heads, P,
-                              float(scale), thresh, kept, _stream(dev)),
-           "biased_attention")
-    biased_attention.launches += 1
+    # q, k, v: the three C-wide column blocks of the fused rows
+    col = C * qkv.element_size()
+    Dh = C // num_heads
+    _launch_attention([qkv.data_ptr() + i * col for i in range(3)],
+                      (N * 3 * C, Dh, 3 * C), ctx, (N * C, Dh, C), pattern,
+                      key_bias, qbias, amask, seed, pst, mask, G, N,
+                      num_heads, Dh, P, scale, thresh, kept)
     biased_attention.adrop_launches += adrop is not None
     biased_attention.save_p_launches += save_p
     return _with_extras(ctx, pst, mask)
 
 
+def _launch_attention(qkv_ptrs, in_strides, ctx, out_strides, pattern,
+                      key_bias, qbias, amask, seed, pst, mask, G, N, num_heads,
+                      Dh, P, scale, thresh, kept) -> None:
+    """One K2 launch: q, k, v at the addresses ``qkv_ptrs`` with element
+    strides ``in_strides`` (group, head, row), ctx with ``out_strides``."""
+    lib = build()["attention"]
+    _check(lib.mvlt_attention(*qkv_ptrs, *in_strides, _ptr(ctx), *out_strides,
+                              _ptr(pattern), _ptr(key_bias), _ptr(qbias),
+                              _ptr(amask), _ptr(seed), _ptr(pst), _ptr(mask),
+                              G, N, num_heads, Dh, P, float(scale), thresh,
+                              kept, _stream(ctx.device)), "biased_attention")
+    biased_attention.launches += 1
+
+
 biased_attention.launches = 0
 biased_attention.adrop_launches = biased_attention.save_p_launches = 0
+biased_attention.heads_launches = 0
+
+
+def _pattern_index(pattern, G: int, device):
+    """pattern[g % P] for each of G groups."""
+    return pattern.float()[torch.arange(G, device=device) % pattern.shape[0]]
+
+
+def biased_attention_heads_plain(q, k, v, scale: float, pattern=None):
+    """K2 on head-major tensors: q, k, v (G, nH, N, Dh); pattern (P, nH, N, N)
+    f32, group g using ``pattern[g % P]``. Returns ctx (G, nH, N, Dh) in
+    q's dtype: the softmax of ``(q * scale) k^T + pattern`` in f32, rounded
+    to q's dtype for the PV product, PV in f32 (``_kernel``, pallas_attn.py
+    :40, interpret path)."""
+    s = (q.float() * scale) @ k.float().transpose(-1, -2)
+    if pattern is not None:
+        s = s + _pattern_index(pattern, q.shape[0], q.device)
+    p = torch.softmax(s, dim=-1).to(q.dtype).float()
+    return (p @ v.float()).to(q.dtype)
+
+
+def biased_attention_heads(q, k, v, scale: float, pattern=None):
+    """K2 wrapper in the head-major layout; same contract as
+    :func:`biased_attention_heads_plain`. On CUDA: bf16 q, k, v of one shape
+    and one set of strides with a contiguous head dim (views of fused qkv
+    rows are taken as they are), f32 contiguous pattern with G % P == 0, a
+    head dim <= 64 and N within the card's shared memory. ctx is written as
+    (G, N, nH, Dh) rows and returned as its (G, nH, N, Dh) view. Counts in
+    ``heads_launches`` and ``launches``."""
+    if not q.is_cuda:
+        return biased_attention_heads_plain(q, k, v, scale, pattern)
+    dev, bf = q.device, torch.bfloat16
+    _require(q.dim() == 4, f"q must be (G, nH, N, Dh), got {tuple(q.shape)}")
+    G, nH, N, Dh = q.shape
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require(t.device == dev and t.dtype == bf,
+                 f"{name} must be bf16 on {dev}, got {t.dtype} on {t.device}")
+        _require(t.shape == q.shape and t.stride() == q.stride(),
+                 f"q, k and v must share shape and strides ({name}: "
+                 f"{tuple(t.shape)} {t.stride()})")
+    _require(q.stride(3) == 1, "the head dim of q, k, v must be contiguous")
+    _require(Dh <= 64, f"head dim {Dh} > 64")
+    check_attention_fits(N, Dh, smem_optin(dev))
+    _cuda_arg(pattern, "pattern", torch.float32, dev, 4)
+    P = 1
+    if pattern is not None:
+        P = _pattern_geometry(pattern, G, nH, N)
+    ctx = torch.empty((G, N, nH, Dh), dtype=bf, device=dev)
+    _launch_attention((q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                      q.stride()[:3], ctx, (N * nH * Dh, Dh, nH * Dh),
+                      pattern, None, None, None, None, None, None, G, N, nH,
+                      Dh, P, scale, 0, 0.0)
+    biased_attention.heads_launches += 1
+    return ctx.permute(0, 2, 1, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -922,5 +993,6 @@ column_sum.launches = 0
 FORWARD_KERNELS = (gemm, biased_attention, layernorm)
 KERNELS = FORWARD_KERNELS + (biased_attention_bwd, layernorm_bwd, column_sum)
 # the opt-in modes' launch counts, beside each kernel's ``launches``
-MODE_COUNTS = {biased_attention: ("adrop_launches", "save_p_launches"),
+MODE_COUNTS = {biased_attention: ("adrop_launches", "save_p_launches",
+                                   "heads_launches"),
                biased_attention_bwd: ("adrop_launches", "stored_p_launches")}

@@ -129,6 +129,26 @@ def drop_path_multipliers(masks, rate: float, batch: int, device):
                  for _ in range(2))
 
 
+def drop_path_masks(masks, rate: float, batch: int, device):
+    """The DropPath keep-masks of one Swin block on the ``attn_impl='pallas'``
+    route: ``(m1, m2)`` for its attention and MLP branches, each a (B, 1, 1)
+    bool ``bernoulli(1 - rate)`` draw from ``masks`` as flax ``DropPath``
+    draws it (``mvlt_tpu/ops/layers.py:75-89``: ``drop_path1`` first), or
+    None when ``masks`` is None or the rate is 0."""
+    if masks is None or rate <= 0.0:
+        return None
+    return tuple(masks.draw(1.0 - rate, (batch, 1, 1), device)
+                 for _ in range(2))
+
+
+def drop_path(x: torch.Tensor, keep_mask, rate: float) -> torch.Tensor:
+    """flax ``DropPath``: ``where(keep_mask, x / keep, 0)`` in x's dtype;
+    ``keep_mask`` None leaves x as it is."""
+    if keep_mask is None:
+        return x
+    return torch.where(keep_mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
                                ignore_index: int = -100) -> torch.Tensor:
     """Mean cross entropy over labels != ignore_index, in f32 (0 if none is
@@ -194,10 +214,15 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """The two dense layers of the Swin / BERT MLP (``fc1`` -> GELU -> ``fc2``);
-    the blocks in :mod:`mvlt_tpu_torch.ops.blocks` run them."""
+    """The two dense layers of the Swin / BERT MLP (``fc1`` -> GELU -> ``fc2``).
+    The fused blocks in :mod:`mvlt_tpu_torch.ops.blocks` take their weights;
+    the forward is flax ``Mlp`` (``mvlt_tpu/ops/layers.py:54-72``, dropout 0),
+    each dense layer in its :class:`Dense` form and the erf GELU between."""
 
     def __init__(self, dim: int, hidden: int, *, dtype: torch.dtype, device):
         super().__init__()
         self.fc1 = Dense(dim, hidden, dtype=dtype, device=device)
         self.fc2 = Dense(hidden, dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+        return self.fc2(gelu_exact(self.fc1(x, ops)), ops)

@@ -1,6 +1,6 @@
 """Where the device time of a train step goes, on one GPU.
 
-    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain] [--batch 32] [--steps 3]
+    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain] [--batch 32] [--steps 3] [--attn-impl auto|pallas]
 
 Builds the VQA finetune train step (``--path vqa``, the default:
 :func:`mvlt_tpu_torch.flagship.build_vqa_train_step`), the MLM+ITM
@@ -19,14 +19,21 @@ power limit. Needs a CUDA device. The opt-in kernel switches are read
 from the environment, e.g. the step of record with both:
 
     MVLT_KERNEL_DROPOUT=1 MVLT_STOREP=1 python -m mvlt_tpu_torch.profile_step --path swin_pretrain
+
+``--attn-impl pallas`` builds the Swin backbone on its ``attn_impl='pallas'``
+route (``window_attention`` in every block), as the JAX package's tests set
+it: the adapter's ``SwinTransformer`` patched while the step is built.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import os
 import subprocess
 import time
+from unittest import mock
 
 import torch
 
@@ -34,7 +41,7 @@ import torch
 # in an anonymous namespace
 OURS = "namespace)::"
 CUBLAS = ("cuBLAS products (resnet_fc, pooler, heads; Swin patch embed and "
-          "merge)")
+          "merge; on 'pallas' every Swin dense layer)")
 FAMILIES = [
     (OURS + "attention_bwd_kernel", "K4 biased_attention_bwd"),
     (OURS + "sum_heads_kernel", "K4 biased_attention_bwd"),
@@ -53,7 +60,8 @@ FAMILIES = [
     ("wgrad", "cuDNN convolutions (ResNet)"),
     ("conv", "cuDNN convolutions (ResNet)"),
     ("cudnn", "cuDNN convolutions (ResNet)"),
-    ("layer_norm", "PyTorch LayerNorm (Swin patch embed / merge / final)"),
+    ("layer_norm", "PyTorch LayerNorm (Swin patch embed / merge / final; "
+                   "on 'pallas' every Swin LN)"),
     ("gemm", CUBLAS),
     ("nvjet", CUBLAS),
     ("cutlass", CUBLAS),
@@ -82,12 +90,26 @@ def family(name: str) -> str:
     return "other elementwise / reductions (ReLU, GELU, casts, adds, loss)"
 
 
+def _build(args, flagship, seq2seq_coin_flip):
+    """(step(batch), batch) of ``args.path`` on the card."""
+    if args.path == "vqa":
+        return flagship.build_vqa_train_step(batch=args.batch, device="cuda")
+    build = (flagship.build_swin_pretrain_train_step
+             if args.path == "swin_pretrain"
+             else flagship.build_pretrain_train_step)
+    pre_step, batch = build(batch=args.batch, device="cuda")
+    flips = torch.Generator().manual_seed(0)
+    return (lambda b: pre_step(b, seq2seq_coin_flip(flips))), batch
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", choices=("vqa", "pretrain", "swin_pretrain"),
                     default="vqa")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--attn-impl", choices=("auto", "pallas"), default="auto",
+                    help="the Swin backbone's route (swin_pretrain)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
@@ -97,18 +119,15 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.models.backbones import adapter, swin
     from mvlt_tpu_torch.train.steps import seq2seq_coin_flip
     card = smi("name,power.limit")
-    if args.path == "vqa":
-        step, batch = flagship.build_vqa_train_step(batch=args.batch,
-                                                    device="cuda")
-    else:
-        build = (flagship.build_swin_pretrain_train_step
-                 if args.path == "swin_pretrain"
-                 else flagship.build_pretrain_train_step)
-        pre_step, batch = build(batch=args.batch, device="cuda")
-        flips = torch.Generator().manual_seed(0)
-        step = lambda b: pre_step(b, seq2seq_coin_flip(flips))  # noqa: E731
+    route = contextlib.nullcontext()
+    if args.attn_impl != "auto":
+        route = mock.patch.object(adapter, "SwinTransformer", functools.partial(
+            swin.SwinTransformer, attn_impl=args.attn_impl))
+    with route:
+        step, batch = _build(args, flagship, seq2seq_coin_flip)
     for _ in range(2):
         step(batch)
     torch.cuda.synchronize()
@@ -146,7 +165,7 @@ def main() -> int:
     total = sum(fams.values())
     print(card)
     on = {k: os.environ[k] for k in SWITCHES if k in os.environ}
-    print(f"switches: {on or 'none set'}")
+    print(f"switches: {on or 'none set'}; attn_impl={args.attn_impl!r}")
     print(f"{SAMPLE} before / after the unprofiled steps: {clocks}")
     print(f"unprofiled step times (ms): {[round(t, 3) for t in step_ms]}")
     print(f"{args.path} train step b{args.batch}: {unprofiled_ms:.3f} ms/step unprofiled, "

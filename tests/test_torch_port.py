@@ -3,6 +3,7 @@ builder never falls back to the CPU, its weights and inputs come from a
 numpy seed, and the kernels' CUDA wrappers agree with their plain versions
 on the card (marked ``cuda``: skipped where there is none)."""
 
+import functools
 import subprocess
 import sys
 import textwrap
@@ -450,4 +451,77 @@ def test_cuda_stored_p_attention_key_bias_mode(cuda_device):
                                               p=p)
     _near(got[0], want[0], 2 ** -7)
     _near(got[1], want[1], 1e-4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 4])
+def test_cuda_window_attention_matches_plain(cuda_device, P):
+    """K2's head-major mode at Swin windows (N = 49, head dim 32), on
+    contiguous q, k, v and on views of one (BW, N, 3C) product (the
+    'pallas' route's layout), the packed mode on the same rows, and
+    ``window_attention`` forward and backward (K4 pattern mode) against
+    their plain versions."""
+    g = torch.Generator().manual_seed(80 + P)
+    G, N, nH, Dh = 16, 49, 3, 32
+    C = nH * Dh
+    qkv = _rnd(g, G, N, 3 * C, std=0.5, dev=cuda_device)
+    q, k, v = qkv.view(G, N, 3, nH, Dh).permute(2, 0, 3, 1, 4).unbind(0)
+    pat = _rnd(g, P, nH, N, N, dt=torch.float32, dev=cuda_device)
+    sc = Dh ** -0.5
+    want = kernels.biased_attention_heads_plain(q, k, v, sc, pat)
+    for args in ((q, k, v), (q.contiguous(), k.contiguous(), v.contiguous())):
+        got = kernels.biased_attention_heads(*args, sc, pat)
+        assert got.shape == (G, nH, N, Dh) and got.dtype == torch.bfloat16
+        _near(got, want, 2 ** -7)
+    packed = kernels.biased_attention(qkv.view(G * N, 3 * C), nH, N, sc, pat)
+    assert torch.equal(packed.view(G, N, nH, Dh).transpose(1, 2),
+                       kernels.biased_attention_heads(q, k, v, sc, pat))
+    gy = _rnd(g, G, nH, N, Dh, dev=cuda_device)
+    got = blocks.window_attention_bwd(q, k, v, pat, gy, sc)
+    want = blocks.window_attention_bwd_plain(q, k, v, pat, gy, sc)
+    for a, b, bar in zip(got, want, (2 ** -7,) * 3 + (1e-4,)):
+        _near(a, b, bar)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_rows_7_9_10_match_plain(cuda_device):
+    """``swin_attn_half`` at N = 144 (window 12, head dim 32: 139,392 bytes
+    of K2 shared memory), ``fused_seq_attention`` at a ragged N = 37 with a
+    padded key bias, forward and backward, and ``full_forward_windows`` with
+    four patterns, against their plain versions."""
+    g = torch.Generator().manual_seed(90)
+    rnd = functools.partial(_rnd, g, dev=cuda_device)
+    C, nH, N = 96, 3, 144
+    x = rnd(2, N, C)
+    ln = (rnd(C, std=0.1, dt=torch.float32) + 1.0,
+          rnd(C, std=0.1, dt=torch.float32))
+    wq, bq, wp, bp = (rnd(3 * C, C, std=C ** -0.5), rnd(3 * C, std=0.1),
+                      rnd(C, C, std=C ** -0.5), rnd(C, std=0.1))
+    bias = rnd(1, nH, N, N, std=0.5, dt=torch.float32)
+    half = (x, *ln, wq, bq, wp, bp, bias, 0.2, nH)
+    _near(blocks.swin_attn_half(*half), blocks.swin_attn_half_plain(*half),
+          2 ** -5)
+    S = 37
+    xs = rnd(4, S, C)
+    kb = torch.where(torch.rand(4, S, generator=g) < 0.2, -10000.0,
+                     0.0).to(cuda_device)
+    seq = (xs, wq, bq, wp, bp, kb, 0.2, nH)
+    _near(blocks.fused_seq_attention(*seq),
+          blocks.fused_seq_attention_plain(*seq), 2 ** -5)
+    x2 = xs.view(4 * S, C)
+    qkv2 = kernels.gemm(x2, wq, bq)
+    ctx2 = kernels.biased_attention(qkv2, nH, S, 0.2, key_bias=kb)
+    bwd = (x2, qkv2, ctx2, rnd(4 * S, C), wq, wp, kb, S, 0.2, nH)
+    for a, b in zip(blocks.fused_seq_attention_bwd(*bwd),
+                    blocks.fused_seq_attention_bwd_plain(*bwd)):
+        _near(a, b, 2 ** -5)
+    params = (*ln, wq, bq, wp, bp, *ln, rnd(4 * C, C, std=C ** -0.5),
+              rnd(4 * C, std=0.1), rnd(C, 4 * C, std=(4 * C) ** -0.5),
+              rnd(C, std=0.1))
+    xw = rnd(8, 49, C)
+    pat = rnd(4, nH, 49, 49, std=0.5, dt=torch.float32)
+    _near(blocks.full_forward_windows(xw, params, pat, 0.2, nH),
+          blocks.full_forward_windows_plain(xw, params, pat, 0.2, nH), 2 ** -5)
     torch.cuda.synchronize()
