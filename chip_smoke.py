@@ -8,7 +8,9 @@ on failure:
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the port's CUDA kernels from ``mvlt_tpu_torch/csrc`` with
    nvcc (sm_90a, one process per source, all at once) into
-   ``build/torch_kernels/``;
+   ``build/torch_kernels/``; print K1's SASS instruction counts (``HGMMA``
+   and ``UTMALDG``: its ``wgmma`` / TMA mainloop was compiled) and its
+   wrapper's host time per call;
 3. kernel checks: hold K1 ``gemm``, K2 ``biased_attention``, K3
    ``layernorm`` and the six forward counterparts of
    ``mvlt_tpu_torch.ops.blocks`` against their plain PyTorch versions on the
@@ -43,7 +45,9 @@ on failure:
    pattern mode (one pattern and one per window; two calls bitwise equal),
    K5's pre-LN form and the scaled column sum, and the Swin training
    counterparts (the whole / half block forward, the three backward pieces,
-   each block forward + backward); then the pretrain step of record
+   each block forward + backward); K1's products of the step at each stage
+   (NT forwards, NN data gradients, TN weight gradients, the split-K ones
+   bitwise equal over two calls); then the pretrain step of record
    (Swin-S @224 with DropPath 0.3 + BERT-base, S = 131, b32, dropout 0.1)
    as phase 6 drives the ResNet one, the plain run replaying the kernel
    run's DropPath and dropout masks;
@@ -261,9 +265,14 @@ KERNEL_SOURCES = {
     # K2's head-major layout (q, k, v through strides)
     "biased_attention_heads": ("mvlt_tpu_torch/csrc/attention.cu",
                                "mvlt_tpu/ops/pallas_attn.py:40"),
+    # K1's split-K weight gradients: the sums that _swin_mlp_bwd_kernel
+    # carries across its sequential grid (:1689-1695)
+    "gemm_splitk": ("mvlt_tpu_torch/csrc/gemm.cu",
+                    "mvlt_tpu/ops/pallas_attn.py:1618"),
 }
 # the modes' counts on the kernel wrappers (``kernels.MODE_COUNTS``)
-MODE_ROWS = {"adrop_launches": "adrop", "save_p_launches": "save_p",
+MODE_ROWS = {"splitk_launches": "splitk",
+             "adrop_launches": "adrop", "save_p_launches": "save_p",
              "stored_p_launches": "stored_p", "heads_launches": "heads"}
 # the modes' counts on the counterparts (``blocks.COUNTS``)
 COUNTERPART_MODES = {
@@ -327,10 +336,11 @@ class Checker:
 
     def case(self, name: str, kernel_fn, plain_fn, bar: float, *,
              flops: float, nbytes: float, library_fn=None,
-             floor: float = 1.0) -> None:
+             floor: float = 1.0, also: tuple = ()) -> None:
         """``bar`` is a multiple of the largest |value| of each plain output
         (at least ``floor``); ``flops`` / ``nbytes`` are what the function
-        must do and move (each input read once, each output written once)."""
+        must do and move (each input read once, each output written once).
+        The numbers are kept under ``name`` and under each row of ``also``."""
         got, want = _tensors(kernel_fn()), _tensors(plain_fn())
         torch.cuda.synchronize()
         assert len(got) == len(want), (name, len(got), len(want))
@@ -349,18 +359,20 @@ class Checker:
         ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
         lib_ms = cuda_ms(library_fn) if library_fn is not None else None
         b_ms, b_by = bound(flops, nbytes)
-        row = self.rows.setdefault(name, {
-            "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-            "bound_ms": 0.0, "_ops": 0.0, "_bytes": 0.0, "_nolib": False})
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["ms"] += ms                # summed over the cases of one kernel
-        row["plain_ms"] += plain_ms
-        row["bound_ms"] += b_ms
-        row["_ops" if b_by == "operations" else "_bytes"] += b_ms
-        if lib_ms is None:
-            row["_nolib"] = True
-        else:
-            row["library_ms"] += lib_ms
+        for rname in (name, *also):
+            row = self.rows.setdefault(rname, {
+                "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "bound_ms": 0.0, "_ops": 0.0,
+                "_bytes": 0.0, "_nolib": False})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["ms"] += ms            # summed over the cases of one kernel
+            row["plain_ms"] += plain_ms
+            row["bound_ms"] += b_ms
+            row["_ops" if b_by == "operations" else "_bytes"] += b_ms
+            if lib_ms is None:
+                row["_nolib"] = True
+            else:
+                row["library_ms"] += lib_ms
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"check {name}: max_abs_err {err:.3g} kernel {ms:.4f} ms plain "
               f"{plain_ms:.4f} ms library {lib} bound {b_ms:.4f} ms ({b_by}; "
@@ -1597,6 +1609,124 @@ def attn_impl_kernel_checks(chk: Checker, dev) -> None:
              nbytes=nbytes(x, *params, pat, x))
 
 
+def k1_report(dev) -> None:
+    """Print what K1's library was compiled to (its SASS instruction counts:
+    HGMMA is ``wgmma``, UTMALDG a TMA load; HMMA / LDSM would be the
+    ``mma.sync`` / ``ldmatrix`` path) and the K1 wrapper's host time per
+    call at a small shape beside one ``F.linear`` call's."""
+    import re
+    from mvlt_tpu_torch.ops import kernels as K
+    path = K.build()["gemm"]._name
+    tool = pathlib.Path(K._nvcc()).with_name("cuobjdump")
+    try:
+        sass = subprocess.run([str(tool), "-sass", path], capture_output=True,
+                              text=True, timeout=120).stdout
+        ops = {op: len(re.findall(rf"\b{op}\b", sass))
+               for op in ("HGMMA", "UTMALDG", "HMMA", "LDSM")}
+    except (OSError, subprocess.SubprocessError) as e:
+        ops = f"not read ({e})"
+    print(f"K1 SASS ({tool.name} -sass {pathlib.Path(path).name}): {ops}",
+          flush=True)
+    a = torch.randn(64, 64, device=dev).to(torch.bfloat16)
+    w = torch.randn(64, 64, device=dev).to(torch.bfloat16)
+    us = {}
+    for name, fn in (("K1 gemm", lambda: K.gemm(a, w)),
+                     ("F.linear", lambda: F.linear(a, w))):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        us[name] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    print("host time per call at (64, 64) x (64, 64), 2000 enqueues: "
+          + ", ".join(f"{k} {v:.2f} us" for k, v in us.items()), flush=True)
+
+
+def swin_gemm_checks(chk: Checker, dev) -> None:
+    """K1 at the Swin-S b32 shapes of the step of record, stage by stage
+    (M = 32 * H * W rows): the NT forwards (qkv; fc1 with GELU and the
+    saved pre-activation), the NN data gradients (da1 with GELU'; dh2 and
+    dh1 in f32) and the four TN weight gradients (f32), each beside its
+    one-call yardstick (``F.linear`` / ``torch.matmul`` of the same
+    product). Kept per layout (``gemm_swin_nt`` / ``_nn`` / ``_tn``, not in
+    the kernels line); the TN products that the plan splits also make the
+    ``gemm_splitk`` row, and each is held bitwise over two calls."""
+    from mvlt_tpu_torch.ops import kernels as K
+    inp = Inputs(dev, seed=5)
+    rnd, dense = inp.rnd, inp.dense
+    f32 = torch.float32
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = []
+    for res, C, _ in SWIN_STAGES:
+        M, I = TRAIN_BATCH * res * res, 4 * C
+        h, dmlp = rnd(M, C), rnd(M, C, std=0.1)
+        (wq, bq), (w1, b1), (w2, _) = dense(C, 3 * C), dense(C, I), dense(I, C)
+        m, a1, dqkv = rnd(M, I), rnd(M, I, dtype=f32), rnd(M, 3 * C, std=0.1)
+        da1 = rnd(M, I, std=0.1)
+        cases = [
+            ("nt", "qkv", h, wq, bq, {}, lambda: F.linear(h, wq, bq)),
+            ("nt", "fc1 + GELU, saving the pre-activation", h, w1, b1,
+             dict(gelu=True, save_preact=True), lambda: F.linear(h, w1, b1)),
+            ("nn", "da1 = dmlp W2 * GELU'(a1)", dmlp, w2, None,
+             dict(gelu_grad=a1), lambda: torch.matmul(dmlp, w2)),
+            ("nn", "dh2 = da1 W1 (f32)", da1, w1, None, dict(out_dtype=f32),
+             lambda: torch.matmul(da1, w1)),
+            ("nn", "dh1 = dqkv Wqkv (f32)", dqkv, wq, None,
+             dict(out_dtype=f32), lambda: torch.matmul(dqkv, wq)),
+            ("tn", "dW2 = dmlp^T m", dmlp, m, None, dict(out_dtype=f32),
+             lambda: torch.matmul(dmlp.t(), m)),
+            ("tn", "dW1 = da1^T h", da1, h, None, dict(out_dtype=f32),
+             lambda: torch.matmul(da1.t(), h)),
+            ("tn", "dWqkv = dqkv^T h", dqkv, h, None, dict(out_dtype=f32),
+             lambda: torch.matmul(dqkv.t(), h)),
+            ("tn", "dWproj = dmlp^T h", dmlp, h, None, dict(out_dtype=f32),
+             lambda: torch.matmul(dmlp.t(), h)),
+        ]
+        for layout, what, a, w, b, kw, lib in cases:
+            kw = dict(kw, layout=layout)
+            if layout == "tn":
+                (kk, mm), nn_ = a.shape, w.shape[1]
+            else:
+                (mm, kk), nn_ = a.shape, (w.shape[0] if layout == "nt"
+                                          else w.shape[1])
+            before = K.gemm.splitk_launches      # did the wrapper split it?
+            K.gemm(a, w, b, **kw)
+            splits = (K.gemm_plan(mm, nn_, kk, sms).splits
+                      if K.gemm.splitk_launches > before else 1)
+            outs = [torch.empty(mm, nn_, dtype=kw.get("out_dtype", a.dtype),
+                                device=dev)]
+            if kw.get("save_preact"):
+                outs.append(torch.empty(mm, nn_, dtype=f32, device=dev))
+            also = ("gemm_splitk",) if splits > 1 else ()
+            print(f"K1 at Swin-S stage C = {C}, {layout} {what}: "
+                  f"({mm}, {kk}) x ({kk}, {nn_}), {splits} slice(s)",
+                  flush=True)
+            chk.case(f"gemm_swin_{layout}",
+                     lambda a=a, w=w, b=b, kw=kw: K.gemm(a, w, b, **kw),
+                     lambda a=a, w=w, b=b, kw=kw: K.gemm_plain(a, w, b, **kw),
+                     KERNEL_BAR, library_fn=lib, flops=2.0 * mm * kk * nn_,
+                     nbytes=nbytes(a, w, b, kw.get("gelu_grad"), *outs),
+                     also=also)
+            if splits > 1:
+                one, two = K.gemm(a, w, **kw), K.gemm(a, w, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(one, two):
+                    raise AssertionError(f"K1 split-K ({what}, C = {C}) is "
+                                         "not bitwise reproducible")
+                split.append(f"C = {C} {what.split(' = ')[0]} "
+                             f"({splits} slices)")
+    print(f"K1 split-K, two calls bitwise equal: {split}", flush=True)
+    for layout in ("nt", "nn", "tn"):
+        r = chk.row(f"gemm_swin_{layout}")
+        print(f"K1 at the Swin-S b32 shapes, {layout} over 4 stages: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), max abs err {r['max_abs_err']:.3g}",
+              flush=True)
+
+
 def launch_counts() -> dict:
     from mvlt_tpu_torch.ops import blocks, kernels
     counts = {k.__name__: k.launches for k in kernels.KERNELS}
@@ -1674,11 +1804,14 @@ def main() -> int:
     kernels.build()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    k1_report(dev)
+
     chk = Checker()
     kernel_checks(chk, dev)
     train_kernel_checks(chk, dev)
     pretrain_kernel_checks(chk, dev)
     swin_kernel_checks(chk, dev)
+    swin_gemm_checks(chk, dev)
     optin_kernel_checks(chk, dev)
     attn_impl_kernel_checks(chk, dev)
     with switches(False):
@@ -1869,6 +2002,8 @@ def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
         if counts[k.__name__] <= 0:
             raise AssertionError(f"kernel {k.__name__} never launched in the "
                                  "train step")
+    if counts["gemm_splitk"] <= 0:
+        raise AssertionError("K1's split-K never ran in the train step")
     out_p = step_p(batch_p)
     torch.cuda.synchronize()
     compare_grads(step_k.model, step_p.model, "step-1 gradients")
@@ -2004,6 +2139,9 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
                     if counts[k.__name__] <= 0:
                         raise AssertionError(f"kernel {k.__name__} never "
                                              f"launched in the {label}")
+                if counts["gemm_splitk"] <= 0:
+                    raise AssertionError(f"K1's split-K never ran in the "
+                                         f"{label}")
             step_p.masks = DropoutMasks.replay(step_k.masks.recorded)
             out_p = step_p(batch_p, seq2seq)
             losses["kernels"].append({k: v.item() for k, v in out_k.items()})

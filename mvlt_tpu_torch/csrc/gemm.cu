@@ -2,17 +2,18 @@
 // f32 accumulator, for sm_90a.
 //
 // Replaces the matrix products inside the TPU kernels of
-// mvlt_tpu/ops/pallas_attn.py: forward (`_full_body` qkv / proj / fc1 / fc2,
-// `_block_kernel`, `_attn_ln_kernel`, `_mlp_ln_kernel`, `_mlp_preln_kernel`)
-// and backward (the fc1 recompute, dW2, dm, dW1 and dx products of
-// `_mlp_ln_bwd_kernel`, and the XLA products around `_seq_core_bwd_kernel`).
+// mvlt_tpu/ops/pallas_attn.py: forward (`_full_body` :571 qkv / proj / fc1 /
+// fc2, `_block_kernel`, `_attn_ln_kernel`, `_mlp_ln_kernel`,
+// `_mlp_preln_kernel`, `_swin_tail_kernel`) and backward (`_swin_mlp_bwd_kernel`
+// :1618 with its dW1 / dW2 sums carried across the sequential grid at
+// :1689-1695, `_swin_qkv_tail_kernel` :1787, `_mlp_ln_bwd_kernel` :2931: the
+// fc1 recompute, dW2, dm, dW1 and dx products, and the XLA products around
+// `_seq_core_bwd_kernel`).
 //
 // Layouts (all row-major in memory):
 //   NT  A (M, K), B (N, K): Y = A B^T   the PyTorch Linear layout (forward)
 //   NN  A (M, K), B (K, N): Y = A B     dX = dY W
 //   TN  A (K, M), B (K, N): Y = A^T B   dW = dY^T X, contraction over rows
-// Tiles whose contraction dim is not the contiguous one are read with
-// `ldmatrix.trans`, so all three feed the same `mma.sync.m16n8k16.row.col`.
 //
 // Epilogue, in f32 before the one rounding of the output:
 //   + bias[n]                           (optional, bf16)
@@ -30,63 +31,60 @@
 //   + R[ridx ? ridx[m] : m, n]          (optional residual, bf16 or f32, optional row gather)
 //   store to row sidx ? sidx[m] : m     (optional row scatter), bf16 or f32
 //
-// Bound: at the shapes of the port (K, N <= 3072, M up to 25088, and the
-// weight-gradient products' contraction over M = 2368 rows) these products are
-// compute-bound in principle (up to ~1000 flop per byte). This version is a
-// plain tiled tensor-core GEMM: a 3-stage cp.async ring of 32-deep tiles in
-// padded shared memory, 8 warps each owning a 32 x (BN / warps_n) sub-tile.
-// No wgmma/TMA yet: that is later work. Ragged edges are masked at 16-byte
-// granularity: the contiguous dims of both operands must be multiples of 8
-// (checked by the caller); a contraction over rows (TN, NN's B) is masked
-// per row and may have any length.
+// Bound: at the Swin-S b32 shapes the stage-1 and stage-2 products (K or N of
+// 96-384 against 100,352 / 25,088 rows, about 200 flop per byte) are bound by
+// bytes; the rest (C >= 384, BERT's 768 / 3072) by the tensor cores' operations.
+// The design serves both with Hopper's own data path:
+//   - a 4-stage ring of 128 x 64 bf16 tiles of A and B in shared memory with the
+//     128-byte swizzle (64 bf16 are one swizzle row), filled by TMA
+//     (`cp.async.bulk.tensor.2d`) from one producer thread against `full` /
+//     `empty` mbarriers: no thread spends registers or instructions on
+//     addresses, and out-of-bounds rows and columns arrive as zeros;
+//   - two consumer warpgroups, each issuing `wgmma.m64n128k16` on its 64 rows
+//     of the 128 x 128 output tile straight from shared memory, f32
+//     accumulators in registers (`setmaxnreg` moves registers from the producer
+//     warpgroup to them). The three layouts share this mainloop: an operand
+//     whose contraction dim is not the contiguous one (A in TN, B in NN and TN)
+//     is loaded as two 64-wide column blocks and read MN-major through
+//     `wgmma`'s transpose bit;
+//   - a deterministic split-K for products whose 128 x 128 tiles fill less than
+//     half the card and whose contraction is long (the weight gradients dW =
+//     dY^T X at Swin stages 1-3: a C x 4C output over 100,352 rows would run on
+//     a handful of SMs). The grid's z index takes a contiguous run of k-tiles,
+//     writes its f32 partial tile to a workspace, and a second kernel sums the
+//     slices in slice order: no atomics, so two calls agree bitwise. The plan
+//     (how many slices) is made by the caller (`ops/kernels.py:gemm_plan`); a
+//     split product has no epilogue.
+//   - one persistent block per SM walks the output tiles, so the producer
+//     loads the next tile while the consumers run this one's epilogue.
+// The epilogue is bound by bytes wherever it reads or writes f32 (M, N)
+// tensors, so each warpgroup first stages its f32 tile in shared memory and
+// then every thread moves 16-32 contiguous bytes of P, E, R and the output
+// (the row scatter rules out a tiled TMA store). The contiguous dims of both
+// operands must be multiples of 8 (16-byte TMA strides; checked by the
+// caller); the contraction and the row counts may have any length.
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BN = 128;
-constexpr int BK = 32;
-constexpr int STAGES = 3;
-constexpr int LDS = BK + 8;  // padded K-contiguous smem row: 80 bytes, conflict-free ldmatrix
-constexpr int THREADS = 256;
+constexpr int BM = 128, BN = 128, BK = 64;
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;  // warpgroup 0 produces, warpgroups 1-2 consume
+constexpr int TILE_BYTES = BM * BK * 2;  // one operand's stage: 16 KB
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+constexpr int HALF_BYTES = 64 * 128;  // 64 rows (or k-rows) of 128 bytes
+constexpr int OUT_LD = BN + 8;  // padded f32 row of a warpgroup's staged output
+constexpr int OUT_BYTES = 64 * OUT_LD * 4;
+// the ring, the two warpgroups' output staging, slack for 1024-byte alignment
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * OUT_BYTES + 1024;
 
 enum Layout { NT = 0, NN = 1, TN = 2 };
 enum Epi { EPI_NONE = 0, EPI_GELU = 1, EPI_GELU_GRAD = 2 };
 constexpr int OUT_F32 = 1, RES_F32 = 2;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // src-size 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned& r0, unsigned& r1, unsigned& r2, unsigned& r3,
-                                            const void* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(s));
-}
-__device__ __forceinline__ void ldmatrix_x4_t(unsigned& r0, unsigned& r1, unsigned& r2, unsigned& r3,
-                                              const void* smem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
@@ -100,8 +98,6 @@ __device__ __forceinline__ float gelu_erf_grad(float a) {
 }
 
 struct Args {
-  const __nv_bfloat16* A;
-  const __nv_bfloat16* B;
   const __nv_bfloat16* bias;
   const void* R;
   const int* ridx;
@@ -110,235 +106,443 @@ struct Args {
   float* P;  // pre-activation: written (epi 0/1) or read (epi 2)
   const __nv_bfloat16* E;  // epilogue multiplier (M, N), row m unscattered
   const float* S;          // row scale, row m reads S[m / s_div]
-  int M, N, K, epi, flags, s_div;
+  float* ws;               // split-K partials (splits, M, N), or null
+  int M, N, K, epi, flags, s_div, splits;
 };
 
-// smem elements of one stage of each operand
-template <int BM, bool AT>
-__host__ __device__ constexpr int a_stage() { return AT ? BK * (BM + 8) : BM * LDS; }
-template <bool BT>
-__host__ __device__ constexpr int b_stage() { return BT ? BK * (BN + 8) : BN * LDS; }
+// ---- shared memory, mbarriers, TMA, wgmma (inline PTX) ---------------------
 
-template <int BM, int LAYOUT>
-__global__ void __launch_bounds__(THREADS) gemm_kernel(Args p) {
-  constexpr bool AT = LAYOUT == TN;              // A tile stored [k][m]
-  constexpr bool BT = LAYOUT == NN || LAYOUT == TN;  // B tile stored [k][n]
-  constexpr int WARPS_M = BM / 32;
-  constexpr int WARPS_N = (THREADS / 32) / WARPS_M;
-  constexpr int WN = BN / WARPS_N;  // columns per warp
-  constexpr int NT_ = WN / 8;       // n8 tiles per warp
-  constexpr int LDA_T = BM + 8;     // padded row of a [k][m] tile
-  constexpr int LDB_T = BN + 8;
-  static_assert(NT_ % 2 == 0, "ldmatrix.x4 loads two n8 tiles at a time");
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + STAGES * a_stage<BM, AT>();
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
 
-  const int M = p.M, N = p.N, K = p.K;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp % WARPS_M;
-  const int wn = warp / WARPS_M;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int ktiles = (K + BK - 1) / BK;
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
 
-  auto load_tile = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-    if (!AT) {  // A (M, K): BM rows x 4 chunks of 8
-      for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-        int r = c >> 2, kc = (c & 3) * 8;
-        int gm = m0 + r, gk = k0 + kc;
-        bool ok = gm < M && gk < K;
-        const __nv_bfloat16* src = ok ? p.A + (size_t)gm * K + gk : p.A;
-        cp_async16(As + stage * a_stage<BM, AT>() + r * LDS + kc, src, ok);
-      }
-    } else {  // A (K, M): BK rows x BM/8 chunks
-      for (int c = tid; c < BK * (BM / 8); c += THREADS) {
-        int r = c / (BM / 8), mc = (c % (BM / 8)) * 8;
-        int gk = k0 + r, gm = m0 + mc;
-        bool ok = gk < K && gm < M;
-        const __nv_bfloat16* src = ok ? p.A + (size_t)gk * M + gm : p.A;
-        cp_async16(As + stage * a_stage<BM, AT>() + r * LDA_T + mc, src, ok);
-      }
-    }
-    if (!BT) {  // B (N, K)
-      for (int c = tid; c < BN * (BK / 8); c += THREADS) {
-        int r = c >> 2, kc = (c & 3) * 8;
-        int gn = n0 + r, gk = k0 + kc;
-        bool ok = gn < N && gk < K;
-        const __nv_bfloat16* src = ok ? p.B + (size_t)gn * K + gk : p.B;
-        cp_async16(Bs + stage * b_stage<BT>() + r * LDS + kc, src, ok);
-      }
-    } else {  // B (K, N)
-      for (int c = tid; c < BK * (BN / 8); c += THREADS) {
-        int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-        int gk = k0 + r, gn = n0 + nc;
-        bool ok = gk < K && gn < N;
-        const __nv_bfloat16* src = ok ? p.B + (size_t)gk * N + gn : p.B;
-        cp_async16(Bs + stage * b_stage<BT>() + r * LDB_T + nc, src, ok);
-      }
-    }
-  };
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
 
-  float acc[2][NT_][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT_; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_tile(s, s);
-    cp_async_commit();
+// spin until the phase of the given parity has completed; a wait that never
+// ends (a lost TMA transfer) traps, so the launch fails instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (tries == (1u << 26)) __trap();
   }
+}
 
-  for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    {
-      int nk = kt + STAGES - 1;
-      if (nk < ktiles) load_tile(nk % STAGES, nk);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* a_s = As + (kt % STAGES) * a_stage<BM, AT>();
-    const __nv_bfloat16* b_s = Bs + (kt % STAGES) * b_stage<BT>();
+// box of the 2-D tensor map at (inner c0, outer c1) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle. K-major: rows of 64
+// k, 8-row groups 1024 bytes apart (SBO), LBO unused. MN-major: k-rows of 64
+// m (or n), 8-k-row groups 1024 bytes apart (SBO), 64-wide column blocks LBO
+// bytes apart.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = 0;
+  d |= static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16;
+  d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
+  d |= 1ull << 62;  // layout type 1: 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across a wgmma
+// wait or fence (the asm of the wait does not name the registers)
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // A fragments: matrix q of the x4 is (m block q & 1, k block q >> 1)
-      unsigned af[2][4];
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 128, f32) += A (64 x 16) . B (16 x 128) from shared memory; TA / TB
+// set: that operand is MN-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// 8 consecutive bf16 / f32 values <-> f32 registers (16- / 32-byte accesses)
+__device__ __forceinline__ void load8(const __nv_bfloat16* src, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (!AT) {
-          int row = wm * 32 + i * 16 + (lane & 15);
-          int col = kk + (lane >> 4) * 8;
-          ldmatrix_x4(af[i][0], af[i][1], af[i][2], af[i][3], a_s + row * LDS + col);
-        } else {
-          int q = lane >> 3;
-          int krow = kk + (q >> 1) * 8 + (lane & 7);
-          int mcol = wm * 32 + i * 16 + (q & 1) * 8;
-          ldmatrix_x4_t(af[i][0], af[i][1], af[i][2], af[i][3], a_s + krow * LDA_T + mcol);
-        }
-      }
-      // B fragments: matrix q is (n block q >> 1, k block q & 1)
-      unsigned bf[NT_][2];
-#pragma unroll
-      for (int j = 0; j < NT_; j += 2) {
-        if (!BT) {
-          int nrow = wn * WN + j * 8 + (lane & 7) + ((lane >> 4) << 3);
-          int col = kk + ((lane >> 3) & 1) * 8;
-          ldmatrix_x4(bf[j][0], bf[j][1], bf[j + 1][0], bf[j + 1][1], b_s + nrow * LDS + col);
-        } else {
-          int q = lane >> 3;
-          int krow = kk + (q & 1) * 8 + (lane & 7);
-          int ncol = wn * WN + j * 8 + (q >> 1) * 8;
-          ldmatrix_x4_t(bf[j][0], bf[j][1], bf[j + 1][0], bf[j + 1][1], b_s + krow * LDB_T + ncol);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < NT_; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
   }
-  cp_async_wait<0>();
+}
+__device__ __forceinline__ void load8(const float* src, float (&v)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(src)[0], b = reinterpret_cast<const float4*>(src)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void store8(float* dst, const float (&v)[8]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float (&v)[8]) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(dst) = raw;
+}
 
-  // epilogue: accumulator (i, j, e) holds row lane/4 (+8 for e >= 2) and
-  // columns 2*(lane%4) + {0, 1} of its 16 x 8 tile
+__device__ __forceinline__ void wg_barrier(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// The epilogue of one consumer warpgroup's 64 x 128 share of a tile (rows
+// m_base.., columns n0..). The accumulators go through shared memory
+// (`stage`, padded rows: the fragment's column pairs and the row reads are
+// both free of bank conflicts), so that each thread then owns 8 consecutive
+// columns of 8 rows and every global access (P, E, R, the output) is 16 or 32
+// contiguous bytes. A split-K slice stores its f32 partial to its plane of the
+// workspace instead.
+__device__ __forceinline__ void epilogue(const Args& p, const float (&acc)[64], float* stage,
+                                         int m_base, int n0, int z, int bar_id) {
+  const int M = p.M, N = p.N;
+  const int t = threadIdx.x & 127, lane = t & 31, warp = t >> 5;
+  wg_barrier(bar_id);  // the last tile's reads of `stage` are done
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* row = stage + (warp * 16 + (lane >> 2) + h * 8) * OUT_LD + (lane & 3) * 2;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(row + j * 8) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  wg_barrier(bar_id);
+  const int q = t & 15;
+  const int n = n0 + q * 8;
+  if (n >= N) return;
   const bool out_f32 = p.flags & OUT_F32;
   const bool res_f32 = p.flags & RES_F32;
+  float b[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (p.bias) load8(p.bias + n, b);
+#pragma unroll 2
+  for (int i = 0; i < 8; ++i) {
+    const int r = (t >> 4) + i * 8;
+    const int m = m_base + r;
+    if (m >= M) continue;
+    float v[8];
+    load8(stage + r * OUT_LD + q * 8, v);
+    const size_t mi = static_cast<size_t>(m) * N + n;
+    if (p.splits > 1) {
+      store8(p.ws + static_cast<size_t>(z) * M * N + mi, v);
+      continue;
+    }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+    for (int e = 0; e < 8; ++e) v[e] += b[e];
+    if (p.epi == EPI_GELU_GRAD) {
+      float a1[8];
+      load8(p.P + mi, a1);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      int m = m0 + wm * 32 + i * 16 + (lane >> 2) + half * 8;
-      if (m >= M) continue;
-      int rrow = p.R ? (p.ridx ? p.ridx[m] : m) : 0;
-      int orow = p.sidx ? p.sidx[m] : m;
-      const float rs = p.S ? p.S[m / p.s_div] : 1.f;
+      for (int e = 0; e < 8; ++e) v[e] *= gelu_erf_grad(a1[e]);
+    } else if (p.P) {
+      store8(p.P + mi, v);
+    }
+    if (p.epi == EPI_GELU) {
 #pragma unroll
-      for (int j = 0; j < NT_; ++j) {
-        int n = n0 + wn * WN + j * 8 + (lane & 3) * 2;
-        if (n >= N) continue;
-        float v0 = acc[i][j][half * 2 + 0];
-        float v1 = acc[i][j][half * 2 + 1];
-        if (p.bias) {
-          v0 += __bfloat162float(p.bias[n]);
-          v1 += __bfloat162float(p.bias[n + 1]);
-        }
-        size_t pi = (size_t)m * N + n;
-        if (p.epi == EPI_GELU_GRAD) {
-          float2 a1 = *reinterpret_cast<const float2*>(p.P + pi);
-          v0 *= gelu_erf_grad(a1.x);
-          v1 *= gelu_erf_grad(a1.y);
-        } else if (p.P) {
-          *reinterpret_cast<float2*>(p.P + pi) = make_float2(v0, v1);
-        }
-        if (p.epi == EPI_GELU) {
-          v0 = gelu_erf(v0);
-          v1 = gelu_erf(v1);
-        }
-        if (p.E) {
-          float2 e2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.E + pi));
-          v0 *= e2.x;
-          v1 *= e2.y;
-        }
-        if (p.S) {
-          v0 *= rs;
-          v1 *= rs;
-        }
-        if (p.R) {
-          size_t ri = (size_t)rrow * N + n;
-          if (res_f32) {
-            float2 r = *reinterpret_cast<const float2*>(static_cast<const float*>(p.R) + ri);
-            v0 += r.x;
-            v1 += r.y;
-          } else {
-            __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(
-                static_cast<const __nv_bfloat16*>(p.R) + ri);
-            v0 += __bfloat162float(r.x);
-            v1 += __bfloat162float(r.y);
+      for (int e = 0; e < 8; ++e) v[e] = gelu_erf(v[e]);
+    }
+    if (p.E) {
+      float ev[8];
+      load8(p.E + mi, ev);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] *= ev[e];
+    }
+    if (p.S) {
+      const float rs = p.S[m / p.s_div];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] *= rs;
+    }
+    if (p.R) {
+      const size_t ri = static_cast<size_t>(p.ridx ? p.ridx[m] : m) * N + n;
+      float rv[8];
+      if (res_f32)
+        load8(static_cast<const float*>(p.R) + ri, rv);
+      else
+        load8(static_cast<const __nv_bfloat16*>(p.R) + ri, rv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] += rv[e];
+    }
+    const size_t oi = static_cast<size_t>(p.sidx ? p.sidx[m] : m) * N + n;
+    if (out_f32)
+      store8(static_cast<float*>(p.Y) + oi, v);
+    else
+      store8(static_cast<__nv_bfloat16*>(p.Y) + oi, v);
+  }
+}
+
+// ---- the kernel ------------------------------------------------------------
+
+template <int LAYOUT>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b, Args p) {
+  constexpr bool A_MN = LAYOUT == TN;                 // A tile stored [k][m]
+  constexpr bool B_MN = LAYOUT == NN || LAYOUT == TN;  // B tile stored [k][n]
+
+  __shared__ __align__(8) uint64_t full_bar[STAGES];
+  __shared__ __align__(8) uint64_t empty_bar[STAGES];
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int M = p.M, N = p.N;
+  const int tiles_n = (N + BN - 1) / BN, tiles_m = (M + BM - 1) / BM;
+  const int items = tiles_n * tiles_m * p.splits;
+  const int ktiles = (p.K + BK - 1) / BK;
+  // work item -> (slice z, tile row, tile column); a slice is a balanced run
+  // of whole k-tiles, in order
+  auto decode = [&](int item, int& m0, int& n0, int& z, int& kt0, int& nk) {
+    n0 = (item % tiles_n) * BN;
+    const int rest = item / tiles_n;
+    m0 = (rest % tiles_m) * BM;
+    z = rest / tiles_m;
+    kt0 = static_cast<int>((static_cast<long long>(z) * ktiles) / p.splits);
+    nk = static_cast<int>((static_cast<long long>(z + 1) * ktiles) / p.splits) - kt0;
+  };
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_bar[s], 1);  // the producer's arrive + the TMA bytes
+      mbar_init(&empty_bar[s], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // persistent: block b takes work items b, b + gridDim.x, ...; the ring
+  // position `it` runs on across items, so the producer loads the next
+  // item's tiles while the consumers store this one's
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      int it = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        int m0, n0, z, kt0, nk;
+        decode(item, m0, n0, z, kt0, nk);
+        // an MN-major column block wholly past the edge is not loaded: it
+        // feeds only output rows (columns) that are never stored
+        const bool a_hi = !A_MN || m0 + 64 < M, b_hi = !B_MN || n0 + 64 < N;
+        const uint32_t bytes = (a_hi ? TILE_BYTES : HALF_BYTES) + (b_hi ? TILE_BYTES : HALF_BYTES);
+        for (int i = 0; i < nk; ++i, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty_bar[s], ((it / STAGES) - 1) & 1);
+          unsigned char* a_s = smem + s * STAGE_BYTES;
+          unsigned char* b_s = a_s + TILE_BYTES;
+          const int k0 = (kt0 + i) * BK;
+          mbar_expect_tx(&full_bar[s], bytes);
+          if (A_MN) {  // A (K, M): boxes of 64 m x 64 k
+            tma_load(a_s, &map_a, &full_bar[s], m0, k0);
+            if (a_hi) tma_load(a_s + HALF_BYTES, &map_a, &full_bar[s], m0 + 64, k0);
+          } else {  // A (M, K): one box of 64 k x 128 m
+            tma_load(a_s, &map_a, &full_bar[s], k0, m0);
+          }
+          if (B_MN) {  // B (K, N): boxes of 64 n x 64 k
+            tma_load(b_s, &map_b, &full_bar[s], n0, k0);
+            if (b_hi) tma_load(b_s + HALF_BYTES, &map_b, &full_bar[s], n0 + 64, k0);
+          } else {  // B (N, K): one box of 64 k x 128 n
+            tma_load(b_s, &map_b, &full_bar[s], k0, n0);
           }
         }
-        size_t oi = (size_t)orow * N + n;
-        if (out_f32)
-          *reinterpret_cast<float2*>(static_cast<float*>(p.Y) + oi) = make_float2(v0, v1);
-        else
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.Y) + oi) =
-              __floats2bfloat162_rn(v0, v1);
       }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c owns rows 64c .. 64c + 63 of each tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1;
+  const int lane = tid & 31;
+  float* out_stage = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES + c * OUT_BYTES);
+  int it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    int m0, n0, z, kt0, nk;
+    decode(item, m0, n0, z, kt0, nk);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    fence_acc(acc);
+    for (int i = 0; i < nk; ++i, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full_bar[s], (it / STAGES) & 1);
+      // K-major rows 64c.. and MN-major column block c both start 8 KB in
+      const uint32_t a_base = smem_u32(smem + s * STAGE_BYTES) + c * HALF_BYTES;
+      const uint32_t b_base = smem_u32(smem + s * STAGE_BYTES + TILE_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // a k16 step: 32 bytes along a K-major row, 16 k-rows (2 KB) of an MN-major tile
+        const uint64_t da = make_desc(a_base + (A_MN ? kk * 2048 : kk * 32), A_MN ? HALF_BYTES : 16, 1024);
+        const uint64_t db = make_desc(b_base + (B_MN ? kk * 2048 : kk * 32), B_MN ? HALF_BYTES : 16, 1024);
+        wgmma_m64n128k16<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db);
+      }
+      wgmma_commit();
+      // the previous stage's products are done: hand its buffers back
+      wgmma_wait<1>();
+      fence_acc(acc);
+      if (i > 0 && lane == 0) mbar_arrive(&empty_bar[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (nk > 0 && lane == 0) mbar_arrive(&empty_bar[(it - 1) % STAGES]);
+    epilogue(p, acc, out_stage, m0 + c * 64, n0, z, 1 + c);
+  }
+}
+
+// Y = sum over the slices of the partials, in slice order (four values a thread)
+__global__ void gemm_fold_kernel(const float* __restrict__ ws, void* Y, long long mn, int splits,
+                                 int out_f32) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x * 4;
+  for (long long i = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4; i < mn;
+       i += stride) {
+    float4 s = *reinterpret_cast<const float4*>(ws + i);
+    for (int z = 1; z < splits; ++z) {
+      const float4 t = *reinterpret_cast<const float4*>(ws + z * mn + i);
+      s.x += t.x;
+      s.y += t.y;
+      s.z += t.z;
+      s.w += t.w;
+    }
+    if (out_f32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(Y) + i) = s;
+    } else {
+      __nv_bfloat162* y = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(Y) + i);
+      y[0] = __floats2bfloat162_rn(s.x, s.y);
+      y[1] = __floats2bfloat162_rn(s.z, s.w);
     }
   }
 }
 
-template <int BM, int LAYOUT>
-cudaError_t launch(const Args& p, cudaStream_t stream) {
-  constexpr bool AT = LAYOUT == TN;
-  constexpr bool BT = LAYOUT == NN || LAYOUT == TN;
-  const int smem = STAGES * (a_stage<BM, AT>() + b_stage<BT>()) * (int)sizeof(__nv_bfloat16);
-  static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(gemm_kernel<BM, LAYOUT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
-  }
-  dim3 grid((p.N + BN - 1) / BN, (p.M + BM - 1) / BM);
-  gemm_kernel<BM, LAYOUT><<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+// ---- host side -------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled through the runtime, so the library
+// needs no link against libcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(ptr)
+                                                                  : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 row-major (rows, cols) matrix, read in boxes of box_rows x 64 columns
+// with the 128-byte swizzle; out-of-bounds elements read as zero
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  cuuint32_t estr[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+                estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// streaming multiprocessors of the current device (cached per device)
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0) cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
 }
 
 template <int LAYOUT>
-cudaError_t dispatch(const Args& p, cudaStream_t s) {
-  // 128-row tiles when they already give the card's 132 SMs a full wave,
-  // 64-row tiles otherwise (e.g. BERT's M = 592 at batch 8)
-  long tiles128 = (long)((p.M + 127) / 128) * ((p.N + BN - 1) / BN);
-  if (tiles128 >= 132) return launch<128, LAYOUT>(p, s);
-  return launch<64, LAYOUT>(p, s);
+cudaError_t launch(const void* A, const void* B, const Args& p, cudaStream_t stream) {
+  CUtensorMap map_a, map_b;
+  const bool ok_a = LAYOUT == TN ? make_map(&map_a, A, p.K, p.M, 64) : make_map(&map_a, A, p.M, p.K, BM);
+  const bool ok_b = LAYOUT == NT ? make_map(&map_b, B, p.N, p.K, BN) : make_map(&map_b, B, p.K, p.N, 64);
+  if (!ok_a || !ok_b) return cudaErrorInvalidValue;
+  static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(gemm_wgmma_kernel<LAYOUT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const long long items = static_cast<long long>((p.N + BN - 1) / BN) * ((p.M + BM - 1) / BM) * p.splits;
+  const int sms = sm_count();
+  if (sms < 1) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(items < sms ? items : sms);  // one persistent block per SM
+  gemm_wgmma_kernel<LAYOUT><<<grid, THREADS, SMEM_BYTES, stream>>>(map_a, map_b, p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return e;
+  const long long mn = static_cast<long long>(p.M) * p.N;
+  const long long blocks = (mn / 4 + 255) / 256;
+  gemm_fold_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      p.ws, p.Y, mn, p.splits, p.flags & OUT_F32);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -347,20 +551,25 @@ cudaError_t dispatch(const Args& p, cudaStream_t s) {
 // P: f32 (M, N) pre-activation, written when given with epi 0/1, read with epi 2.
 // E: bf16 (M, N) multiplier applied before the residual add, or null.
 // S: f32 row scale applied after E, row m reads S[m / s_div], or null.
+// splits > 1: the contraction in that many slices of whole k-tiles, f32
+// partials in ws (splits, M, N), folded in order; only with no epilogue.
 extern "C" int mvlt_gemm(const void* A, const void* B, const void* bias, const void* R, const void* ridx,
                          const void* sidx, void* Y, void* P, const void* E, const void* S, int M, int N, int K,
-                         int layout, int epi, int flags, int s_div, void* stream) {
-  Args p{static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(B),
-         static_cast<const __nv_bfloat16*>(bias), R, static_cast<const int*>(ridx),
+                         int layout, int epi, int flags, int s_div, void* ws, int splits, void* stream) {
+  Args p{static_cast<const __nv_bfloat16*>(bias), R, static_cast<const int*>(ridx),
          static_cast<const int*>(sidx), Y, static_cast<float*>(P), static_cast<const __nv_bfloat16*>(E),
-         static_cast<const float*>(S), M, N, K, epi, flags, s_div};
+         static_cast<const float*>(S), static_cast<float*>(ws), M, N, K, epi, flags, s_div, splits};
+  if (M < 1 || N < 1 || K < 1 || splits < 1) return (int)cudaErrorInvalidValue;
   if (epi == EPI_GELU_GRAD && P == nullptr) return (int)cudaErrorInvalidValue;
   if (S != nullptr && s_div < 1) return (int)cudaErrorInvalidValue;
+  if (splits > 1 && (ws == nullptr || bias || R || sidx || P || E || S || epi != EPI_NONE ||
+                     splits > (K + BK - 1) / BK))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (layout) {
-    case NT: return (int)dispatch<NT>(p, s);
-    case NN: return (int)dispatch<NN>(p, s);
-    case TN: return (int)dispatch<TN>(p, s);
+    case NT: return (int)launch<NT>(A, B, p, s);
+    case NN: return (int)launch<NN>(A, B, p, s);
+    case TN: return (int)launch<TN>(A, B, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,6 +9,11 @@ per source, all built in parallel) and bound with ``ctypes``. Every TPU
 kernel on the ported paths is rebuilt from these in
 :mod:`mvlt_tpu_torch.ops.blocks`.
 
+K1 is a persistent TMA + ``wgmma`` GEMM for the NT, NN and TN layouts with
+a fused epilogue; a product with no epilogue whose output tiles fill at most
+half the card runs as a deterministic split-K, as :func:`gemm_plan` cuts it
+(counted in ``gemm.splitk_launches``).
+
 K2 and K4 have two opt-in modes each: in-kernel attention dropout from a
 device seed (``adrop=(seed, rate)``; the Philox stream of
 ``csrc/philox.cuh``, whose plain version is :func:`adrop_mask_plain`), and
@@ -34,13 +39,14 @@ moments.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -57,7 +63,7 @@ _vp, _int, _float, _uint = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 _i64 = ctypes.c_longlong
 # C function -> (argument types, result type)
 _SIGNATURES = {
-    "mvlt_gemm": ([_vp] * 10 + [_int] * 7 + [_vp], _int),
+    "mvlt_gemm": ([_vp] * 10 + [_int] * 7 + [_vp, _int, _vp], _int),
     "mvlt_attention": ([_vp] * 3 + [_i64] * 3 + [_vp] + [_i64] * 3 + [_vp] * 7
                        + [_int] * 5 + [_float, _uint, _float, _vp], _int),
     "mvlt_attention_smem": ([_int, _int], _i64),
@@ -95,6 +101,8 @@ def build() -> dict:
     unless a library built from the same source and header bytes exists,
     then load them.
     Returns ``{name: ctypes.CDLL}``; raises if any build fails."""
+    if _libs:                 # every launch asks: no lock once built
+        return _libs
     with _build_lock:
         if _libs:
             return _libs
@@ -145,7 +153,14 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+# the current stream's handle without building a Stream object (several
+# microseconds of host time a launch); PyTorch's own accessor where it has one
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(device: torch.device) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
     return torch.cuda.current_stream(device).cuda_stream
 
 
@@ -156,13 +171,20 @@ def _require(cond: bool, msg: str) -> None:
 
 def _cuda_arg(t: Optional[torch.Tensor], name: str, dtype: torch.dtype,
               device: torch.device, ndim: int) -> None:
+    # the messages are formatted only on failure: this runs for every
+    # tensor of every launch, on the host's critical path
     if t is None:
         return
-    _require(t.device == device, f"{name} is on {t.device}, expected {device}")
-    _require(t.dtype == dtype, f"{name} has dtype {t.dtype}, expected {dtype}")
-    _require(t.dim() == ndim, f"{name} must be {ndim}-D, got {tuple(t.shape)}")
-    _require(t.is_contiguous(), f"{name} must be contiguous")
-    _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _rows(x: torch.Tensor, idx: Optional[torch.Tensor]) -> torch.Tensor:
@@ -195,6 +217,47 @@ def _cuda_row_scale(scale: Optional[torch.Tensor], M: int,
 # ---------------------------------------------------------------------------
 
 _LAYOUTS = {"nt": 0, "nn": 1, "tn": 2}
+# csrc/gemm.cu's output tile and k-tile
+GEMM_TILE_M, GEMM_TILE_N, GEMM_TILE_K = 128, 128, 64
+H100_SMS = 132
+# fewest k-tiles a split-K slice takes, so that its mainloop amortises the
+# partial tile it writes and the fold reads back
+SPLITK_MIN_KTILES = 4
+
+
+class GemmPlan(NamedTuple):
+    """How K1 runs one product: ``splits`` slices of the contraction, slice z
+    covering ``slices[z] = (k_begin, k_end)``; each slice's f32 partial is
+    summed in slice order. ``splits == 1``: one pass, epilogue included."""
+    splits: int
+    slices: tuple
+
+
+@functools.lru_cache(maxsize=4096)
+def gemm_plan(M: int, N: int, K: int, sms: int = H100_SMS,
+              epilogue: bool = False) -> GemmPlan:
+    """K1's plan for an (M, N) output over a contraction of K (any layout).
+
+    The contraction is split only for a product with no epilogue whose
+    output tiles fill at most half of the ``sms`` streaming multiprocessors
+    (the weight gradients dW = dY^T X of the Swin stages): into
+    ``sms // tiles`` slices, at most one per ``SPLITK_MIN_KTILES`` k-tiles,
+    each a run of whole k-tiles (the last may end in a partial one), as
+    even as the k-tiles allow. ``csrc/gemm.cu`` cuts the slices by the same
+    rule (``kt0 = z * ktiles / splits``)."""
+    tiles = -(-M // GEMM_TILE_M) * -(-N // GEMM_TILE_N)
+    ktiles = -(-K // GEMM_TILE_K)
+    splits = 1
+    if not epilogue and 2 * tiles <= sms:
+        splits = max(1, min(sms // tiles, ktiles // SPLITK_MIN_KTILES))
+    bounds = [z * ktiles // splits * GEMM_TILE_K for z in range(splits + 1)]
+    slices = tuple((bounds[z], min(bounds[z + 1], K)) for z in range(splits))
+    return GemmPlan(splits, slices)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def gelu_grad_exact(a: torch.Tensor) -> torch.Tensor:
@@ -259,7 +322,9 @@ def gemm(a, w, bias=None, *, gelu: bool = False, residual=None,
     operands, bias and emask, an f32 row scale, a bf16 or f32 residual, a
     bf16 or f32 output, the contiguous dims of both operands multiples of 8,
     int32 row indices, and ``store_index`` a permutation of the rows (every
-    output row is written)."""
+    output row is written). A product with no epilogue may run as a split-K
+    (:func:`gemm_plan`): the slices' f32 partials go to a workspace and a
+    second kernel sums them in order (counted in ``splitk_launches``)."""
     if not a.is_cuda:
         return gemm_plain(a, w, bias, gelu=gelu, residual=residual,
                           residual_index=residual_index,
@@ -268,7 +333,9 @@ def gemm(a, w, bias=None, *, gelu: bool = False, residual=None,
                           save_preact=save_preact, emask=emask,
                           row_scale=row_scale)
     dev, bf, f32 = a.device, torch.bfloat16, torch.float32
-    _require(layout in _LAYOUTS, f"unknown layout {layout!r}")
+    # every check formats its message only on failure (host time per call)
+    if layout not in _LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
     _cuda_arg(a, "a", bf, dev, 2)
     _cuda_arg(w, "w", bf, dev, 2)
     if layout == "tn":
@@ -279,50 +346,64 @@ def gemm(a, w, bias=None, *, gelu: bool = False, residual=None,
         N, wk = w.shape
     else:
         wk, N = w.shape
-    _require(wk == K, f"w {tuple(w.shape)} does not match a {tuple(a.shape)} "
-                      f"in layout {layout}")
+    if wk != K:
+        raise ValueError(f"w {tuple(w.shape)} does not match a "
+                         f"{tuple(a.shape)} in layout {layout}")
     inner = M if layout == "tn" else K
-    _require(inner % 8 == 0 and N % 8 == 0,
-             f"the contiguous dims ({inner}, {N}) must be multiples of 8")
+    if inner % 8 or N % 8:
+        raise ValueError(f"the contiguous dims ({inner}, {N}) must be "
+                         "multiples of 8")
     _cuda_arg(bias, "bias", bf, dev, 1)
-    _require(bias is None or bias.shape[0] == N, "bias must have N entries")
+    if bias is not None and bias.shape[0] != N:
+        raise ValueError("bias must have N entries")
     res_f32 = residual is not None and residual.dtype == f32
     _cuda_arg(residual, "residual", f32 if res_f32 else bf, dev, 2)
-    _require(residual is None or residual.shape[1] == N, "residual must have N columns")
-    _require(residual is not None or residual_index is None,
-             "residual_index needs a residual")
-    for name, idx in (("residual_index", residual_index), ("store_index", store_index)):
+    if residual is not None:
+        if residual.shape[1] != N:
+            raise ValueError("residual must have N columns")
+        if residual_index is None and residual.shape[0] != M:
+            raise ValueError("residual must have M rows")
+    elif residual_index is not None:
+        raise ValueError("residual_index needs a residual")
+    for name, idx in (("residual_index", residual_index),
+                      ("store_index", store_index)):
         _cuda_arg(idx, name, torch.int32, dev, 1)
-        _require(idx is None or idx.shape[0] == M, f"{name} must have M entries")
-    _require(residual is None or residual_index is not None or residual.shape[0] == M,
-             "residual must have M rows")
-    _require(not (gelu and gelu_grad is not None), "gelu and gelu_grad exclude each other")
-    _require(not (save_preact and gelu_grad is not None),
-             "save_preact and gelu_grad exclude each other")
-    _cuda_arg(gelu_grad, "gelu_grad", f32, dev, 2)
-    _require(gelu_grad is None or tuple(gelu_grad.shape) == (M, N),
-             f"gelu_grad must be ({M}, {N})")
+        if idx is not None and idx.shape[0] != M:
+            raise ValueError(f"{name} must have M entries")
+    if gelu_grad is not None:
+        if gelu or save_preact:
+            raise ValueError("gelu_grad excludes gelu and save_preact")
+        _cuda_arg(gelu_grad, "gelu_grad", f32, dev, 2)
+        if tuple(gelu_grad.shape) != (M, N):
+            raise ValueError(f"gelu_grad must be ({M}, {N})")
     _cuda_arg(emask, "emask", bf, dev, 2)
-    _require(emask is None or tuple(emask.shape) == (M, N),
-             f"emask must be ({M}, {N})")
+    if emask is not None and tuple(emask.shape) != (M, N):
+        raise ValueError(f"emask must be ({M}, {N})")
     s_div = _cuda_row_scale(row_scale, M, dev)
     out_dtype = out_dtype or bf
-    _require(out_dtype in (bf, f32), f"out_dtype {out_dtype} is not bf16 or f32")
+    if out_dtype not in (bf, f32):
+        raise ValueError(f"out_dtype {out_dtype} is not bf16 or f32")
     y = torch.empty((M, N), dtype=out_dtype, device=dev)
     pre = torch.empty((M, N), dtype=f32, device=dev) if save_preact else gelu_grad
     epi = 2 if gelu_grad is not None else int(gelu)
     flags = int(out_dtype == f32) | (2 * int(res_f32))
-    lib = build()["gemm"]
-    _check(lib.mvlt_gemm(_ptr(a), _ptr(w), _ptr(bias), _ptr(residual),
-                         _ptr(residual_index), _ptr(store_index), _ptr(y),
-                         _ptr(pre), _ptr(emask), _ptr(row_scale), M, N, K,
-                         _LAYOUTS[layout], epi, flags, s_div,
-                         _stream(dev)), "gemm")
+    epilogue = (gelu or pre is not None or bias is not None
+                or residual is not None or store_index is not None
+                or emask is not None or row_scale is not None)
+    splits = gemm_plan(M, N, K, _sm_count(dev.index), epilogue).splits
+    ws = (torch.empty((splits, M, N), dtype=f32, device=dev)
+          if splits > 1 else None)
+    _check(build()["gemm"].mvlt_gemm(
+        _ptr(a), _ptr(w), _ptr(bias), _ptr(residual), _ptr(residual_index),
+        _ptr(store_index), _ptr(y), _ptr(pre), _ptr(emask), _ptr(row_scale),
+        M, N, K, _LAYOUTS[layout], epi, flags, s_div, _ptr(ws), splits,
+        _stream(dev)), "gemm")
     gemm.launches += 1
+    gemm.splitk_launches += splits > 1
     return (y, pre) if save_preact else y
 
 
-gemm.launches = 0
+gemm.launches = gemm.splitk_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -993,6 +1074,7 @@ column_sum.launches = 0
 FORWARD_KERNELS = (gemm, biased_attention, layernorm)
 KERNELS = FORWARD_KERNELS + (biased_attention_bwd, layernorm_bwd, column_sum)
 # the opt-in modes' launch counts, beside each kernel's ``launches``
-MODE_COUNTS = {biased_attention: ("adrop_launches", "save_p_launches",
+MODE_COUNTS = {gemm: ("splitk_launches",),
+               biased_attention: ("adrop_launches", "save_p_launches",
                                    "heads_launches"),
                biased_attention_bwd: ("adrop_launches", "stored_p_launches")}

@@ -12,7 +12,9 @@ text length 80 with the mask mode of each step from a seeded coin flip,
 runs two warm-up steps, then traces ``--steps`` steps with
 ``torch.profiler`` and prints the device time per step by kernel family
 (the port's kernels K1-K5, cuDNN convolutions and BatchNorm, cuBLAS
-products, PyTorch's LayerNorm, the optimizer, the rest), the
+products, PyTorch's LayerNorm, the optimizer, the rest), K1's time by
+layout (NT forward, NN data gradients, TN weight gradients and their
+split-K fold), the
 device busy share of the traced window, the unprofiled step times with the
 SM clock and power sampled before and after them, and the card's name and
 power limit. Needs a CUDA device. The opt-in kernel switches are read
@@ -51,7 +53,7 @@ FAMILIES = [
     (OURS + "colsum_kernel", "K5 column_sum"),
     (OURS + "reduce_kernel", "K5 partial-sum fold"),
     (OURS + "layernorm_kernel", "K3 layernorm"),
-    (OURS + "gemm_kernel", "K1 gemm"),
+    (OURS + "gemm_", "K1 gemm"),      # the mainloop and the split-K fold
     ("multi_tensor_apply", "AdamW (multi-tensor)"),
     ("batch_norm", "BatchNorm (ResNet)"),
     ("bn_", "BatchNorm (ResNet)"),
@@ -68,6 +70,15 @@ FAMILIES = [
     ("max_pool", "ResNet max-pool"),
 ]
 
+
+# K1's kernels by what they compute: the mainloop's template argument is its
+# layout (csrc/gemm.cu)
+K1_PARTS = [
+    ("gemm_wgmma_kernel<0>", "NT: forward products"),
+    ("gemm_wgmma_kernel<1>", "NN: data gradients dX = dY W"),
+    ("gemm_wgmma_kernel<2>", "TN: weight gradients dW = dY^T X"),
+    ("gemm_fold_kernel", "split-K fold (weight gradients)"),
+]
 
 # the profiler also puts these ranges on the device timeline; they are not
 # kernels and would count their kernels twice
@@ -88,6 +99,14 @@ def family(name: str) -> str:
         if frag in low:
             return fam
     return "other elementwise / reductions (ReLU, GELU, casts, adds, loss)"
+
+
+def k1_part(name: str):
+    """K1's part (layout, or the split-K fold) of a kernel name, or None."""
+    for frag, part in K1_PARTS:
+        if frag in name:
+            return part
+    return None
 
 
 def _build(args, flagship, seq2seq_coin_flip):
@@ -148,7 +167,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    fams, launches, per_kernel = {}, {}, {}
+    fams, launches, per_kernel, k1 = {}, {}, {}, {}
     for evt in prof.events():
         if (evt.device_type != DeviceType.CUDA
                 or getattr(evt, "is_user_annotation", False)
@@ -160,6 +179,10 @@ def main() -> int:
         launches[fam] = launches.get(fam, 0) + 1
         t, n = per_kernel.get(evt.name, (0.0, 0))
         per_kernel[evt.name] = (t + ms, n + 1)
+        part = k1_part(evt.name)
+        if part is not None:
+            t, n = k1.get(part, (0.0, 0))
+            k1[part] = (t + ms, n + 1)
     launches = {k: v // args.steps for k, v in launches.items()}
     kernels = [(t, n // args.steps, name) for name, (t, n) in per_kernel.items()]
     total = sum(fams.values())
@@ -174,6 +197,9 @@ def main() -> int:
     print(f"{'family':58s} {'ms/step':>9s} {'share':>6s} {'launches':>8s}")
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"{fam:58s} {ms:9.3f} {ms / total:6.1%} {launches[fam]:8d}")
+    print("K1 gemm by part (ms/step, launches/step):")
+    for part, (ms, n) in sorted(k1.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {part:56s} {ms:9.3f} {n // args.steps:8d}")
     print("top kernels (ms/step, launches/step, name):")
     for ms, n, name in sorted(kernels, reverse=True)[:15]:
         print(f"  {ms:8.3f} {n:5d}  {name[:110]}")

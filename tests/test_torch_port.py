@@ -251,6 +251,59 @@ def test_cuda_masked_attention_fwd_bwd_match_plain(cuda_device, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nt", "nn", "tn"])
+def test_cuda_gemm_every_layout_and_epilogue_matches_plain(cuda_device,
+                                                           layout):
+    """K1's TMA + wgmma mainloop in each layout at ragged edges (M, N not
+    multiples of the 128 x 128 tile, a contraction not a multiple of the
+    k-tile: any row count in ``tn``), with every epilogue, unsplit; then an
+    epilogue-free product that the plan splits, in bf16 and f32, against
+    the plain version, two calls bitwise equal."""
+    g = torch.Generator().manual_seed(11)
+    f32 = torch.float32
+    M, N = 200, 136
+    K = 333 if layout == "tn" else 328
+
+    def operands(M, N, K):
+        a = _rnd(g, *((K, M) if layout == "tn" else (M, K)), dev=cuda_device)
+        w = _rnd(g, *((N, K) if layout == "nt" else (K, N)), std=K ** -0.5,
+                 dev=cuda_device)
+        return a, w
+
+    a, w = operands(M, N, K)
+    b = _rnd(g, N, dev=cuda_device)
+    r = _rnd(g, M, N, dt=f32, dev=cuda_device)
+    a1 = _rnd(g, M, N, dt=f32, dev=cuda_device)
+    e = ((torch.rand(M, N, generator=g) < 0.9).float() / 0.9).to(
+        cuda_device, torch.bfloat16)
+    dp = (torch.rand(8, generator=g) < 0.7).float().to(cuda_device) / 0.7
+    idx = torch.randperm(M, generator=g).to(cuda_device, torch.int32)
+    for bias, kw in ((None, dict()), (None, dict(out_dtype=f32)),
+                     (b, dict(gelu=True, save_preact=True)),
+                     (None, dict(gelu_grad=a1, out_dtype=f32)),
+                     (b, dict(emask=e, row_scale=dp, residual=r,
+                              residual_index=idx, store_index=idx))):
+        got = kernels.gemm(a, w, bias, layout=layout, **kw)
+        want = kernels.gemm_plain(a, w, bias, layout=layout, **kw)
+        for x, y in zip(*((got, want) if kw.get("save_preact")
+                          else ((got,), (want,)))):
+            _near(x, y, 2 ** -7)
+    M, N, K = 96, 136, 3000
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert kernels.gemm_plan(M, N, K, sms).splits > 1
+    a, w = operands(M, N, K)
+    for out_dtype in (torch.bfloat16, f32):
+        before = kernels.gemm.splitk_launches
+        got = kernels.gemm(a, w, layout=layout, out_dtype=out_dtype)
+        assert kernels.gemm.splitk_launches == before + 1
+        _near(got, kernels.gemm_plain(a, w, layout=layout,
+                                      out_dtype=out_dtype), 2 ** -7)
+        assert torch.equal(got, kernels.gemm(a, w, layout=layout,
+                                             out_dtype=out_dtype))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_cuda_gemm_emask_and_layernorm_bwd_hmask_match_plain(cuda_device):
     g = torch.Generator().manual_seed(9)
     M, K, N = 72, 96, 64
