@@ -10,7 +10,8 @@ on failure:
    nvcc (sm_90a, one process per source, all at once) into
    ``build/torch_kernels/``; print K1's SASS instruction counts (``HGMMA``
    and ``UTMALDG``: its ``wgmma`` / TMA mainloop was compiled) and its
-   wrapper's host time per call;
+   wrapper's host time per call, and K2's (``HGMMA``: S = Q K^T and P V on
+   the tensor cores) with its wrapper's host time beside SDPA's;
 3. kernel checks: hold K1 ``gemm``, K2 ``biased_attention``, K3
    ``layernorm`` and the six forward counterparts of
    ``mvlt_tpu_torch.ops.blocks`` against their plain PyTorch versions on the
@@ -21,7 +22,10 @@ on failure:
    and K4 with qbias and amask, K4 at N = 128, K1's epilogue multiplier, K5
    with hmask, the two masked forward counterparts and the two backward
    ones with their masks, and the shared-memory reckoning of K2 / K4
-   against the compiled one. Each is timed beside its plain version, the
+   against the compiled one; K2 at N = 221 and 278 (a 196-token image with
+   BERT text, b32, 12 heads: key bias, qbias + amask, in-kernel dropout),
+   two calls of K2 bitwise equal in every mode, and K2 refusing what it
+   cannot take before a launch. Each is timed beside its plain version, the
    library call that computes the same function (never called by the port)
    and its bound on an H100 SXM (the larger of FLOPs / 989 TFLOP/s and
    bytes / 3.35 TB/s);
@@ -129,6 +133,8 @@ PRETRAIN_MODES = (False, True, False)          # seq2seq per step
 
 # H100 SXM peaks (NVIDIA data sheet; dense bf16 tensor cores, HBM3)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# calls per CUDA graph in ``graph_ms``
+GRAPH_REPS = 10
 
 # calls per flagship forward of each TPU kernel on the JAX path, traced with
 # the TPU kernel gates forced on: port function -> (count, TPU kernel)
@@ -265,6 +271,9 @@ KERNEL_SOURCES = {
     # K2's head-major layout (q, k, v through strides)
     "biased_attention_heads": ("mvlt_tpu_torch/csrc/attention.cu",
                                "mvlt_tpu/ops/pallas_attn.py:40"),
+    # K2 at S = 221 / 278, which no path runs yet (ROADMAP A9)
+    "biased_attention_long_n": ("mvlt_tpu_torch/csrc/attention.cu",
+                                "mvlt_tpu/ops/pallas_attn.py:512"),
     # K1's split-K weight gradients: the sums that _swin_mlp_bwd_kernel
     # carries across its sequential grid (:1689-1695)
     "gemm_splitk": ("mvlt_tpu_torch/csrc/gemm.cu",
@@ -309,6 +318,32 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn) -> float:
+    """Mean device time of one call of ``fn`` in ms, as a CUDA graph of
+    ``GRAPH_REPS`` calls replayed 5 times: the wrapper's host time, which
+    paces ``cuda_ms`` on small cases, drops out (warm L2)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_REPS):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * GRAPH_REPS)
+
+
 def _tensors(out):
     """The tensors of an output, in order, leaving out None."""
     out = list(out) if isinstance(out, (tuple, list)) else [out]
@@ -336,11 +371,14 @@ class Checker:
 
     def case(self, name: str, kernel_fn, plain_fn, bar: float, *,
              flops: float, nbytes: float, library_fn=None,
-             floor: float = 1.0, also: tuple = ()) -> None:
+             floor: float = 1.0, also: tuple = (),
+             graph: bool = False) -> None:
         """``bar`` is a multiple of the largest |value| of each plain output
         (at least ``floor``); ``flops`` / ``nbytes`` are what the function
         must do and move (each input read once, each output written once).
-        The numbers are kept under ``name`` and under each row of ``also``."""
+        The numbers are kept under ``name`` and under each row of ``also``.
+        With ``graph`` the kernel and the library call are also timed as
+        CUDA graphs (``graph_ms``; printed only)."""
         got, want = _tensors(kernel_fn()), _tensors(plain_fn())
         torch.cuda.synchronize()
         assert len(got) == len(want), (name, len(got), len(want))
@@ -374,9 +412,16 @@ class Checker:
             else:
                 row["library_ms"] += lib_ms
         lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        graphs = ""
+        if graph:
+            g_lib = ("none" if library_fn is None
+                     else f"{graph_ms(library_fn):.4f} ms")
+            graphs = (f"; as graphs kernel {graph_ms(kernel_fn):.4f} ms "
+                      f"library {g_lib}")
         print(f"check {name}: max_abs_err {err:.3g} kernel {ms:.4f} ms plain "
               f"{plain_ms:.4f} ms library {lib} bound {b_ms:.4f} ms ({b_by}; "
-              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)", flush=True)
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB){graphs}",
+              flush=True)
 
     def row(self, name: str) -> dict:
         r = dict(self.rows[name])
@@ -521,7 +566,7 @@ def kernel_checks(chk: Checker, dev) -> None:
                  KERNEL_BAR,
                  library_fn=lambda: lib_attention(qkv, G, N, nH, mask, sc),
                  flops=4.0 * G * nH * N * N * (C // nH),
-                 nbytes=nbytes(qkv, pat, kb, ctx))
+                 nbytes=nbytes(qkv, pat, kb, ctx), graph=True)
 
     # K3: stage-1 LN1 with the shift gather, stage-3 merge norm, BERT LN;
     # library: F.layer_norm (bf16 gamma / beta), without the gather
@@ -782,16 +827,26 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
     from mvlt_tpu_torch.ops import kernels as K
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
 
-    # the wrappers' shared-memory reckoning is the compiled one
+    # the wrappers' shared-memory reckoning is the compiled one: K2's tile
+    # plan for every N up to its cap and one past it (-1: not taken) at the
+    # two head dims the port runs, K4's up to N = 160
     libs = K.build()
+    for Dh in (32, 64):
+        for n in range(1, K.ATTENTION_MAX_N + 2):
+            for amask in (False, True):
+                assert K.attention_smem_bytes(n, Dh, amask) == \
+                    libs["attention"].mvlt_attention_smem(n, Dh, amask), \
+                    (n, Dh, amask)
+    assert K.attention_smem_bytes(K.ATTENTION_MAX_N + 1, 64) == -1
     for n in range(1, 161):
-        assert K.attention_smem_bytes(n, 64) == \
-            libs["attention"].mvlt_attention_smem(n, 64), n
         assert K.attention_bwd_smem_bytes(n, 64) == \
             libs["attention_bwd"].mvlt_attention_bwd_smem(n, 64, 0), n
     optin = K.smem_optin(dev)
+    top = K.max_attention_n(64, optin, amask=True)
     print(f"shared memory per block (opt-in): {optin} bytes; K2 admits N <= "
-          f"{K.max_attention_n(64, optin)}, K4 N <= "
+          f"{top} at head dim 64 ({K.attention_smem_bytes(top, 64, True)} "
+          f"bytes a block with an amask; C and Python agree for N = 1 .. "
+          f"{K.ATTENTION_MAX_N + 1} at head dims 32 and 64), K4 N <= "
           f"{K.max_attention_n(64, optin, backward=True)} at head dim 64",
           flush=True)
 
@@ -827,7 +882,7 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
                  library_fn=lambda: lib_masked_attention(qkv, B, S, nH, bias,
                                                          amask, sc),
                  flops=4.0 * B * nH * S * S * Dh,
-                 nbytes=nbytes(qkv, kbias, qbias, amask, dctx))
+                 nbytes=nbytes(qkv, kbias, qbias, amask, dctx), graph=True)
 
     # K4 with qbias / amask at N = 131, and at N = 128 (the largest N the
     # earlier layout claimed and could not launch)
@@ -1298,7 +1353,7 @@ def optin_kernel_checks(chk: Checker, dev) -> None:
                  library_fn=lambda bias=bias: lib_dropout_attention(
                      qkv, B, S, nH, bias, sc, rate),
                  flops=4.0 * B * nH * S * S * Dh,
-                 nbytes=nbytes(qkv, kbias, qbias, seed, dctx))
+                 nbytes=nbytes(qkv, kbias, qbias, seed, dctx), graph=True)
         # K4 (a) and its counterpart, the mask regenerated
         lib = library_backward(
             lambda q, k, v, bias=bias: F.scaled_dot_product_attention(
@@ -1361,7 +1416,7 @@ def optin_kernel_checks(chk: Checker, dev) -> None:
                  lambda pat=pat: K.biased_attention_plain(qkv, nH, N, sc, pat,
                                                           save_p=True),
                  KERNEL_BAR, flops=4.0 * BW * nH * N * N * Dh,
-                 nbytes=nbytes(qkv, pat, x, out_p))
+                 nbytes=nbytes(qkv, pat, x, out_p), graph=True)
         _, p = K.biased_attention(qkv, nH, N, sc, pat, save_p=True)
         # K4 (b) against its plain version on the same p, and against K4's
         # recompute mode; dpattern bitwise equal over two calls
@@ -1511,7 +1566,8 @@ def attn_impl_kernel_checks(chk: Checker, dev) -> None:
                          lambda plain=plain, pat=pat: plain(pat), KERNEL_BAR,
                          library_fn=lambda lmask=lmask:
                          F.scaled_dot_product_attention(
-                             q, k, v, attn_mask=lmask, scale=sc), **cost)
+                             q, k, v, attn_mask=lmask, scale=sc),
+                         graph=name == "biased_attention_heads", **cost)
             lib = library_backward(
                 lambda q_, k_, v_, lmask=lmask: torch.matmul(torch.softmax(
                     torch.matmul(q_, k_.transpose(-1, -2)) * sc + lmask,
@@ -1607,6 +1663,185 @@ def attn_impl_kernel_checks(chk: Checker, dev) -> None:
              library_fn=lambda: lib_swin_block(x, lparams, lmask, sc, nH),
              flops=2.0 * BW * N * C * 12 * C + 4.0 * BW * nH * N * N * Dh,
              nbytes=nbytes(x, *params, pat, x))
+
+
+def long_attention_checks(chk: Checker, dev) -> None:
+    """K2 at the sequence lengths its tiling opened (ROADMAP A9): a
+    196-token image (ViT-B/16 or the linear patch) with BERT text of 23 and
+    80 tokens, S = 221 and 278, b32, 12 heads, head dim 64: a padded key
+    bias, the seq2seq qbias with a dropout mask, and in-kernel dropout, each
+    against its plain version, SDPA (or the bf16 composition that takes a
+    probability mask) and its bound. No path runs these shapes, so they
+    form a row of their own (``biased_attention_long_n``) and leave K2's
+    other rows to the shapes the paths give it."""
+    from mvlt_tpu_torch.ops import kernels as K
+    from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
+    inp = Inputs(dev, seed=6)
+    bf = torch.bfloat16
+    B, C, nH, rate = TRAIN_BATCH, 768, 12, 0.1
+    Dh = C // nH
+    sc = Dh ** -0.5
+    seed = torch.tensor([40503, 4242], dtype=torch.int32, device=dev)
+    for S in (1 + 196 + 1 + 23, 1 + 196 + 1 + PRETRAIN_TEXT):
+        qkv = inp.rnd(B * S, 3 * C, std=0.5)
+        ctx = torch.empty(B * S, C, dtype=bf, device=dev)
+        kb = inp.key_bias([S - (11 * i) % (S - 198) for i in range(B)], S)
+        qb = mask_to_bias(seq2seq_fusion_mask(B, 198, S, dev)).contiguous()
+        amask = ((torch.rand(B, nH, S, S, generator=inp.gen) < 0.9).to(bf)
+                 / 0.9).to(dev)
+        flops = 4.0 * B * nH * S * S * Dh
+        print(f"K2 at S = {S} (b{B}, {nH} heads, head dim {Dh}): "
+              f"{K.attention_plan(S, Dh)}", flush=True)
+        chk.case("biased_attention_long_n",
+                 lambda: K.biased_attention(qkv, nH, S, sc, key_bias=kb),
+                 lambda: K.biased_attention_plain(qkv, nH, S, sc, key_bias=kb),
+                 KERNEL_BAR,
+                 library_fn=lambda: lib_attention(
+                     qkv, B, S, nH, kb.to(bf)[:, None, None, :], sc),
+                 flops=flops, nbytes=nbytes(qkv, kb, ctx), graph=True)
+        chk.case("biased_attention_long_n",
+                 lambda: K.biased_attention(qkv, nH, S, sc, qbias=qb,
+                                            amask=amask),
+                 lambda: K.biased_attention_plain(qkv, nH, S, sc, qbias=qb,
+                                                  amask=amask),
+                 KERNEL_BAR,
+                 library_fn=lambda: lib_masked_attention(
+                     qkv, B, S, nH, qb.to(bf)[:, None], amask, sc),
+                 flops=flops, nbytes=nbytes(qkv, qb, amask, ctx), graph=True)
+        chk.case("biased_attention_long_n",
+                 lambda: K.biased_attention(qkv, nH, S, sc, key_bias=kb,
+                                            adrop=(seed, rate)),
+                 lambda: K.biased_attention_plain(qkv, nH, S, sc, key_bias=kb,
+                                                  adrop=(seed, rate)),
+                 KERNEL_BAR,
+                 library_fn=lambda: lib_dropout_attention(
+                     qkv, B, S, nH, kb.to(bf)[:, None, None, :], sc, rate),
+                 flops=flops, nbytes=nbytes(qkv, kb, seed, ctx), graph=True)
+        _, mask = K.biased_attention(qkv, nH, S, sc, key_bias=kb,
+                                     adrop=(seed, rate), save_mask=True)
+        if not torch.equal(mask, K.adrop_mask_plain(seed, B, nH, S, rate)):
+            raise AssertionError(f"K2's Philox mask at S = {S} differs from "
+                                 "adrop_mask_plain")
+        del amask, mask
+
+
+def attention_repeat_checks(dev) -> None:
+    """Two calls of K2 on the same inputs are bitwise equal in every mode
+    (no atomics, one fixed order of sums), at the pretrain step's fusion
+    shapes (b32, S = 131, 12 heads) and Swin-S stage 3 (b32, 128 windows
+    of 49, 12 heads); then K2 refuses what its plan or its 16-byte loader
+    cannot take (N = 289, head dim 24, a misaligned view) with a
+    ``ValueError`` before any launch."""
+    from mvlt_tpu_torch.ops import kernels as K
+    from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
+    inp = Inputs(dev, seed=7)
+    bf = torch.bfloat16
+    B, S, C, nH = TRAIN_BATCH, 1 + 49 + 1 + PRETRAIN_TEXT, 768, 12
+    qkv = inp.rnd(B * S, 3 * C, std=0.5)
+    kb = inp.key_bias([S - (11 * i) % 75 for i in range(B)], S)
+    qb = mask_to_bias(seq2seq_fusion_mask(B, 50, S, dev)).contiguous()
+    am = ((torch.rand(B, nH, S, S, generator=inp.gen) < 0.9).to(bf)
+          / 0.9).to(dev)
+    seed = torch.tensor([40503, 99], dtype=torch.int32, device=dev)
+    sc = (C // nH) ** -0.5
+    BW, N, Cs = B * 4, 49, 384
+    wq = inp.rnd(BW * N, 3 * Cs, std=0.5)
+    pats = {1: inp.rnd(1, nH, N, N, std=0.5, dtype=torch.float32),
+            4: inp.rnd(4, nH, N, N, std=0.5, dtype=torch.float32)}
+    q, k, v = wq.view(BW, N, 3, nH, Cs // nH).permute(2, 0, 3, 1, 4).unbind(0)
+    ss = (Cs // nH) ** -0.5
+    modes = {
+        "key bias": lambda: K.biased_attention(qkv, nH, S, sc, key_bias=kb),
+        "qbias + amask": lambda: K.biased_attention(qkv, nH, S, sc, qbias=qb,
+                                                    amask=am),
+        "key bias + amask": lambda: K.biased_attention(qkv, nH, S, sc,
+                                                       key_bias=kb, amask=am),
+        "in-kernel dropout, seq2seq": lambda: K.biased_attention(
+            qkv, nH, S, sc, qbias=qb, adrop=(seed, 0.1), save_mask=True),
+        "stored p, key bias": lambda: K.biased_attention(
+            qkv, nH, S, sc, key_bias=kb, save_p=True),
+        "pattern P = 1": lambda: K.biased_attention(wq, nH, N, ss, pats[1]),
+        "pattern P = 4, stored p": lambda: K.biased_attention(
+            wq, nH, N, ss, pats[4], save_p=True),
+        "head-major P = 4": lambda: K.biased_attention_heads(q, k, v, ss,
+                                                             pats[4]),
+    }
+    for name, fn in modes.items():
+        one, two = _tensors(fn()), _tensors(fn())
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(one, two)):
+            raise AssertionError(f"K2 ({name}) is not bitwise reproducible")
+    print(f"K2, two calls bitwise equal in every mode: {list(modes)}",
+          flush=True)
+    before = K.biased_attention.launches
+    refused = []
+    for what, fn in (
+            ("N = 289", lambda: K.biased_attention(
+                inp.rnd(2 * 289, 3 * 128), 2, 289, 0.125)),
+            ("head dim 24", lambda: K.biased_attention(
+                inp.rnd(2 * 49, 3 * 72), 3, 49, 0.2)),
+            ("a view 2 bytes off 16", lambda: K.biased_attention_heads(
+                *inp.rnd(3, 2, 2, 49, 33)[..., 1:].unbind(0), 0.17))):
+        try:
+            fn()
+        except ValueError as e:
+            refused.append(f"{what}: {e}")
+        else:
+            raise AssertionError(f"K2 took {what}")
+    torch.cuda.synchronize()
+    if K.biased_attention.launches != before:
+        raise AssertionError("K2 launched for a call it refused")
+    print(f"K2 refuses before launching: {refused}", flush=True)
+
+
+def k2_report(dev) -> None:
+    """Print what K2's library was compiled to (its SASS instruction counts:
+    HGMMA is ``wgmma`` (S = Q K^T and P V), LDGSTS a cp.async copy, UTMALDG
+    a TMA load (K2 uses none), HMMA an ``mma.sync``; and per template
+    instance, (key chunks, head columns), its registers and stack bytes a
+    thread, where spills go) and the K2 wrapper's host time per call at a
+    small shape beside one SDPA call's."""
+    import re
+    from mvlt_tpu_torch.ops import kernels as K
+    path = K.build()["attention"]._name
+    tool = pathlib.Path(K._nvcc()).with_name("cuobjdump")
+    try:
+        sass = subprocess.run([str(tool), "-sass", path], capture_output=True,
+                              text=True, timeout=120).stdout
+        ops = {op: len(re.findall(rf"\b{op}\b", sass))
+               for op in ("HGMMA", "LDGSTS", "UTMALDG", "HMMA")}
+        usage = subprocess.run([str(tool), "-res-usage", path],
+                               capture_output=True, text=True,
+                               timeout=120).stdout
+        regs = {f"{nc}x{cols}": (int(r), int(st)) for nc, cols, r, st in
+                re.findall(r"attention_wgmma_kernelILi(\d+)ELi(\d+)E\S*"
+                           r"\s+REG:(\d+) STACK:(\d+)", usage)}
+    except (OSError, subprocess.SubprocessError) as e:
+        ops = regs = f"not read ({e})"
+    print(f"K2 SASS ({tool.name} -sass {pathlib.Path(path).name}): {ops}",
+          flush=True)
+    print(f"K2 registers, stack bytes per (key chunks x head columns) "
+          f"({tool.name} -res-usage): {regs}", flush=True)
+    if isinstance(ops, dict) and ops["HGMMA"] <= 0:
+        raise AssertionError("K2 was compiled without wgmma")
+    G, N, C, nH = 2, 64, 128, 2
+    qkv = torch.randn(G * N, 3 * C, device=dev).to(torch.bfloat16)
+    t = qkv.view(G, N, 3, nH, C // nH).permute(2, 0, 3, 1, 4)
+    us = {}
+    for name, fn in (("K2 biased_attention",
+                      lambda: K.biased_attention(qkv, nH, N, 0.125)),
+                     ("SDPA", lambda: F.scaled_dot_product_attention(
+                         t[0], t[1], t[2], scale=0.125))):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        us[name] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    print(f"host time per call at G = {G}, N = {N}, C = {C}, 2000 enqueues: "
+          + ", ".join(f"{k} {v:.2f} us" for k, v in us.items()), flush=True)
 
 
 def k1_report(dev) -> None:
@@ -1805,11 +2040,14 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     k1_report(dev)
+    k2_report(dev)
 
     chk = Checker()
     kernel_checks(chk, dev)
     train_kernel_checks(chk, dev)
     pretrain_kernel_checks(chk, dev)
+    long_attention_checks(chk, dev)
+    attention_repeat_checks(dev)
     swin_kernel_checks(chk, dev)
     swin_gemm_checks(chk, dev)
     optin_kernel_checks(chk, dev)

@@ -1,5 +1,5 @@
 // K2 `biased_attention`: for each (group g, head h)
-//   ctx[g, h, i, d] = sum_j softmax_j((q_i * scale) . k_j + bias_ij) * v_jd
+//   ctx[g, h, i, d] = sum_j softmax_j(scale * (q_i . k_j) + bias_ij) * v_jd
 // in bf16, for sm_90a. q, k and v are read, and ctx written, through explicit
 // element strides per group, head and row (the head dim is contiguous), so one
 // kernel takes two layouts without a copy:
@@ -20,7 +20,7 @@
 // attention-dropout mask, 0 or 1/keep, bf16) before p is rounded to bf16 for
 // the PV product: the interpret path of `_attn_ln_kernel` :2220-2233.
 //
-// Two opt-in modes, neither with shared memory of its own:
+// Two opt-in modes:
 // (a) in-kernel dropout (`fused_attn_ln_adrop` :2770, `_adrop_mask` :2133):
 //     from a (2,) int32 seed in device memory, the kernel draws the mask of
 //     element (g, h, i, j) with Philox (philox.cuh; g is the absolute sample)
@@ -33,133 +33,435 @@
 //     uses, for K4's stored-p backward.
 //
 // Replaces the attention core of the TPU kernels in
-// mvlt_tpu/ops/pallas_attn.py: `_attend` as called from `_full_body`
+// mvlt_tpu/ops/pallas_attn.py: `_attend` (:512) as called from `_full_body`
 // (`_full_kernel`, `_full_shift_kernel`), `_block_kernel`, `_attn_ln_kernel`,
 // `_attn_half_kernel`, `_seq_attn_kernel` and `_full_kernel_windows`, and
 // the whole of `_kernel` (`window_attention`). It holds their exact
-// (interpret-mode) math: scores in f32 from q scaled in f32, a max-subtracted
-// softmax with an exact divide, probabilities rounded to bf16 before the PV
-// product, PV accumulated in f32.
+// (interpret-mode) math at the same rounding points: scores in f32 (the bf16
+// products are exact in f32; `scale` multiplies the f32 sum, as JAX's bf16
+// path orders it, :535-537), a max-subtracted softmax with an exact divide,
+// probabilities rounded to bf16 before the PV product, PV accumulated in f32,
+// ctx rounded once to bf16. No atomics: two calls agree bitwise.
 //
-// Bound: tiny per block (N <= 162, Dh <= 64: at most ~7 MFLOP), so the cost is
-// reading QKV (and the masks) once and writing ctx once. One block per
-// (group, head) keeps the whole N x N score tile in shared memory and masks
-// its own ragged edge, so the port needs neither the TPU's pad-to-8 rows nor
-// its window-pair merge; qbias and amask are read from device memory where
-// used, with no tile of their own. At Dh = 64 the tiles admit N <= 162 within
-// the 232,448 bytes a block may opt in to (`smem_bytes` below; the wrapper in
-// ops/kernels.py mirrors it). Scalar FMA from shared memory; tensor cores and
-// several heads per block are later work.
+// Bound: at the shapes the port runs (N 49-288, Dh 32 / 64) a (group, head)
+// does 4 N^2 Dh flop against reading q, k, v once and writing ctx once, some
+// 30-110 flop per byte: far below the tensor cores' 295, so the kernel is
+// bound by bytes, and beside them by the per-score work of the softmax (bias
+// loads, exp, the divide, in mode (a) a Philox draw) and by the latency of
+// each block's chain of copies, products and reductions. The design (it
+// replaces a scalar-FMA kernel that held one N x N f32 tile per block in
+// shared memory and stopped at N = 162):
+//   - one block is one warpgroup (128 threads) and owns 64 query rows of one
+//     (group, head): grid (ceil(N / 64) tiles) x nH x G, so small windows
+//     (N = 49) give thousands of small blocks; a register cap per chunk count
+//     (`min_blocks`) keeps 2-6 of them on each SM to hide each other's
+//     latency;
+//   - q (its 64 rows), k and v (all N keys, padded to a multiple of 32) are
+//     copied once into shared memory as bf16 by cp.async, 16 bytes a thread,
+//     in rows of one swizzle width (Dh 32: 64-byte rows, 64-byte swizzle;
+//     Dh 64: 128-byte rows, 128-byte swizzle; Dh 16 / 48 are zero-padded to
+//     32 / 64 columns); rows past N arrive as zeros. v (and an amask's rows)
+//     are a second copy group, which lands while S is computed. An amask
+//     tile (64 rows of N bf16) is one contiguous span of device memory and is
+//     staged whole where it keeps the blocks per SM (N <= 221 at Dh 64);
+//   - mode (a)'s keep bits are drawn while the copies are in flight, one
+//     Philox call for two scores (a row quad's four lanes share their words);
+//   - S = Q K^T runs on the tensor cores as ceil(N / 32) wgmma.m64n32k16
+//     products per k16 step, both operands K-major in shared memory; the f32
+//     scores stay in registers (N <= 288: at most 144 a thread);
+//   - scale, the bias terms and the masks are applied per accumulator element
+//     from its (row, column) in the wgmma layout; keys past N are -inf; the
+//     row max and row sum are reduced over the four threads of a row with
+//     shuffles; the divide is exact (correctly rounded, as v / sum); p_out
+//     and mask_out are written from those registers;
+//   - P V runs as wgmma.m64n{32,64}k16 with A in registers: the bf16 p of a
+//     16-key step is, pair for pair, the accumulator layout of S; V is read
+//     MN-major from shared memory through the transpose bit;
+//   - ctx is staged as bf16 through q's shared memory (q is read by then) and
+//     written as 16-byte stores through the output strides.
+// The N cap (288) is the scores' registers, not shared memory (82,944 bytes
+// at N = 288, Dh 64; `smem_bytes` below, mirrored by ops/kernels.py). The
+// loader needs 16-byte aligned q, k, v, ctx and strides that are multiples
+// of 8 elements (checked by the wrapper and here).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int MAX_DH = 64;
-constexpr size_t H100_SMEM_OPTIN = 232448;
+using namespace mvlt;
+using bf16 = __nv_bfloat16;
 
-// q (pre-scaled) and v: N x Dh f32; k: N x (Dh + 1); scores: N x (N + 1)
-__host__ __device__ constexpr size_t smem_bytes(int N, int Dh) {
-  return sizeof(float) * ((size_t)N * Dh * 2 + (size_t)N * (Dh + 1) + (size_t)N * (N + 1));
+constexpr int THREADS = 128;              // one warpgroup
+constexpr int ROWS = 64;                  // query rows a tile: one wgmma's M
+constexpr int KEYS = 32;                  // keys a chunk of S: one m64n32 product
+constexpr int MAX_CHUNKS = 9;             // S in 9 x 16 f32 registers a thread
+constexpr int MAX_N = MAX_CHUNKS * KEYS;  // 288
+
+// shared-memory columns of a row: the head dim padded to one swizzle row
+__host__ __device__ constexpr int head_cols(int Dh) { return Dh <= 32 ? 32 : 64; }
+
+// blocks an SM should hold for NC key chunks: the register cap that lets the
+// scheduler hide the bias / mask loads behind other blocks (at NC 5 a cap of
+// 168 registers beat the uncapped 216 by 1.4x on an H100); from 7 chunks on
+// the scores take up to 255 registers
+__host__ __device__ constexpr int min_blocks(int nc) {
+  return nc <= 2 ? 6 : nc <= 3 ? 5 : nc <= 4 ? 4 : nc <= 6 ? 3 : 2;
 }
-// the largest N at MAX_DH on an H100
-constexpr int MAX_N = 162;
-static_assert(smem_bytes(MAX_N, MAX_DH) <= H100_SMEM_OPTIN && smem_bytes(MAX_N + 1, MAX_DH) > H100_SMEM_OPTIN,
-              "MAX_N follows smem_bytes");
+// shared memory an H100 SM gives its blocks (228 KB), and what it keeps of it
+// for each block
+constexpr int SM_SMEM = 233472, BLOCK_RESERVED = 1024;
 
-__global__ void __launch_bounds__(THREADS)
-attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, long long in_g, long long in_h, long long in_n,
-                 long long out_g, long long out_h, long long out_n, const float* __restrict__ pattern,
-                 const float* __restrict__ kbias, const float* __restrict__ qbias,
-                 const __nv_bfloat16* __restrict__ amask, const int* __restrict__ seed, uint32_t thresh,
-                 float kept, __nv_bfloat16* __restrict__ ctx, __nv_bfloat16* __restrict__ p_out,
-                 float* __restrict__ mask_out, int N, int Dh, int P, float scale) {
-  extern __shared__ __align__(16) float sm[];
-  const int ldk = Dh + 1;  // odd row stride: threads on consecutive keys hit distinct banks
-  const int lds = N + 1;
-  float* Q = sm;                 // N x Dh, pre-scaled
-  float* Kt = Q + N * Dh;        // N x ldk
-  float* V = Kt + N * ldk;       // N x Dh
-  float* S = V + N * Dh;         // N x lds
+__host__ __device__ constexpr bool takes(int N, int Dh) {
+  return N >= 1 && N <= MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
+}
+// q's 64 rows, k and v padded to whole chunks, slack for the 1024-byte
+// alignment of the swizzle
+__host__ __device__ constexpr int base_bytes(int N, int Dh) {
+  return (ROWS + 2 * ((N + KEYS - 1) / KEYS) * KEYS) * head_cols(Dh) * 2 + 1024;
+}
+// an amask's rows of one tile, 64 rows of N bf16 in one contiguous span (and
+// the 16 bytes by which its first 16-byte chunk may start before it), are
+// staged in shared memory where that keeps min_blocks blocks on an SM; else
+// they are read from device memory score by score
+__host__ __device__ constexpr int mask_bytes(int N, int Dh) {
+  return base_bytes(N, Dh) + ROWS * N * 2 + 16 <=
+                 SM_SMEM / min_blocks((N + KEYS - 1) / KEYS) - BLOCK_RESERVED
+             ? ROWS * N * 2 + 16
+             : 0;
+}
+// shared memory of one block, or -1 where the kernel does not take (N, Dh)
+__host__ __device__ constexpr long long smem_bytes(int N, int Dh, bool amask) {
+  return takes(N, Dh) ? base_bytes(N, Dh) + (amask ? mask_bytes(N, Dh) : 0) : -1;
+}
 
-  const int h = blockIdx.x;
-  const int g = blockIdx.y;
-  const int nH = gridDim.x;
-  const int tid = threadIdx.x;
-  const long long in0 = g * in_g + h * in_h;
+struct Params {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  long long in_g, in_h, in_n, out_g, out_h, out_n;
+  const float* pattern;
+  const float* kbias;
+  const float* qbias;
+  const bf16* amask;
+  const int* seed;
+  bf16* ctx;
+  bf16* p_out;
+  float* mask_out;
+  int N, nH, Dh, P, tiles;
+  int mask_staged;  // amask rows in shared memory (mask_bytes > 0)
+  float scale;
+  uint32_t thresh;
+  float kept;
+};
 
-  for (int e = tid; e < N * Dh; e += THREADS) {
-    int n = e / Dh, d = e % Dh;
-    const long long off = in0 + n * in_n + d;
-    Q[n * Dh + d] = __bfloat162float(q[off]) * scale;
-    Kt[n * ldk + d] = __bfloat162float(k[off]);
-    V[n * Dh + d] = __bfloat162float(v[off]);
+// byte offset of 16-byte chunk c of row r in a region of ROWB-byte rows that
+// starts on a 1024-byte boundary, under the ROWB-byte swizzle
+template <int ROWB>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * ROWB + ((c ^ ((r * ROWB >> 7) & (ROWB / 16 - 1))) << 4);
+}
+
+// rows first .. first + rows - 1 of one operand into swizzled shared memory;
+// rows past N and columns past Dh arrive as zeros
+template <int ROWB>
+__device__ __forceinline__ void load_rows(unsigned char* dst, const bf16* src, long long base, long long ld,
+                                          int first, int rows, int N, int Dh) {
+  constexpr int CH = ROWB / 16;
+  for (int e = threadIdx.x; e < rows * CH; e += THREADS) {
+    const int r = e / CH, c = e % CH;
+    const int n = first + r;
+    const bool ok = n < N && c * 8 < Dh;
+    cp_async16(dst + swz<ROWB>(r, c), ok ? src + base + n * ld + c * 8 : src, ok ? 16 : 0);
   }
-  __syncthreads();
+}
 
-  const float* pb = pattern ? pattern + ((size_t)(g % P) * nH + h) * N * N : nullptr;
-  const float* kb = kbias ? kbias + (size_t)g * N : nullptr;
-  const float* qb = qbias ? qbias + (size_t)g * N * N : nullptr;
-  for (int e = tid; e < N * N; e += THREADS) {
-    int i = e / N, j = e % N;
-    const float* q = Q + i * Dh;
-    const float* k = Kt + j * ldk;
-    float s = 0.f;
-    for (int d = 0; d < Dh; ++d) s = fmaf(q[d], k[d], s);
-    if (pb) s += pb[i * N + j];
-    if (kb) s += kb[j];
-    if (qb) s += qb[i * N + j];
-    S[i * lds + j] = s;
-  }
-  __syncthreads();
+// the bytes [lo, hi) of device memory (in a tensor that starts on a 16-byte
+// boundary) into dst, as the 16-byte chunks that cover them: the first from
+// the aligned address at or before lo, the last cut at hi. Returns that
+// aligned address: byte b sits at dst + (b - it).
+__device__ __forceinline__ uintptr_t stage_span(unsigned char* dst, uintptr_t lo, uintptr_t hi) {
+  const uintptr_t start = lo & ~static_cast<uintptr_t>(15);
+  for (uintptr_t k = threadIdx.x * 16; start + k < hi; k += THREADS * 16)
+    cp_async16(dst + k, reinterpret_cast<const void*>(start + k),
+               static_cast<uint32_t>(hi - (start + k) < 16 ? hi - (start + k) : 16));
+  return start;
+}
 
-  // one warp per row: max-subtracted softmax, exact divide, (b) the stored
-  // p, the dropout mask in f32 (given, or (a) drawn), then p rounded to bf16
-  const int lane = tid & 31;
-  const size_t tile = ((size_t)g * nH + h) * N * N;
-  const __nv_bfloat16* am = amask ? amask + tile : nullptr;
-  __nv_bfloat16* po = p_out ? p_out + tile : nullptr;
-  float* mo = mask_out ? mask_out + tile : nullptr;
-  const uint32_t key = seed ? mvlt::adrop_key(seed) : 0u;
-  for (int i = tid >> 5; i < N; i += THREADS / 32) {
-    float* srow = S + i * lds;
-    float mx = -INFINITY;
-    for (int j = lane; j < N; j += 32) mx = fmaxf(mx, srow[j]);
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-    for (int j = lane; j < N; j += 32) {
-      float p = expf(srow[j] - mx);
-      srow[j] = p;
-      sum += p;
-    }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int j = lane; j < N; j += 32) {
-      float p = srow[j] / sum;
-      if (po) po[i * N + j] = __float2bfloat16(p);
-      if (am) p *= __bfloat162float(am[i * N + j]);
-      if (seed) {
-        const float m = mvlt::adrop_keep(key, g, h, (uint32_t)(i * N + j), thresh) ? kept : 0.f;
-        if (mo) mo[i * N + j] = m;
-        p *= m;
+// (a) for one 32-key chunk of a thread's scores: bit x set keeps element x
+// (row erow / N, column c0 + cq + col(x)). The four lanes of a row quad
+// cover 8 consecutive columns, i.e. words E0 .. E0 + 7 of the stream (E0 =
+// i * N + the quad's first column): lane q runs Philox on block E0 / 4 + q
+// and each lane takes its two words from the lanes that hold them, one
+// Philox call for two scores. Every lane of the warp takes part (the
+// shuffles); out-of-range elements are not kept and not written to mo.
+__device__ __noinline__ uint32_t draw_chunk(int c0, int erow0, int erow1, bool live0, bool live1, int cq,
+                                            int lane, int N, uint32_t key, uint32_t ctr1, uint32_t thresh,
+                                            float kept, float* mo) {
+  uint32_t keep = 0;
+#pragma unroll 1
+  for (int t = 0; t < 8; ++t) {
+    const int bb = t >> 1, hh = t & 1;
+    const int erow = hh ? erow1 : erow0, E0 = erow + c0 + 8 * bb;
+    const uint4 r = philox4x32_10(make_uint4((uint32_t)(E0 >> 2) + (lane & 3), ctr1, 0u, 0u),
+                                  make_uint2(key, 0u));
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int m = (E0 & 3) + cq + k, src = (lane & ~3) | (m >> 2);
+      const uint32_t w0 = __shfl_sync(0xffffffffu, r.x, src), w1 = __shfl_sync(0xffffffffu, r.y, src);
+      const uint32_t w2 = __shfl_sync(0xffffffffu, r.z, src), w3 = __shfl_sync(0xffffffffu, r.w, src);
+      const uint32_t w = (m & 3) == 0 ? w0 : (m & 3) == 1 ? w1 : (m & 3) == 2 ? w2 : w3;
+      const int j = c0 + 8 * bb + cq + k;
+      if ((hh ? live1 : live0) && j < N) {
+        keep |= (uint32_t)(w < thresh) << (4 * bb + 2 * hh + k);
+        if (mo) mo[erow + j] = w < thresh ? kept : 0.f;
       }
-      srow[j] = __bfloat162float(__float2bfloat16(p));
     }
   }
+  return keep;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+template <int NC, int DP>
+__global__ void __launch_bounds__(THREADS, min_blocks(NC)) attention_wgmma_kernel(const Params p) {
+  constexpr int ROWB = DP * 2;
+  constexpr int KR = NC * KEYS;
+  constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  constexpr uint32_t SBO = 8 * ROWB;  // 8-row groups of every operand
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* Ks = Qs + ROWS * ROWB;
+  unsigned char* Vs = Ks + KR * ROWB;
+  unsigned char* Ms = Vs + KR * ROWB;  // the amask rows, when given
+
+  const int N = p.N;
+  const int tile = blockIdx.x % p.tiles;
+  const int gh = blockIdx.x / p.tiles;
+  const int h = gh % p.nH, g = gh / p.nH;
+  const int row0 = tile * ROWS;
+  const long long in0 = g * p.in_g + h * p.in_h;
+  const size_t nn = (size_t)N * N;
+  const size_t t0 = ((size_t)g * p.nH + h) * nn;  // (g, h)'s N x N block of amask, p_out, mask_out
+
+  load_rows<ROWB>(Qs, p.q, in0, p.in_n, row0, ROWS, N, p.Dh);
+  load_rows<ROWB>(Ks, p.k, in0, p.in_n, 0, KR, N, p.Dh);
+  cp_async_commit();
+  load_rows<ROWB>(Vs, p.v, in0, p.in_n, 0, KR, N, p.Dh);
+  // the tile's amask rows are one span of (g, h)'s block: the 16-byte chunks
+  // that cover it, the first from the aligned address at or before it, the
+  // last cut at its end (the tensor starts on a 16-byte boundary)
+  uintptr_t m_lo = 0;
+  if (p.mask_staged)
+    m_lo = stage_span(Ms, reinterpret_cast<uintptr_t>(p.amask + t0 + (size_t)row0 * N),
+                      reinterpret_cast<uintptr_t>(p.amask + t0 + (size_t)min(row0 + ROWS, N) * N));
+  cp_async_commit();
+
+  // the softmax on the fragments. Element x of chunk c sits in row r0 + 8 hh,
+  // column cq + col with x = 4 b + 2 hh + e and col = 32 c + 8 b + e, a
+  // constant once the loops unroll: each bias, mask or output is read or
+  // written at a per-row offset (i * N + cq) plus that constant, so no
+  // element keeps an address of its own. A warp whose 16 rows are all past
+  // N (warp-uniform) skips the work.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const bool live_warp = row0 + warp * 16 < N;
+  const bool live0 = row0 + r0 < N, live1 = row0 + r0 + 8 < N;
+  // i * N of the two rows (signed: never wraps, so base + constant folds into
+  // the address)
+  const int erow0 = (row0 + r0) * N, erow1 = (row0 + r0 + 8) * N;
+  auto col = [](int c, int x) { return c * KEYS + (x >> 2) * 8 + (x & 1); };
+
+  // (a): bit x of keep[c] keeps element x of chunk c, drawn while the copies
+  // are in flight (it needs only g, h and the element's place)
+  uint32_t keep[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) keep[c] = 0;
+  if (p.seed && live_warp) {
+    float* mo = p.mask_out ? p.mask_out + t0 : nullptr;
+    const uint32_t key = adrop_key(p.seed), ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      keep[c] = draw_chunk(c * KEYS, erow0, erow1, live0, live1, cq, lane, N, key, ctr1, p.thresh, p.kept, mo);
+  }
+  cp_async_wait<1>();  // q and k are in
+  fence_proxy_async();
   __syncthreads();
 
-  const long long out0 = g * out_g + h * out_h;
-  for (int e = tid; e < N * Dh; e += THREADS) {
-    int i = e / Dh, d = e % Dh;
-    const float* p = S + i * lds;
-    float acc = 0.f;
-    for (int j = 0; j < N; ++j) acc = fmaf(p[j], V[j * Dh + d], acc);
-    ctx[out0 + i * out_n + d] = __float2bfloat16(acc);
+  // S = Q K^T, f32 in registers
+  float s[NC][16];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int x = 0; x < 16; ++x) s[c][x] = 0.f;
+    fence_acc(s[c]);
+  }
+  wgmma_fence();
+  const uint32_t q_base = smem_u32(Qs), k_base = smem_u32(Ks);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)  // a k16 step: 32 bytes along a row
+      wgmma_m64n32k16(s[c], make_desc(q_base + kk * 32, 16, SBO, SW),
+                      make_desc(k_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) fence_acc(s[c]);
+
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+  if (live_warp) {
+    const float* pb = p.pattern ? p.pattern + ((size_t)(g % p.P) * p.nH + h) * nn : nullptr;
+    const float* kb = p.kbias ? p.kbias + (size_t)g * N + cq : nullptr;
+    const float* qb = p.qbias ? p.qbias + (size_t)g * nn : nullptr;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int hh = (x >> 1) & 1, j = col(c, x);
+        const int e = (hh ? erow1 : erow0) + cq + j;
+        float v = -INFINITY;  // keys past N
+        if (cq + j < N) {
+          v = s[c][x] * p.scale;
+          if (hh ? live1 : live0) {
+            if (pb) v += __ldg(pb + e);
+            if (kb) v += __ldg(kb + j);
+            if (qb) v += __ldg(qb + e);
+          }
+        }
+        s[c][x] = v;
+        mx[hh] = fmaxf(mx[hh], v);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int hh = (x >> 1) & 1;
+        s[c][x] = expf(s[c][x] - mx[hh]);
+        sum[hh] += s[c][x];
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+    }
+  }
+  if (p.mask_staged) {  // the amask rows (and v) are in
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  uint32_t a[NC][2][4];  // p in bf16: the A operand of P V, per 16-key step
+  if (live_warp) {
+    bf16* po = p.p_out ? p.p_out + t0 : nullptr;
+    // element e of (g, h)'s amask block sits m_base + 2 e bytes into Ms
+    const int m_base = p.mask_staged ? (int)((long long)reinterpret_cast<uintptr_t>(p.amask + t0) - (long long)m_lo) : 0;
+    const bf16* am = p.amask ? p.amask + t0 : nullptr;
+    // the exact divide v / sum as Markstein's correction of v * RN(1 / sum):
+    // q0 = RN(v * r), then RN(q0 + RN(v - q0 * sum) * r) is the correctly
+    // rounded quotient (no IEEE-divide branch per score)
+    const float rcp[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int hh = (x >> 1) & 1, j = col(c, x);
+        const float q0 = s[c][x] * rcp[hh];
+        float v = fmaf(fmaf(-q0, sum[hh], s[c][x]), rcp[hh], q0);
+        if ((hh ? live1 : live0) && cq + j < N) {
+          const int e = (hh ? erow1 : erow0) + cq + j;
+          if (po) po[e] = __float2bfloat16(v);  // (b): before any dropout mask
+          if (am)
+            v *= __bfloat162float(p.mask_staged ? *reinterpret_cast<const bf16*>(Ms + m_base + 2 * e)
+                                                : __ldg(am + e));
+          if (p.seed) v *= (keep[c] >> x) & 1 ? p.kept : 0.f;
+        }
+        s[c][x] = v;
+      }
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a[c][k16][q] = pack_bf16(s[c][8 * k16 + 2 * q], s[c][8 * k16 + 2 * q + 1]);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a[c][k16][q] = 0u;
+  }
+
+  // O = P V: A from registers, V MN-major (its Dh columns contiguous)
+  if (!p.mask_staged) {  // v is in
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+  }
+  float o[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) o[x] = 0.f;
+  fence_acc(o);
+  wgmma_fence();
+  const uint32_t v_base = smem_u32(Vs);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int k16 = 0; k16 < 2; ++k16) {
+      // 16 key rows; one column block, so LBO is unused (given SBO's value)
+      const uint64_t dv = make_desc(v_base + (c * KEYS + k16 * 16) * ROWB, SBO, SBO, SW);
+      if constexpr (DP == 64)
+        wgmma_m64n64k16_rs(o, a[c][k16], dv);
+      else
+        wgmma_m64n32k16_rs(o, a[c][k16], dv);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(o);
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int k16 = 0; k16 < 2; ++k16) fence_regs(a[c][k16]);
+
+  // ctx: bf16 pairs into q's rows (no wgmma reads q any more), then 16-byte
+  // stores of the rows below N through the output strides
+#pragma unroll
+  for (int b = 0; b < DP / 8; ++b) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(Qs + swz<ROWB>(r0 + 8 * hh, b) + cq * 2) =
+          pack_bf16(o[4 * b + 2 * hh], o[4 * b + 2 * hh + 1]);
+  }
+  __syncthreads();
+  const long long out0 = g * p.out_g + h * p.out_h;
+  const int chunks = p.Dh / 8;
+  for (int e = threadIdx.x; e < ROWS * chunks; e += THREADS) {
+    const int r = e / chunks, c = e % chunks;
+    const int i = row0 + r;
+    if (i < N)
+      *reinterpret_cast<uint4*>(p.ctx + out0 + i * p.out_n + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<ROWB>(r, c));
   }
 }
 
@@ -174,46 +476,79 @@ int smem_optin() {
   return bytes;
 }
 
+template <int NC, int DP>
+cudaError_t launch(const Params& p, long long blocks, int smem, cudaStream_t stream) {
+  // the most any N of this instance asks (a staged amask at N <= 32 NC)
+  constexpr int most = (ROWS + 2 * NC * KEYS) * DP * 2 + 1024 + ROWS * NC * KEYS * 2 + 16;
+  static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel<NC, DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  attention_wgmma_kernel<NC, DP><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t dispatch(int chunks, const Params& p, long long blocks, int smem, cudaStream_t stream) {
+  switch (chunks) {
+    case 1: return launch<1, DP>(p, blocks, smem, stream);
+    case 2: return launch<2, DP>(p, blocks, smem, stream);
+    case 3: return launch<3, DP>(p, blocks, smem, stream);
+    case 4: return launch<4, DP>(p, blocks, smem, stream);
+    case 5: return launch<5, DP>(p, blocks, smem, stream);
+    case 6: return launch<6, DP>(p, blocks, smem, stream);
+    case 7: return launch<7, DP>(p, blocks, smem, stream);
+    case 8: return launch<8, DP>(p, blocks, smem, stream);
+    case 9: return launch<9, DP>(p, blocks, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+static_assert(MAX_CHUNKS == 9, "dispatch covers every chunk count");
+
 }  // namespace
 
 // The shared memory a block may opt in to on the current device (-1 if the query failed).
 extern "C" int mvlt_smem_optin(void) { return smem_optin(); }
 
-// Shared memory one block needs for (N, Dh); the wrapper checks it against the card's opt-in limit.
-extern "C" long long mvlt_attention_smem(int N, int Dh) { return (long long)smem_bytes(N, Dh); }
+// Shared memory one block needs for (N, Dh), with or without an amask, or -1 where the kernel does not
+// take them (N > 288, or a head dim that is not 16, 32, 48 or 64); the wrapper checks it against the
+// card's opt-in limit.
+extern "C" long long mvlt_attention_smem(int N, int Dh, int amask) { return smem_bytes(N, Dh, amask != 0); }
 
 // q, k, v: bf16, element (g, h, n, d) at g * in_g + h * in_h + n * in_n + d; ctx: bf16, element
-// (g, h, i, d) at g * out_g + h * out_h + i * out_n + d. pattern (P, nH, N, N) f32, kbias (G, N) f32,
-// qbias (G, N, N) f32 and amask (G, nH, N, N) bf16 may each be null. seed: null, or (2,) int32 16-bit
-// halves for mode (a), which keeps an element iff its Philox word < thresh and then multiplies by kept;
-// amask must be null with it, and nH <= 256.
-// p_out (G, nH, N, N) bf16 (mode (b)) and mask_out (G, nH, N, N) f32 (mode (a) only) may be null.
+// (g, h, i, d) at g * out_g + h * out_h + i * out_n + d; all four 16-byte aligned, every stride a
+// multiple of 8. pattern (P, nH, N, N) f32, kbias (G, N) f32, qbias (G, N, N) f32 and amask
+// (G, nH, N, N) bf16 may each be null. seed: null, or (2,) int32 16-bit halves for mode (a), which
+// keeps an element iff its Philox word < thresh and then multiplies by kept; amask must be null with
+// it, and nH <= 256. p_out (G, nH, N, N) bf16 (mode (b)) and mask_out (G, nH, N, N) f32 (mode (a)
+// only) may be null.
 extern "C" int mvlt_attention(const void* q, const void* k, const void* v, long long in_g, long long in_h,
                               long long in_n, void* ctx, long long out_g, long long out_h, long long out_n,
                               const void* pattern, const void* kbias, const void* qbias, const void* amask,
                               const void* seed, void* p_out, void* mask_out, int G, int N, int nH, int Dh,
                               int P, float scale, unsigned int thresh, float kept, void* stream) {
-  if (N < 1 || nH < 1 || Dh < 1 || Dh > MAX_DH) return (int)cudaErrorInvalidValue;
+  const long long smem = smem_bytes(N, Dh, amask != nullptr);
+  if (smem < 0 || G < 1 || nH < 1 || P < 1) return (int)cudaErrorInvalidValue;
   if (seed != nullptr && (amask != nullptr || nH > 256)) return (int)cudaErrorInvalidValue;
   if (mask_out != nullptr && seed == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(N, Dh);
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)ctx) & 15) return (int)cudaErrorInvalidValue;
+  if ((in_g | in_h | in_n | out_g | out_h | out_n) & 7) return (int)cudaErrorInvalidValue;
   const int optin = smem_optin();
-  if (optin < 0 || smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  static size_t attr_bytes = 0;  // above 48 KB needs the opt-in
-  if (smem > attr_bytes) {
-    cudaError_t e = cudaFuncSetAttribute(attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_bytes = smem;
-  }
-  dim3 grid(nH, G);
-  using bf = const __nv_bfloat16*;
-  attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<bf>(q), static_cast<bf>(k), static_cast<bf>(v), in_g, in_h, in_n, out_g, out_h, out_n,
-      static_cast<const float*>(pattern),
-      static_cast<const float*>(kbias), static_cast<const float*>(qbias),
-      static_cast<const __nv_bfloat16*>(amask), static_cast<const int*>(seed), thresh, kept,
-      static_cast<__nv_bfloat16*>(ctx), static_cast<__nv_bfloat16*>(p_out), static_cast<float*>(mask_out), N,
-      Dh, P, scale);
-  return (int)cudaGetLastError();
+  if (optin < 0 || smem > optin) return (int)cudaErrorInvalidValue;
+  const int tiles = (N + ROWS - 1) / ROWS;
+  const long long blocks = (long long)G * nH * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  using cbf = const bf16*;
+  const Params p{static_cast<cbf>(q), static_cast<cbf>(k), static_cast<cbf>(v), in_g, in_h, in_n,
+                 out_g, out_h, out_n, static_cast<const float*>(pattern), static_cast<const float*>(kbias),
+                 static_cast<const float*>(qbias), static_cast<cbf>(amask), static_cast<const int*>(seed),
+                 static_cast<bf16*>(ctx), static_cast<bf16*>(p_out), static_cast<float*>(mask_out), N, nH,
+                 Dh, P, tiles, amask != nullptr && mask_bytes(N, Dh) > 0, scale, thresh, kept};
+  const int chunks = (N + KEYS - 1) / KEYS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(head_cols(Dh) == 64 ? dispatch<64>(chunks, p, blocks, (int)smem, s)
+                                   : dispatch<32>(chunks, p, blocks, (int)smem, s));
 }

@@ -14,9 +14,10 @@
 // as `_adrop_mask` keeps bits < thresh. The word depends only on the seed, b,
 // h, i, j and N, never on the grid, block or tile, so K2's draw, K4's
 // regeneration and the plain PyTorch version (`adrop_mask_plain` in
-// ops/kernels.py) give bit-identical masks. Each element runs its own 10
-// rounds (4 words drawn, 1 used): at N = 131 that is ~60 integer
-// instructions per score, far below the kernels' f32 work per score.
+// ops/kernels.py) give bit-identical masks. K4 runs 10 rounds per element
+// (`adrop_keep`: 4 words drawn, 1 used, ~60 integer instructions a score);
+// K2 shares each call between two scores of a row (attention.cu,
+// `draw_chunk`).
 
 #pragma once
 

@@ -125,9 +125,12 @@ They hold the math of the JAX interpret path (``fast=False``), not the TPU
 fast path. The TPU layout choices are dropped: windows are not merged into
 pairs, rows are not padded to multiples of 8, and no VMEM admission rule
 (``weights_fit``, ``shift_kernel_feasible``, ``_vmem_cap``) picks a kernel
-variant; K2 and K4 take any N whose tiles fit the card's shared memory
-(:func:`~mvlt_tpu_torch.ops.kernels.check_attention_fits`: N <= 162 for K2
-and N <= 140 for K4 at head dim 64 on an H100).
+variant; K2 takes any N its tile plan admits (64 query rows a block, the
+scores of up to nine 32-key chunks in registers:
+:func:`~mvlt_tpu_torch.ops.kernels.attention_plan`, N <= 288 at head dims
+16-64), K4 any N whose tiles fit the card's shared memory
+(:func:`~mvlt_tpu_torch.ops.kernels.check_attention_fits`: N <= 140 at head
+dim 64 on an H100).
 One bf16 rounding differs from the fused TPU kernels: the residual sums
 that the TPU kernel keeps in f32 between its halves (``res1`` in
 ``_full_body``, ``x + attn`` before the post-LN) are rounded to the compute

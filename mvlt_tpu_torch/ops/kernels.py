@@ -12,7 +12,9 @@ kernel on the ported paths is rebuilt from these in
 K1 is a persistent TMA + ``wgmma`` GEMM for the NT, NN and TN layouts with
 a fused epilogue; a product with no epilogue whose output tiles fill at most
 half the card runs as a deterministic split-K, as :func:`gemm_plan` cuts it
-(counted in ``gemm.splitk_launches``).
+(counted in ``gemm.splitk_launches``). K2 runs one warpgroup per 64 query
+rows of a (group, head) on ``wgmma`` (S = Q K^T and P V, the softmax in
+registers), as :func:`attention_plan` tiles it; it takes N <= 288.
 
 K2 and K4 have two opt-in modes each: in-kernel attention dropout from a
 device seed (``adrop=(seed, rate)``; the Philox stream of
@@ -66,7 +68,7 @@ _SIGNATURES = {
     "mvlt_gemm": ([_vp] * 10 + [_int] * 7 + [_vp, _int, _vp], _int),
     "mvlt_attention": ([_vp] * 3 + [_i64] * 3 + [_vp] + [_i64] * 3 + [_vp] * 7
                        + [_int] * 5 + [_float, _uint, _float, _vp], _int),
-    "mvlt_attention_smem": ([_int, _int], _i64),
+    "mvlt_attention_smem": ([_int] * 3, _i64),
     "mvlt_smem_optin": ([], _int),
     "mvlt_layernorm": ([_vp] * 5 + [_int, _int, _float, _int, _vp], _int),
     "mvlt_attention_bwd": ([_vp] * 13 + [_int] * 5
@@ -451,9 +453,9 @@ def adrop_constants(rate: float):
 
 
 def _adrop_seed(seed: torch.Tensor) -> None:
-    _require(tuple(seed.shape) == (2,) and seed.dtype == torch.int32,
-             f"adrop seed must be a (2,) int32 tensor, got "
-             f"{tuple(seed.shape)} {seed.dtype}")
+    if not (tuple(seed.shape) == (2,) and seed.dtype == torch.int32):
+        raise ValueError(f"adrop seed must be a (2,) int32 tensor, got "
+                         f"{tuple(seed.shape)} {seed.dtype}")
 
 
 def adrop_mask_plain(seed: torch.Tensor, B: int, num_heads: int, N: int,
@@ -489,12 +491,85 @@ def adrop_mask_plain(seed: torch.Tensor, B: int, num_heads: int, N: int,
 
 # the shared memory a block may opt in to on an H100 (227 KB)
 H100_SMEM_OPTIN = 232448
+# csrc/attention.cu's tiling: a block is one warpgroup on 64 query rows of
+# one (group, head); S is computed in chunks of 32 keys (one m64n32 product
+# each), at most 9 of them (144 f32 registers a thread), so N <= 288
+ATTENTION_ROWS, ATTENTION_KEYS, ATTENTION_MAX_CHUNKS = 64, 32, 9
+ATTENTION_MAX_N = ATTENTION_KEYS * ATTENTION_MAX_CHUNKS
+# the shared memory an H100 SM gives its blocks, and what it keeps per block
+H100_SMEM_SM, SMEM_BLOCK_RESERVED = 233472, 1024
 
 
-def attention_smem_bytes(N: int, Dh: int) -> int:
-    """Shared memory of one K2 block (``smem_bytes`` in csrc/attention.cu):
-    f32 q and v (N x Dh), k (N x (Dh + 1)) and the scores (N x (N + 1))."""
-    return 4 * (2 * N * Dh + N * (Dh + 1) + N * (N + 1))
+def attention_min_blocks(chunks: int) -> int:
+    """Blocks K2 keeps on an SM at ``chunks`` key chunks (``min_blocks`` in
+    csrc/attention.cu: its register cap)."""
+    return (6 if chunks <= 2 else 5 if chunks <= 3 else 4 if chunks <= 4
+            else 3 if chunks <= 6 else 2)
+
+
+class AttentionPlan(NamedTuple):
+    """How K2 runs one (N, Dh): ``tiles`` blocks of one warpgroup per
+    (group, head), each on ``ATTENTION_ROWS`` query rows against
+    ``key_chunks`` chunks of 32 keys; rows of ``head_cols`` bf16 columns in
+    shared memory (the head dim zero-padded to one swizzle row); ``smem``
+    bytes of shared memory a block, and ``mask_smem`` more when an amask is
+    given: its 64 rows are staged there where that keeps
+    :func:`attention_min_blocks` blocks on an SM (0: read from device
+    memory)."""
+    tiles: int
+    key_chunks: int
+    head_cols: int
+    smem: int
+    mask_smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_plan(N: int, Dh: int) -> AttentionPlan:
+    """K2's tile plan for sequences of N at head dim Dh (``smem_bytes`` in
+    csrc/attention.cu). Raises ``ValueError`` for a head dim that is not 16,
+    32, 48 or 64 and for N outside 1 .. ``ATTENTION_MAX_N``."""
+    if not (Dh > 0 and Dh % 16 == 0 and Dh <= 64):
+        raise ValueError(
+            f"biased_attention: head dim {Dh} is not a multiple of 16 up to "
+            "64 (the wgmma k16 steps over one swizzle row)")
+    if not 0 < N <= ATTENTION_MAX_N:
+        raise ValueError(
+            f"biased_attention: N={N}, head dim {Dh} is beyond the kernel's "
+            f"N <= {ATTENTION_MAX_N} ({ATTENTION_MAX_CHUNKS} chunks of "
+            f"{ATTENTION_KEYS} keys of scores in registers)")
+    chunks = -(-N // ATTENTION_KEYS)
+    cols = 32 if Dh <= 32 else 64
+    smem = (ATTENTION_ROWS + 2 * chunks * ATTENTION_KEYS) * cols * 2 + 1024
+    rows = ATTENTION_ROWS * N * 2 + 16
+    budget = H100_SMEM_SM // attention_min_blocks(chunks) - SMEM_BLOCK_RESERVED
+    return AttentionPlan(-(-N // ATTENTION_ROWS), chunks, cols, smem,
+                         rows if smem + rows <= budget else 0)
+
+
+def attention_smem_bytes(N: int, Dh: int, amask: bool = False) -> int:
+    """Shared memory of one K2 block (``mvlt_attention_smem``): q's 64 rows,
+    k and v padded to whole 32-key chunks, bf16 rows of 32 or 64 columns,
+    1024 bytes of alignment slack, and with ``amask`` the tile's 64 amask
+    rows (+ 16 bytes) where they are staged; -1 where K2 does not take
+    (N, Dh)."""
+    try:
+        plan = attention_plan(N, Dh)
+    except ValueError:
+        return -1
+    return plan.smem + (plan.mask_smem if amask else 0)
+
+
+def check_attention_layout(ptrs, strides) -> None:
+    """Raise ``ValueError`` unless K2's 16-byte loads and stores can take
+    these byte addresses (q, k, v, ctx) and element strides (bf16)."""
+    if any(p % 16 for p in ptrs):
+        raise ValueError("biased_attention: q, k, v and ctx must start on "
+                         "16-byte boundaries (addresses mod 16: "
+                         f"{[p % 16 for p in ptrs]})")
+    if any(s % 8 for s in strides):
+        raise ValueError("biased_attention: every group, head and row stride "
+                         "must be a multiple of 8 elements (16 bytes), got "
+                         f"{tuple(strides)}")
 
 
 def attention_bwd_smem_bytes(N: int, Dh: int, pattern: bool = False) -> int:
@@ -507,12 +582,17 @@ def attention_bwd_smem_bytes(N: int, Dh: int, pattern: bool = False) -> int:
 
 
 def max_attention_n(Dh: int, smem_optin: int = H100_SMEM_OPTIN, *,
-                    backward: bool = False) -> int:
-    """The largest N whose K2 (or, with ``backward``, K4) block fits in
-    ``smem_optin`` bytes at head dim ``Dh``."""
-    need = attention_bwd_smem_bytes if backward else attention_smem_bytes
+                    backward: bool = False, amask: bool = False) -> int:
+    """The largest N that K2 (with or without an amask; or, with
+    ``backward``, K4) admits at head dim ``Dh`` on a card whose blocks may
+    opt in to ``smem_optin`` bytes."""
+    if backward:
+        n = 0
+        while attention_bwd_smem_bytes(n + 1, Dh) <= smem_optin:
+            n += 1
+        return n
     n = 0
-    while need(n + 1, Dh) <= smem_optin:
+    while 0 < attention_smem_bytes(n + 1, Dh, amask) <= smem_optin:
         n += 1
     return n
 
@@ -534,43 +614,56 @@ def smem_optin(device: torch.device) -> int:
 
 
 def check_attention_fits(N: int, Dh: int, smem_optin: int, *,
-                         backward: bool = False, pattern: bool = False) -> None:
-    """Raise ``ValueError`` unless a K2 (K4, with ``pattern`` in its pattern
-    mode) block for (N, Dh) fits in ``smem_optin`` bytes of shared memory."""
-    need = (attention_bwd_smem_bytes(N, Dh, pattern) if backward
-            else attention_smem_bytes(N, Dh))
-    kernel = "biased_attention_bwd" if backward else "biased_attention"
-    _require(need <= smem_optin,
-             f"{kernel}: N={N}, head dim {Dh} needs {need} bytes of shared "
-             f"memory per block, the card allows {smem_optin} (N <= "
-             f"{max_attention_n(Dh, smem_optin, backward=backward)} at this "
-             "head dim)")
+                         backward: bool = False, pattern: bool = False,
+                         amask: bool = False) -> None:
+    """Raise ``ValueError`` unless K2 (with ``amask`` staging its rows; K4,
+    with ``pattern`` in its pattern mode) takes (N, Dh) on a card whose
+    blocks may opt in to ``smem_optin`` bytes of shared memory: K2 by its
+    tile plan (:func:`attention_plan`), K4 by its N x N tiles in shared
+    memory."""
+    if backward:
+        need = attention_bwd_smem_bytes(N, Dh, pattern)
+        kernel = "biased_attention_bwd"
+    else:
+        plan = attention_plan(N, Dh)
+        need = plan.smem + (plan.mask_smem if amask else 0)
+        kernel = "biased_attention"
+    if need > smem_optin:       # formatted only on failure: every call asks
+        top = max_attention_n(Dh, smem_optin, backward=backward, amask=amask)
+        raise ValueError(
+            f"{kernel}: N={N}, head dim {Dh} needs {need} bytes of shared "
+            f"memory per block, the card allows {smem_optin} (N <= {top} at "
+            "this head dim)")
 
 
 def _check_masks(qbias, amask, G: int, num_heads: int, N: int) -> None:
-    _require(qbias is None or tuple(qbias.shape) == (G, N, N),
-             f"qbias must be ({G}, {N}, {N}), got "
-             f"{None if qbias is None else tuple(qbias.shape)}")
-    _require(amask is None or tuple(amask.shape) == (G, num_heads, N, N),
-             f"amask must be ({G}, {num_heads}, {N}, {N}), got "
-             f"{None if amask is None else tuple(amask.shape)}")
+    if not (qbias is None or tuple(qbias.shape) == (G, N, N)):
+        raise ValueError(f"qbias must be ({G}, {N}, {N}), got "
+                         f"{None if qbias is None else tuple(qbias.shape)}")
+    if not (amask is None or tuple(amask.shape) == (G, num_heads, N, N)):
+        raise ValueError(f"amask must be ({G}, {num_heads}, {N}, {N}), got "
+                         f"{None if amask is None else tuple(amask.shape)}")
 
 
 def _attention_geometry(qkv, num_heads: int, seq_n: int, backward: bool,
-                        pattern: bool = False):
+                        pattern: bool = False, amask: bool = False):
     """(G, C, Dh) of fused rows on the card, after the shape and
     shared-memory checks."""
     rows, C3 = qkv.shape
     N = seq_n
-    _require(C3 % 3 == 0 and (C3 // 3) % num_heads == 0,
-             f"qkv width {C3} is not 3 * heads * head_dim")
+    if not (C3 % 3 == 0 and (C3 // 3) % num_heads == 0):
+        raise ValueError(f"qkv width {C3} is not 3 * heads * head_dim")
     C = C3 // 3
     Dh = C // num_heads
-    _require(0 < N and rows % N == 0, f"rows {rows} not groups of N={N}")
-    _require(Dh <= 64, f"head dim {Dh} > 64")
-    _require(Dh % 2 == 0 or not backward, f"head dim {Dh} is odd")
+    if N <= 0 or rows % N:
+        raise ValueError(f"rows {rows} not groups of N={N}")
+    if backward:
+        if Dh > 64:
+            raise ValueError(f"head dim {Dh} > 64")
+        if Dh % 2:
+            raise ValueError(f"head dim {Dh} is odd")
     check_attention_fits(N, Dh, smem_optin(qkv.device), backward=backward,
-                         pattern=pattern)
+                         pattern=pattern, amask=amask)
     return rows // N, C, Dh
 
 
@@ -594,7 +687,8 @@ def _cuda_adrop(adrop, num_heads: int, dev):
         return None, 0, 0.0
     seed, rate = adrop
     _cuda_arg(seed, "adrop seed", torch.int32, dev, 1)
-    _require(num_heads <= 256, f"{num_heads} heads > 256")
+    if num_heads > 256:
+        raise ValueError(f"{num_heads} heads > 256")
     return (seed, *adrop_constants(rate))
 
 
@@ -651,10 +745,11 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
                      adrop=None, save_p: bool = False,
                      save_mask: bool = False):
     """K2 wrapper; same contract as :func:`biased_attention_plain`. On CUDA:
-    bf16 qkv and amask, f32 biases, an int32 device seed, an even head dim
-    <= 64, at most 256 heads with ``adrop``, and N within the card's shared
-    memory (:func:`check_attention_fits`; N <= 162 at head dim 64 on an
-    H100). ``adrop`` counts in ``adrop_launches``, ``save_p`` in
+    bf16 qkv and amask, f32 biases, an int32 device seed, a head dim of 16,
+    32, 48 or 64, at most 256 heads with ``adrop``, and N <= 288
+    (:func:`attention_plan`, :func:`check_attention_fits`); anything else
+    raises ``ValueError`` before a launch. Two calls on the same inputs are
+    bitwise equal. ``adrop`` counts in ``adrop_launches``, ``save_p`` in
     ``save_p_launches``, both also in ``launches``."""
     if not qkv.is_cuda:
         return biased_attention_plain(qkv, num_heads, seq_n, scale,
@@ -665,17 +760,18 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
     _cuda_arg(qkv, "qkv", torch.bfloat16, dev, 2)
     rows = qkv.shape[0]
     N = seq_n
-    G, C, _ = _attention_geometry(qkv, num_heads, N, backward=False)
+    G, C, _ = _attention_geometry(qkv, num_heads, N, backward=False,
+                                  amask=amask is not None)
     _cuda_arg(pattern, "pattern", torch.float32, dev, 4)
     P = 1
     if pattern is not None:
         P = pattern.shape[0]
-        _require(tuple(pattern.shape[1:]) == (num_heads, N, N) and G % P == 0,
-                 f"pattern {tuple(pattern.shape)} does not fit {G} groups of "
-                 f"({num_heads}, {N}, {N})")
+        if tuple(pattern.shape[1:]) != (num_heads, N, N) or G % P:
+            raise ValueError(f"pattern {tuple(pattern.shape)} does not fit "
+                             f"{G} groups of ({num_heads}, {N}, {N})")
     _cuda_arg(key_bias, "key_bias", torch.float32, dev, 2)
-    _require(key_bias is None or tuple(key_bias.shape) == (G, N),
-             f"key_bias must be ({G}, {N})")
+    if not (key_bias is None or tuple(key_bias.shape) == (G, N)):
+        raise ValueError(f"key_bias must be ({G}, {N})")
     _cuda_masks(qbias, amask, G, num_heads, N, dev)
     _check_adrop(adrop, amask, save_mask)
     seed, thresh, kept = _cuda_adrop(adrop, num_heads, dev)
@@ -686,9 +782,10 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
     # q, k, v: the three C-wide column blocks of the fused rows
     col = C * qkv.element_size()
     Dh = C // num_heads
-    _launch_attention([qkv.data_ptr() + i * col for i in range(3)],
-                      (N * 3 * C, Dh, 3 * C), ctx, (N * C, Dh, C), pattern,
-                      key_bias, qbias, amask, seed, pst, mask, G, N,
+    ptrs = [qkv.data_ptr() + i * col for i in range(3)]
+    check_attention_layout(ptrs + [ctx.data_ptr()], (N * 3 * C, Dh, 3 * C))
+    _launch_attention(ptrs, (N * 3 * C, Dh, 3 * C), ctx, (N * C, Dh, C),
+                      pattern, key_bias, qbias, amask, seed, pst, mask, G, N,
                       num_heads, Dh, P, scale, thresh, kept)
     biased_attention.adrop_launches += adrop is not None
     biased_attention.save_p_launches += save_p
@@ -736,24 +833,28 @@ def biased_attention_heads(q, k, v, scale: float, pattern=None):
     """K2 wrapper in the head-major layout; same contract as
     :func:`biased_attention_heads_plain`. On CUDA: bf16 q, k, v of one shape
     and one set of strides with a contiguous head dim (views of fused qkv
-    rows are taken as they are), f32 contiguous pattern with G % P == 0, a
-    head dim <= 64 and N within the card's shared memory. ctx is written as
+    rows are taken as they are), 16-byte aligned, with group, head and row
+    strides that are multiples of 8; f32 contiguous pattern with G % P ==
+    0; the head dims and N of :func:`biased_attention`. ctx is written as
     (G, N, nH, Dh) rows and returned as its (G, nH, N, Dh) view. Counts in
     ``heads_launches`` and ``launches``."""
     if not q.is_cuda:
         return biased_attention_heads_plain(q, k, v, scale, pattern)
     dev, bf = q.device, torch.bfloat16
-    _require(q.dim() == 4, f"q must be (G, nH, N, Dh), got {tuple(q.shape)}")
+    if q.dim() != 4:
+        raise ValueError(f"q must be (G, nH, N, Dh), got {tuple(q.shape)}")
     G, nH, N, Dh = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _require(t.device == dev and t.dtype == bf,
-                 f"{name} must be bf16 on {dev}, got {t.dtype} on {t.device}")
-        _require(t.shape == q.shape and t.stride() == q.stride(),
-                 f"q, k and v must share shape and strides ({name}: "
-                 f"{tuple(t.shape)} {t.stride()})")
+        if t.device != dev or t.dtype != bf:
+            raise ValueError(f"{name} must be bf16 on {dev}, got {t.dtype} "
+                             f"on {t.device}")
+        if t.shape != q.shape or t.stride() != q.stride():
+            raise ValueError(f"q, k and v must share shape and strides "
+                             f"({name}: {tuple(t.shape)} {t.stride()})")
     _require(q.stride(3) == 1, "the head dim of q, k, v must be contiguous")
-    _require(Dh <= 64, f"head dim {Dh} > 64")
     check_attention_fits(N, Dh, smem_optin(dev))
+    check_attention_layout([q.data_ptr(), k.data_ptr(), v.data_ptr()],
+                           q.stride()[:3])
     _cuda_arg(pattern, "pattern", torch.float32, dev, 4)
     P = 1
     if pattern is not None:
@@ -815,10 +916,12 @@ layernorm.launches = 0
 
 def _pattern_geometry(pattern, G: int, num_heads: int, N: int) -> int:
     P = pattern.shape[0]
-    _require(tuple(pattern.shape[1:]) == (num_heads, N, N),
-             f"pattern {tuple(pattern.shape)} is not (P, {num_heads}, {N}, {N})")
-    _require(P > 0 and G % P == 0,
-             f"{G} groups do not divide among {P} patterns (G % P != 0)")
+    if tuple(pattern.shape[1:]) != (num_heads, N, N):
+        raise ValueError(f"pattern {tuple(pattern.shape)} is not (P, "
+                         f"{num_heads}, {N}, {N})")
+    if P <= 0 or G % P:
+        raise ValueError(f"{G} groups do not divide among {P} patterns "
+                         "(G % P != 0)")
     return P
 
 

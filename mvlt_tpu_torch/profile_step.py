@@ -48,7 +48,7 @@ FAMILIES = [
     (OURS + "attention_bwd_kernel", "K4 biased_attention_bwd"),
     (OURS + "sum_heads_kernel", "K4 biased_attention_bwd"),
     (OURS + "sum_chunks_kernel", "K4 biased_attention_bwd"),
-    (OURS + "attention_kernel", "K2 biased_attention"),
+    (OURS + "attention_wgmma_kernel", "K2 biased_attention"),
     (OURS + "ln_bwd_kernel", "K5 layernorm_bwd"),
     (OURS + "colsum_kernel", "K5 column_sum"),
     (OURS + "reduce_kernel", "K5 partial-sum fold"),

@@ -400,23 +400,40 @@ def test_attention_shared_memory_fits_every_admitted_n():
     in csrc/attention.cu and csrc/attention_bwd.cu): at head dim 64 every N
     up to the pretrain step's 131 fits the 232,448 bytes an H100 block may
     opt in to, and the admitted bound is exactly where the next N stops
-    fitting. (K4's earlier layout, four f32 N x Dh tiles, needed
-    4 * (2 N Dh + 2 N (Dh + 1) + 2 N (N + 1)) bytes: 234,112 at N = 118.)"""
+    being taken. K2's bound is its tile plan's (N <= 288: nine 32-key
+    chunks of scores in registers; 82,944 bytes of shared memory at N =
+    288), no longer its shared memory (the scalar kernel's N x N f32 tile
+    stopped at N = 162); on a card with less shared memory its bound is
+    again where the next N stops fitting. (K4's earlier layout, four f32 N x
+    Dh tiles, needed 4 * (2 N Dh + 2 N (Dh + 1) + 2 N (N + 1)) bytes:
+    234,112 at N = 118.)"""
     optin, Dh = kernels.H100_SMEM_OPTIN, 64
     assert optin == 232448
     for n in range(1, 132):
         assert kernels.attention_smem_bytes(n, Dh) <= optin, n
         assert kernels.attention_bwd_smem_bytes(n, Dh) <= optin, n
     assert kernels.attention_bwd_smem_bytes(131, Dh) == 207504
-    for backward, need, top in (
-            (False, kernels.attention_smem_bytes, 162),
-            (True, kernels.attention_bwd_smem_bytes, 140)):
+    assert kernels.attention_smem_bytes(288, Dh) == 82944
+    # an amask's rows are staged only where two blocks still fit an SM
+    assert kernels.attention_smem_bytes(288, Dh, amask=True) == 82944
+    assert kernels.attention_smem_bytes(131, Dh, amask=True) == 50176 + 16784
+    assert kernels.attention_smem_bytes(289, Dh) == -1
+    for backward, need, top, fits in (
+            (False, kernels.attention_smem_bytes, 288, False),
+            (True, kernels.attention_bwd_smem_bytes, 140, True)):
         n = kernels.max_attention_n(Dh, optin, backward=backward)
         assert n == top
-        assert need(n, Dh) <= optin < need(n + 1, Dh)
+        assert need(n, Dh) <= optin
+        assert (need(n + 1, Dh) > optin) == fits
         kernels.check_attention_fits(n, Dh, optin, backward=backward)
         with pytest.raises(ValueError, match=f"N={n + 1}, head dim 64"):
             kernels.check_attention_fits(n + 1, Dh, optin, backward=backward)
+    need = kernels.attention_smem_bytes
+    small = need(150, Dh)
+    n = kernels.max_attention_n(Dh, small)
+    assert need(n, Dh) <= small < need(n + 1, Dh) and n >= 150
+    with pytest.raises(ValueError, match=f"N={n + 1}, head dim 64"):
+        kernels.check_attention_fits(n + 1, Dh, small)
 
 
 def test_gemm_plain_emask_and_layernorm_bwd_hmask():

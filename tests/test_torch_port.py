@@ -221,11 +221,13 @@ def test_cuda_attention_bwd_and_layernorm_bwd_match_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [131, 128, 37])
+@pytest.mark.parametrize("N", [131, 128, 37, 221, 278])
 def test_cuda_masked_attention_fwd_bwd_match_plain(cuda_device, N):
     """K2 and K4 with a seq2seq qbias and a real dropout mask, then K4 with
     a key bias alone, at N = 131 (the pretrain step's), 128 (the largest N
-    the earlier K4 layout claimed and could not launch) and a ragged 37."""
+    the earlier K4 layout claimed and could not launch) and a ragged 37;
+    K2 alone at N = 221 and 278 (a 196-token image with BERT text), where
+    K4 refuses before launching. Two K2 calls are bitwise equal."""
     g = torch.Generator().manual_seed(N)
     G, C, nH = 3, 128, 2
     qkv = _rnd(g, G * N, 3 * C, std=0.5, dev=cuda_device)
@@ -236,11 +238,20 @@ def test_cuda_masked_attention_fwd_bwd_match_plain(cuda_device, N):
         cuda_device, torch.bfloat16)
     kb = torch.where(torch.rand(G, N, generator=g) < 0.2, -10000.0,
                      0.0).to(cuda_device)
+    backward = N <= kernels.max_attention_n(C // nH, backward=True)
     for kbias, qbias, amask in ((None, qb, am), (kb, None, am), (kb, None, None)):
-        _near(kernels.biased_attention(qkv, nH, N, 0.125, None, kbias, qbias,
-                                       amask),
-              kernels.biased_attention_plain(qkv, nH, N, 0.125, None, kbias,
-                                             qbias, amask), 2 ** -7)
+        ctx = kernels.biased_attention(qkv, nH, N, 0.125, None, kbias, qbias,
+                                       amask)
+        _near(ctx, kernels.biased_attention_plain(qkv, nH, N, 0.125, None,
+                                                  kbias, qbias, amask),
+              2 ** -7)
+        assert torch.equal(ctx, kernels.biased_attention(
+            qkv, nH, N, 0.125, None, kbias, qbias, amask))
+        if not backward:
+            with pytest.raises(ValueError, match=f"N={N}, head dim 64"):
+                kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.125, kbias,
+                                             qbias, amask)
+            continue
         got = kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.125, kbias,
                                            qbias, amask)
         want = kernels.biased_attention_bwd_plain(qkv, dctx, nH, N, 0.125,
@@ -422,10 +433,10 @@ def test_cuda_attention_adrop_matches_plain(cuda_device, mode):
     """K2 and K4 with in-kernel dropout (a device seed, rate 0.1) at N = 131
     and a ragged 37: K2's drawn mask bitwise equal to ``adrop_mask_plain``,
     two calls bitwise equal, ctx and K4's gradients against the plain
-    versions, which take that mask."""
+    versions, which take that mask; K2 alone at N = 221 and 278."""
     g = torch.Generator().manual_seed(50)
     seed = torch.tensor([40503, 777], dtype=torch.int32, device=cuda_device)
-    for N in (131, 37):
+    for N in (131, 37, 221, 278):
         G, C, nH = 3, 128, 2
         qkv = _rnd(g, G * N, 3 * C, std=0.5, dev=cuda_device)
         dctx = _rnd(g, G * N, C, dev=cuda_device)
@@ -443,6 +454,8 @@ def test_cuda_attention_adrop_matches_plain(cuda_device, mode):
         _near(ctx, kernels.biased_attention_plain(qkv, nH, N, 0.125,
                                                   adrop=(seed, 0.1), **kw),
               2 ** -7)
+        if N > kernels.max_attention_n(C // nH, backward=True):
+            continue
         got = kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.125,
                                            adrop=(seed, 0.1), **kw)
         want = kernels.biased_attention_bwd_plain(qkv, dctx, nH, N, 0.125,
@@ -469,6 +482,8 @@ def test_cuda_stored_p_attention_matches_plain(cuda_device, P):
     ctx, p = kernels.biased_attention(qkv, nH, N, sc, pat, save_p=True)
     ctx0, p0 = kernels.biased_attention_plain(qkv, nH, N, sc, pat, save_p=True)
     assert p.dtype == torch.bfloat16 and p.shape == (G, nH, N, N)
+    ctx1, p1 = kernels.biased_attention(qkv, nH, N, sc, pat, save_p=True)
+    assert torch.equal(ctx, ctx1) and torch.equal(p, p1)
     _near(ctx, ctx0, 2 ** -7)
     # one bf16 step below 1 (2^-7) where the two f32 values round apart
     assert (p.float() - p0.float()).abs().max().item() <= 2 ** -7
@@ -528,8 +543,9 @@ def test_cuda_window_attention_matches_plain(cuda_device, P):
         assert got.shape == (G, nH, N, Dh) and got.dtype == torch.bfloat16
         _near(got, want, 2 ** -7)
     packed = kernels.biased_attention(qkv.view(G * N, 3 * C), nH, N, sc, pat)
-    assert torch.equal(packed.view(G, N, nH, Dh).transpose(1, 2),
-                       kernels.biased_attention_heads(q, k, v, sc, pat))
+    heads = kernels.biased_attention_heads(q, k, v, sc, pat)
+    assert torch.equal(packed.view(G, N, nH, Dh).transpose(1, 2), heads)
+    assert torch.equal(heads, kernels.biased_attention_heads(q, k, v, sc, pat))
     gy = _rnd(g, G, nH, N, Dh, dev=cuda_device)
     got = blocks.window_attention_bwd(q, k, v, pat, gy, sc)
     want = blocks.window_attention_bwd_plain(q, k, v, pat, gy, sc)
