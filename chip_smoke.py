@@ -10,8 +10,10 @@ on failure:
    nvcc (sm_90a, one process per source, all at once) into
    ``build/torch_kernels/``; print K1's SASS instruction counts (``HGMMA``
    and ``UTMALDG``: its ``wgmma`` / TMA mainloop was compiled) and its
-   wrapper's host time per call, and K2's (``HGMMA``: S = Q K^T and P V on
-   the tensor cores) with its wrapper's host time beside SDPA's;
+   wrapper's host time per call, K2's (``HGMMA``: S = Q K^T and P V on
+   the tensor cores) with its wrapper's host time beside SDPA's, and K4's
+   (``HGMMA`` and no ``HMMA`` or atomic: its five products on ``wgmma``)
+   with each template instance's registers and stack bytes;
 3. kernel checks: hold K1 ``gemm``, K2 ``biased_attention``, K3
    ``layernorm`` and the six forward counterparts of
    ``mvlt_tpu_torch.ops.blocks`` against their plain PyTorch versions on the
@@ -21,14 +23,15 @@ on failure:
    options at the pretrain step's shapes (B*S = 32*131 rows, 12 heads): K2
    and K4 with qbias and amask, K4 at N = 128, K1's epilogue multiplier, K5
    with hmask, the two masked forward counterparts and the two backward
-   ones with their masks, and the shared-memory reckoning of K2 / K4
-   against the compiled one; K2 at N = 221 and 278 (a 196-token image with
-   BERT text, b32, 12 heads: key bias, qbias + amask, in-kernel dropout),
-   two calls of K2 bitwise equal in every mode, and K2 refusing what it
-   cannot take before a launch. Each is timed beside its plain version, the
-   library call that computes the same function (never called by the port)
-   and its bound on an H100 SXM (the larger of FLOPs / 989 TFLOP/s and
-   bytes / 3.35 TB/s);
+   ones with their masks, and the tile plans of K2 / K4 against the
+   compiled ones (N = 1 .. 289); K2 and K4 at N = 221 and 278 (a 196-token
+   image with BERT text, b32, 12 heads: key bias, qbias + amask, in-kernel
+   / regenerated dropout), two calls of K2 and of K4 bitwise equal in every
+   mode, and both refusing what they cannot take (N = 289, head dim 24, a
+   misaligned view) before a launch. Each is timed beside its plain
+   version, the library call that computes the same function (never called
+   by the port) and its bound on an H100 SXM (the larger of FLOPs / 989
+   TFLOP/s and bytes / 3.35 TB/s); K2's and K4's cases also as CUDA graphs;
 4. forward: run the flagship VQA forward (Swin-S @224 + BERT-base, bf16,
    batch 8, question length 23 with padding) through the kernels, check the
    launch counts, compare its logits with the same model on the plain
@@ -271,9 +274,11 @@ KERNEL_SOURCES = {
     # K2's head-major layout (q, k, v through strides)
     "biased_attention_heads": ("mvlt_tpu_torch/csrc/attention.cu",
                                "mvlt_tpu/ops/pallas_attn.py:40"),
-    # K2 at S = 221 / 278, which no path runs yet (ROADMAP A9)
+    # K2 and K4 at S = 221 / 278, which no path runs yet (ROADMAP A9)
     "biased_attention_long_n": ("mvlt_tpu_torch/csrc/attention.cu",
                                 "mvlt_tpu/ops/pallas_attn.py:512"),
+    "biased_attention_bwd_long_n": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
+                                    "mvlt_tpu/ops/pallas_attn.py:2413"),
     # K1's split-K weight gradients: the sums that _swin_mlp_bwd_kernel
     # carries across its sequential grid (:1689-1695)
     "gemm_splitk": ("mvlt_tpu_torch/csrc/gemm.cu",
@@ -321,15 +326,16 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def graph_ms(fn) -> float:
     """Mean device time of one call of ``fn`` in ms, as a CUDA graph of
     ``GRAPH_REPS`` calls replayed 5 times: the wrapper's host time, which
-    paces ``cuda_ms`` on small cases, drops out (warm L2)."""
-    side = torch.cuda.Stream()
+    paces ``cuda_ms`` on small cases, drops out (warm L2). Captured on
+    ``fn.stream`` where ``fn`` names one (``library_backward``)."""
+    side = getattr(fn, "stream", None) or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(GRAPH_REPS):
             fn()
     graph.replay()
@@ -507,11 +513,25 @@ def lib_mlp_ln(x, w1, b1, w2, b2, lns, lnb, eps=1e-12):
 
 def library_backward(forward, inputs, cotangent):
     """A function that times only the backward of ``forward(*inputs)``:
-    the graph is built once and ``torch.autograd.grad`` replays it."""
-    leaves = [t.detach().requires_grad_() for t in inputs]
-    out = forward(*leaves)
-    return lambda: torch.autograd.grad(out, leaves, cotangent,
-                                       retain_graph=True)
+    the graph is built once and ``torch.autograd.grad`` replays it. On the
+    card the forward runs on a stream of its own, which the backward's
+    kernels then run on: ``graph_ms`` captures them on that stream
+    (``fn.stream``), as autograd does not launch on a capturing stream that
+    its forward did not run on."""
+    stream = torch.cuda.Stream() if inputs[0].is_cuda else None
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = forward(*leaves)
+    if stream is not None:
+        torch.cuda.current_stream().wait_stream(stream)
+
+    def fn():
+        return torch.autograd.grad(out, leaves, cotangent, retain_graph=True)
+
+    fn.stream = stream
+    return fn
 
 
 def kernel_checks(chk: Checker, dev) -> None:
@@ -753,7 +773,8 @@ def train_kernel_checks(chk: Checker, dev) -> None:
     chk.case("biased_attention_bwd",
              lambda: K.biased_attention_bwd(qkv, dctx, nH, S, sc, kb),
              lambda: K.biased_attention_bwd_plain(qkv, dctx, nH, S, sc, kb),
-             KERNEL_BAR, library_fn=lib_k4, floor=1e-6, **k4_cost)
+             KERNEL_BAR, library_fn=lib_k4, floor=1e-6, graph=True,
+             **k4_cost)
     q3, d3 = qkv.view(B, S, 3 * C), dctx.view(B, S, C)
     chk.case("seq_attention_core_bwd",
              lambda: blocks.seq_attention_core_bwd(q3, d3, kb, None, None, sc,
@@ -827,27 +848,38 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
     from mvlt_tpu_torch.ops import kernels as K
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
 
-    # the wrappers' shared-memory reckoning is the compiled one: K2's tile
-    # plan for every N up to its cap and one past it (-1: not taken) at the
-    # two head dims the port runs, K4's up to N = 160
+    # the wrappers' shared-memory reckoning is the compiled one: K2's and
+    # K4's tile plans for every N up to the cap and one past it (-1: not
+    # taken) at every head dim the plans take and one they refuse, K4 in
+    # both modes and with its scratch
     libs = K.build()
-    for Dh in (32, 64):
+    bwd = libs["attention_bwd"]
+    for Dh in (16, 24, 32, 48, 64):
         for n in range(1, K.ATTENTION_MAX_N + 2):
             for amask in (False, True):
                 assert K.attention_smem_bytes(n, Dh, amask) == \
                     libs["attention"].mvlt_attention_smem(n, Dh, amask), \
                     (n, Dh, amask)
+            for flags in range(4):       # K4: pattern, amask
+                assert K.attention_bwd_smem_bytes(
+                    n, Dh, bool(flags & 1), bool(flags & 2)) == \
+                    bwd.mvlt_attention_bwd_smem(n, Dh, flags), (n, Dh, flags)
+            try:
+                words = K.attention_bwd_plan(n, Dh).scratch_words
+            except ValueError:
+                words = -1
+            assert words == bwd.mvlt_attention_bwd_scratch(n, Dh), (n, Dh)
     assert K.attention_smem_bytes(K.ATTENTION_MAX_N + 1, 64) == -1
-    for n in range(1, 161):
-        assert K.attention_bwd_smem_bytes(n, 64) == \
-            libs["attention_bwd"].mvlt_attention_bwd_smem(n, 64, 0), n
     optin = K.smem_optin(dev)
     top = K.max_attention_n(64, optin, amask=True)
     print(f"shared memory per block (opt-in): {optin} bytes; K2 admits N <= "
           f"{top} at head dim 64 ({K.attention_smem_bytes(top, 64, True)} "
-          f"bytes a block with an amask; C and Python agree for N = 1 .. "
-          f"{K.ATTENTION_MAX_N + 1} at head dims 32 and 64), K4 N <= "
-          f"{K.max_attention_n(64, optin, backward=True)} at head dim 64",
+          f"bytes a block with an amask), K4 N <= "
+          f"{K.max_attention_n(64, optin, backward=True)} "
+          f"({K.attention_bwd_smem_bytes(K.ATTENTION_MAX_N, 64, True)} bytes "
+          "a block in pattern mode); the plans in C and Python agree for N = "
+          "1 .. "
+          f"{K.ATTENTION_MAX_N + 1} at head dims 16, 24, 32, 48, 64",
           flush=True)
 
     inp = Inputs(dev, seed=2)
@@ -903,7 +935,7 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
                      qkv, dctx, nH, S, sc, kbias, qbias, amask),
                  lambda kbias=kbias, qbias=qbias: K.biased_attention_bwd_plain(
                      qkv, dctx, nH, S, sc, kbias, qbias, amask),
-                 KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+                 KERNEL_BAR, library_fn=lib, floor=1e-6, graph=True, **cost)
         q3, d3 = qkv.view(B, S, 3 * C), dctx.view(B, S, C)
         chk.case("seq_attention_core_bwd",
                  lambda kbias=kbias, qbias=qbias: blocks.seq_attention_core_bwd(
@@ -927,14 +959,7 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
                  (t8[0].contiguous(), t8[1].contiguous(), t8[2].contiguous()),
                  c8.view(B, N8, nH, Dh).permute(0, 2, 1, 3).contiguous()),
              flops=10.0 * B * nH * N8 * N8 * Dh,
-             nbytes=nbytes(q8, c8, kb8, q8, kb8))
-    try:
-        K.biased_attention_bwd(rnd(B * 141, 3 * C), rnd(B * 141, C), nH, 141,
-                               sc)
-    except ValueError as e:
-        print(f"K4 refuses N = 141 before launching: {e}", flush=True)
-    else:
-        raise AssertionError("K4 took N = 141, beyond its shared memory")
+             nbytes=nbytes(q8, c8, kb8, q8, kb8), graph=True)
 
     # K1's epilogue multiplier: proj (+x, f32 out) and fc2 (+x, f32 out)
     for Kd in (C, I):
@@ -1078,10 +1103,6 @@ def swin_kernel_checks(chk: Checker, dev) -> None:
     rnd, dense, ln = inp.rnd, inp.dense, inp.ln
     bf, f32 = torch.bfloat16, torch.float32
     B, N = TRAIN_BATCH, 49
-    libs = K.build()
-    for n in range(1, 141):
-        assert K.attention_bwd_smem_bytes(n, 32, True) == \
-            libs["attention_bwd"].mvlt_attention_bwd_smem(n, 32, 1), n
     for res, C, nH in SWIN_STAGES:
         nW = (res // 7) ** 2
         BW, I, Dh = B * nW, 4 * C, C // nH
@@ -1140,7 +1161,8 @@ def swin_kernel_checks(chk: Checker, dev) -> None:
                          qkv, dctx, nH, N, sc, pattern=pat),
                      lambda pat=pat: K.biased_attention_bwd_plain(
                          qkv, dctx, nH, N, sc, pattern=pat),
-                     KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+                     KERNEL_BAR, library_fn=lib, floor=1e-6, graph=True,
+                     **cost)
             chk.case("attention_core_bwd",
                      lambda pat=pat: blocks.attention_core_bwd(qkv, dctx, pat,
                                                                N, sc, nH),
@@ -1366,7 +1388,7 @@ def optin_kernel_checks(chk: Checker, dev) -> None:
                                                       adrop=adrop, **kw),
                  lambda kw=kw: K.biased_attention_bwd_plain(
                      qkv, dctx, nH, S, sc, adrop=adrop, **kw),
-                 KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+                 KERNEL_BAR, library_fn=lib, floor=1e-6, graph=True, **cost)
         q3, d3 = qkv.view(B, S, 3 * C), dctx.view(B, S, C)
         chk.case("seq_attention_core_bwd_adrop",
                  lambda kbias=kbias, qbias=qbias: blocks.seq_attention_core_bwd(
@@ -1432,7 +1454,7 @@ def optin_kernel_checks(chk: Checker, dev) -> None:
                      qkv, dctx, nH, N, sc, pattern=pat, p=p),
                  lambda pat=pat, p=p: K.biased_attention_bwd_plain(
                      qkv, dctx, nH, N, sc, pattern=pat, p=p),
-                 KERNEL_BAR, library_fn=lib, floor=1e-6, **cost)
+                 KERNEL_BAR, library_fn=lib, floor=1e-6, graph=True, **cost)
         chk.case("attention_core_bwd_store_p",
                  lambda pat=pat, p=p: blocks.attention_core_bwd(
                      qkv, dctx, pat, N, sc, nH, p2=p),
@@ -1666,14 +1688,16 @@ def attn_impl_kernel_checks(chk: Checker, dev) -> None:
 
 
 def long_attention_checks(chk: Checker, dev) -> None:
-    """K2 at the sequence lengths its tiling opened (ROADMAP A9): a
-    196-token image (ViT-B/16 or the linear patch) with BERT text of 23 and
-    80 tokens, S = 221 and 278, b32, 12 heads, head dim 64: a padded key
-    bias, the seq2seq qbias with a dropout mask, and in-kernel dropout, each
-    against its plain version, SDPA (or the bf16 composition that takes a
-    probability mask) and its bound. No path runs these shapes, so they
-    form a row of their own (``biased_attention_long_n``) and leave K2's
-    other rows to the shapes the paths give it."""
+    """K2 and K4 at the sequence lengths their tilings opened (ROADMAP A9):
+    a 196-token image (ViT-B/16 or the linear patch) with BERT text of 23
+    and 80 tokens, S = 221 and 278, b32, 12 heads, head dim 64: a padded key
+    bias, the seq2seq qbias with a dropout mask, and in-kernel (K4:
+    regenerated) dropout, each against its plain version, SDPA (or the bf16
+    composition that takes a probability mask; K4: the autograd backward of
+    each) and its bound, eagerly and as CUDA graphs. No path runs these
+    shapes, so they form rows of their own (``biased_attention_long_n``,
+    ``biased_attention_bwd_long_n``) and leave the other rows to the shapes
+    the paths give the kernels."""
     from mvlt_tpu_torch.ops import kernels as K
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
     inp = Inputs(dev, seed=6)
@@ -1722,7 +1746,37 @@ def long_attention_checks(chk: Checker, dev) -> None:
         if not torch.equal(mask, K.adrop_mask_plain(seed, B, nH, S, rate)):
             raise AssertionError(f"K2's Philox mask at S = {S} differs from "
                                  "adrop_mask_plain")
-        del amask, mask
+        del mask
+        # K4: the same three modes; library: the autograd backward of each
+        # library forward above
+        dctx = inp.rnd(B * S, C)
+        t = qkv.view(B, S, 3, nH, Dh).permute(2, 0, 3, 1, 4)
+        qkv3 = (t[0].contiguous(), t[1].contiguous(), t[2].contiguous())
+        d4 = dctx.view(B, S, nH, Dh).permute(0, 2, 1, 3).contiguous()
+        kbm, qbm = kb.to(bf)[:, None, None, :], qb.to(bf)[:, None]
+        print(f"K4 at S = {S}: {K.attention_bwd_plan(S, Dh)}", flush=True)
+        for kw, fwd, extra in (
+                (dict(key_bias=kb),
+                 lambda q, k, v: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=kbm, scale=sc), (kb, kb)),
+                (dict(qbias=qb, amask=amask), lambda q, k, v: torch.matmul(
+                    torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * sc
+                                  + qbm, dim=-1) * amask, v),
+                 (qb, amask, kb)),
+                (dict(key_bias=kb, adrop=(seed, rate)),
+                 lambda q, k, v: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=kbm, dropout_p=rate, scale=sc),
+                 (kb, seed, kb))):
+            chk.case("biased_attention_bwd_long_n",
+                     lambda kw=kw: K.biased_attention_bwd(qkv, dctx, nH, S, sc,
+                                                          **kw),
+                     lambda kw=kw: K.biased_attention_bwd_plain(
+                         qkv, dctx, nH, S, sc, **kw),
+                     KERNEL_BAR, floor=1e-6, graph=True,
+                     library_fn=library_backward(fwd, qkv3, d4),
+                     flops=10.0 * B * nH * S * S * Dh,
+                     nbytes=nbytes(qkv, dctx, *extra, qkv))
+        del amask
 
 
 def attention_repeat_checks(dev) -> None:
@@ -1794,6 +1848,81 @@ def attention_repeat_checks(dev) -> None:
     print(f"K2 refuses before launching: {refused}", flush=True)
 
 
+def attention_bwd_repeat_checks(dev) -> None:
+    """Two calls of K4 on the same inputs are bitwise equal in every mode
+    (no atomics; the sums over heads, query tiles and groups in one fixed
+    order), at the pretrain step's fusion shapes (b32, S = 131, 12 heads)
+    and Swin-S stage 3 (b32: 128 windows of 49, 12 heads); then K4 refuses
+    what its plan or its 16-byte loader cannot take (N = 289, head dim 24,
+    a misaligned view) with a ``ValueError`` before any launch."""
+    from mvlt_tpu_torch.ops import kernels as K
+    from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
+    inp = Inputs(dev, seed=8)
+    bf = torch.bfloat16
+    B, S, C, nH = TRAIN_BATCH, 1 + 49 + 1 + PRETRAIN_TEXT, 768, 12
+    qkv, dctx = inp.rnd(B * S, 3 * C, std=0.5), inp.rnd(B * S, C)
+    kb = inp.key_bias([S - (11 * i) % 75 for i in range(B)], S)
+    qb = mask_to_bias(seq2seq_fusion_mask(B, 50, S, dev)).contiguous()
+    am = ((torch.rand(B, nH, S, S, generator=inp.gen) < 0.9).to(bf)
+          / 0.9).to(dev)
+    seed = torch.tensor([40503, 99], dtype=torch.int32, device=dev)
+    sc = (C // nH) ** -0.5
+    _, p = K.biased_attention(qkv, nH, S, sc, key_bias=kb, save_p=True)
+    BW, N, Cs = B * 4, 49, 384
+    wq, wd = inp.rnd(BW * N, 3 * Cs, std=0.5), inp.rnd(BW * N, Cs)
+    pats = {1: inp.rnd(1, nH, N, N, std=0.5, dtype=torch.float32),
+            4: inp.rnd(4, nH, N, N, std=0.5, dtype=torch.float32)}
+    ss = (Cs // nH) ** -0.5
+    _, p4 = K.biased_attention(wq, nH, N, ss, pats[4], save_p=True)
+    wkb = inp.key_bias([N - i % 9 for i in range(BW)], N)
+
+    def k4(*args, **kw):
+        return lambda: K.biased_attention_bwd(*args, **kw)
+
+    modes = {
+        "key bias": k4(qkv, dctx, nH, S, sc, kb),
+        "qbias + amask": k4(qkv, dctx, nH, S, sc, qbias=qb, amask=am),
+        "key bias + amask": k4(qkv, dctx, nH, S, sc, kb, amask=am),
+        "regenerated dropout, key bias": k4(qkv, dctx, nH, S, sc, kb,
+                                            adrop=(seed, 0.1)),
+        "regenerated dropout, seq2seq": k4(qkv, dctx, nH, S, sc, qbias=qb,
+                                           adrop=(seed, 0.1)),
+        "stored p, key bias": k4(qkv, dctx, nH, S, sc, kb, p=p),
+        "pattern P = 1": k4(wq, wd, nH, N, ss, pattern=pats[1]),
+        "pattern P = 4 + key bias": k4(wq, wd, nH, N, ss, wkb,
+                                       pattern=pats[4]),
+        "pattern P = 4, stored p": k4(wq, wd, nH, N, ss, pattern=pats[4],
+                                      p=p4),
+    }
+    for name, fn in modes.items():
+        one, two = _tensors(fn()), _tensors(fn())
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(one, two)):
+            raise AssertionError(f"K4 ({name}) is not bitwise reproducible")
+    print(f"K4, two calls bitwise equal in every mode: {list(modes)}",
+          flush=True)
+    before = K.biased_attention_bwd.launches
+    refused = []
+    for what, fn in (
+            ("N = 289", k4(inp.rnd(2 * 289, 3 * 128), inp.rnd(2 * 289, 128),
+                           2, 289, 0.125)),
+            ("head dim 24", k4(inp.rnd(2 * 49, 3 * 72), inp.rnd(2 * 49, 72),
+                               3, 49, 0.2)),
+            ("a view 2 bytes off 16", k4(
+                inp.rnd(2 * 49 * 3 * 64 + 1)[1:].view(2 * 49, 3 * 64),
+                inp.rnd(2 * 49, 64), 2, 49, 0.17))):
+        try:
+            fn()
+        except ValueError as e:
+            refused.append(f"{what}: {e}")
+        else:
+            raise AssertionError(f"K4 took {what}")
+    torch.cuda.synchronize()
+    if K.biased_attention_bwd.launches != before:
+        raise AssertionError("K4 launched for a call it refused")
+    print(f"K4 refuses before launching: {refused}", flush=True)
+
+
 def k2_report(dev) -> None:
     """Print what K2's library was compiled to (its SASS instruction counts:
     HGMMA is ``wgmma`` (S = Q K^T and P V), LDGSTS a cp.async copy, UTMALDG
@@ -1842,6 +1971,56 @@ def k2_report(dev) -> None:
         torch.cuda.synchronize()
     print(f"host time per call at G = {G}, N = {N}, C = {C}, 2000 enqueues: "
           + ", ".join(f"{k} {v:.2f} us" for k, v in us.items()), flush=True)
+
+
+def k4_report(dev) -> None:
+    """Print what K4's library was compiled to: its SASS instruction counts
+    (HGMMA is ``wgmma``: every product of both passes; HMMA an
+    ``mma.sync``, LDGSTS a cp.async copy, ATOM / RED an atomic, which K4
+    must not use) and, per template instance (pass 1: key chunks x head
+    columns; pass 2: head columns), its registers and stack bytes a
+    thread; then the K4 wrapper's host time per call at a small shape."""
+    import re
+    from mvlt_tpu_torch.ops import kernels as K
+    path = K.build()["attention_bwd"]._name
+    tool = pathlib.Path(K._nvcc()).with_name("cuobjdump")
+    try:
+        sass = subprocess.run([str(tool), "-sass", path], capture_output=True,
+                              text=True, timeout=120).stdout
+        ops = {op: len(re.findall(rf"\b{op}\b", sass))
+               for op in ("HGMMA", "HMMA", "LDGSTS")}
+        ops["ATOM/RED"] = len(re.findall(r"\b(?:ATOM\w*|RED)\b", sass))
+        usage = subprocess.run([str(tool), "-res-usage", path],
+                               capture_output=True, text=True,
+                               timeout=120).stdout
+        regs = {f"dq {nc}x{cols}": (int(r), int(st)) for nc, cols, r, st in
+                re.findall(r"attention_bwd_dq_kernelILi(\d+)ELi(\d+)E\S*"
+                           r"\s+REG:(\d+) STACK:(\d+)", usage)}
+        regs.update({f"dkv {cols}": (int(r), int(st)) for cols, r, st in
+                     re.findall(r"attention_bwd_dkv_kernelILi(\d+)E\S*"
+                                r"\s+REG:(\d+) STACK:(\d+)", usage)})
+    except (OSError, subprocess.SubprocessError) as e:
+        ops = regs = f"not read ({e})"
+    print(f"K4 SASS ({tool.name} -sass {pathlib.Path(path).name}): {ops}",
+          flush=True)
+    print(f"K4 registers, stack bytes per instance ({tool.name} -res-usage):"
+          f" {regs}", flush=True)
+    if isinstance(ops, dict) and not (ops["HGMMA"] > 0 and ops["HMMA"] == 0
+                                      and ops["ATOM/RED"] == 0):
+        raise AssertionError(f"K4 was not compiled to wgmma alone: {ops}")
+    G, N, C, nH = 2, 64, 128, 2
+    qkv = torch.randn(G * N, 3 * C, device=dev).to(torch.bfloat16)
+    dctx = torch.randn(G * N, C, device=dev).to(torch.bfloat16)
+    for _ in range(200):
+        K.biased_attention_bwd(qkv, dctx, nH, N, 0.125)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        K.biased_attention_bwd(qkv, dctx, nH, N, 0.125)
+    us = (time.perf_counter() - t0) / 2000 * 1e6
+    torch.cuda.synchronize()
+    print(f"host time per call at G = {G}, N = {N}, C = {C}, 2000 enqueues: "
+          f"K4 biased_attention_bwd {us:.2f} us", flush=True)
 
 
 def k1_report(dev) -> None:
@@ -2041,6 +2220,7 @@ def main() -> int:
 
     k1_report(dev)
     k2_report(dev)
+    k4_report(dev)
 
     chk = Checker()
     kernel_checks(chk, dev)
@@ -2048,6 +2228,7 @@ def main() -> int:
     pretrain_kernel_checks(chk, dev)
     long_attention_checks(chk, dev)
     attention_repeat_checks(dev)
+    attention_bwd_repeat_checks(dev)
     swin_kernel_checks(chk, dev)
     swin_gemm_checks(chk, dev)
     optin_kernel_checks(chk, dev)

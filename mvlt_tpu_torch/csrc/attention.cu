@@ -160,77 +160,6 @@ struct Params {
   float kept;
 };
 
-// byte offset of 16-byte chunk c of row r in a region of ROWB-byte rows that
-// starts on a 1024-byte boundary, under the ROWB-byte swizzle
-template <int ROWB>
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return r * ROWB + ((c ^ ((r * ROWB >> 7) & (ROWB / 16 - 1))) << 4);
-}
-
-// rows first .. first + rows - 1 of one operand into swizzled shared memory;
-// rows past N and columns past Dh arrive as zeros
-template <int ROWB>
-__device__ __forceinline__ void load_rows(unsigned char* dst, const bf16* src, long long base, long long ld,
-                                          int first, int rows, int N, int Dh) {
-  constexpr int CH = ROWB / 16;
-  for (int e = threadIdx.x; e < rows * CH; e += THREADS) {
-    const int r = e / CH, c = e % CH;
-    const int n = first + r;
-    const bool ok = n < N && c * 8 < Dh;
-    cp_async16(dst + swz<ROWB>(r, c), ok ? src + base + n * ld + c * 8 : src, ok ? 16 : 0);
-  }
-}
-
-// the bytes [lo, hi) of device memory (in a tensor that starts on a 16-byte
-// boundary) into dst, as the 16-byte chunks that cover them: the first from
-// the aligned address at or before lo, the last cut at hi. Returns that
-// aligned address: byte b sits at dst + (b - it).
-__device__ __forceinline__ uintptr_t stage_span(unsigned char* dst, uintptr_t lo, uintptr_t hi) {
-  const uintptr_t start = lo & ~static_cast<uintptr_t>(15);
-  for (uintptr_t k = threadIdx.x * 16; start + k < hi; k += THREADS * 16)
-    cp_async16(dst + k, reinterpret_cast<const void*>(start + k),
-               static_cast<uint32_t>(hi - (start + k) < 16 ? hi - (start + k) : 16));
-  return start;
-}
-
-// (a) for one 32-key chunk of a thread's scores: bit x set keeps element x
-// (row erow / N, column c0 + cq + col(x)). The four lanes of a row quad
-// cover 8 consecutive columns, i.e. words E0 .. E0 + 7 of the stream (E0 =
-// i * N + the quad's first column): lane q runs Philox on block E0 / 4 + q
-// and each lane takes its two words from the lanes that hold them, one
-// Philox call for two scores. Every lane of the warp takes part (the
-// shuffles); out-of-range elements are not kept and not written to mo.
-__device__ __noinline__ uint32_t draw_chunk(int c0, int erow0, int erow1, bool live0, bool live1, int cq,
-                                            int lane, int N, uint32_t key, uint32_t ctr1, uint32_t thresh,
-                                            float kept, float* mo) {
-  uint32_t keep = 0;
-#pragma unroll 1
-  for (int t = 0; t < 8; ++t) {
-    const int bb = t >> 1, hh = t & 1;
-    const int erow = hh ? erow1 : erow0, E0 = erow + c0 + 8 * bb;
-    const uint4 r = philox4x32_10(make_uint4((uint32_t)(E0 >> 2) + (lane & 3), ctr1, 0u, 0u),
-                                  make_uint2(key, 0u));
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int m = (E0 & 3) + cq + k, src = (lane & ~3) | (m >> 2);
-      const uint32_t w0 = __shfl_sync(0xffffffffu, r.x, src), w1 = __shfl_sync(0xffffffffu, r.y, src);
-      const uint32_t w2 = __shfl_sync(0xffffffffu, r.z, src), w3 = __shfl_sync(0xffffffffu, r.w, src);
-      const uint32_t w = (m & 3) == 0 ? w0 : (m & 3) == 1 ? w1 : (m & 3) == 2 ? w2 : w3;
-      const int j = c0 + 8 * bb + cq + k;
-      if ((hh ? live1 : live0) && j < N) {
-        keep |= (uint32_t)(w < thresh) << (4 * bb + 2 * hh + k);
-        if (mo) mo[erow + j] = w < thresh ? kept : 0.f;
-      }
-    }
-  }
-  return keep;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
-
 template <int NC, int DP>
 __global__ void __launch_bounds__(THREADS, min_blocks(NC)) attention_wgmma_kernel(const Params p) {
   constexpr int ROWB = DP * 2;

@@ -3,252 +3,761 @@
 // with respect to the fused QKV rows, the key bias and the bias patterns, for sm_90a.
 //
 // Replaces `_seq_core_bwd_kernel` (mvlt_tpu/ops/pallas_attn.py:2413, entry
-// `seq_attention_core_bwd` :2536) and the windowed cores `_core_bwd_kernel2d`
-// (:3782, entry `attention_core_bwd_flat` :3898) and `_core_bwd_kernel` (:3637,
-// entry `attention_core_bwd` :4067) as their interpret path (`fast=False`)
-// computes them: for each (g, h), from the saved QKV rows (G*N, 3C) and dctx
-// (G*N, C) in bf16, all in f32,
-//   s  = (q * scale) k^T + pattern[g % P, h] + kbias[g] + qbias[g]  (recomputed; each optional)
+// `seq_attention_core_bwd` :2536), the windowed cores `_core_bwd_kernel2d`
+// (:3782, entry `attention_core_bwd_flat` :3898), `_core_bwd_kernel` (:3637,
+// entry `attention_core_bwd` :4067) and `_core_bwd_storep_kernel` (:3859),
+// and the XLA backwards `_bwd` (:128) and `_seq_bwd` (:440) that the port
+// routes here. For each (g, h), from the saved QKV rows (G*N, 3C) and dctx
+// (G*N, C) in bf16:
+//   s  = (q k^T) * scale + pattern[g % P, h] + kbias[g] + qbias[g]  (recomputed; each optional)
 //   p  = exp(s - max_j s) / sum_j exp(...)      (exact divide)
 //   pa = p * amask[g, h]                        (optional dropout mask, 0 or 1/keep)
 //   dv = pa^T dctx,  dp = (dctx v^T) * amask[g, h]
-//   ds = p * (dp - rowsum(p * dp))
-//   dq = ds k * scale,  dk = ds^T (q * scale)
-// dqkv is written in bf16 (the dtype of qkv, as the TPU kernel writes it);
-// dkbias[g, j] = sum over heads and rows i of ds[i, j], in f32; dpattern[p, h]
-// = sum of ds over the G / P groups g with g % P == p (the Swin windows that
-// share a relative-position / shift-mask pattern), in f32. p (unmasked)
-// enters ds and pa enters dv, as at pallas_attn.py:2482-2501.
+//   ds = p * dp - p * rowsum(p * dp)
+//   dq = (ds k) * scale,  dk = (ds^T q) * scale
+// dqkv is written in bf16; dkbias[g, j] = sum over heads and rows i of
+// ds[i, j], and dpattern[p, h] = sum of ds over the G / P groups g with
+// g % P == p (the Swin windows that share a relative-position / shift-mask
+// pattern), both in f32. Two opt-in modes: (a) regenerated dropout
+// (`adrop_rate`, :2485): the mask is redrawn from the (2,) int32 device seed
+// with K2's Philox stream (philox.cuh), bit for bit; (b) stored p
+// (`_core_bwd_from_p` :3747-3770): p (G, nH, N, N) bf16, saved by K2's mode
+// (b), is read in place of the recompute, and no key bias or pattern enters
+// it (dkbias and dpattern are written as before).
 //
-// Two opt-in modes, neither with shared memory of its own (K4 uses 207,504
-// of the 232,448 bytes at N = 131, head dim 64; N = 141 stays refused):
-// (a) regenerated dropout (`_seq_core_bwd_kernel` with `adrop_rate`, :2485):
-//     the mask is redrawn from the (2,) int32 device seed with K2's Philox
-//     stream (philox.cuh), bit for bit, where amask enters: in dp and in pa;
-// (b) stored p (`_core_bwd_storep_kernel` :3859 and `_core_bwd_from_p`
-//     :3747-3770): p (G, nH, N, N) bf16, saved by K2's mode (b), is read
-//     into the p tile in place of the QK^T recompute and the exp; dv takes
-//     the bf16 p and ds = p * dp - p * rowsum(p * dp) runs in f32 from it.
-//     The key bias and the patterns no longer enter p; dkbias and the
-//     fixed-order pattern sums are written as before.
+// Numerics: the products run on the tensor cores with bf16 operands and f32
+// sums. s, the softmax, rowsum(p * dp), ds and every sum stay f32; ds and pa
+// are rounded to bf16 where they enter dq / dk / dv (JAX's fast path rounds
+// them there too, `pa_d`, `dsd`); dkbias and dpattern sum the f32 ds. No
+// atomics and one fixed order for every sum: two calls agree bitwise.
 //
-// Bound: about 5 N^2 Dh multiply-adds per (g, h) against one read of the
-// block's q, k, v, dctx (and the masks) and one write of dq, dk, dv: at
-// N = 131, Dh = 64 that is ~50 flop per byte, so on the tensor cores this
-// would be memory-bound; with scalar FMA it is bound by the f32 pipe and
-// shared-memory reads. A block serves one head and a run of groups: with no
-// pattern one group (grid (nH, G)); in pattern mode the groups p, p + P,
-// p + 2P, ... of one pattern p, `wpb` of them (grid (nH, P, chunks)). For each
-// group it keeps q, k, v and dctx as bf16 (exact: they are bf16 in device
-// memory) and the p and ds N x N tiles as f32 in shared memory, so no
-// score-sized tensor touches device memory, as on the TPU; qbias and amask
-// are read from device memory where used. At Dh = 64 that is 207,504 bytes
-// at N = 131 and admits N <= 140 within the 232,448 bytes a block may opt in
-// to (`smem_bytes` below; the wrapper in ops/kernels.py mirrors it); pattern
-// mode adds an N x N f32 tile that sums ds over the block's groups (at the
-// Swin windows, N = 49 and Dh = 32: 43,512 bytes). The cross-block sums are
-// deterministic, with no atomics: the per-head column sums of ds go to a
-// (G, nH, N) f32 scratch that a second small kernel sums over heads in a
-// fixed order, and each block's pattern sum to a (chunks, P, nH, N, N) f32
-// scratch that a third sums over chunks in order. Blocks per pattern are
-// chosen to put about 1024 blocks on the card, so the scratch stays near
-// 1024 * N^2 floats (10 MB at N = 49) where per-window partials would take
-// 59 MB at Swin-S stage 1 (b32). Tensor cores for the five products are
-// later work.
+// Bound: at the shapes the port runs (N 49-288, Dh 32 / 64) a (g, h) needs
+// 10 N^2 Dh flop (five products) against one read of q, k, v, dctx and the
+// masks and one write of dq, dk, dv: 50-90 flop per byte without masks, far
+// below the tensor cores' 295, so the kernel is bound by bytes, and beside
+// them by the per-score work (bias and mask loads, exp, the divide) and by
+// the latency of each block's chain of copies, products and reductions. The
+// design follows the deterministic split of FlashAttention-2's backward into
+// two passes, each on one warpgroup (128 threads) a block:
+//   - pass 1, `attention_bwd_dq_kernel`, tiles the queries as K2 does (64
+//     rows a block, grid tiles x nH x G): q's and dctx's 64 rows, every
+//     key's k and v and, where they fit, the amask's 64 rows are copied to
+//     (swizzled) shared memory by cp.async; S = Q K^T (wgmma.m64n32k16,
+//     both operands K-major) stays in registers (16 f32 a thread per 32-key
+//     chunk), the softmax runs on the fragments as in K2 and leaves p
+//     there. Up to BATCH_CHUNKS chunks, dp = dO V^T runs for every chunk in
+//     one commit group beside S (one wait, as K2 waits once for S); ds
+//     replaces p in place, and its bf16 pairs are the register A operands
+//     of dq = ds K (K read MN-major through the transpose bit), again one
+//     group: each separate wait costs a wgmma round trip that a block
+//     cannot hide behind its own work.
+//     Beyond BATCH_CHUNKS (N > 192) S and dp do not fit the registers
+//     together, and dp runs chunk by chunk, twice (rd, then ds and dq). The
+//     row max, the row sum and rd go to a small (G, nH, 3N) f32 scratch; in
+//     mode (a) the keep bits drawn on the fragments go there as one 32-bit
+//     word per row and 32 keys;
+//   - pass 2, `attention_bwd_dkv_kernel`, tiles the keys (64 a block): one
+//     key tile's k and v and every query's q and dctx in shared memory, the
+//     statistics (and keep words) staged beside them; per 32-query chunk it
+//     recomputes S^T = K Q^T and dp^T = V dO^T in one commit group, rebuilds
+//     p^T from the statistics (no reduction over queries), and forms ds^T,
+//     then dv += pa^T dO and dk += ds^T Q with the fragments as A operands.
+//     Its registers do not grow with N. It also writes this head's column
+//     sums of ds (the key-bias gradient) to a (G, nH, N) f32 scratch, and in
+//     pattern mode walks a run of groups of one pattern, keeping their sum
+//     of ds in shared memory (each element owned by one thread, summed in
+//     group order) for a (chunks, P, nH, N, N) f32 scratch;
+//   - two small kernels sum those scratches over heads and over chunks in a
+//     fixed order.
+// Shared memory is O(N Dh), never N x N: N <= 288 (nine 32-wide chunks, K2's
+// bound) at head dims 16, 32, 48 and 64 (16 / 48 zero-padded to 32 / 64
+// columns). The plan (`smem_bytes`, `scratch_words` below) is mirrored by
+// `kernels.attention_bwd_plan` in ops/kernels.py, which admits a call
+// before any launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int MAX_DH = 64;
-constexpr size_t H100_SMEM_OPTIN = 232448;
+using namespace mvlt;
+using bf16 = __nv_bfloat16;
 
-// q, k, v, dctx: bf16 rows of Dh + 2 (an odd count of 4-byte words, so
-// threads on consecutive rows hit distinct banks); p, ds: f32 rows of N + 1;
-// in pattern mode the N x N f32 sum of ds
-__host__ __device__ constexpr size_t smem_bytes(int N, int Dh, bool pattern = false) {
-  return 2 * 4 * (size_t)N * (Dh + 2) + 4 * 2 * (size_t)N * (N + 1) + (pattern ? 4 * (size_t)N * N : 0);
-}
+constexpr int THREADS = WARPGROUP;
+constexpr int ROWS = 64;                  // a tile: one wgmma's M (queries in pass 1, keys in pass 2)
+constexpr int KEYS = 32;                  // a chunk: one m64n32 product's N
+constexpr int MAX_CHUNKS = 9;             // pass 1 keeps S in 9 x 16 f32 registers a thread
+constexpr int MAX_N = MAX_CHUNKS * KEYS;  // 288
+constexpr int BATCH_CHUNKS = 6;           // pass 1 holds S and dp of every chunk up to this count
 // blocks the pattern mode aims to put on the card
 constexpr int TARGET_BLOCKS = 1024;
-// the largest N at MAX_DH on an H100
-constexpr int MAX_N = 140;
-static_assert(smem_bytes(MAX_N, MAX_DH) <= H100_SMEM_OPTIN && smem_bytes(MAX_N + 1, MAX_DH) > H100_SMEM_OPTIN,
-              "MAX_N follows smem_bytes");
 
-__global__ void __launch_bounds__(THREADS)
-attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dctx,
-                     const float* __restrict__ pattern, const float* __restrict__ kbias,
-                     const float* __restrict__ qbias, const __nv_bfloat16* __restrict__ amask,
-                     const int* __restrict__ seed, uint32_t thresh, float kept,
-                     const __nv_bfloat16* __restrict__ pstore, __nv_bfloat16* __restrict__ dqkv,
-                     float* __restrict__ dkb_part,
-                     float* __restrict__ dpat_part, int N, int C, int Dh, int P, int per, int wpb, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldb = Dh + 2;  // bf16 row
-  const int lds = N + 1;   // f32 row
-  __nv_bfloat16* Q = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // N x ldb, unscaled
-  __nv_bfloat16* K = Q + N * ldb;
-  __nv_bfloat16* V = K + N * ldb;
-  __nv_bfloat16* D = V + N * ldb;                                   // dctx
-  float* Pm = reinterpret_cast<float*>(D + N * ldb);                // N x lds: p, then pa
-  float* S = Pm + N * lds;                                          // N x lds: dp, then ds
-  float* A = S + N * lds;                                           // N x N: sum of ds (pattern mode)
+__host__ __device__ constexpr int head_cols(int Dh) { return Dh <= 32 ? 32 : 64; }
+__host__ __device__ constexpr int chunks_of(int N) { return (N + KEYS - 1) / KEYS; }
+__host__ __device__ constexpr bool takes(int N, int Dh) {
+  return N >= 1 && N <= MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
+}
+// register caps: pass 1 holds S and dp (16 f32 each a chunk; beyond
+// BATCH_CHUNKS dp of two chunks), dq and ds's fragments; pass 2 a chunk's
+// S^T and dp^T, dk and dv (3 blocks an SM: more blocks to hide the latency
+// of each chunk's chain beat a looser cap)
+__host__ __device__ constexpr int dq_min_blocks(int nc) { return nc <= 1 ? 4 : nc <= 2 ? 3 : 2; }
+constexpr int DKV_MIN_BLOCKS = 3;
 
-  const int h = blockIdx.x;
-  const int pat = blockIdx.y;  // the pattern (pattern mode), else the group
-  const int nH = gridDim.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int ld = 3 * C;
-  const int hd = Dh / 2;  // bf16 pairs in a head row
-  const float* pb = pattern ? pattern + ((size_t)pat * nH + h) * N * N : nullptr;
-  const uint32_t key = seed ? mvlt::adrop_key(seed) : 0u;
-  if (pattern)
-    for (int e = tid; e < N * N; e += THREADS) A[e] = 0.f;
+// pass 1: q's and dctx's 64 rows, k and v over whole chunks, 1024 bytes of
+// slack for the swizzle's alignment
+__host__ __device__ constexpr int dq_smem(int N, int Dh) {
+  return (2 * ROWS + 2 * chunks_of(N) * KEYS) * head_cols(Dh) * 2 + 1024;
+}
+// shared memory an H100 SM gives its blocks (228 KB), and what it keeps of it
+// for each block
+constexpr int SM_SMEM = 233472, BLOCK_RESERVED = 1024;
+// pass 1 stages an amask's 64 rows of N bf16 (one contiguous span, and the
+// 16 bytes by which its first 16-byte chunk may start before it) where that
+// keeps dq_min_blocks blocks on an SM, as K2 does; else it reads them from
+// device memory score by score
+__host__ __device__ constexpr int dq_mask_smem(int N, int Dh) {
+  return dq_smem(N, Dh) + ROWS * N * 2 + 16 <= SM_SMEM / dq_min_blocks(chunks_of(N)) - BLOCK_RESERVED
+             ? ROWS * N * 2 + 16
+             : 0;
+}
+// pass 2: a key tile's k and v, q and dctx over whole chunks (the same rows
+// as pass 1), the statistics (row max, row sum, its reciprocal, rd) and two
+// keep words per query
+__host__ __device__ constexpr int dkv_smem(int N, int Dh) { return dq_smem(N, Dh) + 6 * chunks_of(N) * KEYS * 4; }
+// pattern mode: the sum of ds over a run of groups, 64 keys x the queries in f32
+__host__ __device__ constexpr int pattern_smem(int N) { return ROWS * chunks_of(N) * KEYS * 4; }
+// shared memory of the larger pass, or -1 where K4 does not take (N, Dh)
+__host__ __device__ constexpr long long smem_bytes(int N, int Dh, bool pattern, bool amask) {
+  return !takes(N, Dh) ? -1
+         : dq_smem(N, Dh) + (amask ? dq_mask_smem(N, Dh) : 0) > dkv_smem(N, Dh) + (pattern ? pattern_smem(N) : 0)
+             ? dq_smem(N, Dh) + (amask ? dq_mask_smem(N, Dh) : 0)
+             : dkv_smem(N, Dh) + (pattern ? pattern_smem(N) : 0);
+}
+// f32 scratch words per (g, h): row max, row sum and rd of every query, then
+// the keep bits, one word per query and 32 keys
+__host__ __device__ constexpr long long scratch_words(int N) { return 3LL * N + (long long)N * chunks_of(N); }
 
-  const int j0 = blockIdx.z * wpb;
-  const int j1 = min(per, j0 + wpb);
-  for (int jw = j0; jw < j1; ++jw) {
-    const int g = pat + jw * P;  // groups of one pattern, in order
-    const size_t row0 = (size_t)g * N;
-    __syncthreads();  // the previous group's tiles are no longer read
-    for (int e = tid; e < N * hd; e += THREADS) {
-      int n = e / hd, d = 2 * (e % hd);
-      const __nv_bfloat16* r = qkv + (row0 + n) * ld + h * Dh + d;
-      *reinterpret_cast<__nv_bfloat162*>(Q + n * ldb + d) = *reinterpret_cast<const __nv_bfloat162*>(r);
-      *reinterpret_cast<__nv_bfloat162*>(K + n * ldb + d) = *reinterpret_cast<const __nv_bfloat162*>(r + C);
-      *reinterpret_cast<__nv_bfloat162*>(V + n * ldb + d) = *reinterpret_cast<const __nv_bfloat162*>(r + 2 * C);
-      *reinterpret_cast<__nv_bfloat162*>(D + n * ldb + d) =
-          *reinterpret_cast<const __nv_bfloat162*>(dctx + (row0 + n) * C + h * Dh + d);
-    }
-    __syncthreads();
+struct Params {
+  const bf16* qkv;
+  const bf16* dctx;
+  const float* pattern;
+  const float* kbias;
+  const float* qbias;
+  const bf16* amask;
+  const int* seed;
+  const bf16* pstore;
+  bf16* dqkv;
+  float* dkb_part;
+  float* dpat_part;
+  float* scratch;
+  long long words;  // scratch words per (g, h)
+  int N, C, nH, Dh, P;
+  int tiles;              // 64-row tiles of N: query tiles in pass 1, key tiles in pass 2
+  int mask_staged;        // pass 1 stages the amask rows (dq_mask_smem > 0)
+  int stride, per, wpb;   // pass 2: groups pat + jw * stride, jw in the block's run of wpb (of per)
+  float scale;
+  uint32_t thresh;
+  float kept;
+};
 
-    // scores (or (b) the stored p) and dp = (dctx v^T) * mask
-    const float* kb = kbias ? kbias + (size_t)g * N : nullptr;
-    const float* qb = qbias ? qbias + (size_t)g * N * N : nullptr;
-    const size_t tile = ((size_t)g * nH + h) * N * N;
-    const __nv_bfloat16* am = amask ? amask + tile : nullptr;
-    const __nv_bfloat16* ps = pstore ? pstore + tile : nullptr;
-    const bool masked = am != nullptr || seed != nullptr;
-    for (int e = tid; e < N * N; e += THREADS) {
-      int i = e / N, j = e % N;
-      const __nv_bfloat162* dc = reinterpret_cast<const __nv_bfloat162*>(D + i * ldb);
-      const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(V + j * ldb);
-      float dp = 0.f;
-      if (ps) {
-        for (int d = 0; d < hd; ++d) {
-          float2 cf = __bfloat1622float2(dc[d]), vf = __bfloat1622float2(v[d]);
-          dp = fmaf(cf.x, vf.x, dp);
-          dp = fmaf(cf.y, vf.y, dp);
-        }
-        Pm[i * lds + j] = __bfloat162float(ps[e]);
-      } else {
-        const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(Q + i * ldb);
-        const __nv_bfloat162* k = reinterpret_cast<const __nv_bfloat162*>(K + j * ldb);
-        float sc = 0.f;
-        for (int d = 0; d < hd; ++d) {
-          float2 qf = __bfloat1622float2(q[d]), kf = __bfloat1622float2(k[d]);
-          float2 cf = __bfloat1622float2(dc[d]), vf = __bfloat1622float2(v[d]);
-          sc = fmaf(qf.x * scale, kf.x, sc);
-          sc = fmaf(qf.y * scale, kf.y, sc);
-          dp = fmaf(cf.x, vf.x, dp);
-          dp = fmaf(cf.y, vf.y, dp);
-        }
-        if (pb) sc += pb[e];
-        if (kb) sc += kb[j];
-        if (qb) sc += qb[e];
-        Pm[i * lds + j] = sc;
-      }
-      if (am) dp *= __bfloat162float(am[e]);
-      if (seed) dp *= mvlt::adrop_keep(key, g, h, (uint32_t)e, thresh) ? kept : 0.f;
-      S[i * lds + j] = dp;
-    }
-    __syncthreads();
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
 
-    // one warp per row: p by the max-subtracted softmax with an exact divide
-    // (or (b) as stored), ds = p * dp - p * rowsum(p * dp), then Pm holds
-    // pa = p * mask
-    for (int i = tid >> 5; i < N; i += THREADS / 32) {
-      float* prow = Pm + i * lds;
-      float* srow = S + i * lds;
-      float rd = 0.f;
-      if (ps) {
-        for (int j = lane; j < N; j += 32) rd = fmaf(prow[j], srow[j], rd);
-      } else {
-        float mx = -INFINITY;
-        for (int j = lane; j < N; j += 32) mx = fmaxf(mx, prow[j]);
-        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        float sum = 0.f;
-        for (int j = lane; j < N; j += 32) {
-          float e = expf(prow[j] - mx);
-          prow[j] = e;
-          sum += e;
-        }
-        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        for (int j = lane; j < N; j += 32) {
-          float pv = prow[j] / sum;
-          prow[j] = pv;
-          rd = fmaf(pv, srow[j], rd);
-        }
-      }
-      for (int o = 16; o > 0; o >>= 1) rd += __shfl_xor_sync(0xffffffffu, rd, o);
-      for (int j = lane; j < N; j += 32) {
-        float pv = prow[j];
-        srow[j] = pv * srow[j] - pv * rd;
-        if (!masked) continue;
-        const uint32_t e = (uint32_t)(i * N + j);
-        if (am) prow[j] = pv * __bfloat162float(am[e]);
-        else prow[j] = pv * (mvlt::adrop_keep(key, g, h, e, thresh) ? kept : 0.f);
-      }
-    }
-    __syncthreads();
+// dq of one 64-query tile of (g, h); the statistics and keep words for pass 2
+template <int NC, int DP>
+__global__ void __launch_bounds__(THREADS, dq_min_blocks(NC)) attention_bwd_dq_kernel(const Params p) {
+  constexpr int ROWB = DP * 2;
+  constexpr int KR = NC * KEYS;
+  constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  constexpr uint32_t SBO = 8 * ROWB;  // 8-row groups of every operand
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* Ds = Qs + ROWS * ROWB;  // dctx rows of the tile
+  unsigned char* Ks = Ds + ROWS * ROWB;
+  unsigned char* Vs = Ks + KR * ROWB;
+  unsigned char* Ms = Vs + KR * ROWB;  // the amask rows, when staged
 
-    // two head columns d, d + 1 a thread:
-    // dq_i = scale * sum_j ds_ij k_j;  dk_j = sum_i ds_ij (q_i * scale);  dv_j = sum_i pa_ij dctx_i
-    for (int e = tid; e < N * hd; e += THREADS) {
-      int r = e / hd, d = 2 * (e % hd);
-      float2 dq = make_float2(0.f, 0.f), dk = dq, dv = dq;
-      for (int t = 0; t < N; ++t) {
-        float sr = S[r * lds + t], sc = S[t * lds + r], pc = Pm[t * lds + r];
-        float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(K + t * ldb + d));
-        float2 qf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Q + t * ldb + d));
-        float2 cf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(D + t * ldb + d));
-        dq.x = fmaf(sr, kf.x, dq.x);
-        dq.y = fmaf(sr, kf.y, dq.y);
-        dk.x = fmaf(sc, qf.x * scale, dk.x);
-        dk.y = fmaf(sc, qf.y * scale, dk.y);
-        dv.x = fmaf(pc, cf.x, dv.x);
-        dv.y = fmaf(pc, cf.y, dv.y);
-      }
-      __nv_bfloat16* out = dqkv + (row0 + r) * ld + h * Dh + d;
-      *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(dq.x * scale, dq.y * scale);
-      *reinterpret_cast<__nv_bfloat162*>(out + C) = __floats2bfloat162_rn(dk.x, dk.y);
-      *reinterpret_cast<__nv_bfloat162*>(out + 2 * C) = __floats2bfloat162_rn(dv.x, dv.y);
-    }
+  const int N = p.N, C = p.C, Dh = p.Dh;
+  const int tile = blockIdx.x % p.tiles;
+  const int gh = blockIdx.x / p.tiles;
+  const int h = gh % p.nH, g = gh / p.nH;
+  const int row0 = tile * ROWS;
+  const long long ld = 3LL * C;
+  const long long in0 = (long long)g * N * ld;
+  const bf16* qs = p.qkv + h * Dh;
+  const size_t nn = (size_t)N * N;
+  const size_t t0 = (size_t)gh * nn;  // (g, h)'s N x N block of amask and pstore
+  float* st = p.scratch + gh * p.words;
 
-    // this head's column sums of ds
-    if (dkb_part) {
-      float* part = dkb_part + ((size_t)g * nH + h) * N;
-      for (int j = tid; j < N; j += THREADS) {
-        float c = 0.f;
-        for (int i = 0; i < N; ++i) c += S[i * lds + j];
-        part[j] = c;
+  if (!p.pstore) load_rows<ROWB>(Qs, qs, in0, ld, row0, ROWS, N, Dh);
+  load_rows<ROWB>(Ks, qs + C, in0, ld, 0, KR, N, Dh);
+  cp_async_commit();
+  load_rows<ROWB>(Ds, p.dctx + h * Dh, (long long)g * N * C, C, row0, ROWS, N, Dh);
+  load_rows<ROWB>(Vs, qs + 2 * C, in0, ld, 0, KR, N, Dh);
+  // byte b of (g, h)'s amask block sits at Ms + b - m_off
+  long long m_off = 0;
+  if (p.mask_staged)
+    m_off = (long long)stage_span(Ms, reinterpret_cast<uintptr_t>(p.amask + t0 + (size_t)row0 * N),
+                                  reinterpret_cast<uintptr_t>(p.amask + t0 + (size_t)min(row0 + ROWS, N) * N)) -
+            (long long)reinterpret_cast<uintptr_t>(p.amask + t0);
+  cp_async_commit();
+
+  // element x of chunk c sits in row r0 + 8 hh, column cq + col(c, x), as in K2
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const bool live_warp = row0 + warp * 16 < N;
+  const bool live0 = row0 + r0 < N, live1 = row0 + r0 + 8 < N;
+  const int erow0 = (row0 + r0) * N, erow1 = (row0 + r0 + 8) * N;
+  auto col = [](int c, int x) { return c * KEYS + (x >> 2) * 8 + (x & 1); };
+
+  // (a): bit x of keep[c] keeps element x of chunk c, drawn while the copies
+  // are in flight; pass 2 reads them back as one word per row and chunk
+  uint32_t keep[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) keep[c] = 0;
+  if (p.seed && live_warp) {
+    const uint32_t key = adrop_key(p.seed), ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+    uint32_t* bits = reinterpret_cast<uint32_t*>(st + 3 * N);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      keep[c] = draw_chunk(c * KEYS, erow0, erow1, live0, live1, cq, lane, N, key, ctr1, p.thresh, p.kept, nullptr);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        uint32_t w = 0;
+#pragma unroll
+        for (int bb = 0; bb < 4; ++bb)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) w |= ((keep[c] >> (4 * bb + 2 * hh + k)) & 1u) << (8 * bb + cq + k);
+        w |= __shfl_xor_sync(0xffffffffu, w, 1);
+        w |= __shfl_xor_sync(0xffffffffu, w, 2);
+        if ((lane & 3) == 0 && (hh ? live1 : live0)) bits[(row0 + r0 + 8 * hh) * NC + c] = w;
       }
     }
-    // ds summed over the block's groups, each element by one thread, in group order
-    if (pattern)
-      for (int e = tid; e < N * N; e += THREADS) A[e] += S[(e / N) * lds + e % N];
+  }
+  cp_async_wait<1>();  // q and k are in
+  fence_proxy_async();
+  __syncthreads();
+
+  const uint32_t q_base = smem_u32(Qs), d_base = smem_u32(Ds), k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+  float s[NC][16];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int x = 0; x < 16; ++x) s[c][x] = 0.f;
+    fence_acc(s[c]);
+  }
+  if (!p.pstore) {  // S = Q K^T (block-uniform: every warp issues it)
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_m64n32k16(s[c], make_desc(q_base + kk * 32, 16, SBO, SW),
+                        make_desc(k_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_acc(s[c]);
   }
 
-  if (pattern) {
-    float* out = dpat_part + (((size_t)blockIdx.z * P + pat) * nH + h) * N * N;
-    for (int e = tid; e < N * N; e += THREADS) out[e] = A[e];
+  if (live_warp && p.pstore) {  // (b): p as stored
+    const bf16* ps = p.pstore + t0;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int hh = (x >> 1) & 1, j = cq + col(c, x);
+        s[c][x] = (hh ? live1 : live0) && j < N ? __bfloat162float(__ldg(ps + (hh ? erow1 : erow0) + j)) : 0.f;
+      }
+  } else if (live_warp) {  // the softmax on the fragments, as K2 computes it
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+    const float* pb = p.pattern ? p.pattern + ((size_t)(g % p.P) * p.nH + h) * nn : nullptr;
+    const float* kb = p.kbias ? p.kbias + (size_t)g * N + cq : nullptr;
+    const float* qb = p.qbias ? p.qbias + (size_t)g * nn : nullptr;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int hh = (x >> 1) & 1, j = col(c, x);
+        const int e = (hh ? erow1 : erow0) + cq + j;
+        float v = -INFINITY;  // keys past N
+        if (cq + j < N) {
+          v = s[c][x] * p.scale;
+          if (hh ? live1 : live0) {
+            if (pb) v += __ldg(pb + e);
+            if (kb) v += __ldg(kb + j);
+            if (qb) v += __ldg(qb + e);
+          }
+        }
+        s[c][x] = v;
+        mx[hh] = fmaxf(mx[hh], v);
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int hh = (x >> 1) & 1;
+        s[c][x] = expf(s[c][x] - mx[hh]);
+        sum[hh] += s[c][x];
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+      sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+    }
+    // the exact divide v / sum as Markstein's correction of v * RN(1 / sum)
+    const float rcp[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int hh = (x >> 1) & 1;
+        const float q0 = s[c][x] * rcp[hh];
+        s[c][x] = fmaf(fmaf(-q0, sum[hh], s[c][x]), rcp[hh], q0);
+      }
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (hh ? live1 : live0) {
+          const int i = row0 + r0 + 8 * hh;
+          st[i] = mx[hh];
+          st[N + i] = sum[hh];
+        }
+    }
+  }
+  cp_async_wait<0>();  // dctx and v are in
+  fence_proxy_async();
+  __syncthreads();
+
+  // the dropout multiplier of element x of chunk c (0 outside the block)
+  const bf16* am = p.amask ? p.amask + t0 : nullptr;
+  auto mask_of = [&](int c, int x) -> float {
+    const int hh = (x >> 1) & 1, j = cq + col(c, x);
+    if (!(hh ? live1 : live0) || j >= N) return 0.f;
+    const int e = (hh ? erow1 : erow0) + j;
+    if (am)
+      return __bfloat162float(p.mask_staged ? *reinterpret_cast<const bf16*>(Ms + 2LL * e - m_off) : __ldg(am + e));
+    if (p.seed) return (keep[c] >> x) & 1u ? p.kept : 0.f;
+    return 1.f;
+  };
+  float rd[2] = {0.f, 0.f};
+  float dq[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) dq[x] = 0.f;
+  fence_acc(dq);
+  if constexpr (NC <= BATCH_CHUNKS) {
+    // dp = dO V^T over every chunk in one commit group, beside S in registers
+    float dp[NC][16];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) dp[c][x] = 0.f;
+      fence_acc(dp[c]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_m64n32k16(dp[c], make_desc(d_base + kk * 32, 16, SBO, SW),
+                        make_desc(v_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) fence_acc(dp[c]);
+    // rd = rowsum(p * dp * mask), then ds = p * dp * mask - p * rd in place of p
+    if (live_warp) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int x = 0; x < 16; ++x) {
+          dp[c][x] *= mask_of(c, x);
+          rd[(x >> 1) & 1] += s[c][x] * dp[c][x];
+        }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rd[hh] += __shfl_xor_sync(0xffffffffu, rd[hh], 1);
+      rd[hh] += __shfl_xor_sync(0xffffffffu, rd[hh], 2);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const float pv = s[c][x];
+        s[c][x] = live_warp ? pv * dp[c][x] - pv * rd[(x >> 1) & 1] : 0.f;
+      }
+    // dq = ds K: every chunk's ds in bf16 pairs as the A operand, one group
+    uint32_t a[NC][2][4];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a[c][k16][q] = pack_bf16(s[c][8 * k16 + 2 * q], s[c][8 * k16 + 2 * q + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) {
+        // 16 key rows of k; one column block, so LBO is unused (given SBO's value)
+        const uint64_t bk = make_desc(k_base + (c * KEYS + k16 * 16) * ROWB, SBO, SBO, SW);
+        if constexpr (DP == 64)
+          wgmma_m64n64k16_rs(dq, a[c][k16], bk);
+        else
+          wgmma_m64n32k16_rs(dq, a[c][k16], bk);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(dq);
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) fence_regs(a[c][k16]);
+  } else {
+    // S and every chunk's dp do not fit the registers together: dp chunk
+    // by chunk (the next chunk's product in flight while one is read),
+    // once for rd and once for ds and dq
+    float dp[2][16];
+    auto issue_dp = [&](int c, float(&acc)[16]) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) acc[x] = 0.f;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_m64n32k16(acc, make_desc(d_base + kk * 32, 16, SBO, SW),
+                        make_desc(v_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
+      wgmma_commit();
+    };
+    issue_dp(0, dp[0]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c + 1 < NC) {
+        issue_dp(c + 1, dp[(c + 1) & 1]);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_acc(dp[c & 1]);
+      if (live_warp) {
+#pragma unroll
+        for (int x = 0; x < 16; ++x) rd[(x >> 1) & 1] += s[c][x] * (dp[c & 1][x] * mask_of(c, x));
+      }
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rd[hh] += __shfl_xor_sync(0xffffffffu, rd[hh], 1);
+      rd[hh] += __shfl_xor_sync(0xffffffffu, rd[hh], 2);
+    }
+    uint32_t a[2][4];
+    issue_dp(0, dp[0]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (c + 1 < NC) {
+        issue_dp(c + 1, dp[(c + 1) & 1]);
+        wgmma_wait<1>();  // dp of chunk c and the previous dq product are done
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_acc(dp[c & 1]);
+      fence_acc(dq);
+      fence_regs(a[0]);
+      fence_regs(a[1]);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        float d2[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int x = 2 * q + k;
+          const float pv = s[c][x];
+          const float pdp = pv * (dp[c & 1][x] * mask_of(c, x));
+          d2[k] = live_warp ? pdp - pv * rd[(x >> 1) & 1] : 0.f;
+        }
+        a[q >> 2][q & 3] = pack_bf16(d2[0], d2[1]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) {
+        const uint64_t bk = make_desc(k_base + (c * KEYS + k16 * 16) * ROWB, SBO, SBO, SW);
+        if constexpr (DP == 64)
+          wgmma_m64n64k16_rs(dq, a[k16], bk);
+        else
+          wgmma_m64n32k16_rs(dq, a[k16], bk);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_acc(dq);
+    fence_regs(a[0]);
+    fence_regs(a[1]);
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (hh ? live1 : live0) st[2 * N + row0 + r0 + 8 * hh] = rd[hh];
+  }
+
+  // dq * scale: bf16 pairs into q's rows (no product reads them any more),
+  // then 16-byte stores of the rows below N
+#pragma unroll
+  for (int b = 0; b < DP / 8; ++b) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(Qs + swz<ROWB>(r0 + 8 * hh, b) + cq * 2) =
+          pack_bf16(dq[4 * b + 2 * hh] * p.scale, dq[4 * b + 2 * hh + 1] * p.scale);
+  }
+  __syncthreads();
+  const int chunks = Dh / 8;
+  for (int e = threadIdx.x; e < ROWS * chunks; e += THREADS) {
+    const int r = e / chunks, c = e % chunks;
+    const int i = row0 + r;
+    if (i < N)
+      *reinterpret_cast<uint4*>(p.dqkv + in0 + i * ld + h * Dh + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<ROWB>(r, c));
+  }
+}
+
+// dk and dv of one 64-key tile of (g, h) for each group of the block's run;
+// the head's column sums of ds and, in pattern mode, their sum over the run
+template <int DP>
+__global__ void __launch_bounds__(THREADS, DKV_MIN_BLOCKS) attention_bwd_dkv_kernel(const Params p) {
+  constexpr int ROWB = DP * 2;
+  constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  constexpr uint32_t SBO = 8 * ROWB;
+  const int N = p.N, C = p.C, Dh = p.Dh;
+  const int nc = chunks_of(N), KR = nc * KEYS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);  // the key tile's k, then dk
+  unsigned char* Vs = Ks + ROWS * ROWB;     // its v, then dv
+  unsigned char* Qs = Vs + ROWS * ROWB;     // q of every query
+  unsigned char* Ds = Qs + KR * ROWB;       // dctx of every query
+  float* Sm = reinterpret_cast<float*>(Ds + KR * ROWB);  // row max
+  float* Sl = Sm + KR;                                   // row sum
+  float* Sr = Sl + KR;                                   // RN(1 / row sum)
+  float* Sd = Sr + KR;                                   // rd
+  uint32_t* Bt = reinterpret_cast<uint32_t*>(Sd + KR);   // (a): the tile's two keep words per query
+  float* Acc = reinterpret_cast<float*>(Bt + 2 * KR);    // pattern mode: the run's sum of ds
+
+  int b = blockIdx.x;
+  const int kt = b % p.tiles;
+  b /= p.tiles;
+  const int h = b % p.nH;
+  b /= p.nH;
+  const int pat = b % p.stride, run = b / p.stride;
+  const int key0 = kt * ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const bool live_warp = key0 + warp * 16 < N;
+  const int jr[2] = {key0 + r0, key0 + r0 + 8};  // the thread's two key rows
+  const bool kl[2] = {jr[0] < N, jr[1] < N};
+  const bool pattern_mode = p.dpat_part != nullptr;
+  if (pattern_mode)  // each thread owns its elements: no barrier
+    for (int e = 0; e < nc * 16; ++e) Acc[e * THREADS + threadIdx.x] = 0.f;
+  const long long ld = 3LL * C;
+  const size_t nn = (size_t)N * N;
+  const bf16* qs = p.qkv + h * Dh;
+  const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs), q_base = smem_u32(Qs), d_base = smem_u32(Ds);
+
+  const int jw1 = min(p.per, (run + 1) * p.wpb);
+  for (int jw = run * p.wpb; jw < jw1; ++jw) {
+    const int g = pat + jw * p.stride;  // groups of one pattern, in order
+    const int gh = g * p.nH + h;
+    const long long in0 = (long long)g * N * ld;
+    __syncthreads();  // the previous group's tiles are no longer read
+    load_rows<ROWB>(Ks, qs + C, in0, ld, key0, ROWS, N, Dh);
+    load_rows<ROWB>(Vs, qs + 2 * C, in0, ld, key0, ROWS, N, Dh);
+    load_rows<ROWB>(Qs, qs, in0, ld, 0, KR, N, Dh);
+    load_rows<ROWB>(Ds, p.dctx + h * Dh, (long long)g * N * C, C, 0, KR, N, Dh);
+    cp_async_commit();
+    const float* st = p.scratch + gh * p.words;
+    const uint32_t* bits = reinterpret_cast<const uint32_t*>(st + 3 * N);
+    for (int i = threadIdx.x; i < KR; i += THREADS) {
+      const bool in = i < N, stats = in && !p.pstore;
+      const float l = stats ? st[N + i] : 1.f;
+      Sm[i] = stats ? st[i] : 0.f;
+      Sl[i] = l;
+      Sr[i] = __frcp_rn(l);
+      Sd[i] = in ? st[2 * N + i] : 0.f;
+      if (p.seed) {
+        Bt[2 * i] = in ? bits[i * nc + 2 * kt] : 0u;
+        Bt[2 * i + 1] = in && 2 * kt + 1 < nc ? bits[i * nc + 2 * kt + 1] : 0u;
+      }
+    }
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+
+    const size_t t0 = (size_t)gh * nn;
+    const float* pb = p.pattern ? p.pattern + ((size_t)(g % p.P) * p.nH + h) * nn : nullptr;
+    const float* qb = p.qbias ? p.qbias + (size_t)g * nn : nullptr;
+    const bf16* am = p.amask ? p.amask + t0 : nullptr;
+    const bf16* ps = p.pstore ? p.pstore + t0 : nullptr;
+    float kbv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) kbv[hh] = p.kbias && kl[hh] ? __ldg(p.kbias + (size_t)g * N + jr[hh]) : 0.f;
+
+    float dk[DP / 2], dv[DP / 2], dkb[2] = {0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < DP / 2; ++x) dk[x] = dv[x] = 0.f;
+    fence_acc(dk);
+    fence_acc(dv);
+    uint32_t apa[2][4], ads[2][4];
+    float s[16], dp[16];
+#pragma unroll 1
+    for (int c = 0; c < nc; ++c) {
+      // S^T = K Q_c^T (unless p is stored) and dp^T = V dO_c^T, one group;
+      // it also retires the previous chunk's dk / dv products
+#pragma unroll
+      for (int x = 0; x < 16; ++x) s[x] = dp[x] = 0.f;
+      fence_acc(s);
+      fence_acc(dp);
+      wgmma_fence();
+      if (!ps) {
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_m64n32k16(s, make_desc(k_base + kk * 32, 16, SBO, SW),
+                          make_desc(q_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_m64n32k16(dp, make_desc(v_base + kk * 32, 16, SBO, SW),
+                        make_desc(d_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      fence_acc(dk);
+      fence_acc(dv);
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) {
+        fence_regs(apa[k16]);
+        fence_regs(ads[k16]);
+      }
+      // element x: key row jr[hh], query column i
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        float pa2[2], ds2[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int x = 2 * q + k, hh = (x >> 1) & 1;
+          const int i = c * KEYS + (x >> 2) * 8 + cq + (x & 1);
+          const int j = jr[hh];
+          float pv = 0.f, m = 0.f;
+          if (live_warp && kl[hh] && i < N) {
+            const int e = i * N + j;
+            if (ps) {
+              pv = __bfloat162float(__ldg(ps + e));
+            } else {
+              float v = s[x] * p.scale;
+              if (pb) v += __ldg(pb + e);
+              if (p.kbias) v += kbv[hh];
+              if (qb) v += __ldg(qb + e);
+              const float ex = expf(v - Sm[i]);
+              const float q0 = ex * Sr[i];
+              pv = fmaf(fmaf(-q0, Sl[i], ex), Sr[i], q0);
+            }
+            const int jl = j - key0;
+            m = am ? __bfloat162float(__ldg(am + e))
+                   : p.seed ? ((Bt[2 * i + (jl >> 5)] >> (jl & 31)) & 1u ? p.kept : 0.f) : 1.f;
+          }
+          const float pdp = pv * (dp[x] * m);
+          ds2[k] = pdp - pv * Sd[i];
+          pa2[k] = pv * m;
+          dkb[hh] += ds2[k];
+          if (pattern_mode) Acc[(c * 16 + x) * THREADS + threadIdx.x] += ds2[k];
+        }
+        apa[q >> 2][q & 3] = pack_bf16(pa2[0], pa2[1]);
+        ads[q >> 2][q & 3] = pack_bf16(ds2[0], ds2[1]);
+      }
+      // dv += pa^T dO_c, dk += ds^T Q_c: 16 query rows a k16 step, read
+      // MN-major (their head columns contiguous)
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) {
+        const uint32_t row = (c * KEYS + k16 * 16) * ROWB;
+        const uint64_t bd = make_desc(d_base + row, SBO, SBO, SW), bq = make_desc(q_base + row, SBO, SBO, SW);
+        if constexpr (DP == 64) {
+          wgmma_m64n64k16_rs(dv, apa[k16], bd);
+          wgmma_m64n64k16_rs(dk, ads[k16], bq);
+        } else {
+          wgmma_m64n32k16_rs(dv, apa[k16], bd);
+          wgmma_m64n32k16_rs(dk, ads[k16], bq);
+        }
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_acc(dk);
+    fence_acc(dv);
+#pragma unroll
+    for (int k16 = 0; k16 < 2; ++k16) {
+      fence_regs(apa[k16]);
+      fence_regs(ads[k16]);
+    }
+
+    // this head's column sums of ds, one value per key over the row quad
+    if (p.dkb_part) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        dkb[hh] += __shfl_xor_sync(0xffffffffu, dkb[hh], 1);
+        dkb[hh] += __shfl_xor_sync(0xffffffffu, dkb[hh], 2);
+        if ((lane & 3) == 0 && kl[hh]) p.dkb_part[(size_t)gh * N + jr[hh]] = dkb[hh];
+      }
+    }
+
+    // dk * scale and dv: bf16 pairs into k's and v's rows, then 16-byte
+    // stores of the keys below N
+    __syncthreads();  // every warp's products have read Ks / Vs
+#pragma unroll
+    for (int bb = 0; bb < DP / 8; ++bb) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t off = swz<ROWB>(r0 + 8 * hh, bb) + cq * 2;
+        *reinterpret_cast<uint32_t*>(Ks + off) =
+            pack_bf16(dk[4 * bb + 2 * hh] * p.scale, dk[4 * bb + 2 * hh + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(Vs + off) = pack_bf16(dv[4 * bb + 2 * hh], dv[4 * bb + 2 * hh + 1]);
+      }
+    }
+    __syncthreads();
+    const int chunks = Dh / 8;
+    for (int e = threadIdx.x; e < ROWS * chunks; e += THREADS) {
+      const int r = e / chunks, cc = e % chunks;
+      const int j = key0 + r;
+      if (j < N) {
+        bf16* out = p.dqkv + in0 + j * ld + h * Dh + cc * 8;
+        *reinterpret_cast<uint4*>(out + C) = *reinterpret_cast<const uint4*>(Ks + swz<ROWB>(r, cc));
+        *reinterpret_cast<uint4*>(out + 2 * C) = *reinterpret_cast<const uint4*>(Vs + swz<ROWB>(r, cc));
+      }
+    }
+  }
+
+  if (pattern_mode) {  // the run's sum of ds into its slice of the scratch
+    float* out = p.dpat_part + (((size_t)run * p.stride + pat) * p.nH + h) * nn;
+    for (int c = 0; c < nc; ++c)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int hh = (x >> 1) & 1;
+        const int i = c * KEYS + (x >> 2) * 8 + cq + (x & 1);
+        if (kl[hh] && i < N) out[(size_t)i * N + jr[hh]] = Acc[(c * 16 + x) * THREADS + threadIdx.x];
+      }
   }
 }
 
@@ -292,12 +801,63 @@ void pattern_split(int G, int P, int nH, int* chunks, int* wpb) {
   *chunks = (per + *wpb - 1) / *wpb;
 }
 
+template <int NC, int DP>
+cudaError_t launch_dq(const Params& p, unsigned blocks, int smem, cudaStream_t stream) {
+  // the most any N of this instance asks (staged amask rows at N = 32 NC)
+  constexpr int most = dq_smem(NC * KEYS, DP) + ROWS * NC * KEYS * 2 + 16;
+  static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(attention_bwd_dq_kernel<NC, DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  attention_bwd_dq_kernel<NC, DP><<<blocks, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t dispatch_dq(int chunks, const Params& p, unsigned blocks, int smem, cudaStream_t stream) {
+  switch (chunks) {
+    case 1: return launch_dq<1, DP>(p, blocks, smem, stream);
+    case 2: return launch_dq<2, DP>(p, blocks, smem, stream);
+    case 3: return launch_dq<3, DP>(p, blocks, smem, stream);
+    case 4: return launch_dq<4, DP>(p, blocks, smem, stream);
+    case 5: return launch_dq<5, DP>(p, blocks, smem, stream);
+    case 6: return launch_dq<6, DP>(p, blocks, smem, stream);
+    case 7: return launch_dq<7, DP>(p, blocks, smem, stream);
+    case 8: return launch_dq<8, DP>(p, blocks, smem, stream);
+    case 9: return launch_dq<9, DP>(p, blocks, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+static_assert(MAX_CHUNKS == 9, "dispatch_dq covers every chunk count");
+
+template <int DP>
+cudaError_t launch_dkv(const Params& p, unsigned blocks, int smem, cudaStream_t stream) {
+  static int attr_bytes = 0;  // the opt-in set so far for this instance
+  if (smem > attr_bytes) {
+    cudaError_t e =
+        cudaFuncSetAttribute(attention_bwd_dkv_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr_bytes = smem;
+  }
+  attention_bwd_dkv_kernel<DP><<<blocks, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Shared memory one block needs for (N, Dh); the wrapper checks it against the card's opt-in limit.
-extern "C" long long mvlt_attention_bwd_smem(int N, int Dh, int pattern) {
-  return (long long)smem_bytes(N, Dh, pattern != 0);
+// Shared memory of K4's larger pass for (N, Dh), in pattern mode (bit 0 of flags) or not, with an amask
+// (bit 1) or not, or -1 where K4 does not take them (N > 288, or a head dim that is not 16, 32, 48 or 64); the
+// wrapper checks it against the card's opt-in limit.
+extern "C" long long mvlt_attention_bwd_smem(int N, int Dh, int flags) {
+  return smem_bytes(N, Dh, flags & 1, flags & 2);
 }
+
+// f32 words of the scratch per (group, head) (row statistics and keep bits), or -1 where K4 does not take
+// (N, Dh).
+extern "C" long long mvlt_attention_bwd_scratch(int N, int Dh) { return takes(N, Dh) ? scratch_words(N) : -1; }
 
 // Chunks of the pattern mode for G groups and P patterns (the wrapper sizes dpat_part with it).
 extern "C" int mvlt_attention_bwd_chunks(int G, int P, int nH) {
@@ -307,47 +867,53 @@ extern "C" int mvlt_attention_bwd_chunks(int G, int P, int nH) {
   return chunks;
 }
 
-// pattern (P, nH, N, N) f32 with G % P == 0, kbias (G, N) f32, qbias (G, N, N) f32 and amask
-// (G, nH, N, N) bf16 may each be null. seed: null, or (2,) int32 16-bit halves for mode (a), with K2's
-// thresh and kept; amask must be null with it, and nH <= 256. pstore: null, or (G, nH, N, N) bf16 p for
-// mode (b). dkb_part: (G, nH, N) f32 scratch and dkbias (G, N) f32, both null to skip the key-bias
-// gradient. With a pattern, dpat_part: (chunks, P, nH, N, N) f32 scratch (`mvlt_attention_bwd_chunks`)
-// and dpattern (P, nH, N, N) f32.
+// qkv (G*N, 3C), dctx (G*N, C) and dqkv (G*N, 3C) bf16, each 16-byte aligned. pattern (P, nH, N, N) f32
+// with G % P == 0, kbias (G, N) f32, qbias (G, N, N) f32 and amask (G, nH, N, N) bf16 may each be null.
+// seed: null, or (2,) int32 16-bit halves for mode (a), with K2's thresh and kept; amask must be null with
+// it, and nH <= 256. pstore: null, or (G, nH, N, N) bf16 p for mode (b). dkb_part: (G, nH, N) f32 scratch
+// and dkbias (G, N) f32, both null to skip the key-bias gradient. With a pattern, dpat_part: (chunks, P,
+// nH, N, N) f32 scratch (`mvlt_attention_bwd_chunks`) and dpattern (P, nH, N, N) f32. scratch: (G, nH,
+// `mvlt_attention_bwd_scratch`) f32, the first pass's statistics for the second.
 extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void* pattern, const void* kbias,
                                   const void* qbias, const void* amask, const void* seed, const void* pstore,
                                   void* dqkv, void* dkb_part, void* dkbias, void* dpat_part, void* dpattern,
-                                  int G, int N, int C, int nH, int P, float scale, unsigned int thresh,
-                                  float kept, void* stream) {
-  if (N < 1 || nH < 1 || C % nH != 0 || C / nH > MAX_DH || (C / nH) % 2 != 0) return (int)cudaErrorInvalidValue;
+                                  void* scratch, int G, int N, int C, int nH, int P, float scale,
+                                  unsigned int thresh, float kept, void* stream) {
+  if (G < 1 || nH < 1 || C % nH != 0 || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  const int Dh = C / nH;
+  const long long smem = smem_bytes(N, Dh, pattern != nullptr, amask != nullptr);
+  if (smem < 0) return (int)cudaErrorInvalidValue;
   if (seed != nullptr && (amask != nullptr || nH > 256)) return (int)cudaErrorInvalidValue;
   if ((dkb_part == nullptr) != (dkbias == nullptr)) return (int)cudaErrorInvalidValue;
   if (pattern != nullptr && (P < 1 || G % P != 0 || dpat_part == nullptr || dpattern == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int Dh = C / nH;
-  const size_t smem = smem_bytes(N, Dh, pattern != nullptr);
+  if (((uintptr_t)qkv | (uintptr_t)dctx | (uintptr_t)dqkv) & 15) return (int)cudaErrorInvalidValue;
   const int optin = smem_optin();
-  if (optin < 0 || smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  static size_t attr_bytes = 0;  // above 48 KB needs the opt-in
-  if (smem > attr_bytes) {
-    cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_bytes = smem;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (optin < 0 || smem > optin) return (int)cudaErrorInvalidValue;
+  const int tiles = (N + ROWS - 1) / ROWS;
   int chunks = 1, wpb = 1, stride = G, per = 1;  // without a pattern: one group a block
   if (pattern != nullptr) {
     pattern_split(G, P, nH, &chunks, &wpb);
     stride = P;
     per = G / P;
   }
-  attention_bwd_kernel<<<dim3(nH, stride, chunks), THREADS, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(dctx),
-      static_cast<const float*>(pattern), static_cast<const float*>(kbias), static_cast<const float*>(qbias),
-      static_cast<const __nv_bfloat16*>(amask), static_cast<const int*>(seed), thresh, kept,
-      static_cast<const __nv_bfloat16*>(pstore), static_cast<__nv_bfloat16*>(dqkv), static_cast<float*>(dkb_part),
-      static_cast<float*>(dpat_part), N, C, Dh, stride, per, wpb, scale);
-  cudaError_t e = cudaGetLastError();
+  const long long dq_blocks = (long long)G * nH * tiles, dkv_blocks = (long long)tiles * nH * stride * chunks;
+  if (dq_blocks > 0x7fffffffLL || dkv_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  using cbf = const bf16*;
+  const Params p{static_cast<cbf>(qkv), static_cast<cbf>(dctx), static_cast<const float*>(pattern),
+                 static_cast<const float*>(kbias), static_cast<const float*>(qbias), static_cast<cbf>(amask),
+                 static_cast<const int*>(seed), static_cast<cbf>(pstore), static_cast<bf16*>(dqkv),
+                 static_cast<float*>(dkb_part), static_cast<float*>(dpat_part), static_cast<float*>(scratch),
+                 scratch_words(N), N, C, nH, Dh, pattern != nullptr ? P : 1, tiles,
+                 amask != nullptr && dq_mask_smem(N, Dh) > 0, stride, per, wpb, scale, thresh, kept};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nc = chunks_of(N), wide = head_cols(Dh) == 64;
+  const int q_smem = dq_smem(N, Dh) + (p.mask_staged ? dq_mask_smem(N, Dh) : 0);
+  cudaError_t e = wide ? dispatch_dq<64>(nc, p, (unsigned)dq_blocks, q_smem, s)
+                       : dispatch_dq<32>(nc, p, (unsigned)dq_blocks, q_smem, s);
+  if (e != cudaSuccess) return (int)e;
+  const int kv_smem = dkv_smem(N, Dh) + (pattern != nullptr ? pattern_smem(N) : 0);
+  e = wide ? launch_dkv<64>(p, (unsigned)dkv_blocks, kv_smem, s) : launch_dkv<32>(p, (unsigned)dkv_blocks, kv_smem, s);
   if (e != cudaSuccess) return (int)e;
   if (dkbias != nullptr) {
     sum_heads_kernel<<<(G * N + 255) / 256, 256, 0, s>>>(static_cast<const float*>(dkb_part),

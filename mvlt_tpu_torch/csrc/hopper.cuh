@@ -1,9 +1,11 @@
 // Hopper building blocks shared by the port's kernels (sm_90a), as inline PTX:
-// shared-memory addresses, mbarriers, TMA tile loads, cp.async copies, the
-// wgmma shared-memory matrix descriptor, and the wgmma products the kernels
-// issue. K1 (gemm.cu) runs a TMA + mbarrier ring into m64n128k16 products;
-// K2 (attention.cu) loads with cp.async and runs m64n32k16 (S = Q K^T, both
-// operands in shared memory) and m64n{32,64}k16 with A in registers (P V).
+// shared-memory addresses, mbarriers, TMA tile loads, cp.async copies and
+// the swizzled-row loaders of K2 and K4, the wgmma shared-memory matrix
+// descriptor, and the wgmma products the kernels issue. K1 (gemm.cu) runs a
+// TMA + mbarrier ring into m64n128k16 products; K2 (attention.cu) and K4
+// (attention_bwd.cu) load with cp.async and run m64n32k16 (S = Q K^T and
+// dP = dO V^T, both operands in shared memory) and m64n{32,64}k16 with A in
+// registers (P V; dQ = dS K, dV = P^T dO, dK = dS^T Q).
 //
 // Fragment layouts (PTX ISA, "wgmma .m64nNk16"): thread t of the warpgroup,
 // warp w = t / 32, lane l; its rows are r = 16 w + l / 4 and r + 8.
@@ -18,6 +20,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap only: the encoder is fetched from the runtime
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -88,6 +91,49 @@ __device__ __forceinline__ void cp_async_wait() {
 // the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- swizzled operand tiles (K2, K4) ----------------------------------------
+
+// threads of one warpgroup, the block of K2's and K4's kernels
+constexpr int WARPGROUP = 128;
+
+// byte offset of 16-byte chunk c of row r in a region of ROWB-byte rows that
+// starts on a 1024-byte boundary, under the ROWB-byte swizzle
+template <int ROWB>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * ROWB + ((c ^ ((r * ROWB >> 7) & (ROWB / 16 - 1))) << 4);
+}
+
+// rows first .. first + rows - 1 of one operand into swizzled shared memory;
+// rows past N and columns past Dh arrive as zeros
+template <int ROWB>
+__device__ __forceinline__ void load_rows(unsigned char* dst, const __nv_bfloat16* src, long long base, long long ld,
+                                          int first, int rows, int N, int Dh) {
+  constexpr int CH = ROWB / 16;
+  for (int e = threadIdx.x; e < rows * CH; e += WARPGROUP) {
+    const int r = e / CH, c = e % CH;
+    const int n = first + r;
+    const bool ok = n < N && c * 8 < Dh;
+    cp_async16(dst + swz<ROWB>(r, c), ok ? src + base + n * ld + c * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// the bytes [lo, hi) of device memory (in a tensor that starts on a 16-byte
+// boundary) into dst, as the 16-byte chunks that cover them: the first from
+// the aligned address at or before lo, the last cut at hi. Returns that
+// aligned address: byte b sits at dst + (b - it).
+__device__ __forceinline__ uintptr_t stage_span(unsigned char* dst, uintptr_t lo, uintptr_t hi) {
+  const uintptr_t start = lo & ~static_cast<uintptr_t>(15);
+  for (uintptr_t k = threadIdx.x * 16; start + k < hi; k += WARPGROUP * 16)
+    cp_async16(dst + k, reinterpret_cast<const void*>(start + k),
+               static_cast<uint32_t>(hi - (start + k) < 16 ? hi - (start + k) : 16));
+  return start;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
 }
 
 // ---- wgmma -------------------------------------------------------------------

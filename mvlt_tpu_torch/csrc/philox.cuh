@@ -1,6 +1,6 @@
 // Philox4x32-10 (Salmon, Moraes, Dror and Shaw, "Parallel random numbers: as
 // easy as 1, 2, 3", SC 2011), written out as a __device__ function, and the
-// attention-dropout keep test that K2 and K4 draw from it.
+// attention-dropout draw (`draw_chunk`) that K2 and K4 take from it.
 //
 // Replaces the TPU's in-kernel PRNG of `_adrop_mask`
 // (mvlt_tpu/ops/pallas_attn.py:2133), which seeds `pltpu.prng_seed` with
@@ -14,10 +14,9 @@
 // as `_adrop_mask` keeps bits < thresh. The word depends only on the seed, b,
 // h, i, j and N, never on the grid, block or tile, so K2's draw, K4's
 // regeneration and the plain PyTorch version (`adrop_mask_plain` in
-// ops/kernels.py) give bit-identical masks. K4 runs 10 rounds per element
-// (`adrop_keep`: 4 words drawn, 1 used, ~60 integer instructions a score);
-// K2 shares each call between two scores of a row (attention.cu,
-// `draw_chunk`).
+// ops/kernels.py) give bit-identical masks. K2 and K4's first pass share
+// each Philox call between two scores of a row (`draw_chunk` below); K4's
+// second pass reads the keep bits that its first pass drew.
 
 #pragma once
 
@@ -45,13 +44,37 @@ __device__ __forceinline__ uint32_t adrop_key(const int* seed) {
   return (uint32_t)seed[0] * 65536u + (uint32_t)seed[1];
 }
 
-// whether element e = i * N + j of (sample b, head h) is kept
-__device__ __forceinline__ bool adrop_keep(uint32_t key, int b, int h, uint32_t e, uint32_t thresh) {
-  const uint4 r = philox4x32_10(make_uint4(e >> 2, (uint32_t)b * 256u + (uint32_t)h, 0u, 0u),
-                                make_uint2(key, 0u));
-  const uint32_t s = e & 3u;
-  const uint32_t w = s == 0 ? r.x : (s == 1 ? r.y : (s == 2 ? r.z : r.w));
-  return w < thresh;
+// For one 32-key chunk of a thread's scores (accumulator layout, hopper.cuh): bit x set keeps element x
+// (row erow / N, column c0 + cq + col(x)). The four lanes of a row quad
+// cover 8 consecutive columns, i.e. words E0 .. E0 + 7 of the stream (E0 =
+// i * N + the quad's first column): lane q runs Philox on block E0 / 4 + q
+// and each lane takes its two words from the lanes that hold them, one
+// Philox call for two scores. Every lane of the warp takes part (the
+// shuffles); out-of-range elements are not kept and not written to mo.
+__device__ __noinline__ uint32_t draw_chunk(int c0, int erow0, int erow1, bool live0, bool live1, int cq,
+                                            int lane, int N, uint32_t key, uint32_t ctr1, uint32_t thresh,
+                                            float kept, float* mo) {
+  uint32_t keep = 0;
+#pragma unroll 1
+  for (int t = 0; t < 8; ++t) {
+    const int bb = t >> 1, hh = t & 1;
+    const int erow = hh ? erow1 : erow0, E0 = erow + c0 + 8 * bb;
+    const uint4 r = philox4x32_10(make_uint4((uint32_t)(E0 >> 2) + (lane & 3), ctr1, 0u, 0u),
+                                  make_uint2(key, 0u));
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int m = (E0 & 3) + cq + k, src = (lane & ~3) | (m >> 2);
+      const uint32_t w0 = __shfl_sync(0xffffffffu, r.x, src), w1 = __shfl_sync(0xffffffffu, r.y, src);
+      const uint32_t w2 = __shfl_sync(0xffffffffu, r.z, src), w3 = __shfl_sync(0xffffffffu, r.w, src);
+      const uint32_t w = (m & 3) == 0 ? w0 : (m & 3) == 1 ? w1 : (m & 3) == 2 ? w2 : w3;
+      const int j = c0 + 8 * bb + cq + k;
+      if ((hh ? live1 : live0) && j < N) {
+        keep |= (uint32_t)(w < thresh) << (4 * bb + 2 * hh + k);
+        if (mo) mo[erow + j] = w < thresh ? kept : 0.f;
+      }
+    }
+  }
+  return keep;
 }
 
 }  // namespace mvlt

@@ -37,7 +37,8 @@ class VisualAdapter(nn.Module):
         else:
             raise NotImplementedError(
                 f"config.conv={cfg.conv!r} is not ported yet: the ViT and "
-                "linear-patch backbones are ROADMAP.md queue A, item 13")
+                "linear-patch backbones are ROADMAP.md queue A, 'Other "
+                "backbones'")
         self.resnet_fc = None
         if self.nchw or width != hidden:
             self.resnet_fc = Dense(width, hidden, dtype=dtype, device=device)
@@ -50,7 +51,7 @@ class VisualAdapter(nn.Module):
         if image.dim() != 4 or image.dtype == torch.uint8:
             raise NotImplementedError(
                 "two-view (B, 2, C, H, W) and uint8 inputs are not ported yet "
-                "(ROADMAP.md queue A, item 4)")
+                "(ROADMAP.md queue A, 'Adapter inputs')")
         if self.nchw:
             tokens = self.backbone(image.to(self.dtype), train)
         else:

@@ -224,8 +224,20 @@ def _swin_full_block(p, x, params, bias, scale: float, num_heads: int, *,
     return out.view(BW, N, C)
 
 
+def _refuse_autograd(name: str, vjp: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when a gradient is needed through a
+    forward whose VJP the port does not have yet, on every device (the
+    kernels called through ctypes carry no ``grad_fn``)."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name} has no backward in the port: its VJP ({vjp}) is "
+            "ROADMAP.md queue A, 'Autograd through rows 1, 6 and 7'")
+
+
 def _window_block_attention(p, x, wqkv, bqkv, wproj, bproj, bias,
                             scale: float, num_heads: int, residual=None):
+    _refuse_autograd("window_block_attention", "_block_bwd, pallas_attn.py"
+                     ":2092", x, wqkv, bqkv, wproj, bproj, bias, residual)
     BW, N, C = x.shape
     qkv = p.gemm(x.reshape(BW * N, C), wqkv, bqkv)
     ctx = p.attention(qkv, num_heads, N, scale, pattern=bias)
@@ -234,6 +246,8 @@ def _window_block_attention(p, x, wqkv, bqkv, wproj, bproj, bias,
 
 
 def _fused_mlp_preln(p, x, ln2s, ln2b, w1, b1, w2, b2):
+    _refuse_autograd("fused_mlp_preln", "_mlp_preln_bwd, pallas_attn.py"
+                     ":3429", x, ln2s, ln2b, w1, b1, w2, b2)
     rows = x.reshape(-1, x.shape[-1])
     h = p.layernorm(rows, ln2s, ln2b, SWIN_LN_EPS)
     m = p.gemm(h, w1, b1, gelu=True)
@@ -376,6 +390,8 @@ def _swin_half_block(p, x, params, bias, scale: float, num_heads: int, *,
 
 
 def _attention_core(p, qkv, bias, scale: float, num_heads: int):
+    _refuse_autograd("attention_core", "JAX differentiates only "
+                     "attention_core_op, pallas_attn.py:4120", qkv, bias)
     BW, N, C3 = qkv.shape
     ctx = p.attention(qkv.reshape(BW * N, C3), num_heads, N, scale,
                       pattern=bias)
@@ -585,11 +601,9 @@ def _full_forward_windows(p, x, params, bias, scale: float, num_heads: int):
 
 def _swin_attn_half(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias,
                     scale: float, num_heads: int):
-    if _needs_grad(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias):
-        raise NotImplementedError(
-            "swin_attn_half has no backward in the port: the JAX package "
-            "reaches it only in serving (deterministic=True); its VJP "
-            "(_attn_half_bwd, pallas_attn.py:3345) is ROADMAP.md queue A")
+    _refuse_autograd("swin_attn_half", "_attn_half_bwd, pallas_attn.py:3345"
+                     "; the JAX package reaches it only in serving", x, ln1s,
+                     ln1b, wqkv, bqkv, wproj, bproj, bias)
     BW, N, C = x.shape
     rows = x.reshape(BW * N, C)
     h = p.layernorm(rows, ln1s, ln1b, SWIN_LN_EPS)

@@ -14,7 +14,9 @@ a fused epilogue; a product with no epilogue whose output tiles fill at most
 half the card runs as a deterministic split-K, as :func:`gemm_plan` cuts it
 (counted in ``gemm.splitk_launches``). K2 runs one warpgroup per 64 query
 rows of a (group, head) on ``wgmma`` (S = Q K^T and P V, the softmax in
-registers), as :func:`attention_plan` tiles it; it takes N <= 288.
+registers), as :func:`attention_plan` tiles it; it takes N <= 288. K4 runs
+the same tiles in two passes (queries, then keys; every product on
+``wgmma``), as :func:`attention_bwd_plan` tiles it, over the same N.
 
 K2 and K4 have two opt-in modes each: in-kernel attention dropout from a
 device seed (``adrop=(seed, rate)``; the Philox stream of
@@ -71,9 +73,10 @@ _SIGNATURES = {
     "mvlt_attention_smem": ([_int] * 3, _i64),
     "mvlt_smem_optin": ([], _int),
     "mvlt_layernorm": ([_vp] * 5 + [_int, _int, _float, _int, _vp], _int),
-    "mvlt_attention_bwd": ([_vp] * 13 + [_int] * 5
+    "mvlt_attention_bwd": ([_vp] * 14 + [_int] * 5
                            + [_float, _uint, _float, _vp], _int),
     "mvlt_attention_bwd_smem": ([_int] * 3, _i64),
+    "mvlt_attention_bwd_scratch": ([_int] * 2, _i64),
     "mvlt_attention_bwd_chunks": ([_int] * 3, _int),
     "mvlt_layernorm_bwd": ([_vp] * 10 + [_int, _int, _float, _int, _int, _vp],
                            _int),
@@ -572,27 +575,89 @@ def check_attention_layout(ptrs, strides) -> None:
                          f"{tuple(strides)}")
 
 
-def attention_bwd_smem_bytes(N: int, Dh: int, pattern: bool = False) -> int:
-    """Shared memory of one K4 block (``smem_bytes`` in
-    csrc/attention_bwd.cu): bf16 q, k, v and dctx rows of Dh + 2, the f32
-    p and ds tiles (N x (N + 1)) and, in pattern mode, the f32 N x N sum of
-    ds over the block's windows."""
-    return (2 * 4 * N * (Dh + 2) + 4 * 2 * N * (N + 1)
-            + (4 * N * N if pattern else 0))
+class AttentionBwdPlan(NamedTuple):
+    """How K4 runs one (N, Dh) (csrc/attention_bwd.cu), in two passes of
+    one warpgroup a block: pass 1 on ``ATTENTION_ROWS`` query rows against
+    every key, pass 2 on as many keys against every query, so ``tiles``
+    blocks of each per (group, head); ``chunks`` 32-wide chunks of the other
+    side (pass 1 keeps S over all of them in registers); rows of
+    ``head_cols`` bf16 columns in shared memory; ``dq_smem`` / ``dkv_smem``
+    bytes of shared memory a block of pass 1 / pass 2, ``mask_smem`` more
+    in pass 1 when an amask is given (its 64 rows are staged there where
+    that keeps :func:`attention_bwd_min_blocks` blocks on an SM; 0: read
+    from device memory), and ``pattern_smem`` more for pass 2's sum of ds
+    over its groups in pattern mode; ``scratch_words`` f32 words of scratch
+    per (group, head): each query's row max, row sum and rowsum(p * dp),
+    then its keep bits of the regenerated dropout, one word per 32 keys."""
+    tiles: int
+    chunks: int
+    head_cols: int
+    dq_smem: int
+    dkv_smem: int
+    mask_smem: int
+    pattern_smem: int
+    scratch_words: int
+
+
+def attention_bwd_min_blocks(chunks: int) -> int:
+    """Blocks of K4's first pass an SM keeps at ``chunks`` key chunks
+    (``dq_min_blocks`` in csrc/attention_bwd.cu: its register cap)."""
+    return 4 if chunks <= 1 else 3 if chunks <= 2 else 2
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_bwd_plan(N: int, Dh: int) -> AttentionBwdPlan:
+    """K4's tile plan for sequences of N at head dim Dh (``smem_bytes`` and
+    ``scratch_words`` in csrc/attention_bwd.cu). Raises ``ValueError``,
+    naming N and the head dim, for a head dim that is not 16, 32, 48 or 64
+    and for N outside 1 .. ``ATTENTION_MAX_N``."""
+    if not (Dh > 0 and Dh % 16 == 0 and Dh <= 64):
+        raise ValueError(
+            f"biased_attention_bwd: N={N}, head dim {Dh}: the head dim is not "
+            "a multiple of 16 up to 64 (the wgmma k16 steps over one swizzle "
+            "row)")
+    if not 0 < N <= ATTENTION_MAX_N:
+        raise ValueError(
+            f"biased_attention_bwd: N={N}, head dim {Dh} is beyond the "
+            f"kernel's N <= {ATTENTION_MAX_N} ({ATTENTION_MAX_CHUNKS} chunks "
+            f"of {ATTENTION_KEYS} keys of scores in registers)")
+    chunks = -(-N // ATTENTION_KEYS)
+    cols = 32 if Dh <= 32 else 64
+    rows = chunks * ATTENTION_KEYS
+    dq = (2 * ATTENTION_ROWS + 2 * rows) * cols * 2 + 1024
+    mask = ATTENTION_ROWS * N * 2 + 16
+    budget = (H100_SMEM_SM // attention_bwd_min_blocks(chunks)
+              - SMEM_BLOCK_RESERVED)
+    return AttentionBwdPlan(-(-N // ATTENTION_ROWS), chunks, cols, dq,
+                            dq + 6 * rows * 4,
+                            mask if dq + mask <= budget else 0,
+                            ATTENTION_ROWS * rows * 4, 3 * N + N * chunks)
+
+
+def attention_bwd_smem_bytes(N: int, Dh: int, pattern: bool = False,
+                             amask: bool = False) -> int:
+    """Shared memory of K4's larger pass (``mvlt_attention_bwd_smem``), in
+    pattern mode or not, with an amask or not; -1 where K4 does not take
+    (N, Dh)."""
+    try:
+        plan = attention_bwd_plan(N, Dh)
+    except ValueError:
+        return -1
+    return max(plan.dq_smem + (plan.mask_smem if amask else 0),
+               plan.dkv_smem + (plan.pattern_smem if pattern else 0))
 
 
 def max_attention_n(Dh: int, smem_optin: int = H100_SMEM_OPTIN, *,
                     backward: bool = False, amask: bool = False) -> int:
     """The largest N that K2 (with or without an amask; or, with
-    ``backward``, K4) admits at head dim ``Dh`` on a card whose blocks may
-    opt in to ``smem_optin`` bytes."""
-    if backward:
-        n = 0
-        while attention_bwd_smem_bytes(n + 1, Dh) <= smem_optin:
-            n += 1
-        return n
+    ``backward``, K4 in pattern mode) admits at head dim ``Dh`` on a card
+    whose blocks may opt in to ``smem_optin`` bytes."""
+    need = (functools.partial(attention_bwd_smem_bytes, pattern=True,
+                              amask=amask)
+            if backward else
+            functools.partial(attention_smem_bytes, amask=amask))
     n = 0
-    while 0 < attention_smem_bytes(n + 1, Dh, amask) <= smem_optin:
+    while 0 < need(n + 1, Dh) <= smem_optin:
         n += 1
     return n
 
@@ -618,11 +683,11 @@ def check_attention_fits(N: int, Dh: int, smem_optin: int, *,
                          amask: bool = False) -> None:
     """Raise ``ValueError`` unless K2 (with ``amask`` staging its rows; K4,
     with ``pattern`` in its pattern mode) takes (N, Dh) on a card whose
-    blocks may opt in to ``smem_optin`` bytes of shared memory: K2 by its
-    tile plan (:func:`attention_plan`), K4 by its N x N tiles in shared
-    memory."""
+    blocks may opt in to ``smem_optin`` bytes of shared memory, by its tile
+    plan (:func:`attention_plan`, :func:`attention_bwd_plan`)."""
     if backward:
-        need = attention_bwd_smem_bytes(N, Dh, pattern)
+        attention_bwd_plan(N, Dh)           # raises for what K4 cannot take
+        need = attention_bwd_smem_bytes(N, Dh, pattern, amask)
         kernel = "biased_attention_bwd"
     else:
         plan = attention_plan(N, Dh)
@@ -657,11 +722,6 @@ def _attention_geometry(qkv, num_heads: int, seq_n: int, backward: bool,
     Dh = C // num_heads
     if N <= 0 or rows % N:
         raise ValueError(f"rows {rows} not groups of N={N}")
-    if backward:
-        if Dh > 64:
-            raise ValueError(f"head dim {Dh} > 64")
-        if Dh % 2:
-            raise ValueError(f"head dim {Dh} is odd")
     check_attention_fits(N, Dh, smem_optin(qkv.device), backward=backward,
                          pattern=pattern, amask=amask)
     return rows // N, C, Dh
@@ -986,9 +1046,9 @@ def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
 
 
 def _check_stored_p(p, G: int, num_heads: int, N: int) -> None:
-    _require(p is None or tuple(p.shape) == (G, num_heads, N, N),
-             f"stored p must be ({G}, {num_heads}, {N}, {N}), got "
-             f"{None if p is None else tuple(p.shape)}")
+    if not (p is None or tuple(p.shape) == (G, num_heads, N, N)):
+        raise ValueError(f"stored p must be ({G}, {num_heads}, {N}, {N}), "
+                         f"got {tuple(p.shape)}")
 
 
 def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
@@ -996,10 +1056,11 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
                          *, adrop=None, p=None):
     """K4 wrapper; same contract as :func:`biased_attention_bwd_plain`. On
     CUDA: bf16 qkv, dctx, amask and p, f32 biases and patterns, an int32
-    device seed, an even head dim <= 64, at most 256 heads with ``adrop``,
-    and N within the card's shared memory (:func:`check_attention_fits`; N
-    <= 140 at head dim 64 on an H100). The sums over groups run in a fixed
-    order: two calls on the same inputs give bitwise-equal gradients.
+    device seed, at most 256 heads with ``adrop``, 16-byte aligned tensors,
+    and (N, head dim) within :func:`attention_bwd_plan` (N <= 288, head
+    dims 16, 32, 48, 64); anything else raises ``ValueError`` before a
+    launch. The sums over groups and heads run in a fixed order: two calls
+    on the same inputs give bitwise-equal gradients.
     ``adrop`` counts in ``adrop_launches``, ``p`` in ``stored_p_launches``,
     both also in ``launches``."""
     if not qkv.is_cuda:
@@ -1010,13 +1071,16 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
     _cuda_arg(qkv, "qkv", bf, dev, 2)
     rows, C3 = qkv.shape
     N = seq_n
-    G, C, _ = _attention_geometry(qkv, num_heads, N, backward=True,
-                                  pattern=pattern is not None)
+    G, C, Dh = _attention_geometry(qkv, num_heads, N, backward=True,
+                                   pattern=pattern is not None,
+                                   amask=amask is not None)
+    # the messages are formatted only on failure (host time per call)
     _cuda_arg(dctx, "dctx", bf, dev, 2)
-    _require(tuple(dctx.shape) == (rows, C), f"dctx must be ({rows}, {C})")
+    if tuple(dctx.shape) != (rows, C):
+        raise ValueError(f"dctx must be ({rows}, {C})")
     _cuda_arg(key_bias, "key_bias", f32, dev, 2)
-    _require(key_bias is None or tuple(key_bias.shape) == (G, N),
-             f"key_bias must be ({G}, {N})")
+    if not (key_bias is None or tuple(key_bias.shape) == (G, N)):
+        raise ValueError(f"key_bias must be ({G}, {N})")
     _cuda_masks(qbias, amask, G, num_heads, N, dev)
     _check_adrop(adrop, amask)
     seed, thresh, kept = _cuda_adrop(adrop, num_heads, dev)
@@ -1026,9 +1090,14 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
     P = 1 if pattern is None else _pattern_geometry(pattern, G, num_heads, N)
     lib = build()["attention_bwd"]
     dqkv = torch.empty((rows, C3), dtype=bf, device=dev)
+    # one f32 buffer: the head partials of dkbias (G, nH, N), then the
+    # first pass's statistics for the second (G, nH, scratch_words)
+    words = attention_bwd_plan(N, Dh).scratch_words
+    buf = torch.empty(G * num_heads * (N + words), dtype=f32, device=dev)
+    scratch = buf.data_ptr() + 4 * G * num_heads * N
     part = dkb = dpat_part = dpat = None
     if pattern is None or key_bias is not None:
-        part = torch.empty((G, num_heads, N), dtype=f32, device=dev)
+        part = buf.data_ptr()
         dkb = torch.empty((G, N), dtype=f32, device=dev)
     if pattern is not None:
         chunks = lib.mvlt_attention_bwd_chunks(G, P, num_heads)
@@ -1038,10 +1107,10 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
         dpat = torch.empty((P, num_heads, N, N), dtype=f32, device=dev)
     _check(lib.mvlt_attention_bwd(_ptr(qkv), _ptr(dctx), _ptr(pattern),
                                   _ptr(key_bias), _ptr(qbias), _ptr(amask),
-                                  _ptr(seed), _ptr(p), _ptr(dqkv), _ptr(part),
-                                  _ptr(dkb), _ptr(dpat_part), _ptr(dpat), G,
-                                  N, C, num_heads, P, float(scale), thresh,
-                                  kept, _stream(dev)),
+                                  _ptr(seed), _ptr(p), _ptr(dqkv), part,
+                                  _ptr(dkb), _ptr(dpat_part), _ptr(dpat),
+                                  scratch, G, N, C, num_heads, P,
+                                  float(scale), thresh, kept, _stream(dev)),
            "biased_attention_bwd")
     biased_attention_bwd.launches += 1
     biased_attention_bwd.adrop_launches += adrop is not None

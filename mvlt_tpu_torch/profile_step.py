@@ -45,7 +45,7 @@ OURS = "namespace)::"
 CUBLAS = ("cuBLAS products (resnet_fc, pooler, heads; Swin patch embed and "
           "merge; on 'pallas' every Swin dense layer)")
 FAMILIES = [
-    (OURS + "attention_bwd_kernel", "K4 biased_attention_bwd"),
+    (OURS + "attention_bwd_", "K4 biased_attention_bwd"),   # both passes
     (OURS + "sum_heads_kernel", "K4 biased_attention_bwd"),
     (OURS + "sum_chunks_kernel", "K4 biased_attention_bwd"),
     (OURS + "attention_wgmma_kernel", "K2 biased_attention"),

@@ -1,0 +1,166 @@
+"""K4's tile plan and admission (pure Python, as the wrapper computes them
+before a launch), the plain version at the sequence lengths the new plan
+admits (N = 221, 278: ViT-B/16 or the linear patch with BERT text) against
+JAX's ``seq_attention_core_bwd``, and the profiler's naming of K4's
+kernels.
+
+The plain version is what every CPU test and the card's checks hold K4 to;
+here it is held to ``mvlt_tpu.ops.pallas_attn.seq_attention_core_bwd`` in
+interpret mode (``_seq_core_bwd_kernel``'s f32 path) on the same float32
+inputs: the same math, so 1e-5."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mvlt_tpu.ops import pallas_attn as pa
+from mvlt_tpu_torch import profile_step
+from mvlt_tpu_torch.ops import kernels
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("N,Dh,tiles,chunks,cols", [
+    (49, 32, 1, 2, 32),        # Swin windows (every stage)
+    (74, 64, 2, 3, 64),        # BERT, VQA question 23
+    (131, 64, 3, 5, 64),       # the pretrain step, text 80
+    (221, 64, 4, 7, 64),       # 196 image tokens, text 23
+    (278, 64, 5, 9, 64),       # 196 image tokens, text 80
+    (288, 64, 5, 9, 64),       # the cap
+    (1, 16, 1, 1, 32),         # head dim 16 zero-padded to a 64-byte row
+    (96, 48, 2, 3, 64),        # head dim 48 zero-padded to a 128-byte row
+])
+def test_attention_bwd_plan_tiles(N, Dh, tiles, chunks, cols):
+    """Two passes of one warpgroup a block, ceil(N / 64) blocks of each per
+    (group, head): pass 1 on 64 query rows against ceil(N / 32) key chunks
+    (q's and dctx's 64 rows, k and v over whole chunks, 1024 bytes of
+    alignment; with an amask its 64 rows of N bf16 + 16 bytes where the
+    register cap's blocks still fit an SM, as K2 stages them), pass 2 on 64
+    keys against every query chunk (the same rows plus each query's row
+    max, row sum, its reciprocal, rowsum(p * dp) and two keep words), and
+    in pattern mode 64 keys x the queries in f32 more; the scratch holds
+    three statistics and one keep word per 32 keys for each query. Shared
+    memory grows with N Dh (and N for the mask rows), never N^2, and fits
+    the card at every N up to 288."""
+    plan = kernels.attention_bwd_plan(N, Dh)
+    rows = 32 * chunks
+    dq = (128 + 2 * rows) * cols * 2 + 1024
+    blocks = kernels.attention_bwd_min_blocks(chunks)
+    staged = dq + 128 * N + 16 <= 233472 // blocks - 1024
+    assert plan == kernels.AttentionBwdPlan(
+        tiles=tiles, chunks=chunks, head_cols=cols, dq_smem=dq,
+        dkv_smem=dq + 24 * rows, mask_smem=(128 * N + 16) * staged,
+        pattern_smem=256 * rows, scratch_words=3 * N + N * chunks)
+    assert staged == (N <= 221)     # at N = 278, 288: read score by score
+    assert kernels.attention_bwd_smem_bytes(N, Dh, amask=True) == max(
+        dq + plan.mask_smem, plan.dkv_smem)
+    assert plan.tiles * 64 >= N > (plan.tiles - 1) * 64
+    assert plan.chunks * 32 >= N > (plan.chunks - 1) * 32
+    assert kernels.attention_bwd_smem_bytes(N, Dh) == plan.dkv_smem
+    assert kernels.attention_bwd_smem_bytes(N, Dh, pattern=True) == \
+        plan.dkv_smem + plan.pattern_smem <= kernels.H100_SMEM_OPTIN
+    for pattern in (False, True):
+        kernels.check_attention_fits(N, Dh, kernels.H100_SMEM_OPTIN,
+                                     backward=True, pattern=pattern)
+    # every K4 call follows a K2 forward of the same shape: the same tiles
+    fwd = kernels.attention_plan(N, Dh)
+    assert (fwd.tiles, fwd.key_chunks, fwd.head_cols) == (tiles, chunks, cols)
+
+
+def test_attention_bwd_plan_at_the_path_shapes():
+    """The shared memory of the shapes the paths run: Swin windows (N 49,
+    head dim 32) in pattern mode, 35,328 bytes, room for six blocks an SM;
+    BERT at N 74 and 131 (head dim 64), 44,288 and 62,208 bytes; S 221 and
+    278, 80,128 and 98,048 bytes (the scalar K4 needed 509,184 and 767,280
+    there, beyond the card)."""
+    want = {(49, 32, True): 35328, (74, 64, False): 44288,
+            (131, 64, False): 62208, (221, 64, False): 80128,
+            (278, 64, False): 98048}
+    for (N, Dh, pattern), smem in want.items():
+        assert kernels.attention_bwd_smem_bytes(N, Dh, pattern) == smem
+    assert 6 * (35328 + 1024) <= kernels.H100_SMEM_SM
+    assert kernels.max_attention_n(64, backward=True) == 288
+    assert kernels.max_attention_n(32, backward=True) == 288
+
+
+@pytest.mark.parametrize("N,Dh", [(289, 64), (289, 32), (300, 16), (0, 64),
+                                  (131, 24), (49, 8), (74, 72), (74, 128)])
+def test_attention_bwd_plan_refuses(N, Dh):
+    """N above 288 (nine 32-key chunks of scores in pass 1's registers),
+    N = 0 and head dims other than 16, 32, 48 and 64 are refused before
+    any launch, with a message naming N and the head dim."""
+    with pytest.raises(ValueError, match=f"N={N}, head dim {Dh}"):
+        kernels.attention_bwd_plan(N, Dh)
+    assert kernels.attention_bwd_smem_bytes(N, Dh) == -1
+    assert kernels.attention_bwd_smem_bytes(N, Dh, pattern=True) == -1
+    with pytest.raises(ValueError, match=f"N={N}, head dim {Dh}"):
+        kernels.check_attention_fits(N, Dh, kernels.H100_SMEM_OPTIN,
+                                     backward=True)
+
+
+@pytest.mark.parametrize("symbol", [
+    "void (anonymous namespace)::attention_bwd_dq_kernel<5, 64>("
+    "(anonymous namespace)::Params)",
+    "void (anonymous namespace)::attention_bwd_dq_kernel<2, 32>("
+    "(anonymous namespace)::Params)",
+    "void (anonymous namespace)::attention_bwd_dkv_kernel<64>("
+    "(anonymous namespace)::Params)",
+    "void (anonymous namespace)::attention_bwd_dkv_kernel<32>("
+    "(anonymous namespace)::Params)",
+    "(anonymous namespace)::sum_heads_kernel(const float *, float *, int, "
+    "int, int)",
+    "(anonymous namespace)::sum_chunks_kernel(const float *, float *, int, "
+    "unsigned long)",
+])
+def test_profile_family_names_k4_kernels(symbol):
+    """``profile_step`` files both passes of K4 and its two fixed-order
+    sums under K4 (else their time would fall into "other"), and none of
+    them under K2."""
+    assert profile_step.family(symbol) == "K4 biased_attention_bwd"
+
+
+@pytest.mark.parametrize("N", [221, 278])
+@pytest.mark.parametrize("mode", ["key bias", "seq2seq"])
+def test_plain_attention_bwd_at_long_n_matches_jax(N, mode):
+    """``biased_attention_bwd_plain`` at the S of a 196-token image with
+    BERT text (23 or 80 tokens), with a padded key bias or the seq2seq mask
+    (bidirectional over the 1 + 196 + 1 image positions, causal over the
+    text; the port passes no key bias there, JAX zeros), against JAX's
+    ``seq_attention_core_bwd`` in interpret mode in float32: dqkv and
+    dkbias."""
+    rng = np.random.default_rng(N + 7 * len(mode))
+    G, nH, Dh = 2, 2, 16
+    C = nH * Dh
+    qkv = (rng.normal(size=(G, N, 3 * C)) * 0.5).astype(np.float32)
+    dctx = rng.normal(size=(G, N, C)).astype(np.float32)
+    scale = Dh ** -0.5
+    kbias = np.zeros((G, N), np.float32)
+    qbias = None
+    if mode == "key bias":
+        lengths = np.array([N, N - 37])
+        kbias = np.where(np.arange(N)[None] < lengths[:, None], 0.0,
+                         -10000.0).astype(np.float32)
+    else:
+        img = 1 + 196 + 1
+        allowed = np.tril(np.ones((N, N), bool))
+        allowed[:, :img] = True
+        allowed[:img, img:] = False
+        qbias = np.broadcast_to(np.where(allowed, 0.0, -10000.0),
+                                (G, N, N)).astype(np.float32).copy()
+    want = pa.seq_attention_core_bwd(
+        jnp.asarray(qkv), jnp.asarray(dctx), jnp.asarray(kbias),
+        None if qbias is None else jnp.asarray(qbias), None, scale, nH,
+        interpret=True)
+    args = (torch.from_numpy(qkv.reshape(G * N, 3 * C)),
+            torch.from_numpy(dctx.reshape(G * N, C)), nH, N, scale,
+            None if qbias is not None else torch.from_numpy(kbias),
+            None if qbias is None else torch.from_numpy(qbias))
+    got = kernels.biased_attention_bwd_plain(*args)
+    np.testing.assert_allclose(got[0].numpy().reshape(G, N, 3 * C),
+                               np.asarray(want[0]), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               atol=1e-5, rtol=1e-5)
+    # the CPU wrapper is the plain version
+    again = kernels.biased_attention_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))

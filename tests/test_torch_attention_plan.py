@@ -171,5 +171,5 @@ def test_profile_family_names_the_new_kernel(symbol):
     and K4's kernels stay K4's."""
     assert profile_step.family(symbol) == "K2 biased_attention"
     assert profile_step.family(
-        "void (anonymous namespace)::attention_bwd_kernel(...)") == \
-        "K4 biased_attention_bwd"
+        "void (anonymous namespace)::attention_bwd_dq_kernel<5, 64>(...)") \
+        == "K4 biased_attention_bwd"

@@ -10,6 +10,8 @@ it to the next, while the fused TPU kernel keeps it in f32 (see
 atol = 6e-2, rtol = 2e-2 (a few bf16 steps at the largest values).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -398,42 +400,49 @@ def test_fused_mlp_ln_masked_matches_jax_vjp():
 def test_attention_shared_memory_fits_every_admitted_n():
     """The shared-memory reckoning of K2 and K4 (mirrors of ``smem_bytes``
     in csrc/attention.cu and csrc/attention_bwd.cu): at head dim 64 every N
-    up to the pretrain step's 131 fits the 232,448 bytes an H100 block may
-    opt in to, and the admitted bound is exactly where the next N stops
-    being taken. K2's bound is its tile plan's (N <= 288: nine 32-key
-    chunks of scores in registers; 82,944 bytes of shared memory at N =
-    288), no longer its shared memory (the scalar kernel's N x N f32 tile
-    stopped at N = 162); on a card with less shared memory its bound is
-    again where the next N stops fitting. (K4's earlier layout, four f32 N x
-    Dh tiles, needed 4 * (2 N Dh + 2 N (Dh + 1) + 2 N (N + 1)) bytes:
-    234,112 at N = 118.)"""
+    up to 288 fits the 232,448 bytes an H100 block may opt in to, in every
+    mode. Both bounds are their tile plans' (N <= 288: nine 32-key chunks
+    of scores in registers), no longer shared memory: K2 needs 82,944 bytes
+    at N = 288; K4's two passes need O(N Dh) (58,368 / 62,208 bytes at N =
+    131, where the scalar K4's N x N f32 tiles took 207,504 and stopped at
+    N = 140), and its pattern mode's sum of ds over a block's groups adds 64
+    rows of N f32 (171,776 bytes at N = 288). On a card with less shared
+    memory the bound is again where the next N stops fitting."""
     optin, Dh = kernels.H100_SMEM_OPTIN, 64
+    bwd_pattern = functools.partial(kernels.attention_bwd_smem_bytes,
+                                    pattern=True)
     assert optin == 232448
-    for n in range(1, 132):
-        assert kernels.attention_smem_bytes(n, Dh) <= optin, n
-        assert kernels.attention_bwd_smem_bytes(n, Dh) <= optin, n
-    assert kernels.attention_bwd_smem_bytes(131, Dh) == 207504
+    for n in range(1, 289):
+        assert 0 < kernels.attention_smem_bytes(n, Dh) <= optin, n
+        assert 0 < kernels.attention_bwd_smem_bytes(n, Dh) <= optin, n
+        assert 0 < bwd_pattern(n, Dh) <= optin, n
+    assert kernels.attention_bwd_smem_bytes(131, Dh) == 62208
+    assert bwd_pattern(131, Dh) == 62208 + 40960
+    assert bwd_pattern(288, Dh) == 171776
+    assert kernels.attention_bwd_smem_bytes(289, Dh) == -1
     assert kernels.attention_smem_bytes(288, Dh) == 82944
     # an amask's rows are staged only where two blocks still fit an SM
     assert kernels.attention_smem_bytes(288, Dh, amask=True) == 82944
     assert kernels.attention_smem_bytes(131, Dh, amask=True) == 50176 + 16784
     assert kernels.attention_smem_bytes(289, Dh) == -1
-    for backward, need, top, fits in (
-            (False, kernels.attention_smem_bytes, 288, False),
-            (True, kernels.attention_bwd_smem_bytes, 140, True)):
+    for backward, need in ((False, kernels.attention_smem_bytes),
+                           (True, bwd_pattern)):
         n = kernels.max_attention_n(Dh, optin, backward=backward)
-        assert n == top
-        assert need(n, Dh) <= optin
-        assert (need(n + 1, Dh) > optin) == fits
-        kernels.check_attention_fits(n, Dh, optin, backward=backward)
+        assert n == 288
+        assert need(n, Dh) <= optin and need(n + 1, Dh) == -1
+        kernels.check_attention_fits(n, Dh, optin, backward=backward,
+                                     pattern=backward)
         with pytest.raises(ValueError, match=f"N={n + 1}, head dim 64"):
-            kernels.check_attention_fits(n + 1, Dh, optin, backward=backward)
-    need = kernels.attention_smem_bytes
-    small = need(150, Dh)
-    n = kernels.max_attention_n(Dh, small)
-    assert need(n, Dh) <= small < need(n + 1, Dh) and n >= 150
-    with pytest.raises(ValueError, match=f"N={n + 1}, head dim 64"):
-        kernels.check_attention_fits(n + 1, Dh, small)
+            kernels.check_attention_fits(n + 1, Dh, optin, backward=backward,
+                                         pattern=backward)
+    for backward, need in ((False, kernels.attention_smem_bytes),
+                           (True, bwd_pattern)):
+        small = need(150, Dh)
+        n = kernels.max_attention_n(Dh, small, backward=backward)
+        assert need(n, Dh) <= small < need(n + 1, Dh) and n >= 150
+        with pytest.raises(ValueError, match=f"N={n + 1}, head dim 64"):
+            kernels.check_attention_fits(n + 1, Dh, small, backward=backward,
+                                         pattern=backward)
 
 
 def test_gemm_plain_emask_and_layernorm_bwd_hmask():
@@ -593,3 +602,49 @@ def test_fused_half_autograd_matches_jax_vjp(half):
     for i, (tt, w) in enumerate(zip(t, want)):
         np.testing.assert_allclose(tt.grad.numpy(), w, atol=1e-4, rtol=1e-4,
                                    err_msg=f"input {i}")
+
+
+def _rows_args(rng, BW, N, C, nH, P):
+    """Seeded arguments of rows 1, 6 and 19 in float32 (weights in the
+    port's (out, in) layout)."""
+    def t(*shape, std=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * std).astype(
+            np.float32))
+    x = t(BW, N, C)
+    bias = t(P, nH, N, N, std=0.3)
+    return {
+        "window_block_attention": (
+            blocks.window_block_attention,
+            [x, t(3 * C, C, std=C ** -0.5), t(3 * C, std=0.1),
+             t(C, C, std=C ** -0.5), t(C, std=0.1), bias],
+            ((C // nH) ** -0.5, nH)),
+        "fused_mlp_preln": (
+            blocks.fused_mlp_preln,
+            [x, t(C, std=0.1) + 1.0, t(C, std=0.1), t(4 * C, C, std=C ** -0.5),
+             t(4 * C, std=0.1), t(C, 4 * C, std=(4 * C) ** -0.5),
+             t(C, std=0.1)], ()),
+        "attention_core": (
+            blocks.attention_core, [t(BW, N, 3 * C, std=0.5), bias],
+            ((C // nH) ** -0.5, nH)),
+    }
+
+
+@pytest.mark.parametrize("row", ["window_block_attention", "fused_mlp_preln",
+                                 "attention_core"])
+@pytest.mark.parametrize("grad_arg", [0, -1])
+def test_forward_without_vjp_refuses_autograd(row, grad_arg):
+    """Rows 1, 6 and 19 have no VJP in the port (ROADMAP.md queue A): under
+    autograd they raise on every device, before any kernel runs (on the
+    card the ctypes kernels would return outputs with no ``grad_fn``); with
+    no gradient asked for, the same call runs."""
+    rng = np.random.default_rng(91)
+    fn, args, extra = _rows_args(rng, 2, 16, 16, 2, 1)[row]
+    want = fn(*args, *extra)
+    assert want.grad_fn is None and torch.isfinite(want).all()
+    args[grad_arg].requires_grad_()
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue A, 'Autograd through rows 1, "
+                             "6 and 7'"):
+        fn(*args, *extra)
+    with torch.no_grad():
+        assert torch.equal(fn(*args, *extra), want)

@@ -204,3 +204,28 @@ def test_stage4_shift_is_dropped_when_map_equals_window():
             assert block.window == 7
             assert block.shift == (0 if i == 3 or j % 2 == 0 else 3)
             assert port_swin.uses_half_blocks(block.dim) == (i == 3)
+
+
+def test_adapter_refusals_name_their_roadmap_items():
+    """The adapter's two refusals cite the ROADMAP.md queue-A items by
+    name: ViT / the linear patch ('Other backbones') and two-view or uint8
+    images ('Adapter inputs')."""
+    from mvlt_tpu_torch.config import MVLTConfig as PortConfig
+    from mvlt_tpu_torch.config import SwinConfig as PortSwin
+    from mvlt_tpu_torch.models.backbones.adapter import VisualAdapter
+    from mvlt_tpu_torch.ops.blocks import PLAIN_OPS
+    cfg = PortConfig.for_vqa(result_num=10)
+    for conv in ("vit", "linear"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue A, 'Other backbones'"):
+            VisualAdapter(dataclasses.replace(cfg, conv=conv),
+                          dtype=torch.float32, device="cpu")
+    swin = PortSwin(img_size=32, patch_size=4, embed_dim=32, depths=(2, 2),
+                    num_heads=(2, 4), window_size=4, drop_path_rate=0.0)
+    adapter = VisualAdapter(dataclasses.replace(cfg, conv="swin", swin=swin),
+                            dtype=torch.float32, device="cpu")
+    for image in (torch.zeros(2, 2, 3, 32, 32),
+                  torch.zeros(2, 3, 32, 32, dtype=torch.uint8)):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue A, 'Adapter inputs'"):
+            adapter(image, PLAIN_OPS)

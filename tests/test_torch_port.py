@@ -223,11 +223,13 @@ def test_cuda_attention_bwd_and_layernorm_bwd_match_plain(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [131, 128, 37, 221, 278])
 def test_cuda_masked_attention_fwd_bwd_match_plain(cuda_device, N):
-    """K2 and K4 with a seq2seq qbias and a real dropout mask, then K4 with
-    a key bias alone, at N = 131 (the pretrain step's), 128 (the largest N
-    the earlier K4 layout claimed and could not launch) and a ragged 37;
-    K2 alone at N = 221 and 278 (a 196-token image with BERT text), where
-    K4 refuses before launching. Two K2 calls are bitwise equal."""
+    """K2 and K4 with a seq2seq qbias and a real dropout mask, then with a
+    key bias and the mask, then with a key bias alone, at N = 131 (the
+    pretrain step's), 128 (the largest N the earlier K4 layout claimed and
+    could not launch), a ragged 37, and 221 and 278 (a 196-token image with
+    BERT text), which K4 takes since its tile plan (the scalar K4 refused N
+    > 140 before launching). Two calls of K2 and of K4 are bitwise
+    equal."""
     g = torch.Generator().manual_seed(N)
     G, C, nH = 3, 128, 2
     qkv = _rnd(g, G * N, 3 * C, std=0.5, dev=cuda_device)
@@ -238,7 +240,7 @@ def test_cuda_masked_attention_fwd_bwd_match_plain(cuda_device, N):
         cuda_device, torch.bfloat16)
     kb = torch.where(torch.rand(G, N, generator=g) < 0.2, -10000.0,
                      0.0).to(cuda_device)
-    backward = N <= kernels.max_attention_n(C // nH, backward=True)
+    assert N <= kernels.max_attention_n(C // nH, backward=True)
     for kbias, qbias, amask in ((None, qb, am), (kb, None, am), (kb, None, None)):
         ctx = kernels.biased_attention(qkv, nH, N, 0.125, None, kbias, qbias,
                                        amask)
@@ -247,17 +249,15 @@ def test_cuda_masked_attention_fwd_bwd_match_plain(cuda_device, N):
               2 ** -7)
         assert torch.equal(ctx, kernels.biased_attention(
             qkv, nH, N, 0.125, None, kbias, qbias, amask))
-        if not backward:
-            with pytest.raises(ValueError, match=f"N={N}, head dim 64"):
-                kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.125, kbias,
-                                             qbias, amask)
-            continue
         got = kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.125, kbias,
                                            qbias, amask)
         want = kernels.biased_attention_bwd_plain(qkv, dctx, nH, N, 0.125,
                                                   kbias, qbias, amask)
         _near(got[0], want[0], 2 ** -7)
         _near(got[1], want[1], 1e-4)
+        again = kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.125, kbias,
+                                             qbias, amask)
+        assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     torch.cuda.synchronize()
 
 
@@ -430,10 +430,11 @@ def test_cuda_swin_vqa_loss_trains_the_backbone(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["kbias", "qbias"])
 def test_cuda_attention_adrop_matches_plain(cuda_device, mode):
-    """K2 and K4 with in-kernel dropout (a device seed, rate 0.1) at N = 131
-    and a ragged 37: K2's drawn mask bitwise equal to ``adrop_mask_plain``,
-    two calls bitwise equal, ctx and K4's gradients against the plain
-    versions, which take that mask; K2 alone at N = 221 and 278."""
+    """K2 and K4 with in-kernel dropout (a device seed, rate 0.1) at N = 131,
+    a ragged 37, and 221 and 278 (which K4 takes since its tile plan): K2's
+    drawn mask bitwise equal to ``adrop_mask_plain``, two calls bitwise
+    equal, ctx and K4's gradients (the mask regenerated) against the plain
+    versions, which take that mask."""
     g = torch.Generator().manual_seed(50)
     seed = torch.tensor([40503, 777], dtype=torch.int32, device=cuda_device)
     for N in (131, 37, 221, 278):
@@ -454,8 +455,6 @@ def test_cuda_attention_adrop_matches_plain(cuda_device, mode):
         _near(ctx, kernels.biased_attention_plain(qkv, nH, N, 0.125,
                                                   adrop=(seed, 0.1), **kw),
               2 ** -7)
-        if N > kernels.max_attention_n(C // nH, backward=True):
-            continue
         got = kernels.biased_attention_bwd(qkv, dctx, nH, N, 0.125,
                                            adrop=(seed, 0.1), **kw)
         want = kernels.biased_attention_bwd_plain(qkv, dctx, nH, N, 0.125,
