@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU (built for H100).
 
-Run from the root of a checkout: ``python3 chip_smoke.py``. It imports
-nothing of JAX and nothing of the JAX package. Phases, each of which raises
-on failure:
+Run from the root of a checkout: ``python3 chip_smoke.py``
+(``python3 chip_smoke.py --norm``: phases 1-2's build and K3 / K5 at the
+step's shapes only). It imports nothing of JAX and nothing of the JAX
+package. Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the port's CUDA kernels from ``mvlt_tpu_torch/csrc`` with
@@ -11,9 +12,13 @@ on failure:
    ``build/torch_kernels/``; print K1's SASS instruction counts (``HGMMA``
    and ``UTMALDG``: its ``wgmma`` / TMA mainloop was compiled) and its
    wrapper's host time per call, K2's (``HGMMA``: S = Q K^T and P V on
-   the tensor cores) with its wrapper's host time beside SDPA's, and K4's
+   the tensor cores) with its wrapper's host time beside SDPA's, K4's
    (``HGMMA`` and no ``HMMA`` or atomic: its five products on ``wgmma``)
-   with each template instance's registers and stack bytes;
+   with each template instance's registers and stack bytes, and K3's and
+   K5's registers, stack and spill bytes per instance, K5's atomic count
+   (0: its sums run in a fixed order) and their wrappers' host time beside
+   ``torch.sum``'s and ``F.layer_norm``'s; K3's and K5's plans in C
+   against the Python ones the wrappers allocate from, over a sweep;
 3. kernel checks: hold K1 ``gemm``, K2 ``biased_attention``, K3
    ``layernorm`` and the six forward counterparts of
    ``mvlt_tpu_torch.ops.blocks`` against their plain PyTorch versions on the
@@ -31,7 +36,7 @@ on failure:
    misaligned view) before a launch. Each is timed beside its plain
    version, the library call that computes the same function (never called
    by the port) and its bound on an H100 SXM (the larger of FLOPs / 989
-   TFLOP/s and bytes / 3.35 TB/s); K2's and K4's cases also as CUDA graphs;
+   TFLOP/s and bytes / 3.35 TB/s); K2's to K5's cases also as CUDA graphs;
 4. forward: run the flagship VQA forward (Swin-S @224 + BERT-base, bf16,
    batch 8, question length 23 with padding) through the kernels, check the
    launch counts, compare its logits with the same model on the plain
@@ -52,7 +57,12 @@ on failure:
    pattern mode (one pattern and one per window; two calls bitwise equal),
    K5's pre-LN form and the scaled column sum, and the Swin training
    counterparts (the whole / half block forward, the three backward pieces,
-   each block forward + backward); K1's products of the step at each stage
+   each block forward + backward); K3 and K5 at the step's shapes and the
+   fusion's (column sums over stage 1's, stage 3's and the fusion's
+   cotangents, the scaled one; the pre-LN LN2 / LN1 VJPs at stages 1 and 3;
+   the fusion's VJP with and without hmask; LN1 through the shift gather
+   and LN2 from the f32 res1), each also as CUDA graphs, two calls of each
+   K5 case bitwise equal; K1's products of the step at each stage
    (NT forwards, NN data gradients, TN weight gradients, the split-K ones
    bitwise equal over two calls); then the pretrain step of record
    (Swin-S @224 with DropPath 0.3 + BERT-base, S = 131, b32, dropout 0.1)
@@ -378,13 +388,14 @@ class Checker:
     def case(self, name: str, kernel_fn, plain_fn, bar: float, *,
              flops: float, nbytes: float, library_fn=None,
              floor: float = 1.0, also: tuple = (),
-             graph: bool = False) -> None:
+             graph: bool = False, label: str = "") -> None:
         """``bar`` is a multiple of the largest |value| of each plain output
         (at least ``floor``); ``flops`` / ``nbytes`` are what the function
         must do and move (each input read once, each output written once).
         The numbers are kept under ``name`` and under each row of ``also``.
         With ``graph`` the kernel and the library call are also timed as
-        CUDA graphs (``graph_ms``; printed only)."""
+        CUDA graphs (``graph_ms``; printed only). ``label`` names the case
+        in its line."""
         got, want = _tensors(kernel_fn()), _tensors(plain_fn())
         torch.cuda.synchronize()
         assert len(got) == len(want), (name, len(got), len(want))
@@ -424,7 +435,8 @@ class Checker:
                      else f"{graph_ms(library_fn):.4f} ms")
             graphs = (f"; as graphs kernel {graph_ms(kernel_fn):.4f} ms "
                       f"library {g_lib}")
-        print(f"check {name}: max_abs_err {err:.3g} kernel {ms:.4f} ms plain "
+        what = f"{name} [{label}]" if label else name
+        print(f"check {what}: max_abs_err {err:.3g} kernel {ms:.4f} ms plain "
               f"{plain_ms:.4f} ms library {lib} bound {b_ms:.4f} ms ({b_by}; "
               f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB){graphs}",
               flush=True)
@@ -599,7 +611,7 @@ def kernel_checks(chk: Checker, dev) -> None:
         chk.case("layernorm", lambda: K.layernorm(x, g, b, eps, ri),
                  lambda: K.layernorm_plain(x, g, b, eps, ri), KERNEL_BAR,
                  library_fn=lambda: F.layer_norm(x, (C,), gb, bb, eps),
-                 flops=8.0 * M * C, nbytes=nbytes(x, g, b, ri, x))
+                 flops=8.0 * M * C, nbytes=nbytes(x, g, b, ri, x), graph=True)
 
     # the six counterparts at stages 1-3 / stage 4 / BERT, batch 8
     for res, C, nH in [(56, 96, 3), (28, 192, 6), (14, 384, 12)]:
@@ -797,14 +809,16 @@ def train_kernel_checks(chk: Checker, dev) -> None:
         dr, ds, db = ln_grads()
         return dr, dr.sum(0)
 
+    lib_k5.stream = ln_grads.stream      # graph_ms captures autograd there
+
     chk.case("layernorm_bwd", lambda: K.layernorm_bwd(res, lns, g, 1e-12),
              lambda: K.layernorm_bwd_plain(res, lns, g, 1e-12), KERNEL_BAR,
              library_fn=lib_k5, floor=1e-6, flops=12.0 * M * C,
-             nbytes=nbytes(res, lns, g, res, g) + 12 * C)
+             nbytes=nbytes(res, lns, g, res, g) + 12 * C, graph=True)
     chk.case("column_sum", lambda: K.column_sum(dI),
              lambda: K.column_sum_plain(dI), KERNEL_BAR, floor=1e-6,
              library_fn=lambda: torch.sum(dI, 0, dtype=f32),
-             flops=1.0 * M * I, nbytes=nbytes(dI) + 4 * I)
+             flops=1.0 * M * I, nbytes=nbytes(dI) + 4 * I, graph=True)
 
     # the MLP-half VJP at the train shapes; library: the autograd backward
     # of the same forward built from F.linear / F.gelu / F.layer_norm in bf16
@@ -987,11 +1001,13 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
         da = dr * hmask
         return dr, da, da.sum(0)
 
+    lib_k5.stream = ln_grads.stream
+
     chk.case("layernorm_bwd",
              lambda: K.layernorm_bwd(res, lns, g, 1e-12, hmask=hmask),
              lambda: K.layernorm_bwd_plain(res, lns, g, 1e-12, hmask=hmask),
              KERNEL_BAR, library_fn=lib_k5, floor=1e-6, flops=14.0 * M * C,
-             nbytes=nbytes(res, lns, g, hmask, res, g) + 12 * C)
+             nbytes=nbytes(res, lns, g, hmask, res, g) + 12 * C, graph=True)
 
     # the masked forward counterparts (B, S, C); library: F.linear, the
     # masked attention above, F.layer_norm, in bf16
@@ -1193,6 +1209,8 @@ def swin_kernel_checks(chk: Checker, dev) -> None:
                 da = dr if rs is None else dr * r1
                 return dr, da, da.sum(0)
 
+            lib_k5.stream = ln_grads.stream
+
             kw = dict(gres=gres, row_scale=rs, out_dtype=bf)
             chk.case("layernorm_bwd",
                      lambda r_=r_, gam=gam, kw=kw: K.layernorm_bwd(
@@ -1201,11 +1219,13 @@ def swin_kernel_checks(chk: Checker, dev) -> None:
                          r_, gam, dh, 1e-5, **kw),
                      KERNEL_BAR, library_fn=lib_k5, floor=1e-6,
                      flops=16.0 * M * C,
-                     nbytes=nbytes(r_, gam, dh, gres, rs) + 6 * M * C + 12 * C)
+                     nbytes=nbytes(r_, gam, dh, gres, rs) + 6 * M * C + 12 * C,
+                     graph=True)
         chk.case("column_sum", lambda: K.column_sum(gb, row_scale=dp2),
                  lambda: K.column_sum_plain(gb, row_scale=dp2), KERNEL_BAR,
                  floor=1e-6, library_fn=lambda: (gb.float() * r2).sum(0),
-                 flops=2.0 * M * C, nbytes=nbytes(gb, dp2, gb) + 4 * C)
+                 flops=2.0 * M * C, nbytes=nbytes(gb, dp2, gb) + 4 * C,
+                 graph=True)
 
         # the backward pieces; library: autograd backwards of the bf16
         # F.layer_norm / F.linear / F.gelu compositions they differentiate
@@ -1281,6 +1301,158 @@ def swin_kernel_checks(chk: Checker, dev) -> None:
             check_block_grads(fn, fn_plain, xw, params, pat, g.view(BW, N, C),
                               f"{name} ({tag})", scale=sc, num_heads=nH,
                               shift_spec=spec, dp=dp)
+
+
+def norm_kernel_checks(chk: Checker, dev) -> None:
+    """K3 and K5 at the shapes at which the Swin-S pretrain step of record
+    (b32) and its fusion encoder (B*S = 32*131 rows, C 768, I 3072) call
+    them, each also timed as CUDA graphs beside the library call:
+    ``column_sum`` over stage 1's da1 (M, 4C) and dqkv (M, 3C), stage 3's
+    da1, the fusion's dqkv and da1, and stage 1's g2 scaled by the (B,)
+    DropPath multipliers; ``layernorm_bwd`` in the Swin blocks' pre-LN
+    forms at stages 1 and 3 (LN2: f32 res1, f32 dh2, the bf16 block
+    cotangent as gres, da scaled by dp1; LN1: bf16 x, f32 dh1, f32 dres1 as
+    gres, no dres) and in the fusion's hmask form; ``layernorm`` as the
+    step calls it (stage 1's LN1 through the shift gather, LN2 from the f32
+    res1 at stages 1 and 3, the fusion's LN of its f32 res)."""
+    import inspect
+    from mvlt_tpu_torch.ops import blocks
+    from mvlt_tpu_torch.ops import kernels as K
+
+    inp = Inputs(dev, seed=9)
+    rnd, ln = inp.rnd, inp.ln
+    bf, f32 = torch.bfloat16, torch.float32
+    B = TRAIN_BATCH
+    stages = {"stage 1": (B * 56 * 56, 96), "stage 3": (B * 14 * 14, 384)}
+    repeated = []
+
+    def repeat(what, fn):
+        """Two more calls of a K5 case are bitwise equal."""
+        one, two = _tensors(fn()), _tensors(fn())
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(one, two)):
+            raise AssertionError(f"K5 ({what}) is not bitwise reproducible")
+        repeated.append(what)
+
+    (M1, C1), (M3, C3) = stages["stage 1"], stages["stage 3"]
+    MF, CF, IF = B * (1 + 49 + 1 + PRETRAIN_TEXT), 768, 3072
+    # K5 of a tree from before ``dres=False`` writes the LN1 form's dres
+    ln1_kw = (dict(dres=False) if "dres" in
+              inspect.signature(K.layernorm_bwd).parameters else {})
+
+    # column_sum; library: torch.sum in f32 (scaled: (x * s).sum)
+    for label, shape in (("stage-1 da1", (M1, 4 * C1)),
+                         ("stage-1 dqkv", (M1, 3 * C1)),
+                         ("stage-3 da1", (M3, 4 * C3)),
+                         ("fusion dqkv", (MF, 3 * CF)),
+                         ("fusion da1", (MF, IF))):
+        x = rnd(*shape, std=0.1)
+        chk.case("column_sum", lambda x=x: K.column_sum(x),
+                 lambda x=x: K.column_sum_plain(x), KERNEL_BAR, floor=1e-6,
+                 library_fn=lambda x=x: torch.sum(x, 0, dtype=f32),
+                 flops=1.0 * x.numel(), nbytes=nbytes(x) + 4 * shape[1],
+                 graph=True, label=label)
+        repeat(f"column_sum, {label}", lambda x=x: K.column_sum(x))
+        del x
+    g2, dp2 = rnd(M1, C1), _swin_dp(inp, dev, B)
+    r2 = dp2.repeat_interleave(M1 // B)[:, None]
+    chk.case("column_sum", lambda: K.column_sum(g2, row_scale=dp2),
+             lambda: K.column_sum_plain(g2, row_scale=dp2), KERNEL_BAR,
+             floor=1e-6, library_fn=lambda: (g2.float() * r2).sum(0),
+             flops=2.0 * M1 * C1, nbytes=nbytes(g2, dp2, g2) + 4 * C1,
+             graph=True, label="stage-1 g2 * dp2")
+    repeat("column_sum, stage-1 g2 * dp2",
+           lambda: K.column_sum(g2, row_scale=dp2))
+
+    # layernorm_bwd; library: autograd's LN backward + gres (· dp1)
+    for stage, (M, C) in stages.items():
+        dp1 = _swin_dp(inp, dev, B)
+        r1 = dp1.repeat_interleave(M // B)[:, None]
+        x, res1 = rnd(M, C), rnd(M, C, std=2.0, dtype=f32)
+        gb, dh = rnd(M, C), rnd(M, C, dtype=f32)
+        dres1 = rnd(M, C, std=0.1, dtype=f32)
+        for form, r_, gam, gres, rs, extra in (
+                ("LN2", res1, ln(C), gb, dp1, {}),
+                ("LN1", x, ln(C), dres1, None, ln1_kw)):
+            grads = library_backward(
+                lambda a_, s_, b_, C=C: F.layer_norm(a_, (C,), s_, b_, 1e-5),
+                (r_.float(), *gam), dh)
+
+            def lib(grads=grads, gres=gres, rs=rs, r1=r1):
+                dr = grads()[0] + gres
+                da = dr if rs is None else dr * r1
+                return da, da.sum(0)
+
+            lib.stream = grads.stream    # graph_ms captures autograd there
+
+            kw = dict(gres=gres, row_scale=rs, out_dtype=bf, **extra)
+            writes = 2 * M * C + (4 * M * C if form == "LN2" else 0)
+            chk.case("layernorm_bwd",
+                     lambda r_=r_, gam=gam, kw=kw: K.layernorm_bwd(
+                         r_, gam[0], dh, 1e-5, **kw),
+                     lambda r_=r_, gam=gam, kw=kw: K.layernorm_bwd_plain(
+                         r_, gam[0], dh, 1e-5, **kw),
+                     KERNEL_BAR, library_fn=lib, floor=1e-6,
+                     flops=16.0 * M * C,
+                     nbytes=nbytes(r_, gam[0], dh, gres, rs) + writes + 12 * C,
+                     graph=True, label=f"{stage} {form}")
+            repeat(f"layernorm_bwd, {stage} {form}",
+                   lambda r_=r_, gam=gam, kw=kw: K.layernorm_bwd(
+                       r_, gam[0], dh, 1e-5, **kw))
+    res, g = rnd(MF, CF, std=2.0, dtype=f32) + 0.3, rnd(MF, CF)
+    lns, lnb = ln(CF)
+    hmask = ((torch.rand(MF, CF, generator=inp.gen) < 0.9).to(bf)
+             / 0.9).to(dev)
+    grads = library_backward(
+        lambda r, s_, b_: F.layer_norm(r, (CF,), s_, b_, 1e-12),
+        (res, lns, lnb), g.float())
+
+    # the pretrain step's form (hmask) and the VQA step's (no mask)
+    for label, hm in (("fusion, hmask", hmask), ("fusion, no mask", None)):
+        def lib_fusion(hm=hm):
+            dr = grads()[0]
+            da = dr if hm is None else dr * hm
+            return dr, da, da.sum(0)
+
+        lib_fusion.stream = grads.stream
+        chk.case("layernorm_bwd",
+                 lambda hm=hm: K.layernorm_bwd(res, lns, g, 1e-12, hmask=hm),
+                 lambda hm=hm: K.layernorm_bwd_plain(res, lns, g, 1e-12,
+                                                     hmask=hm),
+                 KERNEL_BAR, library_fn=lib_fusion, floor=1e-6,
+                 flops=(14.0 if hm is not None else 12.0) * MF * CF,
+                 nbytes=nbytes(res, lns, g, hm, res, g) + 12 * CF,
+                 graph=True, label=label)
+        repeat(f"layernorm_bwd, {label}",
+               lambda hm=hm: K.layernorm_bwd(res, lns, g, 1e-12, hmask=hm))
+    print(f"K5, two calls bitwise equal at each step shape and mode: "
+          f"{repeated}", flush=True)
+
+    # layernorm; library: F.layer_norm, without the gather (gamma / beta in
+    # x's dtype, which it also writes: f32 from the f32 res)
+    si = blocks._shift_index(B, 56, 56, 7, 3, dev)
+    for label, x, ri, eps in (
+            ("stage-1 LN1, shift gather", rnd(M1, C1, std=2.0) + 0.5, si,
+             1e-5),
+            ("stage-1 LN2, f32 res1", rnd(M1, C1, std=2.0, dtype=f32) + 0.5,
+             None, 1e-5),
+            ("stage-3 LN2, f32 res1", rnd(M3, C3, std=2.0, dtype=f32) + 0.5,
+             None, 1e-5),
+            ("fusion, f32 res", rnd(MF, CF, std=2.0, dtype=f32) + 0.3, None,
+             1e-12)):
+        M, C = x.shape
+        g, b = ln(C)
+        lg, lb = (g, b) if x.dtype == f32 else bf16_ln(g, b)
+        chk.case("layernorm",
+                 lambda x=x, g=g, b=b, ri=ri, eps=eps: K.layernorm(
+                     x, g, b, eps, ri, out_dtype=bf),
+                 lambda x=x, g=g, b=b, ri=ri, eps=eps: K.layernorm_plain(
+                     x, g, b, eps, ri, out_dtype=bf),
+                 KERNEL_BAR,
+                 library_fn=lambda x=x, g=lg, b=lb, eps=eps: F.layer_norm(
+                     x, (x.shape[1],), g, b, eps),
+                 flops=8.0 * M * C, nbytes=nbytes(x, g, b, ri) + 2 * M * C,
+                 graph=True, label=label)
 
 
 def lib_dropout_attention(qkv, G, N, nH, mask, scale, rate):
@@ -2023,6 +2195,117 @@ def k4_report(dev) -> None:
           f"K4 biased_attention_bwd {us:.2f} us", flush=True)
 
 
+def k5_report(dev) -> None:
+    """Print what K3's and K5's libraries were compiled to: per template
+    instance (``<lanes, chunks>``) and kernel, its registers, stack and
+    local (spill) bytes a thread (``cuobjdump -res-usage``); K5's SASS count
+    of atomics (ATOM / RED, f32 or not), which it must not use (its sums run
+    in a fixed order); then the wrappers' host time per call at a small
+    shape beside ``torch.sum``'s and ``F.layer_norm``'s."""
+    import re
+    from mvlt_tpu_torch.ops import kernels as K
+    tool = pathlib.Path(K._nvcc()).with_name("cuobjdump")
+    libs = K.build()
+    for name, kern in (("K3", "layernorm"), ("K5", "layernorm_bwd")):
+        path = libs[kern]._name
+        try:
+            usage = subprocess.run([str(tool), "-res-usage", path],
+                                   capture_output=True, text=True,
+                                   timeout=120).stdout
+            found = re.findall(r"((?:ln_bwd|colsum|fold|layernorm)_kernel)"
+                               r"(?:ILi(\d+)ELi(\d+)E)?\S*\s+"
+                               r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)",
+                               usage)
+            regs = {(f"{k}<{g}, {j}>" if g else k): tuple(map(int, rest))
+                    for k, g, j, *rest in found}
+            sass = subprocess.run([str(tool), "-sass", path],
+                                  capture_output=True, text=True,
+                                  timeout=120).stdout
+            atoms = len(re.findall(r"\b(?:ATOM|ATOMG|ATOMS|RED)\.\S*", sass))
+            f32 = len(re.findall(r"\b(?:ATOM|ATOMG|ATOMS|RED)\.\S*F32", sass))
+        except (OSError, subprocess.SubprocessError) as e:
+            regs, atoms, f32 = f"not read ({e})", None, None
+        print(f"{name} registers, stack, local bytes a thread per instance "
+              f"({tool.name} -res-usage {pathlib.Path(path).name}): {regs}",
+              flush=True)
+        print(f"{name} SASS atomics: {atoms} (f32: {f32})", flush=True)
+        if atoms:
+            raise AssertionError(f"{name} was compiled with {atoms} atomics")
+    bf = torch.bfloat16
+    x = torch.randn(64, 96, device=dev)
+    g = torch.randn(64, 96, device=dev).to(bf)
+    gam, beta = torch.ones(96, device=dev), torch.zeros(96, device=dev)
+    us = {}
+    for name, fn in (
+            ("K5 layernorm_bwd", lambda: K.layernorm_bwd(x, gam, g, 1e-5)),
+            ("K5 column_sum", lambda: K.column_sum(g)),
+            ("torch.sum", lambda: torch.sum(g, 0, dtype=torch.float32)),
+            ("K3 layernorm", lambda: K.layernorm(x, gam, beta, 1e-5,
+                                                 out_dtype=bf)),
+            ("F.layer_norm", lambda: F.layer_norm(x, (96,), gam, beta))):
+        for _ in range(200):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        us[name] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    print("host time per call at (64, 96), 2000 enqueues: "
+          + ", ".join(f"{k} {v:.2f} us" for k, v in us.items()), flush=True)
+
+
+def norm_plan_checks() -> None:
+    """K3's and K5's plans in C (``mvlt_layernorm_plan``,
+    ``mvlt_layernorm_bwd_plan``, ``mvlt_column_sum_plan``) equal the Python
+    ones the wrappers allocate from, over a sweep of rows and widths (every
+    C up to one past each cap, every N up to 4100 at a stride) at 132 SMs
+    and at this card's count; both refuse the same shapes."""
+    import ctypes
+    from mvlt_tpu_torch.ops import kernels as K
+    libs = K.build()
+    out = (ctypes.c_int * 8)()
+    sms_list = sorted({K.H100_SMS, K._sm_count(0)})
+
+    def c_plan(fn, *args, n):
+        rc = fn(*args, out)
+        return None if rc != 0 else tuple(out[:n])
+
+    def py_plan(fn, *args, n):
+        try:
+            return tuple(int(v) for v in fn(*args)[:n])
+        except ValueError:
+            return None
+
+    rows = (1, 2, 7, 31, 32, 33, 49, 127, 128, 129, 1000, 2368, 4192, 6272,
+            25088, 100352, 131072)
+    count = 0
+    for M in rows:
+        for C in range(0, K.LAYERNORM_MAX_C + 2):
+            want = py_plan(K.layernorm_plan, M, C, n=5)
+            got = c_plan(libs["layernorm"].mvlt_layernorm_plan, M, C, n=5)
+            assert got == want, ("layernorm", M, C, got, want)
+            count += 1
+            if C > K.LAYERNORM_BWD_MAX_C + 1:
+                continue
+            for sms in sms_list:
+                want = py_plan(K.layernorm_bwd_plan, M, C, sms, n=6)
+                got = c_plan(libs["layernorm_bwd"].mvlt_layernorm_bwd_plan,
+                             M, C, sms, n=6)
+                assert got == want, ("layernorm_bwd", M, C, sms, got, want)
+                count += 1
+        for N in (*range(0, 300), *range(300, 4101, 7), 4608):
+            for sms in sms_list:
+                want = py_plan(K.column_sum_plan, M, N, sms, n=5)
+                got = c_plan(libs["layernorm_bwd"].mvlt_column_sum_plan, M, N,
+                             sms, n=5)
+                assert got == want, ("column_sum", M, N, sms, got, want)
+                count += 1
+    print(f"K3 / K5 plans in C and Python agree on {count} shapes (M in "
+          f"{rows[0]} .. {rows[-1]}, SMs {sms_list}), refusals included",
+          flush=True)
+
+
 def k1_report(dev) -> None:
     """Print what K1's library was compiled to (its SASS instruction counts:
     HGMMA is ``wgmma``, UTMALDG a TMA load; HMMA / LDSM would be the
@@ -2196,15 +2479,17 @@ def backbone_route(attn_impl: str):
         swin.SwinTransformer, attn_impl=attn_impl))
 
 
-def main() -> int:
+def start():
+    """Phases 1-2: ``(device, card line)`` after the kernels are built, or
+    None (printed why) without a card or beside no port package."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+        return None
     if not (REPO / "mvlt_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: no mvlt_tpu_torch package beside {__file__}; "
               "run it from the root of a checkout", file=sys.stderr)
-        return 1
+        return None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -2217,10 +2502,31 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dev, card
+
+
+def norm_main() -> int:
+    """``python3 chip_smoke.py --norm``: only K3 / K5 at the step's shapes
+    (``norm_kernel_checks``), to time one tree's K3 / K5 against
+    another's in turns (``scripts/norm_turns.sh``)."""
+    started = start()
+    if started is None:
+        return 1
+    norm_kernel_checks(Checker(), started[0])
+    return 0
+
+
+def main() -> int:
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
 
     k1_report(dev)
     k2_report(dev)
     k4_report(dev)
+    k5_report(dev)
+    norm_plan_checks()
 
     chk = Checker()
     kernel_checks(chk, dev)
@@ -2230,6 +2536,7 @@ def main() -> int:
     attention_repeat_checks(dev)
     attention_bwd_repeat_checks(dev)
     swin_kernel_checks(chk, dev)
+    norm_kernel_checks(chk, dev)
     swin_gemm_checks(chk, dev)
     optin_kernel_checks(chk, dev)
     attn_impl_kernel_checks(chk, dev)
@@ -2627,4 +2934,4 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(norm_main() if sys.argv[1:] == ["--norm"] else main())

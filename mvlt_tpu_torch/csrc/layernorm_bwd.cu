@@ -17,9 +17,9 @@
 //   da   = dres * hmask * S[m / s_div]   (optional bf16 hidden-dropout mask and f32 row
 //                                         scale, the DropPath multiplier dp1; da = dres
 //                                         without them)
-// with the f32 dres (for the residual path), an optional bf16 copy of da (the
-// cotangent of the proj / fc2 output, or the block's dx), and the column sums
-// over rows
+// with the f32 dres (for the residual path; optional: LN1's VJP has no use
+// for it), a bf16 copy of da (the cotangent of the proj / fc2 output, or the
+// block's dx), and the column sums over rows
 //   dgamma = sum g * xhat,  dbeta = sum g,  db = sum da   (the fc2 / proj bias grad:
 //   `da` / `dbproj` at pallas_attn.py:2651,2663,1973 and `dmlp` / `db2` at :2984,2989).
 // `column_sum` is the plain column sum of a bf16 or f32 (M, N) matrix (db1 over
@@ -27,159 +27,83 @@
 // x * S[m / s_div] and writes that product as a bf16 copy (dmlp = g * dp2 and
 // db2 of `_swin_mlp_bwd_kernel` :1685-1690).
 //
-// Bound: memory. One warp per row holds the row in registers (C / 32 values
-// a lane), so res and g are read once and dres written once. The cross-row
-// sums are deterministic: each block folds its warps' sums in a fixed order
-// into one partial row of a scratch, and a second kernel sums the partials
-// column by column. No atomics.
+// Bound: memory, a few flops a byte (12-16 bytes an element for the VJP, 2-4
+// for the column sum). What the design does about it:
+// - 16-byte accesses (norm.cuh): a row group of lanes sized to C reads each
+//   row once into registers, every load of a row issued before the first is
+//   used, and writes dres / da in 16-byte words; C = 96 / 192 / 384 take 8 /
+//   4 / 2 rows a warp with no idle slot. C % 8 != 0 runs element by element.
+// - Few partial rows: ln_bwd_kernel is persistent (one wave of blocks, as
+//   many as the register cap lets sit on the card), each block keeps its
+//   column sums in registers over all its rows and folds them once at the
+//   end (the row groups by shuffles, the warps through shared memory), into
+//   one partial row of the scratch.
+// - column_sum as 2-D tiles: a block owns a strip of 8-column chunks and a
+//   run of rows, 256 threads reading 16 bytes each, four rows' loads in
+//   flight a thread; the grid is sized from the SM count so that four
+//   blocks sit on each SM, in one wave; the row lanes fold in shared memory in a fixed
+//   tree into one partial row per run.
+// - fold_kernel sums the partial rows, each column spread over 32 warps.
+// Every sum runs in an order that the plan alone fixes (no atomics), so two
+// calls on the same inputs are bitwise equal. The plans are mirrored in
+// mvlt_tpu_torch/ops/kernels.py (`layernorm_bwd_plan`, `column_sum_plan`);
+// the launches refuse a scratch sized for another plan.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "norm.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int RPW = 2;  // rows per warp
-constexpr int ROWS_PER_BLOCK = WARPS * RPW;
-
-// out[c] = sum over the block's warps, in order, of their acc[c]
-template <int CPL>
-__device__ __forceinline__ void fold(float (*red)[CPL * 32], const float (&acc)[CPL], float* out, int C) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int t = 0; t < CPL; ++t) red[warp][t * 32 + lane] = acc[t];
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += WARPS * 32) {
-    float v = 0.f;
-    for (int w = 0; w < WARPS; ++w) v += red[w][c];
-    out[c] = v;
-  }
-  __syncthreads();
-}
+using namespace mvlt;
 
 // flags of the pre-LN form
 constexpr int RES_BF16 = 1, G_F32 = 2, GRES_F32 = 4;
 
-__device__ __forceinline__ float load(const void* p, size_t i, bool f32) {
-  return f32 ? static_cast<const float*>(p)[i] : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+constexpr int LN_BWD_MAX_C = 1024;  // four chunks a lane: the register cap
+constexpr int COLSUM_THREADS = 256;
+constexpr int COLSUM_BLOCKS_PER_SM = 4;
+constexpr int COLSUM_UNROLL = 4;  // rows' loads in flight a thread
+constexpr int FOLD_WARPS = 32;  // warps a column strip of the fold: rows in flight
+
+// blocks of ln_bwd_kernel<lanes, chunks> that sit on one SM: the register cap
+// of its launch bounds (170 registers a thread at 3, 255 at 2)
+constexpr int ln_bwd_blocks_per_sm(int chunks) { return chunks <= 3 ? 3 : 2; }
+
+struct LnBwdPlan {
+  RowPlan rows;
+  int passes, blocks;  // passes of rows_per_block rows; blocks = partial rows
+};
+
+LnBwdPlan ln_bwd_plan(int M, int C, int sms) {
+  LnBwdPlan p{row_plan(C, LN_BWD_MAX_C), 0, 0};
+  if (p.rows.lanes == 0 || M < 1 || sms < 1) return LnBwdPlan{RowPlan{0, 0, 0, 0}, 0, 0};
+  p.passes = (M + p.rows.rows_per_block - 1) / p.rows.rows_per_block;
+  int cap = ln_bwd_blocks_per_sm(p.rows.chunks) * sms;
+  p.blocks = p.passes < cap ? p.passes : cap;
+  return p;
 }
 
-template <int CPL>
-__global__ void __launch_bounds__(WARPS * 32)
-ln_bwd_kernel(const void* __restrict__ res, const float* __restrict__ gamma, const void* __restrict__ g,
-              const __nv_bfloat16* __restrict__ hmask, const void* __restrict__ gres,
-              const float* __restrict__ rscale, float* __restrict__ dres, __nv_bfloat16* __restrict__ dres_bf,
-              float* __restrict__ part, int M, int C, float eps, int flags, int s_div) {
-  __shared__ float red[WARPS][CPL * 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float invC = 1.0f / (float)C;
+struct ColsumPlan {
+  int strip_chunks, strips, row_chunks, rows, vec;  // strip_chunks == 0: refused
+};
 
-  float gam[CPL], acc_g[CPL], acc_b[CPL], acc_d[CPL];
-#pragma unroll
-  for (int t = 0; t < CPL; ++t) {
-    int c = t * 32 + lane;
-    gam[t] = c < C ? gamma[c] : 0.f;
-    acc_g[t] = acc_b[t] = acc_d[t] = 0.f;
-  }
-
-  // a grid-stride loop over groups of ROWS_PER_BLOCK rows: the grid is capped
-  // (mvlt_layernorm_bwd_blocks), so the partial sums stay few at any M
-  for (int m0 = blockIdx.x * ROWS_PER_BLOCK; m0 < M; m0 += gridDim.x * ROWS_PER_BLOCK)
-  for (int k = 0; k < RPW; ++k) {
-    const int m = m0 + k * WARPS + warp;
-    if (m >= M) break;
-    const size_t row = (size_t)m * C;
-    float x[CPL], gv[CPL];
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < CPL; ++t) {
-      int c = t * 32 + lane;
-      x[t] = c < C ? load(res, row + c, !(flags & RES_BF16)) : 0.f;
-      gv[t] = c < C ? load(g, row + c, flags & G_F32) : 0.f;
-      sum += x[t];
-    }
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float mu = sum * invC;
-    float sq = 0.f;
-#pragma unroll
-    for (int t = 0; t < CPL; ++t) {
-      float d = t * 32 + lane < C ? x[t] - mu : 0.f;
-      sq += d * d;
-    }
-    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    const float r = rsqrtf(sq * invC + eps);
-    float sdx = 0.f, sdxx = 0.f;
-#pragma unroll
-    for (int t = 0; t < CPL; ++t) {
-      x[t] = (x[t] - mu) * r;  // xhat
-      float dxh = gv[t] * gam[t];
-      sdx += dxh;
-      sdxx += dxh * x[t];
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      sdx += __shfl_xor_sync(0xffffffffu, sdx, o);
-      sdxx += __shfl_xor_sync(0xffffffffu, sdxx, o);
-    }
-    const float mdx = sdx * invC, mdxx = sdxx * invC;
-    const float rs = rscale ? rscale[m / s_div] : 1.f;
-#pragma unroll
-    for (int t = 0; t < CPL; ++t) {
-      int c = t * 32 + lane;
-      if (c >= C) continue;
-      float d = r * (gv[t] * gam[t] - mdx - x[t] * mdxx);
-      if (gres) d += load(gres, row + c, flags & GRES_F32);
-      dres[row + c] = d;
-      if (hmask) d *= __bfloat162float(hmask[row + c]);
-      if (rscale) d *= rs;
-      if (dres_bf) dres_bf[row + c] = __float2bfloat16(d);
-      acc_g[t] += gv[t] * x[t];
-      acc_b[t] += gv[t];
-      acc_d[t] += d;
-    }
-  }
-
-  // fold the warps' sums in a fixed order: one partial row per block and sum
-  float* out = part + (size_t)blockIdx.x * 3 * C;
-  fold<CPL>(red, acc_g, out, C);
-  fold<CPL>(red, acc_b, out + C, C);
-  fold<CPL>(red, acc_d, out + 2 * C, C);
-}
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// part[chunk, c] = sum of x[r, c] (times S[r / s_div], also written to xs) over the rows of the chunk
-template <typename T>
-__global__ void colsum_kernel(const T* __restrict__ x, const float* __restrict__ rscale,
-                              __nv_bfloat16* __restrict__ xs, float* __restrict__ part, int M, int N, int rows,
-                              int s_div) {
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= N) return;
-  int r0 = blockIdx.y * rows, r1 = min(M, r0 + rows);
-  float v = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    float e = to_f(x[(size_t)r * N + c]);
-    if (rscale) {
-      e *= rscale[r / s_div];
-      xs[(size_t)r * N + c] = __float2bfloat16(e);
-    }
-    v += e;
-  }
-  part[(size_t)blockIdx.y * N + c] = v;
-}
-
-// out[c] = sum over p of part[p, c], in order
-__global__ void reduce_kernel(const float* __restrict__ part, float* __restrict__ out, int P, int W) {
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= W) return;
-  float v = 0.f;
-  for (int p = 0; p < P; ++p) v += part[(size_t)p * W + c];
-  out[c] = v;
+// strip_chunks: the largest power of two that divides the 8-column chunk
+// count, at most 32 (a strip of 256 columns); row chunks: as many runs of
+// rows as keep the grid within COLSUM_BLOCKS_PER_SM blocks an SM (one wave:
+// a block past it would run alone after the rest), each run at least one
+// pass of the block's row lanes with all its loads in flight, none empty
+ColsumPlan colsum_plan(int M, int N, int sms) {
+  if (M < 1 || N < 1 || sms < 1) return ColsumPlan{0, 0, 0, 0, 0};
+  const int n = (N + NORM_VEC - 1) / NORM_VEC;
+  int sc = n & -n;
+  if (sc > 32) sc = 32;
+  const int strips = n / sc;
+  const int per_pass = COLSUM_THREADS / sc * COLSUM_UNROLL;
+  int chunks = COLSUM_BLOCKS_PER_SM * sms / strips;
+  if (chunks < 1) chunks = 1;
+  const int most = (M + per_pass - 1) / per_pass;
+  if (chunks > most) chunks = most;
+  const int rows = (M + chunks - 1) / chunks;
+  return ColsumPlan{sc, strips, (M + rows - 1) / rows, rows, N % NORM_VEC == 0};
 }
 
 struct LnBwd {
@@ -190,83 +114,340 @@ struct LnBwd {
   const void* gres;
   const float* rscale;
   float* dres;
-  __nv_bfloat16* dres_bf;
+  __nv_bfloat16* da;
   float* part;
   int M, C;
   float eps;
-  int flags, s_div;
+  int flags, s_div, vec, passes;
 };
 
-// blocks of ln_bwd_kernel: one per ROWS_PER_BLOCK rows, at most 8 per SM of an H100
-int ln_bwd_blocks(int M) {
-  int blocks = (M + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  return blocks < 8 * 132 ? blocks : 8 * 132;
+template <int G, int J>
+__global__ void __launch_bounds__(NORM_WARPS * 32, ln_bwd_blocks_per_sm(J)) ln_bwd_kernel(const LnBwd a) {
+  constexpr int RPW = 32 / G;  // rows a warp holds at once
+  extern __shared__ float red[];  // [NORM_WARPS][3][C]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int li = lane & (G - 1), rg = lane / G;
+  const int C = a.C;
+  const float invC = 1.0f / (float)C;
+  const bool res_f32 = !(a.flags & RES_BF16), g_f32 = a.flags & G_F32, gres_f32 = a.flags & GRES_F32;
+  const bool vec = a.vec;
+
+  float acc_g[J][8], acc_b[J][8], acc_d[J][8];
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc_g[j][e] = acc_b[j][e] = acc_d[j][e] = 0.f;
+
+  for (int pass = blockIdx.x; pass < a.passes; pass += gridDim.x) {
+    const int m = pass * (NORM_WARPS * RPW) + warp * RPW + rg;
+    const bool live = m < a.M;
+    const size_t row = (size_t)(live ? m : 0) * C;
+    float x[J][8], g[J][8];
+    int valid[J];
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c0 = (j * G + li) * NORM_VEC;
+      valid[j] = live ? C - c0 : 0;
+      if (valid[j] > 0) {
+        load8(a.res, row + c0, res_f32, vec, valid[j], x[j]);
+        load8(a.g, row + c0, g_f32, vec, valid[j], g[j]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[j][e] = g[j][e] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sum += x[j][e];
+    const float mu = group_sum<G>(sum) * invC;
+    float sq = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = e < valid[j] ? x[j][e] - mu : 0.f;
+        sq += d * d;
+      }
+    const float r = rsqrtf(group_sum<G>(sq) * invC + a.eps);
+
+    // xhat into x, dxhat = g * gamma into g; dgamma and dbeta as we go
+    float sdx = 0.f, sdxx = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (valid[j] <= 0) continue;
+      const int c0 = (j * G + li) * NORM_VEC;
+      float gam[8];
+      load8(a.gamma, c0, true, vec, valid[j], gam);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (e >= valid[j]) continue;
+        const float xh = (x[j][e] - mu) * r;
+        x[j][e] = xh;
+        acc_g[j][e] += g[j][e] * xh;
+        acc_b[j][e] += g[j][e];
+        const float dxh = g[j][e] * gam[e];
+        g[j][e] = dxh;
+        sdx += dxh;
+        sdxx += dxh * xh;
+      }
+    }
+    const float mdx = group_sum<G>(sdx) * invC, mdxx = group_sum<G>(sdxx) * invC;
+    const float rs = (a.rscale && live) ? a.rscale[m / a.s_div] : 1.f;
+
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (valid[j] <= 0) continue;
+      const size_t off = row + (j * G + li) * NORM_VEC;
+      float d[8], t[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d[e] = r * (g[j][e] - mdx - x[j][e] * mdxx);
+      if (a.gres) {
+        load8(a.gres, off, gres_f32, vec, valid[j], t);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d[e] += t[e];
+      }
+      if (a.dres) store8(a.dres, off, vec, valid[j], d);
+      if (a.hmask) {
+        load8(a.hmask, off, false, vec, valid[j], t);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d[e] *= t[e];
+      }
+      if (a.rscale) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) d[e] *= rs;
+      }
+      store8(a.da, off, vec, valid[j], d);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (e < valid[j]) acc_d[j][e] += d[e];
+    }
+  }
+
+  // fold the warp's row groups (a fixed butterfly), then the warps in order:
+  // one partial row [dgamma; dbeta; db] per block
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+#pragma unroll
+      for (int o = G; o < 32; o <<= 1) {
+        acc_g[j][e] += __shfl_xor_sync(0xffffffffu, acc_g[j][e], o);
+        acc_b[j][e] += __shfl_xor_sync(0xffffffffu, acc_b[j][e], o);
+        acc_d[j][e] += __shfl_xor_sync(0xffffffffu, acc_d[j][e], o);
+      }
+  if (rg == 0) {
+    float* w = red + (size_t)warp * 3 * C;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c0 = (j * G + li) * NORM_VEC;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (c0 + e < C) {
+          w[c0 + e] = acc_g[j][e];
+          w[C + c0 + e] = acc_b[j][e];
+          w[2 * C + c0 + e] = acc_d[j][e];
+        }
+    }
+  }
+  __syncthreads();
+  float* out = a.part + (size_t)blockIdx.x * 3 * C;
+  for (int t = threadIdx.x; t < 3 * C; t += NORM_WARPS * 32) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < NORM_WARPS; ++w) v += red[(size_t)w * 3 * C + t];
+    out[t] = v;
+  }
 }
 
-template <int CPL>
-cudaError_t ln_bwd_launch(const LnBwd& a, cudaStream_t s) {
-  int blocks = ln_bwd_blocks(a.M);
-  ln_bwd_kernel<CPL><<<blocks, WARPS * 32, 0, s>>>(a.res, a.gamma, a.g, a.hmask, a.gres, a.rscale, a.dres,
-                                                   a.dres_bf, a.part, a.M, a.C, a.eps, a.flags, a.s_div);
+// part[run, c] = sum of x[r, c] (times S[r / s_div], also written to xs) over
+// the rows of the run; block (strip, run), thread (row lane, chunk of the strip)
+__global__ void __launch_bounds__(COLSUM_THREADS, COLSUM_BLOCKS_PER_SM)
+colsum_kernel(const void* __restrict__ x, int x_f32, const float* __restrict__ rscale,
+              __nv_bfloat16* __restrict__ xs, float* __restrict__ part, int M, int N, int sc, int rows,
+              int s_div, int vec) {
+  __shared__ float red[COLSUM_THREADS * NORM_VEC];
+  const int RL = COLSUM_THREADS / sc;
+  const int cq = threadIdx.x & (sc - 1), rl = threadIdx.x / sc;
+  const int c0 = (blockIdx.x * sc + cq) * NORM_VEC;
+  const int valid = N - c0;
+  const int r0 = blockIdx.y * rows;
+  const int r1 = M < r0 + rows ? M : r0 + rows;
+  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (valid > 0) {
+    int r = r0 + rl;
+    for (; r + (COLSUM_UNROLL - 1) * RL < r1; r += COLSUM_UNROLL * RL) {
+      float v[COLSUM_UNROLL][8];
+#pragma unroll
+      for (int u = 0; u < COLSUM_UNROLL; ++u)
+        load8(x, (size_t)(r + u * RL) * N + c0, x_f32, vec, valid, v[u]);
+#pragma unroll
+      for (int u = 0; u < COLSUM_UNROLL; ++u) {
+        if (rscale) {
+          const float s = rscale[(r + u * RL) / s_div];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[u][e] *= s;
+          store8(xs, (size_t)(r + u * RL) * N + c0, vec, valid, v[u]);
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[e] += v[u][e];
+      }
+    }
+    for (; r < r1; r += RL) {
+      float v[8];
+      load8(x, (size_t)r * N + c0, x_f32, vec, valid, v);
+      if (rscale) {
+        const float s = rscale[r / s_div];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] *= s;
+        store8(xs, (size_t)r * N + c0, vec, valid, v);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[e] += v[e];
+    }
+  }
+  // the row lanes in a fixed tree: lane rl takes rl + h, h = RL / 2 .. 1
+  float* mine = red + threadIdx.x * NORM_VEC;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) mine[e] = acc[e];
+  for (int h = RL / 2; h > 0; h >>= 1) {
+    __syncthreads();
+    if (rl < h) {
+      const float* other = mine + h * sc * NORM_VEC;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) mine[e] += other[e];
+    }
+  }
+  __syncthreads();
+  if (rl == 0 && valid > 0) {
+    float* out = part + (size_t)blockIdx.y * N + c0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < valid) out[e] = mine[e];
+  }
+}
+
+// out[c] = sum over p of part[p, c]: warp w takes p = w, w + FOLD_WARPS, ...
+// in order, then the warps' sums in order
+__global__ void __launch_bounds__(FOLD_WARPS * 32)
+fold_kernel(const float* __restrict__ part, float* __restrict__ out, int P, int W) {
+  __shared__ float red[FOLD_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float v = 0.f;
+  if (c < W) {
+    int p = warp;
+    for (; p + 3 * FOLD_WARPS < P; p += 4 * FOLD_WARPS) {
+      const float a0 = part[(size_t)p * W + c], a1 = part[(size_t)(p + FOLD_WARPS) * W + c];
+      const float a2 = part[(size_t)(p + 2 * FOLD_WARPS) * W + c];
+      const float a3 = part[(size_t)(p + 3 * FOLD_WARPS) * W + c];
+      v += a0;
+      v += a1;
+      v += a2;
+      v += a3;
+    }
+    for (; p < P; p += FOLD_WARPS) v += part[(size_t)p * W + c];
+  }
+  red[warp][lane] = v;
+  __syncthreads();
+  if (warp == 0 && c < W) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < FOLD_WARPS; ++w) s += red[w][lane];
+    out[c] = s;
+  }
+}
+
+cudaError_t fold(const float* part, float* out, int P, int W, cudaStream_t s) {
+  fold_kernel<<<(W + 31) / 32, FOLD_WARPS * 32, 0, s>>>(part, out, P, W);
   return cudaGetLastError();
+}
+
+template <int G, int J>
+cudaError_t ln_bwd_launch(const LnBwd& a, int blocks, cudaStream_t s) {
+  ln_bwd_kernel<G, J><<<blocks, NORM_WARPS * 32, NORM_WARPS * 3 * a.C * sizeof(float), s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int G>
+cudaError_t ln_bwd_chunks(const LnBwd& a, int chunks, int blocks, cudaStream_t s) {
+  switch (chunks) {
+    case 1: return ln_bwd_launch<G, 1>(a, blocks, s);
+    case 2: return ln_bwd_launch<G, 2>(a, blocks, s);
+    case 3: return ln_bwd_launch<G, 3>(a, blocks, s);
+    case 4: return ln_bwd_launch<G, 4>(a, blocks, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Scratch rows the caller must provide to mvlt_layernorm_bwd (part: rows x 3C f32).
-extern "C" int mvlt_layernorm_bwd_blocks(int M) { return ln_bwd_blocks(M); }
+// The plan of mvlt_layernorm_bwd for (M, C) on `sms` SMs: out = [lanes,
+// chunks, rows_per_block, vec, passes, blocks]; blocks is the scratch's row
+// count (part: blocks x 3C f32). Returns -1 (out all 0) for a shape it does
+// not take (M < 1, C < 1 or C > 1024).
+extern "C" int mvlt_layernorm_bwd_plan(int M, int C, int sms, int* out) {
+  LnBwdPlan p = ln_bwd_plan(M, C, sms);
+  int v[6] = {p.rows.lanes, p.rows.chunks, p.rows.rows_per_block, p.rows.vec, p.passes, p.blocks};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return p.rows.lanes ? 0 : -1;
+}
 
-// sums: (3, C) f32 out = [dgamma; dbeta; db]; hmask, gres, rscale and dres_bf may be null.
+// sums: (3, C) f32 out = [dgamma; dbeta; db]; hmask, gres, rscale and dres may be null.
 // flags: 1 res is bf16 (else f32), 2 g is f32 (else bf16), 4 gres is f32 (else bf16).
-// rscale: f32 row scale of da, row m reads rscale[m / s_div].
+// rscale: f32 row scale of da, row m reads rscale[m / s_div]. partials: the
+// row count of part, which must be the plan's for (M, C, sms).
 extern "C" int mvlt_layernorm_bwd(const void* res, const void* gamma, const void* g, const void* hmask,
-                                  const void* gres, const void* rscale, void* dres, void* dres_bf, void* part,
-                                  void* sums, int M, int C, float eps, int flags, int s_div, void* stream) {
+                                  const void* gres, const void* rscale, void* dres, void* da, void* part,
+                                  void* sums, int M, int C, float eps, int flags, int s_div, int sms,
+                                  int partials, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rscale != nullptr && s_div < 1) return (int)cudaErrorInvalidValue;
+  LnBwdPlan p = ln_bwd_plan(M, C, sms);
+  if (p.rows.lanes == 0 || p.blocks != partials || (rscale != nullptr && s_div < 1))
+    return (int)cudaErrorInvalidValue;
   LnBwd a{res, static_cast<const float*>(gamma), g, static_cast<const __nv_bfloat16*>(hmask), gres,
-          static_cast<const float*>(rscale), static_cast<float*>(dres), static_cast<__nv_bfloat16*>(dres_bf),
-          static_cast<float*>(part), M, C, eps, flags, s_div};
+          static_cast<const float*>(rscale), static_cast<float*>(dres), static_cast<__nv_bfloat16*>(da),
+          static_cast<float*>(part), M, C, eps, flags, s_div, p.rows.vec, p.passes};
   cudaError_t e;
-  if (C <= 128) e = ln_bwd_launch<4>(a, s);
-  else if (C <= 256) e = ln_bwd_launch<8>(a, s);
-  else if (C <= 512) e = ln_bwd_launch<16>(a, s);
-  else if (C <= 768) e = ln_bwd_launch<24>(a, s);
-  else if (C <= 1024) e = ln_bwd_launch<32>(a, s);
-  else return (int)cudaErrorInvalidValue;
+  switch (p.rows.lanes) {
+    case 1: e = ln_bwd_chunks<1>(a, p.rows.chunks, p.blocks, s); break;
+    case 2: e = ln_bwd_chunks<2>(a, p.rows.chunks, p.blocks, s); break;
+    case 4: e = ln_bwd_chunks<4>(a, p.rows.chunks, p.blocks, s); break;
+    case 8: e = ln_bwd_chunks<8>(a, p.rows.chunks, p.blocks, s); break;
+    case 16: e = ln_bwd_chunks<16>(a, p.rows.chunks, p.blocks, s); break;
+    case 32: e = ln_bwd_chunks<32>(a, p.rows.chunks, p.blocks, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (e != cudaSuccess) return (int)e;
-  int W = 3 * C;
-  reduce_kernel<<<(W + 255) / 256, 256, 0, s>>>(a.part, static_cast<float*>(sums),
-                                                mvlt_layernorm_bwd_blocks(M), W);
-  return (int)cudaGetLastError();
+  return (int)fold(a.part, static_cast<float*>(sums), p.blocks, 3 * C, s);
 }
 
-// Row chunks of `column_sum` for an (M, N) input; part is chunks x N f32.
-extern "C" int mvlt_column_sum_chunks(int M, int N) {
-  int col_blocks = (N + 255) / 256;
-  int chunks = (2 * 132 + col_blocks - 1) / col_blocks;
-  return chunks < M ? (chunks > 0 ? chunks : 1) : (M > 0 ? M : 1);
+// The plan of mvlt_column_sum for an (M, N) input on `sms` SMs: out =
+// [strip_chunks, strips, row_chunks, rows, vec]; row_chunks is the
+// scratch's row count (part: row_chunks x N f32), run k covering rows
+// [k * rows, min(M, (k + 1) * rows)). Returns -1 (out all 0) for M < 1 or N < 1.
+extern "C" int mvlt_column_sum_plan(int M, int N, int sms, int* out) {
+  ColsumPlan p = colsum_plan(M, N, sms);
+  int v[5] = {p.strip_chunks, p.strips, p.row_chunks, p.rows, p.vec};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return p.strip_chunks ? 0 : -1;
 }
 
-// rscale (f32, row m reads rscale[m / s_div]) and xs (bf16 (M, N), the scaled copy) are both null or both given.
+// rscale (f32, row m reads rscale[m / s_div]) and xs (bf16 (M, N), the scaled copy) are both null or both
+// given. partials: the row count of part, which must be the plan's for (M, N, sms).
 extern "C" int mvlt_column_sum(const void* x, int x_f32, const void* rscale, void* xs, void* part, void* out,
-                               int M, int N, int s_div, void* stream) {
+                               int M, int N, int s_div, int sms, int partials, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((rscale == nullptr) != (xs == nullptr) || (rscale != nullptr && s_div < 1)) return (int)cudaErrorInvalidValue;
-  int chunks = mvlt_column_sum_chunks(M, N);
-  int rows = (M + chunks - 1) / chunks;
-  dim3 grid((N + 255) / 256, chunks);
-  auto rs = static_cast<const float*>(rscale);
-  auto xo = static_cast<__nv_bfloat16*>(xs);
+  ColsumPlan p = colsum_plan(M, N, sms);
+  if (p.strip_chunks == 0 || p.row_chunks != partials || (rscale == nullptr) != (xs == nullptr) ||
+      (rscale != nullptr && s_div < 1))
+    return (int)cudaErrorInvalidValue;
   auto pt = static_cast<float*>(part);
-  if (x_f32)
-    colsum_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(x), rs, xo, pt, M, N, rows, s_div);
-  else
-    colsum_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(x), rs, xo, pt, M, N,
-                                                      rows, s_div);
+  colsum_kernel<<<dim3(p.strips, p.row_chunks), COLSUM_THREADS, 0, s>>>(
+      x, x_f32, static_cast<const float*>(rscale), static_cast<__nv_bfloat16*>(xs), pt, M, N, p.strip_chunks,
+      p.rows, s_div, p.vec);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  reduce_kernel<<<(N + 255) / 256, 256, 0, s>>>(static_cast<const float*>(part), static_cast<float*>(out),
-                                                chunks, N);
-  return (int)cudaGetLastError();
+  return (int)fold(pt, static_cast<float*>(out), p.row_chunks, N, s);
 }

@@ -434,8 +434,9 @@ def _swin_qkv_tail_bwd(p, x2, dqkv2, dres1, wqkv, ln1s, ln1b,
     dwqkv = p.gemm(dqkv2, h1, layout="tn", out_dtype=f32)
     dbqkv = p.column_sum(dqkv2)
     dh1 = p.gemm(dqkv2, wqkv, layout="nn", out_dtype=f32)
+    # dx is da; the f32 dres would be written for no reader
     _, dx, dln1s, dln1b, _ = p.layernorm_bwd(x2, ln1s, dh1, eps, gres=dres1,
-                                             out_dtype=x2.dtype)
+                                             out_dtype=x2.dtype, dres=False)
     return dx, dwqkv, dbqkv, dln1s, dln1b
 
 

@@ -16,7 +16,11 @@ half the card runs as a deterministic split-K, as :func:`gemm_plan` cuts it
 rows of a (group, head) on ``wgmma`` (S = Q K^T and P V, the softmax in
 registers), as :func:`attention_plan` tiles it; it takes N <= 288. K4 runs
 the same tiles in two passes (queries, then keys; every product on
-``wgmma``), as :func:`attention_bwd_plan` tiles it, over the same N.
+``wgmma``), as :func:`attention_bwd_plan` tiles it, over the same N. K3
+and K5 lay a row on a group of lanes sized to C and move it in 16-byte
+words (:func:`row_plan`); K5's column sums run in an order that its plan
+alone fixes (:func:`layernorm_bwd_plan`, :func:`column_sum_plan`), through
+a few partial rows and a fold, with no atomics.
 
 K2 and K4 have two opt-in modes each: in-kernel attention dropout from a
 device seed (``adrop=(seed, rate)``; the Philox stream of
@@ -73,16 +77,17 @@ _SIGNATURES = {
     "mvlt_attention_smem": ([_int] * 3, _i64),
     "mvlt_smem_optin": ([], _int),
     "mvlt_layernorm": ([_vp] * 5 + [_int, _int, _float, _int, _vp], _int),
+    "mvlt_layernorm_plan": ([_int, _int, _vp], _int),
     "mvlt_attention_bwd": ([_vp] * 14 + [_int] * 5
                            + [_float, _uint, _float, _vp], _int),
     "mvlt_attention_bwd_smem": ([_int] * 3, _i64),
     "mvlt_attention_bwd_scratch": ([_int] * 2, _i64),
     "mvlt_attention_bwd_chunks": ([_int] * 3, _int),
-    "mvlt_layernorm_bwd": ([_vp] * 10 + [_int, _int, _float, _int, _int, _vp],
-                           _int),
-    "mvlt_layernorm_bwd_blocks": ([_int], _int),
-    "mvlt_column_sum": ([_vp, _int] + [_vp] * 4 + [_int] * 3 + [_vp], _int),
-    "mvlt_column_sum_chunks": ([_int, _int], _int),
+    "mvlt_layernorm_bwd": ([_vp] * 10 + [_int, _int, _float] + [_int] * 4
+                           + [_vp], _int),
+    "mvlt_layernorm_bwd_plan": ([_int] * 3 + [_vp], _int),
+    "mvlt_column_sum": ([_vp, _int] + [_vp] * 4 + [_int] * 5 + [_vp], _int),
+    "mvlt_column_sum_plan": ([_int] * 3 + [_vp], _int),
 }
 
 _build_lock = threading.Lock()
@@ -929,8 +934,66 @@ def biased_attention_heads(q, k, v, scale: float, pattern=None):
 
 
 # ---------------------------------------------------------------------------
-# K3 layernorm
+# K3 layernorm; the row plan that K3 and K5 share
 # ---------------------------------------------------------------------------
+
+# csrc/norm.cuh: warps a block of the row kernels, elements a chunk
+NORM_WARPS, NORM_VEC = 4, 8
+# the widest row K3 takes (Swin-B's last patch merge) and K5 takes (its
+# column sums stay in registers: four chunks a lane)
+LAYERNORM_MAX_C, LAYERNORM_BWD_MAX_C = 2048, 1024
+
+
+class RowPlan(NamedTuple):
+    """How K3 and K5 lay a row of C channels on a warp (``csrc/norm.cuh``):
+    a group of ``lanes`` lanes (a power of two) owns a row, each lane
+    ``chunks`` chunks of 8 elements (lane l of the group holds chunks
+    ``j * lanes + l``); a block of ``NORM_WARPS`` warps holds
+    ``rows_per_block`` rows at once; ``vec``: 16-byte accesses (C % 8 ==
+    0), else element by element."""
+    lanes: int
+    chunks: int
+    rows_per_block: int
+    vec: bool
+
+
+@functools.lru_cache(maxsize=None)
+def row_plan(C: int, max_c: int) -> RowPlan:
+    """The (lanes, chunks) that leave the fewest chunk slots of a row idle,
+    and of those the fewest chunks a lane (C = 96: 4 x 3, 192: 8 x 3, 384:
+    16 x 3, 768: 32 x 3); a row of more than 128 chunks (K3 only) takes the
+    warp. ``ValueError`` unless 1 <= C <= ``max_c``."""
+    _require(1 <= C <= max_c, f"C={C} is outside 1 .. {max_c}")
+    n = -(-C // NORM_VEC)
+    vec = C % NORM_VEC == 0
+    if n > 4 * 32:
+        return RowPlan(32, -(-n // 32), NORM_WARPS, vec)
+    best, waste = None, None
+    for j in range(1, 5):
+        g = 1
+        while g < -(-n // j):
+            g *= 2
+        if g <= 32 and (waste is None or g * j - n < waste):
+            waste, best = g * j - n, RowPlan(g, j, NORM_WARPS * (32 // g), vec)
+    return best
+
+
+class LayerNormPlan(NamedTuple):
+    """K3's launch (``mvlt_layernorm_plan`` in ``csrc/layernorm.cu``): the
+    row plan and ``blocks``, one per ``rows_per_block`` rows."""
+    lanes: int
+    chunks: int
+    rows_per_block: int
+    vec: bool
+    blocks: int
+
+
+def layernorm_plan(M: int, C: int) -> LayerNormPlan:
+    """K3's plan for M rows of C (1 <= C <= ``LAYERNORM_MAX_C``)."""
+    _require(M >= 1, f"layernorm over {M} rows")
+    rp = row_plan(C, LAYERNORM_MAX_C)
+    return LayerNormPlan(*rp, -(-M // rp.rows_per_block))
+
 
 def layernorm_plain(x, gamma, beta, eps: float, row_index=None,
                     out_dtype=None):
@@ -943,7 +1006,8 @@ def layernorm_plain(x, gamma, beta, eps: float, row_index=None,
 
 def layernorm(x, gamma, beta, eps: float, row_index=None, out_dtype=None):
     """K3 wrapper; same contract as :func:`layernorm_plain`. On CUDA: bf16
-    or f32 x (rows, C), bf16 output, f32 gamma / beta, int32 row_index."""
+    or f32 x (rows, C), C <= 2048, bf16 output, f32 gamma / beta, int32
+    row_index."""
     if not x.is_cuda:
         return layernorm_plain(x, gamma, beta, eps, row_index, out_dtype)
     dev = x.device
@@ -957,6 +1021,7 @@ def layernorm(x, gamma, beta, eps: float, row_index=None, out_dtype=None):
         _require(t.shape[0] == C, f"{name} must have {C} entries")
     _cuda_arg(row_index, "row_index", torch.int32, dev, 1)
     M = x.shape[0] if row_index is None else row_index.shape[0]
+    layernorm_plan(M, C)                      # refuses what K3 cannot take
     y = torch.empty((M, C), dtype=torch.bfloat16, device=dev)
     lib = build()["layernorm"]
     _check(lib.mvlt_layernorm(_ptr(x), _ptr(row_index), _ptr(gamma),
@@ -967,7 +1032,6 @@ def layernorm(x, gamma, beta, eps: float, row_index=None, out_dtype=None):
 
 
 layernorm.launches = 0
-
 
 
 # ---------------------------------------------------------------------------
@@ -1128,13 +1192,86 @@ biased_attention_bwd.adrop_launches = biased_attention_bwd.stored_p_launches = 0
 # K5 layernorm_bwd, column_sum
 # ---------------------------------------------------------------------------
 
+# csrc/layernorm_bwd.cu: column_sum's threads a block, blocks an SM it aims
+# for, and rows' loads in flight a thread
+COLSUM_THREADS, COLSUM_BLOCKS_PER_SM, COLSUM_UNROLL = 256, 4, 4
+
+
+def ln_bwd_blocks_per_sm(chunks: int) -> int:
+    """Blocks of K5's VJP kernel that sit on one SM: its launch bounds'
+    register cap (3 blocks of 128 threads up to three chunks a lane)."""
+    return 3 if chunks <= 3 else 2
+
+
+class LayerNormBwdPlan(NamedTuple):
+    """K5's VJP launch (``mvlt_layernorm_bwd_plan``): the row plan,
+    ``passes`` of ``rows_per_block`` rows, and ``blocks`` persistent blocks
+    (one wave), block b taking passes b, b + blocks, ...; each writes one
+    partial row [dgamma; dbeta; db] of the f32 ``scratch`` (blocks, 3C),
+    which the fold sums in block order."""
+    lanes: int
+    chunks: int
+    rows_per_block: int
+    vec: bool
+    passes: int
+    blocks: int
+    scratch: tuple
+
+
+@functools.lru_cache(maxsize=4096)
+def layernorm_bwd_plan(M: int, C: int, sms: int = H100_SMS
+                       ) -> LayerNormBwdPlan:
+    """K5's VJP plan for M rows of C (1 <= C <= ``LAYERNORM_BWD_MAX_C``) on
+    ``sms`` SMs."""
+    _require(M >= 1, f"layernorm_bwd over {M} rows")
+    rp = row_plan(C, LAYERNORM_BWD_MAX_C)
+    passes = -(-M // rp.rows_per_block)
+    blocks = min(passes, ln_bwd_blocks_per_sm(rp.chunks) * sms)
+    return LayerNormBwdPlan(*rp, passes, blocks, (blocks, 3 * C))
+
+
+class ColumnSumPlan(NamedTuple):
+    """``column_sum``'s launch (``mvlt_column_sum_plan``): a grid of
+    ``strips`` x ``row_chunks`` blocks; block (s, k) sums the
+    ``strip_chunks`` 8-column chunks of strip s over rows [k * rows, min(M,
+    (k + 1) * rows)) into row k of the f32 ``scratch`` (row_chunks, N),
+    which the fold sums in order; ``vec``: 16-byte loads (N % 8 == 0)."""
+    strip_chunks: int
+    strips: int
+    row_chunks: int
+    rows: int
+    vec: bool
+    scratch: tuple
+
+
+@functools.lru_cache(maxsize=4096)
+def column_sum_plan(M: int, N: int, sms: int = H100_SMS) -> ColumnSumPlan:
+    """``column_sum``'s plan for an (M, N) input on ``sms`` SMs: strips of
+    the largest power-of-two count of chunks (at most 32, 256 columns) that
+    divides N's chunks; as many runs of rows as keep the grid within
+    ``COLSUM_BLOCKS_PER_SM`` blocks an SM (one wave), each at least one
+    pass of the block's row lanes with ``COLSUM_UNROLL`` loads in flight,
+    none empty."""
+    _require(M >= 1 and N >= 1, f"column_sum over ({M}, {N})")
+    n = -(-N // NORM_VEC)
+    sc = min(32, n & -n)
+    strips = n // sc
+    per_pass = COLSUM_THREADS // sc * COLSUM_UNROLL
+    chunks = min(max(1, COLSUM_BLOCKS_PER_SM * sms // strips),
+                 -(-M // per_pass))
+    rows = -(-M // chunks)
+    runs = -(-M // rows)
+    return ColumnSumPlan(sc, strips, runs, rows, N % NORM_VEC == 0, (runs, N))
+
+
 def layernorm_bwd_plain(res, gamma, g, eps: float, hmask=None, gres=None,
-                        row_scale=None, out_dtype=None):
+                        row_scale=None, out_dtype=None, dres: bool = True):
     """VJP of ``LN(res) * gamma + beta`` over rows of the pre-LN sum ``res``
     (M, C) for the upstream gradient ``g`` (M, C). Returns ``(dres f32, da,
     dgamma, dbeta, db)``: ``dres`` the LN VJP plus the optional incoming
     residual gradient ``gres`` (M, C) (the pre-LN form: ``dres1 = g +
-    LN2^T(dh2)`` of a Swin block); ``da = dres * hmask * row_scale`` in
+    LN2^T(dh2)`` of a Swin block), or None with ``dres=False`` (a caller
+    that reads only da); ``da = dres * hmask * row_scale`` in
     ``out_dtype`` (default ``g.dtype``), the cotangent of a proj / fc2
     output that the hidden-dropout mask ``hmask`` (M, C) and the f32 row
     scale ``row_scale`` (S,) multiplied (row m takes ``row_scale[m // (M //
@@ -1147,30 +1284,33 @@ def layernorm_bwd_plain(res, gamma, g, eps: float, hmask=None, gres=None,
     xhat = (r_ - mu) * r
     gf = g.float()
     dxhat = gf * gamma.float()
-    dres = r * (dxhat - dxhat.mean(-1, keepdim=True)
-                - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    d = r * (dxhat - dxhat.mean(-1, keepdim=True)
+             - xhat * (dxhat * xhat).mean(-1, keepdim=True))
     if gres is not None:
-        dres = dres + gres.float()
-    da = dres if hmask is None else dres * hmask.float()
+        d = d + gres.float()
+    da = d if hmask is None else d * hmask.float()
     if row_scale is not None:
         da = da * _row_scale_plain(row_scale, da.shape[0])
-    return (dres, da.to(out_dtype or g.dtype), (gf * xhat).sum(0), gf.sum(0),
-            da.sum(0))
+    return (d if dres else None, da.to(out_dtype or g.dtype),
+            (gf * xhat).sum(0), gf.sum(0), da.sum(0))
 
 
 def layernorm_bwd(res, gamma, g, eps: float, hmask=None, gres=None,
-                  row_scale=None, out_dtype=None):
+                  row_scale=None, out_dtype=None, dres: bool = True):
     """K5 wrapper; same contract as :func:`layernorm_bwd_plain`. On CUDA:
     f32 or bf16 res, f32 gamma and row_scale, bf16 or f32 g and gres, bf16
-    hmask, a bf16 da, C <= 1024."""
+    hmask, a bf16 da, C <= 1024. The column sums run in the fixed order of
+    :func:`layernorm_bwd_plan`: two calls on the same inputs are bitwise
+    equal."""
     if not res.is_cuda:
         return layernorm_bwd_plain(res, gamma, g, eps, hmask, gres, row_scale,
-                                   out_dtype)
+                                   out_dtype, dres)
     dev, f32, bf = res.device, torch.float32, torch.bfloat16
     res_bf = res.dtype == bf
     _cuda_arg(res, "res", bf if res_bf else f32, dev, 2)
     M, C = res.shape
-    _require(C <= 1024, f"C={C} > 1024")
+    sms = _sm_count(dev.index)
+    plan = layernorm_bwd_plan(M, C, sms)     # refuses C > 1024
     _cuda_arg(gamma, "gamma", f32, dev, 1)
     _require(gamma.shape[0] == C, f"gamma must have {C} entries")
     g_f32 = g.dtype == f32
@@ -1188,19 +1328,18 @@ def layernorm_bwd(res, gamma, g, eps: float, hmask=None, gres=None,
              "layernorm_bwd writes da in bf16 on CUDA; pass "
              "out_dtype=torch.bfloat16")
     lib = build()["layernorm_bwd"]
-    dres = torch.empty((M, C), dtype=f32, device=dev)
-    dres_bf = torch.empty((M, C), dtype=bf, device=dev)
-    part = torch.empty((lib.mvlt_layernorm_bwd_blocks(M), 3 * C), dtype=f32,
-                       device=dev)
+    d = torch.empty((M, C), dtype=f32, device=dev) if dres else None
+    da = torch.empty((M, C), dtype=bf, device=dev)
+    part = torch.empty(plan.scratch, dtype=f32, device=dev)
     sums = torch.empty((3, C), dtype=f32, device=dev)
     flags = int(res_bf) | 2 * int(g_f32) | 4 * int(gres_f32)
     _check(lib.mvlt_layernorm_bwd(_ptr(res), _ptr(gamma), _ptr(g),
                                   _ptr(hmask), _ptr(gres), _ptr(row_scale),
-                                  _ptr(dres), _ptr(dres_bf), _ptr(part),
-                                  _ptr(sums), M, C, float(eps), flags, s_div,
-                                  _stream(dev)), "layernorm_bwd")
+                                  _ptr(d), _ptr(da), _ptr(part), _ptr(sums),
+                                  M, C, float(eps), flags, s_div, sms,
+                                  plan.blocks, _stream(dev)), "layernorm_bwd")
     layernorm_bwd.launches += 1
-    return dres, dres_bf, sums[0], sums[1], sums[2]
+    return d, da, sums[0], sums[1], sums[2]
 
 
 layernorm_bwd.launches = 0
@@ -1218,7 +1357,9 @@ def column_sum_plain(x, row_scale=None):
 
 def column_sum(x, row_scale=None):
     """K5 column sum; same contract as :func:`column_sum_plain`. On CUDA:
-    bf16 or f32 x (bf16 with a row scale), f32 row_scale."""
+    bf16 or f32 x (bf16 with a row scale), f32 row_scale, M >= 1. The sums
+    run in the fixed order of :func:`column_sum_plan`: two calls on the
+    same inputs are bitwise equal."""
     if not x.is_cuda:
         return column_sum_plain(x, row_scale)
     dev, f32 = x.device, torch.float32
@@ -1227,15 +1368,16 @@ def column_sum(x, row_scale=None):
              "column_sum with a row scale takes bf16 x")
     _cuda_arg(x, "x", f32 if x_f32 else torch.bfloat16, dev, 2)
     M, N = x.shape
+    sms = _sm_count(dev.index)
+    plan = column_sum_plan(M, N, sms)
     s_div = _cuda_row_scale(row_scale, M, dev)
     xs = None if row_scale is None else torch.empty_like(x)
     lib = build()["layernorm_bwd"]
-    part = torch.empty((lib.mvlt_column_sum_chunks(M, N), N), dtype=f32,
-                       device=dev)
+    part = torch.empty(plan.scratch, dtype=f32, device=dev)
     out = torch.empty((N,), dtype=f32, device=dev)
     _check(lib.mvlt_column_sum(_ptr(x), int(x_f32), _ptr(row_scale), _ptr(xs),
-                               _ptr(part), _ptr(out), M, N, s_div,
-                               _stream(dev)), "column_sum")
+                               _ptr(part), _ptr(out), M, N, s_div, sms,
+                               plan.row_chunks, _stream(dev)), "column_sum")
     column_sum.launches += 1
     return out if row_scale is None else (out, xs)
 

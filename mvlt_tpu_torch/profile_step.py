@@ -49,10 +49,10 @@ FAMILIES = [
     (OURS + "sum_heads_kernel", "K4 biased_attention_bwd"),
     (OURS + "sum_chunks_kernel", "K4 biased_attention_bwd"),
     (OURS + "attention_wgmma_kernel", "K2 biased_attention"),
-    (OURS + "ln_bwd_kernel", "K5 layernorm_bwd"),
+    (OURS + "ln_bwd_kernel", "K5 layernorm_bwd"),          # <lanes, chunks>
     (OURS + "colsum_kernel", "K5 column_sum"),
-    (OURS + "reduce_kernel", "K5 partial-sum fold"),
-    (OURS + "layernorm_kernel", "K3 layernorm"),
+    (OURS + "fold_kernel", "K5 partial-sum fold"),          # both K5 calls
+    (OURS + "layernorm_kernel", "K3 layernorm"),            # <lanes, chunks>
     (OURS + "gemm_", "K1 gemm"),      # the mainloop and the split-K fold
     ("multi_tensor_apply", "AdamW (multi-tensor)"),
     ("batch_norm", "BatchNorm (ResNet)"),

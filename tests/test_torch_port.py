@@ -593,3 +593,98 @@ def test_cuda_rows_7_9_10_match_plain(cuda_device):
     _near(blocks.full_forward_windows(xw, params, pat, 0.2, nH),
           blocks.full_forward_windows_plain(xw, params, pat, 0.2, nH), 2 ** -5)
     torch.cuda.synchronize()
+
+
+def _twice_equal(fn):
+    one, two = fn(), fn()
+    one = one if isinstance(one, tuple) else (one,)
+    two = two if isinstance(two, tuple) else (two,)
+    return all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(one, two))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [96, 100, 768])
+def test_cuda_layernorm_bwd_vector_and_element_paths(cuda_device, C):
+    """K5's VJP on its 16-byte path (C = 96, 768) and its element path (C =
+    100), at M = 1, at M not a multiple of a block's rows and past one wave
+    of persistent blocks, in each mode the paths use (plain; hmask; the
+    pre-LN form with bf16 res, f32 g, f32 / bf16 gres and a row scale;
+    ``dres=False``) against the plain version at 2^-7, two calls bitwise
+    equal."""
+    g = torch.Generator().manual_seed(60 + C)
+    for M in (1, 37, 4 * 1056 + 5):
+        res = _rnd(g, M, C, std=2.0, dt=torch.float32, dev=cuda_device)
+        xb = _rnd(g, M, C, std=2.0, dev=cuda_device)
+        gam = _rnd(g, C, dt=torch.float32, dev=cuda_device) + 1.0
+        gy = _rnd(g, M, C, dev=cuda_device)
+        dh = _rnd(g, M, C, dt=torch.float32, dev=cuda_device)
+        h = ((torch.rand(M, C, generator=g) < 0.9).float() / 0.9).to(
+            cuda_device, torch.bfloat16)
+        s = torch.full((M,), 1.25, device=cuda_device)   # a scale a row
+        s[::3] = 0.0
+        gres32 = _rnd(g, M, C, dt=torch.float32, dev=cuda_device)
+        modes = [(res, gy, {}), (res, gy, dict(hmask=h)),
+                 (xb, dh, dict(gres=gres32, dres=False)),
+                 (res, dh, dict(gres=gy, row_scale=s))]
+        for r, gg, kw in modes:
+            kw = dict(kw, out_dtype=torch.bfloat16)
+            got = kernels.layernorm_bwd(r, gam, gg, 1e-5, **kw)
+            want = kernels.layernorm_bwd_plain(r, gam, gg, 1e-5, **kw)
+            for a, b in zip(got, want):
+                assert (a is None) == (b is None)
+                if a is not None:
+                    _near(a, b, 2 ** -7)
+            assert _twice_equal(
+                lambda: kernels.layernorm_bwd(r, gam, gg, 1e-5, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [288, 3070])
+def test_cuda_column_sum_vector_and_element_paths(cuda_device, N):
+    """K5's column sum on its 16-byte path (N = 288) and its element path
+    (N = 3070), bf16 and f32, with and without a row scale, at M = 1, a
+    ragged M and a tall M, against the plain version; two calls bitwise
+    equal."""
+    g = torch.Generator().manual_seed(70 + N)
+    for M in (1, 37, 20000):
+        xb = _rnd(g, M, N, std=0.1, dev=cuda_device)
+        xf = _rnd(g, M, N, std=0.1, dt=torch.float32, dev=cuda_device)
+        _near(kernels.column_sum(xb), kernels.column_sum_plain(xb), 1e-4)
+        _near(kernels.column_sum(xf), kernels.column_sum_plain(xf), 1e-4)
+        s = torch.full((M if M < 40 else 40,), 1.5, device=cuda_device)
+        s[0] = 0.0
+        got = kernels.column_sum(xb, row_scale=s)
+        want = kernels.column_sum_plain(xb, row_scale=s)
+        _near(got[0], want[0], 1e-4)
+        _near(got[1], want[1], 2 ** -7)
+        for x, kw in ((xb, {}), (xf, {}), (xb, dict(row_scale=s))):
+            assert _twice_equal(lambda: kernels.column_sum(x, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [96, 100, 768, 1536])
+def test_cuda_layernorm_vector_and_element_paths(cuda_device, C):
+    """K3 on its 16-byte path (C = 96, 768; 1536, a row per warp at six
+    chunks a lane) and its element path (C = 100), f32 and bf16 in, with the
+    row gather, at M = 1 and a ragged M; a width past 2048 is refused."""
+    g = torch.Generator().manual_seed(80 + C)
+    for M in (1, 37, 1000):
+        gam = _rnd(g, C, dt=torch.float32, dev=cuda_device) + 1.0
+        bet = _rnd(g, C, std=0.1, dt=torch.float32, dev=cuda_device)
+        idx = torch.randperm(M, generator=g).to(cuda_device, torch.int32)
+        for dt in (torch.float32, torch.bfloat16):
+            x = _rnd(g, M, C, std=2.0, dt=dt, dev=cuda_device) + 0.5
+            for ri in (None, idx):
+                _near(kernels.layernorm(x, gam, bet, 1e-5, ri,
+                                        out_dtype=torch.bfloat16),
+                      kernels.layernorm_plain(x, gam, bet, 1e-5, ri,
+                                              out_dtype=torch.bfloat16),
+                      2 ** -7)
+    wide = _rnd(g, 2, 2056, dev=cuda_device)
+    one = torch.ones(2056, device=cuda_device)
+    with pytest.raises(ValueError, match="C=2056"):
+        kernels.layernorm(wide, one, one, 1e-5)
+    torch.cuda.synchronize()
