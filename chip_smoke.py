@@ -88,13 +88,32 @@ package. Phases, each of which raises on failure:
    ``attn_impl='pallas'`` (row 8 in all 24 blocks), driven as in phases 4
    and 7 (logits / gradients / losses against the plain versions, launch
    counts), each timed in turns with the backbone on 'auto';
-10. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+10. caption: K2 and K4 at the caption step's fusion shapes (b32, S = 1 +
+    49 + 1 + 150 = 201, 12 heads, the seq2seq qbias with a dropout mask),
+    rows of their own; then report generation at the MIMIC-CXR settings
+    (``build_caption_generate``: Swin-S + BERT-base, bf16, b32, beam 5,
+    length 150, unilm): the Swin features and the prefill's logits against
+    the plain versions, the first 8 cached decode steps of a greedy run
+    against the full seq2seq forward over the committed tokens (rows 15 and
+    5 on the card), the launch counts of one call, two calls bitwise equal,
+    ``unroll`` and ``suffix_reorder`` equal to the loop and the full
+    gather, sampling reproducible under one seed, tokens/s (B x length /
+    time, the median of 3 calls after a warm-up) of the kernel route (its
+    loop, and unrolled) and the plain route, and peak memory; then the
+    caption train step
+    (``build_caption_train_step``: b32, text 150, unilm, DropPath 0.3,
+    dropout 0.1) driven as phase 7 drives the Swin-S step (gradients and 3
+    losses against the plain run on replayed masks, launch counts, ms/step
+    in turns, peak memory). ``python3 chip_smoke.py --caption`` runs
+    phases 1-2 and this phase only;
+11. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -259,6 +278,25 @@ EXPECTED_SWIN_PALLAS = {
     "biased_attention_heads": (24, None),
     **UNREACHED,
 }
+# report generation at the MIMIC-CXR settings (run_report_generation.py:
+# 46-52, 70-71): b32, beam 5, caption length 150 (S = 1 + 49 + 1 + 150)
+CAPTION_TEXT, CAPTION_BEAMS = 150, 5
+# cached decode steps held against the uncached forward
+CAPTION_CACHED_STEPS = 8
+# beam-shaped decode steps (B * K rows) held against the plain versions
+CAPTION_BEAM_STEPS = 4
+# calls per generate call: the Swin serving rows once per batch (the
+# features are repeated K-fold after the prefill), the prefill's 12 MLP
+# halves on row 5 and its attention halves plain (JAX's need_kv gate,
+# fusion.py:113), the decode steps plain (K1 / K3 through Dense / LayerNorm)
+EXPECTED_CAPTION_GENERATE = {
+    **EXPECTED,
+    "fused_attn_ln": (0, "mvlt_tpu/ops/pallas_attn.py:2156"),
+    "fused_attn_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:2721"),
+    "fused_mlp_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:3194"),
+}
+# the caption step runs the Swin-S pretrain step's kernels in seq2seq mode
+EXPECTED_CAPTION_STEP = EXPECTED_SWIN_PRETRAIN
 # the hand-written kernels and the TPU code whose pieces each carries
 KERNEL_SOURCES = {
     "gemm": ("mvlt_tpu_torch/csrc/gemm.cu", "mvlt_tpu/ops/pallas_attn.py:571"),
@@ -289,6 +327,12 @@ KERNEL_SOURCES = {
                                 "mvlt_tpu/ops/pallas_attn.py:512"),
     "biased_attention_bwd_long_n": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
                                     "mvlt_tpu/ops/pallas_attn.py:2413"),
+    # K2 and K4 at the caption step's S = 201 with the seq2seq qbias and a
+    # dropout mask; launched as K2 / K4 on the caption_step path
+    "biased_attention_n201": ("mvlt_tpu_torch/csrc/attention.cu",
+                              "mvlt_tpu/ops/pallas_attn.py:512"),
+    "biased_attention_bwd_n201": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
+                                  "mvlt_tpu/ops/pallas_attn.py:2413"),
     # K1's split-K weight gradients: the sums that _swin_mlp_bwd_kernel
     # carries across its sequential grid (:1689-1695)
     "gemm_splitk": ("mvlt_tpu_torch/csrc/gemm.cu",
@@ -1951,6 +1995,59 @@ def long_attention_checks(chk: Checker, dev) -> None:
         del amask
 
 
+def caption_kernel_checks(chk: Checker, dev) -> None:
+    """K2 and K4 at the caption step's fusion shapes: b32, S = 1 + 49 + 1 +
+    150 = 201 (Swin-S tokens and a MIMIC-CXR report), 12 heads, head dim
+    64, the seq2seq qbias with an attention-dropout mask (what rows 15 and
+    16 give them in the step), each against its plain version, the library
+    composition (K4: its autograd backward) and its bound, eagerly and as
+    CUDA graphs, as rows of their own (``biased_attention_n201``,
+    ``biased_attention_bwd_n201``)."""
+    from mvlt_tpu_torch.ops import kernels as K
+    from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
+    inp = Inputs(dev, seed=9)
+    bf = torch.bfloat16
+    B, C, nH, S = TRAIN_BATCH, 768, 12, 1 + 49 + 1 + CAPTION_TEXT
+    Dh = C // nH
+    sc = Dh ** -0.5
+    qkv = inp.rnd(B * S, 3 * C, std=0.5)
+    ctx = torch.empty(B * S, C, dtype=bf, device=dev)
+    qb = mask_to_bias(seq2seq_fusion_mask(B, 50, S, dev)).contiguous()
+    amask = ((torch.rand(B, nH, S, S, generator=inp.gen) < 0.9).to(bf)
+             / 0.9).to(dev)
+    print(f"K2 at S = {S} (b{B}, {nH} heads, head dim {Dh}): "
+          f"{K.attention_plan(S, Dh)}; K4: {K.attention_bwd_plan(S, Dh)}",
+          flush=True)
+    chk.case("biased_attention_n201",
+             lambda: K.biased_attention(qkv, nH, S, sc, qbias=qb,
+                                        amask=amask),
+             lambda: K.biased_attention_plain(qkv, nH, S, sc, qbias=qb,
+                                              amask=amask),
+             KERNEL_BAR,
+             library_fn=lambda: lib_masked_attention(
+                 qkv, B, S, nH, qb.to(bf)[:, None], amask, sc),
+             flops=4.0 * B * nH * S * S * Dh,
+             nbytes=nbytes(qkv, qb, amask, ctx), graph=True)
+    dctx = inp.rnd(B * S, C)
+    t = qkv.view(B, S, 3, nH, Dh).permute(2, 0, 3, 1, 4)
+    qkv3 = (t[0].contiguous(), t[1].contiguous(), t[2].contiguous())
+    d4 = dctx.view(B, S, nH, Dh).permute(0, 2, 1, 3).contiguous()
+    qbm = qb.to(bf)[:, None]
+    chk.case("biased_attention_bwd_n201",
+             lambda: K.biased_attention_bwd(qkv, dctx, nH, S, sc, qbias=qb,
+                                            amask=amask),
+             lambda: K.biased_attention_bwd_plain(qkv, dctx, nH, S, sc,
+                                                  qbias=qb, amask=amask),
+             KERNEL_BAR, floor=1e-6, graph=True,
+             library_fn=library_backward(
+                 lambda q, k, v: torch.matmul(torch.softmax(
+                     torch.matmul(q, k.transpose(-1, -2)) * sc + qbm, dim=-1)
+                     * amask, v), qkv3, d4),
+             flops=10.0 * B * nH * S * S * Dh,
+             nbytes=nbytes(qkv, dctx, qb, amask, qkv))
+    del amask
+
+
 def attention_repeat_checks(dev) -> None:
     """Two calls of K2 on the same inputs are bitwise equal in every mode
     (no atomics, one fixed order of sums), at the pretrain step's fusion
@@ -2516,6 +2613,21 @@ def norm_main() -> int:
     return 0
 
 
+def caption_main() -> int:
+    """``python3 chip_smoke.py --caption``: phases 1-2 and the caption
+    phase only (its kernel checks, report generation and its train step),
+    without the kernels line."""
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    caption_kernel_checks(Checker(), dev)
+    with switches(False):
+        caption_generate_phase(dev, card)
+        caption_step_phase(dev, card)
+    return 0
+
+
 def main() -> int:
     started = start()
     if started is None:
@@ -2540,6 +2652,7 @@ def main() -> int:
     swin_gemm_checks(chk, dev)
     optin_kernel_checks(chk, dev)
     attn_impl_kernel_checks(chk, dev)
+    caption_kernel_checks(chk, dev)
     with switches(False):
         by_path = {"vqa_forward": forward_phase(dev, card),
                    "vqa_train_step": train_phase(dev, card),
@@ -2553,6 +2666,8 @@ def main() -> int:
                                                       attn_impl="pallas")
         by_path["swin_pretrain_pallas_train_step"] = pretrain_phase(
             dev, card, timed_steps=4, swin=True, attn_impl="pallas")
+        by_path["caption_generate"] = caption_generate_phase(dev, card)
+        by_path["caption_step"] = caption_step_phase(dev, card)
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
@@ -2560,7 +2675,8 @@ def main() -> int:
     rows = []
     counterparts = {**EXPECTED, **EXPECTED_TRAIN, **EXPECTED_PRETRAIN,
                     **EXPECTED_SWITCHES, **EXPECTED_PALLAS,
-                    **EXPECTED_SWIN_PALLAS}
+                    **EXPECTED_SWIN_PALLAS, **EXPECTED_CAPTION_GENERATE,
+                    **EXPECTED_CAPTION_STEP}
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces})
@@ -2933,5 +3049,309 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     return counts
 
 
+def _max_err(got, want):
+    """(max abs err, max|want|) of two tensors, in float32."""
+    return ((got.float() - want.float()).abs().max().item(),
+            want.float().abs().max().item())
+
+
+def _check_close(what: str, got, want, bar: float = LOGITS_BAR) -> None:
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    err, scale = _max_err(got, want)
+    print(f"{what}: max_abs_err {err:.4g}, max|plain| {scale:.4g}, bar {bar} "
+          f"x max|plain|", flush=True)
+    if not err <= bar * scale:
+        raise AssertionError(f"{what}: {err} > {bar * scale}")
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _beam_steps_check(model, feat, spec, dev) -> None:
+    """The first ``CAPTION_BEAM_STEPS`` decode steps at the beam search's
+    shapes (B * K rows, T = 2 for unilm: K1 at M = 2 * B * K, K3 on
+    (2 * B * K, H)), kernels against plain, each route on its own copy of one
+    K-fold repeated prefill cache and both fed the same tokens: row r takes
+    the (r % K)-th best token of the plain logits, so a sample's beams part
+    after step 0 as a beam search's do. Holds the logits and, per layer, the
+    (k, v) rows each step writes, within ``LOGITS_BAR`` x max|plain|."""
+    from mvlt_tpu_torch.models import generation as G
+    from mvlt_tpu_torch.ops.blocks import KERNEL_OPS, PLAIN_OPS
+    B, K = feat.shape[0], spec.num_beams
+    with torch.no_grad():
+        logits, kv, P = G._prefill(model, feat, spec, PLAIN_OPS)
+        kv = [(k.repeat_interleave(K, dim=0), v.repeat_interleave(K, dim=0))
+              for k, v in kv]
+        cache_k = G._make_cache(model, kv, P, B * K, spec)
+        del kv
+        cache_p = {n: c.clone() for n, c in cache_k.items()}
+        logits = logits.repeat_interleave(K, dim=0)
+        rank = (torch.arange(B * K, device=dev) % K)[:, None]
+        worst = {"logits": 0.0, "k": 0.0, "v": 0.0}
+        for t in range(1, CAPTION_BEAM_STEPS + 1):
+            tok = logits.float().topk(K, dim=-1).indices.gather(1, rank)[:, 0]
+            got = G._decode_logits(model, cache_k, tok, P + t - 1, spec,
+                                   KERNEL_OPS)
+            logits = G._decode_logits(model, cache_p, tok, P + t - 1, spec,
+                                      PLAIN_OPS)
+            rows = slice(P + t - 1, P + t + 1)
+            pairs = [("logits", got, logits)] + [
+                (n, cache_k[n][i, :, :, rows], cache_p[n][i, :, :, rows])
+                for n in ("k", "v") for i in range(cache_k[n].shape[0])]
+            for what, a, b in pairs:
+                err, scale = _max_err(a, b)
+                if not (torch.isfinite(a).all() and err <= LOGITS_BAR * scale):
+                    raise AssertionError(
+                        f"beam decode step {t} ({B * K} rows): {what} differ "
+                        f"from plain: {err} > {LOGITS_BAR * scale}")
+                worst[what] = max(worst[what], err / scale)
+        del cache_k, cache_p
+    print(f"beam-shaped decode steps ({B * K} rows, {CAPTION_BEAM_STEPS} "
+          f"steps), kernels vs plain from one prefill cache: worst max_abs_err"
+          f" / max|plain| {json.dumps({k: round(v, 5) for k, v in worst.items()})}"
+          f" (logits; the (k, v) rows written, per layer; bar {LOGITS_BAR})",
+          flush=True)
+
+
+def caption_generate_phase(dev, card: str) -> dict:
+    """Report generation (Swin-S + BERT-base, bf16, b32, beam 5, length 150,
+    unilm) on the kernels: the Swin features and the prefill's logits
+    against the plain versions, the first ``CAPTION_CACHED_STEPS`` cached
+    greedy decode steps against the uncached seq2seq forward (rows 15 and 5
+    on the card), the first ``CAPTION_BEAM_STEPS`` beam-shaped decode steps
+    against plain, the launch counts of one generate call, determinism, the
+    ``unroll`` / ``suffix_reorder`` forms, sampling under one seed, then
+    tokens/s of the kernel route (loop and unrolled) and the plain route,
+    and peak memory. Returns the launch counts of one generate call."""
+    from mvlt_tpu_torch.flagship import build_caption_generate
+    from mvlt_tpu_torch.models import generation as G
+    from mvlt_tpu_torch.ops import kernels
+    from mvlt_tpu_torch.ops.blocks import KERNEL_OPS, PLAIN_OPS
+    B, L = TRAIN_BATCH, CAPTION_TEXT
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen, image = build_caption_generate(batch=B, num_beams=CAPTION_BEAMS,
+                                        max_length=L, device=dev)
+    model, spec = gen.model, gen.spec
+    print(f"caption model built in {time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in model.parameters())} parameters; {spec}",
+          flush=True)
+    with torch.no_grad():
+        feat = model.encode_image(image)
+        _check_close("caption Swin-S features, kernels vs plain", feat,
+                     model.encode_image(image, plain=True))
+        logits_k = G._prefill(model, feat, spec, KERNEL_OPS)[0]
+        logits_p = G._prefill(model, feat, spec, PLAIN_OPS)[0]
+        _check_close("caption prefill logits, kernels vs plain", logits_k,
+                     logits_p)
+        del logits_k, logits_p
+        # cached steps against the full seq2seq forward over the committed
+        # tokens + [MASK] (fused_attn_ln_masked / fused_mlp_ln: rows 15, 5)
+        greedy = dataclasses.replace(spec, num_beams=1)
+        reset_counts()
+        logits, kv, P = G._prefill(model, feat, greedy, KERNEL_OPS)
+        cache = G._make_cache(model, kv, P, B, greedy)
+        del kv
+        image_mask = torch.ones(feat.shape[:2], dtype=torch.bool, device=dev)
+        text = torch.full((B, 1), spec.mask_token_id, dtype=torch.long,
+                          device=dev)
+        errs = []
+        for t in range(CAPTION_CACHED_STEPS):
+            if t:
+                logits = G._decode_logits(model, cache, tok, P + t - 1,
+                                          greedy, KERNEL_OPS)
+            hidden, _ = model.fusion(text, None, feat, image_mask,
+                                     KERNEL_OPS, seq2seq=True, pool=False)
+            ref = model.mlm_head_seq2seq(hidden[:, -1], KERNEL_OPS)
+            err, scale = _max_err(logits, ref)
+            errs.append(round(err / scale, 5))
+            if not (torch.isfinite(logits).all() and err <= LOGITS_BAR * scale):
+                raise AssertionError(f"cached decode step {t}: logits differ "
+                                     f"from the uncached forward: {err} > "
+                                     f"{LOGITS_BAR * scale}")
+            tok = logits.argmax(-1)
+            text = torch.cat([text[:, :-1], tok[:, None], text[:, -1:]], 1)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        del cache
+    print(f"cached vs uncached logits, {CAPTION_CACHED_STEPS} greedy steps: "
+          f"max_abs_err / max|uncached| per step {errs} (bar {LOGITS_BAR}); "
+          f"uncached forwards ran fused_attn_ln_masked "
+          f"{counts['fused_attn_ln_masked']} and fused_mlp_ln "
+          f"{counts['fused_mlp_ln']} times", flush=True)
+    if counts["fused_attn_ln_masked"] != 12 * CAPTION_CACHED_STEPS:
+        raise AssertionError("the uncached forwards did not run row 15 on "
+                             "the card")
+    _beam_steps_check(model, feat, spec, dev)
+
+    reset_counts()
+    out = gen(image)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"launches in one caption generate call: {json.dumps(counts)}",
+          flush=True)
+    for name, (want, _) in EXPECTED_CAPTION_GENERATE.items():
+        if counts[name] != want:
+            raise AssertionError(f"{name} ran {counts[name]} times in one "
+                                 f"generate call, expected {want}")
+    for k in kernels.FORWARD_KERNELS:
+        if counts[k.__name__] <= 0:
+            raise AssertionError(f"kernel {k.__name__} never launched")
+    seqs, lens, scores = out
+    assert seqs.shape == (B, L) and lens.shape == scores.shape == (B,)
+    if not (torch.isfinite(scores).all() and ((lens >= 1) & (lens <= L)).all()
+            and ((seqs >= 0) & (seqs < model.config.fusion.vocab_size)).all()):
+        raise AssertionError("generate returned out-of-range values")
+    print(f"beam output: lengths {lens.tolist()}; scores "
+          f"{[round(v, 4) for v in scores.tolist()[:8]]}...", flush=True)
+    checks = {"two calls": gen(image),
+              "unroll=True": gen(image, unroll=True),
+              "suffix_reorder=True": gen(image, suffix_reorder=True)}
+    for what, other in checks.items():
+        if not _same(out, other):
+            raise AssertionError(f"generate: {what} differs from the first "
+                                 "call")
+    sample = gen(image, num_beams=1, sample=True)
+    if not _same(sample, gen(image, num_beams=1, sample=True)):
+        raise AssertionError("sampling under one seed is not reproducible")
+    print(f"generate: two calls, unroll=True and suffix_reorder=True bitwise "
+          f"equal; sampling reproducible ({len(set(map(tuple, sample[0].tolist())))} "
+          f"distinct sampled reports of {B})", flush=True)
+
+    # the loop (reads the done flags a step), the unrolled form (never
+    # synchronises; JAX's bench times this one, bench.py:92), plain versions
+    calls = {"kernels": {}, "kernels unroll": dict(unroll=True),
+             "plain": dict(plain=True)}
+    times, peak, warm = {}, None, {}
+    for which, kw in calls.items():
+        warm[which] = gen(image, **kw)
+        torch.cuda.synchronize()
+        runs = []
+        for i in range(3):
+            if which == "kernels" and i == 0:
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            gen(image, **kw)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            if which == "kernels" and i == 0:
+                peak = torch.cuda.max_memory_allocated()
+        times[which] = runs
+    med = {k: sorted(v)[1] for k, v in times.items()}
+    print(f"caption generate b{B} beam {CAPTION_BEAMS} length {L} on {card}: "
+          + ", ".join(f"{k} {B * L / v:.1f} tokens/s ({v * 1e3:.1f} ms a "
+                      f"call)" for k, v in med.items())
+          + f"; runs (s) {json.dumps(times)}; peak memory in a kernel call "
+          f"{peak / 2 ** 30:.3f} GiB (with {resident / 2 ** 30:.3f} GiB "
+          "resident)", flush=True)
+    same = (warm["plain"][0] == out[0]).all(dim=1)
+    print(f"beam sequences of the plain route equal to the kernel route's: "
+          f"{int(same.sum())} of {B} (bf16 rounding differs between the "
+          f"routes; the steps are held above)", flush=True)
+    del gen, out, checks, sample, warm
+    return counts
+
+
+def caption_step_phase(dev, card: str, timed_steps: int = 4) -> dict:
+    """The caption train step (Swin-S + BERT-base, b32, text 150, unilm,
+    DropPath 0.3, dropout 0.1) on the kernels and on the plain versions from
+    one seed, the plain run replaying the kernel run's masks: gradients from
+    the initial parameters, the launch counts of one step, the losses of 3
+    steps, then step times in turns and peak memory. Returns the launch
+    counts of one step."""
+    from mvlt_tpu_torch.flagship import build_caption_train_step
+    from mvlt_tpu_torch.ops import kernels
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    B = TRAIN_BATCH
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    step_k, batch = build_caption_train_step(batch=B, text_len=CAPTION_TEXT,
+                                             device=dev)
+    step_p, batch_p = build_caption_train_step(batch=B,
+                                               text_len=CAPTION_TEXT,
+                                               device=dev, plain=True)
+    keys = ("image", "caption", "mlm_labels")
+    print(f"caption step built twice in {time.perf_counter() - t0:.1f} s: "
+          f"caption {tuple(batch['caption'].shape)}, "
+          f"{(batch['mlm_labels'] != -100).sum().item()} MLM labels, padded "
+          f"tokens {(batch['caption'] == 0).sum().item()}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    masks = DropoutMasks(gen, record=True)
+    for model, plain, src in ((step_k.model, False, masks),
+                              (step_p.model, True, None)):
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(*(batch[k] for k in keys), "unilm", plain=plain,
+                             masks=src or DropoutMasks.replay(masks.recorded))
+        loss.backward()
+    torch.cuda.synchronize()
+    compare_grads(step_k.model, step_p.model,
+                  "caption step initial gradients", swin_bars)
+    del masks
+
+    losses, counts = {"kernels": [], "plain": []}, None
+    for i in range(TRAIN_STEPS):
+        step_k.masks = DropoutMasks(gen, record=True)
+        if i == 0:
+            reset_counts()
+        out_k = step_k(batch)
+        torch.cuda.synchronize()
+        if i == 0:
+            counts = launch_counts()
+            print(f"launches in one caption step: {json.dumps(counts)}",
+                  flush=True)
+            for name, (want, _) in EXPECTED_CAPTION_STEP.items():
+                if counts[name] != want:
+                    raise AssertionError(f"{name} ran {counts[name]} times "
+                                         f"in one caption step, expected "
+                                         f"{want}")
+            for k in kernels.KERNELS:
+                if counts[k.__name__] <= 0:
+                    raise AssertionError(f"kernel {k.__name__} never "
+                                         "launched in the caption step")
+        step_p.masks = DropoutMasks.replay(step_k.masks.recorded)
+        out_p = step_p(batch_p)
+        losses["kernels"].append(out_k["loss"].item())
+        losses["plain"].append(out_p["loss"].item())
+    print(f"caption step losses of {TRAIN_STEPS} steps: {json.dumps(losses)}",
+          flush=True)
+    for i, (a, b) in enumerate(zip(losses["kernels"], losses["plain"])):
+        if not (abs(a - b) <= LOSS_BAR * abs(b) and a == a):
+            raise AssertionError(f"caption step {i + 1} loss {a} vs plain {b} "
+                                 f"beyond {LOSS_BAR} relative")
+
+    times, peak, resident = {"kernels": [], "plain": []}, None, None
+    for which in ("plain", "kernels", "kernels", "plain"):
+        step, b = (step_k, batch) if which == "kernels" else (step_p, batch_p)
+        step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
+        step(b)
+        torch.cuda.synchronize()
+        measure = which == "kernels" and peak is None
+        if measure:
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            step(b)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3 / timed_steps)
+        if measure:
+            peak = torch.cuda.max_memory_allocated()
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    print(f"caption train step b{B} (S = 201, unilm) on {card}: kernels "
+          f"{ms['kernels']:.3f} ms/step ({B * 1e3 / ms['kernels']:.1f} "
+          f"samples/s), plain {ms['plain']:.3f} ms/step; runs "
+          f"{json.dumps(times)}; peak memory in a kernel step "
+          f"{peak / 2 ** 30:.3f} GiB (with {resident / 2 ** 30:.3f} GiB "
+          "resident, both models)", flush=True)
+    return counts
+
+
 if __name__ == "__main__":
-    sys.exit(norm_main() if sys.argv[1:] == ["--norm"] else main())
+    modes = {"--norm": norm_main, "--caption": caption_main}
+    sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

@@ -199,3 +199,15 @@ class MVLTConfig:
             itm_task=False, max_length=150, lr=4e-5)
         base.update(kw)
         return MVLTConfig(**base)
+
+    @staticmethod
+    def for_caption(**kw) -> "MVLTConfig":
+        """Report generation (``mvlt_tpu/config.py:247-252``): fusion
+        dropouts 0.1, lr 1e-5, ``is_decoder``; ``max_length`` 80 unless
+        given (MIMIC-CXR's 150, ``run_report_generation.py:70-71``)."""
+        base = dict(
+            fusion=FusionConfig(hidden_dropout_prob=0.1,
+                                attention_probs_dropout_prob=0.1),
+            max_length=80, lr=1e-5, is_decoder=True)
+        base.update(kw)
+        return MVLTConfig(**base)

@@ -17,6 +17,14 @@
   ``resnet_fc``: 768 is the fusion width), DropPath 0.3 as a linspace over
   the 24 blocks, fusion dropouts 0.1, b32, text length 80 (the model that
   ``bench.py:197-239`` ``measure_pretrain_step`` trains).
+- Report generation at the MIMIC-CXR settings of
+  ``run_report_generation.py`` (``unilm``, b32, beam 5: :46-52; caption
+  length 150: :70-71): ``for_caption(max_length=150)`` on Swin-S @224 +
+  BERT-base with the 30,522-word MLM decoder. Serving is the KV-cached
+  greedy / sampling / beam decode in bf16 (the image encoded once per
+  sample); training is the caption train step over S = 1 + 49 + 1 + 150 =
+  201 under the seq2seq mask, fusion dropouts 0.1 and DropPath 0.3, bf16
+  compute with f32 masters and AdamW (``train/steps.py:282-294``).
 
 Weights are random, drawn from a numpy seed: normal(0, 0.02) for every dense
 and conv weight, bias, embedding and relative-position table, and LayerNorm
@@ -34,10 +42,12 @@ import torch
 
 from mvlt_tpu_torch.config import MVLTConfig, resnet101, swin_small
 from mvlt_tpu_torch.models.backbones.resnet import BatchNorm
-from mvlt_tpu_torch.models.heads import PretrainModel, VQAModel
+from mvlt_tpu_torch.models import generation
+from mvlt_tpu_torch.models.heads import CaptionModel, PretrainModel, VQAModel
 from mvlt_tpu_torch.ops.layers import DropoutMasks, LayerNorm
 from mvlt_tpu_torch.train.state import make_optimizer
-from mvlt_tpu_torch.train.steps import make_pretrain_step, make_vqa_step
+from mvlt_tpu_torch.train.steps import (make_caption_step, make_pretrain_step,
+                                        make_vqa_step)
 
 
 def flagship_vqa_config() -> MVLTConfig:
@@ -67,6 +77,13 @@ def flagship_swin_pretrain_config() -> MVLTConfig:
     it from ``flagship_vqa_config()``."""
     return dataclasses.replace(flagship_vqa_config(), itm_task=True,
                                max_length=80)
+
+
+def flagship_caption_config() -> MVLTConfig:
+    """Report generation at the MIMIC-CXR settings: ``for_caption(max_length
+    =150)`` (fusion dropouts 0.1, lr 1e-5) with Swin-S (DropPath 0.3)."""
+    return MVLTConfig.for_caption(max_length=150, conv="swin",
+                                  swin=swin_small())
 
 
 def _need_cuda(device, what: str) -> torch.device:
@@ -174,9 +191,29 @@ def example_pretrain_batch(batch: int, text_len: int, seed: int = 0,
     elsewhere; ``itm_label`` in {0, 1}. Ids are int64."""
     rng = np.random.default_rng(seed)
     image = rng.normal(size=(batch, 3, image_size, image_size))
+    tokens, lengths = _example_tokens(rng, batch, text_len, vocab)
+    caption, label = _mask_words(rng, tokens, lengths, vocab, mask_token_id)
+    itm = rng.integers(0, 2, size=batch)
+    as_long = lambda a: torch.from_numpy(a.astype(np.int64))  # noqa: E731
+    return {"image": torch.from_numpy(image.astype(np.float32)),
+            "caption_masked": as_long(caption),
+            "caption_label": as_long(label), "itm_label": as_long(itm)}
+
+
+def _example_tokens(rng, batch: int, text_len: int, vocab: int):
+    """(tokens (B, L) with 5..L real ids in [1, vocab) and zero padding,
+    lengths (B,))."""
     tokens = rng.integers(1, vocab, size=(batch, text_len))
     lengths = rng.integers(min(5, text_len), text_len + 1, size=batch)
     tokens[np.arange(text_len)[None, :] >= lengths[:, None]] = 0
+    return tokens, lengths
+
+
+def _mask_words(rng, tokens, lengths, vocab: int, mask_token_id: int):
+    """The data pipeline's MLM masking (``mvlt_tpu/data/transforms.py:
+    125-137``): min(10, max(1, round(0.2 n))) of a caption's n real
+    positions, 80% [MASK], 10% a random token, 10% kept. Returns (masked
+    tokens, labels: the original token there, -100 elsewhere)."""
     caption, label = tokens.copy(), np.full_like(tokens, -100)
     for b, n in enumerate(lengths):
         for i in rng.permutation(n)[:min(10, max(1, round(n * 0.2)))]:
@@ -186,11 +223,7 @@ def example_pretrain_batch(batch: int, text_len: int, seed: int = 0,
                 caption[b, i] = mask_token_id
             elif p < 0.9:
                 caption[b, i] = rng.integers(1, vocab)
-    itm = rng.integers(0, 2, size=batch)
-    as_long = lambda a: torch.from_numpy(a.astype(np.int64))  # noqa: E731
-    return {"image": torch.from_numpy(image.astype(np.float32)),
-            "caption_masked": as_long(caption),
-            "caption_label": as_long(label), "itm_label": as_long(itm)}
+    return caption, label
 
 
 def build_pretrain_train_step(batch: int = 32, text_len: int = 80,
@@ -240,6 +273,109 @@ def build_swin_pretrain_train_step(batch: int = 32, text_len: int = 80,
     return build_pretrain_train_step(
         batch, text_len, device, seed, plain, compute_dtype,
         config or flagship_swin_pretrain_config(), image_size)
+
+
+def example_caption_batch(batch: int, text_len: int, seed: int = 0,
+                          device="cpu", *, image_size: int = 224,
+                          vocab: int = 30000,
+                          learning_strategy: str = "unilm",
+                          mask_token_id: int = 103,
+                          eos_token_id: int = 104) -> dict:
+    """A caption batch from ``numpy.random.default_rng(seed)`` on
+    ``device``: ``image`` (B, 3, H, W) f32; ``caption`` (B, L) reports of
+    5..L tokens in [1, vocab) ending in eos, 0 = padding; ``mlm_labels``
+    (B, L) as the caption data pipeline builds them
+    (``mvlt_tpu/data/datasets.py:438-452``): for 'unilm' the caption masked
+    as in pretraining, the original token at the at most 10 masked
+    positions and -100 elsewhere; for 'normal' every real token (each
+    predicted from the position before it), -100 at the padding. Ids are
+    int64."""
+    rng = np.random.default_rng(seed)
+    image = rng.normal(size=(batch, 3, image_size, image_size))
+    tokens, lengths = _example_tokens(rng, batch, text_len, vocab)
+    tokens[np.arange(batch), lengths - 1] = eos_token_id
+    if learning_strategy == "unilm":
+        caption, label = _mask_words(rng, tokens, lengths, vocab,
+                                     mask_token_id)
+    elif learning_strategy == "normal":
+        caption, label = tokens, np.where(tokens > 0, tokens, -100)
+    else:
+        raise NotImplementedError(f"learning_strategy {learning_strategy!r}")
+    as_long = lambda a: torch.from_numpy(a.astype(np.int64))  # noqa: E731
+    return {"image": torch.from_numpy(image.astype(np.float32)).to(device),
+            "caption": as_long(caption).to(device),
+            "mlm_labels": as_long(label).to(device)}
+
+
+def build_caption_generate(batch: int = 32, num_beams: int = 5,
+                           max_length: int = 150, strategy: str = "unilm",
+                           sample: bool = False,
+                           dtype: torch.dtype = torch.bfloat16, device="cuda",
+                           seed: int = 0, config: MVLTConfig = None,
+                           image_size: int = 224
+                           ) -> Tuple[Callable, torch.Tensor]:
+    """(generate, image) for report generation in serving: the seeded
+    :class:`CaptionModel` of :func:`flagship_caption_config` (or
+    ``config``) in ``dtype`` and an image batch (B, 3, H, W).
+    ``generate(image, plain=False, noise=None, **spec)`` encodes each image
+    once and decodes with the KV cache; it returns ``(sequences (B, L),
+    lengths (B,), scores (B,))`` for beams and ``(ids (B, L), scores (B,
+    L))`` for greedy / sampling (``num_beams=1``). Keywords override fields
+    of ``generate.spec`` (``unroll``, ``suffix_reorder``, ``num_beams``,
+    ``sample``, ...); sampling draws from ``noise``, by default a
+    :class:`~mvlt_tpu_torch.models.generation.GumbelNoise` seeded with 0 on
+    the image's device, so that two calls agree. ``plain=True`` runs the
+    kernels' plain versions. ``device='cuda'`` without a CUDA device
+    raises."""
+    device = _need_cuda(device, "build_caption_generate")
+    cfg = dataclasses.replace(config or flagship_caption_config(),
+                              max_length=max_length)
+    model = CaptionModel(cfg, dtype=dtype, device=device)
+    init_seeded_(model, seed)
+    model.eval()
+    spec = generation.GenerationSpec.from_config(
+        cfg, num_beams=num_beams, strategy=strategy, sample=sample)
+    image = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(batch, 3, image_size, image_size)).astype(np.float32))
+
+    def generate(image, plain: bool = False, noise=None, **overrides):
+        return generation.generate(model, image,
+                                   dataclasses.replace(spec, **overrides),
+                                   noise, plain)
+
+    generate.model, generate.spec = model, spec
+    return generate, image.to(device)
+
+
+def build_caption_train_step(batch: int = 32, text_len: int = 150,
+                             learning_strategy: str = "unilm", device="cuda",
+                             seed: int = 0, plain: bool = False,
+                             compute_dtype: torch.dtype = torch.bfloat16,
+                             config: MVLTConfig = None,
+                             image_size: int = 224) -> Tuple[Callable, dict]:
+    """(step, batch) for the caption train step: ``step(batch)`` runs
+    forward + backward + AdamW in ``learning_strategy`` and returns
+    ``{"loss"}``; ``step.model`` / ``step.optimizer`` are the seeded
+    :class:`CaptionModel` (f32 masters, ``compute_dtype`` math) and its
+    AdamW, ``step.masks`` its DropPath / dropout source (a generator on
+    ``device`` seeded with ``seed``). The batch is
+    :func:`example_caption_batch`. ``config`` (default
+    :func:`flagship_caption_config`) and ``image_size`` shrink it for tests.
+    ``device='cuda'`` without a CUDA device raises."""
+    device = _need_cuda(device, "build_caption_train_step")
+    cfg = config or flagship_caption_config()
+    model = CaptionModel(cfg, dtype=torch.float32, device=device,
+                         compute_dtype=compute_dtype)
+    init_seeded_(model, seed)
+    data = example_caption_batch(
+        batch, text_len, seed, device, image_size=image_size,
+        vocab=min(30000, cfg.fusion.vocab_size),
+        learning_strategy=learning_strategy,
+        mask_token_id=cfg.mask_token_id, eos_token_id=cfg.eos_token_id)
+    step = make_caption_step(model, make_optimizer(model, cfg),
+                             learning_strategy=learning_strategy, plain=plain)
+    step.masks = DropoutMasks(torch.Generator(device=device).manual_seed(seed))
+    return step, data
 
 
 def entry():

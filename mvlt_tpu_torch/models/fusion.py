@@ -30,6 +30,17 @@ the JAX layers do with ``.astype(cdt)``), so a model whose parameters are
 float32 masters trains in bf16: the counterparts run as autograd Functions
 whenever a gradient is needed, and their weight grads return through the
 cast to the f32 masters. LayerNorm parameters stay f32.
+
+KV-cached decoding (``fusion.py:62-68,367-400``). ``forward_kv`` is the
+prefill that returns each layer's (k, v) (JAX's ``need_kv``): its attention
+halves leave the fused kernel and run plain, as JAX's gate sends them
+(``fusion.py:113``): the qkv / out products through ``Dense`` (K1 in
+serving), :func:`~mvlt_tpu_torch.ops.attention.multi_head_attention`, the
+LayerNorm through ``LayerNorm`` (K3); its MLP halves stay on
+``fused_mlp_ln``, whose JAX gate does not test ``need_kv``
+(``fusion.py:236-262``). ``decode_step`` runs T = 1 or 2 tokens against a
+static cache (:func:`init_cache`) with both halves plain, writing each
+layer's new (k, v) into the stacked cache in place.
 """
 
 from __future__ import annotations
@@ -39,8 +50,19 @@ from torch import nn
 
 from mvlt_tpu_torch.config import FusionConfig
 from mvlt_tpu_torch.ops import masks as mask_lib
-from mvlt_tpu_torch.ops.layers import Dense, LayerNorm
+from mvlt_tpu_torch.ops.attention import multi_head_attention
+from mvlt_tpu_torch.ops.layers import Dense, LayerNorm, gelu_exact
 from mvlt_tpu_torch.utils.env import env_flag
+
+
+def init_cache(cfg: FusionConfig, batch: int, max_len: int,
+               dtype: torch.dtype, device) -> dict:
+    """The static KV cache (``fusion.py:62-68``): ``{"k", "v"}``, each
+    (layers, B, heads, max_len, head_dim) zeros in ``dtype``."""
+    shape = (cfg.num_hidden_layers, batch, cfg.num_attention_heads, max_len,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 class EncoderLayer(nn.Module):
@@ -103,6 +125,48 @@ class EncoderLayer(nn.Module):
         return ops.fused_mlp_ln_masked(h, *w(self.intermediate),
                                        *w(self.output), hmask, *ln2, self.eps)
 
+    def _attention_plain(self, hidden: torch.Tensor, bias, ops, cache=None,
+                         write_pos: int = 0):
+        """JAX's plain attention half (``fusion.py:181-208``), deterministic:
+        the fused qkv product split in query, key, value order, attention
+        over the sequence or, with ``cache`` = (k, v) of one layer (B, nH,
+        C, Dh), over the cache after the new rows are written at
+        ``write_pos``; the out product, + hidden, LayerNorm. Returns (out,
+        k, v), k / v (B, nH, S or C, Dh)."""
+        B, S, H = hidden.shape
+        nH = self.num_heads
+        qkv = self.qkv(hidden, ops).view(B, S, 3, nH, H // nH)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+        if cache is not None:
+            ck, cv = cache
+            ck[:, :, write_pos:write_pos + S] = k
+            cv[:, :, write_pos:write_pos + S] = v
+            k, v = ck, cv
+        ctx = multi_head_attention(q, k, v, bias, scale=self.scale)
+        ctx = ctx.transpose(1, 2).reshape(B, S, H)
+        return self.out_layernorm(self.out(ctx, ops) + hidden, ops), k, v
+
+    def forward_kv(self, hidden: torch.Tensor, bias, ops):
+        """The prefill layer: plain attention half, ``fused_mlp_ln``.
+        Returns (out, (k, v))."""
+        h, k, v = self._attention_plain(hidden, bias, ops)
+        dt = h.dtype
+        out = ops.fused_mlp_ln(
+            h, self.intermediate.weight.to(dt), self.intermediate.bias.to(dt),
+            self.output.weight.to(dt), self.output.bias.to(dt),
+            self.output_layernorm.weight, self.output_layernorm.bias,
+            self.eps)
+        return out, (k, v)
+
+    def decode(self, hidden: torch.Tensor, bias, ops, cache,
+               write_pos: int) -> torch.Tensor:
+        """One cached decode step of the layer, both halves plain (JAX's
+        ``cache_kv`` path): the MLP half is fc1 -> exact GELU -> fc2, +
+        residual, LayerNorm (``fusion.py:264-269``)."""
+        h, _, _ = self._attention_plain(hidden, bias, ops, cache, write_pos)
+        m = gelu_exact(self.intermediate(h, ops))
+        return self.output_layernorm(self.output(m, ops) + h, ops)
+
 
 class FusionEncoder(nn.Module):
     """Embeddings + key-padding bias + N post-LN layers + optional pooler
@@ -128,36 +192,80 @@ class FusionEncoder(nn.Module):
         self.pooler = (Dense(H, H, dtype=dtype, device=device)
                        if add_pooling_layer else None)
 
-    def forward(self, text_idx, text_mask, image_feature, image_mask, ops,
-                seq2seq: bool = False, masks=None):
-        """Returns (hidden (B, S, H), pooled (B, H) or None). ``seq2seq``
-        selects the UniLM mask; ``masks`` (a :class:`DropoutMasks`) turns
-        training dropout on."""
+    def _embed(self, text_idx, image_feature):
+        """(embeddings (B, S, H) in the compute dtype, obj_end) of
+        ``[CLS] <image> [SEP] (<text>)``; ``text_idx`` may be None (the
+        'normal' prefill, ``generation.py:70-73``)."""
         B, num_obj = image_feature.shape[:2]
         obj_end = num_obj + 1                            # index of [SEP]
-        total = num_obj + text_idx.shape[1] + 2
         dt = self.compute_dtype
         word = self.word_embeddings
-        cls = word[self.cls_token_id].to(dt).expand(B, 1, -1)
-        sep = word[self.sep_token_id].to(dt).expand(B, 1, -1)
-        vl = torch.cat([cls, image_feature.to(dt), sep,
-                        word[text_idx.long()].to(dt)], dim=1)
-        pos = torch.arange(total, device=vl.device)
+        parts = [word[self.cls_token_id].to(dt).expand(B, 1, -1),
+                 image_feature.to(dt),
+                 word[self.sep_token_id].to(dt).expand(B, 1, -1)]
+        if text_idx is not None:
+            parts.append(word[text_idx.long()].to(dt))
+        vl = torch.cat(parts, dim=1)
+        pos = torch.arange(vl.shape[1], device=vl.device)
         token_type = (pos <= obj_end).long()
-        hidden = (vl + self.token_type_embeddings[token_type].to(dt)[None]
-                  + self.position_embeddings[pos].to(dt)[None])
+        return (vl + self.token_type_embeddings[token_type].to(dt)[None]
+                + self.position_embeddings[pos].to(dt)[None]), obj_end
 
+    def _pool(self, hidden, ops):
+        first = self.pooler(hidden[:, 0], ops)
+        return torch.tanh(first.float()).to(first.dtype)
+
+    def forward(self, text_idx, text_mask, image_feature, image_mask, ops,
+                seq2seq: bool = False, masks=None, pool: bool = True):
+        """Returns (hidden (B, S, H), pooled (B, H) or None). ``seq2seq``
+        selects the UniLM mask; ``masks`` (a :class:`DropoutMasks`) turns
+        training dropout on; ``pool=False`` skips the pooler (a head that
+        does not read it). ``text_idx`` / ``text_mask`` may be None."""
+        hidden, obj_end = self._embed(text_idx, image_feature)
+        B, total = hidden.shape[:2]
         if seq2seq:
             kbias, qbias = None, mask_lib.mask_to_bias(
                 mask_lib.seq2seq_fusion_mask(B, obj_end, total,
-                                             vl.device)).contiguous()
+                                             hidden.device)).contiguous()
         else:
             kbias, qbias = mask_lib.mask_to_bias(
                 mask_lib.bidirectional_key_mask(image_mask, text_mask)), None
         for layer in self.layers:
             hidden = layer(hidden, kbias, ops, qbias, masks)
         pooled = None
-        if self.pooler is not None:
-            first = self.pooler(hidden[:, 0], ops)
-            pooled = torch.tanh(first.float()).to(first.dtype)
+        if self.pooler is not None and pool:
+            pooled = self._pool(hidden, ops)
         return hidden, pooled
+
+    def forward_kv(self, text_idx, image_feature, ops):
+        """The deterministic seq2seq forward that also returns every layer's
+        (k, v), each (B, nH, S, Dh) (JAX's ``return_kv=True``; the decode
+        prefill). Returns (hidden (B, S, H), [(k, v)] * layers)."""
+        hidden, obj_end = self._embed(text_idx, image_feature)
+        total = hidden.shape[1]
+        bias = mask_lib.mask_to_bias(mask_lib.seq2seq_fusion_mask(
+            1, obj_end, total, hidden.device))[:, None]     # (1, 1, S, S)
+        kvs = []
+        for layer in self.layers:
+            hidden, kv = layer.forward_kv(hidden, bias, ops)
+            kvs.append(kv)
+        return hidden, kvs
+
+    def decode_step(self, tokens: torch.Tensor, cache: dict, write_pos: int,
+                    ops) -> torch.Tensor:
+        """Run T (1 or 2) tokens (B, T) at positions ``write_pos + [0..T)``,
+        token type 0, against the static cache (``fusion.py:367-400``).
+        Each layer's new (k, v) is written into ``cache["k"][i]`` /
+        ``cache["v"][i]`` in place. Returns hidden (B, T, H)."""
+        B, T = tokens.shape
+        dt = self.compute_dtype
+        pos = write_pos + torch.arange(T, device=tokens.device)
+        hidden = (self.word_embeddings[tokens.long()].to(dt)
+                  + self.token_type_embeddings[0].to(dt)
+                  + self.position_embeddings[pos].to(dt)[None])
+        ck, cv = cache["k"], cache["v"]
+        bias = mask_lib.mask_to_bias(mask_lib.decode_step_mask(
+            1, T, ck.shape[3], write_pos, tokens.device))[:, None]
+        for i, layer in enumerate(self.layers):
+            hidden = layer.decode(hidden, bias, ops, (ck[i], cv[i]), write_pos)
+        return hidden

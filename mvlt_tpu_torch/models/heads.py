@@ -1,10 +1,15 @@
 """Task heads of the port (counterpart of ``mvlt_tpu/models/heads.py``):
-``VQAModel`` (heads.py:65-94), its forward and its loss, and the MLM+ITM
-``PretrainModel`` (heads.py:97-156) with its heads. The retrieval and
-caption heads come with their slices.
+``VQAModel`` (heads.py:65-94), its forward and its loss, the MLM+ITM
+``PretrainModel`` (heads.py:97-156) with its heads, and the report
+generation ``CaptionModel`` (heads.py:210-285): its image encoder, its
+training logits in both learning strategies and its loss; its decoding is
+:mod:`mvlt_tpu_torch.models.generation`. The retrieval head is still to
+come (ROADMAP.md queue A, "Retrieval").
 
 The heads' products and LayerNorms sit outside any TPU kernel in JAX, so in
-training they are plain PyTorch (``F.linear``, ``F.layer_norm``)."""
+training they are plain PyTorch (``F.linear``, ``F.layer_norm``). The MLM
+decoder to the vocabulary is ``F.linear`` in serving too, by design: JAX
+computes it in XLA, and K1 takes no N % 8 != 0 (vocab 30,522)."""
 
 from __future__ import annotations
 
@@ -50,14 +55,18 @@ class _Backbone(nn.Module):
                                     compute_dtype=compute_dtype)
 
     def _encode(self, image, text, ops, train: bool, seq2seq: bool = False,
-                masks=None):
+                masks=None, pool: bool = True):
         # the backbone draws its masks (Swin DropPath) before the fusion
         # encoder, as JAX runs them
         feat = self.conv(image, ops, train=train, masks=masks)
+        return self._fuse(feat, text, ops, seq2seq, masks, pool)
+
+    def _fuse(self, feat, text, ops, seq2seq: bool = False, masks=None,
+              pool: bool = True):
         image_mask = torch.ones(feat.shape[:2], dtype=torch.bool,
                                 device=feat.device)
         hidden, pooled = self.fusion(text, text > 0, feat, image_mask, ops,
-                                     seq2seq=seq2seq, masks=masks)
+                                     seq2seq=seq2seq, masks=masks, pool=pool)
         return feat.shape[1] + 1, hidden, pooled      # obj_end: [SEP]
 
 
@@ -131,7 +140,10 @@ class HeadTransform(nn.Module):
 
 
 class MLMHead(nn.Module):
-    """HF ``BertOnlyMLMHead``: transform + decoder to vocab logits."""
+    """HF ``BertOnlyMLMHead``: transform + decoder to vocab logits. The
+    decoder is ``F.linear`` in serving as in training: K1 refuses the
+    vocabulary's N = 30,522 (not a multiple of 8), and JAX runs this
+    product in XLA; the transform's product stays on ``Dense``."""
 
     def __init__(self, hidden: int, vocab: int, eps: float, *,
                  dtype: torch.dtype, device):
@@ -141,7 +153,8 @@ class MLMHead(nn.Module):
         self.decoder = Dense(hidden, vocab, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
-        return self.decoder(self.transform(x, ops), ops)
+        h, d = self.transform(x, ops), self.decoder
+        return F.linear(h, d.weight.to(h.dtype), d.bias.to(h.dtype))
 
 
 class PretrainModel(_Backbone):
@@ -193,3 +206,95 @@ class PretrainModel(_Backbone):
             loss = loss + metrics["itm_loss"]
         metrics["loss"] = loss
         return loss, metrics
+
+
+class CaptionModel(_Backbone):
+    """``MVLBertForImageCaption`` (heads.py:210-285): visual adapter ->
+    fusion encoder under the seq2seq mask -> ``mlm_head_seq2seq``. The
+    fusion encoder has its pooler, as in JAX, but no head reads it, so it
+    is not run (in JAX its parameters get zero gradients).
+
+    ``encode_forward`` computes the training logits in both learning
+    strategies: 'unilm' predicts each (masked) token from its own hidden
+    state; 'normal' shifts by one, [SEP]'s hidden state predicting the
+    first token. ``loss`` projects only the gathered label positions for
+    'unilm' (``mlm_gather_k``) and every position for 'normal'. Decoding
+    lives in :mod:`mvlt_tpu_torch.models.generation`. ``device`` has no
+    default: the caller says where the model lives."""
+
+    STRATEGIES = ("unilm", "normal")
+
+    def __init__(self, config: MVLTConfig, *, dtype: torch.dtype = torch.float32,
+                 device, compute_dtype=None):
+        super().__init__(config, dtype=dtype, device=device,
+                         compute_dtype=compute_dtype)
+        f = config.fusion
+        self.mlm_head_seq2seq = MLMHead(f.hidden_size, f.vocab_size,
+                                        f.layer_norm_eps, dtype=dtype,
+                                        device=device)
+
+    @staticmethod
+    def _strategy(learning_strategy: str) -> str:
+        if learning_strategy not in CaptionModel.STRATEGIES:
+            raise NotImplementedError(
+                f"learning_strategy {learning_strategy!r}")
+        return learning_strategy
+
+    @torch.no_grad()
+    def encode_image(self, image: torch.Tensor, plain: bool = False):
+        """Backbone features (B, N, hidden) of raw pixels (B, C, H, W),
+        deterministic."""
+        return self.conv(image, PLAIN_OPS if plain else KERNEL_OPS)
+
+    def _text_logits(self, obj_end: int, hidden, L: int, strategy: str, ops):
+        text = hidden[:, obj_end + 1:obj_end + 1 + L]
+        if strategy == "normal":
+            text = torch.cat([hidden[:, obj_end:obj_end + 1], text[:, :-1]],
+                             dim=1)
+        return self.mlm_head_seq2seq(text, ops)
+
+    @torch.no_grad()
+    def encode_forward(self, image_feature: torch.Tensor,
+                       caption: torch.Tensor, learning_strategy: str = "unilm",
+                       plain: bool = False) -> torch.Tensor:
+        """Training logits (B, L, vocab) from backbone features and caption
+        ids (B, L) (0 = padding), deterministic."""
+        ops = PLAIN_OPS if plain else KERNEL_OPS
+        strategy = self._strategy(learning_strategy)
+        obj_end, hidden, _ = self._fuse(image_feature, caption, ops,
+                                        seq2seq=True, pool=False)
+        return self._text_logits(obj_end, hidden, caption.shape[1], strategy,
+                                 ops)
+
+    @torch.no_grad()
+    def forward(self, image: torch.Tensor, caption: torch.Tensor,
+                learning_strategy: str = "unilm", plain: bool = False):
+        """Training logits (B, L, vocab) from raw pixels, deterministic
+        (JAX's ``__call__``)."""
+        return self.encode_forward(self.encode_image(image, plain), caption,
+                                   learning_strategy, plain)
+
+    def loss(self, image: torch.Tensor, caption: torch.Tensor,
+             labels: torch.Tensor, learning_strategy: str = "unilm",
+             plain: bool = False, masks=None):
+        """Training forward (heads.py:264-285): Swin DropPath and fusion
+        dropout from ``masks`` (a :class:`DropoutMasks`; needed when a rate
+        is above 0), drawn in JAX's order. caption (B, L) ids; labels (B, L),
+        -100 where no token is predicted. Returns (mean CE over labels !=
+        -100 in f32, logits of the projected positions)."""
+        _check_masks(self.config, masks)
+        strategy = self._strategy(learning_strategy)
+        ops = PLAIN_OPS if plain else KERNEL_OPS
+        obj_end, hidden, _ = self._encode(image, caption, ops, True,
+                                          seq2seq=True, masks=masks,
+                                          pool=False)
+        k = self.config.mlm_gather_k
+        if strategy == "unilm" and k:
+            L = caption.shape[1]
+            text, labels = gather_label_positions(
+                hidden[:, obj_end + 1:obj_end + 1 + L], labels, k)
+            logits = self.mlm_head_seq2seq(text, ops)
+        else:
+            logits = self._text_logits(obj_end, hidden, caption.shape[1],
+                                       strategy, ops)
+        return cross_entropy_ignore_index(logits, labels), logits

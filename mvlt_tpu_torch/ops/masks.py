@@ -1,8 +1,8 @@
 """Attention masks of the fusion encoder (counterpart of
 ``mvlt_tpu/ops/masks.py:22-70``): the reference's bidirectional key mask
 ``[1, image_mask, 1, text_mask]``, its seq2seq (UniLM) mask, and their
-additive ``(1 - m) * -10000`` bias. The decode mask comes with the decode
-slice."""
+additive ``(1 - m) * -10000`` bias, and the mask of one KV-cached decode
+step."""
 
 from __future__ import annotations
 
@@ -12,11 +12,15 @@ NEG_BIAS = -10000.0
 
 
 def bidirectional_key_mask(image_mask: torch.Tensor,
-                           text_mask: torch.Tensor) -> torch.Tensor:
-    """(B, S) bool key mask for [CLS] + image + [SEP] + text."""
+                           text_mask: torch.Tensor = None) -> torch.Tensor:
+    """(B, S) bool key mask for [CLS] + image + [SEP] (+ text, when
+    ``text_mask`` is given)."""
     ones = torch.ones((image_mask.shape[0], 1), dtype=torch.bool,
                       device=image_mask.device)
-    return torch.cat([ones, image_mask.bool(), ones, text_mask.bool()], dim=1)
+    parts = [ones, image_mask.bool(), ones]
+    if text_mask is not None:
+        parts.append(text_mask.bool())
+    return torch.cat(parts, dim=1)
 
 
 def seq2seq_fusion_mask(batch: int, obj_end: int, total: int,
@@ -28,6 +32,17 @@ def seq2seq_fusion_mask(batch: int, obj_end: int, total: int,
     row, col = idx[:, None], idx[None, :]
     mask = (col <= row) | (col <= obj_end)
     return mask[None].expand(batch, total, total)
+
+
+def decode_step_mask(batch: int, num_queries: int, cache_len: int,
+                     write_pos: int, device=None) -> torch.Tensor:
+    """(B, num_queries, cache_len) bool mask of one incremental decode step
+    (``masks.py:44-56``): query i sits at absolute position ``write_pos +
+    i`` and sees every cache slot at a position at or below its own; the
+    slots not yet written lie above the last query and stay hidden."""
+    q_pos = write_pos + torch.arange(num_queries, device=device)[:, None]
+    k_pos = torch.arange(cache_len, device=device)[None, :]
+    return (k_pos <= q_pos)[None].expand(batch, num_queries, cache_len)
 
 
 def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:

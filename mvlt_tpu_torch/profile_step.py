@@ -1,6 +1,7 @@
-"""Where the device time of a train step goes, on one GPU.
+"""Where the device time of a train step or a report-generation call goes,
+on one GPU.
 
-    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain] [--batch 32] [--steps 3] [--attn-impl auto|pallas]
+    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate] [--batch 32] [--steps 3] [--attn-impl auto|pallas]
 
 Builds the VQA finetune train step (``--path vqa``, the default:
 :func:`mvlt_tpu_torch.flagship.build_vqa_train_step`), the MLM+ITM
@@ -25,6 +26,13 @@ from the environment, e.g. the step of record with both:
 ``--attn-impl pallas`` builds the Swin backbone on its ``attn_impl='pallas'``
 route (``window_attention`` in every block), as the JAX package's tests set
 it: the adapter's ``SwinTransformer`` patched while the step is built.
+
+``--path caption_step`` is the caption train step
+(:func:`~mvlt_tpu_torch.flagship.build_caption_train_step`: Swin-S +
+BERT-base, text 150, unilm); ``--path caption_generate`` one call of report
+generation (:func:`~mvlt_tpu_torch.flagship.build_caption_generate`: beam
+5, length 150, bf16), whose "step" is a whole generate call: its device
+time, busy share and launches (``--steps 1`` keeps the trace short).
 """
 
 from __future__ import annotations
@@ -54,6 +62,11 @@ FAMILIES = [
     (OURS + "fold_kernel", "K5 partial-sum fold"),          # both K5 calls
     (OURS + "layernorm_kernel", "K3 layernorm"),            # <lanes, chunks>
     (OURS + "gemm_", "K1 gemm"),      # the mainloop and the split-K fold
+    # SDPA's kernels (cuDNN's, or cutlass's memory-efficient ones) name
+    # cuDNN or cutlass: before the convolutions and cuBLAS
+    ("sdpa", "SDPA (decode and prefill attention)"),
+    ("fmha", "SDPA (decode and prefill attention)"),
+    ("flash_fwd", "SDPA (decode and prefill attention)"),
     ("multi_tensor_apply", "AdamW (multi-tensor)"),
     ("batch_norm", "BatchNorm (ResNet)"),
     ("bn_", "BatchNorm (ResNet)"),
@@ -68,6 +81,11 @@ FAMILIES = [
     ("nvjet", CUBLAS),
     ("cutlass", CUBLAS),
     ("max_pool", "ResNet max-pool"),
+    ("sort", "torch.sort (beam candidates)"),
+    ("index", "gathers / index copies (beam and cache reorder, "
+              "embedding backward)"),
+    ("scatter_gather", "gathers / index copies (beam and cache reorder, "
+                       "embedding backward)"),
 ]
 
 
@@ -113,6 +131,13 @@ def _build(args, flagship, seq2seq_coin_flip):
     """(step(batch), batch) of ``args.path`` on the card."""
     if args.path == "vqa":
         return flagship.build_vqa_train_step(batch=args.batch, device="cuda")
+    if args.path == "caption_step":
+        return flagship.build_caption_train_step(batch=args.batch,
+                                                 device="cuda")
+    if args.path == "caption_generate":
+        gen, image = flagship.build_caption_generate(batch=args.batch,
+                                                     device="cuda")
+        return (lambda im: gen(im)), image
     build = (flagship.build_swin_pretrain_train_step
              if args.path == "swin_pretrain"
              else flagship.build_pretrain_train_step)
@@ -123,7 +148,8 @@ def _build(args, flagship, seq2seq_coin_flip):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--path", choices=("vqa", "pretrain", "swin_pretrain"),
+    ap.add_argument("--path", choices=("vqa", "pretrain", "swin_pretrain",
+                                       "caption_step", "caption_generate"),
                     default="vqa")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--steps", type=int, default=3)
@@ -191,10 +217,11 @@ def main() -> int:
     print(f"switches: {on or 'none set'}; attn_impl={args.attn_impl!r}")
     print(f"{SAMPLE} before / after the unprofiled steps: {clocks}")
     print(f"unprofiled step times (ms): {[round(t, 3) for t in step_ms]}")
-    print(f"{args.path} train step b{args.batch}: {unprofiled_ms:.3f} ms/step unprofiled, "
-          f"{wall_ms:.3f} ms/step under the profiler; device time "
-          f"{total:.3f} ms/step, busy share {total / wall_ms:.3f}")
-    print(f"{'family':58s} {'ms/step':>9s} {'share':>6s} {'launches':>8s}")
+    what = "call" if args.path == "caption_generate" else "step"
+    print(f"{args.path} b{args.batch}: {unprofiled_ms:.3f} ms/{what} unprofiled, "
+          f"{wall_ms:.3f} ms/{what} under the profiler; device time "
+          f"{total:.3f} ms/{what}, busy share {total / wall_ms:.3f}")
+    print(f"{'family':58s} {'ms/' + what:>9s} {'share':>6s} {'launches':>8s}")
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"{fam:58s} {ms:9.3f} {ms / total:6.1%} {launches[fam]:8d}")
     print("K1 gemm by part (ms/step, launches/step):")

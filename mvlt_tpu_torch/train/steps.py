@@ -87,3 +87,34 @@ def make_pretrain_step(model, optimizer: torch.optim.Optimizer, *,
     step.model, step.optimizer = model, optimizer
     step.masks = _masks(model)
     return step
+
+
+def make_caption_step(model, optimizer: torch.optim.Optimizer, *,
+                      learning_strategy: str = "unilm", plain: bool = False):
+    """``step(batch) -> {"loss"}`` for a :class:`CaptionModel`
+    (``steps.py:282-294``): CE over the MLM logits with ignore index -100
+    in ``learning_strategy``, then one optimizer update. ``batch`` holds
+    ``image`` (B, 3, H, W), ``caption`` (B, L) and ``mlm_labels`` (B, L);
+    it is moved to the model's device. The masks are drawn in JAX's order:
+    the Swin DropPath first, then each fusion layer's. Parameters the loss
+    does not reach (the fusion pooler) get zero gradients, so that AdamW
+    decays them as optax does. ``plain=True`` runs the kernels' plain
+    versions."""
+    device = next(model.parameters()).device
+
+    def step(batch: Batch) -> Dict[str, torch.Tensor]:
+        image, caption, labels = (batch[k].to(device)
+                                  for k in ("image", "caption", "mlm_labels"))
+        optimizer.zero_grad(set_to_none=False)
+        loss, _ = model.loss(image, caption, labels, learning_strategy,
+                             plain=plain, masks=step.masks)
+        loss.backward()
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        optimizer.step()
+        return {"loss": loss.detach()}
+
+    step.model, step.optimizer = model, optimizer
+    step.masks = _masks(model)
+    return step

@@ -1,9 +1,11 @@
 """Bridge from the JAX package's flax parameter tree to the port's
 ``state_dict``.
 
-``params_from_flax`` (also named ``vqa_params_from_flax`` and
-``pretrain_params_from_flax``) maps every leaf of a flax ``VQAModel`` or
-``PretrainModel`` tree (``mvlt_tpu/models/heads.py:65,97``) exactly once:
+``params_from_flax`` (also named ``vqa_params_from_flax``,
+``pretrain_params_from_flax`` and ``caption_params_from_flax``) maps every
+leaf of a flax ``VQAModel``, ``PretrainModel`` or ``CaptionModel`` tree
+(``mvlt_tpu/models/heads.py:65,97,210``: ``conv``, ``fusion`` with its
+pooler, and the heads) exactly once:
 
 - a flax Dense ``kernel`` (in, out) becomes a port ``weight`` (out, in);
   a Conv ``kernel`` (H, W, in, out) becomes an OIHW ``weight``;
@@ -13,9 +15,9 @@
   table keeps its layout;
 - the ResNet's ``batch_stats`` ``mean`` / ``var`` become the BatchNorms'
   ``running_mean`` / ``running_var`` buffers;
-- the pretrain heads keep their flax names: ``mlm_head_{seq2seq,bidir}/
-  transform/{transform_dense,transform_layernorm}``, ``.../decoder`` and
-  ``itm_mlp``.
+- the MLM heads keep their flax names: ``mlm_head_{seq2seq,bidir}/
+  transform/{transform_dense,transform_layernorm}`` and ``.../decoder``
+  (the caption tree has ``mlm_head_seq2seq`` alone); so does ``itm_mlp``.
 
 A leaf that no rule maps, a leaf mapped twice, or a fused q/k/v missing a
 part raises ``KeyError``. Load the result with
@@ -95,9 +97,10 @@ def _port_name(path: str):
 
 
 def params_from_flax(variables) -> Dict[str, torch.Tensor]:
-    """flax ``VQAModel`` / ``PretrainModel`` variables (or their ``params``)
-    -> port state_dict of float32 tensors. A ``batch_stats`` collection
-    beside ``params`` maps onto the BatchNorm buffers."""
+    """flax ``VQAModel`` / ``PretrainModel`` / ``CaptionModel`` variables
+    (or their ``params``) -> port state_dict of float32 tensors. A
+    ``batch_stats`` collection beside ``params`` maps onto the BatchNorm
+    buffers."""
     flat = _flatten(variables.get("params", variables))
     if "params" in variables:
         for path, value in _flatten(variables.get("batch_stats", {})).items():
@@ -131,3 +134,4 @@ def params_from_flax(variables) -> Dict[str, torch.Tensor]:
 
 
 vqa_params_from_flax = pretrain_params_from_flax = params_from_flax
+caption_params_from_flax = params_from_flax
