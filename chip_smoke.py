@@ -3,7 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --norm``: phases 1-2's build and K3 / K5 at the
-step's shapes only). It imports nothing of JAX and nothing of the JAX
+step's shapes only; ``--caption`` / ``--retrieval``: phases 1-2 and phase
+10 / 11 only). It imports nothing of JAX and nothing of the JAX
 package. Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
@@ -106,7 +107,20 @@ package. Phases, each of which raises on failure:
     losses against the plain run on replayed masks, launch counts, ms/step
     in turns, peak memory). ``python3 chip_smoke.py --caption`` runs
     phases 1-2 and this phase only;
-11. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+11. retrieval: K2 at the grid's score-call shape (b64, S = 1 + 49 + 1 + 80
+    = 131, 12 heads, key bias), a row of its own; then image-text retrieval
+    at ``run_retrieval.py``'s settings (``build_retrieval_grid``: Swin-S +
+    BERT-base, bf16, a test grid of 128 samples scored in chunks of 64, the
+    backbone once per image): the b64 Swin features and the 2-way logits of
+    a 16 x 64 sub-grid against the plain versions, the launch counts of one
+    grid, two grids bitwise equal, grid rows against the full model's score
+    per pair, pairs/s (n^2 / time, the median of 3 grids after a warm-up)
+    beside the bound, and peak memory; then the retrieval train step
+    (``build_retrieval_train_step``: 32 pairs, cat(pos, neg) = 64 rows,
+    DropPath 0.3, attention dropout 0.1, hidden dropout 0.0) driven as
+    phase 10 drives the caption step. ``python3 chip_smoke.py --retrieval``
+    runs phases 1-2 and this phase only;
+12. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
 """
 
@@ -297,6 +311,35 @@ EXPECTED_CAPTION_GENERATE = {
 }
 # the caption step runs the Swin-S pretrain step's kernels in seq2seq mode
 EXPECTED_CAPTION_STEP = EXPECTED_SWIN_PRETRAIN
+# image-text retrieval at run_retrieval.py's settings: a test grid of
+# RETRIEVAL_N samples scored in chunks of 64 (:133), caption length 80 (S =
+# 1 + 49 + 1 + 80 = 131); a train batch of 32 pairs, cat(pos, neg) = 64
+# rows (:45-54, tasks/retrieval.py:31-35)
+RETRIEVAL_N, RETRIEVAL_CHUNK, RETRIEVAL_TEXT = 128, 64, 80
+RETRIEVAL_PAIRS = 32
+# the sub-grid held against the plain versions: images x captions
+RETRIEVAL_SUB = (16, 64)
+# grid rows held against the full model's score (backbone per pair)
+RETRIEVAL_FULL_ROWS = (0, 77, 127)
+_CHUNKS = -(-RETRIEVAL_N // RETRIEVAL_CHUNK)
+_SCORE_CALLS = RETRIEVAL_N * _CHUNKS
+# calls per grid: the Swin serving rows once per chunk of images, rows 4
+# and 5 in each of the n x ceil(n / 64) fusion-only score calls
+EXPECTED_RETRIEVAL_GRID = {
+    **{k: (v[0] * _CHUNKS, v[1]) for k, v in EXPECTED.items()},
+    "fused_attn_ln": (12 * _SCORE_CALLS, "mvlt_tpu/ops/pallas_attn.py:2156"),
+    "fused_mlp_ln": (12 * _SCORE_CALLS, "mvlt_tpu/ops/pallas_attn.py:2817"),
+    "fused_attn_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:2721"),
+    "fused_mlp_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:3194"),
+}
+# the retrieval step: the Swin-S step's backbone rows; in the fusion,
+# attention dropout without hidden dropout: row 15 with an amask and no
+# hmask, row 5 in its training form, row 16, row 17 without hmask2
+EXPECTED_RETRIEVAL_STEP = {
+    **EXPECTED_SWIN_PRETRAIN,
+    "fused_mlp_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:3194"),
+    "fused_mlp_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2817"),
+}
 # the hand-written kernels and the TPU code whose pieces each carries
 KERNEL_SOURCES = {
     "gemm": ("mvlt_tpu_torch/csrc/gemm.cu", "mvlt_tpu/ops/pallas_attn.py:571"),
@@ -333,6 +376,10 @@ KERNEL_SOURCES = {
                               "mvlt_tpu/ops/pallas_attn.py:512"),
     "biased_attention_bwd_n201": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
                                   "mvlt_tpu/ops/pallas_attn.py:2413"),
+    # K2 at the retrieval grid's score calls: b64, S = 131, 12 heads, the
+    # key bias of padded captions; launched as K2 on the retrieval paths
+    "biased_attention_b64": ("mvlt_tpu_torch/csrc/attention.cu",
+                             "mvlt_tpu/ops/pallas_attn.py:512"),
     # K1's split-K weight gradients: the sums that _swin_mlp_bwd_kernel
     # carries across its sequential grid (:1689-1695)
     "gemm_splitk": ("mvlt_tpu_torch/csrc/gemm.cu",
@@ -2048,6 +2095,35 @@ def caption_kernel_checks(chk: Checker, dev) -> None:
     del amask
 
 
+def retrieval_kernel_checks(chk: Checker, dev) -> None:
+    """K2 at the retrieval grid's score-call shape: b64, S = 1 + 49 + 1 + 80
+    = 131, 12 heads, head dim 64, the key bias of padded captions (what row
+    4 gives it there: 64 x 12 x 131^2 = 13.2 M scores a call), against its
+    plain version, SDPA and its bound, eagerly and as CUDA graphs, as a row
+    of its own (``biased_attention_b64``)."""
+    from mvlt_tpu_torch.ops import kernels as K
+    inp = Inputs(dev, seed=11)
+    bf = torch.bfloat16
+    B, C, nH, S = RETRIEVAL_CHUNK, 768, 12, 1 + 49 + 1 + RETRIEVAL_TEXT
+    Dh = C // nH
+    sc = Dh ** -0.5
+    qkv = inp.rnd(B * S, 3 * C, std=0.5)
+    ctx = torch.empty(B * S, C, dtype=bf, device=dev)
+    lengths = (torch.randint(5, RETRIEVAL_TEXT + 1, (B,), generator=inp.gen)
+               + 51).tolist()
+    kb = inp.key_bias(lengths, S)
+    print(f"K2 at the retrieval score call (b{B}, S = {S}, {nH} heads, head "
+          f"dim {Dh}): {K.attention_plan(S, Dh)}", flush=True)
+    chk.case("biased_attention_b64",
+             lambda: K.biased_attention(qkv, nH, S, sc, None, kb),
+             lambda: K.biased_attention_plain(qkv, nH, S, sc, None, kb),
+             KERNEL_BAR,
+             library_fn=lambda: lib_attention(qkv, B, S, nH,
+                                              kb.to(bf)[:, None, None, :], sc),
+             flops=4.0 * B * nH * S * S * Dh,
+             nbytes=nbytes(qkv, kb, ctx), graph=True)
+
+
 def attention_repeat_checks(dev) -> None:
     """Two calls of K2 on the same inputs are bitwise equal in every mode
     (no atomics, one fixed order of sums), at the pretrain step's fusion
@@ -2628,6 +2704,21 @@ def caption_main() -> int:
     return 0
 
 
+def retrieval_main() -> int:
+    """``python3 chip_smoke.py --retrieval``: phases 1-2 and the retrieval
+    phase only (K2 at the grid's score-call shape, the grid and the train
+    step), without the kernels line."""
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    retrieval_kernel_checks(Checker(), dev)
+    with switches(False):
+        retrieval_grid_phase(dev, card)
+        retrieval_step_phase(dev, card)
+    return 0
+
+
 def main() -> int:
     started = start()
     if started is None:
@@ -2653,6 +2744,7 @@ def main() -> int:
     optin_kernel_checks(chk, dev)
     attn_impl_kernel_checks(chk, dev)
     caption_kernel_checks(chk, dev)
+    retrieval_kernel_checks(chk, dev)
     with switches(False):
         by_path = {"vqa_forward": forward_phase(dev, card),
                    "vqa_train_step": train_phase(dev, card),
@@ -2668,6 +2760,8 @@ def main() -> int:
             dev, card, timed_steps=4, swin=True, attn_impl="pallas")
         by_path["caption_generate"] = caption_generate_phase(dev, card)
         by_path["caption_step"] = caption_step_phase(dev, card)
+        by_path["retrieval_grid"] = retrieval_grid_phase(dev, card)
+        by_path["retrieval_step"] = retrieval_step_phase(dev, card)
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
@@ -2676,7 +2770,8 @@ def main() -> int:
     counterparts = {**EXPECTED, **EXPECTED_TRAIN, **EXPECTED_PRETRAIN,
                     **EXPECTED_SWITCHES, **EXPECTED_PALLAS,
                     **EXPECTED_SWIN_PALLAS, **EXPECTED_CAPTION_GENERATE,
-                    **EXPECTED_CAPTION_STEP}
+                    **EXPECTED_CAPTION_STEP, **EXPECTED_RETRIEVAL_GRID,
+                    **EXPECTED_RETRIEVAL_STEP}
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces})
@@ -3352,6 +3447,224 @@ def caption_step_phase(dev, card: str, timed_steps: int = 4) -> dict:
     return counts
 
 
+def retrieval_grid_phase(dev, card: str) -> dict:
+    """The retrieval grid at ``run_retrieval.py``'s settings (Swin-S +
+    BERT-base, bf16, n = 128 samples, S = 131, chunks of 64) on the
+    kernels: the b64 Swin features and the 2-way logits of a
+    ``RETRIEVAL_SUB`` sub-grid against the plain versions (end to end, and
+    from the same features: the fusion sweep alone), the launch counts
+    of one grid, two grids bitwise equal, grid rows against the full model's
+    ``score`` per pair (backbone per pair), the labels and R@k, then pairs/s
+    (n^2 / time, the median of 3 grids after a warm-up) beside the bound,
+    and peak memory. Returns the launch counts of one grid."""
+    from mvlt_tpu_torch.flagship import build_retrieval_grid
+    from mvlt_tpu_torch.metrics.retrieval import evaluate_retrieval
+    from mvlt_tpu_torch.ops import kernels
+    from mvlt_tpu_torch.tasks import retrieval as R
+    n, chunk = RETRIEVAL_N, RETRIEVAL_CHUNK
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grid, (images, captions, cap_ids) = build_retrieval_grid(
+        n=n, text_len=RETRIEVAL_TEXT, batch_size=chunk, device=dev)
+    model = grid.model
+    print(f"retrieval model built in {time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in model.parameters())} parameters; images "
+          f"{tuple(images.shape)}, captions {tuple(captions.shape)}, padded "
+          f"tokens {(captions == 0).sum().item()}, "
+          f"{n - len(set(cap_ids.tolist()))} duplicate reports", flush=True)
+    ni, nc = RETRIEVAL_SUB
+    with torch.no_grad():
+        feat_k = R.encode_images(model, images[:chunk], chunk)
+        feat_p = R.encode_images(model, images[:chunk], chunk, plain=True)
+        _check_close(f"retrieval Swin-S features (b{chunk}), kernels vs "
+                     "plain", feat_k, feat_p)
+        caps = captions[:nc]
+        sub_k = torch.stack([model.logits_from_features(
+            feat_k[i:i + 1].expand(nc, -1, -1), caps) for i in range(ni)])
+        sub_p = torch.stack([model.logits_from_features(
+            feat_p[i:i + 1].expand(nc, -1, -1), caps, plain=True)
+            for i in range(ni)])
+        _check_close(f"retrieval 2-way logits of a {ni} x {nc} sub-grid, "
+                     "kernels vs plain", sub_k, sub_p)
+        # the fusion sweep alone: both routes from the plain features
+        sub_f = torch.stack([model.logits_from_features(
+            feat_p[i:i + 1].expand(nc, -1, -1), caps) for i in range(ni)])
+        _check_close(f"retrieval 2-way logits of the {ni} x {nc} sub-grid "
+                     "from the plain features (the fusion sweep alone), "
+                     "kernels vs plain", sub_f, sub_p)
+        _check_close(f"retrieval P(match) of the {ni} x {nc} sub-grid, "
+                     "kernels vs plain", torch.softmax(sub_k.float(), -1),
+                     torch.softmax(sub_p.float(), -1))
+        del feat_k, feat_p, sub_k, sub_p, sub_f
+
+    reset_counts()
+    out = grid(images, captions, cap_ids)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"launches in one retrieval grid (n = {n}, chunks of {chunk}): "
+          f"{json.dumps(counts)}", flush=True)
+    for name, (want, _) in EXPECTED_RETRIEVAL_GRID.items():
+        if counts[name] != want:
+            raise AssertionError(f"{name} ran {counts[name]} times in one "
+                                 f"retrieval grid, expected {want}")
+    for k in kernels.FORWARD_KERNELS:
+        if counts[k.__name__] <= 0:
+            raise AssertionError(f"kernel {k.__name__} never launched")
+    sims, labels = out["similarities"], out["labels"]
+    if not (sims.shape == labels.shape == (n, n) and (sims > 0).all()
+            and (sims < 1).all() and (labels.diagonal() == 1).all()):
+        raise AssertionError("retrieval grid: wrong shape, a score outside "
+                             "(0, 1) or a missing diagonal label")
+    again = grid(images, captions, cap_ids)["similarities"]
+    if not (again == sims).all():
+        raise AssertionError("two retrieval grids differ")
+    with torch.no_grad():
+        full = torch.stack([torch.cat([model.score(
+            images[i:i + 1].expand(min(chunk, n - s), -1, -1, -1),
+            captions[s:s + chunk]) for s in range(0, n, chunk)])
+            for i in RETRIEVAL_FULL_ROWS])
+    _check_close(f"retrieval grid rows {list(RETRIEVAL_FULL_ROWS)} vs the "
+                 "full model's score per pair (backbone per pair)",
+                 torch.from_numpy(sims[list(RETRIEVAL_FULL_ROWS)]),
+                 full.cpu())
+    print(f"retrieval grid: two calls bitwise equal; labels "
+          f"{int(labels.sum())} matches ({n} diagonal); "
+          f"{json.dumps(evaluate_retrieval(sims, labels))}", flush=True)
+
+    times = []
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        t0 = time.perf_counter()
+        grid(images, captions, cap_ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(times)[1]
+    calls = n * -(-n // chunk)
+    cfg = model.config.fusion
+    S, H = 1 + 49 + 1 + RETRIEVAL_TEXT, cfg.hidden_size
+    weights = cfg.num_hidden_layers * (4 * H * H + 2 * H * cfg.intermediate_size)
+    pair_flops = 2.0 * weights * S + 4.0 * cfg.num_hidden_layers * S * S * H
+    print(f"retrieval grid n = {n} (S = {S}, chunks of {chunk}) on {card}: "
+          f"{n * n / med:.1f} pairs/s ({med * 1e3:.1f} ms a grid of "
+          f"{n * n} pairs, {calls} score calls); runs (s) "
+          f"{json.dumps(times)}; bound {PEAK_FLOPS / pair_flops:.1f} pairs/s "
+          f"({pair_flops / 1e9:.2f} GFLOP a pair in the fusion encoder); "
+          f"peak memory in a grid {peak / 2 ** 30:.3f} GiB (with "
+          f"{resident / 2 ** 30:.3f} GiB resident)", flush=True)
+    del grid, model, images, captions, out
+    return counts
+
+
+def retrieval_step_phase(dev, card: str, timed_steps: int = 4) -> dict:
+    """The retrieval train step (Swin-S + BERT-base, 32 pairs = 64 rows,
+    text 80, DropPath 0.3, attention dropout 0.1, hidden dropout 0.0) on the
+    kernels and on the plain versions from one seed, the plain run
+    replaying the kernel run's masks: gradients from the initial
+    parameters, the launch counts of one step, the losses of 3 steps, then
+    step times in turns and peak memory. Returns the launch counts of one
+    step."""
+    from mvlt_tpu_torch.flagship import build_retrieval_train_step
+    from mvlt_tpu_torch.ops import kernels
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    P = RETRIEVAL_PAIRS
+    rows = 2 * P
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    step_k, batch = build_retrieval_train_step(pairs=P,
+                                               text_len=RETRIEVAL_TEXT,
+                                               device=dev)
+    step_p, batch_p = build_retrieval_train_step(pairs=P,
+                                                 text_len=RETRIEVAL_TEXT,
+                                                 device=dev, plain=True)
+    keys = ("image", "caption", "label")
+    print(f"retrieval step built twice in {time.perf_counter() - t0:.1f} s: "
+          f"image {tuple(batch['image'].shape)}, caption "
+          f"{tuple(batch['caption'].shape)}, labels "
+          f"{batch['label'].sum().item()} pos / {rows} rows", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    masks = DropoutMasks(gen, record=True)
+    for model, plain, src in ((step_k.model, False, masks),
+                              (step_p.model, True, None)):
+        model.zero_grad(set_to_none=True)
+        loss, _ = model.loss(*(batch[k] for k in keys), plain=plain,
+                             masks=src or DropoutMasks.replay(masks.recorded))
+        loss.backward()
+    torch.cuda.synchronize()
+    compare_grads(step_k.model, step_p.model,
+                  "retrieval step initial gradients", swin_bars)
+    del masks
+
+    losses, counts = {"kernels": [], "plain": []}, None
+    acc = []
+    for i in range(TRAIN_STEPS):
+        step_k.masks = DropoutMasks(gen, record=True)
+        if i == 0:
+            reset_counts()
+        out_k = step_k(batch)
+        torch.cuda.synchronize()
+        if i == 0:
+            counts = launch_counts()
+            print(f"launches in one retrieval step: {json.dumps(counts)}",
+                  flush=True)
+            for name, (want, _) in EXPECTED_RETRIEVAL_STEP.items():
+                if counts[name] != want:
+                    raise AssertionError(f"{name} ran {counts[name]} times "
+                                         f"in one retrieval step, expected "
+                                         f"{want}")
+            for k in kernels.KERNELS:
+                if counts[k.__name__] <= 0:
+                    raise AssertionError(f"kernel {k.__name__} never "
+                                         "launched in the retrieval step")
+            if counts["gemm_splitk"] <= 0:
+                raise AssertionError("K1's split-K never ran in the "
+                                     "retrieval step")
+        step_p.masks = DropoutMasks.replay(step_k.masks.recorded)
+        out_p = step_p(batch_p)
+        losses["kernels"].append(out_k["loss"].item())
+        losses["plain"].append(out_p["loss"].item())
+        acc.append((out_k["accuracy"].item(), out_p["accuracy"].item()))
+    print(f"retrieval step losses of {TRAIN_STEPS} steps: "
+          f"{json.dumps(losses)}; accuracy (kernels, plain) {acc}",
+          flush=True)
+    for i, (a, b) in enumerate(zip(losses["kernels"], losses["plain"])):
+        if not (abs(a - b) <= LOSS_BAR * abs(b) and a == a):
+            raise AssertionError(f"retrieval step {i + 1} loss {a} vs plain "
+                                 f"{b} beyond {LOSS_BAR} relative")
+
+    times, peak, resident = {"kernels": [], "plain": []}, None, None
+    for which in ("plain", "kernels", "kernels", "plain"):
+        step, b = (step_k, batch) if which == "kernels" else (step_p, batch_p)
+        step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
+        step(b)
+        torch.cuda.synchronize()
+        measure = which == "kernels" and peak is None
+        if measure:
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            step(b)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3 / timed_steps)
+        if measure:
+            peak = torch.cuda.max_memory_allocated()
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    S = 1 + 49 + 1 + batch["caption"].shape[1]
+    print(f"retrieval train step {rows} rows ({P} pairs, S = {S}) on {card}: "
+          f"kernels {ms['kernels']:.3f} ms/step ({rows * 1e3 / ms['kernels']:.1f}"
+          f" samples/s), plain {ms['plain']:.3f} ms/step "
+          f"({rows * 1e3 / ms['plain']:.1f} samples/s); runs "
+          f"{json.dumps(times)}; peak memory in a kernel step "
+          f"{peak / 2 ** 30:.3f} GiB (with {resident / 2 ** 30:.3f} GiB "
+          "resident, both models)", flush=True)
+    return counts
+
+
 if __name__ == "__main__":
-    modes = {"--norm": norm_main, "--caption": caption_main}
+    modes = {"--norm": norm_main, "--caption": caption_main,
+             "--retrieval": retrieval_main}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

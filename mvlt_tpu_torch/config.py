@@ -201,6 +201,17 @@ class MVLTConfig:
         return MVLTConfig(**base)
 
     @staticmethod
+    def for_retrieval(**kw) -> "MVLTConfig":
+        """Image-text retrieval (``mvlt_tpu/config.py:239-244``): attention
+        dropout 0.1, hidden dropout 0.0, ITM on, ``max_length`` 80, lr
+        1e-6."""
+        base = dict(
+            fusion=FusionConfig(attention_probs_dropout_prob=0.1),
+            itm_task=True, max_length=80, lr=1e-6)
+        base.update(kw)
+        return MVLTConfig(**base)
+
+    @staticmethod
     def for_caption(**kw) -> "MVLTConfig":
         """Report generation (``mvlt_tpu/config.py:247-252``): fusion
         dropouts 0.1, lr 1e-5, ``is_decoder``; ``max_length`` 80 unless

@@ -25,6 +25,15 @@
   sample); training is the caption train step over S = 1 + 49 + 1 + 150 =
   201 under the seq2seq mask, fusion dropouts 0.1 and DropPath 0.3, bf16
   compute with f32 masters and AdamW (``train/steps.py:282-294``).
+- Image-text retrieval at the settings of ``run_retrieval.py`` (Swin-S:
+  :52; batch 32 pairs, lr 1e-6, caption length 80: :45-54; a test grid
+  scored in chunks of 64: :133): ``for_retrieval`` on Swin-S @224 +
+  BERT-base (attention dropout 0.1, hidden dropout 0.0) with the
+  ``final_transform`` / ``final_linear`` match head. Serving is the N x N
+  score grid in bf16, the backbone once per image and the fusion + head
+  over every pair (S = 1 + 49 + 1 + 80 = 131); training is the retrieval
+  train step on ``cat(pos, neg)`` (64 rows), bf16 compute with f32 masters
+  and AdamW (``train/steps.py:266-279``).
 
 Weights are random, drawn from a numpy seed: normal(0, 0.02) for every dense
 and conv weight, bias, embedding and relative-position table, and LayerNorm
@@ -43,11 +52,13 @@ import torch
 from mvlt_tpu_torch.config import MVLTConfig, resnet101, swin_small
 from mvlt_tpu_torch.models.backbones.resnet import BatchNorm
 from mvlt_tpu_torch.models import generation
-from mvlt_tpu_torch.models.heads import CaptionModel, PretrainModel, VQAModel
+from mvlt_tpu_torch.models.heads import (CaptionModel, PretrainModel,
+                                         RetrievalModel, VQAModel)
 from mvlt_tpu_torch.ops.layers import DropoutMasks, LayerNorm
 from mvlt_tpu_torch.train.state import make_optimizer
+from mvlt_tpu_torch.tasks import retrieval
 from mvlt_tpu_torch.train.steps import (make_caption_step, make_pretrain_step,
-                                        make_vqa_step)
+                                        make_retrieval_step, make_vqa_step)
 
 
 def flagship_vqa_config() -> MVLTConfig:
@@ -84,6 +95,13 @@ def flagship_caption_config() -> MVLTConfig:
     =150)`` (fusion dropouts 0.1, lr 1e-5) with Swin-S (DropPath 0.3)."""
     return MVLTConfig.for_caption(max_length=150, conv="swin",
                                   swin=swin_small())
+
+
+def flagship_retrieval_config() -> MVLTConfig:
+    """Image-text retrieval at ``run_retrieval.py``'s settings:
+    ``for_retrieval`` (attention dropout 0.1, hidden dropout 0.0, ITM on,
+    caption length 80, lr 1e-6) with Swin-S (DropPath 0.3)."""
+    return MVLTConfig.for_retrieval(conv="swin", swin=swin_small())
 
 
 def _need_cuda(device, what: str) -> torch.device:
@@ -374,6 +392,122 @@ def build_caption_train_step(batch: int = 32, text_len: int = 150,
         mask_token_id=cfg.mask_token_id, eos_token_id=cfg.eos_token_id)
     step = make_caption_step(model, make_optimizer(model, cfg),
                              learning_strategy=learning_strategy, plain=plain)
+    step.masks = DropoutMasks(torch.Generator(device=device).manual_seed(seed))
+    return step, data
+
+
+def _example_captions(rng, n: int, text_len: int, vocab: int,
+                      eos_token_id: int):
+    """(n, L) caption ids of 5..L tokens in [1, vocab) ending in eos, zero
+    padding after them, as ``RetrievalDataset._cap_ids`` builds them."""
+    tokens, lengths = _example_tokens(rng, n, text_len, vocab)
+    tokens[np.arange(n), lengths - 1] = eos_token_id
+    return tokens
+
+
+def example_retrieval_batch(pairs: int, text_len: int, seed: int = 0,
+                            device="cpu", *, image_size: int = 224,
+                            vocab: int = 30000,
+                            eos_token_id: int = 104) -> dict:
+    """A retrieval train batch from ``numpy.random.default_rng(seed)`` on
+    ``device``, already ``cat(pos, neg)`` (2 * pairs rows): ``pairs``
+    positive (image, caption) samples labelled 1, then one negative each
+    labelled 0, which swaps either its image or its caption for another
+    sample's, on a coin, as ``RetrievalDataset(swap="either")`` builds them
+    (``mvlt_tpu/data/datasets.py:538-560``). ``image`` (2P, 3, H, W) f32,
+    ``caption`` (2P, L) and ``label`` (2P,) int64."""
+    rng = np.random.default_rng(seed)
+    image = rng.normal(size=(pairs, 3, image_size, image_size))
+    caption = _example_captions(rng, pairs, text_len, vocab, eos_token_id)
+    other = (np.arange(pairs) + rng.integers(1, max(pairs, 2),
+                                             size=pairs)) % pairs
+    swap_image = rng.random(pairs) < 0.5
+    neg_image = np.where(swap_image[:, None, None, None], image[other], image)
+    neg_caption = np.where(swap_image[:, None], caption, caption[other])
+    as_long = lambda a: torch.from_numpy(a.astype(np.int64))  # noqa: E731
+    return {"image": torch.from_numpy(np.concatenate(
+                [image, neg_image]).astype(np.float32)).to(device),
+            "caption": as_long(np.concatenate([caption, neg_caption])
+                               ).to(device),
+            "label": as_long(np.repeat([1, 0], pairs)).to(device)}
+
+
+def example_retrieval_grid(n: int, text_len: int, seed: int = 0, *,
+                           image_size: int = 224, vocab: int = 30000,
+                           eos_token_id: int = 104):
+    """A retrieval test set from ``numpy.random.default_rng(seed)``:
+    (images (n, 3, H, W) f32, caption ids (n, L) int64, ``cap_ids`` (n,)).
+    One sample in eight repeats another's report, and shares its
+    ``cap_id`` (a duplicate report, which the grid's labels count as a
+    match)."""
+    rng = np.random.default_rng(seed)
+    image = rng.normal(size=(n, 3, image_size, image_size))
+    caption = _example_captions(rng, n, text_len, vocab, eos_token_id)
+    cap_ids = np.arange(n)
+    dup = rng.permutation(n)[:2 * (n // 8)].reshape(2, -1)
+    caption[dup[1]], cap_ids[dup[1]] = caption[dup[0]], cap_ids[dup[0]]
+    return (torch.from_numpy(image.astype(np.float32)),
+            torch.from_numpy(caption.astype(np.int64)), cap_ids)
+
+
+def build_retrieval_grid(n: int = 128, text_len: int = 80,
+                         batch_size: int = 64,
+                         dtype: torch.dtype = torch.bfloat16, device="cuda",
+                         seed: int = 0, config: MVLTConfig = None,
+                         image_size: int = 224) -> Tuple[Callable, tuple]:
+    """(grid, (images, captions, cap_ids)) for retrieval serving: the
+    seeded :class:`RetrievalModel` of :func:`flagship_retrieval_config` (or
+    ``config``) in ``dtype`` and a test set of ``n`` samples
+    (:func:`example_retrieval_grid`; images and captions on ``device``).
+    ``grid(images, captions, cap_ids, plain=False)`` is
+    :func:`mvlt_tpu_torch.tasks.retrieval.score_grid` in chunks of
+    ``batch_size``: ``{"similarities", "labels"}`` (n, n) numpy;
+    ``grid.model`` is the model. ``device='cuda'`` without a CUDA device
+    raises."""
+    device = _need_cuda(device, "build_retrieval_grid")
+    cfg = config or flagship_retrieval_config()
+    model = RetrievalModel(cfg, dtype=dtype, device=device)
+    init_seeded_(model, seed)
+    model.eval()
+    images, captions, cap_ids = example_retrieval_grid(
+        n, text_len, seed, image_size=image_size,
+        vocab=min(30000, cfg.fusion.vocab_size),
+        eos_token_id=cfg.eos_token_id)
+
+    def grid(images, captions, cap_ids, plain: bool = False):
+        return retrieval.score_grid(model, images, captions, cap_ids,
+                                    batch_size, plain)
+
+    grid.model = model
+    return grid, (images.to(device), captions.to(device), cap_ids)
+
+
+def build_retrieval_train_step(pairs: int = 32, text_len: int = 80,
+                               device="cuda", seed: int = 0,
+                               plain: bool = False,
+                               compute_dtype: torch.dtype = torch.bfloat16,
+                               config: MVLTConfig = None,
+                               image_size: int = 224
+                               ) -> Tuple[Callable, dict]:
+    """(step, batch) for the retrieval train step: ``step(batch)`` runs
+    forward + backward + AdamW on the ``cat(pos, neg)`` batch of 2 * pairs
+    rows (:func:`example_retrieval_batch`) and returns ``{"loss",
+    "accuracy"}``; ``step.model`` / ``step.optimizer`` are the seeded
+    :class:`RetrievalModel` (f32 masters, ``compute_dtype`` math) and its
+    AdamW, ``step.masks`` its DropPath / attention-dropout source (a
+    generator on ``device`` seeded with ``seed``). ``config`` (default
+    :func:`flagship_retrieval_config`) and ``image_size`` shrink it for
+    tests. ``device='cuda'`` without a CUDA device raises."""
+    device = _need_cuda(device, "build_retrieval_train_step")
+    cfg = config or flagship_retrieval_config()
+    model = RetrievalModel(cfg, dtype=torch.float32, device=device,
+                           compute_dtype=compute_dtype)
+    init_seeded_(model, seed)
+    data = example_retrieval_batch(
+        pairs, text_len, seed, device, image_size=image_size,
+        vocab=min(30000, cfg.fusion.vocab_size),
+        eos_token_id=cfg.eos_token_id)
+    step = make_retrieval_step(model, make_optimizer(model, cfg), plain=plain)
     step.masks = DropoutMasks(torch.Generator(device=device).manual_seed(seed))
     return step, data
 

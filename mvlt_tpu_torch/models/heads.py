@@ -1,15 +1,20 @@
 """Task heads of the port (counterpart of ``mvlt_tpu/models/heads.py``):
 ``VQAModel`` (heads.py:65-94), its forward and its loss, the MLM+ITM
-``PretrainModel`` (heads.py:97-156) with its heads, and the report
-generation ``CaptionModel`` (heads.py:210-285): its image encoder, its
-training logits in both learning strategies and its loss; its decoding is
-:mod:`mvlt_tpu_torch.models.generation`. The retrieval head is still to
-come (ROADMAP.md queue A, "Retrieval").
+``PretrainModel`` (heads.py:97-156) with its heads, the retrieval
+``RetrievalModel`` (heads.py:159-207): its 2-way match logits, P(match),
+the image encoder and the fusion-only score over features the caller
+already has (what the N x N grid of :mod:`mvlt_tpu_torch.tasks.retrieval`
+sweeps), and its loss; and the report generation ``CaptionModel``
+(heads.py:210-285): its image encoder, its training logits in both
+learning strategies and its loss; its decoding is
+:mod:`mvlt_tpu_torch.models.generation`.
 
 The heads' products and LayerNorms sit outside any TPU kernel in JAX, so in
-training they are plain PyTorch (``F.linear``, ``F.layer_norm``). The MLM
-decoder to the vocabulary is ``F.linear`` in serving too, by design: JAX
-computes it in XLA, and K1 takes no N % 8 != 0 (vocab 30,522)."""
+training they are plain PyTorch (``F.linear``, ``F.layer_norm``). Two
+products are ``F.linear`` in serving too, by design, because K1 takes no N
+% 8 != 0 and JAX computes both in XLA: the MLM decoder to the vocabulary
+(N = 30,522) and the retrieval head's ``final_linear`` (N = 2). Their
+heads' 768 -> 768 transforms stay on ``Dense`` (K1 in serving)."""
 
 from __future__ import annotations
 
@@ -53,6 +58,12 @@ class _Backbone(nn.Module):
                                     sep_token_id=cfg.sep_token_id,
                                     dtype=dtype, device=device,
                                     compute_dtype=compute_dtype)
+
+    @torch.no_grad()
+    def encode_image(self, image: torch.Tensor, plain: bool = False):
+        """Backbone features (B, N, hidden) of raw pixels (B, C, H, W),
+        deterministic."""
+        return self.conv(image, PLAIN_OPS if plain else KERNEL_OPS)
 
     def _encode(self, image, text, ops, train: bool, seq2seq: bool = False,
                 masks=None, pool: bool = True):
@@ -208,6 +219,77 @@ class PretrainModel(_Backbone):
         return loss, metrics
 
 
+class RetrievalModel(_Backbone):
+    """``MVLBertForRetrieval`` (heads.py:159-207): visual adapter -> fusion
+    encoder (bidirectional) -> pooled [CLS] -> ``final_transform`` (dense,
+    exact GELU, LayerNorm) -> ``final_linear`` to 2-way match logits;
+    P(match) is softmax[..., 1] (run_retrieval.py:204). ``final_linear``
+    (N = 2) is ``F.linear`` in serving and training: K1 refuses N % 8 != 0
+    and JAX computes it in XLA. ``encode_image`` / ``score_from_features``
+    split the forward at the backbone, so that a grid runs the backbone
+    once per image. ``device`` has no default: the caller says where the
+    model lives."""
+
+    def __init__(self, config: MVLTConfig, *, dtype: torch.dtype = torch.float32,
+                 device, compute_dtype=None):
+        super().__init__(config, dtype=dtype, device=device,
+                         compute_dtype=compute_dtype)
+        f = config.fusion
+        self.final_transform = HeadTransform(f.hidden_size, f.layer_norm_eps,
+                                             dtype=dtype, device=device)
+        self.final_linear = Dense(f.hidden_size, 2, dtype=dtype,
+                                  device=device)
+
+    def _head(self, pooled, ops) -> torch.Tensor:
+        h, d = self.final_transform(pooled, ops), self.final_linear
+        return F.linear(h, d.weight.to(h.dtype), d.bias.to(h.dtype))
+
+    @staticmethod
+    def _p_match(logits: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(logits.float(), dim=-1)[..., 1]
+
+    @torch.no_grad()
+    def forward(self, image: torch.Tensor, caption: torch.Tensor,
+                plain: bool = False) -> torch.Tensor:
+        """Match logits (B, 2) of image (B, C, H, W) and caption (B, L)
+        ids (0 = padding), deterministic. ``plain=True`` runs the same
+        model on the kernels' plain versions."""
+        ops = PLAIN_OPS if plain else KERNEL_OPS
+        return self._head(self._encode(image, caption, ops, False)[2], ops)
+
+    def score(self, image: torch.Tensor, caption: torch.Tensor,
+              plain: bool = False) -> torch.Tensor:
+        """P(match) (B,) in float32: the full model per pair, the backbone
+        included."""
+        return self._p_match(self(image, caption, plain))
+
+    @torch.no_grad()
+    def logits_from_features(self, feat: torch.Tensor, caption: torch.Tensor,
+                             plain: bool = False) -> torch.Tensor:
+        """Match logits (B, 2) from backbone features (B, N, hidden) (an
+        ``expand``-ed view is taken as it is) and caption ids (B, L): the
+        fusion encoder and the head only."""
+        ops = PLAIN_OPS if plain else KERNEL_OPS
+        return self._head(self._fuse(feat, caption, ops)[2], ops)
+
+    def score_from_features(self, feat: torch.Tensor, caption: torch.Tensor,
+                            plain: bool = False) -> torch.Tensor:
+        """P(match) (B,) in float32 of :meth:`logits_from_features`."""
+        return self._p_match(self.logits_from_features(feat, caption, plain))
+
+    def loss(self, image: torch.Tensor, caption: torch.Tensor,
+             label: torch.Tensor, plain: bool = False, masks=None):
+        """Training forward (heads.py:202-207): Swin DropPath and the
+        fusion's attention dropout from ``masks`` (a :class:`DropoutMasks`;
+        needed when a rate is above 0), drawn in JAX's order. label (B,) in
+        {0, 1}, -100 ignored. Returns (mean CE in f32, logits (B, 2))."""
+        _check_masks(self.config, masks)
+        ops = PLAIN_OPS if plain else KERNEL_OPS
+        _, _, pooled = self._encode(image, caption, ops, True, masks=masks)
+        logits = self._head(pooled, ops)
+        return cross_entropy_ignore_index(logits, label), logits
+
+
 class CaptionModel(_Backbone):
     """``MVLBertForImageCaption`` (heads.py:210-285): visual adapter ->
     fusion encoder under the seq2seq mask -> ``mlm_head_seq2seq``. The
@@ -239,12 +321,6 @@ class CaptionModel(_Backbone):
             raise NotImplementedError(
                 f"learning_strategy {learning_strategy!r}")
         return learning_strategy
-
-    @torch.no_grad()
-    def encode_image(self, image: torch.Tensor, plain: bool = False):
-        """Backbone features (B, N, hidden) of raw pixels (B, C, H, W),
-        deterministic."""
-        return self.conv(image, PLAIN_OPS if plain else KERNEL_OPS)
 
     def _text_logits(self, obj_end: int, hidden, L: int, strategy: str, ops):
         text = hidden[:, obj_end + 1:obj_end + 1 + L]

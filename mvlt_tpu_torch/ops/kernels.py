@@ -1066,7 +1066,8 @@ def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
     ``adrop``: ``(seed, rate)`` in place of amask, the mask regenerated by
     :func:`adrop_mask_plain`. ``p``: the softmax that
     ``biased_attention(..., save_p=True)`` stored, (G, nH, N, N), used in
-    place of the recomputed one (``_core_bwd_storep_kernel``, :3859)."""
+    place of the recomputed one (``_core_bwd_storep_kernel``, :3859). The
+    math runs in float32, or in float64 when qkv is float64."""
     rows, C3 = qkv.shape
     C, N = C3 // 3, seq_n
     G, Dh = rows // N, C // num_heads
@@ -1076,22 +1077,23 @@ def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
     if adrop is not None:
         amask = adrop_mask_plain(adrop[0], G, num_heads, N, adrop[1])
     P = None if pattern is None else _pattern_geometry(pattern, G, num_heads, N)
-    t = qkv.float().view(G, N, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
+    ft = torch.promote_types(qkv.dtype, torch.float32)
+    t = qkv.to(ft).view(G, N, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
     q, k, v = t[0] * scale, t[1], t[2]
-    dc = dctx.float().view(G, N, num_heads, Dh).permute(0, 2, 1, 3)
+    dc = dctx.to(ft).view(G, N, num_heads, Dh).permute(0, 2, 1, 3)
     if p is not None:
-        p = p.float()
+        p = p.to(ft)
     else:
         s = q @ k.transpose(-1, -2)                             # (G, nH, N, N)
         if pattern is not None:
-            s = s + pattern.float()[torch.arange(G, device=qkv.device) % P]
+            s = s + pattern.to(ft)[torch.arange(G, device=qkv.device) % P]
         if key_bias is not None:
-            s = s + key_bias.float()[:, None, None, :]
+            s = s + key_bias.to(ft)[:, None, None, :]
         if qbias is not None:
-            s = s + qbias.float()[:, None]
+            s = s + qbias.to(ft)[:, None]
         e = torch.exp(s - s.amax(-1, keepdim=True))
         p = e / e.sum(-1, keepdim=True)
-    am = None if amask is None else amask.float()
+    am = None if amask is None else amask.to(ft)
     pa = p if am is None else p * am
     dv = pa.transpose(-1, -2) @ dc
     dp = dc @ v.transpose(-1, -2)

@@ -1,7 +1,7 @@
 """Where the device time of a train step or a report-generation call goes,
 on one GPU.
 
-    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate] [--batch 32] [--steps 3] [--attn-impl auto|pallas]
+    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate|retrieval_step|retrieval_grid] [--batch 32] [--steps 3] [--attn-impl auto|pallas]
 
 Builds the VQA finetune train step (``--path vqa``, the default:
 :func:`mvlt_tpu_torch.flagship.build_vqa_train_step`), the MLM+ITM
@@ -33,6 +33,12 @@ BERT-base, text 150, unilm); ``--path caption_generate`` one call of report
 generation (:func:`~mvlt_tpu_torch.flagship.build_caption_generate`: beam
 5, length 150, bf16), whose "step" is a whole generate call: its device
 time, busy share and launches (``--steps 1`` keeps the trace short).
+``--path retrieval_step`` is the retrieval train step
+(:func:`~mvlt_tpu_torch.flagship.build_retrieval_train_step`: ``--batch``
+pairs, ``cat(pos, neg)`` = twice as many rows, text 80); ``--path
+retrieval_grid`` one N x N retrieval grid of 128 samples in chunks of 64
+(:func:`~mvlt_tpu_torch.flagship.build_retrieval_grid`, bf16), whose
+"step" is a whole grid.
 """
 
 from __future__ import annotations
@@ -134,6 +140,12 @@ def _build(args, flagship, seq2seq_coin_flip):
     if args.path == "caption_step":
         return flagship.build_caption_train_step(batch=args.batch,
                                                  device="cuda")
+    if args.path == "retrieval_step":
+        return flagship.build_retrieval_train_step(pairs=args.batch,
+                                                   device="cuda")
+    if args.path == "retrieval_grid":
+        grid, data = flagship.build_retrieval_grid(device="cuda")
+        return (lambda d: grid(*d)), data
     if args.path == "caption_generate":
         gen, image = flagship.build_caption_generate(batch=args.batch,
                                                      device="cuda")
@@ -149,7 +161,8 @@ def _build(args, flagship, seq2seq_coin_flip):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", choices=("vqa", "pretrain", "swin_pretrain",
-                                       "caption_step", "caption_generate"),
+                                       "caption_step", "caption_generate",
+                                       "retrieval_step", "retrieval_grid"),
                     default="vqa")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--steps", type=int, default=3)
@@ -217,8 +230,12 @@ def main() -> int:
     print(f"switches: {on or 'none set'}; attn_impl={args.attn_impl!r}")
     print(f"{SAMPLE} before / after the unprofiled steps: {clocks}")
     print(f"unprofiled step times (ms): {[round(t, 3) for t in step_ms]}")
-    what = "call" if args.path == "caption_generate" else "step"
-    print(f"{args.path} b{args.batch}: {unprofiled_ms:.3f} ms/{what} unprofiled, "
+    what = {"caption_generate": "call", "retrieval_grid": "grid"}.get(
+        args.path, "step")
+    size = {"retrieval_grid": "n128",
+            "retrieval_step": f"{args.batch} pairs"}.get(args.path,
+                                                        f"b{args.batch}")
+    print(f"{args.path} {size}: {unprofiled_ms:.3f} ms/{what} unprofiled, "
           f"{wall_ms:.3f} ms/{what} under the profiler; device time "
           f"{total:.3f} ms/{what}, busy share {total / wall_ms:.3f}")
     print(f"{'family':58s} {'ms/' + what:>9s} {'share':>6s} {'launches':>8s}")

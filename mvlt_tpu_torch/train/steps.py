@@ -118,3 +118,36 @@ def make_caption_step(model, optimizer: torch.optim.Optimizer, *,
     step.model, step.optimizer = model, optimizer
     step.masks = _masks(model)
     return step
+
+
+def make_retrieval_step(model, optimizer: torch.optim.Optimizer, *,
+                        plain: bool = False):
+    """``step(batch) -> {"loss", "accuracy"}`` for a :class:`RetrievalModel`
+    (``steps.py:266-279``): CE over the 2-way match logits, accuracy the
+    mean of ``argmax(logits) == label``, then one optimizer update.
+    ``batch`` holds ``image`` (B, 3, H, W), ``caption`` (B, L) and
+    ``label`` (B,), already ``cat(pos, neg)`` (run_retrieval.py:162-177);
+    it is moved to the model's device. The masks are drawn in JAX's order:
+    the Swin DropPath first, then each fusion layer's attention dropout.
+    After a step the parameters' ``.grad`` hold that step's gradients (zeros
+    for any the loss does not reach, so that AdamW decays them as optax
+    does). ``plain=True`` runs the kernels' plain versions."""
+    device = next(model.parameters()).device
+
+    def step(batch: Batch) -> Dict[str, torch.Tensor]:
+        image, caption, label = (batch[k].to(device)
+                                 for k in ("image", "caption", "label"))
+        optimizer.zero_grad(set_to_none=False)
+        loss, logits = model.loss(image, caption, label, plain=plain,
+                                  masks=step.masks)
+        loss.backward()
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        optimizer.step()
+        acc = (logits.argmax(-1) == label).float().mean()
+        return {"loss": loss.detach(), "accuracy": acc}
+
+    step.model, step.optimizer = model, optimizer
+    step.masks = _masks(model)
+    return step

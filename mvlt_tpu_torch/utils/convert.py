@@ -1,10 +1,11 @@
-"""Bridge from the JAX package's flax parameter tree to the port's
-``state_dict``.
+"""Bridge between the JAX package's flax parameter trees and the port's
+``state_dict``, both ways.
 
 ``params_from_flax`` (also named ``vqa_params_from_flax``,
-``pretrain_params_from_flax`` and ``caption_params_from_flax``) maps every
-leaf of a flax ``VQAModel``, ``PretrainModel`` or ``CaptionModel`` tree
-(``mvlt_tpu/models/heads.py:65,97,210``: ``conv``, ``fusion`` with its
+``pretrain_params_from_flax``, ``retrieval_params_from_flax`` and
+``caption_params_from_flax``) maps every leaf of a flax ``VQAModel``,
+``PretrainModel``, ``RetrievalModel`` or ``CaptionModel`` tree
+(``mvlt_tpu/models/heads.py:65,97,159,210``: ``conv``, ``fusion`` with its
 pooler, and the heads) exactly once:
 
 - a flax Dense ``kernel`` (in, out) becomes a port ``weight`` (out, in);
@@ -15,14 +16,24 @@ pooler, and the heads) exactly once:
   table keeps its layout;
 - the ResNet's ``batch_stats`` ``mean`` / ``var`` become the BatchNorms'
   ``running_mean`` / ``running_var`` buffers;
-- the MLM heads keep their flax names: ``mlm_head_{seq2seq,bidir}/
-  transform/{transform_dense,transform_layernorm}`` and ``.../decoder``
-  (the caption tree has ``mlm_head_seq2seq`` alone); so does ``itm_mlp``.
+- the heads keep their flax names: ``mlm_head_{seq2seq,bidir}/transform/
+  {transform_dense,transform_layernorm}`` and ``.../decoder`` (the caption
+  tree has ``mlm_head_seq2seq`` alone), ``itm_mlp``, and the retrieval
+  head's ``final_transform/{transform_dense,transform_layernorm}`` and
+  ``final_linear``.
 
 A leaf that no rule maps, a leaf mapped twice, or a fused q/k/v missing a
 part raises ``KeyError``. Load the result with
 ``model.load_state_dict(sd)`` (strict), which raises on a port parameter
 the tree did not provide and casts each tensor to its parameter's dtype.
+
+``params_to_flax(state_dict, template)`` is the inverse: it fills a flax
+tree of the template's structure (``params``, or variables with
+``batch_stats``) from a port ``state_dict``, splitting each fused ``qkv``
+into ``query`` / ``key`` / ``value`` and transposing the kernels back; a
+template leaf with no port tensor, a port tensor that no leaf takes, or a
+shape that differs raises ``KeyError``. flax -> port -> flax is bitwise
+equal on float32 trees.
 """
 
 from __future__ import annotations
@@ -67,6 +78,9 @@ _RULES = [
      r"(transform_dense|transform_layernorm)", r"\1.transform.\2"),
     (r"(mlm_head_(?:seq2seq|bidir))/decoder", r"\1.decoder"),
     (r"itm_mlp", r"itm_mlp"),
+    (r"final_transform/(transform_dense|transform_layernorm)",
+     r"final_transform.\1"),
+    (r"final_linear", r"final_linear"),
 ]
 # flax leaf name -> suffix of the port parameter
 _LEAF = {"kernel": ".weight", "bias": ".bias", "scale": ".weight",
@@ -97,7 +111,8 @@ def _port_name(path: str):
 
 
 def params_from_flax(variables) -> Dict[str, torch.Tensor]:
-    """flax ``VQAModel`` / ``PretrainModel`` / ``CaptionModel`` variables
+    """flax ``VQAModel`` / ``PretrainModel`` / ``RetrievalModel`` /
+    ``CaptionModel`` variables
     (or their ``params``) -> port state_dict of float32 tensors. A
     ``batch_stats`` collection beside ``params`` maps onto the BatchNorm
     buffers."""
@@ -134,4 +149,50 @@ def params_from_flax(variables) -> Dict[str, torch.Tensor]:
 
 
 vqa_params_from_flax = pretrain_params_from_flax = params_from_flax
-caption_params_from_flax = params_from_flax
+retrieval_params_from_flax = caption_params_from_flax = params_from_flax
+
+
+def _to_flax_leaf(path: str, template, sd: Mapping, used: set) -> np.ndarray:
+    """The flax leaf at ``path`` (shaped and typed as ``template``) from the
+    port tensor its rule names."""
+    key, slot, is_kernel = _port_name(path)
+    if key not in sd:
+        raise KeyError(f"no port tensor {key!r} for flax leaf {path!r}")
+    used.add(key)
+    value = sd[key].detach().cpu().numpy()
+    if slot is not None:
+        value = np.split(value, len(_QKV), axis=0)[slot]
+    if is_kernel:
+        # (out, in) -> Dense (in, out); OIHW -> Conv HWIO
+        value = value.T if value.ndim == 2 else value.transpose(2, 3, 1, 0)
+    want = np.asarray(template)
+    if value.shape != want.shape:
+        raise KeyError(f"port tensor {key!r} gives {path!r} the shape "
+                       f"{value.shape}, the template has {want.shape}")
+    return np.ascontiguousarray(value, dtype=want.dtype)
+
+
+def params_to_flax(state_dict: Mapping[str, torch.Tensor], template):
+    """Port ``state_dict`` -> a flax tree of ``template``'s structure: its
+    ``params`` tree, or variables ``{"params", "batch_stats"}`` (the
+    BatchNorms' running statistics). Leaves are numpy arrays in the
+    template leaves' dtypes."""
+    used: set = set()
+
+    def fill(tree: Mapping, prefix: str = ""):
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}/{k}" if prefix else str(k)
+            out[k] = (fill(v, path) if isinstance(v, Mapping)
+                      else _to_flax_leaf(path, v, state_dict, used))
+        return out
+
+    if "params" in template:
+        out = {name: fill(template[name]) for name in template
+               if name in ("params", "batch_stats")}
+    else:
+        out = fill(template)
+    unused = sorted(set(state_dict) - used)
+    if unused:
+        raise KeyError(f"port tensors that no flax leaf takes: {unused[:5]}")
+    return out

@@ -120,15 +120,40 @@ def test_profile_family_names_k4_kernels(symbol):
     assert profile_step.family(symbol) == "K4 biased_attention_bwd"
 
 
+def _attention_vjp_f64(qkv, dctx, nH, scale, kbias, qbias):
+    """The VJP of softmax(q k^T scale + kbias + qbias) v in float64 numpy:
+    (dqkv (G, N, 3C), dkbias (G, N), the column sum of ds over rows and
+    heads)."""
+    G, N, C3 = qkv.shape
+    Dh = C3 // 3 // nH
+    t = qkv.astype(np.float64).reshape(G, N, 3, nH, Dh).transpose(2, 0, 3, 1, 4)
+    q, k, v = t[0] * scale, t[1], t[2]
+    dc = dctx.astype(np.float64).reshape(G, N, nH, Dh).transpose(0, 2, 1, 3)
+    s = q @ k.transpose(0, 1, 3, 2) + kbias[:, None, None, :]
+    if qbias is not None:
+        s = s + qbias[:, None]
+    e = np.exp(s - s.max(-1, keepdims=True))
+    p = e / e.sum(-1, keepdims=True)
+    dp = dc @ v.transpose(0, 1, 3, 2)
+    ds = p * (dp - (p * dp).sum(-1, keepdims=True))
+    dq, dk = (ds @ k) * scale, ds.transpose(0, 1, 3, 2) @ q
+    dv = p.transpose(0, 1, 3, 2) @ dc
+    dqkv = np.stack([dq, dk, dv]).transpose(1, 3, 0, 2, 4).reshape(G, N, C3)
+    return dqkv, ds.sum(axis=(1, 2))
+
+
 @pytest.mark.parametrize("N", [221, 278])
 @pytest.mark.parametrize("mode", ["key bias", "seq2seq"])
 def test_plain_attention_bwd_at_long_n_matches_jax(N, mode):
     """``biased_attention_bwd_plain`` at the S of a 196-token image with
     BERT text (23 or 80 tokens), with a padded key bias or the seq2seq mask
     (bidirectional over the 1 + 196 + 1 image positions, causal over the
-    text; the port passes no key bias there, JAX zeros), against JAX's
-    ``seq_attention_core_bwd`` in interpret mode in float32: dqkv and
-    dkbias."""
+    text; the port passes no key bias there, JAX zeros), and JAX's
+    ``seq_attention_core_bwd`` in interpret mode in float32, each held to a
+    float64 numpy VJP of the same inputs: dqkv and dkbias. The port's plain
+    version runs in float64, so that neither side's float32 sum order (the
+    CPU matmuls' order varies with the process's history) meets the
+    other's: each float32 result stands alone against the exact one."""
     rng = np.random.default_rng(N + 7 * len(mode))
     G, nH, Dh = 2, 2, 16
     C = nH * Dh
@@ -148,19 +173,23 @@ def test_plain_attention_bwd_at_long_n_matches_jax(N, mode):
         allowed[:img, img:] = False
         qbias = np.broadcast_to(np.where(allowed, 0.0, -10000.0),
                                 (G, N, N)).astype(np.float32).copy()
-    want = pa.seq_attention_core_bwd(
+    exact = _attention_vjp_f64(qkv, dctx, nH, scale, kbias, qbias)
+    jax_out = pa.seq_attention_core_bwd(
         jnp.asarray(qkv), jnp.asarray(dctx), jnp.asarray(kbias),
         None if qbias is None else jnp.asarray(qbias), None, scale, nH,
         interpret=True)
-    args = (torch.from_numpy(qkv.reshape(G * N, 3 * C)),
-            torch.from_numpy(dctx.reshape(G * N, C)), nH, N, scale,
-            None if qbias is not None else torch.from_numpy(kbias),
-            None if qbias is None else torch.from_numpy(qbias))
+    f64 = lambda a: torch.from_numpy(a.astype(np.float64))  # noqa: E731
+    args = (f64(qkv.reshape(G * N, 3 * C)), f64(dctx.reshape(G * N, C)), nH,
+            N, scale, None if qbias is not None else f64(kbias),
+            None if qbias is None else f64(qbias))
     got = kernels.biased_attention_bwd_plain(*args)
-    np.testing.assert_allclose(got[0].numpy().reshape(G, N, 3 * C),
-                               np.asarray(want[0]), atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
-                               atol=1e-5, rtol=1e-5)
+    assert got[0].dtype == got[1].dtype == torch.float64
+    for what, out in (("port, float64", [got[0].numpy().reshape(G, N, 3 * C),
+                                         got[1].numpy()]),
+                      ("JAX, float32", [np.asarray(a) for a in jax_out])):
+        for name, a, want in zip(("dqkv", "dkbias"), out, exact):
+            np.testing.assert_allclose(a, want, atol=1e-5, rtol=1e-5,
+                                       err_msg=f"{what} {name}")
     # the CPU wrapper is the plain version
     again = kernels.biased_attention_bwd(*args)
     assert all(torch.equal(a, b) for a, b in zip(again, got))

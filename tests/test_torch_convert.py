@@ -1,6 +1,8 @@
-"""The flax -> port parameter bridge: every leaf of a flax ``VQAModel`` tree
+"""The flax <-> port parameter bridge: every leaf of a flax ``VQAModel`` tree
 maps exactly once onto the port's ``state_dict``; a missing or an extra
-leaf raises."""
+leaf raises; and flax -> port -> flax (``params_to_flax``) is bitwise equal
+on the VQA (Swin and ResNet with ``batch_stats``), pretrain, caption and
+retrieval trees."""
 
 import copy
 import dataclasses
@@ -11,10 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from mvlt_tpu.config import MVLTConfig, SwinConfig
+from mvlt_tpu.config import MVLTConfig, ResNetConfig, SwinConfig
+from mvlt_tpu.models import heads as jax_heads
 from mvlt_tpu.models.heads import VQAModel as JaxVQA
+from mvlt_tpu_torch import config as port_config
+from mvlt_tpu_torch.models import heads as port_heads
 from mvlt_tpu_torch.models.heads import VQAModel
-from mvlt_tpu_torch.utils.convert import vqa_params_from_flax
+from mvlt_tpu_torch.utils.convert import (params_from_flax, params_to_flax,
+                                          vqa_params_from_flax)
 
 torch.set_num_threads(2)
 
@@ -103,3 +109,64 @@ def test_missing_leaf_fails_strict_load():
     del bad["params"]["conv"]["backbone"]["layers_1_blocks_0"]["norm2"]
     with pytest.raises(RuntimeError, match="Missing key"):
         VQAModel(cfg).load_state_dict(vqa_params_from_flax(bad))
+
+
+def _task_config(task):
+    make = {"vqa": MVLTConfig.for_vqa, "vqa_resnet": MVLTConfig.for_vqa,
+            "pretrain": MVLTConfig.for_pretrain,
+            "caption": MVLTConfig.for_caption,
+            "retrieval": MVLTConfig.for_retrieval}[task]
+    cfg = dataclasses.replace(_config(48), result_num=6)
+    cfg = dataclasses.replace(make(), conv=cfg.conv, swin=cfg.swin,
+                              fusion=cfg.fusion, result_num=6,
+                              itm_task=True)
+    if task == "vqa_resnet":
+        cfg = dataclasses.replace(cfg, conv="resnet50",
+                                  resnet=ResNetConfig(layers=(1, 1), width=8))
+    return cfg
+
+
+@pytest.mark.parametrize("task", ["vqa", "vqa_resnet", "pretrain",
+                                  "caption", "retrieval"])
+def test_params_to_flax_round_trip_is_bitwise(task):
+    """flax -> port (``params_from_flax``) -> flax (``params_to_flax`` on
+    the same tree as template) gives every leaf back bitwise, q / k / v
+    split out of the fused qkv and kernels transposed back; the port
+    model's own ``state_dict`` maps to the same tree; a port tensor that no
+    leaf takes, or a template leaf with no port tensor, raises."""
+    cfg = _task_config(task)
+    name = {"vqa": "VQAModel", "vqa_resnet": "VQAModel",
+            "pretrain": "PretrainModel", "caption": "CaptionModel",
+            "retrieval": "RetrievalModel"}[task]
+    image, text = jnp.zeros((1, 3, 16, 16)), jnp.ones((1, 5), jnp.int32)
+    args = ((image, text, text, jnp.zeros((1,), jnp.int32))
+            if task == "pretrain" else (image, text))
+    shapes = jax.eval_shape(lambda: getattr(jax_heads, name)(cfg).init(
+        jax.random.PRNGKey(0), *args))
+    rng = np.random.default_rng(1)
+    variables = jax.tree.map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
+    assert ("batch_stats" in variables) == (task == "vqa_resnet")
+    sd = params_from_flax(variables)
+    back = params_to_flax(sd, variables)
+    assert jax.tree.structure(back) == jax.tree.structure(variables)
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(variables),
+                            jax.tree_util.tree_leaves(back)):
+        assert a.dtype == b.dtype and np.array_equal(a, b), path
+    d = dataclasses.asdict(cfg)
+    pcfg = port_config.MVLTConfig(
+        fusion=port_config.FusionConfig(**d.pop("fusion")),
+        swin=port_config.SwinConfig(**d.pop("swin")),
+        resnet=port_config.ResNetConfig(**d.pop("resnet")),
+        vit=port_config.ViTConfig(**d.pop("vit")), **d)
+    model = getattr(port_heads, name)(pcfg, device="cpu")
+    model.load_state_dict(sd)
+    again = params_to_flax(model.state_dict(), variables)
+    assert all(np.array_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(again), jax.tree_util.tree_leaves(back)))
+    with pytest.raises(KeyError, match="no flax leaf takes"):
+        params_to_flax({**sd, "extra.weight": torch.zeros(2)}, variables)
+    short = dict(sd)
+    del short["fusion.pooler.weight"]
+    with pytest.raises(KeyError, match="no port tensor"):
+        params_to_flax(short, variables)

@@ -718,3 +718,22 @@ def test_cuda_caption_generate_is_deterministic_and_prefill_matches_plain(
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 0.05 * want.abs().max()
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_retrieval_grid_matches_plain(cuda_device):
+    """The retrieval grid at full width (Swin-S + BERT-base, bf16, S = 131)
+    on the card, 6 samples in chunks of 4 (the last chunk ragged): P(match)
+    on the kernels within 0.05 x max|plain| of the plain versions', two
+    calls bitwise equal, the diagonal labelled."""
+    grid, (images, captions, cap_ids) = flagship.build_retrieval_grid(
+        n=6, batch_size=4, device=cuda_device)
+    got = grid(images, captions, cap_ids)
+    again = grid(images, captions, cap_ids)["similarities"]
+    want = grid(images, captions, cap_ids, plain=True)["similarities"]
+    sims = got["similarities"]
+    assert sims.shape == (6, 6) and np.isfinite(sims).all()
+    assert np.array_equal(sims, again)
+    assert np.abs(sims - want).max() <= 0.05 * np.abs(want).max()
+    assert (np.diag(got["labels"]) == 1).all()
+    torch.cuda.synchronize()
