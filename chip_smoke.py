@@ -3,9 +3,9 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --norm``: phases 1-2's build and K3 / K5 at the
-step's shapes only; ``--caption`` / ``--retrieval``: phases 1-2 and phase
-10 / 11 only). It imports nothing of JAX and nothing of the JAX
-package. Phases, each of which raises on failure:
+step's shapes only; ``--caption`` / ``--retrieval`` / ``--vqa-driver``:
+phases 1-2 and phase 10 / 11 / 12 only). It imports nothing of JAX and
+nothing of the JAX package. Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the port's CUDA kernels from ``mvlt_tpu_torch/csrc`` with
@@ -120,7 +120,24 @@ package. Phases, each of which raises on failure:
     DropPath 0.3, attention dropout 0.1, hidden dropout 0.0) driven as
     phase 10 drives the caption step. ``python3 chip_smoke.py --retrieval``
     runs phases 1-2 and this phase only;
-12. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+12. vqa driver: the VQA task driver, ``python -m mvlt_tpu_torch.run_vqa``
+    (``run_vqa.main``), at its defaults (Swin-S @224 + BERT-base,
+    ``for_vqa``: dropouts 0.1, DropPath 0.3, lr 4e-5, b64) on a synthetic
+    SLAKE written as pickles (64 images, 224 answers, 320 / 100 / 100
+    questions), 2 epochs with loader worker processes, in a process of its
+    own under a time limit (a fork that hangs fails the run): the launch
+    counts of one driver step and of one eval batch, every device batch
+    bitwise equal to its host batch, ``results.json``'s keys; the first
+    epoch on the plain versions replaying the masks (3 losses, step 1's
+    gradients), eval logits against the plain versions; a save and a
+    restore into a fresh runner (state and predictions bitwise equal, one
+    more step bitwise equal); then, on a train split of SLAKE's length
+    (76 steps at b64), the driver's train loop for 2 loader processes, the
+    CLI default and threads (whole-epoch samples/s, the epoch start, the
+    steady interval between steps) beside the bare step on a resident
+    batch, the loader alone, eval samples/s and peak memory. ``python3
+    chip_smoke.py --vqa-driver`` runs phases 1-2 and this phase only;
+13. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
 """
 
@@ -340,6 +357,31 @@ EXPECTED_RETRIEVAL_STEP = {
     "fused_mlp_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:3194"),
     "fused_mlp_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2817"),
 }
+# the VQA task driver at run_vqa.py's defaults (:19-41): for_vqa (fusion
+# dropouts 0.1, lr 4e-5) on Swin-S (DropPath 0.3), b64, SLAKE's question
+# length 23 (S = 1 + 49 + 1 + 23 = 74), 2 epochs, loader worker processes;
+# on a synthetic SLAKE in pickles: 64 images, 224 answers, 320 train
+# questions (5 steps of b64), 100 validate and 100 test (a tail of 36)
+VQA_DRIVER_DATA = dict(images=64, answers=224, image_size=224, train=320,
+                       validate=100, test=100)
+VQA_DRIVER_BATCH, VQA_DRIVER_EPOCHS, VQA_DRIVER_WORKERS = 64, 2, 2
+# the timed train loops: one epoch each of a train split as long as the
+# English SLAKE release's (76 steps at b64), many times the loader's
+# lookahead (workers + prefetch pool jobs, 2 batches queued, 2 in the device
+# prefetch), for the phase's worker processes, the CLI default (-1) and
+# threads (0); the steady interval between steps is read after the first
+# VQA_DRIVER_STEADY_FROM steps of the epoch; bare steps a timed bare run
+VQA_DRIVER_TIMED_WORKERS = (VQA_DRIVER_WORKERS, -1, 0)
+VQA_DRIVER_STEADY_FROM, VQA_DRIVER_BARE_STEPS = 16, 20
+# batches the loader alone delivers a setting in the probe
+VQA_PROBE_BATCHES = 28
+# the phase's own limit, in seconds: it runs in a process of its own
+VQA_DRIVER_TIMEOUT = 600
+VQA_DRIVER_TAG = "vqa driver launches: "
+# one driver step: the Swin-S step's backbone rows and, with both fusion
+# dropouts, rows 15 (amask + hmask), 16, 17 (hmask2) and 17' as the pretrain
+# step runs them; one eval batch runs the forward's serving rows (EXPECTED)
+EXPECTED_VQA_DRIVER_STEP = EXPECTED_SWIN_PRETRAIN
 # the hand-written kernels and the TPU code whose pieces each carries
 KERNEL_SOURCES = {
     "gemm": ("mvlt_tpu_torch/csrc/gemm.cu", "mvlt_tpu/ops/pallas_attn.py:571"),
@@ -2762,6 +2804,7 @@ def main() -> int:
         by_path["caption_step"] = caption_step_phase(dev, card)
         by_path["retrieval_grid"] = retrieval_grid_phase(dev, card)
         by_path["retrieval_step"] = retrieval_step_phase(dev, card)
+        by_path["vqa_driver"] = vqa_driver_subprocess()
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
@@ -2810,14 +2853,22 @@ def swin_bars(name: str):
 
 def compare_grads(model_k, model_p, what: str, bars=resnet_bars) -> None:
     """Every parameter's gradient, kernels vs plain, held to the bar that
-    ``bars(name)`` gives its group: ``"max"`` the max abs err over
+    ``bars(name)`` gives its group (:func:`compare_grad_dicts`). A parameter
+    the loss does not reach has no gradient on either side."""
+    compare_grad_dicts({n: p.grad for n, p in model_k.named_parameters()},
+                       {n: p.grad for n, p in model_p.named_parameters()},
+                       what, bars)
+
+
+def compare_grad_dicts(grads_k: dict, grads_p: dict, what: str,
+                       bars=resnet_bars) -> None:
+    """Gradients by parameter name, kernels vs plain, each held to the bar
+    that ``bars(name)`` gives its group: ``"max"`` the max abs err over
     max|plain grad|, ``"frob"`` the relative Frobenius norm of the
-    difference. A parameter the loss does not reach has no gradient on
-    either side."""
+    difference; None on both sides is no gradient."""
     stats, failures, worst = [], [], {}
-    for (name, pk), (_, pp) in zip(model_k.named_parameters(),
-                                   model_p.named_parameters()):
-        gk, gp = pk.grad, pp.grad
+    for name, gk in grads_k.items():
+        gp = grads_p[name]
         if gk is None and gp is None:
             continue
         if gk is None or gp is None or not torch.isfinite(gk).all():
@@ -3664,7 +3715,468 @@ def retrieval_step_phase(dev, card: str, timed_steps: int = 4) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the VQA task driver (python -m mvlt_tpu_torch.run_vqa)
+# ---------------------------------------------------------------------------
+
+class _DriverRecorder:
+    """What the VQA driver phase watches while the driver runs unchanged:
+    the loader's train batches as the host made them, each step's device
+    batch and loss, (step 1) gradients and launch counts, the runner of
+    ``run_vqa.train_round``. :meth:`watching` installs it around
+    ``tasks.vqa``'s ``DataLoader`` and ``make_vqa_step``,
+    ``TaskRunner.masks_for_step`` and ``run_vqa.train_round``. Each step's
+    masks are drawn as the runner draws them and copied to the host after
+    the step (``masks``, by step), so that the card holds what the driver
+    holds; with ``replay`` (masks by step) the steps take those masks
+    instead."""
+
+    def __init__(self, replay=None):
+        self.host, self.same, self.losses, self.masks = [], [], [], []
+        self.grads = self.step_counts = self.runner = None
+        self.replay = replay
+
+    @contextlib.contextmanager
+    def watching(self):
+        from mvlt_tpu_torch import run_vqa
+        from mvlt_tpu_torch.data.loader import DataLoader
+        from mvlt_tpu_torch.ops.layers import DropoutMasks
+        from mvlt_tpu_torch.tasks import common, vqa
+        rec, make = self, vqa.make_vqa_step
+        draw, train_round = common.TaskRunner.masks_for_step, run_vqa.train_round
+
+        class Recording(DataLoader):
+            def epoch(self, epoch=0):
+                for b in super().epoch(epoch):
+                    if self.shuffle:
+                        rec.host.append(b)
+                    yield b
+
+        def masks_for_step(runner, offset=0):
+            if rec.replay is not None:
+                return DropoutMasks.replay(rec.replay[runner.state.step])
+            return DropoutMasks(draw(runner, offset).generator, record=True)
+
+        def make_step(model, optimizer, plain=False):
+            inner = make(model, optimizer, plain=plain)
+
+            def step(batch):
+                inner.masks = step.masks
+                i = len(rec.losses)
+                rec.same.append(all(torch.equal(
+                    batch[k].cpu(), torch.from_numpy(rec.host[i][k]))
+                    for k in ("image", "question", "label")))
+                before = launch_counts()
+                out = inner(batch)
+                if i == 0:
+                    torch.cuda.synchronize()
+                    after = launch_counts()
+                    rec.step_counts = {k: after[k] - before[k] for k in after}
+                    rec.grads = {n: p.grad.detach().cpu()
+                                 for n, p in model.named_parameters()}
+                rec.losses.append(out["loss"].item())
+                if step.masks.recorded is not None:
+                    rec.masks.append([t.cpu() for t in step.masks.recorded])
+                return out
+
+            step.prefetch, step.masks = inner.prefetch, inner.masks
+            return step
+
+        def capture(*a, **kw):
+            runner, best = train_round(*a, **kw)
+            rec.runner = runner
+            return runner, best
+
+        with mock.patch.object(vqa, "DataLoader", Recording), \
+                mock.patch.object(vqa, "make_vqa_step", make_step), \
+                mock.patch.object(common.TaskRunner, "masks_for_step",
+                                  masks_for_step), \
+                mock.patch.object(run_vqa, "train_round", capture):
+            yield self
+
+
+def _state_tensors(obj, prefix=""):
+    """{path: tensor} of a nested state (state_dicts of the model and the
+    optimizer)."""
+    if torch.is_tensor(obj):
+        return {prefix: obj}
+    out = {}
+    items = (obj.items() if isinstance(obj, dict) else
+             enumerate(obj) if isinstance(obj, (list, tuple)) else ())
+    for k, v in items:
+        out.update(_state_tensors(v, f"{prefix}/{k}"))
+    return out
+
+
+def _same_state(a, b, what: str) -> None:
+    """Two train states bitwise equal: step, parameters and buffers,
+    optimizer state."""
+    if a.step != b.step:
+        raise AssertionError(f"{what}: step {a.step} vs {b.step}")
+    for part, x, y in (("model", a.model.state_dict(), b.model.state_dict()),
+                       ("optimizer", _state_tensors(a.optimizer.state_dict()),
+                        _state_tensors(b.optimizer.state_dict()))):
+        if x.keys() != y.keys() or not x:
+            raise AssertionError(f"{what}: {part} keys differ")
+        bad = [k for k in x if not torch.equal(x[k], y[k])]
+        if bad:
+            raise AssertionError(f"{what}: {len(bad)} {part} tensors differ, "
+                                 f"e.g. {bad[:3]}")
+
+
+def _expect_counts(counts: dict, expected: dict, what: str,
+                   launched) -> None:
+    """Each counterpart's count in ``counts`` as ``expected`` says, and each
+    kernel named in ``launched`` at least once."""
+    for name, (want, _) in expected.items():
+        if counts[name] != want:
+            raise AssertionError(f"{name} ran {counts[name]} times in {what}, "
+                                 f"expected {want}")
+    for name in launched:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched in {what}")
+
+
+def vqa_driver_phase(dev, card: str) -> dict:
+    """The VQA task driver, ``python -m mvlt_tpu_torch.run_vqa``, at its
+    defaults (Swin-S @224 + BERT-base, ``for_vqa``: dropouts 0.1, DropPath
+    0.3, lr 4e-5, b64) on a synthetic SLAKE in pickles
+    (``VQA_DRIVER_DATA``), 2 epochs, worker processes; then its first epoch
+    on the plain versions, replaying the kernel run's masks. Checks: the
+    launch counts of one driver step and one eval batch, every device batch
+    bitwise its host batch in order, the losses of 3 steps and step 1's
+    gradients against the plain run, eval logits against the plain
+    versions, ``results.json``'s keys; a save and a restore into a fresh
+    runner (state and eval predictions bitwise equal, one more step bitwise
+    equal to the same step without the restore). Then times, on a train
+    split of SLAKE's length, one epoch of the driver's train loop for each
+    of ``VQA_DRIVER_TIMED_WORKERS`` between two runs of the bare step on a
+    resident batch (samples/s, the epoch start, the steady interval between
+    steps), the loader alone, and eval, with the peak memory. Returns the
+    launch counts of the kernel run's whole ``run_vqa.main`` call."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    from mvlt_tpu_torch import run_vqa
+    from mvlt_tpu_torch.data.datasets import (SLAKE_SPLITS, MedVQADataset,
+                                              write_synthetic_vqa)
+    from mvlt_tpu_torch.data.loader import auto_workers
+    from mvlt_tpu_torch.models.heads import VQAModel
+    from mvlt_tpu_torch.ops import kernels
+    from mvlt_tpu_torch.tasks.common import TaskRunner
+    from mvlt_tpu_torch.tasks.vqa import eval_vqa, train_vqa
+    from mvlt_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from mvlt_tpu_torch.train.steps import make_vqa_step
+    root = REPO / "build" / "vqa_driver"
+    shutil.rmtree(root, ignore_errors=True)
+    d, B = VQA_DRIVER_DATA, VQA_DRIVER_BATCH
+    bank = {k: d[k] for k in ("images", "answers", "image_size")}
+    t0 = time.perf_counter()
+    write_synthetic_vqa(str(root / "data"), "SLAKE", **bank,
+                        splits={k: d[k] for k in ("train", "validate",
+                                                  "test")})
+    write_synthetic_vqa(str(root / "timed"), "SLAKE", **bank,
+                        splits={"train": SLAKE_SPLITS["train"]})
+    argv = ["--dataset", "SLAKE", "--data_root", str(root / "data"),
+            "--epochs", str(VQA_DRIVER_EPOCHS), "--batch_size", str(B),
+            "--device", str(dev)]
+    print(f"vqa driver: synthetic SLAKE written in "
+          f"{time.perf_counter() - t0:.1f} s ({d}; for the timed loops a "
+          f"train split of {SLAKE_SPLITS['train']}); run_vqa "
+          f"{' '.join(argv)}", flush=True)
+
+    # 1. the driver on the kernels, worker processes
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec_k = _DriverRecorder()
+    reset_counts()
+    t0 = time.perf_counter()
+    with rec_k.watching():
+        results = run_vqa.main(argv + [
+            "--model_name", str(root / "kernels"),
+            "--num_workers", str(VQA_DRIVER_WORKERS)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    run_s = time.perf_counter() - t0
+    runner_k = rec_k.runner
+    steps = VQA_DRIVER_EPOCHS * (d["train"] // B)
+    print(f"vqa driver run (kernels, {VQA_DRIVER_WORKERS} worker processes): "
+          f"{run_s:.1f} s for {steps} steps, {VQA_DRIVER_EPOCHS} valid and 2 "
+          f"test evals, the saves and the restore; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB (the "
+          f"checks' copies of masks and gradients on the host); results "
+          f"{json.dumps(results)}", flush=True)
+    print(f"launches in the driver run: {json.dumps(counts)}", flush=True)
+    print(f"launches in one driver step: {json.dumps(rec_k.step_counts)}",
+          flush=True)
+    _expect_counts(rec_k.step_counts, EXPECTED_VQA_DRIVER_STEP,
+                   "one driver step",
+                   [k.__name__ for k in kernels.KERNELS] + ["gemm_splitk"])
+    on_disk = json.loads((root / "kernels" / "results.json").read_text())
+    keys = {"valid_acc", "epoch", "test_final", "test"}
+    split_keys = {"overall", "total", "correct", "open", "closed"}
+    if (on_disk != json.loads(json.dumps(results)) or len(on_disk) != 1
+            or set(on_disk[0]) != keys
+            or any(set(on_disk[0][s]) != split_keys
+                   or on_disk[0][s]["total"] != d["test"]
+                   for s in ("test", "test_final"))):
+        raise AssertionError(f"results.json lacks JAX's keys: {on_disk}")
+    if len(rec_k.same) != steps or not all(rec_k.same):
+        raise AssertionError(f"device batches vs host batches: {rec_k.same}")
+    print(f"vqa driver: {len(rec_k.same)} device batches bitwise equal to "
+          f"their host batches, in order; results.json has JAX's keys",
+          flush=True)
+
+    # one eval batch's launches, on a split of one batch
+    args = run_vqa.parse_args(argv)
+    tok = WordPieceTokenizer()
+    train_ds, _, test_ds = run_vqa.build_datasets(args, tok)
+    one = MedVQADataset(str(root / "data"), "SLAKE", "validate")
+    one.entries = one.entries[:B]
+    one.tokenize(tok)
+    before = launch_counts()
+    eval_vqa(runner_k, one, B)
+    after = launch_counts()
+    eval_counts = {k: after[k] - before[k] for k in after}
+    print(f"launches in one eval batch: {json.dumps(eval_counts)}",
+          flush=True)
+    _expect_counts(eval_counts, EXPECTED, "one eval batch",
+                   ("gemm", "biased_attention", "layernorm"))
+
+    # eval logits, kernels vs plain, on the trained model
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             rec_k.host[0].items() if k in ("image", "question")}
+    _, lk = runner_k.model(batch["image"], batch["question"])
+    _, lp = runner_k.model(batch["image"], batch["question"], plain=True)
+    _check_close(f"vqa driver eval logits b{B}", lk, lp)
+
+    # 2. the first epoch on the plain versions from the same seed, replaying
+    # the kernel run's masks
+    rec_p = _DriverRecorder(replay=rec_k.masks)
+    plain = TaskRunner(VQAModel, runner_k.config,
+                       dataclasses.replace(runner_k.train_config,
+                                           num_workers=0),
+                       name="vqa-plain", device=dev, plain=True)
+    plain.init_state()
+    with rec_p.watching():
+        train_vqa(plain, train_ds, epochs=1)
+    losses = {"kernels": rec_k.losses[:TRAIN_STEPS],
+              "plain": rec_p.losses[:TRAIN_STEPS]}
+    print(f"vqa driver losses of {TRAIN_STEPS} steps: {json.dumps(losses)}",
+          flush=True)
+    for i, (a, b) in enumerate(zip(losses["kernels"], losses["plain"])):
+        if not (abs(a - b) <= LOSS_BAR * abs(b) and a == a):
+            raise AssertionError(f"driver step {i + 1} loss {a} vs plain {b} "
+                                 f"beyond {LOSS_BAR} relative")
+    compare_grad_dicts(rec_k.grads, rec_p.grads,
+                       "vqa driver step 1 gradients", swin_bars)
+    rec_k.grads = rec_k.masks = None
+    del rec_p, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. a save, then a restore into a fresh runner
+    runner_k.save()
+    runner_k.finish()
+    fresh = TaskRunner(VQAModel, runner_k.config, runner_k.train_config,
+                       workdir=runner_k.workdir, name="vqa-restore",
+                       device=dev)
+    fresh.init_state()
+    if not fresh.maybe_restore():
+        raise AssertionError("the fresh runner found no checkpoint")
+    _same_state(runner_k.state, fresh.state, "restored state")
+    preds = []
+    for r, name in ((runner_k, "kernels"), (fresh, "restored")):
+        path = root / f"predictions_{name}.json"
+        eval_vqa(r, test_ds, B, predictions_path=str(path))
+        preds.append(json.loads(path.read_text()))
+    if preds[0] != preds[1]:
+        raise AssertionError("eval predictions differ after the restore")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             rec_k.host[1].items() if k in ("image", "question", "label")}
+    for r in (runner_k, fresh):
+        step = make_vqa_step(r.model, r.optimizer)
+        step.masks = r.masks_for_step()
+        step(batch)
+        r.state.step += 1
+    torch.cuda.synchronize()
+    _same_state(runner_k.state, fresh.state, "one step after the restore")
+    print(f"vqa driver: saved at step {fresh.state.step - 1}, restored into a "
+          f"fresh runner: parameters, optimizer state, step and "
+          f"{len(preds[0])} test predictions bitwise equal; one more step "
+          f"bitwise equal", flush=True)
+    # only the kernel run's model and optimizer stay for the timed loops
+    del fresh, step, r, rec_k
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. times: one epoch of a SLAKE-length train split through train_vqa
+    # for each loader setting, between two runs of the bare step; the host
+    # marks each step where the loop logs it
+    long_ds = MedVQADataset(str(root / "timed"), "SLAKE", "train")
+    long_ds.tokenize(tok)
+    per = len(long_ds) // B
+    runner_k.workdir = None                # no saves in the timed loops
+    tc = runner_k.train_config
+    bare = make_vqa_step(runner_k.model, runner_k.optimizer)
+    marks, log_step = [], runner_k.log_step
+
+    def marked_log(metrics, samples):
+        marks.append(time.perf_counter())
+        log_step(metrics, samples)
+
+    def bare_rate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VQA_DRIVER_BARE_STEPS):
+            bare.masks = runner_k.masks_for_step()
+            bare(batch)
+            runner_k.state.step += 1
+        torch.cuda.synchronize()
+        return VQA_DRIVER_BARE_STEPS * B / (time.perf_counter() - t0)
+
+    torch.cuda.reset_peak_memory_stats()
+    bare_rates = [bare_rate()]
+    runner_k.log_step = marked_log
+    loops = {}
+    for workers in VQA_DRIVER_TIMED_WORKERS:
+        runner_k.train_config = dataclasses.replace(tc, num_workers=workers)
+        marks.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_vqa(runner_k, long_ds, epochs=1)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        if len(marks) != per:
+            raise AssertionError(f"{len(marks)} steps logged, {per} run")
+        gaps = sorted(b - a for a, b in zip(marks, marks[1:]))
+        steady = sorted(b - a for a, b in
+                        zip(marks[VQA_DRIVER_STEADY_FROM:],
+                            marks[VQA_DRIVER_STEADY_FROM + 1:]))
+        loops[workers] = (per * B / total, marks[0] - t0, gaps, steady)
+    del runner_k.log_step
+    runner_k.train_config = tc
+    bare_rates.append(bare_rate())
+    peak = torch.cuda.max_memory_allocated()
+    bare_ms = B * 1e3 * 2 / sum(bare_rates)
+    print(f"vqa driver bare step on {card}: {[round(r, 1) for r in bare_rates]}"
+          f" samples/s before and after the loops, {bare_ms:.1f} ms a step",
+          flush=True)
+    for workers, (rate, first, gaps, steady) in loops.items():
+        n = auto_workers(workers)
+        kind = f"{n} processes" if n else "threads"
+        med = statistics.median(steady)
+        print(f"vqa driver loop on {card}, num_workers={workers} ({kind}): "
+              f"one epoch of {per} steps {rate:.1f} samples/s "
+              f"({rate * bare_ms / (B * 1e3):.3f} x the bare rate); the first "
+              f"step logged {first * 1e3:.1f} ms after the epoch began; the "
+              f"interval between steps {VQA_DRIVER_STEADY_FROM + 1}-{per} "
+              f"{med * 1e3:.1f} ms median ({steady[len(steady) // 10] * 1e3:.1f}"
+              f"-{steady[-1 - len(steady) // 10] * 1e3:.1f} from the 10th to "
+              f"the 90th percentile), {med * 1e3 / bare_ms:.3f} x the bare "
+              f"step; over all steps {min(gaps) * 1e3:.1f}-"
+              f"{max(gaps) * 1e3:.1f} ms", flush=True)
+    loader_probe(long_ds)
+    eval_rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_vqa(runner_k, test_ds, B)
+        eval_rates.append(len(test_ds) / (time.perf_counter() - t0))
+    print(f"vqa driver on {card}: eval (test split, {len(test_ds)} questions, "
+          f"b{B} + tail) {[round(r, 1) for r in eval_rates]} samples/s; peak "
+          f"memory in the timed loops (bare steps and train_vqa) "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    return counts
+
+
+def loader_probe(train_ds) -> None:
+    """The loader alone, on the host in this process (CUDA up, the model
+    resident), for each of ``VQA_DRIVER_TIMED_WORKERS``: the time to create
+    and close the fork pool alone, then ``VQA_PROBE_BATCHES`` batches of a
+    shuffled epoch of ``train_ds`` with no step in between (the first, and
+    the median interval over the second half, past the lookahead); the
+    epoch is then abandoned."""
+    import multiprocessing
+    import statistics
+
+    from mvlt_tpu_torch.data.loader import DataLoader, auto_workers
+    for workers in VQA_DRIVER_TIMED_WORKERS:
+        n = auto_workers(workers)
+        pool_ms = None
+        if n:
+            t0 = time.perf_counter()
+            with multiprocessing.get_context("fork").Pool(n) as pool:
+                pool.map(abs, range(n))
+            pool_ms = (time.perf_counter() - t0) * 1e3
+        loader = DataLoader(train_ds, VQA_DRIVER_BATCH, shuffle=True,
+                            drop_last=True, num_workers=workers)
+        epoch = loader.epoch(7)
+        t0 = time.perf_counter()
+        marks = []
+        for _ in range(VQA_PROBE_BATCHES):
+            next(epoch)
+            marks.append(time.perf_counter())
+        epoch.close()
+        gaps = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+        late = gaps[len(gaps) // 2:]
+        kind = f"{n} processes" if n else f"{loader.num_threads} threads"
+        pool = ("no fork pool" if pool_ms is None else
+                f"a fork pool of {n} created and closed in {pool_ms:.1f} ms")
+        print(f"loader alone, num_workers={workers} ({kind}): {pool}; first "
+              f"batch of an epoch after {(marks[0] - t0) * 1e3:.1f} ms; over "
+              f"batches {VQA_PROBE_BATCHES - len(late)}-{VQA_PROBE_BATCHES} "
+              f"{statistics.median(late):.1f} ms median a batch "
+              f"({min(late):.1f}-{max(late):.1f})", flush=True)
+
+
+def vqa_driver_main() -> int:
+    """``python3 chip_smoke.py --vqa-driver``: phases 1-2 and the VQA
+    driver phase only; its last line is the driver run's launch counts."""
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    with switches(False):
+        counts = vqa_driver_phase(dev, card)
+    print(VQA_DRIVER_TAG + json.dumps(counts), flush=True)
+    return 0
+
+
+def vqa_driver_subprocess() -> dict:
+    """The VQA driver phase in a process of its own (``--vqa-driver``) under
+    ``VQA_DRIVER_TIMEOUT``: its loader forks worker processes, and a fork
+    that hangs fails the run instead of stopping it. The process group
+    is killed at the limit. Returns the driver run's launch counts."""
+    import signal
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"),
+                             "--vqa-driver"], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=VQA_DRIVER_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        print(out, flush=True)
+        raise AssertionError(f"the VQA driver phase passed its limit of "
+                             f"{VQA_DRIVER_TIMEOUT} s")
+    print(out, end="", flush=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"the VQA driver phase failed "
+                             f"(exit {proc.returncode})")
+    print(f"vqa driver phase: {time.perf_counter() - t0:.1f} s in its own "
+          "process", flush=True)
+    line = [l for l in out.splitlines() if l.startswith(VQA_DRIVER_TAG)][-1]
+    return json.loads(line[len(VQA_DRIVER_TAG):])
+
+
 if __name__ == "__main__":
     modes = {"--norm": norm_main, "--caption": caption_main,
-             "--retrieval": retrieval_main}
+             "--retrieval": retrieval_main, "--vqa-driver": vqa_driver_main}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

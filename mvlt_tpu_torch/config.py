@@ -4,12 +4,17 @@ names and defaults, so one config describes a model in both packages
 (``dataclasses.asdict`` of the two agree; ``tests/test_torch_train.py``).
 
 Defaults mirror the reference (``modules/config.py:4-72``) and its Swin
-YAMLs, as in the JAX package.
+YAMLs, as in the JAX package. ``MVLTConfig.to_json`` writes the same text as
+JAX's for the same fields (the ``config.json`` of a ``save_pretrained``
+directory), and ``TrainConfig`` / ``MeshConfig`` keep every field of
+``mvlt_tpu/config.py:285-327``; the port runs on one device, so a mesh of
+more than one is refused where a runner is built (``tasks/common.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Optional, Tuple
 
 
@@ -182,6 +187,42 @@ class MVLTConfig:
                     f"(vocab_size={vocab}); pass in-vocab special ids "
                     f"when shrinking the vocab.")
 
+    def with_tokenizer(self, tokenizer) -> "MVLTConfig":
+        """Special token ids and vocabulary size from a tokenizer
+        (``mvlt_tpu/config.py:209-220``)."""
+        ids = tokenizer.convert_tokens_to_ids(["[END]", "[CLS]", "[SEP]",
+                                               "[MASK]"])
+        return dataclasses.replace(
+            self, eos_token_id=ids[0], cls_token_id=ids[1],
+            sep_token_id=ids[2], mask_token_id=ids[3],
+            fusion=dataclasses.replace(self.fusion,
+                                       vocab_size=len(tokenizer)))
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @staticmethod
+    def from_json(text: str) -> "MVLTConfig":
+        """The inverse of :meth:`to_json`; unknown keys are dropped and a
+        missing sub-config takes its defaults (``mvlt_tpu/config.py:
+        260-282``)."""
+        raw = json.loads(text)
+
+        def _mk(cls, d):
+            if d is None:
+                return cls()
+            names = {f.name for f in dataclasses.fields(cls)}
+            return cls(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in d.items() if k in names})
+
+        kw = dict(raw)
+        kw["fusion"] = _mk(FusionConfig, raw.get("fusion"))
+        kw["swin"] = _mk(SwinConfig, raw.get("swin"))
+        kw["resnet"] = _mk(ResNetConfig, raw.get("resnet"))
+        kw["vit"] = _mk(ViTConfig, raw.get("vit"))
+        names = {f.name for f in dataclasses.fields(MVLTConfig)}
+        return MVLTConfig(**{k: v for k, v in kw.items() if k in names})
+
     @staticmethod
     def for_vqa(**kw) -> "MVLTConfig":
         base = dict(
@@ -222,3 +263,53 @@ class MVLTConfig:
             max_length=80, lr=1e-5, is_decoder=True)
         base.update(kw)
         return MVLTConfig(**base)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (``mvlt_tpu/config.py:285-293``). The port runs on
+    one device: a runner refuses ``data_parallel`` or ``model_parallel``
+    other than 1 (``-1``, all devices, is one device here)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop knobs (``mvlt_tpu/config.py:296-327``), every field
+    kept. In the port ``rng_impl`` selects nothing (the masks come from a
+    ``torch.Generator``); ``bf16_compute`` picks the model's compute dtype
+    (f32 masters either way); ``num_workers`` -1 sizes the loader's worker
+    processes to the host (``data/loader.py``); ``async_checkpoint`` writes
+    on a background thread after a host snapshot."""
+
+    batch_size: int = 32
+    epochs: int = 100
+    seed: int = 0
+    rng_impl: str = "rbg"
+    bf16_compute: bool = True
+    remat_backbone: bool = False
+    remat_fusion: bool = False
+    grad_accum_steps: int = 1
+    num_workers: int = -1
+    log_every: int = 50
+    checkpoint_every_epochs: int = 1
+    async_checkpoint: bool = True
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+
+def tiny_config(cfg: MVLTConfig) -> MVLTConfig:
+    """A task config shrunk for smoke runs with its semantics kept: dropouts,
+    task switches and special tokens stay, only sizes change
+    (``mvlt_tpu/config.py:330-342``)."""
+    return dataclasses.replace(
+        cfg,
+        fusion=dataclasses.replace(
+            cfg.fusion, hidden_size=64, num_hidden_layers=2,
+            num_attention_heads=4, intermediate_size=128),
+        swin=SwinConfig(img_size=32, patch_size=4, embed_dim=16,
+                        depths=(1, 1), num_heads=(2, 4), window_size=4,
+                        drop_path_rate=0.0))

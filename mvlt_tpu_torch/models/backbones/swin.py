@@ -313,20 +313,22 @@ class SwinBlock(nn.Module):
             raise NotImplementedError(
                 f"shifted Swin block at width {self.dim} (half-block route)")
         BW, N, C = windows.shape
+        # the products in the activations' dtype (f32 masters serve in bf16)
+        dt = windows.dtype
+        qkv = (self.qkv.weight.to(dt), self.qkv.bias.to(dt))
+        proj = (self.proj.weight.to(dt), self.proj.bias.to(dt))
         if attn_half_admits(BW, N, C, bias.shape[0]):
             y = ops.swin_attn_half(windows, self.norm1.weight,
-                                   self.norm1.bias, self.qkv.weight,
-                                   self.qkv.bias, self.proj.weight,
-                                   self.proj.bias, bias, self.scale,
-                                   self.num_heads)
+                                   self.norm1.bias, *qkv, *proj, bias,
+                                   self.scale, self.num_heads)
         else:
             y = ops.window_block_attention(
-                self.norm1(windows, ops), self.qkv.weight, self.qkv.bias,
-                self.proj.weight, self.proj.bias, bias, self.scale,
+                self.norm1(windows, ops), *qkv, *proj, bias, self.scale,
                 self.num_heads, residual=windows)
+        mlp = self.mlp
         return ops.fused_mlp_preln(y, self.norm2.weight, self.norm2.bias,
-                                   self.mlp.fc1.weight, self.mlp.fc1.bias,
-                                   self.mlp.fc2.weight, self.mlp.fc2.bias)
+                                   mlp.fc1.weight.to(dt), mlp.fc1.bias.to(dt),
+                                   mlp.fc2.weight.to(dt), mlp.fc2.bias.to(dt))
 
 
 class PatchMerging(nn.Module):

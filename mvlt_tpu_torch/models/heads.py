@@ -10,11 +10,13 @@ learning strategies and its loss; its decoding is
 :mod:`mvlt_tpu_torch.models.generation`.
 
 The heads' products and LayerNorms sit outside any TPU kernel in JAX, so in
-training they are plain PyTorch (``F.linear``, ``F.layer_norm``). Two
+training they are plain PyTorch (``F.linear``, ``F.layer_norm``). Three
 products are ``F.linear`` in serving too, by design, because K1 takes no N
-% 8 != 0 and JAX computes both in XLA: the MLM decoder to the vocabulary
-(N = 30,522) and the retrieval head's ``final_linear`` (N = 2). Their
-heads' 768 -> 768 transforms stay on ``Dense`` (K1 in serving)."""
+% 8 != 0 and JAX computes them in XLA: the MLM decoder to the vocabulary
+(N = 30,522), the retrieval head's ``final_linear`` (N = 2) and the VQA
+head's ``final_mlp`` (N = the dataset's answer count, whatever it is).
+The first two heads' 768 -> 768 transforms stay on ``Dense`` (K1 in
+serving)."""
 
 from __future__ import annotations
 
@@ -106,7 +108,11 @@ class VQAModel(_Backbone):
             keep = 1.0 - rate
             m = masks.draw(keep, pooled.shape, pooled.device)
             pooled = torch.where(m, pooled / keep, torch.zeros_like(pooled))
-        return self.final_mlp(pooled, ops)
+        # F.linear in serving too: N is the dataset's answer count, which K1
+        # may refuse (N % 8 != 0), and JAX computes this head in XLA
+        d = self.final_mlp
+        return F.linear(pooled, d.weight.to(pooled.dtype),
+                        d.bias.to(pooled.dtype))
 
     @torch.no_grad()
     def forward(self, image: torch.Tensor, question: torch.Tensor,

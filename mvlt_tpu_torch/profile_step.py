@@ -1,7 +1,7 @@
 """Where the device time of a train step or a report-generation call goes,
 on one GPU.
 
-    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate|retrieval_step|retrieval_grid] [--batch 32] [--steps 3] [--attn-impl auto|pallas]
+    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate|retrieval_step|retrieval_grid|vqa_driver|vqa_driver_bare] [--batch 32] [--steps 3] [--attn-impl auto|pallas]
 
 Builds the VQA finetune train step (``--path vqa``, the default:
 :func:`mvlt_tpu_torch.flagship.build_vqa_train_step`), the MLM+ITM
@@ -39,6 +39,19 @@ pairs, ``cat(pos, neg)`` = twice as many rows, text 80); ``--path
 retrieval_grid`` one N x N retrieval grid of 128 samples in chunks of 64
 (:func:`~mvlt_tpu_torch.flagship.build_retrieval_grid`, bf16), whose
 "step" is a whole grid.
+
+``--path vqa_driver`` traces steps of the VQA task driver's train loop
+(:func:`mvlt_tpu_torch.tasks.vqa.train_vqa`'s body: the shuffled loader
+with its worker processes, the device prefetch, the masks of the step, the
+step, the host step count and ``log_step``) at ``run_vqa``'s defaults
+(Swin-S + BERT-base, ``for_vqa``, DropPath 0.3; ``--batch 64`` as the
+driver runs it) over a synthetic SLAKE of the English release's lengths
+(4,919 train questions: 76 steps at b64) written as pickles under
+``build/profile_vqa_driver``; before the warm-up it runs
+``DRIVER_STEADY_FROM`` steps, past what the loader builds ahead at an
+epoch's start, so that the window shows the loop's steady pace.
+``--path vqa_driver_bare`` is the same model's bare step on one resident
+batch, to set beside it.
 """
 
 from __future__ import annotations
@@ -133,8 +146,70 @@ def k1_part(name: str):
     return None
 
 
+# steps of the driver's loop run before its warm-up: past the batches that
+# the loader builds ahead while an epoch starts (its workers' and 2 more
+# pool jobs, 2 queued, 2 in the device prefetch: 13 with the 7 workers of
+# an 8-core host)
+DRIVER_STEADY_FROM = 16
+
+
+def _driver(args):
+    """(step(_), None): one step of the VQA driver's train loop, or with
+    ``vqa_driver_bare`` the bare step on one resident batch."""
+    import pathlib
+
+    from mvlt_tpu_torch import run_vqa
+    from mvlt_tpu_torch.config import TrainConfig
+    from mvlt_tpu_torch.data.datasets import SLAKE_SPLITS, write_synthetic_vqa
+    from mvlt_tpu_torch.data.loader import DataLoader
+    from mvlt_tpu_torch.models.heads import VQAModel
+    from mvlt_tpu_torch.tasks.common import TaskRunner
+    from mvlt_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from mvlt_tpu_torch.train.steps import make_vqa_step
+    root = pathlib.Path("build") / "profile_vqa_driver"
+    write_synthetic_vqa(str(root), splits=SLAKE_SPLITS)
+    rargs = run_vqa.parse_args(["--data_root", str(root), "--batch_size",
+                                str(args.batch)])
+    tok = WordPieceTokenizer()
+    train, _, _ = run_vqa.build_datasets(rargs, tok)
+    cfg = run_vqa.build_config(rargs, tok, len(train.ans2label))
+    runner = TaskRunner(VQAModel, cfg, TrainConfig(batch_size=args.batch),
+                        device="cuda", name="vqa-profile")
+    runner.init_state()
+    tc = runner.train_config
+    step = make_vqa_step(runner.model, runner.optimizer)
+    loader = DataLoader(train, tc.batch_size, shuffle=True, drop_last=True,
+                        seed=tc.seed, num_workers=tc.num_workers)
+    print(f"vqa driver: {loader.num_workers} loader worker processes, "
+          f"{loader.batches_per_epoch()} steps an epoch")
+
+    def batches():
+        epoch = 0
+        while True:
+            yield from step.prefetch(loader.epoch(epoch))
+            epoch += 1
+
+    it = batches()
+    resident = next(it) if args.path == "vqa_driver_bare" else None
+
+    def one(_):
+        b = resident if resident is not None else next(it)
+        step.masks = runner.masks_for_step()
+        out = step(b)
+        runner.state.step += 1
+        runner.log_step(out, samples=tc.batch_size)
+        return out
+
+    if resident is None:
+        for _ in range(DRIVER_STEADY_FROM):
+            one(None)
+    return one, None
+
+
 def _build(args, flagship, seq2seq_coin_flip):
     """(step(batch), batch) of ``args.path`` on the card."""
+    if args.path.startswith("vqa_driver"):
+        return _driver(args)
     if args.path == "vqa":
         return flagship.build_vqa_train_step(batch=args.batch, device="cuda")
     if args.path == "caption_step":
@@ -162,7 +237,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", choices=("vqa", "pretrain", "swin_pretrain",
                                        "caption_step", "caption_generate",
-                                       "retrieval_step", "retrieval_grid"),
+                                       "retrieval_step", "retrieval_grid",
+                                       "vqa_driver", "vqa_driver_bare"),
                     default="vqa")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--steps", type=int, default=3)

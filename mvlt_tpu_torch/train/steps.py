@@ -7,8 +7,9 @@ model's device, seeded with 0); replace it to record or replay masks."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Any, Callable, Dict
 
+import numpy as np
 import torch
 
 from mvlt_tpu_torch.ops.layers import DropoutMasks
@@ -21,6 +22,14 @@ def seq2seq_coin_flip(generator: torch.Generator) -> bool:
     seq2seq and bidirectional masks (model.py:390-394, ``steps.py:31-34``),
     from an explicit generator: reproducible and loggable."""
     return bool(torch.rand((), generator=generator) < 0.5)
+
+
+def drop_strings(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """A host batch without its non-array fields (ids, raw strings), as
+    JAX's ``_validate`` drops them (``train/steps.py:91-103``)."""
+    return {k: v for k, v in batch.items()
+            if isinstance(v, np.ndarray)
+            or (np.isscalar(v) and not isinstance(v, str))}
 
 
 def _masks(model) -> DropoutMasks:
@@ -36,7 +45,12 @@ def make_vqa_step(model, optimizer: torch.optim.Optimizer, *,
     holds ``image`` (B, 3, H, W), ``question`` (B, L) and ``label`` (B,);
     it is moved to the model's device. After a step the parameters' ``.grad``
     hold that step's gradients. ``plain=True`` runs the kernels' plain
-    versions."""
+    versions.
+
+    ``step.prefetch(iterator, size=2, threads=1)`` wraps a host batch
+    iterator (a ``DataLoader`` epoch) with
+    :func:`~mvlt_tpu_torch.data.loader.device_prefetch` to the model's
+    device, string fields dropped (``steps.py:105-111``)."""
     device = next(model.parameters()).device
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
@@ -50,8 +64,14 @@ def make_vqa_step(model, optimizer: torch.optim.Optimizer, *,
         acc = (logits.argmax(-1) == label).float().mean()
         return {"loss": loss.detach(), "accuracy": acc}
 
+    def prefetch(iterator, size: int = 2, threads: int = 1):
+        from mvlt_tpu_torch.data.loader import device_prefetch
+        return device_prefetch(iterator, size=size, device=device,
+                               transform=drop_strings, threads=threads)
+
     step.model, step.optimizer = model, optimizer
     step.masks = _masks(model)
+    step.prefetch = prefetch
     return step
 
 

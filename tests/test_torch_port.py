@@ -142,9 +142,11 @@ def test_cuda_swin_block_matches_plain(cuda_device):
 
 
 def test_port_imports_nothing_of_mvlt_tpu():
-    """Importing the port, its entry points, its train step and
-    ``chip_smoke`` leaves no ``mvlt_tpu`` / ``mvlt_tpu.*`` module (and no
-    JAX) in ``sys.modules``: the port keeps its own copies of host modules."""
+    """Importing the port, its entry points (the VQA driver among them), its
+    train step, its host modules (tokenizer, datasets, loader, metrics,
+    tasks, checkpoints, logging) and ``chip_smoke`` leaves no ``mvlt_tpu`` /
+    ``mvlt_tpu.*`` module (and no JAX, flax, optax or orbax) in
+    ``sys.modules``: the port keeps its own copies of host modules."""
     code = textwrap.dedent("""
         import sys
         import mvlt_tpu_torch
@@ -152,9 +154,17 @@ def test_port_imports_nothing_of_mvlt_tpu():
         from mvlt_tpu_torch.train import steps, state
         from mvlt_tpu_torch.models.heads import PretrainModel
         from mvlt_tpu_torch.models.backbones import resnet
+        from mvlt_tpu_torch import run_vqa, config, profile_step
+        from mvlt_tpu_torch.text import tokenizer
+        from mvlt_tpu_torch.data import datasets, loader, transforms
+        from mvlt_tpu_torch.metrics import vqa, retrieval
+        from mvlt_tpu_torch.tasks import common, vqa as vqa_task
+        from mvlt_tpu_torch.utils import checkpoint, logging, convert
+        run_vqa.parse_args(["--synthetic"])
         import chip_smoke
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("mvlt_tpu", "jax", "jaxlib", "flax"))
+                     if m.split(".")[0] in ("mvlt_tpu", "jax", "jaxlib", "flax",
+                                            "optax", "orbax"))
         print("FOREIGN_MODULES", bad)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -737,3 +747,68 @@ def test_cuda_retrieval_grid_matches_plain(cuda_device):
     assert np.abs(sims - want).max() <= 0.05 * np.abs(want).max()
     assert (np.diag(got["labels"]) == 1).all()
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_vqa_driver_epoch_matches_plain(cuda_device, tmp_path):
+    """One b8 epoch of the VQA driver (``train_vqa`` through a
+    ``TaskRunner``, the loader, the CUDA prefetch, validation and test) on
+    the kernels and on the plain versions from one seed: each step draws
+    the same masks on both (they depend on the seed and the step), the
+    losses agree within 1e-2 relative, the kernels ran, and the trained
+    model's eval logits agree with its plain forward within 0.05 x
+    max|plain|."""
+    import dataclasses
+    import json
+
+    from mvlt_tpu_torch.config import MVLTConfig, SwinConfig, TrainConfig
+    from mvlt_tpu_torch.data.datasets import (MedVQADataset,
+                                              write_synthetic_vqa)
+    from mvlt_tpu_torch.models.heads import VQAModel
+    from mvlt_tpu_torch.tasks.common import TaskRunner
+    from mvlt_tpu_torch.tasks.vqa import train_vqa
+    from mvlt_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+    tok = WordPieceTokenizer()
+    write_synthetic_vqa(str(tmp_path / "data"), images=8, answers=5,
+                        image_size=64, splits={"train": 16, "validate": 8,
+                                               "test": 8})
+    splits = []
+    for split in ("train", "validate", "test"):
+        ds = MedVQADataset(str(tmp_path / "data"), "SLAKE", split)
+        ds.tokenize(tok)
+        splits.append(ds)
+    cfg = MVLTConfig.for_vqa(result_num=5)
+    cfg = dataclasses.replace(cfg, swin=SwinConfig(
+        img_size=64, patch_size=4, embed_dim=32, depths=(2, 2),
+        num_heads=(2, 4), window_size=4, drop_path_rate=0.2),
+        fusion=dataclasses.replace(cfg.fusion, hidden_size=64,
+                                   num_hidden_layers=1, num_attention_heads=2,
+                                   intermediate_size=128)).with_tokenizer(tok)
+    tc = TrainConfig(batch_size=8, epochs=1, num_workers=0, log_every=1)
+    losses, runners = {}, {}
+    for plain in (False, True):
+        workdir = tmp_path / ("plain" if plain else "kernels")
+        runner = TaskRunner(VQAModel, cfg, tc, workdir=str(workdir),
+                            name=f"vqa-cuda-{plain}", device=cuda_device,
+                            plain=plain)
+        runner.init_state()
+        before = kernels.gemm.launches
+        best = train_vqa(runner, *splits)
+        assert (kernels.gemm.launches > before) == (not plain)
+        assert set(best) == {"valid_acc", "epoch", "test_final", "test"}
+        losses[plain] = [json.loads(l)["loss"] for l in
+                         (workdir / "metrics.jsonl").read_text().splitlines()]
+        runners[plain] = runner
+    assert len(losses[False]) == 2
+    for a, b in zip(losses[False], losses[True]):
+        assert abs(a - b) <= 1e-2 * abs(b), losses
+    model = runners[False].model
+    image = torch.from_numpy(np.stack([splits[2][i]["image"]
+                                       for i in range(8)])).to(cuda_device)
+    question = torch.from_numpy(np.stack([splits[2][i]["question"]
+                                          for i in range(8)])).to(cuda_device)
+    _, lk = model(image, question)
+    _, lp = model(image, question, plain=True)
+    err = (lk.float() - lp.float()).abs().max().item()
+    assert err <= 0.05 * lp.float().abs().max().item()
