@@ -3,8 +3,8 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --norm``: phases 1-2's build and K3 / K5 at the
-step's shapes only; ``--caption`` / ``--retrieval`` / ``--vqa-driver``:
-phases 1-2 and phase 10 / 11 / 12 only). It imports nothing of JAX and
+step's shapes only; ``--caption`` / ``--retrieval`` / ``--vqa-driver`` /
+``--pretrain-driver``: phases 1-2 and phase 10 / 11 / 12 / 13 only). It imports nothing of JAX and
 nothing of the JAX package. Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
@@ -132,12 +132,32 @@ nothing of the JAX package. Phases, each of which raises on failure:
     gradients), eval logits against the plain versions; a save and a
     restore into a fresh runner (state and predictions bitwise equal, one
     more step bitwise equal); then, on a train split of SLAKE's length
-    (76 steps at b64), the driver's train loop for 2 loader processes, the
-    CLI default and threads (whole-epoch samples/s, the epoch start, the
+    (76 steps at b64), the driver's train loop for the CLI default (loader
+    processes) and threads (whole-epoch samples/s, the epoch start, the
     steady interval between steps) beside the bare step on a resident
     batch, the loader alone, eval samples/s and peak memory. ``python3
     chip_smoke.py --vqa-driver`` runs phases 1-2 and this phase only;
-13. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+13. pretrain driver: ``python -m mvlt_tpu_torch.run_pretrain``
+    (``run_pretrain.main``) at its defaults (Swin-S @224 + BERT-base,
+    ``for_pretrain`` with ITM: dropouts 0.1, DropPath 0.3, text 80, lr 4e-5,
+    b32, the per-batch coin flip) on the RGC f32 pickles of a synthetic
+    corpus of 96 samples, 2 epochs with loader worker processes, in a
+    process of its own under a time limit: the launch counts of one driver
+    step in each mode (the bidirectional one equal to the Swin-S step of
+    phase 7's), the seeded flips, every device batch bitwise equal to its
+    host batch, both exports (the last merged into a fresh VQA runner);
+    the first epoch on the plain versions replaying the masks (3 losses,
+    step 1's gradients); the driver's checkpoint restored into a fresh
+    runner (state bitwise, one more step bitwise); ``device_var_normalize``
+    against the host's ``normalize_image_var``; one step on a uint8 batch
+    (prefetched as uint8) against its plain step; the ROCO split's PNG
+    frames equal to the uint8 cache's; then a bare step on a resident uint8
+    batch in each mode, and one epoch of 1,024 samples through
+    ``train_pretrain`` for the uint8 cache and the RGC f32 pickles, each
+    with the CLI default (processes) and threads, the loader alone and the
+    peak memory. ``python3 chip_smoke.py --pretrain-driver`` runs phases 1-2
+    and this phase only;
+14. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
 """
 
@@ -368,16 +388,49 @@ VQA_DRIVER_BATCH, VQA_DRIVER_EPOCHS, VQA_DRIVER_WORKERS = 64, 2, 2
 # the timed train loops: one epoch each of a train split as long as the
 # English SLAKE release's (76 steps at b64), many times the loader's
 # lookahead (workers + prefetch pool jobs, 2 batches queued, 2 in the device
-# prefetch), for the phase's worker processes, the CLI default (-1) and
-# threads (0); the steady interval between steps is read after the first
+# prefetch), for the CLI default (-1: 7 processes on an 8-core host) and
+# threads (0; since PR 16 no longer the 2 processes of the driver run, whose
+# epoch PR 15 timed at 0.144-0.202x the bare rate: the pretrain driver's
+# loops took its time); the steady interval between steps is read after the first
 # VQA_DRIVER_STEADY_FROM steps of the epoch; bare steps a timed bare run
-VQA_DRIVER_TIMED_WORKERS = (VQA_DRIVER_WORKERS, -1, 0)
+VQA_DRIVER_TIMED_WORKERS = (-1, 0)
 VQA_DRIVER_STEADY_FROM, VQA_DRIVER_BARE_STEPS = 16, 20
 # batches the loader alone delivers a setting in the probe
 VQA_PROBE_BATCHES = 28
 # the phase's own limit, in seconds: it runs in a process of its own
 VQA_DRIVER_TIMEOUT = 600
 VQA_DRIVER_TAG = "vqa driver launches: "
+# the pretrain driver at run_pretrain.py's defaults (:19-46): for_pretrain
+# (fusion dropouts 0.1) with ITM on, text 80 (S = 131), Swin-S (DropPath
+# 0.3), b32, lr 4e-5, the per-batch coin flip; 2 epochs of 3 steps on a
+# synthetic corpus of 96 samples (seeded uint8 frames of 224) written as RGC
+# f32 pickles (the kernel run's source), a uint8 cache and, with Pillow, a
+# ROCO split of PNG frames; loader worker processes in the kernel run
+PRETRAIN_DRIVER_DATA = dict(n=96, image_size=224, seed=0)
+PRETRAIN_DRIVER_BATCH, PRETRAIN_DRIVER_EPOCHS = 32, 2
+PRETRAIN_DRIVER_WORKERS = 2
+PRETRAIN_KEYS = ("image", "caption_masked", "caption_label", "itm_label")
+# the driver's losses against the plain run's, relative: step 1 (one set
+# of weights, kernels vs plain alone) and a uint8 step within
+# PRETRAIN_DRIVER_LOSS_BAR; the later steps, after AdamW moved each route's
+# weights by its own gradients, within LOSS_BAR as in every other phase. At
+# step 1 AdamW moves every weight by about +-lr whatever its gradient's
+# size, so a gradient near 0 that rounds to the other sign moves a weight
+# by 2 lr the other way: the ITM loss (a 2-way CE near ln 2) of step 2 sat
+# at 1.26e-3 relative on an H100 (PERF.md, PR 16)
+PRETRAIN_DRIVER_LOSS_BAR = 1e-3
+# the timed loops: one epoch of PRETRAIN_TIMED_SAMPLES (32 steps at b32)
+# for each source and each of PRETRAIN_TIMED_WORKERS (the CLI default,
+# threads); bare steps per mode on a resident batch
+PRETRAIN_TIMED_SAMPLES = 1024
+PRETRAIN_TIMED_WORKERS = (-1, 0)
+PRETRAIN_DRIVER_STEADY_FROM, PRETRAIN_DRIVER_BARE_STEPS = 12, 10
+PRETRAIN_DRIVER_TIMEOUT = 600
+PRETRAIN_DRIVER_TAG = "pretrain driver launches: "
+# device_var_normalize on the card against normalize_image_var on the
+# host: within this share of max|out| beyond the host's own distance from
+# the float64 value (the host sums in f32 in another order)
+NORMALIZE_BAR = 1e-5
 # one driver step: the Swin-S step's backbone rows and, with both fusion
 # dropouts, rows 15 (amask + hmask), 16, 17 (hmask2) and 17' as the pretrain
 # step runs them; one eval batch runs the forward's serving rows (EXPECTED)
@@ -2805,6 +2858,8 @@ def main() -> int:
         by_path["retrieval_grid"] = retrieval_grid_phase(dev, card)
         by_path["retrieval_step"] = retrieval_step_phase(dev, card)
         by_path["vqa_driver"] = vqa_driver_subprocess()
+        by_path["pretrain_driver"] = pretrain_driver_subprocess(
+            by_path["swin_pretrain_train_step"])
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
@@ -3720,29 +3775,38 @@ def retrieval_step_phase(dev, card: str, timed_steps: int = 4) -> dict:
 # ---------------------------------------------------------------------------
 
 class _DriverRecorder:
-    """What the VQA driver phase watches while the driver runs unchanged:
-    the loader's train batches as the host made them, each step's device
-    batch and loss, (step 1) gradients and launch counts, the runner of
-    ``run_vqa.train_round``. :meth:`watching` installs it around
-    ``tasks.vqa``'s ``DataLoader`` and ``make_vqa_step``,
-    ``TaskRunner.masks_for_step`` and ``run_vqa.train_round``. Each step's
-    masks are drawn as the runner draws them and copied to the host after
-    the step (``masks``, by step), so that the card holds what the driver
-    holds; with ``replay`` (masks by step) the steps take those masks
-    instead."""
+    """What a driver phase watches while the driver runs unchanged: the
+    loader's train batches as the host made them, each step's device batch,
+    mask mode and metrics, the launch counts of the first step in each mode,
+    (step 1) gradients, the runner of ``run_vqa.train_round``.
+    :meth:`watching` installs it around the task module's ``DataLoader`` and
+    step factory (``tasks.vqa.make_vqa_step``, or with ``task="pretrain"``
+    ``tasks.pretrain.make_pretrain_step``), ``TaskRunner.masks_for_step``
+    and ``run_vqa.train_round``. Each step's masks are drawn as the runner
+    draws them and copied to the host after the step (``masks``, by step),
+    so that the card holds what the driver holds; with ``replay`` (masks by
+    step) the steps take those masks instead."""
 
-    def __init__(self, replay=None):
+    def __init__(self, replay=None, task: str = "vqa"):
         self.host, self.same, self.losses, self.masks = [], [], [], []
+        self.metrics, self.modes, self.mode_counts = [], [], {}
         self.grads = self.step_counts = self.runner = None
         self.replay = replay
+        self.task = task
 
     @contextlib.contextmanager
     def watching(self):
         from mvlt_tpu_torch import run_vqa
         from mvlt_tpu_torch.data.loader import DataLoader
         from mvlt_tpu_torch.ops.layers import DropoutMasks
-        from mvlt_tpu_torch.tasks import common, vqa
-        rec, make = self, vqa.make_vqa_step
+        from mvlt_tpu_torch.tasks import common, pretrain, vqa
+        if self.task == "vqa":
+            module, factory = vqa, "make_vqa_step"
+            keys = ("image", "question", "label")
+        else:
+            module, factory = pretrain, "make_pretrain_step"
+            keys = PRETRAIN_KEYS
+        rec, make = self, getattr(module, factory)
         draw, train_round = common.TaskRunner.masks_for_step, run_vqa.train_round
 
         class Recording(DataLoader):
@@ -3760,21 +3824,28 @@ class _DriverRecorder:
         def make_step(model, optimizer, plain=False):
             inner = make(model, optimizer, plain=plain)
 
-            def step(batch):
+            def step(batch, *mode):
                 inner.masks = step.masks
                 i = len(rec.losses)
                 rec.same.append(all(torch.equal(
                     batch[k].cpu(), torch.from_numpy(rec.host[i][k]))
-                    for k in ("image", "question", "label")))
+                    for k in keys))
+                key = mode[0] if mode else None
+                first = key not in rec.mode_counts
                 before = launch_counts()
-                out = inner(batch)
+                out = inner(batch, *mode)
+                if first:
+                    after = launch_counts()
+                    rec.mode_counts[key] = {k: after[k] - before[k]
+                                            for k in after}
                 if i == 0:
                     torch.cuda.synchronize()
-                    after = launch_counts()
-                    rec.step_counts = {k: after[k] - before[k] for k in after}
-                    rec.grads = {n: p.grad.detach().cpu()
+                    rec.step_counts = rec.mode_counts[key]
+                    rec.grads = {n: p.grad.detach().to("cpu", copy=True)
                                  for n, p in model.named_parameters()}
-                rec.losses.append(out["loss"].item())
+                rec.modes.append(key)
+                rec.metrics.append({k: v.item() for k, v in out.items()})
+                rec.losses.append(rec.metrics[-1]["loss"])
                 if step.masks.recorded is not None:
                     rec.masks.append([t.cpu() for t in step.masks.recorded])
                 return out
@@ -3787,8 +3858,8 @@ class _DriverRecorder:
             rec.runner = runner
             return runner, best
 
-        with mock.patch.object(vqa, "DataLoader", Recording), \
-                mock.patch.object(vqa, "make_vqa_step", make_step), \
+        with mock.patch.object(module, "DataLoader", Recording), \
+                mock.patch.object(module, factory, make_step), \
                 mock.patch.object(common.TaskRunner, "masks_for_step",
                                   masks_for_step), \
                 mock.patch.object(run_vqa, "train_round", capture):
@@ -4092,18 +4163,19 @@ def vqa_driver_phase(dev, card: str) -> dict:
     return counts
 
 
-def loader_probe(train_ds) -> None:
+def loader_probe(train_ds, batch: int = VQA_DRIVER_BATCH,
+                 settings=VQA_DRIVER_TIMED_WORKERS) -> None:
     """The loader alone, on the host in this process (CUDA up, the model
-    resident), for each of ``VQA_DRIVER_TIMED_WORKERS``: the time to create
-    and close the fork pool alone, then ``VQA_PROBE_BATCHES`` batches of a
-    shuffled epoch of ``train_ds`` with no step in between (the first, and
-    the median interval over the second half, past the lookahead); the
-    epoch is then abandoned."""
+    resident), for each ``num_workers`` of ``settings``: the time to create
+    and close the fork pool alone, then ``VQA_PROBE_BATCHES`` batches of
+    ``batch`` samples of a shuffled epoch of ``train_ds`` with no step in
+    between (the first, and the median interval over the second half, past
+    the lookahead); the epoch is then abandoned."""
     import multiprocessing
     import statistics
 
     from mvlt_tpu_torch.data.loader import DataLoader, auto_workers
-    for workers in VQA_DRIVER_TIMED_WORKERS:
+    for workers in settings:
         n = auto_workers(workers)
         pool_ms = None
         if n:
@@ -4111,8 +4183,8 @@ def loader_probe(train_ds) -> None:
             with multiprocessing.get_context("fork").Pool(n) as pool:
                 pool.map(abs, range(n))
             pool_ms = (time.perf_counter() - t0) * 1e3
-        loader = DataLoader(train_ds, VQA_DRIVER_BATCH, shuffle=True,
-                            drop_last=True, num_workers=workers)
+        loader = DataLoader(train_ds, batch, shuffle=True, drop_last=True,
+                            num_workers=workers)
         epoch = loader.epoch(7)
         t0 = time.perf_counter()
         marks = []
@@ -4132,6 +4204,404 @@ def loader_probe(train_ds) -> None:
               f"({min(late):.1f}-{max(late):.1f})", flush=True)
 
 
+def _frames_normalize_check(dev, frames) -> None:
+    """``device_var_normalize`` on the card against ``normalize_image_var``
+    on the host for the same uint8 (B, H, W, 3) frames: within
+    ``NORMALIZE_BAR`` x max|out| beyond the host's own distance from the
+    float64 value (both sum in f32, in other orders)."""
+    from mvlt_tpu_torch.data.transforms import normalize_image_var
+    from mvlt_tpu_torch.models.backbones.adapter import device_var_normalize
+    got = device_var_normalize(torch.from_numpy(frames).to(dev)).cpu()
+    host = torch.from_numpy(normalize_image_var(frames.transpose(0, 3, 1, 2)))
+    x = torch.from_numpy(frames).double()
+    var, mean = torch.var_mean(x, dim=(-3, -2), correction=0, keepdim=True)
+    exact = ((x - mean) / var).movedim(-1, -3)
+    scale = exact.abs().max().item()
+    err = (got.double() - host.double()).abs().max().item()
+    own = (host.double() - exact).abs().max().item()
+    card_err = (got.double() - exact).abs().max().item()
+    print(f"device_var_normalize on the card vs normalize_image_var on the "
+          f"host, {tuple(frames.shape)} uint8: max abs err {err:.4g} "
+          f"({err / scale:.3g} x max|out|); the host's own distance from "
+          f"float64 {own / scale:.3g}, the card's {card_err / scale:.3g}; "
+          f"bar: the host's own + {NORMALIZE_BAR} x max|out|", flush=True)
+    if not (got.dtype == torch.float32 and err <= own + NORMALIZE_BAR * scale):
+        raise AssertionError("device_var_normalize disagrees with the host")
+
+
+def table_check(grads, tables, what: str) -> None:
+    """The Swin relative-position tables' gradients of a step computed three
+    ways, ``grads`` = [kernels bf16, plain bf16, plain f32] by name: each
+    table's gradient sums ds over up to 2048 windows, where the two bf16
+    routes' roundings cancel unevenly and each sits a few hundredths of
+    max|f32 grad| from the f32 one. The kernels' table is held to the f32
+    one within the plain bf16 route's own distance from it plus
+    ``SWIN_GRAD_BAR``, both relative to max|f32 grad|."""
+    rows, failures = [], []
+    for n in tables:
+        gk, gp, gf = (g[n].float() for g in grads)
+        scale = gf.abs().max().item()
+        ek = (gk - gf).abs().max().item() / scale
+        ep = (gp - gf).abs().max().item() / scale
+        ekp = (gk - gp).abs().max().item() / gp.abs().max().item()
+        rows.append((ek, ep, ekp, n))
+        if not ek <= ep + SWIN_GRAD_BAR:
+            failures.append((n, ek, ep))
+    worst = max(rows)
+    print(f"{what}, {len(rows)} relative-position tables: kernels vs f32 "
+          f"worst {worst[0]:.4g} ({worst[3]}; the plain bf16 route there "
+          f"{worst[1]:.4g}); plain bf16 vs f32 worst "
+          f"{max(r[1] for r in rows):.4g}; kernels vs plain bf16 worst "
+          f"{max(r[2] for r in rows):.4g} (max abs err / max|reference grad|;"
+          f" bar: the plain route's own + {SWIN_GRAD_BAR})", flush=True)
+    if failures:
+        raise AssertionError(f"{len(failures)} table gradients beyond the "
+                             f"bar: {failures[:5]}")
+
+
+def _pretrain_batch(dataset, n: int) -> dict:
+    """The first ``n`` samples of ``dataset`` (epoch 0) stacked, as numpy."""
+    import numpy as np
+    rows = [dataset[i] for i in range(n)]
+    return {k: np.stack([np.asarray(r[k]) for r in rows])
+            for k in PRETRAIN_KEYS}
+
+
+def pretrain_driver_phase(dev, card: str) -> dict:
+    """The pretrain driver, ``python -m mvlt_tpu_torch.run_pretrain``, at
+    its defaults (Swin-S @224 + BERT-base, ``for_pretrain``: dropouts 0.1,
+    DropPath 0.3, ITM, text 80, lr 4e-5, b32) on the RGC f32 pickles of a
+    synthetic corpus (``PRETRAIN_DRIVER_DATA``), 2 epochs of 3 steps with
+    loader worker processes; then its first epoch on the plain versions,
+    replaying the kernel run's masks (the flips agree: they are seeded by
+    (seed, epoch, batch)). Checks: the launch counts of one driver step in
+    each mode, the flips, every device batch bitwise its host batch in order,
+    the losses of 3 steps and step 1's gradients against the plain run, both
+    exports and the last one merged into a fresh VQA runner, the driver's
+    last checkpoint restored into a fresh runner (state bitwise, one more
+    step bitwise), ``device_var_normalize`` against the host, one step on
+    a uint8 batch (prefetched as uint8) against its plain step, and the
+    ROCO split's frames equal to the uint8 cache's. Then times a bare step
+    on a resident uint8 batch in each mode, and one epoch of
+    ``PRETRAIN_TIMED_SAMPLES`` through ``train_pretrain`` for each source
+    (uint8 cache, RGC f32 pickles) and each of ``PRETRAIN_TIMED_WORKERS``,
+    the loader alone, with the peak memory. Returns ``{"run": launch
+    counts of the whole run_pretrain.main call, "step": {mode: launch
+    counts of one driver step}}``."""
+    import dataclasses
+    import shutil
+    import statistics
+
+    import numpy as np
+    import PIL
+
+    from mvlt_tpu_torch import run_pretrain
+    from mvlt_tpu_torch.data.datasets import (PretrainDataset, U8CacheSource,
+                                              write_synthetic_pretrain)
+    from mvlt_tpu_torch.data.loader import auto_workers
+    from mvlt_tpu_torch.models.heads import PretrainModel, VQAModel
+    from mvlt_tpu_torch.ops import kernels
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    from mvlt_tpu_torch.tasks import common
+    from mvlt_tpu_torch.tasks.common import TaskRunner
+    from mvlt_tpu_torch.tasks.pretrain import batch_mode, train_pretrain
+    from mvlt_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from mvlt_tpu_torch.train.steps import make_pretrain_step
+    from mvlt_tpu_torch.utils import checkpoint as ckpt_lib
+    root = REPO / "build" / "pretrain_driver"
+    shutil.rmtree(root, ignore_errors=True)
+    d, B, E = PRETRAIN_DRIVER_DATA, PRETRAIN_DRIVER_BATCH, PRETRAIN_DRIVER_EPOCHS
+    t0 = time.perf_counter()
+    data = write_synthetic_pretrain(str(root / "data"), **d)
+    timed = write_synthetic_pretrain(
+        str(root / "timed"), n=PRETRAIN_TIMED_SAMPLES,
+        image_size=d["image_size"], seed=d["seed"] + 1)
+    argv = ["--rgc_index", data["rgc_index"], "--epochs", str(E),
+            "--batch_size", str(B), "--device", str(dev)]
+    print(f"pretrain driver: Pillow {PIL.__version__}; synthetic corpus "
+          f"written in {time.perf_counter() - t0:.1f} s ({d}: RGC f32 "
+          f"pickles, a uint8 cache, a ROCO split of PNG frames; for the "
+          f"timed loops {PRETRAIN_TIMED_SAMPLES} samples as RGC pickles and "
+          f"a uint8 cache); run_pretrain {' '.join(argv)}", flush=True)
+
+    # 1. the driver on the kernels, worker processes
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec_k = _DriverRecorder(task="pretrain")
+    reset_counts()
+    t0 = time.perf_counter()
+    with rec_k.watching():
+        runner_k = run_pretrain.main(argv + [
+            "--model_name", str(root / "kernels"),
+            "--export_dir", str(root / "export"),
+            "--num_workers", str(PRETRAIN_DRIVER_WORKERS)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    run_s = time.perf_counter() - t0
+    tc = runner_k.train_config
+    per = d["n"] // B
+    steps = E * per
+    modes = [batch_mode(tc, e, i) for e in range(E) for i in range(per)]
+    print(f"pretrain driver run (kernels, {PRETRAIN_DRIVER_WORKERS} worker "
+          f"processes): {run_s:.1f} s for {steps} steps (modes "
+          f"{['seq2seq' if m else 'bidirectional' for m in modes]}), "
+          f"{E} checkpoints and {2 * E} exports; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; losses "
+          f"{json.dumps(rec_k.metrics)}", flush=True)
+    print(f"launches in the pretrain driver run: {json.dumps(counts)}",
+          flush=True)
+    by_mode = {}
+    for mode, c in sorted(rec_k.mode_counts.items()):
+        name = "seq2seq" if mode else "bidirectional"
+        by_mode[name] = c
+        print(f"launches in one pretrain driver step ({name}): "
+              f"{json.dumps(c)}", flush=True)
+        _expect_counts(c, EXPECTED_SWIN_PRETRAIN,
+                       f"one pretrain driver step ({name})",
+                       [k.__name__ for k in kernels.KERNELS] + ["gemm_splitk"])
+    if rec_k.modes != modes or set(by_mode) != {"bidirectional", "seq2seq"}:
+        raise AssertionError(f"driver modes {rec_k.modes}, seeded {modes}")
+    if len(rec_k.same) != steps or not all(rec_k.same):
+        raise AssertionError(f"device batches vs host batches: {rec_k.same}")
+    if runner_k.state.step != steps:
+        raise AssertionError(f"runner at step {runner_k.state.step}")
+    exports = [root / "export"] + [root / f"export_epoch{e}" for e in range(E)]
+    for path in exports:
+        if not ((path / "config.json").is_file()
+                and (path / "model.pt").is_file()):
+            raise AssertionError(f"no export in {path}")
+    print(f"pretrain driver: {len(rec_k.same)} device batches bitwise equal "
+          f"to their host batches, in order; the seeded flips; exports "
+          f"{[p.name for p in exports]}", flush=True)
+
+    # the last export into a fresh VQA runner: every shared tensor loaded
+    cfg_e, sd = ckpt_lib.load_pretrained(str(root / "export"))
+    vqa = TaskRunner(VQAModel, dataclasses.replace(cfg_e, result_num=224),
+                     dataclasses.replace(tc, num_workers=0), device=dev,
+                     name="vqa-from-pretrain")
+    vqa.init_state()
+    used, total = common._merge_pretrained(vqa.model, sd, vqa.logger)
+    own = vqa.model.state_dict()
+    head = sum(common.flax_leaves(k) for k in own
+               if k.startswith("final_mlp."))
+    if used != total - head or not all(
+            torch.equal(own[k].cpu(), sd[k]) for k in own if k in sd):
+        raise AssertionError(f"export into a VQA runner: loaded {used}/"
+                             f"{total}, the head has {head}")
+    print(f"pretrain export into a fresh VQA runner: loaded {used}/{total} "
+          f"pretrained tensors (all but the answer head's {head})",
+          flush=True)
+    del vqa, own, sd
+
+    # 2. the first epoch on the plain versions, replaying the masks
+    args = run_pretrain.parse_args(argv)
+    tok = WordPieceTokenizer()
+    train_ds = PretrainDataset(run_pretrain.build_source(args), tok,
+                               max_length=args.max_length,
+                               mlm_task=runner_k.config.mlm_task,
+                               itm_task=runner_k.config.itm_task)
+    rec_p = _DriverRecorder(replay=rec_k.masks, task="pretrain")
+    plain = TaskRunner(PretrainModel, runner_k.config,
+                       dataclasses.replace(tc, num_workers=0),
+                       name="pretrain-plain", device=dev, plain=True)
+    plain.init_state()
+    with rec_p.watching():
+        train_pretrain(plain, train_ds, epochs=1)
+    print(f"pretrain driver losses of {per} steps: kernels "
+          f"{json.dumps(rec_k.metrics[:per])}, plain "
+          f"{json.dumps(rec_p.metrics)}", flush=True)
+    if rec_p.modes != modes[:per] or not all(rec_p.same):
+        raise AssertionError("the plain epoch's modes or batches differ")
+    rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in ("mlm_loss", "itm_loss")}
+           for a, b in zip(rec_k.metrics, rec_p.metrics)]
+    print(f"pretrain driver losses, kernels vs plain, relative: "
+          f"{json.dumps(rel)} (bars {PRETRAIN_DRIVER_LOSS_BAR} at step 1, "
+          f"{LOSS_BAR} after it)", flush=True)
+    for i, r in enumerate(rel):
+        bar = PRETRAIN_DRIVER_LOSS_BAR if i == 0 else LOSS_BAR
+        for k, v in r.items():
+            if not v <= bar:
+                raise AssertionError(f"driver step {i + 1} {k} {v} relative "
+                                     f"to the plain run's, beyond {bar}")
+    compare_grad_dicts(rec_k.grads, rec_p.grads,
+                       "pretrain driver step 1 gradients", swin_bars)
+    rec_k.grads = rec_k.masks = None
+    del rec_p, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. the driver's last checkpoint restored into a fresh runner
+    runner_k.finish()
+    fresh = TaskRunner(PretrainModel, runner_k.config, tc,
+                       workdir=runner_k.workdir, name="pretrain-restore",
+                       device=dev)
+    fresh.init_state()
+    if not fresh.maybe_restore():
+        raise AssertionError("the fresh runner found no checkpoint")
+    _same_state(runner_k.state, fresh.state, "restored state")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             rec_k.host[1].items() if k in PRETRAIN_KEYS}
+    for r in (runner_k, fresh):
+        step = make_pretrain_step(r.model, r.optimizer)
+        step.masks = r.masks_for_step()
+        step(batch, True)
+        r.state.step += 1
+    torch.cuda.synchronize()
+    _same_state(runner_k.state, fresh.state, "one step after the restore")
+    print(f"pretrain driver: its checkpoint at step {steps} restored into a "
+          f"fresh runner: parameters, optimizer state and step bitwise "
+          f"equal; one more (seq2seq) step bitwise equal", flush=True)
+    del fresh, step, r, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the uint8 input: the normalize, one step against its plain step,
+    # the ROCO split's frames
+    u8_ds = PretrainDataset(U8CacheSource(data["u8_cache"]), tok,
+                            max_length=args.max_length)
+    host = _pretrain_batch(u8_ds, B)
+    _frames_normalize_check(dev, host["image"])
+    # kernels and plain in bf16, and the plain versions in f32 as the
+    # reference the relative-position tables are held to
+    runners = []
+    for name, plain_route, bf16 in (("kernels", False, True),
+                                    ("plain", True, True),
+                                    ("plain f32", True, False)):
+        r = TaskRunner(PretrainModel, runner_k.config,
+                       dataclasses.replace(tc, bf16_compute=bf16), device=dev,
+                       name=f"u8-{name}", plain=plain_route)
+        r.init_state()
+        runners.append(r)
+    mode = batch_mode(tc, 0, 0)
+    outs = []
+    for r in runners:
+        step = make_pretrain_step(r.model, r.optimizer, plain=r.plain)
+        b = next(iter(step.prefetch(iter([host]))))
+        if b["image"].dtype != torch.uint8 or b["image"].device != dev:
+            raise AssertionError(f"the prefetched image is {b['image'].dtype}"
+                                 f" on {b['image'].device}")
+        if r.plain:
+            step.masks = DropoutMasks.replay(recorded)
+        else:
+            step.masks = DropoutMasks(r.masks_for_step().generator,
+                                      record=True)
+        outs.append({k: v.item() for k, v in step(b, mode).items()})
+        if not r.plain:
+            recorded = step.masks.recorded
+    print(f"uint8 step ({'seq2seq' if mode else 'bidirectional'}, the batch "
+          f"prefetched as uint8, {host['image'].nbytes / 2 ** 20:.2f} MiB): "
+          f"kernels {json.dumps(outs[0])}, plain {json.dumps(outs[1])}, "
+          f"plain f32 {json.dumps(outs[2])}", flush=True)
+    for k in ("mlm_loss", "itm_loss"):
+        a, b = outs[0][k], outs[1][k]
+        if not abs(a - b) <= PRETRAIN_DRIVER_LOSS_BAR * abs(b):
+            raise AssertionError(f"uint8 step {k} {a} vs plain {b}")
+    grads = [{n: p.grad for n, p in r.model.named_parameters()}
+             for r in runners]
+    tables = [n for n in grads[0]
+              if n.endswith(".relative_position_bias_table")]
+    compare_grad_dicts({n: g for n, g in grads[0].items() if n not in tables},
+                       grads[1], "uint8 step gradients but the tables",
+                       swin_bars)
+    table_check(grads, tables, "uint8 step")
+    del runners, r, step, b, recorded, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    roco = run_pretrain.build_source(run_pretrain.parse_args(
+        ["--roco_root", data["roco_root"]]))
+    roco.image_size = d["image_size"]
+    cache = U8CacheSource(data["u8_cache"])
+    if roco.normalize != "device" or not all(
+            np.array_equal(roco[i][0], cache[i][0]) for i in range(len(cache))):
+        raise AssertionError("ROCO frames differ from the uint8 cache's")
+    print(f"ROCO split ({len(roco)} PNG frames, normalize={roco.normalize!r}) "
+          f"decodes to the uint8 cache's frames bitwise", flush=True)
+
+    # 5. times: bare steps on a resident uint8 batch in each mode, then one
+    # epoch per source and loader setting through train_pretrain
+    sources = {"uint8 cache": U8CacheSource(timed["u8_cache"]),
+               "RGC f32 pickles": run_pretrain.build_source(
+                   run_pretrain.parse_args(["--rgc_index",
+                                            timed["rgc_index"]]))}
+    sets = {name: PretrainDataset(src, tok, max_length=args.max_length)
+            for name, src in sources.items()}
+    resident = {k: torch.from_numpy(v).to(dev) for k, v in
+                _pretrain_batch(sets["uint8 cache"], B).items()}
+    runner_k.workdir = None              # no saves in the timed loops
+    bare = make_pretrain_step(runner_k.model, runner_k.optimizer)
+    marks, log_step = [], runner_k.log_step
+
+    def marked_log(metrics, samples):
+        marks.append(time.perf_counter())
+        log_step(metrics, samples)
+
+    def bare_rates():
+        out = {}
+        for seq2seq in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PRETRAIN_DRIVER_BARE_STEPS):
+                bare.masks = runner_k.masks_for_step()
+                bare(resident, seq2seq)
+                runner_k.state.step += 1
+            torch.cuda.synchronize()
+            out["seq2seq" if seq2seq else "bidirectional"] = (
+                PRETRAIN_DRIVER_BARE_STEPS * B / (time.perf_counter() - t0))
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    rates = [bare_rates()]
+    runner_k.log_step = marked_log
+    loops = {}
+    per_t = PRETRAIN_TIMED_SAMPLES // B
+    for name, ds in sets.items():
+        for workers in PRETRAIN_TIMED_WORKERS:
+            runner_k.train_config = dataclasses.replace(tc,
+                                                        num_workers=workers)
+            marks.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_pretrain(runner_k, ds, epochs=1)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            if len(marks) != per_t:
+                raise AssertionError(f"{len(marks)} steps logged, {per_t} run")
+            steady = sorted(b - a for a, b in
+                            zip(marks[PRETRAIN_DRIVER_STEADY_FROM:],
+                                marks[PRETRAIN_DRIVER_STEADY_FROM + 1:]))
+            loops[(name, workers)] = (per_t * B / total, marks[0] - t0,
+                                      steady)
+    del runner_k.log_step
+    runner_k.train_config = tc
+    rates.append(bare_rates())
+    peak = torch.cuda.max_memory_allocated()
+    bare_rate = statistics.mean(r for x in rates for r in x.values())
+    bare_ms = B * 1e3 / bare_rate
+    print(f"pretrain driver bare step (b{B}, resident uint8 batch) on {card}:"
+          f" {json.dumps([{k: round(v, 1) for k, v in x.items()} for x in rates])}"
+          f" samples/s before and after the loops, {bare_ms:.1f} ms a step",
+          flush=True)
+    for (name, workers), (rate, first, steady) in loops.items():
+        n = auto_workers(workers)
+        kind = f"{n} processes" if n else "threads"
+        med = statistics.median(steady)
+        print(f"pretrain driver loop on {card}, {name}, num_workers={workers}"
+              f" ({kind}): one epoch of {per_t} steps {rate:.1f} samples/s "
+              f"({rate / bare_rate:.3f} x the bare rate); the first step "
+              f"logged {first * 1e3:.1f} ms after the epoch began; the "
+              f"interval between steps {PRETRAIN_DRIVER_STEADY_FROM + 1}-"
+              f"{per_t} {med * 1e3:.1f} ms median ({steady[0] * 1e3:.1f}-"
+              f"{steady[-1] * 1e3:.1f}), {med * 1e3 / bare_ms:.3f} x the bare "
+              f"step", flush=True)
+    for name, ds in sets.items():
+        print(f"loader alone, {name}:", flush=True)
+        loader_probe(ds, B, PRETRAIN_TIMED_WORKERS)
+    print(f"pretrain driver: peak memory in the timed loops (bare steps and "
+          f"train_pretrain) {peak / 2 ** 30:.3f} GiB on {card}", flush=True)
+    return {"run": counts, "step": by_mode}
+
+
 def vqa_driver_main() -> int:
     """``python3 chip_smoke.py --vqa-driver``: phases 1-2 and the VQA
     driver phase only; its last line is the driver run's launch counts."""
@@ -4145,38 +4615,82 @@ def vqa_driver_main() -> int:
     return 0
 
 
-def vqa_driver_subprocess() -> dict:
-    """The VQA driver phase in a process of its own (``--vqa-driver``) under
-    ``VQA_DRIVER_TIMEOUT``: its loader forks worker processes, and a fork
-    that hangs fails the run instead of stopping it. The process group
-    is killed at the limit. Returns the driver run's launch counts."""
+def pretrain_driver_main() -> int:
+    """``python3 chip_smoke.py --pretrain-driver``: phases 1-2 and the
+    pretrain driver phase only; its last line is the driver run's launch
+    counts and those of one driver step in each mode."""
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    with switches(False):
+        counts = pretrain_driver_phase(dev, card)
+    print(PRETRAIN_DRIVER_TAG + json.dumps(counts), flush=True)
+    return 0
+
+
+def driver_subprocess(flag: str, what: str, limit: float, tag: str):
+    """A driver phase in a process of its own (``flag``) under ``limit``
+    seconds: its loader forks worker processes, and a fork that hangs fails
+    the run instead of stopping it. The process group is killed at the
+    limit. Returns the JSON after ``tag`` on the phase's last such line."""
     import signal
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"),
-                             "--vqa-driver"], cwd=REPO,
+                             flag], cwd=REPO,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True, start_new_session=True)
     try:
-        out, _ = proc.communicate(timeout=VQA_DRIVER_TIMEOUT)
+        out, _ = proc.communicate(timeout=limit)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         out, _ = proc.communicate()
         print(out, flush=True)
-        raise AssertionError(f"the VQA driver phase passed its limit of "
-                             f"{VQA_DRIVER_TIMEOUT} s")
+        raise AssertionError(f"the {what} phase passed its limit of "
+                             f"{limit} s")
     print(out, end="", flush=True)
     if proc.returncode != 0:
-        raise AssertionError(f"the VQA driver phase failed "
+        raise AssertionError(f"the {what} phase failed "
                              f"(exit {proc.returncode})")
-    print(f"vqa driver phase: {time.perf_counter() - t0:.1f} s in its own "
+    print(f"{what} phase: {time.perf_counter() - t0:.1f} s in its own "
           "process", flush=True)
-    line = [l for l in out.splitlines() if l.startswith(VQA_DRIVER_TAG)][-1]
-    return json.loads(line[len(VQA_DRIVER_TAG):])
+    line = [l for l in out.splitlines() if l.startswith(tag)][-1]
+    return json.loads(line[len(tag):])
+
+
+def vqa_driver_subprocess() -> dict:
+    """The VQA driver phase in its own process (``--vqa-driver``) under
+    ``VQA_DRIVER_TIMEOUT``. Returns the driver run's launch counts."""
+    return driver_subprocess("--vqa-driver", "vqa driver",
+                             VQA_DRIVER_TIMEOUT, VQA_DRIVER_TAG)
+
+
+def pretrain_driver_subprocess(swin_step: dict) -> dict:
+    """The pretrain driver phase in its own process (``--pretrain-driver``)
+    under ``PRETRAIN_DRIVER_TIMEOUT``; one driver step in each mode against
+    ``swin_step``, the launch counts of one step of the Swin-S pretrain
+    step of record (bidirectional): equal for every kernel and counterpart
+    in the bidirectional mode, for every counterpart in seq2seq (the
+    subprocess held both to ``EXPECTED_SWIN_PRETRAIN``). Returns the driver
+    run's launch counts."""
+    out = driver_subprocess("--pretrain-driver", "pretrain driver",
+                            PRETRAIN_DRIVER_TIMEOUT, PRETRAIN_DRIVER_TAG)
+    for mode, counts in out["step"].items():
+        diff = {k: (counts.get(k), v) for k, v in swin_step.items()
+                if counts.get(k) != v}
+        print(f"pretrain driver step ({mode}) vs the Swin-S pretrain step: "
+              f"{'the same launch counts' if not diff else diff}",
+              flush=True)
+        if mode == "bidirectional" and diff:
+            raise AssertionError(f"a bidirectional driver step launches "
+                                 f"other counts than the Swin-S step: {diff}")
+    return out["run"]
 
 
 if __name__ == "__main__":
     modes = {"--norm": norm_main, "--caption": caption_main,
-             "--retrieval": retrieval_main, "--vqa-driver": vqa_driver_main}
+             "--retrieval": retrieval_main, "--vqa-driver": vqa_driver_main,
+             "--pretrain-driver": pretrain_driver_main}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

@@ -6,6 +6,6 @@ Importing the package pulls in ``torch`` and nothing of JAX, flax or
 the datasets and loader in :mod:`mvlt_tpu_torch.data`, ...). The CUDA
 kernels are built at first use (:mod:`mvlt_tpu_torch.ops.kernels`). Entry
 points: the model builders of :mod:`mvlt_tpu_torch.flagship` (serving and
-train steps of every task) and the VQA task driver, ``python -m
-mvlt_tpu_torch.run_vqa``.
+train steps of every task) and the task drivers, ``python -m
+mvlt_tpu_torch.run_vqa`` and ``python -m mvlt_tpu_torch.run_pretrain``.
 """

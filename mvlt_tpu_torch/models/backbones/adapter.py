@@ -5,7 +5,12 @@ and ``resnet_fc`` to the fusion width (always for ResNet, only when the
 width differs for Swin). Both backbones train with float32 master
 parameters and bf16 compute: dense weights are cast at use, so their f32
 grads come back through the cast; LayerNorm parameters and the Swin
-relative-position tables stay float32."""
+relative-position tables stay float32.
+
+A uint8 image is a raw (B, H, W, 3) frame of the device-normalize host
+path (``ImageFolderSource(normalize="device")``, ``U8CacheSource``):
+:func:`device_var_normalize` casts and normalizes it on the device first,
+as JAX's adapter does (``adapter.py:26-39, 92-93``)."""
 
 from __future__ import annotations
 
@@ -16,6 +21,19 @@ from mvlt_tpu_torch.config import MVLTConfig
 from mvlt_tpu_torch.models.backbones.resnet import ResNet
 from mvlt_tpu_torch.models.backbones.swin import SwinTransformer
 from mvlt_tpu_torch.ops.layers import Dense, gelu_exact
+
+
+def device_var_normalize(img_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 (..., H, W, 3) -> float32 (..., 3, H, W): per image and
+    channel ``(x - mean) / var`` over H and W, the population variance (the
+    reference's variance-not-std quirk, ``run_pretrain_rgc_roco_medicat.py:
+    104-110``), in f32 as :func:`mvlt_tpu_torch.data.transforms.
+    normalize_image_var` computes it on the host. Plain torch, as JAX
+    computes it in XLA. The result is a channels-first view of a
+    channels-last tensor: moving the channels back is free."""
+    x = img_u8.to(torch.float32)
+    var, mean = torch.var_mean(x, dim=(-3, -2), correction=0, keepdim=True)
+    return ((x - mean) / var).movedim(-1, -3)
 
 
 class VisualAdapter(nn.Module):
@@ -45,13 +63,17 @@ class VisualAdapter(nn.Module):
 
     def forward(self, image: torch.Tensor, ops, train: bool = False,
                 masks=None) -> torch.Tensor:
-        """image: float (B, C, H, W) -> (B, N, hidden) in the compute dtype.
-        ``train`` puts the ResNet's BatchNorms on batch statistics; ``masks``
-        (a :class:`DropoutMasks`) turns the Swin backbone's DropPath on."""
-        if image.dim() != 4 or image.dtype == torch.uint8:
+        """image: float (B, C, H, W) or uint8 (B, H, W, 3) -> (B, N,
+        hidden) in the compute dtype. ``train`` puts the ResNet's
+        BatchNorms on batch statistics; ``masks`` (a :class:`DropoutMasks`)
+        turns the Swin backbone's DropPath on."""
+        if image.dtype == torch.uint8:
+            image = device_var_normalize(image)
+        if image.dim() != 4:
             raise NotImplementedError(
-                "two-view (B, 2, C, H, W) and uint8 inputs are not ported yet "
-                "(ROADMAP.md queue A, 'Adapter inputs')")
+                "the two-view (B, 2, C, H, W) input is not ported yet: it "
+                "comes with the caption driver (ROADMAP.md queue A, 'Adapter "
+                "inputs')")
         if self.nchw:
             tokens = self.backbone(image.to(self.dtype), train)
         else:

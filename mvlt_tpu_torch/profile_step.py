@@ -1,7 +1,7 @@
 """Where the device time of a train step or a report-generation call goes,
 on one GPU.
 
-    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate|retrieval_step|retrieval_grid|vqa_driver|vqa_driver_bare] [--batch 32] [--steps 3] [--attn-impl auto|pallas]
+    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate|retrieval_step|retrieval_grid|vqa_driver|vqa_driver_bare|pretrain_driver] [--batch 32] [--steps 3] [--attn-impl auto|pallas]
 
 Builds the VQA finetune train step (``--path vqa``, the default:
 :func:`mvlt_tpu_torch.flagship.build_vqa_train_step`), the MLM+ITM
@@ -52,6 +52,15 @@ driver runs it) over a synthetic SLAKE of the English release's lengths
 epoch's start, so that the window shows the loop's steady pace.
 ``--path vqa_driver_bare`` is the same model's bare step on one resident
 batch, to set beside it.
+
+``--path pretrain_driver`` traces steps of the pretrain driver's loop
+(:func:`mvlt_tpu_torch.tasks.pretrain.train_pretrain`'s body: the loader,
+the device prefetch of uint8 frames, the coin flip, the masks, the step,
+``log_step``) at ``run_pretrain``'s defaults (Swin-S + BERT-base,
+``for_pretrain`` with ITM, text 80, b32) over a synthetic uint8 cache
+(``U8CacheSource``) of ``PRETRAIN_DRIVER_SAMPLES`` frames of 224,
+normalized on the device, written under ``build/profile_pretrain_driver``,
+after ``DRIVER_STEADY_FROM`` steps.
 """
 
 from __future__ import annotations
@@ -206,10 +215,74 @@ def _driver(args):
     return one, None
 
 
+# samples of the synthetic uint8 cache of --path pretrain_driver (32 steps
+# at b32)
+PRETRAIN_DRIVER_SAMPLES = 1024
+
+
+def _pretrain_driver(args):
+    """(step(_), None): one step of the pretrain driver's loop on a uint8
+    cache."""
+    import pathlib
+
+    from mvlt_tpu_torch import run_pretrain
+    from mvlt_tpu_torch.config import TrainConfig
+    from mvlt_tpu_torch.data.datasets import (PretrainDataset, U8CacheSource,
+                                              synthetic_pretrain_frames,
+                                              write_u8_cache)
+    from mvlt_tpu_torch.data.loader import DataLoader
+    from mvlt_tpu_torch.models.heads import PretrainModel
+    from mvlt_tpu_torch.tasks.common import TaskRunner
+    from mvlt_tpu_torch.tasks.pretrain import batch_mode
+    from mvlt_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from mvlt_tpu_torch.train.steps import make_pretrain_step
+    root = pathlib.Path("build") / "profile_pretrain_driver"
+    cache = write_u8_cache(str(root), *synthetic_pretrain_frames(
+        PRETRAIN_DRIVER_SAMPLES))
+    rargs = run_pretrain.parse_args(["--batch_size", str(args.batch)])
+    tok = WordPieceTokenizer()
+    cfg = run_pretrain.build_config(rargs, tok)
+    data = PretrainDataset(U8CacheSource(cache), tok,
+                           max_length=rargs.max_length,
+                           mlm_task=cfg.mlm_task, itm_task=cfg.itm_task)
+    runner = TaskRunner(PretrainModel, cfg, TrainConfig(batch_size=args.batch),
+                        device="cuda", name="pretrain-profile")
+    runner.init_state()
+    tc = runner.train_config
+    step = make_pretrain_step(runner.model, runner.optimizer)
+    loader = DataLoader(data, tc.batch_size, shuffle=True, drop_last=True,
+                        seed=tc.seed, num_workers=tc.num_workers)
+    print(f"pretrain driver: {loader.num_workers} loader worker processes, "
+          f"{loader.batches_per_epoch()} steps an epoch, uint8 frames")
+
+    def batches():
+        epoch = 0
+        while True:
+            for i, b in enumerate(step.prefetch(loader.epoch(epoch))):
+                yield batch_mode(tc, epoch, i), b
+            epoch += 1
+
+    it = batches()
+
+    def one(_):
+        mode, b = next(it)
+        step.masks = runner.masks_for_step()
+        out = step(b, mode)
+        runner.state.step += 1
+        runner.log_step(out, samples=tc.batch_size)
+        return out
+
+    for _ in range(DRIVER_STEADY_FROM):
+        one(None)
+    return one, None
+
+
 def _build(args, flagship, seq2seq_coin_flip):
     """(step(batch), batch) of ``args.path`` on the card."""
     if args.path.startswith("vqa_driver"):
         return _driver(args)
+    if args.path == "pretrain_driver":
+        return _pretrain_driver(args)
     if args.path == "vqa":
         return flagship.build_vqa_train_step(batch=args.batch, device="cuda")
     if args.path == "caption_step":
@@ -238,7 +311,8 @@ def main() -> int:
     ap.add_argument("--path", choices=("vqa", "pretrain", "swin_pretrain",
                                        "caption_step", "caption_generate",
                                        "retrieval_step", "retrieval_grid",
-                                       "vqa_driver", "vqa_driver_bare"),
+                                       "vqa_driver", "vqa_driver_bare",
+                                       "pretrain_driver"),
                     default="vqa")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--steps", type=int, default=3)

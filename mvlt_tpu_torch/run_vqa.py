@@ -10,8 +10,10 @@ The arguments are JAX's (``run_vqa.py:19-41``) and ``--device`` (default
 ``cuda``; without a CUDA device the run raises, it never falls back). On the
 card the model trains with f32 masters and bf16 compute
 (``TrainConfig.bf16_compute``); on the CPU it runs the kernels' plain
-versions. Refused: ``--backbone_ckpt`` (the backbone bootstrap is not
-ported yet) and ``--model_parallel`` other than 1 (one device). It writes
+versions. ``--backbone_ckpt`` loads an official Swin or ResNet state dict
+into the fresh model, over the ``--pretrained`` export, as JAX merges them
+(``utils/bootstrap.py``). Refused: ``--model_parallel`` other than 1 (one
+device). It writes
 ``<model_name>/round<i>/`` (``log.txt``, ``metrics.jsonl``, ``step_*``
 checkpoints) and ``<model_name>/results.json``, a list of one dict a round
 with JAX's keys (``valid_acc``, ``epoch``, ``test_final``, ``test``).
@@ -36,7 +38,8 @@ def parse_args(argv=None):
                    help="pretrain export dir (the port's save_pretrained "
                         "format)")
     p.add_argument("--backbone_ckpt", default=None,
-                   help="official backbone checkpoint (not ported yet)")
+                   help="official backbone checkpoint (Swin .pth / "
+                        "torchvision ResNet / HF state dict)")
     p.add_argument("--conv", default="swin")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--lr", type=float, default=4e-5)
@@ -115,16 +118,17 @@ def main(argv=None):
     from mvlt_tpu_torch.utils import checkpoint as ckpt_lib
 
     _need_cuda(args.device, "run_vqa")
-    if args.backbone_ckpt:
-        raise NotImplementedError(
-            "--backbone_ckpt: loading an official backbone checkpoint is not "
-            "ported yet (ROADMAP.md queue A, 'Checkpoints, backbone "
-            "bootstrap and profiling')")
     tokenizer = default_tokenizer(synthetic_ok=args.synthetic)
     datasets = build_datasets(args, tokenizer)
     cfg = build_config(args, tokenizer, len(datasets[0].ans2label))
-    pretrained = ([ckpt_lib.load_pretrained(args.pretrained)[1]]
-                  if args.pretrained else None)
+    # the pretrain export first, then the backbone over it (run_vqa.py:95-101)
+    pretrained = []
+    if args.pretrained:
+        pretrained.append(ckpt_lib.load_pretrained(args.pretrained)[1])
+    if args.backbone_ckpt:
+        from mvlt_tpu_torch.utils.bootstrap import load_backbone
+        pretrained.append(load_backbone(args.backbone_ckpt, cfg))
+    pretrained = pretrained or None
 
     results = []
     for round_i in range(args.total_round):

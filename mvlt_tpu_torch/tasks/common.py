@@ -41,9 +41,20 @@ from mvlt_tpu_torch.utils import checkpoint as ckpt_lib
 from mvlt_tpu_torch.utils.logging import MetricLogger, setup_logger
 
 
+_M64 = (1 << 64) - 1
+
+
 def step_seed(seed: int, step: int) -> int:
-    """The generator seed of training step ``step`` under ``seed``."""
-    return ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)
+    """The generator seed of training step ``step`` under ``seed``: (seed,
+    step) packed into 64 bits and mixed by splitmix64's finalizer, so that
+    every bit depends on both. A CPU generator's Mersenne Twister keeps only
+    the low 32 bits of its seed, where the packed pair alone holds the step
+    and nothing of ``seed``; CUDA's Philox keeps all 64."""
+    z = (((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)) & _M64
+    z = (z + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)
 
 
 def train_rng(tc: TrainConfig, device, offset: int = 0,

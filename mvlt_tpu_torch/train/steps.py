@@ -37,6 +37,19 @@ def _masks(model) -> DropoutMasks:
     return DropoutMasks(torch.Generator(device=device).manual_seed(0))
 
 
+def _prefetch_to(device):
+    """``prefetch(iterator, size=2, threads=1)``: a host batch iterator (a
+    ``DataLoader`` epoch) through
+    :func:`~mvlt_tpu_torch.data.loader.device_prefetch` to ``device``,
+    string fields dropped (``steps.py:105-111``); arrays keep their dtype,
+    so a uint8 image crosses the bus as uint8."""
+    def prefetch(iterator, size: int = 2, threads: int = 1):
+        from mvlt_tpu_torch.data.loader import device_prefetch
+        return device_prefetch(iterator, size=size, device=device,
+                               transform=drop_strings, threads=threads)
+    return prefetch
+
+
 def make_vqa_step(model, optimizer: torch.optim.Optimizer, *,
                   plain: bool = False) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """``step(batch) -> {"loss", "accuracy"}`` for a :class:`VQAModel`
@@ -64,14 +77,9 @@ def make_vqa_step(model, optimizer: torch.optim.Optimizer, *,
         acc = (logits.argmax(-1) == label).float().mean()
         return {"loss": loss.detach(), "accuracy": acc}
 
-    def prefetch(iterator, size: int = 2, threads: int = 1):
-        from mvlt_tpu_torch.data.loader import device_prefetch
-        return device_prefetch(iterator, size=size, device=device,
-                               transform=drop_strings, threads=threads)
-
     step.model, step.optimizer = model, optimizer
     step.masks = _masks(model)
-    step.prefetch = prefetch
+    step.prefetch = _prefetch_to(device)
     return step
 
 
@@ -86,7 +94,9 @@ def make_pretrain_step(model, optimizer: torch.optim.Optimizer, *,
     parameters' ``.grad`` hold that step's gradients: zeros for the MLM
     head of the other mode, which the loss does not reach, so that AdamW
     moves its moments and decays its weights as optax does for every
-    parameter. ``plain=True`` runs the kernels' plain versions."""
+    parameter. ``plain=True`` runs the kernels' plain versions. ``image``
+    may be a uint8 (B, H, W, 3) frame, normalized by the model.
+    ``step.prefetch`` as :func:`make_vqa_step`'s."""
     device = next(model.parameters()).device
 
     def step(batch: Batch, seq2seq: bool) -> Dict[str, torch.Tensor]:
@@ -106,6 +116,7 @@ def make_pretrain_step(model, optimizer: torch.optim.Optimizer, *,
 
     step.model, step.optimizer = model, optimizer
     step.masks = _masks(model)
+    step.prefetch = _prefetch_to(device)
     return step
 
 

@@ -34,6 +34,15 @@ into ``query`` / ``key`` / ``value`` and transposing the kernels back; a
 template leaf with no port tensor, a port tensor that no leaf takes, or a
 shape that differs raises ``KeyError``. flax -> port -> flax is bitwise
 equal on float32 trees.
+
+The backbone converters (copies of ``mvlt_tpu/utils/convert.py:123-164,
+254-309, 349-392``) read an official PyTorch state dict (numpy arrays, see
+:func:`state_dict_to_numpy`) into the flax-layout tree of JAX's backbone:
+``swin_from_torch`` (the MSFT ``.pth``, fused ``qkv``), ``swin_from_hf``
+(HF ``SwinModel``, separate q / k / v), ``resnet_from_torchvision`` and
+``resnet_from_hf`` (``{"params", "batch_stats"}``). Wrapped under
+``conv/backbone``, :func:`params_from_flax` maps them onto the port's
+names (``utils/bootstrap.py``).
 """
 
 from __future__ import annotations
@@ -196,3 +205,170 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor], template):
     if unused:
         raise KeyError(f"port tensors that no flax leaf takes: {unused[:5]}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# official backbone checkpoints -> the flax-layout backbone tree
+# ---------------------------------------------------------------------------
+
+def state_dict_to_numpy(state_dict) -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in state_dict.items():
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().numpy()
+        out[k] = np.asarray(v)
+    return out
+
+
+def _dense(sd, prefix):
+    return {"kernel": sd[prefix + ".weight"].T, "bias": sd[prefix + ".bias"]}
+
+
+def _dense_nobias(sd, prefix):
+    return {"kernel": sd[prefix + ".weight"].T}
+
+
+def _layernorm(sd, prefix):
+    return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]}
+
+
+def _patchify_kernel(conv_weight: np.ndarray) -> np.ndarray:
+    """Conv (E, C, ph, pw) -> patchify-dense kernel (ph*pw*C, E), matching
+    PatchEmbed's (ph, pw, c) patch-pixel flattening order."""
+    E = conv_weight.shape[0]
+    return conv_weight.transpose(2, 3, 1, 0).reshape(-1, E)
+
+
+def swin_from_torch(sd: Dict[str, np.ndarray], depths, prefix: str = "") -> Dict:
+    """Official MSFT ``swin_*_patch4_window7_224.pth`` state dict (fused qkv;
+    the file the reference loads at ``modules/model.py:222-226``) -> the
+    Swin tree."""
+    params = {
+        "patch_embed": {
+            "proj": {"kernel": _patchify_kernel(sd[prefix + "patch_embed.proj.weight"]),
+                     "bias": sd[prefix + "patch_embed.proj.bias"]},
+            "norm": _layernorm(sd, prefix + "patch_embed.norm"),
+        },
+        "norm": _layernorm(sd, prefix + "norm"),
+    }
+    if prefix + "absolute_pos_embed" in sd:
+        params["absolute_pos_embed"] = sd[prefix + "absolute_pos_embed"]
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            p = f"{prefix}layers.{i}.blocks.{j}."
+            params[f"layers_{i}_blocks_{j}"] = {
+                "norm1": _layernorm(sd, p + "norm1"),
+                "norm2": _layernorm(sd, p + "norm2"),
+                "attn": {
+                    "qkv": _dense(sd, p + "attn.qkv"),
+                    "proj": _dense(sd, p + "attn.proj"),
+                    "relative_position_bias_table":
+                        sd[p + "attn.relative_position_bias_table"],
+                },
+                "mlp": {"fc1": _dense(sd, p + "mlp.fc1"),
+                        "fc2": _dense(sd, p + "mlp.fc2")},
+            }
+        dkey = f"{prefix}layers.{i}.downsample.reduction.weight"
+        if dkey in sd:
+            params[f"layers_{i}_downsample"] = {
+                "norm": _layernorm(sd, f"{prefix}layers.{i}.downsample.norm"),
+                "reduction": _dense_nobias(sd, f"{prefix}layers.{i}.downsample.reduction"),
+            }
+    return params
+
+
+def swin_from_hf(sd: Dict[str, np.ndarray], depths) -> Dict:
+    """HF ``transformers.SwinModel`` state dict (split q/k/v) -> the Swin
+    tree, the q / k / v Denses fused into one ``qkv``."""
+    params = {
+        "patch_embed": {
+            "proj": {"kernel": _patchify_kernel(
+                         sd["embeddings.patch_embeddings.projection.weight"]),
+                     "bias": sd["embeddings.patch_embeddings.projection.bias"]},
+            "norm": _layernorm(sd, "embeddings.norm"),
+        },
+        "norm": _layernorm(sd, "layernorm"),
+    }
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            p = f"encoder.layers.{i}.blocks.{j}."
+            q, k, v = (sd[p + f"attention.self.{n}.weight"] for n in
+                       ("query", "key", "value"))
+            qb, kb, vb = (sd[p + f"attention.self.{n}.bias"] for n in
+                          ("query", "key", "value"))
+            params[f"layers_{i}_blocks_{j}"] = {
+                "norm1": _layernorm(sd, p + "layernorm_before"),
+                "norm2": _layernorm(sd, p + "layernorm_after"),
+                "attn": {
+                    "qkv": {"kernel": np.concatenate([q.T, k.T, v.T], axis=1),
+                            "bias": np.concatenate([qb, kb, vb])},
+                    "proj": _dense(sd, p + "attention.output.dense"),
+                    "relative_position_bias_table":
+                        sd[p + "attention.self.relative_position_bias_table"],
+                },
+                "mlp": {"fc1": _dense(sd, p + "intermediate.dense"),
+                        "fc2": _dense(sd, p + "output.dense")},
+            }
+        dkey = f"encoder.layers.{i}.downsample.reduction.weight"
+        if dkey in sd:
+            params[f"layers_{i}_downsample"] = {
+                "norm": _layernorm(sd, f"encoder.layers.{i}.downsample.norm"),
+                "reduction": _dense_nobias(sd, f"encoder.layers.{i}.downsample.reduction"),
+            }
+    return params
+
+
+def _conv_kernel(w: np.ndarray) -> np.ndarray:
+    """torch conv (O, I, kh, kw) -> flax (kh, kw, I, O)."""
+    return w.transpose(2, 3, 1, 0)
+
+
+def _convbn(sd, conv_prefix, bn_prefix):
+    params = {"conv": {"kernel": _conv_kernel(sd[conv_prefix + ".weight"])},
+              "bn": {"scale": sd[bn_prefix + ".weight"],
+                     "bias": sd[bn_prefix + ".bias"]}}
+    stats = {"bn": {"mean": sd[bn_prefix + ".running_mean"],
+                    "var": sd[bn_prefix + ".running_var"]}}
+    return params, stats
+
+
+def resnet_from_torchvision(sd: Dict[str, np.ndarray], layers,
+                            prefix: str = "") -> Dict:
+    """torchvision ``resnet50/101`` state dict -> the ResNet's
+    ``{"params", "batch_stats"}`` (avgpool / fc dropped, reference
+    visual_feature_extractor.py:16-23)."""
+    params, stats = {}, {}
+    params["stem"], stats["stem"] = _convbn(sd, prefix + "conv1", prefix + "bn1")
+    for stage, blocks in enumerate(layers):
+        for b in range(blocks):
+            p = f"{prefix}layer{stage + 1}.{b}."
+            name = f"layer{stage + 1}_{b}"
+            params[name], stats[name] = {}, {}
+            for c in (1, 2, 3):
+                params[name][f"conv{c}"], stats[name][f"conv{c}"] = _convbn(
+                    sd, p + f"conv{c}", p + f"bn{c}")
+            if p + "downsample.0.weight" in sd:
+                params[name]["downsample"], stats[name]["downsample"] = _convbn(
+                    sd, p + "downsample.0", p + "downsample.1")
+    return {"params": params, "batch_stats": stats}
+
+
+def resnet_from_hf(sd: Dict[str, np.ndarray], layers) -> Dict:
+    """HF ``transformers.ResNetModel`` state dict -> the ResNet's
+    ``{"params", "batch_stats"}``."""
+    params, stats = {}, {}
+    params["stem"], stats["stem"] = _convbn(
+        sd, "embedder.embedder.convolution", "embedder.embedder.normalization")
+    for stage, blocks in enumerate(layers):
+        for b in range(blocks):
+            p = f"encoder.stages.{stage}.layers.{b}."
+            name = f"layer{stage + 1}_{b}"
+            params[name], stats[name] = {}, {}
+            for c in (1, 2, 3):
+                params[name][f"conv{c}"], stats[name][f"conv{c}"] = _convbn(
+                    sd, p + f"layer.{c - 1}.convolution",
+                    p + f"layer.{c - 1}.normalization")
+            if p + "shortcut.convolution.weight" in sd:
+                params[name]["downsample"], stats[name]["downsample"] = _convbn(
+                    sd, p + "shortcut.convolution", p + "shortcut.normalization")
+    return {"params": params, "batch_stats": stats}

@@ -208,8 +208,9 @@ def test_stage4_shift_is_dropped_when_map_equals_window():
 
 def test_adapter_refusals_name_their_roadmap_items():
     """The adapter's two refusals cite the ROADMAP.md queue-A items by
-    name: ViT / the linear patch ('Other backbones') and two-view or uint8
-    images ('Adapter inputs')."""
+    name: ViT / the linear patch ('Other backbones') and two-view images,
+    float or uint8 ('Adapter inputs'; single-view uint8 frames are taken
+    since the pretrain driver)."""
     from mvlt_tpu_torch.config import MVLTConfig as PortConfig
     from mvlt_tpu_torch.config import SwinConfig as PortSwin
     from mvlt_tpu_torch.models.backbones.adapter import VisualAdapter
@@ -225,7 +226,7 @@ def test_adapter_refusals_name_their_roadmap_items():
     adapter = VisualAdapter(dataclasses.replace(cfg, conv="swin", swin=swin),
                             dtype=torch.float32, device="cpu")
     for image in (torch.zeros(2, 2, 3, 32, 32),
-                  torch.zeros(2, 3, 32, 32, dtype=torch.uint8)):
+                  torch.zeros(2, 2, 32, 32, 3, dtype=torch.uint8)):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP.md queue A, 'Adapter inputs'"):
             adapter(image, PLAIN_OPS)

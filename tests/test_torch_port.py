@@ -142,9 +142,10 @@ def test_cuda_swin_block_matches_plain(cuda_device):
 
 
 def test_port_imports_nothing_of_mvlt_tpu():
-    """Importing the port, its entry points (the VQA driver among them), its
-    train step, its host modules (tokenizer, datasets, loader, metrics,
-    tasks, checkpoints, logging) and ``chip_smoke`` leaves no ``mvlt_tpu`` /
+    """Importing the port, its entry points (the VQA and pretrain drivers
+    among them), its train step, its host modules (tokenizer, datasets,
+    loader, transforms, metrics, tasks, checkpoints, logging, the backbone
+    bootstrap) and ``chip_smoke`` leaves no ``mvlt_tpu`` /
     ``mvlt_tpu.*`` module (and no JAX, flax, optax or orbax) in
     ``sys.modules``: the port keeps its own copies of host modules."""
     code = textwrap.dedent("""
@@ -154,13 +155,16 @@ def test_port_imports_nothing_of_mvlt_tpu():
         from mvlt_tpu_torch.train import steps, state
         from mvlt_tpu_torch.models.heads import PretrainModel
         from mvlt_tpu_torch.models.backbones import resnet
-        from mvlt_tpu_torch import run_vqa, config, profile_step
+        from mvlt_tpu_torch import run_vqa, run_pretrain, config, profile_step
         from mvlt_tpu_torch.text import tokenizer
         from mvlt_tpu_torch.data import datasets, loader, transforms
         from mvlt_tpu_torch.metrics import vqa, retrieval
-        from mvlt_tpu_torch.tasks import common, vqa as vqa_task
+        from mvlt_tpu_torch.tasks import common, vqa as vqa_task, pretrain
         from mvlt_tpu_torch.utils import checkpoint, logging, convert
+        from mvlt_tpu_torch.utils import bootstrap
+        from mvlt_tpu_torch.models.backbones import adapter
         run_vqa.parse_args(["--synthetic"])
+        run_pretrain.parse_args(["--synthetic"])
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("mvlt_tpu", "jax", "jaxlib", "flax",

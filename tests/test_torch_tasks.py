@@ -238,11 +238,6 @@ def test_runner_and_driver_refuse_what_the_port_lacks(tmp_path):
     with pytest.raises(NotImplementedError, match="Multi-device"):
         TaskRunner(VQAModel, cfg, pcfg.TrainConfig(
             mesh=pcfg.MeshConfig(model_parallel=2)), device="cpu")
-    from mvlt_tpu_torch import run_vqa
-    with pytest.raises(NotImplementedError, match="backbone bootstrap"):
-        run_vqa.main(["--synthetic", "--tiny", "--device", "cpu",
-                      "--backbone_ckpt", "x.pth", "--model_name",
-                      str(tmp_path / "y")])
 
 
 def test_eval_forward_of_f32_masters_feeds_k1_one_dtype(monkeypatch):
