@@ -4,8 +4,10 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --norm``: phases 1-2's build and K3 / K5 at the
 step's shapes only; ``--caption`` / ``--retrieval`` / ``--vqa-driver`` /
-``--pretrain-driver``: phases 1-2 and phase 10 / 11 / 12 / 13 only). It imports nothing of JAX and
-nothing of the JAX package. Phases, each of which raises on failure:
+``--pretrain-driver`` / ``--caption-driver`` / ``--retrieval-driver``:
+phases 1-2 and phase 10 / 11 / 12 / 13 / 14 / 15 only). It imports nothing
+of JAX and nothing of the JAX package. Phases, each of which raises on
+failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the port's CUDA kernels from ``mvlt_tpu_torch/csrc`` with
@@ -105,8 +107,10 @@ nothing of the JAX package. Phases, each of which raises on failure:
     (``build_caption_train_step``: b32, text 150, unilm, DropPath 0.3,
     dropout 0.1) driven as phase 7 drives the Swin-S step (gradients and 3
     losses against the plain run on replayed masks, launch counts, ms/step
-    in turns, peak memory). ``python3 chip_smoke.py --caption`` runs
-    phases 1-2 and this phase only;
+    in turns, peak memory). With the kernel checks, K2 and K4 also run at
+    the two-view caption step's S = 1 + 2 x 49 + 1 + 80 = 180 (rows
+    ``biased_attention_n180`` / ``biased_attention_bwd_n180``). ``python3
+    chip_smoke.py --caption`` runs phases 1-2 and this phase only;
 11. retrieval: K2 at the grid's score-call shape (b64, S = 1 + 49 + 1 + 80
     = 131, 12 heads, key bias), a row of its own; then image-text retrieval
     at ``run_retrieval.py``'s settings (``build_retrieval_grid``: Swin-S +
@@ -152,12 +156,45 @@ nothing of the JAX package. Phases, each of which raises on failure:
     against the host's ``normalize_image_var``; one step on a uint8 batch
     (prefetched as uint8) against its plain step; the ROCO split's PNG
     frames equal to the uint8 cache's; then a bare step on a resident uint8
-    batch in each mode, and one epoch of 1,024 samples through
+    batch in each mode, and one epoch of 1,536 samples through
     ``train_pretrain`` for the uint8 cache and the RGC f32 pickles, each
     with the CLI default (processes) and threads, the loader alone and the
     peak memory. ``python3 chip_smoke.py --pretrain-driver`` runs phases 1-2
     and this phase only;
-14. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+14. caption driver: ``python -m mvlt_tpu_torch.run_report_generation
+    --dataset iu_xray`` (``run_report_generation.main``) at its IU X-Ray
+    settings (Swin-S @224 + BERT-base, ``for_caption(max_length=80)``,
+    unilm, b32, beam 5; two views a study, S = 180) with a partial
+    ``--pretrained`` export (uint8 frames normalized on the card) on a
+    synthetic IU X-Ray tree (``build/iu_xray``: 96 / 16 / 32 studies of two
+    256-px views), 2 epochs of 3 steps with loader processes and the test
+    after the second, in a process of its own: the launch counts of one
+    driver step and one eval batch (the Swin counterparts twice as often
+    as in phase 10's single-view step and generate call, the fusion
+    counterparts as often), each device batch against its host batch, the
+    first epoch on the plain versions replaying the masks, the Swin
+    features, the prefill's and the first decode step's logits against
+    the plain route, two evals decoding the same ids, the checkpoint
+    restored into a fresh runner; then eval reports/s, a generate call,
+    and one epoch of 1,536 studies (48 steps) through ``train_caption``
+    beside the bare step for uint8 with the export (loader processes) and
+    f32 ImageNet crops without (processes, threads), and the peak memory.
+    ``python3 chip_smoke.py --caption-driver`` runs phases 1-2 and this
+    phase only;
+15. retrieval driver: ``python -m mvlt_tpu_torch.run_retrieval
+    --iu_xray_root`` (``run_retrieval.main``; swap 'image', 32 pairs = 64
+    rows of two views, S = 180, uint8 frames) on the same tree, one epoch
+    of 3 steps and ``eval_retrieval`` on 32 studies with ``eval.json``, in
+    a process of its own: the launch counts of one step (against phase
+    11's step as phase 14 does) and of one grid, the batches, the epoch on
+    the plain versions replaying the masks, the grid's P(match) against
+    the plain route, two grids bitwise equal; then pairs/s and one epoch
+    of 1,536 studies (48 steps) through ``train_retrieval`` beside the bare
+    step for uint8 (processes, threads); f32 host-normalized batches get
+    the features check and the bare step.
+    ``python3 chip_smoke.py --retrieval-driver`` runs phases 1-2 and this
+    phase only;
+16. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
 """
 
@@ -391,10 +428,16 @@ VQA_DRIVER_BATCH, VQA_DRIVER_EPOCHS, VQA_DRIVER_WORKERS = 64, 2, 2
 # prefetch), for the CLI default (-1: 7 processes on an 8-core host) and
 # threads (0; since PR 16 no longer the 2 processes of the driver run, whose
 # epoch PR 15 timed at 0.144-0.202x the bare rate: the pretrain driver's
-# loops took its time); the steady interval between steps is read after the first
-# VQA_DRIVER_STEADY_FROM steps of the epoch; bare steps a timed bare run
+# loops took its time); bare steps a timed bare run
 VQA_DRIVER_TIMED_WORKERS = (-1, 0)
-VQA_DRIVER_STEADY_FROM, VQA_DRIVER_BARE_STEPS = 16, 20
+VQA_DRIVER_BARE_STEPS = 20
+# every driver phase's timed epoch reads the loop's pace while the loader
+# builds: without the first DRIVER_STEADY_FROM steps, which its read-ahead
+# with 7 processes serves (7 + 2 batches submitted, 2 queued, 2 in the
+# device prefetch: 13 batches built before the loop asks for them), and
+# without the last DRIVER_STEADY_FROM, which drain that read-ahead after
+# the loader's last batch
+DRIVER_STEADY_FROM = 16
 # batches the loader alone delivers a setting in the probe
 VQA_PROBE_BATCHES = 28
 # the phase's own limit, in seconds: it runs in a process of its own
@@ -419,12 +462,13 @@ PRETRAIN_KEYS = ("image", "caption_masked", "caption_label", "itm_label")
 # by 2 lr the other way: the ITM loss (a 2-way CE near ln 2) of step 2 sat
 # at 1.26e-3 relative on an H100 (PERF.md, PR 16)
 PRETRAIN_DRIVER_LOSS_BAR = 1e-3
-# the timed loops: one epoch of PRETRAIN_TIMED_SAMPLES (32 steps at b32)
-# for each source and each of PRETRAIN_TIMED_WORKERS (the CLI default,
-# threads); bare steps per mode on a resident batch
-PRETRAIN_TIMED_SAMPLES = 1024
+# the timed loops: one epoch of PRETRAIN_TIMED_SAMPLES (48 steps at b32,
+# 16 read while the loader builds) for each source and each of
+# PRETRAIN_TIMED_WORKERS (the CLI default, threads); bare steps per mode on
+# a resident batch
+PRETRAIN_TIMED_SAMPLES = 1536
 PRETRAIN_TIMED_WORKERS = (-1, 0)
-PRETRAIN_DRIVER_STEADY_FROM, PRETRAIN_DRIVER_BARE_STEPS = 12, 10
+PRETRAIN_DRIVER_BARE_STEPS = 10
 PRETRAIN_DRIVER_TIMEOUT = 600
 PRETRAIN_DRIVER_TAG = "pretrain driver launches: "
 # device_var_normalize on the card against normalize_image_var on the
@@ -435,6 +479,64 @@ NORMALIZE_BAR = 1e-5
 # dropouts, rows 15 (amask + hmask), 16, 17 (hmask2) and 17' as the pretrain
 # step runs them; one eval batch runs the forward's serving rows (EXPECTED)
 EXPECTED_VQA_DRIVER_STEP = EXPECTED_SWIN_PRETRAIN
+# the Swin counterparts: a two-view (IU X-Ray) batch runs each once per
+# view; the fusion counterparts run once per step either way
+SWIN_COUNTERPARTS = {
+    "swin_full_block", "swin_full_block_shift", "window_block_attention",
+    "fused_mlp_preln", "swin_attn_half", "window_attention",
+    "window_attention_bwd", "swin_full_block_train",
+    "swin_full_block_train_shift", "swin_full_block_train_store_p",
+    "swin_full_block_train_shift_store_p", "swin_half_block",
+    "attention_core", "attention_core_bwd", "attention_core_bwd_store_p",
+    "swin_mlp_half_bwd", "swin_qkv_tail_bwd", "full_forward_windows"}
+
+
+def two_view(expected: dict) -> dict:
+    """The counts of ``expected`` for a two-view batch: the Swin
+    counterparts twice, the others as they are."""
+    return {k: (2 * n if k in SWIN_COUNTERPARTS else n, src)
+            for k, (n, src) in expected.items()}
+
+
+# the report generation driver at run_report_generation.py's IU X-Ray
+# settings (:34-71): for_caption(max_length=80), unilm (fusion dropouts 0.1,
+# DropPath 0.3), b32, beam 5, two 224-px views a study: S = 1 + 2 x 49 + 1
+# + 80 = 180, a decode prefix of 100; 2 epochs of 3 steps on a synthetic
+# IU X-Ray tree (two 256-px views a study: 96 / 16 / 32 studies), the test
+# after the second epoch (32 studies in eval_caption's batches of 16)
+IU_XRAY_TEXT = 80
+IU_XRAY_DATA = dict(splits={"train": 96, "val": 16, "test": 32},
+                    image_size=256, seed=0)
+CAPTION_DRIVER_BATCH, CAPTION_DRIVER_EPOCHS, CAPTION_DRIVER_BEAMS = 32, 2, 5
+CAPTION_DRIVER_WORKERS = 2
+# eval_caption's batch (tasks/caption.py:51, JAX's default)
+CAPTION_EVAL_BATCH = 16
+# one driver step: the caption step's (phase 10) with the Swin rows twice;
+# one eval batch: a generate call's, the Swin serving rows twice
+EXPECTED_CAPTION_DRIVER_STEP = two_view(EXPECTED_CAPTION_STEP)
+EXPECTED_CAPTION_DRIVER_EVAL = two_view(EXPECTED_CAPTION_GENERATE)
+# the timed loops: one epoch of IU_XRAY_TIMED studies (48 steps of either
+# driver, 16 read while the loader builds) per image layout and loader
+# setting (-1: the CLI default, 7 processes on an 8-core host; 0: threads),
+# beside TASK_DRIVER_BARE_STEPS bare steps on a resident batch. Caption:
+# uint8 with an export (processes), f32 ImageNet crops without (processes,
+# threads); retrieval: uint8 (processes, threads), and for f32
+# host-normalized batches (a non-default option) the features and the bare
+# step only: their epochs took 2.46x the bare step with threads and 10.5-
+# 12.6 s to the first step with processes (PERF.md §6), and the whole
+# script stays well inside its limit without them
+IU_XRAY_TIMED = 1536
+TASK_DRIVER_BARE_STEPS = 10
+CAPTION_DRIVER_TIMEOUT = 420
+CAPTION_DRIVER_TAG = "caption driver launches: "
+# the retrieval driver at run_retrieval.py --iu_xray_root's settings
+# (:33-62, swap 'image'): for_retrieval (attention dropout 0.1, hidden 0.0,
+# DropPath 0.3), 32 pairs = 64 rows of two views, S = 180; one epoch of 3
+# steps, then eval_retrieval on the 32 test studies (one chunk of 32)
+RETRIEVAL_DRIVER_PAIRS, RETRIEVAL_DRIVER_WORKERS = 32, 2
+EXPECTED_RETRIEVAL_DRIVER_STEP = two_view(EXPECTED_RETRIEVAL_STEP)
+RETRIEVAL_DRIVER_TIMEOUT = 360
+RETRIEVAL_DRIVER_TAG = "retrieval driver launches: "
 # the hand-written kernels and the TPU code whose pieces each carries
 KERNEL_SOURCES = {
     "gemm": ("mvlt_tpu_torch/csrc/gemm.cu", "mvlt_tpu/ops/pallas_attn.py:571"),
@@ -470,6 +572,13 @@ KERNEL_SOURCES = {
     "biased_attention_n201": ("mvlt_tpu_torch/csrc/attention.cu",
                               "mvlt_tpu/ops/pallas_attn.py:512"),
     "biased_attention_bwd_n201": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
+                                  "mvlt_tpu/ops/pallas_attn.py:2413"),
+    # K2 and K4 at the two-view caption step's S = 180 (two Swin-S views and
+    # an IU X-Ray report) with the seq2seq qbias and a dropout mask;
+    # launched as K2 / K4 on the caption_driver and retrieval_driver paths
+    "biased_attention_n180": ("mvlt_tpu_torch/csrc/attention.cu",
+                              "mvlt_tpu/ops/pallas_attn.py:512"),
+    "biased_attention_bwd_n180": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
                                   "mvlt_tpu/ops/pallas_attn.py:2413"),
     # K2 at the retrieval grid's score calls: b64, S = 131, 12 heads, the
     # key bias of padded captions; launched as K2 on the retrieval paths
@@ -2145,22 +2254,44 @@ def caption_kernel_checks(chk: Checker, dev) -> None:
     composition (K4: its autograd backward) and its bound, eagerly and as
     CUDA graphs, as rows of their own (``biased_attention_n201``,
     ``biased_attention_bwd_n201``)."""
+    seq2seq_attention_checks(chk, dev, 49, CAPTION_TEXT, "n201", seed=9)
+
+
+def iu_xray_kernel_checks(chk: Checker, dev) -> None:
+    """K2 and K4 at the two-view caption step's fusion shapes: b32, S = 1 +
+    2 x 49 + 1 + 80 = 180 (two Swin-S views and an IU X-Ray report; three
+    64-row query tiles, the last with 52 rows live), the seq2seq qbias over
+    a 100-column prefix with an attention-dropout mask, as
+    :func:`caption_kernel_checks` holds them at S = 201, as rows of their
+    own (``biased_attention_n180``, ``biased_attention_bwd_n180``)."""
+    seq2seq_attention_checks(chk, dev, 2 * 49, IU_XRAY_TEXT, "n180", seed=13)
+
+
+def seq2seq_attention_checks(chk: Checker, dev, image_tokens: int,
+                             text: int, tag: str, seed: int) -> None:
+    """K2 and K4 at b32, S = 1 + ``image_tokens`` + 1 + ``text``, 12 heads,
+    head dim 64, with the seq2seq qbias (the image prefix and [SEP]
+    visible to every row, the text causal) and an attention-dropout mask,
+    against their plain versions, the library and the bound, eagerly and as
+    CUDA graphs, under ``biased_attention_<tag>`` / ``biased_attention_bwd_
+    <tag>``."""
     from mvlt_tpu_torch.ops import kernels as K
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
-    inp = Inputs(dev, seed=9)
+    inp = Inputs(dev, seed=seed)
     bf = torch.bfloat16
-    B, C, nH, S = TRAIN_BATCH, 768, 12, 1 + 49 + 1 + CAPTION_TEXT
+    B, C, nH, S = TRAIN_BATCH, 768, 12, 1 + image_tokens + 1 + text
     Dh = C // nH
     sc = Dh ** -0.5
     qkv = inp.rnd(B * S, 3 * C, std=0.5)
     ctx = torch.empty(B * S, C, dtype=bf, device=dev)
-    qb = mask_to_bias(seq2seq_fusion_mask(B, 50, S, dev)).contiguous()
+    qb = mask_to_bias(seq2seq_fusion_mask(B, image_tokens + 1, S,
+                                          dev)).contiguous()
     amask = ((torch.rand(B, nH, S, S, generator=inp.gen) < 0.9).to(bf)
              / 0.9).to(dev)
     print(f"K2 at S = {S} (b{B}, {nH} heads, head dim {Dh}): "
           f"{K.attention_plan(S, Dh)}; K4: {K.attention_bwd_plan(S, Dh)}",
           flush=True)
-    chk.case("biased_attention_n201",
+    chk.case(f"biased_attention_{tag}",
              lambda: K.biased_attention(qkv, nH, S, sc, qbias=qb,
                                         amask=amask),
              lambda: K.biased_attention_plain(qkv, nH, S, sc, qbias=qb,
@@ -2175,7 +2306,7 @@ def caption_kernel_checks(chk: Checker, dev) -> None:
     qkv3 = (t[0].contiguous(), t[1].contiguous(), t[2].contiguous())
     d4 = dctx.view(B, S, nH, Dh).permute(0, 2, 1, 3).contiguous()
     qbm = qb.to(bf)[:, None]
-    chk.case("biased_attention_bwd_n201",
+    chk.case(f"biased_attention_bwd_{tag}",
              lambda: K.biased_attention_bwd(qkv, dctx, nH, S, sc, qbias=qb,
                                             amask=amask),
              lambda: K.biased_attention_bwd_plain(qkv, dctx, nH, S, sc,
@@ -2839,6 +2970,7 @@ def main() -> int:
     optin_kernel_checks(chk, dev)
     attn_impl_kernel_checks(chk, dev)
     caption_kernel_checks(chk, dev)
+    iu_xray_kernel_checks(chk, dev)
     retrieval_kernel_checks(chk, dev)
     with switches(False):
         by_path = {"vqa_forward": forward_phase(dev, card),
@@ -2860,6 +2992,14 @@ def main() -> int:
         by_path["vqa_driver"] = vqa_driver_subprocess()
         by_path["pretrain_driver"] = pretrain_driver_subprocess(
             by_path["swin_pretrain_train_step"])
+        by_path["caption_driver"] = two_view_subprocess(
+            "--caption-driver", "caption driver", CAPTION_DRIVER_TIMEOUT,
+            CAPTION_DRIVER_TAG, by_path["caption_step"],
+            EXPECTED_CAPTION_STEP)
+        by_path["retrieval_driver"] = two_view_subprocess(
+            "--retrieval-driver", "retrieval driver",
+            RETRIEVAL_DRIVER_TIMEOUT, RETRIEVAL_DRIVER_TAG,
+            by_path["retrieval_step"], EXPECTED_RETRIEVAL_STEP)
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
@@ -3780,8 +3920,9 @@ class _DriverRecorder:
     mask mode and metrics, the launch counts of the first step in each mode,
     (step 1) gradients, the runner of ``run_vqa.train_round``.
     :meth:`watching` installs it around the task module's ``DataLoader`` and
-    step factory (``tasks.vqa.make_vqa_step``, or with ``task="pretrain"``
-    ``tasks.pretrain.make_pretrain_step``), ``TaskRunner.masks_for_step``
+    step factory (``tasks.vqa.make_vqa_step``, or with ``task`` "pretrain",
+    "caption" or "retrieval" that task's; a retrieval batch is compared as
+    the ``cat(pos, neg)`` it becomes), ``TaskRunner.masks_for_step``
     and ``run_vqa.train_round``. Each step's masks are drawn as the runner
     draws them and copied to the host after the step (``masks``, by step),
     so that the card holds what the driver holds; with ``replay`` (masks by
@@ -3799,13 +3940,17 @@ class _DriverRecorder:
         from mvlt_tpu_torch import run_vqa
         from mvlt_tpu_torch.data.loader import DataLoader
         from mvlt_tpu_torch.ops.layers import DropoutMasks
-        from mvlt_tpu_torch.tasks import common, pretrain, vqa
-        if self.task == "vqa":
-            module, factory = vqa, "make_vqa_step"
-            keys = ("image", "question", "label")
-        else:
-            module, factory = pretrain, "make_pretrain_step"
-            keys = PRETRAIN_KEYS
+        from mvlt_tpu_torch.tasks import (caption, common, pretrain,
+                                          retrieval, vqa)
+        module, factory, keys = {
+            "vqa": (vqa, "make_vqa_step", ("image", "question", "label")),
+            "pretrain": (pretrain, "make_pretrain_step", PRETRAIN_KEYS),
+            "caption": (caption, "make_caption_step",
+                        ("image", "caption", "mlm_labels")),
+            "retrieval": (retrieval, "make_retrieval_step",
+                          retrieval.PAIR_KEYS)}[self.task]
+        as_step = (retrieval.merge_pairs if self.task == "retrieval"
+                   else lambda b: b)
         rec, make = self, getattr(module, factory)
         draw, train_round = common.TaskRunner.masks_for_step, run_vqa.train_round
 
@@ -3813,7 +3958,7 @@ class _DriverRecorder:
             def epoch(self, epoch=0):
                 for b in super().epoch(epoch):
                     if self.shuffle:
-                        rec.host.append(b)
+                        rec.host.append(as_step(b))
                     yield b
 
         def masks_for_step(runner, offset=0):
@@ -3821,8 +3966,8 @@ class _DriverRecorder:
                 return DropoutMasks.replay(rec.replay[runner.state.step])
             return DropoutMasks(draw(runner, offset).generator, record=True)
 
-        def make_step(model, optimizer, plain=False):
-            inner = make(model, optimizer, plain=plain)
+        def make_step(model, optimizer, plain=False, **kw):
+            inner = make(model, optimizer, plain=plain, **kw)
 
             def step(batch, *mode):
                 inner.masks = step.masks
@@ -3925,14 +4070,11 @@ def vqa_driver_phase(dev, card: str) -> dict:
     resident batch (samples/s, the epoch start, the steady interval between
     steps), the loader alone, and eval, with the peak memory. Returns the
     launch counts of the kernel run's whole ``run_vqa.main`` call."""
-    import dataclasses
     import shutil
-    import statistics
 
     from mvlt_tpu_torch import run_vqa
     from mvlt_tpu_torch.data.datasets import (SLAKE_SPLITS, MedVQADataset,
                                               write_synthetic_vqa)
-    from mvlt_tpu_torch.data.loader import auto_workers
     from mvlt_tpu_torch.models.heads import VQAModel
     from mvlt_tpu_torch.ops import kernels
     from mvlt_tpu_torch.tasks.common import TaskRunner
@@ -4025,28 +4167,9 @@ def vqa_driver_phase(dev, card: str) -> dict:
 
     # 2. the first epoch on the plain versions from the same seed, replaying
     # the kernel run's masks
-    rec_p = _DriverRecorder(replay=rec_k.masks)
-    plain = TaskRunner(VQAModel, runner_k.config,
-                       dataclasses.replace(runner_k.train_config,
-                                           num_workers=0),
-                       name="vqa-plain", device=dev, plain=True)
-    plain.init_state()
-    with rec_p.watching():
-        train_vqa(plain, train_ds, epochs=1)
-    losses = {"kernels": rec_k.losses[:TRAIN_STEPS],
-              "plain": rec_p.losses[:TRAIN_STEPS]}
-    print(f"vqa driver losses of {TRAIN_STEPS} steps: {json.dumps(losses)}",
-          flush=True)
-    for i, (a, b) in enumerate(zip(losses["kernels"], losses["plain"])):
-        if not (abs(a - b) <= LOSS_BAR * abs(b) and a == a):
-            raise AssertionError(f"driver step {i + 1} loss {a} vs plain {b} "
-                                 f"beyond {LOSS_BAR} relative")
-    compare_grad_dicts(rec_k.grads, rec_p.grads,
-                       "vqa driver step 1 gradients", swin_bars)
-    rec_k.grads = rec_k.masks = None
-    del rec_p, plain
-    gc.collect()
-    torch.cuda.empty_cache()
+    _replayed_epoch(rec_k, "vqa", runner_k, VQAModel,
+                    lambda r, ds: train_vqa(r, ds, epochs=1), train_ds,
+                    "vqa driver")
 
     # 3. a save, then a restore into a fresh runner
     runner_k.save()
@@ -4089,14 +4212,7 @@ def vqa_driver_phase(dev, card: str) -> dict:
     long_ds = MedVQADataset(str(root / "timed"), "SLAKE", "train")
     long_ds.tokenize(tok)
     per = len(long_ds) // B
-    runner_k.workdir = None                # no saves in the timed loops
-    tc = runner_k.train_config
     bare = make_vqa_step(runner_k.model, runner_k.optimizer)
-    marks, log_step = [], runner_k.log_step
-
-    def marked_log(metrics, samples):
-        marks.append(time.perf_counter())
-        log_step(metrics, samples)
 
     def bare_rate():
         torch.cuda.synchronize()
@@ -4110,45 +4226,19 @@ def vqa_driver_phase(dev, card: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     bare_rates = [bare_rate()]
-    runner_k.log_step = marked_log
-    loops = {}
-    for workers in VQA_DRIVER_TIMED_WORKERS:
-        runner_k.train_config = dataclasses.replace(tc, num_workers=workers)
-        marks.clear()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train_vqa(runner_k, long_ds, epochs=1)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-        if len(marks) != per:
-            raise AssertionError(f"{len(marks)} steps logged, {per} run")
-        gaps = sorted(b - a for a, b in zip(marks, marks[1:]))
-        steady = sorted(b - a for a, b in
-                        zip(marks[VQA_DRIVER_STEADY_FROM:],
-                            marks[VQA_DRIVER_STEADY_FROM + 1:]))
-        loops[workers] = (per * B / total, marks[0] - t0, gaps, steady)
-    del runner_k.log_step
-    runner_k.train_config = tc
+    loops = {w: timed_epoch(runner_k,
+                            lambda r, ds: train_vqa(r, ds, epochs=1),
+                            long_ds, w, per)
+             for w in VQA_DRIVER_TIMED_WORKERS}
     bare_rates.append(bare_rate())
     peak = torch.cuda.max_memory_allocated()
     bare_ms = B * 1e3 * 2 / sum(bare_rates)
     print(f"vqa driver bare step on {card}: {[round(r, 1) for r in bare_rates]}"
           f" samples/s before and after the loops, {bare_ms:.1f} ms a step",
           flush=True)
-    for workers, (rate, first, gaps, steady) in loops.items():
-        n = auto_workers(workers)
-        kind = f"{n} processes" if n else "threads"
-        med = statistics.median(steady)
-        print(f"vqa driver loop on {card}, num_workers={workers} ({kind}): "
-              f"one epoch of {per} steps {rate:.1f} samples/s "
-              f"({rate * bare_ms / (B * 1e3):.3f} x the bare rate); the first "
-              f"step logged {first * 1e3:.1f} ms after the epoch began; the "
-              f"interval between steps {VQA_DRIVER_STEADY_FROM + 1}-{per} "
-              f"{med * 1e3:.1f} ms median ({steady[len(steady) // 10] * 1e3:.1f}"
-              f"-{steady[-1 - len(steady) // 10] * 1e3:.1f} from the 10th to "
-              f"the 90th percentile), {med * 1e3 / bare_ms:.3f} x the bare "
-              f"step; over all steps {min(gaps) * 1e3:.1f}-"
-              f"{max(gaps) * 1e3:.1f} ms", flush=True)
+    for workers, marks in loops.items():
+        print(loop_line("vqa driver", card, "", workers, marks, B, bare_ms),
+              flush=True)
     loader_probe(long_ds)
     eval_rates = []
     for _ in range(2):
@@ -4161,6 +4251,72 @@ def vqa_driver_phase(dev, card: str) -> dict:
           f"memory in the timed loops (bare steps and train_vqa) "
           f"{peak / 2 ** 30:.3f} GiB", flush=True)
     return counts
+
+
+def timed_epoch(runner, train, dataset, workers: int, steps: int) -> list:
+    """One epoch through ``train(runner, dataset)`` with the loader's
+    ``num_workers=workers`` and no saves, the host marking each step where
+    the loop logs it. Returns the marks, then the epoch's end, in seconds
+    from its start; raises unless ``steps`` steps were logged."""
+    tc, workdir = runner.train_config, runner.workdir
+    marks, log_step = [], runner.log_step
+
+    def marked_log(metrics, samples):
+        marks.append(time.perf_counter())
+        log_step(metrics, samples)
+
+    runner.train_config = dataclasses.replace(tc, num_workers=workers)
+    runner.workdir, runner.log_step = None, marked_log
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train(runner, dataset)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+    finally:
+        del runner.log_step
+        runner.train_config, runner.workdir = tc, workdir
+    if len(marks) != steps + 1:
+        raise AssertionError(f"{len(marks) - 1} steps logged, {steps} run")
+    return [m - t0 for m in marks]
+
+
+def loop_line(what: str, card: str, setting: str, workers: int, marks: list,
+              rows: int, bare_ms: float) -> str:
+    """The record of one :func:`timed_epoch` (``rows`` samples a step):
+    samples/s beside the bare rate, the first step's wait, and the pace
+    while the loader builds, between steps ``DRIVER_STEADY_FROM + 1`` and
+    ``per - DRIVER_STEADY_FROM`` (the read-ahead neither filling nor
+    draining): the mean interval (the rate the loop keeps, whether the
+    batches come evenly or in bursts of a pool's workers), the median and
+    the 10th-90th percentile, each beside the bare step."""
+    import statistics
+    from mvlt_tpu_torch.data.loader import auto_workers
+    per, k = len(marks) - 1, DRIVER_STEADY_FROM
+    last = per - k
+    if last - k < 9:
+        raise AssertionError(f"an epoch of {per} steps leaves fewer than 8 "
+                             f"intervals outside the loader's read-ahead "
+                             f"({k} steps at each end)")
+    rate = per * rows / marks[-1]
+    gaps = sorted(b - a for a, b in zip(marks[:per - 1], marks[1:per]))
+    steady = sorted(b - a for a, b in
+                    zip(marks[k:last - 1], marks[k + 1:last]))
+    mean = (marks[last - 1] - marks[k]) / (last - 1 - k)
+    med, q = statistics.median(steady), len(steady) // 10
+    n = auto_workers(workers)
+    kind = f"{n} processes" if n else "threads"
+    return (f"{what} loop on {card}, {setting}num_workers={workers} "
+            f"({kind}): one epoch of {per} steps {rate:.1f} samples/s "
+            f"({rate * bare_ms / (rows * 1e3):.3f} x the bare rate); the "
+            f"first step logged {marks[0] * 1e3:.1f} ms after the epoch began; "
+            f"steps {k + 1}-{last}, while the loader builds: {mean * 1e3:.1f} "
+            f"ms a step on average ({mean * 1e3 / bare_ms:.3f} x the bare "
+            f"step), "
+            f"median {med * 1e3:.1f} ms ({med * 1e3 / bare_ms:.3f} x), "
+            f"{steady[q] * 1e3:.1f}-{steady[-1 - q] * 1e3:.1f} from the 10th "
+            f"to the 90th percentile; over all steps {gaps[0] * 1e3:.1f}-"
+            f"{gaps[-1] * 1e3:.1f} ms")
 
 
 def loader_probe(train_ds, batch: int = VQA_DRIVER_BATCH,
@@ -4298,7 +4454,6 @@ def pretrain_driver_phase(dev, card: str) -> dict:
     from mvlt_tpu_torch import run_pretrain
     from mvlt_tpu_torch.data.datasets import (PretrainDataset, U8CacheSource,
                                               write_synthetic_pretrain)
-    from mvlt_tpu_torch.data.loader import auto_workers
     from mvlt_tpu_torch.models.heads import PretrainModel, VQAModel
     from mvlt_tpu_torch.ops import kernels
     from mvlt_tpu_torch.ops.layers import DropoutMasks
@@ -4315,7 +4470,7 @@ def pretrain_driver_phase(dev, card: str) -> dict:
     data = write_synthetic_pretrain(str(root / "data"), **d)
     timed = write_synthetic_pretrain(
         str(root / "timed"), n=PRETRAIN_TIMED_SAMPLES,
-        image_size=d["image_size"], seed=d["seed"] + 1)
+        image_size=d["image_size"], seed=d["seed"] + 1, roco=False)
     argv = ["--rgc_index", data["rgc_index"], "--epochs", str(E),
             "--batch_size", str(B), "--device", str(dev)]
     print(f"pretrain driver: Pillow {PIL.__version__}; synthetic corpus "
@@ -4528,13 +4683,7 @@ def pretrain_driver_phase(dev, card: str) -> dict:
             for name, src in sources.items()}
     resident = {k: torch.from_numpy(v).to(dev) for k, v in
                 _pretrain_batch(sets["uint8 cache"], B).items()}
-    runner_k.workdir = None              # no saves in the timed loops
     bare = make_pretrain_step(runner_k.model, runner_k.optimizer)
-    marks, log_step = [], runner_k.log_step
-
-    def marked_log(metrics, samples):
-        marks.append(time.perf_counter())
-        log_step(metrics, samples)
 
     def bare_rates():
         out = {}
@@ -4552,28 +4701,11 @@ def pretrain_driver_phase(dev, card: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     rates = [bare_rates()]
-    runner_k.log_step = marked_log
-    loops = {}
     per_t = PRETRAIN_TIMED_SAMPLES // B
-    for name, ds in sets.items():
-        for workers in PRETRAIN_TIMED_WORKERS:
-            runner_k.train_config = dataclasses.replace(tc,
-                                                        num_workers=workers)
-            marks.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            train_pretrain(runner_k, ds, epochs=1)
-            torch.cuda.synchronize()
-            total = time.perf_counter() - t0
-            if len(marks) != per_t:
-                raise AssertionError(f"{len(marks)} steps logged, {per_t} run")
-            steady = sorted(b - a for a, b in
-                            zip(marks[PRETRAIN_DRIVER_STEADY_FROM:],
-                                marks[PRETRAIN_DRIVER_STEADY_FROM + 1:]))
-            loops[(name, workers)] = (per_t * B / total, marks[0] - t0,
-                                      steady)
-    del runner_k.log_step
-    runner_k.train_config = tc
+    loops = {(name, w): timed_epoch(
+                 runner_k, lambda r, d: train_pretrain(r, d, epochs=1), ds, w,
+                 per_t)
+             for name, ds in sets.items() for w in PRETRAIN_TIMED_WORKERS}
     rates.append(bare_rates())
     peak = torch.cuda.max_memory_allocated()
     bare_rate = statistics.mean(r for x in rates for r in x.values())
@@ -4582,24 +4714,511 @@ def pretrain_driver_phase(dev, card: str) -> dict:
           f" {json.dumps([{k: round(v, 1) for k, v in x.items()} for x in rates])}"
           f" samples/s before and after the loops, {bare_ms:.1f} ms a step",
           flush=True)
-    for (name, workers), (rate, first, steady) in loops.items():
-        n = auto_workers(workers)
-        kind = f"{n} processes" if n else "threads"
-        med = statistics.median(steady)
-        print(f"pretrain driver loop on {card}, {name}, num_workers={workers}"
-              f" ({kind}): one epoch of {per_t} steps {rate:.1f} samples/s "
-              f"({rate / bare_rate:.3f} x the bare rate); the first step "
-              f"logged {first * 1e3:.1f} ms after the epoch began; the "
-              f"interval between steps {PRETRAIN_DRIVER_STEADY_FROM + 1}-"
-              f"{per_t} {med * 1e3:.1f} ms median ({steady[0] * 1e3:.1f}-"
-              f"{steady[-1] * 1e3:.1f}), {med * 1e3 / bare_ms:.3f} x the bare "
-              f"step", flush=True)
+    for (name, workers), marks in loops.items():
+        print(loop_line("pretrain driver", card, f"{name}, ", workers, marks,
+                        B, bare_ms), flush=True)
     for name, ds in sets.items():
         print(f"loader alone, {name}:", flush=True)
         loader_probe(ds, B, PRETRAIN_TIMED_WORKERS)
     print(f"pretrain driver: peak memory in the timed loops (bare steps and "
           f"train_pretrain) {peak / 2 ** 30:.3f} GiB on {card}", flush=True)
     return {"run": counts, "step": by_mode}
+
+
+# ---------------------------------------------------------------------------
+# the report generation and retrieval drivers on a synthetic IU X-Ray tree
+# ---------------------------------------------------------------------------
+
+def iu_xray_trees() -> dict:
+    """The synthetic IU X-Ray trees the two task drivers read, written once
+    under ``build/iu_xray`` (kept while their parameters are the same):
+    ``data`` (``IU_XRAY_DATA``) and ``timed`` (``IU_XRAY_TIMED`` train
+    studies, no test split). Returns the two ``<dir>/iu_xray`` roots."""
+    import shutil
+    from mvlt_tpu_torch.data.datasets import write_synthetic_iu_xray
+    root = REPO / "build" / "iu_xray"
+    want = {"data": IU_XRAY_DATA,
+            "timed": dict(IU_XRAY_DATA, seed=IU_XRAY_DATA["seed"] + 1,
+                          splits={"train": IU_XRAY_TIMED, "test": 0})}
+    marker = root / "params.json"
+    if not (marker.is_file() and json.loads(marker.read_text()) == want):
+        shutil.rmtree(root, ignore_errors=True)
+        t0 = time.perf_counter()
+        for name, kw in want.items():
+            write_synthetic_iu_xray(str(root / name / "iu_xray"), **kw)
+        marker.write_text(json.dumps(want))
+        print(f"synthetic IU X-Ray trees written in "
+              f"{time.perf_counter() - t0:.1f} s: {json.dumps(want)}",
+              flush=True)
+    return {name: str(root / name / "iu_xray") for name in want}
+
+
+def _resident(dataset, n: int, dev, merge=None) -> dict:
+    """The first ``n`` samples of ``dataset`` (epoch 0) collated as the
+    loader collates them, their arrays on ``dev`` (``merge``: a retrieval
+    batch's ``cat(pos, neg)``)."""
+    from mvlt_tpu_torch.data.loader import _collate
+    batch = _collate([dataset[i] for i in range(n)])
+    batch = merge(batch) if merge else batch
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()
+            if hasattr(v, "dtype") and v.dtype.kind in "uif"}
+
+
+def task_driver_loops(runner, sets: dict, train, bare, rows: int, what: str,
+                      card: str) -> float:
+    """For each image layout in ``sets`` (name -> (train dataset, resident
+    device batch, loader settings)): the resident batch's Swin features
+    against the plain route, ``TASK_DRIVER_BARE_STEPS`` bare steps on it,
+    then one epoch through ``train(runner, dataset)`` for each loader
+    setting (:func:`timed_epoch`, :func:`loop_line`; ``rows`` a step).
+    Returns the peak memory of the loops."""
+    torch.cuda.reset_peak_memory_stats()
+    for name, (dataset, resident, settings) in sets.items():
+        with torch.no_grad():
+            image = resident["image"]
+            _check_close(f"{what} Swin-S features of a {name} batch "
+                         f"{tuple(image.shape)} {image.dtype}, kernels vs "
+                         "plain", runner.model.encode_image(image),
+                         runner.model.encode_image(image, plain=True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TASK_DRIVER_BARE_STEPS):
+            bare.masks = runner.masks_for_step()
+            bare(resident)
+            runner.state.step += 1
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t0) * 1e3 / TASK_DRIVER_BARE_STEPS
+        mb = sum(v.numel() * v.element_size() for v in resident.values())
+        print(f"{what} bare step on {card}, {name} ({rows} rows, "
+              f"{mb / 1e6:.1f} MB a batch): {bare_ms:.1f} ms a step, "
+              f"{rows * 1e3 / bare_ms:.1f} samples/s", flush=True)
+        steps = len(dataset) // runner.train_config.batch_size
+        for workers in settings:
+            marks = timed_epoch(runner, train, dataset, workers, steps)
+            print(loop_line(what, card, f"{name}, ", workers, marks, rows,
+                            bare_ms), flush=True)
+    return torch.cuda.max_memory_allocated()
+
+
+def _replayed_epoch(rec_k, task: str, runner_k, model_cls, train, dataset,
+                    what: str, pretrained=None):
+    """The kernel run's first epoch again on the plain versions from the
+    same seed (and ``pretrained``), replaying its masks: the losses of
+    ``TRAIN_STEPS`` steps within ``LOSS_BAR`` relative, step 1's gradients
+    within the Swin-S bars, the batches bitwise the same."""
+    import dataclasses
+    from mvlt_tpu_torch.tasks.common import TaskRunner
+    rec_p = _DriverRecorder(replay=rec_k.masks, task=task)
+    plain = TaskRunner(model_cls, runner_k.config,
+                       dataclasses.replace(runner_k.train_config,
+                                           num_workers=0),
+                       name=f"{task}-plain", device=runner_k.device,
+                       plain=True)
+    plain.init_state(pretrained_variables=pretrained)
+    with rec_p.watching():
+        train(plain, dataset)
+    losses = {"kernels": rec_k.losses[:TRAIN_STEPS],
+              "plain": rec_p.losses[:TRAIN_STEPS]}
+    print(f"{what} losses of {TRAIN_STEPS} steps: {json.dumps(losses)}",
+          flush=True)
+    if not all(rec_p.same) or len(rec_p.losses) < TRAIN_STEPS:
+        raise AssertionError(f"{what}: the plain epoch's batches differ")
+    for i, (a, b) in enumerate(zip(losses["kernels"], losses["plain"])):
+        if not (abs(a - b) <= LOSS_BAR * abs(b) and a == a):
+            raise AssertionError(f"{what} step {i + 1} loss {a} vs plain {b} "
+                                 f"beyond {LOSS_BAR} relative")
+    compare_grad_dicts(rec_k.grads, rec_p.grads, f"{what} step 1 gradients",
+                       swin_bars)
+    rec_k.grads = rec_k.masks = None
+    del rec_p, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def caption_driver_phase(dev, card: str) -> dict:
+    """The report generation driver, ``python -m
+    mvlt_tpu_torch.run_report_generation --dataset iu_xray``, at its IU
+    X-Ray settings (Swin-S @224 + BERT-base, ``for_caption(max_length=80)``:
+    unilm, dropouts 0.1, DropPath 0.3, lr 1e-5, b32, beam 5; two views a
+    study, S = 180) with a ``--pretrained`` export (uint8 frames normalized
+    on the card) on the synthetic tree, 2 epochs of 3 steps with loader
+    processes and the test after the second. Checks: the launch counts of
+    one driver step and of one eval batch (the Swin counterparts twice a
+    step), every device batch bitwise its host batch, the first epoch on the
+    plain versions replaying the masks (3 losses, step 1's gradients), the
+    Swin features, the prefill's logits and the first decode step's against
+    the plain route, two evals' decoded ids bitwise equal, the driver's
+    checkpoint restored into a fresh runner (state bitwise, the same ids).
+    Then times the eval (reports/s) and a generate call, and one epoch of
+    ``IU_XRAY_TIMED`` studies through ``train_caption`` beside the bare
+    step for each image layout (uint8 with the export, f32 ImageNet crops
+    without) and its loader settings, with the peak memory. Returns
+    ``{"run": the launch counts of the whole run_report_generation.main
+    call, "step": those of one driver step}``."""
+    import shutil
+
+    import numpy as np
+
+    from mvlt_tpu_torch import run_report_generation as cli
+    from mvlt_tpu_torch.models import generation as G
+    from mvlt_tpu_torch.models.heads import CaptionModel
+    from mvlt_tpu_torch.ops import kernels
+    from mvlt_tpu_torch.ops.blocks import KERNEL_OPS, PLAIN_OPS
+    from mvlt_tpu_torch.tasks.caption import (decode_reports, eval_caption,
+                                              train_caption)
+    from mvlt_tpu_torch.tasks.common import TaskRunner
+    from mvlt_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from mvlt_tpu_torch.train.steps import make_caption_step
+    from mvlt_tpu_torch.utils import checkpoint as ckpt_lib
+    trees = iu_xray_trees()
+    root = REPO / "build" / "caption_driver"
+    shutil.rmtree(root, ignore_errors=True)
+    B, E, K = (CAPTION_DRIVER_BATCH, CAPTION_DRIVER_EPOCHS,
+               CAPTION_DRIVER_BEAMS)
+    tok = WordPieceTokenizer()
+    # a partial pretrain export (the Swin patch embedding, seeded) puts the
+    # driver on the pretrained frames: uint8, normalized on the card
+    cfg = cli.build_config(cli.parse_args([]), tok, IU_XRAY_TEXT)
+    gen = torch.Generator().manual_seed(5)
+    export = {k: (torch.ones(v.shape) if k.endswith("norm.weight") else
+                  torch.zeros(v.shape) if k.endswith("bias") else
+                  torch.randn(v.shape, generator=gen) * 0.02)
+              for k, v in CaptionModel(cfg, device="meta").state_dict().items()
+              if k.startswith("conv.backbone.patch_embed.")}
+    ckpt_lib.save_pretrained(str(root / "export"), cfg, export)
+    data_root = str(pathlib.Path(trees["data"]).parent)
+    argv = ["--dataset", "iu_xray", "--data_root", data_root,
+            "--pretrained", str(root / "export"), "--epochs", str(E),
+            "--test_freq", str(E), "--batch_size", str(B),
+            "--max_length", str(IU_XRAY_TEXT), "--num_beams", str(K),
+            "--device", str(dev)]
+    print(f"caption driver: run_report_generation {' '.join(argv)}",
+          flush=True)
+
+    # 1. the driver on the kernels, loader processes
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec_k = _DriverRecorder(task="caption")
+    reset_counts()
+    t0 = time.perf_counter()
+    with rec_k.watching():
+        runner_k, out = cli.main(argv + [
+            "--model_name", str(root / "kernels"),
+            "--num_workers", str(CAPTION_DRIVER_WORKERS)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    run_s = time.perf_counter() - t0
+    args = cli.parse_args(argv)
+    size = runner_k.config.swin.img_size
+    train_ds, test_ds = cli.build_datasets(args, tok, IU_XRAY_TEXT, size)
+    steps = E * (len(train_ds) // B)
+    print(f"caption driver run (kernels, {CAPTION_DRIVER_WORKERS} worker "
+          f"processes): {run_s:.1f} s for {steps} steps, {E} checkpoints and "
+          f"the test of {len(test_ds)} studies (beam {K}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB; losses "
+          f"{json.dumps(rec_k.losses)}; scores {json.dumps(out['evals'])}",
+          flush=True)
+    print(f"launches in the caption driver run: {json.dumps(counts)}",
+          flush=True)
+    print(f"launches in one caption driver step: "
+          f"{json.dumps(rec_k.step_counts)}", flush=True)
+    _expect_counts(rec_k.step_counts, EXPECTED_CAPTION_DRIVER_STEP,
+                   "one caption driver step",
+                   [k.__name__ for k in kernels.KERNELS] + ["gemm_splitk"])
+    if len(rec_k.same) != steps or not all(rec_k.same):
+        raise AssertionError(f"device batches vs host batches: {rec_k.same}")
+    image = rec_k.host[0]["image"]
+    if image.dtype != np.uint8 or image.shape != (B, 2, size, size, 3):
+        raise AssertionError(f"caption driver batch {image.dtype} "
+                             f"{image.shape}")
+    if (runner_k.state.step != steps or len(out["evals"]) != 1
+            or not all(np.isfinite(v) for v in out["evals"][0].values())
+            or "r2gen_BLEU_4" not in out["evals"][0]):
+        raise AssertionError(f"caption driver: step {runner_k.state.step}, "
+                             f"evals {out['evals']}")
+    print(f"caption driver: {steps} device batches (two-view uint8 "
+          f"{image.shape}) bitwise equal to their host batches, in order",
+          flush=True)
+
+    # 2. one eval batch: its launches; the Swin features, the prefill's
+    # logits and the first decode step's against the plain route
+    model = runner_k.model
+    spec = G.GenerationSpec.from_config(runner_k.config, num_beams=K)
+    images = _resident(test_ds, CAPTION_EVAL_BATCH, dev)["image"]
+    before = launch_counts()
+    G.generate(model, images, spec)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    eval_counts = {k: after[k] - before[k] for k in after}
+    print(f"launches in one caption eval batch (b{CAPTION_EVAL_BATCH}, beam "
+          f"{K}): {json.dumps(eval_counts)}", flush=True)
+    _expect_counts(eval_counts, EXPECTED_CAPTION_DRIVER_EVAL,
+                   "one caption eval batch",
+                   ("gemm", "biased_attention", "layernorm"))
+    with torch.no_grad():
+        feats = [model.encode_image(images, plain) for plain in (False, True)]
+        _check_close(f"two-view Swin-S features (b{CAPTION_EVAL_BATCH}, "
+                     f"{feats[0].shape[1]} tokens), kernels vs plain", *feats)
+        pre = [G._prefill(model, f, spec, ops)
+               for f, ops in zip(feats, (KERNEL_OPS, PLAIN_OPS))]
+        _check_close(f"caption prefill logits (prefix {pre[0][2]}), kernels "
+                     "vs plain", pre[0][0], pre[1][0])
+        first = pre[1][0].argmax(-1)
+        step_logits = []
+        for (_, kv, P), ops in zip(pre, (KERNEL_OPS, PLAIN_OPS)):
+            cache = G._make_cache(model, kv, P, images.shape[0], spec)
+            step_logits.append(G._decode_logits(model, cache, first, P, spec,
+                                                ops))
+        _check_close("caption first decode step logits, kernels vs plain",
+                     *step_logits)
+    del feats, pre, cache, step_logits
+
+    # 3. the first epoch on the plain versions, replaying the masks
+    pretrained = [ckpt_lib.load_pretrained(str(root / "export"))[1]]
+    _replayed_epoch(rec_k, "caption", runner_k, CaptionModel,
+                    lambda r, ds: train_caption(r, ds, epochs=1), train_ds,
+                    "caption driver", pretrained)
+
+    # 4. two evals bitwise equal; the checkpoint restored into a fresh runner
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(decode_reports(runner_k, test_ds, tok, num_beams=K))
+        runs[-1] += (time.perf_counter() - t0,)
+    if runs[0][2] != runs[1][2]:
+        raise AssertionError("two caption evals decoded other ids")
+    runner_k.finish()
+    fresh = TaskRunner(CaptionModel, runner_k.config, runner_k.train_config,
+                       workdir=runner_k.workdir, name="caption-restore",
+                       device=dev)
+    fresh.init_state()
+    if not fresh.maybe_restore():
+        raise AssertionError("the fresh runner found no checkpoint")
+    _same_state(runner_k.state, fresh.state, "restored caption state")
+    if decode_reports(fresh, test_ds, tok, num_beams=K)[2] != runs[0][2]:
+        raise AssertionError("the restored runner decodes other ids")
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = eval_caption(runner_k, test_ds, tok, num_beams=K)
+    eval_s = time.perf_counter() - t0
+    gen_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        G.generate(model, images, spec)
+        torch.cuda.synchronize()
+        gen_s.append(time.perf_counter() - t0)
+    n = len(test_ds)
+    print(f"caption driver: two evals decode the same ids; its checkpoint at "
+          f"step {steps} restored into a fresh runner (state bitwise) decodes "
+          f"them too; {sum(len(r) for r in runs[0][1])} report characters; "
+          f"first report {runs[0][1][0][:80]!r}", flush=True)
+    print(f"caption driver eval on {card}: decode of {n} studies (beam {K}, "
+          f"b{CAPTION_EVAL_BATCH}) {[round(n / r[3], 2) for r in runs]} "
+          f"reports/s; eval_caption with the metrics {n / eval_s:.2f} "
+          f"reports/s ({eval_s:.2f} s); a generate call (b"
+          f"{CAPTION_EVAL_BATCH}, beam {K}, length {IU_XRAY_TEXT}) "
+          f"{[round(t * 1e3, 1) for t in gen_s]} ms; scores "
+          f"{json.dumps(scores)}", flush=True)
+
+    # 5. times: bare steps and one epoch per image layout and loader setting
+    timed = {"uint8 (export)": (argv, (-1,)),
+             "f32 ImageNet crops": ([a for i, a in enumerate(argv)
+                                     if a != "--pretrained"
+                                     and argv[i - 1] != "--pretrained"],
+                                    (-1, 0))}
+    sets = {}
+    for name, (a, settings) in timed.items():
+        a = cli.parse_args(a)
+        a.data_root = str(pathlib.Path(trees["timed"]).parent)
+        ds = cli.build_datasets(a, tok, IU_XRAY_TEXT, size)[0]
+        sets[name] = (ds, _resident(ds, B, dev), settings)
+    bare = make_caption_step(runner_k.model, runner_k.optimizer)
+    peak = task_driver_loops(runner_k, sets,
+                             lambda r, ds: train_caption(r, ds, epochs=1),
+                             bare, B, "caption driver", card)
+    print(f"caption driver: peak memory in the timed loops "
+          f"{peak / 2 ** 30:.3f} GiB on {card}", flush=True)
+    return {"run": counts, "step": rec_k.step_counts}
+
+
+def retrieval_driver_phase(dev, card: str) -> dict:
+    """The retrieval driver, ``python -m mvlt_tpu_torch.run_retrieval
+    --iu_xray_root``, at its settings (Swin-S @224 + BERT-base,
+    ``for_retrieval``: attention dropout 0.1, hidden dropout 0.0, DropPath
+    0.3, lr 1e-6; swap 'image'; 32 pairs = 64 rows of two views, S = 180;
+    uint8 frames normalized on the card) on the synthetic tree, one epoch
+    of 3 steps with loader processes, then ``eval_retrieval`` on the 32
+    test studies and ``eval.json``. Checks: the launch counts of one driver
+    step (the Swin counterparts twice) and of one grid, every device batch
+    bitwise its host ``cat(pos, neg)``, the epoch on the plain versions
+    replaying the masks (3 losses, step 1's gradients), the grid's P(match)
+    against the plain route, two grids bitwise equal. Then times the grid
+    (pairs/s) and, per image layout (uint8, f32 host-normalized), the bare
+    step and one epoch of ``IU_XRAY_TIMED`` studies through
+    ``train_retrieval`` for each of its loader settings, with the peak
+    memory. Returns
+    ``{"run": ..., "step": ...}`` as the caption phase does."""
+    import shutil
+
+    import numpy as np
+
+    from mvlt_tpu_torch import run_retrieval as cli
+    from mvlt_tpu_torch.data.datasets import RetrievalDataset
+    from mvlt_tpu_torch.models.heads import RetrievalModel
+    from mvlt_tpu_torch.ops import kernels
+    from mvlt_tpu_torch.metrics.retrieval import evaluate_retrieval
+    from mvlt_tpu_torch.tasks.retrieval import (merge_pairs, score_grid,
+                                                train_retrieval)
+    from mvlt_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from mvlt_tpu_torch.train.steps import make_retrieval_step
+    trees = iu_xray_trees()
+    root = REPO / "build" / "retrieval_driver"
+    shutil.rmtree(root, ignore_errors=True)
+    P = RETRIEVAL_DRIVER_PAIRS
+    tok = WordPieceTokenizer()
+    argv = ["--iu_xray_root", trees["data"], "--epochs", "1",
+            "--batch_size", str(P), "--do_train", "--do_test",
+            "--device", str(dev)]
+    print(f"retrieval driver: run_retrieval {' '.join(argv)}", flush=True)
+
+    # 1. the driver on the kernels, loader processes
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rec_k = _DriverRecorder(task="retrieval")
+    reset_counts()
+    t0 = time.perf_counter()
+    with rec_k.watching():
+        runner_k, result = cli.main(argv + [
+            "--model_name", str(root / "kernels"),
+            "--num_workers", str(RETRIEVAL_DRIVER_WORKERS)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    run_s = time.perf_counter() - t0
+    args = cli.parse_args(argv)
+    size = runner_k.config.swin.img_size
+    src_train, src_test = cli.build_sources(args, size)
+    train_ds = RetrievalDataset(src_train, tok, args.max_length, "train",
+                                swap=args.swap)
+    test_ds = RetrievalDataset(src_test, tok, args.max_length, "test")
+    steps = len(train_ds) // P
+    print(f"retrieval driver run (kernels, {RETRIEVAL_DRIVER_WORKERS} worker "
+          f"processes): {run_s:.1f} s for {steps} steps (swap "
+          f"{args.swap!r}), a checkpoint and the {test_ds.img_num}^2 grid; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} "
+          f"GiB; metrics {json.dumps(rec_k.metrics)}; eval "
+          f"{json.dumps(result)}", flush=True)
+    print(f"launches in the retrieval driver run: {json.dumps(counts)}",
+          flush=True)
+    print(f"launches in one retrieval driver step: "
+          f"{json.dumps(rec_k.step_counts)}", flush=True)
+    _expect_counts(rec_k.step_counts, EXPECTED_RETRIEVAL_DRIVER_STEP,
+                   "one retrieval driver step",
+                   [k.__name__ for k in kernels.KERNELS] + ["gemm_splitk"])
+    if len(rec_k.same) != steps or not all(rec_k.same):
+        raise AssertionError(f"device batches vs host batches: {rec_k.same}")
+    image = rec_k.host[0]["image"]
+    on_disk = json.loads((root / "kernels" / "eval.json").read_text())
+    if (args.swap != "image" or image.dtype != np.uint8
+            or image.shape != (2 * P, 2, size, size, 3) or on_disk != result
+            or set(result) != {"i2t_retrieval", "t2i_retrieval"}):
+        raise AssertionError(f"retrieval driver: swap {args.swap}, batch "
+                             f"{image.dtype} {image.shape}, eval.json "
+                             f"{on_disk}")
+    print(f"retrieval driver: {steps} device batches (cat(pos, neg), "
+          f"{image.shape} uint8) bitwise equal to their host batches; "
+          f"eval.json written", flush=True)
+
+    # 2. the epoch on the plain versions, replaying the masks
+    _replayed_epoch(rec_k, "retrieval", runner_k, RetrievalModel,
+                    lambda r, ds: train_retrieval(r, ds, epochs=1), train_ds,
+                    "retrieval driver")
+
+    # 3. the grid: its launches, two grids bitwise equal, the plain route
+    n = test_ds.img_num
+    reset_counts()
+    times, grids = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grids.append(score_grid(runner_k, test_ds, min(64, len(test_ds))))
+        times.append(time.perf_counter() - t0)
+        if len(grids) == 1:
+            grid_counts = launch_counts()
+    expected = {**two_view(EXPECTED),
+                "fused_attn_ln": (12 * n, "mvlt_tpu/ops/pallas_attn.py:2156"),
+                "fused_mlp_ln": (12 * n, "mvlt_tpu/ops/pallas_attn.py:2817")}
+    print(f"launches in one retrieval grid ({n} x {n}, one chunk): "
+          f"{json.dumps(grid_counts)}", flush=True)
+    _expect_counts(grid_counts, expected, "one retrieval grid",
+                   ("gemm", "biased_attention", "layernorm"))
+    sims, labels = grids[0]["similarities"], grids[0]["labels"]
+    if not (np.array_equal(sims, grids[1]["similarities"])
+            and (labels.diagonal() == 1).all() and (sims > 0).all()
+            and (sims < 1).all()):
+        raise AssertionError("two retrieval grids differ, or a score or "
+                             "label is wrong")
+    runner_k.plain = True
+    plain = score_grid(runner_k, test_ds, min(64, len(test_ds)))
+    runner_k.plain = False
+    _check_close(f"retrieval driver P(match) of the {n} x {n} grid, kernels "
+                 "vs plain", torch.from_numpy(sims),
+                 torch.from_numpy(plain["similarities"]))
+    print(f"retrieval driver grid on {card}: two grids bitwise equal; "
+          f"{[round(n * n / t, 1) for t in times]} pairs/s ({n} x {n}, S = "
+          f"{1 + 2 * 49 + 1 + args.max_length}); plain route "
+          f"{json.dumps(evaluate_retrieval(plain['similarities'], labels))}",
+          flush=True)
+
+    # 4. times: bare steps and one epoch per image layout and loader setting
+    sets = {}
+    for name, extra, settings in (("uint8", [], (-1, 0)),
+                                  ("f32 host-normalized",
+                                   ["--host_normalize"], ())):
+        a = cli.parse_args(["--iu_xray_root", trees["timed"]] + extra)
+        ds = RetrievalDataset(cli.build_sources(a, size)[0], tok, a.max_length,
+                              "train", swap=a.swap)
+        sets[name] = (ds, _resident(ds, P, dev, merge_pairs), settings)
+    bare = make_retrieval_step(runner_k.model, runner_k.optimizer)
+    peak = task_driver_loops(runner_k, sets,
+                             lambda r, ds: train_retrieval(r, ds, epochs=1),
+                             bare, 2 * P, "retrieval driver", card)
+    print(f"retrieval driver: peak memory in the timed loops "
+          f"{peak / 2 ** 30:.3f} GiB on {card}", flush=True)
+    return {"run": counts, "step": rec_k.step_counts}
+
+
+def caption_driver_main() -> int:
+    """``python3 chip_smoke.py --caption-driver``: phases 1-2 and the
+    caption driver phase only; its last line is the launch counts of the
+    driver run and of one driver step."""
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    with switches(False):
+        counts = caption_driver_phase(dev, card)
+    print(CAPTION_DRIVER_TAG + json.dumps(counts), flush=True)
+    return 0
+
+
+def retrieval_driver_main() -> int:
+    """``python3 chip_smoke.py --retrieval-driver``: phases 1-2 and the
+    retrieval driver phase only, as ``--caption-driver``."""
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    with switches(False):
+        counts = retrieval_driver_phase(dev, card)
+    print(RETRIEVAL_DRIVER_TAG + json.dumps(counts), flush=True)
+    return 0
 
 
 def vqa_driver_main() -> int:
@@ -4689,8 +5308,29 @@ def pretrain_driver_subprocess(swin_step: dict) -> dict:
     return out["run"]
 
 
+def two_view_subprocess(flag: str, what: str, limit: float, tag: str,
+                        single_step: dict, expected: dict) -> dict:
+    """A two-view driver phase in its own process; one of its steps against
+    ``single_step``, the launch counts of the single-view step of its task
+    (the keys of ``expected``): the Swin counterparts twice as often, the
+    fusion counterparts as often. Returns the driver run's launch counts."""
+    out = driver_subprocess(flag, what, limit, tag)
+    diff = {k: (out["step"][k], single_step[k]) for k in expected
+            if out["step"][k] != (2 if k in SWIN_COUNTERPARTS else 1)
+            * single_step[k]}
+    print(f"{what} step vs the single-view step: "
+          f"{'the Swin counterparts twice, the others as often' if not diff else diff}",
+          flush=True)
+    if diff:
+        raise AssertionError(f"a two-view {what} step launches {diff} "
+                             "(two-view, single-view)")
+    return out["run"]
+
+
 if __name__ == "__main__":
     modes = {"--norm": norm_main, "--caption": caption_main,
              "--retrieval": retrieval_main, "--vqa-driver": vqa_driver_main,
-             "--pretrain-driver": pretrain_driver_main}
+             "--pretrain-driver": pretrain_driver_main,
+             "--caption-driver": caption_driver_main,
+             "--retrieval-driver": retrieval_driver_main}
     sys.exit(modes.get(" ".join(sys.argv[1:]), main)())

@@ -1,8 +1,10 @@
 """Task datasets of the port over the reference's on-disk formats: a copy
-of ``mvlt_tpu/data/datasets.py``'s pretrain sources and
-:class:`PretrainDataset` (``datasets.py:37-364``) and its
-:class:`MedVQADataset` (``:366-418``). The retrieval and caption datasets
-come with their drivers (ROADMAP.md queue A, "Host modules").
+of ``mvlt_tpu/data/datasets.py``: the pretrain sources and
+:class:`PretrainDataset` (``datasets.py:37-364``), :class:`MedVQADataset`
+(``:366-418``), the report generation datasets :class:`CaptionDataset` and
+:class:`CXRAnnotationDataset` (``:421-509``) and the retrieval dataset
+:class:`RetrievalDataset` (``:512-566``) with its IU X-Ray source
+:class:`AnnotationSource` (``:219-254``).
 
 Every dataset is index-addressable and draws from a per-sample
 ``np.random.Generator`` keyed by (seed, epoch, index)
@@ -21,7 +23,14 @@ Pretrain sources yield ``(image, caption, img_id, cap_id)``:
   with ``"host"`` the f32 (3, H, W) of the reference's numpy chain;
 - :class:`U8CacheSource`: a raw uint8 memmap ``images.u8`` (N, H, W, 3)
   and ``meta.json`` (captions, ids, shape);
+- :class:`AnnotationSource`: the studies of one split of an R2Gen-style
+  ``annotation.json`` (IU X-Ray: two views a study, stacked (2, ...));
 - :class:`SyntheticSource` and :class:`ConcatSource`.
+
+IU X-Ray / MIMIC-CXR (``run_report_generation_cxr.py:79-270``): an image
+directory and ``annotation.json`` ``{"train" | "val" | "test": [{"id",
+"report", "image_path": [view, ...], "split"}]}``;
+:func:`write_synthetic_iu_xray` writes a seeded one.
 
 VQA pickles (``run_vqa.py:17-72``): an image bank ``(img_id2idx,
 idx2img_id, img_list_in_np)`` in ``<root>/<dataset>/<dataset>_image_data.pkl``
@@ -220,6 +229,40 @@ class SyntheticSource:
         return self.captions[index], index
 
 
+class AnnotationSource:
+    """(image, report) source over an R2Gen-style annotation.json + image
+    dir — feeds :class:`RetrievalDataset` for the IU X-Ray retrieval
+    variant (reference ``run_retrieval_iuxray.py:18-179``; two-view images,
+    negatives always swap the image). ``cap_id`` is the study id."""
+
+    def __init__(self, image_dir: str, ann_path: str, split: str = "train",
+                 two_view: bool = True, image_size: int = 224,
+                 normalize: str = "host"):
+        self.image_dir = image_dir
+        self.two_view = two_view
+        self.image_size = image_size
+        self.normalize = normalize
+        with open(ann_path) as f:
+            self.examples = json.load(f)[split]
+
+    def __len__(self):
+        return len(self.examples)
+
+    def __getitem__(self, index: int):
+        e = self.examples[index]
+        paths = e["image_path"][:2 if self.two_view else 1]
+        load = (T.load_image_u8 if self.normalize == "device"
+                else T.load_image_var_normalized)
+        views = [load(os.path.join(self.image_dir, p), self.image_size)
+                 for p in paths]
+        im = np.stack(views, 0) if self.two_view else views[0]
+        return im, e["report"], e["id"], e["id"]
+
+    def peek(self, index: int):
+        e = self.examples[index]
+        return e["report"], e["id"]
+
+
 class ConcatSource:
     """Index-range dispatch over multiple sources
     (run_pretrain_rgc_roco_medicat.py:94-129)."""
@@ -382,6 +425,172 @@ class MedVQADataset:
                 "answer_type": e.get("answer_type", "")}
 
 
+class CaptionDataset:
+    """RGC report generation (run_report_generation.py:22-176): ``{"image",
+    "caption", "mlm_labels", "image_id", "raw_caption"}``. On the train
+    split, 'unilm' masks words (``random_mask_word``) and labels the masked
+    ones; 'normal' labels every token; on the other splits the labels are
+    all -100."""
+
+    def __init__(self, source, tokenizer, max_length: int = 100,
+                 split: str = "train", seed: int = 0,
+                 learning_strategy: str = "unilm"):
+        self.source = source
+        self.tokenizer = tokenizer
+        self.max_length = max_length
+        self.split = split
+        self.seed = seed
+        self.learning_strategy = learning_strategy
+        self._vocab_words = list(tokenizer.vocab.keys())
+
+    def __len__(self):
+        return len(self.source)
+
+    def _encode(self, caption: str, rng) -> Tuple[np.ndarray, np.ndarray]:
+        tokens = self.tokenizer.tokenize(caption + " " +
+                                         self.tokenizer.eos_token)
+        if self.split == "train" and self.learning_strategy == "unilm":
+            tokens, mlm_labels = T.random_mask_word(
+                tokens, self.tokenizer.vocab, rng, self._vocab_words)
+        elif self.split == "train":
+            # 'normal' strategy: labels are the full token ids
+            # (run_report_generation_cxr.py:229-230)
+            mlm_labels = self.tokenizer.convert_tokens_to_ids(tokens)
+        else:
+            mlm_labels = None
+        ids = self.tokenizer.convert_tokens_to_ids(tokens)
+        return T.pad_truncate_preserve_end(ids, self.max_length, mlm_labels)
+
+    def __getitem__(self, index: int, epoch: int = 0) -> Dict:
+        rng = T.sample_rng(self.seed, epoch, index)
+        im_np, caption, img_id, _ = self.source[index]
+        cap_ids, labels = self._encode(caption, rng)
+        return {"image": im_np, "caption": cap_ids, "mlm_labels": labels,
+                "image_id": img_id, "raw_caption": caption}
+
+
+class CXRAnnotationDataset(CaptionDataset):
+    """IU X-Ray (two-view: image (2, ...)) / MIMIC-CXR (single-view) over
+    annotation.json (run_report_generation_cxr.py:79-270); reports cleaned
+    by ``clean_report_iu_xray`` / ``clean_report_mimic_cxr``.
+
+    Images: with ``pretrained`` the reference's variance-normalized f32
+    (3, H, W), or with ``normalize="device"`` the uint8 (H, W, 3) frame
+    normalized on the device; without, the ImageNet transforms (train:
+    resize the shorter side to ``image_size * 8 // 7``, random crop of
+    ``image_size`` and flip; other splits: resize). ``image_size`` (224, as
+    in JAX, where it is fixed) is an addition that lets a tiny model read
+    the same tree."""
+
+    def __init__(self, image_dir: str, ann_path: str, tokenizer,
+                 split: str = "train", two_view: bool = True,
+                 max_length: int = 80, pretrained: bool = True, seed: int = 0,
+                 learning_strategy: str = "unilm", normalize: str = "host",
+                 image_size: int = 224):
+        self.image_dir = image_dir
+        self.two_view = two_view
+        self.pretrained = pretrained
+        self.normalize = normalize
+        self.image_size = image_size
+        clean = T.clean_report_iu_xray if two_view else T.clean_report_mimic_cxr
+        with open(ann_path) as f:
+            ann = json.load(f)
+        self.examples = ann[split]
+        for e in self.examples:
+            e["report"] = clean(e["report"]).lower()
+        super().__init__(self.examples, tokenizer, max_length, split, seed,
+                         learning_strategy)
+
+    def __len__(self):
+        return len(self.examples)
+
+    def _load_view(self, rel_path: str, rng) -> np.ndarray:
+        from PIL import Image
+        path = os.path.join(self.image_dir, rel_path)
+        size = self.image_size
+        if self.pretrained:
+            if self.normalize == "device":
+                return T.load_image_u8(path, size)
+            return T.load_image_var_normalized(path, size)
+        im = Image.open(path).convert("RGB")
+        if self.split == "train":
+            return T.train_augment_imagenet(im, rng, resize=size * 8 // 7,
+                                            crop=size)
+        return T.eval_transform_imagenet(im, size)
+
+    def __getitem__(self, index: int, epoch: int = 0) -> Dict:
+        rng = T.sample_rng(self.seed, epoch, index)
+        e = self.examples[index]
+        paths = e["image_path"]
+        if self.two_view:
+            image = np.stack([self._load_view(paths[0], rng),
+                              self._load_view(paths[1], rng)], 0)
+        else:
+            image = self._load_view(paths[0], rng)
+        cap_ids, labels = self._encode(e["report"], rng)
+        return {"image": image, "caption": cap_ids, "mlm_labels": labels,
+                "image_id": e["id"], "raw_caption": e["report"]}
+
+
+class RetrievalDataset:
+    """Train: ``{"pos", "neg"}`` pairs of ``{"image", "caption", "label"}``;
+    test: the virtual N x N cross-product, item ``i * N + j`` image i with
+    caption j (run_retrieval.py:18-145). ``swap`` picks the negative:
+    'either' flips a coin between replacing the image and the caption
+    (run_retrieval.py:104-111); 'image' always swaps the image
+    (run_retrieval_iuxray.py:130-137). A negative is a sample of another
+    ``cap_id``, drawn at most 1,000 times."""
+
+    def __init__(self, source, tokenizer, max_length: int = 80,
+                 split: str = "train", seed: int = 0, swap: str = "either"):
+        self.source = source
+        self.tokenizer = tokenizer
+        self.max_length = max_length
+        self.split = split
+        self.seed = seed
+        self.swap = swap
+        self.img_num = len(source)
+
+    def __len__(self):
+        return self.img_num if self.split == "train" else self.img_num ** 2
+
+    def _cap_ids(self, caption: str) -> np.ndarray:
+        ids = self.tokenizer.convert_tokens_to_ids(
+            self.tokenizer.tokenize(caption + " " + self.tokenizer.eos_token))
+        out, _ = T.pad_truncate_preserve_end(ids, self.max_length)
+        return out
+
+    def __getitem__(self, index: int, epoch: int = 0) -> Dict:
+        if self.split == "train":
+            rng = T.sample_rng(self.seed, epoch, index)
+            cap_gt, cap_id = _peek(self.source, index)
+            for _try in range(1000):
+                rand_index = int(rng.integers(0, self.img_num))
+                r_cap, r_cap_id = _peek(self.source, rand_index)
+                if rand_index != index and cap_id != r_cap_id:
+                    break
+            else:
+                raise ValueError(
+                    "retrieval negative sampling found no sample with a "
+                    "different cap_id in 1000 draws — source too small")
+            im_gt = self.source[index][0]
+            if self.swap == "image" or rng.random() < 0.5:
+                # the negative image is decoded only when the image swaps
+                im_neg, cap_neg = self.source[rand_index][0], cap_gt
+            else:
+                im_neg, cap_neg = im_gt, r_cap
+            return {"pos": {"image": im_gt, "caption": self._cap_ids(cap_gt),
+                            "label": np.int32(1)},
+                    "neg": {"image": im_neg, "caption": self._cap_ids(cap_neg),
+                            "label": np.int32(0)}}
+        img_idx, cap_idx = divmod(index, self.img_num)
+        im1, _, _, cap_id1 = self.source[img_idx]
+        cap2, cap_id2 = _peek(self.source, cap_idx)
+        label = 1 if img_idx == cap_idx or cap_id1 == cap_id2 else 0
+        return {"image": im1, "caption": self._cap_ids(cap2),
+                "label": np.int32(label)}
+
+
 def write_synthetic_vqa(root: str, dataset: str = "SLAKE", images: int = 64,
                         answers: int = 224, splits=None, image_size: int = 224,
                         seed: int = 0) -> str:
@@ -465,7 +674,8 @@ def synthetic_pretrain_frames(n: int, image_size: int = 224, seed: int = 0):
 
 
 def write_synthetic_pretrain(root: str, n: int = 64, image_size: int = 224,
-                             seed: int = 0) -> Dict[str, str]:
+                             seed: int = 0, roco: bool = True
+                             ) -> Dict[str, str]:
     """Write one synthetic pretrain corpus (:func:`synthetic_pretrain_frames`)
     under ``root`` in the driver's source layouts, for smoke runs and
     profiles of ``python -m mvlt_tpu_torch.run_pretrain``:
@@ -474,11 +684,12 @@ def write_synthetic_pretrain(root: str, n: int = 64, image_size: int = 224,
       with the f32 (3, H, W) variance-normalized frame
       (``preprocess_rgc.py:44-50``) and ``train_img_idx2path.pkl``;
     - ``u8``: a :class:`U8CacheSource` directory of the raw frames;
-    - ``roco`` (needs Pillow): a ROCO split, ``train/radiology/
-      {captions.txt, images/<name>.jpg}``, the frames stored losslessly (PNG
-      data under ROCO's ``.jpg`` names).
+    - ``roco`` (needs Pillow; left out with ``roco=False``): a ROCO split,
+      ``train/radiology/{captions.txt, images/<name>.jpg}``, the frames
+      stored losslessly (PNG data under ROCO's ``.jpg`` names).
 
-    Returns ``{"rgc_index", "u8_cache", "roco_root"}``."""
+    Returns ``{"rgc_index", "u8_cache", "roco_root"}`` (no ``roco_root``
+    with ``roco=False``)."""
     frames, captions = synthetic_pretrain_frames(n, image_size, seed)
     rgc = os.path.join(root, "rgc", "train")
     os.makedirs(rgc, exist_ok=True)
@@ -494,6 +705,8 @@ def write_synthetic_pretrain(root: str, n: int = 64, image_size: int = 224,
                                       captions)}
     with open(out["rgc_index"], "wb") as f:
         pickle.dump(index, f, protocol=4)
+    if not roco:
+        return out
     from PIL import Image
     base = os.path.join(root, "roco", "train", "radiology")
     os.makedirs(os.path.join(base, "images"), exist_ok=True)
@@ -505,3 +718,56 @@ def write_synthetic_pretrain(root: str, n: int = 64, image_size: int = 224,
             f.write(f"{name}\t{captions[i]}\n")
     out["roco_root"] = os.path.join(root, "roco")
     return out
+
+
+_FINDINGS = ("the heart is normal in size", "the mediastinum is unremarkable",
+             "the lungs are clear", "no pleural effusion",
+             "no pneumothorax", "mild cardiomegaly",
+             "there is a small left pleural effusion",
+             "right lower lobe opacity", "degenerative changes of the spine",
+             "no acute cardiopulmonary abnormality")
+
+
+def write_synthetic_iu_xray(root: str, splits=None, image_size: int = 256,
+                            views: int = 2, seed: int = 0) -> str:
+    """Write a seeded IU X-Ray tree under ``root`` for smoke runs and tests
+    of the caption and retrieval drivers: ``images/<id>/<v>.png`` (``views``
+    grayscale frames of ``image_size`` a study, a gradient plus noise) and
+    ``annotation.json`` with R2Gen's layout (``{"train" | "val" | "test":
+    [{"id", "report", "image_path", "split"}]}``). ``splits`` maps the
+    splits to study counts (default 96 / 16 / 32). Reports are 3-6 findings
+    as a radiologist writes them ("1. ", double periods, "/"), so that the
+    cleaning runs. ``views=1`` gives a MIMIC-CXR-shaped tree. Needs Pillow.
+    Returns ``root``."""
+    from PIL import Image
+    splits = splits or {"train": 96, "val": 16, "test": 32}
+    rng = np.random.default_rng(seed)
+    ramp = np.linspace(0, 1, image_size, dtype=np.float32)
+    ann, n = {}, 0
+    for split, count in splits.items():
+        entries = []
+        for _ in range(count):
+            sid = f"CXR{1000 + n}_IM-{seed:02d}{n:04d}"
+            n += 1
+            os.makedirs(os.path.join(root, "images", sid), exist_ok=True)
+            paths = []
+            for v in range(views):
+                base, tilt = rng.uniform(60, 180), rng.uniform(-50, 50)
+                x = (base + tilt * ramp[:, None]
+                     + rng.normal(0, 20, (image_size, image_size)))
+                rel = f"{sid}/{v}.png"
+                Image.fromarray(np.clip(x, 0, 255).astype(np.uint8)).save(
+                    os.path.join(root, "images", rel))
+                paths.append(rel)
+            picks = rng.choice(len(_FINDINGS), size=int(rng.integers(3, 7)),
+                               replace=False)
+            sents = [_FINDINGS[int(i)].capitalize() for i in picks]
+            report = " ".join(f"{k + 1}. {t}.." if k % 3 == 0 else
+                              f"{t}/ ." if k % 3 == 1 else f"{t}."
+                              for k, t in enumerate(sents))
+            entries.append({"id": sid, "report": report,
+                            "image_path": paths, "split": split})
+        ann[split] = entries
+    with open(os.path.join(root, "annotation.json"), "w") as f:
+        json.dump(ann, f)
+    return root

@@ -4,16 +4,23 @@ the pieces of ``mvlt_tpu/data/transforms.py`` that the port's drivers use:
 shuffle and every sample's draws; the pretrain driver's image loads
 (``:45-87``: the reference's per-channel ``(x - mean) / var``, variance and
 not std) and its masking and truncation (``:125-172``: <= 10 tokens at 20%
-a token, 80/10/10 mask / random / keep; the trailing ``[END]`` kept). The
-caption transforms come with the caption driver (ROADMAP.md queue A).
+a token, 80/10/10 mask / random / keep; the trailing ``[END]`` kept); the
+caption driver's ImageNet transforms (``:90-120``: resize the shorter side,
+random crop and flip for training, resize for eval, ImageNet's mean / std),
+used where no ``--pretrained`` export is given; and the report cleaning of
+IU X-Ray and MIMIC-CXR (``:175-214``, the reference's regexes verbatim).
 
 PIL is imported inside the functions that decode images, as in JAX."""
 
 from __future__ import annotations
 
+import re
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def sample_rng(seed: int, epoch: int, index: int,
@@ -63,6 +70,42 @@ def load_image_u8(path: str, size: int = 224,
     return np.asarray(_open_resized(path, size, fast))
 
 
+def imagenet_normalize(im_hwc01: np.ndarray) -> np.ndarray:
+    """(H, W, 3) in [0,1] -> normalized CHW (torchvision Normalize)."""
+    out = (im_hwc01 - IMAGENET_MEAN) / IMAGENET_STD
+    return out.transpose(2, 0, 1).astype(np.float32)
+
+
+def train_augment_imagenet(pil_image, rng: np.random.Generator,
+                           resize: int = 256, crop: int = 224) -> np.ndarray:
+    """Resize-shorter-side + random crop + hflip + ImageNet normalize
+    (run_report_generation_cxr.py:23-29). PIL's BILINEAR, as torchvision's
+    ``Resize`` (PIL's own default is BICUBIC)."""
+    from PIL import Image
+    w, h = pil_image.size
+    if w <= h:
+        nw, nh = resize, max(1, round(h * resize / w))
+    else:
+        nh, nw = resize, max(1, round(w * resize / h))
+    im = pil_image.resize((nw, nh), resample=Image.BILINEAR)
+    x0 = int(rng.integers(0, nw - crop + 1))
+    y0 = int(rng.integers(0, nh - crop + 1))
+    im = im.crop((x0, y0, x0 + crop, y0 + crop))
+    arr = np.asarray(im, dtype=np.float32) / 255.0
+    if rng.random() < 0.5:
+        arr = arr[:, ::-1]
+    return imagenet_normalize(arr)
+
+
+def eval_transform_imagenet(pil_image, size: int = 224) -> np.ndarray:
+    """Resize + ImageNet normalize (run_report_generation_cxr.py:30-36)."""
+    from PIL import Image
+    arr = np.asarray(pil_image.resize((size, size),
+                                      resample=Image.BILINEAR),
+                     np.float32) / 255.0
+    return imagenet_normalize(arr)
+
+
 def random_mask_word(tokens: Sequence[str], vocab: dict,
                      rng: np.random.Generator,
                      vocab_words: Optional[List[str]] = None,
@@ -107,3 +150,49 @@ def pad_truncate_preserve_end(ids: Sequence[int], max_length: int,
     if labels is not None:
         out_labels[:n] = np.asarray(labels[:n], np.int32)
     return out_ids, out_labels
+
+
+# verbatim from the reference (run_report_generation_cxr.py:110), with its
+# `:-\[` character RANGE (codepoints 58..91: it also strips ; < = > ? @):
+# the cleaned text must match for metric parity
+_SENT_PUNC_RE = re.compile(r'[.,?;*!%^&_+():-\[\]{}]')
+
+
+def _clean_sent(t: str) -> str:
+    t = (t.replace('"', '').replace('/', '').replace('\\', '')
+         .replace("'", '').strip().lower())
+    return _SENT_PUNC_RE.sub('', t)
+
+
+def _numbered(t: str) -> str:
+    """Drop the list numbers "1. " .. "5. " as the reference does."""
+    return (t.replace('1. ', '').replace('. 2. ', '. ').replace('. 3. ', '. ')
+            .replace('. 4. ', '. ').replace('. 5. ', '. ')
+            .replace(' 2. ', '. ').replace(' 3. ', '. ')
+            .replace(' 4. ', '. ').replace(' 5. ', '. '))
+
+
+def _join_sents(t: str) -> str:
+    sents = t.strip().lower().split('. ')
+    tokens = [_clean_sent(s) for s in sents if _clean_sent(s) != '']
+    return ' . '.join(tokens) + ' .'
+
+
+def clean_report_iu_xray(report: str) -> str:
+    """run_report_generation_cxr.py:104-113 (verbatim semantics)."""
+    t = report
+    for _ in range(3):
+        t = t.replace('..', '.')
+    return _join_sents(_numbered(t))
+
+
+def clean_report_mimic_cxr(report: str) -> str:
+    """run_report_generation_cxr.py:257-270 (verbatim semantics)."""
+    t = report.replace('\n', ' ')
+    for _ in range(7):
+        t = t.replace('__', '_')
+    for _ in range(6):
+        t = t.replace('  ', ' ')
+    for _ in range(8):
+        t = t.replace('..', '.')
+    return _join_sents(_numbered(t).replace('--', ' -- '))

@@ -460,7 +460,7 @@ def build_retrieval_grid(n: int = 128, text_len: int = 80,
     ``config``) in ``dtype`` and a test set of ``n`` samples
     (:func:`example_retrieval_grid`; images and captions on ``device``).
     ``grid(images, captions, cap_ids, plain=False)`` is
-    :func:`mvlt_tpu_torch.tasks.retrieval.score_grid` in chunks of
+    :func:`mvlt_tpu_torch.tasks.retrieval.score_images` in chunks of
     ``batch_size``: ``{"similarities", "labels"}`` (n, n) numpy;
     ``grid.model`` is the model. ``device='cuda'`` without a CUDA device
     raises."""
@@ -475,8 +475,8 @@ def build_retrieval_grid(n: int = 128, text_len: int = 80,
         eos_token_id=cfg.eos_token_id)
 
     def grid(images, captions, cap_ids, plain: bool = False):
-        return retrieval.score_grid(model, images, captions, cap_ids,
-                                    batch_size, plain)
+        return retrieval.score_images(model, images, captions, cap_ids,
+                                      batch_size, plain)
 
     grid.model = model
     return grid, (images.to(device), captions.to(device), cap_ids)

@@ -3,7 +3,7 @@
 numpy only.
 
 The N x N score grid comes from
-:func:`mvlt_tpu_torch.tasks.retrieval.score_grid`: rows are images,
+:func:`mvlt_tpu_torch.tasks.retrieval.score_images`: rows are images,
 columns captions.
 """
 

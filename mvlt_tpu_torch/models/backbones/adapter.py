@@ -2,12 +2,15 @@
 ``mvlt_tpu/models/backbones/adapter.py:42-98``) for ``conv='swin'`` and
 ``conv in ('resnet101', 'resnet50')``: the backbone, a trailing exact GELU,
 and ``resnet_fc`` to the fusion width (always for ResNet, only when the
-width differs for Swin). Both backbones train with float32 master
+width differs for Swin). The two-view IU X-Ray input (B, 2, C, H, W)
+encodes each view by its own backbone call, view 0 then view 1, and
+concatenates the tokens into (B, 2N, hidden) (``adapter.py:84-98``); the
+Swin DropPath masks are drawn in that order, before the fusion layers'. Both backbones train with float32 master
 parameters and bf16 compute: dense weights are cast at use, so their f32
 grads come back through the cast; LayerNorm parameters and the Swin
 relative-position tables stay float32.
 
-A uint8 image is a raw (B, H, W, 3) frame of the device-normalize host
+A uint8 image is a raw (B, H, W, 3) (or (B, 2, H, W, 3)) frame of the device-normalize host
 path (``ImageFolderSource(normalize="device")``, ``U8CacheSource``):
 :func:`device_var_normalize` casts and normalizes it on the device first,
 as JAX's adapter does (``adapter.py:26-39, 92-93``)."""
@@ -63,20 +66,25 @@ class VisualAdapter(nn.Module):
 
     def forward(self, image: torch.Tensor, ops, train: bool = False,
                 masks=None) -> torch.Tensor:
-        """image: float (B, C, H, W) or uint8 (B, H, W, 3) -> (B, N,
-        hidden) in the compute dtype. ``train`` puts the ResNet's
-        BatchNorms on batch statistics; ``masks`` (a :class:`DropoutMasks`)
-        turns the Swin backbone's DropPath on."""
+        """image: float (B, C, H, W) or uint8 (B, H, W, 3), or their
+        two-view forms (B, 2, C, H, W) / (B, 2, H, W, 3) -> (B, N, hidden)
+        in the compute dtype (N twice a view's tokens for two views).
+        ``train`` puts the ResNet's BatchNorms on batch statistics;
+        ``masks`` (a :class:`DropoutMasks`) turns the Swin backbone's
+        DropPath on."""
         if image.dtype == torch.uint8:
             image = device_var_normalize(image)
-        if image.dim() != 4:
-            raise NotImplementedError(
-                "the two-view (B, 2, C, H, W) input is not ported yet: it "
-                "comes with the caption driver (ROADMAP.md queue A, 'Adapter "
-                "inputs')")
+        if image.dim() == 5:
+            return torch.cat([self._encode_one(image[:, v], ops, train, masks)
+                              for v in range(image.shape[1])], dim=1)
+        return self._encode_one(image, ops, train, masks)
+
+    def _encode_one(self, image, ops, train, masks):
         if self.nchw:
             tokens = self.backbone(image.to(self.dtype), train)
         else:
+            # a view of a two-view batch is strided; the patch embedding's
+            # reshape copies it into the rows the kernels take
             x = image.permute(0, 2, 3, 1).to(self.dtype)            # NHWC
             tokens = self.backbone(x, ops, masks)
         tokens = gelu_exact(tokens)

@@ -130,7 +130,9 @@ def make_caption_step(model, optimizer: torch.optim.Optimizer, *,
     the Swin DropPath first, then each fusion layer's. Parameters the loss
     does not reach (the fusion pooler) get zero gradients, so that AdamW
     decays them as optax does. ``plain=True`` runs the kernels' plain
-    versions."""
+    versions. ``image`` may be two-view (B, 2, 3, H, W) and uint8 ((B, H, W,
+    3) or (B, 2, H, W, 3)), normalized by the model. ``step.prefetch`` as
+    :func:`make_vqa_step`'s."""
     device = next(model.parameters()).device
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
@@ -148,6 +150,7 @@ def make_caption_step(model, optimizer: torch.optim.Optimizer, *,
 
     step.model, step.optimizer = model, optimizer
     step.masks = _masks(model)
+    step.prefetch = _prefetch_to(device)
     return step
 
 
@@ -162,7 +165,9 @@ def make_retrieval_step(model, optimizer: torch.optim.Optimizer, *,
     the Swin DropPath first, then each fusion layer's attention dropout.
     After a step the parameters' ``.grad`` hold that step's gradients (zeros
     for any the loss does not reach, so that AdamW decays them as optax
-    does). ``plain=True`` runs the kernels' plain versions."""
+    does). ``plain=True`` runs the kernels' plain versions. ``image`` as
+    :func:`make_caption_step`'s; ``step.prefetch`` as
+    :func:`make_vqa_step`'s."""
     device = next(model.parameters()).device
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
@@ -181,4 +186,5 @@ def make_retrieval_step(model, optimizer: torch.optim.Optimizer, *,
 
     step.model, step.optimizer = model, optimizer
     step.masks = _masks(model)
+    step.prefetch = _prefetch_to(device)
     return step

@@ -20,7 +20,7 @@ import torch
 from mvlt_tpu.config import MVLTConfig, SwinConfig
 from mvlt_tpu.models.backbones.swin import SwinTransformer as JaxSwin
 from mvlt_tpu.models.heads import VQAModel as JaxVQA
-from mvlt_tpu_torch.flagship import flagship_vqa_config
+from mvlt_tpu_torch.flagship import flagship_vqa_config, init_seeded_
 from mvlt_tpu_torch.models import heads
 from mvlt_tpu_torch.models.backbones import swin as port_swin
 from mvlt_tpu_torch.models.heads import VQAModel
@@ -207,10 +207,11 @@ def test_stage4_shift_is_dropped_when_map_equals_window():
 
 
 def test_adapter_refusals_name_their_roadmap_items():
-    """The adapter's two refusals cite the ROADMAP.md queue-A items by
-    name: ViT / the linear patch ('Other backbones') and two-view images,
-    float or uint8 ('Adapter inputs'; single-view uint8 frames are taken
-    since the pretrain driver)."""
+    """The adapter's refusal cites the ROADMAP.md queue-A item by name:
+    ViT / the linear patch ('Other backbones'). Two-view images, float or
+    uint8, were refused ('Adapter inputs') until the caption driver: each
+    view now goes through its own backbone call, and the tokens of view 0
+    come first."""
     from mvlt_tpu_torch.config import MVLTConfig as PortConfig
     from mvlt_tpu_torch.config import SwinConfig as PortSwin
     from mvlt_tpu_torch.models.backbones.adapter import VisualAdapter
@@ -225,8 +226,14 @@ def test_adapter_refusals_name_their_roadmap_items():
                     num_heads=(2, 4), window_size=4, drop_path_rate=0.0)
     adapter = VisualAdapter(dataclasses.replace(cfg, conv="swin", swin=swin),
                             dtype=torch.float32, device="cpu")
-    for image in (torch.zeros(2, 2, 3, 32, 32),
-                  torch.zeros(2, 2, 32, 32, 3, dtype=torch.uint8)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue A, 'Adapter inputs'"):
-            adapter(image, PLAIN_OPS)
+    init_seeded_(adapter)
+    gen = torch.Generator().manual_seed(0)
+    for image in (torch.randn(2, 2, 3, 32, 32, generator=gen),
+                  torch.randint(0, 256, (2, 2, 32, 32, 3), generator=gen,
+                                dtype=torch.uint8)):
+        with torch.no_grad():
+            tokens = adapter(image, PLAIN_OPS)
+            views = [adapter(image[:, v], PLAIN_OPS) for v in (0, 1)]
+        assert tokens.shape == (2, 32, 768)
+        torch.testing.assert_close(tokens, torch.cat(views, 1), rtol=0,
+                                   atol=0)

@@ -142,9 +142,10 @@ def test_cuda_swin_block_matches_plain(cuda_device):
 
 
 def test_port_imports_nothing_of_mvlt_tpu():
-    """Importing the port, its entry points (the VQA and pretrain drivers
-    among them), its train step, its host modules (tokenizer, datasets,
-    loader, transforms, metrics, tasks, checkpoints, logging, the backbone
+    """Importing the port, its entry points (the VQA, pretrain, report
+    generation and retrieval drivers among them), its train step, its host
+    modules (tokenizer, datasets, loader, transforms, the VQA, retrieval
+    and caption metrics, tasks, checkpoints, logging, the backbone
     bootstrap) and ``chip_smoke`` leaves no ``mvlt_tpu`` /
     ``mvlt_tpu.*`` module (and no JAX, flax, optax or orbax) in
     ``sys.modules``: the port keeps its own copies of host modules."""
@@ -159,12 +160,19 @@ def test_port_imports_nothing_of_mvlt_tpu():
         from mvlt_tpu_torch.text import tokenizer
         from mvlt_tpu_torch.data import datasets, loader, transforms
         from mvlt_tpu_torch.metrics import vqa, retrieval
+        from mvlt_tpu_torch.metrics import (bleu, cider, eval_cap, meteor,
+                                            porter, ptb, rouge)
         from mvlt_tpu_torch.tasks import common, vqa as vqa_task, pretrain
+        from mvlt_tpu_torch.tasks import caption, retrieval as ret_task
+        from mvlt_tpu_torch import run_report_generation, run_retrieval
         from mvlt_tpu_torch.utils import checkpoint, logging, convert
         from mvlt_tpu_torch.utils import bootstrap
         from mvlt_tpu_torch.models.backbones import adapter
         run_vqa.parse_args(["--synthetic"])
         run_pretrain.parse_args(["--synthetic"])
+        run_report_generation.parse_args(["--dataset", "synthetic"])
+        run_retrieval.parse_args(["--synthetic"])
+        meteor.corpus_meteor({0: ["a b"]}, {0: ["a c"]})
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("mvlt_tpu", "jax", "jaxlib", "flax",

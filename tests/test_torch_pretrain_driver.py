@@ -480,3 +480,18 @@ def test_run_pretrain_build_source_keeps_one_image_layout(corpus):
     assert mixed.sources[1].normalize == "host"
     for i in (0, N):
         assert mixed[i][0].dtype == np.float32 and mixed[i][0].shape[0] == 3
+
+
+def test_write_synthetic_pretrain_without_roco(tmp_path, corpus):
+    """``roco=False`` writes the same RGC pickles and uint8 cache as the
+    full corpus from the same seed, and no ROCO split."""
+    out = pds.write_synthetic_pretrain(str(tmp_path), N, IMG, seed=0,
+                                       roco=False)
+    assert set(out) == {"rgc_index", "u8_cache"}
+    assert not (tmp_path / "roco").exists()
+    for kind in ("pickle", "u8"):
+        a, b = _sources(pds, kind, out), _sources(pds, kind, corpus)
+        assert len(a) == len(b) == N
+        for i in range(N):
+            np.testing.assert_array_equal(a[i][0], b[i][0])
+            assert a[i][1:] == b[i][1:]

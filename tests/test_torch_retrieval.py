@@ -188,26 +188,25 @@ def grid_case(tiny):
 
 
 def test_score_grid_matches_jax_task_runner(tiny, grid_case):
-    """The port's ``score_grid`` on the images, caption ids and ``cap_id``s
+    """The port's ``score_images`` on the images, caption ids and ``cap_id``s
     that JAX's read out of the dataset, n = 5 in chunks of 2 (the last
     chunk ragged in the port, zero-padded in JAX): similarities within
     1e-4, labels (identity | equal ``cap_id``) and the R@k of both
     directions equal."""
     cfg, variables = tiny
     want, (images, captions, cap_ids) = grid_case
-    got = port_tasks.score_grid(port_model(cfg, variables),
-                                torch.from_numpy(images),
-                                torch.from_numpy(captions.astype(np.int64)),
-                                cap_ids, batch_size=2)
+    got = port_tasks.score_images(port_model(cfg, variables),
+                                  torch.from_numpy(images),
+                                  torch.from_numpy(captions.astype(np.int64)),
+                                  cap_ids, batch_size=2)
     assert got["similarities"].shape == (5, 5)
     assert got["similarities"].dtype == np.float32
     np.testing.assert_allclose(got["similarities"], want["similarities"],
                                atol=1e-4, rtol=0)
     np.testing.assert_array_equal(got["labels"], want["labels"])
     assert got["labels"][1, 3] == got["labels"][3, 1] == 1
-    assert port_tasks.eval_retrieval(
-        port_model(cfg, variables), images, captions.astype(np.int64),
-        cap_ids, batch_size=2) == jax_metrics.evaluate_retrieval(
+    assert port_metrics.evaluate_retrieval(
+        got["similarities"], got["labels"]) == jax_metrics.evaluate_retrieval(
             want["similarities"], want["labels"])
 
 
@@ -218,8 +217,8 @@ def test_score_grid_equals_per_pair_score(tiny, grid_case):
     _, (images, captions, cap_ids) = grid_case
     model = port_model(cfg, variables)
     caps = torch.from_numpy(captions.astype(np.int64))
-    grid = port_tasks.score_grid(model, images, caps, cap_ids,
-                                 batch_size=2)["similarities"]
+    grid = port_tasks.score_images(model, images, caps, cap_ids,
+                                   batch_size=2)["similarities"]
     image = torch.from_numpy(images)
     for i in range(5):
         row = model.score(image[i:i + 1].expand(5, -1, -1, -1), caps)
