@@ -3,11 +3,13 @@
 
 Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --norm``: phases 1-2's build and K3 / K5 at the
-step's shapes only; ``--caption`` / ``--retrieval`` / ``--vqa-driver`` /
-``--pretrain-driver`` / ``--caption-driver`` / ``--retrieval-driver``:
-phases 1-2 and phase 10 / 11 / 12 / 13 / 14 / 15 only). It imports nothing
-of JAX and nothing of the JAX package. Phases, each of which raises on
-failure:
+step's shapes only; ``--caption`` / ``--retrieval`` / ``--backbones`` /
+``--vqa-driver`` / ``--pretrain-driver`` / ``--caption-driver`` /
+``--retrieval-driver``: phases 1-2 and phase 10 / 11 / 12 / 13 / 14 / 15 /
+16 only; ``--loader-pace``: phases 1-2 and phases 13-16 with the drivers'
+loader-pace loops, which the default run leaves out; with a driver's flag,
+that phase alone with its loops). It imports nothing of JAX and nothing
+of the JAX package. Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the port's CUDA kernels from ``mvlt_tpu_torch/csrc`` with
@@ -124,7 +126,21 @@ failure:
     DropPath 0.3, attention dropout 0.1, hidden dropout 0.0) driven as
     phase 10 drives the caption step. ``python3 chip_smoke.py --retrieval``
     runs phases 1-2 and this phase only;
-12. vqa driver: the VQA task driver, ``python -m mvlt_tpu_torch.run_vqa``
+12. other backbones, each with kernels against plain at full width: the
+    VQA forward on ViT-B/16 @224 + BERT-base (b8, question 23: K2 at S =
+    1 + 196 + 1 + 23 = 221, the ViT on K1 / K3 and SDPA; logits to the
+    flagship forward's bar); the MLM+ITM pretrain step on ViT-B/16 (b32,
+    text 80: K2 / K4 at S = 278, fusion dropouts 0.1 in both mask modes,
+    the masks replayed into the plain run, AdamW; gradients and losses to
+    the Swin step's bars); the VQA finetune step on the linear patch (conv
+    3 -> 768 k16 s16, BN on batch statistics, ReLU; b32, S = 221; losses,
+    gradients and the BN running buffers against plain); and the VQA
+    forward on Swin-B @224 (b8: stages 1-3 on rows 2 / 3, stage 4 at C =
+    1024 on row 1's plain route). Each checks its launch counts and the
+    sequence length of every K2 / K4 launch, and is timed in turns with
+    its plain run. ``python3 chip_smoke.py --backbones`` runs phases 1-2
+    and this phase only;
+13. vqa driver: the VQA task driver, ``python -m mvlt_tpu_torch.run_vqa``
     (``run_vqa.main``), at its defaults (Swin-S @224 + BERT-base,
     ``for_vqa``: dropouts 0.1, DropPath 0.3, lr 4e-5, b64) on a synthetic
     SLAKE written as pickles (64 images, 224 answers, 320 / 100 / 100
@@ -139,9 +155,11 @@ failure:
     (76 steps at b64), the driver's train loop for the CLI default (loader
     processes) and threads (whole-epoch samples/s, the epoch start, the
     steady interval between steps) beside the bare step on a resident
-    batch, the loader alone, eval samples/s and peak memory. ``python3
-    chip_smoke.py --vqa-driver`` runs phases 1-2 and this phase only;
-13. pretrain driver: ``python -m mvlt_tpu_torch.run_pretrain``
+    batch, the loader alone, eval samples/s and peak memory (the train
+    split's epochs and the loader alone only with ``--loader-pace``).
+    ``python3 chip_smoke.py --vqa-driver`` runs phases 1-2 and this phase
+    only;
+14. pretrain driver: ``python -m mvlt_tpu_torch.run_pretrain``
     (``run_pretrain.main``) at its defaults (Swin-S @224 + BERT-base,
     ``for_pretrain`` with ITM: dropouts 0.1, DropPath 0.3, text 80, lr 4e-5,
     b32, the per-batch coin flip) on the RGC f32 pickles of a synthetic
@@ -159,9 +177,10 @@ failure:
     batch in each mode, and one epoch of 1,536 samples through
     ``train_pretrain`` for the uint8 cache and the RGC f32 pickles, each
     with the CLI default (processes) and threads, the loader alone and the
-    peak memory. ``python3 chip_smoke.py --pretrain-driver`` runs phases 1-2
-    and this phase only;
-14. caption driver: ``python -m mvlt_tpu_torch.run_report_generation
+    peak memory (the epochs of 1,536 samples and the loader alone only with
+    ``--loader-pace``). ``python3 chip_smoke.py --pretrain-driver`` runs
+    phases 1-2 and this phase only;
+15. caption driver: ``python -m mvlt_tpu_torch.run_report_generation
     --dataset iu_xray`` (``run_report_generation.main``) at its IU X-Ray
     settings (Swin-S @224 + BERT-base, ``for_caption(max_length=80)``,
     unilm, b32, beam 5; two views a study, S = 180) with a partial
@@ -178,10 +197,11 @@ failure:
     restored into a fresh runner; then eval reports/s, a generate call,
     and one epoch of 1,536 studies (48 steps) through ``train_caption``
     beside the bare step for uint8 with the export (loader processes) and
-    f32 ImageNet crops without (processes, threads), and the peak memory.
-    ``python3 chip_smoke.py --caption-driver`` runs phases 1-2 and this
-    phase only;
-15. retrieval driver: ``python -m mvlt_tpu_torch.run_retrieval
+    f32 ImageNet crops without (processes, threads), and the peak memory
+    (the epochs of 1,536 studies only with ``--loader-pace``; without it
+    the bare steps run on the data tree's batches). ``python3 chip_smoke.py
+    --caption-driver`` runs phases 1-2 and this phase only;
+16. retrieval driver: ``python -m mvlt_tpu_torch.run_retrieval
     --iu_xray_root`` (``run_retrieval.main``; swap 'image', 32 pairs = 64
     rows of two views, S = 180, uint8 frames) on the same tree, one epoch
     of 3 steps and ``eval_retrieval`` on 32 studies with ``eval.json``, in
@@ -191,10 +211,10 @@ failure:
     the plain route, two grids bitwise equal; then pairs/s and one epoch
     of 1,536 studies (48 steps) through ``train_retrieval`` beside the bare
     step for uint8 (processes, threads); f32 host-normalized batches get
-    the features check and the bare step.
-    ``python3 chip_smoke.py --retrieval-driver`` runs phases 1-2 and this
-    phase only;
-16. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+    the features check and the bare step (the epochs only with
+    ``--loader-pace``). ``python3 chip_smoke.py --retrieval-driver`` runs
+    phases 1-2 and this phase only;
+17. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
 """
 
@@ -216,6 +236,8 @@ import torch
 import torch.nn.functional as F
 
 REPO = pathlib.Path(__file__).resolve().parent
+# ``--loader-pace``: the drivers' loader-pace loops (set in __main__)
+LOADER_PACE = False
 
 # bars, stated as a multiple of the largest |value| of the plain output:
 # one kernel vs its plain version differ only in summation order, so by at
@@ -537,6 +559,27 @@ RETRIEVAL_DRIVER_PAIRS, RETRIEVAL_DRIVER_WORKERS = 32, 2
 EXPECTED_RETRIEVAL_DRIVER_STEP = two_view(EXPECTED_RETRIEVAL_STEP)
 RETRIEVAL_DRIVER_TIMEOUT = 360
 RETRIEVAL_DRIVER_TAG = "retrieval driver launches: "
+# the other backbones (JAX's adapter.py:49-69) at full width, each a phase
+# of its own with kernels against plain: ViT-B/16 @224 and the linear patch
+# give 196 image tokens, so the fusion encoder runs K2 / K4 at S = 1 + 196 +
+# 1 + 23 = 221 (VQA, question 23) and 1 + 196 + 1 + 80 = 278 (pretrain,
+# text 80), the lengths of the ``*_long_n`` rows. The ViT runs K1 / K3
+# through Dense / LayerNorm and its own attention on SDPA, as JAX computes
+# it in XLA: no Swin counterpart runs, the fusion's rows do.
+VIT_VQA_N, VIT_PRETRAIN_N = 221, 278
+_NO_SWIN = {k: (0, v[1]) for k, v in EXPECTED.items()}
+EXPECTED_VIT_FORWARD = {**_NO_SWIN,
+                        "fused_attn_ln": EXPECTED["fused_attn_ln"],
+                        "fused_mlp_ln": EXPECTED["fused_mlp_ln"]}
+EXPECTED_VIT_PRETRAIN = {**_NO_SWIN, **EXPECTED_PRETRAIN}
+EXPECTED_LINEAR_TRAIN = {**_NO_SWIN, **EXPECTED_TRAIN}
+# Swin-B @224 serving (b8): stages 1-3 (C = 128 / 256 / 512) on rows 2 / 3,
+# stage 4 (C = 1024: its MLP half's 8 C^2 bf16 weights exceed 12 MiB) on
+# JAX's plain route, row 1 with LN / Mlp around it
+# (mvlt_tpu/models/backbones/swin.py:307-311, 338-366): no row 6
+EXPECTED_SWIN_BASE_FORWARD = {
+    **EXPECTED, "fused_mlp_preln": (0, "mvlt_tpu/ops/pallas_attn.py:3359")}
+
 # the hand-written kernels and the TPU code whose pieces each carries
 KERNEL_SOURCES = {
     "gemm": ("mvlt_tpu_torch/csrc/gemm.cu", "mvlt_tpu/ops/pallas_attn.py:571"),
@@ -562,7 +605,9 @@ KERNEL_SOURCES = {
     # K2's head-major layout (q, k, v through strides)
     "biased_attention_heads": ("mvlt_tpu_torch/csrc/attention.cu",
                                "mvlt_tpu/ops/pallas_attn.py:40"),
-    # K2 and K4 at S = 221 / 278, which no path runs yet (ROADMAP A9)
+    # K2 and K4 at S = 221 / 278 (ViT-B/16 or the linear patch with BERT
+    # text); launched as K2 / K4 on the vit / linear paths, whose launches
+    # at N >= 221 the rows count
     "biased_attention_long_n": ("mvlt_tpu_torch/csrc/attention.cu",
                                 "mvlt_tpu/ops/pallas_attn.py:512"),
     "biased_attention_bwd_long_n": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
@@ -2823,6 +2868,50 @@ def swin_gemm_checks(chk: Checker, dev) -> None:
               flush=True)
 
 
+@contextlib.contextmanager
+def attention_lengths():
+    """Records the sequence length N of every K2 / K4 call of the
+    counterparts inside (their ``KERNEL_OPS`` entries wrapped): yields
+    ``{"biased_attention": {N: calls}, "biased_attention_bwd": {N:
+    calls}}``."""
+    from mvlt_tpu_torch.ops import blocks
+    seen = {"biased_attention": {}, "biased_attention_bwd": {}}
+    ops = blocks.KERNEL_OPS
+    saved = ops.attention, ops.attention_bwd
+
+    def record(fn, name, at):
+        def call(*a, **kw):
+            seen[name][a[at]] = seen[name].get(a[at], 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    ops.attention = record(saved[0], "biased_attention", 2)
+    ops.attention_bwd = record(saved[1], "biased_attention_bwd", 3)
+    try:
+        yield seen
+    finally:
+        ops.attention, ops.attention_bwd = saved
+
+
+def long_n_counts(counts: dict, seen: dict, n: int, what: str) -> None:
+    """Adds to ``counts`` the K2 / K4 launches at N >= 221 (the
+    ``*_long_n`` rows) from ``seen`` (:func:`attention_lengths`), after
+    checking that every K2 (and K4) launch of the path ran at N = ``n``."""
+    print(f"{what}: K2 / K4 sequence lengths {json.dumps(seen)}",
+          flush=True)
+    for name in seen:
+        if seen[name] and set(seen[name]) != {n}:
+            raise AssertionError(f"{what}: {name} ran at N = "
+                                 f"{sorted(seen[name])}, expected {n}")
+        if seen[name].get(n, 0) != counts[name]:
+            raise AssertionError(f"{what}: {name} launched {counts[name]} "
+                                 f"times, {seen[name].get(n, 0)} at N = {n}")
+        counts[f"{name}_long_n"] = sum(c for k, c in seen[name].items()
+                                       if k >= VIT_VQA_N)
+    if not counts["biased_attention_long_n"]:
+        raise AssertionError(f"{what}: K2 never launched at N = {n}")
+
+
 def launch_counts() -> dict:
     from mvlt_tpu_torch.ops import blocks, kernels
     counts = {k.__name__: k.launches for k in kernels.KERNELS}
@@ -2945,6 +3034,70 @@ def retrieval_main() -> int:
     return 0
 
 
+def backbones_main() -> int:
+    """``python3 chip_smoke.py --backbones``: phases 1-2 and the other
+    backbones' phases only (ViT-B/16 and the linear patch at S = 221 / 278,
+    Swin-B's serving route), without the kernels line."""
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    with switches(False):
+        other_backbone_phases(dev, card)
+    return 0
+
+
+def loader_pace_main() -> int:
+    """``python3 chip_smoke.py --loader-pace``: phases 1-2 and the four
+    driver phases, each in its own process with its loader-pace loops (the
+    drivers' train loops timed over long epochs per loader setting, the
+    loader alone), without the kernels line."""
+    started = start()
+    if started is None:
+        return 1
+    for flag, what, limit, tag in (
+            ("--vqa-driver", "vqa driver", VQA_DRIVER_TIMEOUT,
+             VQA_DRIVER_TAG),
+            ("--pretrain-driver", "pretrain driver", PRETRAIN_DRIVER_TIMEOUT,
+             PRETRAIN_DRIVER_TAG),
+            ("--caption-driver", "caption driver", CAPTION_DRIVER_TIMEOUT,
+             CAPTION_DRIVER_TAG),
+            ("--retrieval-driver", "retrieval driver",
+             RETRIEVAL_DRIVER_TIMEOUT, RETRIEVAL_DRIVER_TAG)):
+        driver_subprocess(flag, what, limit, tag)
+    return 0
+
+
+def other_backbone_phases(dev, card: str) -> dict:
+    """The four phases of the other backbones, each with kernels against
+    plain, each printing its seconds. Returns their launch counts by
+    path."""
+    from mvlt_tpu_torch import flagship
+    phases = {
+        "vit_vqa_forward": lambda: forward_phase(
+            dev, card, config=flagship.flagship_vit_vqa_config(),
+            label="ViT-B/16 VQA", expected=EXPECTED_VIT_FORWARD,
+            seq_n=VIT_VQA_N),
+        "vit_pretrain_train_step": lambda: pretrain_phase(
+            dev, card, config=flagship.flagship_vit_pretrain_config(),
+            label="ViT-B/16 pretrain step", expected=EXPECTED_VIT_PRETRAIN,
+            bars=vit_bars, seq_n=VIT_PRETRAIN_N),
+        "linear_vqa_train_step": lambda: train_phase(
+            dev, card, config=flagship.flagship_linear_vqa_train_config(),
+            label="linear-patch VQA train step",
+            expected=EXPECTED_LINEAR_TRAIN, bars=linear_bars,
+            seq_n=VIT_VQA_N, bn_bar=LOSS_BAR),
+        "swin_base_vqa_forward": lambda: forward_phase(
+            dev, card, config=flagship.flagship_swin_base_vqa_config(),
+            label="Swin-B VQA", expected=EXPECTED_SWIN_BASE_FORWARD)}
+    out = {}
+    for path, phase in phases.items():
+        t0 = time.perf_counter()
+        out[path] = phase()
+        print(f"{path} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     started = start()
     if started is None:
@@ -2989,6 +3142,7 @@ def main() -> int:
         by_path["caption_step"] = caption_step_phase(dev, card)
         by_path["retrieval_grid"] = retrieval_grid_phase(dev, card)
         by_path["retrieval_step"] = retrieval_step_phase(dev, card)
+        by_path.update(other_backbone_phases(dev, card))
         by_path["vqa_driver"] = vqa_driver_subprocess()
         by_path["pretrain_driver"] = pretrain_driver_subprocess(
             by_path["swin_pretrain_train_step"])
@@ -3009,7 +3163,9 @@ def main() -> int:
                     **EXPECTED_SWITCHES, **EXPECTED_PALLAS,
                     **EXPECTED_SWIN_PALLAS, **EXPECTED_CAPTION_GENERATE,
                     **EXPECTED_CAPTION_STEP, **EXPECTED_RETRIEVAL_GRID,
-                    **EXPECTED_RETRIEVAL_STEP}
+                    **EXPECTED_RETRIEVAL_STEP, **EXPECTED_VIT_FORWARD,
+                    **EXPECTED_VIT_PRETRAIN, **EXPECTED_LINEAR_TRAIN,
+                    **EXPECTED_SWIN_BASE_FORWARD}
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces})
@@ -3046,13 +3202,47 @@ def swin_bars(name: str):
     return "fusion / heads", "max", GRAD_BAR
 
 
+def vit_bars(name: str):
+    """(group, norm, bar) of a parameter of the ViT-B/16 models: the ViT
+    runs the same PyTorch layers (F.linear, F.layer_norm, SDPA) on both
+    routes, so its gradients differ only by what the fusion encoder's
+    kernels send back; held to the encoder's max-abs bar."""
+    if name.startswith("conv.backbone."):
+        return "ViT backbone", "max", GRAD_BAR
+    return "fusion / heads", "max", GRAD_BAR
+
+
+def linear_bars(name: str):
+    """(group, norm, bar) of a parameter of the linear-patch models: the
+    conv and its BatchNorm in relative Frobenius norm, as the ResNet's (a
+    BN gradient is a sum over B x 14 x 14 positions); the rest max-abs."""
+    if name.startswith("conv.backbone."):
+        return "linear patch (conv + BN)", "frob", BACKBONE_GRAD_BAR
+    return "fusion / heads", "max", GRAD_BAR
+
+
 def compare_grads(model_k, model_p, what: str, bars=resnet_bars) -> None:
     """Every parameter's gradient, kernels vs plain, held to the bar that
     ``bars(name)`` gives its group (:func:`compare_grad_dicts`). A parameter
     the loss does not reach has no gradient on either side."""
-    compare_grad_dicts({n: p.grad for n, p in model_k.named_parameters()},
-                       {n: p.grad for n, p in model_p.named_parameters()},
-                       what, bars)
+    grads_k = {n: p.grad for n, p in model_k.named_parameters()}
+    grads_p = {n: p.grad for n, p in model_p.named_parameters()}
+    if bars is linear_bars:
+        # the conv bias before a BatchNorm on batch statistics has a
+        # gradient of 0 in exact arithmetic: each side's is the rounding of
+        # the bf16 BN backward summed over B x 14 x 14 positions (0.013 /
+        # 0.009 x max|conv weight grad|, kernels / plain, on an NVIDIA H100
+        # 80GB HBM3 at 700 W), held to GRAD_BAR x the largest conv weight
+        # gradient
+        name, top = "conv.backbone.proj.bias", grads_p[
+            "conv.backbone.proj.weight"].abs().max().item()
+        noise = [g.pop(name).abs().max().item() for g in (grads_k, grads_p)]
+        print(f"{what}: {name} (0 in exact arithmetic) max |grad| kernels "
+              f"{noise[0]:.3g}, plain {noise[1]:.3g}; {GRAD_BAR} x max|conv "
+              f"weight grad| {GRAD_BAR * top:.3g}", flush=True)
+        if not max(noise) <= GRAD_BAR * top:
+            raise AssertionError(f"{what}: {name} gradient {noise}")
+    compare_grad_dicts(grads_k, grads_p, what, bars)
 
 
 def compare_grad_dicts(grads_k: dict, grads_p: dict, what: str,
@@ -3092,28 +3282,69 @@ def compare_grad_dicts(grads_k: dict, grads_p: dict, what: str,
                              f"{failures[:5]}")
 
 
-def forward_phase(dev, card: str, attn_impl: str = "auto") -> dict:
-    """The flagship b8 VQA forward with the backbone on ``attn_impl``:
-    launch counts, logits vs plain, times (in turns with the plain versions,
-    or, on 'pallas', with the forward on 'auto'). Returns the launch counts
-    of one forward."""
+def bn_buffers_check(model_k, model_p, what: str, bar: float) -> None:
+    """Each BatchNorm's running buffers, kernels vs plain: the mean's max
+    abs err over the square root of the plain running variance's max (the
+    spread of the BN's input), the variance's over its own max; the worst
+    held to ``bar``. Models without a BatchNorm pass."""
+    from mvlt_tpu_torch.models.backbones.resnet import BatchNorm
+    plain = dict(model_p.named_modules())
+    worst = (-1.0, None)
+    for name, m in model_k.named_modules():
+        if isinstance(m, BatchNorm):
+            p = plain[name]
+            var = p.running_var.abs().max().item()
+            errs = ((m.running_mean - p.running_mean).abs().max().item()
+                    / max(var, 1e-12) ** 0.5,
+                    (m.running_var - p.running_var).abs().max().item()
+                    / max(var, 1e-12))
+            worst = max(worst, (max(errs), name), key=lambda w: w[0])
+    if worst[1] is None:
+        return
+    print(f"{what}: BatchNorm running buffers, kernels vs plain: worst "
+          f"{worst[0]:.4g} ({worst[1]}; the mean's max abs err over the "
+          f"running std, the variance's over its max), bar {bar}",
+          flush=True)
+    if not worst[0] <= bar:
+        raise AssertionError(f"{what}: BatchNorm {worst[1]}'s running "
+                             f"buffers differ from plain by {worst[0]}")
+
+
+def forward_phase(dev, card: str, attn_impl: str = "auto", config=None,
+                  label: str = "flagship", expected: dict = None,
+                  seq_n: int = None) -> dict:
+    """The flagship b8 VQA forward (or the VQA forward of ``config``,
+    ``label`` in the lines, held to ``expected`` launch counts) with the
+    backbone on ``attn_impl``: launch counts, logits vs plain, times (in
+    turns with the plain versions, or, on 'pallas', with the forward on
+    'auto'). With ``seq_n`` every K2 launch must run at N = ``seq_n``, and
+    the counts gain the ``*_long_n`` rows' launches. Returns the launch
+    counts of one forward."""
     from mvlt_tpu_torch.flagship import build_vqa_forward
     from mvlt_tpu_torch.ops import kernels
     pallas = attn_impl == "pallas"
+    expected = expected or (EXPECTED_PALLAS if pallas else EXPECTED)
     gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with backbone_route(attn_impl):
-        forward, (image, question) = build_vqa_forward(batch=8, device=dev)
-    print(f"flagship model (attn_impl={attn_impl!r}) built in "
-          f"{time.perf_counter() - t0:.1f} s; padded question tokens "
-          f"{(question == 0).sum().item()}", flush=True)
+        forward, (image, question) = build_vqa_forward(batch=8, device=dev,
+                                                       config=config)
+    print(f"{label} model (attn_impl={attn_impl!r}) built in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{sum(p.numel() for p in forward.model.parameters())} parameters; "
+          f"padded question tokens {(question == 0).sum().item()}",
+          flush=True)
     reset_counts()
-    logits = forward(image, question)
-    torch.cuda.synchronize()
+    with attention_lengths() as seen:
+        logits = forward(image, question)
+        torch.cuda.synchronize()
     counts = launch_counts()
-    print(f"launches in one forward (attn_impl={attn_impl!r}): "
+    print(f"launches in one {label} forward (attn_impl={attn_impl!r}): "
           f"{json.dumps(counts)}", flush=True)
-    for name, (want, _) in (EXPECTED_PALLAS if pallas else EXPECTED).items():
+    if seq_n is not None:
+        long_n_counts(counts, seen, seq_n, f"one {label} forward")
+    for name, (want, _) in expected.items():
         if counts[name] != want:
             raise AssertionError(f"{name} ran {counts[name]} times in one "
                                  f"forward, expected {want}")
@@ -3128,7 +3359,7 @@ def forward_phase(dev, card: str, attn_impl: str = "auto") -> dict:
     err = (logits.float() - plain.float()).abs().max().item()
     scale = plain.float().abs().max().item()
     agree = (logits.float().argmax(-1) == plain.float().argmax(-1)).sum().item()
-    print(f"forward logits vs plain: max_abs_err {err:.4g}, max|plain| "
+    print(f"{label} forward logits vs plain: max_abs_err {err:.4g}, max|plain| "
           f"{scale:.4g}, bar {LOGITS_BAR} x max|plain|; argmax agrees on "
           f"{agree}/8", flush=True)
     if not err <= LOGITS_BAR * scale:
@@ -3148,36 +3379,57 @@ def forward_phase(dev, card: str, attn_impl: str = "auto") -> dict:
     for which in turns:
         times[which].append(cuda_ms(calls[which], iters=10, warmup=2))
     ms = {t: sum(v) / 2 for t, v in times.items()}
-    print(f"flagship b8 forward on {card}: " + ", ".join(
+    print(f"{label} b8 forward on {card}: " + ", ".join(
         f"{t} {v:.3f} ms ({8e3 / v:.1f} samples/s)" for t, v in ms.items())
         + f"; runs {json.dumps(times)}", flush=True)
     del forward, calls
     return counts
 
 
-def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
-    """The VQA finetune train step (ResNet-101 + BERT-base, b32) on the
-    kernels and on the plain versions from one seed: launch counts of one
-    step, step-1 gradients and the losses of TRAIN_STEPS steps against the
-    plain run, then step times in turns. Returns the launch counts of one
-    step."""
+def train_phase(dev, card: str, timed_steps: int = 8, config=None,
+                label: str = "VQA train step", expected: dict = None,
+                bars=resnet_bars, seq_n: int = None,
+                bn_bar: float = None) -> dict:
+    """The VQA finetune train step (ResNet-101 + BERT-base, b32; or that of
+    ``config``, ``label`` in the lines, held to ``expected`` launch counts
+    and its gradients to ``bars``) on the kernels and on the plain versions
+    from one seed: launch counts of one step, step-1 gradients, the losses
+    of TRAIN_STEPS steps and the BatchNorm running buffers after step 1
+    (which both routes computed from the same weights; with ``bn_bar``
+    also after the TRAIN_STEPS, within it) against the plain run
+    (:func:`bn_buffers_check`), then step times in turns. After step 1
+    each route's AdamW moves its weights by its own gradients, and a
+    ResNet-101's 104 BatchNorms carry that apart (layer 4's by 0.038 of
+    their input's spread after 3 steps on an NVIDIA H100 80GB HBM3 at 700
+    W): only the linear
+    patch's one BN, on the conv of the images, is held after them. With
+    ``seq_n`` every
+    K2 / K4 launch must run at N = ``seq_n``. Returns the launch counts of
+    one step."""
     from mvlt_tpu_torch.flagship import build_vqa_train_step
     from mvlt_tpu_torch.ops import kernels
     B = TRAIN_BATCH
+    expected = expected or EXPECTED_TRAIN
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    step_k, batch = build_vqa_train_step(batch=B, device=dev)
-    step_p, batch_p = build_vqa_train_step(batch=B, device=dev, plain=True)
+    step_k, batch = build_vqa_train_step(batch=B, device=dev, config=config)
+    step_p, batch_p = build_vqa_train_step(batch=B, device=dev, plain=True,
+                                           config=config)
     n_params = sum(p.numel() for p in step_k.model.parameters())
-    print(f"train step built twice in {time.perf_counter() - t0:.1f} s: "
+    print(f"{label} built twice in {time.perf_counter() - t0:.1f} s: "
           f"{n_params} parameters, image {tuple(batch['image'].shape)}, "
           f"question {tuple(batch['question'].shape)}", flush=True)
 
     reset_counts()
-    out_k = step_k(batch)
-    torch.cuda.synchronize()
+    with attention_lengths() as seen:
+        out_k = step_k(batch)
+        torch.cuda.synchronize()
     counts = launch_counts()
-    print(f"launches in one train step: {json.dumps(counts)}", flush=True)
-    for name, (want, _) in EXPECTED_TRAIN.items():
+    print(f"launches in one {label}: {json.dumps(counts)}", flush=True)
+    if seq_n is not None:
+        long_n_counts(counts, seen, seq_n, f"one {label}")
+    for name, (want, _) in expected.items():
         if counts[name] != want:
             raise AssertionError(f"{name} ran {counts[name]} times in one "
                                  f"train step, expected {want}")
@@ -3189,7 +3441,11 @@ def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
         raise AssertionError("K1's split-K never ran in the train step")
     out_p = step_p(batch_p)
     torch.cuda.synchronize()
-    compare_grads(step_k.model, step_p.model, "step-1 gradients")
+    compare_grads(step_k.model, step_p.model, f"{label} step-1 gradients",
+                  bars)
+    # step 1's BatchNorms saw the same weights and images on both routes
+    bn_buffers_check(step_k.model, step_p.model, f"{label}, after step 1",
+                     1e-4)
 
     losses = {"kernels": [out_k["loss"].item()],
               "plain": [out_p["loss"].item()]}
@@ -3197,13 +3453,15 @@ def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
     for _ in range(TRAIN_STEPS - 1):
         losses["kernels"].append(step_k(batch)["loss"].item())
         losses["plain"].append(step_p(batch_p)["loss"].item())
-    print(f"losses of {TRAIN_STEPS} steps: {json.dumps(losses)}; step-1 "
-          f"accuracy {acc[0]:.4f}", flush=True)
+    print(f"{label} losses of {TRAIN_STEPS} steps: {json.dumps(losses)}; "
+          f"step-1 accuracy {acc[0]:.4f}", flush=True)
     for i, (lk, lp) in enumerate(zip(losses["kernels"], losses["plain"])):
         if not (abs(lk - lp) <= LOSS_BAR * abs(lp) and lk == lk):
             raise AssertionError(f"step {i + 1} loss {lk} vs plain {lp} "
                                  f"beyond {LOSS_BAR} relative")
-
+    if bn_bar is not None:
+        bn_buffers_check(step_k.model, step_p.model,
+                         f"{label}, after {TRAIN_STEPS} steps", bn_bar)
     times, peak, resident = {"kernels": [], "plain": []}, None, None
     for which in ("plain", "kernels", "kernels", "plain"):
         step, b = (step_k, batch) if which == "kernels" else (step_p, batch_p)
@@ -3222,7 +3480,7 @@ def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
             peak = torch.cuda.max_memory_allocated()
     ms_k = sum(times["kernels"]) / 2
     ms_p = sum(times["plain"]) / 2
-    print(f"VQA train step b{B} on {card}: kernels {ms_k:.3f} ms/step "
+    print(f"{label} b{B} on {card}: kernels {ms_k:.3f} ms/step "
           f"({B * 1e3 / ms_k:.1f} samples/s), plain {ms_p:.3f} ms/step "
           f"({B * 1e3 / ms_p:.1f} samples/s); runs {json.dumps(times)}; "
           f"peak memory in a kernel step {peak / 2 ** 30:.3f} GiB "
@@ -3233,7 +3491,9 @@ def train_phase(dev, card: str, timed_steps: int = 8) -> dict:
 
 def pretrain_phase(dev, card: str, timed_steps: int = 6,
                    swin: bool = False, with_switches: bool = False,
-                   attn_impl: str = "auto") -> dict:
+                   attn_impl: str = "auto", config=None, label: str = None,
+                   expected: dict = None, bars=None,
+                   seq_n: int = None) -> dict:
     """The MLM+ITM pretrain train step (ResNet-101, or with ``swin`` the
     step of record on Swin-S with DropPath 0.3, + BERT-base, S = 131, b32,
     dropout 0.1) on the kernels and on the plain versions from one seed;
@@ -3246,20 +3506,27 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     the switches off and on (off, on, on, off), each with its peak memory.
     With ``attn_impl='pallas'`` (Swin-S) the backbone is on that route in
     both runs, and the turns are the kernel step on 'auto' and on 'pallas'
-    (auto, pallas, pallas, auto), each with its peak memory. Returns the
-    launch counts of one step."""
+    (auto, pallas, pallas, auto), each with its peak memory. ``config``
+    (with ``label``, ``expected`` launch counts and gradient ``bars``)
+    builds the step of another model; with ``seq_n`` every K2 / K4 launch
+    must run at N = ``seq_n``. Returns the launch counts of one step."""
+    import functools
     from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.models.backbones.adapter import image_tokens
     from mvlt_tpu_torch.ops import kernels
     from mvlt_tpu_torch.ops.layers import DropoutMasks
     from mvlt_tpu_torch.train.steps import seq2seq_coin_flip
     B = TRAIN_BATCH
-    build = (flagship.build_swin_pretrain_train_step if swin
-             else flagship.build_pretrain_train_step)
+    build = functools.partial(flagship.build_swin_pretrain_train_step if swin
+                              else flagship.build_pretrain_train_step,
+                              config=config)
     pallas = attn_impl == "pallas"
-    expected = (EXPECTED_SWITCHES if with_switches
-                else EXPECTED_SWIN_PALLAS if pallas
-                else EXPECTED_SWIN_PRETRAIN if swin else EXPECTED_PRETRAIN)
-    label = "Swin-S pretrain step" if swin else "pretrain step"
+    expected = expected or (EXPECTED_SWITCHES if with_switches
+                            else EXPECTED_SWIN_PALLAS if pallas
+                            else EXPECTED_SWIN_PRETRAIN if swin
+                            else EXPECTED_PRETRAIN)
+    bars = bars or (swin_bars if swin else resnet_bars)
+    label = label or ("Swin-S pretrain step" if swin else "pretrain step")
     if with_switches:
         label += " with MVLT_KERNEL_DROPOUT=1 MVLT_STOREP=1"
     if pallas:
@@ -3273,11 +3540,15 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
                                 plain=True)
     n_params = sum(p.numel() for p in step_k.model.parameters())
     labels = (batch["caption_label"] != -100).sum().item()
+    S = 2 + image_tokens(step_k.model.config) + PRETRAIN_TEXT
+    f = step_k.model.config.fusion
+    amask = B * f.num_attention_heads * S * S * 2
     print(f"{label} built twice in {time.perf_counter() - t0:.1f} s: "
           f"{n_params} parameters, image {tuple(batch['image'].shape)}, "
-          f"caption {tuple(batch['caption_masked'].shape)}, {labels} MLM "
-          f"labels, padded caption tokens "
-          f"{(batch['caption_masked'] == 0).sum().item()}", flush=True)
+          f"caption {tuple(batch['caption_masked'].shape)}, S = {S}, "
+          f"{labels} MLM labels, padded caption tokens "
+          f"{(batch['caption_masked'] == 0).sum().item()}; an attention "
+          f"dropout mask {amask / 1e6:.1f} MB a layer", flush=True)
     gen = torch.Generator(device=dev).manual_seed(1)
 
     def recording():
@@ -3300,19 +3571,22 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
             compare_grads(step_k.model, step_p.model,
                           f"{label} initial gradients "
                           f"({'seq2seq' if seq2seq else 'bidirectional'})",
-                          swin_bars if swin else resnet_bars)
+                          bars)
             del masks
 
         for i, seq2seq in enumerate(PRETRAIN_MODES):
             step_k.masks = recording()
             if i == 0:
                 reset_counts()
-            out_k = step_k(batch, seq2seq)
-            torch.cuda.synchronize()
+            with attention_lengths() as seen:
+                out_k = step_k(batch, seq2seq)
+                torch.cuda.synchronize()
             if i == 0:
                 counts = launch_counts()
                 print(f"launches in one {label}: {json.dumps(counts)}",
                       flush=True)
+                if seq_n is not None:
+                    long_n_counts(counts, seen, seq_n, f"one {label}")
                 for name, (want, _) in expected.items():
                     if counts[name] != want:
                         raise AssertionError(
@@ -3374,7 +3648,7 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     if with_switches or pallas:
         a, b = turns[:2]
         what = "switches" if with_switches else "attn_impl"
-        print(f"MLM+ITM Swin-S pretrain step b{B} (S = 131) on {card}, "
+        print(f"MLM+ITM Swin-S pretrain step b{B} (S = {S}) on {card}, "
               f"kernels: {what} {a} {ms[a]:.3f} ms/step "
               f"({B * 1e3 / ms[a]:.1f} samples/s), {b} {ms[b]:.3f} "
               f"ms/step ({B * 1e3 / ms[b]:.1f} samples/s); runs "
@@ -3382,7 +3656,7 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
               f"{gib[b]}", flush=True)
     else:
         ms_k, ms_p = ms["kernels"], ms["plain"]
-        print(f"MLM+ITM {label} b{B} (S = 131) on {card}: kernels "
+        print(f"MLM+ITM {label} b{B} (S = {S}) on {card}: kernels "
               f"{ms_k:.3f} ms/step ({B * 1e3 / ms_k:.1f} samples/s), plain "
               f"{ms_p:.3f} ms/step ({B * 1e3 / ms_p:.1f} samples/s); runs "
               f"{json.dumps(times)}; peak memory in a kernel step "
@@ -4064,11 +4338,12 @@ def vqa_driver_phase(dev, card: str) -> dict:
     gradients against the plain run, eval logits against the plain
     versions, ``results.json``'s keys; a save and a restore into a fresh
     runner (state and eval predictions bitwise equal, one more step bitwise
-    equal to the same step without the restore). Then times, on a train
-    split of SLAKE's length, one epoch of the driver's train loop for each
-    of ``VQA_DRIVER_TIMED_WORKERS`` between two runs of the bare step on a
-    resident batch (samples/s, the epoch start, the steady interval between
-    steps), the loader alone, and eval, with the peak memory. Returns the
+    equal to the same step without the restore). Then times the bare step
+    on a resident batch and eval, with the peak memory; with
+    ``--loader-pace`` also, on a train split of SLAKE's length, one epoch
+    of the driver's train loop for each of ``VQA_DRIVER_TIMED_WORKERS``
+    between two runs of the bare step (samples/s, the epoch start, the
+    steady interval between steps) and the loader alone. Returns the
     launch counts of the kernel run's whole ``run_vqa.main`` call."""
     import shutil
 
@@ -4089,8 +4364,9 @@ def vqa_driver_phase(dev, card: str) -> dict:
     write_synthetic_vqa(str(root / "data"), "SLAKE", **bank,
                         splits={k: d[k] for k in ("train", "validate",
                                                   "test")})
-    write_synthetic_vqa(str(root / "timed"), "SLAKE", **bank,
-                        splits={"train": SLAKE_SPLITS["train"]})
+    if LOADER_PACE:
+        write_synthetic_vqa(str(root / "timed"), "SLAKE", **bank,
+                            splits={"train": SLAKE_SPLITS["train"]})
     argv = ["--dataset", "SLAKE", "--data_root", str(root / "data"),
             "--epochs", str(VQA_DRIVER_EPOCHS), "--batch_size", str(B),
             "--device", str(dev)]
@@ -4206,12 +4482,10 @@ def vqa_driver_phase(dev, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 4. times: one epoch of a SLAKE-length train split through train_vqa
-    # for each loader setting, between two runs of the bare step; the host
-    # marks each step where the loop logs it
-    long_ds = MedVQADataset(str(root / "timed"), "SLAKE", "train")
-    long_ds.tokenize(tok)
-    per = len(long_ds) // B
+    # 4. times: the bare step on a resident batch; with --loader-pace, one
+    # epoch of a SLAKE-length train split through train_vqa for each loader
+    # setting between two runs of it (the host marks each step where the
+    # loop logs it)
     bare = make_vqa_step(runner_k.model, runner_k.optimizer)
 
     def bare_rate():
@@ -4226,10 +4500,14 @@ def vqa_driver_phase(dev, card: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     bare_rates = [bare_rate()]
-    loops = {w: timed_epoch(runner_k,
-                            lambda r, ds: train_vqa(r, ds, epochs=1),
-                            long_ds, w, per)
-             for w in VQA_DRIVER_TIMED_WORKERS}
+    loops = {}
+    if LOADER_PACE:
+        long_ds = MedVQADataset(str(root / "timed"), "SLAKE", "train")
+        long_ds.tokenize(tok)
+        loops = {w: timed_epoch(runner_k,
+                                lambda r, ds: train_vqa(r, ds, epochs=1),
+                                long_ds, w, len(long_ds) // B)
+                 for w in VQA_DRIVER_TIMED_WORKERS}
     bare_rates.append(bare_rate())
     peak = torch.cuda.max_memory_allocated()
     bare_ms = B * 1e3 * 2 / sum(bare_rates)
@@ -4239,7 +4517,8 @@ def vqa_driver_phase(dev, card: str) -> dict:
     for workers, marks in loops.items():
         print(loop_line("vqa driver", card, "", workers, marks, B, bare_ms),
               flush=True)
-    loader_probe(long_ds)
+    if LOADER_PACE:
+        loader_probe(long_ds)
     eval_rates = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -4438,10 +4717,10 @@ def pretrain_driver_phase(dev, card: str) -> dict:
     step bitwise), ``device_var_normalize`` against the host, one step on
     a uint8 batch (prefetched as uint8) against its plain step, and the
     ROCO split's frames equal to the uint8 cache's. Then times a bare step
-    on a resident uint8 batch in each mode, and one epoch of
-    ``PRETRAIN_TIMED_SAMPLES`` through ``train_pretrain`` for each source
-    (uint8 cache, RGC f32 pickles) and each of ``PRETRAIN_TIMED_WORKERS``,
-    the loader alone, with the peak memory. Returns ``{"run": launch
+    on a resident uint8 batch in each mode, with the peak memory; with
+    ``--loader-pace`` also one epoch of ``PRETRAIN_TIMED_SAMPLES`` through
+    ``train_pretrain`` for each source (uint8 cache, RGC f32 pickles) and
+    each of ``PRETRAIN_TIMED_WORKERS``, and the loader alone. Returns ``{"run": launch
     counts of the whole run_pretrain.main call, "step": {mode: launch
     counts of one driver step}}``."""
     import dataclasses
@@ -4470,7 +4749,8 @@ def pretrain_driver_phase(dev, card: str) -> dict:
     data = write_synthetic_pretrain(str(root / "data"), **d)
     timed = write_synthetic_pretrain(
         str(root / "timed"), n=PRETRAIN_TIMED_SAMPLES,
-        image_size=d["image_size"], seed=d["seed"] + 1, roco=False)
+        image_size=d["image_size"], seed=d["seed"] + 1,
+        roco=False) if LOADER_PACE else data
     argv = ["--rgc_index", data["rgc_index"], "--epochs", str(E),
             "--batch_size", str(B), "--device", str(dev)]
     print(f"pretrain driver: Pillow {PIL.__version__}; synthetic corpus "
@@ -4673,8 +4953,9 @@ def pretrain_driver_phase(dev, card: str) -> dict:
     print(f"ROCO split ({len(roco)} PNG frames, normalize={roco.normalize!r}) "
           f"decodes to the uint8 cache's frames bitwise", flush=True)
 
-    # 5. times: bare steps on a resident uint8 batch in each mode, then one
-    # epoch per source and loader setting through train_pretrain
+    # 5. times: bare steps on a resident uint8 batch in each mode; with
+    # --loader-pace, one epoch per source and loader setting through
+    # train_pretrain between two runs of them
     sources = {"uint8 cache": U8CacheSource(timed["u8_cache"]),
                "RGC f32 pickles": run_pretrain.build_source(
                    run_pretrain.parse_args(["--rgc_index",
@@ -4705,7 +4986,8 @@ def pretrain_driver_phase(dev, card: str) -> dict:
     loops = {(name, w): timed_epoch(
                  runner_k, lambda r, d: train_pretrain(r, d, epochs=1), ds, w,
                  per_t)
-             for name, ds in sets.items() for w in PRETRAIN_TIMED_WORKERS}
+             for name, ds in sets.items() for w in PRETRAIN_TIMED_WORKERS
+             if LOADER_PACE}
     rates.append(bare_rates())
     peak = torch.cuda.max_memory_allocated()
     bare_rate = statistics.mean(r for x in rates for r in x.values())
@@ -4717,7 +4999,7 @@ def pretrain_driver_phase(dev, card: str) -> dict:
     for (name, workers), marks in loops.items():
         print(loop_line("pretrain driver", card, f"{name}, ", workers, marks,
                         B, bare_ms), flush=True)
-    for name, ds in sets.items():
+    for name, ds in sets.items() if LOADER_PACE else ():
         print(f"loader alone, {name}:", flush=True)
         loader_probe(ds, B, PRETRAIN_TIMED_WORKERS)
     print(f"pretrain driver: peak memory in the timed loops (bare steps and "
@@ -4732,14 +5014,17 @@ def pretrain_driver_phase(dev, card: str) -> dict:
 def iu_xray_trees() -> dict:
     """The synthetic IU X-Ray trees the two task drivers read, written once
     under ``build/iu_xray`` (kept while their parameters are the same):
-    ``data`` (``IU_XRAY_DATA``) and ``timed`` (``IU_XRAY_TIMED`` train
-    studies, no test split). Returns the two ``<dir>/iu_xray`` roots."""
+    ``data`` (``IU_XRAY_DATA``) and, with ``--loader-pace``, ``timed``
+    (``IU_XRAY_TIMED`` train studies, no test split; else ``timed`` is the
+    data tree). Returns the two ``<dir>/iu_xray`` roots."""
     import shutil
     from mvlt_tpu_torch.data.datasets import write_synthetic_iu_xray
     root = REPO / "build" / "iu_xray"
     want = {"data": IU_XRAY_DATA,
             "timed": dict(IU_XRAY_DATA, seed=IU_XRAY_DATA["seed"] + 1,
                           splits={"train": IU_XRAY_TIMED, "test": 0})}
+    if not LOADER_PACE:             # the bare steps read the data tree
+        want.pop("timed")
     marker = root / "params.json"
     if not (marker.is_file() and json.loads(marker.read_text()) == want):
         shutil.rmtree(root, ignore_errors=True)
@@ -4750,7 +5035,8 @@ def iu_xray_trees() -> dict:
         print(f"synthetic IU X-Ray trees written in "
               f"{time.perf_counter() - t0:.1f} s: {json.dumps(want)}",
               flush=True)
-    return {name: str(root / name / "iu_xray") for name in want}
+    out = {name: str(root / name / "iu_xray") for name in want}
+    return {"timed": out["data"], **out}
 
 
 def _resident(dataset, n: int, dev, merge=None) -> dict:
@@ -4769,9 +5055,10 @@ def task_driver_loops(runner, sets: dict, train, bare, rows: int, what: str,
     """For each image layout in ``sets`` (name -> (train dataset, resident
     device batch, loader settings)): the resident batch's Swin features
     against the plain route, ``TASK_DRIVER_BARE_STEPS`` bare steps on it,
-    then one epoch through ``train(runner, dataset)`` for each loader
-    setting (:func:`timed_epoch`, :func:`loop_line`; ``rows`` a step).
-    Returns the peak memory of the loops."""
+    then, with ``--loader-pace``, one epoch through ``train(runner,
+    dataset)`` for each loader setting (:func:`timed_epoch`,
+    :func:`loop_line`; ``rows`` a step). Returns the peak memory of the
+    loops."""
     torch.cuda.reset_peak_memory_stats()
     for name, (dataset, resident, settings) in sets.items():
         with torch.no_grad():
@@ -4793,7 +5080,7 @@ def task_driver_loops(runner, sets: dict, train, bare, rows: int, what: str,
               f"{mb / 1e6:.1f} MB a batch): {bare_ms:.1f} ms a step, "
               f"{rows * 1e3 / bare_ms:.1f} samples/s", flush=True)
         steps = len(dataset) // runner.train_config.batch_size
-        for workers in settings:
+        for workers in settings if LOADER_PACE else ():
             marks = timed_epoch(runner, train, dataset, workers, steps)
             print(loop_line(what, card, f"{name}, ", workers, marks, rows,
                             bare_ms), flush=True)
@@ -5258,7 +5545,8 @@ def driver_subprocess(flag: str, what: str, limit: float, tag: str):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"),
-                             flag], cwd=REPO,
+                             flag] + ["--loader-pace"] * LOADER_PACE,
+                            cwd=REPO,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True, start_new_session=True)
     try:
@@ -5332,5 +5620,10 @@ if __name__ == "__main__":
              "--retrieval": retrieval_main, "--vqa-driver": vqa_driver_main,
              "--pretrain-driver": pretrain_driver_main,
              "--caption-driver": caption_driver_main,
-             "--retrieval-driver": retrieval_driver_main}
-    sys.exit(modes.get(" ".join(sys.argv[1:]), main)())
+             "--retrieval-driver": retrieval_driver_main,
+             "--backbones": backbones_main}
+    flags = sys.argv[1:]
+    LOADER_PACE = "--loader-pace" in flags
+    flags = [f for f in flags if f != "--loader-pace"]
+    sys.exit(modes.get(" ".join(flags),
+                       loader_pace_main if LOADER_PACE else main)())

@@ -126,8 +126,13 @@ def resnet50() -> ResNetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ViTConfig:
-    """ViT-B/16 (reference ``modules/visual_feature_extractor.py:65-107``);
-    kept so the config tree matches, the backbone is not ported yet."""
+    """ViT-B/16 (reference ``modules/visual_feature_extractor.py:65-107``),
+    the backbone of ``conv='vit'`` (``models/backbones/vit.py``). JAX's ViT
+    sizes its position table from the first image it sees and never reads
+    ``image_size``; the port sizes it from ``image_size`` (197 rows at 224)
+    and refuses an image of another size. The port trains with
+    ``dropout`` / ``attention_dropout`` 0 only (both 0 here and in the
+    reference's torchvision ViT)."""
 
     image_size: int = 224
     patch_size: int = 16
@@ -313,3 +318,15 @@ def tiny_config(cfg: MVLTConfig) -> MVLTConfig:
         swin=SwinConfig(img_size=32, patch_size=4, embed_dim=16,
                         depths=(1, 1), num_heads=(2, 4), window_size=4,
                         drop_path_rate=0.0))
+
+
+def vit_sized_for(cfg: MVLTConfig, image_size: int) -> MVLTConfig:
+    """``cfg`` with ``vit.image_size`` set to ``image_size`` when ``conv`` is
+    the ViT, else ``cfg`` as it is. JAX's ViT sizes its position table from
+    the images it is initialized on (``vit.py:58-66``), so its drivers'
+    ``--tiny`` ViT sees the tiny runs' 32-px images; the port sizes the
+    table from the config, which the drivers' ``--tiny`` sets so."""
+    if cfg.conv.lower() not in ("vit", "visiontransformer"):
+        return cfg
+    return dataclasses.replace(
+        cfg, vit=dataclasses.replace(cfg.vit, image_size=image_size))

@@ -34,6 +34,16 @@
   over every pair (S = 1 + 49 + 1 + 80 = 131); training is the retrieval
   train step on ``cat(pos, neg)`` (64 rows), bf16 compute with f32 masters
   and AdamW (``train/steps.py:266-279``).
+- The other backbones (JAX's ``adapter.py:49-69``): VQA serving and the
+  MLM+ITM pretrain step on ViT-B/16 @224 (12 layers, 768 wide, 12 heads,
+  MLP 3072; 196 image tokens, so S = 1 + 196 + 1 + 23 = 221 for VQA and
+  278 at text 80; no ``resnet_fc``), the VQA finetune step on the linear
+  patch (conv 3 -> 768, k16 s16, BN, ReLU; S = 221, BN on batch
+  statistics), and VQA serving on Swin-B @224 (its stage 4, C = 1024, on
+  JAX's plain route). Each is its flagship config passed as ``config=`` to
+  the ``build_*`` function above it; the report generation ones refuse a
+  fusion sequence beyond K2 / K4's N <= 288 on the card
+  (:func:`~mvlt_tpu_torch.models.heads.check_fusion_fits`).
 
 Weights are random, drawn from a numpy seed: normal(0, 0.02) for every dense
 and conv weight, bias, embedding and relative-position table, and LayerNorm
@@ -49,11 +59,13 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from mvlt_tpu_torch.config import MVLTConfig, resnet101, swin_small
+from mvlt_tpu_torch.config import (MVLTConfig, ViTConfig, resnet101,
+                                   swin_base, swin_small)
 from mvlt_tpu_torch.models.backbones.resnet import BatchNorm
 from mvlt_tpu_torch.models import generation
 from mvlt_tpu_torch.models.heads import (CaptionModel, PretrainModel,
-                                         RetrievalModel, VQAModel)
+                                         RetrievalModel, VQAModel,
+                                         check_fusion_fits)
 from mvlt_tpu_torch.ops.layers import DropoutMasks, LayerNorm
 from mvlt_tpu_torch.train.state import make_optimizer
 from mvlt_tpu_torch.tasks import retrieval
@@ -104,6 +116,33 @@ def flagship_retrieval_config() -> MVLTConfig:
     return MVLTConfig.for_retrieval(conv="swin", swin=swin_small())
 
 
+def flagship_vit_vqa_config() -> MVLTConfig:
+    """VQA serving on ViT-B/16 @224: :func:`flagship_vqa_config` with
+    ``conv='vit'`` (768 wide: no ``resnet_fc``); S = 221 at question 23."""
+    return dataclasses.replace(flagship_vqa_config(), conv="vit",
+                               vit=ViTConfig())
+
+
+def flagship_vit_pretrain_config() -> MVLTConfig:
+    """MLM+ITM pretraining on ViT-B/16 @224: :func:`flagship_pretrain_config`
+    (fusion dropouts 0.1, ITM on, text 80) with ``conv='vit'``; S = 278."""
+    return dataclasses.replace(flagship_pretrain_config(), conv="vit",
+                               vit=ViTConfig())
+
+
+def flagship_linear_vqa_train_config() -> MVLTConfig:
+    """VQA finetune on the linear patch: :func:`flagship_vqa_train_config`
+    (224 answers, fusion dropouts 0.0) with ``conv='linear'``; S = 221."""
+    return dataclasses.replace(flagship_vqa_train_config(), conv="linear")
+
+
+def flagship_swin_base_vqa_config() -> MVLTConfig:
+    """VQA serving on Swin-B @224 (``swin_base``: C = 128 .. 1024, heads 4
+    .. 32, ``resnet_fc`` 1024 -> 768): :func:`flagship_vqa_config` with its
+    Swin swapped; S = 74 at question 23."""
+    return dataclasses.replace(flagship_vqa_config(), swin=swin_base())
+
+
 def _need_cuda(device, what: str) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -146,15 +185,20 @@ def example_inputs(batch: int, seq_len: int, seed: int = 0,
 
 def build_vqa_forward(batch: int = 8, seq_len: int = 23,
                       dtype: torch.dtype = torch.bfloat16, device="cuda",
-                      seed: int = 0) -> Tuple[Callable, Tuple]:
+                      seed: int = 0, config: MVLTConfig = None,
+                      image_size: int = 224) -> Tuple[Callable, Tuple]:
     """(forward, (image, question)) for the flagship VQA forward.
-    ``forward(image, question, plain=False)`` returns the (B, 224) logits;
-    ``forward.model`` is the seeded :class:`VQAModel`. ``device='cuda'``
-    without a CUDA device raises: the flagship never falls back to the CPU."""
+    ``forward(image, question, plain=False)`` returns the (B, answers)
+    logits; ``forward.model`` is the seeded :class:`VQAModel` of
+    ``config`` (default :func:`flagship_vqa_config`). ``image_size`` and a
+    tiny ``config`` shrink it for tests. ``device='cuda'`` without a CUDA
+    device raises: the flagship never falls back to the CPU."""
     device = _need_cuda(device, "build_vqa_forward")
-    model = VQAModel(flagship_vqa_config(), dtype=dtype, device=device)
+    cfg = config or flagship_vqa_config()
+    model = VQAModel(cfg, dtype=dtype, device=device)
     init_seeded_(model, seed)
-    image, question = example_inputs(batch, seq_len, seed)
+    image, question = example_inputs(batch, seq_len, seed, image_size,
+                                     vocab=min(30000, cfg.fusion.vocab_size))
 
     def forward(image, question, plain: bool = False):
         return model(image, question, plain=plain)[1]
@@ -348,6 +392,7 @@ def build_caption_generate(batch: int = 32, num_beams: int = 5,
     device = _need_cuda(device, "build_caption_generate")
     cfg = dataclasses.replace(config or flagship_caption_config(),
                               max_length=max_length)
+    check_fusion_fits(cfg, max_length, 1, device, image_size)
     model = CaptionModel(cfg, dtype=dtype, device=device)
     init_seeded_(model, seed)
     model.eval()
@@ -382,6 +427,7 @@ def build_caption_train_step(batch: int = 32, text_len: int = 150,
     ``device='cuda'`` without a CUDA device raises."""
     device = _need_cuda(device, "build_caption_train_step")
     cfg = config or flagship_caption_config()
+    check_fusion_fits(cfg, text_len, 1, device, image_size)
     model = CaptionModel(cfg, dtype=torch.float32, device=device,
                          compute_dtype=compute_dtype)
     init_seeded_(model, seed)

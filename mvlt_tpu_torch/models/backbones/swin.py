@@ -10,9 +10,12 @@ kernels ran:
 
 - serving: W-MSA and SW-MSA blocks of a stage whose block weights fit the
   TPU's VMEM run ``swin_full_block`` (the SW-MSA one with the shift folded
-  in); wider stages (Swin-S stage 4, C = 768) run LN1 ->
+  in); wider stages whose halves fit (Swin-S stage 4, C = 768) run LN1 ->
   ``window_block_attention`` (+x folded into its proj) -> ``fused_mlp_preln``,
-  see :func:`uses_half_blocks`;
+  see :func:`uses_half_blocks` and :func:`half_weights_fit`; wider still
+  (Swin-B stage 4, C = 1024) JAX's plain route, on which ``WindowAttention``
+  'auto' picks ``window_block_attention`` (``swin.py:170-180, 338-366``):
+  LN1 -> ``window_block_attention`` (+x) -> LN2 -> ``Mlp``;
 - training (a gradient is needed, or DropPath multipliers are drawn):
   narrow stages run ``swin_full_block``'s training form (``swin.py:285-303``),
   wide stages ``swin_half_block`` (``swin.py:318-336``), both with the
@@ -110,15 +113,24 @@ def window_reverse(windows: torch.Tensor, window: int, H: int,
 
 
 def uses_half_blocks(dim: int) -> bool:
-    """Whether a Swin block of width ``dim`` runs as two halves.
-
-    On the TPU the whole-block kernel needs its 12*C^2 bf16 weights in
-    12 MB of VMEM (``weights_fit``, swin.py:272); wider blocks take the
-    pre-LN halves (swin.py:307-313): ``swin_attn_half`` then
-    ``fused_mlp_preln``. At Swin-S 224 that is stage 4 (C = 768). The port
+    """Whether a Swin block of width ``dim`` is too wide for the whole-block
+    kernel: on the TPU it needs its 12*C^2 bf16 weights in 12 MB of VMEM
+    (``weights_fit``, swin.py:272). Such a block trains on the halves
+    (``swin_half_block``, JAX's ``train_half_ok``, swin.py:318-323) and
+    serves on them where :func:`half_weights_fit` also holds (swin.py:
+    307-313): ``swin_attn_half`` then ``fused_mlp_preln``. At Swin-S 224
+    that is stage 4 (C = 768), at Swin-B 224 stage 4 (C = 1024). The port
     keeps this routing so that the flagship path runs each of the six
     counterparts."""
     return 12 * dim * dim * 2 > 12 * 1024 * 1024
+
+
+def half_weights_fit(dim: int) -> bool:
+    """JAX's second gate on the serving halves (``half_ok``, swin.py:
+    307-311): the MLP half's 8*C^2 bf16 weights in 12 MB of VMEM. It holds
+    at C = 768 (9.4 MB) and fails at Swin-B's C = 1024 (16.8 MB), whose
+    wide blocks JAX serves on its plain route (swin.py:338-366)."""
+    return 8 * dim * dim * 2 <= 12 * 1024 * 1024
 
 
 def attn_half_admits(n_windows: int, N: int, C: int, n_patterns: int,
@@ -304,11 +316,15 @@ class SwinBlock(nn.Module):
         return x + drop_path(y, m2, self.drop_path)
 
     def _half_blocks(self, windows, bias, ops):
-        """``swin_attn_half`` where JAX's would run its own kernel
-        (:func:`attn_half_admits`), else its fallback, LN1 ->
-        ``window_block_attention`` (+x); then ``fused_mlp_preln``."""
+        """Serving a block too wide for the whole-block kernel. Where the
+        halves fit (:func:`half_weights_fit`): ``swin_attn_half`` where
+        JAX's would run its own kernel (:func:`attn_half_admits`), else its
+        fallback, LN1 -> ``window_block_attention`` (+x); then
+        ``fused_mlp_preln``. Otherwise JAX's plain route: LN1 (K3) ->
+        ``window_block_attention`` (+x) -> LN2 (K3) -> ``Mlp`` (K1, GELU,
+        K1) (+res)."""
         if self.shift:
-            # the half route serves only stages whose map fits one window
+            # the wide routes serve only stages whose map fits one window
             # (Swin-S / Swin-B stage 4); a shifted wide stage is not ported
             raise NotImplementedError(
                 f"shifted Swin block at width {self.dim} (half-block route)")
@@ -317,6 +333,11 @@ class SwinBlock(nn.Module):
         dt = windows.dtype
         qkv = (self.qkv.weight.to(dt), self.qkv.bias.to(dt))
         proj = (self.proj.weight.to(dt), self.proj.bias.to(dt))
+        if not half_weights_fit(C):
+            y = ops.window_block_attention(
+                self.norm1(windows, ops), *qkv, *proj, bias, self.scale,
+                self.num_heads, residual=windows)
+            return y + self.mlp(self.norm2(y, ops), ops)
         if attn_half_admits(BW, N, C, bias.shape[0]):
             y = ops.swin_attn_half(windows, self.norm1.weight,
                                    self.norm1.bias, *qkv, *proj, bias,

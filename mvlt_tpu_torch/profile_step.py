@@ -1,7 +1,7 @@
 """Where the device time of a train step or a report-generation call goes,
 on one GPU.
 
-    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate|retrieval_step|retrieval_grid|vqa_driver|vqa_driver_bare|pretrain_driver] [--batch 32] [--steps 3] [--attn-impl auto|pallas]
+    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate|retrieval_step|retrieval_grid|vqa_driver|vqa_driver_bare|pretrain_driver] [--batch 32] [--steps 3] [--attn-impl auto|pallas] [--conv vit|linear|swin|resnet101|resnet50]
 
 Builds the VQA finetune train step (``--path vqa``, the default:
 :func:`mvlt_tpu_torch.flagship.build_vqa_train_step`), the MLM+ITM
@@ -22,6 +22,11 @@ power limit. Needs a CUDA device. The opt-in kernel switches are read
 from the environment, e.g. the step of record with both:
 
     MVLT_KERNEL_DROPOUT=1 MVLT_STOREP=1 python -m mvlt_tpu_torch.profile_step --path swin_pretrain
+
+``--conv`` swaps the backbone of ``--path vqa`` or ``--path pretrain``
+(ResNet-101 by default): ``--conv vit`` is ViT-B/16 @224 (S = 221 / 278 in
+the fusion encoder), ``--conv linear`` the linear patch (the VQA finetune
+step of ``flagship_linear_vqa_train_config``).
 
 ``--attn-impl pallas`` builds the Swin backbone on its ``attn_impl='pallas'``
 route (``window_attention`` in every block), as the JAX package's tests set
@@ -67,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import os
 import subprocess
@@ -79,7 +85,7 @@ import torch
 # in an anonymous namespace
 OURS = "namespace)::"
 CUBLAS = ("cuBLAS products (resnet_fc, pooler, heads; Swin patch embed and "
-          "merge; on 'pallas' every Swin dense layer)")
+          "merge; on 'pallas' every Swin dense layer; ViT training)")
 FAMILIES = [
     (OURS + "attention_bwd_", "K4 biased_attention_bwd"),   # both passes
     (OURS + "sum_heads_kernel", "K4 biased_attention_bwd"),
@@ -96,15 +102,15 @@ FAMILIES = [
     ("fmha", "SDPA (decode and prefill attention)"),
     ("flash_fwd", "SDPA (decode and prefill attention)"),
     ("multi_tensor_apply", "AdamW (multi-tensor)"),
-    ("batch_norm", "BatchNorm (ResNet)"),
-    ("bn_", "BatchNorm (ResNet)"),
-    ("fprop", "cuDNN convolutions (ResNet)"),
-    ("dgrad", "cuDNN convolutions (ResNet)"),
-    ("wgrad", "cuDNN convolutions (ResNet)"),
-    ("conv", "cuDNN convolutions (ResNet)"),
-    ("cudnn", "cuDNN convolutions (ResNet)"),
+    ("batch_norm", "BatchNorm (ResNet, linear patch)"),
+    ("bn_", "BatchNorm (ResNet, linear patch)"),
+    ("fprop", "cuDNN convolutions (ResNet, linear patch)"),
+    ("dgrad", "cuDNN convolutions (ResNet, linear patch)"),
+    ("wgrad", "cuDNN convolutions (ResNet, linear patch)"),
+    ("conv", "cuDNN convolutions (ResNet, linear patch)"),
+    ("cudnn", "cuDNN convolutions (ResNet, linear patch)"),
     ("layer_norm", "PyTorch LayerNorm (Swin patch embed / merge / final; "
-                   "on 'pallas' every Swin LN)"),
+                   "on 'pallas' every Swin LN; ViT training)"),
     ("gemm", CUBLAS),
     ("nvjet", CUBLAS),
     ("cutlass", CUBLAS),
@@ -284,7 +290,10 @@ def _build(args, flagship, seq2seq_coin_flip):
     if args.path == "pretrain_driver":
         return _pretrain_driver(args)
     if args.path == "vqa":
-        return flagship.build_vqa_train_step(batch=args.batch, device="cuda")
+        cfg = args.conv and dataclasses.replace(
+            flagship.flagship_vqa_train_config(), conv=args.conv)
+        return flagship.build_vqa_train_step(batch=args.batch, device="cuda",
+                                             config=cfg)
     if args.path == "caption_step":
         return flagship.build_caption_train_step(batch=args.batch,
                                                  device="cuda")
@@ -298,10 +307,14 @@ def _build(args, flagship, seq2seq_coin_flip):
         gen, image = flagship.build_caption_generate(batch=args.batch,
                                                      device="cuda")
         return (lambda im: gen(im)), image
-    build = (flagship.build_swin_pretrain_train_step
-             if args.path == "swin_pretrain"
-             else flagship.build_pretrain_train_step)
-    pre_step, batch = build(batch=args.batch, device="cuda")
+    if args.path == "swin_pretrain":
+        pre_step, batch = flagship.build_swin_pretrain_train_step(
+            batch=args.batch, device="cuda")
+    else:
+        cfg = args.conv and dataclasses.replace(
+            flagship.flagship_pretrain_config(), conv=args.conv)
+        pre_step, batch = flagship.build_pretrain_train_step(
+            batch=args.batch, device="cuda", config=cfg)
     flips = torch.Generator().manual_seed(0)
     return (lambda b: pre_step(b, seq2seq_coin_flip(flips))), batch
 
@@ -318,7 +331,12 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--attn-impl", choices=("auto", "pallas"), default="auto",
                     help="the Swin backbone's route (swin_pretrain)")
+    ap.add_argument("--conv", default=None,
+                    choices=("vit", "linear", "swin", "resnet101", "resnet50"),
+                    help="the backbone of --path vqa / pretrain")
     args = ap.parse_args()
+    if args.conv and args.path not in ("vqa", "pretrain"):
+        ap.error("--conv applies to --path vqa and --path pretrain")
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -12,8 +12,11 @@ The arguments are JAX's (``run_pretrain.py:19-46``) and ``--device``
 back). ROCO and MedICaT images are decoded to uint8 on the host and
 normalized on the device unless ``--host_normalize`` or a float source
 (``--rgc_index``, ``--synthetic``) is mixed in. ``--backbone_ckpt`` loads an official
-Swin or ResNet state dict into the fresh model (``utils/bootstrap.py``).
-Refused: ``--model_parallel`` other than 1 (one device). On the card the
+Swin, ResNet or HF ViT state dict into the fresh model
+(``utils/bootstrap.py``). ``--conv vit`` / ``linear`` (196 image tokens)
+train at S = 278 with the default text length 80. Refused:
+``--model_parallel`` other than 1 (one device), and on a CUDA device a
+fusion sequence beyond K2 / K4's N <= 288. On the card the
 model trains with f32 masters and bf16 compute
 (``TrainConfig.bf16_compute``); on the CPU it runs the kernels' plain
 versions. It writes ``<model_name>/`` (``log.txt``, ``metrics.jsonl``,
@@ -53,7 +56,7 @@ def parse_args(argv=None):
                         "different pixels)")
     p.add_argument("--backbone_ckpt", default=None,
                    help="official backbone checkpoint (Swin .pth / "
-                        "torchvision ResNet / HF state dict), loaded into "
+                        "torchvision ResNet / HF state dict; HF ViT), loaded into "
                         "the fresh model as the reference does at build "
                         "(modules/model.py:222-226)")
     p.add_argument("--synthetic", action="store_true")
@@ -93,12 +96,13 @@ def build_source(args):
 
 
 def build_config(args, tokenizer):
-    from mvlt_tpu_torch.config import MVLTConfig, tiny_config
+    from mvlt_tpu_torch.config import MVLTConfig, tiny_config, vit_sized_for
     cfg = MVLTConfig.for_pretrain(lr=args.lr)
     cfg = dataclasses.replace(cfg, conv=args.conv, itm_task=args.itm_task,
                               max_length=args.max_length)
     if args.tiny:
         cfg = tiny_config(cfg)
+        cfg = vit_sized_for(cfg, cfg.swin.img_size)
     return cfg.with_tokenizer(tokenizer)
 
 
@@ -107,7 +111,7 @@ def main(argv=None):
     from mvlt_tpu_torch.config import MeshConfig, TrainConfig
     from mvlt_tpu_torch.data.datasets import PretrainDataset
     from mvlt_tpu_torch.flagship import _need_cuda
-    from mvlt_tpu_torch.models.heads import PretrainModel
+    from mvlt_tpu_torch.models.heads import PretrainModel, check_fusion_fits
     from mvlt_tpu_torch.tasks.common import TaskRunner
     from mvlt_tpu_torch.tasks.pretrain import train_pretrain
     from mvlt_tpu_torch.text.tokenizer import default_tokenizer
@@ -118,6 +122,7 @@ def main(argv=None):
                      mesh=MeshConfig(model_parallel=args.model_parallel))
     tokenizer = default_tokenizer(synthetic_ok=args.synthetic)
     cfg = build_config(args, tokenizer)
+    check_fusion_fits(cfg, args.max_length, 1, args.device)
     runner = TaskRunner(PretrainModel, cfg, tc, workdir=args.model_name,
                         name="pretrain", device=args.device)
     pretrained = None

@@ -14,10 +14,12 @@ never falls back). ``--dataset iu_xray`` / ``mimic_cxr`` read
 the frames are uint8, normalized on the device (f32 on the host with
 ``--host_normalize``), without it the ImageNet transforms; ``--tiny``
 reads them at the tiny Swin's size. ``--backbone_ckpt`` loads an official
-Swin or ResNet state dict over the ``--pretrained`` export
+Swin, ResNet or HF ViT state dict over the ``--pretrained`` export
 (``utils/bootstrap.py``). Training runs by default, ``--do_test`` alone
 only tests (JAX's rule). Refused: ``--model_parallel`` other than 1 (one
-device) and ``--quant int8w`` (ROADMAP.md queue A, 'ops/quant.py'). On the
+device), ``--quant int8w`` (ROADMAP.md queue A, 'ops/quant.py'), and on a
+CUDA device a fusion sequence beyond K2 / K4's N <= 288 (``--conv vit`` or
+``linear``: 196 tokens a view; ``models.heads.check_fusion_fits``). On the
 card the model trains with f32 masters and bf16 compute; on the CPU it
 runs the kernels' plain versions. It writes ``<model_name>/`` (``log.txt``,
 ``metrics.jsonl``, ``step_*`` checkpoints) and prints the test's scores.
@@ -56,7 +58,7 @@ def parse_args(argv=None):
                         "format)")
     p.add_argument("--backbone_ckpt", default=None,
                    help="official backbone checkpoint (Swin .pth / "
-                        "torchvision ResNet / HF state dict)")
+                        "torchvision ResNet / HF state dict; HF ViT)")
     p.add_argument("--conv", default="swin")
     p.add_argument("--learning_strategy", default="unilm",
                    choices=["unilm", "normal"])
@@ -88,11 +90,12 @@ def default_max_length(dataset: str) -> int:
 
 
 def build_config(args, tokenizer, max_length: int):
-    from mvlt_tpu_torch.config import MVLTConfig, tiny_config
+    from mvlt_tpu_torch.config import MVLTConfig, tiny_config, vit_sized_for
     cfg = MVLTConfig.for_caption(lr=args.lr, max_length=max_length)
     cfg = dataclasses.replace(cfg, conv=args.conv)
     if args.tiny:
         cfg = tiny_config(cfg)
+        cfg = vit_sized_for(cfg, cfg.swin.img_size)
     return cfg.with_tokenizer(tokenizer)
 
 
@@ -136,7 +139,7 @@ def main(argv=None):
     args = parse_args(argv)
     from mvlt_tpu_torch.config import MeshConfig, TrainConfig
     from mvlt_tpu_torch.flagship import _need_cuda
-    from mvlt_tpu_torch.models.heads import CaptionModel
+    from mvlt_tpu_torch.models.heads import CaptionModel, check_fusion_fits
     from mvlt_tpu_torch.tasks.caption import (check_quant, eval_caption,
                                               train_caption)
     from mvlt_tpu_torch.tasks.common import TaskRunner
@@ -152,6 +155,9 @@ def main(argv=None):
     tokenizer = default_tokenizer(synthetic_ok=args.dataset == "synthetic")
     max_length = args.max_length or default_max_length(args.dataset)
     cfg = build_config(args, tokenizer, max_length)
+    # S = 1 + views x image tokens + 1 + max_length must fit K2 / K4
+    check_fusion_fits(cfg, max_length, 2 if args.dataset == "iu_xray" else 1,
+                      args.device)
     tc = TrainConfig(batch_size=args.batch_size, epochs=args.epochs,
                      num_workers=args.num_workers,
                      mesh=MeshConfig(model_parallel=args.model_parallel))

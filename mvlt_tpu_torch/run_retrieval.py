@@ -15,10 +15,12 @@ back). ``--iu_xray_root`` reads ``images/`` and ``annotation.json`` (two
 views a study, uint8 frames normalized on the device unless
 ``--host_normalize``) and forces ``--swap image``
 (run_retrieval_iuxray.py:130-137); ``--tiny`` reads the frames at the
-tiny Swin's size. ``--backbone_ckpt`` loads an official Swin or ResNet
-state dict over the ``--pretrained`` export. Refused: ``--model_parallel``
-other than 1 (one device), and a run with neither ``--do_train`` nor
-``--do_test``. It writes ``<model_name>/`` (``log.txt``,
+tiny Swin's size. ``--backbone_ckpt`` loads an official Swin, ResNet or
+HF ViT state dict over the ``--pretrained`` export. Refused:
+``--model_parallel`` other than 1 (one device), a run with neither
+``--do_train`` nor ``--do_test``, and on a CUDA device a fusion sequence
+beyond K2 / K4's N <= 288 (two views of ``--conv vit`` or ``linear``: S =
+474; ``models.heads.check_fusion_fits``). It writes ``<model_name>/`` (``log.txt``,
 ``metrics.jsonl``, ``step_*`` checkpoints) and, with ``--do_test``,
 ``<model_name>/eval.json`` (R@1 / 5 / 10 both ways), which it also prints.
 """
@@ -47,7 +49,7 @@ def parse_args(argv=None):
                         "format)")
     p.add_argument("--backbone_ckpt", default=None,
                    help="official backbone checkpoint (Swin .pth / "
-                        "torchvision ResNet / HF state dict)")
+                        "torchvision ResNet / HF state dict; HF ViT)")
     p.add_argument("--conv", default="swin")
     p.add_argument("--swap", default="either", choices=["either", "image"],
                    help="negative sampling: iu-xray variant uses 'image'")
@@ -71,11 +73,12 @@ def parse_args(argv=None):
 
 
 def build_config(args, tokenizer):
-    from mvlt_tpu_torch.config import MVLTConfig, tiny_config
+    from mvlt_tpu_torch.config import MVLTConfig, tiny_config, vit_sized_for
     cfg = MVLTConfig.for_retrieval(lr=args.lr, max_length=args.max_length)
     cfg = dataclasses.replace(cfg, conv=args.conv)
     if args.tiny:
         cfg = tiny_config(cfg)
+        cfg = vit_sized_for(cfg, cfg.swin.img_size)
     return cfg.with_tokenizer(tokenizer)
 
 
@@ -109,7 +112,7 @@ def main(argv=None):
     from mvlt_tpu_torch.config import MeshConfig, TrainConfig
     from mvlt_tpu_torch.data.datasets import RetrievalDataset
     from mvlt_tpu_torch.flagship import _need_cuda
-    from mvlt_tpu_torch.models.heads import RetrievalModel
+    from mvlt_tpu_torch.models.heads import RetrievalModel, check_fusion_fits
     from mvlt_tpu_torch.tasks.common import TaskRunner
     from mvlt_tpu_torch.tasks.retrieval import eval_retrieval, train_retrieval
     from mvlt_tpu_torch.text.tokenizer import default_tokenizer
@@ -120,6 +123,9 @@ def main(argv=None):
         raise SystemExit("nothing to do: pass --do_train and/or --do_test")
     tokenizer = default_tokenizer(synthetic_ok=args.synthetic)
     cfg = build_config(args, tokenizer)
+    # S = 1 + views x image tokens + 1 + max_length must fit K2 / K4
+    check_fusion_fits(cfg, args.max_length, 2 if args.iu_xray_root else 1,
+                      args.device)
     tc = TrainConfig(batch_size=args.batch_size, epochs=args.epochs,
                      num_workers=args.num_workers,
                      mesh=MeshConfig(model_parallel=args.model_parallel))

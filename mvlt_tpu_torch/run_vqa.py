@@ -10,8 +10,10 @@ The arguments are JAX's (``run_vqa.py:19-41``) and ``--device`` (default
 ``cuda``; without a CUDA device the run raises, it never falls back). On the
 card the model trains with f32 masters and bf16 compute
 (``TrainConfig.bf16_compute``); on the CPU it runs the kernels' plain
-versions. ``--backbone_ckpt`` loads an official Swin or ResNet state dict
-into the fresh model, over the ``--pretrained`` export, as JAX merges them
+versions. ``--conv`` takes every backbone of the JAX package (``swin``,
+``resnet101`` / ``resnet50``, ``vit``, ``linear``). ``--backbone_ckpt``
+loads an official Swin, ResNet or HF ViT state dict into the fresh model,
+over the ``--pretrained`` export, as JAX merges them
 (``utils/bootstrap.py``). Refused: ``--model_parallel`` other than 1 (one
 device). It writes
 ``<model_name>/round<i>/`` (``log.txt``, ``metrics.jsonl``, ``step_*``
@@ -39,7 +41,7 @@ def parse_args(argv=None):
                         "format)")
     p.add_argument("--backbone_ckpt", default=None,
                    help="official backbone checkpoint (Swin .pth / "
-                        "torchvision ResNet / HF state dict)")
+                        "torchvision ResNet / HF state dict; HF ViT)")
     p.add_argument("--conv", default="swin")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--lr", type=float, default=4e-5)
@@ -59,11 +61,12 @@ def parse_args(argv=None):
 
 
 def build_config(args, tokenizer, result_num):
-    from mvlt_tpu_torch.config import MVLTConfig, tiny_config
+    from mvlt_tpu_torch.config import MVLTConfig, tiny_config, vit_sized_for
     cfg = MVLTConfig.for_vqa(result_num=result_num, lr=args.lr)
     cfg = dataclasses.replace(cfg, conv=args.conv)
     if args.tiny:
         cfg = tiny_config(cfg)
+        cfg = vit_sized_for(cfg, cfg.swin.img_size)
     return cfg.with_tokenizer(tokenizer)
 
 

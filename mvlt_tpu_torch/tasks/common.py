@@ -68,9 +68,11 @@ def train_rng(tc: TrainConfig, device, offset: int = 0,
 
 def flax_leaves(name: str) -> int:
     """How many leaves of JAX's variables tree a port tensor stands for:
-    a fused ``qkv`` of the fusion encoder is the three ``query`` / ``key`` /
-    ``value`` Denses (``utils/convert.py``); every other tensor is one."""
-    return 3 if ".qkv." in name and name.startswith("fusion.layers.") else 1
+    a fused ``qkv`` of the fusion encoder or of a ViT block is the three
+    ``query`` / ``key`` / ``value`` Denses (``utils/convert.py``; Swin's
+    ``qkv`` is one Dense in JAX too); every other tensor is one."""
+    return 3 if ".qkv." in name and name.startswith(
+        ("fusion.layers.", "conv.backbone.blocks.")) else 1
 
 
 def _merge_pretrained(model: torch.nn.Module, pretrained, logger):

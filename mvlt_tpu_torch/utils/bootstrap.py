@@ -10,15 +10,16 @@ of a ResNet), which ``TaskRunner.init_state(pretrained_variables=[...])``
 merges into the fresh model by name and shape; everything else stays
 initialized.
 
-Layouts (a ``swin.`` / ``resnet.`` key prefix is stripped first):
+Layouts (a ``swin.`` / ``resnet.`` / ``vit.`` key prefix is stripped first):
 
 - Swin: the official MSFT ``.pth`` (``{"model": sd}`` or a bare sd; fused
   ``layers.{i}.blocks.{j}.attn.qkv``) and HF ``SwinModel`` (separate
   q / k / v);
 - ResNet-50/101: torchvision (``layer{1..4}.{b}.conv{c}``) and HF
-  ``ResNetModel`` (``embedder.`` / ``encoder.stages``).
-
-The ViT backbone is not ported (ROADMAP.md queue A, 'Other backbones').
+  ``ResNetModel`` (``embedder.`` / ``encoder.stages``);
+- ViT-B/16: HF ``ViTModel`` (``embeddings.cls_token``, ``encoder.layer``;
+  a ``vit.`` prefix is stripped), as ``mvlt_tpu/utils/bootstrap.py:79-82``
+  reads it.
 """
 
 from __future__ import annotations
@@ -75,9 +76,9 @@ def convert_backbone(sd: Dict[str, np.ndarray], conv: str,
             variables = convert.resnet_from_hf(sd, cfg.resnet.layers)
         params, stats = variables["params"], variables["batch_stats"]
     elif conv in ("vit", "visiontransformer"):
-        raise NotImplementedError(
-            "--backbone_ckpt for conv='vit': the ViT backbone is not ported "
-            "yet (ROADMAP.md queue A, 'Other backbones')")
+        sd = _strip_prefix(sd, "vit.")
+        params = convert.vit_from_hf(sd, cfg.vit.num_layers,
+                                     cfg.vit.num_heads)
     else:
         raise NotImplementedError(
             f"--backbone_ckpt does not apply to conv={conv!r}")

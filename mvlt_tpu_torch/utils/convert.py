@@ -11,11 +11,16 @@ pooler, and the heads) exactly once:
 - a flax Dense ``kernel`` (in, out) becomes a port ``weight`` (out, in);
   a Conv ``kernel`` (H, W, in, out) becomes an OIHW ``weight``;
 - the fusion layers' separate ``query`` / ``key`` / ``value`` Denses are
-  concatenated into the port's one fused ``qkv`` Dense (fusion.py:122-126);
+  concatenated into the port's one fused ``qkv`` Dense (fusion.py:122-126),
+  and so are the ViT blocks' ``attention/{query,key,value}``: flax
+  ``DenseGeneral`` kernels (hidden, heads, dh) with (heads, dh) biases, and
+  ``attention/out`` (heads, dh, hidden), flattened to the port's
+  ``blocks.{i}.qkv`` / ``blocks.{i}.out`` Denses;
 - LayerNorm and BatchNorm ``scale`` becomes ``weight``; an ``embedding``
-  table keeps its layout;
-- the ResNet's ``batch_stats`` ``mean`` / ``var`` become the BatchNorms'
-  ``running_mean`` / ``running_var`` buffers;
+  table keeps its layout, and so do the ViT's ``cls_token`` and
+  ``pos_embedding``;
+- the ResNet's and the linear patch's ``batch_stats`` ``mean`` / ``var``
+  become the BatchNorms' ``running_mean`` / ``running_var`` buffers;
 - the heads keep their flax names: ``mlm_head_{seq2seq,bidir}/transform/
   {transform_dense,transform_layernorm}`` and ``.../decoder`` (the caption
   tree has ``mlm_head_seq2seq`` alone), ``itm_mlp``, and the retrieval
@@ -40,7 +45,8 @@ The backbone converters (copies of ``mvlt_tpu/utils/convert.py:123-164,
 :func:`state_dict_to_numpy`) into the flax-layout tree of JAX's backbone:
 ``swin_from_torch`` (the MSFT ``.pth``, fused ``qkv``), ``swin_from_hf``
 (HF ``SwinModel``, separate q / k / v), ``resnet_from_torchvision`` and
-``resnet_from_hf`` (``{"params", "batch_stats"}``). Wrapped under
+``resnet_from_hf`` (``{"params", "batch_stats"}``), ``vit_from_hf`` (HF
+``ViTModel``, ``mvlt_tpu/utils/convert.py:310-346``). Wrapped under
 ``conv/backbone``, :func:`params_from_flax` maps them onto the port's
 names (``utils/bootstrap.py``).
 """
@@ -72,6 +78,15 @@ _RULES = [
     (r"conv/backbone/stem/(conv|bn)", r"conv.backbone.stem.\1"),
     (r"conv/backbone/(layer\d+_\d+)/(conv1|conv2|conv3|downsample)/(conv|bn)",
      r"conv.backbone.blocks.\1.\2.\3"),
+    (r"conv/backbone/(patch_proj|ln)", r"conv.backbone.\1"),
+    (r"conv/backbone/block_(\d+)/(ln_1|ln_2|mlp_fc1|mlp_fc2)",
+     r"conv.backbone.blocks.\1.\2"),
+    (r"conv/backbone/block_(\d+)/attention/(query|key|value)",
+     r"conv.backbone.blocks.\1.qkv:\2"),
+    (r"conv/backbone/block_(\d+)/attention/out",
+     r"conv.backbone.blocks.\1.out"),
+    (r"conv/backbone", r"conv.backbone"),
+    (r"conv/backbone/(proj|bn)", r"conv.backbone.\1"),
     (r"conv/resnet_fc", r"conv.resnet_fc"),
     (r"fusion/(word|position|token_type)_embeddings",
      r"fusion.\1_embeddings"),
@@ -94,7 +109,8 @@ _RULES = [
 # flax leaf name -> suffix of the port parameter
 _LEAF = {"kernel": ".weight", "bias": ".bias", "scale": ".weight",
          "embedding": "", "mean": ".running_mean", "var": ".running_var",
-         "relative_position_bias_table": ".relative_position_bias_table"}
+         "relative_position_bias_table": ".relative_position_bias_table",
+         "cls_token": ".cls_token", "pos_embedding": ".pos_embedding"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -136,6 +152,13 @@ def params_from_flax(variables) -> Dict[str, torch.Tensor]:
     for path, value in flat.items():
         key, slot, is_kernel = _port_name(path)
         value = np.array(value, np.float32)             # own, writable copy
+        if value.ndim == 3 and is_kernel:
+            # DenseGeneral: q / k / v (in, heads, dh), out (heads, dh, out)
+            value = (value.reshape(-1, value.shape[-1])
+                     if path.endswith("/out/kernel")
+                     else value.reshape(value.shape[0], -1))
+        elif value.ndim == 2 and slot is not None and not is_kernel:
+            value = value.reshape(-1)                   # (heads, dh) bias
         if is_kernel:
             # Dense (in, out) -> (out, in); Conv HWIO -> OIHW
             value = value.T if value.ndim == 2 else value.transpose(3, 2, 0, 1)
@@ -175,6 +198,8 @@ def _to_flax_leaf(path: str, template, sd: Mapping, used: set) -> np.ndarray:
         # (out, in) -> Dense (in, out); OIHW -> Conv HWIO
         value = value.T if value.ndim == 2 else value.transpose(2, 3, 1, 0)
     want = np.asarray(template)
+    if want.ndim == value.ndim + 1 and value.size == want.size:
+        value = value.reshape(want.shape)   # a DenseGeneral kernel or bias
     if value.shape != want.shape:
         raise KeyError(f"port tensor {key!r} gives {path!r} the shape "
                        f"{value.shape}, the template has {want.shape}")
@@ -274,6 +299,49 @@ def swin_from_torch(sd: Dict[str, np.ndarray], depths, prefix: str = "") -> Dict
                 "norm": _layernorm(sd, f"{prefix}layers.{i}.downsample.norm"),
                 "reduction": _dense_nobias(sd, f"{prefix}layers.{i}.downsample.reduction"),
             }
+    return params
+
+
+def vit_from_hf(sd: Dict[str, np.ndarray], num_layers: int,
+                num_heads: int) -> Dict:
+    """HF ``transformers.ViTModel`` state dict -> the ViT tree
+    (``mvlt_tpu/utils/convert.py:310-346``), math-identical to the
+    torchvision ViT that the reference wraps
+    (``visual_feature_extractor.py:65-107``): q / k / v and the output as
+    flax ``DenseGeneral`` kernels."""
+    hidden = sd["embeddings.cls_token"].shape[-1]
+    dh = hidden // num_heads
+
+    def mha(p):
+        def qkv(name):
+            w, b = (sd[p + f"attention.attention.{name}.weight"],
+                    sd[p + f"attention.attention.{name}.bias"])
+            return {"kernel": w.T.reshape(hidden, num_heads, dh),
+                    "bias": b.reshape(num_heads, dh)}
+        wo = sd[p + "attention.output.dense.weight"]
+        return {"query": qkv("query"), "key": qkv("key"),
+                "value": qkv("value"),
+                "out": {"kernel": wo.T.reshape(num_heads, dh, hidden),
+                        "bias": sd[p + "attention.output.dense.bias"]}}
+
+    params = {
+        "cls_token": sd["embeddings.cls_token"],
+        "pos_embedding": sd["embeddings.position_embeddings"],
+        "patch_proj": {
+            "kernel": _patchify_kernel(
+                sd["embeddings.patch_embeddings.projection.weight"]),
+            "bias": sd["embeddings.patch_embeddings.projection.bias"]},
+        "ln": _layernorm(sd, "layernorm"),
+    }
+    for i in range(num_layers):
+        p = f"encoder.layer.{i}."
+        params[f"block_{i}"] = {
+            "ln_1": _layernorm(sd, p + "layernorm_before"),
+            "ln_2": _layernorm(sd, p + "layernorm_after"),
+            "attention": mha(p),
+            "mlp_fc1": _dense(sd, p + "intermediate.dense"),
+            "mlp_fc2": _dense(sd, p + "output.dense"),
+        }
     return params
 
 

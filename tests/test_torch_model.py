@@ -208,20 +208,30 @@ def test_stage4_shift_is_dropped_when_map_equals_window():
 
 def test_adapter_refusals_name_their_roadmap_items():
     """The adapter's refusal cites the ROADMAP.md queue-A item by name:
-    ViT / the linear patch ('Other backbones'). Two-view images, float or
+    ViT training with dropout ('Other backbones'; ViT and the linear patch
+    were refused whole until they were ported); a conv that JAX does not
+    have is refused too. Two-view images, float or
     uint8, were refused ('Adapter inputs') until the caption driver: each
     view now goes through its own backbone call, and the tokens of view 0
     come first."""
     from mvlt_tpu_torch.config import MVLTConfig as PortConfig
     from mvlt_tpu_torch.config import SwinConfig as PortSwin
+    from mvlt_tpu_torch.config import ViTConfig as PortViT
     from mvlt_tpu_torch.models.backbones.adapter import VisualAdapter
     from mvlt_tpu_torch.ops.blocks import PLAIN_OPS
     cfg = PortConfig.for_vqa(result_num=10)
-    for conv in ("vit", "linear"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue A, 'Other backbones'"):
-            VisualAdapter(dataclasses.replace(cfg, conv=conv),
-                          dtype=torch.float32, device="cpu")
+    vit = VisualAdapter(dataclasses.replace(
+        cfg, conv="vit", vit=PortViT(image_size=32, patch_size=8,
+                                     num_layers=1, num_heads=2, hidden_dim=16,
+                                     mlp_dim=32, attention_dropout=0.1)),
+        dtype=torch.float32, device="cpu")
+    init_seeded_(vit)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue A, 'Other backbones'"):
+        vit(torch.zeros(1, 3, 32, 32), PLAIN_OPS, train=True)
+    with pytest.raises(NotImplementedError, match="no such config.conv"):
+        VisualAdapter(dataclasses.replace(cfg, conv="vgg"),
+                      dtype=torch.float32, device="cpu")
     swin = PortSwin(img_size=32, patch_size=4, embed_dim=32, depths=(2, 2),
                     num_heads=(2, 4), window_size=4, drop_path_rate=0.0)
     adapter = VisualAdapter(dataclasses.replace(cfg, conv="swin", swin=swin),

@@ -146,7 +146,8 @@ def test_port_imports_nothing_of_mvlt_tpu():
     generation and retrieval drivers among them), its train step, its host
     modules (tokenizer, datasets, loader, transforms, the VQA, retrieval
     and caption metrics, tasks, checkpoints, logging, the backbone
-    bootstrap) and ``chip_smoke`` leaves no ``mvlt_tpu`` /
+    bootstrap), the ViT and linear-patch backbones and ``chip_smoke``
+    leaves no ``mvlt_tpu`` /
     ``mvlt_tpu.*`` module (and no JAX, flax, optax or orbax) in
     ``sys.modules``: the port keeps its own copies of host modules."""
     code = textwrap.dedent("""
@@ -168,6 +169,7 @@ def test_port_imports_nothing_of_mvlt_tpu():
         from mvlt_tpu_torch.utils import checkpoint, logging, convert
         from mvlt_tpu_torch.utils import bootstrap
         from mvlt_tpu_torch.models.backbones import adapter
+        from mvlt_tpu_torch.models.backbones import linear_patch, vit
         run_vqa.parse_args(["--synthetic"])
         run_pretrain.parse_args(["--synthetic"])
         run_report_generation.parse_args(["--dataset", "synthetic"])
