@@ -5,11 +5,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --norm``: phases 1-2's build and K3 / K5 at the
 step's shapes only; ``--caption`` / ``--retrieval`` / ``--backbones`` /
 ``--vqa-driver`` / ``--pretrain-driver`` / ``--caption-driver`` /
-``--retrieval-driver``: phases 1-2 and phase 10 / 11 / 12 / 13 / 14 / 15 /
-16 only; ``--loader-pace``: phases 1-2 and phases 13-16 with the drivers'
-loader-pace loops, which the default run leaves out; with a driver's flag,
-that phase alone with its loops). It imports nothing of JAX and nothing
-of the JAX package. Phases, each of which raises on failure:
+``--retrieval-driver`` / ``--swin-routes``: phases 1-2 and phase 10 / 11 /
+12 / 13 / 14 / 15 / 16 / 17 only; ``--loader-pace``: phases 1-2 and
+phases 13-16 with the drivers' loader-pace loops, which the default run
+leaves out; with a driver's flag, that phase alone with its loops). It
+imports nothing of JAX and nothing of the JAX package. Phases, each of
+which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the port's CUDA kernels from ``mvlt_tpu_torch/csrc`` with
@@ -214,7 +215,25 @@ of the JAX package. Phases, each of which raises on failure:
     the features check and the bare step (the epochs only with
     ``--loader-pace``). ``python3 chip_smoke.py --retrieval-driver`` runs
     phases 1-2 and this phase only;
-17. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+17. swin routes: JAX's plain Swin block route and the backward rules it
+    needs. Row 1's backward (``window_block_attention_bwd``, ``_block_bwd``)
+    at every Swin-S b32 stage (2,048 / 512 / 128 / 32 windows of 49 at C =
+    96 / 192 / 384 / 768; one pattern, and one per window where the stage
+    shifts), row 6's (``fused_mlp_preln_bwd``) at stage 4's 1,568 x 768,
+    row 7's (``swin_attn_half_bwd``) at window 12 and C = 768 (phase 9's
+    shape) and ``attention_core_op`` (forward and backward) at stage 3 with
+    four patterns, each against its plain version, two calls bitwise
+    equal, timed beside the library's autograd of the same layers and its
+    bound, also as CUDA graphs; then the Swin-S step of record with
+    ``swin.drop_rate`` 0.1 (every block on row 1 and its VJP), driven as in
+    phase 7 on replayed masks and timed in turns with the step of record;
+    the flagship forward and the Swin-S step with the backbone on
+    ``attn_impl='pallas_block'`` (timed in turns with 'auto'); the step on
+    'xla' and the step with ``attn_drop_rate`` 0.1 as well (the XLA
+    attention with dropout on its probabilities), checked and counted.
+    ``python3 chip_smoke.py --swin-routes`` runs phases 1-2 and this phase
+    only;
+18. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
 """
 
@@ -388,6 +407,52 @@ EXPECTED_SWIN_PALLAS = {
     "biased_attention_heads": (24, None),
     **UNREACHED,
 }
+# the backward rules that no path of record differentiates (rows 6 and 7
+# reach autograd only at the op level, as in JAX, and attention_core_op only
+# inside other VJPs there): held to their plain versions in
+# swin_routes_kernel_checks
+ROUTE_UNREACHED = {
+    "fused_mlp_preln_bwd": (0, "mvlt_tpu/ops/pallas_attn.py:3429"),
+    "swin_attn_half_bwd": (0, "mvlt_tpu/ops/pallas_attn.py:3345"),
+    "attention_core_op": (0, "mvlt_tpu/ops/pallas_attn.py:4120"),
+}
+_NO_SWIN_STEP = {**{k: (0, v[1]) for k, v in EXPECTED_SWIN_PRETRAIN.items()},
+                 **EXPECTED_PRETRAIN, **ROUTE_UNREACHED,
+                 "biased_attention_heads": (0, None),
+                 "window_block_attention_bwd": (
+                     0, "mvlt_tpu/ops/pallas_attn.py:2092")}
+# the Swin-S step of record with swin.drop_rate 0.1 (JAX's fused training
+# routes need both Swin dropout rates at 0, swin.py:285-288, 318-320): every
+# block on JAX's plain route, whose 'auto' attention is row 1 (swin.py:
+# 170-180): 24 row-1 forwards under autograd and their 24 _block_bwd's, each
+# recomputing ctx on attention_core (row 19) and differentiating through
+# attention_core_bwd (row 21); LN / Mlp / DropPath / dropout around them on
+# F.layer_norm / F.linear / F.gelu, as JAX leaves them to XLA; the fusion
+# encoder as in the step of record. 'pallas_block' at rates 0 runs the same.
+EXPECTED_SWIN_DROPOUT = {
+    **_NO_SWIN_STEP,
+    "window_block_attention": (24, "mvlt_tpu/ops/pallas_attn.py:166"),
+    "window_block_attention_bwd": (24, "mvlt_tpu/ops/pallas_attn.py:2092"),
+    "attention_core": (24, "mvlt_tpu/ops/pallas_attn.py:3614"),
+    "attention_core_bwd": (24, "mvlt_tpu/ops/pallas_attn.py:3782"),
+}
+# the Swin-S step on 'xla', and with attn_drop_rate 0.1 (which 'auto' sends
+# to 'xla'): the attention in plain torch, as JAX computes it in XLA; no
+# Swin counterpart runs, the fusion's do
+EXPECTED_SWIN_XLA = _NO_SWIN_STEP
+EXPECTED_SWIN_ROUTES = {"pallas": EXPECTED_SWIN_PALLAS,
+                        "pallas_block": EXPECTED_SWIN_DROPOUT,
+                        "xla": EXPECTED_SWIN_XLA}
+# the flagship forward with the backbone on 'pallas_block': row 1 in all 24
+# blocks (LN / Mlp on K3 / K1 around it), no row 2 / 3 / 6
+EXPECTED_PALLAS_BLOCK = {
+    **EXPECTED_PALLAS, **ROUTE_UNREACHED,
+    "window_attention": (0, "mvlt_tpu/ops/pallas_attn.py:40"),
+    "biased_attention_heads": (0, None),
+    "window_block_attention": (24, "mvlt_tpu/ops/pallas_attn.py:166"),
+}
+EXPECTED_FORWARD_ROUTES = {"auto": EXPECTED, "pallas": EXPECTED_PALLAS,
+                           "pallas_block": EXPECTED_PALLAS_BLOCK}
 # report generation at the MIMIC-CXR settings (run_report_generation.py:
 # 46-52, 70-71): b32, beam 5, caption length 150 (S = 1 + 49 + 1 + 150)
 CAPTION_TEXT, CAPTION_BEAMS = 150, 5
@@ -510,7 +575,9 @@ SWIN_COUNTERPARTS = {
     "swin_full_block_train_shift", "swin_full_block_train_store_p",
     "swin_full_block_train_shift_store_p", "swin_half_block",
     "attention_core", "attention_core_bwd", "attention_core_bwd_store_p",
-    "swin_mlp_half_bwd", "swin_qkv_tail_bwd", "full_forward_windows"}
+    "swin_mlp_half_bwd", "swin_qkv_tail_bwd", "full_forward_windows",
+    "window_block_attention_bwd", "fused_mlp_preln_bwd", "swin_attn_half_bwd",
+    "attention_core_op"}
 
 
 def two_view(expected: dict) -> dict:
@@ -2199,6 +2266,162 @@ def attn_impl_kernel_checks(chk: Checker, dev) -> None:
              nbytes=nbytes(x, *params, pat, x))
 
 
+def _same_twice(what: str, fn) -> None:
+    """Two calls of ``fn`` give bitwise equal outputs."""
+    one, two = _tensors(fn()), _tensors(fn())
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(one, two)):
+        raise AssertionError(f"{what}: two calls are not bitwise equal")
+
+
+def swin_routes_kernel_checks(chk: Checker, dev) -> None:
+    """The backward rules of JAX's plain Swin route against their plain
+    versions, each also called twice (bitwise equal) and timed beside the
+    library's autograd of the same layers (F.linear, SDPA with the patterns
+    as a bf16 mask, F.layer_norm, F.gelu: the port never calls it) and its
+    bound: row 1's (``window_block_attention_bwd``) at every Swin-S b32
+    stage with one pattern and, where the stage shifts, one per window; row
+    6's (``fused_mlp_preln_bwd``) at stage 4's 1,568 x 768 rows; row 7's
+    (``swin_attn_half_bwd``) at b32 with window 12 and C = 768, 24 heads
+    (phase 9's row-7 shape); ``attention_core_op``, forward and backward
+    through its autograd Function, at stage 3 with four patterns. Each
+    backward counts the work its function must do from its inputs: the
+    forward products it recomputes, and the attention once (S, PV, dV, dP,
+    dQ, dK: 12 BW nH N^2 Dh)."""
+    from mvlt_tpu_torch.models.backbones.swin import shifted_window_mask
+    from mvlt_tpu_torch.ops import blocks
+
+    inp = Inputs(dev, seed=17)
+    rnd, dense, ln = inp.rnd, inp.dense, inp.ln
+    bf, f32 = torch.bfloat16, torch.float32
+    B, N = TRAIN_BATCH, 49
+
+    def patterns_of(res, nH, n=N):
+        rel = rnd(1, nH, n, n, std=0.5, dtype=f32)
+        if res == 7 or n != N:
+            return [rel]
+        mask = torch.as_tensor(shifted_window_mask(res, res, 7, 3),
+                               device=dev)
+        return [rel, (rel + mask[:, None]).contiguous()]
+
+    def lib_block(BW, n, C, nH, sc, lmask, ln_=None):
+        """x -> [LN1 ->] qkv -> SDPA -> proj [+ x], in bf16 autograd."""
+        def f(x_, wq_, bq_, wp_, bp_, *lnp):
+            rows = x_.reshape(BW * n, C)
+            h = rows if not lnp else F.layer_norm(rows, (C,), *lnp, 1e-5)
+            c = lib_attention(F.linear(h, wq_, bq_), BW, n, nH, lmask, sc)
+            y = F.linear(c, wp_, bp_)
+            return (y if not lnp else y + rows).view(BW, n, C)
+        return f
+
+    # row 1's backward at the four stages
+    for res, C, nH in SWIN_STAGES:
+        BW, Dh = B * (res // 7) ** 2, C // nH
+        M, sc = BW * N, Dh ** -0.5
+        x, g = rnd(BW, N, C), rnd(BW, N, C)
+        (wq, bq), (wp, bp) = dense(C, 3 * C), dense(C, C)
+        for pat in patterns_of(res, nH):
+            P = pat.shape[0]
+            lmask = pat.to(bf)[torch.arange(BW, device=dev) % P]
+            args = (x, wq, bq, wp, pat, g, sc, nH)
+            out = blocks.window_block_attention_bwd(*args)
+            chk.case("window_block_attention_bwd",
+                     lambda args=args: blocks.window_block_attention_bwd(
+                         *args),
+                     lambda args=args: blocks.window_block_attention_bwd_plain(
+                         *args), BLOCK_BAR, floor=1e-6, graph=True,
+                     library_fn=library_backward(
+                         lib_block(BW, N, C, nH, sc, lmask),
+                         (x, wq, bq, wp, bp), g),
+                     label=f"C = {C}, P = {P}",
+                     flops=22.0 * M * C * C + 12.0 * BW * nH * N * N * Dh,
+                     nbytes=nbytes(x, wq, bq, wp, bp, pat, g, *out))
+            _same_twice(f"window_block_attention_bwd C = {C}, P = {P}",
+                        lambda args=args: blocks.window_block_attention_bwd(
+                            *args))
+
+    # row 6's backward at stage 4: x + fc2(GELU(fc1(LN2 x))) over 1,568 rows
+    C = 768
+    x, g = rnd(B, N, C), rnd(B, N, C)
+    ln2 = ln(C)
+    (w1, b1), (w2, b2) = dense(C, 4 * C), dense(4 * C, C)
+    args = (x, *ln2, w1, b1, w2, g)
+    out = blocks.fused_mlp_preln_bwd(*args)
+
+    def lib_mlp(x_, s_, b_, w1_, b1_, w2_, b2_):
+        h = F.layer_norm(x_, (C,), s_, b_, 1e-5)
+        return F.linear(F.gelu(F.linear(h, w1_, b1_)), w2_, b2_) + x_
+
+    M = B * N
+    chk.case("fused_mlp_preln_bwd", lambda: blocks.fused_mlp_preln_bwd(*args),
+             lambda: blocks.fused_mlp_preln_bwd_plain(*args), BLOCK_BAR,
+             floor=1e-6, graph=True,
+             library_fn=library_backward(
+                 lib_mlp, (x, *bf16_ln(*ln2), w1, b1, w2, b2), g),
+             label=f"{M} x {C}", flops=40.0 * M * C * C,
+             nbytes=nbytes(x, *ln2, w1, b1, w2, b2, g, *out))
+    _same_twice("fused_mlp_preln_bwd", lambda: blocks.fused_mlp_preln_bwd(
+        *args))
+
+    # row 7's backward: one 12 x 12 window per image at C = 768 (b32)
+    nH, N7 = 24, 144
+    Dh, sc = C // nH, (C // nH) ** -0.5
+    x, g = rnd(B, N7, C), rnd(B, N7, C)
+    ln1 = ln(C)
+    (wq, bq), (wp, bp) = dense(C, 3 * C), dense(C, C)
+    rel = rnd(1, nH, N7, N7, std=0.5, dtype=f32)
+    args = (x, *ln1, wq, bq, wp, rel, g, sc, nH)
+    out = blocks.swin_attn_half_bwd(*args)
+    M = B * N7
+    chk.case("swin_attn_half_bwd", lambda: blocks.swin_attn_half_bwd(*args),
+             lambda: blocks.swin_attn_half_bwd_plain(*args), BLOCK_BAR,
+             floor=1e-6, graph=True,
+             library_fn=library_backward(
+                 lib_block(B, N7, C, nH, sc, rel.to(bf)),
+                 (x, wq, bq, wp, bp, *bf16_ln(*ln1)), g),
+             label=f"window 12, C = {C}",
+             flops=22.0 * M * C * C + 12.0 * B * nH * N7 * N7 * Dh,
+             nbytes=nbytes(x, *ln1, wq, bq, wp, bp, rel, g, *out))
+    _same_twice("swin_attn_half_bwd", lambda: blocks.swin_attn_half_bwd(
+        *args))
+
+    # attention_core_op at stage 3 (128 windows, C 384, 12 heads), four
+    # patterns: the forward and the backward through its autograd Function;
+    # library: SDPA's forward and autograd backward
+    res, C, nH = 14, 384, 12
+    BW, Dh = B * (res // 7) ** 2, C // nH
+    sc = Dh ** -0.5
+    qkv, gctx = rnd(BW, N, 3 * C, std=0.5), rnd(BW, N, C)
+    pat = patterns_of(res, nH)[1]
+    lmask = pat.to(bf)[torch.arange(BW, device=dev) % pat.shape[0]]
+
+    def core_op(fn):
+        def run():
+            leaves = [t.detach().requires_grad_() for t in (qkv, pat)]
+            ctx = fn(*leaves, sc, nH)
+            return (ctx.detach(),
+                    *torch.autograd.grad(ctx, leaves, gctx))
+        return run
+
+    heads = [t.contiguous().requires_grad_() for t in qkv.view(
+        BW, N, 3, nH, Dh).permute(2, 0, 3, 1, 4).unbind(0)]
+    gheads = gctx.view(BW, N, nH, Dh).permute(0, 2, 1, 3).contiguous()
+
+    def lib_core():
+        o = F.scaled_dot_product_attention(*heads, attn_mask=lmask, scale=sc)
+        return torch.autograd.grad(o, heads, gheads)
+
+    out = core_op(blocks.attention_core_op)()
+    chk.case("attention_core_op", core_op(blocks.attention_core_op),
+             core_op(blocks.attention_core_op_plain), BLOCK_BAR, floor=1e-6,
+             graph=True, library_fn=lib_core, label=f"C = {C}, P = 4",
+             flops=12.0 * BW * nH * N * N * Dh,
+             nbytes=nbytes(qkv, pat, gctx, *out))
+    _same_twice("attention_core_op", core_op(blocks.attention_core_op))
+    print("swin routes: two calls bitwise equal for row 1's backward at 7 "
+          "shapes, rows 6's and 7's and attention_core_op", flush=True)
+
+
 def long_attention_checks(chk: Checker, dev) -> None:
     """K2 and K4 at the sequence lengths their tilings opened (ROADMAP A9):
     a 196-token image (ViT-B/16 or the linear patch) with BERT text of 23
@@ -3098,6 +3321,51 @@ def other_backbone_phases(dev, card: str) -> dict:
     return out
 
 
+def swin_routes_main() -> int:
+    """``python3 chip_smoke.py --swin-routes``: phases 1-2 and the swin
+    routes phase only (the backward rules of rows 1, 6 and 7 and
+    ``attention_core_op`` against their plain versions, the Swin-S step
+    with ``drop_rate`` 0.1, the 'pallas_block' forward and step, the 'xla'
+    and ``attn_drop_rate`` steps), without the kernels line."""
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    swin_routes_kernel_checks(Checker(), dev)
+    with switches(False):
+        swin_route_phases(dev, card)
+    return 0
+
+
+def swin_route_phases(dev, card: str) -> dict:
+    """The five phases of JAX's plain Swin route, each printing its
+    seconds. Returns their launch counts by path."""
+    from mvlt_tpu_torch import flagship
+    phases = {
+        "swin_dropout_train_step": lambda: pretrain_phase(
+            dev, card, timed_steps=4, swin=True,
+            config=flagship.flagship_swin_dropout_pretrain_config(),
+            label="Swin-S pretrain step with swin.drop_rate 0.1",
+            expected=EXPECTED_SWIN_DROPOUT, versus_record=True),
+        "vqa_forward_pallas_block": lambda: forward_phase(
+            dev, card, attn_impl="pallas_block"),
+        "swin_pretrain_pallas_block_train_step": lambda: pretrain_phase(
+            dev, card, timed_steps=4, swin=True, attn_impl="pallas_block"),
+        "swin_pretrain_xla_train_step": lambda: pretrain_phase(
+            dev, card, timed_steps=0, swin=True, attn_impl="xla"),
+        "swin_attn_dropout_train_step": lambda: pretrain_phase(
+            dev, card, timed_steps=0, swin=True,
+            config=flagship.flagship_swin_attn_dropout_pretrain_config(),
+            label="Swin-S pretrain step with swin.drop_rate and "
+                  "attn_drop_rate 0.1", expected=EXPECTED_SWIN_XLA)}
+    out = {}
+    for path, phase in phases.items():
+        t0 = time.perf_counter()
+        out[path] = phase()
+        print(f"{path} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     started = start()
     if started is None:
@@ -3122,6 +3390,7 @@ def main() -> int:
     swin_gemm_checks(chk, dev)
     optin_kernel_checks(chk, dev)
     attn_impl_kernel_checks(chk, dev)
+    swin_routes_kernel_checks(chk, dev)
     caption_kernel_checks(chk, dev)
     iu_xray_kernel_checks(chk, dev)
     retrieval_kernel_checks(chk, dev)
@@ -3143,6 +3412,7 @@ def main() -> int:
         by_path["retrieval_grid"] = retrieval_grid_phase(dev, card)
         by_path["retrieval_step"] = retrieval_step_phase(dev, card)
         by_path.update(other_backbone_phases(dev, card))
+        by_path.update(swin_route_phases(dev, card))
         by_path["vqa_driver"] = vqa_driver_subprocess()
         by_path["pretrain_driver"] = pretrain_driver_subprocess(
             by_path["swin_pretrain_train_step"])
@@ -3165,7 +3435,8 @@ def main() -> int:
                     **EXPECTED_CAPTION_STEP, **EXPECTED_RETRIEVAL_GRID,
                     **EXPECTED_RETRIEVAL_STEP, **EXPECTED_VIT_FORWARD,
                     **EXPECTED_VIT_PRETRAIN, **EXPECTED_LINEAR_TRAIN,
-                    **EXPECTED_SWIN_BASE_FORWARD}
+                    **EXPECTED_SWIN_BASE_FORWARD, **EXPECTED_PALLAS_BLOCK,
+                    **EXPECTED_SWIN_XLA, **EXPECTED_SWIN_DROPOUT}
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces})
@@ -3316,14 +3587,14 @@ def forward_phase(dev, card: str, attn_impl: str = "auto", config=None,
     """The flagship b8 VQA forward (or the VQA forward of ``config``,
     ``label`` in the lines, held to ``expected`` launch counts) with the
     backbone on ``attn_impl``: launch counts, logits vs plain, times (in
-    turns with the plain versions, or, on 'pallas', with the forward on
-    'auto'). With ``seq_n`` every K2 launch must run at N = ``seq_n``, and
-    the counts gain the ``*_long_n`` rows' launches. Returns the launch
-    counts of one forward."""
+    turns with the plain versions, or, on 'pallas' / 'pallas_block', with
+    the forward on 'auto'). With ``seq_n`` every K2 launch must run at N =
+    ``seq_n``, and the counts gain the ``*_long_n`` rows' launches. Returns
+    the launch counts of one forward."""
     from mvlt_tpu_torch.flagship import build_vqa_forward
     from mvlt_tpu_torch.ops import kernels
-    pallas = attn_impl == "pallas"
-    expected = expected or (EXPECTED_PALLAS if pallas else EXPECTED)
+    routed = attn_impl != "auto"
+    expected = expected or EXPECTED_FORWARD_ROUTES[attn_impl]
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3366,11 +3637,11 @@ def forward_phase(dev, card: str, attn_impl: str = "auto", config=None,
         raise AssertionError(f"forward logits differ from plain: {err} > "
                              f"{LOGITS_BAR * scale}")
 
-    if pallas:            # the same weights on 'auto', timed in turns
+    if routed:            # the same weights on 'auto', timed in turns
         auto, _ = build_vqa_forward(batch=8, device=dev)
         calls = {"auto": lambda: auto(image, question),
-                 "pallas": lambda: forward(image, question)}
-        turns = ("auto", "pallas", "pallas", "auto")
+                 attn_impl: lambda: forward(image, question)}
+        turns = ("auto", attn_impl, attn_impl, "auto")
     else:
         calls = {"plain": lambda: forward(image, question, plain=True),
                  "kernels": lambda: forward(image, question)}
@@ -3493,7 +3764,7 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
                    swin: bool = False, with_switches: bool = False,
                    attn_impl: str = "auto", config=None, label: str = None,
                    expected: dict = None, bars=None,
-                   seq_n: int = None) -> dict:
+                   seq_n: int = None, versus_record: bool = False) -> dict:
     """The MLM+ITM pretrain train step (ResNet-101, or with ``swin`` the
     step of record on Swin-S with DropPath 0.3, + BERT-base, S = 131, b32,
     dropout 0.1) on the kernels and on the plain versions from one seed;
@@ -3509,7 +3780,11 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     (auto, pallas, pallas, auto), each with its peak memory. ``config``
     (with ``label``, ``expected`` launch counts and gradient ``bars``)
     builds the step of another model; with ``seq_n`` every K2 / K4 launch
-    must run at N = ``seq_n``. Returns the launch counts of one step."""
+    must run at N = ``seq_n``. On 'pallas_block' / 'xla' the backbone is on
+    that route as on 'pallas'; with ``versus_record`` (Swin-S) the turns are
+    the step of record and this one (record, this, this, record);
+    ``timed_steps=0`` leaves the timing out. Returns the launch counts of
+    one step."""
     import functools
     from mvlt_tpu_torch import flagship
     from mvlt_tpu_torch.models.backbones.adapter import image_tokens
@@ -3520,17 +3795,17 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     build = functools.partial(flagship.build_swin_pretrain_train_step if swin
                               else flagship.build_pretrain_train_step,
                               config=config)
-    pallas = attn_impl == "pallas"
+    routed = attn_impl != "auto"
     expected = expected or (EXPECTED_SWITCHES if with_switches
-                            else EXPECTED_SWIN_PALLAS if pallas
+                            else EXPECTED_SWIN_ROUTES[attn_impl] if routed
                             else EXPECTED_SWIN_PRETRAIN if swin
                             else EXPECTED_PRETRAIN)
     bars = bars or (swin_bars if swin else resnet_bars)
     label = label or ("Swin-S pretrain step" if swin else "pretrain step")
     if with_switches:
         label += " with MVLT_KERNEL_DROPOUT=1 MVLT_STOREP=1"
-    if pallas:
-        label += " with attn_impl='pallas'"
+    if routed:
+        label += f" with attn_impl={attn_impl!r}"
     gc.collect()          # a step refers to itself: free the last phase's
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3612,16 +3887,23 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
                 raise AssertionError(f"step {i + 1} {name} {a} vs plain {b} "
                                      f"beyond {LOSS_BAR} relative")
 
+    if not timed_steps:
+        print(f"{label}: checked and counted, not timed", flush=True)
+        return counts
     # turns: plain vs kernels, the kernel step with the switches off / on,
-    # or the kernel step on 'auto' / 'pallas'
+    # the kernel step on 'auto' / another route, or the step of record /
+    # this one
+    versus = "auto" if routed else "record" if versus_record else None
+    mine = attn_impl if routed else "this"
     turns = (("off", "on", "on", "off") if with_switches
-             else ("auto", "pallas", "pallas", "auto") if pallas
+             else (versus, mine, mine, versus) if versus
              else ("plain", "kernels", "kernels", "plain"))
     steps = {"plain": (step_p, batch_p)}
-    if pallas:
+    if versus:
         del step_p, steps["plain"]
         gc.collect()
-        steps["auto"] = build(batch=B, text_len=PRETRAIN_TEXT, device=dev)
+        steps[versus] = flagship.build_swin_pretrain_train_step(
+            batch=B, text_len=PRETRAIN_TEXT, device=dev)
     times = {t: [] for t in turns}
     peak, resident = {}, {}
     for which in turns:
@@ -3645,9 +3927,10 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     ms = {t: sum(v) / len(v) for t, v in times.items()}
     gib = {t: f"{v / 2 ** 30:.3f} GiB (with {resident[t] / 2 ** 30:.3f} GiB "
               "resident, both models)" for t, v in peak.items()}
-    if with_switches or pallas:
+    if with_switches or versus:
         a, b = turns[:2]
-        what = "switches" if with_switches else "attn_impl"
+        what = ("switches" if with_switches else "attn_impl" if routed
+                else f"the step of record vs {label}:")
         print(f"MLM+ITM Swin-S pretrain step b{B} (S = {S}) on {card}, "
               f"kernels: {what} {a} {ms[a]:.3f} ms/step "
               f"({B * 1e3 / ms[a]:.1f} samples/s), {b} {ms[b]:.3f} "
@@ -5621,7 +5904,8 @@ if __name__ == "__main__":
              "--pretrain-driver": pretrain_driver_main,
              "--caption-driver": caption_driver_main,
              "--retrieval-driver": retrieval_driver_main,
-             "--backbones": backbones_main}
+             "--backbones": backbones_main,
+             "--swin-routes": swin_routes_main}
     flags = sys.argv[1:]
     LOADER_PACE = "--loader-pace" in flags
     flags = [f for f in flags if f != "--loader-pace"]

@@ -44,6 +44,13 @@
   the ``build_*`` function above it; the report generation ones refuse a
   fusion sequence beyond K2 / K4's N <= 288 on the card
   (:func:`~mvlt_tpu_torch.models.heads.check_fusion_fits`).
+- The Swin-S step of record with Swin dropout (``swin.drop_rate`` 0.1, and
+  a variant with ``attn_drop_rate`` 0.1 too): every block trains on JAX's
+  plain route (row 1 and its VJP; the XLA attention with dropout on its
+  probabilities in the variant). The configs pass as ``config=`` to
+  ``build_swin_pretrain_train_step``; the Swin route (``attn_impl``) is
+  chosen as JAX's tests choose it, by building the backbone with it (JAX's
+  drivers expose no option).
 
 Weights are random, drawn from a numpy seed: normal(0, 0.02) for every dense
 and conv weight, bias, embedding and relative-position table, and LayerNorm
@@ -100,6 +107,28 @@ def flagship_swin_pretrain_config() -> MVLTConfig:
     it from ``flagship_vqa_config()``."""
     return dataclasses.replace(flagship_vqa_config(), itm_task=True,
                                max_length=80)
+
+
+def flagship_swin_dropout_pretrain_config() -> MVLTConfig:
+    """The Swin-S step of record (:func:`flagship_swin_pretrain_config`: b32,
+    S = 131, DropPath 0.3, fusion dropouts 0.1) with ``swin.drop_rate =
+    0.1``. JAX's fused training routes need both Swin dropout rates at 0
+    (``swin.py:285-288, 318-320``), so every block trains on its plain
+    route, whose attention 'auto' resolves to ``window_block_attention``
+    (row 1) and its VJP ``_block_bwd``."""
+    cfg = flagship_swin_pretrain_config()
+    return dataclasses.replace(
+        cfg, swin=dataclasses.replace(cfg.swin, drop_rate=0.1))
+
+
+def flagship_swin_attn_dropout_pretrain_config() -> MVLTConfig:
+    """:func:`flagship_swin_dropout_pretrain_config` with ``swin.
+    attn_drop_rate = 0.1`` as well: the plain route's attention resolves to
+    the XLA attention with dropout on its probabilities (``swin.py:170-180,
+    216-228``)."""
+    cfg = flagship_swin_dropout_pretrain_config()
+    return dataclasses.replace(
+        cfg, swin=dataclasses.replace(cfg.swin, attn_drop_rate=0.1))
 
 
 def flagship_caption_config() -> MVLTConfig:

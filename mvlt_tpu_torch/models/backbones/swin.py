@@ -27,14 +27,24 @@ kernels ran:
   heads whose window-pair-merged N is <= 128 stores its softmax for the
   backward (:func:`stores_p`; the 18 stage-3 blocks of Swin-S).
 
-``SwinTransformer(..., attn_impl='pallas')`` routes every block, serving and
-training, through JAX's plain route (``swin.py:338-366``) with
-``window_attention`` as the attention: LN1 -> qkv dense -> ``window_attention``
--> proj dense -> ``x + DropPath`` -> LN2 -> ``Mlp`` -> ``+ DropPath``, the
-shift done by roll, each DropPath mask a (B, 1, 1) draw as flax draws it
-(:func:`~mvlt_tpu_torch.ops.layers.drop_path_masks`). ``'auto'`` (the
-default) is the routing above; JAX's other values are not ported
-(:func:`check_attn_impl`). ``VisualAdapter`` passes no option, as in JAX.
+JAX's plain route (``swin.py:338-366``): LN1 -> roll -> partition ->
+``WindowAttention`` (:meth:`SwinBlock._window_attention`) -> reverse -> roll ->
+``x + DropPath`` -> LN2 -> ``Mlp`` (with its two dropouts) -> ``+ DropPath``,
+each DropPath mask a (B, 1, 1) draw as flax draws it
+(:func:`~mvlt_tpu_torch.ops.layers.drop_path_mask`). Every block takes it on
+``attn_impl`` 'pallas', 'pallas_block' and 'xla', serving and training; on
+'auto' (the default) a block trains on it when a dropout rate is above 0
+(``drop_rate`` or ``attn_drop_rate``: JAX's fused training routes need both
+at 0, ``train_ok`` / ``train_half_ok``, swin.py:285-288, 318-320), and
+serves on the fused routes above whatever the rates. The attention there is
+``window_attention`` (row 8) on 'pallas', ``window_block_attention`` (row 1,
+with its VJP) on 'pallas_block', and on 'xla' a plain torch attention (JAX
+computes it in XLA) with the attention dropout on its probabilities; 'auto'
+resolves as JAX on the TPU does (swin.py:170-180): 'pallas_block', or 'xla'
+when attention dropout is active. Masks are drawn where JAX draws them: the
+position dropout after the patch embedding, then per block the attention
+dropout, ``proj_drop``, ``drop_path1``, the MLP's two dropouts and
+``drop_path2``. ``VisualAdapter`` passes no option, as in JAX.
 
 The relative-position bias is built as JAX builds it, ``onehot @ table``
 (``rel_bias_from_table``, ``swin.py:67-85``), so its backward is a product and
@@ -52,8 +62,8 @@ from torch import nn
 
 from mvlt_tpu_torch.config import SwinConfig
 from mvlt_tpu_torch.ops.layers import (SWIN_LN_EPS, Dense, LayerNorm, Mlp,
-                                       drop_path, drop_path_masks,
-                                       drop_path_multipliers)
+                                       drop_path, drop_path_mask,
+                                       drop_path_multipliers, dropout)
 from mvlt_tpu_torch.utils.env import env_flag
 
 
@@ -157,26 +167,43 @@ def attn_half_admits(n_windows: int, N: int, C: int, n_patterns: int,
     return not misfit(G)
 
 
-# JAX's attn_impl values that the port does not route (JAX's interpret
-# modes run its Pallas kernels on the CPU, for its tests)
-_UNPORTED_ATTN_IMPLS = ("xla", "pallas_block", "interpret", "interpret_full",
-                        "interpret_half", "interpret_block")
+# the attn_impl values the port routes, and JAX's CPU test modes (its
+# Pallas kernels in interpret mode), which it does not
+ATTN_IMPLS = ("auto", "pallas", "pallas_block", "xla")
+_INTERPRET_ATTN_IMPLS = ("interpret", "interpret_full", "interpret_half",
+                         "interpret_block")
 
 
 def check_attn_impl(attn_impl: str) -> str:
-    """``attn_impl`` if the port routes it (``'auto'`` or ``'pallas'``);
-    JAX's other values raise ``NotImplementedError``, anything else
+    """``attn_impl`` if the port routes it (:data:`ATTN_IMPLS`); JAX's
+    'interpret*' values raise ``NotImplementedError``, anything else
     ``ValueError``."""
-    if attn_impl in ("auto", "pallas"):
+    if attn_impl in ATTN_IMPLS:
         return attn_impl
-    if attn_impl in _UNPORTED_ATTN_IMPLS:
+    if attn_impl in _INTERPRET_ATTN_IMPLS:
         raise NotImplementedError(
-            f"attn_impl={attn_impl!r} is not ported: the port routes 'auto' "
-            "and 'pallas'; 'xla' and 'pallas_block' are ROADMAP.md queue A, "
-            "and the 'interpret*' values are the JAX package's CPU modes")
+            f"attn_impl={attn_impl!r} is one of the JAX package's CPU test "
+            f"modes; the port routes {ATTN_IMPLS} (ROADMAP.md queue A, item "
+            "12)")
     raise ValueError(f"unknown attn_impl {attn_impl!r}: the port routes "
-                     "'auto' and 'pallas' (ROADMAP.md queue A lists the rest "
-                     "of the JAX package's values)")
+                     f"{ATTN_IMPLS} (ROADMAP.md queue A, item 12, lists the "
+                     "JAX package's values)")
+
+
+def window_attention_xla(q, k, v, bias, scale: float, masks=None,
+                         rate: float = 0.0) -> torch.Tensor:
+    """``WindowAttention``'s XLA attention (swin.py:216-228) in plain torch:
+    q, k, v (BW, nH, N, Dh), bias (P, nH, N, N) f32, window g using
+    ``bias[g % P]``. Scores ``(q * scale) k^T`` in f32, softmax in f32
+    rounded to q's dtype, the attention dropout on the probabilities
+    (a (BW, nH, N, N) draw from ``masks`` when ``rate`` > 0), then ``p v``.
+    Returns ctx (BW, nH, N, Dh)."""
+    BW, nH, N, _ = q.shape
+    P = bias.shape[0]
+    s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    s = (s.view(BW // P, P, nH, N, N) + bias).view(BW, nH, N, N)
+    p = dropout(torch.softmax(s, dim=-1).to(q.dtype), masks, rate)
+    return torch.matmul(p, v)
 
 
 def stores_p(num_heads: int, N: int, n_windows: int, n_patterns: int,
@@ -198,13 +225,15 @@ def stores_p(num_heads: int, N: int, n_windows: int, n_patterns: int,
 
 class SwinBlock(nn.Module):
     """(S)W-MSA + MLP block, pre-LN, with stochastic depth at rate
-    ``drop_path`` in training (swin.py:235-366)."""
+    ``drop_path`` and dropout at rates ``drop`` (hidden) and ``attn_drop``
+    (attention probabilities) in training (swin.py:235-366)."""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float, qkv_bias: bool, qk_scale,
                  drop_path: float = 0.0, *, dtype: torch.dtype, device,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         self.attn_impl = check_attn_impl(attn_impl)
         H, W = input_resolution
@@ -215,7 +244,7 @@ class SwinBlock(nn.Module):
             window, shift = min(input_resolution), 0
         self.dim, self.resolution = dim, (H, W)
         self.window, self.shift, self.num_heads = window, shift, num_heads
-        self.drop_path = drop_path
+        self.drop_path, self.drop, self.attn_drop = drop_path, drop, attn_drop
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.norm1 = LayerNorm(dim, SWIN_LN_EPS, device=device)
         self.qkv = Dense(dim, 3 * dim, qkv_bias, dtype=dtype, device=device)
@@ -224,7 +253,8 @@ class SwinBlock(nn.Module):
             (2 * window - 1) ** 2, num_heads, dtype=torch.float32,
             device=device))
         self.norm2 = LayerNorm(dim, SWIN_LN_EPS, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, dtype=dtype,
+                       device=device)
         N = window * window
         self.register_buffer("rel_onehot", torch.as_tensor(
             relative_position_onehot(window, window), device=device),
@@ -258,9 +288,10 @@ class SwinBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, ops, masks=None) -> torch.Tensor:
         """x (B, H*W, C); ``masks`` (a :class:`DropoutMasks`) turns DropPath
-        on."""
-        if self.attn_impl == "pallas":
-            return self._pallas_forward(x, ops, masks)
+        and dropout on."""
+        if self.attn_impl != "auto" or (masks is not None and (
+                self.drop > 0.0 or self.attn_drop > 0.0)):
+            return self._plain_forward(x, ops, masks)
         H, W = self.resolution
         B, L, C = x.shape
         window, shift = self.window, self.shift
@@ -292,28 +323,55 @@ class SwinBlock(nn.Module):
                                     self.num_heads, shift_spec=spec)
         return window_reverse(y, window, H, W).reshape(B, L, C)
 
-    def _pallas_forward(self, x, ops, masks):
-        """JAX's plain route (swin.py:338-366) with ``window_attention``."""
+    def _plain_forward(self, x, ops, masks):
+        """JAX's plain route (swin.py:338-366)."""
         H, W = self.resolution
         B, L, C = x.shape
-        window, shift, nH = self.window, self.shift, self.num_heads
+        window, shift = self.window, self.shift
         h = self.norm1(x, ops).view(B, H, W, C)
         if shift:
             h = torch.roll(h, (-shift, -shift), (1, 2))
-        windows = window_partition(h, window)
-        BW, N = windows.shape[:2]
-        q, k, v = self.qkv(windows, ops).view(BW, N, 3, nH, C // nH).permute(
-            2, 0, 3, 1, 4).unbind(0)
-        ctx = ops.window_attention(q, k, v, self.attention_bias(), self.scale)
-        a = self.proj(ctx.transpose(1, 2).reshape(BW, N, C), ops)
-        a = window_reverse(a, window, H, W)
+        a = window_reverse(self._window_attention(window_partition(h, window),
+                                                  ops, masks), window, H, W)
         if shift:
             a = torch.roll(a, (shift, shift), (1, 2))
-        m1, m2 = drop_path_masks(masks, self.drop_path, B, x.device) or (
-            None, None)
-        x = x + drop_path(a.reshape(B, L, C), m1, self.drop_path)
-        y = self.mlp(self.norm2(x, ops), ops)
-        return x + drop_path(y, m2, self.drop_path)
+        rate = self.drop_path
+        x = x + drop_path(a.reshape(B, L, C),
+                          drop_path_mask(masks, rate, B, x.device), rate)
+        y = self.mlp(self.norm2(x, ops), ops, masks)
+        return x + drop_path(y, drop_path_mask(masks, rate, B, x.device), rate)
+
+    def _window_attention(self, windows, ops, masks):
+        """``WindowAttention`` (swin.py:123-233) on (B*nW, N, C) windows,
+        ending in ``proj_drop``."""
+        impl = self.attn_impl
+        attn_drop = masks is not None and self.attn_drop > 0.0
+        if impl == "auto":
+            impl = "xla" if attn_drop else "pallas_block"
+        elif attn_drop and impl != "xla":
+            raise ValueError(
+                f"attn_impl={impl!r} cannot apply attention dropout "
+                f"(attn_drop_rate={self.attn_drop}); use attn_impl='auto' or "
+                "'xla' for training with attention dropout")
+        BW, N, C = windows.shape
+        nH, dt = self.num_heads, windows.dtype
+        bias = self.attention_bias()
+        if impl == "pallas_block":
+            qkv, proj = self.qkv, self.proj
+            out = ops.window_block_attention(
+                windows, qkv.weight.to(dt), _cast(qkv.bias, dt),
+                proj.weight.to(dt), _cast(proj.bias, dt), bias, self.scale,
+                nH)
+        else:
+            q, k, v = self.qkv(windows, ops).view(
+                BW, N, 3, nH, C // nH).permute(2, 0, 3, 1, 4).unbind(0)
+            if impl == "pallas":
+                ctx = ops.window_attention(q, k, v, bias, self.scale)
+            else:
+                ctx = window_attention_xla(q, k, v, bias, self.scale, masks,
+                                           self.attn_drop)
+            out = self.proj(ctx.transpose(1, 2).reshape(BW, N, C), ops)
+        return dropout(out, masks, self.drop)
 
     def _half_blocks(self, windows, bias, ops):
         """Serving a block too wide for the whole-block kernel. Where the
@@ -350,6 +408,10 @@ class SwinBlock(nn.Module):
         return ops.fused_mlp_preln(y, self.norm2.weight, self.norm2.bias,
                                    mlp.fc1.weight.to(dt), mlp.fc1.bias.to(dt),
                                    mlp.fc2.weight.to(dt), mlp.fc2.bias.to(dt))
+
+
+def _cast(t, dtype):
+    return None if t is None else t.to(dtype)
 
 
 class PatchMerging(nn.Module):
@@ -399,8 +461,8 @@ class SwinTransformer(nn.Module):
     """Hierarchical Swin encoder returning all final-stage tokens
     (B, H/32 * W/32, num_features) after the final LN (swin.py:587-649).
     ``dtype`` is the parameters' dtype, ``compute_dtype`` (default: the
-    same) the activations'. ``attn_impl`` ('auto' or 'pallas') goes to
-    every block, as JAX's option does."""
+    same) the activations'. ``attn_impl`` (one of :data:`ATTN_IMPLS`) goes
+    to every block, as JAX's option does."""
 
     def __init__(self, config: SwinConfig, *, dtype: torch.dtype, device,
                  compute_dtype=None, attn_impl: str = "auto"):
@@ -429,7 +491,8 @@ class SwinTransformer(nn.Module):
                           0 if j % 2 == 0 else cfg.window_size // 2,
                           cfg.mlp_ratio, cfg.qkv_bias, cfg.qk_scale,
                           float(dpr[offset + j]), dtype=dtype, device=device,
-                          attn_impl=attn_impl)
+                          attn_impl=attn_impl, drop=cfg.drop_rate,
+                          attn_drop=cfg.attn_drop_rate)
                 for j in range(cfg.depths[i])]))
             if i < cfg.num_layers - 1:
                 self.downsamples.append(PatchMerging(res, dim, dtype=dtype,
@@ -437,16 +500,14 @@ class SwinTransformer(nn.Module):
         self.norm = LayerNorm(cfg.num_features, SWIN_LN_EPS, device=device)
 
     def forward(self, x: torch.Tensor, ops, masks=None) -> torch.Tensor:
-        """``masks`` (a :class:`DropoutMasks`) turns DropPath on; its draws
-        come in block order."""
+        """``masks`` (a :class:`DropoutMasks`) turns DropPath and dropout
+        on; its draws come in order: the position dropout, then block by
+        block."""
         cfg = self.config
-        if masks is not None and (cfg.drop_rate or cfg.attn_drop_rate):
-            raise NotImplementedError(
-                "Swin training with drop_rate / attn_drop_rate above 0 is not "
-                "ported (the JAX kernel routes need both at 0, swin.py:285)")
         if x.shape[1] == cfg.in_chans and x.shape[1] != x.shape[2]:
             x = x.permute(0, 2, 3, 1)            # NCHW accepted (swin.py:605)
         x = self.patch_embed(x.to(self.dtype), ops)
+        x = dropout(x, masks, cfg.drop_rate)      # swin.py:617
         for i, blocks in enumerate(self.stages):
             for block in blocks:
                 x = block(x, ops, masks)

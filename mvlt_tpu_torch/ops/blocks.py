@@ -2,7 +2,8 @@
 steps (VQA finetune, MLM+ITM pretrain), of the Swin backbone's training
 step and of its ``attn_impl='pallas'`` route, and the three that no entry
 point reaches, rebuilt from K1-K5: every ``pl.pallas_call`` of
-``mvlt_tpu/ops/pallas_attn.py`` has a counterpart here.
+``mvlt_tpu/ops/pallas_attn.py``, and every backward rule around one, has a
+counterpart here.
 
 Each public function is named after its JAX counterpart in
 ``mvlt_tpu/ops/pallas_attn.py`` and takes the same arguments, with dense
@@ -65,6 +66,18 @@ port function                TPU kernel it replaces
 ``full_forward_windows``     ``_full_kernel_windows`` (:1161, entry
                              ``_full_forward_windows`` :1206), as
                              ``swin_full_block``
+``window_block_attention``   ``_block_bwd`` (:2092), which recomputes with
+  under autograd             ``attention_core`` and differentiates through
+                             ``attention_core_bwd``: K1 + K2 + K1 + K5 +
+                             K4 (pattern) (``window_block_attention_bwd``)
+``fused_mlp_preln``          ``_mlp_preln_bwd`` (:3429, a ``jax.vjp`` of
+  under autograd             the XLA reference), on K3 + K1 + K5
+                             (``fused_mlp_preln_bwd``)
+``swin_attn_half``           ``_attn_half_bwd`` (:3345, a ``jax.vjp`` of
+  under autograd             the XLA reference), on K3 + K1 + K2 + K4 +
+                             ``swin_qkv_tail_bwd`` (``swin_attn_half_bwd``)
+``attention_core_op``        ``_core_op_fwd`` / ``_core_op_bwd`` (:4131),
+                             row 19 forward, row 21 backward
 ===========================  ==========================================
 
 The masked twins take the dropout masks as inputs, as the JAX kernels do
@@ -224,20 +237,8 @@ def _swin_full_block(p, x, params, bias, scale: float, num_heads: int, *,
     return out.view(BW, N, C)
 
 
-def _refuse_autograd(name: str, vjp: str, *tensors) -> None:
-    """Raise ``NotImplementedError`` when a gradient is needed through a
-    forward whose VJP the port does not have yet, on every device (the
-    kernels called through ctypes carry no ``grad_fn``)."""
-    if _needs_grad(*tensors):
-        raise NotImplementedError(
-            f"{name} has no backward in the port: its VJP ({vjp}) is "
-            "ROADMAP.md queue A, 'Autograd through rows 1, 6 and 7'")
-
-
-def _window_block_attention(p, x, wqkv, bqkv, wproj, bproj, bias,
-                            scale: float, num_heads: int, residual=None):
-    _refuse_autograd("window_block_attention", "_block_bwd, pallas_attn.py"
-                     ":2092", x, wqkv, bqkv, wproj, bproj, bias, residual)
+def _block_forward(p, x, wqkv, bqkv, wproj, bproj, bias, scale, num_heads,
+                   residual=None):
     BW, N, C = x.shape
     qkv = p.gemm(x.reshape(BW * N, C), wqkv, bqkv)
     ctx = p.attention(qkv, num_heads, N, scale, pattern=bias)
@@ -245,13 +246,118 @@ def _window_block_attention(p, x, wqkv, bqkv, wproj, bproj, bias,
     return p.gemm(ctx, wproj, bproj, residual=res).view(BW, N, C)
 
 
-def _fused_mlp_preln(p, x, ln2s, ln2b, w1, b1, w2, b2):
-    _refuse_autograd("fused_mlp_preln", "_mlp_preln_bwd, pallas_attn.py"
-                     ":3429", x, ln2s, ln2b, w1, b1, w2, b2)
+class _WindowBlockAttention(torch.autograd.Function):
+    """``window_block_attention`` with the VJP of ``_block_bwd``
+    (pallas_attn.py:2092): it saves the inputs and recomputes qkv and ctx,
+    as JAX does."""
+
+    @staticmethod
+    def forward(ctx, p, x, wqkv, bqkv, wproj, bproj, bias, residual, scale,
+                num_heads):
+        ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, bias)
+        ctx.p, ctx.dims = p, (scale, num_heads)
+        return _block_forward(p, x, wqkv, bqkv, wproj, bproj, bias, scale,
+                              num_heads, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wqkv, bqkv, wproj, bproj, bias = ctx.saved_tensors
+        dx, dwqkv, dbqkv, dwproj, dbproj, dbias = \
+            ctx.p.window_block_attention_bwd(x, wqkv, bqkv, wproj, bias, g,
+                                             *ctx.dims)
+        # the folded residual takes the cotangent as it is
+        dres = g if ctx.needs_input_grad[7] else None
+        return (None, dx, _cast(dwqkv, wqkv), _cast(dbqkv, bqkv),
+                _cast(dwproj, wproj), _cast(dbproj, bproj),
+                dbias if ctx.needs_input_grad[6] else None, dres, None, None)
+
+
+def _window_block_attention(p, x, wqkv, bqkv, wproj, bproj, bias,
+                            scale: float, num_heads: int, residual=None):
+    if _needs_grad(x, wqkv, bqkv, wproj, bproj, bias, residual):
+        return _WindowBlockAttention.apply(p, x, wqkv, bqkv, wproj, bproj,
+                                           bias, residual, scale, num_heads)
+    return _block_forward(p, x, wqkv, bqkv, wproj, bproj, bias, scale,
+                          num_heads, residual)
+
+
+def _proj_bwd(p, ctx2, g2, wproj):
+    """The VJP of ``ctx Wproj^T + bproj`` on rows: (K1 tn dWproj f32, K5
+    dbproj, K1 nn dctx in g2's dtype)."""
+    return (p.gemm(g2, ctx2, layout="tn", out_dtype=torch.float32),
+            p.column_sum(g2), p.gemm(g2, wproj, layout="nn"))
+
+
+def _qkv_bwd(p, x2, dqkv2, wqkv):
+    """The VJP of ``x Wqkv^T + bqkv`` on rows: (K1 tn dWqkv f32, K5 dbqkv,
+    K1 nn dx in dqkv2's dtype)."""
+    return (p.gemm(dqkv2, x2, layout="tn", out_dtype=torch.float32),
+            p.column_sum(dqkv2), p.gemm(dqkv2, wqkv, layout="nn"))
+
+
+def _window_block_attention_bwd(p, x, wqkv, bqkv, wproj, bias, g,
+                                scale: float, num_heads: int):
+    BW, N, C = x.shape
+    x2 = x.reshape(BW * N, C).contiguous()
+    qkv = p.gemm(x2, wqkv, bqkv)                          # recompute (K1)
+    ctx2 = p.attention_core(qkv.view(BW, N, 3 * C), bias, scale,
+                            num_heads).view(BW * N, C)    # and K2
+    g2 = g.reshape(BW * N, C).to(x.dtype).contiguous()
+    dwproj, dbproj, dctx = _proj_bwd(p, ctx2, g2, wproj)
+    dqkv, dbias = p.attention_core_bwd(qkv, dctx, bias, N, scale, num_heads)
+    dwqkv, dbqkv, dx = _qkv_bwd(p, x2, dqkv, wqkv)
+    return dx.view(BW, N, C), dwqkv, dbqkv, dwproj, dbproj, dbias
+
+
+def _mlp_preln_forward(p, x, ln2s, ln2b, w1, b1, w2, b2):
     rows = x.reshape(-1, x.shape[-1])
     h = p.layernorm(rows, ln2s, ln2b, SWIN_LN_EPS)
     m = p.gemm(h, w1, b1, gelu=True)
     return p.gemm(m, w2, b2, residual=rows).view(x.shape)
+
+
+class _MlpPreLN(torch.autograd.Function):
+    """``fused_mlp_preln`` with the VJP of ``_mlp_preln_bwd``
+    (pallas_attn.py:3429), recomputing LN2 and fc1 from the saved x."""
+
+    @staticmethod
+    def forward(ctx, p, x, ln2s, ln2b, w1, b1, w2, b2):
+        ctx.save_for_backward(x, ln2s, ln2b, w1, b1, w2, b2)
+        ctx.p = p
+        return _mlp_preln_forward(p, x, ln2s, ln2b, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln2s, ln2b, w1, b1, w2, b2 = ctx.saved_tensors
+        dx, dln2s, dln2b, dw1, db1, dw2, db2 = ctx.p.fused_mlp_preln_bwd(
+            x, ln2s, ln2b, w1, b1, w2, g)
+        return (None, dx, dln2s, dln2b, _cast(dw1, w1), _cast(db1, b1),
+                _cast(dw2, w2), _cast(db2, b2))
+
+
+def _fused_mlp_preln(p, x, ln2s, ln2b, w1, b1, w2, b2):
+    if _needs_grad(x, ln2s, ln2b, w1, b1, w2, b2):
+        return _MlpPreLN.apply(p, x, ln2s, ln2b, w1, b1, w2, b2)
+    return _mlp_preln_forward(p, x, ln2s, ln2b, w1, b1, w2, b2)
+
+
+def _fused_mlp_preln_bwd(p, x, ln2s, ln2b, w1, b1, w2, g,
+                         eps: float = SWIN_LN_EPS):
+    f32 = torch.float32
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    g2 = g.reshape(x2.shape).to(x.dtype).contiguous()
+    h2 = p.layernorm(x2, ln2s, ln2b, eps)                 # LN2 recompute
+    m, a1 = p.gemm(h2, w1, b1, gelu=True, save_preact=True)
+    db2 = p.column_sum(g2)
+    dw2 = p.gemm(g2, m, layout="tn", out_dtype=f32)
+    da1 = p.gemm(g2, w2, layout="nn", gelu_grad=a1)
+    db1 = p.column_sum(da1)
+    dw1 = p.gemm(da1, h2, layout="tn", out_dtype=f32)
+    dh2 = p.gemm(da1, w1, layout="nn", out_dtype=f32)
+    # dx = g + LN2^T(dh2): the residual's cotangent enters as gres
+    _, dx, dln2s, dln2b, _ = p.layernorm_bwd(x2, ln2s, dh2, eps, gres=g2,
+                                             out_dtype=x.dtype, dres=False)
+    return dx.view(x.shape), dln2s, dln2b, dw1, db1, dw2, db2
 
 
 def _needs_grad(*tensors) -> bool:
@@ -390,12 +496,42 @@ def _swin_half_block(p, x, params, bias, scale: float, num_heads: int, *,
 
 
 def _attention_core(p, qkv, bias, scale: float, num_heads: int):
-    _refuse_autograd("attention_core", "JAX differentiates only "
-                     "attention_core_op, pallas_attn.py:4120", qkv, bias)
+    if _needs_grad(qkv, bias):
+        raise NotImplementedError(
+            "attention_core has no VJP, as in JAX: differentiate "
+            "attention_core_op (pallas_attn.py:4120)")
     BW, N, C3 = qkv.shape
     ctx = p.attention(qkv.reshape(BW * N, C3), num_heads, N, scale,
                       pattern=bias)
     return ctx.view(BW, N, C3 // 3)
+
+
+class _AttentionCoreOp(torch.autograd.Function):
+    """``attention_core_op``: row 19's forward, row 21's backward
+    (``_core_op_fwd`` / ``_core_op_bwd``, pallas_attn.py:4131-4138)."""
+
+    @staticmethod
+    def forward(ctx, p, qkv, bias, scale, num_heads):
+        ctx.save_for_backward(qkv, bias)
+        ctx.p, ctx.dims = p, (scale, num_heads)
+        return p.attention_core(qkv, bias, scale, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias = ctx.saved_tensors
+        BW, N, C3 = qkv.shape
+        dctx = g.reshape(BW * N, C3 // 3).to(qkv.dtype).contiguous()
+        dqkv, dbias = ctx.p.attention_core_bwd(
+            qkv.reshape(BW * N, C3), dctx, bias, N, *ctx.dims)
+        return (None, dqkv.view(BW, N, C3),
+                dbias if ctx.needs_input_grad[2] else None, None, None)
+
+
+def _attention_core_op(p, qkv, bias, scale: float, num_heads: int):
+    if _needs_grad(qkv, bias):
+        return _AttentionCoreOp.apply(p, qkv.contiguous(), bias, scale,
+                                      num_heads)
+    return p.attention_core(qkv, bias, scale, num_heads)
 
 
 def _attention_core_bwd(p, qkv2, dctx2, bias, n: int, scale: float,
@@ -600,17 +736,65 @@ def _full_forward_windows(p, x, params, bias, scale: float, num_heads: int):
     return _swin_full_block(p, x, params, bias, scale, num_heads)
 
 
-def _swin_attn_half(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias,
-                    scale: float, num_heads: int):
-    _refuse_autograd("swin_attn_half", "_attn_half_bwd, pallas_attn.py:3345"
-                     "; the JAX package reaches it only in serving", x, ln1s,
-                     ln1b, wqkv, bqkv, wproj, bproj, bias)
+def _attn_half_forward(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias,
+                       scale, num_heads):
     BW, N, C = x.shape
     rows = x.reshape(BW * N, C)
     h = p.layernorm(rows, ln1s, ln1b, SWIN_LN_EPS)
     qkv = p.gemm(h, wqkv, bqkv)
     ctx = p.attention(qkv, num_heads, N, scale, pattern=bias)
     return p.gemm(ctx, wproj, bproj, residual=rows).view(BW, N, C)
+
+
+class _AttnHalf(torch.autograd.Function):
+    """``swin_attn_half`` with the VJP of ``_attn_half_bwd``
+    (pallas_attn.py:3345), recomputing LN1, qkv and ctx from the saved
+    x."""
+
+    @staticmethod
+    def forward(ctx, p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias, scale,
+                num_heads):
+        ctx.save_for_backward(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias)
+        ctx.p, ctx.dims = p, (scale, num_heads)
+        return _attn_half_forward(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj,
+                                  bias, scale, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias = ctx.saved_tensors
+        (dx, dln1s, dln1b, dwqkv, dbqkv, dwproj, dbproj,
+         dbias) = ctx.p.swin_attn_half_bwd(x, ln1s, ln1b, wqkv, bqkv, wproj,
+                                           bias, g, *ctx.dims)
+        return (None, dx, dln1s, dln1b, _cast(dwqkv, wqkv), _cast(dbqkv, bqkv),
+                _cast(dwproj, wproj), _cast(dbproj, bproj),
+                dbias if ctx.needs_input_grad[8] else None, None, None)
+
+
+def _swin_attn_half(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias,
+                    scale: float, num_heads: int):
+    if _needs_grad(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias):
+        return _AttnHalf.apply(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj,
+                               bias, scale, num_heads)
+    return _attn_half_forward(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj,
+                              bias, scale, num_heads)
+
+
+def _swin_attn_half_bwd(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bias, g,
+                        scale: float, num_heads: int):
+    BW, N, C = x.shape
+    x2 = x.reshape(BW * N, C).contiguous()
+    h = p.layernorm(x2, ln1s, ln1b, SWIN_LN_EPS)          # recompute
+    qkv = p.gemm(h, wqkv, bqkv)
+    ctx2 = p.attention_core(qkv.view(BW, N, 3 * C), bias, scale,
+                            num_heads).view(BW * N, C)
+    g2 = g.reshape(BW * N, C).to(x.dtype).contiguous()
+    dwproj, dbproj, dctx = _proj_bwd(p, ctx2, g2, wproj)
+    dqkv, dbias = p.attention_core_bwd(qkv, dctx, bias, N, scale, num_heads)
+    # the residual's cotangent g enters LN1's VJP as its incoming residual
+    dx, dwqkv, dbqkv, dln1s, dln1b = p.swin_qkv_tail_bwd(x2, dqkv, g2, wqkv,
+                                                         ln1s, ln1b)
+    return (dx.view(BW, N, C), dln1s, dln1b, dwqkv, dbqkv, dwproj, dbproj,
+            dbias)
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -697,16 +881,11 @@ def _fused_seq_attention(p, x, wqkv, bqkv, wproj, bproj, kbias, scale: float,
 
 def _fused_seq_attention_bwd(p, x2, qkv2, ctx2, g2, wqkv, wproj, kbias,
                              seq_n: int, scale: float, num_heads: int):
-    f32 = torch.float32
     g2 = g2.to(x2.dtype).contiguous()
-    dwproj = p.gemm(g2, ctx2, layout="tn", out_dtype=f32)
-    dbproj = p.column_sum(g2)
-    dctx = p.gemm(g2, wproj, layout="nn")
+    dwproj, dbproj, dctx = _proj_bwd(p, ctx2, g2, wproj)
     dqkv, _ = p.attention_bwd(qkv2, dctx, num_heads, seq_n, scale,
                               key_bias=kbias)
-    dwqkv = p.gemm(dqkv, x2, layout="tn", out_dtype=f32)
-    dbqkv = p.column_sum(dqkv)
-    dx = p.gemm(dqkv, wqkv, layout="nn")
+    dwqkv, dbqkv, dx = _qkv_bwd(p, x2, dqkv, wqkv)
     return dx, dwqkv, dbqkv, dwproj, dbproj
 
 
@@ -799,10 +978,41 @@ window_block_attention, window_block_attention_plain = _twins(
 LN-free Swin attention on (BW, N, C) windows: K1 qkv -> K2 -> K1 proj.
 An optional ``residual`` (BW, N, C) is added in the proj epilogue, which
 is how stage 4 folds the residual of JAX's fallback
-(pallas_attn.py:3326-3335).""")
+(pallas_attn.py:3326-3335). Under autograd a ``torch.autograd.Function``
+that saves its inputs and whose backward is ``window_block_attention_bwd``
+(the residual takes the cotangent as it is).""")
+
+window_block_attention_bwd, window_block_attention_bwd_plain = _twins(
+    _window_block_attention_bwd, """\
+VJP of ``window_block_attention`` (``_block_bwd``, pallas_attn.py:2092-2121)
+for the cotangent g (BW, N, C) of its output: it recomputes qkv (K1) and ctx
+(``attention_core``, K2 with the patterns), then K1 tn dWproj (f32), K5
+dbproj, K1 nn dctx (f32 accumulate, rounded to x's dtype, as JAX casts it at
+:2110), ``attention_core_bwd`` (K4's pattern mode: dqkv and the f32 dbias,
+summed over the windows that share a pattern), K1 tn dWqkv (f32), K5 dbqkv
+and K1 nn dx. JAX upcasts its bf16-valued operands to f32 for these
+products; K1 takes them in bf16 with f32 accumulation, which computes the
+same products in another summation order. x (BW, N, C), weights in the
+(out, in) layout, bias (P, nH, N, N) f32. Returns ``(dx (BW, N, C) in x's
+dtype, dwqkv, dbqkv, dwproj, dbproj, dbias)``, the weight and bias grads
+f32.""")
 
 fused_mlp_preln, fused_mlp_preln_plain = _twins(_fused_mlp_preln, """\
-Pre-LN MLP half ``x + fc2(GELU(fc1(LN2 x)))`` over rows of (..., C).""")
+Pre-LN MLP half ``x + fc2(GELU(fc1(LN2 x)))`` over rows of (..., C). Under
+autograd a ``torch.autograd.Function`` that saves its inputs and whose
+backward is ``fused_mlp_preln_bwd``.""")
+
+fused_mlp_preln_bwd, fused_mlp_preln_bwd_plain = _twins(
+    _fused_mlp_preln_bwd, """\
+VJP of ``fused_mlp_preln`` (``_mlp_preln_bwd``, pallas_attn.py:3429-3441,
+``jax.vjp`` of ``_mlp_preln_xla_ref`` :3374) for the cotangent g of its
+output, on the pieces of ``swin_mlp_half_bwd`` without the proj and the
+DropPath: K3 LN2 recompute, K1 fc1 + GELU (saving the f32 pre-activation),
+K5 db2, K1 tn dW2, K1 nn da1 with the GELU' epilogue, K5 db1, K1 tn dW1, K1
+nn dh2 (f32), K5 in pre-LN form (dx = g + LN2^T(dh2)). The erf GELU of
+JAX's interpret path; its TPU bf16 path takes the tanh GELU (:3431), a
+fast-math choice the port does not copy. Returns ``(dx in x's dtype and
+shape, dln2s, dln2b, dw1, db1, dw2, db2)``, sums and weight grads f32.""")
 
 fused_attn_ln, fused_attn_ln_plain = _twins(_fused_attn_ln, """\
 Post-LN BERT attention half ``LN(x + proj(attn(x)))`` on (B, N, C), with a
@@ -867,7 +1077,16 @@ Function under grad, with the same backward.""")
 attention_core, attention_core_plain = _twins(_attention_core, """\
 ``softmax(q k^T * scale + bias[g % P]) v`` on fused-qkv windows (K2 with
 patterns): qkv (BW, N, 3C), bias (P, nH, N, N) f32 with BW % P == 0.
-Returns ctx (BW, N, C).""")
+Returns ctx (BW, N, C). It has no VJP, as in JAX: under autograd it raises
+(``attention_core_op`` is the differentiable form).""")
+
+attention_core_op, attention_core_op_plain = _twins(_attention_core_op, """\
+The differentiable attention core (``attention_core_op``, pallas_attn.py
+:4120): ``attention_core`` (row 19, K2 with the patterns) forward; under
+autograd a ``torch.autograd.Function`` that saves qkv and the bias and whose
+backward is ``attention_core_bwd`` (row 21, K4's pattern mode): dqkv (BW,
+N, 3C) in qkv's dtype and an f32 dbias of the bias's shape (P, nH, N,
+N).""")
 
 attention_core_bwd, attention_core_bwd_plain = _twins(_attention_core_bwd, """\
 VJP of ``attention_core`` wrt (qkv, bias) on flat rows (K4's pattern mode):
@@ -926,8 +1145,20 @@ swin_attn_half, swin_attn_half_plain = _twins(_swin_attn_half, """\
 Pre-LN Swin attention half ``x + proj(attn(qkv(LN1 x)))`` on (BW, N, C)
 windows (``swin_attn_half``, pallas_attn.py:3272, body ``_attn_half_kernel``
 :3228): K3 LN1 (f32 moments) -> K1 qkv -> K2 (patterns) -> K1 proj with x
-added in f32 in the epilogue. Serving only, as in JAX (which reaches it with
-``deterministic=True``): under autograd it raises.""")
+added in f32 in the epilogue. JAX reaches it only in serving; under
+autograd it is a ``torch.autograd.Function`` that saves its inputs and
+whose backward is ``swin_attn_half_bwd``.""")
+
+swin_attn_half_bwd, swin_attn_half_bwd_plain = _twins(
+    _swin_attn_half_bwd, """\
+VJP of ``swin_attn_half`` (``_attn_half_bwd``, pallas_attn.py:3338-3356,
+``jax.vjp`` of ``_attn_half_xla_ref`` :3262) for the cotangent g (BW, N, C):
+K3 LN1, K1 qkv and ``attention_core`` (K2) recomputed; K1 tn dWproj, K5
+dbproj, K1 nn dctx; ``attention_core_bwd`` (K4's pattern mode); then
+``swin_qkv_tail_bwd`` (LN1 recompute, K1 tn dWqkv, K5 dbqkv, K1 nn dh1, K5
+in pre-LN form with g as the residual's cotangent). Returns ``(dx (BW, N,
+C) in x's dtype, dln1s, dln1b, dwqkv, dbqkv, dwproj, dbproj, dbias)``, the
+sums and weight grads f32.""")
 
 fused_seq_attention, fused_seq_attention_plain = _twins(
     _fused_seq_attention, """\
@@ -965,4 +1196,5 @@ COUNTERPARTS = (swin_full_block, window_block_attention, fused_mlp_preln,
                 swin_mlp_half_bwd, swin_qkv_tail_bwd, fused_attn_ln_adrop,
                 window_attention, window_attention_bwd, swin_attn_half,
                 fused_seq_attention, fused_seq_attention_bwd,
-                full_forward_windows)
+                full_forward_windows, window_block_attention_bwd,
+                fused_mlp_preln_bwd, swin_attn_half_bwd, attention_core_op)

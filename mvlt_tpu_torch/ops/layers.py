@@ -129,16 +129,15 @@ def drop_path_multipliers(masks, rate: float, batch: int, device):
                  for _ in range(2))
 
 
-def drop_path_masks(masks, rate: float, batch: int, device):
-    """The DropPath keep-masks of one Swin block on the ``attn_impl='pallas'``
-    route: ``(m1, m2)`` for its attention and MLP branches, each a (B, 1, 1)
-    bool ``bernoulli(1 - rate)`` draw from ``masks`` as flax ``DropPath``
-    draws it (``mvlt_tpu/ops/layers.py:75-89``: ``drop_path1`` first), or
-    None when ``masks`` is None or the rate is 0."""
+def drop_path_mask(masks, rate: float, batch: int, device):
+    """One DropPath keep-mask of a Swin block on JAX's plain route: a (B, 1,
+    1) bool ``bernoulli(1 - rate)`` draw from ``masks``, as flax
+    ``DropPath`` draws it (``mvlt_tpu/ops/layers.py:75-89``), or None when
+    ``masks`` is None or the rate is 0. The block draws ``drop_path1``'s
+    after its attention's dropouts and ``drop_path2``'s after its MLP's."""
     if masks is None or rate <= 0.0:
         return None
-    return tuple(masks.draw(1.0 - rate, (batch, 1, 1), device)
-                 for _ in range(2))
+    return masks.draw(1.0 - rate, (batch, 1, 1), device)
 
 
 def drop_path(x: torch.Tensor, keep_mask, rate: float) -> torch.Tensor:
@@ -147,6 +146,16 @@ def drop_path(x: torch.Tensor, keep_mask, rate: float) -> torch.Tensor:
     if keep_mask is None:
         return x
     return torch.where(keep_mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, masks, rate: float) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``where(mask, x / keep, 0)`` in x's dtype, the
+    mask a ``bernoulli(1 - rate)`` draw of x's shape from ``masks``; x as it
+    is, and no draw, when ``masks`` is None (deterministic) or the rate is
+    0."""
+    if masks is None or rate <= 0.0:
+        return x
+    return drop_path(x, masks.draw(1.0 - rate, x.shape, x.device), rate)
 
 
 def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
@@ -216,13 +225,18 @@ class LayerNorm(nn.Module):
 class Mlp(nn.Module):
     """The two dense layers of the Swin / BERT MLP (``fc1`` -> GELU -> ``fc2``).
     The fused blocks in :mod:`mvlt_tpu_torch.ops.blocks` take their weights;
-    the forward is flax ``Mlp`` (``mvlt_tpu/ops/layers.py:54-72``, dropout 0),
-    each dense layer in its :class:`Dense` form and the erf GELU between."""
+    the forward is flax ``Mlp`` (``mvlt_tpu/ops/layers.py:54-72``), each
+    dense layer in its :class:`Dense` form, the erf GELU between, and a
+    :func:`dropout` at rate ``drop`` after the GELU and after ``fc2`` (drawn
+    in that order, only when ``masks`` is given)."""
 
-    def __init__(self, dim: int, hidden: int, *, dtype: torch.dtype, device):
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0, *,
+                 dtype: torch.dtype, device):
         super().__init__()
+        self.drop = drop
         self.fc1 = Dense(dim, hidden, dtype=dtype, device=device)
         self.fc2 = Dense(hidden, dim, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
-        return self.fc2(gelu_exact(self.fc1(x, ops)), ops)
+    def forward(self, x: torch.Tensor, ops, masks=None) -> torch.Tensor:
+        h = dropout(gelu_exact(self.fc1(x, ops)), masks, self.drop)
+        return dropout(self.fc2(h, ops), masks, self.drop)

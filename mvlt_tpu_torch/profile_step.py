@@ -1,7 +1,7 @@
 """Where the device time of a train step or a report-generation call goes,
 on one GPU.
 
-    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate|retrieval_step|retrieval_grid|vqa_driver|vqa_driver_bare|pretrain_driver] [--batch 32] [--steps 3] [--attn-impl auto|pallas] [--conv vit|linear|swin|resnet101|resnet50]
+    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate|retrieval_step|retrieval_grid|vqa_driver|vqa_driver_bare|pretrain_driver] [--batch 32] [--steps 3] [--attn-impl auto|pallas|pallas_block|xla] [--conv vit|linear|swin|resnet101|resnet50]
 
 Builds the VQA finetune train step (``--path vqa``, the default:
 :func:`mvlt_tpu_torch.flagship.build_vqa_train_step`), the MLM+ITM
@@ -29,8 +29,10 @@ the fusion encoder), ``--conv linear`` the linear patch (the VQA finetune
 step of ``flagship_linear_vqa_train_config``).
 
 ``--attn-impl pallas`` builds the Swin backbone on its ``attn_impl='pallas'``
-route (``window_attention`` in every block), as the JAX package's tests set
-it: the adapter's ``SwinTransformer`` patched while the step is built.
+route (``window_attention`` in every block), ``pallas_block`` on row 1 in
+every block, ``xla`` on the plain torch attention, as the JAX package's
+tests set it: the adapter's ``SwinTransformer`` patched while the step is
+built.
 
 ``--path caption_step`` is the caption train step
 (:func:`~mvlt_tpu_torch.flagship.build_caption_train_step`: Swin-S +
@@ -329,7 +331,8 @@ def main() -> int:
                     default="vqa")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--attn-impl", choices=("auto", "pallas"), default="auto",
+    ap.add_argument("--attn-impl", default="auto",
+                    choices=("auto", "pallas", "pallas_block", "xla"),
                     help="the Swin backbone's route (swin_pretrain)")
     ap.add_argument("--conv", default=None,
                     choices=("vit", "linear", "swin", "resnet101", "resnet50"),

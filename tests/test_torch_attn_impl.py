@@ -279,16 +279,6 @@ def test_stage4_half_route_takes_row_7_where_jax_does(res, window, admits,
     _close(out.view(Bn, N, C), want, what="half route")
 
 
-def test_swin_attn_half_refuses_autograd():
-    rng = np.random.default_rng(51)
-    x, ln1, (wq, bq, wp, bp), bias, scale = _half_args(rng, 2, 16, 16, 2, 1)
-    args = [torch.tensor(a) for a in (x, *ln1, wq.T.copy(), bq, wp.T.copy(),
-                                      bp, bias)]
-    args[3].requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        blocks.swin_attn_half(*args, scale, 2)
-
-
 # --- row 10: full_forward_windows -------------------------------------------
 
 @pytest.mark.parametrize("nWb", [1, 4])
@@ -531,7 +521,6 @@ def test_swin_s_width_at_384_window_12_takes_row_7_at_stage_4(monkeypatch):
 
 
 @pytest.mark.parametrize("impl,error", [
-    ("xla", NotImplementedError), ("pallas_block", NotImplementedError),
     ("interpret", NotImplementedError), ("interpret_full", NotImplementedError),
     ("flash", ValueError)])
 def test_unported_attn_impl_raises(impl, error):

@@ -629,22 +629,22 @@ def _rows_args(rng, BW, N, C, nH, P):
     }
 
 
-@pytest.mark.parametrize("row", ["window_block_attention", "fused_mlp_preln",
-                                 "attention_core"])
+@pytest.mark.parametrize("row", ["attention_core"])
 @pytest.mark.parametrize("grad_arg", [0, -1])
 def test_forward_without_vjp_refuses_autograd(row, grad_arg):
-    """Rows 1, 6 and 19 have no VJP in the port (ROADMAP.md queue A): under
-    autograd they raise on every device, before any kernel runs (on the
-    card the ctypes kernels would return outputs with no ``grad_fn``); with
-    no gradient asked for, the same call runs."""
+    """Row 19 has no VJP, in JAX or in the port (``attention_core_op`` is
+    the differentiable form): under autograd it raises on every device,
+    before any kernel runs (on the card the ctypes kernels would return
+    outputs with no ``grad_fn``); with no gradient asked for, the same call
+    runs. Rows 1 and 6 have their VJPs (tests/test_torch_swin_routes.py)."""
     rng = np.random.default_rng(91)
     fn, args, extra = _rows_args(rng, 2, 16, 16, 2, 1)[row]
     want = fn(*args, *extra)
     assert want.grad_fn is None and torch.isfinite(want).all()
     args[grad_arg].requires_grad_()
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A, 'Autograd through rows 1, "
-                             "6 and 7'"):
+                       match="has no VJP, as in JAX: differentiate "
+                             "attention_core_op"):
         fn(*args, *extra)
     with torch.no_grad():
         assert torch.equal(fn(*args, *extra), want)

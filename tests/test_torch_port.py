@@ -146,7 +146,9 @@ def test_port_imports_nothing_of_mvlt_tpu():
     generation and retrieval drivers among them), its train step, its host
     modules (tokenizer, datasets, loader, transforms, the VQA, retrieval
     and caption metrics, tasks, checkpoints, logging, the backbone
-    bootstrap), the ViT and linear-patch backbones and ``chip_smoke``
+    bootstrap), the ViT and linear-patch backbones, the Swin backbone on
+    each of its ``attn_impl`` routes with its dropout modules and the
+    backward rules of rows 1, 6 and 7 (``ops/blocks.py``) and ``chip_smoke``
     leaves no ``mvlt_tpu`` /
     ``mvlt_tpu.*`` module (and no JAX, flax, optax or orbax) in
     ``sys.modules``: the port keeps its own copies of host modules."""
@@ -170,6 +172,13 @@ def test_port_imports_nothing_of_mvlt_tpu():
         from mvlt_tpu_torch.utils import bootstrap
         from mvlt_tpu_torch.models.backbones import adapter
         from mvlt_tpu_torch.models.backbones import linear_patch, vit
+        from mvlt_tpu_torch.models.backbones import swin
+        from mvlt_tpu_torch.ops import blocks, layers
+        import torch
+        cfg = flagship.flagship_swin_attn_dropout_pretrain_config()
+        for impl in swin.ATTN_IMPLS:
+            swin.SwinTransformer(cfg.swin, dtype=torch.bfloat16,
+                                 device="meta", attn_impl=impl)
         run_vqa.parse_args(["--synthetic"])
         run_pretrain.parse_args(["--synthetic"])
         run_report_generation.parse_args(["--dataset", "synthetic"])
