@@ -5,8 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --norm``: phases 1-2's build and K3 / K5 at the
 step's shapes only; ``--caption`` / ``--retrieval`` / ``--backbones`` /
 ``--vqa-driver`` / ``--pretrain-driver`` / ``--caption-driver`` /
-``--retrieval-driver`` / ``--swin-routes``: phases 1-2 and phase 10 / 11 /
-12 / 13 / 14 / 15 / 16 / 17 only; ``--loader-pace``: phases 1-2 and
+``--retrieval-driver`` / ``--swin-routes`` / ``--long-n``: phases 1-2 and
+phase 10 / 11 / 12 / 13 / 14 / 15 / 16 / 17 / 18 only; ``--loader-pace``:
+phases 1-2 and
 phases 13-16 with the drivers' loader-pace loops, which the default run
 leaves out; with a driver's flag, that phase alone with its loops). It
 imports nothing of JAX and nothing of the JAX package. Phases, each of
@@ -35,11 +36,12 @@ which raises on failure:
    and K4 with qbias and amask, K4 at N = 128, K1's epilogue multiplier, K5
    with hmask, the two masked forward counterparts and the two backward
    ones with their masks, and the tile plans of K2 / K4 against the
-   compiled ones (N = 1 .. 289); K2 and K4 at N = 221 and 278 (a 196-token
-   image with BERT text, b32, 12 heads: key bias, qbias + amask, in-kernel
-   / regenerated dropout), two calls of K2 and of K4 bitwise equal in every
-   mode, and both refusing what they cannot take (N = 289, head dim 24, a
-   misaligned view) before a launch. Each is timed beside its plain
+   compiled ones (N = 1 .. 576 and the long form's cap); K2 and K4 at N =
+   221 and 278 (a 196-token image with BERT text, b32, 12 heads: key bias,
+   qbias + amask, in-kernel / regenerated dropout), two calls of K2 and of
+   K4 bitwise equal in every mode, and both refusing what they cannot take
+   (N = 46,341, N = 289 in pattern mode, head dim 24, a misaligned view)
+   before a launch. Each is timed beside its plain
    version, the library call that computes the same function (never called
    by the port) and its bound on an H100 SXM (the larger of FLOPs / 989
    TFLOP/s and bytes / 3.35 TB/s); K2's to K5's cases also as CUDA graphs;
@@ -233,7 +235,29 @@ which raises on failure:
     attention with dropout on its probabilities), checked and counted.
     ``python3 chip_smoke.py --swin-routes`` runs phases 1-2 and this phase
     only;
-18. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+18. long form: K2 and K4 past N = 288 (their long form: the keys, or in
+    K4's second pass the queries, streamed through a ring of 64-row
+    chunks) against their plain versions at S = 298, 348 and 474 (b32, 12
+    heads, head dim 64: ViT-B/16 or the linear patch with RGC's 100 or
+    MIMIC-CXR's 150 text tokens, and two IU X-Ray views at 80), with a key
+    bias, the key bias or the seq2seq qbias with a dropout mask, and
+    in-kernel (regenerated) dropout with either bias: ``KERNEL_BAR``, two
+    calls bitwise equal, the keep mask bitwise equal to the plain Philox
+    stream, timed eagerly and as CUDA graphs beside SDPA or the bf16
+    composition and the bound (rows ``biased_attention_long_form``,
+    ``biased_attention_bwd_long_form``); the window modes refusing N = 289
+    before a launch; then the paths, each against its plain run on
+    replayed masks (gradients, 3 losses, launch counts with every K2 / K4
+    launch's N, ms/step in turns, peak memory): the caption step on
+    ViT-B/16 (b32, text 150, S = 348), the two-view caption step on the
+    linear patch (b32, IU X-Ray's 80, S = 474), the two-view retrieval step
+    on ViT-B/16 (32 pairs, S = 474); the two-view ViT grid (32 x 32: K2 at
+    N = 474, P(match) against plain); one two-view ViT generate call (b16,
+    beam 5: no K2, logits against plain); and ``run_report_generation
+    --conv vit`` on the synthetic IU X-Ray tree, in a process of its own
+    under a time limit. ``python3 chip_smoke.py --long-n`` runs phases 1-2
+    and this phase only;
+19. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
 """
 
@@ -640,6 +664,54 @@ EXPECTED_VIT_FORWARD = {**_NO_SWIN,
                         "fused_mlp_ln": EXPECTED["fused_mlp_ln"]}
 EXPECTED_VIT_PRETRAIN = {**_NO_SWIN, **EXPECTED_PRETRAIN}
 EXPECTED_LINEAR_TRAIN = {**_NO_SWIN, **EXPECTED_TRAIN}
+# K2 / K4 past N = 288 (their long form) on the paths that need it: report
+# generation and retrieval on ViT-B/16 or the linear patch (196 image tokens
+# a view) at RGC's 100 text tokens (S = 298), MIMIC-CXR's 150 (348) and two
+# IU X-Ray views at 80 (474), as JAX's fused encoder runs them (it has no
+# length gate, mvlt_tpu/models/fusion.py:105-117)
+LONG_FORM_N = (1 + 196 + 1 + 100, 1 + 196 + 1 + CAPTION_TEXT,
+               1 + 2 * 196 + 1 + IU_XRAY_TEXT)
+# the first N of the long form (K2 / K4's register form stops at 288)
+LONG_FORM_FIRST = 289
+# CUDA-event calls a long-form case is timed over (its plain version takes
+# up to some hundred ms a call at N = 474 with the Philox mask), and the
+# steps of each timed turn of a long-form path
+LONG_FORM_ITERS, LONG_STEP_TIMED = 3, 2
+# the generate call (eval_caption's batch, beam 5, IU X-Ray's length) and
+# the two-view retrieval grid (one chunk of 32 studies, as the retrieval
+# driver's test) on ViT-B/16
+LONG_GEN_BATCH, LONG_GRID_N = CAPTION_EVAL_BATCH, 32
+# the report generation driver on ViT-B/16 (two views, S = 474) in a
+# process of its own: seconds it may take
+LONG_DRIVER_TIMEOUT = 300
+# a caption step with no Swin backbone: the fusion's rows 15, 17', 16, 17
+# (both dropouts) as the pretrain step runs them; the retrieval step's
+# fusion: row 15 with an amask and no hmask, row 5's training form, 16, 17
+EXPECTED_LONG_CAPTION_STEP = _NO_SWIN_STEP
+EXPECTED_LONG_RETRIEVAL_STEP = {
+    **_NO_SWIN_STEP,
+    "fused_mlp_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:3194"),
+    "fused_mlp_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2817"),
+}
+# a two-view grid of LONG_GRID_N studies in one chunk: the ViT once per
+# chunk (K1 / K3 / SDPA), rows 4 and 5 in each of the n score calls
+EXPECTED_LONG_GRID = {
+    **_NO_SWIN,
+    "fused_attn_ln": (12 * LONG_GRID_N, "mvlt_tpu/ops/pallas_attn.py:2156"),
+    "fused_mlp_ln": (12 * LONG_GRID_N, "mvlt_tpu/ops/pallas_attn.py:2817"),
+    "fused_attn_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:2721"),
+    "fused_mlp_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:3194"),
+}
+# a generate call: the prefill's 12 MLP halves on row 5, its attention
+# halves and the decode steps plain (JAX's need_kv / cache_kv gate,
+# fusion.py:34-43, 149-170): no K2 at any S
+EXPECTED_LONG_GENERATE = {
+    **_NO_SWIN,
+    "fused_mlp_ln": (12, "mvlt_tpu/ops/pallas_attn.py:2817"),
+    "fused_attn_ln": (0, "mvlt_tpu/ops/pallas_attn.py:2156"),
+    "fused_attn_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:2721"),
+    "fused_mlp_ln_masked": (0, "mvlt_tpu/ops/pallas_attn.py:3194"),
+}
 # Swin-B @224 serving (b8): stages 1-3 (C = 128 / 256 / 512) on rows 2 / 3,
 # stage 4 (C = 1024: its MLP half's 8 C^2 bf16 weights exceed 12 MiB) on
 # JAX's plain route, row 1 with LN / Mlp around it
@@ -696,6 +768,14 @@ KERNEL_SOURCES = {
     # key bias of padded captions; launched as K2 on the retrieval paths
     "biased_attention_b64": ("mvlt_tpu_torch/csrc/attention.cu",
                              "mvlt_tpu/ops/pallas_attn.py:512"),
+    # K2 and K4's long form past N = 288 (`attention_long_kernel`, the
+    # `attention_bwd_*_long_kernel` pair): the fused encoder's attention
+    # half and its backward at S = 298 / 348 / 474; launched as K2 / K4 on
+    # the long-form paths, whose launches at N > 288 the rows count
+    "biased_attention_long_form": ("mvlt_tpu_torch/csrc/attention.cu",
+                                   "mvlt_tpu/ops/pallas_attn.py:2156"),
+    "biased_attention_bwd_long_form": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
+                                       "mvlt_tpu/ops/pallas_attn.py:2413"),
     # K1's split-K weight gradients: the sums that _swin_mlp_bwd_kernel
     # carries across its sequential grid (:1689-1695)
     "gemm_splitk": ("mvlt_tpu_torch/csrc/gemm.cu",
@@ -795,14 +875,15 @@ class Checker:
     def case(self, name: str, kernel_fn, plain_fn, bar: float, *,
              flops: float, nbytes: float, library_fn=None,
              floor: float = 1.0, also: tuple = (),
-             graph: bool = False, label: str = "") -> None:
+             graph: bool = False, label: str = "", iters: int = 20) -> None:
         """``bar`` is a multiple of the largest |value| of each plain output
         (at least ``floor``); ``flops`` / ``nbytes`` are what the function
         must do and move (each input read once, each output written once).
         The numbers are kept under ``name`` and under each row of ``also``.
         With ``graph`` the kernel and the library call are also timed as
         CUDA graphs (``graph_ms``; printed only). ``label`` names the case
-        in its line."""
+        in its line; ``iters`` the CUDA-event calls each time is taken
+        over."""
         got, want = _tensors(kernel_fn()), _tensors(plain_fn())
         torch.cuda.synchronize()
         assert len(got) == len(want), (name, len(got), len(want))
@@ -818,8 +899,8 @@ class Checker:
                 raise AssertionError(f"{name}: output {i} max abs err {e} > "
                                      f"{limit} (bar {bar} x max|plain| {scale})")
             err = max(err, e)
-        ms, plain_ms = cuda_ms(kernel_fn), cuda_ms(plain_fn)
-        lib_ms = cuda_ms(library_fn) if library_fn is not None else None
+        ms, plain_ms = cuda_ms(kernel_fn, iters), cuda_ms(plain_fn, iters)
+        lib_ms = cuda_ms(library_fn, iters) if library_fn is not None else None
         b_ms, b_by = bound(flops, nbytes)
         for rname in (name, *also):
             row = self.rows.setdefault(rname, {
@@ -1270,13 +1351,16 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
 
     # the wrappers' shared-memory reckoning is the compiled one: K2's and
-    # K4's tile plans for every N up to the cap and one past it (-1: not
-    # taken) at every head dim the plans take and one they refuse, K4 in
-    # both modes and with its scratch
+    # K4's tile plans for every N through the register form's cap and well
+    # into the long form, and at the long form's cap and one past it (-1:
+    # not taken), at every head dim the plans take and one they refuse, K4
+    # in both modes (pattern mode: -1 past N = 288) and with its scratch
     libs = K.build()
     bwd = libs["attention_bwd"]
+    sweep = [*range(1, 2 * K.ATTENTION_MAX_N + 1), K.ATTENTION_LONG_MAX_N,
+             K.ATTENTION_LONG_MAX_N + 1]
     for Dh in (16, 24, 32, 48, 64):
-        for n in range(1, K.ATTENTION_MAX_N + 2):
+        for n in sweep:
             for amask in (False, True):
                 assert K.attention_smem_bytes(n, Dh, amask) == \
                     libs["attention"].mvlt_attention_smem(n, Dh, amask), \
@@ -1290,17 +1374,24 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
             except ValueError:
                 words = -1
             assert words == bwd.mvlt_attention_bwd_scratch(n, Dh), (n, Dh)
-    assert K.attention_smem_bytes(K.ATTENTION_MAX_N + 1, 64) == -1
+    assert K.attention_smem_bytes(K.ATTENTION_LONG_MAX_N + 1, 64) == -1
+    assert K.attention_bwd_smem_bytes(K.ATTENTION_MAX_N + 1, 64, True) == -1
     optin = K.smem_optin(dev)
     top = K.max_attention_n(64, optin, amask=True)
+    long_n = K.ATTENTION_MAX_N + 1
     print(f"shared memory per block (opt-in): {optin} bytes; K2 admits N <= "
           f"{top} at head dim 64 ({K.attention_smem_bytes(top, 64, True)} "
-          f"bytes a block with an amask), K4 N <= "
-          f"{K.max_attention_n(64, optin, backward=True)} "
+          f"bytes a block with an amask; the register form "
+          f"{K.attention_smem_bytes(K.ATTENTION_MAX_N, 64, True)} at N = "
+          f"{K.ATTENTION_MAX_N}), its window modes N <= "
+          f"{K.max_attention_n(64, optin, window=True)}; K4 N <= "
+          f"{K.max_attention_n(64, optin, backward=True)} in pattern mode "
           f"({K.attention_bwd_smem_bytes(K.ATTENTION_MAX_N, 64, True)} bytes "
-          "a block in pattern mode); the plans in C and Python agree for N = "
-          "1 .. "
-          f"{K.ATTENTION_MAX_N + 1} at head dims 16, 24, 32, 48, 64",
+          f"a block), the long form "
+          f"{K.attention_bwd_smem_bytes(long_n, 64, False, True)} bytes; "
+          f"the plans in C and Python agree for N = 1 .. "
+          f"{2 * K.ATTENTION_MAX_N}, {K.ATTENTION_LONG_MAX_N} and "
+          f"{K.ATTENTION_LONG_MAX_N + 1} at head dims 16, 24, 32, 48, 64",
           flush=True)
 
     inp = Inputs(dev, seed=2)
@@ -2429,10 +2520,12 @@ def long_attention_checks(chk: Checker, dev) -> None:
     bias, the seq2seq qbias with a dropout mask, and in-kernel (K4:
     regenerated) dropout, each against its plain version, SDPA (or the bf16
     composition that takes a probability mask; K4: the autograd backward of
-    each) and its bound, eagerly and as CUDA graphs. No path runs these
-    shapes, so they form rows of their own (``biased_attention_long_n``,
-    ``biased_attention_bwd_long_n``) and leave the other rows to the shapes
-    the paths give the kernels."""
+    each) and its bound, eagerly and as CUDA graphs. The ViT-B/16 and
+    linear-patch paths run these shapes (the VQA forward and step at S =
+    221, the pretrain step at 278: ``other_backbone_phases``), whose K2 /
+    K4 launches at N >= 221 these rows of their own count
+    (``biased_attention_long_n``, ``biased_attention_bwd_long_n``); past N =
+    288 the long form has its own (:func:`long_form_kernel_checks`)."""
     from mvlt_tpu_torch.ops import kernels as K
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
     inp = Inputs(dev, seed=6)
@@ -2512,6 +2605,436 @@ def long_attention_checks(chk: Checker, dev) -> None:
                      flops=10.0 * B * nH * S * S * Dh,
                      nbytes=nbytes(qkv, dctx, *extra, qkv))
         del amask
+
+
+def long_form_kernel_checks(chk: Checker, dev) -> None:
+    """K2 and K4's long form (N > 288) against their plain versions at the
+    fusion lengths of ``LONG_FORM_N`` (b32, 12 heads, head dim 64): a padded
+    key bias; the key bias with an attention-dropout mask; the seq2seq qbias
+    with one; in-kernel (K4: regenerated) dropout with the key bias and with
+    the qbias. Each case is held to ``KERNEL_BAR`` (the N = 221 / 278 rows'
+    bar), timed eagerly over ``LONG_FORM_ITERS`` calls and as CUDA graphs
+    beside SDPA or the bf16 composition (K4: the autograd backward of each)
+    and its bound, under the rows ``biased_attention_long_form`` /
+    ``biased_attention_bwd_long_form``. Then, at each N, two calls of each
+    mode bitwise equal and K2's drawn keep mask bitwise equal to
+    ``adrop_mask_plain``; last, the window modes (pattern, stored p,
+    head-major) refuse N = 289 before a launch."""
+    from mvlt_tpu_torch.ops import kernels as K
+    from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
+    inp = Inputs(dev, seed=21)
+    bf = torch.bfloat16
+    B, C, nH, rate = TRAIN_BATCH, 768, 12, 0.1
+    Dh = C // nH
+    sc = Dh ** -0.5
+    seed = torch.tensor([40503, 777], dtype=torch.int32, device=dev)
+    for S in LONG_FORM_N:
+        views = 2 if S > 1 + 196 + 1 + CAPTION_TEXT else 1
+        image = 1 + views * 196
+        qkv = inp.rnd(B * S, 3 * C, std=0.5)
+        ctx = torch.empty(B * S, C, dtype=bf, device=dev)
+        dctx = inp.rnd(B * S, C)
+        kb = inp.key_bias([S - (13 * i) % (S - image - 1) for i in range(B)],
+                          S)
+        qb = mask_to_bias(seq2seq_fusion_mask(B, image + 1, S,
+                                              dev)).contiguous()
+        amask = ((torch.rand(B, nH, S, S, generator=inp.gen) < 0.9).to(bf)
+                 / 0.9).to(dev)
+        kbm, qbm = kb.to(bf)[:, None, None, :], qb.to(bf)[:, None]
+        t = qkv.view(B, S, 3, nH, Dh).permute(2, 0, 3, 1, 4)
+        qkv3 = (t[0].contiguous(), t[1].contiguous(), t[2].contiguous())
+        d4 = dctx.view(B, S, nH, Dh).permute(0, 2, 1, 3).contiguous()
+        print(f"K2 long form at S = {S} (b{B}, {nH} heads, head dim {Dh}): "
+              f"{K.attention_plan(S, Dh)}; K4: {K.attention_bwd_plan(S, Dh)}",
+              flush=True)
+
+        def composed(bias, mask):
+            return lambda q, k, v: torch.matmul(torch.softmax(
+                torch.matmul(q, k.transpose(-1, -2)) * sc + bias, dim=-1)
+                * mask, v)
+
+        def sdpa(bias, p=0.0):
+            return lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, dropout_p=p, scale=sc)
+
+        modes = {   # name: (keywords, library forward, inputs read)
+            "key bias": (dict(key_bias=kb), sdpa(kbm), (kb,)),
+            "key bias + amask": (dict(key_bias=kb, amask=amask),
+                                 composed(kbm, amask), (kb, amask)),
+            "qbias + amask": (dict(qbias=qb, amask=amask),
+                              composed(qbm, amask), (qb, amask)),
+            "in-kernel dropout, key bias": (
+                dict(key_bias=kb, adrop=(seed, rate)), sdpa(kbm, rate),
+                (kb, seed)),
+            "in-kernel dropout, qbias": (
+                dict(qbias=qb, adrop=(seed, rate)), sdpa(qbm, rate),
+                (qb, seed)),
+        }
+        for mode, (kw, fwd, extra) in modes.items():
+            label = f"S = {S}, {mode}"
+            chk.case("biased_attention_long_form",
+                     lambda kw=kw: K.biased_attention(qkv, nH, S, sc, **kw),
+                     lambda kw=kw: K.biased_attention_plain(qkv, nH, S, sc,
+                                                            **kw),
+                     KERNEL_BAR, library_fn=lambda fwd=fwd: fwd(*qkv3),
+                     flops=4.0 * B * nH * S * S * Dh,
+                     nbytes=nbytes(qkv, *extra, ctx), graph=True,
+                     label=label, iters=LONG_FORM_ITERS)
+            chk.case("biased_attention_bwd_long_form",
+                     lambda kw=kw: K.biased_attention_bwd(qkv, dctx, nH, S,
+                                                          sc, **kw),
+                     lambda kw=kw: K.biased_attention_bwd_plain(
+                         qkv, dctx, nH, S, sc, **kw),
+                     KERNEL_BAR, floor=1e-6, graph=True, label=label,
+                     library_fn=library_backward(fwd, qkv3, d4),
+                     flops=10.0 * B * nH * S * S * Dh,
+                     nbytes=nbytes(qkv, dctx, *extra, kb, qkv),
+                     iters=LONG_FORM_ITERS)
+        for mode, (kw, _, _) in modes.items():
+            for what, fn in (
+                    ("K2", lambda: K.biased_attention(qkv, nH, S, sc, **kw)),
+                    ("K4", lambda: K.biased_attention_bwd(qkv, dctx, nH, S,
+                                                          sc, **kw))):
+                one, two = _tensors(fn()), _tensors(fn())
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(one, two)):
+                    raise AssertionError(f"{what}'s long form ({mode}, S = "
+                                         f"{S}) is not bitwise reproducible")
+        _, mask = K.biased_attention(qkv, nH, S, sc, qbias=qb,
+                                     adrop=(seed, rate), save_mask=True)
+        if not torch.equal(mask, K.adrop_mask_plain(seed, B, nH, S, rate)):
+            raise AssertionError(f"K2's long-form Philox mask at S = {S} "
+                                 "differs from adrop_mask_plain")
+        print(f"K2 / K4 long form at S = {S}: two calls bitwise equal in "
+              f"every mode ({list(modes)}); the keep mask bitwise equal to "
+              f"adrop_mask_plain (keep fraction "
+              f"{(mask > 0).float().mean().item():.5f})", flush=True)
+        del amask, mask, qkv3, d4
+    # the window modes keep the register form: N = 289 refused, no launch
+    before = (K.biased_attention.launches, K.biased_attention_bwd.launches)
+    N, Cs, h = 289, 64, 2
+    q289 = inp.rnd(2 * N, 3 * Cs)
+    pat = inp.rnd(1, h, N, N, dtype=torch.float32)
+    heads = q289.view(2, N, 3, h, Cs // h).permute(2, 0, 3, 1, 4)
+    refused = []
+    for what, fn in (
+            ("K2 pattern", lambda: K.biased_attention(q289, h, N, 0.17, pat)),
+            ("K2 stored p", lambda: K.biased_attention(q289, h, N, 0.17,
+                                                       save_p=True)),
+            ("K2 head-major", lambda: K.biased_attention_heads(
+                heads[0], heads[1], heads[2], 0.17)),
+            ("K4 pattern", lambda: K.biased_attention_bwd(
+                q289, q289[:, :Cs], h, N, 0.17, pattern=pat)),
+            ("K4 stored p", lambda: K.biased_attention_bwd(
+                q289, q289[:, :Cs].contiguous(), h, N, 0.17,
+                p=torch.zeros(2, h, N, N, dtype=bf, device=dev)))):
+        try:
+            fn()
+        except ValueError as e:
+            refused.append(f"{what}: {e}")
+        else:
+            raise AssertionError(f"{what} took N = 289")
+    torch.cuda.synchronize()
+    if (K.biased_attention.launches,
+            K.biased_attention_bwd.launches) != before:
+        raise AssertionError("a window mode launched past N = 288")
+    print(f"the window modes refuse N = 289 before launching: {refused}",
+          flush=True)
+
+
+def long_step_phase(dev, card: str, what: str, build, loss_fn, bars,
+                    expected: dict, n: int) -> dict:
+    """A train step whose fusion runs K2 / K4's long form at S = ``n``,
+    built twice from one seed by ``build(plain)`` (kernels, plain): the
+    initial gradients (``loss_fn(model, batch, plain, masks)``) held to
+    ``bars``, the launch counts of one step against ``expected`` (every K2
+    and K4 launch at N = ``n``), 3 losses against the plain run replaying
+    the masks, then ms/step in turns (plain, kernels, kernels, plain) and
+    the peak memory of a kernel step. Returns its launch counts."""
+    from mvlt_tpu_torch.ops import kernels
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    step_k, batch = build(False)
+    step_p, batch_p = build(True)
+    print(f"{what} built twice in {time.perf_counter() - t0:.1f} s: image "
+          f"{tuple(batch['image'].shape)}, caption "
+          f"{tuple(batch['caption'].shape)}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    masks = DropoutMasks(gen, record=True)
+    for model, plain, src in ((step_k.model, False, masks),
+                              (step_p.model, True, None)):
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, batch, plain,
+                src or DropoutMasks.replay(masks.recorded)).backward()
+    torch.cuda.synchronize()
+    compare_grads(step_k.model, step_p.model, f"{what} initial gradients",
+                  bars)
+    del masks
+    losses, counts = {"kernels": [], "plain": []}, None
+    for i in range(TRAIN_STEPS):
+        step_k.masks = DropoutMasks(gen, record=True)
+        if i == 0:
+            reset_counts()
+            with attention_lengths() as seen:
+                out_k = step_k(batch)
+                torch.cuda.synchronize()
+            counts = launch_counts()
+            print(f"launches in one {what}: {json.dumps(counts)}", flush=True)
+            _expect_counts(counts, expected, f"one {what}",
+                           [k.__name__ for k in kernels.KERNELS])
+            long_n_counts(counts, seen, n, what, "long_form",
+                          LONG_FORM_FIRST, k4=True)
+        else:
+            out_k = step_k(batch)
+        step_p.masks = DropoutMasks.replay(step_k.masks.recorded)
+        out_p = step_p(batch_p)
+        losses["kernels"].append(out_k["loss"].item())
+        losses["plain"].append(out_p["loss"].item())
+    print(f"{what} losses of {TRAIN_STEPS} steps: {json.dumps(losses)}",
+          flush=True)
+    for i, (a, b) in enumerate(zip(losses["kernels"], losses["plain"])):
+        if not (abs(a - b) <= LOSS_BAR * abs(b) and a == a):
+            raise AssertionError(f"{what} {i + 1} loss {a} vs plain {b} "
+                                 f"beyond {LOSS_BAR} relative")
+    times, peak = {"kernels": [], "plain": []}, None
+    for which in ("plain", "kernels", "kernels", "plain"):
+        step, b = (step_k, batch) if which == "kernels" else (step_p, batch_p)
+        step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
+        step(b)
+        torch.cuda.synchronize()
+        measure = which == "kernels" and peak is None
+        if measure:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(LONG_STEP_TIMED):
+            step(b)
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t0) * 1e3
+                            / LONG_STEP_TIMED)
+        if measure:
+            peak = torch.cuda.max_memory_allocated()
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    rows = batch["image"].shape[0]
+    print(f"{what} ({rows} rows, S = {n}) on {card}: kernels "
+          f"{ms['kernels']:.3f} ms/step ({rows * 1e3 / ms['kernels']:.1f} "
+          f"samples/s), plain {ms['plain']:.3f} ms/step; runs "
+          f"{json.dumps(times)}; peak memory in a kernel step "
+          f"{peak / 2 ** 30:.3f} GiB (both models resident)", flush=True)
+    del step_k, step_p, batch, batch_p
+    return counts
+
+
+def long_grid_phase(dev, card: str) -> dict:
+    """The two-view retrieval grid on ViT-B/16 (``LONG_GRID_N`` studies in
+    one chunk, captions of 80: S = 474): the launch counts of one grid
+    (every K2 launch at N = 474; no K4), P(match) against the plain route,
+    two grids bitwise equal, pairs/s of each route. Returns its counts."""
+    import numpy as np
+
+    from mvlt_tpu_torch import flagship
+    n = LONG_GRID_N
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid, (images, captions, cap_ids) = flagship.build_retrieval_grid(
+        n=n, text_len=RETRIEVAL_TEXT, batch_size=n, device=dev,
+        config=flagship.flagship_vit_retrieval_config(), views=2)
+    S = 1 + 2 * 196 + 1 + captions.shape[1]
+    reset_counts()
+    with attention_lengths() as seen:
+        out_k = grid(images, captions, cap_ids)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"launches in one two-view ViT-B/16 grid ({n} x {n}): "
+          f"{json.dumps(counts)}", flush=True)
+    _expect_counts(counts, EXPECTED_LONG_GRID, "one two-view ViT grid",
+                   ("gemm", "biased_attention", "layernorm"))
+    long_n_counts(counts, seen, S, "two-view ViT grid", "long_form",
+                  LONG_FORM_FIRST)
+    if counts["biased_attention_bwd"]:
+        raise AssertionError("the grid launched K4")
+    again = grid(images, captions, cap_ids)
+    if not np.array_equal(out_k["similarities"], again["similarities"]):
+        raise AssertionError("two grids differ")
+    out_p = grid(images, captions, cap_ids, plain=True)
+    _check_close("two-view ViT grid P(match), kernels vs plain",
+                 torch.from_numpy(out_k["similarities"]),
+                 torch.from_numpy(out_p["similarities"]))
+    ms = {}
+    for which in ("plain", "kernels"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid(images, captions, cap_ids, plain=which == "plain")
+        torch.cuda.synchronize()
+        ms[which] = (time.perf_counter() - t0) * 1e3
+    print(f"two-view ViT-B/16 grid {n} x {n} (S = {S}) on {card}: kernels "
+          f"{ms['kernels']:.1f} ms ({n * n * 1e3 / ms['kernels']:.1f} "
+          f"pairs/s), plain {ms['plain']:.1f} ms", flush=True)
+    return counts
+
+
+def long_generate_phase(dev, card: str) -> dict:
+    """One generate call on ViT-B/16 with two views (b16, beam 5, IU
+    X-Ray's length 80): the launch counts (no K2: the prefill's attention
+    and the decode run plain, as JAX's need_kv gate sends them), the
+    features, the prefill's logits and the first decode step's against the
+    plain route, two calls bitwise equal, and the beam sequences equal to
+    the plain route's (printed: random weights leave near-ties). Returns
+    its counts."""
+    from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.models import generation as G
+    from mvlt_tpu_torch.ops.blocks import KERNEL_OPS, PLAIN_OPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen, image = flagship.build_caption_generate(
+        batch=LONG_GEN_BATCH, num_beams=CAPTION_BEAMS,
+        max_length=IU_XRAY_TEXT, device=dev,
+        config=flagship.flagship_vit_caption_config(IU_XRAY_TEXT), views=2)
+    model, spec = gen.model, gen.spec
+    reset_counts()
+    with attention_lengths() as seen:
+        out_k = gen(image)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"launches in one two-view ViT-B/16 generate call (b"
+          f"{LONG_GEN_BATCH}, beam {CAPTION_BEAMS}): {json.dumps(counts)}; "
+          f"K2 / K4 sequence lengths {json.dumps(seen)}", flush=True)
+    _expect_counts(counts, EXPECTED_LONG_GENERATE,
+                   "one two-view ViT generate call", ("gemm", "layernorm"))
+    if counts["biased_attention"] or counts["biased_attention_bwd"]:
+        raise AssertionError("the generate call launched K2 / K4")
+    t0 = time.perf_counter()           # the second call: warm
+    again = gen(image)
+    torch.cuda.synchronize()
+    ms_k = (time.perf_counter() - t0) * 1e3
+    if not _same(out_k, again):
+        raise AssertionError("two generate calls differ")
+    t0 = time.perf_counter()
+    out_p = gen(image, plain=True)
+    torch.cuda.synchronize()
+    ms_p = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        feats = [model.encode_image(image, plain) for plain in (False, True)]
+        _check_close(f"two-view ViT-B/16 features ({feats[0].shape[1]} "
+                     "tokens), kernels vs plain", *feats)
+        pre = [G._prefill(model, f, spec, ops)
+               for f, ops in zip(feats, (KERNEL_OPS, PLAIN_OPS))]
+        _check_close(f"ViT caption prefill logits (prefix {pre[0][2]}), "
+                     "kernels vs plain", pre[0][0], pre[1][0])
+        first = pre[1][0].argmax(-1)
+        step_logits = []
+        for (_, kv, P), ops in zip(pre, (KERNEL_OPS, PLAIN_OPS)):
+            cache = G._make_cache(model, kv, P, image.shape[0], spec)
+            step_logits.append(G._decode_logits(model, cache, first, P, spec,
+                                                ops))
+        _check_close("ViT caption first decode step logits, kernels vs "
+                     "plain", *step_logits)
+    same = sum(torch.equal(a, b) for a, b in zip(out_k[0], out_p[0]))
+    print(f"two-view ViT-B/16 generate (b{LONG_GEN_BATCH}, beam "
+          f"{CAPTION_BEAMS}, length {IU_XRAY_TEXT}) on {card}: kernels "
+          f"{ms_k:.1f} ms, plain {ms_p:.1f} ms; {same} of {LONG_GEN_BATCH} "
+          "beam sequences equal to the plain route's", flush=True)
+    return counts
+
+
+def long_driver_run() -> None:
+    """``python -m mvlt_tpu_torch.run_report_generation --conv vit`` on the
+    synthetic IU X-Ray tree (two views: S = 474), one epoch of 3 steps and
+    the test, in a process of its own under ``LONG_DRIVER_TIMEOUT``: it
+    must exit 0 and print the test's scores."""
+    import shutil
+    import signal
+    trees = iu_xray_trees()
+    out_dir = REPO / "build" / "long_form_driver"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = [sys.executable, "-m", "mvlt_tpu_torch.run_report_generation",
+            "--conv", "vit", "--dataset", "iu_xray", "--data_root",
+            str(pathlib.Path(trees["data"]).parent), "--epochs", "1",
+            "--batch_size", str(CAPTION_DRIVER_BATCH), "--num_beams",
+            str(CAPTION_BEAMS), "--num_workers",
+            str(CAPTION_DRIVER_WORKERS), "--do_train", "--do_test",
+            "--model_name", str(out_dir)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=LONG_DRIVER_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        print(out, flush=True)
+        raise AssertionError("run_report_generation --conv vit passed its "
+                             f"limit of {LONG_DRIVER_TIMEOUT} s")
+    tail = out.strip().splitlines()[-3:]
+    print(f"run_report_generation --conv vit --dataset iu_xray (two views, "
+          f"S = {LONG_FORM_N[2]}): exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s; last lines {tail}", flush=True)
+    if proc.returncode != 0 or "CIDEr" not in out:
+        print(out, flush=True)
+        raise AssertionError("run_report_generation --conv vit failed")
+
+
+def long_form_phases(dev, card: str) -> dict:
+    """The paths of K2 / K4's long form, each against its plain version and
+    printing its seconds: the caption step on ViT-B/16 (MIMIC-CXR's text
+    150: S = 348), the two-view caption step on the linear patch (IU
+    X-Ray's 80: S = 474), the two-view retrieval step on ViT-B/16 (32 pairs
+    = 64 rows, attention dropout 0.1: S = 474), the two-view grid, one
+    two-view generate call, then a short report generation driver run on
+    ViT-B/16. Returns their launch counts by path."""
+    from mvlt_tpu_torch import flagship
+    B = TRAIN_BATCH
+
+    def caption_loss(model, batch, plain, masks):
+        return model.loss(batch["image"], batch["caption"],
+                          batch["mlm_labels"], "unilm", plain=plain,
+                          masks=masks)[0]
+
+    def retrieval_loss(model, batch, plain, masks):
+        return model.loss(batch["image"], batch["caption"], batch["label"],
+                          plain=plain, masks=masks)[0]
+
+    phases = {
+        "vit_caption_step": lambda: long_step_phase(
+            dev, card, "ViT-B/16 caption step",
+            lambda plain: flagship.build_caption_train_step(
+                batch=B, text_len=CAPTION_TEXT, device=dev, plain=plain,
+                config=flagship.flagship_vit_caption_config()),
+            caption_loss, vit_bars, EXPECTED_LONG_CAPTION_STEP,
+            LONG_FORM_N[1]),
+        "linear_two_view_caption_step": lambda: long_step_phase(
+            dev, card, "two-view linear-patch caption step",
+            lambda plain: flagship.build_caption_train_step(
+                batch=B, text_len=IU_XRAY_TEXT, device=dev, plain=plain,
+                config=flagship.flagship_linear_caption_config(), views=2),
+            caption_loss, linear_bars, EXPECTED_LONG_CAPTION_STEP,
+            LONG_FORM_N[2]),
+        "vit_two_view_retrieval_step": lambda: long_step_phase(
+            dev, card, "two-view ViT-B/16 retrieval step",
+            lambda plain: flagship.build_retrieval_train_step(
+                pairs=RETRIEVAL_PAIRS, text_len=RETRIEVAL_TEXT, device=dev,
+                plain=plain, config=flagship.flagship_vit_retrieval_config(),
+                views=2),
+            retrieval_loss, vit_bars, EXPECTED_LONG_RETRIEVAL_STEP,
+            LONG_FORM_N[2]),
+        "vit_two_view_retrieval_grid": lambda: long_grid_phase(dev, card),
+        "vit_two_view_caption_generate": lambda: long_generate_phase(dev,
+                                                                     card),
+    }
+    out = {}
+    for path, phase in phases.items():
+        t0 = time.perf_counter()
+        out[path] = phase()
+        print(f"{path} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    long_driver_run()
+    print(f"long-form driver run: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
 
 
 def caption_kernel_checks(chk: Checker, dev) -> None:
@@ -2623,8 +3146,9 @@ def attention_repeat_checks(dev) -> None:
     (no atomics, one fixed order of sums), at the pretrain step's fusion
     shapes (b32, S = 131, 12 heads) and Swin-S stage 3 (b32, 128 windows
     of 49, 12 heads); then K2 refuses what its plan or its 16-byte loader
-    cannot take (N = 289, head dim 24, a misaligned view) with a
-    ``ValueError`` before any launch."""
+    cannot take (N = 46,341, past the long form's cap; N = 289 in pattern
+    mode; head dim 24; a misaligned view) with a ``ValueError`` before any
+    launch."""
     from mvlt_tpu_torch.ops import kernels as K
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
     inp = Inputs(dev, seed=7)
@@ -2669,8 +3193,12 @@ def attention_repeat_checks(dev) -> None:
     before = K.biased_attention.launches
     refused = []
     for what, fn in (
-            ("N = 289", lambda: K.biased_attention(
-                inp.rnd(2 * 289, 3 * 128), 2, 289, 0.125)),
+            ("N = 46,341", lambda: K.biased_attention(
+                torch.empty(2 * 46341, 3 * 128, dtype=bf, device=dev), 2,
+                46341, 0.125)),
+            ("N = 289 with a pattern", lambda: K.biased_attention(
+                inp.rnd(2 * 289, 3 * 128), 2, 289, 0.125,
+                inp.rnd(1, 2, 289, 289, dtype=torch.float32))),
             ("head dim 24", lambda: K.biased_attention(
                 inp.rnd(2 * 49, 3 * 72), 3, 49, 0.2)),
             ("a view 2 bytes off 16", lambda: K.biased_attention_heads(
@@ -2692,8 +3220,9 @@ def attention_bwd_repeat_checks(dev) -> None:
     (no atomics; the sums over heads, query tiles and groups in one fixed
     order), at the pretrain step's fusion shapes (b32, S = 131, 12 heads)
     and Swin-S stage 3 (b32: 128 windows of 49, 12 heads); then K4 refuses
-    what its plan or its 16-byte loader cannot take (N = 289, head dim 24,
-    a misaligned view) with a ``ValueError`` before any launch."""
+    what its plan or its 16-byte loader cannot take (N = 46,341; N = 289 in
+    pattern mode; head dim 24; a misaligned view) with a ``ValueError``
+    before any launch."""
     from mvlt_tpu_torch.ops import kernels as K
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
     inp = Inputs(dev, seed=8)
@@ -2743,8 +3272,14 @@ def attention_bwd_repeat_checks(dev) -> None:
     before = K.biased_attention_bwd.launches
     refused = []
     for what, fn in (
-            ("N = 289", k4(inp.rnd(2 * 289, 3 * 128), inp.rnd(2 * 289, 128),
-                           2, 289, 0.125)),
+            ("N = 46,341", k4(torch.empty(2 * 46341, 3 * 128, dtype=bf,
+                                          device=dev),
+                              torch.empty(2 * 46341, 128, dtype=bf,
+                                          device=dev), 2, 46341, 0.125)),
+            ("N = 289 with a pattern", k4(
+                inp.rnd(2 * 289, 3 * 128), inp.rnd(2 * 289, 128), 2, 289,
+                0.125, pattern=inp.rnd(1, 2, 289, 289,
+                                       dtype=torch.float32))),
             ("head dim 24", k4(inp.rnd(2 * 49, 3 * 72), inp.rnd(2 * 49, 72),
                                3, 49, 0.2)),
             ("a view 2 bytes off 16", k4(
@@ -2767,8 +3302,9 @@ def k2_report(dev) -> None:
     HGMMA is ``wgmma`` (S = Q K^T and P V), LDGSTS a cp.async copy, UTMALDG
     a TMA load (K2 uses none), HMMA an ``mma.sync``; and per template
     instance, (key chunks, head columns), its registers and stack bytes a
-    thread, where spills go) and the K2 wrapper's host time per call at a
-    small shape beside one SDPA call's."""
+    thread, where spills go; ``long x<cols>`` the long form's instances)
+    and the K2 wrapper's host time per call at a small shape beside one
+    SDPA call's."""
     import re
     from mvlt_tpu_torch.ops import kernels as K
     path = K.build()["attention"]._name
@@ -2784,6 +3320,9 @@ def k2_report(dev) -> None:
         regs = {f"{nc}x{cols}": (int(r), int(st)) for nc, cols, r, st in
                 re.findall(r"attention_wgmma_kernelILi(\d+)ELi(\d+)E\S*"
                            r"\s+REG:(\d+) STACK:(\d+)", usage)}
+        regs.update({f"long x{cols}": (int(r), int(st)) for cols, r, st in
+                     re.findall(r"attention_long_kernelILi(\d+)E\S*"
+                                r"\s+REG:(\d+) STACK:(\d+)", usage)})
     except (OSError, subprocess.SubprocessError) as e:
         ops = regs = f"not read ({e})"
     print(f"K2 SASS ({tool.name} -sass {pathlib.Path(path).name}): {ops}",
@@ -2817,8 +3356,9 @@ def k4_report(dev) -> None:
     (HGMMA is ``wgmma``: every product of both passes; HMMA an
     ``mma.sync``, LDGSTS a cp.async copy, ATOM / RED an atomic, which K4
     must not use) and, per template instance (pass 1: key chunks x head
-    columns; pass 2: head columns), its registers and stack bytes a
-    thread; then the K4 wrapper's host time per call at a small shape."""
+    columns; pass 2: head columns; the long form's passes by head
+    columns), its registers and stack bytes a thread; then the K4
+    wrapper's host time per call at a small shape."""
     import re
     from mvlt_tpu_torch.ops import kernels as K
     path = K.build()["attention_bwd"]._name
@@ -2838,6 +3378,10 @@ def k4_report(dev) -> None:
         regs.update({f"dkv {cols}": (int(r), int(st)) for cols, r, st in
                      re.findall(r"attention_bwd_dkv_kernelILi(\d+)E\S*"
                                 r"\s+REG:(\d+) STACK:(\d+)", usage)})
+        regs.update({f"{what} long {cols}": (int(r), int(st))
+                     for what, cols, r, st in re.findall(
+                         r"attention_bwd_(dq|dkv)_long_kernelILi(\d+)E\S*"
+                         r"\s+REG:(\d+) STACK:(\d+)", usage)})
     except (OSError, subprocess.SubprocessError) as e:
         ops = regs = f"not read ({e})"
     print(f"K4 SASS ({tool.name} -sass {pathlib.Path(path).name}): {ops}",
@@ -3116,10 +3660,14 @@ def attention_lengths():
         ops.attention, ops.attention_bwd = saved
 
 
-def long_n_counts(counts: dict, seen: dict, n: int, what: str) -> None:
-    """Adds to ``counts`` the K2 / K4 launches at N >= 221 (the
-    ``*_long_n`` rows) from ``seen`` (:func:`attention_lengths`), after
-    checking that every K2 (and K4) launch of the path ran at N = ``n``."""
+def long_n_counts(counts: dict, seen: dict, n: int, what: str,
+                  row: str = "long_n", first: int = VIT_VQA_N,
+                  k4: bool = False) -> None:
+    """Adds to ``counts`` the K2 / K4 launches at N >= ``first`` (the
+    ``*_<row>`` rows: ``long_n`` from 221, ``long_form`` past 288) from
+    ``seen`` (:func:`attention_lengths`), after checking that every K2 (and
+    K4) launch of the path ran at N = ``n`` and that K2 (with ``k4`` K4
+    too) launched there."""
     print(f"{what}: K2 / K4 sequence lengths {json.dumps(seen)}",
           flush=True)
     for name in seen:
@@ -3129,10 +3677,12 @@ def long_n_counts(counts: dict, seen: dict, n: int, what: str) -> None:
         if seen[name].get(n, 0) != counts[name]:
             raise AssertionError(f"{what}: {name} launched {counts[name]} "
                                  f"times, {seen[name].get(n, 0)} at N = {n}")
-        counts[f"{name}_long_n"] = sum(c for k, c in seen[name].items()
-                                       if k >= VIT_VQA_N)
-    if not counts["biased_attention_long_n"]:
-        raise AssertionError(f"{what}: K2 never launched at N = {n}")
+        counts[f"{name}_{row}"] = sum(c for k, c in seen[name].items()
+                                      if k >= first)
+    for name in ("biased_attention", "biased_attention_bwd")[:1 + k4]:
+        if not counts[f"{name}_{row}"]:
+            raise AssertionError(f"{what}: {name} never launched at N = "
+                                 f"{n}")
 
 
 def launch_counts() -> dict:
@@ -3321,6 +3871,32 @@ def other_backbone_phases(dev, card: str) -> dict:
     return out
 
 
+def long_form_main() -> int:
+    """``python3 chip_smoke.py --long-n``: phases 1-2 and the long-form
+    phase only (K2 / K4's long form against plain at ``LONG_FORM_N``, the
+    paths that run it, the ViT-B/16 report generation driver), ending with
+    its two kernel rows as JSON instead of the kernels line."""
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    chk = Checker()
+    t0 = time.perf_counter()
+    long_form_kernel_checks(chk, dev)
+    print(f"long-form kernel checks: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    with switches(False):
+        by_path = long_form_phases(dev, card)
+    rows = {}
+    for name in ("biased_attention_long_form",
+                 "biased_attention_bwd_long_form"):
+        per_path = {p: c.get(name, 0) for p, c in by_path.items()}
+        rows[name] = dict(chk.row(name), launches=sum(per_path.values()),
+                          launches_by_path=per_path)
+    print("long-form rows: " + json.dumps(rows), flush=True)
+    return 0
+
+
 def swin_routes_main() -> int:
     """``python3 chip_smoke.py --swin-routes``: phases 1-2 and the swin
     routes phase only (the backward rules of rows 1, 6 and 7 and
@@ -3394,6 +3970,7 @@ def main() -> int:
     caption_kernel_checks(chk, dev)
     iu_xray_kernel_checks(chk, dev)
     retrieval_kernel_checks(chk, dev)
+    long_form_kernel_checks(chk, dev)
     with switches(False):
         by_path = {"vqa_forward": forward_phase(dev, card),
                    "vqa_train_step": train_phase(dev, card),
@@ -3412,6 +3989,7 @@ def main() -> int:
         by_path["retrieval_grid"] = retrieval_grid_phase(dev, card)
         by_path["retrieval_step"] = retrieval_step_phase(dev, card)
         by_path.update(other_backbone_phases(dev, card))
+        by_path.update(long_form_phases(dev, card))
         by_path.update(swin_route_phases(dev, card))
         by_path["vqa_driver"] = vqa_driver_subprocess()
         by_path["pretrain_driver"] = pretrain_driver_subprocess(
@@ -5905,7 +6483,7 @@ if __name__ == "__main__":
              "--caption-driver": caption_driver_main,
              "--retrieval-driver": retrieval_driver_main,
              "--backbones": backbones_main,
-             "--swin-routes": swin_routes_main}
+             "--swin-routes": swin_routes_main, "--long-n": long_form_main}
     flags = sys.argv[1:]
     LOADER_PACE = "--loader-pace" in flags
     flags = [f for f in flags if f != "--loader-pace"]

@@ -79,10 +79,40 @@
 //     MN-major from shared memory through the transpose bit;
 //   - ctx is staged as bf16 through q's shared memory (q is read by then) and
 //     written as 16-byte stores through the output strides.
-// The N cap (288) is the scores' registers, not shared memory (82,944 bytes
-// at N = 288, Dh 64; `smem_bytes` below, mirrored by ops/kernels.py). The
-// loader needs 16-byte aligned q, k, v, ctx and strides that are multiples
-// of 8 elements (checked by the wrapper and here).
+// That register-resident tiling stops at N = 288: the scores' registers,
+// not shared memory (82,944 bytes at N = 288, Dh 64; `smem_bytes` below,
+// mirrored by ops/kernels.py).
+//
+// The long form (`attention_long_kernel`, N > 288): JAX's fused encoder has
+// no length gate (mvlt_tpu/models/fusion.py:105-117), so `_attn_ln_kernel`
+// runs at S = 348 (ViT-B/16 or the linear patch with MIMIC-CXR's 150 text
+// tokens) and 474 (two IU X-Ray views). One warpgroup still owns 64 query
+// rows of a (group, head), but the keys stream through a two-stage ring of
+// 64-key chunks (k, and in the second sweep v, by cp.async: the next chunk
+// lands while one is used), so neither shared memory (41,984 bytes at Dh
+// 64, 21,504 at Dh 32) nor registers grow with N. Two sweeps over the
+// chunks:
+//   1. S = Q K_c^T, scale and biases, then each row's max and its sum of
+//      exponentials. The sum is kept against the running max and rescaled
+//      by exp(old max - new max) when the max grows, so it is the sum
+//      against the row's final max up to that rescaling's rounding;
+//   2. S again, p = exp(s - max) / sum with the exact divide, times the
+//      amask (read from device memory score by score: 64 rows of N bf16
+//      cannot be staged beside the ring at these N) or the Philox keep mask
+//      (drawn per 32-key chunk as the register form draws it), rounded to
+//      bf16 and accumulated as P V_c in f32.
+// Why not FlashAttention's one-pass rescaled accumulator: the two sweeps
+// keep the rounding points that the register form and JAX's interpret path
+// share (p normalised in f32 before its bf16 rounding, PV summed once); the
+// kernel is bound by bytes, so the second Q K^T costs little. It takes the
+// sequence modes only (key bias, qbias, amask, in-kernel dropout): the
+// pattern and stored-p modes keep the register form and its N <= 288, and
+// the wrapper keeps the head-major layout there too (no path runs a window
+// past 144). N is capped at 46,340 so that i * N + j stays a 32-bit index
+// (and a 32-bit Philox counter word).
+//
+// The loader needs 16-byte aligned q, k, v, ctx and strides that are
+// multiples of 8 elements (checked by the wrapper and here).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,9 +165,23 @@ __host__ __device__ constexpr int mask_bytes(int N, int Dh) {
              ? ROWS * N * 2 + 16
              : 0;
 }
+// the long form: keys a ring chunk (two m64n32 products), its stages, the
+// largest N (i * N + j in 32 bits), blocks an SM
+constexpr int LONG_KEYS = 64, LONG_SUB = LONG_KEYS / KEYS, LONG_STAGES = 2;
+constexpr int LONG_MAX_N = 46340;
+constexpr int LONG_MIN_BLOCKS = 3;
+__host__ __device__ constexpr bool long_takes(int N, int Dh) {
+  return N > MAX_N && N <= LONG_MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
+}
+// q's 64 rows, the ring's k and v chunks, slack for the swizzle's alignment
+__host__ __device__ constexpr int long_bytes(int Dh) {
+  return (ROWS + LONG_STAGES * 2 * LONG_KEYS) * head_cols(Dh) * 2 + 1024;
+}
 // shared memory of one block, or -1 where the kernel does not take (N, Dh)
 __host__ __device__ constexpr long long smem_bytes(int N, int Dh, bool amask) {
-  return takes(N, Dh) ? base_bytes(N, Dh) + (amask ? mask_bytes(N, Dh) : 0) : -1;
+  return takes(N, Dh) ? base_bytes(N, Dh) + (amask ? mask_bytes(N, Dh) : 0)
+         : long_takes(N, Dh) ? long_bytes(Dh)
+                             : -1;
 }
 
 struct Params {
@@ -394,6 +438,230 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NC)) attention_wgmma_kerne
   }
 }
 
+// The long form (N > 288): 64 query rows of one (group, head) against the
+// keys streamed in 64-key chunks, two sweeps (see the head of the file).
+// Step t of the 2 * nch steps is chunk t % nch of sweep t / nch; its copies
+// land in ring stage t % 2 while step t - 1 computes.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, LONG_MIN_BLOCKS) attention_long_kernel(const Params p) {
+  constexpr int ROWB = DP * 2;
+  constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  constexpr uint32_t SBO = 8 * ROWB;
+  constexpr int STAGE = 2 * LONG_KEYS * ROWB;  // a chunk's k rows, then its v rows
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* Ring = Qs + ROWS * ROWB;
+
+  const int N = p.N;
+  const int tile = blockIdx.x % p.tiles;
+  const int gh = blockIdx.x / p.tiles;
+  const int h = gh % p.nH, g = gh / p.nH;
+  const int row0 = tile * ROWS;
+  const long long in0 = g * p.in_g + h * p.in_h;
+  const size_t nn = (size_t)N * N;
+  const size_t t0 = ((size_t)g * p.nH + h) * nn;
+  const int nch = (N + LONG_KEYS - 1) / LONG_KEYS;
+
+  // the copies of step t: k of its chunk, and in the second sweep v
+  auto prefetch = [&](int t) {
+    const int key0 = (t < nch ? t : t - nch) * LONG_KEYS;
+    unsigned char* st = Ring + (t & 1) * STAGE;
+    load_rows<ROWB>(st, p.k, in0, p.in_n, key0, LONG_KEYS, N, p.Dh);
+    if (t >= nch) load_rows<ROWB>(st + LONG_KEYS * ROWB, p.v, in0, p.in_n, key0, LONG_KEYS, N, p.Dh);
+  };
+  load_rows<ROWB>(Qs, p.q, in0, p.in_n, row0, ROWS, N, p.Dh);
+  prefetch(0);
+  cp_async_commit();
+
+  // element x of sub-chunk c sits in row r0 + 8 hh, column c0 + cq + col(c, x)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const bool live_warp = row0 + warp * 16 < N;
+  const bool live0 = row0 + r0 < N, live1 = row0 + r0 + 8 < N;
+  const int erow0 = (row0 + r0) * N, erow1 = (row0 + r0 + 8) * N;
+  auto col = [](int c, int x) { return c * KEYS + (x >> 2) * 8 + (x & 1); };
+  const float* kb = p.kbias ? p.kbias + (size_t)g * N + cq : nullptr;
+  const float* qb = p.qbias ? p.qbias + (size_t)g * nn : nullptr;
+  const bf16* am = p.amask ? p.amask + t0 : nullptr;
+  float* mo = p.mask_out ? p.mask_out + t0 : nullptr;
+  const uint32_t key = p.seed ? adrop_key(p.seed) : 0u, ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, rcp[2] = {0.f, 0.f};
+  float o[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) o[x] = 0.f;
+  fence_acc(o);
+  const uint32_t q_base = smem_u32(Qs);
+
+#pragma unroll 1
+  for (int t = 0; t < 2 * nch; ++t) {
+    __syncthreads();  // every warp is done with stage (t + 1) % 2, step t - 1's
+    if (t + 1 < 2 * nch) prefetch(t + 1);
+    cp_async_commit();  // (an empty group at the last step keeps the count)
+    const bool second = t >= nch;
+    const int c0 = (second ? t - nch : t) * LONG_KEYS;
+    // the keep bits of the second sweep's chunk, drawn while its copies fly
+    uint32_t keep[LONG_SUB];
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c) keep[c] = 0;
+    if (second && p.seed && live_warp) {
+#pragma unroll
+      for (int c = 0; c < LONG_SUB; ++c)
+        keep[c] = draw_chunk(c0 + c * KEYS, erow0, erow1, live0, live1, cq, lane, N, key, ctr1, p.thresh,
+                             p.kept, mo);
+    }
+    cp_async_wait<1>();  // step t's copies are in
+    fence_proxy_async();
+    __syncthreads();
+
+    const uint32_t k_base = smem_u32(Ring + (t & 1) * STAGE), v_base = k_base + LONG_KEYS * ROWB;
+    float s[LONG_SUB][16];
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) s[c][x] = 0.f;
+      fence_acc(s[c]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_m64n32k16(s[c], make_desc(q_base + kk * 32, 16, SBO, SW),
+                        make_desc(k_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c) fence_acc(s[c]);
+
+    if (live_warp) {  // scale and biases; keys past N are -inf
+#pragma unroll
+      for (int c = 0; c < LONG_SUB; ++c) {
+#pragma unroll
+        for (int x = 0; x < 16; ++x) {
+          const int hh = (x >> 1) & 1, j = c0 + col(c, x);
+          float v = -INFINITY;
+          if (cq + j < N) {
+            v = s[c][x] * p.scale;
+            if (hh ? live1 : live0) {
+              if (kb) v += __ldg(kb + j);
+              if (qb) v += __ldg(qb + (hh ? erow1 : erow0) + cq + j);
+            }
+          }
+          s[c][x] = v;
+        }
+      }
+    }
+
+    if (!second) {
+      if (live_warp) {
+        // the chunk's row max over the quad, then the running sum rescaled
+        // to the new max (every chunk holds a key below N: the max is finite)
+        float cm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int c = 0; c < LONG_SUB; ++c)
+#pragma unroll
+          for (int x = 0; x < 16; ++x) cm[(x >> 1) & 1] = fmaxf(cm[(x >> 1) & 1], s[c][x]);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          cm[hh] = fmaxf(cm[hh], __shfl_xor_sync(0xffffffffu, cm[hh], 1));
+          cm[hh] = fmaxf(cm[hh], __shfl_xor_sync(0xffffffffu, cm[hh], 2));
+          const float nm = fmaxf(mx[hh], cm[hh]);
+          if (nm > mx[hh]) sum[hh] *= expf(mx[hh] - nm);  // 0 before the first chunk
+          mx[hh] = nm;
+        }
+#pragma unroll
+        for (int c = 0; c < LONG_SUB; ++c)
+#pragma unroll
+          for (int x = 0; x < 16; ++x) sum[(x >> 1) & 1] += expf(s[c][x] - mx[(x >> 1) & 1]);
+        if (t == nch - 1) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+            sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+            rcp[hh] = __frcp_rn(sum[hh]);
+          }
+        }
+      }
+      continue;
+    }
+
+    // the second sweep: p = exp(s - max) / sum (Markstein's exact divide, as
+    // the register form), the dropout multiplier, bf16 pairs for P V
+    uint32_t a[LONG_SUB][2][4];
+    if (live_warp) {
+#pragma unroll
+      for (int c = 0; c < LONG_SUB; ++c) {
+#pragma unroll
+        for (int x = 0; x < 16; ++x) {
+          const int hh = (x >> 1) & 1, j = c0 + col(c, x);
+          const float ex = expf(s[c][x] - mx[hh]);
+          const float q0 = ex * rcp[hh];
+          float v = fmaf(fmaf(-q0, sum[hh], ex), rcp[hh], q0);
+          if ((hh ? live1 : live0) && cq + j < N) {
+            if (am) v *= __bfloat162float(__ldg(am + (hh ? erow1 : erow0) + cq + j));
+            if (p.seed) v *= (keep[c] >> x) & 1 ? p.kept : 0.f;
+          }
+          s[c][x] = v;
+        }
+#pragma unroll
+        for (int k16 = 0; k16 < 2; ++k16)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) a[c][k16][q] = pack_bf16(s[c][8 * k16 + 2 * q], s[c][8 * k16 + 2 * q + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < LONG_SUB; ++c)
+#pragma unroll
+        for (int k16 = 0; k16 < 2; ++k16)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) a[c][k16][q] = 0u;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c) {
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) {
+        const uint64_t dv = make_desc(v_base + (c * KEYS + k16 * 16) * ROWB, SBO, SBO, SW);
+        if constexpr (DP == 64)
+          wgmma_m64n64k16_rs(o, a[c][k16], dv);
+        else
+          wgmma_m64n32k16_rs(o, a[c][k16], dv);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();  // the stage is free for step t + 2's copies
+    fence_acc(o);
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c)
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) fence_regs(a[c][k16]);
+  }
+
+  // ctx through q's rows, as the register form writes it
+  __syncthreads();
+#pragma unroll
+  for (int b = 0; b < DP / 8; ++b) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(Qs + swz<ROWB>(r0 + 8 * hh, b) + cq * 2) =
+          pack_bf16(o[4 * b + 2 * hh], o[4 * b + 2 * hh + 1]);
+  }
+  __syncthreads();
+  const long long out0 = g * p.out_g + h * p.out_h;
+  const int chunks = p.Dh / 8;
+  for (int e = threadIdx.x; e < ROWS * chunks; e += THREADS) {
+    const int r = e / chunks, c = e % chunks;
+    const int i = row0 + r;
+    if (i < N)
+      *reinterpret_cast<uint4*>(p.ctx + out0 + i * p.out_n + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<ROWB>(r, c));
+  }
+}
+
 int smem_optin() {
   static int bytes = -1;  // queried once
   if (bytes < 0) {
@@ -437,14 +705,27 @@ cudaError_t dispatch(int chunks, const Params& p, long long blocks, int smem, cu
 }
 static_assert(MAX_CHUNKS == 9, "dispatch covers every chunk count");
 
+template <int DP>
+cudaError_t launch_long(const Params& p, long long blocks, cudaStream_t stream) {
+  static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(attention_long_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         long_bytes(DP));
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  attention_long_kernel<DP><<<static_cast<unsigned>(blocks), THREADS, long_bytes(DP), stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The shared memory a block may opt in to on the current device (-1 if the query failed).
 extern "C" int mvlt_smem_optin(void) { return smem_optin(); }
 
 // Shared memory one block needs for (N, Dh), with or without an amask, or -1 where the kernel does not
-// take them (N > 288, or a head dim that is not 16, 32, 48 or 64); the wrapper checks it against the
-// card's opt-in limit.
+// take them (N outside 1 .. 46,340, or a head dim that is not 16, 32, 48 or 64); past N = 288 the long
+// form's, which does not grow with N. The wrapper checks it against the card's opt-in limit.
 extern "C" long long mvlt_attention_smem(int N, int Dh, int amask) { return smem_bytes(N, Dh, amask != 0); }
 
 // q, k, v: bf16, element (g, h, n, d) at g * in_g + h * in_h + n * in_n + d; ctx: bf16, element
@@ -453,7 +734,7 @@ extern "C" long long mvlt_attention_smem(int N, int Dh, int amask) { return smem
 // (G, nH, N, N) bf16 may each be null. seed: null, or (2,) int32 16-bit halves for mode (a), which
 // keeps an element iff its Philox word < thresh and then multiplies by kept; amask must be null with
 // it, and nH <= 256. p_out (G, nH, N, N) bf16 (mode (b)) and mask_out (G, nH, N, N) f32 (mode (a)
-// only) may be null.
+// only) may be null. Past N = 288 (the long form) pattern and p_out must be null.
 extern "C" int mvlt_attention(const void* q, const void* k, const void* v, long long in_g, long long in_h,
                               long long in_n, void* ctx, long long out_g, long long out_h, long long out_n,
                               const void* pattern, const void* kbias, const void* qbias, const void* amask,
@@ -463,6 +744,8 @@ extern "C" int mvlt_attention(const void* q, const void* k, const void* v, long 
   if (smem < 0 || G < 1 || nH < 1 || P < 1) return (int)cudaErrorInvalidValue;
   if (seed != nullptr && (amask != nullptr || nH > 256)) return (int)cudaErrorInvalidValue;
   if (mask_out != nullptr && seed == nullptr) return (int)cudaErrorInvalidValue;
+  const bool long_form = N > MAX_N;
+  if (long_form && (pattern != nullptr || p_out != nullptr)) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)ctx) & 15) return (int)cudaErrorInvalidValue;
   if ((in_g | in_h | in_n | out_g | out_h | out_n) & 7) return (int)cudaErrorInvalidValue;
   const int optin = smem_optin();
@@ -475,9 +758,11 @@ extern "C" int mvlt_attention(const void* q, const void* k, const void* v, long 
                  out_g, out_h, out_n, static_cast<const float*>(pattern), static_cast<const float*>(kbias),
                  static_cast<const float*>(qbias), static_cast<cbf>(amask), static_cast<const int*>(seed),
                  static_cast<bf16*>(ctx), static_cast<bf16*>(p_out), static_cast<float*>(mask_out), N, nH,
-                 Dh, P, tiles, amask != nullptr && mask_bytes(N, Dh) > 0, scale, thresh, kept};
+                 Dh, P, tiles, !long_form && amask != nullptr && mask_bytes(N, Dh) > 0, scale, thresh, kept};
   const int chunks = (N + KEYS - 1) / KEYS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (long_form)
+    return (int)(head_cols(Dh) == 64 ? launch_long<64>(p, blocks, s) : launch_long<32>(p, blocks, s));
   return (int)(head_cols(Dh) == 64 ? dispatch<64>(chunks, p, blocks, (int)smem, s)
                                    : dispatch<32>(chunks, p, blocks, (int)smem, s));
 }

@@ -71,7 +71,32 @@
 //     fixed order.
 // Shared memory is O(N Dh), never N x N: N <= 288 (nine 32-wide chunks, K2's
 // bound) at head dims 16, 32, 48 and 64 (16 / 48 zero-padded to 32 / 64
-// columns). The plan (`smem_bytes`, `scratch_words` below) is mirrored by
+// columns).
+//
+// The long form (N > 288, the sequence modes only: key bias, qbias, amask,
+// regenerated dropout; not the pattern or stored-p modes): the counterpart
+// of K2's long form, for the fused encoder at S = 348 and 474, where JAX's
+// `_seq_core_bwd_kernel` runs too (no length gate). Neither pass holds a
+// whole row or column in registers or shared memory, so neither grows with
+// N:
+//   - pass 1, `attention_bwd_dq_long_kernel`, keeps q's and dctx's 64 rows
+//     and streams the keys through a two-stage ring of 64-key chunks (k,
+//     and from the second sweep v), in three sweeps: (1) S, each row's max
+//     and its sum of exponentials (rescaled to the running max, as K2's
+//     long form keeps it); (2) S and dp again, p with the exact divide, the
+//     dropout multiplier (the keep bits drawn here and written to the
+//     scratch's words) and rd = rowsum(p * dp * mask) in f32; (3) S and dp
+//     once more, ds = p * dp * mask - p * rd and dq += ds K, the keep bits
+//     read back from the scratch. It writes the statistics as the register
+//     form does;
+//   - pass 2, `attention_bwd_dkv_long_kernel`, keeps a 64-key tile's k and
+//     v and streams every query's q and dctx through a two-stage ring of
+//     64-query chunks, the chunk's statistics and keep words staged beside
+//     them; the body per 32 queries is the register form's pass 2.
+// The dkbias column sums run in one fixed order (the queries in order,
+// then the row quad, then `sum_heads_kernel` over heads), with no atomics.
+// N is capped at 46,340 (i * N + j in 32 bits), as in K2.
+// The plan (`smem_bytes`, `scratch_words` below) is mirrored by
 // `kernels.attention_bwd_plan` in ops/kernels.py, which admits a call
 // before any launch.
 
@@ -132,9 +157,27 @@ __host__ __device__ constexpr int dq_mask_smem(int N, int Dh) {
 __host__ __device__ constexpr int dkv_smem(int N, int Dh) { return dq_smem(N, Dh) + 6 * chunks_of(N) * KEYS * 4; }
 // pattern mode: the sum of ds over a run of groups, 64 keys x the queries in f32
 __host__ __device__ constexpr int pattern_smem(int N) { return ROWS * chunks_of(N) * KEYS * 4; }
+// the long form: keys (pass 1) or queries (pass 2) a ring chunk, its stages,
+// the largest N (i * N + j in 32 bits), blocks an SM
+constexpr int LONG_ROWS = 64, LONG_SUB = LONG_ROWS / KEYS, LONG_STAGES = 2;
+constexpr int LONG_MAX_N = 46340;
+constexpr int LONG_MIN_BLOCKS = 3;
+__host__ __device__ constexpr bool long_takes(int N, int Dh) {
+  return N > MAX_N && N <= LONG_MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
+}
+// pass 1: q's and dctx's 64 rows and the ring's k and v chunks; pass 2: the
+// key tile's k and v, the ring's q and dctx chunks, and the chunk's
+// statistics (row max, row sum, its reciprocal, rd) and two keep words per
+// query; 1024 bytes of slack for the swizzle's alignment
+__host__ __device__ constexpr int long_dq_smem(int Dh) {
+  return (2 * ROWS + LONG_STAGES * 2 * LONG_ROWS) * head_cols(Dh) * 2 + 1024;
+}
+__host__ __device__ constexpr int long_dkv_smem(int Dh) { return long_dq_smem(Dh) + 6 * LONG_ROWS * 4; }
 // shared memory of the larger pass, or -1 where K4 does not take (N, Dh)
+// (past N = 288: the long form, in no pattern mode)
 __host__ __device__ constexpr long long smem_bytes(int N, int Dh, bool pattern, bool amask) {
-  return !takes(N, Dh) ? -1
+  return long_takes(N, Dh) ? (pattern ? -1 : long_dkv_smem(Dh))
+         : !takes(N, Dh) ? -1
          : dq_smem(N, Dh) + (amask ? dq_mask_smem(N, Dh) : 0) > dkv_smem(N, Dh) + (pattern ? pattern_smem(N) : 0)
              ? dq_smem(N, Dh) + (amask ? dq_mask_smem(N, Dh) : 0)
              : dkv_smem(N, Dh) + (pattern ? pattern_smem(N) : 0);
@@ -761,6 +804,513 @@ __global__ void __launch_bounds__(THREADS, DKV_MIN_BLOCKS) attention_bwd_dkv_ker
   }
 }
 
+// The long form's pass 1 (N > 288): dq of one 64-query tile of (g, h) and
+// the statistics and keep words for pass 2, the keys streamed in 64-key
+// chunks over three sweeps (see the head of the file). Step t of the 3 *
+// nch steps is chunk t % nch of sweep t / nch; its copies land in ring
+// stage t % 2 while step t - 1 computes.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, LONG_MIN_BLOCKS) attention_bwd_dq_long_kernel(const Params p) {
+  constexpr int ROWB = DP * 2;
+  constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  constexpr uint32_t SBO = 8 * ROWB;
+  constexpr int STAGE = 2 * LONG_ROWS * ROWB;  // a chunk's k rows, then its v rows
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* Ds = Qs + ROWS * ROWB;  // dctx rows of the tile
+  unsigned char* Ring = Ds + ROWS * ROWB;
+
+  const int N = p.N, C = p.C, Dh = p.Dh;
+  const int tile = blockIdx.x % p.tiles;
+  const int gh = blockIdx.x / p.tiles;
+  const int h = gh % p.nH, g = gh / p.nH;
+  const int row0 = tile * ROWS;
+  const long long ld = 3LL * C;
+  const long long in0 = (long long)g * N * ld;
+  const bf16* qs = p.qkv + h * Dh;
+  const size_t nn = (size_t)N * N;
+  const size_t t0 = (size_t)gh * nn;
+  float* st = p.scratch + gh * p.words;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(st + 3 * N);
+  const int nch = (N + LONG_ROWS - 1) / LONG_ROWS, nc32 = chunks_of(N);
+
+  auto prefetch = [&](int t) {
+    const int key0 = (t % nch) * LONG_ROWS;
+    unsigned char* stg = Ring + (t & 1) * STAGE;
+    load_rows<ROWB>(stg, qs + C, in0, ld, key0, LONG_ROWS, N, Dh);
+    if (t >= nch) load_rows<ROWB>(stg + LONG_ROWS * ROWB, qs + 2 * C, in0, ld, key0, LONG_ROWS, N, Dh);
+  };
+  load_rows<ROWB>(Qs, qs, in0, ld, row0, ROWS, N, Dh);
+  load_rows<ROWB>(Ds, p.dctx + h * Dh, (long long)g * N * C, C, row0, ROWS, N, Dh);
+  prefetch(0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const bool live_warp = row0 + warp * 16 < N;
+  const bool live0 = row0 + r0 < N, live1 = row0 + r0 + 8 < N;
+  const int erow0 = (row0 + r0) * N, erow1 = (row0 + r0 + 8) * N;
+  auto col = [](int c, int x) { return c * KEYS + (x >> 2) * 8 + (x & 1); };
+  const float* kb = p.kbias ? p.kbias + (size_t)g * N + cq : nullptr;
+  const float* qb = p.qbias ? p.qbias + (size_t)g * nn : nullptr;
+  const bf16* am = p.amask ? p.amask + t0 : nullptr;
+  const uint32_t key = p.seed ? adrop_key(p.seed) : 0u, ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, rcp[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
+  float dq[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) dq[x] = 0.f;
+  fence_acc(dq);
+  const uint32_t q_base = smem_u32(Qs), d_base = smem_u32(Ds);
+
+#pragma unroll 1
+  for (int t = 0; t < 3 * nch; ++t) {
+    __syncthreads();  // every warp is done with stage (t + 1) % 2, step t - 1's
+    if (t + 1 < 3 * nch) prefetch(t + 1);
+    cp_async_commit();
+    const int sweep = t / nch, c0 = (t % nch) * LONG_ROWS;
+    // the keep bits of the chunk: drawn in the second sweep (and written to
+    // the scratch as one word per row and 32 keys, as the register form
+    // writes them), read back in the third
+    uint32_t keep[LONG_SUB];
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c) keep[c] = 0;
+    if (sweep == 1 && p.seed && live_warp) {
+#pragma unroll
+      for (int c = 0; c < LONG_SUB; ++c) {
+        const int k32 = c0 / KEYS + c;
+        if (k32 >= nc32) break;  // warp-uniform: the chunk ends at N
+        keep[c] = draw_chunk(c0 + c * KEYS, erow0, erow1, live0, live1, cq, lane, N, key, ctr1, p.thresh, p.kept,
+                             nullptr);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          uint32_t w = 0;
+#pragma unroll
+          for (int bb = 0; bb < 4; ++bb)
+#pragma unroll
+            for (int k = 0; k < 2; ++k) w |= ((keep[c] >> (4 * bb + 2 * hh + k)) & 1u) << (8 * bb + cq + k);
+          w |= __shfl_xor_sync(0xffffffffu, w, 1);
+          w |= __shfl_xor_sync(0xffffffffu, w, 2);
+          if ((lane & 3) == 0 && (hh ? live1 : live0)) bits[(row0 + r0 + 8 * hh) * nc32 + k32] = w;
+        }
+      }
+    } else if (sweep == 2 && p.seed && live_warp) {
+#pragma unroll
+      for (int c = 0; c < LONG_SUB; ++c) {
+        const int k32 = c0 / KEYS + c;
+        if (k32 >= nc32) break;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          if (!(hh ? live1 : live0)) continue;
+          const uint32_t w = bits[(row0 + r0 + 8 * hh) * nc32 + k32];
+#pragma unroll
+          for (int bb = 0; bb < 4; ++bb)
+#pragma unroll
+            for (int k = 0; k < 2; ++k) keep[c] |= ((w >> (8 * bb + cq + k)) & 1u) << (4 * bb + 2 * hh + k);
+        }
+      }
+    }
+    cp_async_wait<1>();  // step t's copies are in
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K_c^T, and from the second sweep dp = dO V_c^T, one group
+    const uint32_t k_base = smem_u32(Ring + (t & 1) * STAGE), v_base = k_base + LONG_ROWS * ROWB;
+    float s[LONG_SUB][16], dp[LONG_SUB][16];
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) s[c][x] = dp[c][x] = 0.f;
+      fence_acc(s[c]);
+      fence_acc(dp[c]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        wgmma_m64n32k16(s[c], make_desc(q_base + kk * 32, 16, SBO, SW),
+                        make_desc(k_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
+    }
+    if (sweep > 0) {
+#pragma unroll
+      for (int c = 0; c < LONG_SUB; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_m64n32k16(dp[c], make_desc(d_base + kk * 32, 16, SBO, SW),
+                          make_desc(v_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c) {
+      fence_acc(s[c]);
+      fence_acc(dp[c]);
+    }
+
+    if (live_warp) {  // scale and biases; keys past N are -inf
+#pragma unroll
+      for (int c = 0; c < LONG_SUB; ++c) {
+#pragma unroll
+        for (int x = 0; x < 16; ++x) {
+          const int hh = (x >> 1) & 1, j = c0 + col(c, x);
+          float v = -INFINITY;
+          if (cq + j < N) {
+            v = s[c][x] * p.scale;
+            if (hh ? live1 : live0) {
+              if (kb) v += __ldg(kb + j);
+              if (qb) v += __ldg(qb + (hh ? erow1 : erow0) + cq + j);
+            }
+          }
+          s[c][x] = v;
+        }
+      }
+    }
+
+    if (sweep == 0) {  // the row max and the sum rescaled to it, as K2's long form
+      if (live_warp) {
+        float cm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int c = 0; c < LONG_SUB; ++c)
+#pragma unroll
+          for (int x = 0; x < 16; ++x) cm[(x >> 1) & 1] = fmaxf(cm[(x >> 1) & 1], s[c][x]);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          cm[hh] = fmaxf(cm[hh], __shfl_xor_sync(0xffffffffu, cm[hh], 1));
+          cm[hh] = fmaxf(cm[hh], __shfl_xor_sync(0xffffffffu, cm[hh], 2));
+          const float nm = fmaxf(mx[hh], cm[hh]);
+          if (nm > mx[hh]) sum[hh] *= expf(mx[hh] - nm);
+          mx[hh] = nm;
+        }
+#pragma unroll
+        for (int c = 0; c < LONG_SUB; ++c)
+#pragma unroll
+          for (int x = 0; x < 16; ++x) sum[(x >> 1) & 1] += expf(s[c][x] - mx[(x >> 1) & 1]);
+        if (t == nch - 1) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+            sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+            rcp[hh] = __frcp_rn(sum[hh]);
+          }
+          if ((lane & 3) == 0) {
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              if (hh ? live1 : live0) {
+                st[row0 + r0 + 8 * hh] = mx[hh];
+                st[N + row0 + r0 + 8 * hh] = sum[hh];
+              }
+          }
+        }
+      }
+      continue;
+    }
+
+    // p (Markstein's exact divide) and dp * mask in place of s and dp
+    if (live_warp) {
+#pragma unroll
+      for (int c = 0; c < LONG_SUB; ++c) {
+#pragma unroll
+        for (int x = 0; x < 16; ++x) {
+          const int hh = (x >> 1) & 1, j = c0 + cq + col(c, x);
+          const float ex = expf(s[c][x] - mx[hh]);
+          const float q0 = ex * rcp[hh];
+          s[c][x] = fmaf(fmaf(-q0, sum[hh], ex), rcp[hh], q0);
+          float m = 0.f;  // 0 outside the block
+          if ((hh ? live1 : live0) && j < N)
+            m = am ? __bfloat162float(__ldg(am + (hh ? erow1 : erow0) + j))
+                   : p.seed ? ((keep[c] >> x) & 1u ? p.kept : 0.f) : 1.f;
+          dp[c][x] *= m;
+        }
+      }
+    }
+    if (sweep == 1) {  // rd = rowsum(p * dp * mask)
+      if (live_warp) {
+#pragma unroll
+        for (int c = 0; c < LONG_SUB; ++c)
+#pragma unroll
+          for (int x = 0; x < 16; ++x) rd[(x >> 1) & 1] += s[c][x] * dp[c][x];
+      }
+      if (t == 2 * nch - 1) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          rd[hh] += __shfl_xor_sync(0xffffffffu, rd[hh], 1);
+          rd[hh] += __shfl_xor_sync(0xffffffffu, rd[hh], 2);
+        }
+        if ((lane & 3) == 0) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            if (hh ? live1 : live0) st[2 * N + row0 + r0 + 8 * hh] = rd[hh];
+        }
+      }
+      continue;
+    }
+
+    // ds = p * dp * mask - p * rd, then dq += ds K_c (k read MN-major)
+    uint32_t a[LONG_SUB][2][4];
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        float d2[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int x = 2 * q + k;
+          const float pv = s[c][x];
+          d2[k] = live_warp ? pv * dp[c][x] - pv * rd[(x >> 1) & 1] : 0.f;
+        }
+        a[c][q >> 2][q & 3] = pack_bf16(d2[0], d2[1]);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c)
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) {
+        const uint64_t bk = make_desc(k_base + (c * KEYS + k16 * 16) * ROWB, SBO, SBO, SW);
+        if constexpr (DP == 64)
+          wgmma_m64n64k16_rs(dq, a[c][k16], bk);
+        else
+          wgmma_m64n32k16_rs(dq, a[c][k16], bk);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();  // the stage is free for step t + 2's copies
+    fence_acc(dq);
+#pragma unroll
+    for (int c = 0; c < LONG_SUB; ++c)
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) fence_regs(a[c][k16]);
+  }
+
+  // dq * scale through q's rows, as the register form writes it
+  __syncthreads();
+#pragma unroll
+  for (int b = 0; b < DP / 8; ++b) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(Qs + swz<ROWB>(r0 + 8 * hh, b) + cq * 2) =
+          pack_bf16(dq[4 * b + 2 * hh] * p.scale, dq[4 * b + 2 * hh + 1] * p.scale);
+  }
+  __syncthreads();
+  const int chunks = Dh / 8;
+  for (int e = threadIdx.x; e < ROWS * chunks; e += THREADS) {
+    const int r = e / chunks, c = e % chunks;
+    const int i = row0 + r;
+    if (i < N)
+      *reinterpret_cast<uint4*>(p.dqkv + in0 + i * ld + h * Dh + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<ROWB>(r, c));
+  }
+}
+
+// The long form's pass 2 (N > 288): dk and dv of one 64-key tile of (g, h),
+// every query's q and dctx streamed in 64-query chunks with their
+// statistics; per 32 queries the register form's pass-2 body. The head's
+// column sums of ds go to the (G, nH, N) scratch as before.
+template <int DP>
+__global__ void __launch_bounds__(THREADS, DKV_MIN_BLOCKS) attention_bwd_dkv_long_kernel(const Params p) {
+  constexpr int ROWB = DP * 2;
+  constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  constexpr uint32_t SBO = 8 * ROWB;
+  constexpr int STAGE = 2 * LONG_ROWS * ROWB;  // a chunk's q rows, then its dctx rows
+  const int N = p.N, C = p.C, Dh = p.Dh;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);  // the key tile's k, then dk
+  unsigned char* Vs = Ks + ROWS * ROWB;     // its v, then dv
+  unsigned char* Ring = Vs + ROWS * ROWB;
+  float* Sm = reinterpret_cast<float*>(Ring + LONG_STAGES * STAGE);  // the chunk's row max
+  float* Sl = Sm + LONG_ROWS;                                         // row sum
+  float* Sr = Sl + LONG_ROWS;                                         // RN(1 / row sum)
+  float* Sd = Sr + LONG_ROWS;                                         // rd
+  uint32_t* Bt = reinterpret_cast<uint32_t*>(Sd + LONG_ROWS);        // (a): two keep words per query
+
+  const int kt = blockIdx.x % p.tiles;
+  const int gh = blockIdx.x / p.tiles;
+  const int h = gh % p.nH, g = gh / p.nH;
+  const int key0 = kt * ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const bool live_warp = key0 + warp * 16 < N;
+  const int jr[2] = {key0 + r0, key0 + r0 + 8};  // the thread's two key rows
+  const bool kl[2] = {jr[0] < N, jr[1] < N};
+  const long long ld = 3LL * C;
+  const long long in0 = (long long)g * N * ld;
+  const size_t nn = (size_t)N * N;
+  const size_t t0 = (size_t)gh * nn;
+  const bf16* qs = p.qkv + h * Dh;
+  const float* st = p.scratch + gh * p.words;
+  const uint32_t* bits = reinterpret_cast<const uint32_t*>(st + 3 * N);
+  const int nq = (N + LONG_ROWS - 1) / LONG_ROWS, nc32 = chunks_of(N);
+  const float* qb = p.qbias ? p.qbias + (size_t)g * nn : nullptr;
+  const bf16* am = p.amask ? p.amask + t0 : nullptr;
+  float kbv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) kbv[hh] = p.kbias && kl[hh] ? __ldg(p.kbias + (size_t)g * N + jr[hh]) : 0.f;
+  const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+
+  auto prefetch = [&](int t) {
+    unsigned char* stg = Ring + (t & 1) * STAGE;
+    load_rows<ROWB>(stg, qs, in0, ld, t * LONG_ROWS, LONG_ROWS, N, Dh);
+    load_rows<ROWB>(stg + LONG_ROWS * ROWB, p.dctx + h * Dh, (long long)g * N * C, C, t * LONG_ROWS, LONG_ROWS,
+                    N, Dh);
+  };
+  load_rows<ROWB>(Ks, qs + C, in0, ld, key0, ROWS, N, Dh);
+  load_rows<ROWB>(Vs, qs + 2 * C, in0, ld, key0, ROWS, N, Dh);
+  prefetch(0);
+  cp_async_commit();
+
+  float dk[DP / 2], dv[DP / 2], dkb[2] = {0.f, 0.f};
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) dk[x] = dv[x] = 0.f;
+  fence_acc(dk);
+  fence_acc(dv);
+  uint32_t apa[2][4], ads[2][4];
+  float s[16], dp[16];
+
+#pragma unroll 1
+  for (int t = 0; t < nq; ++t) {
+    __syncthreads();  // stage (t + 1) % 2 and the statistics are no longer read
+    if (t + 1 < nq) prefetch(t + 1);
+    cp_async_commit();
+    for (int il = threadIdx.x; il < LONG_ROWS; il += THREADS) {
+      const int i = t * LONG_ROWS + il;
+      const bool in = i < N;
+      const float l = in ? st[N + i] : 1.f;
+      Sm[il] = in ? st[i] : 0.f;
+      Sl[il] = l;
+      Sr[il] = __frcp_rn(l);
+      Sd[il] = in ? st[2 * N + i] : 0.f;
+      if (p.seed) {
+        Bt[2 * il] = in ? bits[i * nc32 + 2 * kt] : 0u;
+        Bt[2 * il + 1] = in && 2 * kt + 1 < nc32 ? bits[i * nc32 + 2 * kt + 1] : 0u;
+      }
+    }
+    cp_async_wait<1>();  // step t's copies are in
+    fence_proxy_async();
+    __syncthreads();
+
+    const uint32_t q_base = smem_u32(Ring + (t & 1) * STAGE), d_base = q_base + LONG_ROWS * ROWB;
+#pragma unroll 1
+    for (int c = 0; c < LONG_SUB; ++c) {
+      // S^T = K Q_c^T and dp^T = V dO_c^T, one group; it also retires the
+      // previous sub-chunk's dk / dv products
+#pragma unroll
+      for (int x = 0; x < 16; ++x) s[x] = dp[x] = 0.f;
+      fence_acc(s);
+      fence_acc(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wgmma_m64n32k16(s, make_desc(k_base + kk * 32, 16, SBO, SW),
+                        make_desc(q_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
+        wgmma_m64n32k16(dp, make_desc(v_base + kk * 32, 16, SBO, SW),
+                        make_desc(d_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(s);
+      fence_acc(dp);
+      fence_acc(dk);
+      fence_acc(dv);
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) {
+        fence_regs(apa[k16]);
+        fence_regs(ads[k16]);
+      }
+      // element x: key row jr[hh], query column i (il in the chunk)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        float pa2[2], ds2[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int x = 2 * q + k, hh = (x >> 1) & 1;
+          const int il = c * KEYS + (x >> 2) * 8 + cq + (x & 1), i = t * LONG_ROWS + il;
+          const int j = jr[hh];
+          float pv = 0.f, m = 0.f;
+          if (live_warp && kl[hh] && i < N) {
+            const int e = i * N + j;
+            float v = s[x] * p.scale;
+            if (p.kbias) v += kbv[hh];
+            if (qb) v += __ldg(qb + e);
+            const float ex = expf(v - Sm[il]);
+            const float q0 = ex * Sr[il];
+            pv = fmaf(fmaf(-q0, Sl[il], ex), Sr[il], q0);
+            const int jl = j - key0;
+            m = am ? __bfloat162float(__ldg(am + e))
+                   : p.seed ? ((Bt[2 * il + (jl >> 5)] >> (jl & 31)) & 1u ? p.kept : 0.f) : 1.f;
+          }
+          const float pdp = pv * (dp[x] * m);
+          ds2[k] = pdp - pv * Sd[il];
+          pa2[k] = pv * m;
+          dkb[hh] += ds2[k];
+        }
+        apa[q >> 2][q & 3] = pack_bf16(pa2[0], pa2[1]);
+        ads[q >> 2][q & 3] = pack_bf16(ds2[0], ds2[1]);
+      }
+      // dv += pa^T dO_c, dk += ds^T Q_c: 16 query rows a k16 step, read
+      // MN-major (their head columns contiguous)
+      wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16) {
+        const uint32_t row = (c * KEYS + k16 * 16) * ROWB;
+        const uint64_t bd = make_desc(d_base + row, SBO, SBO, SW), bq = make_desc(q_base + row, SBO, SBO, SW);
+        if constexpr (DP == 64) {
+          wgmma_m64n64k16_rs(dv, apa[k16], bd);
+          wgmma_m64n64k16_rs(dk, ads[k16], bq);
+        } else {
+          wgmma_m64n32k16_rs(dv, apa[k16], bd);
+          wgmma_m64n32k16_rs(dk, ads[k16], bq);
+        }
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();  // the stage is free for step t + 2's copies
+    fence_acc(dk);
+    fence_acc(dv);
+#pragma unroll
+    for (int k16 = 0; k16 < 2; ++k16) {
+      fence_regs(apa[k16]);
+      fence_regs(ads[k16]);
+    }
+  }
+
+  // this head's column sums of ds, one value per key over the row quad
+  if (p.dkb_part) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      dkb[hh] += __shfl_xor_sync(0xffffffffu, dkb[hh], 1);
+      dkb[hh] += __shfl_xor_sync(0xffffffffu, dkb[hh], 2);
+      if ((lane & 3) == 0 && kl[hh]) p.dkb_part[(size_t)gh * N + jr[hh]] = dkb[hh];
+    }
+  }
+
+  // dk * scale and dv: bf16 pairs into k's and v's rows, then 16-byte
+  // stores of the keys below N
+  __syncthreads();  // every warp's products have read Ks / Vs
+#pragma unroll
+  for (int bb = 0; bb < DP / 8; ++bb) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const uint32_t off = swz<ROWB>(r0 + 8 * hh, bb) + cq * 2;
+      *reinterpret_cast<uint32_t*>(Ks + off) =
+          pack_bf16(dk[4 * bb + 2 * hh] * p.scale, dk[4 * bb + 2 * hh + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(Vs + off) = pack_bf16(dv[4 * bb + 2 * hh], dv[4 * bb + 2 * hh + 1]);
+    }
+  }
+  __syncthreads();
+  const int chunks = Dh / 8;
+  for (int e = threadIdx.x; e < ROWS * chunks; e += THREADS) {
+    const int r = e / chunks, cc = e % chunks;
+    const int j = key0 + r;
+    if (j < N) {
+      bf16* out = p.dqkv + in0 + j * ld + h * Dh + cc * 8;
+      *reinterpret_cast<uint4*>(out + C) = *reinterpret_cast<const uint4*>(Ks + swz<ROWB>(r, cc));
+      *reinterpret_cast<uint4*>(out + 2 * C) = *reinterpret_cast<const uint4*>(Vs + swz<ROWB>(r, cc));
+    }
+  }
+}
+
 // dpattern[i] = sum over chunks c, in order, of part[c, i]
 __global__ void sum_chunks_kernel(const float* __restrict__ part, float* __restrict__ dpattern, int chunks,
                                   size_t W) {
@@ -846,18 +1396,39 @@ cudaError_t launch_dkv(const Params& p, unsigned blocks, int smem, cudaStream_t 
   return cudaGetLastError();
 }
 
+template <int DP>
+cudaError_t launch_long(const Params& p, unsigned blocks, cudaStream_t stream) {
+  static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(attention_bwd_dq_long_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, long_dq_smem(DP));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attention_bwd_dkv_long_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               long_dkv_smem(DP));
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  attention_bwd_dq_long_kernel<DP><<<blocks, THREADS, long_dq_smem(DP), stream>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attention_bwd_dkv_long_kernel<DP><<<blocks, THREADS, long_dkv_smem(DP), stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared memory of K4's larger pass for (N, Dh), in pattern mode (bit 0 of flags) or not, with an amask
-// (bit 1) or not, or -1 where K4 does not take them (N > 288, or a head dim that is not 16, 32, 48 or 64); the
-// wrapper checks it against the card's opt-in limit.
+// (bit 1) or not, or -1 where K4 does not take them (N outside 1 .. 46,340, pattern mode past N = 288, or a
+// head dim that is not 16, 32, 48 or 64); the wrapper checks it against the card's opt-in limit.
 extern "C" long long mvlt_attention_bwd_smem(int N, int Dh, int flags) {
   return smem_bytes(N, Dh, flags & 1, flags & 2);
 }
 
 // f32 words of the scratch per (group, head) (row statistics and keep bits), or -1 where K4 does not take
 // (N, Dh).
-extern "C" long long mvlt_attention_bwd_scratch(int N, int Dh) { return takes(N, Dh) ? scratch_words(N) : -1; }
+extern "C" long long mvlt_attention_bwd_scratch(int N, int Dh) {
+  return takes(N, Dh) || long_takes(N, Dh) ? scratch_words(N) : -1;
+}
 
 // Chunks of the pattern mode for G groups and P patterns (the wrapper sizes dpat_part with it).
 extern "C" int mvlt_attention_bwd_chunks(int G, int P, int nH) {
@@ -873,7 +1444,8 @@ extern "C" int mvlt_attention_bwd_chunks(int G, int P, int nH) {
 // it, and nH <= 256. pstore: null, or (G, nH, N, N) bf16 p for mode (b). dkb_part: (G, nH, N) f32 scratch
 // and dkbias (G, N) f32, both null to skip the key-bias gradient. With a pattern, dpat_part: (chunks, P,
 // nH, N, N) f32 scratch (`mvlt_attention_bwd_chunks`) and dpattern (P, nH, N, N) f32. scratch: (G, nH,
-// `mvlt_attention_bwd_scratch`) f32, the first pass's statistics for the second.
+// `mvlt_attention_bwd_scratch`) f32, the first pass's statistics for the second. Past N = 288 (the long
+// form) pattern and pstore must be null.
 extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void* pattern, const void* kbias,
                                   const void* qbias, const void* amask, const void* seed, const void* pstore,
                                   void* dqkv, void* dkb_part, void* dkbias, void* dpat_part, void* dpattern,
@@ -884,6 +1456,8 @@ extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void*
   const long long smem = smem_bytes(N, Dh, pattern != nullptr, amask != nullptr);
   if (smem < 0) return (int)cudaErrorInvalidValue;
   if (seed != nullptr && (amask != nullptr || nH > 256)) return (int)cudaErrorInvalidValue;
+  const bool long_form = N > MAX_N;
+  if (long_form && (pattern != nullptr || pstore != nullptr)) return (int)cudaErrorInvalidValue;
   if ((dkb_part == nullptr) != (dkbias == nullptr)) return (int)cudaErrorInvalidValue;
   if (pattern != nullptr && (P < 1 || G % P != 0 || dpat_part == nullptr || dpattern == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -905,15 +1479,21 @@ extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void*
                  static_cast<const int*>(seed), static_cast<cbf>(pstore), static_cast<bf16*>(dqkv),
                  static_cast<float*>(dkb_part), static_cast<float*>(dpat_part), static_cast<float*>(scratch),
                  scratch_words(N), N, C, nH, Dh, pattern != nullptr ? P : 1, tiles,
-                 amask != nullptr && dq_mask_smem(N, Dh) > 0, stride, per, wpb, scale, thresh, kept};
+                 !long_form && amask != nullptr && dq_mask_smem(N, Dh) > 0, stride, per, wpb, scale, thresh, kept};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nc = chunks_of(N), wide = head_cols(Dh) == 64;
-  const int q_smem = dq_smem(N, Dh) + (p.mask_staged ? dq_mask_smem(N, Dh) : 0);
-  cudaError_t e = wide ? dispatch_dq<64>(nc, p, (unsigned)dq_blocks, q_smem, s)
-                       : dispatch_dq<32>(nc, p, (unsigned)dq_blocks, q_smem, s);
-  if (e != cudaSuccess) return (int)e;
-  const int kv_smem = dkv_smem(N, Dh) + (pattern != nullptr ? pattern_smem(N) : 0);
-  e = wide ? launch_dkv<64>(p, (unsigned)dkv_blocks, kv_smem, s) : launch_dkv<32>(p, (unsigned)dkv_blocks, kv_smem, s);
+  cudaError_t e;
+  if (long_form) {  // both passes on G * nH * tiles blocks
+    e = wide ? launch_long<64>(p, (unsigned)dq_blocks, s) : launch_long<32>(p, (unsigned)dq_blocks, s);
+  } else {
+    const int q_smem = dq_smem(N, Dh) + (p.mask_staged ? dq_mask_smem(N, Dh) : 0);
+    e = wide ? dispatch_dq<64>(nc, p, (unsigned)dq_blocks, q_smem, s)
+             : dispatch_dq<32>(nc, p, (unsigned)dq_blocks, q_smem, s);
+    if (e != cudaSuccess) return (int)e;
+    const int kv_smem = dkv_smem(N, Dh) + (pattern != nullptr ? pattern_smem(N) : 0);
+    e = wide ? launch_dkv<64>(p, (unsigned)dkv_blocks, kv_smem, s)
+             : launch_dkv<32>(p, (unsigned)dkv_blocks, kv_smem, s);
+  }
   if (e != cudaSuccess) return (int)e;
   if (dkbias != nullptr) {
     sum_heads_kernel<<<(G * N + 255) / 256, 256, 0, s>>>(static_cast<const float*>(dkb_part),

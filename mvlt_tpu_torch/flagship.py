@@ -41,9 +41,11 @@
   patch (conv 3 -> 768, k16 s16, BN, ReLU; S = 221, BN on batch
   statistics), and VQA serving on Swin-B @224 (its stage 4, C = 1024, on
   JAX's plain route). Each is its flagship config passed as ``config=`` to
-  the ``build_*`` function above it; the report generation ones refuse a
-  fusion sequence beyond K2 / K4's N <= 288 on the card
-  (:func:`~mvlt_tpu_torch.models.heads.check_fusion_fits`).
+  the ``build_*`` function above it. Report generation and retrieval run on
+  them too, with one view or two (``views=2``: IU X-Ray's frontal and
+  lateral views, 392 image tokens): the caption step at S = 1 + 196 + 1 +
+  150 = 348, two views at S = 1 + 392 + 1 + 80 = 474, where K2 and K4 run
+  their long form (N > 288), as JAX's fused encoder runs at any S.
 - The Swin-S step of record with Swin dropout (``swin.drop_rate`` 0.1, and
   a variant with ``attn_drop_rate`` 0.1 too): every block trains on JAX's
   plain route (row 1 and its VJP; the XLA attention with dropout on its
@@ -157,6 +159,28 @@ def flagship_vit_pretrain_config() -> MVLTConfig:
     (fusion dropouts 0.1, ITM on, text 80) with ``conv='vit'``; S = 278."""
     return dataclasses.replace(flagship_pretrain_config(), conv="vit",
                                vit=ViTConfig())
+
+
+def flagship_vit_caption_config(max_length: int = 150) -> MVLTConfig:
+    """Report generation on ViT-B/16 @224: ``for_caption`` (fusion dropouts
+    0.1, lr 1e-5) with ``conv='vit'``; S = 1 + 196 + 1 + 150 = 348 at
+    MIMIC-CXR's length, 474 for two views at IU X-Ray's 80."""
+    return MVLTConfig.for_caption(max_length=max_length, conv="vit",
+                                  vit=ViTConfig())
+
+
+def flagship_linear_caption_config(max_length: int = 80) -> MVLTConfig:
+    """Report generation on the linear patch (BN on batch statistics in
+    training): ``for_caption`` with ``conv='linear'``; S = 474 for IU
+    X-Ray's two views at its 80 text tokens."""
+    return MVLTConfig.for_caption(max_length=max_length, conv="linear")
+
+
+def flagship_vit_retrieval_config() -> MVLTConfig:
+    """Image-text retrieval on ViT-B/16 @224: ``for_retrieval`` (attention
+    dropout 0.1, captions of 80) with ``conv='vit'``; S = 474 for two
+    views."""
+    return MVLTConfig.for_retrieval(conv="vit", vit=ViTConfig())
 
 
 def flagship_linear_vqa_train_config() -> MVLTConfig:
@@ -366,14 +390,24 @@ def build_swin_pretrain_train_step(batch: int = 32, text_len: int = 80,
         config or flagship_swin_pretrain_config(), image_size)
 
 
+def _example_images(rng, n: int, views: int, image_size: int):
+    """(n, 3, H, W) normal draws, or (n, views, 3, H, W) for two views (the
+    adapter's 5-D input: one backbone call a view, tokens concatenated)."""
+    if views not in (1, 2):
+        raise ValueError(f"views={views}: the adapter takes one or two")
+    shape = (3, image_size, image_size)
+    return rng.normal(size=(n, *shape) if views == 1 else (n, views, *shape))
+
+
 def example_caption_batch(batch: int, text_len: int, seed: int = 0,
                           device="cpu", *, image_size: int = 224,
                           vocab: int = 30000,
                           learning_strategy: str = "unilm",
                           mask_token_id: int = 103,
-                          eos_token_id: int = 104) -> dict:
+                          eos_token_id: int = 104, views: int = 1) -> dict:
     """A caption batch from ``numpy.random.default_rng(seed)`` on
-    ``device``: ``image`` (B, 3, H, W) f32; ``caption`` (B, L) reports of
+    ``device``: ``image`` (B, 3, H, W) f32 (with ``views=2``: (B, 2, 3, H,
+    W)); ``caption`` (B, L) reports of
     5..L tokens in [1, vocab) ending in eos, 0 = padding; ``mlm_labels``
     (B, L) as the caption data pipeline builds them
     (``mvlt_tpu/data/datasets.py:438-452``): for 'unilm' the caption masked
@@ -382,7 +416,7 @@ def example_caption_batch(batch: int, text_len: int, seed: int = 0,
     predicted from the position before it), -100 at the padding. Ids are
     int64."""
     rng = np.random.default_rng(seed)
-    image = rng.normal(size=(batch, 3, image_size, image_size))
+    image = _example_images(rng, batch, views, image_size)
     tokens, lengths = _example_tokens(rng, batch, text_len, vocab)
     tokens[np.arange(batch), lengths - 1] = eos_token_id
     if learning_strategy == "unilm":
@@ -403,11 +437,12 @@ def build_caption_generate(batch: int = 32, num_beams: int = 5,
                            sample: bool = False,
                            dtype: torch.dtype = torch.bfloat16, device="cuda",
                            seed: int = 0, config: MVLTConfig = None,
-                           image_size: int = 224
+                           image_size: int = 224, views: int = 1
                            ) -> Tuple[Callable, torch.Tensor]:
     """(generate, image) for report generation in serving: the seeded
     :class:`CaptionModel` of :func:`flagship_caption_config` (or
-    ``config``) in ``dtype`` and an image batch (B, 3, H, W).
+    ``config``) in ``dtype`` and an image batch (B, 3, H, W), or (B, 2, 3,
+    H, W) with ``views=2``.
     ``generate(image, plain=False, noise=None, **spec)`` encodes each image
     once and decodes with the KV cache; it returns ``(sequences (B, L),
     lengths (B,), scores (B,))`` for beams and ``(ids (B, L), scores (B,
@@ -421,14 +456,15 @@ def build_caption_generate(batch: int = 32, num_beams: int = 5,
     device = _need_cuda(device, "build_caption_generate")
     cfg = dataclasses.replace(config or flagship_caption_config(),
                               max_length=max_length)
-    check_fusion_fits(cfg, max_length, 1, device, image_size)
+    check_fusion_fits(cfg, max_length, views, device, image_size)
     model = CaptionModel(cfg, dtype=dtype, device=device)
     init_seeded_(model, seed)
     model.eval()
     spec = generation.GenerationSpec.from_config(
         cfg, num_beams=num_beams, strategy=strategy, sample=sample)
-    image = torch.from_numpy(np.random.default_rng(seed).normal(
-        size=(batch, 3, image_size, image_size)).astype(np.float32))
+    image = torch.from_numpy(_example_images(
+        np.random.default_rng(seed), batch, views, image_size
+    ).astype(np.float32))
 
     def generate(image, plain: bool = False, noise=None, **overrides):
         return generation.generate(model, image,
@@ -444,19 +480,20 @@ def build_caption_train_step(batch: int = 32, text_len: int = 150,
                              seed: int = 0, plain: bool = False,
                              compute_dtype: torch.dtype = torch.bfloat16,
                              config: MVLTConfig = None,
-                             image_size: int = 224) -> Tuple[Callable, dict]:
+                             image_size: int = 224,
+                             views: int = 1) -> Tuple[Callable, dict]:
     """(step, batch) for the caption train step: ``step(batch)`` runs
     forward + backward + AdamW in ``learning_strategy`` and returns
     ``{"loss"}``; ``step.model`` / ``step.optimizer`` are the seeded
     :class:`CaptionModel` (f32 masters, ``compute_dtype`` math) and its
     AdamW, ``step.masks`` its DropPath / dropout source (a generator on
     ``device`` seeded with ``seed``). The batch is
-    :func:`example_caption_batch`. ``config`` (default
-    :func:`flagship_caption_config`) and ``image_size`` shrink it for tests.
-    ``device='cuda'`` without a CUDA device raises."""
+    :func:`example_caption_batch` (``views=2``: two views a study).
+    ``config`` (default :func:`flagship_caption_config`) and ``image_size``
+    shrink it for tests. ``device='cuda'`` without a CUDA device raises."""
     device = _need_cuda(device, "build_caption_train_step")
     cfg = config or flagship_caption_config()
-    check_fusion_fits(cfg, text_len, 1, device, image_size)
+    check_fusion_fits(cfg, text_len, views, device, image_size)
     model = CaptionModel(cfg, dtype=torch.float32, device=device,
                          compute_dtype=compute_dtype)
     init_seeded_(model, seed)
@@ -464,7 +501,8 @@ def build_caption_train_step(batch: int = 32, text_len: int = 150,
         batch, text_len, seed, device, image_size=image_size,
         vocab=min(30000, cfg.fusion.vocab_size),
         learning_strategy=learning_strategy,
-        mask_token_id=cfg.mask_token_id, eos_token_id=cfg.eos_token_id)
+        mask_token_id=cfg.mask_token_id, eos_token_id=cfg.eos_token_id,
+        views=views)
     step = make_caption_step(model, make_optimizer(model, cfg),
                              learning_strategy=learning_strategy, plain=plain)
     step.masks = DropoutMasks(torch.Generator(device=device).manual_seed(seed))
@@ -483,21 +521,24 @@ def _example_captions(rng, n: int, text_len: int, vocab: int,
 def example_retrieval_batch(pairs: int, text_len: int, seed: int = 0,
                             device="cpu", *, image_size: int = 224,
                             vocab: int = 30000,
-                            eos_token_id: int = 104) -> dict:
+                            eos_token_id: int = 104, views: int = 1) -> dict:
     """A retrieval train batch from ``numpy.random.default_rng(seed)`` on
     ``device``, already ``cat(pos, neg)`` (2 * pairs rows): ``pairs``
     positive (image, caption) samples labelled 1, then one negative each
     labelled 0, which swaps either its image or its caption for another
     sample's, on a coin, as ``RetrievalDataset(swap="either")`` builds them
-    (``mvlt_tpu/data/datasets.py:538-560``). ``image`` (2P, 3, H, W) f32,
-    ``caption`` (2P, L) and ``label`` (2P,) int64."""
+    (``mvlt_tpu/data/datasets.py:538-560``). ``image`` (2P, 3, H, W) f32
+    (``views=2``: (2P, 2, 3, H, W), a swap moving both views), ``caption``
+    (2P, L) and ``label`` (2P,) int64."""
     rng = np.random.default_rng(seed)
-    image = rng.normal(size=(pairs, 3, image_size, image_size))
+    image = _example_images(rng, pairs, views, image_size)
     caption = _example_captions(rng, pairs, text_len, vocab, eos_token_id)
     other = (np.arange(pairs) + rng.integers(1, max(pairs, 2),
                                              size=pairs)) % pairs
     swap_image = rng.random(pairs) < 0.5
-    neg_image = np.where(swap_image[:, None, None, None], image[other], image)
+    neg_image = np.where(
+        swap_image.reshape((pairs,) + (1,) * (image.ndim - 1)), image[other],
+        image)
     neg_caption = np.where(swap_image[:, None], caption, caption[other])
     as_long = lambda a: torch.from_numpy(a.astype(np.int64))  # noqa: E731
     return {"image": torch.from_numpy(np.concatenate(
@@ -509,14 +550,15 @@ def example_retrieval_batch(pairs: int, text_len: int, seed: int = 0,
 
 def example_retrieval_grid(n: int, text_len: int, seed: int = 0, *,
                            image_size: int = 224, vocab: int = 30000,
-                           eos_token_id: int = 104):
+                           eos_token_id: int = 104, views: int = 1):
     """A retrieval test set from ``numpy.random.default_rng(seed)``:
-    (images (n, 3, H, W) f32, caption ids (n, L) int64, ``cap_ids`` (n,)).
+    (images (n, 3, H, W) f32 (``views=2``: (n, 2, 3, H, W)), caption ids
+    (n, L) int64, ``cap_ids`` (n,)).
     One sample in eight repeats another's report, and shares its
     ``cap_id`` (a duplicate report, which the grid's labels count as a
     match)."""
     rng = np.random.default_rng(seed)
-    image = rng.normal(size=(n, 3, image_size, image_size))
+    image = _example_images(rng, n, views, image_size)
     caption = _example_captions(rng, n, text_len, vocab, eos_token_id)
     cap_ids = np.arange(n)
     dup = rng.permutation(n)[:2 * (n // 8)].reshape(2, -1)
@@ -529,11 +571,13 @@ def build_retrieval_grid(n: int = 128, text_len: int = 80,
                          batch_size: int = 64,
                          dtype: torch.dtype = torch.bfloat16, device="cuda",
                          seed: int = 0, config: MVLTConfig = None,
-                         image_size: int = 224) -> Tuple[Callable, tuple]:
+                         image_size: int = 224,
+                         views: int = 1) -> Tuple[Callable, tuple]:
     """(grid, (images, captions, cap_ids)) for retrieval serving: the
     seeded :class:`RetrievalModel` of :func:`flagship_retrieval_config` (or
     ``config``) in ``dtype`` and a test set of ``n`` samples
-    (:func:`example_retrieval_grid`; images and captions on ``device``).
+    (:func:`example_retrieval_grid`, ``views`` a sample; images and
+    captions on ``device``).
     ``grid(images, captions, cap_ids, plain=False)`` is
     :func:`mvlt_tpu_torch.tasks.retrieval.score_images` in chunks of
     ``batch_size``: ``{"similarities", "labels"}`` (n, n) numpy;
@@ -541,13 +585,14 @@ def build_retrieval_grid(n: int = 128, text_len: int = 80,
     raises."""
     device = _need_cuda(device, "build_retrieval_grid")
     cfg = config or flagship_retrieval_config()
+    check_fusion_fits(cfg, text_len, views, device, image_size)
     model = RetrievalModel(cfg, dtype=dtype, device=device)
     init_seeded_(model, seed)
     model.eval()
     images, captions, cap_ids = example_retrieval_grid(
         n, text_len, seed, image_size=image_size,
         vocab=min(30000, cfg.fusion.vocab_size),
-        eos_token_id=cfg.eos_token_id)
+        eos_token_id=cfg.eos_token_id, views=views)
 
     def grid(images, captions, cap_ids, plain: bool = False):
         return retrieval.score_images(model, images, captions, cap_ids,
@@ -562,12 +607,12 @@ def build_retrieval_train_step(pairs: int = 32, text_len: int = 80,
                                plain: bool = False,
                                compute_dtype: torch.dtype = torch.bfloat16,
                                config: MVLTConfig = None,
-                               image_size: int = 224
+                               image_size: int = 224, views: int = 1
                                ) -> Tuple[Callable, dict]:
     """(step, batch) for the retrieval train step: ``step(batch)`` runs
     forward + backward + AdamW on the ``cat(pos, neg)`` batch of 2 * pairs
-    rows (:func:`example_retrieval_batch`) and returns ``{"loss",
-    "accuracy"}``; ``step.model`` / ``step.optimizer`` are the seeded
+    rows (:func:`example_retrieval_batch`, ``views`` a sample) and returns
+    ``{"loss", "accuracy"}``; ``step.model`` / ``step.optimizer`` are the seeded
     :class:`RetrievalModel` (f32 masters, ``compute_dtype`` math) and its
     AdamW, ``step.masks`` its DropPath / attention-dropout source (a
     generator on ``device`` seeded with ``seed``). ``config`` (default
@@ -575,13 +620,14 @@ def build_retrieval_train_step(pairs: int = 32, text_len: int = 80,
     tests. ``device='cuda'`` without a CUDA device raises."""
     device = _need_cuda(device, "build_retrieval_train_step")
     cfg = config or flagship_retrieval_config()
+    check_fusion_fits(cfg, text_len, views, device, image_size)
     model = RetrievalModel(cfg, dtype=torch.float32, device=device,
                            compute_dtype=compute_dtype)
     init_seeded_(model, seed)
     data = example_retrieval_batch(
         pairs, text_len, seed, device, image_size=image_size,
         vocab=min(30000, cfg.fusion.vocab_size),
-        eos_token_id=cfg.eos_token_id)
+        eos_token_id=cfg.eos_token_id, views=views)
     step = make_retrieval_step(model, make_optimizer(model, cfg), plain=plain)
     step.masks = DropoutMasks(torch.Generator(device=device).manual_seed(seed))
     return step, data

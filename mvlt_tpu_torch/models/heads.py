@@ -29,7 +29,7 @@ from mvlt_tpu_torch.models.backbones.adapter import (VisualAdapter,
                                                      image_tokens)
 from mvlt_tpu_torch.models.fusion import FusionEncoder
 from mvlt_tpu_torch.ops.blocks import KERNEL_OPS, PLAIN_OPS
-from mvlt_tpu_torch.ops.kernels import ATTENTION_MAX_N
+from mvlt_tpu_torch.ops.kernels import ATTENTION_LONG_MAX_N
 from mvlt_tpu_torch.ops.layers import (Dense, LayerNorm,
                                        cross_entropy_ignore_index,
                                        gather_label_positions, gelu_exact)
@@ -50,19 +50,20 @@ def check_fusion_fits(config: MVLTConfig, text_len: int, views: int = 1,
                       device="cuda", image_size: int = 224) -> int:
     """The fusion encoder's sequence length S = 1 + views x image tokens + 1
     + ``text_len``; on a CUDA device, ``NotImplementedError`` when S is
-    beyond what K2 and K4 take (N <= ``ATTENTION_MAX_N`` = 288: the caption
-    path on ViT-B/16 or the linear patch, S = 348 at MIMIC-CXR's 150 text
-    tokens, and two views of either, S = 474 at IU X-Ray's 80). The entry
-    points call it before they build anything, so that such a path is
-    refused before any launch, and never runs on the plain versions on the
-    card; on the CPU (the plain versions) it only returns S."""
+    beyond what K2 and K4 take (N <= ``ATTENTION_LONG_MAX_N`` = 46,340, the
+    long form's 32-bit element indices; past N = 288 they run their long
+    form: the caption path on ViT-B/16 or the linear patch, S = 348 at
+    MIMIC-CXR's 150 text tokens, and two views of either, S = 474 at IU
+    X-Ray's 80). The entry points call it before they build anything, so
+    that such a path is refused before any launch, and never runs on the
+    plain versions on the card; on the CPU (the plain versions) it only
+    returns S."""
     S = 2 + views * image_tokens(config, image_size) + text_len
-    if torch.device(device).type == "cuda" and S > ATTENTION_MAX_N:
+    if torch.device(device).type == "cuda" and S > ATTENTION_LONG_MAX_N:
         raise NotImplementedError(
             f"conv={config.conv!r}, {views} view(s) and {text_len} text "
             f"tokens make the fusion sequence S = {S}, beyond K2 / K4's N <= "
-            f"{ATTENTION_MAX_N} (ROADMAP.md queue B, 'K2 / K4 beyond N = "
-            "288')")
+            f"{ATTENTION_LONG_MAX_N}")
     return S
 
 

@@ -138,12 +138,19 @@ They hold the math of the JAX interpret path (``fast=False``), not the TPU
 fast path. The TPU layout choices are dropped: windows are not merged into
 pairs, rows are not padded to multiples of 8, and no VMEM admission rule
 (``weights_fit``, ``shift_kernel_feasible``, ``_vmem_cap``) picks a kernel
-variant; K2 takes any N its tile plan admits (64 query rows a block, the
-scores of up to nine 32-key chunks in registers:
-:func:`~mvlt_tpu_torch.ops.kernels.attention_plan`, N <= 288 at head dims
-16-64), K4 any N whose tiles fit the card's shared memory
-(:func:`~mvlt_tpu_torch.ops.kernels.check_attention_fits`: N <= 140 at head
-dim 64 on an H100).
+variant; K2 and K4 take any N their tile plans admit
+(:func:`~mvlt_tpu_torch.ops.kernels.attention_plan`,
+:func:`~mvlt_tpu_torch.ops.kernels.attention_bwd_plan`, checked against
+the card's shared memory by
+:func:`~mvlt_tpu_torch.ops.kernels.check_attention_fits`): 64 query rows a
+block with the scores of up to nine 32-key chunks in registers up to N =
+288, and past it the long form, which streams the keys (K4's second pass:
+the queries) through a ring of 64-row chunks, up to N = 46,340 at head dims
+16-64. Rows 4, 15, 15' and 16 (``fused_attn_ln``, ``fused_attn_ln_masked``,
+``fused_attn_ln_adrop``, ``seq_attention_core_bwd``) therefore run at any S
+the fusion encoder gives them, as JAX's fused encoder does (it has no
+length gate); the window modes (pattern, stored p, head-major: the Swin
+rows) keep N <= 288 and refuse beyond it before a launch.
 One bf16 rounding differs from the fused TPU kernels: the residual sums
 that the TPU kernel keeps in f32 between its halves (``res1`` in
 ``_full_body``, ``x + attn`` before the post-LN) are rounded to the compute

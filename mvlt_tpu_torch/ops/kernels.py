@@ -14,9 +14,11 @@ a fused epilogue; a product with no epilogue whose output tiles fill at most
 half the card runs as a deterministic split-K, as :func:`gemm_plan` cuts it
 (counted in ``gemm.splitk_launches``). K2 runs one warpgroup per 64 query
 rows of a (group, head) on ``wgmma`` (S = Q K^T and P V, the softmax in
-registers), as :func:`attention_plan` tiles it; it takes N <= 288. K4 runs
-the same tiles in two passes (queries, then keys; every product on
-``wgmma``), as :func:`attention_bwd_plan` tiles it, over the same N. K3
+registers), as :func:`attention_plan` tiles it, up to N = 288; past it a
+long form streams the keys through a ring of 64-key chunks in two sweeps,
+up to N = 46,340. K4 runs the same tiles in two passes (queries, then keys;
+every product on ``wgmma``), as :func:`attention_bwd_plan` tiles it, over
+the same N, with a long form of both passes past N = 288. K3
 and K5 lay a row on a group of lanes sized to C and move it in 16-byte
 words (:func:`row_plan`); K5's column sums run in an order that its plan
 alone fixes (:func:`layernorm_bwd_plan`, :func:`column_sum_plan`), through
@@ -501,9 +503,19 @@ def adrop_mask_plain(seed: torch.Tensor, B: int, num_heads: int, N: int,
 H100_SMEM_OPTIN = 232448
 # csrc/attention.cu's tiling: a block is one warpgroup on 64 query rows of
 # one (group, head); S is computed in chunks of 32 keys (one m64n32 product
-# each), at most 9 of them (144 f32 registers a thread), so N <= 288
+# each), at most 9 of them (144 f32 registers a thread), so N <= 288 in the
+# register-resident form
 ATTENTION_ROWS, ATTENTION_KEYS, ATTENTION_MAX_CHUNKS = 64, 32, 9
 ATTENTION_MAX_N = ATTENTION_KEYS * ATTENTION_MAX_CHUNKS
+# past it, the long form of K2 and K4 (csrc/attention.cu,
+# csrc/attention_bwd.cu): the keys (or, in K4's second pass, the queries)
+# stream through a two-stage ring of 64-row chunks, so its shared memory and
+# registers do not grow with N; N * N element indices stay 32-bit up to
+# 46,340. It takes the sequence modes (key bias, qbias, amask, in-kernel
+# dropout) on the packed rows; the window modes (pattern, stored p,
+# head-major) keep the register form and its N <= 288.
+ATTENTION_LONG_ROWS, ATTENTION_LONG_STAGES = 64, 2
+ATTENTION_LONG_MAX_N = 46340
 # the shared memory an H100 SM gives its blocks, and what it keeps per block
 H100_SMEM_SM, SMEM_BLOCK_RESERVED = 233472, 1024
 
@@ -523,30 +535,51 @@ class AttentionPlan(NamedTuple):
     bytes of shared memory a block, and ``mask_smem`` more when an amask is
     given: its 64 rows are staged there where that keeps
     :func:`attention_min_blocks` blocks on an SM (0: read from device
-    memory)."""
+    memory). With ``long_form`` (N > 288) the block streams the keys in
+    ``key_chunks`` chunks of ``ATTENTION_LONG_ROWS`` through a two-stage
+    ring, twice (the row statistics, then P V): ``smem`` holds q's 64 rows
+    and the ring's k and v chunks whatever N is, and an amask is read from
+    device memory."""
     tiles: int
     key_chunks: int
     head_cols: int
     smem: int
     mask_smem: int
+    long_form: bool = False
+
+
+def _head_cols(Dh: int) -> int:
+    return 32 if Dh <= 32 else 64
+
+
+def _long_n(N: int, Dh: int, kernel: str) -> bool:
+    """Whether N takes the long form; raises ``ValueError`` for N outside
+    1 .. ``ATTENTION_LONG_MAX_N``."""
+    if not 0 < N <= ATTENTION_LONG_MAX_N:
+        raise ValueError(
+            f"{kernel}: N={N}, head dim {Dh} is beyond the kernel's N <= "
+            f"{ATTENTION_LONG_MAX_N} (the long form's i * N + j element "
+            "indices are 32-bit)")
+    return N > ATTENTION_MAX_N
 
 
 @functools.lru_cache(maxsize=1024)
 def attention_plan(N: int, Dh: int) -> AttentionPlan:
     """K2's tile plan for sequences of N at head dim Dh (``smem_bytes`` in
-    csrc/attention.cu). Raises ``ValueError`` for a head dim that is not 16,
-    32, 48 or 64 and for N outside 1 .. ``ATTENTION_MAX_N``."""
+    csrc/attention.cu): the register form up to N = ``ATTENTION_MAX_N``,
+    the long form beyond. Raises ``ValueError`` for a head dim that is not
+    16, 32, 48 or 64 and for N outside 1 .. ``ATTENTION_LONG_MAX_N``."""
     if not (Dh > 0 and Dh % 16 == 0 and Dh <= 64):
         raise ValueError(
             f"biased_attention: head dim {Dh} is not a multiple of 16 up to "
             "64 (the wgmma k16 steps over one swizzle row)")
-    if not 0 < N <= ATTENTION_MAX_N:
-        raise ValueError(
-            f"biased_attention: N={N}, head dim {Dh} is beyond the kernel's "
-            f"N <= {ATTENTION_MAX_N} ({ATTENTION_MAX_CHUNKS} chunks of "
-            f"{ATTENTION_KEYS} keys of scores in registers)")
+    cols = _head_cols(Dh)
+    if _long_n(N, Dh, "biased_attention"):
+        rows = ATTENTION_ROWS + ATTENTION_LONG_STAGES * 2 * ATTENTION_LONG_ROWS
+        return AttentionPlan(-(-N // ATTENTION_ROWS),
+                             -(-N // ATTENTION_LONG_ROWS), cols,
+                             rows * cols * 2 + 1024, 0, True)
     chunks = -(-N // ATTENTION_KEYS)
-    cols = 32 if Dh <= 32 else 64
     smem = (ATTENTION_ROWS + 2 * chunks * ATTENTION_KEYS) * cols * 2 + 1024
     rows = ATTENTION_ROWS * N * 2 + 16
     budget = H100_SMEM_SM // attention_min_blocks(chunks) - SMEM_BLOCK_RESERVED
@@ -593,7 +626,13 @@ class AttentionBwdPlan(NamedTuple):
     from device memory), and ``pattern_smem`` more for pass 2's sum of ds
     over its groups in pattern mode; ``scratch_words`` f32 words of scratch
     per (group, head): each query's row max, row sum and rowsum(p * dp),
-    then its keep bits of the regenerated dropout, one word per 32 keys."""
+    then its keep bits of the regenerated dropout, one word per 32 keys.
+    With ``long_form`` (N > 288, no pattern mode) pass 1 streams the keys
+    and pass 2 the queries through a two-stage ring of
+    ``ATTENTION_LONG_ROWS``-row chunks (pass 1 sweeps them three times: the
+    row statistics, rowsum(p * dp), then ds and dq): ``dq_smem`` and
+    ``dkv_smem`` do not grow with N, ``mask_smem`` and ``pattern_smem`` are
+    0."""
     tiles: int
     chunks: int
     head_cols: int
@@ -602,6 +641,7 @@ class AttentionBwdPlan(NamedTuple):
     mask_smem: int
     pattern_smem: int
     scratch_words: int
+    long_form: bool = False
 
 
 def attention_bwd_min_blocks(chunks: int) -> int:
@@ -613,21 +653,24 @@ def attention_bwd_min_blocks(chunks: int) -> int:
 @functools.lru_cache(maxsize=1024)
 def attention_bwd_plan(N: int, Dh: int) -> AttentionBwdPlan:
     """K4's tile plan for sequences of N at head dim Dh (``smem_bytes`` and
-    ``scratch_words`` in csrc/attention_bwd.cu). Raises ``ValueError``,
+    ``scratch_words`` in csrc/attention_bwd.cu): the register form up to N =
+    ``ATTENTION_MAX_N``, the long form beyond. Raises ``ValueError``,
     naming N and the head dim, for a head dim that is not 16, 32, 48 or 64
-    and for N outside 1 .. ``ATTENTION_MAX_N``."""
+    and for N outside 1 .. ``ATTENTION_LONG_MAX_N``."""
     if not (Dh > 0 and Dh % 16 == 0 and Dh <= 64):
         raise ValueError(
             f"biased_attention_bwd: N={N}, head dim {Dh}: the head dim is not "
             "a multiple of 16 up to 64 (the wgmma k16 steps over one swizzle "
             "row)")
-    if not 0 < N <= ATTENTION_MAX_N:
-        raise ValueError(
-            f"biased_attention_bwd: N={N}, head dim {Dh} is beyond the "
-            f"kernel's N <= {ATTENTION_MAX_N} ({ATTENTION_MAX_CHUNKS} chunks "
-            f"of {ATTENTION_KEYS} keys of scores in registers)")
+    long_form = _long_n(N, Dh, "biased_attention_bwd")
     chunks = -(-N // ATTENTION_KEYS)
-    cols = 32 if Dh <= 32 else 64
+    cols = _head_cols(Dh)
+    if long_form:
+        dq = ((2 * ATTENTION_ROWS + ATTENTION_LONG_STAGES * 2
+               * ATTENTION_LONG_ROWS) * cols * 2 + 1024)
+        return AttentionBwdPlan(-(-N // ATTENTION_ROWS), chunks, cols, dq,
+                                dq + 6 * ATTENTION_LONG_ROWS * 4, 0, 0,
+                                3 * N + N * chunks, True)
     rows = chunks * ATTENTION_KEYS
     dq = (2 * ATTENTION_ROWS + 2 * rows) * cols * 2 + 1024
     mask = ATTENTION_ROWS * N * 2 + 16
@@ -643,27 +686,36 @@ def attention_bwd_smem_bytes(N: int, Dh: int, pattern: bool = False,
                              amask: bool = False) -> int:
     """Shared memory of K4's larger pass (``mvlt_attention_bwd_smem``), in
     pattern mode or not, with an amask or not; -1 where K4 does not take
-    (N, Dh)."""
+    (N, Dh), and in pattern mode past N = 288 (the long form has none)."""
     try:
         plan = attention_bwd_plan(N, Dh)
     except ValueError:
         return -1
+    if plan.long_form:
+        return -1 if pattern else plan.dkv_smem
     return max(plan.dq_smem + (plan.mask_smem if amask else 0),
                plan.dkv_smem + (plan.pattern_smem if pattern else 0))
 
 
 def max_attention_n(Dh: int, smem_optin: int = H100_SMEM_OPTIN, *,
-                    backward: bool = False, amask: bool = False) -> int:
-    """The largest N that K2 (with or without an amask; or, with
-    ``backward``, K4 in pattern mode) admits at head dim ``Dh`` on a card
-    whose blocks may opt in to ``smem_optin`` bytes."""
+                    backward: bool = False, amask: bool = False,
+                    window: bool = False) -> int:
+    """The largest N such that K2 (with or without an amask; or, with
+    ``backward``, K4 in pattern mode; with ``window``, K2 in a window mode)
+    admits every N up to it at head dim ``Dh`` on a card whose blocks may
+    opt in to ``smem_optin`` bytes: at most 288 in the window modes (the
+    register form), ``ATTENTION_LONG_MAX_N`` in the sequence modes where
+    the register form and then the long form fit the card."""
     need = (functools.partial(attention_bwd_smem_bytes, pattern=True,
                               amask=amask)
             if backward else
             functools.partial(attention_smem_bytes, amask=amask))
     n = 0
-    while 0 < need(n + 1, Dh) <= smem_optin:
+    while n < ATTENTION_MAX_N and 0 < need(n + 1, Dh) <= smem_optin:
         n += 1
+    if n == ATTENTION_MAX_N and not (backward or window) and 0 < need(
+            n + 1, Dh) <= smem_optin:
+        return ATTENTION_LONG_MAX_N
     return n
 
 
@@ -685,21 +737,32 @@ def smem_optin(device: torch.device) -> int:
 
 def check_attention_fits(N: int, Dh: int, smem_optin: int, *,
                          backward: bool = False, pattern: bool = False,
-                         amask: bool = False) -> None:
+                         amask: bool = False, window: str = "") -> None:
     """Raise ``ValueError`` unless K2 (with ``amask`` staging its rows; K4,
     with ``pattern`` in its pattern mode) takes (N, Dh) on a card whose
     blocks may opt in to ``smem_optin`` bytes of shared memory, by its tile
-    plan (:func:`attention_plan`, :func:`attention_bwd_plan`)."""
+    plan (:func:`attention_plan`, :func:`attention_bwd_plan`). ``window``
+    names a window-only mode of the call ("pattern", "stored p",
+    "head-major"; ``pattern`` implies it), which the long form does not
+    take: past N = 288 such a call is refused."""
     if backward:
-        attention_bwd_plan(N, Dh)           # raises for what K4 cannot take
-        need = attention_bwd_smem_bytes(N, Dh, pattern, amask)
+        plan = attention_bwd_plan(N, Dh)    # raises for what K4 cannot take
         kernel = "biased_attention_bwd"
     else:
         plan = attention_plan(N, Dh)
-        need = plan.smem + (plan.mask_smem if amask else 0)
         kernel = "biased_attention"
+    window = window or ("pattern" if pattern else "")
+    if plan.long_form and window:
+        raise ValueError(
+            f"{kernel}: N={N}, head dim {Dh}: the {window} mode keeps the "
+            f"register-resident tiling, N <= {ATTENTION_MAX_N}; the long "
+            "form past it takes the sequence modes only (key bias, qbias, "
+            "amask, in-kernel dropout)")
+    need = (attention_bwd_smem_bytes(N, Dh, pattern, amask) if backward
+            else plan.smem + (plan.mask_smem if amask else 0))
     if need > smem_optin:       # formatted only on failure: every call asks
-        top = max_attention_n(Dh, smem_optin, backward=backward, amask=amask)
+        top = max_attention_n(Dh, smem_optin, backward=backward, amask=amask,
+                              window=bool(window))
         raise ValueError(
             f"{kernel}: N={N}, head dim {Dh} needs {need} bytes of shared "
             f"memory per block, the card allows {smem_optin} (N <= {top} at "
@@ -716,9 +779,10 @@ def _check_masks(qbias, amask, G: int, num_heads: int, N: int) -> None:
 
 
 def _attention_geometry(qkv, num_heads: int, seq_n: int, backward: bool,
-                        pattern: bool = False, amask: bool = False):
+                        pattern: bool = False, amask: bool = False,
+                        window: str = ""):
     """(G, C, Dh) of fused rows on the card, after the shape and
-    shared-memory checks."""
+    shared-memory checks (``window``: the call's window-only mode)."""
     rows, C3 = qkv.shape
     N = seq_n
     if not (C3 % 3 == 0 and (C3 // 3) % num_heads == 0):
@@ -728,7 +792,7 @@ def _attention_geometry(qkv, num_heads: int, seq_n: int, backward: bool,
     if N <= 0 or rows % N:
         raise ValueError(f"rows {rows} not groups of N={N}")
     check_attention_fits(N, Dh, smem_optin(qkv.device), backward=backward,
-                         pattern=pattern, amask=amask)
+                         pattern=pattern, amask=amask, window=window)
     return rows // N, C, Dh
 
 
@@ -811,7 +875,8 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
                      save_mask: bool = False):
     """K2 wrapper; same contract as :func:`biased_attention_plain`. On CUDA:
     bf16 qkv and amask, f32 biases, an int32 device seed, a head dim of 16,
-    32, 48 or 64, at most 256 heads with ``adrop``, and N <= 288
+    32, 48 or 64, at most 256 heads with ``adrop``, and N <= 46,340, past
+    N = 288 (the long form) with no pattern and no ``save_p``
     (:func:`attention_plan`, :func:`check_attention_fits`); anything else
     raises ``ValueError`` before a launch. Two calls on the same inputs are
     bitwise equal. ``adrop`` counts in ``adrop_launches``, ``save_p`` in
@@ -825,8 +890,10 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
     _cuda_arg(qkv, "qkv", torch.bfloat16, dev, 2)
     rows = qkv.shape[0]
     N = seq_n
-    G, C, _ = _attention_geometry(qkv, num_heads, N, backward=False,
-                                  amask=amask is not None)
+    G, C, _ = _attention_geometry(
+        qkv, num_heads, N, backward=False, amask=amask is not None,
+        window="pattern" if pattern is not None else
+        "stored p" if save_p else "")
     _cuda_arg(pattern, "pattern", torch.float32, dev, 4)
     P = 1
     if pattern is not None:
@@ -917,7 +984,7 @@ def biased_attention_heads(q, k, v, scale: float, pattern=None):
             raise ValueError(f"q, k and v must share shape and strides "
                              f"({name}: {tuple(t.shape)} {t.stride()})")
     _require(q.stride(3) == 1, "the head dim of q, k, v must be contiguous")
-    check_attention_fits(N, Dh, smem_optin(dev))
+    check_attention_fits(N, Dh, smem_optin(dev), window="head-major")
     check_attention_layout([q.data_ptr(), k.data_ptr(), v.data_ptr()],
                            q.stride()[:3])
     _cuda_arg(pattern, "pattern", torch.float32, dev, 4)
@@ -1123,9 +1190,9 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
     """K4 wrapper; same contract as :func:`biased_attention_bwd_plain`. On
     CUDA: bf16 qkv, dctx, amask and p, f32 biases and patterns, an int32
     device seed, at most 256 heads with ``adrop``, 16-byte aligned tensors,
-    and (N, head dim) within :func:`attention_bwd_plan` (N <= 288, head
-    dims 16, 32, 48, 64); anything else raises ``ValueError`` before a
-    launch. The sums over groups and heads run in a fixed order: two calls
+    and (N, head dim) within :func:`attention_bwd_plan` (N <= 46,340, past
+    N = 288 with no pattern and no stored p; head dims 16, 32, 48, 64);
+    anything else raises ``ValueError`` before a launch. The sums over groups and heads run in a fixed order: two calls
     on the same inputs give bitwise-equal gradients.
     ``adrop`` counts in ``adrop_launches``, ``p`` in ``stored_p_launches``,
     both also in ``launches``."""
@@ -1139,7 +1206,8 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
     N = seq_n
     G, C, Dh = _attention_geometry(qkv, num_heads, N, backward=True,
                                    pattern=pattern is not None,
-                                   amask=amask is not None)
+                                   amask=amask is not None,
+                                   window="stored p" if p is not None else "")
     # the messages are formatted only on failure (host time per call)
     _cuda_arg(dctx, "dctx", bf, dev, 2)
     if tuple(dctx.shape) != (rows, C):

@@ -26,7 +26,10 @@ from the environment, e.g. the step of record with both:
 ``--conv`` swaps the backbone of ``--path vqa`` or ``--path pretrain``
 (ResNet-101 by default): ``--conv vit`` is ViT-B/16 @224 (S = 221 / 278 in
 the fusion encoder), ``--conv linear`` the linear patch (the VQA finetune
-step of ``flagship_linear_vqa_train_config``).
+step of ``flagship_linear_vqa_train_config``); and of ``--path
+caption_step`` (Swin-S by default): ``--conv vit`` or ``linear`` put the
+caption step at S = 1 + 196 + 1 + 150 = 348, where K2 and K4 run their
+long form.
 
 ``--attn-impl pallas`` builds the Swin backbone on its ``attn_impl='pallas'``
 route (``window_attention`` in every block), ``pallas_block`` on row 1 in
@@ -93,6 +96,7 @@ FAMILIES = [
     (OURS + "sum_heads_kernel", "K4 biased_attention_bwd"),
     (OURS + "sum_chunks_kernel", "K4 biased_attention_bwd"),
     (OURS + "attention_wgmma_kernel", "K2 biased_attention"),
+    (OURS + "attention_long_kernel", "K2 biased_attention"),  # N > 288
     (OURS + "ln_bwd_kernel", "K5 layernorm_bwd"),          # <lanes, chunks>
     (OURS + "colsum_kernel", "K5 column_sum"),
     (OURS + "fold_kernel", "K5 partial-sum fold"),          # both K5 calls
@@ -297,8 +301,11 @@ def _build(args, flagship, seq2seq_coin_flip):
         return flagship.build_vqa_train_step(batch=args.batch, device="cuda",
                                              config=cfg)
     if args.path == "caption_step":
+        cfg = {"vit": flagship.flagship_vit_caption_config,
+               "linear": lambda: flagship.flagship_linear_caption_config(150),
+               }.get(args.conv, lambda: None)()
         return flagship.build_caption_train_step(batch=args.batch,
-                                                 device="cuda")
+                                                 device="cuda", config=cfg)
     if args.path == "retrieval_step":
         return flagship.build_retrieval_train_step(pairs=args.batch,
                                                    device="cuda")
@@ -336,10 +343,14 @@ def main() -> int:
                     help="the Swin backbone's route (swin_pretrain)")
     ap.add_argument("--conv", default=None,
                     choices=("vit", "linear", "swin", "resnet101", "resnet50"),
-                    help="the backbone of --path vqa / pretrain")
+                    help="the backbone of --path vqa / pretrain / "
+                         "caption_step")
     args = ap.parse_args()
-    if args.conv and args.path not in ("vqa", "pretrain"):
-        ap.error("--conv applies to --path vqa and --path pretrain")
+    if args.conv and args.path not in ("vqa", "pretrain", "caption_step"):
+        ap.error("--conv applies to --path vqa, pretrain and caption_step")
+    if args.path == "caption_step" and args.conv in ("resnet101",
+                                                      "resnet50"):
+        ap.error("--path caption_step takes --conv vit, linear or swin")
     if not torch.cuda.is_available():
         raise SystemExit("profile: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False

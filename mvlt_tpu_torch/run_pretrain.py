@@ -14,9 +14,10 @@ normalized on the device unless ``--host_normalize`` or a float source
 (``--rgc_index``, ``--synthetic``) is mixed in. ``--backbone_ckpt`` loads an official
 Swin, ResNet or HF ViT state dict into the fresh model
 (``utils/bootstrap.py``). ``--conv vit`` / ``linear`` (196 image tokens)
-train at S = 278 with the default text length 80. Refused:
+train at S = 278 with the default text length 80, and past N = 288 (a
+``--max_length`` above 90) on K2 / K4's long form. Refused:
 ``--model_parallel`` other than 1 (one device), and on a CUDA device a
-fusion sequence beyond K2 / K4's N <= 288. On the card the
+fusion sequence beyond K2 / K4's N <= 46,340. On the card the
 model trains with f32 masters and bf16 compute
 (``TrainConfig.bf16_compute``); on the CPU it runs the kernels' plain
 versions. It writes ``<model_name>/`` (``log.txt``, ``metrics.jsonl``,

@@ -18,8 +18,11 @@ Swin, ResNet or HF ViT state dict over the ``--pretrained`` export
 (``utils/bootstrap.py``). Training runs by default, ``--do_test`` alone
 only tests (JAX's rule). Refused: ``--model_parallel`` other than 1 (one
 device), ``--quant int8w`` (ROADMAP.md queue A, 'ops/quant.py'), and on a
-CUDA device a fusion sequence beyond K2 / K4's N <= 288 (``--conv vit`` or
-``linear``: 196 tokens a view; ``models.heads.check_fusion_fits``). On the
+CUDA device a fusion sequence beyond K2 / K4's N <= 46,340
+(``models.heads.check_fusion_fits``). ``--conv vit`` or ``linear`` (196
+tokens a view) run on the card too: S = 474 on ``iu_xray``'s two views,
+348 at ``mimic_cxr``'s 150 text tokens, 298 at ``rgc``'s 100, where K2 and
+K4 take their long form (N > 288). On the
 card the model trains with f32 masters and bf16 compute; on the CPU it
 runs the kernels' plain versions. It writes ``<model_name>/`` (``log.txt``,
 ``metrics.jsonl``, ``step_*`` checkpoints) and prints the test's scores.
@@ -155,7 +158,7 @@ def main(argv=None):
     tokenizer = default_tokenizer(synthetic_ok=args.dataset == "synthetic")
     max_length = args.max_length or default_max_length(args.dataset)
     cfg = build_config(args, tokenizer, max_length)
-    # S = 1 + views x image tokens + 1 + max_length must fit K2 / K4
+    # S = 1 + views x image tokens + 1 + max_length must fit K2 / K4's plans
     check_fusion_fits(cfg, max_length, 2 if args.dataset == "iu_xray" else 1,
                       args.device)
     tc = TrainConfig(batch_size=args.batch_size, epochs=args.epochs,

@@ -19,8 +19,9 @@ tiny Swin's size. ``--backbone_ckpt`` loads an official Swin, ResNet or
 HF ViT state dict over the ``--pretrained`` export. Refused:
 ``--model_parallel`` other than 1 (one device), a run with neither
 ``--do_train`` nor ``--do_test``, and on a CUDA device a fusion sequence
-beyond K2 / K4's N <= 288 (two views of ``--conv vit`` or ``linear``: S =
-474; ``models.heads.check_fusion_fits``). It writes ``<model_name>/`` (``log.txt``,
+beyond K2 / K4's N <= 46,340 (``models.heads.check_fusion_fits``); two
+views of ``--conv vit`` or ``linear`` (S = 474) run on the card on K2 / K4's
+long form. It writes ``<model_name>/`` (``log.txt``,
 ``metrics.jsonl``, ``step_*`` checkpoints) and, with ``--do_test``,
 ``<model_name>/eval.json`` (R@1 / 5 / 10 both ways), which it also prints.
 """
@@ -123,7 +124,7 @@ def main(argv=None):
         raise SystemExit("nothing to do: pass --do_train and/or --do_test")
     tokenizer = default_tokenizer(synthetic_ok=args.synthetic)
     cfg = build_config(args, tokenizer)
-    # S = 1 + views x image tokens + 1 + max_length must fit K2 / K4
+    # S = 1 + views x image tokens + 1 + max_length must fit K2 / K4's plans
     check_fusion_fits(cfg, args.max_length, 2 if args.iu_xray_root else 1,
                       args.device)
     tc = TrainConfig(batch_size=args.batch_size, epochs=args.epochs,

@@ -87,9 +87,28 @@ def test_attention_bwd_plan_at_the_path_shapes():
 @pytest.mark.parametrize("N,Dh", [(289, 64), (289, 32), (300, 16), (0, 64),
                                   (131, 24), (49, 8), (74, 72), (74, 128)])
 def test_attention_bwd_plan_refuses(N, Dh):
-    """N above 288 (nine 32-key chunks of scores in pass 1's registers),
-    N = 0 and head dims other than 16, 32, 48 and 64 are refused before
-    any launch, with a message naming N and the head dim."""
+    """N = 0 and head dims other than 16, 32, 48 and 64 are refused before
+    any launch, with a message naming N and the head dim. N above 288 (past
+    nine 32-key chunks of scores in pass 1's registers) takes the long
+    form, whose shared memory is the same at every N (51,712 bytes at head
+    dim 64, 27,136 at 16 / 32), in the sequence modes only: its pattern
+    mode and its stored-p mode are refused, naming the mode."""
+    if N > kernels.ATTENTION_MAX_N and Dh in (16, 32, 48, 64):
+        plan = kernels.attention_bwd_plan(N, Dh)
+        assert plan.long_form and plan.pattern_smem == plan.mask_smem == 0
+        smem = 51712 if Dh > 32 else 27136
+        assert kernels.attention_bwd_smem_bytes(N, Dh) == smem
+        assert kernels.attention_bwd_smem_bytes(N, Dh, amask=True) == smem
+        assert kernels.attention_bwd_smem_bytes(N, Dh, pattern=True) == -1
+        kernels.check_attention_fits(N, Dh, kernels.H100_SMEM_OPTIN,
+                                     backward=True, amask=True)
+        for kw, mode in ((dict(pattern=True), "pattern"),
+                         (dict(window="stored p"), "stored p")):
+            with pytest.raises(ValueError, match=f"N={N}, head dim {Dh}: "
+                                                 f"the {mode} mode"):
+                kernels.check_attention_fits(N, Dh, kernels.H100_SMEM_OPTIN,
+                                             backward=True, **kw)
+        return
     with pytest.raises(ValueError, match=f"N={N}, head dim {Dh}"):
         kernels.attention_bwd_plan(N, Dh)
     assert kernels.attention_bwd_smem_bytes(N, Dh) == -1
@@ -107,6 +126,10 @@ def test_attention_bwd_plan_refuses(N, Dh):
     "void (anonymous namespace)::attention_bwd_dkv_kernel<64>("
     "(anonymous namespace)::Params)",
     "void (anonymous namespace)::attention_bwd_dkv_kernel<32>("
+    "(anonymous namespace)::Params)",
+    "void (anonymous namespace)::attention_bwd_dq_long_kernel<64>("
+    "(anonymous namespace)::Params)",
+    "void (anonymous namespace)::attention_bwd_dkv_long_kernel<32>("
     "(anonymous namespace)::Params)",
     "(anonymous namespace)::sum_heads_kernel(const float *, float *, int, "
     "int, int)",

@@ -72,14 +72,29 @@ def test_attention_plan_refuses_head_dims(Dh):
 @pytest.mark.parametrize("N", [289, 300, 512, 0])
 def test_attention_plan_refuses_n_beyond_the_cap(N):
     """N above 288 needs more than nine 32-key chunks of scores in
-    registers; K2 refuses it (and N = 0) at every head dim."""
-    for Dh in (32, 64):
-        with pytest.raises(ValueError, match=f"N={N}, head dim {Dh}"):
-            kernels.attention_plan(N, Dh)
-        assert kernels.attention_smem_bytes(N, Dh) == -1
-        assert kernels.attention_smem_bytes(N, Dh, amask=True) == -1
-    assert kernels.max_attention_n(64) == kernels.max_attention_n(32) == 288
-    assert kernels.max_attention_n(64, amask=True) == 288
+    registers: K2 takes it in its long form (the keys streamed through a
+    ring of 64-key chunks, shared memory the same at every N: 41,984 bytes
+    at head dim 64, 21,504 at 32), whose cap is N = 46,340 (32-bit i * N +
+    j); it refuses N = 0 and N past that cap at every head dim."""
+    cap = kernels.ATTENTION_LONG_MAX_N
+    for Dh, smem in ((32, 21504), (64, 41984)):
+        if N == 0:
+            with pytest.raises(ValueError, match=f"N={N}, head dim {Dh}"):
+                kernels.attention_plan(N, Dh)
+            assert kernels.attention_smem_bytes(N, Dh) == -1
+        else:
+            plan = kernels.attention_plan(N, Dh)
+            assert plan.long_form and plan.tiles == -(-N // 64)
+            assert kernels.attention_smem_bytes(N, Dh) == smem
+            assert kernels.attention_smem_bytes(N, Dh, amask=True) == smem
+        with pytest.raises(ValueError, match=f"N={cap + 1}, head dim {Dh} "
+                                             f"is beyond the kernel's N <= "
+                                             f"{cap}"):
+            kernels.attention_plan(cap + 1, Dh)
+        assert kernels.attention_smem_bytes(cap + 1, Dh, amask=True) == -1
+    assert kernels.max_attention_n(64) == kernels.max_attention_n(32) == cap
+    assert kernels.max_attention_n(64, amask=True) == cap
+    assert kernels.max_attention_n(64, window=True) == 288
 
 
 def test_attention_layout_refusals():
@@ -164,6 +179,8 @@ def test_plain_attention_at_long_n_matches_jax(N, mode):
     "void (anonymous namespace)::attention_wgmma_kernel<5, 64>("
     "(anonymous namespace)::Params)",
     "void (anonymous namespace)::attention_wgmma_kernel<2, 32>("
+    "(anonymous namespace)::Params)",
+    "void (anonymous namespace)::attention_long_kernel<64>("
     "(anonymous namespace)::Params)",
 ])
 def test_profile_family_names_the_new_kernel(symbol):

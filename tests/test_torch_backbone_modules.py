@@ -39,7 +39,7 @@ from mvlt_tpu_torch.models.backbones.adapter import VisualAdapter
 from mvlt_tpu_torch.models.backbones.linear_patch import LinearPatch
 from mvlt_tpu_torch.models.backbones.vit import ViT
 from mvlt_tpu_torch.models.heads import VQAModel
-from mvlt_tpu_torch.ops import blocks
+from mvlt_tpu_torch.ops import blocks, kernels
 from mvlt_tpu_torch.ops.blocks import PLAIN_OPS
 from mvlt_tpu_torch.ops.layers import DropoutMasks
 from mvlt_tpu_torch.utils import convert
@@ -333,21 +333,29 @@ def test_swin_base_wide_route_matches_jax_plain_route(monkeypatch):
 
 def test_fusion_length_guard_refuses_cuda_paths_beyond_288(monkeypatch,
                                                            tmp_path):
-    """On a CUDA device, the caption path on ViT or the linear patch (S =
-    348 at 150 text tokens) and two-view retrieval (S = 474) raise before
-    anything is built or launched, naming the ROADMAP item; on the CPU the
-    guard only measures S. The paths of this slice fit (221, 278)."""
+    """On a CUDA device the fusion length guard takes the lengths of K2 /
+    K4's long form: the caption path on ViT or the linear patch (S = 298 at
+    RGC's 100 text tokens, 348 at 150) and two views (S = 474), as it takes
+    the register form's lengths (221, 278). It refuses only past the long
+    form's N <= 46,340, before anything is built or launched,
+    in the `build_*` entry points and the task drivers; on the CPU it only
+    measures S."""
     cuda = torch.device("cuda")
+    top = kernels.ATTENTION_LONG_MAX_N
     for conv in ("vit", "linear"):
         cap = dataclasses.replace(pcfg.MVLTConfig.for_caption(max_length=150),
                                   conv=conv)
-        with pytest.raises(NotImplementedError, match="beyond N = 288"):
-            heads.check_fusion_fits(cap, 150, 1, cuda)
-        with pytest.raises(NotImplementedError, match="S = 474"):
-            heads.check_fusion_fits(cap, 80, 2, cuda)
+        assert heads.check_fusion_fits(cap, 150, 1, cuda) == 348
+        assert heads.check_fusion_fits(cap, 80, 2, cuda) == 474
+        assert heads.check_fusion_fits(cap, 100, 1, cuda) == 298
         assert heads.check_fusion_fits(cap, 150, 1, "cpu") == 348
         assert heads.check_fusion_fits(cap, 80, 1, cuda) == 278
         assert heads.check_fusion_fits(cap, 23, 1, cuda) == 221
+        with pytest.raises(NotImplementedError,
+                           match=f"S = {top + 1}, beyond K2 / K4's N <= "
+                                 f"{top}"):
+            heads.check_fusion_fits(cap, top - 197, 1, cuda)
+        assert heads.check_fusion_fits(cap, top - 197, 1, "cpu") == top + 1
     assert heads.check_fusion_fits(flagship.flagship_caption_config(), 150,
                                    1, cuda) == 201
     assert heads.check_fusion_fits(flagship.flagship_caption_config(), 80,
@@ -357,23 +365,33 @@ def test_fusion_length_guard_refuses_cuda_paths_beyond_288(monkeypatch,
     monkeypatch.setattr(flagship, "_need_cuda",
                         lambda device, what: torch.device(device))
     built = []
-    monkeypatch.setattr(heads.CaptionModel, "__init__",
-                        lambda *a, **k: built.append(1))
-    vit_cap = dataclasses.replace(flagship.flagship_caption_config(),
-                                  conv="vit", vit=pcfg.ViTConfig())
-    for build in (flagship.build_caption_generate,
-                  flagship.build_caption_train_step):
-        with pytest.raises(NotImplementedError, match="S = 348"):
-            build(config=vit_cap, device="cuda")
+    for cls in (heads.CaptionModel, heads.RetrievalModel):
+        monkeypatch.setattr(cls, "__init__", lambda *a, **k: built.append(1))
+    vit_cap = flagship.flagship_vit_caption_config()
+    vit_ret = flagship.flagship_vit_retrieval_config()
+    S1, S2 = 2 + 196 + top, 2 + 392 + top
+    for build, kw, S in (
+            (flagship.build_caption_generate, dict(config=vit_cap,
+                                                   max_length=top), S1),
+            (flagship.build_caption_train_step, dict(config=vit_cap,
+                                                     text_len=top), S1),
+            (flagship.build_retrieval_grid, dict(config=vit_ret, views=2,
+                                                 text_len=top), S2),
+            (flagship.build_retrieval_train_step, dict(
+                config=vit_ret, views=2, text_len=top), S2)):
+        with pytest.raises(NotImplementedError, match=f"S = {S}"):
+            build(device="cuda", **kw)
     from mvlt_tpu_torch import run_report_generation, run_retrieval
-    with pytest.raises(NotImplementedError, match="S = 474"):
+    with pytest.raises(NotImplementedError, match=f"S = {S2}"):
         run_report_generation.main([
             "--dataset", "iu_xray", "--conv", "linear", "--device", "cuda",
-            "--data_root", str(tmp_path), "--model_name", str(tmp_path / "c")])
-    with pytest.raises(NotImplementedError, match="S = 474"):
+            "--max_length", str(top), "--data_root", str(tmp_path),
+            "--model_name", str(tmp_path / "c")])
+    with pytest.raises(NotImplementedError, match=f"S = {S2}"):
         run_retrieval.main([
             "--iu_xray_root", str(tmp_path), "--conv", "vit", "--do_test",
-            "--device", "cuda", "--model_name", str(tmp_path / "r")])
+            "--max_length", str(top), "--device", "cuda",
+            "--model_name", str(tmp_path / "r")])
     assert not built
 
 

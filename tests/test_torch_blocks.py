@@ -401,14 +401,19 @@ def test_attention_shared_memory_fits_every_admitted_n():
     """The shared-memory reckoning of K2 and K4 (mirrors of ``smem_bytes``
     in csrc/attention.cu and csrc/attention_bwd.cu): at head dim 64 every N
     up to 288 fits the 232,448 bytes an H100 block may opt in to, in every
-    mode. Both bounds are their tile plans' (N <= 288: nine 32-key chunks
-    of scores in registers), no longer shared memory: K2 needs 82,944 bytes
-    at N = 288; K4's two passes need O(N Dh) (58,368 / 62,208 bytes at N =
-    131, where the scalar K4's N x N f32 tiles took 207,504 and stopped at
-    N = 140), and its pattern mode's sum of ds over a block's groups adds 64
-    rows of N f32 (171,776 bytes at N = 288). On a card with less shared
-    memory the bound is again where the next N stops fitting."""
+    mode. Up to 288 the bound is the register form's tile plan (nine 32-key
+    chunks of scores in registers), not shared memory: K2 needs 82,944
+    bytes at N = 288; K4's two passes need O(N Dh) (58,368 / 62,208 bytes at
+    N = 131, where the scalar K4's N x N f32 tiles took 207,504 and stopped
+    at N = 140), and its pattern mode's sum of ds over a block's groups adds
+    64 rows of N f32 (171,776 bytes at N = 288). Past 288 the long form's
+    shared memory is the same at every N (K2 41,984 bytes, K4 51,712), up
+    to its cap of 46,340; the window modes (K4's pattern mode, K2's pattern,
+    stored-p and head-major modes) stop at 288. On a card with less shared
+    memory the window modes' bound is again where the next N stops
+    fitting."""
     optin, Dh = kernels.H100_SMEM_OPTIN, 64
+    top = kernels.ATTENTION_LONG_MAX_N
     bwd_pattern = functools.partial(kernels.attention_bwd_smem_bytes,
                                     pattern=True)
     assert optin == 232448
@@ -419,30 +424,51 @@ def test_attention_shared_memory_fits_every_admitted_n():
     assert kernels.attention_bwd_smem_bytes(131, Dh) == 62208
     assert bwd_pattern(131, Dh) == 62208 + 40960
     assert bwd_pattern(288, Dh) == 171776
-    assert kernels.attention_bwd_smem_bytes(289, Dh) == -1
     assert kernels.attention_smem_bytes(288, Dh) == 82944
     # an amask's rows are staged only where two blocks still fit an SM
     assert kernels.attention_smem_bytes(288, Dh, amask=True) == 82944
     assert kernels.attention_smem_bytes(131, Dh, amask=True) == 50176 + 16784
-    assert kernels.attention_smem_bytes(289, Dh) == -1
-    for backward, need in ((False, kernels.attention_smem_bytes),
-                           (True, bwd_pattern)):
-        n = kernels.max_attention_n(Dh, optin, backward=backward)
+    # the long form: the same bytes at every N past 288, no pattern mode
+    for n in (289, 348, 474, 4096, top):
+        for amask in (False, True):
+            assert kernels.attention_smem_bytes(n, Dh, amask) == 41984, n
+            assert kernels.attention_bwd_smem_bytes(n, Dh,
+                                                    amask=amask) == 51712
+        assert bwd_pattern(n, Dh) == -1
+    assert kernels.attention_smem_bytes(top + 1, Dh) == -1
+    assert kernels.attention_bwd_smem_bytes(top + 1, Dh) == -1
+    assert kernels.max_attention_n(Dh, optin) == top
+    kernels.check_attention_fits(top, Dh, optin, amask=True)
+    kernels.check_attention_fits(top, Dh, optin, backward=True, amask=True)
+    with pytest.raises(ValueError, match=f"N={top + 1}, head dim 64"):
+        kernels.check_attention_fits(top + 1, Dh, optin)
+    # the window modes: K2's (with ``window``) and K4's pattern mode
+    modes = ((False, kernels.attention_smem_bytes, "head-major"),
+             (True, bwd_pattern, ""))
+    for backward, need, window in modes:
+        n = kernels.max_attention_n(Dh, optin, backward=backward,
+                                    window=bool(window))
         assert n == 288
-        assert need(n, Dh) <= optin and need(n + 1, Dh) == -1
+        assert need(n, Dh) <= optin
         kernels.check_attention_fits(n, Dh, optin, backward=backward,
-                                     pattern=backward)
+                                     pattern=backward, window=window)
         with pytest.raises(ValueError, match=f"N={n + 1}, head dim 64"):
             kernels.check_attention_fits(n + 1, Dh, optin, backward=backward,
-                                         pattern=backward)
-    for backward, need in ((False, kernels.attention_smem_bytes),
-                           (True, bwd_pattern)):
+                                         pattern=backward, window=window)
+    for backward, need, window in modes:
         small = need(150, Dh)
-        n = kernels.max_attention_n(Dh, small, backward=backward)
+        n = kernels.max_attention_n(Dh, small, backward=backward,
+                                    window=bool(window))
         assert need(n, Dh) <= small < need(n + 1, Dh) and n >= 150
         with pytest.raises(ValueError, match=f"N={n + 1}, head dim 64"):
             kernels.check_attention_fits(n + 1, Dh, small, backward=backward,
-                                         pattern=backward)
+                                         pattern=backward, window=window)
+    # the sequence modes on that card: the register form stops fitting
+    # before 288, so every N up to the same n is taken, n + 1 is not
+    small = kernels.attention_smem_bytes(150, Dh)
+    n = kernels.max_attention_n(Dh, small)
+    assert kernels.attention_smem_bytes(n, Dh) <= small < \
+        kernels.attention_smem_bytes(n + 1, Dh) and 150 <= n < 288
 
 
 def test_gemm_plain_emask_and_layernorm_bwd_hmask():
