@@ -2618,7 +2618,8 @@ def long_form_kernel_checks(chk: Checker, dev) -> None:
     and its bound, under the rows ``biased_attention_long_form`` /
     ``biased_attention_bwd_long_form``. Then, at each N, two calls of each
     mode bitwise equal and K2's drawn keep mask bitwise equal to
-    ``adrop_mask_plain``; last, the window modes (pattern, stored p,
+    ``adrop_mask_plain``; every mode at an odd N with head dims 32 and 48
+    (b4) against plain; last, the window modes (pattern, stored p,
     head-major) refuse N = 289 before a launch."""
     from mvlt_tpu_torch.ops import kernels as K
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
@@ -2644,9 +2645,14 @@ def long_form_kernel_checks(chk: Checker, dev) -> None:
         t = qkv.view(B, S, 3, nH, Dh).permute(2, 0, 3, 1, 4)
         qkv3 = (t[0].contiguous(), t[1].contiguous(), t[2].contiguous())
         d4 = dctx.view(B, S, nH, Dh).permute(0, 2, 1, 3).contiguous()
+        fp, bp = K.attention_plan(S, Dh), K.attention_bwd_plan(S, Dh)
         print(f"K2 long form at S = {S} (b{B}, {nH} heads, head dim {Dh}): "
-              f"{K.attention_plan(S, Dh)}; K4: {K.attention_bwd_plan(S, Dh)}",
-              flush=True)
+              f"{fp}: {fp.rows} rows a block, {fp.stages} stages, "
+              f"{fp.smem} bytes of shared memory, {fp.sm_blocks} block an "
+              f"SM, {B * nH * fp.tiles} blocks; K4: {bp}: {bp.rows} rows a "
+              f"block, {bp.stages} stages, {bp.dq_smem} / {bp.dkv_smem} "
+              f"bytes (pass 1 / 2), {bp.sm_blocks} block an SM, pass 1 in "
+              f"{bp.sweeps} sweeps", flush=True)
 
         def composed(bias, mask):
             return lambda q, k, v: torch.matmul(torch.softmax(
@@ -2710,6 +2716,42 @@ def long_form_kernel_checks(chk: Checker, dev) -> None:
               f"adrop_mask_plain (keep fraction "
               f"{(mask > 0).float().mean().item():.5f})", flush=True)
         del amask, mask, qkv3, d4
+    # odd N (rows of N f32 start 4 bytes off 8, an amask's 2 bytes off 4:
+    # the plain-copy staging) and the narrow heads (head dims 32 and 48, 48
+    # padded to a 128-byte row): every mode of K2 and K4 against plain
+    for S, h, Dh in ((301, 4, 32), (299, 4, 48)):
+        B, C = 4, 4 * Dh
+        qkv = inp.rnd(B * S, 3 * C, std=0.5)
+        dctx = inp.rnd(B * S, C)
+        kb = inp.key_bias([S - 17 * i for i in range(B)], S)
+        qb = mask_to_bias(seq2seq_fusion_mask(B, 100, S, dev)).contiguous()
+        amask = ((torch.rand(B, h, S, S, generator=inp.gen) < 0.9).to(bf)
+                 / 0.9).to(dev)
+        worst = 0.0
+        for kw in (dict(key_bias=kb), dict(key_bias=kb, amask=amask),
+                   dict(qbias=qb, amask=amask),
+                   dict(key_bias=kb, adrop=(seed, rate)),
+                   dict(qbias=qb, adrop=(seed, rate))):
+            sc = Dh ** -0.5
+            for fn, ref, floor in (
+                    (lambda: K.biased_attention(qkv, h, S, sc, **kw),
+                     lambda: K.biased_attention_plain(qkv, h, S, sc, **kw),
+                     1.0),
+                    (lambda: K.biased_attention_bwd(qkv, dctx, h, S, sc, **kw),
+                     lambda: K.biased_attention_bwd_plain(qkv, dctx, h, S,
+                                                          sc, **kw), 1e-6)):
+                for got, want in zip(_tensors(fn()), _tensors(ref())):
+                    err = (got.float() - want.float()).abs().max().item()
+                    top = max(want.float().abs().max().item(), floor)
+                    worst = max(worst, err / top)
+                    if not err <= KERNEL_BAR * top:
+                        raise AssertionError(
+                            f"long form at S = {S}, head dim {Dh}, "
+                            f"{list(kw)}: max abs err {err} > {KERNEL_BAR}"
+                            f" x {top}")
+        print(f"K2 / K4 long form at S = {S} (b{B}, {h} heads, head dim "
+              f"{Dh}): every mode within {KERNEL_BAR} x max|plain| (worst "
+              f"{worst:.2e})", flush=True)
     # the window modes keep the register form: N = 289 refused, no launch
     before = (K.biased_attention.launches, K.biased_attention_bwd.launches)
     N, Cs, h = 289, 64, 2
@@ -3300,11 +3342,12 @@ def attention_bwd_repeat_checks(dev) -> None:
 def k2_report(dev) -> None:
     """Print what K2's library was compiled to (its SASS instruction counts:
     HGMMA is ``wgmma`` (S = Q K^T and P V), LDGSTS a cp.async copy, UTMALDG
-    a TMA load (K2 uses none), HMMA an ``mma.sync``; and per template
+    a TMA load (the long form's), HMMA an ``mma.sync``; and per template
     instance, (key chunks, head columns), its registers and stack bytes a
-    thread, where spills go; ``long x<cols>`` the long form's instances)
-    and the K2 wrapper's host time per call at a small shape beside one
-    SDPA call's."""
+    thread, where spills go; ``long x<cols>`` the long form's instances,
+    whose ptxas report (registers, spills) follows) and the K2 wrapper's
+    host time per call at a small shape beside one SDPA call's, and at a
+    long-form shape (N = 298: three tensor maps encoded a call)."""
     import re
     from mvlt_tpu_torch.ops import kernels as K
     path = K.build()["attention"]._name
@@ -3329,16 +3372,21 @@ def k2_report(dev) -> None:
           flush=True)
     print(f"K2 registers, stack bytes per (key chunks x head columns) "
           f"({tool.name} -res-usage): {regs}", flush=True)
+    for kernel, lines in K.ptxas_report("attention", "long_kernel").items():
+        print(f"ptxas -v, {kernel}: {' | '.join(lines)}", flush=True)
     if isinstance(ops, dict) and ops["HGMMA"] <= 0:
         raise AssertionError("K2 was compiled without wgmma")
     G, N, C, nH = 2, 64, 128, 2
     qkv = torch.randn(G * N, 3 * C, device=dev).to(torch.bfloat16)
     t = qkv.view(G, N, 3, nH, C // nH).permute(2, 0, 3, 1, 4)
+    long_qkv = torch.randn(G * 298, 3 * C, device=dev).to(torch.bfloat16)
     us = {}
     for name, fn in (("K2 biased_attention",
                       lambda: K.biased_attention(qkv, nH, N, 0.125)),
                      ("SDPA", lambda: F.scaled_dot_product_attention(
-                         t[0], t[1], t[2], scale=0.125))):
+                         t[0], t[1], t[2], scale=0.125)),
+                     ("K2's long form at N = 298",
+                      lambda: K.biased_attention(long_qkv, nH, 298, 0.125))):
         for _ in range(200):
             fn()
         torch.cuda.synchronize()
@@ -3357,8 +3405,10 @@ def k4_report(dev) -> None:
     ``mma.sync``, LDGSTS a cp.async copy, ATOM / RED an atomic, which K4
     must not use) and, per template instance (pass 1: key chunks x head
     columns; pass 2: head columns; the long form's passes by head
-    columns), its registers and stack bytes a thread; then the K4
-    wrapper's host time per call at a small shape."""
+    columns), its registers and stack bytes a thread, and the long form's
+    ptxas report (registers, spills); then the K4 wrapper's host time per
+    call at a small shape and at a long-form shape (N = 298: two tensor
+    maps encoded a call)."""
     import re
     from mvlt_tpu_torch.ops import kernels as K
     path = K.build()["attention_bwd"]._name
@@ -3391,19 +3441,25 @@ def k4_report(dev) -> None:
     if isinstance(ops, dict) and not (ops["HGMMA"] > 0 and ops["HMMA"] == 0
                                       and ops["ATOM/RED"] == 0):
         raise AssertionError(f"K4 was not compiled to wgmma alone: {ops}")
-    G, N, C, nH = 2, 64, 128, 2
-    qkv = torch.randn(G * N, 3 * C, device=dev).to(torch.bfloat16)
-    dctx = torch.randn(G * N, C, device=dev).to(torch.bfloat16)
-    for _ in range(200):
-        K.biased_attention_bwd(qkv, dctx, nH, N, 0.125)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(2000):
-        K.biased_attention_bwd(qkv, dctx, nH, N, 0.125)
-    us = (time.perf_counter() - t0) / 2000 * 1e6
-    torch.cuda.synchronize()
-    print(f"host time per call at G = {G}, N = {N}, C = {C}, 2000 enqueues: "
-          f"K4 biased_attention_bwd {us:.2f} us", flush=True)
+    for kernel, lines in K.ptxas_report("attention_bwd",
+                                        "long_kernel").items():
+        print(f"ptxas -v, {kernel}: {' | '.join(lines)}", flush=True)
+    G, C, nH = 2, 128, 2
+    us = {}
+    for N in (64, 298):
+        qkv = torch.randn(G * N, 3 * C, device=dev).to(torch.bfloat16)
+        dctx = torch.randn(G * N, C, device=dev).to(torch.bfloat16)
+        for _ in range(200):
+            K.biased_attention_bwd(qkv, dctx, nH, N, 0.125)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            K.biased_attention_bwd(qkv, dctx, nH, N, 0.125)
+        us[N] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    print(f"host time per call at G = {G}, C = {C}, 2000 enqueues: K4 "
+          f"biased_attention_bwd {us[64]:.2f} us at N = 64, its long form "
+          f"{us[298]:.2f} us at N = 298", flush=True)
 
 
 def k5_report(dev) -> None:
@@ -3872,14 +3928,19 @@ def other_backbone_phases(dev, card: str) -> dict:
 
 
 def long_form_main() -> int:
-    """``python3 chip_smoke.py --long-n``: phases 1-2 and the long-form
-    phase only (K2 / K4's long form against plain at ``LONG_FORM_N``, the
-    paths that run it, the ViT-B/16 report generation driver), ending with
-    its two kernel rows as JSON instead of the kernels line."""
+    """``python3 chip_smoke.py --long-n``: phases 1-2, ptxas's report of the
+    long-form kernels and the long-form phase only (K2 / K4's long form
+    against plain at ``LONG_FORM_N``, the paths that run it, the ViT-B/16
+    report generation driver), ending with its two kernel rows as JSON
+    instead of the kernels line."""
     started = start()
     if started is None:
         return 1
     dev, card = started
+    from mvlt_tpu_torch.ops import kernels as K
+    for lib in ("attention", "attention_bwd"):
+        for kernel, lines in K.ptxas_report(lib, "long_kernel").items():
+            print(f"ptxas -v, {kernel}: {' | '.join(lines)}", flush=True)
     chk = Checker()
     t0 = time.perf_counter()
     long_form_kernel_checks(chk, dev)

@@ -85,31 +85,57 @@
 //
 // The long form (`attention_long_kernel`, N > 288): JAX's fused encoder has
 // no length gate (mvlt_tpu/models/fusion.py:105-117), so `_attn_ln_kernel`
-// runs at S = 348 (ViT-B/16 or the linear patch with MIMIC-CXR's 150 text
-// tokens) and 474 (two IU X-Ray views). One warpgroup still owns 64 query
-// rows of a (group, head), but the keys stream through a two-stage ring of
-// 64-key chunks (k, and in the second sweep v, by cp.async: the next chunk
-// lands while one is used), so neither shared memory (41,984 bytes at Dh
-// 64, 21,504 at Dh 32) nor registers grow with N. Two sweeps over the
-// chunks:
+// runs at S = 298 / 348 (ViT-B/16 or the linear patch with 100 / 150 text
+// tokens) and 474 (two IU X-Ray views). Neither shared memory nor registers
+// grow with N. The keys stream in 32-key chunks through two sweeps:
 //   1. S = Q K_c^T, scale and biases, then each row's max and its sum of
 //      exponentials. The sum is kept against the running max and rescaled
-//      by exp(old max - new max) when the max grows, so it is the sum
-//      against the row's final max up to that rescaling's rounding;
+//      by exp(old max - new max) (1 where the max holds) chunk by chunk, so
+//      it is the sum against the row's final max up to that rescaling's
+//      rounding;
 //   2. S again, p = exp(s - max) / sum with the exact divide, times the
-//      amask (read from device memory score by score: 64 rows of N bf16
-//      cannot be staged beside the ring at these N) or the Philox keep mask
-//      (drawn per 32-key chunk as the register form draws it), rounded to
-//      bf16 and accumulated as P V_c in f32.
+//      amask or the Philox keep mask, rounded to bf16 and accumulated as
+//      P V_c in f32.
 // Why not FlashAttention's one-pass rescaled accumulator: the two sweeps
 // keep the rounding points that the register form and JAX's interpret path
-// share (p normalised in f32 before its bf16 rounding, PV summed once); the
-// kernel is bound by bytes, so the second Q K^T costs little. It takes the
-// sequence modes only (key bias, qbias, amask, in-kernel dropout): the
-// pattern and stored-p modes keep the register form and its N <= 288, and
-// the wrapper keeps the head-major layout there too (no path runs a window
-// past 144). N is capped at 46,340 so that i * N + j stays a 32-bit index
-// (and a 32-bit Philox counter word).
+// share (p normalised in f32 before its bf16 rounding, PV summed once).
+// A key-bias call reads only q, k, v and the key bias, so its bound is bytes;
+// what stands between a block and it is the chain of copies, products,
+// exponentials and reductions of each chunk, and the scalar work itself.
+// The design:
+//   - a block of three warpgroups owns 128 query rows of one (group, head),
+//     one block an SM. Warpgroups 0 and 1 are the consumers, 64 rows each,
+//     and share every chunk: each chunk is copied once for 128 rows.
+//     Warpgroup 2 is the producer: one thread keeps a ring of LONG_STAGES
+//     stages full by TMA (q's 128 rows once, then each step's 32-key chunk
+//     of k, and in the second sweep v, as boxes of a 4-D tensor map over
+//     (head dim, heads, rows, groups): rows past N and the padding columns
+//     of head dims 16 / 48 arrive as zeros), and its 128 threads stage the
+//     chunk's key bias, qbias tile (128 rows x 32 keys, f32) and, in the
+//     second sweep, amask tile (bf16) beside it by 8- or 4-byte cp.async,
+//     one column a thread down strided rows (rows of N f32 or bf16 need not
+//     start on 16 bytes, so TMA cannot take them; a bf16 amask whose rows
+//     start 2 bytes off 4, at odd N, is copied with plain loads). With
+//     in-kernel dropout the producer thread of each row draws its keep word
+//     of the chunk (`keep_word`, philox.cuh) into the stage as well. Each
+//     stage's `full` barrier completes on the TMA bytes and two arrivals a
+//     producer thread (one releasing its stores, one on its cp.async);
+//     `setmaxnreg` hands the producer's registers to the consumers;
+//   - the bias tiles' rows are padded so that the per-score reads of the
+//     wgmma fragment layout come from shared memory without bank conflicts,
+//     and the per-score work is branch-free: rows past N add whatever their
+//     tile rows hold (they feed only rows that are never stored), keys past
+//     N are masked in the last chunk alone;
+//   - the next chunk's S product is issued before this chunk's softmax runs
+//     and waited for one step later (`wgmma_wait` leaves the newest group in
+//     flight), so the tensor cores work under the exponentials; a stage is
+//     handed back (`empty` barrier, one arrival per consumer warp) once the
+//     products and reads of it are done.
+// It takes the sequence modes only (key bias, qbias, amask, in-kernel
+// dropout): the pattern and stored-p modes keep the register form and its N
+// <= 288, and the wrapper keeps the head-major layout there too (no path
+// runs a window past 144). N is capped at 46,340 so that i * N + j stays a
+// 32-bit index (and a 32-bit Philox counter word).
 //
 // The loader needs 16-byte aligned q, k, v, ctx and strides that are
 // multiples of 8 elements (checked by the wrapper and here).
@@ -165,17 +191,29 @@ __host__ __device__ constexpr int mask_bytes(int N, int Dh) {
              ? ROWS * N * 2 + 16
              : 0;
 }
-// the long form: keys a ring chunk (two m64n32 products), its stages, the
-// largest N (i * N + j in 32 bits), blocks an SM
-constexpr int LONG_KEYS = 64, LONG_SUB = LONG_KEYS / KEYS, LONG_STAGES = 2;
+// the long form: query rows a block (two consumer warpgroups), keys a chunk
+// (one m64n32 product), ring stages, the largest N (i * N + j in 32 bits),
+// the block (two consumer warpgroups and a producer) and the registers
+// `setmaxnreg` gives each (128 x 56 + 256 x 224 = 384 x 168)
+constexpr int LONG_ROWS = 128, LONG_KEYS = 32, LONG_STAGES = 4;
 constexpr int LONG_MAX_N = 46340;
-constexpr int LONG_MIN_BLOCKS = 3;
+constexpr int LONG_THREADS = 3 * WARPGROUP, PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+// the staged bias tiles of a stage: qbias 128 rows of 32 f32 padded to 160
+// bytes, amask 128 rows of 32 bf16 padded to 80 (rows 8 apart then start 8
+// or 4 banks apart: a warp's fragment reads hit each bank once a wavefront),
+// the key bias's 32 f32
+constexpr int QB_LD = 160, AM_LD = 80;
+constexpr int QB_TILE = LONG_ROWS * QB_LD, AM_TILE = LONG_ROWS * AM_LD, KB_TILE = LONG_KEYS * 4;
+// in-kernel dropout: each row's keep word of the chunk (bit j keeps key key0 + j)
+constexpr int KW_TILE = LONG_ROWS * 4;
 __host__ __device__ constexpr bool long_takes(int N, int Dh) {
   return N > MAX_N && N <= LONG_MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
 }
-// q's 64 rows, the ring's k and v chunks, slack for the swizzle's alignment
+// 1024 bytes of slack for the swizzle's alignment, q's 128 rows, the ring's k
+// and v chunks, its bias tiles and keep words, 128 bytes of mbarriers
 __host__ __device__ constexpr int long_bytes(int Dh) {
-  return (ROWS + LONG_STAGES * 2 * LONG_KEYS) * head_cols(Dh) * 2 + 1024;
+  return 1024 + (LONG_ROWS + LONG_STAGES * 2 * LONG_KEYS) * head_cols(Dh) * 2 +
+         LONG_STAGES * (QB_TILE + AM_TILE + KB_TILE + KW_TILE) + 128;
 }
 // shared memory of one block, or -1 where the kernel does not take (N, Dh)
 __host__ __device__ constexpr long long smem_bytes(int N, int Dh, bool amask) {
@@ -199,6 +237,7 @@ struct Params {
   float* mask_out;
   int N, nH, Dh, P, tiles;
   int mask_staged;  // amask rows in shared memory (mask_bytes > 0)
+  int qb_unit, am_unit, kb_unit;  // the long form's bias-tile copies (`stage_unit`)
   float scale;
   uint32_t thresh;
   float kept;
@@ -438,146 +477,188 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NC)) attention_wgmma_kerne
   }
 }
 
-// The long form (N > 288): 64 query rows of one (group, head) against the
-// keys streamed in 64-key chunks, two sweeps (see the head of the file).
-// Step t of the 2 * nch steps is chunk t % nch of sweep t / nch; its copies
-// land in ring stage t % 2 while step t - 1 computes.
+// The long form (N > 288): 128 query rows of one (group, head) on two
+// consumer warpgroups, the keys streamed in 32-key chunks by a producer
+// warpgroup, two sweeps (see the head of the file). Step `it` of the 2 * nch
+// steps is chunk it % nch of sweep it / nch, in ring stage it % LONG_STAGES.
 template <int DP>
-__global__ void __launch_bounds__(THREADS, LONG_MIN_BLOCKS) attention_long_kernel(const Params p) {
+__global__ void __launch_bounds__(LONG_THREADS, 1)
+    attention_long_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, const Params p) {
   constexpr int ROWB = DP * 2;
   constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
   constexpr uint32_t SBO = 8 * ROWB;
-  constexpr int STAGE = 2 * LONG_KEYS * ROWB;  // a chunk's k rows, then its v rows
+  constexpr int KV = LONG_KEYS * ROWB;  // one chunk of k or of v
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* Qs = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  unsigned char* Ring = Qs + ROWS * ROWB;
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* Ring = Qs + LONG_ROWS * ROWB;  // stage s: k at Ring + 2 s KV, then v
+  unsigned char* Qb = Ring + LONG_STAGES * 2 * KV;
+  unsigned char* Am = Qb + LONG_STAGES * QB_TILE;
+  unsigned char* Kb = Am + LONG_STAGES * AM_TILE;
+  uint32_t* Kw = reinterpret_cast<uint32_t*>(Kb + LONG_STAGES * KB_TILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Kw + LONG_STAGES * LONG_ROWS);
+  uint64_t* empty = full + LONG_STAGES;
+  uint64_t* qbar = empty + LONG_STAGES;
 
   const int N = p.N;
   const int tile = blockIdx.x % p.tiles;
   const int gh = blockIdx.x / p.tiles;
   const int h = gh % p.nH, g = gh / p.nH;
-  const int row0 = tile * ROWS;
-  const long long in0 = g * p.in_g + h * p.in_h;
-  const size_t nn = (size_t)N * N;
-  const size_t t0 = ((size_t)g * p.nH + h) * nn;
-  const int nch = (N + LONG_KEYS - 1) / LONG_KEYS;
+  const int row0 = tile * LONG_ROWS;
+  const int nch = (N + LONG_KEYS - 1) / LONG_KEYS, steps = 2 * nch;
+  const int wg = threadIdx.x / WARPGROUP;  // 0, 1: the consumers; 2: the producer
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < LONG_STAGES; ++s) {
+      mbar_init(&full[s], 1 + 2 * WARPGROUP);  // the TMA thread's expect_tx + two a producer thread
+      mbar_init(&empty[s], 8);                  // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // the copies of step t: k of its chunk, and in the second sweep v
-  auto prefetch = [&](int t) {
-    const int key0 = (t < nch ? t : t - nch) * LONG_KEYS;
-    unsigned char* st = Ring + (t & 1) * STAGE;
-    load_rows<ROWB>(st, p.k, in0, p.in_n, key0, LONG_KEYS, N, p.Dh);
-    if (t >= nch) load_rows<ROWB>(st + LONG_KEYS * ROWB, p.v, in0, p.in_n, key0, LONG_KEYS, N, p.Dh);
-  };
-  load_rows<ROWB>(Qs, p.q, in0, p.in_n, row0, ROWS, N, p.Dh);
-  prefetch(0);
-  cp_async_commit();
+  if (wg == 2) {  // the producer
+    regs_dec<PRODUCER_REGS>();
+    const int t = threadIdx.x - 2 * WARPGROUP;
+    if (t == 0) {
+      mbar_expect_tx(qbar, LONG_ROWS * ROWB);
+      for (int r = 0; r < LONG_ROWS; r += LONG_KEYS) tma_load4(Qs + r * ROWB, &map_q, qbar, 0, h, row0 + r, g);
+    }
+    const unsigned char* kb0 = reinterpret_cast<const unsigned char*>(p.kbias + (size_t)g * N);
+    const unsigned char* qb0 = reinterpret_cast<const unsigned char*>(p.qbias + ((size_t)g * N + row0) * N);
+    const unsigned char* am0 = reinterpret_cast<const unsigned char*>(p.amask + ((size_t)gh * N + row0) * N);
+    const int rlim = N - row0;
+    const uint32_t key = p.seed ? adrop_key(p.seed) : 0u, ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+    float* mo = p.mask_out ? p.mask_out + (size_t)gh * N * N : nullptr;
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % LONG_STAGES;
+      if (it >= LONG_STAGES) mbar_wait(&empty[s], ((it / LONG_STAGES) - 1) & 1);
+      const bool second = it >= nch;
+      const int key0 = (second ? it - nch : it) * LONG_KEYS, clim = N - key0;
+      unsigned char* kst = Ring + s * 2 * KV;
+      if (t == 0) {
+        mbar_expect_tx(&full[s], (second ? 2 : 1) * KV);
+        tma_load4(kst, &map_k, &full[s], 0, h, key0, g);
+        if (second) tma_load4(kst + KV, &map_v, &full[s], 0, h, key0, g);
+      }
+      if (p.kbias)
+        stage_tile_any<4>(p.kb_unit, Kb + s * KB_TILE, 0, kb0 + key0 * 4, 0, 1, LONG_KEYS, 1, clim, t, WARPGROUP);
+      if (p.qbias)
+        stage_tile_any<4>(p.qb_unit, Qb + s * QB_TILE, QB_LD, qb0 + key0 * 4, 4LL * N, LONG_ROWS, LONG_KEYS, rlim,
+                          clim, t, WARPGROUP);
+      if (second && p.amask)
+        stage_tile_any<2>(p.am_unit, Am + s * AM_TILE, AM_LD, am0 + key0 * 2, 2LL * N, LONG_ROWS, LONG_KEYS, rlim,
+                          clim, t, WARPGROUP);
+      if (second && p.seed) {  // row t's keep word of the chunk (and, asked for, the mask it draws)
+        const int i = row0 + t;
+        const uint32_t wd = i < N ? keep_word(i, key0, N, key, ctr1, p.thresh) : 0u;
+        Kw[s * LONG_ROWS + t] = wd;
+        if (mo != nullptr && i < N)
+          for (int j = 0; j < LONG_KEYS && j < clim; ++j) mo[(size_t)i * N + key0 + j] = (wd >> j) & 1u ? p.kept : 0.f;
+      }
+      stage_arrive(&full[s]);
+    }
+    cp_async_wait<0>();
+    return;
+  }
 
-  // element x of sub-chunk c sits in row r0 + 8 hh, column c0 + cq + col(c, x)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * 16 + (lane >> 2);
+  // the consumers: warpgroup w owns block rows 64 w .. 64 w + 63. Element x
+  // of a chunk's fragment sits in block row r0 + 8 hh, chunk column cq +
+  // (x >> 2) * 8 + (x & 1), x = 4 b + 2 hh + e.
+  regs_inc<CONSUMER_REGS>();
+  const int w = wg, tid = threadIdx.x - wg * WARPGROUP;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = w * 64 + warp * 16 + (lane >> 2);
   const int cq = (lane & 3) * 2;
-  const bool live_warp = row0 + warp * 16 < N;
-  const bool live0 = row0 + r0 < N, live1 = row0 + r0 + 8 < N;
-  const int erow0 = (row0 + r0) * N, erow1 = (row0 + r0 + 8) * N;
-  auto col = [](int c, int x) { return c * KEYS + (x >> 2) * 8 + (x & 1); };
-  const float* kb = p.kbias ? p.kbias + (size_t)g * N + cq : nullptr;
-  const float* qb = p.qbias ? p.qbias + (size_t)g * nn : nullptr;
-  const bf16* am = p.amask ? p.amask + t0 : nullptr;
-  float* mo = p.mask_out ? p.mask_out + t0 : nullptr;
-  const uint32_t key = p.seed ? adrop_key(p.seed) : 0u, ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+  const bool live_warp = row0 + w * 64 + warp * 16 < N;
+  const uint32_t q_base = smem_u32(Qs + w * 64 * ROWB), ring = smem_u32(Ring);
 
   float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, rcp[2] = {0.f, 0.f};
   float o[DP / 2];
 #pragma unroll
   for (int x = 0; x < DP / 2; ++x) o[x] = 0.f;
   fence_acc(o);
-  const uint32_t q_base = smem_u32(Qs);
+  uint32_t a[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};  // p in bf16: the A operand of P V
+  float s[16], nxt[16];  // S of this step; the next step's, in flight
+  mbar_wait(qbar, 0);
+  mbar_wait(&full[0], 0);
+  wgmma_rows32<DP>(nxt, q_base, ring);
 
 #pragma unroll 1
-  for (int t = 0; t < 2 * nch; ++t) {
-    __syncthreads();  // every warp is done with stage (t + 1) % 2, step t - 1's
-    if (t + 1 < 2 * nch) prefetch(t + 1);
-    cp_async_commit();  // (an empty group at the last step keeps the count)
-    const bool second = t >= nch;
-    const int c0 = (second ? t - nch : t) * LONG_KEYS;
-    // the keep bits of the second sweep's chunk, drawn while its copies fly
-    uint32_t keep[LONG_SUB];
+  for (int it = 0; it < steps; ++it) {
+    const bool second = it >= nch;
+    const int c0 = (second ? it - nch : it) * LONG_KEYS;
+    const int st = it % LONG_STAGES;
+    // S of step it is in (P V of step it - 1 may still run)
+    if (it > nch)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
+    fence_acc(nxt);
 #pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c) keep[c] = 0;
-    if (second && p.seed && live_warp) {
-#pragma unroll
-      for (int c = 0; c < LONG_SUB; ++c)
-        keep[c] = draw_chunk(c0 + c * KEYS, erow0, erow1, live0, live1, cq, lane, N, key, ctr1, p.thresh,
-                             p.kept, mo);
+    for (int x = 0; x < 16; ++x) s[x] = nxt[x];
+    const bool ahead = it + 1 < steps;
+    if (ahead) {  // the next step's S runs under this step's softmax
+      mbar_wait(&full[(it + 1) % LONG_STAGES], ((it + 1) / LONG_STAGES) & 1);
+      wgmma_rows32<DP>(nxt, q_base, ring + ((it + 1) % LONG_STAGES) * 2 * KV);
     }
-    cp_async_wait<1>();  // step t's copies are in
-    fence_proxy_async();
-    __syncthreads();
+    if (it > nch) {  // P V of step it - 1 is done: its stage is free, a may be rewritten
+      if (ahead)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      fence_acc(o);
+      fence_regs(a[0]);
+      fence_regs(a[1]);
+      release_stage(&empty[(it - 1) % LONG_STAGES], lane);
+    }
 
-    const uint32_t k_base = smem_u32(Ring + (t & 1) * STAGE), v_base = k_base + LONG_KEYS * ROWB;
-    float s[LONG_SUB][16];
+    // scale and biases from the stage's tiles. Branch-free per score: rows
+    // past N take whatever their tile rows hold (they feed only rows that
+    // are never stored); keys past N, only in the last chunk (a uniform
+    // branch), are -inf, and their amask 0
+    const bool tail = c0 + LONG_KEYS > N;
+    if (live_warp) {
+      const unsigned char* qbr = Qb + st * QB_TILE + r0 * QB_LD;
+      const float* kbs = reinterpret_cast<const float*>(Kb + st * KB_TILE);
 #pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c) {
+      for (int b = 0; b < 4; ++b) {
+        const int lc = cq + 8 * b;  // the pair's first chunk column
+        const float2 kb2 = p.kbias ? *reinterpret_cast<const float2*>(kbs + lc) : make_float2(0.f, 0.f);
 #pragma unroll
-      for (int x = 0; x < 16; ++x) s[c][x] = 0.f;
-      fence_acc(s[c]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c) {
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_m64n32k16(s[c], make_desc(q_base + kk * 32, 16, SBO, SW),
-                        make_desc(k_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c) fence_acc(s[c]);
-
-    if (live_warp) {  // scale and biases; keys past N are -inf
-#pragma unroll
-      for (int c = 0; c < LONG_SUB; ++c) {
-#pragma unroll
-        for (int x = 0; x < 16; ++x) {
-          const int hh = (x >> 1) & 1, j = c0 + col(c, x);
-          float v = -INFINITY;
-          if (cq + j < N) {
-            v = s[c][x] * p.scale;
-            if (hh ? live1 : live0) {
-              if (kb) v += __ldg(kb + j);
-              if (qb) v += __ldg(qb + (hh ? erow1 : erow0) + cq + j);
-            }
-          }
-          s[c][x] = v;
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 qb2 =
+              p.qbias ? *reinterpret_cast<const float2*>(qbr + hh * 8 * QB_LD + lc * 4) : make_float2(0.f, 0.f);
+          // the register form's order: scale, key bias, then qbias (absent: + 0, exact)
+          s[4 * b + 2 * hh] = s[4 * b + 2 * hh] * p.scale + kb2.x + qb2.x;
+          s[4 * b + 2 * hh + 1] = s[4 * b + 2 * hh + 1] * p.scale + kb2.y + qb2.y;
         }
+      }
+      if (tail) {
+#pragma unroll
+        for (int x = 0; x < 16; ++x)
+          if (c0 + cq + (x >> 2) * 8 + (x & 1) >= N) s[x] = -INFINITY;
       }
     }
 
     if (!second) {
       if (live_warp) {
         // the chunk's row max over the quad, then the running sum rescaled
-        // to the new max (every chunk holds a key below N: the max is finite)
+        // to the new max (by 1 where it holds; 0 before the first chunk)
         float cm[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int c = 0; c < LONG_SUB; ++c)
-#pragma unroll
-          for (int x = 0; x < 16; ++x) cm[(x >> 1) & 1] = fmaxf(cm[(x >> 1) & 1], s[c][x]);
+        for (int x = 0; x < 16; ++x) cm[(x >> 1) & 1] = fmaxf(cm[(x >> 1) & 1], s[x]);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           cm[hh] = fmaxf(cm[hh], __shfl_xor_sync(0xffffffffu, cm[hh], 1));
           cm[hh] = fmaxf(cm[hh], __shfl_xor_sync(0xffffffffu, cm[hh], 2));
-          const float nm = fmaxf(mx[hh], cm[hh]);
-          if (nm > mx[hh]) sum[hh] *= expf(mx[hh] - nm);  // 0 before the first chunk
+          const float nm = fmaxf(mx[hh], cm[hh]);  // finite: every chunk holds a key below N
+          sum[hh] *= expf(mx[hh] - nm);
           mx[hh] = nm;
         }
 #pragma unroll
-        for (int c = 0; c < LONG_SUB; ++c)
-#pragma unroll
-          for (int x = 0; x < 16; ++x) sum[(x >> 1) & 1] += expf(s[c][x] - mx[(x >> 1) & 1]);
-        if (t == nch - 1) {
+        for (int x = 0; x < 16; ++x) sum[(x >> 1) & 1] += expf(s[x] - mx[(x >> 1) & 1]);
+        if (it == nch - 1) {
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
@@ -586,63 +667,80 @@ __global__ void __launch_bounds__(THREADS, LONG_MIN_BLOCKS) attention_long_kerne
           }
         }
       }
+      release_stage(&empty[st], lane);
       continue;
     }
 
     // the second sweep: p = exp(s - max) / sum (Markstein's exact divide, as
     // the register form), the dropout multiplier, bf16 pairs for P V
-    uint32_t a[LONG_SUB][2][4];
     if (live_warp) {
+      const unsigned char* amr = Am + st * AM_TILE + r0 * AM_LD;
+      float m[16];
 #pragma unroll
-      for (int c = 0; c < LONG_SUB; ++c) {
+      for (int b = 0; b < 4; ++b)
 #pragma unroll
-        for (int x = 0; x < 16; ++x) {
-          const int hh = (x >> 1) & 1, j = c0 + col(c, x);
-          const float ex = expf(s[c][x] - mx[hh]);
-          const float q0 = ex * rcp[hh];
-          float v = fmaf(fmaf(-q0, sum[hh], ex), rcp[hh], q0);
-          if ((hh ? live1 : live0) && cq + j < N) {
-            if (am) v *= __bfloat162float(__ldg(am + (hh ? erow1 : erow0) + cq + j));
-            if (p.seed) v *= (keep[c] >> x) & 1 ? p.kept : 0.f;
-          }
-          s[c][x] = v;
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 m2 =
+              p.amask ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(amr + hh * 8 * AM_LD +
+                                                                                    (cq + 8 * b) * 2))
+                      : make_float2(1.f, 1.f);
+          m[4 * b + 2 * hh] = m2.x;
+          m[4 * b + 2 * hh + 1] = m2.y;
         }
+      if (p.seed) {  // the rows' keep words, drawn by the producer
+        const uint32_t kw[2] = {Kw[st * LONG_ROWS + r0], Kw[st * LONG_ROWS + r0 + 8]};
 #pragma unroll
-        for (int k16 = 0; k16 < 2; ++k16)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) a[c][k16][q] = pack_bf16(s[c][8 * k16 + 2 * q], s[c][8 * k16 + 2 * q + 1]);
+        for (int x = 0; x < 16; ++x) m[x] = (kw[(x >> 1) & 1] >> (cq + (x >> 2) * 8 + (x & 1))) & 1u ? p.kept : 0.f;
       }
+      if (tail) {
+#pragma unroll
+        for (int x = 0; x < 16; ++x)
+          if (c0 + cq + (x >> 2) * 8 + (x & 1) >= N) m[x] = 0.f;
+      }
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float pv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * b + 2 * hh + e;
+            const float ex = expf(s[x] - mx[hh]);
+            const float q0 = ex * rcp[hh];
+            pv[e] = fmaf(fmaf(-q0, sum[hh], ex), rcp[hh], q0) * m[x];
+          }
+          // x = 4 b + 2 hh .. + 1: k16 step b / 2, register 2 (b % 2) + hh
+          a[b >> 1][2 * (b & 1) + hh] = pack_bf16(pv[0], pv[1]);
+        }
     } else {
 #pragma unroll
-      for (int c = 0; c < LONG_SUB; ++c)
+      for (int k16 = 0; k16 < 2; ++k16)
 #pragma unroll
-        for (int k16 = 0; k16 < 2; ++k16)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) a[c][k16][q] = 0u;
+        for (int q = 0; q < 4; ++q) a[k16][q] = 0u;
     }
+    // O += P V_c: A from registers, v MN-major (its head columns contiguous)
+    const uint32_t v_base = ring + st * 2 * KV + KV;
     wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c) {
-#pragma unroll
-      for (int k16 = 0; k16 < 2; ++k16) {
-        const uint64_t dv = make_desc(v_base + (c * KEYS + k16 * 16) * ROWB, SBO, SBO, SW);
-        if constexpr (DP == 64)
-          wgmma_m64n64k16_rs(o, a[c][k16], dv);
-        else
-          wgmma_m64n32k16_rs(o, a[c][k16], dv);
-      }
+    for (int k16 = 0; k16 < 2; ++k16) {
+      const uint64_t dv = make_desc(v_base + k16 * 16 * ROWB, SBO, SBO, SW);
+      if constexpr (DP == 64)
+        wgmma_m64n64k16_rs(o, a[k16], dv);
+      else
+        wgmma_m64n32k16_rs(o, a[k16], dv);
     }
     wgmma_commit();
-    wgmma_wait<0>();  // the stage is free for step t + 2's copies
     fence_acc(o);
-#pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c)
-#pragma unroll
-      for (int k16 = 0; k16 < 2; ++k16) fence_regs(a[c][k16]);
   }
+  wgmma_wait<0>();
+  fence_acc(o);
+  fence_regs(a[0]);
+  fence_regs(a[1]);
+  release_stage(&empty[(steps - 1) % LONG_STAGES], lane);
 
-  // ctx through q's rows, as the register form writes it
-  __syncthreads();
+  // ctx through this warpgroup's q rows (its S products are done), then
+  // 16-byte stores of the rows below N
+  named_sync(1 + w, WARPGROUP);
 #pragma unroll
   for (int b = 0; b < DP / 8; ++b) {
 #pragma unroll
@@ -650,11 +748,11 @@ __global__ void __launch_bounds__(THREADS, LONG_MIN_BLOCKS) attention_long_kerne
       *reinterpret_cast<uint32_t*>(Qs + swz<ROWB>(r0 + 8 * hh, b) + cq * 2) =
           pack_bf16(o[4 * b + 2 * hh], o[4 * b + 2 * hh + 1]);
   }
-  __syncthreads();
+  named_sync(1 + w, WARPGROUP);
   const long long out0 = g * p.out_g + h * p.out_h;
   const int chunks = p.Dh / 8;
-  for (int e = threadIdx.x; e < ROWS * chunks; e += THREADS) {
-    const int r = e / chunks, c = e % chunks;
+  for (int e = tid; e < 64 * chunks; e += WARPGROUP) {
+    const int r = w * 64 + e / chunks, c = e % chunks;
     const int i = row0 + r;
     if (i < N)
       *reinterpret_cast<uint4*>(p.ctx + out0 + i * p.out_n + c * 8) =
@@ -706,7 +804,14 @@ cudaError_t dispatch(int chunks, const Params& p, long long blocks, int smem, cu
 static_assert(MAX_CHUNKS == 9, "dispatch covers every chunk count");
 
 template <int DP>
-cudaError_t launch_long(const Params& p, long long blocks, cudaStream_t stream) {
+cudaError_t launch_long(const void* q, const void* k, const void* v, int G, const Params& p, long long blocks,
+                        cudaStream_t stream) {
+  // q's, k's and v's maps: their bases and strides are the call's, so they are encoded at every launch
+  CUtensorMap mq, mk, mv;
+  if (!head_rows_map(&mq, q, p.Dh, p.nH, p.N, G, p.in_h, p.in_n, p.in_g, DP, LONG_KEYS) ||
+      !head_rows_map(&mk, k, p.Dh, p.nH, p.N, G, p.in_h, p.in_n, p.in_g, DP, LONG_KEYS) ||
+      !head_rows_map(&mv, v, p.Dh, p.nH, p.N, G, p.in_h, p.in_n, p.in_g, DP, LONG_KEYS))
+    return cudaErrorInvalidValue;
   static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(attention_long_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -714,7 +819,7 @@ cudaError_t launch_long(const Params& p, long long blocks, cudaStream_t stream) 
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  attention_long_kernel<DP><<<static_cast<unsigned>(blocks), THREADS, long_bytes(DP), stream>>>(p);
+  attention_long_kernel<DP><<<static_cast<unsigned>(blocks), LONG_THREADS, long_bytes(DP), stream>>>(mq, mk, mv, p);
   return cudaGetLastError();
 }
 
@@ -750,19 +855,23 @@ extern "C" int mvlt_attention(const void* q, const void* k, const void* v, long 
   if ((in_g | in_h | in_n | out_g | out_h | out_n) & 7) return (int)cudaErrorInvalidValue;
   const int optin = smem_optin();
   if (optin < 0 || smem > optin) return (int)cudaErrorInvalidValue;
-  const int tiles = (N + ROWS - 1) / ROWS;
+  const int tiles = long_form ? (N + LONG_ROWS - 1) / LONG_ROWS : (N + ROWS - 1) / ROWS;
   const long long blocks = (long long)G * nH * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the long form's bias-tile copies: the widest unit every row start allows
+  const int qb_unit = stage_unit(qbias, N, 4), am_unit = stage_unit(amask, N, 2), kb_unit = stage_unit(kbias, N, 4);
   using cbf = const bf16*;
   const Params p{static_cast<cbf>(q), static_cast<cbf>(k), static_cast<cbf>(v), in_g, in_h, in_n,
                  out_g, out_h, out_n, static_cast<const float*>(pattern), static_cast<const float*>(kbias),
                  static_cast<const float*>(qbias), static_cast<cbf>(amask), static_cast<const int*>(seed),
                  static_cast<bf16*>(ctx), static_cast<bf16*>(p_out), static_cast<float*>(mask_out), N, nH,
-                 Dh, P, tiles, !long_form && amask != nullptr && mask_bytes(N, Dh) > 0, scale, thresh, kept};
+                 Dh, P, tiles, !long_form && amask != nullptr && mask_bytes(N, Dh) > 0, qb_unit, am_unit,
+                 kb_unit, scale, thresh, kept};
   const int chunks = (N + KEYS - 1) / KEYS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (long_form)
-    return (int)(head_cols(Dh) == 64 ? launch_long<64>(p, blocks, s) : launch_long<32>(p, blocks, s));
+    return (int)(head_cols(Dh) == 64 ? launch_long<64>(q, k, v, G, p, blocks, s)
+                                     : launch_long<32>(q, k, v, G, p, blocks, s));
   return (int)(head_cols(Dh) == 64 ? dispatch<64>(chunks, p, blocks, (int)smem, s)
                                    : dispatch<32>(chunks, p, blocks, (int)smem, s));
 }

@@ -75,24 +75,38 @@
 //
 // The long form (N > 288, the sequence modes only: key bias, qbias, amask,
 // regenerated dropout; not the pattern or stored-p modes): the counterpart
-// of K2's long form, for the fused encoder at S = 348 and 474, where JAX's
-// `_seq_core_bwd_kernel` runs too (no length gate). Neither pass holds a
-// whole row or column in registers or shared memory, so neither grows with
-// N:
-//   - pass 1, `attention_bwd_dq_long_kernel`, keeps q's and dctx's 64 rows
-//     and streams the keys through a two-stage ring of 64-key chunks (k,
-//     and from the second sweep v), in three sweeps: (1) S, each row's max
-//     and its sum of exponentials (rescaled to the running max, as K2's
-//     long form keeps it); (2) S and dp again, p with the exact divide, the
-//     dropout multiplier (the keep bits drawn here and written to the
-//     scratch's words) and rd = rowsum(p * dp * mask) in f32; (3) S and dp
-//     once more, ds = p * dp * mask - p * rd and dq += ds K, the keep bits
-//     read back from the scratch. It writes the statistics as the register
-//     form does;
-//   - pass 2, `attention_bwd_dkv_long_kernel`, keeps a 64-key tile's k and
-//     v and streams every query's q and dctx through a two-stage ring of
-//     64-query chunks, the chunk's statistics and keep words staged beside
-//     them; the body per 32 queries is the register form's pass 2.
+// of K2's long form, for the fused encoder at S = 298, 348 and 474, where
+// JAX's `_seq_core_bwd_kernel` runs too (no length gate). Neither pass holds
+// a whole row or column in registers or shared memory, so neither grows
+// with N. Both passes take K2's long-form block (attention.cu): two
+// consumer warpgroups of 64 rows share every chunk of a ring of LONG_STAGES
+// stages that a producer warpgroup keeps full (TMA for the bf16 rows, 8- or
+// 4-byte cp.async for the bias tiles, `full` / `empty` mbarriers,
+// `setmaxnreg`), each step's products are issued one step ahead of the
+// scalar work that reads them, and that work is branch-free per score:
+//   - pass 1, `attention_bwd_dq_long_kernel`, owns 128 query rows (q's and
+//     dctx's rows, loaded once) and streams the keys in 32-key chunks (k, v,
+//     the key bias, the qbias and amask tiles) in two sweeps. (1) S and dp,
+//     each row's max and its sum of exponentials l as K2 keeps them, and
+//     beside them r = sum of e * dp * mask, rescaled by the same factor as
+//     l whenever the max grows; at the row's end rd = r / l with the exact
+//     divide. (2) S and dp again, p = e / l (exact divide), ds = p * dp *
+//     mask - p * rd and dq += ds K. In the regenerated-dropout mode the
+//     producer thread of each row draws its keep word of the chunk in the
+//     first sweep, stages it and writes it to the scratch's words, and reads
+//     it back from there in the second. Folding rd into the first sweep
+//     (rather than summing the normalised p * dp * mask in a sweep of its
+//     own) moves only the order of that f32 sum: p, pa and ds are rounded
+//     to bf16 where they are in the register form and JAX's fast path. It
+//     writes the statistics as the register form does;
+//   - pass 2, `attention_bwd_dkv_long_kernel`, owns 128 keys (k's and v's
+//     rows, loaded once) and streams the queries in 32-query chunks: their q
+//     and dctx rows, their statistics (with RN(1 / row sum), taken once a
+//     query by the producer) and keep words, and their qbias and amask rows
+//     over the block's keys, which it reads down a column from shared
+//     memory (the rows are padded so that the fragment's reads, keys along
+//     the lanes, hit each bank once). The body per chunk is the register
+//     form's pass 2.
 // The dkbias column sums run in one fixed order (the queries in order,
 // then the row quad, then `sum_heads_kernel` over heads), with no atomics.
 // N is capped at 46,340 (i * N + j in 32 bits), as in K2.
@@ -157,26 +171,47 @@ __host__ __device__ constexpr int dq_mask_smem(int N, int Dh) {
 __host__ __device__ constexpr int dkv_smem(int N, int Dh) { return dq_smem(N, Dh) + 6 * chunks_of(N) * KEYS * 4; }
 // pattern mode: the sum of ds over a run of groups, 64 keys x the queries in f32
 __host__ __device__ constexpr int pattern_smem(int N) { return ROWS * chunks_of(N) * KEYS * 4; }
-// the long form: keys (pass 1) or queries (pass 2) a ring chunk, its stages,
-// the largest N (i * N + j in 32 bits), blocks an SM
-constexpr int LONG_ROWS = 64, LONG_SUB = LONG_ROWS / KEYS, LONG_STAGES = 2;
+// the long form: rows a block (two consumer warpgroups; queries in pass 1,
+// keys in pass 2), rows a ring chunk (keys in pass 1, queries in pass 2),
+// ring stages, pass 1's sweeps over the keys, the largest N (i * N + j in 32
+// bits), the block and the registers `setmaxnreg` gives each (128 x 56 + 256
+// x 224 = 384 x 168)
+constexpr int LONG_ROWS = 128, LONG_CHUNK = 32, LONG_STAGES = 4, LONG_SWEEPS = 2;
 constexpr int LONG_MAX_N = 46340;
-constexpr int LONG_MIN_BLOCKS = 3;
+constexpr int LONG_THREADS = 3 * WARPGROUP, PRODUCER_REGS = 56, CONSUMER_REGS = 224;
 __host__ __device__ constexpr bool long_takes(int N, int Dh) {
   return N > MAX_N && N <= LONG_MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
 }
-// pass 1: q's and dctx's 64 rows and the ring's k and v chunks; pass 2: the
-// key tile's k and v, the ring's q and dctx chunks, and the chunk's
-// statistics (row max, row sum, its reciprocal, rd) and two keep words per
-// query; 1024 bytes of slack for the swizzle's alignment
+// pass 1's bias tiles of a stage, as K2's long form stages them: qbias 128
+// query rows of 32 keys f32 (rows padded to 160 bytes), amask bf16 (80), the
+// key bias's 32 f32
+constexpr int QB_LD = 160, AM_LD = 80;
+constexpr int QB_TILE = LONG_ROWS * QB_LD, AM_TILE = LONG_ROWS * AM_LD, KB_TILE = LONG_CHUNK * 4;
+// regenerated dropout: each query row's keep word of the chunk (bit j keeps key key0 + j)
+constexpr int KW_TILE = LONG_ROWS * 4;
+// pass 2's: 32 query rows of the block's 128 keys, qbias f32 (rows padded to
+// 528 bytes) and amask bf16 (264), read down a column; the queries' row max,
+// row sum, rd and the row sum's correctly rounded reciprocal (four rows of 32
+// f32), and their four keep words of the block's keys
+constexpr int QB2_LD = 528, AM2_LD = 264;
+constexpr int QB2_TILE = LONG_CHUNK * QB2_LD, AM2_TILE = LONG_CHUNK * AM2_LD;
+constexpr int ST2_TILE = 4 * LONG_CHUNK * 4, BT2_TILE = LONG_CHUNK * 16;
+// 1024 bytes of slack for the swizzle's alignment, the block's two 128-row
+// operands (q and dctx; k and v), the ring's two chunks a stage and its bias
+// tiles (and pass 1's keep words), 128 bytes of mbarriers
 __host__ __device__ constexpr int long_dq_smem(int Dh) {
-  return (2 * ROWS + LONG_STAGES * 2 * LONG_ROWS) * head_cols(Dh) * 2 + 1024;
+  return 1024 + (2 * LONG_ROWS + LONG_STAGES * 2 * LONG_CHUNK) * head_cols(Dh) * 2 +
+         LONG_STAGES * (QB_TILE + AM_TILE + KB_TILE + KW_TILE) + 128;
 }
-__host__ __device__ constexpr int long_dkv_smem(int Dh) { return long_dq_smem(Dh) + 6 * LONG_ROWS * 4; }
+__host__ __device__ constexpr int long_dkv_smem(int Dh) {
+  return 1024 + (2 * LONG_ROWS + LONG_STAGES * 2 * LONG_CHUNK) * head_cols(Dh) * 2 +
+         LONG_STAGES * (QB2_TILE + AM2_TILE + ST2_TILE + BT2_TILE) + 128;
+}
 // shared memory of the larger pass, or -1 where K4 does not take (N, Dh)
 // (past N = 288: the long form, in no pattern mode)
 __host__ __device__ constexpr long long smem_bytes(int N, int Dh, bool pattern, bool amask) {
-  return long_takes(N, Dh) ? (pattern ? -1 : long_dkv_smem(Dh))
+  return long_takes(N, Dh)
+             ? (pattern ? -1 : long_dq_smem(Dh) > long_dkv_smem(Dh) ? long_dq_smem(Dh) : long_dkv_smem(Dh))
          : !takes(N, Dh) ? -1
          : dq_smem(N, Dh) + (amask ? dq_mask_smem(N, Dh) : 0) > dkv_smem(N, Dh) + (pattern ? pattern_smem(N) : 0)
              ? dq_smem(N, Dh) + (amask ? dq_mask_smem(N, Dh) : 0)
@@ -204,14 +239,11 @@ struct Params {
   int tiles;              // 64-row tiles of N: query tiles in pass 1, key tiles in pass 2
   int mask_staged;        // pass 1 stages the amask rows (dq_mask_smem > 0)
   int stride, per, wpb;   // pass 2: groups pat + jw * stride, jw in the block's run of wpb (of per)
+  int qb_unit, am_unit, kb_unit;  // the long form's bias-tile copies (`stage_unit`)
   float scale;
   uint32_t thresh;
   float kept;
 };
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
-}
 
 // dq of one 64-query tile of (g, h); the statistics and keep words for pass 2
 template <int NC, int DP>
@@ -804,287 +836,297 @@ __global__ void __launch_bounds__(THREADS, DKV_MIN_BLOCKS) attention_bwd_dkv_ker
   }
 }
 
-// The long form's pass 1 (N > 288): dq of one 64-query tile of (g, h) and
-// the statistics and keep words for pass 2, the keys streamed in 64-key
-// chunks over three sweeps (see the head of the file). Step t of the 3 *
-// nch steps is chunk t % nch of sweep t / nch; its copies land in ring
-// stage t % 2 while step t - 1 computes.
+// The long form's pass 1 (N > 288): dq of 128 query rows of (g, h) on two
+// consumer warpgroups, the statistics and keep words for pass 2; the keys
+// streamed in 32-key chunks by the producer warpgroup, two sweeps (see the
+// head of the file). Step `it` of the 2 * nch steps is chunk it % nch of
+// sweep it / nch, in ring stage it % LONG_STAGES.
 template <int DP>
-__global__ void __launch_bounds__(THREADS, LONG_MIN_BLOCKS) attention_bwd_dq_long_kernel(const Params p) {
+__global__ void __launch_bounds__(LONG_THREADS, 1)
+    attention_bwd_dq_long_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                                 const __grid_constant__ CUtensorMap map_do, const Params p) {
   constexpr int ROWB = DP * 2;
   constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
   constexpr uint32_t SBO = 8 * ROWB;
-  constexpr int STAGE = 2 * LONG_ROWS * ROWB;  // a chunk's k rows, then its v rows
+  constexpr int KV = LONG_CHUNK * ROWB;  // one chunk of k or of v
   extern __shared__ unsigned char smem_raw[];
   unsigned char* Qs = align1024(smem_raw);
-  unsigned char* Ds = Qs + ROWS * ROWB;  // dctx rows of the tile
-  unsigned char* Ring = Ds + ROWS * ROWB;
+  unsigned char* Ds = Qs + LONG_ROWS * ROWB;    // dctx's rows
+  unsigned char* Ring = Ds + LONG_ROWS * ROWB;  // stage s: k at Ring + 2 s KV, then v
+  unsigned char* Qb = Ring + LONG_STAGES * 2 * KV;
+  unsigned char* Am = Qb + LONG_STAGES * QB_TILE;
+  unsigned char* Kb = Am + LONG_STAGES * AM_TILE;
+  uint32_t* Kw = reinterpret_cast<uint32_t*>(Kb + LONG_STAGES * KB_TILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(Kw + LONG_STAGES * LONG_ROWS);
+  uint64_t* empty = full + LONG_STAGES;
+  uint64_t* qbar = empty + LONG_STAGES;
 
-  const int N = p.N, C = p.C, Dh = p.Dh;
+  const int N = p.N, C = p.C, Dh = p.Dh, nH = p.nH;
   const int tile = blockIdx.x % p.tiles;
   const int gh = blockIdx.x / p.tiles;
-  const int h = gh % p.nH, g = gh / p.nH;
-  const int row0 = tile * ROWS;
-  const long long ld = 3LL * C;
-  const long long in0 = (long long)g * N * ld;
-  const bf16* qs = p.qkv + h * Dh;
-  const size_t nn = (size_t)N * N;
-  const size_t t0 = (size_t)gh * nn;
-  float* st = p.scratch + gh * p.words;
-  uint32_t* bits = reinterpret_cast<uint32_t*>(st + 3 * N);
-  const int nch = (N + LONG_ROWS - 1) / LONG_ROWS, nc32 = chunks_of(N);
+  const int h = gh % nH, g = gh / nH;
+  const int row0 = tile * LONG_ROWS;
+  const int nch = chunks_of(N), steps = LONG_SWEEPS * nch;  // 32-key chunks: one keep word each
+  float* stt = p.scratch + gh * p.words;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(stt + 3 * N);
+  const int wg = threadIdx.x / WARPGROUP;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < LONG_STAGES; ++s) {
+      mbar_init(&full[s], 1 + 2 * WARPGROUP);  // the TMA thread's expect_tx + two a producer thread
+      mbar_init(&empty[s], 8);                  // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  auto prefetch = [&](int t) {
-    const int key0 = (t % nch) * LONG_ROWS;
-    unsigned char* stg = Ring + (t & 1) * STAGE;
-    load_rows<ROWB>(stg, qs + C, in0, ld, key0, LONG_ROWS, N, Dh);
-    if (t >= nch) load_rows<ROWB>(stg + LONG_ROWS * ROWB, qs + 2 * C, in0, ld, key0, LONG_ROWS, N, Dh);
-  };
-  load_rows<ROWB>(Qs, qs, in0, ld, row0, ROWS, N, Dh);
-  load_rows<ROWB>(Ds, p.dctx + h * Dh, (long long)g * N * C, C, row0, ROWS, N, Dh);
-  prefetch(0);
-  cp_async_commit();
+  if (wg == 0) {  // the producer
+    regs_dec<PRODUCER_REGS>();
+    const int t = threadIdx.x;
+    if (t == 0) {
+      mbar_expect_tx(qbar, 2 * LONG_ROWS * ROWB);
+      for (int r = 0; r < LONG_ROWS; r += LONG_CHUNK) {
+        tma_load4(Qs + r * ROWB, &map_qkv, qbar, 0, h, row0 + r, g);
+        tma_load4(Ds + r * ROWB, &map_do, qbar, 0, h, row0 + r, g);
+      }
+    }
+    const unsigned char* kb0 = reinterpret_cast<const unsigned char*>(p.kbias + (size_t)g * N);
+    const unsigned char* qb0 = reinterpret_cast<const unsigned char*>(p.qbias + ((size_t)g * N + row0) * N);
+    const unsigned char* am0 = reinterpret_cast<const unsigned char*>(p.amask + ((size_t)gh * N + row0) * N);
+    const int rlim = N - row0;
+    const uint32_t key = p.seed ? adrop_key(p.seed) : 0u, ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % LONG_STAGES;
+      if (it >= LONG_STAGES) mbar_wait(&empty[s], ((it / LONG_STAGES) - 1) & 1);
+      const int key0 = (it % nch) * LONG_CHUNK, clim = N - key0;
+      unsigned char* kst = Ring + s * 2 * KV;
+      if (t == 0) {
+        mbar_expect_tx(&full[s], 2 * KV);
+        tma_load4(kst, &map_qkv, &full[s], 0, nH + h, key0, g);
+        tma_load4(kst + KV, &map_qkv, &full[s], 0, 2 * nH + h, key0, g);
+      }
+      if (p.kbias)
+        stage_tile_any<4>(p.kb_unit, Kb + s * KB_TILE, 0, kb0 + key0 * 4, 0, 1, LONG_CHUNK, 1, clim, t, WARPGROUP);
+      if (p.qbias)
+        stage_tile_any<4>(p.qb_unit, Qb + s * QB_TILE, QB_LD, qb0 + key0 * 4, 4LL * N, LONG_ROWS, LONG_CHUNK, rlim,
+                          clim, t, WARPGROUP);
+      if (p.amask)
+        stage_tile_any<2>(p.am_unit, Am + s * AM_TILE, AM_LD, am0 + key0 * 2, 2LL * N, LONG_ROWS,
+                          LONG_CHUNK, rlim, clim, t, WARPGROUP);
+      if (p.seed) {
+        // row t's keep word of the chunk: drawn in the first sweep and written
+        // to the scratch (one word per row and 32 keys, as the register form
+        // writes them), read back from there in the second
+        const int i = row0 + t, c = it % nch;
+        uint32_t wd = 0u;
+        if (i < N) {
+          if (it < nch) {
+            wd = keep_word(i, key0, N, key, ctr1, p.thresh);
+            bits[i * nch + c] = wd;
+          } else {
+            wd = bits[i * nch + c];
+          }
+        }
+        Kw[s * LONG_ROWS + t] = wd;
+      }
+      stage_arrive(&full[s]);
+    }
+    cp_async_wait<0>();
+    return;
+  }
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * 16 + (lane >> 2);
+  // the consumers: warpgroup w owns block rows 64 w .. 64 w + 63; element x
+  // = 4 b + 2 hh + e of a chunk's fragment sits in block row r0 + 8 hh,
+  // chunk column cq + 8 b + e
+  regs_inc<CONSUMER_REGS>();
+  const int w = wg - 1, tid = threadIdx.x - wg * WARPGROUP;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = w * 64 + warp * 16 + (lane >> 2);
   const int cq = (lane & 3) * 2;
-  const bool live_warp = row0 + warp * 16 < N;
+  const bool live_warp = row0 + w * 64 + warp * 16 < N;
   const bool live0 = row0 + r0 < N, live1 = row0 + r0 + 8 < N;
-  const int erow0 = (row0 + r0) * N, erow1 = (row0 + r0 + 8) * N;
-  auto col = [](int c, int x) { return c * KEYS + (x >> 2) * 8 + (x & 1); };
-  const float* kb = p.kbias ? p.kbias + (size_t)g * N + cq : nullptr;
-  const float* qb = p.qbias ? p.qbias + (size_t)g * nn : nullptr;
-  const bf16* am = p.amask ? p.amask + t0 : nullptr;
-  const uint32_t key = p.seed ? adrop_key(p.seed) : 0u, ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+  const uint32_t q_base = smem_u32(Qs + w * 64 * ROWB), d_base = smem_u32(Ds + w * 64 * ROWB);
+  const uint32_t ring = smem_u32(Ring);
 
-  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, rcp[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
+  float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, r[2] = {0.f, 0.f};
+  float rcp[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
   float dq[DP / 2];
 #pragma unroll
   for (int x = 0; x < DP / 2; ++x) dq[x] = 0.f;
   fence_acc(dq);
-  const uint32_t q_base = smem_u32(Qs), d_base = smem_u32(Ds);
+  uint32_t a[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};  // ds in bf16: the A operand of dq += ds K
+  float s[16], dp[16], ns[16], ndp[16];  // S and dp of this step; the next step's, in flight
+  mbar_wait(qbar, 0);
+  mbar_wait(&full[0], 0);
+  wgmma_rows32_pair<DP>(ns, q_base, ring, ndp, d_base, ring + KV);
 
 #pragma unroll 1
-  for (int t = 0; t < 3 * nch; ++t) {
-    __syncthreads();  // every warp is done with stage (t + 1) % 2, step t - 1's
-    if (t + 1 < 3 * nch) prefetch(t + 1);
-    cp_async_commit();
-    const int sweep = t / nch, c0 = (t % nch) * LONG_ROWS;
-    // the keep bits of the chunk: drawn in the second sweep (and written to
-    // the scratch as one word per row and 32 keys, as the register form
-    // writes them), read back in the third
-    uint32_t keep[LONG_SUB];
+  for (int it = 0; it < steps; ++it) {
+    const bool second = it >= nch;
+    const int c = second ? it - nch : it, c0 = c * LONG_CHUNK;
+    const int st = it % LONG_STAGES;
+    // S and dp of step it are in (dq += ds K of step it - 1 may still run)
+    if (it > nch)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
+    fence_acc(ns);
+    fence_acc(ndp);
 #pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c) keep[c] = 0;
-    if (sweep == 1 && p.seed && live_warp) {
-#pragma unroll
-      for (int c = 0; c < LONG_SUB; ++c) {
-        const int k32 = c0 / KEYS + c;
-        if (k32 >= nc32) break;  // warp-uniform: the chunk ends at N
-        keep[c] = draw_chunk(c0 + c * KEYS, erow0, erow1, live0, live1, cq, lane, N, key, ctr1, p.thresh, p.kept,
-                             nullptr);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          uint32_t w = 0;
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb)
-#pragma unroll
-            for (int k = 0; k < 2; ++k) w |= ((keep[c] >> (4 * bb + 2 * hh + k)) & 1u) << (8 * bb + cq + k);
-          w |= __shfl_xor_sync(0xffffffffu, w, 1);
-          w |= __shfl_xor_sync(0xffffffffu, w, 2);
-          if ((lane & 3) == 0 && (hh ? live1 : live0)) bits[(row0 + r0 + 8 * hh) * nc32 + k32] = w;
-        }
-      }
-    } else if (sweep == 2 && p.seed && live_warp) {
-#pragma unroll
-      for (int c = 0; c < LONG_SUB; ++c) {
-        const int k32 = c0 / KEYS + c;
-        if (k32 >= nc32) break;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          if (!(hh ? live1 : live0)) continue;
-          const uint32_t w = bits[(row0 + r0 + 8 * hh) * nc32 + k32];
-#pragma unroll
-          for (int bb = 0; bb < 4; ++bb)
-#pragma unroll
-            for (int k = 0; k < 2; ++k) keep[c] |= ((w >> (8 * bb + cq + k)) & 1u) << (4 * bb + 2 * hh + k);
-        }
-      }
+    for (int x = 0; x < 16; ++x) {
+      s[x] = ns[x];
+      dp[x] = ndp[x];
     }
-    cp_async_wait<1>();  // step t's copies are in
-    fence_proxy_async();
-    __syncthreads();
-
-    // S = Q K_c^T, and from the second sweep dp = dO V_c^T, one group
-    const uint32_t k_base = smem_u32(Ring + (t & 1) * STAGE), v_base = k_base + LONG_ROWS * ROWB;
-    float s[LONG_SUB][16], dp[LONG_SUB][16];
-#pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c) {
-#pragma unroll
-      for (int x = 0; x < 16; ++x) s[c][x] = dp[c][x] = 0.f;
-      fence_acc(s[c]);
-      fence_acc(dp[c]);
+    const bool ahead = it + 1 < steps;
+    if (ahead) {  // the next step's products run under this step's scalar work
+      const uint32_t kn = ring + ((it + 1) % LONG_STAGES) * 2 * KV;
+      mbar_wait(&full[(it + 1) % LONG_STAGES], ((it + 1) / LONG_STAGES) & 1);
+      wgmma_rows32_pair<DP>(ns, q_base, kn, ndp, d_base, kn + KV);
     }
-    wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c) {
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_m64n32k16(s[c], make_desc(q_base + kk * 32, 16, SBO, SW),
-                        make_desc(k_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
-    }
-    if (sweep > 0) {
-#pragma unroll
-      for (int c = 0; c < LONG_SUB; ++c) {
-#pragma unroll
-        for (int kk = 0; kk < DP / 16; ++kk)
-          wgmma_m64n32k16(dp[c], make_desc(d_base + kk * 32, 16, SBO, SW),
-                          make_desc(v_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c) {
-      fence_acc(s[c]);
-      fence_acc(dp[c]);
+    if (it > nch) {  // dq += ds K of step it - 1 is done: its stage is free, a may be rewritten
+      if (ahead)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
+      fence_acc(dq);
+      fence_regs(a[0]);
+      fence_regs(a[1]);
+      release_stage(&empty[(it - 1) % LONG_STAGES], lane);
     }
 
-    if (live_warp) {  // scale and biases; keys past N are -inf
+    // scale and biases, and dp * mask, from the stage's tiles. Branch-free
+    // per score: rows past N take whatever their tile rows hold (they feed
+    // only rows that are never stored); keys past N, only in the last chunk
+    // (a uniform branch), are -inf with a mask of 0
+    const bool tail = c0 + LONG_CHUNK > N;
+    if (live_warp) {
+      const unsigned char* qbr = Qb + st * QB_TILE + r0 * QB_LD;
+      const unsigned char* amr = Am + st * AM_TILE + r0 * AM_LD;
+      const float* kbs = reinterpret_cast<const float*>(Kb + st * KB_TILE);
+      float m[16];
 #pragma unroll
-      for (int c = 0; c < LONG_SUB; ++c) {
+      for (int b = 0; b < 4; ++b) {
+        const int lc = cq + 8 * b;
+        const float2 kb2 = p.kbias ? *reinterpret_cast<const float2*>(kbs + lc) : make_float2(0.f, 0.f);
 #pragma unroll
-        for (int x = 0; x < 16; ++x) {
-          const int hh = (x >> 1) & 1, j = c0 + col(c, x);
-          float v = -INFINITY;
-          if (cq + j < N) {
-            v = s[c][x] * p.scale;
-            if (hh ? live1 : live0) {
-              if (kb) v += __ldg(kb + j);
-              if (qb) v += __ldg(qb + (hh ? erow1 : erow0) + cq + j);
-            }
+        for (int hh = 0; hh < 2; ++hh) {
+          const int x = 4 * b + 2 * hh;
+          const float2 qb2 =
+              p.qbias ? *reinterpret_cast<const float2*>(qbr + hh * 8 * QB_LD + lc * 4) : make_float2(0.f, 0.f);
+          // the register form's order: scale, key bias, then qbias (absent: + 0, exact)
+          s[x] = s[x] * p.scale + kb2.x + qb2.x;
+          s[x + 1] = s[x + 1] * p.scale + kb2.y + qb2.y;
+          const float2 m2 =
+              p.amask ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(amr + hh * 8 * AM_LD + lc * 2))
+                      : make_float2(1.f, 1.f);
+          m[x] = m2.x;
+          m[x + 1] = m2.y;
+        }
+      }
+      if (p.seed) {  // the rows' keep words, drawn by the producer
+        const uint32_t kw[2] = {Kw[st * LONG_ROWS + r0], Kw[st * LONG_ROWS + r0 + 8]};
+#pragma unroll
+        for (int x = 0; x < 16; ++x) m[x] = (kw[(x >> 1) & 1] >> (cq + (x >> 2) * 8 + (x & 1))) & 1u ? p.kept : 0.f;
+      }
+      if (tail) {
+#pragma unroll
+        for (int x = 0; x < 16; ++x)
+          if (c0 + cq + (x >> 2) * 8 + (x & 1) >= N) {
+            s[x] = -INFINITY;
+            m[x] = 0.f;
           }
-          s[c][x] = v;
-        }
       }
+#pragma unroll
+      for (int x = 0; x < 16; ++x) dp[x] *= m[x];
     }
 
-    if (sweep == 0) {  // the row max and the sum rescaled to it, as K2's long form
+    if (!second) {
       if (live_warp) {
+        // the chunk's row max over the quad; l and r rescaled to the new max
         float cm[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-        for (int c = 0; c < LONG_SUB; ++c)
-#pragma unroll
-          for (int x = 0; x < 16; ++x) cm[(x >> 1) & 1] = fmaxf(cm[(x >> 1) & 1], s[c][x]);
+        for (int x = 0; x < 16; ++x) cm[(x >> 1) & 1] = fmaxf(cm[(x >> 1) & 1], s[x]);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           cm[hh] = fmaxf(cm[hh], __shfl_xor_sync(0xffffffffu, cm[hh], 1));
           cm[hh] = fmaxf(cm[hh], __shfl_xor_sync(0xffffffffu, cm[hh], 2));
-          const float nm = fmaxf(mx[hh], cm[hh]);
-          if (nm > mx[hh]) sum[hh] *= expf(mx[hh] - nm);
+          const float nm = fmaxf(mx[hh], cm[hh]);  // finite: every chunk holds a key below N
+          const float f = expf(mx[hh] - nm);        // 1 where the max holds, 0 before the first chunk
+          l[hh] *= f;
+          r[hh] *= f;
           mx[hh] = nm;
         }
 #pragma unroll
-        for (int c = 0; c < LONG_SUB; ++c)
-#pragma unroll
-          for (int x = 0; x < 16; ++x) sum[(x >> 1) & 1] += expf(s[c][x] - mx[(x >> 1) & 1]);
-        if (t == nch - 1) {
+        for (int x = 0; x < 16; ++x) {
+          const int hh = (x >> 1) & 1;
+          const float ex = expf(s[x] - mx[hh]);
+          l[hh] += ex;
+          r[hh] += ex * dp[x];
+        }
+        if (it == nch - 1) {  // rd = r / l, exactly rounded (Markstein, as p divides)
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
-            sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
-            sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
-            rcp[hh] = __frcp_rn(sum[hh]);
+            l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+            l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+            r[hh] += __shfl_xor_sync(0xffffffffu, r[hh], 1);
+            r[hh] += __shfl_xor_sync(0xffffffffu, r[hh], 2);
+            rcp[hh] = __frcp_rn(l[hh]);
+            const float q0 = r[hh] * rcp[hh];
+            rd[hh] = fmaf(fmaf(-q0, l[hh], r[hh]), rcp[hh], q0);
           }
           if ((lane & 3) == 0) {
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh)
               if (hh ? live1 : live0) {
-                st[row0 + r0 + 8 * hh] = mx[hh];
-                st[N + row0 + r0 + 8 * hh] = sum[hh];
+                const int i = row0 + r0 + 8 * hh;
+                stt[i] = mx[hh];
+                stt[N + i] = l[hh];
+                stt[2 * N + i] = rd[hh];
               }
           }
         }
       }
+      release_stage(&empty[st], lane);
       continue;
     }
 
-    // p (Markstein's exact divide) and dp * mask in place of s and dp
-    if (live_warp) {
+    // ds = p * dp * mask - p * rd (p with the exact divide), then dq += ds K_c
 #pragma unroll
-      for (int c = 0; c < LONG_SUB; ++c) {
+    for (int b = 0; b < 4; ++b)
 #pragma unroll
-        for (int x = 0; x < 16; ++x) {
-          const int hh = (x >> 1) & 1, j = c0 + cq + col(c, x);
-          const float ex = expf(s[c][x] - mx[hh]);
-          const float q0 = ex * rcp[hh];
-          s[c][x] = fmaf(fmaf(-q0, sum[hh], ex), rcp[hh], q0);
-          float m = 0.f;  // 0 outside the block
-          if ((hh ? live1 : live0) && j < N)
-            m = am ? __bfloat162float(__ldg(am + (hh ? erow1 : erow0) + j))
-                   : p.seed ? ((keep[c] >> x) & 1u ? p.kept : 0.f) : 1.f;
-          dp[c][x] *= m;
-        }
-      }
-    }
-    if (sweep == 1) {  // rd = rowsum(p * dp * mask)
-      if (live_warp) {
-#pragma unroll
-        for (int c = 0; c < LONG_SUB; ++c)
-#pragma unroll
-          for (int x = 0; x < 16; ++x) rd[(x >> 1) & 1] += s[c][x] * dp[c][x];
-      }
-      if (t == 2 * nch - 1) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          rd[hh] += __shfl_xor_sync(0xffffffffu, rd[hh], 1);
-          rd[hh] += __shfl_xor_sync(0xffffffffu, rd[hh], 2);
-        }
-        if ((lane & 3) == 0) {
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh)
-            if (hh ? live1 : live0) st[2 * N + row0 + r0 + 8 * hh] = rd[hh];
-        }
-      }
-      continue;
-    }
-
-    // ds = p * dp * mask - p * rd, then dq += ds K_c (k read MN-major)
-    uint32_t a[LONG_SUB][2][4];
-#pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
+      for (int hh = 0; hh < 2; ++hh) {
         float d2[2];
 #pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const int x = 2 * q + k;
-          const float pv = s[c][x];
-          d2[k] = live_warp ? pv * dp[c][x] - pv * rd[(x >> 1) & 1] : 0.f;
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * b + 2 * hh + e;
+          const float ex = expf(s[x] - mx[hh]);
+          const float q0 = ex * rcp[hh];
+          const float pv = fmaf(fmaf(-q0, l[hh], ex), rcp[hh], q0);
+          d2[e] = live_warp ? pv * dp[x] - pv * rd[hh] : 0.f;
         }
-        a[c][q >> 2][q & 3] = pack_bf16(d2[0], d2[1]);
+        a[b >> 1][2 * (b & 1) + hh] = pack_bf16(d2[0], d2[1]);
       }
+    const uint32_t k_base = ring + st * 2 * KV;  // k read MN-major (its head columns contiguous)
     wgmma_fence();
 #pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c)
-#pragma unroll
-      for (int k16 = 0; k16 < 2; ++k16) {
-        const uint64_t bk = make_desc(k_base + (c * KEYS + k16 * 16) * ROWB, SBO, SBO, SW);
-        if constexpr (DP == 64)
-          wgmma_m64n64k16_rs(dq, a[c][k16], bk);
-        else
-          wgmma_m64n32k16_rs(dq, a[c][k16], bk);
-      }
+    for (int k16 = 0; k16 < 2; ++k16) {
+      const uint64_t bk = make_desc(k_base + k16 * 16 * ROWB, SBO, SBO, SW);
+      if constexpr (DP == 64)
+        wgmma_m64n64k16_rs(dq, a[k16], bk);
+      else
+        wgmma_m64n32k16_rs(dq, a[k16], bk);
+    }
     wgmma_commit();
-    wgmma_wait<0>();  // the stage is free for step t + 2's copies
     fence_acc(dq);
-#pragma unroll
-    for (int c = 0; c < LONG_SUB; ++c)
-#pragma unroll
-      for (int k16 = 0; k16 < 2; ++k16) fence_regs(a[c][k16]);
   }
+  wgmma_wait<0>();
+  fence_acc(dq);
+  fence_regs(a[0]);
+  fence_regs(a[1]);
+  release_stage(&empty[(steps - 1) % LONG_STAGES], lane);
 
-  // dq * scale through q's rows, as the register form writes it
-  __syncthreads();
+  // dq * scale through this warpgroup's q rows, as the register form writes it
+  named_sync(1 + w, WARPGROUP);
 #pragma unroll
   for (int b = 0; b < DP / 8; ++b) {
 #pragma unroll
@@ -1092,125 +1134,159 @@ __global__ void __launch_bounds__(THREADS, LONG_MIN_BLOCKS) attention_bwd_dq_lon
       *reinterpret_cast<uint32_t*>(Qs + swz<ROWB>(r0 + 8 * hh, b) + cq * 2) =
           pack_bf16(dq[4 * b + 2 * hh] * p.scale, dq[4 * b + 2 * hh + 1] * p.scale);
   }
-  __syncthreads();
+  named_sync(1 + w, WARPGROUP);
+  const long long ld = 3LL * C, in0 = (long long)g * N * ld;
   const int chunks = Dh / 8;
-  for (int e = threadIdx.x; e < ROWS * chunks; e += THREADS) {
-    const int r = e / chunks, c = e % chunks;
-    const int i = row0 + r;
+  for (int e = tid; e < 64 * chunks; e += WARPGROUP) {
+    const int rr = w * 64 + e / chunks, cc = e % chunks;
+    const int i = row0 + rr;
     if (i < N)
-      *reinterpret_cast<uint4*>(p.dqkv + in0 + i * ld + h * Dh + c * 8) =
-          *reinterpret_cast<const uint4*>(Qs + swz<ROWB>(r, c));
+      *reinterpret_cast<uint4*>(p.dqkv + in0 + i * ld + h * Dh + cc * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<ROWB>(rr, cc));
   }
 }
 
-// The long form's pass 2 (N > 288): dk and dv of one 64-key tile of (g, h),
-// every query's q and dctx streamed in 64-query chunks with their
-// statistics; per 32 queries the register form's pass-2 body. The head's
-// column sums of ds go to the (G, nH, N) scratch as before.
+// The long form's pass 2 (N > 288): dk and dv of 128 keys of (g, h) on two
+// consumer warpgroups, the queries streamed in 32-query chunks with their
+// statistics, keep words and bias tiles; per chunk the register form's
+// pass-2 body. The head's column sums of ds go to the (G, nH, N) scratch as
+// before.
 template <int DP>
-__global__ void __launch_bounds__(THREADS, DKV_MIN_BLOCKS) attention_bwd_dkv_long_kernel(const Params p) {
+__global__ void __launch_bounds__(LONG_THREADS, 1)
+    attention_bwd_dkv_long_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                                  const __grid_constant__ CUtensorMap map_do, const Params p) {
   constexpr int ROWB = DP * 2;
   constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
   constexpr uint32_t SBO = 8 * ROWB;
-  constexpr int STAGE = 2 * LONG_ROWS * ROWB;  // a chunk's q rows, then its dctx rows
-  const int N = p.N, C = p.C, Dh = p.Dh;
+  constexpr int KV = LONG_CHUNK * ROWB;  // one chunk of q or of dctx
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* Ks = align1024(smem_raw);  // the key tile's k, then dk
-  unsigned char* Vs = Ks + ROWS * ROWB;     // its v, then dv
-  unsigned char* Ring = Vs + ROWS * ROWB;
-  float* Sm = reinterpret_cast<float*>(Ring + LONG_STAGES * STAGE);  // the chunk's row max
-  float* Sl = Sm + LONG_ROWS;                                         // row sum
-  float* Sr = Sl + LONG_ROWS;                                         // RN(1 / row sum)
-  float* Sd = Sr + LONG_ROWS;                                         // rd
-  uint32_t* Bt = reinterpret_cast<uint32_t*>(Sd + LONG_ROWS);        // (a): two keep words per query
+  unsigned char* Ks = align1024(smem_raw);      // the block's k, then dk
+  unsigned char* Vs = Ks + LONG_ROWS * ROWB;    // its v, then dv
+  unsigned char* Ring = Vs + LONG_ROWS * ROWB;  // stage s: q at Ring + 2 s KV, then dctx
+  unsigned char* Qb = Ring + LONG_STAGES * 2 * KV;
+  unsigned char* Am = Qb + LONG_STAGES * QB2_TILE;
+  unsigned char* Sts = Am + LONG_STAGES * AM2_TILE;
+  unsigned char* Bt = Sts + LONG_STAGES * ST2_TILE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bt + LONG_STAGES * BT2_TILE);
+  uint64_t* empty = full + LONG_STAGES;
+  uint64_t* kvbar = empty + LONG_STAGES;
 
+  const int N = p.N, C = p.C, Dh = p.Dh, nH = p.nH;
   const int kt = blockIdx.x % p.tiles;
   const int gh = blockIdx.x / p.tiles;
-  const int h = gh % p.nH, g = gh / p.nH;
-  const int key0 = kt * ROWS;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = warp * 16 + (lane >> 2);
+  const int h = gh % nH, g = gh / nH;
+  const int key0 = kt * LONG_ROWS;
+  const int nq = chunks_of(N);  // 32-query chunks
+  const float* stt = p.scratch + gh * p.words;
+  const int wg = threadIdx.x / WARPGROUP;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < LONG_STAGES; ++s) {
+      mbar_init(&full[s], 1 + 2 * WARPGROUP);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    regs_dec<PRODUCER_REGS>();
+    const int t = threadIdx.x;
+    if (t == 0) {
+      mbar_expect_tx(kvbar, 2 * LONG_ROWS * ROWB);
+      for (int r = 0; r < LONG_ROWS; r += LONG_CHUNK) {
+        tma_load4(Ks + r * ROWB, &map_qkv, kvbar, 0, nH + h, key0 + r, g);
+        tma_load4(Vs + r * ROWB, &map_qkv, kvbar, 0, 2 * nH + h, key0 + r, g);
+      }
+    }
+    const unsigned char* qb0 = reinterpret_cast<const unsigned char*>(p.qbias + (size_t)g * N * N + key0);
+    const unsigned char* am0 = reinterpret_cast<const unsigned char*>(p.amask + (size_t)gh * N * N + key0);
+    const unsigned char* bits0 = reinterpret_cast<const unsigned char*>(stt + 3 * N + 4 * kt);
+    const int clim = N - key0, wlim = nq - 4 * kt;  // keys of the block; its keep words
+    for (int it = 0; it < nq; ++it) {
+      const int s = it % LONG_STAGES;
+      if (it >= LONG_STAGES) mbar_wait(&empty[s], ((it / LONG_STAGES) - 1) & 1);
+      const int i0 = it * LONG_CHUNK, rlim = N - i0;
+      unsigned char* qst = Ring + s * 2 * KV;
+      if (t == 0) {
+        mbar_expect_tx(&full[s], 2 * KV);
+        tma_load4(qst, &map_qkv, &full[s], 0, h, i0, g);
+        tma_load4(qst + KV, &map_do, &full[s], 0, h, i0, g);
+      }
+      // the three statistics rows (max, sum, rd: N floats apart) of the chunk's
+      // queries, and a fourth: RN(1 / sum), once a query for the consumers
+      stage_tile<4, 4>(Sts + s * ST2_TILE, LONG_CHUNK * 4, reinterpret_cast<const unsigned char*>(stt + i0), 4LL * N,
+                       3, LONG_CHUNK, 3, rlim, t, WARPGROUP);
+      if (t < LONG_CHUNK && t < rlim)
+        reinterpret_cast<float*>(Sts + s * ST2_TILE)[3 * LONG_CHUNK + t] = __frcp_rn(stt[N + i0 + t]);
+      if (p.seed)
+        stage_tile<4, 4>(Bt + s * BT2_TILE, 16, bits0 + (size_t)i0 * nq * 4, 4LL * nq, LONG_CHUNK, 4, rlim, wlim, t,
+                         WARPGROUP);
+      if (p.qbias)
+        stage_tile_any<4>(p.qb_unit, Qb + s * QB2_TILE, QB2_LD, qb0 + (size_t)i0 * N * 4, 4LL * N, LONG_CHUNK,
+                          LONG_ROWS, rlim, clim, t, WARPGROUP);
+      if (p.amask)
+        stage_tile_any<2>(p.am_unit, Am + s * AM2_TILE, AM2_LD, am0 + (size_t)i0 * N * 2, 2LL * N, LONG_CHUNK,
+                          LONG_ROWS, rlim, clim, t, WARPGROUP);
+      stage_arrive(&full[s]);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // the consumers: warpgroup w owns the block's keys 64 w .. 64 w + 63;
+  // element x = 4 b + 2 hh + e of a chunk's fragment is key row jl[hh] (of
+  // the block), query column cq + 8 b + e (of the chunk)
+  regs_inc<CONSUMER_REGS>();
+  const int w = wg - 1, tid = threadIdx.x - wg * WARPGROUP;
+  const int warp = tid >> 5, lane = tid & 31;
   const int cq = (lane & 3) * 2;
-  const bool live_warp = key0 + warp * 16 < N;
-  const int jr[2] = {key0 + r0, key0 + r0 + 8};  // the thread's two key rows
-  const bool kl[2] = {jr[0] < N, jr[1] < N};
-  const long long ld = 3LL * C;
-  const long long in0 = (long long)g * N * ld;
-  const size_t nn = (size_t)N * N;
-  const size_t t0 = (size_t)gh * nn;
-  const bf16* qs = p.qkv + h * Dh;
-  const float* st = p.scratch + gh * p.words;
-  const uint32_t* bits = reinterpret_cast<const uint32_t*>(st + 3 * N);
-  const int nq = (N + LONG_ROWS - 1) / LONG_ROWS, nc32 = chunks_of(N);
-  const float* qb = p.qbias ? p.qbias + (size_t)g * nn : nullptr;
-  const bf16* am = p.amask ? p.amask + t0 : nullptr;
+  const int jl[2] = {w * 64 + warp * 16 + (lane >> 2), w * 64 + warp * 16 + (lane >> 2) + 8};
+  const bool live_warp = key0 + w * 64 + warp * 16 < N;
+  const bool kl[2] = {key0 + jl[0] < N, key0 + jl[1] < N};
   float kbv[2];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) kbv[hh] = p.kbias && kl[hh] ? __ldg(p.kbias + (size_t)g * N + jr[hh]) : 0.f;
-  const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
-
-  auto prefetch = [&](int t) {
-    unsigned char* stg = Ring + (t & 1) * STAGE;
-    load_rows<ROWB>(stg, qs, in0, ld, t * LONG_ROWS, LONG_ROWS, N, Dh);
-    load_rows<ROWB>(stg + LONG_ROWS * ROWB, p.dctx + h * Dh, (long long)g * N * C, C, t * LONG_ROWS, LONG_ROWS,
-                    N, Dh);
-  };
-  load_rows<ROWB>(Ks, qs + C, in0, ld, key0, ROWS, N, Dh);
-  load_rows<ROWB>(Vs, qs + 2 * C, in0, ld, key0, ROWS, N, Dh);
-  prefetch(0);
-  cp_async_commit();
+  for (int hh = 0; hh < 2; ++hh) kbv[hh] = p.kbias && kl[hh] ? __ldg(p.kbias + (size_t)g * N + key0 + jl[hh]) : 0.f;
+  const uint32_t k_base = smem_u32(Ks + w * 64 * ROWB), v_base = smem_u32(Vs + w * 64 * ROWB);
+  const uint32_t ring = smem_u32(Ring);
 
   float dk[DP / 2], dv[DP / 2], dkb[2] = {0.f, 0.f};
 #pragma unroll
   for (int x = 0; x < DP / 2; ++x) dk[x] = dv[x] = 0.f;
   fence_acc(dk);
   fence_acc(dv);
-  uint32_t apa[2][4], ads[2][4];
-  float s[16], dp[16];
+  uint32_t apa[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}}, ads[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};
+  float s[16], dp[16], ns[16], ndp[16];  // S^T and dp^T of this step; the next step's, in flight
+  mbar_wait(kvbar, 0);
+  mbar_wait(&full[0], 0);
+  wgmma_rows32_pair<DP>(ns, k_base, ring, ndp, v_base, ring + KV);
 
 #pragma unroll 1
-  for (int t = 0; t < nq; ++t) {
-    __syncthreads();  // stage (t + 1) % 2 and the statistics are no longer read
-    if (t + 1 < nq) prefetch(t + 1);
-    cp_async_commit();
-    for (int il = threadIdx.x; il < LONG_ROWS; il += THREADS) {
-      const int i = t * LONG_ROWS + il;
-      const bool in = i < N;
-      const float l = in ? st[N + i] : 1.f;
-      Sm[il] = in ? st[i] : 0.f;
-      Sl[il] = l;
-      Sr[il] = __frcp_rn(l);
-      Sd[il] = in ? st[2 * N + i] : 0.f;
-      if (p.seed) {
-        Bt[2 * il] = in ? bits[i * nc32 + 2 * kt] : 0u;
-        Bt[2 * il + 1] = in && 2 * kt + 1 < nc32 ? bits[i * nc32 + 2 * kt + 1] : 0u;
-      }
-    }
-    cp_async_wait<1>();  // step t's copies are in
-    fence_proxy_async();
-    __syncthreads();
-
-    const uint32_t q_base = smem_u32(Ring + (t & 1) * STAGE), d_base = q_base + LONG_ROWS * ROWB;
-#pragma unroll 1
-    for (int c = 0; c < LONG_SUB; ++c) {
-      // S^T = K Q_c^T and dp^T = V dO_c^T, one group; it also retires the
-      // previous sub-chunk's dk / dv products
-#pragma unroll
-      for (int x = 0; x < 16; ++x) s[x] = dp[x] = 0.f;
-      fence_acc(s);
-      fence_acc(dp);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wgmma_m64n32k16(s, make_desc(k_base + kk * 32, 16, SBO, SW),
-                        make_desc(q_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
-        wgmma_m64n32k16(dp, make_desc(v_base + kk * 32, 16, SBO, SW),
-                        make_desc(d_base + c * KEYS * ROWB + kk * 32, 16, SBO, SW));
-      }
-      wgmma_commit();
+  for (int it = 0; it < nq; ++it) {
+    const int st = it % LONG_STAGES, i0 = it * LONG_CHUNK;
+    // S^T and dp^T of step it are in (the dk / dv products of step it - 1 may still run)
+    if (it > 0)
+      wgmma_wait<1>();
+    else
       wgmma_wait<0>();
-      fence_acc(s);
-      fence_acc(dp);
+    fence_acc(ns);
+    fence_acc(ndp);
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      s[x] = ns[x];
+      dp[x] = ndp[x];
+    }
+    const bool ahead = it + 1 < nq;
+    if (ahead) {
+      const uint32_t qn = ring + ((it + 1) % LONG_STAGES) * 2 * KV;
+      mbar_wait(&full[(it + 1) % LONG_STAGES], ((it + 1) / LONG_STAGES) & 1);
+      wgmma_rows32_pair<DP>(ns, k_base, qn, ndp, v_base, qn + KV);
+    }
+    if (it > 0) {  // step it - 1's dk / dv products are done: its stage is free
+      if (ahead)
+        wgmma_wait<1>();
+      else
+        wgmma_wait<0>();
       fence_acc(dk);
       fence_acc(dv);
 #pragma unroll
@@ -1218,90 +1294,131 @@ __global__ void __launch_bounds__(THREADS, DKV_MIN_BLOCKS) attention_bwd_dkv_lon
         fence_regs(apa[k16]);
         fence_regs(ads[k16]);
       }
-      // element x: key row jr[hh], query column i (il in the chunk)
+      release_stage(&empty[(it - 1) % LONG_STAGES], lane);
+    }
+
+    // per score, branch-free: queries past N (only in the last chunk) and
+    // keys past N get pa = ds = 0 by a select (their statistics and tiles
+    // are not staged); the mask source and the qbias are a uniform choice
+    const float* sm = reinterpret_cast<const float*>(Sts + st * ST2_TILE);  // max, sum, rd, RN(1 / sum)
+    const unsigned char* qbs = Qb + st * QB2_TILE;
+    const unsigned char* ams = Am + st * AM2_TILE;
+    const uint32_t* bts = reinterpret_cast<const uint32_t*>(Bt + st * BT2_TILE);
+    const int qlim = N - i0;  // queries of the chunk below N
+    float m[16], qv[16];      // element x: query column cq + 8 b + e, key row jl[hh]
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
+    for (int x = 0; x < 16; ++x) {
+      m[x] = 1.f;
+      qv[x] = 0.f;
+    }
+    if (p.amask) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x)
+        m[x] = __bfloat162float(*reinterpret_cast<const bf16*>(ams + (cq + (x >> 2) * 8 + (x & 1)) * AM2_LD +
+                                                                jl[(x >> 1) & 1] * 2));
+    } else if (p.seed) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int j = jl[(x >> 1) & 1];
+        m[x] = (bts[(cq + (x >> 2) * 8 + (x & 1)) * 4 + (j >> 5)] >> (j & 31)) & 1u ? p.kept : 0.f;
+      }
+    }
+    if (p.qbias) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x)
+        qv[x] = *reinterpret_cast<const float*>(qbs + (cq + (x >> 2) * 8 + (x & 1)) * QB2_LD + jl[(x >> 1) & 1] * 4);
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      float mi[2], li[2], ri[2], rc[2];  // the two query columns' statistics
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int il = cq + 8 * b + e;
+        mi[e] = sm[il];
+        li[e] = sm[LONG_CHUNK + il];
+        ri[e] = sm[2 * LONG_CHUNK + il];
+        rc[e] = sm[3 * LONG_CHUNK + il];
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
         float pa2[2], ds2[2];
 #pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const int x = 2 * q + k, hh = (x >> 1) & 1;
-          const int il = c * KEYS + (x >> 2) * 8 + cq + (x & 1), i = t * LONG_ROWS + il;
-          const int j = jr[hh];
-          float pv = 0.f, m = 0.f;
-          if (live_warp && kl[hh] && i < N) {
-            const int e = i * N + j;
-            float v = s[x] * p.scale;
-            if (p.kbias) v += kbv[hh];
-            if (qb) v += __ldg(qb + e);
-            const float ex = expf(v - Sm[il]);
-            const float q0 = ex * Sr[il];
-            pv = fmaf(fmaf(-q0, Sl[il], ex), Sr[il], q0);
-            const int jl = j - key0;
-            m = am ? __bfloat162float(__ldg(am + e))
-                   : p.seed ? ((Bt[2 * il + (jl >> 5)] >> (jl & 31)) & 1u ? p.kept : 0.f) : 1.f;
-          }
-          const float pdp = pv * (dp[x] * m);
-          ds2[k] = pdp - pv * Sd[il];
-          pa2[k] = pv * m;
-          dkb[hh] += ds2[k];
+        for (int e = 0; e < 2; ++e) {
+          const int x = 4 * b + 2 * hh + e;
+          // the register form's order: scale, key bias, then qbias (absent: + 0, exact)
+          const float v = s[x] * p.scale + kbv[hh] + qv[x];
+          const float ex = expf(v - mi[e]);
+          const float q0 = ex * rc[e];
+          const float pv = fmaf(fmaf(-q0, li[e], ex), rc[e], q0);
+          const bool valid = kl[hh] && cq + 8 * b + e < qlim;
+          const float pdp = pv * (dp[x] * m[x]);
+          const float ds = valid ? pdp - pv * ri[e] : 0.f;
+          pa2[e] = valid ? pv * m[x] : 0.f;
+          ds2[e] = ds;
+          dkb[hh] += ds;
         }
-        apa[q >> 2][q & 3] = pack_bf16(pa2[0], pa2[1]);
-        ads[q >> 2][q & 3] = pack_bf16(ds2[0], ds2[1]);
+        apa[b >> 1][2 * (b & 1) + hh] = pack_bf16(pa2[0], pa2[1]);
+        ads[b >> 1][2 * (b & 1) + hh] = pack_bf16(ds2[0], ds2[1]);
       }
-      // dv += pa^T dO_c, dk += ds^T Q_c: 16 query rows a k16 step, read
-      // MN-major (their head columns contiguous)
-      wgmma_fence();
-#pragma unroll
-      for (int k16 = 0; k16 < 2; ++k16) {
-        const uint32_t row = (c * KEYS + k16 * 16) * ROWB;
-        const uint64_t bd = make_desc(d_base + row, SBO, SBO, SW), bq = make_desc(q_base + row, SBO, SBO, SW);
-        if constexpr (DP == 64) {
-          wgmma_m64n64k16_rs(dv, apa[k16], bd);
-          wgmma_m64n64k16_rs(dk, ads[k16], bq);
-        } else {
-          wgmma_m64n32k16_rs(dv, apa[k16], bd);
-          wgmma_m64n32k16_rs(dk, ads[k16], bq);
-        }
-      }
-      wgmma_commit();
     }
-    wgmma_wait<0>();  // the stage is free for step t + 2's copies
-    fence_acc(dk);
-    fence_acc(dv);
+    // dv += pa^T dO_c, dk += ds^T Q_c: 16 query rows a k16 step, read MN-major
+    const uint32_t q_base = ring + st * 2 * KV, d_base = q_base + KV;
+    wgmma_fence();
 #pragma unroll
     for (int k16 = 0; k16 < 2; ++k16) {
-      fence_regs(apa[k16]);
-      fence_regs(ads[k16]);
+      const uint64_t bd = make_desc(d_base + k16 * 16 * ROWB, SBO, SBO, SW);
+      const uint64_t bq = make_desc(q_base + k16 * 16 * ROWB, SBO, SBO, SW);
+      if constexpr (DP == 64) {
+        wgmma_m64n64k16_rs(dv, apa[k16], bd);
+        wgmma_m64n64k16_rs(dk, ads[k16], bq);
+      } else {
+        wgmma_m64n32k16_rs(dv, apa[k16], bd);
+        wgmma_m64n32k16_rs(dk, ads[k16], bq);
+      }
     }
+    wgmma_commit();
+    fence_acc(dk);
+    fence_acc(dv);
   }
+  wgmma_wait<0>();
+  fence_acc(dk);
+  fence_acc(dv);
+#pragma unroll
+  for (int k16 = 0; k16 < 2; ++k16) {
+    fence_regs(apa[k16]);
+    fence_regs(ads[k16]);
+  }
+  release_stage(&empty[(nq - 1) % LONG_STAGES], lane);
 
-  // this head's column sums of ds, one value per key over the row quad
+  // this head's column sums of ds, one value per key over the row quad (the
+  // queries in order, then the quad)
   if (p.dkb_part) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       dkb[hh] += __shfl_xor_sync(0xffffffffu, dkb[hh], 1);
       dkb[hh] += __shfl_xor_sync(0xffffffffu, dkb[hh], 2);
-      if ((lane & 3) == 0 && kl[hh]) p.dkb_part[(size_t)gh * N + jr[hh]] = dkb[hh];
+      if ((lane & 3) == 0 && kl[hh]) p.dkb_part[(size_t)gh * N + key0 + jl[hh]] = dkb[hh];
     }
   }
 
-  // dk * scale and dv: bf16 pairs into k's and v's rows, then 16-byte
-  // stores of the keys below N
-  __syncthreads();  // every warp's products have read Ks / Vs
+  // dk * scale and dv: bf16 pairs into this warpgroup's k and v rows (its
+  // products are done), then 16-byte stores of the keys below N
+  named_sync(1 + w, WARPGROUP);
 #pragma unroll
   for (int bb = 0; bb < DP / 8; ++bb) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const uint32_t off = swz<ROWB>(r0 + 8 * hh, bb) + cq * 2;
+      const uint32_t off = swz<ROWB>(jl[hh], bb) + cq * 2;
       *reinterpret_cast<uint32_t*>(Ks + off) =
           pack_bf16(dk[4 * bb + 2 * hh] * p.scale, dk[4 * bb + 2 * hh + 1] * p.scale);
       *reinterpret_cast<uint32_t*>(Vs + off) = pack_bf16(dv[4 * bb + 2 * hh], dv[4 * bb + 2 * hh + 1]);
     }
   }
-  __syncthreads();
+  named_sync(1 + w, WARPGROUP);
+  const long long ld = 3LL * C, in0 = (long long)g * N * ld;
   const int chunks = Dh / 8;
-  for (int e = threadIdx.x; e < ROWS * chunks; e += THREADS) {
-    const int r = e / chunks, cc = e % chunks;
+  for (int e = tid; e < 64 * chunks; e += WARPGROUP) {
+    const int r = w * 64 + e / chunks, cc = e % chunks;
     const int j = key0 + r;
     if (j < N) {
       bf16* out = p.dqkv + in0 + j * ld + h * Dh + cc * 8;
@@ -1397,7 +1514,14 @@ cudaError_t launch_dkv(const Params& p, unsigned blocks, int smem, cudaStream_t 
 }
 
 template <int DP>
-cudaError_t launch_long(const Params& p, unsigned blocks, cudaStream_t stream) {
+cudaError_t launch_long(const void* qkv, const void* dctx, int G, const Params& p, unsigned blocks,
+                        cudaStream_t stream) {
+  // the fused rows as 3 nH heads (q, k, v) and dctx's: their bases are the call's, encoded at every launch
+  CUtensorMap mqkv, mdo;
+  const long long C = p.C;
+  if (!head_rows_map(&mqkv, qkv, p.Dh, 3 * p.nH, p.N, G, p.Dh, 3 * C, 3 * C * p.N, DP, LONG_CHUNK) ||
+      !head_rows_map(&mdo, dctx, p.Dh, p.nH, p.N, G, p.Dh, C, C * p.N, DP, LONG_CHUNK))
+    return cudaErrorInvalidValue;
   static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(attention_bwd_dq_long_kernel<DP>,
@@ -1408,10 +1532,10 @@ cudaError_t launch_long(const Params& p, unsigned blocks, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  attention_bwd_dq_long_kernel<DP><<<blocks, THREADS, long_dq_smem(DP), stream>>>(p);
+  attention_bwd_dq_long_kernel<DP><<<blocks, LONG_THREADS, long_dq_smem(DP), stream>>>(mqkv, mdo, p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attention_bwd_dkv_long_kernel<DP><<<blocks, THREADS, long_dkv_smem(DP), stream>>>(p);
+  attention_bwd_dkv_long_kernel<DP><<<blocks, LONG_THREADS, long_dkv_smem(DP), stream>>>(mqkv, mdo, p);
   return cudaGetLastError();
 }
 
@@ -1464,7 +1588,7 @@ extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void*
   if (((uintptr_t)qkv | (uintptr_t)dctx | (uintptr_t)dqkv) & 15) return (int)cudaErrorInvalidValue;
   const int optin = smem_optin();
   if (optin < 0 || smem > optin) return (int)cudaErrorInvalidValue;
-  const int tiles = (N + ROWS - 1) / ROWS;
+  const int tiles = long_form ? (N + LONG_ROWS - 1) / LONG_ROWS : (N + ROWS - 1) / ROWS;
   int chunks = 1, wpb = 1, stride = G, per = 1;  // without a pattern: one group a block
   if (pattern != nullptr) {
     pattern_split(G, P, nH, &chunks, &wpb);
@@ -1473,18 +1597,22 @@ extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void*
   }
   const long long dq_blocks = (long long)G * nH * tiles, dkv_blocks = (long long)tiles * nH * stride * chunks;
   if (dq_blocks > 0x7fffffffLL || dkv_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the long form's bias-tile copies: the widest unit every row start allows
+  const int qb_unit = stage_unit(qbias, N, 4), am_unit = stage_unit(amask, N, 2), kb_unit = stage_unit(kbias, N, 4);
   using cbf = const bf16*;
   const Params p{static_cast<cbf>(qkv), static_cast<cbf>(dctx), static_cast<const float*>(pattern),
                  static_cast<const float*>(kbias), static_cast<const float*>(qbias), static_cast<cbf>(amask),
                  static_cast<const int*>(seed), static_cast<cbf>(pstore), static_cast<bf16*>(dqkv),
                  static_cast<float*>(dkb_part), static_cast<float*>(dpat_part), static_cast<float*>(scratch),
                  scratch_words(N), N, C, nH, Dh, pattern != nullptr ? P : 1, tiles,
-                 !long_form && amask != nullptr && dq_mask_smem(N, Dh) > 0, stride, per, wpb, scale, thresh, kept};
+                 !long_form && amask != nullptr && dq_mask_smem(N, Dh) > 0, stride, per, wpb, qb_unit, am_unit,
+                 kb_unit, scale, thresh, kept};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nc = chunks_of(N), wide = head_cols(Dh) == 64;
   cudaError_t e;
   if (long_form) {  // both passes on G * nH * tiles blocks
-    e = wide ? launch_long<64>(p, (unsigned)dq_blocks, s) : launch_long<32>(p, (unsigned)dq_blocks, s);
+    e = wide ? launch_long<64>(qkv, dctx, G, p, (unsigned)dq_blocks, s)
+             : launch_long<32>(qkv, dctx, G, p, (unsigned)dq_blocks, s);
   } else {
     const int q_smem = dq_smem(N, Dh) + (p.mask_staged ? dq_mask_smem(N, Dh) : 0);
     e = wide ? dispatch_dq<64>(nc, p, (unsigned)dq_blocks, q_smem, s)

@@ -375,33 +375,10 @@ __global__ void gemm_fold_kernel(const float* __restrict__ ws, void* Y, long lon
 
 // ---- host side -------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled through the runtime, so the library
-// needs no link against libcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
-#endif
-    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(ptr)
-                                                                  : nullptr;
-  }();
-  return fn;
-}
-
 // a bf16 row-major (rows, cols) matrix, read in boxes of box_rows x 64 columns
 // with the 128-byte swizzle; out-of-bounds elements read as zero
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
-  EncodeTiled encode = encoder();
+  EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};

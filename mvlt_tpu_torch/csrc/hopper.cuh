@@ -1,10 +1,13 @@
 // Hopper building blocks shared by the port's kernels (sm_90a), as inline PTX:
-// shared-memory addresses, mbarriers, TMA tile loads, cp.async copies and
-// the swizzled-row loaders of K2 and K4, the wgmma shared-memory matrix
-// descriptor, and the wgmma products the kernels issue. K1 (gemm.cu) runs a
-// TMA + mbarrier ring into m64n128k16 products; K2 (attention.cu) and K4
-// (attention_bwd.cu) load with cp.async and run m64n32k16 (S = Q K^T and
-// dP = dO V^T, both operands in shared memory) and m64n{32,64}k16 with A in
+// shared-memory addresses, mbarriers, TMA tile loads and the host's tensor-map
+// encoder, cp.async copies and the swizzled-row loaders of K2 and K4, the
+// staging of bias tiles beside a TMA ring, warp specialisation (register
+// hand-over, named barriers), the wgmma shared-memory matrix descriptor, and
+// the wgmma products the kernels issue. K1 (gemm.cu) and the long forms of K2
+// (attention.cu) and K4 (attention_bwd.cu) run a TMA + mbarrier ring kept
+// full by a producer warpgroup; the register forms of K2 and K4 load with
+// cp.async. The products: m64n128k16 (K1), m64n32k16 (S = Q K^T and dP = dO
+// V^T, both operands in shared memory) and m64n{32,64}k16 with A in
 // registers (P V; dQ = dS K, dV = P^T dO, dK = dS^T Q).
 //
 // Fragment layouts (PTX ISA, "wgmma .m64nNk16"): thread t of the warpgroup,
@@ -73,6 +76,86 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// box of the 4-D tensor map at (c0, c1, c2, c3), innermost first
+__device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled through the runtime, so a library
+// needs no link against libcuda
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                     cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess) ? reinterpret_cast<EncodeTiled>(ptr)
+                                                                  : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D tensor map of the bf16 rows of one operand of attention: element (d,
+// h, n, g) at base + h * sh + n * sn + g * sg (element strides; sh, sn, sg
+// multiples of 8, base 16-byte aligned), dims (Dh, heads, N, G), read in
+// boxes of cols x 1 x rows x 1 with the (2 cols)-byte swizzle (cols 32 or
+// 64). Elements past Dh (the head dims 16 and 48 padded to a swizzle row) and
+// rows past N arrive as zeros.
+inline bool head_rows_map(CUtensorMap* map, const void* base, int Dh, int heads, int N, int G, long long sh,
+                          long long sn, long long sg, int cols, int rows) {
+  EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)heads, (cuuint64_t)N, (cuuint64_t)G};
+  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sn * 2, (cuuint64_t)sg * 2};
+  cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---- warp specialisation ----------------------------------------------------
+
+// hand registers from the producer warpgroup to the consumers (every thread
+// of the warpgroup executes it)
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+// named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// a consumer warp is done with a ring stage: lane 0 arrives on its `empty`
+// barrier once every lane is past its reads
+__device__ __forceinline__ void release_stage(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
 // ---- cp.async ----------------------------------------------------------------
 
 // 16 bytes into shared memory: the first `bytes` (0-16) from global memory,
@@ -86,6 +169,11 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// one arrival on the mbarrier once every cp.async this thread issued so far
+// has landed (counted in the barrier's arrival count: no increment)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 // make this thread's shared-memory writes (cp.async, st.shared) visible to
 // the async proxy that wgmma reads through
@@ -129,6 +217,63 @@ __device__ __forceinline__ uintptr_t stage_span(unsigned char* dst, uintptr_t lo
     cp_async16(dst + k, reinterpret_cast<const void*>(start + k),
                static_cast<uint32_t>(hi - (start + k) < 16 ? hi - (start + k) : 16));
   return start;
+}
+
+// ---- bias tiles beside a TMA ring (K2's and K4's long form) ------------------
+
+// The elements (r, c) with r < rlim and c < clim of a rows x cols tile of a
+// row-major matrix (element (r, c), E bytes, at src + r * ld + c * E bytes)
+// into shared memory (row r at dst + r * dld bytes), by thread t of nt:
+// U-byte cp.async (U = 4 or 8; src, ld and clim * E multiples of U), or with
+// U == E (a bf16 matrix whose rows start 2 bytes off 4) plain loads and
+// stores. A thread keeps one column and walks the rows nt / (units a row)
+// apart (the units of a row divide nt). Elements past the limits are not
+// written: no reader takes them.
+template <int E, int U>
+__device__ __forceinline__ void stage_tile(unsigned char* dst, int dld, const unsigned char* src, long long ld,
+                                           int rows, int cols, int rlim, int clim, int t, int nt) {
+  constexpr int EPU = U / E;
+  const int upr = cols / EPU, step = nt / upr;
+  const int r0 = t / upr, c = (t - r0 * upr) * EPU;
+  if (c >= clim) return;
+  const int rend = rows < rlim ? rows : rlim;
+  const unsigned char* s = src + r0 * ld + c * E;
+  uint32_t d = smem_u32(dst) + r0 * dld + c * E;
+  const long long sstep = step * ld;
+#pragma unroll 4
+  for (int r = r0; r < rend; r += step, s += sstep, d += step * dld) {
+    if constexpr (U >= 4)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(s), "n"(U) : "memory");
+    else
+      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(d),
+                   "h"(__ldg(reinterpret_cast<const unsigned short*>(s)))
+                   : "memory");
+  }
+}
+// stage_tile with the unit chosen at run time (`stage_unit` on the host)
+template <int E>
+__device__ __forceinline__ void stage_tile_any(int unit, unsigned char* dst, int dld, const unsigned char* src,
+                                               long long ld, int rows, int cols, int rlim, int clim, int t,
+                                               int nt) {
+  if (unit == 8)
+    stage_tile<E, 8>(dst, dld, src, ld, rows, cols, rlim, clim, t, nt);
+  else if (unit == 4 || E == 4)
+    stage_tile<E, 4>(dst, dld, src, ld, rows, cols, rlim, clim, t, nt);
+  else
+    stage_tile<E, E>(dst, dld, src, ld, rows, cols, rlim, clim, t, nt);
+}
+// a producer thread's two arrivals on a stage's `full` barrier (counted as
+// two per producer thread): one now, which releases its plain stores, and
+// one once every cp.async it issued has landed
+__device__ __forceinline__ void stage_arrive(uint64_t* bar) {
+  mbar_arrive(bar);
+  cp_async_arrive(bar);
+}
+// the widest cp.async unit (8 or 4 bytes) that every row of a row-major
+// matrix of E-byte elements, ld elements a row, at p meets; E where none does
+inline int stage_unit(const void* p, long long ld, int E) {
+  const unsigned long long a = reinterpret_cast<uintptr_t>(p) | static_cast<unsigned long long>(ld * E);
+  return a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : E;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -216,6 +361,46 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da, uin
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 32, f32) = A B^T over DP (32 or 64) head columns: A 64 rows and B
+// 32 rows of the (2 DP)-byte swizzled K-major layout at a / b; one commit
+// group left in flight (the long forms' S = Q K^T, dP = dO V^T, and their
+// transposes). d is zeroed first.
+template <int DP>
+__device__ __forceinline__ void wgmma_rows32(float (&d)[16], uint32_t a, uint32_t b) {
+  constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  constexpr uint32_t SBO = 8 * DP * 2;
+#pragma unroll
+  for (int x = 0; x < 16; ++x) d[x] = 0.f;
+  fence_acc(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_m64n32k16(d, make_desc(a + kk * 32, 16, SBO, SW), make_desc(b + kk * 32, 16, SBO, SW));
+  wgmma_commit();
+  fence_acc(d);
+}
+
+// two such products in one commit group (K4's S and dP of one chunk)
+template <int DP>
+__device__ __forceinline__ void wgmma_rows32_pair(float (&d0)[16], uint32_t a0, uint32_t b0, float (&d1)[16],
+                                                  uint32_t a1, uint32_t b1) {
+  constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  constexpr uint32_t SBO = 8 * DP * 2;
+#pragma unroll
+  for (int x = 0; x < 16; ++x) d0[x] = d1[x] = 0.f;
+  fence_acc(d0);
+  fence_acc(d1);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    wgmma_m64n32k16(d0, make_desc(a0 + kk * 32, 16, SBO, SW), make_desc(b0 + kk * 32, 16, SBO, SW));
+    wgmma_m64n32k16(d1, make_desc(a1 + kk * 32, 16, SBO, SW), make_desc(b1 + kk * 32, 16, SBO, SW));
+  }
+  wgmma_commit();
+  fence_acc(d0);
+  fence_acc(d1);
 }
 
 // D (64 x 32, f32) += A (64 x 16, bf16 pairs in registers) . B (16 x 32),

@@ -14,9 +14,11 @@
 // as `_adrop_mask` keeps bits < thresh. The word depends only on the seed, b,
 // h, i, j and N, never on the grid, block or tile, so K2's draw, K4's
 // regeneration and the plain PyTorch version (`adrop_mask_plain` in
-// ops/kernels.py) give bit-identical masks. K2 and K4's first pass share
-// each Philox call between two scores of a row (`draw_chunk` below); K4's
-// second pass reads the keep bits that its first pass drew.
+// ops/kernels.py) give bit-identical masks. The register forms of K2 and
+// K4's first pass share each Philox call between two scores of a row
+// (`draw_chunk` below); the long forms' producers draw a row's keep word of
+// a 32-key chunk (`keep_word`); K4's second pass reads the keep bits that
+// its first pass drew.
 
 #pragma once
 
@@ -75,6 +77,26 @@ __device__ __noinline__ uint32_t draw_chunk(int c0, int erow0, int erow1, bool l
     }
   }
   return keep;
+}
+
+// The keep word of row i over the keys key0 .. key0 + 31: bit j keeps
+// element (i, key0 + j), for key0 + j < N (i * N + key0 < 2^31), from the
+// Philox blocks that cover those words (8 or 9 calls).
+__device__ __forceinline__ uint32_t keep_word(int i, int key0, int N, uint32_t key, uint32_t ctr1,
+                                              uint32_t thresh) {
+  const int e0 = i * N + key0, jn = N - key0 < 32 ? N - key0 : 32;
+  uint32_t wd = 0;
+#pragma unroll 1
+  for (int b = e0 >> 2; b <= (e0 + jn - 1) >> 2; ++b) {
+    const uint4 r = philox4x32_10(make_uint4((uint32_t)b, ctr1, 0u, 0u), make_uint2(key, 0u));
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = 4 * b + k - e0;
+      if (j >= 0 && j < jn && w[k] < thresh) wd |= 1u << j;
+    }
+  }
+  return wd;
 }
 
 }  // namespace mvlt

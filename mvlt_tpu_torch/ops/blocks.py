@@ -144,10 +144,11 @@ variant; K2 and K4 take any N their tile plans admit
 the card's shared memory by
 :func:`~mvlt_tpu_torch.ops.kernels.check_attention_fits`): 64 query rows a
 block with the scores of up to nine 32-key chunks in registers up to N =
-288, and past it the long form, which streams the keys (K4's second pass:
-the queries) through a ring of 64-row chunks, up to N = 46,340 at head dims
-16-64. Rows 4, 15, 15' and 16 (``fused_attn_ln``, ``fused_attn_ln_masked``,
-``fused_attn_ln_adrop``, ``seq_attention_core_bwd``) therefore run at any S
+288, and past it the long form, 128 rows a block, which streams the keys
+(K4's second pass: the queries) through a ring of 32-row chunks, up to N =
+46,340 at head dims 16-64. Rows 4, 15, 15' and 16 (``fused_attn_ln``,
+``fused_attn_ln_masked``, ``fused_attn_ln_adrop``,
+``seq_attention_core_bwd``) therefore run at any S
 the fusion encoder gives them, as JAX's fused encoder does (it has no
 length gate); the window modes (pattern, stored p, head-major: the Swin
 rows) keep N <= 288 and refuse beyond it before a launch.

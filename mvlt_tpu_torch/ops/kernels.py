@@ -15,10 +15,12 @@ half the card runs as a deterministic split-K, as :func:`gemm_plan` cuts it
 (counted in ``gemm.splitk_launches``). K2 runs one warpgroup per 64 query
 rows of a (group, head) on ``wgmma`` (S = Q K^T and P V, the softmax in
 registers), as :func:`attention_plan` tiles it, up to N = 288; past it a
-long form streams the keys through a ring of 64-key chunks in two sweeps,
-up to N = 46,340. K4 runs the same tiles in two passes (queries, then keys;
-every product on ``wgmma``), as :func:`attention_bwd_plan` tiles it, over
-the same N, with a long form of both passes past N = 288. K3
+long form runs 128 query rows a block on two consumer warpgroups, the keys
+streamed in 32-key chunks by a producer warpgroup (TMA and cp.async into a
+four-stage ring) in two sweeps, up to N = 46,340. K4 runs the same tiles in
+two passes (queries, then keys; every product on ``wgmma``), as
+:func:`attention_bwd_plan` tiles it, over the same N, with a long form of
+both passes past N = 288 on K2's long-form block. K3
 and K5 lay a row on a group of lanes sized to C and move it in 16-byte
 words (:func:`row_plan`); K5's column sums run in an order that its plan
 alone fixes (:func:`layernorm_bwd_plan`, :func:`column_sum_plan`), through
@@ -131,7 +133,7 @@ def build() -> dict:
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-o", str(tmp), str(path)]
+                   "-Xptxas", "-v", "-o", str(tmp), str(path)]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True),
                            tmp)
@@ -141,6 +143,8 @@ def build() -> dict:
             if proc.returncode != 0:
                 failed.append(f"{SOURCES[name]}:\n{out}")
                 continue
+            # ptxas's report (registers, shared memory, spills per kernel)
+            targets[name].with_suffix(".ptxas").write_text(out)
             os.replace(tmp, targets[name])
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
@@ -154,6 +158,25 @@ def build() -> dict:
             libs[name] = lib
         _libs.update(libs)
         return _libs
+
+
+def ptxas_report(name: str, fragment: str) -> dict:
+    """ptxas's lines for each kernel of library ``name`` (a ``SOURCES``
+    key) whose mangled name holds ``fragment``: ``{kernel: [lines]}`` (its
+    registers, shared memory, stack, spills and any warning), from the
+    report the build wrote beside the library; {} where the library was
+    built without one."""
+    path = pathlib.Path(build()[name]._name).with_suffix(".ptxas")
+    report, kernel = {}, None
+    for line in path.read_text().splitlines() if path.exists() else ():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line
+            kernel = kernel if fragment in kernel else None
+            if kernel:
+                report[kernel] = []
+        elif kernel and ("ptxas" in line or "bytes" in line):
+            report[kernel].append(line.strip())
+    return report
 
 
 def _check(code: int, what: str) -> None:
@@ -508,14 +531,40 @@ H100_SMEM_OPTIN = 232448
 ATTENTION_ROWS, ATTENTION_KEYS, ATTENTION_MAX_CHUNKS = 64, 32, 9
 ATTENTION_MAX_N = ATTENTION_KEYS * ATTENTION_MAX_CHUNKS
 # past it, the long form of K2 and K4 (csrc/attention.cu,
-# csrc/attention_bwd.cu): the keys (or, in K4's second pass, the queries)
-# stream through a two-stage ring of 64-row chunks, so its shared memory and
-# registers do not grow with N; N * N element indices stay 32-bit up to
-# 46,340. It takes the sequence modes (key bias, qbias, amask, in-kernel
-# dropout) on the packed rows; the window modes (pattern, stored p,
-# head-major) keep the register form and its N <= 288.
-ATTENTION_LONG_ROWS, ATTENTION_LONG_STAGES = 64, 2
+# csrc/attention_bwd.cu): a block of three warpgroups, a producer that keeps
+# a ring of ATTENTION_LONG_STAGES stages full (TMA for the bf16 rows,
+# cp.async for the bias tiles) and two consumers of 64 rows each, so
+# ATTENTION_LONG_ROWS rows a block (queries in K2 and K4's first pass, keys
+# in its second) against the other side streamed in chunks of
+# ATTENTION_LONG_CHUNK rows; one block an SM; K4's first pass sweeps the
+# keys ATTENTION_LONG_SWEEPS times. Its shared memory and registers do not
+# grow with N; N * N element indices stay 32-bit up to 46,340. It takes the
+# sequence modes (key bias, qbias, amask, in-kernel dropout) on the packed
+# rows; the window modes (pattern, stored p, head-major) keep the register
+# form and its N <= 288.
+ATTENTION_LONG_ROWS, ATTENTION_LONG_CHUNK, ATTENTION_LONG_STAGES = 128, 32, 4
+ATTENTION_LONG_SWEEPS, ATTENTION_LONG_SM_BLOCKS = 2, 1
 ATTENTION_LONG_MAX_N = 46340
+# bias-tile bytes a ring stage holds (csrc's QB_TILE, AM_TILE, KB_TILE and
+# their pass-2 forms): K2 and K4's first pass, 128 rows of 32 qbias f32
+# (rows padded to 160 bytes) and amask bf16 (80), the key bias's 32 f32;
+# K4's second pass, 32 query rows of the block's 128 keys, qbias (528) and
+# amask (264), each query's four statistics and four keep words
+_LONG_ROW_TILES = (ATTENTION_LONG_ROWS * (160 + 80 + 4)
+                   + ATTENTION_LONG_CHUNK * 4)
+_LONG_COL_TILES = ATTENTION_LONG_CHUNK * (528 + 264 + 4 * 4 + 4 * 4)
+
+
+def _long_smem(cols: int, operands: int, tiles: int) -> int:
+    """Shared memory of a long-form block: 1024 bytes of slack for the
+    swizzle's alignment, ``operands`` bf16 operands of 128 rows, a ring
+    stage's two 32-row chunks and ``tiles`` bytes of bias tiles a stage,
+    128 bytes of mbarriers."""
+    rows = operands * ATTENTION_LONG_ROWS + ATTENTION_LONG_STAGES * 2 * \
+        ATTENTION_LONG_CHUNK
+    return 1024 + rows * cols * 2 + ATTENTION_LONG_STAGES * tiles + 128
+
+
 # the shared memory an H100 SM gives its blocks, and what it keeps per block
 H100_SMEM_SM, SMEM_BLOCK_RESERVED = 233472, 1024
 
@@ -528,24 +577,40 @@ def attention_min_blocks(chunks: int) -> int:
 
 
 class AttentionPlan(NamedTuple):
-    """How K2 runs one (N, Dh): ``tiles`` blocks of one warpgroup per
-    (group, head), each on ``ATTENTION_ROWS`` query rows against
-    ``key_chunks`` chunks of 32 keys; rows of ``head_cols`` bf16 columns in
-    shared memory (the head dim zero-padded to one swizzle row); ``smem``
-    bytes of shared memory a block, and ``mask_smem`` more when an amask is
-    given: its 64 rows are staged there where that keeps
-    :func:`attention_min_blocks` blocks on an SM (0: read from device
-    memory). With ``long_form`` (N > 288) the block streams the keys in
-    ``key_chunks`` chunks of ``ATTENTION_LONG_ROWS`` through a two-stage
-    ring, twice (the row statistics, then P V): ``smem`` holds q's 64 rows
-    and the ring's k and v chunks whatever N is, and an amask is read from
-    device memory."""
+    """How K2 runs one (N, Dh): ``tiles`` blocks per (group, head), each on
+    :attr:`rows` query rows against ``key_chunks`` chunks of 32 keys; rows
+    of ``head_cols`` bf16 columns in shared memory (the head dim
+    zero-padded to one swizzle row); ``smem`` bytes of shared memory a
+    block, and ``mask_smem`` more when an amask is given: its 64 rows are
+    staged there where that keeps :func:`attention_min_blocks` blocks on an
+    SM (0: read from device memory). With ``long_form`` (N > 288) a block of
+    a producer and two consumer warpgroups owns 128 query rows and streams
+    the keys in ``key_chunks`` chunks of ``ATTENTION_LONG_CHUNK`` through a
+    ring of :attr:`stages` stages, twice (the row statistics, then P V):
+    ``smem`` holds q's 128 rows, the ring's k and v chunks and their key
+    bias, qbias and amask tiles whatever N is (``mask_smem`` 0)."""
     tiles: int
     key_chunks: int
     head_cols: int
     smem: int
     mask_smem: int
     long_form: bool = False
+
+    @property
+    def rows(self) -> int:
+        """Query rows a block."""
+        return ATTENTION_LONG_ROWS if self.long_form else ATTENTION_ROWS
+
+    @property
+    def stages(self) -> int:
+        """Stages of the long form's ring (0: the register form has none)."""
+        return ATTENTION_LONG_STAGES if self.long_form else 0
+
+    @property
+    def sm_blocks(self) -> int:
+        """Blocks an SM holds (the register form's register cap)."""
+        return (ATTENTION_LONG_SM_BLOCKS if self.long_form
+                else attention_min_blocks(self.key_chunks))
 
 
 def _head_cols(Dh: int) -> int:
@@ -575,10 +640,9 @@ def attention_plan(N: int, Dh: int) -> AttentionPlan:
             "64 (the wgmma k16 steps over one swizzle row)")
     cols = _head_cols(Dh)
     if _long_n(N, Dh, "biased_attention"):
-        rows = ATTENTION_ROWS + ATTENTION_LONG_STAGES * 2 * ATTENTION_LONG_ROWS
-        return AttentionPlan(-(-N // ATTENTION_ROWS),
-                             -(-N // ATTENTION_LONG_ROWS), cols,
-                             rows * cols * 2 + 1024, 0, True)
+        return AttentionPlan(-(-N // ATTENTION_LONG_ROWS),
+                             -(-N // ATTENTION_LONG_CHUNK), cols,
+                             _long_smem(cols, 1, _LONG_ROW_TILES), 0, True)
     chunks = -(-N // ATTENTION_KEYS)
     smem = (ATTENTION_ROWS + 2 * chunks * ATTENTION_KEYS) * cols * 2 + 1024
     rows = ATTENTION_ROWS * N * 2 + 16
@@ -614,25 +678,26 @@ def check_attention_layout(ptrs, strides) -> None:
 
 
 class AttentionBwdPlan(NamedTuple):
-    """How K4 runs one (N, Dh) (csrc/attention_bwd.cu), in two passes of
-    one warpgroup a block: pass 1 on ``ATTENTION_ROWS`` query rows against
-    every key, pass 2 on as many keys against every query, so ``tiles``
-    blocks of each per (group, head); ``chunks`` 32-wide chunks of the other
-    side (pass 1 keeps S over all of them in registers); rows of
-    ``head_cols`` bf16 columns in shared memory; ``dq_smem`` / ``dkv_smem``
-    bytes of shared memory a block of pass 1 / pass 2, ``mask_smem`` more
-    in pass 1 when an amask is given (its 64 rows are staged there where
-    that keeps :func:`attention_bwd_min_blocks` blocks on an SM; 0: read
-    from device memory), and ``pattern_smem`` more for pass 2's sum of ds
-    over its groups in pattern mode; ``scratch_words`` f32 words of scratch
-    per (group, head): each query's row max, row sum and rowsum(p * dp),
-    then its keep bits of the regenerated dropout, one word per 32 keys.
-    With ``long_form`` (N > 288, no pattern mode) pass 1 streams the keys
-    and pass 2 the queries through a two-stage ring of
-    ``ATTENTION_LONG_ROWS``-row chunks (pass 1 sweeps them three times: the
-    row statistics, rowsum(p * dp), then ds and dq): ``dq_smem`` and
-    ``dkv_smem`` do not grow with N, ``mask_smem`` and ``pattern_smem`` are
-    0."""
+    """How K4 runs one (N, Dh) (csrc/attention_bwd.cu), in two passes: pass
+    1 on :attr:`rows` query rows a block against every key, pass 2 on as
+    many keys against every query, so ``tiles`` blocks of each per (group,
+    head); ``chunks`` 32-wide chunks of the other side (the register form's
+    pass 1 keeps S over all of them in registers); rows of ``head_cols``
+    bf16 columns in shared memory; ``dq_smem`` / ``dkv_smem`` bytes of
+    shared memory a block of pass 1 / pass 2, ``mask_smem`` more in pass 1
+    when an amask is given (its 64 rows are staged there where that keeps
+    :func:`attention_bwd_min_blocks` blocks on an SM; 0: read from device
+    memory), and ``pattern_smem`` more for pass 2's sum of ds over its
+    groups in pattern mode; ``scratch_words`` f32 words of scratch per
+    (group, head): each query's row max, row sum and rowsum(p * dp), then
+    its keep bits of the regenerated dropout, one word per 32 keys. With
+    ``long_form`` (N > 288, no pattern mode) each pass is a block of a
+    producer and two consumer warpgroups on 128 rows, the other side
+    streamed in chunks of ``ATTENTION_LONG_CHUNK`` through a ring of
+    :attr:`stages` stages with its bias tiles (pass 1 sweeps the keys
+    :attr:`sweeps` times: the row statistics with rd folded in, then ds
+    and dq): ``dq_smem`` and ``dkv_smem`` do not grow with N,
+    ``mask_smem`` and ``pattern_smem`` are 0."""
     tiles: int
     chunks: int
     head_cols: int
@@ -642,6 +707,28 @@ class AttentionBwdPlan(NamedTuple):
     pattern_smem: int
     scratch_words: int
     long_form: bool = False
+
+    @property
+    def rows(self) -> int:
+        """Rows a block of either pass (queries in pass 1, keys in pass 2)."""
+        return ATTENTION_LONG_ROWS if self.long_form else ATTENTION_ROWS
+
+    @property
+    def stages(self) -> int:
+        """Stages of the long form's ring (0: the register form has none)."""
+        return ATTENTION_LONG_STAGES if self.long_form else 0
+
+    @property
+    def sm_blocks(self) -> int:
+        """Blocks of pass 1 an SM holds (the register form's register cap)."""
+        return (ATTENTION_LONG_SM_BLOCKS if self.long_form
+                else attention_bwd_min_blocks(self.chunks))
+
+    @property
+    def sweeps(self) -> int:
+        """Pass 1's sweeps over the keys (the register form holds every
+        key's scores at once)."""
+        return ATTENTION_LONG_SWEEPS if self.long_form else 1
 
 
 def attention_bwd_min_blocks(chunks: int) -> int:
@@ -666,10 +753,9 @@ def attention_bwd_plan(N: int, Dh: int) -> AttentionBwdPlan:
     chunks = -(-N // ATTENTION_KEYS)
     cols = _head_cols(Dh)
     if long_form:
-        dq = ((2 * ATTENTION_ROWS + ATTENTION_LONG_STAGES * 2
-               * ATTENTION_LONG_ROWS) * cols * 2 + 1024)
-        return AttentionBwdPlan(-(-N // ATTENTION_ROWS), chunks, cols, dq,
-                                dq + 6 * ATTENTION_LONG_ROWS * 4, 0, 0,
+        return AttentionBwdPlan(-(-N // ATTENTION_LONG_ROWS), chunks, cols,
+                                _long_smem(cols, 2, _LONG_ROW_TILES),
+                                _long_smem(cols, 2, _LONG_COL_TILES), 0, 0,
                                 3 * N + N * chunks, True)
     rows = chunks * ATTENTION_KEYS
     dq = (2 * ATTENTION_ROWS + 2 * rows) * cols * 2 + 1024
@@ -692,7 +778,7 @@ def attention_bwd_smem_bytes(N: int, Dh: int, pattern: bool = False,
     except ValueError:
         return -1
     if plan.long_form:
-        return -1 if pattern else plan.dkv_smem
+        return -1 if pattern else max(plan.dq_smem, plan.dkv_smem)
     return max(plan.dq_smem + (plan.mask_smem if amask else 0),
                plan.dkv_smem + (plan.pattern_smem if pattern else 0))
 

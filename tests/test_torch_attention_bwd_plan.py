@@ -90,13 +90,14 @@ def test_attention_bwd_plan_refuses(N, Dh):
     """N = 0 and head dims other than 16, 32, 48 and 64 are refused before
     any launch, with a message naming N and the head dim. N above 288 (past
     nine 32-key chunks of scores in pass 1's registers) takes the long
-    form, whose shared memory is the same at every N (51,712 bytes at head
-    dim 64, 27,136 at 16 / 32), in the sequence modes only: its pattern
-    mode and its stored-p mode are refused, naming the mode."""
+    form, whose shared memory is the same at every N (its first pass's,
+    the larger: 192,128 bytes at head dim 64, 159,360 at 16 / 32), in the
+    sequence modes only: its pattern mode and its stored-p mode are
+    refused, naming the mode."""
     if N > kernels.ATTENTION_MAX_N and Dh in (16, 32, 48, 64):
         plan = kernels.attention_bwd_plan(N, Dh)
         assert plan.long_form and plan.pattern_smem == plan.mask_smem == 0
-        smem = 51712 if Dh > 32 else 27136
+        smem = 192128 if Dh > 32 else 159360
         assert kernels.attention_bwd_smem_bytes(N, Dh) == smem
         assert kernels.attention_bwd_smem_bytes(N, Dh, amask=True) == smem
         assert kernels.attention_bwd_smem_bytes(N, Dh, pattern=True) == -1

@@ -72,19 +72,20 @@ def test_attention_plan_refuses_head_dims(Dh):
 @pytest.mark.parametrize("N", [289, 300, 512, 0])
 def test_attention_plan_refuses_n_beyond_the_cap(N):
     """N above 288 needs more than nine 32-key chunks of scores in
-    registers: K2 takes it in its long form (the keys streamed through a
-    ring of 64-key chunks, shared memory the same at every N: 41,984 bytes
-    at head dim 64, 21,504 at 32), whose cap is N = 46,340 (32-bit i * N +
-    j); it refuses N = 0 and N past that cap at every head dim."""
+    registers: K2 takes it in its long form (128 query rows a block, the
+    keys and their bias tiles streamed through a ring of 32-key chunks,
+    shared memory the same at every N: 175,744 bytes at head dim 64,
+    151,168 at 32), whose cap is N = 46,340 (32-bit i * N + j); it refuses
+    N = 0 and N past that cap at every head dim."""
     cap = kernels.ATTENTION_LONG_MAX_N
-    for Dh, smem in ((32, 21504), (64, 41984)):
+    for Dh, smem in ((32, 151168), (64, 175744)):
         if N == 0:
             with pytest.raises(ValueError, match=f"N={N}, head dim {Dh}"):
                 kernels.attention_plan(N, Dh)
             assert kernels.attention_smem_bytes(N, Dh) == -1
         else:
             plan = kernels.attention_plan(N, Dh)
-            assert plan.long_form and plan.tiles == -(-N // 64)
+            assert plan.long_form and plan.tiles == -(-N // 128)
             assert kernels.attention_smem_bytes(N, Dh) == smem
             assert kernels.attention_smem_bytes(N, Dh, amask=True) == smem
         with pytest.raises(ValueError, match=f"N={cap + 1}, head dim {Dh} "

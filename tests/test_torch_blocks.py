@@ -407,8 +407,9 @@ def test_attention_shared_memory_fits_every_admitted_n():
     N = 131, where the scalar K4's N x N f32 tiles took 207,504 and stopped
     at N = 140), and its pattern mode's sum of ds over a block's groups adds
     64 rows of N f32 (171,776 bytes at N = 288). Past 288 the long form's
-    shared memory is the same at every N (K2 41,984 bytes, K4 51,712), up
-    to its cap of 46,340; the window modes (K4's pattern mode, K2's pattern,
+    shared memory is the same at every N (K2 175,744 bytes, K4 192,128:
+    128 rows a block, a four-stage ring with its bias tiles), up to its cap
+    of 46,340; the window modes (K4's pattern mode, K2's pattern,
     stored-p and head-major modes) stop at 288. On a card with less shared
     memory the window modes' bound is again where the next N stops
     fitting."""
@@ -431,9 +432,9 @@ def test_attention_shared_memory_fits_every_admitted_n():
     # the long form: the same bytes at every N past 288, no pattern mode
     for n in (289, 348, 474, 4096, top):
         for amask in (False, True):
-            assert kernels.attention_smem_bytes(n, Dh, amask) == 41984, n
+            assert kernels.attention_smem_bytes(n, Dh, amask) == 175744, n
             assert kernels.attention_bwd_smem_bytes(n, Dh,
-                                                    amask=amask) == 51712
+                                                    amask=amask) == 192128
         assert bwd_pattern(n, Dh) == -1
     assert kernels.attention_smem_bytes(top + 1, Dh) == -1
     assert kernels.attention_bwd_smem_bytes(top + 1, Dh) == -1

@@ -80,32 +80,71 @@ def _key_bias(B, N):
                                kernels.ATTENTION_LONG_MAX_N])
 @pytest.mark.parametrize("Dh", [16, 32, 48, 64])
 def test_long_form_plans_do_not_grow_with_n(N, Dh):
-    """Past N = 288 K2 streams the keys through a two-stage ring of 64-key
-    chunks, K4's passes the keys and the queries: a block's shared memory
-    is q's 64 rows and the ring (K2), or q's and dctx's 64 rows and the
-    ring (K4 pass 1) plus the chunk's statistics (pass 2), the same at
-    every N; the scratch keeps three statistics and a keep word per 32 keys
-    for each query, as the register form's."""
+    """Past N = 288 K2 and K4's passes run a block of a producer and two
+    consumer warpgroups on 128 rows, the other side streamed through a
+    four-stage ring of 32-row chunks: a block's shared memory is 1024 bytes
+    of alignment slack, its 128-row operands (q for K2; q and dctx, or k
+    and v, for K4), the ring's two chunks a stage and their bias tiles (K2
+    and pass 1: 128 rows of 32 qbias f32 at 160 bytes, amask bf16 at 80,
+    a keep word each, 32 key-bias f32; pass 2: 32 query rows of 128 keys,
+    qbias at 528 and amask at 264 bytes, four statistics and four keep
+    words a query) and 128 bytes of mbarriers, the same at every N; the
+    scratch keeps three statistics and a keep word per 32 keys for each
+    query, as the register form's."""
     cols = 32 if Dh <= 32 else 64
+    ring = 4 * 2 * 32 * cols * 2
+    row_tiles = 4 * (128 * (160 + 80 + 4) + 32 * 4)
     fwd = kernels.attention_plan(N, Dh)
     assert fwd == kernels.AttentionPlan(
-        tiles=-(-N // 64), key_chunks=-(-N // 64), head_cols=cols,
-        smem=(64 + 4 * 64) * cols * 2 + 1024, mask_smem=0, long_form=True)
+        tiles=-(-N // 128), key_chunks=-(-N // 32), head_cols=cols,
+        smem=1024 + 128 * cols * 2 + ring + row_tiles + 128, mask_smem=0,
+        long_form=True)
     bwd = kernels.attention_bwd_plan(N, Dh)
-    dq = (128 + 4 * 64) * cols * 2 + 1024
+    dq = 1024 + 2 * 128 * cols * 2 + ring + row_tiles + 128
+    dkv = 1024 + 2 * 128 * cols * 2 + ring + 4 * 32 * (528 + 264 + 16 + 16) \
+        + 128
     assert bwd == kernels.AttentionBwdPlan(
-        tiles=-(-N // 64), chunks=-(-N // 32), head_cols=cols, dq_smem=dq,
-        dkv_smem=dq + 1536, mask_smem=0, pattern_smem=0,
+        tiles=-(-N // 128), chunks=-(-N // 32), head_cols=cols, dq_smem=dq,
+        dkv_smem=dkv, mask_smem=0, pattern_smem=0,
         scratch_words=3 * N + N * -(-N // 32), long_form=True)
     for amask in (False, True):
         assert kernels.attention_smem_bytes(N, Dh, amask) == fwd.smem
         assert kernels.attention_bwd_smem_bytes(N, Dh, amask=amask) == \
-            dq + 1536
+            max(dq, dkv)
         kernels.check_attention_fits(N, Dh, kernels.H100_SMEM_OPTIN,
                                      amask=amask)
         kernels.check_attention_fits(N, Dh, kernels.H100_SMEM_OPTIN,
                                      backward=True, amask=amask)
     assert kernels.attention_bwd_smem_bytes(N, Dh, pattern=True) == -1
+
+
+@pytest.mark.parametrize("N", [289, 298, 348, 474, 1000])
+@pytest.mark.parametrize("Dh", [32, 64])
+def test_long_form_plans_are_the_hopper_design(N, Dh):
+    """The plans mirror the long form's design: 128 rows a block (two
+    consumer warpgroups of 64), a ring of at least three stages, one block
+    an SM, K4's first pass in two sweeps over the keys; shared memory the
+    same at every N and within the opt-in of an H100 block (K2: 173,696
+    bytes at head dim 64, 149,120 at 32; K4's first pass 190,080 / 157,312,
+    its second 171,648 / 138,880); the window modes still refuse N = 289."""
+    fwd, bwd = kernels.attention_plan(N, Dh), kernels.attention_bwd_plan(N, Dh)
+    first_f, first_b = (kernels.attention_plan(289, Dh),
+                        kernels.attention_bwd_plan(289, Dh))
+    want = {64: (175744, 192128, 172160), 32: (151168, 159360, 139392)}[Dh]
+    assert (fwd.smem, bwd.dq_smem, bwd.dkv_smem) == want
+    assert (fwd.smem, bwd.dq_smem, bwd.dkv_smem) == \
+        (first_f.smem, first_b.dq_smem, first_b.dkv_smem)
+    assert max(want) <= kernels.H100_SMEM_OPTIN
+    for plan in (fwd, bwd):
+        assert plan.long_form and plan.rows == 128 and plan.stages >= 3
+        assert plan.sm_blocks == 1 and plan.tiles == -(-N // 128)
+    assert bwd.sweeps == 2 and kernels.attention_bwd_plan(288, Dh).sweeps == 1
+    for kw in (dict(window="pattern"), dict(window="stored p"),
+               dict(window="head-major"), dict(backward=True, pattern=True),
+               dict(backward=True, window="stored p")):
+        with pytest.raises(ValueError, match="N=289"):
+            kernels.check_attention_fits(289, Dh, kernels.H100_SMEM_OPTIN,
+                                         **kw)
 
 
 @pytest.mark.parametrize("backward,window", [
@@ -171,6 +210,79 @@ def test_seq_attention_core_bwd_past_288(S, qb, am):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4,
                                    rtol=1e-4)
+
+
+def _fold_rd(s, dpm, chunk):
+    """Sweep 1 of K4's long-form pass 1 (``attention_bwd_dq_long_kernel``)
+    in numpy f32, in the kernel's order: per row, the four lanes of a quad
+    each hold l and r over their columns (8 b + 2 q + e of each chunk, b
+    then e), the chunk's max taken over the quad, both rescaled by exp(old
+    max - new max) when it grows, then l += e and r += e * dp * mask
+    column by column; at the row's end the quad sums (lane 1's into lane
+    0's, then lane 2's pair into it) and rd = r / l, correctly rounded."""
+    f32 = np.float32
+    R, N = s.shape
+    nc = -(-N // chunk)
+    s = np.pad(s, ((0, 0), (0, nc * chunk - N)),
+               constant_values=-np.inf).astype(f32)
+    dpm = np.pad(dpm, ((0, 0), (0, nc * chunk - N))).astype(f32)
+    mx = np.full(R, -np.inf, f32)
+    l, r = np.zeros((R, 4), f32), np.zeros((R, 4), f32)
+    lanes = 2 * np.arange(4)
+    for c in range(nc):
+        keys = slice(c * chunk, (c + 1) * chunk)
+        blk, dblk = s[:, keys], dpm[:, keys]
+        nm = np.maximum(mx, blk.max(axis=1))
+        grow = nm > mx
+        f = np.exp(mx[grow] - nm[grow]).astype(f32)
+        l[grow] *= f[:, None]
+        r[grow] *= f[:, None]
+        mx = nm
+        for b in range(chunk // 8):
+            for e in range(2):
+                cols = 8 * b + lanes + e
+                ex = np.exp(blk[:, cols] - mx[:, None]).astype(f32)
+                l += ex
+                r += ex * dblk[:, cols]
+    lq = (l[:, 0] + l[:, 1]) + (l[:, 2] + l[:, 3])
+    rq = (r[:, 0] + r[:, 1]) + (r[:, 2] + r[:, 3])
+    return rq / lq
+
+
+@pytest.mark.parametrize("S", [298, 348, 474])
+def test_long_form_rd_fold_matches_jax_order(S):
+    """K4's long form folds rd = rowsum(p * dp * mask) into its first sweep
+    (r = sum of e * dp * mask against the running max, rd = r / l at the
+    row's end) where JAX sums the normalised p * dp (``_seq_core_bwd_
+    kernel``, pallas_attn.py:2498-2501, f32). That moves only the order of
+    f32 sums: p, pa and ds are still rounded to bf16 where they were. On
+    the same f32 scores and dp (the seq2seq qbias, a 0 or 1/0.9 dropout
+    mask, bf16 q, k, v, dctx, head dim 64), the numpy model of the fold
+    over the plan's 32-key chunks agrees with JAX's rd within 1e-5 x
+    max|rd| (the f32 rounding of two sums of S terms)."""
+    chunk = kernels.ATTENTION_LONG_CHUNK
+    assert kernels.attention_bwd_plan(S, 64).sweeps == 2
+    rng = np.random.default_rng(S)
+    bf = lambda a: torch.from_numpy(a).bfloat16().float().numpy()  # noqa: E731
+    q, k, v, do = (bf(_np(rng, S, 64, std=0.5)) for _ in range(4))
+    qbias, amask, _ = _masks_np(rng, 1, 1, S, 64)
+    amask = bf(amask[0, 0])
+    s = ((q @ k.T).astype(np.float32) * np.float32(64 ** -0.5) +
+         qbias[0]).astype(np.float32)
+    dpm = ((do @ v.T).astype(np.float32) * amask).astype(np.float32)
+    ones = jnp.ones((S, 1), jnp.float32)
+    e = jnp.exp(jnp.asarray(s) - jnp.max(jnp.asarray(s), axis=-1,
+                                         keepdims=True))
+    denom = jax.lax.dot_general(e, ones, (((1,), (0,)), ((), ())),
+                                preferred_element_type=jnp.float32)
+    pdp = e / denom * jnp.asarray(dpm)
+    want = np.asarray(jax.lax.dot_general(
+        pdp, ones, (((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32))[:, 0]
+    got = _fold_rd(s, dpm, chunk)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 def _attn_ln_args(rng, B, S, C):
