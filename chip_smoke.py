@@ -197,8 +197,11 @@ which raises on failure:
     first epoch on the plain versions replaying the masks, the Swin
     features, the prefill's and the first decode step's logits against
     the plain route, two evals decoding the same ids, the checkpoint
-    restored into a fresh runner; then eval reports/s, a generate call,
-    and one epoch of 1,536 studies (48 steps) through ``train_caption``
+    restored into a fresh runner; the driver again with ``--do_test
+    --quant int8w`` on that checkpoint (weight-only int8 serving): its
+    launch counts (two eval batches) and its scores equal to
+    ``eval_caption(quant="int8w")`` on the trained runner; then eval
+    reports/s, a generate call, and one epoch of 1,536 studies (48 steps) through ``train_caption``
     beside the bare step for uint8 with the export (loader processes) and
     f32 ImageNet crops without (processes, threads), and the peak memory
     (the epochs of 1,536 studies only with ``--loader-pace``; without it
@@ -257,7 +260,29 @@ which raises on failure:
     --conv vit`` on the synthetic IU X-Ray tree, in a process of its own
     under a time limit. ``python3 chip_smoke.py --long-n`` runs phases 1-2
     and this phase only;
-19. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+19. int8w and remat: report generation on weight-only int8 through the
+    port's entry (``caption_generate_int8w``: ``tasks.caption.
+    decode_reports(..., quant="int8w")`` on a ``TaskRunner``, Swin-S @224
+    + BERT-base, 32 studies, beam 5, length 150, f32 masters and bf16
+    compute) from a seeded checkpoint in the reference's layout
+    (``MVLBertForImageCaption`` names), read by the port's
+    ``caption_state_dict_from_torch`` and loaded with ``strict=True``: the
+    launch counts of one int8w decode, two int8w decodes bitwise equal, the
+    count the decode logs equal to JAX's predicate's on the converted
+    JAX-layout tree, ``eval_caption(quant="int8w")``'s scores finite; on
+    the runner's int8 tree, the features, the prefill's and the first
+    decode step's logits, kernels against plain; the int8w first step
+    against bf16's (relative error, cosine); the quantized bytes, the int8
+    tree's resident memory, each route's peak memory in a decode and
+    tokens/s of the int8w and bf16 decodes in turns; then the Swin-S step
+    of record with ``remat_backbone`` and ``remat_fusion``
+    (``swin_pretrain_remat_train_step``) against the step without, from
+    one seed and on the same masks: gradients in both mask modes, the
+    forward rows launched twice a step and the backward rows as often, 3
+    losses, the peak memory and ms/step in turns, and one step with both
+    switches (``MVLT_KERNEL_DROPOUT=1 MVLT_STOREP=1``) held the same way.
+    The default run only;
+20. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
 """
 
@@ -268,6 +293,7 @@ import dataclasses
 import functools
 import gc
 import json
+import logging
 import os
 import pathlib
 import subprocess
@@ -496,6 +522,23 @@ EXPECTED_CAPTION_GENERATE = {
 }
 # the caption step runs the Swin-S pretrain step's kernels in seq2seq mode
 EXPECTED_CAPTION_STEP = EXPECTED_SWIN_PRETRAIN
+# the counterparts of the Swin-S step that run in the forward of a Swin
+# block or a fusion layer: with remat_backbone and remat_fusion each runs
+# twice a step (the forward, and the recompute before the backward); the
+# backward ones as often as without remat
+REMAT_FORWARD_ROWS = (
+    "swin_full_block_train", "swin_full_block_train_shift", "swin_half_block",
+    "attention_core", "fused_attn_ln_masked", "fused_mlp_ln_masked",
+    "fused_attn_ln_adrop", "swin_full_block_train_store_p",
+    "swin_full_block_train_shift_store_p", "biased_attention_adrop",
+    "biased_attention_save_p")
+REMAT_BACKWARD_ROWS = (
+    "attention_core_bwd", "swin_mlp_half_bwd", "swin_qkv_tail_bwd",
+    "seq_attention_core_bwd", "mlp_ln_half_bwd",
+    "seq_attention_core_bwd_adrop", "attention_core_bwd_store_p",
+    "biased_attention_bwd_adrop", "biased_attention_bwd_stored_p")
+# int8w report generation: the timed calls per route, in turns
+INT8W_TIMED_CALLS = 3
 # image-text retrieval at run_retrieval.py's settings: a test grid of
 # RETRIEVAL_N samples scored in chunks of 64 (:133), caption length 80 (S =
 # 1 + 49 + 1 + 80 = 131); a train batch of 32 pairs, cat(pos, neg) = 64
@@ -3974,6 +4017,19 @@ def swin_routes_main() -> int:
     return 0
 
 
+def int8w_remat_phases(dev, card: str) -> dict:
+    """Phase 19's two paths, each printing its seconds. Returns their launch
+    counts by path."""
+    phases = {"caption_generate_int8w": caption_generate_int8w_phase,
+              "swin_pretrain_remat_train_step": swin_pretrain_remat_phase}
+    out = {}
+    for path, phase in phases.items():
+        t0 = time.perf_counter()
+        out[path] = phase(dev, card)
+        print(f"{path} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def swin_route_phases(dev, card: str) -> dict:
     """The five phases of JAX's plain Swin route, each printing its
     seconds. Returns their launch counts by path."""
@@ -4046,6 +4102,7 @@ def main() -> int:
         by_path["swin_pretrain_pallas_train_step"] = pretrain_phase(
             dev, card, timed_steps=4, swin=True, attn_impl="pallas")
         by_path["caption_generate"] = caption_generate_phase(dev, card)
+        by_path.update(int8w_remat_phases(dev, card))
         by_path["caption_step"] = caption_step_phase(dev, card)
         by_path["retrieval_grid"] = retrieval_grid_phase(dev, card)
         by_path["retrieval_step"] = retrieval_step_phase(dev, card)
@@ -5110,6 +5167,416 @@ def retrieval_step_phase(dev, card: str, timed_steps: int = 4) -> dict:
 # the VQA task driver (python -m mvlt_tpu_torch.run_vqa)
 # ---------------------------------------------------------------------------
 
+def reference_caption_state_dict(cfg, seed: int = 0) -> dict:
+    """A seeded checkpoint of the reference's ``MVLBertForImageCaption`` on
+    a Swin backbone, in its names and layouts (numpy): the MSFT Swin under
+    ``conv.conv.0.`` (fused ``qkv``, and the ``relative_position_index``
+    buffers a real file carries), ``conv.resnet_fc`` where the widths
+    differ, ``MVLBert.*`` (the embeddings, HF ``BertEncoder`` names, the
+    pooler) and ``MLM_head_seq2seq.predictions.*``. Weights normal(0,
+    0.02) in float32, LayerNorms 1 / 0."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def w(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    def ln(prefix, dim):
+        sd[prefix + ".weight"] = np.ones(dim, np.float32)
+        sd[prefix + ".bias"] = np.zeros(dim, np.float32)
+
+    def dense(prefix, d_out, d_in, bias=True):
+        sd[prefix + ".weight"] = w(d_out, d_in)
+        if bias:
+            sd[prefix + ".bias"] = w(d_out)
+
+    sw, f, p = cfg.swin, cfg.fusion, "conv.conv.0."
+    sd[p + "patch_embed.proj.weight"] = w(sw.embed_dim, sw.in_chans,
+                                          sw.patch_size, sw.patch_size)
+    sd[p + "patch_embed.proj.bias"] = w(sw.embed_dim)
+    ln(p + "patch_embed.norm", sw.embed_dim)
+    for i, depth in enumerate(sw.depths):
+        C, nH = sw.embed_dim * 2 ** i, sw.num_heads[i]
+        win = min(sw.window_size, sw.patches_resolution[0] // 2 ** i)
+        hidden = int(C * sw.mlp_ratio)
+        for j in range(depth):
+            b = f"{p}layers.{i}.blocks.{j}."
+            ln(b + "norm1", C)
+            ln(b + "norm2", C)
+            dense(b + "attn.qkv", 3 * C, C)
+            dense(b + "attn.proj", C, C)
+            sd[b + "attn.relative_position_bias_table"] = w(
+                (2 * win - 1) ** 2, nH)
+            sd[b + "attn.relative_position_index"] = np.zeros(
+                (win * win, win * win), np.int64)
+            dense(b + "mlp.fc1", hidden, C)
+            dense(b + "mlp.fc2", C, hidden)
+        if i < len(sw.depths) - 1:
+            ln(f"{p}layers.{i}.downsample.norm", 4 * C)
+            dense(f"{p}layers.{i}.downsample.reduction", 2 * C, 4 * C,
+                  bias=False)
+    ln(p + "norm", sw.num_features)
+    H, m = f.hidden_size, "MVLBert."
+    if sw.num_features != H:
+        dense("conv.resnet_fc", H, sw.num_features)
+    sd[m + "word_embeddings.weight"] = w(f.embedding_rows, H)
+    sd[m + "position_embeddings.weight"] = w(f.max_position_embeddings, H)
+    sd[m + "token_type_embeddings.weight"] = w(f.type_vocab_size, H)
+    for i in range(f.num_hidden_layers):
+        e = f"{m}encoder.layer.{i}."
+        for n in ("query", "key", "value"):
+            dense(e + "attention.self." + n, H, H)
+        dense(e + "attention.output.dense", H, H)
+        ln(e + "attention.output.LayerNorm", H)
+        dense(e + "intermediate.dense", f.intermediate_size, H)
+        dense(e + "output.dense", H, f.intermediate_size)
+        ln(e + "output.LayerNorm", H)
+    dense(m + "pooler.dense", H, H)
+    h = "MLM_head_seq2seq.predictions."
+    dense(h + "transform.dense", H, H)
+    ln(h + "transform.LayerNorm", H)
+    sd[h + "decoder.weight"] = w(f.vocab_size, H)
+    sd[h + "bias"] = w(f.vocab_size)
+    return sd
+
+
+def _leaves_passing(tree) -> int:
+    """How many leaves of a flax-layout tree JAX's ``default_predicate``
+    takes (``ops.quant.default_predicate`` on each leaf's shape)."""
+    import numpy as np
+    from mvlt_tpu_torch.ops.quant import default_predicate
+    return sum(_leaves_passing(v) if isinstance(v, dict)
+               else int(default_predicate(np.shape(v)))
+               for v in tree.values())
+
+
+class _Studies:
+    """A caption test split as ``decode_reports`` reads it: ``images`` (n,
+    3, H, W) f32, each with a placeholder report."""
+
+    def __init__(self, images):
+        self.images = images
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i, epoch=0):
+        return {"image": self.images[i], "raw_caption": f"study {i}"}
+
+
+class _LogLines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def caption_generate_int8w_phase(dev, card: str) -> dict:
+    """Report generation on weight-only int8 through the port's entry,
+    ``tasks.caption.decode_reports(..., quant="int8w")`` (Swin-S +
+    BERT-base, b32, beam 5, length 150, unilm; f32 masters, bf16 compute,
+    as ``run_report_generation`` serves): a seeded checkpoint in the
+    reference's layout through ``caption_state_dict_from_torch``, loaded
+    strictly into a ``TaskRunner``'s model. Held: the launches of one
+    int8w decode of ``TRAIN_BATCH`` studies (one generate call), two int8w
+    decodes bitwise equal, the count it logs against the predicate's count
+    on the converted JAX-layout tree, ``eval_caption(quant="int8w")``'s
+    scores finite; on the runner's int8 tree (``ops.quant.quantize_tree``,
+    as the decode quantizes), kernels against plain: the features, the
+    prefill's logits, the first decode step's. Recorded: the int8w first
+    step against bf16's (max abs err over max|bf16|, cosine), the quantized
+    bytes, the int8 tree's resident memory, each route's peak memory in a
+    decode, tokens/s of the decode in turns (the median of
+    ``INT8W_TIMED_CALLS`` after a warm-up). Returns the launch counts of
+    one int8w decode."""
+    import numpy as np
+    from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.config import TrainConfig
+    from mvlt_tpu_torch.models import generation as G
+    from mvlt_tpu_torch.models.heads import CaptionModel
+    from mvlt_tpu_torch.ops import kernels, quant
+    from mvlt_tpu_torch.ops.blocks import KERNEL_OPS, PLAIN_OPS
+    from mvlt_tpu_torch.tasks.caption import decode_reports, eval_caption
+    from mvlt_tpu_torch.tasks.common import TaskRunner
+    from mvlt_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from mvlt_tpu_torch.utils import convert
+    B, L, K = TRAIN_BATCH, CAPTION_TEXT, CAPTION_BEAMS
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(flagship.flagship_caption_config(),
+                              max_length=L)
+    sd = reference_caption_state_dict(cfg)
+    kw = dict(num_layers=cfg.fusion.num_hidden_layers, conv=cfg.conv,
+              depths=cfg.swin.depths)
+    want_count = _leaves_passing(convert.caption_from_torch(sd, **kw)
+                                 ["params"])
+    # threads for the loader: the decode's time, not a worker pool's start
+    runner = TaskRunner(CaptionModel, cfg, TrainConfig(num_workers=0),
+                        name="caption-int8w", device=dev)
+    runner.init_state()
+    model = runner.model
+    model.load_state_dict(convert.caption_state_dict_from_torch(sd, **kw))
+    del sd
+    log = _LogLines()
+    runner.logger.addHandler(log)
+    tok = WordPieceTokenizer()
+    studies = _Studies(flagship._example_images(
+        np.random.default_rng(0), B, 1, cfg.swin.img_size
+    ).astype(np.float32))
+    print(f"int8w caption runner: a reference-layout checkpoint converted "
+          f"and loaded strictly in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def decode(q):
+        return decode_reports(runner, studies, tok, batch_size=B,
+                              num_beams=K, quant=q)
+
+    reset_counts()
+    ids = decode("int8w")[2]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(f"launches in one int8w decode_reports of {B} studies: "
+          f"{json.dumps(counts)}", flush=True)
+    _expect_counts(counts, EXPECTED_CAPTION_GENERATE, "one int8w decode",
+                   [k.__name__ for k in kernels.FORWARD_KERNELS])
+    logged = [m for m in log.lines if m.startswith("int8w serving")]
+    if logged != [f"int8w serving: {want_count} tensors quantized"]:
+        raise AssertionError(f"int8w decode logged {logged}; JAX's predicate "
+                             f"selects {want_count} tensors")
+    seqs = torch.tensor(ids[0])
+    if not (seqs.shape == (B, L) and ((seqs >= 0) & (seqs < cfg.fusion
+                                                     .vocab_size)).all()):
+        raise AssertionError(f"int8w decode returned {seqs.shape} ids out of "
+                             "range")
+    if decode("int8w")[2] != ids:
+        raise AssertionError("two int8w decodes differ")
+    same = sum(a == b for a, b in zip(decode("")[2][0], ids[0]))
+    scores = eval_caption(runner, studies, tok, batch_size=B, num_beams=K,
+                          quant="int8w")
+    if not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"eval_caption(quant='int8w'): {scores}")
+    print(f"int8w decode_reports: {logged[0]} (the predicate on the "
+          f"converted tree: {want_count}); two decodes bitwise equal; beam "
+          f"sequences equal to bf16's in {same} of {B} rows; "
+          f"eval_caption(quant='int8w') scores {json.dumps(scores)}",
+          flush=True)
+
+    # the int8 tree the decode serves: its bytes and resident memory, and
+    # its kernels against plain
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    qtree, n_q = quant.quantize_tree(dict(model.named_parameters()), cfg)
+    torch.cuda.synchronize()
+    resident_q = torch.cuda.memory_allocated() - before
+    qb, ob = quant.quantized_bytes(qtree)
+    print(f"int8w caption model: {n_q} tensors quantized in JAX's terms "
+          f"({len(qtree)} port tensors); quantized bytes {qb} (int8 + f32 "
+          f"scales) vs {ob} in bf16 ({qb / ob:.4f}); the int8 tree resident "
+          f"on {card}: {resident_q} bytes", flush=True)
+    image = torch.from_numpy(studies.images).to(dev)
+    spec = G.GenerationSpec.from_config(cfg, num_beams=K)
+    greedy = dataclasses.replace(spec, num_beams=1)
+
+    def first_step(feat, ops, tok=None):
+        """(prefill logits, first decode step's logits, its token)."""
+        logits, kv, P = G._prefill(model, feat, greedy, ops)
+        cache = G._make_cache(model, kv, P, B, greedy)
+        tok = logits.float().argmax(-1) if tok is None else tok
+        return logits, G._decode_logits(model, cache, tok, P, greedy,
+                                        ops), tok
+
+    with torch.no_grad():
+        with quant.dequantized(model, qtree):
+            feat = model.encode_image(image)
+            _check_close("int8w caption Swin-S features, kernels vs plain",
+                         feat, model.encode_image(image, plain=True))
+            pre_p, step_p, first = first_step(feat, PLAIN_OPS)
+            pre_k, step_k, _ = first_step(feat, KERNEL_OPS, first)
+            _check_close("int8w caption prefill logits, kernels vs plain",
+                         pre_k, pre_p)
+            _check_close("int8w first decode step logits, kernels vs plain",
+                         step_k, step_p)
+        _, step_b, _ = first_step(model.encode_image(image), KERNEL_OPS,
+                                  first)
+    a, b = step_k.float(), step_b.float()
+    err, scale = _max_err(a, b)
+    cos = F.cosine_similarity(a.flatten(), b.flatten(), dim=0).item()
+    print(f"int8w vs bf16 first decode step logits on the kernels: max abs "
+          f"err {err:.4g} / max|bf16| {scale:.4g} = {err / scale:.4g}; "
+          f"cosine {cos:.6f}; argmax equal in "
+          f"{int((a.argmax(-1) == b.argmax(-1)).sum())} of {B} rows",
+          flush=True)
+    del feat, pre_p, pre_k, step_p, step_k, step_b, a, b, qtree, image
+
+    times, peak, resident = {"bf16": [], "int8w": []}, {}, {}
+    for r in range(INT8W_TIMED_CALLS):
+        for which in (("bf16", "int8w") if r % 2 == 0 else ("int8w", "bf16")):
+            torch.cuda.synchronize()
+            if which not in peak:
+                resident[which] = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            decode("" if which == "bf16" else "int8w")
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t1)
+            if which not in peak:
+                peak[which] = torch.cuda.max_memory_allocated()
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    print(f"caption decode_reports of {B} studies, beam {K}, length {L} on "
+          f"{card}, kernels: " + ", ".join(
+              f"{k} {B * L / v:.1f} tokens/s ({v * 1e3:.1f} ms a decode), "
+              f"peak memory {peak[k] / 2 ** 30:.3f} GiB (with "
+              f"{resident[k] / 2 ** 30:.3f} GiB resident: the f32 masters)"
+              for k, v in med.items())
+          + f"; runs (s) in turns {json.dumps(times)}", flush=True)
+    runner.logger.removeHandler(log)
+    del runner, model
+    return counts
+
+
+def swin_pretrain_remat_phase(dev, card: str, timed_steps: int = 4) -> dict:
+    """The Swin-S step of record with ``remat_backbone`` and ``remat_fusion``
+    against the step without, built from one seed, the remat run replaying
+    the masks the other drew: from the initial parameters, the losses and
+    every gradient in both mask modes (bitwise or within ``GRAD_BAR`` /
+    ``SWIN_GRAD_BAR``; the tensors that differ are named), the forward rows
+    launched twice (``REMAT_FORWARD_ROWS``) and the backward rows as often
+    (``REMAT_BACKWARD_ROWS``); the same with ``MVLT_KERNEL_DROPOUT=1
+    MVLT_STOREP=1`` (a recompute that drew a new seed would fail it); the
+    losses of 3 steps; then ms/step and peak memory in turns (without,
+    with, with, without). Returns the launch counts of one remat step."""
+    from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    from mvlt_tpu_torch.train.steps import seq2seq_coin_flip
+    B = TRAIN_BATCH
+    label = "Swin-S pretrain step with remat_backbone and remat_fusion"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    step_r, batch = flagship.build_swin_pretrain_train_step(
+        batch=B, text_len=PRETRAIN_TEXT, device=dev,
+        config=flagship.flagship_swin_remat_pretrain_config())
+    step_n, _ = flagship.build_swin_pretrain_train_step(
+        batch=B, text_len=PRETRAIN_TEXT, device=dev)
+    model_r, model_n = step_r.model, step_n.model
+    if not (model_r.conv.backbone.remat and model_r.fusion.remat):
+        raise AssertionError("the remat flags did not reach the model")
+    print(f"{label} and the step of record built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    keys = ("image", "caption_masked", "caption_label", "itm_label")
+
+    def loss_close(a, b, what):
+        if a == b:
+            return "bitwise equal"
+        if not (abs(a - b) <= LOSS_BAR * abs(b) and a == a):
+            raise AssertionError(f"{what}: {a} with remat vs {b} without, "
+                                 f"beyond {LOSS_BAR} relative")
+        return (f"within {LOSS_BAR} relative, not bitwise: the step's "
+                "gradients differ where named above")
+
+    def held(seq2seq: bool, what: str) -> None:
+        masks = DropoutMasks(gen, record=True)
+        counts, losses = {}, {}
+        for which, model in (("without", model_n), ("with", model_r)):
+            model.zero_grad(set_to_none=True)
+            src = (masks if which == "without"
+                   else DropoutMasks.replay(masks.recorded))
+            reset_counts()
+            loss, _ = model.loss(*(batch[k] for k in keys), seq2seq=seq2seq,
+                                 masks=src)
+            loss.backward()
+            torch.cuda.synchronize()
+            counts[which], losses[which] = launch_counts(), loss.item()
+            if which == "with" and next(src._replay, None) is not None:
+                raise AssertionError(f"{what}: the remat run left replayed "
+                                     "masks")
+        grads_n = {n: p.grad for n, p in model_n.named_parameters()}
+        grads_r = {n: p.grad for n, p in model_r.named_parameters()}
+        differ = [n for n, g in grads_r.items()
+                  if g is not None and not torch.equal(g, grads_n[n])]
+        compare_grad_dicts(grads_r, grads_n, f"{what} (kernels: with remat; "
+                           "plain: without)", swin_bars)
+        wrong = {n: (counts["with"][n], counts["without"][n])
+                 for n in REMAT_FORWARD_ROWS + REMAT_BACKWARD_ROWS
+                 if counts["with"][n] != counts["without"][n]
+                 * (2 if n in REMAT_FORWARD_ROWS else 1)}
+        ran = {n: counts["without"][n] for n in REMAT_FORWARD_ROWS
+               if counts["without"][n]}
+        print(f"{what}: loss {loss_close(losses['with'], losses['without'], what)} "
+              f"({losses['with']} / {losses['without']}); "
+              f"{sum(g is not None for g in grads_r.values()) - len(differ)} "
+              f"gradients bitwise equal, {len(differ)} not "
+              f"{differ[:8]}; forward rows without remat {json.dumps(ran)}, "
+              "with remat twice as often, the backward rows as often: "
+              f"{'yes' if not wrong else wrong}", flush=True)
+        if wrong or not ran:
+            raise AssertionError(f"{what}: launches (with, without) {wrong}")
+
+    for seq2seq in (False, True):
+        held(seq2seq, f"{label}, initial gradients "
+                      f"({'seq2seq' if seq2seq else 'bidirectional'})")
+    with switches(True):
+        held(True, f"{label} with MVLT_KERNEL_DROPOUT=1 MVLT_STOREP=1, "
+                   "initial gradients (seq2seq)")
+    model_r.zero_grad(set_to_none=True)
+    model_n.zero_grad(set_to_none=True)
+
+    losses, counts = {"without": [], "with": []}, None
+    for i, seq2seq in enumerate(PRETRAIN_MODES):
+        step_n.masks = DropoutMasks(gen, record=True)
+        losses["without"].append(step_n(batch, seq2seq)["loss"].item())
+        step_r.masks = DropoutMasks.replay(step_n.masks.recorded)
+        if i == 0:
+            reset_counts()
+        out = step_r(batch, seq2seq)
+        if i == 0:
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        losses["with"].append(out["loss"].item())
+    verdicts = [loss_close(a, b, f"step {i + 1} loss") for i, (a, b) in
+                enumerate(zip(losses["with"], losses["without"]))]
+    print(f"{label}: losses of {len(PRETRAIN_MODES)} steps with remat "
+          f"{losses['with']}, without {losses['without']}: {verdicts}",
+          flush=True)
+
+    turns = ("without", "with", "with", "without")
+    steps = {"without": step_n, "with": step_r}
+    times, peak, resident = {t: [] for t in steps}, {}, {}
+    for which in turns:
+        step = steps[which]
+        step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
+        flips = torch.Generator().manual_seed(0)
+        step(batch, seq2seq_coin_flip(flips))
+        torch.cuda.synchronize()
+        measure = which not in peak
+        if measure:
+            resident[which] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        for _ in range(timed_steps):
+            step(batch, seq2seq_coin_flip(flips))
+        torch.cuda.synchronize()
+        times[which].append((time.perf_counter() - t1) * 1e3 / timed_steps)
+        if measure:
+            peak[which] = torch.cuda.max_memory_allocated()
+    ms = {t: sum(v) / len(v) for t, v in times.items()}
+    print(f"MLM+ITM Swin-S pretrain step b{B} (S = 131) on {card}, kernels: "
+          + ", ".join(
+              f"remat {t} {ms[t]:.3f} ms/step ({B * 1e3 / ms[t]:.1f} "
+              f"samples/s), peak memory {peak[t] / 2 ** 30:.3f} GiB (with "
+              f"{resident[t] / 2 ** 30:.3f} GiB resident, both models)"
+              for t in ("without", "with"))
+          + f"; runs {json.dumps(times)} ({timed_steps} steps a turn)",
+          flush=True)
+    del step_r, step_n, steps
+    return counts
+
+
 class _DriverRecorder:
     """What a driver phase watches while the driver runs unchanged: the
     loader's train batches as the host made them, each step's device batch,
@@ -6057,8 +6524,10 @@ def caption_driver_phase(dev, card: str) -> dict:
     plain versions replaying the masks (3 losses, step 1's gradients), the
     Swin features, the prefill's logits and the first decode step's against
     the plain route, two evals' decoded ids bitwise equal, the driver's
-    checkpoint restored into a fresh runner (state bitwise, the same ids).
-    Then times the eval (reports/s) and a generate call, and one epoch of
+    checkpoint restored into a fresh runner (state bitwise, the same ids),
+    the driver with ``--do_test --quant int8w`` on that checkpoint (its
+    launches, and its scores those of ``eval_caption(quant="int8w")`` on
+    the trained runner). Then times the eval (reports/s) and a generate call, and one epoch of
     ``IU_XRAY_TIMED`` studies through ``train_caption`` beside the bare
     step for each image layout (uint8 with the export, f32 ImageNet crops
     without) and its loader settings, with the peak memory. Returns
@@ -6209,6 +6678,36 @@ def caption_driver_phase(dev, card: str) -> dict:
     if decode_reports(fresh, test_ds, tok, num_beams=K)[2] != runs[0][2]:
         raise AssertionError("the restored runner decodes other ids")
     del fresh
+
+    # 5. the driver's int8w test on its checkpoint: weight-only int8
+    # serving, against eval_caption(quant="int8w") on the trained runner
+    q_scores = eval_caption(runner_k, test_ds, tok, num_beams=K,
+                            quant="int8w")
+    before = launch_counts()
+    t0 = time.perf_counter()
+    q_runner, q_out = cli.main(argv + [
+        "--model_name", str(root / "kernels"), "--do_test", "--quant",
+        "int8w", "--num_workers", str(CAPTION_DRIVER_WORKERS)])
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    after = launch_counts()
+    q_counts = {k: after[k] - before[k] for k in after}
+    batches = -(-len(test_ds) // CAPTION_EVAL_BATCH)
+    _expect_counts(q_counts, {k: (batches * n, src) for k, (n, src) in
+                              EXPECTED_CAPTION_DRIVER_EVAL.items()},
+                   f"the driver's int8w test ({batches} eval batches)",
+                   ("gemm", "biased_attention", "layernorm"))
+    if q_runner.state.step != steps or q_out["test"] != q_scores:
+        raise AssertionError(f"run_report_generation --do_test --quant int8w "
+                             f"at step {q_runner.state.step}: "
+                             f"{q_out['test']} vs eval_caption(quant='int8w') "
+                             f"{q_scores}")
+    print(f"caption driver --do_test --quant int8w on its step-{steps} "
+          f"checkpoint: {q_s:.1f} s, {batches} eval batches as launched by "
+          f"eval_caption, scores equal to eval_caption(quant='int8w') on the "
+          f"trained runner: {json.dumps(q_scores)}", flush=True)
+    q_runner.finish()
+    del q_runner
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -6235,7 +6734,7 @@ def caption_driver_phase(dev, card: str) -> dict:
           f"{[round(t * 1e3, 1) for t in gen_s]} ms; scores "
           f"{json.dumps(scores)}", flush=True)
 
-    # 5. times: bare steps and one epoch per image layout and loader setting
+    # 6. times: bare steps and one epoch per image layout and loader setting
     timed = {"uint8 (export)": (argv, (-1,)),
              "f32 ImageNet crops": ([a for i, a in enumerate(argv)
                                      if a != "--pretrained"

@@ -289,7 +289,9 @@ class TrainConfig:
     ``torch.Generator``); ``bf16_compute`` picks the model's compute dtype
     (f32 masters either way); ``num_workers`` -1 sizes the loader's worker
     processes to the host (``data/loader.py``); ``async_checkpoint`` writes
-    on a background thread after a host snapshot."""
+    on a background thread after a host snapshot. ``remat_backbone`` /
+    ``remat_fusion`` are read by nothing, as in JAX: the model's
+    ``MVLTConfig`` flags of the same names rematerialise."""
 
     batch_size: int = 32
     epochs: int = 100

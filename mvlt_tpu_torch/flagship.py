@@ -111,6 +111,14 @@ def flagship_swin_pretrain_config() -> MVLTConfig:
                                max_length=80)
 
 
+def flagship_swin_remat_pretrain_config() -> MVLTConfig:
+    """The Swin-S step of record (:func:`flagship_swin_pretrain_config`)
+    with ``remat_backbone`` and ``remat_fusion``: every Swin block and
+    fusion layer rematerialised in training (JAX's ``nn.remat``)."""
+    return dataclasses.replace(flagship_swin_pretrain_config(),
+                               remat_backbone=True, remat_fusion=True)
+
+
 def flagship_swin_dropout_pretrain_config() -> MVLTConfig:
     """The Swin-S step of record (:func:`flagship_swin_pretrain_config`: b32,
     S = 131, DropPath 0.3, fusion dropouts 0.1) with ``swin.drop_rate =

@@ -14,7 +14,9 @@ dense and conv weights are cast at use, so their f32 grads come back
 through the cast; LayerNorm and BatchNorm parameters, the Swin
 relative-position tables and the ViT's class token and position table stay
 float32. ``train`` puts the BatchNorms of the ResNet and the linear patch
-on batch statistics.
+on batch statistics. ``remat_backbone`` rematerialises the Swin's blocks
+(``adapter.py:57``); JAX remats no other backbone, and neither does the
+port.
 
 A uint8 image is a raw (B, H, W, 3) (or (B, 2, H, W, 3)) frame of the device-normalize host
 path (``ImageFolderSource(normalize="device")``, ``U8CacheSource``):
@@ -83,7 +85,8 @@ class VisualAdapter(nn.Module):
         elif conv in ("swin", "swintransformer"):
             self.kind = "swin"
             self.backbone = SwinTransformer(cfg.swin, dtype=dtype, device=device,
-                                            compute_dtype=self.dtype)
+                                            compute_dtype=self.dtype,
+                                            remat=cfg.remat_backbone)
             width = cfg.swin.num_features
             needs_proj = width != hidden
         elif conv in ("resnet101", "resnet50"):

@@ -49,6 +49,13 @@ dropout, ``proj_drop``, ``drop_path1``, the MLP's two dropouts and
 The relative-position bias is built as JAX builds it, ``onehot @ table``
 (``rel_bias_from_table``, ``swin.py:67-85``), so its backward is a product and
 not a scatter with atomics; serving caches the built bias.
+
+``remat=True`` (``MVLTConfig.remat_backbone``, JAX's ``nn.remat`` of every
+``SwinBlock``, swin.py:623-624) runs each block under
+:func:`~mvlt_tpu_torch.ops.layers.rematerialized` while autograd records
+it, on every ``attn_impl``: the backward recomputes the block's forward
+(its kernels launch twice a step) on the DropPath and dropout draws of the
+first run. Serving is unchanged.
 """
 
 from __future__ import annotations
@@ -63,7 +70,8 @@ from torch import nn
 from mvlt_tpu_torch.config import SwinConfig
 from mvlt_tpu_torch.ops.layers import (SWIN_LN_EPS, Dense, LayerNorm, Mlp,
                                        drop_path, drop_path_mask,
-                                       drop_path_multipliers, dropout)
+                                       drop_path_multipliers, dropout,
+                                       records_grad, rematerialized)
 from mvlt_tpu_torch.utils.env import env_flag
 
 
@@ -462,13 +470,16 @@ class SwinTransformer(nn.Module):
     (B, H/32 * W/32, num_features) after the final LN (swin.py:587-649).
     ``dtype`` is the parameters' dtype, ``compute_dtype`` (default: the
     same) the activations'. ``attn_impl`` (one of :data:`ATTN_IMPLS`) goes
-    to every block, as JAX's option does."""
+    to every block, as JAX's option does; ``remat`` rematerialises each
+    block in training."""
 
     def __init__(self, config: SwinConfig, *, dtype: torch.dtype, device,
-                 compute_dtype=None, attn_impl: str = "auto"):
+                 compute_dtype=None, attn_impl: str = "auto",
+                 remat: bool = False):
         super().__init__()
         cfg = config
         self.attn_impl = check_attn_impl(attn_impl)
+        self.remat = remat
         if cfg.ape:
             raise NotImplementedError(
                 "absolute position embedding (ape=True) is not ported yet; "
@@ -510,7 +521,10 @@ class SwinTransformer(nn.Module):
         x = dropout(x, masks, cfg.drop_rate)      # swin.py:617
         for i, blocks in enumerate(self.stages):
             for block in blocks:
-                x = block(x, ops, masks)
+                if self.remat and records_grad(x, block):
+                    x = rematerialized(block, x, ops, masks=masks)
+                else:
+                    x = block(x, ops, masks)
             if i < len(self.downsamples):
                 x = self.downsamples[i](x, ops)
         return self.norm(x, ops)

@@ -41,6 +41,13 @@ LayerNorm through ``LayerNorm`` (K3); its MLP halves stay on
 (``fusion.py:236-262``). ``decode_step`` runs T = 1 or 2 tokens against a
 static cache (:func:`init_cache`) with both halves plain, writing each
 layer's new (k, v) into the stacked cache in place.
+
+``remat=True`` (``MVLTConfig.remat_fusion``, JAX's ``nn.remat`` of every
+``EncoderLayer``, fusion.py:309-312) runs each layer of :meth:`forward`
+under :func:`~mvlt_tpu_torch.ops.layers.rematerialized` while autograd
+records it, in both mask modes: the backward recomputes the layer on the
+masks and the in-kernel dropout seed of its first run. The prefill and the
+decode steps run without autograd and are unchanged.
 """
 
 from __future__ import annotations
@@ -51,7 +58,8 @@ from torch import nn
 from mvlt_tpu_torch.config import FusionConfig
 from mvlt_tpu_torch.ops import masks as mask_lib
 from mvlt_tpu_torch.ops.attention import multi_head_attention
-from mvlt_tpu_torch.ops.layers import Dense, LayerNorm, gelu_exact
+from mvlt_tpu_torch.ops.layers import (Dense, LayerNorm, gelu_exact,
+                                       records_grad, rematerialized)
 from mvlt_tpu_torch.utils.env import env_flag
 
 
@@ -174,9 +182,10 @@ class FusionEncoder(nn.Module):
 
     def __init__(self, cfg: FusionConfig, *, add_pooling_layer: bool,
                  cls_token_id: int, sep_token_id: int, dtype: torch.dtype,
-                 device, compute_dtype=None):
+                 device, compute_dtype=None, remat: bool = False):
         super().__init__()
         H = cfg.hidden_size
+        self.remat = remat
         self.compute_dtype = compute_dtype or dtype
         self.cls_token_id, self.sep_token_id = cls_token_id, sep_token_id
 
@@ -231,7 +240,11 @@ class FusionEncoder(nn.Module):
             kbias, qbias = mask_lib.mask_to_bias(
                 mask_lib.bidirectional_key_mask(image_mask, text_mask)), None
         for layer in self.layers:
-            hidden = layer(hidden, kbias, ops, qbias, masks)
+            if self.remat and records_grad(hidden, layer):
+                hidden = rematerialized(layer, hidden, kbias, ops, qbias,
+                                        masks=masks)
+            else:
+                hidden = layer(hidden, kbias, ops, qbias, masks)
         pooled = None
         if self.pooler is not None and pool:
             pooled = self._pool(hidden, ops)

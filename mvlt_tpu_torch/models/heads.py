@@ -67,20 +67,6 @@ def check_fusion_fits(config: MVLTConfig, text_len: int, views: int = 1,
     return S
 
 
-def check_no_remat(cfg, what: str) -> None:
-    """Raise ``NotImplementedError`` when ``cfg`` (an ``MVLTConfig`` or a
-    ``TrainConfig``) asks for rematerialisation: JAX wraps its Swin blocks
-    and fusion layers in ``nn.remat`` there (``adapter.py:57``,
-    ``fusion.py:309-312``), which the port does not have yet, and a model
-    must not train without the memory saving its user asked for."""
-    flags = [f for f in ("remat_backbone", "remat_fusion")
-             if getattr(cfg, f)]
-    if flags:
-        raise NotImplementedError(
-            f"{what}.{' / '.join(flags)} is set: rematerialisation is not "
-            "ported (ROADMAP.md queue A, item 9)")
-
-
 class _Backbone(nn.Module):
     """Visual adapter + fusion encoder with its pooler, shared by the task
     models."""
@@ -89,7 +75,6 @@ class _Backbone(nn.Module):
                  compute_dtype=None):
         super().__init__()
         cfg = config
-        check_no_remat(cfg, "MVLTConfig")
         self.config = cfg
         self.conv = VisualAdapter(cfg, dtype=dtype, device=device,
                                   compute_dtype=compute_dtype)
@@ -97,7 +82,8 @@ class _Backbone(nn.Module):
                                     cls_token_id=cfg.cls_token_id,
                                     sep_token_id=cfg.sep_token_id,
                                     dtype=dtype, device=device,
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype,
+                                    remat=cfg.remat_fusion)
 
     @torch.no_grad()
     def encode_image(self, image: torch.Tensor, plain: bool = False):

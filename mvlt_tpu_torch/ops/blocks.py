@@ -166,6 +166,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from mvlt_tpu_torch.ops import kernels
 from mvlt_tpu_torch.ops.layers import SWIN_LN_EPS
@@ -435,14 +436,17 @@ class _SwinBlock(torch.autograd.Function):
         out, qkv, cx, pst = _swin_train_forward(p, rows, params, bias, scale,
                                                 num_heads, N, idx, dp, half,
                                                 store_p)
-        ctx.save_for_backward(rows, bias, dp1, dp2, qkv, cx, pst, *params)
-        ctx.p, ctx.dims = p, (BW, N, C, scale, num_heads, idx)
+        # every tensor residual goes through save_for_backward, where the
+        # saved-tensor hooks of a rematerialised unit see it
+        ctx.save_for_backward(rows, bias, dp1, dp2, qkv, cx, pst, idx,
+                              *params)
+        ctx.p, ctx.dims = p, (BW, N, C, scale, num_heads)
         return out.view(BW, N, C)
 
     @staticmethod
     def backward(ctx, g):
-        p, (BW, N, C, scale, num_heads, idx) = ctx.p, ctx.dims
-        rows, bias, dp1, dp2, qkv, cx, pst, *params = ctx.saved_tensors
+        p, (BW, N, C, scale, num_heads) = ctx.p, ctx.dims
+        rows, bias, dp1, dp2, qkv, cx, pst, idx, *params = ctx.saved_tensors
         (ln1s, ln1b, wqkv, bqkv, wproj, bproj,
          ln2s, ln2b, w1, b1, w2, b2) = params
         f32 = torch.float32
@@ -928,6 +932,11 @@ def _kw_mode(key: str, name: str):
     return lambda x, args, kw: name if kw.get(key) is not None else None
 
 
+# what torch.utils.checkpoint raises to end a recompute early
+_STOP_RECOMPUTATION = getattr(torch.utils.checkpoint,
+                              "_StopRecomputationError", ())
+
+
 def _twins(body, doc: str, count=_shift_count, mode=None):
     """(kernel twin with launch counts, plain twin) of ``body``. A kernel
     call adds one to the count that ``count(x, args, kw)`` names: a call
@@ -941,11 +950,21 @@ def _twins(body, doc: str, count=_shift_count, mode=None):
         return tuple(filter(None, (count(x, args, kw),
                                    mode and mode(x, args, kw))))
 
-    def kernel_twin(x, *args, **kw):
-        out = body(KERNEL_OPS, x, *args, **kw)
+    def launched(x, args, kw):
         if x.is_cuda:
             for name in counts_for(x, args, kw):
                 setattr(kernel_twin, name, getattr(kernel_twin, name) + 1)
+
+    def kernel_twin(x, *args, **kw):
+        try:
+            out = body(KERNEL_OPS, x, *args, **kw)
+        except _STOP_RECOMPUTATION:
+            # a rematerialised unit's recompute stops at its last saved
+            # tensor: this call's autograd Function saved it as it
+            # returned, after its kernels launched
+            launched(x, args, kw)
+            raise
+        launched(x, args, kw)
         return out
 
     def plain_twin(x, *args, **kw):

@@ -113,6 +113,76 @@ class DropoutMasks:
         return self.draw(keep, shape, device).to(dtype) / keep
 
 
+class _UnitDraws(DropoutMasks):
+    """The draws of one rematerialised unit: on the unit's first run each
+    draw is taken from ``source`` (drawn, recorded or replayed there as
+    usual) and kept; when the backward recomputes the unit,
+    :meth:`rewind` makes it hand out the same draws again, in order, and
+    ``source`` is not asked again."""
+
+    def __init__(self, source: DropoutMasks):
+        super().__init__()
+        self.source = source
+        self.taken = []
+        self._pos = None
+
+    def rewind(self) -> None:
+        self._pos = 0
+
+    def _next(self, what: str, shape, take) -> torch.Tensor:
+        if self._pos is None:
+            t = take()
+            self.taken.append(t)
+            return t
+        if self._pos >= len(self.taken):
+            raise RuntimeError(f"the recomputed unit drew a {what} more than "
+                               "its first run did")
+        t = self.taken[self._pos]
+        self._pos += 1
+        if tuple(t.shape) != tuple(shape):
+            raise RuntimeError(f"the recomputed unit drew a {what} of shape "
+                               f"{tuple(shape)} where its first run drew "
+                               f"{tuple(t.shape)}")
+        return t
+
+    def draw(self, keep: float, shape, device) -> torch.Tensor:
+        return self._next("mask", shape,
+                          lambda: self.source.draw(keep, shape, device))
+
+    def seed(self, device) -> torch.Tensor:
+        return self._next("seed", (2,), lambda: self.source.seed(device))
+
+
+def records_grad(x: torch.Tensor, module: nn.Module) -> bool:
+    """Whether autograd records a call of ``module`` on ``x``: grad mode on
+    and ``x`` or a parameter of the module needs a gradient."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in module.parameters()))
+
+
+def rematerialized(unit: nn.Module, x: torch.Tensor, *args, masks=None):
+    """``unit(x, *args, masks)`` under ``torch.utils.checkpoint`` (JAX's
+    ``nn.remat``): the unit's activations are not kept for the backward,
+    which runs its forward again first. Its dropout masks, DropPath
+    multipliers and in-kernel dropout seeds are drawn once, on the first
+    run, and the recompute takes the same ones (:class:`_UnitDraws`): the
+    checkpoint's own RNG restore covers the default generators only, not
+    the explicit one of a :class:`DropoutMasks`, nor a replayed list."""
+    from torch.utils.checkpoint import checkpoint
+    draws = None if masks is None else _UnitDraws(masks)
+    first = [True]
+
+    def run(x, *args):
+        if draws is not None and not first[0]:
+            draws.rewind()
+        first[0] = False
+        return unit(x, *args, masks=draws)
+
+    # every draw is explicit: the default generators need no restore
+    return checkpoint(run, x, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def drop_path_multipliers(masks, rate: float, batch: int, device):
     """The DropPath multipliers of one Swin block in training: ``(dp1,
     dp2)`` for its attention and MLP branches, each (B,) float32, 0 or

@@ -1,7 +1,7 @@
 """Where the device time of a train step or a report-generation call goes,
 on one GPU.
 
-    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|caption_step|caption_generate|retrieval_step|retrieval_grid|vqa_driver|vqa_driver_bare|pretrain_driver] [--batch 32] [--steps 3] [--attn-impl auto|pallas|pallas_block|xla] [--conv vit|linear|swin|resnet101|resnet50]
+    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|swin_pretrain_remat|caption_step|caption_generate|retrieval_step|retrieval_grid|vqa_driver|vqa_driver_bare|pretrain_driver] [--batch 32] [--steps 3] [--attn-impl auto|pallas|pallas_block|xla] [--conv vit|linear|swin|resnet101|resnet50]
 
 Builds the VQA finetune train step (``--path vqa``, the default:
 :func:`mvlt_tpu_torch.flagship.build_vqa_train_step`), the MLM+ITM
@@ -36,6 +36,11 @@ route (``window_attention`` in every block), ``pallas_block`` on row 1 in
 every block, ``xla`` on the plain torch attention, as the JAX package's
 tests set it: the adapter's ``SwinTransformer`` patched while the step is
 built.
+
+``--path swin_pretrain_remat`` is ``swin_pretrain`` with
+``remat_backbone`` and ``remat_fusion`` (:func:`~mvlt_tpu_torch.flagship.
+flagship_swin_remat_pretrain_config`): every Swin block and fusion layer
+recomputed before its backward.
 
 ``--path caption_step`` is the caption train step
 (:func:`~mvlt_tpu_torch.flagship.build_caption_train_step`: Swin-S +
@@ -316,9 +321,11 @@ def _build(args, flagship, seq2seq_coin_flip):
         gen, image = flagship.build_caption_generate(batch=args.batch,
                                                      device="cuda")
         return (lambda im: gen(im)), image
-    if args.path == "swin_pretrain":
+    if args.path.startswith("swin_pretrain"):
+        cfg = (flagship.flagship_swin_remat_pretrain_config()
+               if args.path == "swin_pretrain_remat" else None)
         pre_step, batch = flagship.build_swin_pretrain_train_step(
-            batch=args.batch, device="cuda")
+            batch=args.batch, device="cuda", config=cfg)
     else:
         cfg = args.conv and dataclasses.replace(
             flagship.flagship_pretrain_config(), conv=args.conv)
@@ -331,8 +338,9 @@ def _build(args, flagship, seq2seq_coin_flip):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--path", choices=("vqa", "pretrain", "swin_pretrain",
-                                       "caption_step", "caption_generate",
-                                       "retrieval_step", "retrieval_grid",
+                                       "swin_pretrain_remat", "caption_step",
+                                       "caption_generate", "retrieval_step",
+                                       "retrieval_grid",
                                        "vqa_driver", "vqa_driver_bare",
                                        "pretrain_driver"),
                     default="vqa")

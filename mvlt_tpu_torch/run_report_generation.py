@@ -16,9 +16,10 @@ the frames are uint8, normalized on the device (f32 on the host with
 reads them at the tiny Swin's size. ``--backbone_ckpt`` loads an official
 Swin, ResNet or HF ViT state dict over the ``--pretrained`` export
 (``utils/bootstrap.py``). Training runs by default, ``--do_test`` alone
-only tests (JAX's rule). Refused: ``--model_parallel`` other than 1 (one
-device), ``--quant int8w`` (ROADMAP.md queue A, 'ops/quant.py'), and on a
-CUDA device a fusion sequence beyond K2 / K4's N <= 46,340
+only tests (JAX's rule). ``--quant int8w`` serves that test on
+weight-only int8 (``tasks/caption.eval_caption``, ``ops/quant.py``).
+Refused: ``--model_parallel`` other than 1 (one device), and on a CUDA
+device a fusion sequence beyond K2 / K4's N <= 46,340
 (``models.heads.check_fusion_fits``). ``--conv vit`` or ``linear`` (196
 tokens a view) run on the card too: S = 474 on ``iu_xray``'s two views,
 348 at ``mimic_cxr``'s 150 text tokens, 298 at ``rgc``'s 100, where K2 and
@@ -81,7 +82,10 @@ def parse_args(argv=None):
     p.add_argument("--do_train", action="store_true", default=None)
     p.add_argument("--no_train", dest="do_train", action="store_false")
     p.add_argument("--do_test", action="store_true")
-    p.add_argument("--quant", default="", choices=["", "int8w"])
+    p.add_argument("--quant", default="", choices=["", "int8w"],
+                   help="int8w: the --do_test decode on weight-only int8 "
+                        "(int8 + per-channel scales, dequantized to bf16 "
+                        "for each generate call)")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda, or cpu for the plain versions)")
     return p.parse_args(argv)

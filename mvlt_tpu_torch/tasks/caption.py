@@ -19,6 +19,14 @@ Swin forward and the KV-cached decode), detokenizes each sequence up to
 here it runs short, since the rows of a decode are independent (the tests
 hold the kept rows to JAX's ids). Batches keep their report strings on the
 host: only the images cross to the device.
+
+``quant="int8w"`` serves weight-only int8 (``mvlt_tpu/tasks/caption.py:
+51-84``, :mod:`mvlt_tpu_torch.ops.quant`): the model's f32 master tensors
+that JAX's predicate selects are quantized once a call of
+:func:`eval_caption` (the count logged in JAX's terms), and dequantized to
+bf16 for each batch's generate call, as JAX dequantizes inside its jitted
+decode; the backbone, the fusion encoder and the MLM head then run on them
+through their usual routes and kernels.
 """
 
 from __future__ import annotations
@@ -28,18 +36,18 @@ from typing import Dict, List, Optional
 from mvlt_tpu_torch.data.loader import DataLoader, device_prefetch
 from mvlt_tpu_torch.metrics.eval_cap import CaptionEvaluator, compute_scores
 from mvlt_tpu_torch.models.generation import GenerationSpec, generate
+from mvlt_tpu_torch.ops import quant as quant_lib
 from mvlt_tpu_torch.tasks.common import TaskRunner
 from mvlt_tpu_torch.train.steps import make_caption_step
 
 
+QUANT_MODES = ("", "int8w")
+
+
 def check_quant(quant: str) -> None:
-    """JAX's ``quant`` modes: '' serves the weights as they are; 'int8w'
-    (weight-only int8, ``mvlt_tpu/ops/quant.py``) is not ported."""
-    if quant == "int8w":
-        raise NotImplementedError(
-            "quant='int8w' (weight-only int8 serving) is not ported yet: "
-            "ROADMAP.md queue A, 'ops/quant.py'")
-    if quant:
+    """JAX's ``quant`` modes: '' serves the weights as they are, 'int8w'
+    weight-only int8; anything else raises ``ValueError``."""
+    if quant not in QUANT_MODES:
         raise ValueError(f"unknown quant mode {quant!r}")
 
 
@@ -77,20 +85,28 @@ def train_caption(runner: TaskRunner, train_ds, test_ds=None,
 
 def decode_reports(runner: TaskRunner, test_ds, tokenizer,
                    batch_size: int = 16, num_beams: int = 5,
-                   strategy: str = "unilm", max_samples: int = 0):
+                   strategy: str = "unilm", max_samples: int = 0,
+                   quant: str = ""):
     """(ground truths, predictions, decoded ids): the test split's reports
     and the decoded ones, and each batch's sequences (B, max_length) as
-    host lists."""
+    host lists. ``quant="int8w"`` decodes on the int8 weights."""
+    check_quant(quant)
     spec = GenerationSpec.from_config(runner.config, num_beams=num_beams,
                                       strategy=strategy)
+    model, qtree = runner.model, {}
+    if quant == "int8w":
+        qtree, n_q = quant_lib.quantize_tree(dict(model.named_parameters()),
+                                             runner.config)
+        runner.logger.info("int8w serving: %d tensors quantized", n_q)
     loader = DataLoader(test_ds, batch_size, shuffle=False,
                         num_workers=runner.train_config.num_workers)
     keep = lambda b: {"image": b["image"], "raw_caption": b["raw_caption"]}
     gts, preds, ids = [], [], []
     for batch in device_prefetch(loader.epoch(0), device=runner.device,
                                  transform=keep):
-        seqs = generate(runner.model, batch["image"], spec,
-                        plain=runner.plain)[0].tolist()
+        with quant_lib.dequantized(model, qtree):      # {}: as they are
+            seqs = generate(model, batch["image"], spec,
+                            plain=runner.plain)[0].tolist()
         ids.append(seqs)
         for row, raw in zip(seqs, batch["raw_caption"]):
             preds.append(tokenizer.decode(row))
@@ -106,10 +122,10 @@ def eval_caption(runner: TaskRunner, test_ds, tokenizer,
                  include_meteor: bool = True,
                  quant: str = "") -> Dict[str, float]:
     """The caption metrics of the decoded test split (BLEU 1-4, METEOR,
-    ROUGE_L, CIDEr), and R2Gen's under ``r2gen_`` keys."""
-    check_quant(quant)
+    ROUGE_L, CIDEr), and R2Gen's under ``r2gen_`` keys; ``quant`` as
+    :func:`decode_reports`."""
     gts, preds, _ = decode_reports(runner, test_ds, tokenizer, batch_size,
-                                   num_beams, strategy, max_samples)
+                                   num_beams, strategy, max_samples, quant)
     scores = CaptionEvaluator(gts, preds,
                               include_meteor=include_meteor).evaluate()
     r2gen = compute_scores({i: [g] for i, g in enumerate(gts)},

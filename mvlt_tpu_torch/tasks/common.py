@@ -35,7 +35,6 @@ import torch
 
 from mvlt_tpu_torch.config import MVLTConfig, TrainConfig
 from mvlt_tpu_torch.flagship import _need_cuda, init_seeded_
-from mvlt_tpu_torch.models.heads import check_no_remat
 from mvlt_tpu_torch.ops.layers import DropoutMasks
 from mvlt_tpu_torch.train.state import TrainState, make_optimizer
 from mvlt_tpu_torch.utils import checkpoint as ckpt_lib
@@ -110,8 +109,6 @@ class TaskRunner:
             raise NotImplementedError(
                 f"mesh {mesh}: the port runs on one device (ROADMAP.md queue "
                 "A, 'Multi-device')")
-        check_no_remat(config, "MVLTConfig")
-        check_no_remat(train_config, "TrainConfig")
         self.device = _need_cuda(device, "TaskRunner")
         self.model_cls = model_cls
         self.config = config

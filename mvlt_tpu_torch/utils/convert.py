@@ -49,6 +49,21 @@ The backbone converters (copies of ``mvlt_tpu/utils/convert.py:123-164,
 ``ViTModel``, ``mvlt_tpu/utils/convert.py:310-346``). Wrapped under
 ``conv/backbone``, :func:`params_from_flax` maps them onto the port's
 names (``utils/bootstrap.py``).
+
+The task converters (copies of ``mvlt_tpu/utils/convert.py:42-114,
+165-247``) read a whole checkpoint of the reference's task models
+(``MVLBertForVQA`` / ``ForPretraining`` / ``ForRetrieval`` /
+``ForImageCaption``: ``conv.conv.0.<backbone>``, ``conv.resnet_fc``,
+``MVLBert.*`` with its HF ``BertEncoder``, and the heads) into JAX's
+variables tree: :func:`vqa_from_torch`, :func:`pretrain_from_torch`,
+:func:`retrieval_from_torch` and :func:`caption_from_torch`, for the
+backbones 'swin', 'linear', 'resnet50' and 'resnet101' ('vit' raises
+``NotImplementedError``, as in JAX: the reference's ViT layout is not
+convertible). Their ``*_state_dict_from_torch`` forms pass that tree
+through :func:`params_from_flax`: a state dict that
+``load_state_dict(strict=True)`` takes into the port's task model, the
+BatchNorm buffers from ``batch_stats``. A name the checkpoint lacks raises
+``KeyError``; nothing is left at its initialization.
 """
 
 from __future__ import annotations
@@ -440,3 +455,174 @@ def resnet_from_hf(sd: Dict[str, np.ndarray], layers) -> Dict:
                 params[name]["downsample"], stats[name]["downsample"] = _convbn(
                     sd, p + "shortcut.convolution", p + "shortcut.normalization")
     return {"params": params, "batch_stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# the reference's task checkpoints (MVLBertForX state dicts)
+# ---------------------------------------------------------------------------
+
+def bert_encoder_from_torch(sd: Dict[str, np.ndarray], num_layers: int,
+                            prefix: str = "") -> Dict:
+    """HF ``BertEncoder`` state dict -> the ``layer_{i}`` subtrees."""
+    params = {}
+    for i in range(num_layers):
+        p = f"{prefix}layer.{i}."
+        params[f"layer_{i}"] = {
+            "attention": {
+                "query": _dense(sd, p + "attention.self.query"),
+                "key": _dense(sd, p + "attention.self.key"),
+                "value": _dense(sd, p + "attention.self.value"),
+                "out": _dense(sd, p + "attention.output.dense"),
+                "out_layernorm": _layernorm(sd, p + "attention.output.LayerNorm"),
+            },
+            "intermediate": _dense(sd, p + "intermediate.dense"),
+            "output": _dense(sd, p + "output.dense"),
+            "output_layernorm": _layernorm(sd, p + "output.LayerNorm"),
+        }
+    return params
+
+
+def fusion_from_torch(sd: Dict[str, np.ndarray], num_layers: int,
+                      prefix: str = "MVLBert.") -> Dict:
+    """The reference's ``MVLBert`` module (model.py:16-33):
+    ``word_embeddings.weight``, ``position_embeddings.weight``,
+    ``token_type_embeddings.weight``, ``encoder.layer.{i}.*`` (HF
+    ``BertEncoder``) and ``pooler.dense.*`` -> the fusion encoder tree."""
+    params = {
+        "word_embeddings": {"embedding": sd[prefix + "word_embeddings.weight"]},
+        "position_embeddings": {"embedding": sd[prefix + "position_embeddings.weight"]},
+        "token_type_embeddings": {"embedding": sd[prefix + "token_type_embeddings.weight"]},
+    }
+    params.update(bert_encoder_from_torch(sd, num_layers, prefix + "encoder."))
+    if prefix + "pooler.dense.weight" in sd:
+        params["pooler"] = {"dense": _dense(sd, prefix + "pooler.dense")}
+    return params
+
+
+def mlm_head_from_torch(sd: Dict[str, np.ndarray], prefix: str) -> Dict:
+    """HF ``BertOnlyMLMHead``: ``{prefix}predictions.transform.dense.*``,
+    ``.transform.LayerNorm.*``, ``.decoder.weight`` and ``.decoder.bias``
+    (or ``predictions.bias``) -> the MLM head tree."""
+    decoder = {"kernel": sd[prefix + "predictions.decoder.weight"].T}
+    bias_key = prefix + "predictions.decoder.bias"
+    if bias_key not in sd:
+        bias_key = prefix + "predictions.bias"
+    decoder["bias"] = sd[bias_key]
+    return {
+        "transform": {
+            "transform_dense": _dense(sd, prefix + "predictions.transform.dense"),
+            "transform_layernorm": _layernorm(
+                sd, prefix + "predictions.transform.LayerNorm"),
+        },
+        "decoder": decoder,
+    }
+
+
+def head_transform_from_torch(sd: Dict[str, np.ndarray], prefix: str) -> Dict:
+    """HF ``BertPredictionHeadTransform`` -> its tree."""
+    return {
+        "transform_dense": _dense(sd, prefix + "dense"),
+        "transform_layernorm": _layernorm(sd, prefix + "LayerNorm"),
+    }
+
+
+def _conv_layer_from_torch(sd: Dict[str, np.ndarray], conv: str, depths=None,
+                           layers=None) -> tuple:
+    """The reference's ``Conv_layer`` (``conv.conv.0.<backbone>`` +
+    ``conv.resnet_fc``, modules/model.py:186-236) -> (the adapter's params,
+    its batch_stats or None)."""
+    out: Dict = {}
+    stats = None
+    conv = conv.lower()
+    if conv in ("swin", "swintransformer"):
+        out["backbone"] = swin_from_torch(sd, depths, prefix="conv.conv.0.")
+    elif conv == "linear":
+        # linear_patch_16x16: Conv2d 3->768 k16 s16 + BatchNorm2d + ReLU
+        # (visual_feature_extractor.py:47-59)
+        p = "conv.conv.0."
+        out["backbone"] = {
+            "proj": {"kernel": _conv_kernel(sd[p + "linear_patch.weight"]),
+                     "bias": sd[p + "linear_patch.bias"]},
+            "bn": {"scale": sd[p + "bn.weight"], "bias": sd[p + "bn.bias"]},
+        }
+        stats = {"backbone": {"bn": {"mean": sd[p + "bn.running_mean"],
+                                     "var": sd[p + "bn.running_var"]}}}
+    elif conv in ("resnet101", "resnet50"):
+        variables = resnet_from_torchvision(sd, layers, prefix="conv.conv.0.")
+        out["backbone"] = variables["params"]
+        stats = {"backbone": variables["batch_stats"]}
+    else:
+        # an empty tree would leave the backbone at its random init
+        raise NotImplementedError(f"conv layout {conv!r} not convertible")
+    if "conv.resnet_fc.weight" in sd:
+        out["resnet_fc"] = _dense(sd, "conv.resnet_fc")
+    return out, stats
+
+
+def _task_common(sd: Dict[str, np.ndarray], num_layers: int, conv: str,
+                 depths=None, layers=None) -> Dict:
+    conv_params, stats = _conv_layer_from_torch(sd, conv, depths, layers)
+    params = {"conv": conv_params,
+              "fusion": fusion_from_torch(sd, num_layers, prefix="MVLBert.")}
+    variables = {"params": params}
+    if stats:
+        variables["batch_stats"] = {"conv": stats}
+    return variables
+
+
+def vqa_from_torch(sd, num_layers=12, conv="swin", depths=(2, 2, 18, 2),
+                   layers=(3, 4, 23, 3)) -> Dict:
+    """The reference's ``MVLBertForVQA`` -> JAX's VQAModel variables; its
+    head ``final_mlp`` = Sequential(Dropout, Linear) -> ``final_mlp.1``
+    (model.py:313-321)."""
+    v = _task_common(sd, num_layers, conv, depths, layers)
+    v["params"]["final_mlp"] = _dense(sd, "final_mlp.1")
+    return v
+
+
+def pretrain_from_torch(sd, num_layers=12, conv="swin", depths=(2, 2, 18, 2),
+                        layers=(3, 4, 23, 3)) -> Dict:
+    """The reference's ``MVLBertForPretraining`` (model.py:352-363)."""
+    v = _task_common(sd, num_layers, conv, depths, layers)
+    v["params"]["mlm_head_seq2seq"] = mlm_head_from_torch(
+        sd, "MLM_head_seq2seq.")
+    v["params"]["mlm_head_bidir"] = mlm_head_from_torch(sd, "MLM_head_bidir.")
+    v["params"]["itm_mlp"] = _dense(sd, "ITM_mlp")
+    return v
+
+
+def retrieval_from_torch(sd, num_layers=12, conv="swin",
+                         depths=(2, 2, 18, 2), layers=(3, 4, 23, 3)) -> Dict:
+    """The reference's ``MVLBertForRetrieval``: final_mlp = Sequential(
+    transform, Linear) (model.py:434-440)."""
+    v = _task_common(sd, num_layers, conv, depths, layers)
+    v["params"]["final_transform"] = head_transform_from_torch(
+        sd, "final_mlp.0.")
+    v["params"]["final_linear"] = _dense(sd, "final_mlp.1")
+    return v
+
+
+def caption_from_torch(sd, num_layers=12, conv="swin", depths=(2, 2, 18, 2),
+                       layers=(3, 4, 23, 3)) -> Dict:
+    """The reference's ``MVLBertForImageCaption`` (model.py:479-489)."""
+    v = _task_common(sd, num_layers, conv, depths, layers)
+    v["params"]["mlm_head_seq2seq"] = mlm_head_from_torch(
+        sd, "MLM_head_seq2seq.")
+    return v
+
+
+def _state_dict_form(converter):
+    def convert(sd, *args, **kw) -> Dict[str, torch.Tensor]:
+        return params_from_flax(converter(sd, *args, **kw))
+    convert.__name__ = converter.__name__.replace("_from_torch",
+                                                  "_state_dict_from_torch")
+    convert.__doc__ = (f"``{converter.__name__}`` (same arguments) mapped "
+                       "by :func:`params_from_flax`: a port state dict of "
+                       "float32 tensors for ``load_state_dict(strict=True)``.")
+    return convert
+
+
+vqa_state_dict_from_torch = _state_dict_form(vqa_from_torch)
+pretrain_state_dict_from_torch = _state_dict_form(pretrain_from_torch)
+retrieval_state_dict_from_torch = _state_dict_form(retrieval_from_torch)
+caption_state_dict_from_torch = _state_dict_form(caption_from_torch)

@@ -19,6 +19,7 @@ image), the port on the CPU (its last test batch short).
 
 import dataclasses
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -358,11 +359,51 @@ def test_train_caption_matches_jax(driver, tmp_path):
 
 
 def test_quant_refusal_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ops/quant.py"):
-        port_caption.check_quant("int8w")
+    """JAX's modes are taken ('int8w' since the port has it); any other
+    still raises."""
+    port_caption.check_quant("int8w")
+    port_caption.check_quant("")
     with pytest.raises(ValueError, match="unknown quant"):
         port_caption.check_quant("fp8")
-    port_caption.check_quant("")
+
+
+def test_eval_caption_int8w_matches_jax(driver, eval_runners):
+    """``eval_caption(quant="int8w")`` (the weights JAX's predicate selects
+    quantized, dequantized to bf16 for each decode): the decoded ids of
+    every study and both score dicts equal JAX's int8w ones, and the count
+    of quantized tensors is logged in JAX's terms."""
+    _, _, (_, jtest), (_, ptest), jtok, ptok = driver
+    jrun, prun = eval_runners
+    jrec, prec = _Recording(jtok), _Recording(ptok)
+    logs = {}
+    for name, run in (("jax", jrun), ("port", prun)):
+        logs[name] = _Lines()
+        run.logger.addHandler(logs[name])
+    try:
+        want = jax_caption.eval_caption(jrun, jtest, jrec, batch_size=2,
+                                        num_beams=3, quant="int8w")
+        got = port_caption.eval_caption(prun, ptest, prec, batch_size=2,
+                                        num_beams=3, quant="int8w")
+    finally:
+        for name, run in (("jax", jrun), ("port", prun)):
+            run.logger.removeHandler(logs[name])
+    assert len(prec.ids) == 5 and prec.ids == jrec.ids
+    assert got == want
+    said = [[m for m in logs[n].lines if m.startswith("int8w serving: ")]
+            for n in ("jax", "port")]
+    assert said[0] == said[1] and len(said[1]) == 1
+    assert said[1][0] != "int8w serving: 0 tensors quantized"
+
+
+class _Lines(logging.Handler):
+    """Keeps the messages a logger emits."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
 
 
 # ---- the entry point --------------------------------------------------------------
@@ -424,8 +465,12 @@ def test_run_report_generation_refusals(tmp_path):
             cli.main(base)
     with pytest.raises(NotImplementedError, match="Multi-device"):
         cli.main(base + ["--device", "cpu", "--model_parallel", "2"])
-    with pytest.raises(NotImplementedError, match="ops/quant.py"):
-        cli.main(base + ["--device", "cpu", "--quant", "int8w"])
+    # --quant int8w is no refusal any more: a tiny test on int8 weights
+    runner, out = cli.main(base + ["--device", "cpu", "--quant", "int8w",
+                                   "--do_test", "--num_beams", "1",
+                                   "--num_workers", "0"])
+    assert runner.state.step == 0 and {"Bleu_1", "CIDEr"} <= set(out["test"])
+    assert "int8w serving: " in (tmp_path / "x" / "log.txt").read_text()
     with pytest.raises(SystemExit, match="--rgc_index"):
         cli.main(["--dataset", "rgc", "--tiny", "--device", "cpu",
                   "--model_name", str(tmp_path / "y")])

@@ -552,13 +552,15 @@ def test_attention_core_still_refuses_autograd():
 
 @pytest.mark.parametrize("flag", ["remat_backbone", "remat_fusion"])
 def test_remat_flags_raise_until_ported(flag):
-    """JAX remats its Swin blocks / fusion layers with these flags; the port
-    has no remat yet, so building a model or a runner with one set raises,
-    instead of training without the memory saving asked for."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A, "
-                                                  "item 9"):
-        VQAModel(dataclasses.replace(MVLTConfig(), **{flag: True}),
-                 device="meta")
-    with pytest.raises(NotImplementedError, match="TrainConfig"):
-        TaskRunner(VQAModel, MVLTConfig(), TrainConfig(**{flag: True}),
-                   device="cpu")
+    """JAX remats its Swin blocks / fusion layers with these flags, and so
+    does the port now (``tests/test_torch_remat.py`` holds it to JAX): a
+    model and a runner build with either flag, the model's flag reaches
+    the module it rematerialises and nothing else, and ``TrainConfig``'s,
+    which JAX reads nowhere, changes nothing."""
+    model = VQAModel(dataclasses.replace(MVLTConfig(), **{flag: True}),
+                     device="meta")
+    assert model.conv.backbone.remat == (flag == "remat_backbone")
+    assert model.fusion.remat == (flag == "remat_fusion")
+    runner = TaskRunner(VQAModel, MVLTConfig(), TrainConfig(**{flag: True}),
+                        device="cpu")
+    assert runner.train_config.remat_backbone == (flag == "remat_backbone")
