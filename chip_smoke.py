@@ -5,8 +5,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --norm``: phases 1-2's build and K3 / K5 at the
 step's shapes only; ``--caption`` / ``--retrieval`` / ``--backbones`` /
 ``--vqa-driver`` / ``--pretrain-driver`` / ``--caption-driver`` /
-``--retrieval-driver`` / ``--swin-routes`` / ``--long-n``: phases 1-2 and
-phase 10 / 11 / 12 / 13 / 14 / 15 / 16 / 17 / 18 only; ``--loader-pace``:
+``--retrieval-driver`` / ``--swin-routes`` / ``--long-n`` /
+``--single-card``: phases 1-2 and phase 10 / 11 / 12 / 13 / 14 / 15 / 16 /
+17 / 18 / 20 only; ``--loader-pace``:
 phases 1-2 and
 phases 13-16 with the drivers' loader-pace loops, which the default run
 leaves out; with a driver's flag, that phase alone with its loops). It
@@ -25,7 +26,9 @@ which raises on failure:
    K5's registers, stack and spill bytes per instance, K5's atomic count
    (0: its sums run in a fixed order) and their wrappers' host time beside
    ``torch.sum``'s and ``F.layer_norm``'s; K3's and K5's plans in C
-   against the Python ones the wrappers allocate from, over a sweep;
+   against the Python ones the wrappers allocate from, over a sweep (these
+   reports print after phase 3's checks: their cuobjdump runs start in the
+   background after the build and run beside the checks);
 3. kernel checks: hold K1 ``gemm``, K2 ``biased_attention``, K3
    ``layernorm`` and the six forward counterparts of
    ``mvlt_tpu_torch.ops.blocks`` against their plain PyTorch versions on the
@@ -282,7 +285,26 @@ which raises on failure:
     losses, the peak memory and ms/step in turns, and one step with both
     switches (``MVLT_KERNEL_DROPOUT=1 MVLT_STOREP=1``) held the same way.
     The default run only;
-20. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+20. single card: what JAX does on one device beside the paths above, each
+    against its plain run at full width. The kernel cases of a shifted
+    wide stage (Swin-S @448's stage 4, b8, P = 4: row 1 with the residual,
+    row 18 with the shift gather forward and forward + backward, rows 19 /
+    21; row 7's own kernel on a shifted map, window 8 at C = 768); then the
+    VQA forward on Swin-S @448 (b8, window 7, S = 221: stage 4 rolled on
+    rows 1 + 6; logits, launch counts, samples/s 2 x 10 in turns), the step
+    of record at 448 (b8, S = 278: stage 4's shifted block on row 18;
+    gradients in both modes to ``SWIN_GRAD_BAR``, 3 losses, ms/step), the
+    forward and the step of record with ``ape`` (the table's gradient to
+    ``SWIN_GRAD_BAR``), the ViT-B/16 pretrain step with its dropouts at 0.1
+    (b32, S = 278: the ViT's masks replayed into the plain run with the
+    fusion's; gradients to ``vit_bars``, 3 losses, ms/step 2 x 4), the step
+    of record with bf16 AdamW moments (b32: 3 losses against plain, the
+    moment's dtype and bytes against the f32 optimizer's, ms/step and peak
+    memory in turns with the step of record) and one of its steps traced
+    through ``utils.profiling.trace`` (the file names the annotation and
+    K1-K5). ``python3 chip_smoke.py --single-card`` runs phases 1-2 and this
+    phase only;
+21. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
 """
 
@@ -762,6 +784,36 @@ EXPECTED_LONG_GENERATE = {
 EXPECTED_SWIN_BASE_FORWARD = {
     **EXPECTED, "fused_mlp_preln": (0, "mvlt_tpu/ops/pallas_attn.py:3359")}
 
+# phase 20, what JAX runs on one device beside the paths above, at full
+# width: Swin-S @448 (window 7) serving and training at b8 (maps 112 / 56 /
+# 28 / 14: stage 4 has 4 windows an image and a shifted second block),
+# Swin-S with ``ape``, the ViT-B/16 pretrain step with its dropouts at 0.1
+# (b32) and the step of record with bf16 AdamW moments (b32)
+SINGLE_CARD_BATCH = 8
+# the roll changes stage 4's bias patterns (P = 1, then nW = 4), not the
+# rows: serving runs each counterpart as often as at 224, stage 4 on row 1
+# (JAX's swin_attn_half finds no group at N = 49, merged 98) and row 6
+EXPECTED_SWIN448_FORWARD = EXPECTED
+# the step at 448: stage 4's shifted block on row 18 with the shift gather
+# (JAX's _fused_half_train rolls the map around swin_half_block)
+EXPECTED_SWIN448_STEP = {
+    **EXPECTED_SWIN_PRETRAIN,
+    "swin_half_block": (1, "mvlt_tpu/ops/pallas_attn.py:3467"),
+    "swin_half_block_shift": (1, "mvlt_tpu/ops/pallas_attn.py:3467")}
+# ape adds its table before the blocks, bf16 moments change the optimizer:
+# the rows of the forward and of the step of record
+EXPECTED_APE_FORWARD = EXPECTED
+EXPECTED_APE_STEP = EXPECTED_SWIN_PRETRAIN
+EXPECTED_BF16_MOMENTS = EXPECTED_SWIN_PRETRAIN
+# the ViT's dropped attention in plain torch (flax's attention runs in XLA);
+# the fusion rows of the ViT step at S = 278
+EXPECTED_VIT_DROPOUT = EXPECTED_VIT_PRETRAIN
+# what one traced Swin-S step's Chrome trace must name: the annotation and
+# a kernel of each of K1-K5
+TRACE_NAMES = {"annotation": "mvlt swin step", "K1": "gemm_wgmma_kernel",
+               "K2": "attention_wgmma_kernel", "K3": "layernorm_kernel",
+               "K4": "attention_bwd_dq_kernel", "K5": "ln_bwd_kernel"}
+
 # the hand-written kernels and the TPU code whose pieces each carries
 KERNEL_SOURCES = {
     "gemm": ("mvlt_tpu_torch/csrc/gemm.cu", "mvlt_tpu/ops/pallas_attn.py:571"),
@@ -835,6 +887,7 @@ COUNTERPART_MODES = {
                         "train_shift_launches": "train_shift",
                         "train_store_p_launches": "train_store_p",
                         "train_shift_store_p_launches": "train_shift_store_p"},
+    "swin_half_block": {"shift_launches": "shift"},
     "attention_core_bwd": {"store_p_launches": "store_p"},
     "seq_attention_core_bwd": {"adrop_launches": "adrop"},
 }
@@ -3396,13 +3449,10 @@ def k2_report(dev) -> None:
     path = K.build()["attention"]._name
     tool = pathlib.Path(K._nvcc()).with_name("cuobjdump")
     try:
-        sass = subprocess.run([str(tool), "-sass", path], capture_output=True,
-                              text=True, timeout=120).stdout
+        sass = cuobjdump("-sass", path)
         ops = {op: len(re.findall(rf"\b{op}\b", sass))
                for op in ("HGMMA", "LDGSTS", "UTMALDG", "HMMA")}
-        usage = subprocess.run([str(tool), "-res-usage", path],
-                               capture_output=True, text=True,
-                               timeout=120).stdout
+        usage = cuobjdump("-res-usage", path)
         regs = {f"{nc}x{cols}": (int(r), int(st)) for nc, cols, r, st in
                 re.findall(r"attention_wgmma_kernelILi(\d+)ELi(\d+)E\S*"
                            r"\s+REG:(\d+) STACK:(\d+)", usage)}
@@ -3457,14 +3507,11 @@ def k4_report(dev) -> None:
     path = K.build()["attention_bwd"]._name
     tool = pathlib.Path(K._nvcc()).with_name("cuobjdump")
     try:
-        sass = subprocess.run([str(tool), "-sass", path], capture_output=True,
-                              text=True, timeout=120).stdout
+        sass = cuobjdump("-sass", path)
         ops = {op: len(re.findall(rf"\b{op}\b", sass))
                for op in ("HGMMA", "HMMA", "LDGSTS")}
         ops["ATOM/RED"] = len(re.findall(r"\b(?:ATOM\w*|RED)\b", sass))
-        usage = subprocess.run([str(tool), "-res-usage", path],
-                               capture_output=True, text=True,
-                               timeout=120).stdout
+        usage = cuobjdump("-res-usage", path)
         regs = {f"dq {nc}x{cols}": (int(r), int(st)) for nc, cols, r, st in
                 re.findall(r"attention_bwd_dq_kernelILi(\d+)ELi(\d+)E\S*"
                            r"\s+REG:(\d+) STACK:(\d+)", usage)}
@@ -3519,18 +3566,14 @@ def k5_report(dev) -> None:
     for name, kern in (("K3", "layernorm"), ("K5", "layernorm_bwd")):
         path = libs[kern]._name
         try:
-            usage = subprocess.run([str(tool), "-res-usage", path],
-                                   capture_output=True, text=True,
-                                   timeout=120).stdout
+            usage = cuobjdump("-res-usage", path)
             found = re.findall(r"((?:ln_bwd|colsum|fold|layernorm)_kernel)"
                                r"(?:ILi(\d+)ELi(\d+)E)?\S*\s+"
                                r"REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)",
                                usage)
             regs = {(f"{k}<{g}, {j}>" if g else k): tuple(map(int, rest))
                     for k, g, j, *rest in found}
-            sass = subprocess.run([str(tool), "-sass", path],
-                                  capture_output=True, text=True,
-                                  timeout=120).stdout
+            sass = cuobjdump("-sass", path)
             atoms = len(re.findall(r"\b(?:ATOM|ATOMG|ATOMS|RED)\.\S*", sass))
             f32 = len(re.findall(r"\b(?:ATOM|ATOMG|ATOMS|RED)\.\S*F32", sass))
         except (OSError, subprocess.SubprocessError) as e:
@@ -3563,6 +3606,42 @@ def k5_report(dev) -> None:
         torch.cuda.synchronize()
     print("host time per call at (64, 96), 2000 enqueues: "
           + ", ".join(f"{k} {v:.2f} us" for k, v in us.items()), flush=True)
+
+
+# cuobjdump's outputs the reports read, started in the background after the
+# build (``start_dumps``): (flag, library path) -> future
+_DUMPS = {}
+
+
+def _cuobjdump(flag: str, path: str) -> str:
+    from mvlt_tpu_torch.ops import kernels as K
+    tool = pathlib.Path(K._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), flag, path], capture_output=True,
+                          text=True, timeout=120).stdout
+
+
+def cuobjdump(flag: str, path: str) -> str:
+    """``cuobjdump <flag> <path>``'s output: the background run's, if
+    :func:`start_dumps` started one, else a run now. Raises what the run
+    raised."""
+    future = _DUMPS.get((flag, path))
+    return future.result() if future is not None else _cuobjdump(flag, path)
+
+
+def start_dumps() -> None:
+    """Start the reports' cuobjdump runs (each library's SASS and resource
+    usage; seconds each for K2's and K4's many template instances) in
+    background threads, so that they run beside the kernel checks."""
+    from concurrent.futures import ThreadPoolExecutor
+    from mvlt_tpu_torch.ops import kernels as K
+    libs = K.build()
+    pool = ThreadPoolExecutor(max_workers=4)
+    for name in ("attention_bwd", "attention", "layernorm_bwd", "layernorm",
+                 "gemm"):
+        for flag in ("-sass", "-res-usage"):
+            path = libs[name]._name
+            _DUMPS[(flag, path)] = pool.submit(_cuobjdump, flag, path)
+    pool.shutdown(wait=False)
 
 
 def norm_plan_checks() -> None:
@@ -3626,8 +3705,7 @@ def k1_report(dev) -> None:
     path = K.build()["gemm"]._name
     tool = pathlib.Path(K._nvcc()).with_name("cuobjdump")
     try:
-        sass = subprocess.run([str(tool), "-sass", path], capture_output=True,
-                              text=True, timeout=120).stdout
+        sass = cuobjdump("-sass", path)
         ops = {op: len(re.findall(rf"\b{op}\b", sass))
                for op in ("HGMMA", "UTMALDG", "HMMA", "LDSM")}
     except (OSError, subprocess.SubprocessError) as e:
@@ -3839,9 +3917,53 @@ def backbone_route(attn_impl: str):
         swin.SwinTransformer, attn_impl=attn_impl))
 
 
+# (seed, parameter layout) pairs whose seeded values a run keeps on the host
+INIT_CACHE = 3
+
+
+def memoize_init(keep: int = INIT_CACHE) -> None:
+    """Keep the values ``flagship.init_seeded_`` gives the last ``keep``
+    (seed, parameter layout) pairs on the host: a model built again from
+    the same seed with the same parameter names, shapes, dtypes and norm
+    layers gets the same values copied in, bitwise what the numpy draws
+    give it (about 200 M normals and seconds for a Swin-S pretrain model,
+    which most phases build twice). Installed for the whole process, in
+    the builders and in ``TaskRunner``."""
+    import collections
+    from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.models.backbones.resnet import BatchNorm
+    from mvlt_tpu_torch.ops.layers import LayerNorm
+    from mvlt_tpu_torch.tasks import common
+    draw = getattr(flagship.init_seeded_, "draw", flagship.init_seeded_)
+    cache = collections.OrderedDict()
+
+    @torch.no_grad()
+    def init_seeded_(model, seed: int = 0):
+        params = list(model.named_parameters())
+        norms = {id(p) for m in model.modules()
+                 if isinstance(m, (LayerNorm, BatchNorm))
+                 for p in m.parameters()}
+        key = (seed, tuple((n, tuple(p.shape), p.dtype, id(p) in norms)
+                           for n, p in params))
+        if key in cache:
+            cache.move_to_end(key)
+            for (_, p), value in zip(params, cache[key]):
+                p.copy_(value)
+            return model
+        draw(model, seed)
+        cache[key] = [p.detach().to("cpu", copy=True) for _, p in params]
+        while len(cache) > keep:
+            cache.popitem(last=False)
+        return model
+
+    init_seeded_.draw = draw
+    flagship.init_seeded_ = common.init_seeded_ = init_seeded_
+
+
 def start():
     """Phases 1-2: ``(device, card line)`` after the kernels are built, or
-    None (printed why) without a card or beside no port package."""
+    None (printed why) without a card or beside no port package. Installs
+    :func:`memoize_init`."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3862,6 +3984,7 @@ def start():
     t0 = time.perf_counter()
     kernels.build()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    memoize_init()
     return dev, card
 
 
@@ -4059,67 +4182,371 @@ def swin_route_phases(dev, card: str) -> dict:
     return out
 
 
+def single_card_kernel_checks(chk: Checker, dev) -> None:
+    """Phase 20's kernel cases, each against its plain version: the bias
+    patterns of a shifted wide stage that no earlier path gives its
+    kernels. At Swin-S @448's stage 4 (b8: 32 windows of 49, C = 768, 24
+    heads, the map rolled, P = 4: the relative-position bias plus the shift
+    mask per window): row 1 (``window_block_attention`` with the residual,
+    its serving route), row 18 with the shift gather
+    (``swin_half_block_shift``, the step's route; forward, and forward +
+    backward through its autograd Function with DropPath multipliers), and
+    rows 19 / 21 (``attention_core`` / ``attention_core_bwd``) at those
+    patterns; then row 7's own kernel on a shifted map: window 8 on 16 x 16
+    at C = 768 (b8: 32 windows of 64, P = 4), where JAX's ``swin_attn_half``
+    admits a group."""
+    from mvlt_tpu_torch.models.backbones.swin import (attn_half_admits,
+                                                      shifted_window_mask)
+    from mvlt_tpu_torch.ops import blocks
+
+    inp = Inputs(dev, seed=23)
+    rnd, dense, ln = inp.rnd, inp.dense, inp.ln
+    bf, f32 = torch.bfloat16, torch.float32
+    B, C, nH, res, win, shift = SINGLE_CARD_BATCH, 768, 24, 14, 7, 3
+    nW, N, Dh = (res // win) ** 2, win * win, C // nH
+    BW, sc = B * nW, Dh ** -0.5
+    M = BW * N
+    ln1, ln2 = ln(C), ln(C)
+    (wq, bq), (wp, bp) = dense(C, 3 * C), dense(C, C)
+    (w1, b1), (w2, b2) = dense(C, 4 * C), dense(4 * C, C)
+    params = (*ln1, wq, bq, wp, bp, *ln2, w1, b1, w2, b2)
+    lparams = (*bf16_ln(*ln1), wq, bq, wp, bp, *bf16_ln(*ln2), w1, b1, w2,
+               b2)
+    rel = rnd(1, nH, N, N, std=0.5, dtype=f32)
+    mask = torch.as_tensor(shifted_window_mask(res, res, win, shift),
+                           device=dev)
+    pat = (rel + mask[:, None]).contiguous()                 # (4, nH, N, N)
+    lmask = pat.to(bf)[torch.arange(BW, device=dev) % nW]
+    tag = "Swin-S @448 stage 4, P = 4"
+
+    # row 1 on the rolled windows (LN1's output and the residual x)
+    x, h = rnd(BW, N, C), rnd(BW, N, C)
+
+    def lib_block():
+        rows = x.view(-1, C)
+        c = lib_attention(F.linear(h.view(-1, C), wq, bq), BW, N, nH, lmask,
+                          sc)
+        return (F.linear(c, wp, bp) + rows).view(BW, N, C)
+
+    chk.case("window_block_attention",
+             lambda: blocks.window_block_attention(h, wq, bq, wp, bp, pat, sc,
+                                                   nH, residual=x),
+             lambda: blocks.window_block_attention_plain(
+                 h, wq, bq, wp, bp, pat, sc, nH, residual=x),
+             BLOCK_BAR, library_fn=lib_block, label=tag,
+             flops=2.0 * M * C * 4 * C + 4.0 * BW * nH * N * N * Dh,
+             nbytes=nbytes(h, wq, bq, wp, bp, pat, x, x))
+
+    # row 18 with the shift gather, DropPath multipliers zeroing image 0
+    spec = (res, res, win, shift)
+    dp = (_swin_dp(inp, dev, B), _swin_dp(inp, dev, B))
+    r1, r2 = (d.repeat_interleave(M // B)[:, None].to(bf) for d in dp)
+    gather = blocks._shift_index(B, res, res, win, shift, dev).long()
+    scatter = torch.argsort(gather)
+    with torch.no_grad():
+        chk.case("swin_half_block_shift",
+                 lambda: blocks.swin_half_block(x, params, pat, sc, nH,
+                                                shift_spec=spec, dp=dp),
+                 lambda: blocks.swin_half_block_plain(x, params, pat, sc, nH,
+                                                      shift_spec=spec, dp=dp),
+                 BLOCK_BAR, label=tag,
+                 library_fn=lambda: lib_swin_block(x, lparams, lmask, sc, nH,
+                                                   gather, scatter,
+                                                   dp=(r1, r2)),
+                 flops=2.0 * M * C * 12 * C + 4.0 * BW * nH * N * N * Dh,
+                 nbytes=nbytes(x, *params, pat, *dp, x))
+    check_block_grads(blocks.swin_half_block, blocks.swin_half_block_plain,
+                      x, params, pat, rnd(BW, N, C),
+                      f"swin_half_block_shift ({tag})", scale=sc,
+                      num_heads=nH, shift_spec=spec, dp=dp)
+
+    # rows 19 / 21 at these patterns; library: SDPA and the autograd of the
+    # bf16 composition with the patterns gathered per window
+    qkv, dctx = rnd(M, 3 * C, std=0.5), rnd(M, C)
+    chk.case("attention_core",
+             lambda: blocks.attention_core(qkv.view(BW, N, 3 * C), pat, sc,
+                                           nH),
+             lambda: blocks.attention_core_plain(qkv.view(BW, N, 3 * C), pat,
+                                                 sc, nH),
+             KERNEL_BAR, label=tag,
+             library_fn=lambda: lib_attention(qkv, BW, N, nH, lmask, sc),
+             flops=4.0 * BW * nH * N * N * Dh,
+             nbytes=nbytes(qkv, pat) + 2 * M * C)
+    t = qkv.view(BW, N, 3, nH, Dh).permute(2, 0, 3, 1, 4)
+    lib = library_backward(
+        lambda q, k, v: torch.matmul(torch.softmax(
+            torch.matmul(q, k.transpose(-1, -2)) * sc + lmask, dim=-1), v),
+        (t[0].contiguous(), t[1].contiguous(), t[2].contiguous()),
+        dctx.view(BW, N, nH, Dh).permute(0, 2, 1, 3).contiguous())
+    chk.case("attention_core_bwd",
+             lambda: blocks.attention_core_bwd(qkv, dctx, pat, N, sc, nH),
+             lambda: blocks.attention_core_bwd_plain(qkv, dctx, pat, N, sc,
+                                                     nH),
+             KERNEL_BAR, library_fn=lib, floor=1e-6, label=tag, graph=True,
+             flops=10.0 * BW * nH * N * N * Dh,
+             nbytes=nbytes(qkv, dctx, pat, qkv, pat))
+
+    # row 7's own kernel, shifted: window 8 on a 16 x 16 map
+    res8, win8 = 16, 8
+    N8, BW8 = win8 * win8, B * (res8 // win8) ** 2
+    assert attn_half_admits(BW8, N8, C, 4)
+    x8 = rnd(BW8, N8, C)
+    mask8 = torch.as_tensor(shifted_window_mask(res8, res8, win8, win8 // 2),
+                            device=dev)
+    pat8 = (rnd(1, nH, N8, N8, std=0.5, dtype=f32)
+            + mask8[:, None]).contiguous()
+    lmask8 = pat8.to(bf)[torch.arange(BW8, device=dev) % 4]
+    half = (x8, *ln1, wq, bq, wp, bp, pat8, sc, nH)
+
+    def lib_half():
+        rows = x8.view(-1, C)
+        hh = F.layer_norm(rows, (C,), *bf16_ln(*ln1), 1e-5)
+        c = lib_attention(F.linear(hh, wq, bq), BW8, N8, nH, lmask8, sc)
+        return (F.linear(c, wp, bp) + rows).view(BW8, N8, C)
+
+    chk.case("swin_attn_half", lambda: blocks.swin_attn_half(*half),
+             lambda: blocks.swin_attn_half_plain(*half), BLOCK_BAR,
+             library_fn=lib_half, label="shifted, window 8, C = 768, P = 4",
+             flops=2.0 * BW8 * N8 * C * 4 * C
+             + 4.0 * BW8 * nH * N8 * N8 * Dh,
+             nbytes=nbytes(x8, *ln1, wq, bq, wp, bp, pat8, x8))
+
+
+def _moment_bytes(optimizer, keys) -> int:
+    """Bytes of the moments ``keys`` in ``optimizer``'s state."""
+    return sum(st[k].numel() * st[k].element_size()
+               for st in optimizer.state.values() for k in keys if k in st)
+
+
+def trace_step(step, batch, dev) -> dict:
+    """One Swin-S step (bidirectional) traced through
+    ``mvlt_tpu_torch.utils.profiling.trace`` inside ``annotate("mvlt swin
+    step")`` into ``build/trace_swin_step``: the trace file must name the
+    annotation and a kernel of each of K1-K5 (``TRACE_NAMES``); prints its
+    size and the device time the profiler saw. Returns the step's launch
+    counts."""
+    import shutil
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    from mvlt_tpu_torch.utils import profiling
+    out = REPO / "build" / "trace_swin_step"
+    shutil.rmtree(out, ignore_errors=True)
+    step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(5))
+    step(batch, False)                        # warm, outside the trace
+    torch.cuda.synchronize()
+    reset_counts()
+    timer = profiling.StepTimer()
+    with profiling.trace(str(out)) as prof:
+        timer.start()
+        with profiling.annotate(TRACE_NAMES["annotation"]):
+            loss = step(batch, False)["loss"]
+        took = timer.stop(loss)
+    counts = launch_counts()
+    path = out / profiling.TRACE_FILE
+    text = path.read_text()
+    missing = [k for k, name in TRACE_NAMES.items() if name not in text]
+    from torch.autograd import DeviceType
+    from mvlt_tpu_torch.profile_step import ANNOTATIONS
+    device_us = sum(       # the device's kernels, each once (profile_step's)
+        e.time_range.elapsed_us() for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+        and not e.name.startswith(ANNOTATIONS + (TRACE_NAMES["annotation"],)))
+    print(f"trace of one Swin-S step: {path.relative_to(REPO)}, "
+          f"{path.stat().st_size} bytes; {took * 1e3:.3f} ms under the "
+          f"profiler, device time {device_us / 1e3:.3f} ms; names "
+          f"{sorted(k for k in TRACE_NAMES if k not in missing)}",
+          flush=True)
+    if missing or os.listdir(out) != [profiling.TRACE_FILE]:
+        raise AssertionError(f"the trace misses {missing}")
+    return counts
+
+
+def bf16_moments_phase(dev, card: str) -> dict:
+    """The Swin-S step of record with ``adam_mu_dtype='bfloat16'`` (b32)
+    driven as phase 7 drives the step (gradients in both mask modes, 3
+    losses against the plain route on replayed masks, launch counts), then
+    timed in turns with the step of record (f32 moments; ms/step and peak
+    memory); the moment's dtype and the moments' bytes against the f32
+    optimizer's (2 B less a trained element); then one of its steps traced
+    (:func:`trace_step`). Returns the launch counts by path."""
+    from mvlt_tpu_torch import flagship
+    traced = {}
+
+    def report(step, batch, record):
+        mine = _moment_bytes(step.optimizer, ("mu", "nu"))
+        f32 = _moment_bytes(record.optimizer, ("exp_avg", "exp_avg_sq"))
+        elems = sum(p.numel() for p in step.model.parameters())
+        dtypes = sorted({str(st["mu"].dtype)
+                         for st in step.optimizer.state.values()})
+        print(f"bf16 moments on {card}: mu {dtypes}, moments {mine} bytes "
+              f"against the f32 optimizer's {f32} ({f32 - mine} fewer for "
+              f"{elems} trained elements)", flush=True)
+        if dtypes != ["torch.bfloat16"] or f32 - mine != 2 * elems:
+            raise AssertionError(f"moments {dtypes}, {f32 - mine} bytes "
+                                 f"saved for {elems} elements")
+        traced["counts"] = trace_step(step, batch, dev)
+
+    counts = pretrain_phase(
+        dev, card, timed_steps=4, swin=True,
+        config=flagship.flagship_swin_bf16_moments_pretrain_config(),
+        label="Swin-S pretrain step with bf16 AdamW moments",
+        expected=EXPECTED_BF16_MOMENTS, versus_record=True, report=report)
+    traced = traced["counts"]
+    for name, (want, _) in EXPECTED_BF16_MOMENTS.items():
+        if traced[name] != want:
+            raise AssertionError(f"{name} ran {traced[name]} times in the "
+                                 f"traced step, expected {want}")
+    return {"swin_bf16_moments_train_step": counts,
+            "swin_pretrain_trace": traced}
+
+
+def single_card_phases(dev, card: str) -> dict:
+    """Phase 20's paths, each with kernels against plain at full width and
+    each printing its seconds. Returns their launch counts by path."""
+    from mvlt_tpu_torch import flagship
+    B = SINGLE_CARD_BATCH
+    phases = {
+        "swin448_vqa_forward": lambda: {"swin448_vqa_forward": forward_phase(
+            dev, card, config=flagship.flagship_swin448_vqa_config(),
+            label="Swin-S @448 VQA", expected=EXPECTED_SWIN448_FORWARD)},
+        "swin448_pretrain_train_step": lambda: {
+            "swin448_pretrain_train_step": pretrain_phase(
+                dev, card, timed_steps=2, swin=True, batch=B,
+                config=flagship.flagship_swin448_pretrain_config(),
+                label="Swin-S @448 pretrain step",
+                expected=EXPECTED_SWIN448_STEP)},
+        "swin_ape_vqa_forward": lambda: {
+            "swin_ape_vqa_forward": forward_phase(
+                dev, card, config=flagship.flagship_swin_ape_vqa_config(),
+                label="Swin-S ape VQA", expected=EXPECTED_APE_FORWARD)},
+        "swin_ape_train_step": lambda: {
+            "swin_ape_train_step": pretrain_phase(
+                dev, card, timed_steps=0, swin=True, batch=B,
+                config=flagship.flagship_swin_ape_pretrain_config(),
+                label="Swin-S ape pretrain step",
+                expected=EXPECTED_APE_STEP)},
+        "vit_dropout_pretrain_train_step": lambda: {
+            "vit_dropout_pretrain_train_step": pretrain_phase(
+                dev, card, timed_steps=4,
+                config=flagship.flagship_vit_dropout_pretrain_config(),
+                label="ViT-B/16 pretrain step with ViT dropout 0.1",
+                expected=EXPECTED_VIT_DROPOUT, bars=vit_bars,
+                seq_n=VIT_PRETRAIN_N)},
+        "swin_bf16_moments_train_step": lambda: bf16_moments_phase(dev,
+                                                                   card)}
+    out = {}
+    for path, phase in phases.items():
+        t0 = time.perf_counter()
+        out.update(phase())
+        print(f"{path} phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def single_card_main() -> int:
+    """``python3 chip_smoke.py --single-card``: phases 1-2 and phase 20
+    only (its kernel cases and its paths), ending with the rows it touched
+    as JSON instead of the kernels line."""
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    chk = Checker()
+    t0 = time.perf_counter()
+    single_card_kernel_checks(chk, dev)
+    print(f"phase 20 kernel checks: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    with switches(False):
+        by_path = single_card_phases(dev, card)
+    rows = {}
+    for name in chk.rows:
+        per_path = {p: c.get(name, 0) for p, c in by_path.items()}
+        rows[name] = dict(chk.row(name), launches=sum(per_path.values()),
+                          launches_by_path=per_path)
+    print("phase 20 rows: " + json.dumps(rows), flush=True)
+    return 0
+
+
 def main() -> int:
     started = start()
     if started is None:
         return 1
     dev, card = started
+    began = time.perf_counter()
 
-    k1_report(dev)
-    k2_report(dev)
-    k4_report(dev)
-    k5_report(dev)
-    norm_plan_checks()
+    def lap(what: str) -> None:
+        print(f"[{time.perf_counter() - began:.1f} s after the build] {what} "
+              "done", flush=True)
+
+    start_dumps()           # the reports read them after the checks
 
     chk = Checker()
-    kernel_checks(chk, dev)
-    train_kernel_checks(chk, dev)
-    pretrain_kernel_checks(chk, dev)
-    long_attention_checks(chk, dev)
+    for checks in (kernel_checks, train_kernel_checks, pretrain_kernel_checks,
+                   long_attention_checks):
+        checks(chk, dev)
+        lap(checks.__name__)
     attention_repeat_checks(dev)
     attention_bwd_repeat_checks(dev)
-    swin_kernel_checks(chk, dev)
-    norm_kernel_checks(chk, dev)
-    swin_gemm_checks(chk, dev)
-    optin_kernel_checks(chk, dev)
-    attn_impl_kernel_checks(chk, dev)
-    swin_routes_kernel_checks(chk, dev)
-    caption_kernel_checks(chk, dev)
-    iu_xray_kernel_checks(chk, dev)
-    retrieval_kernel_checks(chk, dev)
-    long_form_kernel_checks(chk, dev)
+    lap("repeat checks")
+    for checks in (swin_kernel_checks, norm_kernel_checks, swin_gemm_checks,
+                   optin_kernel_checks, attn_impl_kernel_checks,
+                   swin_routes_kernel_checks, caption_kernel_checks,
+                   iu_xray_kernel_checks, retrieval_kernel_checks,
+                   long_form_kernel_checks, single_card_kernel_checks):
+        checks(chk, dev)
+        lap(checks.__name__)
+    for report in (k1_report, k2_report, k4_report, k5_report):
+        report(dev)
+        lap(report.__name__)
+    norm_plan_checks()
+    lap("norm_plan_checks")
     with switches(False):
         by_path = {"vqa_forward": forward_phase(dev, card),
                    "vqa_train_step": train_phase(dev, card),
                    "pretrain_train_step": pretrain_phase(dev, card),
                    "swin_pretrain_train_step": pretrain_phase(dev, card,
                                                               swin=True)}
+    lap("phases 4-7")
     by_path["swin_pretrain_switches_train_step"] = pretrain_phase(
         dev, card, timed_steps=10, swin=True, with_switches=True)
+    lap("phase 8")
     with switches(False):
         by_path["vqa_forward_pallas"] = forward_phase(dev, card,
                                                       attn_impl="pallas")
         by_path["swin_pretrain_pallas_train_step"] = pretrain_phase(
             dev, card, timed_steps=4, swin=True, attn_impl="pallas")
+        lap("phase 9")
         by_path["caption_generate"] = caption_generate_phase(dev, card)
+        lap("caption generate")
         by_path.update(int8w_remat_phases(dev, card))
+        lap("phase 19")
         by_path["caption_step"] = caption_step_phase(dev, card)
+        lap("caption step")
         by_path["retrieval_grid"] = retrieval_grid_phase(dev, card)
         by_path["retrieval_step"] = retrieval_step_phase(dev, card)
+        lap("phase 11")
         by_path.update(other_backbone_phases(dev, card))
+        lap("phase 12")
         by_path.update(long_form_phases(dev, card))
+        lap("phase 18")
         by_path.update(swin_route_phases(dev, card))
+        lap("phase 17")
+        by_path.update(single_card_phases(dev, card))
+        lap("phase 20")
         by_path["vqa_driver"] = vqa_driver_subprocess()
+        lap("phase 13")
         by_path["pretrain_driver"] = pretrain_driver_subprocess(
             by_path["swin_pretrain_train_step"])
+        lap("phase 14")
         by_path["caption_driver"] = two_view_subprocess(
             "--caption-driver", "caption driver", CAPTION_DRIVER_TIMEOUT,
             CAPTION_DRIVER_TAG, by_path["caption_step"],
             EXPECTED_CAPTION_STEP)
+        lap("phase 15")
         by_path["retrieval_driver"] = two_view_subprocess(
             "--retrieval-driver", "retrieval driver",
             RETRIEVAL_DRIVER_TIMEOUT, RETRIEVAL_DRIVER_TAG,
             by_path["retrieval_step"], EXPECTED_RETRIEVAL_STEP)
+        lap("phase 16")
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
@@ -4132,7 +4559,8 @@ def main() -> int:
                     **EXPECTED_RETRIEVAL_STEP, **EXPECTED_VIT_FORWARD,
                     **EXPECTED_VIT_PRETRAIN, **EXPECTED_LINEAR_TRAIN,
                     **EXPECTED_SWIN_BASE_FORWARD, **EXPECTED_PALLAS_BLOCK,
-                    **EXPECTED_SWIN_XLA, **EXPECTED_SWIN_DROPOUT}
+                    **EXPECTED_SWIN_XLA, **EXPECTED_SWIN_DROPOUT,
+                    **EXPECTED_SWIN448_STEP}
     for name, (source, replaces) in KERNEL_SOURCES.items():
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces})
@@ -4164,6 +4592,8 @@ def swin_bars(name: str):
     """(group, norm, bar) of a parameter of the Swin-S pretrain model."""
     if name.endswith(".relative_position_bias_table"):
         return "Swin relative-position tables", "max", SWIN_GRAD_BAR
+    if name.endswith(".absolute_pos_embed"):
+        return "Swin absolute position table (ape)", "max", SWIN_GRAD_BAR
     if name.startswith("conv.backbone."):
         return "Swin backbone", "max", SWIN_GRAD_BAR
     return "fusion / heads", "max", GRAD_BAR
@@ -4460,7 +4890,8 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
                    swin: bool = False, with_switches: bool = False,
                    attn_impl: str = "auto", config=None, label: str = None,
                    expected: dict = None, bars=None,
-                   seq_n: int = None, versus_record: bool = False) -> dict:
+                   seq_n: int = None, versus_record: bool = False,
+                   batch: int = None, report=None) -> dict:
     """The MLM+ITM pretrain train step (ResNet-101, or with ``swin`` the
     step of record on Swin-S with DropPath 0.3, + BERT-base, S = 131, b32,
     dropout 0.1) on the kernels and on the plain versions from one seed;
@@ -4479,15 +4910,17 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     must run at N = ``seq_n``. On 'pallas_block' / 'xla' the backbone is on
     that route as on 'pallas'; with ``versus_record`` (Swin-S) the turns are
     the step of record and this one (record, this, this, record);
-    ``timed_steps=0`` leaves the timing out. Returns the launch counts of
-    one step."""
+    ``timed_steps=0`` leaves the timing out. ``batch`` replaces
+    ``TRAIN_BATCH``; ``report(step, batch, versus_step)`` runs last, on
+    the kernel step (and the step it was timed beside, or None). Returns
+    the launch counts of one step."""
     import functools
     from mvlt_tpu_torch import flagship
     from mvlt_tpu_torch.models.backbones.adapter import image_tokens
     from mvlt_tpu_torch.ops import kernels
     from mvlt_tpu_torch.ops.layers import DropoutMasks
     from mvlt_tpu_torch.train.steps import seq2seq_coin_flip
-    B = TRAIN_BATCH
+    B = batch or TRAIN_BATCH
     build = functools.partial(flagship.build_swin_pretrain_train_step if swin
                               else flagship.build_pretrain_train_step,
                               config=config)
@@ -4512,6 +4945,7 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
     n_params = sum(p.numel() for p in step_k.model.parameters())
     labels = (batch["caption_label"] != -100).sum().item()
     S = 2 + image_tokens(step_k.model.config) + PRETRAIN_TEXT
+    assert batch["image"].shape[0] == B
     f = step_k.model.config.fusion
     amask = B * f.num_attention_heads * S * S * 2
     print(f"{label} built twice in {time.perf_counter() - t0:.1f} s: "
@@ -4585,6 +5019,8 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
 
     if not timed_steps:
         print(f"{label}: checked and counted, not timed", flush=True)
+        if report is not None:
+            report(step_k, batch, None)
         return counts
     # turns: plain vs kernels, the kernel step with the switches off / on,
     # the kernel step on 'auto' / another route, or the step of record /
@@ -4627,7 +5063,7 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
         a, b = turns[:2]
         what = ("switches" if with_switches else "attn_impl" if routed
                 else f"the step of record vs {label}:")
-        print(f"MLM+ITM Swin-S pretrain step b{B} (S = {S}) on {card}, "
+        print(f"MLM+ITM {label} b{B} (S = {S}) on {card}, "
               f"kernels: {what} {a} {ms[a]:.3f} ms/step "
               f"({B * 1e3 / ms[a]:.1f} samples/s), {b} {ms[b]:.3f} "
               f"ms/step ({B * 1e3 / ms[b]:.1f} samples/s); runs "
@@ -4640,6 +5076,8 @@ def pretrain_phase(dev, card: str, timed_steps: int = 6,
               f"{ms_p:.3f} ms/step ({B * 1e3 / ms_p:.1f} samples/s); runs "
               f"{json.dumps(times)}; peak memory in a kernel step "
               f"{gib['kernels']}", flush=True)
+    if report is not None:
+        report(step_k, batch, steps[versus][0] if versus else None)
     return counts
 
 
@@ -7043,7 +7481,8 @@ if __name__ == "__main__":
              "--caption-driver": caption_driver_main,
              "--retrieval-driver": retrieval_driver_main,
              "--backbones": backbones_main,
-             "--swin-routes": swin_routes_main, "--long-n": long_form_main}
+             "--swin-routes": swin_routes_main, "--long-n": long_form_main,
+             "--single-card": single_card_main}
     flags = sys.argv[1:]
     LOADER_PACE = "--loader-pace" in flags
     flags = [f for f in flags if f != "--loader-pace"]

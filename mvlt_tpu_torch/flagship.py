@@ -53,6 +53,13 @@
   ``build_swin_pretrain_train_step``; the Swin route (``attn_impl``) is
   chosen as JAX's tests choose it, by building the backbone with it (JAX's
   drivers expose no option).
+- What JAX runs on one device beside those: VQA serving and the step of
+  record on Swin-S @448 (window 7; stage 4's 14 x 14 map has a shifted
+  block on the wide routes; S = 221 / 278), Swin-S with ``ape`` (the
+  absolute position table), the ViT-B/16 pretrain step with its dropouts at
+  0.1, and the step of record with AdamW's first moment in bf16
+  (``adam_mu_dtype``). Their configs pass as ``config=``; the builders size
+  the images from the config (:func:`config_image_size`).
 
 Weights are random, drawn from a numpy seed: normal(0, 0.02) for every dense
 and conv weight, bias, embedding and relative-position table, and LayerNorm
@@ -204,6 +211,75 @@ def flagship_swin_base_vqa_config() -> MVLTConfig:
     return dataclasses.replace(flagship_vqa_config(), swin=swin_base())
 
 
+def flagship_swin448_vqa_config() -> MVLTConfig:
+    """VQA serving on Swin-S @448: :func:`flagship_vqa_config` with
+    ``swin.img_size = 448`` and the published window 7 (the
+    relative-position tables depend only on the window, so the window-7
+    Swin-S weights load unchanged). The maps are 112 / 56 / 28 / 14: stage
+    4 (C = 768) is larger than its window, 4 windows an image, and its
+    second block is shifted (JAX's ``_fused_half_blocks`` with the roll,
+    ``swin.py:483-530``); 196 image tokens, S = 1 + 196 + 1 + 23 = 221."""
+    cfg = flagship_vqa_config()
+    return dataclasses.replace(
+        cfg, swin=dataclasses.replace(cfg.swin, img_size=448))
+
+
+def flagship_swin448_pretrain_config() -> MVLTConfig:
+    """The Swin-S step of record (:func:`flagship_swin_pretrain_config`:
+    DropPath 0.3, fusion dropouts 0.1, ITM, text 80) at 448: stage 4's
+    shifted block trains on ``swin_half_block`` with the shift gather; S =
+    1 + 196 + 1 + 80 = 278."""
+    cfg = flagship_swin_pretrain_config()
+    return dataclasses.replace(
+        cfg, swin=dataclasses.replace(cfg.swin, img_size=448))
+
+
+def flagship_swin_ape_vqa_config() -> MVLTConfig:
+    """:func:`flagship_vqa_config` with ``swin.ape = True``: the absolute
+    position table (1, 3136, 96) added after the patch embedding
+    (``swin.py:612-617``; the reference Swin YAMLs' ``APE`` option)."""
+    cfg = flagship_vqa_config()
+    return dataclasses.replace(cfg,
+                               swin=dataclasses.replace(cfg.swin, ape=True))
+
+
+def flagship_swin_ape_pretrain_config() -> MVLTConfig:
+    """The Swin-S step of record with ``swin.ape = True``."""
+    cfg = flagship_swin_pretrain_config()
+    return dataclasses.replace(cfg,
+                               swin=dataclasses.replace(cfg.swin, ape=True))
+
+
+def flagship_vit_dropout_pretrain_config() -> MVLTConfig:
+    """MLM+ITM pretraining on ViT-B/16 @224
+    (:func:`flagship_vit_pretrain_config`, S = 278) with ``vit.dropout =
+    vit.attention_dropout = 0.1`` (the ViT paper pre-trains ViT-B on
+    ImageNet-21k with dropout 0.1; JAX's dropouts are
+    ``mvlt_tpu/models/backbones/vit.py:36-45, 70``)."""
+    cfg = flagship_vit_pretrain_config()
+    return dataclasses.replace(cfg, vit=dataclasses.replace(
+        cfg.vit, dropout=0.1, attention_dropout=0.1))
+
+
+def flagship_swin_bf16_moments_pretrain_config() -> MVLTConfig:
+    """The Swin-S step of record with ``adam_mu_dtype = 'bfloat16'``: AdamW's
+    first moment stored in bf16 (optax's ``mu_dtype``, ``mvlt_tpu/train/
+    state.py:45-47``), 2 bytes less per trained element."""
+    return dataclasses.replace(flagship_swin_pretrain_config(),
+                               adam_mu_dtype="bfloat16")
+
+
+def config_image_size(cfg: MVLTConfig) -> int:
+    """The image side a config's backbone is built for: ``swin.img_size``
+    or ``vit.image_size``; 224 for the ResNets and the linear patch."""
+    conv = cfg.conv.lower()
+    if conv in ("swin", "swintransformer"):
+        return cfg.swin.img_size
+    if conv in ("vit", "visiontransformer"):
+        return cfg.vit.image_size
+    return 224
+
+
 def _need_cuda(device, what: str) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -247,17 +323,19 @@ def example_inputs(batch: int, seq_len: int, seed: int = 0,
 def build_vqa_forward(batch: int = 8, seq_len: int = 23,
                       dtype: torch.dtype = torch.bfloat16, device="cuda",
                       seed: int = 0, config: MVLTConfig = None,
-                      image_size: int = 224) -> Tuple[Callable, Tuple]:
+                      image_size: int = None) -> Tuple[Callable, Tuple]:
     """(forward, (image, question)) for the flagship VQA forward.
     ``forward(image, question, plain=False)`` returns the (B, answers)
     logits; ``forward.model`` is the seeded :class:`VQAModel` of
-    ``config`` (default :func:`flagship_vqa_config`). ``image_size`` and a
-    tiny ``config`` shrink it for tests. ``device='cuda'`` without a CUDA
+    ``config`` (default :func:`flagship_vqa_config`); the images are
+    ``image_size`` (default: :func:`config_image_size`). ``image_size`` and
+    a tiny ``config`` shrink it for tests. ``device='cuda'`` without a CUDA
     device raises: the flagship never falls back to the CPU."""
     device = _need_cuda(device, "build_vqa_forward")
     cfg = config or flagship_vqa_config()
     model = VQAModel(cfg, dtype=dtype, device=device)
     init_seeded_(model, seed)
+    image_size = image_size or config_image_size(cfg)
     image, question = example_inputs(batch, seq_len, seed, image_size,
                                      vocab=min(30000, cfg.fusion.vocab_size))
 
@@ -279,7 +357,7 @@ def build_vqa_train_step(batch: int = 32, seq_len: int = 23, device="cuda",
                          seed: int = 0, plain: bool = False,
                          compute_dtype: torch.dtype = torch.bfloat16,
                          config: MVLTConfig = None,
-                         image_size: int = 224) -> Tuple[Callable, dict]:
+                         image_size: int = None) -> Tuple[Callable, dict]:
     """(step, batch) for the VQA finetune train step. ``step(batch)`` runs
     forward + backward + AdamW and returns ``{"loss", "accuracy"}``;
     ``step.model`` / ``step.optimizer`` are the seeded :class:`VQAModel`
@@ -293,7 +371,8 @@ def build_vqa_train_step(batch: int = 32, seq_len: int = 23, device="cuda",
     model = VQAModel(cfg, dtype=torch.float32, device=device,
                      compute_dtype=compute_dtype)
     init_seeded_(model, seed)
-    image, question = example_inputs(batch, seq_len, seed, image_size,
+    image, question = example_inputs(batch, seq_len, seed,
+                                     image_size or config_image_size(cfg),
                                      vocab=min(30000, cfg.fusion.vocab_size))
     label = example_labels(batch, cfg.result_num, seed)
     step = make_vqa_step(model, make_optimizer(model, cfg), plain=plain)
@@ -354,7 +433,8 @@ def build_pretrain_train_step(batch: int = 32, text_len: int = 80,
                               plain: bool = False,
                               compute_dtype: torch.dtype = torch.bfloat16,
                               config: MVLTConfig = None,
-                              image_size: int = 224) -> Tuple[Callable, dict]:
+                              image_size: int = None
+                              ) -> Tuple[Callable, dict]:
     """(step, batch) for the MLM+ITM pretrain train step (ResNet-101; with
     ``config=flagship_swin_pretrain_config()`` the Swin-S step of record, as
     :func:`build_swin_pretrain_train_step` builds it).
@@ -364,15 +444,16 @@ def build_pretrain_train_step(batch: int = 32, text_len: int = 80,
     ``compute_dtype`` math) and its AdamW, ``step.masks`` its dropout-mask
     source (a generator on ``device`` seeded with ``seed``). ``plain=True``
     runs the kernels' plain versions. ``config`` (default
-    :func:`flagship_pretrain_config`) and ``image_size`` shrink it for
-    tests. ``device='cuda'`` without a CUDA device raises: the train step
+    :func:`flagship_pretrain_config`) and ``image_size`` (default:
+    :func:`config_image_size`) shrink it for tests. ``device='cuda'`` without a CUDA device raises: the train step
     never falls back to the CPU."""
     device = _need_cuda(device, "build_pretrain_train_step")
     cfg = config or flagship_pretrain_config()
     model = PretrainModel(cfg, dtype=torch.float32, device=device,
                           compute_dtype=compute_dtype)
     init_seeded_(model, seed)
-    data = example_pretrain_batch(batch, text_len, seed, image_size,
+    data = example_pretrain_batch(batch, text_len, seed,
+                                  image_size or config_image_size(cfg),
                                   vocab=min(30000, cfg.fusion.vocab_size),
                                   mask_token_id=cfg.mask_token_id)
     step = make_pretrain_step(model, make_optimizer(model, cfg), plain=plain)
@@ -385,7 +466,7 @@ def build_swin_pretrain_train_step(batch: int = 32, text_len: int = 80,
                                    plain: bool = False,
                                    compute_dtype: torch.dtype = torch.bfloat16,
                                    config: MVLTConfig = None,
-                                   image_size: int = 224
+                                   image_size: int = None
                                    ) -> Tuple[Callable, dict]:
     """(step, batch) for the pretrain train step of record: Swin-S @224 +
     BERT-base over S = 131, DropPath 0.3 and fusion dropouts 0.1, the

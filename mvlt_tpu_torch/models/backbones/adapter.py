@@ -111,7 +111,7 @@ class VisualAdapter(nn.Module):
         in the compute dtype (N twice a view's tokens for two views).
         ``train`` puts the BatchNorms of the ResNet and the linear patch on
         batch statistics; ``masks`` (a :class:`DropoutMasks`) turns the
-        Swin backbone's DropPath on."""
+        Swin backbone's DropPath and dropout and the ViT's dropout on."""
         if image.dtype == torch.uint8:
             image = device_var_normalize(image)
         if image.dim() == 5:
@@ -126,8 +126,7 @@ class VisualAdapter(nn.Module):
             # a view of a two-view batch is strided; the patch embedding's
             # reshape copies it into the rows the kernels take
             x = image.permute(0, 2, 3, 1).to(self.dtype)            # NHWC
-            tokens = (self.backbone(x, ops, masks) if self.kind == "swin"
-                      else self.backbone(x, ops, train))
+            tokens = self.backbone(x, ops, masks)        # Swin or ViT
         tokens = gelu_exact(tokens)
         if self.resnet_fc is not None:
             tokens = self.resnet_fc(tokens, ops)

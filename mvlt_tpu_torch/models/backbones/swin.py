@@ -15,7 +15,11 @@ kernels ran:
   see :func:`uses_half_blocks` and :func:`half_weights_fit`; wider still
   (Swin-B stage 4, C = 1024) JAX's plain route, on which ``WindowAttention``
   'auto' picks ``window_block_attention`` (``swin.py:170-180, 338-366``):
-  LN1 -> ``window_block_attention`` (+x) -> LN2 -> ``Mlp``;
+  LN1 -> ``window_block_attention`` (+x) -> LN2 -> ``Mlp``. A wide stage
+  whose map is larger than its window (Swin-S stage 4 at 448: 14 x 14,
+  window 7) has shifted blocks: both wide routes roll the map around the
+  partition and take the shift mask in the bias (P = nW), as
+  ``_fused_half_blocks`` does (``swin.py:483-530``);
 - training (a gradient is needed, or DropPath multipliers are drawn):
   narrow stages run ``swin_full_block``'s training form (``swin.py:285-303``),
   wide stages ``swin_half_block`` (``swin.py:318-336``), both with the
@@ -56,6 +60,9 @@ not a scatter with atomics; serving caches the built bias.
 it, on every ``attn_impl``: the backward recomputes the block's forward
 (its kernels launch twice a step) on the DropPath and dropout draws of the
 first run. Serving is unchanged.
+
+``ape=True`` adds the absolute position table (1, H*W, embed_dim), f32,
+after the patch embedding and before the position dropout (swin.py:612-617).
 """
 
 from __future__ import annotations
@@ -303,9 +310,8 @@ class SwinBlock(nn.Module):
         H, W = self.resolution
         B, L, C = x.shape
         window, shift = self.window, self.shift
-        windows = window_partition(x.view(B, H, W, C), window)
         bias = self.attention_bias()
-        dt = windows.dtype
+        dt = x.dtype
         params = (self.norm1.weight, self.norm1.bias, self.qkv.weight.to(dt),
                   self.qkv.bias.to(dt), self.proj.weight.to(dt),
                   self.proj.bias.to(dt), self.norm2.weight, self.norm2.bias,
@@ -314,7 +320,12 @@ class SwinBlock(nn.Module):
         dp = drop_path_multipliers(masks, self.drop_path, B, x.device)
         spec = (H, W, window, shift) if shift else None
         train = dp is not None or (torch.is_grad_enabled() and any(
-            t.requires_grad for t in (windows, bias, *params)))
+            t.requires_grad for t in (x, bias, *params)))
+        if not train and uses_half_blocks(C):
+            # the serving halves take the rolled map, the shift entering
+            # only through the bias (_fused_half_blocks, swin.py:483-530)
+            return self._half_blocks(x, bias, ops)
+        windows = window_partition(x.view(B, H, W, C), window)
         if train and uses_half_blocks(C):
             y = ops.swin_half_block(windows, params, bias, self.scale,
                                     self.num_heads, shift_spec=spec, dp=dp)
@@ -324,8 +335,6 @@ class SwinBlock(nn.Module):
             y = ops.swin_full_block(windows, params, bias, self.scale,
                                     self.num_heads, shift_spec=spec, dp=dp,
                                     store_p=store)
-        elif uses_half_blocks(C):
-            y = self._half_blocks(windows, bias, ops)
         else:
             y = ops.swin_full_block(windows, params, bias, self.scale,
                                     self.num_heads, shift_spec=spec)
@@ -381,20 +390,26 @@ class SwinBlock(nn.Module):
             out = self.proj(ctx.transpose(1, 2).reshape(BW, N, C), ops)
         return dropout(out, masks, self.drop)
 
-    def _half_blocks(self, windows, bias, ops):
-        """Serving a block too wide for the whole-block kernel. Where the
-        halves fit (:func:`half_weights_fit`): ``swin_attn_half`` where
-        JAX's would run its own kernel (:func:`attn_half_admits`), else its
-        fallback, LN1 -> ``window_block_attention`` (+x); then
-        ``fused_mlp_preln``. Otherwise JAX's plain route: LN1 (K3) ->
-        ``window_block_attention`` (+x) -> LN2 (K3) -> ``Mlp`` (K1, GELU,
-        K1) (+res)."""
-        if self.shift:
-            # the wide routes serve only stages whose map fits one window
-            # (Swin-S / Swin-B stage 4); a shifted wide stage is not ported
-            raise NotImplementedError(
-                f"shifted Swin block at width {self.dim} (half-block route)")
-        BW, N, C = windows.shape
+    def _half_blocks(self, x, bias, ops):
+        """Serving a block too wide for the whole-block kernel, as JAX's
+        ``_fused_half_blocks`` (swin.py:483-530) and its plain route
+        (:338-366) serve it: a shifted block rolls the (B, H, W, C) map by
+        (-shift, -shift) before the window partition and back after the
+        reverse, and its bias carries the -100 shift mask per window (P =
+        nW). Where the halves fit (:func:`half_weights_fit`):
+        ``swin_attn_half`` where JAX's would run its own kernel
+        (:func:`attn_half_admits`), else its fallback, LN1 ->
+        ``window_block_attention`` (+x); then ``fused_mlp_preln``. Otherwise
+        JAX's plain route: LN1 (K3) -> ``window_block_attention`` (+x) ->
+        LN2 (K3) -> ``Mlp`` (K1, GELU, K1) (+res). x (B, H*W, C)."""
+        H, W = self.resolution
+        B, L, C = x.shape
+        window, shift = self.window, self.shift
+        xm = x.view(B, H, W, C)
+        if shift:
+            xm = torch.roll(xm, (-shift, -shift), (1, 2))
+        windows = window_partition(xm, window)
+        BW, N, _ = windows.shape
         # the products in the activations' dtype (f32 masters serve in bf16)
         dt = windows.dtype
         qkv = (self.qkv.weight.to(dt), self.qkv.bias.to(dt))
@@ -403,19 +418,26 @@ class SwinBlock(nn.Module):
             y = ops.window_block_attention(
                 self.norm1(windows, ops), *qkv, *proj, bias, self.scale,
                 self.num_heads, residual=windows)
-            return y + self.mlp(self.norm2(y, ops), ops)
-        if attn_half_admits(BW, N, C, bias.shape[0]):
-            y = ops.swin_attn_half(windows, self.norm1.weight,
-                                   self.norm1.bias, *qkv, *proj, bias,
-                                   self.scale, self.num_heads)
+            y = y + self.mlp(self.norm2(y, ops), ops)
         else:
-            y = ops.window_block_attention(
-                self.norm1(windows, ops), *qkv, *proj, bias, self.scale,
-                self.num_heads, residual=windows)
-        mlp = self.mlp
-        return ops.fused_mlp_preln(y, self.norm2.weight, self.norm2.bias,
-                                   mlp.fc1.weight.to(dt), mlp.fc1.bias.to(dt),
-                                   mlp.fc2.weight.to(dt), mlp.fc2.bias.to(dt))
+            if attn_half_admits(BW, N, C, bias.shape[0]):
+                y = ops.swin_attn_half(windows, self.norm1.weight,
+                                       self.norm1.bias, *qkv, *proj, bias,
+                                       self.scale, self.num_heads)
+            else:
+                y = ops.window_block_attention(
+                    self.norm1(windows, ops), *qkv, *proj, bias, self.scale,
+                    self.num_heads, residual=windows)
+            mlp = self.mlp
+            y = ops.fused_mlp_preln(y, self.norm2.weight, self.norm2.bias,
+                                    mlp.fc1.weight.to(dt),
+                                    mlp.fc1.bias.to(dt),
+                                    mlp.fc2.weight.to(dt),
+                                    mlp.fc2.bias.to(dt))
+        y = window_reverse(y, window, H, W)
+        if shift:
+            y = torch.roll(y, (shift, shift), (1, 2))
+        return y.reshape(B, L, C)
 
 
 def _cast(t, dtype):
@@ -480,11 +502,16 @@ class SwinTransformer(nn.Module):
         cfg = config
         self.attn_impl = check_attn_impl(attn_impl)
         self.remat = remat
-        if cfg.ape:
-            raise NotImplementedError(
-                "absolute position embedding (ape=True) is not ported yet; "
-                "see ROADMAP.md queue A")
         self.config, self.dtype = cfg, compute_dtype or dtype
+        if cfg.ape:
+            # swin.py:612-616: (1, H*W, embed_dim) f32, truncated normal 0.02
+            pr = cfg.patches_resolution
+            self.absolute_pos_embed = nn.Parameter(nn.init.trunc_normal_(
+                torch.empty(1, pr[0] * pr[1], cfg.embed_dim,
+                            dtype=torch.float32, device=device),
+                std=0.02, a=-0.04, b=0.04))
+        else:
+            self.absolute_pos_embed = None
         # stochastic depth: a linspace over all blocks (swin.py:620)
         dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans,
@@ -518,6 +545,11 @@ class SwinTransformer(nn.Module):
         if x.shape[1] == cfg.in_chans and x.shape[1] != x.shape[2]:
             x = x.permute(0, 2, 3, 1)            # NCHW accepted (swin.py:605)
         x = self.patch_embed(x.to(self.dtype), ops)
+        if self.absolute_pos_embed is not None:
+            # swin.py:616 adds the f32 table to the embedding, which makes
+            # JAX's residual stream f32; the port's stays in the compute
+            # dtype, the sum rounded once from f32
+            x = (x.float() + self.absolute_pos_embed).to(self.dtype)
         x = dropout(x, masks, cfg.drop_rate)      # swin.py:617
         for i, blocks in enumerate(self.stages):
             for block in blocks:

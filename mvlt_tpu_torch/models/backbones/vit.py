@@ -18,8 +18,18 @@ in serving, ``F.linear`` under autograd), the LayerNorms :class:`LayerNorm`
 :func:`~mvlt_tpu_torch.ops.attention.multi_head_attention` (SDPA), as the
 fusion encoder's decode path runs it. q / k / v are one fused ``qkv``
 dense (3 * hidden, hidden) where flax keeps three ``DenseGeneral``
-(``utils/convert.py`` maps them). Dropout above 0 in training is not
-ported: both rates are 0 in JAX's default and in the reference.
+(``utils/convert.py`` maps them).
+
+Training with ``dropout`` / ``attention_dropout`` above 0 (both 0 in JAX's
+default and in the reference) follows flax's ``ViT`` and ``ViTBlock``
+(``vit.py:36-45, 70``), its masks drawn from the step's mask source in
+flax's trace order: the position dropout, then in each block the
+attention-probability dropout, the dropout after attention, after the GELU
+and after ``mlp_fc2``. flax's ``MultiHeadDotProductAttention`` broadcasts
+its attention mask (``broadcast_dropout=True``): one (1, 1, N, N) draw for
+every image and head; that attention runs in plain torch with the explicit
+mask (:func:`~mvlt_tpu_torch.ops.attention.dropout_attention`), as JAX
+runs it in XLA, and SDPA serves wherever no attention dropout is on.
 """
 
 from __future__ import annotations
@@ -28,8 +38,9 @@ import torch
 from torch import nn
 
 from mvlt_tpu_torch.config import ViTConfig
-from mvlt_tpu_torch.ops.attention import multi_head_attention
-from mvlt_tpu_torch.ops.layers import Dense, LayerNorm, gelu_exact
+from mvlt_tpu_torch.ops.attention import (dropout_attention,
+                                          multi_head_attention)
+from mvlt_tpu_torch.ops.layers import Dense, LayerNorm, dropout, gelu_exact
 
 VIT_LN_EPS = 1e-6
 
@@ -37,10 +48,12 @@ VIT_LN_EPS = 1e-6
 class ViTBlock(nn.Module):
     """Pre-LN encoder block (``vit.py:23-48``)."""
 
-    def __init__(self, hidden: int, num_heads: int, mlp_dim: int, *,
+    def __init__(self, hidden: int, num_heads: int, mlp_dim: int,
+                 dropout: float = 0.0, attention_dropout: float = 0.0, *,
                  dtype: torch.dtype, device):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout, self.attention_dropout = dropout, attention_dropout
         self.ln_1 = LayerNorm(hidden, VIT_LN_EPS, device=device)
         self.qkv = Dense(hidden, 3 * hidden, dtype=dtype, device=device)
         self.out = Dense(hidden, hidden, dtype=dtype, device=device)
@@ -48,16 +61,21 @@ class ViTBlock(nn.Module):
         self.mlp_fc1 = Dense(hidden, mlp_dim, dtype=dtype, device=device)
         self.mlp_fc2 = Dense(mlp_dim, hidden, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ops, masks=None) -> torch.Tensor:
+        """``masks`` (a :class:`DropoutMasks`) turns the dropouts on."""
         B, N, C = x.shape
-        nH = self.num_heads
+        nH, rate = self.num_heads, self.dropout
         q, k, v = self.qkv(self.ln_1(x, ops), ops).view(
             B, N, 3, nH, C // nH).permute(2, 0, 3, 1, 4).unbind(0)
-        ctx = multi_head_attention(q, k, v)
-        x = x + self.out(ctx.transpose(1, 2).reshape(B, N, C), ops)
-        y = self.mlp_fc2(gelu_exact(self.mlp_fc1(self.ln_2(x, ops), ops)),
-                         ops)
-        return x + y
+        if masks is not None and self.attention_dropout > 0.0:
+            ctx = dropout_attention(q, k, v, masks, self.attention_dropout)
+        else:
+            ctx = multi_head_attention(q, k, v)
+        h = self.out(ctx.transpose(1, 2).reshape(B, N, C), ops)
+        x = x + dropout(h, masks, rate)
+        y = dropout(gelu_exact(self.mlp_fc1(self.ln_2(x, ops), ops)), masks,
+                    rate)
+        return x + dropout(self.mlp_fc2(y, ops), masks, rate)
 
 
 class ViT(nn.Module):
@@ -82,18 +100,15 @@ class ViT(nn.Module):
             1, self.tokens + 1, cfg.hidden_dim, dtype=torch.float32,
             device=device))
         self.blocks = nn.ModuleList([
-            ViTBlock(cfg.hidden_dim, cfg.num_heads, cfg.mlp_dim, dtype=dtype,
-                     device=device) for _ in range(cfg.num_layers)])
+            ViTBlock(cfg.hidden_dim, cfg.num_heads, cfg.mlp_dim, cfg.dropout,
+                     cfg.attention_dropout, dtype=dtype, device=device)
+            for _ in range(cfg.num_layers)])
         self.ln = LayerNorm(cfg.hidden_dim, VIT_LN_EPS, device=device)
 
-    def forward(self, x: torch.Tensor, ops, train: bool = False
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ops, masks=None) -> torch.Tensor:
+        """``masks`` (a :class:`DropoutMasks`) turns the dropouts on; its
+        draws come in flax's order (module docstring)."""
         cfg = self.config
-        if train and (cfg.dropout or cfg.attention_dropout):
-            raise NotImplementedError(
-                f"ViT training with dropout={cfg.dropout} / attention_dropout"
-                f"={cfg.attention_dropout}: only 0 is ported (ROADMAP.md "
-                "queue A, 'Other backbones')")
         B, H, W, C = x.shape
         p = cfg.patch_size
         n = (H // p) * (W // p)
@@ -107,6 +122,7 @@ class ViT(nn.Module):
         x = self.patch_proj(x.reshape(B, n, p * p * C), ops)
         cls = self.cls_token.to(x.dtype).expand(B, -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embedding.to(x.dtype)
+        x = dropout(x, masks, cfg.dropout)                  # vit.py:70
         for block in self.blocks:
-            x = block(x, ops)
+            x = block(x, ops, masks)
         return self.ln(x[:, 1:], ops)       # per row: the class token drops

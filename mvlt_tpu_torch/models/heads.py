@@ -37,13 +37,17 @@ from mvlt_tpu_torch.ops.layers import (Dense, LayerNorm,
 
 def _check_masks(config: MVLTConfig, masks) -> None:
     f = config.fusion
-    swin = config.conv.lower() in ("swin", "swintransformer")
+    conv = config.conv.lower()
+    swin = conv in ("swin", "swintransformer")
+    vit = conv in ("vit", "visiontransformer")
     if masks is None and (f.hidden_dropout_prob or
                           f.attention_probs_dropout_prob or
-                          (swin and config.swin.drop_path_rate)):
-        raise ValueError("training with fusion dropout or Swin DropPath needs "
-                         "a mask source (masks=DropoutMasks(...)); the train "
-                         "steps pass theirs")
+                          (swin and config.swin.drop_path_rate) or
+                          (vit and (config.vit.dropout or
+                                    config.vit.attention_dropout))):
+        raise ValueError("training with fusion dropout, Swin DropPath or ViT "
+                         "dropout needs a mask source (masks=DropoutMasks("
+                         "...)); the train steps pass theirs")
 
 
 def check_fusion_fits(config: MVLTConfig, text_len: int, views: int = 1,

@@ -1,9 +1,11 @@
 """Plain attention of the port (counterpart of ``mvlt_tpu/ops/attention.py``),
 for the layers that JAX keeps out of its fused kernels: the KV-cached decode
 steps and the prefill that returns each layer's (k, v)
-(``fusion.py:113,236``). JAX runs them in XLA (``_use_pallas`` is false off
-the TPU and for decode shapes, and ``flash_attention`` is a stub), so they
-are plain PyTorch here too, not a kernel.
+(``fusion.py:113,236``), and the ViT's attention (flax's
+``MultiHeadDotProductAttention``, with its dropout in training). JAX runs
+them in XLA (``_use_pallas`` is false off the TPU and for decode shapes,
+and ``flash_attention`` is a stub), so they are plain PyTorch here too, not
+a kernel.
 
 :func:`multi_head_attention`, what the layers call as JAX's layers do,
 computes what JAX's dispatcher falls back to there, ``reference_attention``,
@@ -35,3 +37,25 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bias = bias.to(q.dtype)
     return F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
                                           scale=scale)
+
+
+def dropout_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      masks, rate: float) -> torch.Tensor:
+    """flax ``MultiHeadDotProductAttention`` with its attention dropout on
+    (``dot_product_attention_weights``, ``broadcast_dropout=True``), in
+    plain torch as JAX runs it in XLA. q, k, v (B, H, N, D). q is divided
+    by sqrt(D) in its dtype; the scores and the softmax are float32 (flax
+    keeps them in q's dtype: in bf16 the port rounds once, after the
+    softmax, where flax rounds the scores too), the probabilities rounded to
+    q's dtype and multiplied by ``keep.astype(dtype) / keep_prob`` in that
+    dtype, one (1, 1, N, N) keep mask drawn from ``masks`` for every image
+    and head; then PV. Returns (B, H, N, D) in v's dtype."""
+    keep = 1.0 - rate
+    dtype = q.dtype
+    q = q / torch.tensor(q.shape[-1] ** 0.5, dtype=dtype)
+    p = torch.softmax(torch.matmul(q.float(), k.float().transpose(-1, -2)),
+                      dim=-1).to(dtype)
+    mask = masks.draw(keep, (1, 1) + tuple(p.shape[-2:]), p.device)
+    p = p * (mask.to(dtype) / torch.tensor(keep, dtype=dtype,
+                                           device=p.device))
+    return torch.matmul(p, v)

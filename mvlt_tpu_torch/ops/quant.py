@@ -49,7 +49,10 @@ import torch
 _FUSED_QKV = re.compile(r"fusion\.layers\.\d+\.qkv\.(weight|bias)")
 _VIT_ATTENTION = re.compile(r"conv\.backbone\.blocks\.\d+\.(qkv|out)\."
                             r"(weight|bias)")
-_VIT_TABLES = ("conv.backbone.cls_token", "conv.backbone.pos_embedding")
+# position tables: one JAX leaf each, in the port's shape (the ViT's two,
+# the Swin's ``ape`` table)
+_TABLES = ("conv.backbone.cls_token", "conv.backbone.pos_embedding",
+           "conv.backbone.absolute_pos_embed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +114,7 @@ def jax_leaf_shapes(name: str, shape, config) -> List[Tuple[int, ...]]:
     if _FUSED_QKV.fullmatch(name):
         part = (shape[0] // 3,) + shape[1:]
         return [part[::-1]] * 3
-    if name in _VIT_TABLES:
+    if name in _TABLES:
         return [shape]
     if name.endswith(".weight") and len(shape) == 2:
         return [shape[::-1]]                       # Dense (out, in) -> (in, out)

@@ -1,7 +1,7 @@
 """Where the device time of a train step or a report-generation call goes,
 on one GPU.
 
-    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|swin_pretrain_remat|caption_step|caption_generate|retrieval_step|retrieval_grid|vqa_driver|vqa_driver_bare|pretrain_driver] [--batch 32] [--steps 3] [--attn-impl auto|pallas|pallas_block|xla] [--conv vit|linear|swin|resnet101|resnet50]
+    python -m mvlt_tpu_torch.profile_step [--path vqa|pretrain|swin_pretrain|swin_pretrain_remat|caption_step|caption_generate|retrieval_step|retrieval_grid|vqa_driver|vqa_driver_bare|pretrain_driver] [--batch 32] [--steps 3] [--attn-impl auto|pallas|pallas_block|xla] [--conv vit|linear|swin|resnet101|resnet50] [--trace DIR]
 
 Builds the VQA finetune train step (``--path vqa``, the default:
 :func:`mvlt_tpu_torch.flagship.build_vqa_train_step`), the MLM+ITM
@@ -76,6 +76,11 @@ the device prefetch of uint8 frames, the coin flip, the masks, the step,
 (``U8CacheSource``) of ``PRETRAIN_DRIVER_SAMPLES`` frames of 224,
 normalized on the device, written under ``build/profile_pretrain_driver``,
 after ``DRIVER_STEADY_FROM`` steps.
+
+``--trace DIR`` traces the profiled steps through
+:func:`mvlt_tpu_torch.utils.profiling.trace`, each step inside
+``annotate("mvlt step")``, and keeps the trace, ``DIR/trace.json`` (Chrome
+trace format, for Perfetto), beside the same printed breakdown.
 """
 
 from __future__ import annotations
@@ -145,7 +150,8 @@ K1_PARTS = [
 
 # the profiler also puts these ranges on the device timeline; they are not
 # kernels and would count their kernels twice
-ANNOTATIONS = ("Optimizer.", "ProfilerStep", "aten::", "autograd::")
+ANNOTATIONS = ("Optimizer.", "ProfilerStep", "aten::", "autograd::",
+               "mvlt step")
 SAMPLE = "clocks.sm,power.draw,temperature.gpu"
 SWITCHES = ("MVLT_KERNEL_DROPOUT", "MVLT_STOREP", "MVLT_NO_STOREP")
 
@@ -353,6 +359,9 @@ def main() -> int:
                     choices=("vit", "linear", "swin", "resnet101", "resnet50"),
                     help="the backbone of --path vqa / pretrain / "
                          "caption_step")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="keep the profiled steps' trace as DIR/trace.json "
+                         "(mvlt_tpu_torch.utils.profiling.trace)")
     args = ap.parse_args()
     if args.conv and args.path not in ("vqa", "pretrain", "caption_step"):
         ap.error("--conv applies to --path vqa, pretrain and caption_step")
@@ -369,6 +378,7 @@ def main() -> int:
     from mvlt_tpu_torch import flagship
     from mvlt_tpu_torch.models.backbones import adapter, swin
     from mvlt_tpu_torch.train.steps import seq2seq_coin_flip
+    from mvlt_tpu_torch.utils import profiling
     card = smi("name,power.limit")
     route = contextlib.nullcontext()
     if args.attn_impl != "auto":
@@ -389,10 +399,14 @@ def main() -> int:
     clocks.append(smi(SAMPLE))
     unprofiled_ms = sum(step_ms) / len(step_ms)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    traced = (profiling.trace(args.trace) if args.trace else
+              profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]))
+    with traced as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(batch)
+            with profiling.annotate("mvlt step"):
+                step(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -437,6 +451,9 @@ def main() -> int:
     print("top kernels (ms/step, launches/step, name):")
     for ms, n, name in sorted(kernels, reverse=True)[:15]:
         print(f"  {ms:8.3f} {n:5d}  {name[:110]}")
+    if args.trace:
+        path = os.path.join(args.trace, profiling.TRACE_FILE)
+        print(f"trace: {path}, {os.path.getsize(path)} bytes")
     return 0
 
 

@@ -125,7 +125,8 @@ _RULES = [
 _LEAF = {"kernel": ".weight", "bias": ".bias", "scale": ".weight",
          "embedding": "", "mean": ".running_mean", "var": ".running_var",
          "relative_position_bias_table": ".relative_position_bias_table",
-         "cls_token": ".cls_token", "pos_embedding": ".pos_embedding"}
+         "cls_token": ".cls_token", "pos_embedding": ".pos_embedding",
+         "absolute_pos_embed": ".absolute_pos_embed"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:

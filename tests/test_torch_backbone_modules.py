@@ -396,6 +396,12 @@ def test_fusion_length_guard_refuses_cuda_paths_beyond_288(monkeypatch,
 
 
 def test_vit_training_with_dropout_raises():
+    """ViT training with ``dropout`` 0.1 was refused until it was ported.
+    Now the adapter serves without masks, draws the ViT's hidden dropouts
+    (the position dropout, then three a block) from a mask source in
+    training, and a training loss without a mask source raises, as it does
+    for the fusion's dropouts; an image the position table was not built
+    for still raises."""
     cfg = dataclasses.replace(
         pcfg.MVLTConfig.for_vqa(result_num=4), conv="vit",
         vit=pcfg.ViTConfig(**dict(dataclasses.asdict(VIT), dropout=0.1)),
@@ -406,9 +412,23 @@ def test_vit_training_with_dropout_raises():
         cfg, dtype=torch.float32, device="cpu"))
     image = torch.randn(2, 3, 32, 32)
     with torch.no_grad():
-        assert adapter(image, PLAIN_OPS).shape == (2, 16, 32)   # serving
-    with pytest.raises(NotImplementedError, match="Other backbones"):
-        adapter(image, PLAIN_OPS, train=True)
+        served = adapter(image, PLAIN_OPS)
+        assert served.shape == (2, 16, 32)                       # serving
+        # the refusal of training with dropout is gone: with a mask source
+        # the ViT's hidden dropouts draw (2 layers, no attention dropout)
+        masks = DropoutMasks(torch.Generator().manual_seed(0), record=True)
+        trained = adapter(image, PLAIN_OPS, train=True, masks=masks)
+    assert [tuple(m.shape) for m in masks.recorded] == [(2, 17, 32)] + [
+        (2, 17, 32), (2, 17, 64), (2, 17, 32)] * 2
+    assert trained.shape == served.shape
+    assert not torch.equal(trained, served)
+    quiet = dataclasses.replace(cfg, fusion=dataclasses.replace(
+        cfg.fusion, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0))
+    with pytest.raises(ValueError, match="mask source"):
+        VQAModel(quiet, dtype=torch.float32, device="cpu").loss(
+            image, torch.ones(2, 5, dtype=torch.long),
+            torch.zeros(2, dtype=torch.long), plain=True)
     with pytest.raises(ValueError, match="position table"):
         adapter(torch.randn(2, 3, 48, 48), PLAIN_OPS)
 

@@ -2,7 +2,8 @@
 maps exactly once onto the port's ``state_dict``; a missing or an extra
 leaf raises; and flax -> port -> flax (``params_to_flax``) is bitwise equal
 on the VQA (Swin and ResNet with ``batch_stats``), pretrain, caption and
-retrieval trees."""
+retrieval trees, and on a Swin with ``ape=True``, whose table also comes
+from a reference-layout checkpoint."""
 
 import copy
 import dataclasses
@@ -170,3 +171,78 @@ def test_params_to_flax_round_trip_is_bitwise(task):
     del short["fusion.pooler.weight"]
     with pytest.raises(KeyError, match="no port tensor"):
         params_to_flax(short, variables)
+
+
+def _msft_layout(port_swin_sd):
+    """A port ``SwinTransformer`` state dict in the reference's layout (the
+    official MSFT ``.pth`` names; the patch embedding as a conv (E, C, p,
+    p))."""
+    out = {}
+    for k, v in port_swin_sd.items():
+        v = v.detach().clone()
+        parts = k.split(".")
+        if k == "patch_embed.proj.weight":
+            E, C = v.shape[0], 3
+            p = int(round((v.shape[1] // C) ** 0.5))
+            v = v.reshape(E, p, p, C).permute(0, 3, 1, 2).contiguous()
+        elif parts[0] == "stages":
+            rest = ".".join(parts[3:])
+            if rest.split(".")[0] in ("qkv", "proj",
+                                      "relative_position_bias_table"):
+                rest = "attn." + rest
+            k = f"layers.{parts[1]}.blocks.{parts[2]}.{rest}"
+        elif parts[0] == "downsamples":
+            k = f"layers.{parts[1]}.downsample.{'.'.join(parts[2:])}"
+        out[k] = v.numpy()
+    return out
+
+
+def test_ape_table_round_trips_and_loads_from_a_reference_checkpoint():
+    """``absolute_pos_embed`` (``ape=True``): flax -> port -> flax bitwise
+    on a VQA tree, the port model loading it strictly; and a
+    reference-layout Swin state dict holding the table converts through
+    the port's ``swin_from_torch`` (as JAX's, ``convert.py:135-136``) to
+    the tree JAX's gives, which loads strictly into a fresh port Swin and
+    gives back every tensor bitwise."""
+    from mvlt_tpu.utils import convert as jconvert
+    from mvlt_tpu_torch.flagship import init_seeded_
+    from mvlt_tpu_torch.models.backbones.swin import SwinTransformer
+    from mvlt_tpu_torch.utils import convert as pconvert
+    cfg = _task_config("vqa")
+    cfg = dataclasses.replace(cfg, swin=dataclasses.replace(cfg.swin,
+                                                            ape=True))
+    shapes = jax.eval_shape(lambda: JaxVQA(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 3, 16, 16)),
+        jnp.ones((1, 5), jnp.int32)))
+    rng = np.random.default_rng(4)
+    variables = jax.tree.map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes)
+    table = variables["params"]["conv"]["backbone"]["absolute_pos_embed"]
+    assert table.shape == (1, 16, 16)
+    sd = params_from_flax(variables)
+    assert np.array_equal(sd["conv.backbone.absolute_pos_embed"].numpy(),
+                          table)
+    back = params_to_flax(sd, variables)
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(variables),
+                            jax.tree_util.tree_leaves(back)):
+        assert a.dtype == b.dtype and np.array_equal(a, b), path
+    pcfg = port_config.MVLTConfig.from_json(cfg.to_json())
+    VQAModel(pcfg, device="cpu").load_state_dict(sd)              # strict
+
+    swin = init_seeded_(SwinTransformer(pcfg.swin, dtype=torch.float32,
+                                        device="cpu"), 5)
+    ref = _msft_layout(swin.state_dict())
+    assert ref["absolute_pos_embed"].shape == (1, 16, 16)
+    tree = pconvert.swin_from_torch(ref, pcfg.swin.depths)
+    want = jconvert.swin_from_torch(ref, cfg.swin.depths)
+    assert jax.tree.structure(tree) == jax.tree.structure(want)
+    for a, b in zip(jax.tree_util.tree_leaves(tree),
+                    jax.tree_util.tree_leaves(want)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    pre = "conv.backbone."
+    loaded = {k[len(pre):]: v for k, v in params_from_flax(
+        {"conv": {"backbone": tree}}).items()}
+    fresh = SwinTransformer(pcfg.swin, dtype=torch.float32, device="cpu")
+    fresh.load_state_dict(loaded)                                  # strict
+    for k, v in swin.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k

@@ -114,12 +114,15 @@ def test_vqa_logits_half_block_route(tiny, monkeypatch):
 
 
 def test_half_block_route_refuses_a_shifted_block(tiny, monkeypatch):
-    """No supported config sends a shifted block down the half route; one
-    that would raises instead of computing something unported."""
-    cfg, variables, image, question, _ = tiny
+    """A shifted block on the half route (stage 1 here: an 8 x 8 map,
+    window 4, shift 2; Swin-S stage 4 at 448) was refused until the wide
+    routes took the roll. It is served now as JAX's
+    ``_fused_half_blocks`` serves it: the map rolled around the partition,
+    the shift mask in the bias; the logits match JAX's in f32."""
+    cfg, variables, image, question, want = tiny
     monkeypatch.setattr(port_swin, "uses_half_blocks", lambda dim: True)
-    with pytest.raises(NotImplementedError, match="shifted"):
-        _port_logits(_port(cfg, variables), image, question)
+    got = _port_logits(_port(cfg, variables), image, question)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("impl", ["interpret_full", "interpret_half"])
@@ -207,10 +210,11 @@ def test_stage4_shift_is_dropped_when_map_equals_window():
 
 
 def test_adapter_refusals_name_their_roadmap_items():
-    """The adapter's refusal cites the ROADMAP.md queue-A item by name:
-    ViT training with dropout ('Other backbones'; ViT and the linear patch
-    were refused whole until they were ported); a conv that JAX does not
-    have is refused too. Two-view images, float or
+    """ViT training with dropout was the adapter's last refusal of a
+    ROADMAP.md queue-A item ('Other backbones'); it now trains: with a mask
+    source the ViT draws its masks (here the attention dropout's one (1, 1,
+    N, N) mask a block), without one it is deterministic. A conv that JAX does not have is refused. Two-view
+    images, float or
     uint8, were refused ('Adapter inputs') until the caption driver: each
     view now goes through its own backbone call, and the tokens of view 0
     come first."""
@@ -226,9 +230,17 @@ def test_adapter_refusals_name_their_roadmap_items():
                                      mlp_dim=32, attention_dropout=0.1)),
         dtype=torch.float32, device="cpu")
     init_seeded_(vit)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue A, 'Other backbones'"):
-        vit(torch.zeros(1, 3, 32, 32), PLAIN_OPS, train=True)
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    masks = DropoutMasks(torch.Generator().manual_seed(0), record=True)
+    image = torch.randn(1, 3, 32, 32, generator=torch.Generator()
+                        .manual_seed(1))
+    with torch.no_grad():
+        dropped = vit(image, PLAIN_OPS, train=True, masks=masks)
+        served = vit(image, PLAIN_OPS, train=True)
+    # attention_dropout 0.1, dropout 0: one layer's (1, 1, N, N) mask
+    assert [tuple(m.shape) for m in masks.recorded] == [(1, 1, 17, 17)]
+    assert dropped.shape == served.shape == (1, 16, 768)
+    assert not torch.equal(dropped, served)
     with pytest.raises(NotImplementedError, match="no such config.conv"):
         VisualAdapter(dataclasses.replace(cfg, conv="vgg"),
                       dtype=torch.float32, device="cpu")

@@ -170,6 +170,9 @@ def test_port_imports_nothing_of_mvlt_tpu():
         from mvlt_tpu_torch import run_report_generation, run_retrieval
         from mvlt_tpu_torch.utils import checkpoint, logging, convert
         from mvlt_tpu_torch.utils import bootstrap
+        from mvlt_tpu_torch.utils import misc, profiling
+        from mvlt_tpu_torch.train import state
+        from mvlt_tpu_torch import profile_step
         from mvlt_tpu_torch.models.backbones import adapter
         from mvlt_tpu_torch.models.backbones import linear_patch, vit
         from mvlt_tpu_torch.models.backbones import swin
@@ -179,6 +182,12 @@ def test_port_imports_nothing_of_mvlt_tpu():
         for impl in swin.ATTN_IMPLS:
             swin.SwinTransformer(cfg.swin, dtype=torch.bfloat16,
                                  device="meta", attn_impl=impl)
+        for make in (flagship.flagship_swin448_vqa_config,
+                     flagship.flagship_swin_ape_pretrain_config):
+            swin.SwinTransformer(make().swin, dtype=torch.bfloat16,
+                                 device="meta")
+        with profiling.annotate("x"):
+            profiling.StepTimer().start()
         run_vqa.parse_args(["--synthetic"])
         run_pretrain.parse_args(["--synthetic"])
         run_report_generation.parse_args(["--dataset", "synthetic"])
