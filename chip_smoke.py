@@ -6,8 +6,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``
 step's shapes only; ``--caption`` / ``--retrieval`` / ``--backbones`` /
 ``--vqa-driver`` / ``--pretrain-driver`` / ``--caption-driver`` /
 ``--retrieval-driver`` / ``--swin-routes`` / ``--long-n`` /
-``--single-card``: phases 1-2 and phase 10 / 11 / 12 / 13 / 14 / 15 / 16 /
-17 / 18 / 20 only; ``--loader-pace``:
+``--single-card`` / ``--multi-device``: phases 1-2 and phase 10 / 11 / 12
+/ 13 / 14 / 15 / 16 / 17 / 18 / 20 / 21 only; ``--loader-pace``:
 phases 1-2 and
 phases 13-16 with the drivers' loader-pace loops, which the default run
 leaves out; with a driver's flag, that phase alone with its loops). It
@@ -304,7 +304,27 @@ which raises on failure:
     through ``utils.profiling.trace`` (the file names the annotation and
     K1-K5). ``python3 chip_smoke.py --single-card`` runs phases 1-2 and this
     phase only;
-21. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
+21. multi-device, in processes of its own under ``MULTI_DEVICE_TIMEOUT``
+    (``--multi-device-run``, the process group killed at the limit): K2 /
+    K4's in-kernel dropout on a TP rank's heads (6-11 of 12, ``head0`` =
+    6; the mask and the outputs bitwise the 12-head launch's); the step of
+    record (Swin-S + BERT-base, b32, S = 131, DropPath 0.3, dropout 0.1)
+    one process on recorded masks; (a) the same through
+    ``make_pretrain_step(mesh=...)`` on a (1, 1) mesh over NCCL at world
+    size 1: losses and parameters bitwise, launches as
+    ``EXPECTED_SWIN_PRETRAIN``; then two gloo ranks both on ``cuda:0``
+    (NCCL refuses two ranks on one card), rank 0's weights broadcast: (b)
+    DP 2, 16 rows a rank replaying their rows of the masks, and (c) TP 2,
+    the fusion split on 6 heads a rank and the MLM decoders vocab-split
+    (``EXPECTED_TP_STEP``): 3 losses to ``LOSS_BAR``, step 1's gradients
+    (gathered) to ``swin_bars``, the replicated parameters bitwise equal on
+    both ranks, each rank's launches (K1-K5 as one device's at b16 / b32);
+    (d) the linear-patch VQA step at DP 2 (S = 221): the BatchNorm buffers
+    after step 1 within ``BN_BUFFER_BAR`` of one process's and equal on
+    both ranks; ms/step of (a)-(c) beside one device's (informative: gloo
+    on one card measures nothing a user runs). ``python3 chip_smoke.py
+    --multi-device`` runs phases 1-2 and this phase only;
+22. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
 """
 
@@ -318,6 +338,7 @@ import json
 import logging
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -810,6 +831,17 @@ EXPECTED_BF16_MOMENTS = EXPECTED_SWIN_PRETRAIN
 EXPECTED_VIT_DROPOUT = EXPECTED_VIT_PRETRAIN
 # what one traced Swin-S step's Chrome trace must name: the annotation and
 # a kernel of each of K1-K5
+# phase 21, multi-device: the step of record over a (data, model) mesh in
+# processes of its own (the coordinator and two gloo ranks on one card)
+MULTI_DEVICE_TIMEOUT = 300
+MULTI_DEVICE_TAG = "multi-device launches: "
+MULTI_DEVICE_TIMED = 2
+MULTI_DEVICE_RANK_DEVICE = "cuda:0"      # both ranks: gloo on one card
+BN_BUFFER_BAR = 1e-4
+# TP 2: the fusion rows 15 / 16 / 17 / 17' split at the all-reduce run each
+# counterpart as often as one device (K2 and K4 on 6 heads); the Swin
+# backbone is held replicated
+EXPECTED_TP_STEP = EXPECTED_SWIN_PRETRAIN
 TRACE_NAMES = {"annotation": "mvlt swin step", "K1": "gemm_wgmma_kernel",
                "K2": "attention_wgmma_kernel", "K3": "layernorm_kernel",
                "K4": "attention_bwd_dq_kernel", "K5": "ln_bwd_kernel"}
@@ -2609,6 +2641,29 @@ def swin_routes_kernel_checks(chk: Checker, dev) -> None:
           "shapes, rows 6's and 7's and attention_core_op", flush=True)
 
 
+def _attention_inputs(inp, B: int, S: int, nH: int, C: int, image: int,
+                      stride: int):
+    """The fused rows and masks of a K2 / K4 check at (B, S, nH, C) after an
+    image prefix of ``image`` rows: qkv, ctx (empty), dctx, a padded key
+    bias (row i keeps ``S - stride * i`` keys, mod the text), the seq2seq
+    qbias, a 0.9 attention-dropout mask, and the head-major q, k, v and
+    dctx of the library calls."""
+    from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
+    bf, dev, Dh = torch.bfloat16, inp.dev, C // nH
+    qkv = inp.rnd(B * S, 3 * C, std=0.5)
+    ctx = torch.empty(B * S, C, dtype=bf, device=dev)
+    dctx = inp.rnd(B * S, C)
+    kb = inp.key_bias([S - (stride * i) % (S - image - 1) for i in range(B)],
+                      S)
+    qb = mask_to_bias(seq2seq_fusion_mask(B, image + 1, S, dev)).contiguous()
+    amask = ((torch.rand(B, nH, S, S, generator=inp.gen) < 0.9).to(bf)
+             / 0.9).to(dev)
+    t = qkv.view(B, S, 3, nH, Dh).permute(2, 0, 3, 1, 4)
+    qkv3 = (t[0].contiguous(), t[1].contiguous(), t[2].contiguous())
+    d4 = dctx.view(B, S, nH, Dh).permute(0, 2, 1, 3).contiguous()
+    return qkv, ctx, dctx, kb, qb, amask, qkv3, d4
+
+
 def long_attention_checks(chk: Checker, dev) -> None:
     """K2 and K4 at the sequence lengths their tilings opened (ROADMAP A9):
     a 196-token image (ViT-B/16 or the linear patch) with BERT text of 23
@@ -2623,7 +2678,6 @@ def long_attention_checks(chk: Checker, dev) -> None:
     (``biased_attention_long_n``, ``biased_attention_bwd_long_n``); past N =
     288 the long form has its own (:func:`long_form_kernel_checks`)."""
     from mvlt_tpu_torch.ops import kernels as K
-    from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
     inp = Inputs(dev, seed=6)
     bf = torch.bfloat16
     B, C, nH, rate = TRAIN_BATCH, 768, 12, 0.1
@@ -2631,12 +2685,8 @@ def long_attention_checks(chk: Checker, dev) -> None:
     sc = Dh ** -0.5
     seed = torch.tensor([40503, 4242], dtype=torch.int32, device=dev)
     for S in (1 + 196 + 1 + 23, 1 + 196 + 1 + PRETRAIN_TEXT):
-        qkv = inp.rnd(B * S, 3 * C, std=0.5)
-        ctx = torch.empty(B * S, C, dtype=bf, device=dev)
-        kb = inp.key_bias([S - (11 * i) % (S - 198) for i in range(B)], S)
-        qb = mask_to_bias(seq2seq_fusion_mask(B, 198, S, dev)).contiguous()
-        amask = ((torch.rand(B, nH, S, S, generator=inp.gen) < 0.9).to(bf)
-                 / 0.9).to(dev)
+        qkv, ctx, dctx, kb, qb, amask, qkv3, d4 = _attention_inputs(
+            inp, B, S, nH, C, 197, 11)
         flops = 4.0 * B * nH * S * S * Dh
         print(f"K2 at S = {S} (b{B}, {nH} heads, head dim {Dh}): "
               f"{K.attention_plan(S, Dh)}", flush=True)
@@ -2673,10 +2723,6 @@ def long_attention_checks(chk: Checker, dev) -> None:
         del mask
         # K4: the same three modes; library: the autograd backward of each
         # library forward above
-        dctx = inp.rnd(B * S, C)
-        t = qkv.view(B, S, 3, nH, Dh).permute(2, 0, 3, 1, 4)
-        qkv3 = (t[0].contiguous(), t[1].contiguous(), t[2].contiguous())
-        d4 = dctx.view(B, S, nH, Dh).permute(0, 2, 1, 3).contiguous()
         kbm, qbm = kb.to(bf)[:, None, None, :], qb.to(bf)[:, None]
         print(f"K4 at S = {S}: {K.attention_bwd_plan(S, Dh)}", flush=True)
         for kw, fwd, extra in (
@@ -2727,20 +2773,9 @@ def long_form_kernel_checks(chk: Checker, dev) -> None:
     seed = torch.tensor([40503, 777], dtype=torch.int32, device=dev)
     for S in LONG_FORM_N:
         views = 2 if S > 1 + 196 + 1 + CAPTION_TEXT else 1
-        image = 1 + views * 196
-        qkv = inp.rnd(B * S, 3 * C, std=0.5)
-        ctx = torch.empty(B * S, C, dtype=bf, device=dev)
-        dctx = inp.rnd(B * S, C)
-        kb = inp.key_bias([S - (13 * i) % (S - image - 1) for i in range(B)],
-                          S)
-        qb = mask_to_bias(seq2seq_fusion_mask(B, image + 1, S,
-                                              dev)).contiguous()
-        amask = ((torch.rand(B, nH, S, S, generator=inp.gen) < 0.9).to(bf)
-                 / 0.9).to(dev)
+        qkv, ctx, dctx, kb, qb, amask, qkv3, d4 = _attention_inputs(
+            inp, B, S, nH, C, 1 + views * 196, 13)
         kbm, qbm = kb.to(bf)[:, None, None, :], qb.to(bf)[:, None]
-        t = qkv.view(B, S, 3, nH, Dh).permute(2, 0, 3, 1, 4)
-        qkv3 = (t[0].contiguous(), t[1].contiguous(), t[2].contiguous())
-        d4 = dctx.view(B, S, nH, Dh).permute(0, 2, 1, 3).contiguous()
         fp, bp = K.attention_plan(S, Dh), K.attention_bwd_plan(S, Dh)
         print(f"K2 long form at S = {S} (b{B}, {nH} heads, head dim {Dh}): "
               f"{fp}: {fp.rows} rows a block, {fp.stages} stages, "
@@ -2880,15 +2915,18 @@ def long_form_kernel_checks(chk: Checker, dev) -> None:
           flush=True)
 
 
-def long_step_phase(dev, card: str, what: str, build, loss_fn, bars,
-                    expected: dict, n: int) -> dict:
-    """A train step whose fusion runs K2 / K4's long form at S = ``n``,
-    built twice from one seed by ``build(plain)`` (kernels, plain): the
-    initial gradients (``loss_fn(model, batch, plain, masks)``) held to
-    ``bars``, the launch counts of one step against ``expected`` (every K2
-    and K4 launch at N = ``n``), 3 losses against the plain run replaying
-    the masks, then ms/step in turns (plain, kernels, kernels, plain) and
-    the peak memory of a kernel step. Returns its launch counts."""
+def paired_step_phase(dev, card: str, what: str, build, loss_fn, bars,
+                      expected: dict, timed_steps: int, n: int = None,
+                      extra_checks=None) -> dict:
+    """A train step built twice from one seed by ``build(plain)`` (kernels,
+    plain): the initial gradients (``loss_fn(model, batch, plain, masks)``)
+    held to ``bars``, the launch counts of one step against ``expected``
+    (with ``n``, every K2 and K4 launch at N = ``n``: the long form's rows;
+    ``extra_checks(counts)`` for more), 3 losses against the plain run
+    replaying the masks, then ms/step in turns (plain, kernels, kernels,
+    plain) over ``timed_steps`` steps each and the peak memory of a kernel
+    step. The caption and retrieval steps and the long-form steps run it.
+    Returns its launch counts."""
     from mvlt_tpu_torch.ops import kernels
     from mvlt_tpu_torch.ops.layers import DropoutMasks
     gc.collect()
@@ -2896,9 +2934,12 @@ def long_step_phase(dev, card: str, what: str, build, loss_fn, bars,
     t0 = time.perf_counter()
     step_k, batch = build(False)
     step_p, batch_p = build(True)
+    labels = batch.get("mlm_labels", batch.get("label"))
     print(f"{what} built twice in {time.perf_counter() - t0:.1f} s: image "
           f"{tuple(batch['image'].shape)}, caption "
-          f"{tuple(batch['caption'].shape)}", flush=True)
+          f"{tuple(batch['caption'].shape)}, padded tokens "
+          f"{(batch['caption'] == 0).sum().item()}, labels other than -100 "
+          f"{(labels != -100).sum().item()}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(1)
     masks = DropoutMasks(gen, record=True)
     for model, plain, src in ((step_k.model, False, masks),
@@ -2910,7 +2951,7 @@ def long_step_phase(dev, card: str, what: str, build, loss_fn, bars,
     compare_grads(step_k.model, step_p.model, f"{what} initial gradients",
                   bars)
     del masks
-    losses, counts = {"kernels": [], "plain": []}, None
+    losses, counts, acc = {"kernels": [], "plain": []}, None, []
     for i in range(TRAIN_STEPS):
         step_k.masks = DropoutMasks(gen, record=True)
         if i == 0:
@@ -2922,21 +2963,26 @@ def long_step_phase(dev, card: str, what: str, build, loss_fn, bars,
             print(f"launches in one {what}: {json.dumps(counts)}", flush=True)
             _expect_counts(counts, expected, f"one {what}",
                            [k.__name__ for k in kernels.KERNELS])
-            long_n_counts(counts, seen, n, what, "long_form",
-                          LONG_FORM_FIRST, k4=True)
+            if n is not None:
+                long_n_counts(counts, seen, n, what, "long_form",
+                              LONG_FORM_FIRST, k4=True)
+            if extra_checks is not None:
+                extra_checks(counts)
         else:
             out_k = step_k(batch)
         step_p.masks = DropoutMasks.replay(step_k.masks.recorded)
         out_p = step_p(batch_p)
         losses["kernels"].append(out_k["loss"].item())
         losses["plain"].append(out_p["loss"].item())
-    print(f"{what} losses of {TRAIN_STEPS} steps: {json.dumps(losses)}",
-          flush=True)
+        if "accuracy" in out_k:
+            acc.append((out_k["accuracy"].item(), out_p["accuracy"].item()))
+    print(f"{what} losses of {TRAIN_STEPS} steps: {json.dumps(losses)}"
+          + (f"; accuracy (kernels, plain) {acc}" if acc else ""), flush=True)
     for i, (a, b) in enumerate(zip(losses["kernels"], losses["plain"])):
         if not (abs(a - b) <= LOSS_BAR * abs(b) and a == a):
             raise AssertionError(f"{what} {i + 1} loss {a} vs plain {b} "
                                  f"beyond {LOSS_BAR} relative")
-    times, peak = {"kernels": [], "plain": []}, None
+    times, peak, resident = {"kernels": [], "plain": []}, None, None
     for which in ("plain", "kernels", "kernels", "plain"):
         step, b = (step_k, batch) if which == "kernels" else (step_p, batch_p)
         step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
@@ -2944,24 +2990,37 @@ def long_step_phase(dev, card: str, what: str, build, loss_fn, bars,
         torch.cuda.synchronize()
         measure = which == "kernels" and peak is None
         if measure:
+            resident = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for _ in range(LONG_STEP_TIMED):
+        for _ in range(timed_steps):
             step(b)
         torch.cuda.synchronize()
-        times[which].append((time.perf_counter() - t0) * 1e3
-                            / LONG_STEP_TIMED)
+        times[which].append((time.perf_counter() - t0) * 1e3 / timed_steps)
         if measure:
             peak = torch.cuda.max_memory_allocated()
     ms = {k: sum(v) / len(v) for k, v in times.items()}
     rows = batch["image"].shape[0]
-    print(f"{what} ({rows} rows, S = {n}) on {card}: kernels "
+    S = n or 1 + 49 + 1 + batch["caption"].shape[1]
+    print(f"{what} ({rows} rows, S = {S}) on {card}: kernels "
           f"{ms['kernels']:.3f} ms/step ({rows * 1e3 / ms['kernels']:.1f} "
-          f"samples/s), plain {ms['plain']:.3f} ms/step; runs "
+          f"samples/s), plain {ms['plain']:.3f} ms/step "
+          f"({rows * 1e3 / ms['plain']:.1f} samples/s); runs "
           f"{json.dumps(times)}; peak memory in a kernel step "
-          f"{peak / 2 ** 30:.3f} GiB (both models resident)", flush=True)
+          f"{peak / 2 ** 30:.3f} GiB (with {resident / 2 ** 30:.3f} GiB "
+          "resident, both models)", flush=True)
     del step_k, step_p, batch, batch_p
     return counts
+
+
+def _caption_loss(model, batch, plain, masks):
+    return model.loss(batch["image"], batch["caption"], batch["mlm_labels"],
+                      "unilm", plain=plain, masks=masks)[0]
+
+
+def _retrieval_loss(model, batch, plain, masks):
+    return model.loss(batch["image"], batch["caption"], batch["label"],
+                      plain=plain, masks=masks)[0]
 
 
 def long_grid_phase(dev, card: str) -> dict:
@@ -3126,39 +3185,29 @@ def long_form_phases(dev, card: str) -> dict:
     ViT-B/16. Returns their launch counts by path."""
     from mvlt_tpu_torch import flagship
     B = TRAIN_BATCH
-
-    def caption_loss(model, batch, plain, masks):
-        return model.loss(batch["image"], batch["caption"],
-                          batch["mlm_labels"], "unilm", plain=plain,
-                          masks=masks)[0]
-
-    def retrieval_loss(model, batch, plain, masks):
-        return model.loss(batch["image"], batch["caption"], batch["label"],
-                          plain=plain, masks=masks)[0]
-
     phases = {
-        "vit_caption_step": lambda: long_step_phase(
+        "vit_caption_step": lambda: paired_step_phase(
             dev, card, "ViT-B/16 caption step",
             lambda plain: flagship.build_caption_train_step(
                 batch=B, text_len=CAPTION_TEXT, device=dev, plain=plain,
                 config=flagship.flagship_vit_caption_config()),
-            caption_loss, vit_bars, EXPECTED_LONG_CAPTION_STEP,
-            LONG_FORM_N[1]),
-        "linear_two_view_caption_step": lambda: long_step_phase(
+            _caption_loss, vit_bars, EXPECTED_LONG_CAPTION_STEP,
+            LONG_STEP_TIMED, LONG_FORM_N[1]),
+        "linear_two_view_caption_step": lambda: paired_step_phase(
             dev, card, "two-view linear-patch caption step",
             lambda plain: flagship.build_caption_train_step(
                 batch=B, text_len=IU_XRAY_TEXT, device=dev, plain=plain,
                 config=flagship.flagship_linear_caption_config(), views=2),
-            caption_loss, linear_bars, EXPECTED_LONG_CAPTION_STEP,
-            LONG_FORM_N[2]),
-        "vit_two_view_retrieval_step": lambda: long_step_phase(
+            _caption_loss, linear_bars, EXPECTED_LONG_CAPTION_STEP,
+            LONG_STEP_TIMED, LONG_FORM_N[2]),
+        "vit_two_view_retrieval_step": lambda: paired_step_phase(
             dev, card, "two-view ViT-B/16 retrieval step",
             lambda plain: flagship.build_retrieval_train_step(
                 pairs=RETRIEVAL_PAIRS, text_len=RETRIEVAL_TEXT, device=dev,
                 plain=plain, config=flagship.flagship_vit_retrieval_config(),
                 views=2),
-            retrieval_loss, vit_bars, EXPECTED_LONG_RETRIEVAL_STEP,
-            LONG_FORM_N[2]),
+            _retrieval_loss, vit_bars, EXPECTED_LONG_RETRIEVAL_STEP,
+            LONG_STEP_TIMED, LONG_FORM_N[2]),
         "vit_two_view_retrieval_grid": lambda: long_grid_phase(dev, card),
         "vit_two_view_caption_generate": lambda: long_generate_phase(dev,
                                                                      card),
@@ -4547,6 +4596,8 @@ def main() -> int:
             RETRIEVAL_DRIVER_TIMEOUT, RETRIEVAL_DRIVER_TAG,
             by_path["retrieval_step"], EXPECTED_RETRIEVAL_STEP)
         lap("phase 16")
+        by_path.update(multi_device_subprocess())
+        lap("phase 21")
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
@@ -5292,96 +5343,17 @@ def caption_generate_phase(dev, card: str) -> dict:
 def caption_step_phase(dev, card: str, timed_steps: int = 4) -> dict:
     """The caption train step (Swin-S + BERT-base, b32, text 150, unilm,
     DropPath 0.3, dropout 0.1) on the kernels and on the plain versions from
-    one seed, the plain run replaying the kernel run's masks: gradients from
-    the initial parameters, the launch counts of one step, the losses of 3
-    steps, then step times in turns and peak memory. Returns the launch
-    counts of one step."""
+    one seed, the plain run replaying the kernel run's masks
+    (:func:`paired_step_phase`): gradients from the initial parameters, the
+    launch counts of one step, the losses of 3 steps, then step times in
+    turns and peak memory. Returns the launch counts of one step."""
     from mvlt_tpu_torch.flagship import build_caption_train_step
-    from mvlt_tpu_torch.ops import kernels
-    from mvlt_tpu_torch.ops.layers import DropoutMasks
-    B = TRAIN_BATCH
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    step_k, batch = build_caption_train_step(batch=B, text_len=CAPTION_TEXT,
-                                             device=dev)
-    step_p, batch_p = build_caption_train_step(batch=B,
-                                               text_len=CAPTION_TEXT,
-                                               device=dev, plain=True)
-    keys = ("image", "caption", "mlm_labels")
-    print(f"caption step built twice in {time.perf_counter() - t0:.1f} s: "
-          f"caption {tuple(batch['caption'].shape)}, "
-          f"{(batch['mlm_labels'] != -100).sum().item()} MLM labels, padded "
-          f"tokens {(batch['caption'] == 0).sum().item()}", flush=True)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    masks = DropoutMasks(gen, record=True)
-    for model, plain, src in ((step_k.model, False, masks),
-                              (step_p.model, True, None)):
-        model.zero_grad(set_to_none=True)
-        loss, _ = model.loss(*(batch[k] for k in keys), "unilm", plain=plain,
-                             masks=src or DropoutMasks.replay(masks.recorded))
-        loss.backward()
-    torch.cuda.synchronize()
-    compare_grads(step_k.model, step_p.model,
-                  "caption step initial gradients", swin_bars)
-    del masks
-
-    losses, counts = {"kernels": [], "plain": []}, None
-    for i in range(TRAIN_STEPS):
-        step_k.masks = DropoutMasks(gen, record=True)
-        if i == 0:
-            reset_counts()
-        out_k = step_k(batch)
-        torch.cuda.synchronize()
-        if i == 0:
-            counts = launch_counts()
-            print(f"launches in one caption step: {json.dumps(counts)}",
-                  flush=True)
-            for name, (want, _) in EXPECTED_CAPTION_STEP.items():
-                if counts[name] != want:
-                    raise AssertionError(f"{name} ran {counts[name]} times "
-                                         f"in one caption step, expected "
-                                         f"{want}")
-            for k in kernels.KERNELS:
-                if counts[k.__name__] <= 0:
-                    raise AssertionError(f"kernel {k.__name__} never "
-                                         "launched in the caption step")
-        step_p.masks = DropoutMasks.replay(step_k.masks.recorded)
-        out_p = step_p(batch_p)
-        losses["kernels"].append(out_k["loss"].item())
-        losses["plain"].append(out_p["loss"].item())
-    print(f"caption step losses of {TRAIN_STEPS} steps: {json.dumps(losses)}",
-          flush=True)
-    for i, (a, b) in enumerate(zip(losses["kernels"], losses["plain"])):
-        if not (abs(a - b) <= LOSS_BAR * abs(b) and a == a):
-            raise AssertionError(f"caption step {i + 1} loss {a} vs plain {b} "
-                                 f"beyond {LOSS_BAR} relative")
-
-    times, peak, resident = {"kernels": [], "plain": []}, None, None
-    for which in ("plain", "kernels", "kernels", "plain"):
-        step, b = (step_k, batch) if which == "kernels" else (step_p, batch_p)
-        step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
-        step(b)
-        torch.cuda.synchronize()
-        measure = which == "kernels" and peak is None
-        if measure:
-            resident = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(timed_steps):
-            step(b)
-        torch.cuda.synchronize()
-        times[which].append((time.perf_counter() - t0) * 1e3 / timed_steps)
-        if measure:
-            peak = torch.cuda.max_memory_allocated()
-    ms = {k: sum(v) / len(v) for k, v in times.items()}
-    print(f"caption train step b{B} (S = 201, unilm) on {card}: kernels "
-          f"{ms['kernels']:.3f} ms/step ({B * 1e3 / ms['kernels']:.1f} "
-          f"samples/s), plain {ms['plain']:.3f} ms/step; runs "
-          f"{json.dumps(times)}; peak memory in a kernel step "
-          f"{peak / 2 ** 30:.3f} GiB (with {resident / 2 ** 30:.3f} GiB "
-          "resident, both models)", flush=True)
-    return counts
+    return paired_step_phase(
+        dev, card, "caption step",
+        lambda plain: build_caption_train_step(
+            batch=TRAIN_BATCH, text_len=CAPTION_TEXT, device=dev,
+            plain=plain),
+        _caption_loss, swin_bars, EXPECTED_CAPTION_STEP, timed_steps)
 
 
 def retrieval_grid_phase(dev, card: str) -> dict:
@@ -5499,106 +5471,24 @@ def retrieval_step_phase(dev, card: str, timed_steps: int = 4) -> dict:
     """The retrieval train step (Swin-S + BERT-base, 32 pairs = 64 rows,
     text 80, DropPath 0.3, attention dropout 0.1, hidden dropout 0.0) on the
     kernels and on the plain versions from one seed, the plain run
-    replaying the kernel run's masks: gradients from the initial
-    parameters, the launch counts of one step, the losses of 3 steps, then
-    step times in turns and peak memory. Returns the launch counts of one
-    step."""
+    replaying the kernel run's masks (:func:`paired_step_phase`): gradients
+    from the initial parameters, the launch counts of one step (K1's split-K
+    among them), the losses of 3 steps, then step times in turns and peak
+    memory. Returns the launch counts of one step."""
     from mvlt_tpu_torch.flagship import build_retrieval_train_step
-    from mvlt_tpu_torch.ops import kernels
-    from mvlt_tpu_torch.ops.layers import DropoutMasks
-    P = RETRIEVAL_PAIRS
-    rows = 2 * P
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    step_k, batch = build_retrieval_train_step(pairs=P,
-                                               text_len=RETRIEVAL_TEXT,
-                                               device=dev)
-    step_p, batch_p = build_retrieval_train_step(pairs=P,
-                                                 text_len=RETRIEVAL_TEXT,
-                                                 device=dev, plain=True)
-    keys = ("image", "caption", "label")
-    print(f"retrieval step built twice in {time.perf_counter() - t0:.1f} s: "
-          f"image {tuple(batch['image'].shape)}, caption "
-          f"{tuple(batch['caption'].shape)}, labels "
-          f"{batch['label'].sum().item()} pos / {rows} rows", flush=True)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    masks = DropoutMasks(gen, record=True)
-    for model, plain, src in ((step_k.model, False, masks),
-                              (step_p.model, True, None)):
-        model.zero_grad(set_to_none=True)
-        loss, _ = model.loss(*(batch[k] for k in keys), plain=plain,
-                             masks=src or DropoutMasks.replay(masks.recorded))
-        loss.backward()
-    torch.cuda.synchronize()
-    compare_grads(step_k.model, step_p.model,
-                  "retrieval step initial gradients", swin_bars)
-    del masks
 
-    losses, counts = {"kernels": [], "plain": []}, None
-    acc = []
-    for i in range(TRAIN_STEPS):
-        step_k.masks = DropoutMasks(gen, record=True)
-        if i == 0:
-            reset_counts()
-        out_k = step_k(batch)
-        torch.cuda.synchronize()
-        if i == 0:
-            counts = launch_counts()
-            print(f"launches in one retrieval step: {json.dumps(counts)}",
-                  flush=True)
-            for name, (want, _) in EXPECTED_RETRIEVAL_STEP.items():
-                if counts[name] != want:
-                    raise AssertionError(f"{name} ran {counts[name]} times "
-                                         f"in one retrieval step, expected "
-                                         f"{want}")
-            for k in kernels.KERNELS:
-                if counts[k.__name__] <= 0:
-                    raise AssertionError(f"kernel {k.__name__} never "
-                                         "launched in the retrieval step")
-            if counts["gemm_splitk"] <= 0:
-                raise AssertionError("K1's split-K never ran in the "
-                                     "retrieval step")
-        step_p.masks = DropoutMasks.replay(step_k.masks.recorded)
-        out_p = step_p(batch_p)
-        losses["kernels"].append(out_k["loss"].item())
-        losses["plain"].append(out_p["loss"].item())
-        acc.append((out_k["accuracy"].item(), out_p["accuracy"].item()))
-    print(f"retrieval step losses of {TRAIN_STEPS} steps: "
-          f"{json.dumps(losses)}; accuracy (kernels, plain) {acc}",
-          flush=True)
-    for i, (a, b) in enumerate(zip(losses["kernels"], losses["plain"])):
-        if not (abs(a - b) <= LOSS_BAR * abs(b) and a == a):
-            raise AssertionError(f"retrieval step {i + 1} loss {a} vs plain "
-                                 f"{b} beyond {LOSS_BAR} relative")
+    def splitk(counts):
+        if counts["gemm_splitk"] <= 0:
+            raise AssertionError("K1's split-K never ran in the retrieval "
+                                 "step")
 
-    times, peak, resident = {"kernels": [], "plain": []}, None, None
-    for which in ("plain", "kernels", "kernels", "plain"):
-        step, b = (step_k, batch) if which == "kernels" else (step_p, batch_p)
-        step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
-        step(b)
-        torch.cuda.synchronize()
-        measure = which == "kernels" and peak is None
-        if measure:
-            resident = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        for _ in range(timed_steps):
-            step(b)
-        torch.cuda.synchronize()
-        times[which].append((time.perf_counter() - t0) * 1e3 / timed_steps)
-        if measure:
-            peak = torch.cuda.max_memory_allocated()
-    ms = {k: sum(v) / len(v) for k, v in times.items()}
-    S = 1 + 49 + 1 + batch["caption"].shape[1]
-    print(f"retrieval train step {rows} rows ({P} pairs, S = {S}) on {card}: "
-          f"kernels {ms['kernels']:.3f} ms/step ({rows * 1e3 / ms['kernels']:.1f}"
-          f" samples/s), plain {ms['plain']:.3f} ms/step "
-          f"({rows * 1e3 / ms['plain']:.1f} samples/s); runs "
-          f"{json.dumps(times)}; peak memory in a kernel step "
-          f"{peak / 2 ** 30:.3f} GiB (with {resident / 2 ** 30:.3f} GiB "
-          "resident, both models)", flush=True)
-    return counts
+    return paired_step_phase(
+        dev, card, "retrieval step",
+        lambda plain: build_retrieval_train_step(
+            pairs=RETRIEVAL_PAIRS, text_len=RETRIEVAL_TEXT, device=dev,
+            plain=plain),
+        _retrieval_loss, swin_bars, EXPECTED_RETRIEVAL_STEP, timed_steps,
+        extra_checks=splitk)
 
 
 # ---------------------------------------------------------------------------
@@ -7394,6 +7284,448 @@ def pretrain_driver_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 21: multi-device (parallel/, the mesh steps)
+# ---------------------------------------------------------------------------
+
+def _kernel_counts_equal(got: dict, want: dict, what: str) -> None:
+    """K1-K5's launch counts in ``got`` equal ``want``'s."""
+    from mvlt_tpu_torch.ops import kernels
+    diff = {k.__name__: (got[k.__name__], want[k.__name__])
+            for k in kernels.KERNELS if got[k.__name__] != want[k.__name__]}
+    if diff:
+        raise AssertionError(f"{what}: kernel launches (got, want) {diff}")
+
+
+def _md_time(step, batch, mode, dev, n: int = MULTI_DEVICE_TIMED) -> float:
+    """ms/step over ``n`` pretrain steps on fresh masks (the step has run
+    before: no warm-up)."""
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    step.masks = DropoutMasks(torch.Generator(device=dev).manual_seed(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(batch, mode)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _md_rows(masks, rank: int, rows: int, dp: int):
+    """A data rank's rows of one step's recorded masks (every mask of the
+    step leads with the batch)."""
+    per = rows // dp
+    return [m[rank * per:(rank + 1) * per] if m.shape[0] == rows else m
+            for m in masks]
+
+
+def _md_same_across(tensors, group, what: str) -> None:
+    """The tensors, flattened, bitwise equal on every rank of ``group``."""
+    import torch.distributed as dist
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    parts = [torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, flat, group=group)
+    if not all(torch.equal(parts[0], p) for p in parts[1:]):
+        raise AssertionError(f"{what}: the ranks' tensors differ")
+
+
+def _md_model(cls, cfg, dev, init):
+    """A model on ``dev`` holding ``init`` on world rank 0 (the others get
+    rank 0's tensors when the mesh broadcasts them)."""
+    model = cls(cfg, dtype=torch.float32, device=dev,
+                compute_dtype=torch.bfloat16)
+    if init is not None:
+        model.load_state_dict(init)
+    return model
+
+
+def _md_pretrain(rank: int, dev, ref: dict, init, mp: int) -> dict:
+    """Check (b) (mp = 1: DP 2, each rank its 16 rows) or (c) (mp = 2: TP
+    2 on the whole batch) on a world of two gloo ranks: the launches of one
+    step, step 1's gradients and 3 losses against the one-process b32 step
+    on its masks, the replicas after 3 steps, ms/step."""
+    from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.config import MeshConfig
+    from mvlt_tpu_torch.models.heads import PretrainModel
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    from mvlt_tpu_torch.parallel import build_mesh, partition, shard
+    from mvlt_tpu_torch.train.state import TrainState, make_optimizer
+    from mvlt_tpu_torch.train.steps import make_pretrain_step, \
+        shard_train_state
+    what = "DP 2" if mp == 1 else "TP 2"
+    cfg = flagship.flagship_swin_pretrain_config()
+    mesh = build_mesh(MeshConfig(model_parallel=mp), device=dev)
+    model = _md_model(PretrainModel, cfg, dev, init)
+    opt = make_optimizer(model, cfg)
+    shard_train_state(TrainState(model, opt), mesh)
+    step = make_pretrain_step(model, opt, mesh=mesh)
+    B = ref["batch"]["image"].shape[0]
+    a, b = partition.batch_rows(mesh, B)
+    batch = {k: v[a:b].to(dev) for k, v in ref["batch"].items()}
+    losses, counts = [], None
+    for i, mode in enumerate(PRETRAIN_MODES):
+        step.masks = DropoutMasks.replay(
+            _md_rows(ref["masks"][i], mesh.data_rank, B, mesh.dp))
+        if i == 0:
+            reset_counts()
+        out = step(batch, mode)
+        torch.cuda.synchronize()
+        if i == 0:
+            counts = launch_counts()
+            if mp == 1:
+                want = ref["counts16"]
+                _expect_counts(counts, {k: (want[k], None)
+                                        for k in EXPECTED_SWIN_PRETRAIN},
+                               f"{what} rank {rank}", [])
+            else:
+                want = ref["counts32"]
+                _expect_counts(counts, EXPECTED_TP_STEP,
+                               f"{what} rank {rank}", [])
+            _kernel_counts_equal(counts, want, f"{what} rank {rank}")
+            grads = {n: (partition.full_tensor(
+                p.grad, shard.split_shardings(model)[n], mesh.model_group)
+                if n in shard.split_shardings(model) else p.grad)
+                for n, p in model.named_parameters()}
+            if rank == 0:
+                compare_grad_dicts(
+                    {n: g.float() for n, g in grads.items()}, ref["grads"],
+                    f"{what} step 1 gradients (vs one process, b32)",
+                    swin_bars)
+            del grads
+        losses.append(out["loss"].item())
+    for i, (x, y) in enumerate(zip(losses, ref["losses"])):
+        if not (abs(x - y) <= LOSS_BAR * abs(y) and x == x):
+            raise AssertionError(f"{what} step {i + 1} loss {x} vs one "
+                                 f"process {y} beyond {LOSS_BAR} relative")
+    group = mesh.data_group if mp == 1 else mesh.model_group
+    split = shard.split_shardings(model)
+    _md_same_across([p for n, p in model.named_parameters()
+                     if n not in split], group,
+                    f"{what}: the replicated parameters after 3 steps")
+    ms = _md_time(step, batch, False, dev, n=1)
+    print(f"{what} rank {rank}: launches of one step as expected "
+          f"(gemm_splitk {counts.get('gemm_splitk')}); losses {losses} vs "
+          f"one process {ref['losses']}; replicas bitwise equal; "
+          f"{ms:.1f} ms/step", flush=True)
+    del step, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "ms": ms, "losses": losses, "mesh": mesh}
+
+
+def _md_linear_vqa(rank: int, dev, ref: dict, init, mesh) -> dict:
+    """Check (d): the linear-patch VQA step at DP 2 (global b32, S = 221):
+    the BatchNorm running buffers after step 1 within ``BN_BUFFER_BAR`` of
+    the one-process step's and equal on both ranks."""
+    from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.models.heads import VQAModel
+    from mvlt_tpu_torch.parallel import partition
+    from mvlt_tpu_torch.train.state import TrainState, make_optimizer
+    from mvlt_tpu_torch.train.steps import make_vqa_step, shard_train_state
+    cfg = flagship.flagship_linear_vqa_train_config()
+    model = _md_model(VQAModel, cfg, dev, init)
+    opt = make_optimizer(model, cfg)
+    shard_train_state(TrainState(model, opt), mesh)
+    step = make_vqa_step(model, opt, mesh=mesh)
+    a, b = partition.batch_rows(mesh, ref["vbatch"]["image"].shape[0])
+    batch = {k: v[a:b].to(dev) for k, v in ref["vbatch"].items()}
+    reset_counts()
+    with attention_lengths() as seen:
+        out = step(batch)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    long_n_counts(counts, seen, VIT_VQA_N,
+                  f"DP 2 linear-patch VQA rank {rank}")
+    bufs = {n: t for n, t in model.named_buffers() if "running" in n}
+    worst = 0.0
+    for n, t in bufs.items():
+        err = (t.float().cpu() - ref["vbuffers"][n]).abs().max().item()
+        worst = max(worst, err)
+        if not err <= BN_BUFFER_BAR:
+            raise AssertionError(f"DP 2 linear-patch VQA: {n} off the one-"
+                                 f"process step's by {err}")
+    _md_same_across(list(bufs.values()), mesh.data_group,
+                    "DP 2 linear-patch VQA: the BatchNorm buffers")
+    print(f"DP 2 linear-patch VQA rank {rank}: loss {out['loss'].item():.6f} "
+          f"(one process {ref['vloss']:.6f}); {len(bufs)} BatchNorm buffers "
+          f"within {worst:.2e} of one process (bar {BN_BUFFER_BAR}), equal "
+          "on both ranks", flush=True)
+    return {"counts": counts}
+
+
+def tp_adrop_checks(dev) -> None:
+    """In-kernel dropout on a TP rank's heads: K2 and K4 launched on heads
+    6-11 of the step of record's fusion shapes (b32, S = 131, 12 heads)
+    with ``adrop=(seed, rate, 6)`` draw the mask that one device draws for
+    those heads (bitwise), and their ctx / dqkv equal the 12-head launch's
+    columns of those heads (bitwise) and the plain version's within
+    ``KERNEL_BAR``."""
+    from mvlt_tpu_torch.ops import kernels as K
+    inp = Inputs(dev, seed=24)
+    B, S, nH, C, rate = TRAIN_BATCH, 1 + 49 + 1 + PRETRAIN_TEXT, 12, 768, 0.1
+    sc = (C // nH) ** -0.5
+    seed = torch.tensor([9, 31337], dtype=torch.int32, device=dev)
+    qkv, dctx = inp.rnd(B * S, 3 * C, std=0.5), inp.rnd(B * S, C)
+    kb = inp.key_bias([S - 3 * i for i in range(B)], S)
+    half = C // 2
+    cols = torch.cat([torch.arange(j * C + half, (j + 1) * C) for j in
+                      range(3)]).to(dev)
+    q6, d6 = qkv[:, cols].contiguous(), dctx[:, half:].contiguous()
+    full, mask = K.biased_attention(qkv, nH, S, sc, key_bias=kb,
+                                    adrop=(seed, rate), save_mask=True)
+    part, mask6 = K.biased_attention(q6, nH // 2, S, sc, key_bias=kb,
+                                     adrop=(seed, rate, nH // 2),
+                                     save_mask=True)
+    plain = K.biased_attention_plain(q6, nH // 2, S, sc, key_bias=kb,
+                                     adrop=(seed, rate, nH // 2))
+    dfull, _ = K.biased_attention_bwd(qkv, dctx, nH, S, sc, key_bias=kb,
+                                      adrop=(seed, rate))
+    dpart, _ = K.biased_attention_bwd(q6, d6, nH // 2, S, sc, key_bias=kb,
+                                      adrop=(seed, rate, nH // 2))
+    dplain, _ = K.biased_attention_bwd_plain(q6, d6, nH // 2, S, sc,
+                                             key_bias=kb,
+                                             adrop=(seed, rate, nH // 2))
+    torch.cuda.synchronize()
+    if not torch.equal(mask6, mask[:, nH // 2:]):
+        raise AssertionError("K2's mask on heads 6-11 (head0 = 6) differs "
+                             "from the 12-head draw's")
+    if not torch.equal(mask6, K.adrop_mask_plain(seed, B, nH // 2, S, rate,
+                                                 head0=nH // 2)):
+        raise AssertionError("K2's mask on heads 6-11 differs from "
+                             "adrop_mask_plain(head0=6)")
+    errs = []
+    for what, got, want, ref in (("K2", part, full[:, half:], plain),
+                                 ("K4", dpart, dfull[:, cols], dplain)):
+        err, top = _max_err(got, ref)
+        top = max(top, 1e-6)
+        errs.append(err / top)
+        if not err <= KERNEL_BAR * top:
+            raise AssertionError(f"{what} on heads 6-11 with head0: max abs "
+                                 f"err {err} > {KERNEL_BAR} x {top}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what} on heads 6-11 differs from the "
+                                 "12-head launch's columns")
+    print(f"in-kernel dropout on a TP rank's heads (6-11 of 12, b{B}, S = "
+          f"{S}): K2's mask bitwise the 12-head draw's and adrop_mask_plain"
+          f"(head0=6)'s, ctx and dqkv bitwise the 12-head launch's columns, "
+          f"vs plain {errs[0]:.2e} / {errs[1]:.2e} x max|plain|", flush=True)
+
+
+def _md_rank(rank: int, tmp: str) -> None:
+    """One of the two gloo ranks of phase 21, both on ``cuda:0``."""
+    import torch.distributed as dist
+    from mvlt_tpu_torch.ops import kernels
+    from mvlt_tpu_torch.parallel import initialize_distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # started beside the coordinator's references: reach the card and load
+    # the kernels (phases 1-2 filled the build directory), then wait for
+    # the references
+    torch.zeros((), device=MULTI_DEVICE_RANK_DEVICE)
+    kernels.build()
+    ready = os.path.join(tmp, "ready")
+    deadline = time.monotonic() + MULTI_DEVICE_TIMEOUT
+    while not os.path.exists(ready):
+        if time.monotonic() > deadline:
+            raise AssertionError("phase 21's references never came")
+        time.sleep(0.1)
+    dev = initialize_distributed(f"file://{tmp}/store", 2, rank,
+                                 device=MULTI_DEVICE_RANK_DEVICE,
+                                 backend="gloo",
+                                 timeout_s=MULTI_DEVICE_TIMEOUT)
+    try:
+        ref = torch.load(os.path.join(tmp, "ref.pt"), weights_only=False)
+        init = (torch.load(os.path.join(tmp, "init.pt"), weights_only=True)
+                if rank == 0 else None)
+        # step 1's gradients of the one-process step, compared on rank 0
+        ref["grads"] = (torch.load(os.path.join(tmp, "grads.pt"),
+                                   map_location=dev, weights_only=True)
+                        if rank == 0 else None)
+        dp = _md_pretrain(rank, dev, ref, init, 1)
+        tp = _md_pretrain(rank, dev, ref, init, 2)
+        vinit = (torch.load(os.path.join(tmp, "vinit.pt"), weights_only=True)
+                 if rank == 0 else None)
+        lin = _md_linear_vqa(rank, dev, ref, vinit, dp.pop("mesh"))
+        tp.pop("mesh")
+        out = {"dp2": dp, "tp2": tp, "dp2_linear_vqa": lin}
+        torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_device_run_main() -> int:
+    """Phase 21's coordinator (``--multi-device-run``, in a process of its
+    own): the one-process references (the step of record at b32 on recorded
+    masks: losses, step 1's gradients, launch counts; one b16 step's
+    counts; the linear-patch VQA step at b32), check (a) (NCCL at world
+    size 1, mesh (1, 1), bitwise), then checks (b)-(d) on two spawned gloo
+    ranks sharing the card. Prints the launch counts of each path after
+    ``MULTI_DEVICE_TAG``. The ranks start first, so that reaching the card
+    overlaps the references, and wait for them (a ``ready`` file)."""
+    import tempfile
+    import torch.multiprocessing as tmp_mp
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    t_phase = time.perf_counter()
+    (REPO / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="multi_device_", dir=REPO / "build")
+    # the ranks start now and wait for the references (``ready``)
+    ranks_ctx = tmp_mp.spawn(_md_rank, args=(tmp,), nprocs=2, join=False)
+    try:
+        return _md_coordinate(dev, card, tmp, ranks_ctx, t_phase)
+    finally:
+        for proc in ranks_ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+
+
+def _md_coordinate(dev, card: str, tmp: str, ranks_ctx, t_phase) -> int:
+    """:func:`multi_device_run_main` once the ranks are starting."""
+    import torch.distributed as dist
+    from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.config import MeshConfig
+    from mvlt_tpu_torch.models.heads import PretrainModel
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    from mvlt_tpu_torch.parallel import build_mesh, initialize_distributed
+    from mvlt_tpu_torch.train.state import TrainState, make_optimizer
+    from mvlt_tpu_torch.train.steps import make_pretrain_step, \
+        shard_train_state
+    tp_adrop_checks(dev)
+    B = TRAIN_BATCH
+    cfg = flagship.flagship_swin_pretrain_config()
+    step, batch = flagship.build_swin_pretrain_train_step(batch=B, device=dev)
+    init = {k: v.detach().to("cpu", copy=True)
+            for k, v in step.model.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    masks, losses = [], []
+    for i, mode in enumerate(PRETRAIN_MODES):
+        step.masks = DropoutMasks(gen, record=True)
+        if i == 0:
+            reset_counts()
+        out = step(batch, mode)
+        torch.cuda.synchronize()
+        if i == 0:
+            counts32 = launch_counts()
+            torch.save({n: p.grad.detach().float().cpu()
+                        for n, p in step.model.named_parameters()},
+                       os.path.join(tmp, "grads.pt"))
+        masks.append([m.cpu() for m in step.masks.recorded])
+        losses.append(out["loss"].item())
+    # (a) NCCL at world size 1: the mesh step bitwise the one-device step
+    initialize_distributed(f"file://{tmp}/nccl_store", 1, 0, device=dev)
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dist.get_backend() != want_backend:
+        raise AssertionError(f"the one-rank group on {dev} is "
+                             f"{dist.get_backend()}, not {want_backend}")
+    mesh = build_mesh(MeshConfig(), device=dev)
+    model_a = _md_model(PretrainModel, cfg, dev, init)
+    opt_a = make_optimizer(model_a, cfg)
+    shard_train_state(TrainState(model_a, opt_a), mesh)
+    step_a = make_pretrain_step(model_a, opt_a, mesh=mesh)
+    losses_a = []
+    for i, mode in enumerate(PRETRAIN_MODES):
+        step_a.masks = DropoutMasks.replay(masks[i])
+        if i == 0:
+            reset_counts()
+        losses_a.append(step_a(batch, mode)["loss"].item())
+        torch.cuda.synchronize()
+        if i == 0:
+            counts_a = launch_counts()
+    _expect_counts(counts_a, EXPECTED_SWIN_PRETRAIN, "the (1, 1) NCCL step",
+                   [])
+    _kernel_counts_equal(counts_a, counts32, "the (1, 1) NCCL step")
+    if losses_a != losses:
+        raise AssertionError(f"(1, 1) NCCL losses {losses_a} vs one device "
+                             f"{losses}: not bitwise")
+    for (n, p), q in zip(model_a.named_parameters(),
+                         step.model.parameters()):
+        if not torch.equal(p, q):
+            raise AssertionError(f"(1, 1) NCCL step: {n} differs from one "
+                                 "device's after 3 steps")
+    times = {"one device": [], "(1, 1) NCCL": []}
+    for which in ("one device", "(1, 1) NCCL", "(1, 1) NCCL", "one device"):
+        times[which].append(_md_time(step if which == "one device"
+                                     else step_a, batch, False, dev))
+    dist.destroy_process_group()
+    print(f"(a) NCCL at world size 1, mesh (1, 1): 3 losses and every "
+          f"parameter bitwise the one-device step's, launch counts as "
+          f"EXPECTED_SWIN_PRETRAIN; ms/step in turns {json.dumps(times)} "
+          f"on {card}", flush=True)
+    del step_a, model_a, opt_a
+    # one b16 step's counts (what a DP 2 rank's step launches)
+    step.masks = DropoutMasks(gen)
+    reset_counts()
+    step({k: v[:B // 2] for k, v in batch.items()}, False)
+    torch.cuda.synchronize()
+    counts16 = launch_counts()
+    one_ms = sum(times["one device"]) / 2
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d)'s reference: the linear-patch VQA step at b32
+    vstep, vbatch = flagship.build_vqa_train_step(
+        batch=B, device=dev,
+        config=flagship.flagship_linear_vqa_train_config())
+    torch.save({k: v.detach().to("cpu", copy=True)
+                for k, v in vstep.model.state_dict().items()},
+               os.path.join(tmp, "vinit.pt"))
+    vout = vstep(vbatch)
+    vbuffers = {n: t.detach().float().cpu()
+                for n, t in vstep.model.named_buffers() if "running" in n}
+    torch.save(init, os.path.join(tmp, "init.pt"))
+    torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
+                "masks": masks, "losses": losses, "counts32": counts32,
+                "counts16": counts16,
+                "vbatch": {k: v.cpu() for k, v in vbatch.items()},
+                "vbuffers": vbuffers, "vloss": vout["loss"].item()},
+               os.path.join(tmp, "ref.pt"))
+    del vstep, vbatch, batch, init, masks
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "ready"), "w"):
+        pass
+    while not ranks_ctx.join():
+        pass
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    print(f"(b) DP 2 and (c) TP 2 (gloo, both ranks on cuda:0) and (d) the "
+          f"linear-patch VQA step at DP 2: every check held in "
+          f"{time.perf_counter() - t0:.1f} s; ms/step (rank 0, 1): DP 2 "
+          f"{[r['dp2']['ms'] for r in ranks]}, TP 2 "
+          f"{[r['tp2']['ms'] for r in ranks]}, one device (b32) {one_ms:.1f} "
+          f"on {card} (gloo on one card measures nothing a user runs)",
+          flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s after "
+          "its build", flush=True)
+    print(MULTI_DEVICE_TAG + json.dumps({
+        "multi_device_nccl_1x1": counts_a,
+        "multi_device_dp2": ranks[0]["dp2"]["counts"],
+        "multi_device_tp2": ranks[0]["tp2"]["counts"],
+        "multi_device_dp2_linear_vqa": ranks[0]["dp2_linear_vqa"]["counts"]}),
+        flush=True)
+    return 0
+
+
+def multi_device_subprocess() -> dict:
+    """Phase 21 in its own process (``--multi-device-run``, which spawns the
+    ranks) under ``MULTI_DEVICE_TIMEOUT``; the process group is killed at
+    the limit. Returns the launch counts of its paths."""
+    return driver_subprocess("--multi-device-run", "multi-device",
+                             MULTI_DEVICE_TIMEOUT, MULTI_DEVICE_TAG)
+
+
+def multi_device_main() -> int:
+    """``python3 chip_smoke.py --multi-device``: phases 1-2 and phase 21
+    only, without the kernels line."""
+    if start() is None:
+        return 1
+    multi_device_subprocess()
+    return 0
+
+
 def driver_subprocess(flag: str, what: str, limit: float, tag: str):
     """A driver phase in a process of its own (``flag``) under ``limit``
     seconds: its loader forks worker processes, and a fork that hangs fails
@@ -7482,7 +7814,9 @@ if __name__ == "__main__":
              "--retrieval-driver": retrieval_driver_main,
              "--backbones": backbones_main,
              "--swin-routes": swin_routes_main, "--long-n": long_form_main,
-             "--single-card": single_card_main}
+             "--single-card": single_card_main,
+             "--multi-device": multi_device_main,
+             "--multi-device-run": multi_device_run_main}
     flags = sys.argv[1:]
     LOADER_PACE = "--loader-pace" in flags
     flags = [f for f in flags if f != "--loader-pace"]

@@ -272,9 +272,11 @@ class MVLTConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout (``mvlt_tpu/config.py:285-293``). The port runs on
-    one device: a runner refuses ``data_parallel`` or ``model_parallel``
-    other than 1 (``-1``, all devices, is one device here)."""
+    """Device-mesh layout (``mvlt_tpu/config.py:285-293``): a (data, model)
+    grid over the world of processes, one a device
+    (:func:`mvlt_tpu_torch.parallel.build_mesh`); ``model_parallel``
+    adjacent ranks split the fusion encoder and the MLM decoder (Megatron
+    TP), ``data_parallel`` (-1: the rest) split the batch."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -241,6 +241,7 @@ struct Params {
   float scale;
   uint32_t thresh;
   float kept;
+  int head0;  // mode (a): the global index of head 0 (a tensor-parallel rank's heads)
 };
 
 template <int NC, int DP>
@@ -301,7 +302,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks(NC)) attention_wgmma_kerne
   for (int c = 0; c < NC; ++c) keep[c] = 0;
   if (p.seed && live_warp) {
     float* mo = p.mask_out ? p.mask_out + t0 : nullptr;
-    const uint32_t key = adrop_key(p.seed), ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+    const uint32_t key = adrop_key(p.seed), ctr1 = (uint32_t)g * 256u + (uint32_t)(h + p.head0);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       keep[c] = draw_chunk(c * KEYS, erow0, erow1, live0, live1, cq, lane, N, key, ctr1, p.thresh, p.kept, mo);
@@ -528,7 +529,7 @@ __global__ void __launch_bounds__(LONG_THREADS, 1)
     const unsigned char* qb0 = reinterpret_cast<const unsigned char*>(p.qbias + ((size_t)g * N + row0) * N);
     const unsigned char* am0 = reinterpret_cast<const unsigned char*>(p.amask + ((size_t)gh * N + row0) * N);
     const int rlim = N - row0;
-    const uint32_t key = p.seed ? adrop_key(p.seed) : 0u, ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+    const uint32_t key = p.seed ? adrop_key(p.seed) : 0u, ctr1 = (uint32_t)g * 256u + (uint32_t)(h + p.head0);
     float* mo = p.mask_out ? p.mask_out + (size_t)gh * N * N : nullptr;
     for (int it = 0; it < steps; ++it) {
       const int s = it % LONG_STAGES;
@@ -838,16 +839,16 @@ extern "C" long long mvlt_attention_smem(int N, int Dh, int amask) { return smem
 // multiple of 8. pattern (P, nH, N, N) f32, kbias (G, N) f32, qbias (G, N, N) f32 and amask
 // (G, nH, N, N) bf16 may each be null. seed: null, or (2,) int32 16-bit halves for mode (a), which
 // keeps an element iff its Philox word < thresh and then multiplies by kept; amask must be null with
-// it, and nH <= 256. p_out (G, nH, N, N) bf16 (mode (b)) and mask_out (G, nH, N, N) f32 (mode (a)
+// it, and head0 + nH <= 256 (head0: the global index of head 0, which keys the draw). p_out (G, nH, N, N) bf16 (mode (b)) and mask_out (G, nH, N, N) f32 (mode (a)
 // only) may be null. Past N = 288 (the long form) pattern and p_out must be null.
 extern "C" int mvlt_attention(const void* q, const void* k, const void* v, long long in_g, long long in_h,
                               long long in_n, void* ctx, long long out_g, long long out_h, long long out_n,
                               const void* pattern, const void* kbias, const void* qbias, const void* amask,
                               const void* seed, void* p_out, void* mask_out, int G, int N, int nH, int Dh,
-                              int P, float scale, unsigned int thresh, float kept, void* stream) {
+                              int P, float scale, unsigned int thresh, float kept, int head0, void* stream) {
   const long long smem = smem_bytes(N, Dh, amask != nullptr);
   if (smem < 0 || G < 1 || nH < 1 || P < 1) return (int)cudaErrorInvalidValue;
-  if (seed != nullptr && (amask != nullptr || nH > 256)) return (int)cudaErrorInvalidValue;
+  if (seed != nullptr && (amask != nullptr || head0 < 0 || head0 + nH > 256)) return (int)cudaErrorInvalidValue;
   if (mask_out != nullptr && seed == nullptr) return (int)cudaErrorInvalidValue;
   const bool long_form = N > MAX_N;
   if (long_form && (pattern != nullptr || p_out != nullptr)) return (int)cudaErrorInvalidValue;
@@ -866,7 +867,7 @@ extern "C" int mvlt_attention(const void* q, const void* k, const void* v, long 
                  static_cast<const float*>(qbias), static_cast<cbf>(amask), static_cast<const int*>(seed),
                  static_cast<bf16*>(ctx), static_cast<bf16*>(p_out), static_cast<float*>(mask_out), N, nH,
                  Dh, P, tiles, !long_form && amask != nullptr && mask_bytes(N, Dh) > 0, qb_unit, am_unit,
-                 kb_unit, scale, thresh, kept};
+                 kb_unit, scale, thresh, kept, head0};
   const int chunks = (N + KEYS - 1) / KEYS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (long_form)

@@ -243,6 +243,7 @@ struct Params {
   float scale;
   uint32_t thresh;
   float kept;
+  int head0;  // mode (a): the global index of head 0 (a tensor-parallel rank's heads)
 };
 
 // dq of one 64-query tile of (g, h); the statistics and keep words for pass 2
@@ -299,7 +300,7 @@ __global__ void __launch_bounds__(THREADS, dq_min_blocks(NC)) attention_bwd_dq_k
 #pragma unroll
   for (int c = 0; c < NC; ++c) keep[c] = 0;
   if (p.seed && live_warp) {
-    const uint32_t key = adrop_key(p.seed), ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+    const uint32_t key = adrop_key(p.seed), ctr1 = (uint32_t)g * 256u + (uint32_t)(h + p.head0);
     uint32_t* bits = reinterpret_cast<uint32_t*>(st + 3 * N);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -894,7 +895,7 @@ __global__ void __launch_bounds__(LONG_THREADS, 1)
     const unsigned char* qb0 = reinterpret_cast<const unsigned char*>(p.qbias + ((size_t)g * N + row0) * N);
     const unsigned char* am0 = reinterpret_cast<const unsigned char*>(p.amask + ((size_t)gh * N + row0) * N);
     const int rlim = N - row0;
-    const uint32_t key = p.seed ? adrop_key(p.seed) : 0u, ctr1 = (uint32_t)g * 256u + (uint32_t)h;
+    const uint32_t key = p.seed ? adrop_key(p.seed) : 0u, ctr1 = (uint32_t)g * 256u + (uint32_t)(h + p.head0);
     for (int it = 0; it < steps; ++it) {
       const int s = it % LONG_STAGES;
       if (it >= LONG_STAGES) mbar_wait(&empty[s], ((it / LONG_STAGES) - 1) & 1);
@@ -1565,7 +1566,7 @@ extern "C" int mvlt_attention_bwd_chunks(int G, int P, int nH) {
 // qkv (G*N, 3C), dctx (G*N, C) and dqkv (G*N, 3C) bf16, each 16-byte aligned. pattern (P, nH, N, N) f32
 // with G % P == 0, kbias (G, N) f32, qbias (G, N, N) f32 and amask (G, nH, N, N) bf16 may each be null.
 // seed: null, or (2,) int32 16-bit halves for mode (a), with K2's thresh and kept; amask must be null with
-// it, and nH <= 256. pstore: null, or (G, nH, N, N) bf16 p for mode (b). dkb_part: (G, nH, N) f32 scratch
+// it, and head0 + nH <= 256 (head0 keys the draw as in K2). pstore: null, or (G, nH, N, N) bf16 p for mode (b). dkb_part: (G, nH, N) f32 scratch
 // and dkbias (G, N) f32, both null to skip the key-bias gradient. With a pattern, dpat_part: (chunks, P,
 // nH, N, N) f32 scratch (`mvlt_attention_bwd_chunks`) and dpattern (P, nH, N, N) f32. scratch: (G, nH,
 // `mvlt_attention_bwd_scratch`) f32, the first pass's statistics for the second. Past N = 288 (the long
@@ -1574,12 +1575,12 @@ extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void*
                                   const void* qbias, const void* amask, const void* seed, const void* pstore,
                                   void* dqkv, void* dkb_part, void* dkbias, void* dpat_part, void* dpattern,
                                   void* scratch, int G, int N, int C, int nH, int P, float scale,
-                                  unsigned int thresh, float kept, void* stream) {
+                                  unsigned int thresh, float kept, int head0, void* stream) {
   if (G < 1 || nH < 1 || C % nH != 0 || scratch == nullptr) return (int)cudaErrorInvalidValue;
   const int Dh = C / nH;
   const long long smem = smem_bytes(N, Dh, pattern != nullptr, amask != nullptr);
   if (smem < 0) return (int)cudaErrorInvalidValue;
-  if (seed != nullptr && (amask != nullptr || nH > 256)) return (int)cudaErrorInvalidValue;
+  if (seed != nullptr && (amask != nullptr || head0 < 0 || head0 + nH > 256)) return (int)cudaErrorInvalidValue;
   const bool long_form = N > MAX_N;
   if (long_form && (pattern != nullptr || pstore != nullptr)) return (int)cudaErrorInvalidValue;
   if ((dkb_part == nullptr) != (dkbias == nullptr)) return (int)cudaErrorInvalidValue;
@@ -1606,7 +1607,7 @@ extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void*
                  static_cast<float*>(dkb_part), static_cast<float*>(dpat_part), static_cast<float*>(scratch),
                  scratch_words(N), N, C, nH, Dh, pattern != nullptr ? P : 1, tiles,
                  !long_form && amask != nullptr && dq_mask_smem(N, Dh) > 0, stride, per, wpb, qb_unit, am_unit,
-                 kb_unit, scale, thresh, kept};
+                 kb_unit, scale, thresh, kept, head0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nc = chunks_of(N), wide = head_cols(Dh) == 64;
   cudaError_t e;

@@ -8,7 +8,8 @@
 // The port keeps that seeding and defines its own stream (the TPU's bits
 // cannot be reproduced off the TPU):
 //   key     = (hi * 65536 + lo, 0)           the step's two 16-bit seed halves
-//   counter = (e / 4, b * 256 + h, 0, 0)     e = i * N + j, b the ABSOLUTE sample
+//   counter = (e / 4, b * 256 + h, 0, 0)     e = i * N + j, b the ABSOLUTE sample,
+//                                            h the GLOBAL head (a launch's head0 + its own)
 //   word    = e % 4 of the four outputs
 // and keeps element (b, h, i, j) iff word < T, T = min(keep * 2^32, 2^32 - 1),
 // as `_adrop_mask` keeps bits < thresh. The word depends only on the seed, b,

@@ -11,6 +11,14 @@
 - a bounded queue overlaps host work with the steps;
 - equal per-process shards (the index list is cut to a multiple of
   ``process_count`` first);
+- the rows of a data rank (``rows=(data_rank, dp)``, the port's one
+  process a device): each batch of ``batch_size`` indices is cut to the
+  rank's contiguous block, as ``P('data')`` places a global batch, and only
+  those samples are fetched. A ``drop_last`` loader refuses a batch size
+  that dp does not divide (JAX's error); an eval loader's tail batch is cut
+  into blocks that differ by at most one row, and a rank whose block is
+  empty (a tail shorter than dp) gets a zero-row batch of the same keys,
+  so that every rank yields the same number of batches;
 - the order is keyed by (seed, epoch) and samples by (seed, epoch, index),
   so the worker count never changes the stream;
 - an abandoned epoch stops its producer (every put re-checks a stop flag);
@@ -56,6 +64,15 @@ import numpy as np
 import torch
 
 from mvlt_tpu_torch.data.transforms import sample_rng
+from mvlt_tpu_torch.parallel.partition import split_rows
+
+
+def _no_rows(batch) -> Any:
+    """``batch`` cut to zero rows, its keys, dtypes and trailing shapes
+    kept."""
+    if isinstance(batch, dict):
+        return {k: _no_rows(v) for k, v in batch.items()}
+    return batch[:0]
 
 
 def _collate(samples) -> Any:
@@ -107,7 +124,7 @@ class DataLoader:
                  drop_last: bool = False, seed: int = 0,
                  num_threads: int = 8, prefetch: int = 2,
                  process_index: int = 0, process_count: int = 1,
-                 num_workers: int = 0):
+                 num_workers: int = 0, rows=(0, 1)):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -118,6 +135,12 @@ class DataLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.num_workers = auto_workers(num_workers)
+        self.rows = tuple(rows)
+        if drop_last and batch_size % self.rows[1]:
+            raise ValueError(
+                f"batch leading dim {batch_size} not divisible by "
+                f"data-parallel size {self.rows[1]}; pick batch_size as a "
+                "multiple")
 
     def _indices(self, epoch: int) -> np.ndarray:
         n = len(self.dataset)
@@ -151,7 +174,11 @@ class DataLoader:
             return False
 
         def chunk(b):
-            return idx[b * self.batch_size:(b + 1) * self.batch_size]
+            """(this rank's indices of batch b, whether its block is empty:
+            then the batch's first index, fetched for its structure)."""
+            c = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            lo, hi = split_rows(len(c), self.rows[1], self.rows[0])
+            return (c[lo:hi], False) if hi > lo else (c[:1], True)
 
         def produce_threads():
             with ThreadPoolExecutor(self.num_threads) as pool:
@@ -159,7 +186,9 @@ class DataLoader:
                     if stop.is_set():
                         return
                     fetch = lambda i: self.dataset.__getitem__(int(i), epoch)
-                    if not put(_collate(list(pool.map(fetch, chunk(b))))):
+                    rows, empty = chunk(b)
+                    batch = _collate(list(pool.map(fetch, rows)))
+                    if not put(_no_rows(batch) if empty else batch):
                         return
             put(None)
 
@@ -175,12 +204,15 @@ class DataLoader:
                 while b < nb or pending:
                     while b < nb and len(pending) < limit \
                             and not stop.is_set():
-                        pending.append(pool.apply_async(
-                            _pool_batch, ((chunk(b), epoch),)))
+                        rows, empty = chunk(b)
+                        pending.append((pool.apply_async(
+                            _pool_batch, ((rows, epoch),)), empty))
                         b += 1
                     if stop.is_set():
                         return
-                    if not put(pending.popleft().get()):
+                    result, empty = pending.popleft()
+                    batch = result.get()
+                    if not put(_no_rows(batch) if empty else batch):
                         return
             put(None)
 

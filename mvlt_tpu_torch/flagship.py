@@ -722,6 +722,196 @@ def build_retrieval_train_step(pairs: int = 32, text_len: int = 80,
     return step, data
 
 
+# ---------------------------------------------------------------------------
+# multi-device entry points (``mvlt_tpu/flagship.py:57-261``)
+# ---------------------------------------------------------------------------
+
+def tiny_pretrain_config() -> MVLTConfig:
+    """Structurally complete but tiny (``mvlt_tpu/flagship.py:57-67``): the
+    multi-device dry runs on the CPU."""
+    from mvlt_tpu_torch.config import FusionConfig, SwinConfig
+    return MVLTConfig(
+        conv="swin",
+        fusion=FusionConfig(hidden_size=64, num_hidden_layers=2,
+                            num_attention_heads=4, intermediate_size=128,
+                            vocab_size=512, max_position_embeddings=128),
+        swin=SwinConfig(img_size=32, patch_size=4, embed_dim=16,
+                        depths=(1, 1), num_heads=(2, 4), window_size=4,
+                        drop_path_rate=0.0),
+        itm_task=True, lr=1e-3)
+
+
+def lower_flagship_multichip(n_devices: int, seq_len: int = 80, mps=None
+                             ) -> dict:
+    """What JAX's AOT lowering proves (``flagship.py:70-136``), for eager
+    torch: the flagship-geometry pretrain model (Swin-S @224 + BERT-base,
+    MLM+ITM) built on the ``meta`` device and split for each model-axis
+    size in ``mps`` (default: 1, and 2 when ``n_devices`` is even), every
+    held parameter's local shape checked against its rule (the split
+    dimension divided by mp, a fused qkv by heads). The fusion side only:
+    the backbone is held replicated. Returns ``{mp: tensors split}``."""
+    from mvlt_tpu_torch.parallel import partition
+    cfg = dataclasses.replace(flagship_swin_pretrain_config(),
+                              max_length=seq_len)
+    model = PretrainModel(cfg, dtype=torch.float32, device="meta")
+    if mps is None:
+        mps = sorted({1, 2 if n_devices % 2 == 0 and n_devices > 1 else 1})
+    heads = cfg.fusion.num_attention_heads
+    out = {}
+    for mp in mps:
+        if n_devices % mp:
+            raise ValueError(f"model_parallel={mp} does not divide device "
+                             f"count {n_devices}")
+        split = 0
+        for name, p in model.named_parameters():
+            shard = partition.shard_for(name, p.shape, mp)
+            if shard.dim is None or not partition.held(name):
+                continue
+            local = partition.local_shard(p, shard, 0, mp)
+            want = list(p.shape)
+            want[shard.dim] //= mp
+            if list(local.shape) != want:
+                raise AssertionError(f"{name}: local {tuple(local.shape)}, "
+                                     f"rule gives {tuple(want)}")
+            if shard.parts == 3 and heads % mp:
+                raise AssertionError(f"{name}: {heads} heads over mp={mp}")
+            split += 1
+        out[mp] = split
+    return out
+
+
+def _dryrun_batch(B: int, L: int, vocab: int = 400, image_size: int = 32,
+                  seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    return {
+        "image": rng.normal(size=(B, 3, image_size, image_size)).astype(
+            np.float32),
+        "caption_masked": rng.integers(1, vocab, (B, L)),
+        "caption_label": np.where(rng.random((B, L)) < 0.2,
+                                  rng.integers(1, vocab, (B, L)), -100),
+        "itm_label": rng.integers(0, 2, (B,)),
+    }
+
+
+def _mesh_pretrain_step(cfg, mesh, device, batch: dict) -> float:
+    """One DP x TP pretrain step of ``cfg`` over ``mesh`` on the global
+    ``batch``: world rank 0's seeded init, each rank its shards and its
+    rows. Returns the loss (finite) after checking the step count."""
+    from mvlt_tpu_torch.train.state import TrainState
+    from mvlt_tpu_torch.train.steps import shard_train_state
+    model = PretrainModel(cfg, dtype=torch.float32, device=device,
+                          compute_dtype=(torch.bfloat16 if device.type ==
+                                         "cuda" else torch.float32))
+    init_seeded_(model, 0)
+    state = shard_train_state(
+        TrainState(model, make_optimizer(model, cfg)), mesh)
+    step = make_pretrain_step(model, state.optimizer, mesh=mesh)
+    step.masks = DropoutMasks(torch.Generator(device=device).manual_seed(
+        1 + mesh.data_rank))
+    metrics = step(step.shard_batch(batch), False)
+    state.step += 1
+    loss = float(metrics["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"non-finite loss {loss} over mesh {mesh.shape}")
+    assert state.step == 1
+    return loss
+
+
+def execute_flagship_multichip(n_devices: int, batch: int = 8,
+                               seq_len: int = 80, device="cuda") -> float:
+    """One real-shape flagship pretrain step (Swin-S @224 + BERT-base,
+    MLM+ITM, text ``seq_len``) over an ``n_devices`` DP mesh at global
+    batch ``batch`` (``flagship.py:139-197``), in a world of ``n_devices``
+    ranks already up (:func:`dryrun_multichip` brings one up). Returns the
+    loss, checked finite."""
+    from mvlt_tpu_torch.config import MeshConfig
+    from mvlt_tpu_torch.parallel import build_mesh
+    device = _need_cuda(device, "execute_flagship_multichip")
+    world = (torch.distributed.get_world_size()
+             if torch.distributed.is_initialized() else 1)
+    if world != n_devices:
+        raise ValueError(f"execute_flagship_multichip({n_devices}) in a world "
+                         f"of {world}")
+    cfg = dataclasses.replace(flagship_swin_pretrain_config(),
+                              max_length=seq_len)
+    mesh = build_mesh(MeshConfig(), device=device)
+    data = example_pretrain_batch(batch, seq_len, 0, config_image_size(cfg),
+                                  vocab=30000,
+                                  mask_token_id=cfg.mask_token_id)
+    return _mesh_pretrain_step(cfg, mesh, device,
+                               {k: v.numpy() for k, v in data.items()})
+
+
+def _dryrun_rank(n_devices: int, geometry: str, device) -> float:
+    """One rank's part of :func:`dryrun_multichip`."""
+    from mvlt_tpu_torch.config import MeshConfig
+    from mvlt_tpu_torch.parallel import build_mesh
+    if geometry == "flagship_exec":
+        return execute_flagship_multichip(n_devices, device=device)
+    mp = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    cfg = tiny_pretrain_config()
+    mesh = build_mesh(MeshConfig(model_parallel=mp), device=device)
+    dp = n_devices // mp
+    loss = _mesh_pretrain_step(cfg, mesh, device,
+                               _dryrun_batch(max(2, dp), 8))
+    # and the DP-only mesh (JAX's shard_map path)
+    _mesh_pretrain_step(cfg, build_mesh(MeshConfig(), device=device),
+                        device, _dryrun_batch(max(2, n_devices), 8))
+    return loss
+
+
+def _dryrun_worker(rank: int, n_devices: int, geometry: str, device: str,
+                   store: str, out: str) -> None:
+    from mvlt_tpu_torch.parallel import initialize_distributed
+    torch.set_num_threads(max(1, min(4, torch.get_num_threads()
+                                     // n_devices)))
+    dev = initialize_distributed(store, n_devices, rank, device=device)
+    try:
+        loss = _dryrun_rank(n_devices, geometry, dev)
+        if rank == 0:
+            with open(out, "w") as f:
+                f.write(repr(loss))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def dryrun_multichip(n_devices: int, geometry: str = "tiny", device="cuda"):
+    """One full sharded training step (forward, backward, AdamW) of the
+    pretraining model over an ``n_devices`` mesh (``flagship.py:200-261``).
+    ``geometry='tiny'``: the tiny config over a (n / 2, 2) DP x TP mesh,
+    then the DP-only mesh; ``'flagship'``: :func:`lower_flagship_multichip`
+    (no process); ``'flagship_exec'``: :func:`execute_flagship_multichip`.
+    When the caller is not already one of ``n_devices`` ranks it spawns
+    them (a ``file://`` store in a temporary directory), each on its own
+    card, or with ``device='cpu'`` on gloo; asked for ``cuda`` with fewer
+    cards than ranks it raises. Returns rank 0's loss (None for
+    'flagship')."""
+    import os
+    import tempfile
+    if geometry == "flagship":
+        lower_flagship_multichip(n_devices)
+        return None
+    if geometry not in ("tiny", "flagship_exec"):
+        raise ValueError(f"unknown geometry {geometry!r}")
+    device = torch.device(device)
+    if (torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() == n_devices):
+        return _dryrun_rank(n_devices, geometry, device)
+    if device.type == "cuda":
+        _need_cuda(device, "dryrun_multichip")
+        if torch.cuda.device_count() < n_devices:
+            raise ValueError(f"dryrun_multichip({n_devices}) on cuda: "
+                             f"{torch.cuda.device_count()} cards")
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "loss")
+        mp.spawn(_dryrun_worker, args=(n_devices, geometry, device.type,
+                                       f"file://{d}/store", out),
+                 nprocs=n_devices, join=True)
+        with open(out) as f:
+            return float(f.read())
+
+
 def entry():
     """Flagship forward at batch 8 on the card (counterpart of
     ``__graft_entry__.entry``)."""

@@ -13,6 +13,12 @@ with the batch's biased variance and updates ``running = 0.9 * running +
 0.1 * batch`` with that same biased variance (torch updates with the
 unbiased one); the statistics are f32 whatever the compute dtype, and the
 output is in the compute dtype.
+
+Over a data group (``BatchNorm.group``, set by the mesh: JAX trains these
+backbones under GSPMD, ``steps.py:212-219``) the training moments are the
+global batch's: (sum x, sum x^2) in f32 are summed over the group with a
+gradient through the sum, the variance is JAX's fast E[x^2] - E[x]^2, and
+the running buffers move by the same global moments on every rank.
 """
 
 from __future__ import annotations
@@ -39,9 +45,29 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
         self.register_buffer("running_mean", torch.zeros(channels, device=device))
         self.register_buffer("running_var", torch.ones(channels, device=device))
+        self.group = None
+
+    def _global(self, x: torch.Tensor) -> torch.Tensor:
+        from mvlt_tpu_torch.parallel import comm
+        xf = x.float()
+        sums = torch.stack([xf.sum((0, 2, 3)), xf.square().sum((0, 2, 3))])
+        sums = comm.sum_over_group(sums, self.group)
+        n = x.numel() // x.shape[1] * comm.group_size(self.group)
+        mean, ex2 = sums[0] / n, sums[1] / n
+        var = (ex2 - mean.square()).clamp(min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_((1 - m) * mean.detach())
+            self.running_var.mul_(m).add_((1 - m) * var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        shape = (1, -1, 1, 1)
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         rm, rv = self.running_mean, self.running_var
+        if train and self.group is not None:
+            return self._global(x)
         if not train:
             return F.batch_norm(x, rm, rv, self.weight, self.bias, False, 0.0,
                                 self.eps)

@@ -48,6 +48,22 @@ under :func:`~mvlt_tpu_torch.ops.layers.rematerialized` while autograd
 records it, in both mask modes: the backward recomputes the layer on the
 masks and the in-kernel dropout seed of its first run. The prefill and the
 decode steps run without autograd and are unchanged.
+
+Tensor parallelism (``tp``, set by :func:`mvlt_tpu_torch.parallel.shard.
+apply_mesh_`; JAX's Megatron rules under GSPMD, ``partition.py:29-52``).
+A layer then holds its rank's heads of the fused qkv (the same heads of q,
+k and v), its rows of ``out``, its columns of ``intermediate`` and its rows
+of ``output``, and runs the counterparts' TP form on ``num_heads / mp``
+heads (``ops/blocks.py``: the row-parallel product, Megatron's *g*, then
+bias, hidden mask, residual and LayerNorm). Without in-kernel dropout a
+rank draws the (B, nH, S, S) attention-dropout mask of all heads and keeps
+its own, and draws the (B, S, H) hidden masks whole: a model group draws
+what one device draws. With it, the rank's heads are keyed by their global
+index. The word embedding, when its rule splits it (vocab + 1 rows divisible
+by mp), is a masked lookup of the rank's rows and *g*. ``forward_kv`` /
+``decode_step`` run the plain route on the rank's heads with a cache of
+those heads: Dense -> attention -> the row-parallel ``out`` (+ *g*, then its
+bias).
 """
 
 from __future__ import annotations
@@ -58,17 +74,20 @@ from torch import nn
 from mvlt_tpu_torch.config import FusionConfig
 from mvlt_tpu_torch.ops import masks as mask_lib
 from mvlt_tpu_torch.ops.attention import multi_head_attention
+from mvlt_tpu_torch.ops.blocks import row_parallel
 from mvlt_tpu_torch.ops.layers import (Dense, LayerNorm, gelu_exact,
                                        records_grad, rematerialized)
+from mvlt_tpu_torch.parallel import comm
 from mvlt_tpu_torch.utils.env import env_flag
 
 
 def init_cache(cfg: FusionConfig, batch: int, max_len: int,
-               dtype: torch.dtype, device) -> dict:
+               dtype: torch.dtype, device, heads: int = None) -> dict:
     """The static KV cache (``fusion.py:62-68``): ``{"k", "v"}``, each
-    (layers, B, heads, max_len, head_dim) zeros in ``dtype``."""
-    shape = (cfg.num_hidden_layers, batch, cfg.num_attention_heads, max_len,
-             cfg.head_dim)
+    (layers, B, heads, max_len, head_dim) zeros in ``dtype``; ``heads``
+    defaults to the config's (a TP rank's cache holds its own)."""
+    shape = (cfg.num_hidden_layers, batch, heads or cfg.num_attention_heads,
+             max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -89,6 +108,21 @@ class EncoderLayer(nn.Module):
         self.scale = cfg.head_dim ** -0.5
         self.attn_dropout = cfg.attention_probs_dropout_prob
         self.hidden_dropout = cfg.hidden_dropout_prob
+        self.tp = None                  # a TP rank's group (parallel.shard)
+
+    def _heads(self) -> int:
+        """The heads this rank computes."""
+        return self.num_heads // (1 if self.tp is None else self.tp.size)
+
+    def _row_parallel(self, dense, x, ops) -> torch.Tensor:
+        """``dense`` on x; under TP the product's rows split over the model
+        group (:func:`~mvlt_tpu_torch.ops.blocks.row_parallel`)."""
+        if self.tp is None:
+            return dense(x, ops)
+        shape = x.shape
+        y = row_parallel(ops, x.reshape(-1, shape[-1]).contiguous(),
+                         dense.weight.to(x.dtype), dense.bias, self.tp)
+        return y.to(x.dtype).view(*shape[:-1], y.shape[-1])
 
     def forward(self, hidden: torch.Tensor, kbias, ops, qbias=None,
                 masks=None) -> torch.Tensor:
@@ -96,6 +130,8 @@ class EncoderLayer(nn.Module):
         (a :class:`DropoutMasks`) turns training dropout on."""
         dt = hidden.dtype
         B, S, H = hidden.shape
+        nH = self._heads()
+        tp = {} if self.tp is None else {"tp": self.tp}
 
         def w(dense):
             return dense.weight.to(dt), dense.bias.to(dt)
@@ -111,27 +147,31 @@ class EncoderLayer(nn.Module):
         seed = masks.seed(hidden.device) if adrop else None
         amask = None if adrop else mask(self.attn_dropout,
                                         (B, self.num_heads, S, S))
+        if amask is not None and self.tp is not None:
+            h0 = self.tp.rank * nH              # this rank's heads of the draw
+            amask = amask[:, h0:h0 + nH].contiguous()
         hmask = mask(self.hidden_dropout, (B, S, H))
         ln1 = (self.out_layernorm.weight, self.out_layernorm.bias)
         if adrop:
             h = ops.fused_attn_ln_adrop(hidden, *w(self.qkv), *w(self.out),
                                         kbias, qbias, hmask, *ln1, seed,
-                                        self.scale, self.num_heads,
-                                        self.attn_dropout, self.eps)
+                                        self.scale, nH, self.attn_dropout,
+                                        self.eps, **tp)
         elif qbias is None and amask is None and hmask is None:
             h = ops.fused_attn_ln(hidden, *w(self.qkv), *w(self.out), kbias,
-                                  *ln1, self.scale, self.num_heads, self.eps)
+                                  *ln1, self.scale, nH, self.eps, **tp)
         else:
             h = ops.fused_attn_ln_masked(hidden, *w(self.qkv), *w(self.out),
                                          kbias, qbias, amask, hmask, *ln1,
-                                         self.scale, self.num_heads, self.eps)
+                                         self.scale, nH, self.eps, **tp)
         ln2 = (self.output_layernorm.weight, self.output_layernorm.bias)
         hmask = mask(self.hidden_dropout, (B, S, H))
         if hmask is None:
             return ops.fused_mlp_ln(h, *w(self.intermediate), *w(self.output),
-                                    *ln2, self.eps)
+                                    *ln2, self.eps, **tp)
         return ops.fused_mlp_ln_masked(h, *w(self.intermediate),
-                                       *w(self.output), hmask, *ln2, self.eps)
+                                       *w(self.output), hmask, *ln2, self.eps,
+                                       **tp)
 
     def _attention_plain(self, hidden: torch.Tensor, bias, ops, cache=None,
                          write_pos: int = 0):
@@ -142,8 +182,8 @@ class EncoderLayer(nn.Module):
         ``write_pos``; the out product, + hidden, LayerNorm. Returns (out,
         k, v), k / v (B, nH, S or C, Dh)."""
         B, S, H = hidden.shape
-        nH = self.num_heads
-        qkv = self.qkv(hidden, ops).view(B, S, 3, nH, H // nH)
+        nH = self._heads()
+        qkv = self.qkv(hidden, ops).view(B, S, 3, nH, H // self.num_heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
         if cache is not None:
             ck, cv = cache
@@ -151,8 +191,9 @@ class EncoderLayer(nn.Module):
             cv[:, :, write_pos:write_pos + S] = v
             k, v = ck, cv
         ctx = multi_head_attention(q, k, v, bias, scale=self.scale)
-        ctx = ctx.transpose(1, 2).reshape(B, S, H)
-        return self.out_layernorm(self.out(ctx, ops) + hidden, ops), k, v
+        ctx = ctx.transpose(1, 2).reshape(B, S, -1)
+        out = self._row_parallel(self.out, ctx, ops)
+        return self.out_layernorm(out + hidden, ops), k, v
 
     def forward_kv(self, hidden: torch.Tensor, bias, ops):
         """The prefill layer: plain attention half, ``fused_mlp_ln``.
@@ -163,7 +204,7 @@ class EncoderLayer(nn.Module):
             h, self.intermediate.weight.to(dt), self.intermediate.bias.to(dt),
             self.output.weight.to(dt), self.output.bias.to(dt),
             self.output_layernorm.weight, self.output_layernorm.bias,
-            self.eps)
+            self.eps, **({} if self.tp is None else {"tp": self.tp}))
         return out, (k, v)
 
     def decode(self, hidden: torch.Tensor, bias, ops, cache,
@@ -173,7 +214,8 @@ class EncoderLayer(nn.Module):
         residual, LayerNorm (``fusion.py:264-269``)."""
         h, _, _ = self._attention_plain(hidden, bias, ops, cache, write_pos)
         m = gelu_exact(self.intermediate(h, ops))
-        return self.output_layernorm(self.output(m, ops) + h, ops)
+        return self.output_layernorm(self._row_parallel(self.output, m, ops)
+                                     + h, ops)
 
 
 class FusionEncoder(nn.Module):
@@ -200,6 +242,21 @@ class FusionEncoder(nn.Module):
              for _ in range(cfg.num_hidden_layers)])
         self.pooler = (Dense(H, H, dtype=dtype, device=device)
                        if add_pooling_layer else None)
+        self.vocab_tp = None    # the model group when the table is split
+
+    def _words(self, ids: torch.Tensor) -> torch.Tensor:
+        """Word embeddings of ``ids`` (any shape), in the table's dtype: a
+        lookup, or with the table's rows split over the model group a
+        masked lookup of this rank's rows and *g*."""
+        table = self.word_embeddings
+        if self.vocab_tp is None:
+            return table[ids]
+        n = table.shape[0]
+        local = ids - self.vocab_tp.rank * n
+        mine = (local >= 0) & (local < n)
+        rows = table[torch.where(mine, local, torch.zeros_like(local))]
+        rows = rows * mine[..., None].to(rows.dtype)
+        return comm.reduce_from_group(rows, self.vocab_tp.group)
 
     def _embed(self, text_idx, image_feature):
         """(embeddings (B, S, H) in the compute dtype, obj_end) of
@@ -208,12 +265,17 @@ class FusionEncoder(nn.Module):
         B, num_obj = image_feature.shape[:2]
         obj_end = num_obj + 1                            # index of [SEP]
         dt = self.compute_dtype
-        word = self.word_embeddings
-        parts = [word[self.cls_token_id].to(dt).expand(B, 1, -1),
-                 image_feature.to(dt),
-                 word[self.sep_token_id].to(dt).expand(B, 1, -1)]
+        if self.vocab_tp is None:
+            word = self.word_embeddings
+            cls, sep = word[self.cls_token_id], word[self.sep_token_id]
+        else:
+            cls, sep = self._words(torch.tensor(
+                [self.cls_token_id, self.sep_token_id],
+                device=image_feature.device))
+        parts = [cls.to(dt).expand(B, 1, -1), image_feature.to(dt),
+                 sep.to(dt).expand(B, 1, -1)]
         if text_idx is not None:
-            parts.append(word[text_idx.long()].to(dt))
+            parts.append(self._words(text_idx.long()).to(dt))
         vl = torch.cat(parts, dim=1)
         pos = torch.arange(vl.shape[1], device=vl.device)
         token_type = (pos <= obj_end).long()
@@ -273,7 +335,7 @@ class FusionEncoder(nn.Module):
         B, T = tokens.shape
         dt = self.compute_dtype
         pos = write_pos + torch.arange(T, device=tokens.device)
-        hidden = (self.word_embeddings[tokens.long()].to(dt)
+        hidden = (self._words(tokens.long()).to(dt)
                   + self.token_type_embeddings[0].to(dt)
                   + self.position_embeddings[pos].to(dt)[None])
         ck, cv = cache["k"], cache["v"]

@@ -125,7 +125,8 @@ def _make_cache(model, kv, prefix_len: int, batch: int, spec: GenerationSpec,
     ref = kv[0][0]
     cache = init_cache(model.config.fusion, batch,
                        prefix_len + spec.max_length + 1,
-                       dtype or model.fusion.compute_dtype, ref.device)
+                       dtype or model.fusion.compute_dtype, ref.device,
+                       heads=ref.shape[1])
     for i, (k, v) in enumerate(kv):
         cache["k"][i, :, :, :prefix_len] = k[:, :, :prefix_len]
         cache["v"][i, :, :, :prefix_len] = v[:, :, :prefix_len]

@@ -16,7 +16,15 @@ products are ``F.linear`` in serving too, by design, because K1 takes no N
 (N = 30,522), the retrieval head's ``final_linear`` (N = 2) and the VQA
 head's ``final_mlp`` (N = the dataset's answer count, whatever it is).
 The first two heads' 768 -> 768 transforms stay on ``Dense`` (K1 in
-serving)."""
+serving).
+
+Over a mesh every loss takes ``group``, the data group (JAX's
+``axis_name``): the NLL sum and the valid count are summed over it, so the
+mean is the global batch's. Under tensor parallelism the MLM decoder's
+vocabulary columns are split over the model group (15,261 a rank at mp = 2
+with BERT's vocabulary; replicated where mp does not divide it, as JAX's
+rule falls back): the loss is the vocab-parallel cross entropy on this
+rank's logits, and the logits that a caller reads are all-gathered."""
 
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from mvlt_tpu_torch.ops.kernels import ATTENTION_LONG_MAX_N
 from mvlt_tpu_torch.ops.layers import (Dense, LayerNorm,
                                        cross_entropy_ignore_index,
                                        gather_label_positions, gelu_exact)
+from mvlt_tpu_torch.parallel import comm
 
 
 def _check_masks(config: MVLTConfig, masks) -> None:
@@ -153,17 +162,20 @@ class VQAModel(_Backbone):
         return torch.softmax(logits.float(), dim=-1).to(logits.dtype), logits
 
     def loss(self, image: torch.Tensor, question: torch.Tensor,
-             label: torch.Tensor, plain: bool = False, masks=None):
+             label: torch.Tensor, plain: bool = False, masks=None,
+             group=None):
         """Training forward (``heads.py:90-94``): BatchNorms on batch
         statistics (their running averages updated), fusion encoder on the
         autograd counterparts, dropout masks from ``masks`` (a
         :class:`DropoutMasks`; needed when a dropout rate is above 0).
-        Returns (mean CE over labels != -100 in f32, logits)."""
+        Returns (mean CE over labels != -100 in f32, over the global batch
+        of the data ``group``, logits)."""
         _check_masks(self.config, masks)
         logits = self._logits(image, question,
                               PLAIN_OPS if plain else KERNEL_OPS, train=True,
                               masks=masks)
-        return cross_entropy_ignore_index(logits, label), logits
+        return cross_entropy_ignore_index(logits, label,
+                                          group=group), logits
 
 
 class HeadTransform(nn.Module):
@@ -197,9 +209,28 @@ class MLMHead(nn.Module):
                                        device=device)
         self.decoder = Dense(hidden, vocab, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor, ops) -> torch.Tensor:
+        self.vocab_tp = None    # the model group when the vocab is split
+
+    @property
+    def vocab_group(self):
+        """The model group over which the decoder's columns are split, or
+        None."""
+        return None if self.vocab_tp is None else self.vocab_tp.group
+
+    def forward(self, x: torch.Tensor, ops, local: bool = False
+                ) -> torch.Tensor:
+        """Vocab logits of x; with the vocabulary split, ``local=True``
+        gives this rank's columns (for :func:`cross_entropy_ignore_index`'s
+        ``vocab_group``) and otherwise they are all-gathered (no
+        gradient)."""
         h, d = self.transform(x, ops), self.decoder
-        return F.linear(h, d.weight.to(h.dtype), d.bias.to(h.dtype))
+        if self.vocab_tp is None:
+            return F.linear(h, d.weight.to(h.dtype), d.bias.to(h.dtype))
+        if local:
+            h = comm.copy_to_group(h, self.vocab_tp.group)     # Megatron f
+        y = F.linear(h, d.weight.to(h.dtype), d.bias.to(h.dtype))
+        return y if local else comm.all_gather_cat(y, self.vocab_tp.group,
+                                                   dim=-1)
 
 
 class PretrainModel(_Backbone):
@@ -222,7 +253,8 @@ class PretrainModel(_Backbone):
 
     def loss(self, image: torch.Tensor, caption_masked: torch.Tensor,
              caption_label: torch.Tensor, itm_label: torch.Tensor = None,
-             seq2seq: bool = False, plain: bool = False, masks=None):
+             seq2seq: bool = False, plain: bool = False, masks=None,
+             group=None):
         """Training forward (``heads.py:117-156``). image (B, C, H, W);
         caption_masked (B, L) ids, 0 = padding; caption_label (B, L), -100
         where no token is predicted; itm_label (B,) in {0, 1}. ``seq2seq``
@@ -242,12 +274,13 @@ class PretrainModel(_Backbone):
         metrics = {}
         loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
         if cfg.mlm_task:
-            metrics["mlm_loss"] = cross_entropy_ignore_index(head(text, ops),
-                                                             label)
+            metrics["mlm_loss"] = cross_entropy_ignore_index(
+                head(text, ops, local=True), label, group=group,
+                vocab_group=head.vocab_group)
             loss = loss + metrics["mlm_loss"]
         if cfg.itm_task:
             metrics["itm_loss"] = cross_entropy_ignore_index(
-                self.itm_mlp(pooled, ops), itm_label)
+                self.itm_mlp(pooled, ops), itm_label, group=group)
             loss = loss + metrics["itm_loss"]
         metrics["loss"] = loss
         return loss, metrics
@@ -312,7 +345,8 @@ class RetrievalModel(_Backbone):
         return self._p_match(self.logits_from_features(feat, caption, plain))
 
     def loss(self, image: torch.Tensor, caption: torch.Tensor,
-             label: torch.Tensor, plain: bool = False, masks=None):
+             label: torch.Tensor, plain: bool = False, masks=None,
+             group=None):
         """Training forward (heads.py:202-207): Swin DropPath and the
         fusion's attention dropout from ``masks`` (a :class:`DropoutMasks`;
         needed when a rate is above 0), drawn in JAX's order. label (B,) in
@@ -321,7 +355,8 @@ class RetrievalModel(_Backbone):
         ops = PLAIN_OPS if plain else KERNEL_OPS
         _, _, pooled = self._encode(image, caption, ops, True, masks=masks)
         logits = self._head(pooled, ops)
-        return cross_entropy_ignore_index(logits, label), logits
+        return cross_entropy_ignore_index(logits, label,
+                                          group=group), logits
 
 
 class CaptionModel(_Backbone):
@@ -356,12 +391,13 @@ class CaptionModel(_Backbone):
                 f"learning_strategy {learning_strategy!r}")
         return learning_strategy
 
-    def _text_logits(self, obj_end: int, hidden, L: int, strategy: str, ops):
+    def _text_logits(self, obj_end: int, hidden, L: int, strategy: str, ops,
+                     local: bool = False):
         text = hidden[:, obj_end + 1:obj_end + 1 + L]
         if strategy == "normal":
             text = torch.cat([hidden[:, obj_end:obj_end + 1], text[:, :-1]],
                              dim=1)
-        return self.mlm_head_seq2seq(text, ops)
+        return self.mlm_head_seq2seq(text, ops, local=local)
 
     @torch.no_grad()
     def encode_forward(self, image_feature: torch.Tensor,
@@ -386,12 +422,14 @@ class CaptionModel(_Backbone):
 
     def loss(self, image: torch.Tensor, caption: torch.Tensor,
              labels: torch.Tensor, learning_strategy: str = "unilm",
-             plain: bool = False, masks=None):
+             plain: bool = False, masks=None, group=None):
         """Training forward (heads.py:264-285): Swin DropPath and fusion
         dropout from ``masks`` (a :class:`DropoutMasks`; needed when a rate
         is above 0), drawn in JAX's order. caption (B, L) ids; labels (B, L),
         -100 where no token is predicted. Returns (mean CE over labels !=
-        -100 in f32, logits of the projected positions)."""
+        -100 in f32, over the global batch of the data ``group``, logits of
+        the projected positions: this rank's vocab columns when the decoder
+        is split)."""
         _check_masks(self.config, masks)
         strategy = self._strategy(learning_strategy)
         ops = PLAIN_OPS if plain else KERNEL_OPS
@@ -403,8 +441,10 @@ class CaptionModel(_Backbone):
             L = caption.shape[1]
             text, labels = gather_label_positions(
                 hidden[:, obj_end + 1:obj_end + 1 + L], labels, k)
-            logits = self.mlm_head_seq2seq(text, ops)
+            logits = self.mlm_head_seq2seq(text, ops, local=True)
         else:
             logits = self._text_logits(obj_end, hidden, caption.shape[1],
-                                       strategy, ops)
-        return cross_entropy_ignore_index(logits, labels), logits
+                                       strategy, ops, local=True)
+        return cross_entropy_ignore_index(
+            logits, labels, group=group,
+            vocab_group=self.mlm_head_seq2seq.vocab_group), logits

@@ -134,6 +134,19 @@ window order in which qkv and ctx are kept (shifted when shifted), and the
 backward hands it to ``attention_core_bwd(p2=...)`` (K4 from the stored p)
 unless ``MVLT_NO_STOREP`` is set by then.
 
+Tensor parallelism (``tp=``, a model group: ``parallel/shard.TP``). The
+fusion rows 4 / 15 / 15' (``fused_attn_ln*``) and 5 / 17' (``fused_mlp_ln*``)
+take the rank's heads of the fused qkv (or its fc1 columns) and its rows of
+proj (or fc2), as Megatron splits them: K1 qkv (or fc1 + GELU) -> K2 on the
+rank's heads -> K1 on the rank's rows with no epilogue, writing f32 partial
+sums -> Megatron's *g* (an all-reduce over the group) -> bias (added once),
+hidden mask and residual in f32 -> K3. Their backwards (rows 16 and 17) run
+K5 -> K1 tn / nn on the local shards -> K4 on the local heads -> *f* (the
+f32 partial input gradient all-reduced, then the residual's added). In-kernel
+dropout passes ``(seed, rate, head0)``, the rank's first global head, so a
+rank draws what one device draws for its heads. The counterparts count one
+launch a call either way.
+
 They hold the math of the JAX interpret path (``fast=False``), not the TPU
 fast path. The TPU layout choices are dropped: windows are not merged into
 pairs, rows are not padded to multiples of 8, and no VMEM admission rule
@@ -170,6 +183,7 @@ import torch.utils.checkpoint
 
 from mvlt_tpu_torch.ops import kernels
 from mvlt_tpu_torch.ops.layers import SWIN_LN_EPS
+from mvlt_tpu_torch.parallel import comm
 from mvlt_tpu_torch.utils.env import env_flag
 
 # What a forward runs: the kernels, or the same composition on their plain
@@ -596,20 +610,20 @@ class _AttnLN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, amask,
-                hmask, lns, lnb, seed, rate, scale, num_heads, eps):
+                hmask, lns, lnb, seed, rate, scale, num_heads, eps, tp=None):
         B, N, C = x.shape
         rows = x.reshape(B * N, C).contiguous()
         hm = _rows2(hmask)
-        adrop = None if seed is None else (seed, rate)
+        adrop = _adrop_arg(seed, rate, num_heads, tp)
         qkv = p.gemm(rows, wqkv, bqkv)
         attn = p.attention(qkv, num_heads, N, scale, key_bias=kbias,
                            qbias=qbias, amask=amask, adrop=adrop)
-        res = p.gemm(attn, wproj, bproj, residual=rows, emask=hm,
-                     out_dtype=torch.float32)
+        res = _proj_sum(p, attn, wproj, bproj, hm, rows, tp, torch.float32)
         out = p.layernorm(res, lns, lnb, eps, out_dtype=x.dtype)
         ctx.save_for_backward(rows, wqkv, bqkv, wproj, bproj, kbias, qbias,
                               amask, hm, lns, qkv, attn, res, seed)
         ctx.p, ctx.dims = p, (B, N, C, scale, num_heads, eps, rate)
+        ctx.tp = tp
         return out.view(B, N, C)
 
     @staticmethod
@@ -625,18 +639,26 @@ class _AttnLN(torch.autograd.Function):
                                                        hmask=hm)
         dwproj = p.gemm(da, attn, layout="tn", out_dtype=f32)
         dctx = p.gemm(da, wproj, layout="nn")
+        tp = ctx.tp
+        Cl = dctx.shape[1]                  # this rank's columns under TP
         dqkv, dkbias = p.seq_attention_core_bwd(
-            qkv.view(B, N, 3 * C), dctx.view(B, N, C), kbias, qbias, amask,
-            scale, num_heads, adrop=None if seed is None else (seed, rate))
-        dqkv = dqkv.reshape(B * N, 3 * C)
+            qkv.view(B, N, 3 * Cl), dctx.view(B, N, Cl), kbias, qbias, amask,
+            scale, num_heads, adrop=_adrop_arg(seed, rate, num_heads, tp))
+        dqkv = dqkv.reshape(B * N, 3 * Cl)
         dwqkv = p.gemm(dqkv, rows, layout="tn", out_dtype=f32)
         dbqkv = p.column_sum(dqkv) if bqkv is not None else None
-        dx = p.gemm(dqkv, wqkv, layout="nn", residual=dres,
-                    out_dtype=rows.dtype)
+        if tp is None:
+            dx = p.gemm(dqkv, wqkv, layout="nn", residual=dres,
+                        out_dtype=rows.dtype)
+        else:
+            dx = _input_grad_sum(p.gemm(dqkv, wqkv, layout="nn",
+                                        out_dtype=f32), dres, tp, rows.dtype)
+        if ctx.needs_input_grad[6] and tp is not None:
+            comm.all_reduce_(dkbias, tp.group)      # a sum over the heads
         return (None, dx.view(B, N, C), _cast(dwqkv, wqkv), _cast(dbqkv, bqkv),
                 _cast(dwproj, wproj), _cast(dbproj, bproj),
                 dkbias if ctx.needs_input_grad[6] else None, None, None, None,
-                dlns, dlnb, None, None, None, None, None)
+                dlns, dlnb, None, None, None, None, None, None)
 
 
 class _MlpLN(torch.autograd.Function):
@@ -644,81 +666,123 @@ class _MlpLN(torch.autograd.Function):
     backward (``mlp_ln_half_bwd``)."""
 
     @staticmethod
-    def forward(ctx, p, x, w1, b1, w2, b2, hmask, lns, lnb, eps):
+    def forward(ctx, p, x, w1, b1, w2, b2, hmask, lns, lnb, eps, tp=None):
         rows = x.reshape(-1, x.shape[-1]).contiguous()
         hm = _rows2(hmask)
         m = p.gemm(rows, w1, b1, gelu=True)
-        res = p.gemm(m, w2, b2, residual=rows, emask=hm,
-                     out_dtype=torch.float32)
+        res = _proj_sum(p, m, w2, b2, hm, rows, tp, torch.float32)
         out = p.layernorm(res, lns, lnb, eps, out_dtype=x.dtype)
         ctx.save_for_backward(rows, w1, b1, w2, b2, hm, lns, res)
-        ctx.p, ctx.shape, ctx.eps = p, x.shape, eps
+        ctx.p, ctx.shape, ctx.eps, ctx.tp = p, x.shape, eps, tp
         return out.view(x.shape)
 
     @staticmethod
     def backward(ctx, g):
         rows, w1, b1, w2, b2, hm, lns, res = ctx.saved_tensors
         g2 = g.reshape(rows.shape).to(rows.dtype).contiguous()
+        kw = {} if ctx.tp is None else {"tp": ctx.tp}
         dx, dw1, db1, dw2, db2, dlns, dlnb = ctx.p.mlp_ln_half_bwd(
-            rows, res, g2, hm, w1, b1, w2, lns, ctx.eps)
+            rows, res, g2, hm, w1, b1, w2, lns, ctx.eps, **kw)
         return (None, dx.to(rows.dtype).view(ctx.shape), _cast(dw1, w1),
                 _cast(db1, b1), _cast(dw2, w2), _cast(db2, b2), None, dlns,
-                dlnb, None)
+                dlnb, None, None)
+
+
+def _adrop_arg(seed, rate, num_heads: int, tp):
+    """K2 / K4's ``adrop``: None, ``(seed, rate)``, or under TP ``(seed,
+    rate, head0)`` with this rank's first global head, so that its heads
+    draw what one device draws for them."""
+    if seed is None:
+        return None
+    return (seed, rate) if tp is None else (seed, rate, tp.rank * num_heads)
+
+
+def row_parallel(p, a, w, bias, tp):
+    """Megatron's row-parallel product a @ w.T under TP, f32 (M, N): K1 (or
+    its plain version, as ``p`` says) on this rank's rows of the product
+    with no epilogue, *g* (the f32 partial sums all-reduced over the model
+    group), then the bias once. No autograd: the training rows' backward is
+    written out in their Functions."""
+    part = comm.all_reduce_(p.gemm(a, w, out_dtype=torch.float32), tp.group)
+    return part if bias is None else part + bias.float()
+
+
+def _proj_sum(p, a, w, bias, hm, rows, tp, out_dtype):
+    """The row-parallel out / fc2 product and its epilogue: on one device
+    K1 with bias, hidden mask and residual in its epilogue; under TP
+    :func:`row_parallel`, then hidden mask and residual in f32."""
+    if tp is None:
+        return p.gemm(a, w, bias, residual=rows, emask=hm, out_dtype=out_dtype)
+    part = row_parallel(p, a, w, bias, tp)
+    if hm is not None:
+        part = part * hm.float()
+    return (part + rows.float()).to(out_dtype)
+
+
+def _input_grad_sum(dx_part, dres, tp, out_dtype):
+    """*f*'s backward: the f32 partial input gradient of a column-parallel
+    product all-reduced over the model group, + the residual's (once)."""
+    comm.all_reduce_(dx_part, tp.group)
+    return (dx_part + dres.float()).to(out_dtype)
 
 
 def _attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, amask, hmask,
-             lns, lnb, scale, num_heads, eps, adrop=None):
+             lns, lnb, scale, num_heads, eps, adrop=None, tp=None):
     if _needs_grad(x, wqkv, bqkv, wproj, bproj, lns, lnb):
         seed, rate = (None, 0.0) if adrop is None else adrop
         return _AttnLN.apply(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias,
                              amask, hmask, lns, lnb, seed, rate, scale,
-                             num_heads, eps)
+                             num_heads, eps, tp)
     B, N, C = x.shape
     rows = x.reshape(B * N, C)
+    if adrop is not None:
+        adrop = _adrop_arg(*adrop, num_heads, tp)
     qkv = p.gemm(rows, wqkv, bqkv)
     ctx = p.attention(qkv, num_heads, N, scale, key_bias=kbias, qbias=qbias,
                       amask=amask, adrop=adrop)
-    res = p.gemm(ctx, wproj, bproj, residual=rows, emask=_rows2(hmask))
+    res = _proj_sum(p, ctx, wproj, bproj, _rows2(hmask), rows, tp, x.dtype)
     return p.layernorm(res, lns, lnb, eps).view(B, N, C)
 
 
-def _mlp_ln(p, x, w1, b1, w2, b2, hmask, lns, lnb, eps):
+def _mlp_ln(p, x, w1, b1, w2, b2, hmask, lns, lnb, eps, tp=None):
     if _needs_grad(x, w1, b1, w2, b2, lns, lnb):
-        return _MlpLN.apply(p, x, w1, b1, w2, b2, hmask, lns, lnb, eps)
+        return _MlpLN.apply(p, x, w1, b1, w2, b2, hmask, lns, lnb, eps, tp)
     rows = x.reshape(-1, x.shape[-1])
     m = p.gemm(rows, w1, b1, gelu=True)
-    res = p.gemm(m, w2, b2, residual=rows, emask=_rows2(hmask))
+    res = _proj_sum(p, m, w2, b2, _rows2(hmask), rows, tp, x.dtype)
     return p.layernorm(res, lns, lnb, eps).view(x.shape)
 
 
 def _fused_attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, lns, lnb,
-                   scale: float, num_heads: int, eps: float = 1e-12):
+                   scale: float, num_heads: int, eps: float = 1e-12, *,
+                   tp=None):
     return _attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, None, None, None,
-                    lns, lnb, scale, num_heads, eps)
+                    lns, lnb, scale, num_heads, eps, tp=tp)
 
 
 def _fused_attn_ln_masked(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias,
                           amask, hmask, lns, lnb, scale: float,
-                          num_heads: int, eps: float = 1e-12):
+                          num_heads: int, eps: float = 1e-12, *, tp=None):
     return _attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, amask,
-                    hmask, lns, lnb, scale, num_heads, eps)
+                    hmask, lns, lnb, scale, num_heads, eps, tp=tp)
 
 
 def _fused_attn_ln_adrop(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, hmask,
                          lns, lnb, adrop_seed, scale: float, num_heads: int,
-                         adrop_rate: float, eps: float = 1e-12):
+                         adrop_rate: float, eps: float = 1e-12, *, tp=None):
     return _attn_ln(p, x, wqkv, bqkv, wproj, bproj, kbias, qbias, None, hmask,
                     lns, lnb, scale, num_heads, eps,
-                    adrop=(adrop_seed, adrop_rate))
+                    adrop=(adrop_seed, adrop_rate), tp=tp)
 
 
-def _fused_mlp_ln(p, x, w1, b1, w2, b2, lns, lnb, eps: float = 1e-12):
-    return _mlp_ln(p, x, w1, b1, w2, b2, None, lns, lnb, eps)
+def _fused_mlp_ln(p, x, w1, b1, w2, b2, lns, lnb, eps: float = 1e-12, *,
+                  tp=None):
+    return _mlp_ln(p, x, w1, b1, w2, b2, None, lns, lnb, eps, tp=tp)
 
 
 def _fused_mlp_ln_masked(p, x, w1, b1, w2, b2, hmask, lns, lnb,
-                         eps: float = 1e-12):
-    return _mlp_ln(p, x, w1, b1, w2, b2, hmask, lns, lnb, eps)
+                         eps: float = 1e-12, *, tp=None):
+    return _mlp_ln(p, x, w1, b1, w2, b2, hmask, lns, lnb, eps, tp=tp)
 
 
 def _seq_attention_core_bwd(p, qkv, dctx, kbias, qbias, amask, scale: float,
@@ -731,7 +795,7 @@ def _seq_attention_core_bwd(p, qkv, dctx, kbias, qbias, amask, scale: float,
 
 
 def _mlp_ln_half_bwd(p, x2, res2, g2, hmask2, w1, b1, w2, lns,
-                     eps: float = 1e-12):
+                     eps: float = 1e-12, *, tp=None):
     f32 = torch.float32
     dres, dmlp, dlns, dlnb, db2 = p.layernorm_bwd(res2, lns, g2, eps,
                                                   hmask=hmask2)
@@ -740,7 +804,11 @@ def _mlp_ln_half_bwd(p, x2, res2, g2, hmask2, w1, b1, w2, lns,
     da1 = p.gemm(dmlp, w2, layout="nn", gelu_grad=a1)
     db1 = p.column_sum(da1)
     dw1 = p.gemm(da1, x2, layout="tn", out_dtype=f32)
-    dx = p.gemm(da1, w1, layout="nn", residual=dres, out_dtype=f32)
+    if tp is None:
+        dx = p.gemm(da1, w1, layout="nn", residual=dres, out_dtype=f32)
+    else:
+        dx = _input_grad_sum(p.gemm(da1, w1, layout="nn", out_dtype=f32),
+                             dres, tp, f32)
     return dx, dw1, db1, dw2, db2, dlns, dlnb
 
 

@@ -77,13 +77,13 @@ _i64 = ctypes.c_longlong
 _SIGNATURES = {
     "mvlt_gemm": ([_vp] * 10 + [_int] * 7 + [_vp, _int, _vp], _int),
     "mvlt_attention": ([_vp] * 3 + [_i64] * 3 + [_vp] + [_i64] * 3 + [_vp] * 7
-                       + [_int] * 5 + [_float, _uint, _float, _vp], _int),
+                       + [_int] * 5 + [_float, _uint, _float, _int, _vp], _int),
     "mvlt_attention_smem": ([_int] * 3, _i64),
     "mvlt_smem_optin": ([], _int),
     "mvlt_layernorm": ([_vp] * 5 + [_int, _int, _float, _int, _vp], _int),
     "mvlt_layernorm_plan": ([_int, _int, _vp], _int),
     "mvlt_attention_bwd": ([_vp] * 14 + [_int] * 5
-                           + [_float, _uint, _float, _vp], _int),
+                           + [_float, _uint, _float, _int, _vp], _int),
     "mvlt_attention_bwd_smem": ([_int] * 3, _i64),
     "mvlt_attention_bwd_scratch": ([_int] * 2, _i64),
     "mvlt_attention_bwd_chunks": ([_int] * 3, _int),
@@ -501,23 +501,27 @@ def _adrop_seed(seed: torch.Tensor) -> None:
 
 
 def adrop_mask_plain(seed: torch.Tensor, B: int, num_heads: int, N: int,
-                     rate: float) -> torch.Tensor:
+                     rate: float, head0: int = 0) -> torch.Tensor:
     """The attention-dropout mask that K2 draws and K4 regenerates, (B, nH,
     N, N) f32 of 0 or f32(1 / keep), on ``seed``'s device and without a
     host read of it. ``seed``: (2,) int32, two 16-bit halves (hi, lo).
     Element (b, h, i, j) takes word ``e % 4`` of Philox4x32-10 with key
     ``(hi * 65536 + lo, 0)`` and counter ``(e // 4, b * 256 + h, 0, 0)``,
     e = i * N + j, b the absolute sample: it depends on nothing but the
-    seed, b, h, i, j and N."""
+    seed, b, h, i, j and N. ``head0``: h runs over ``head0 .. head0 + nH -
+    1`` (a tensor-parallel rank's heads), so the result is that slice of
+    the mask of all heads."""
     _adrop_seed(seed)
-    _require(num_heads <= 256, f"{num_heads} heads > 256")
+    _require(0 <= head0 and head0 + num_heads <= 256,
+             f"heads {head0}..{head0 + num_heads - 1} past 256")
     thresh, kept = adrop_constants(rate)
     dev, i64 = seed.device, torch.int64
     s = seed.to(i64)
     key0 = s[0] * 65536 + s[1]                # 0-d, stays on the device
     e = torch.arange(N * N, device=dev, dtype=i64)
     b = torch.arange(B, device=dev, dtype=i64)[:, None, None]
-    h = torch.arange(num_heads, device=dev, dtype=i64)[None, :, None]
+    h = torch.arange(head0, head0 + num_heads, device=dev,
+                     dtype=i64)[None, :, None]
     words = philox4x32_10((e >> 2, b * 256 + h, 0, 0), (key0, 0))
     sel = e & 3
     w = torch.where(sel == 0, words[0], torch.where(
@@ -905,15 +909,28 @@ def _check_adrop(adrop, amask, save_mask: bool = False) -> None:
         _adrop_seed(adrop[0])
 
 
+def adrop_head0(adrop) -> int:
+    """The global index of head 0 in ``adrop``: ``(seed, rate)`` is 0;
+    ``(seed, rate, head0)`` draws the mask of heads ``head0 ..`` (a
+    tensor-parallel rank's heads draw what one device draws for them)."""
+    return int(adrop[2]) if adrop is not None and len(adrop) > 2 else 0
+
+
+def _adrop_mask(adrop, G: int, num_heads: int, N: int) -> torch.Tensor:
+    return adrop_mask_plain(adrop[0], G, num_heads, N, adrop[1],
+                            head0=adrop_head0(adrop))
+
+
 def _cuda_adrop(adrop, num_heads: int, dev):
-    """(seed, threshold, kept value) of ``adrop`` on the card."""
+    """(seed, threshold, kept value, head0) of ``adrop`` on the card."""
     if adrop is None:
-        return None, 0, 0.0
-    seed, rate = adrop
+        return None, 0, 0.0, 0
+    seed, rate = adrop[:2]
+    head0 = adrop_head0(adrop)
     _cuda_arg(seed, "adrop seed", torch.int32, dev, 1)
-    if num_heads > 256:
-        raise ValueError(f"{num_heads} heads > 256")
-    return (seed, *adrop_constants(rate))
+    if head0 < 0 or head0 + num_heads > 256:
+        raise ValueError(f"heads {head0}..{head0 + num_heads - 1} past 256")
+    return (seed, *adrop_constants(rate), head0)
 
 
 def _with_extras(ctx, p, mask):
@@ -933,7 +950,9 @@ def biased_attention_plain(qkv, num_heads: int, seq_n: int, scale: float,
     (G, nH, N, N) multiplier of the softmax output (the attention-dropout
     mask), applied before p is rounded to the compute dtype. ``adrop``:
     ``(seed, rate)`` in place of amask, the mask
-    ``adrop_mask_plain(seed, G, nH, N, rate)`` (group g is sample g).
+    ``adrop_mask_plain(seed, G, nH, N, rate)`` (group g is sample g);
+    ``(seed, rate, head0)`` draws heads ``head0 ..`` of it (a
+    tensor-parallel rank's).
     Returns ctx (G*N, C), or with ``save_p`` / ``save_mask`` the tuple
     ``(ctx, [p], [mask])``: p (G, nH, N, N) the softmax before any dropout
     mask in qkv's dtype, mask (G, nH, N, N) f32 the dropout mask drawn."""
@@ -943,7 +962,7 @@ def biased_attention_plain(qkv, num_heads: int, seq_n: int, scale: float,
     _check_masks(qbias, amask, G, num_heads, N)
     _check_adrop(adrop, amask, save_mask)
     if adrop is not None:
-        amask = adrop_mask_plain(adrop[0], G, num_heads, N, adrop[1])
+        amask = _adrop_mask(adrop, G, num_heads, N)
     t = qkv.float().view(G, N, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
     q, k, v = t[0] * scale, t[1], t[2]
     s = q @ k.transpose(-1, -2)                                # (G, nH, N, N)
@@ -1001,7 +1020,7 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
         raise ValueError(f"key_bias must be ({G}, {N})")
     _cuda_masks(qbias, amask, G, num_heads, N, dev)
     _check_adrop(adrop, amask, save_mask)
-    seed, thresh, kept = _cuda_adrop(adrop, num_heads, dev)
+    seed, thresh, kept, head0 = _cuda_adrop(adrop, num_heads, dev)
     ctx = torch.empty((rows, C), dtype=torch.bfloat16, device=dev)
     tiles = (G, num_heads, N, N)
     pst = torch.empty(tiles, dtype=torch.bfloat16, device=dev) if save_p else None
@@ -1013,7 +1032,7 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
     check_attention_layout(ptrs + [ctx.data_ptr()], (N * 3 * C, Dh, 3 * C))
     _launch_attention(ptrs, (N * 3 * C, Dh, 3 * C), ctx, (N * C, Dh, C),
                       pattern, key_bias, qbias, amask, seed, pst, mask, G, N,
-                      num_heads, Dh, P, scale, thresh, kept)
+                      num_heads, Dh, P, scale, thresh, kept, head0)
     biased_attention.adrop_launches += adrop is not None
     biased_attention.save_p_launches += save_p
     return _with_extras(ctx, pst, mask)
@@ -1021,7 +1040,7 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
 
 def _launch_attention(qkv_ptrs, in_strides, ctx, out_strides, pattern,
                       key_bias, qbias, amask, seed, pst, mask, G, N, num_heads,
-                      Dh, P, scale, thresh, kept) -> None:
+                      Dh, P, scale, thresh, kept, head0=0) -> None:
     """One K2 launch: q, k, v at the addresses ``qkv_ptrs`` with element
     strides ``in_strides`` (group, head, row), ctx with ``out_strides``."""
     lib = build()["attention"]
@@ -1029,7 +1048,8 @@ def _launch_attention(qkv_ptrs, in_strides, ctx, out_strides, pattern,
                               _ptr(pattern), _ptr(key_bias), _ptr(qbias),
                               _ptr(amask), _ptr(seed), _ptr(pst), _ptr(mask),
                               G, N, num_heads, Dh, P, float(scale), thresh,
-                              kept, _stream(ctx.device)), "biased_attention")
+                              kept, head0, _stream(ctx.device)),
+           "biased_attention")
     biased_attention.launches += 1
 
 
@@ -1237,7 +1257,7 @@ def biased_attention_bwd_plain(qkv, dctx, num_heads: int, seq_n: int,
     _check_adrop(adrop, amask)
     _check_stored_p(p, G, num_heads, N)
     if adrop is not None:
-        amask = adrop_mask_plain(adrop[0], G, num_heads, N, adrop[1])
+        amask = _adrop_mask(adrop, G, num_heads, N)
     P = None if pattern is None else _pattern_geometry(pattern, G, num_heads, N)
     ft = torch.promote_types(qkv.dtype, torch.float32)
     t = qkv.to(ft).view(G, N, 3, num_heads, Dh).permute(2, 0, 3, 1, 4)
@@ -1312,7 +1332,7 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
         raise ValueError(f"key_bias must be ({G}, {N})")
     _cuda_masks(qbias, amask, G, num_heads, N, dev)
     _check_adrop(adrop, amask)
-    seed, thresh, kept = _cuda_adrop(adrop, num_heads, dev)
+    seed, thresh, kept, head0 = _cuda_adrop(adrop, num_heads, dev)
     _cuda_arg(p, "p", bf, dev, 4)
     _check_stored_p(p, G, num_heads, N)
     _cuda_arg(pattern, "pattern", f32, dev, 4)
@@ -1339,7 +1359,8 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
                                   _ptr(seed), _ptr(p), _ptr(dqkv), part,
                                   _ptr(dkb), _ptr(dpat_part), _ptr(dpat),
                                   scratch, G, N, C, num_heads, P,
-                                  float(scale), thresh, kept, _stream(dev)),
+                                  float(scale), thresh, kept, head0,
+                                  _stream(dev)),
            "biased_attention_bwd")
     biased_attention_bwd.launches += 1
     biased_attention_bwd.adrop_launches += adrop is not None

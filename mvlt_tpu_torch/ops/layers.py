@@ -229,16 +229,80 @@ def dropout(x: torch.Tensor, masks, rate: float) -> torch.Tensor:
 
 
 def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
-                               ignore_index: int = -100) -> torch.Tensor:
+                               ignore_index: int = -100, group=None,
+                               vocab_group=None) -> torch.Tensor:
     """Mean cross entropy over labels != ignore_index, in f32 (0 if none is
     valid); ``mvlt_tpu/ops/layers.py:92``, torch ``F.cross_entropy``
-    parity. logits: (..., classes); labels: (...) int."""
+    parity. logits: (..., classes); labels: (...) int.
+
+    ``group`` (JAX's ``axis_name``, ``layers.py:101-116``): the NLL sum and
+    the valid count are summed over that process group (the data group) so
+    that the mean is over the global batch's valid labels, whatever each
+    rank's count; the sum is Megatron's *g*, so each rank's backward
+    carries its own terms, and the data group's gradient sum completes it.
+    ``vocab_group``: ``logits`` hold this rank's contiguous block of the
+    classes, split over that group (a vocab-parallel decoder), and the NLL
+    is :func:`vocab_parallel_nll`'s."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    if vocab_group is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -logp.gather(-1, safe[..., None])[..., 0]
+    else:
+        nll = vocab_parallel_nll(logits, safe, vocab_group)
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp(min=1)
+    total, count = nll.sum(), valid.sum()
+    if group is not None:
+        from mvlt_tpu_torch.parallel import comm
+        total = comm.reduce_from_group(total, group)
+        count = comm.all_reduce_(count.clone(), group)
+    return total / count.clamp(min=1)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax(logits)[label] over classes split in contiguous blocks
+    over ``group`` (Megatron's vocab-parallel cross entropy): the row max,
+    the sum of exponentials and the target logit are all-reduced, which
+    gives the full log-softmax's value; the backward is local,
+    ``softmax - onehot`` on this rank's block."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group):
+        import torch.distributed as dist
+        from mvlt_tpu_torch.parallel import comm
+        x = logits.float()
+        v = x.shape[-1]
+        v0 = comm.group_rank(group) * v
+        m = x.amax(-1)
+        comm.all_reduce_(m, group, dist.ReduceOp.MAX)
+        x = x - m[..., None]
+        e = x.exp()
+        s = e.sum(-1)
+        comm.all_reduce_(s, group)
+        local = labels - v0
+        mine = (local >= 0) & (local < v)
+        idx = torch.where(mine, local, torch.zeros_like(local))
+        t = torch.where(mine, x.gather(-1, idx[..., None])[..., 0],
+                        torch.zeros_like(m))
+        comm.all_reduce_(t, group)
+        ctx.save_for_backward(e / s[..., None], idx, mine)
+        ctx.dtype = logits.dtype
+        return s.log() - t
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, mine = ctx.saved_tensors
+        d = p.clone()
+        d.scatter_add_(-1, idx[..., None], -mine[..., None].to(d.dtype))
+        return (d * g[..., None]).to(ctx.dtype), None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor,
+                       group) -> torch.Tensor:
+    """Per-position NLL (f32) of ``labels`` (global class ids) under
+    ``logits`` (..., V / n), this rank's block ``[rank * V / n, (rank + 1)
+    * V / n)`` of the classes split over ``group``."""
+    return _VocabParallelNLL.apply(logits, labels, group)
 
 
 class Dense(nn.Module):

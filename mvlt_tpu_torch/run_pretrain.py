@@ -15,14 +15,25 @@ normalized on the device unless ``--host_normalize`` or a float source
 Swin, ResNet or HF ViT state dict into the fresh model
 (``utils/bootstrap.py``). ``--conv vit`` / ``linear`` (196 image tokens)
 train at S = 278 with the default text length 80, and past N = 288 (a
-``--max_length`` above 90) on K2 / K4's long form. Refused:
-``--model_parallel`` other than 1 (one device), and on a CUDA device a
-fusion sequence beyond K2 / K4's N <= 46,340. On the card the
+``--max_length`` above 90) on K2 / K4's long form. Refused: on a CUDA
+device a fusion sequence beyond K2 / K4's N <= 46,340. On the card the
 model trains with f32 masters and bf16 compute
 (``TrainConfig.bf16_compute``); on the CPU it runs the kernels' plain
 versions. It writes ``<model_name>/`` (``log.txt``, ``metrics.jsonl``,
 ``step_*`` checkpoints), ``<export_dir>`` and ``<export_dir>_epoch<e>``
 (``config.json`` + ``model.pt``, what ``run_vqa --pretrained`` reads).
+
+Over several devices, one process a device:
+
+    torchrun --nproc_per_node N -m mvlt_tpu_torch.run_pretrain ... \\
+        --model_parallel M
+
+(torchrun's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR``;
+each rank takes ``cuda:LOCAL_RANK`` and NCCL, or gloo with ``--device
+cpu``): a (N / M, M) mesh, the fusion encoder and the MLM decoder split
+over each group of M adjacent ranks (Megatron TP), the batch over the N / M
+data ranks (``--batch_size`` stays the global batch); world rank 0 logs and
+writes.
 """
 
 from __future__ import annotations
@@ -118,6 +129,8 @@ def main(argv=None):
     from mvlt_tpu_torch.text.tokenizer import default_tokenizer
 
     _need_cuda(args.device, "run_pretrain")
+    from mvlt_tpu_torch.parallel import initialize_distributed
+    args.device = initialize_distributed(device=args.device)
     tc = TrainConfig(batch_size=args.batch_size, epochs=args.epochs,
                      num_workers=args.num_workers,
                      mesh=MeshConfig(model_parallel=args.model_parallel))

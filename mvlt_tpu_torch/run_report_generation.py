@@ -18,8 +18,7 @@ Swin, ResNet or HF ViT state dict over the ``--pretrained`` export
 (``utils/bootstrap.py``). Training runs by default, ``--do_test`` alone
 only tests (JAX's rule). ``--quant int8w`` serves that test on
 weight-only int8 (``tasks/caption.eval_caption``, ``ops/quant.py``).
-Refused: ``--model_parallel`` other than 1 (one device), and on a CUDA
-device a fusion sequence beyond K2 / K4's N <= 46,340
+Refused: on a CUDA device a fusion sequence beyond K2 / K4's N <= 46,340
 (``models.heads.check_fusion_fits``). ``--conv vit`` or ``linear`` (196
 tokens a view) run on the card too: S = 474 on ``iu_xray``'s two views,
 348 at ``mimic_cxr``'s 150 text tokens, 298 at ``rgc``'s 100, where K2 and
@@ -27,6 +26,18 @@ K4 take their long form (N > 288). On the
 card the model trains with f32 masters and bf16 compute; on the CPU it
 runs the kernels' plain versions. It writes ``<model_name>/`` (``log.txt``,
 ``metrics.jsonl``, ``step_*`` checkpoints) and prints the test's scores.
+
+Over several devices, one process a device:
+
+    torchrun --nproc_per_node N -m mvlt_tpu_torch.run_report_generation ... \\
+        --model_parallel M
+
+(torchrun's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR``;
+each rank takes ``cuda:LOCAL_RANK`` and NCCL, or gloo with ``--device
+cpu``): a (N / M, M) mesh, the fusion encoder and the MLM decoder split
+over each group of M adjacent ranks (Megatron TP), the batch over the N / M
+data ranks (``--batch_size`` stays the global batch); world rank 0 logs and
+writes.
 """
 
 from __future__ import annotations
@@ -154,6 +165,8 @@ def main(argv=None):
     from mvlt_tpu_torch.utils import checkpoint as ckpt_lib
 
     _need_cuda(args.device, "run_report_generation")
+    from mvlt_tpu_torch.parallel import comm, initialize_distributed
+    args.device = initialize_distributed(device=args.device)
     check_quant(args.quant)
     if args.do_train is None:
         # train by default (the reference's behavior), but --do_test alone
@@ -194,7 +207,8 @@ def main(argv=None):
                                    num_beams=args.num_beams,
                                    strategy=args.learning_strategy,
                                    quant=args.quant)
-        print(out["test"])
+        if comm.global_rank() == 0:
+            print(out["test"])
     return runner, out
 
 

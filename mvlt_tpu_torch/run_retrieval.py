@@ -16,14 +16,26 @@ views a study, uint8 frames normalized on the device unless
 ``--host_normalize``) and forces ``--swap image``
 (run_retrieval_iuxray.py:130-137); ``--tiny`` reads the frames at the
 tiny Swin's size. ``--backbone_ckpt`` loads an official Swin, ResNet or
-HF ViT state dict over the ``--pretrained`` export. Refused:
-``--model_parallel`` other than 1 (one device), a run with neither
+HF ViT state dict over the ``--pretrained`` export. Refused: a run with
+neither
 ``--do_train`` nor ``--do_test``, and on a CUDA device a fusion sequence
 beyond K2 / K4's N <= 46,340 (``models.heads.check_fusion_fits``); two
 views of ``--conv vit`` or ``linear`` (S = 474) run on the card on K2 / K4's
 long form. It writes ``<model_name>/`` (``log.txt``,
 ``metrics.jsonl``, ``step_*`` checkpoints) and, with ``--do_test``,
 ``<model_name>/eval.json`` (R@1 / 5 / 10 both ways), which it also prints.
+
+Over several devices, one process a device:
+
+    torchrun --nproc_per_node N -m mvlt_tpu_torch.run_retrieval ... \\
+        --model_parallel M
+
+(torchrun's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR``;
+each rank takes ``cuda:LOCAL_RANK`` and NCCL, or gloo with ``--device
+cpu``): a (N / M, M) mesh, the fusion encoder and the MLM decoder split
+over each group of M adjacent ranks (Megatron TP), the batch over the N / M
+data ranks (``--batch_size`` stays the global batch); world rank 0 logs and
+writes.
 """
 
 from __future__ import annotations
@@ -120,6 +132,8 @@ def main(argv=None):
     from mvlt_tpu_torch.utils import checkpoint as ckpt_lib
 
     _need_cuda(args.device, "run_retrieval")
+    from mvlt_tpu_torch.parallel import comm, initialize_distributed
+    args.device = initialize_distributed(device=args.device)
     if not (args.do_train or args.do_test):
         raise SystemExit("nothing to do: pass --do_train and/or --do_test")
     tokenizer = default_tokenizer(synthetic_ok=args.synthetic)
@@ -152,11 +166,13 @@ def main(argv=None):
         result = eval_retrieval(runner, test_ds,
                                 batch_size=min(64, len(test_ds)))
         runner.logger.info("retrieval eval: %s", result)
-        if args.model_name:
-            os.makedirs(args.model_name, exist_ok=True)
-            with open(os.path.join(args.model_name, "eval.json"), "w") as f:
-                json.dump(result, f, indent=2)
-        print(json.dumps(result))
+        if comm.global_rank() == 0:
+            if args.model_name:
+                os.makedirs(args.model_name, exist_ok=True)
+                with open(os.path.join(args.model_name, "eval.json"),
+                          "w") as f:
+                    json.dump(result, f, indent=2)
+            print(json.dumps(result))
     return runner, result
 
 

@@ -14,11 +14,22 @@ versions. ``--conv`` takes every backbone of the JAX package (``swin``,
 ``resnet101`` / ``resnet50``, ``vit``, ``linear``). ``--backbone_ckpt``
 loads an official Swin, ResNet or HF ViT state dict into the fresh model,
 over the ``--pretrained`` export, as JAX merges them
-(``utils/bootstrap.py``). Refused: ``--model_parallel`` other than 1 (one
-device). It writes
+(``utils/bootstrap.py``). It writes
 ``<model_name>/round<i>/`` (``log.txt``, ``metrics.jsonl``, ``step_*``
 checkpoints) and ``<model_name>/results.json``, a list of one dict a round
 with JAX's keys (``valid_acc``, ``epoch``, ``test_final``, ``test``).
+
+Over several devices, one process a device:
+
+    torchrun --nproc_per_node N -m mvlt_tpu_torch.run_vqa ... \\
+        --model_parallel M
+
+(torchrun's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR``;
+each rank takes ``cuda:LOCAL_RANK`` and NCCL, or gloo with ``--device
+cpu``): a (N / M, M) mesh, the fusion encoder and the MLM decoder split
+over each group of M adjacent ranks (Megatron TP), the batch over the N / M
+data ranks (``--batch_size`` stays the global batch); world rank 0 logs and
+writes.
 """
 
 from __future__ import annotations
@@ -121,6 +132,8 @@ def main(argv=None):
     from mvlt_tpu_torch.utils import checkpoint as ckpt_lib
 
     _need_cuda(args.device, "run_vqa")
+    from mvlt_tpu_torch.parallel import comm, initialize_distributed
+    args.device = initialize_distributed(device=args.device)
     tokenizer = default_tokenizer(synthetic_ok=args.synthetic)
     datasets = build_datasets(args, tokenizer)
     cfg = build_config(args, tokenizer, len(datasets[0].ans2label))
@@ -138,10 +151,11 @@ def main(argv=None):
         _, best = train_round(args, round_i, cfg, datasets, pretrained)
         results.append(best)
 
-    os.makedirs(args.model_name, exist_ok=True)
-    with open(os.path.join(args.model_name, "results.json"), "w") as f:
-        json.dump(results, f, indent=2, default=str)
-    print(json.dumps(results, default=str))
+    if comm.global_rank() == 0:
+        os.makedirs(args.model_name, exist_ok=True)
+        with open(os.path.join(args.model_name, "results.json"), "w") as f:
+            json.dump(results, f, indent=2, default=str)
+        print(json.dumps(results, default=str))
     return results
 
 

@@ -37,7 +37,7 @@ from mvlt_tpu_torch.data.loader import DataLoader, device_prefetch
 from mvlt_tpu_torch.metrics.eval_cap import CaptionEvaluator, compute_scores
 from mvlt_tpu_torch.models.generation import GenerationSpec, generate
 from mvlt_tpu_torch.ops import quant as quant_lib
-from mvlt_tpu_torch.tasks.common import TaskRunner
+from mvlt_tpu_torch.tasks.common import TaskRunner, gather_batches
 from mvlt_tpu_torch.train.steps import make_caption_step
 
 
@@ -60,12 +60,13 @@ def train_caption(runner: TaskRunner, train_ds, test_ds=None,
     epochs = epochs if epochs is not None else tc.epochs
     step = make_caption_step(runner.model, runner.optimizer,
                              learning_strategy=learning_strategy,
-                             plain=runner.plain)
+                             plain=runner.plain, mesh=runner.mesh)
     loader = DataLoader(train_ds, tc.batch_size, shuffle=True, drop_last=True,
-                        seed=tc.seed, num_workers=tc.num_workers)
+                        seed=tc.seed, num_workers=tc.num_workers,
+                        rows=runner.rows)
     evals = []
     for epoch in range(epochs):
-        for b in step.prefetch(loader.epoch(epoch)):
+        for b in step.prefetch(loader.epoch(epoch), sliced=True):
             step.masks = runner.masks_for_step()
             metrics = step(b)
             runner.state.step += 1
@@ -89,7 +90,9 @@ def decode_reports(runner: TaskRunner, test_ds, tokenizer,
                    quant: str = ""):
     """(ground truths, predictions, decoded ids): the test split's reports
     and the decoded ones, and each batch's sequences (B, max_length) as
-    host lists. ``quant="int8w"`` decodes on the int8 weights."""
+    host lists. ``quant="int8w"`` decodes on the int8 weights. Over a mesh
+    each data rank decodes its rows of every batch and the ranks' results
+    are gathered in order: every rank returns what one device returns."""
     check_quant(quant)
     spec = GenerationSpec.from_config(runner.config, num_beams=num_beams,
                                       strategy=strategy)
@@ -99,20 +102,25 @@ def decode_reports(runner: TaskRunner, test_ds, tokenizer,
                                              runner.config)
         runner.logger.info("int8w serving: %d tensors quantized", n_q)
     loader = DataLoader(test_ds, batch_size, shuffle=False,
-                        num_workers=runner.train_config.num_workers)
+                        num_workers=runner.train_config.num_workers,
+                        rows=runner.rows)
     keep = lambda b: {"image": b["image"], "raw_caption": b["raw_caption"]}
-    gts, preds, ids = [], [], []
-    for batch in device_prefetch(loader.epoch(0), device=runner.device,
-                                 transform=keep):
-        with quant_lib.dequantized(model, qtree):      # {}: as they are
-            seqs = generate(model, batch["image"], spec,
-                            plain=runner.plain)[0].tolist()
+    raws, ids = [], []
+    for i, batch in enumerate(device_prefetch(
+            loader.epoch(0), device=runner.device, transform=keep)):
+        seqs = []                    # this data rank's block of a short tail
+        if len(batch["raw_caption"]):
+            with quant_lib.dequantized(model, qtree):  # {}: as they are
+                seqs = generate(model, batch["image"], spec,
+                                plain=runner.plain)[0].tolist()
         ids.append(seqs)
-        for row, raw in zip(seqs, batch["raw_caption"]):
-            preds.append(tokenizer.decode(row))
-            gts.append(raw)
-        if max_samples and len(gts) >= max_samples:
+        raws.append(list(batch["raw_caption"]))
+        # the global count of reports decoded so far
+        if max_samples and (i + 1) * batch_size >= max_samples:
             break
+    ids, raws = gather_batches(runner, ids), gather_batches(runner, raws)
+    gts = sum(raws, [])
+    preds = [tokenizer.decode(row) for seqs in ids for row in seqs]
     return gts, preds, ids
 
 

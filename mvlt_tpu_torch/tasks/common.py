@@ -1,7 +1,13 @@
 """Shared task plumbing of the port (counterpart of
-``mvlt_tpu/tasks/common.py:23-177``): the model and its train state on one
-device, the optimizer, checkpoints, the dropout masks of training and
+``mvlt_tpu/tasks/common.py:23-177``): the mesh, the model and its train
+state, the optimizer, checkpoints, the dropout masks of training and
 metric logging.
+
+- The mesh: :func:`~mvlt_tpu_torch.parallel.mesh.build_mesh` of
+  ``TrainConfig.mesh`` over the world of processes (one a device; bring
+  it up first with :func:`~mvlt_tpu_torch.parallel.mesh.
+  initialize_distributed`); one process is the (1, 1) mesh. The logger and
+  the metric log write on world rank 0 only (``tasks/common.py:51-55``).
 
 - :meth:`TaskRunner.init_state` builds the task model seeded from
   ``TrainConfig.seed`` (``flagship.init_seeded_``) with f32 master weights,
@@ -16,8 +22,10 @@ metric logging.
   masks_for_step` reseeds it from ``(seed + offset, step)`` at every step,
   as JAX folds ``state.step`` into its key (``train/steps.py:71``): the
   masks of a step depend on the seed and the step only, so a restored run
-  draws what the run it resumes would have drawn. ``rng_impl`` selects
-  nothing here.
+  draws what the run it resumes would have drawn. Over a mesh with dp > 1
+  the data rank is folded in as well (JAX's ``fold_in(axis_index('data'))``,
+  ``steps.py:129``): the masks are equal across a model group.
+  ``rng_impl`` selects nothing here.
 - :meth:`TaskRunner.log_step` counts steps on the host and reads the
   metrics off the device only every ``log_every`` steps: no
   synchronisation in the other steps.
@@ -36,7 +44,10 @@ import torch
 from mvlt_tpu_torch.config import MVLTConfig, TrainConfig
 from mvlt_tpu_torch.flagship import _need_cuda, init_seeded_
 from mvlt_tpu_torch.ops.layers import DropoutMasks
+from mvlt_tpu_torch.parallel import comm
+from mvlt_tpu_torch.parallel.mesh import build_mesh
 from mvlt_tpu_torch.train.state import TrainState, make_optimizer
+from mvlt_tpu_torch.train.steps import shard_train_state
 from mvlt_tpu_torch.utils import checkpoint as ckpt_lib
 from mvlt_tpu_torch.utils.logging import MetricLogger, setup_logger
 
@@ -57,12 +68,22 @@ def step_seed(seed: int, step: int) -> int:
     return z ^ (z >> 31)
 
 
-def train_rng(tc: TrainConfig, device, offset: int = 0,
-              step: int = 0) -> DropoutMasks:
+def mask_seed(seed: int, step: int, data_rank: int = 0, dp: int = 1) -> int:
+    """The generator seed of step ``step``: :func:`step_seed`, with the
+    data rank folded in when the data axis has more than one rank."""
+    s = step_seed(seed, step)
+    if dp > 1:
+        s = step_seed(((s >> 32) ^ s) & 0xFFFFFFFF, data_rank)
+    return s
+
+
+def train_rng(tc: TrainConfig, device, offset: int = 0, step: int = 0,
+              data_rank: int = 0, dp: int = 1) -> DropoutMasks:
     """The masks of training step ``step``: a generator on ``device``
-    seeded with ``tc.seed + offset`` and folded with ``step``."""
+    seeded with ``tc.seed + offset`` and folded with ``step`` (and the data
+    rank, :func:`mask_seed`)."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(step_seed(tc.seed + offset, step))
+    gen.manual_seed(mask_seed(tc.seed + offset, step, data_rank, dp))
     return DropoutMasks(gen)
 
 
@@ -95,31 +116,45 @@ def _merge_pretrained(model: torch.nn.Module, pretrained, logger):
     return used, total
 
 
+def gather_batches(runner, per_batch: list) -> list:
+    """Per-batch results of this data rank (a list, one entry of rows per
+    batch) gathered over the data group: entry b is the ranks' entries b
+    concatenated in rank order, the rows of global batch b in order."""
+    m = runner.mesh
+    if m.dp == 1:
+        return per_batch
+    ranks = comm.all_gather_objects(per_batch, m.data_group)
+    return [sum((r[b] for r in ranks), []) for b in range(len(per_batch))]
+
+
 class TaskRunner:
-    """Owns the model and its train state, the optimizer, checkpoints and
-    logging, on one device. ``model_cls(config, dtype=, device=,
-    compute_dtype=)`` builds the task model (``VQAModel``, ...)."""
+    """Owns the mesh, the model and its train state, the optimizer,
+    checkpoints and logging. ``model_cls(config, dtype=, device=,
+    compute_dtype=)`` builds the task model (``VQAModel``, ...); ``device``
+    is this process's device (``initialize_distributed`` returns it)."""
 
     def __init__(self, model_cls, config: MVLTConfig,
                  train_config: TrainConfig = TrainConfig(),
                  workdir: Optional[str] = None, name: str = "mvlt",
                  device="cuda", plain: bool = False):
-        mesh = train_config.mesh
-        if mesh.model_parallel != 1 or mesh.data_parallel not in (1, -1):
-            raise NotImplementedError(
-                f"mesh {mesh}: the port runs on one device (ROADMAP.md queue "
-                "A, 'Multi-device')")
         self.device = _need_cuda(device, "TaskRunner")
+        self.mesh = build_mesh(train_config.mesh, device=self.device)
         self.model_cls = model_cls
         self.config = config
         self.train_config = train_config
         self.workdir = workdir
         self.plain = plain
-        self.logger = setup_logger(name, workdir)
-        self.metrics = MetricLogger(workdir)
+        rank = comm.global_rank()
+        self.logger = setup_logger(name, workdir, distributed_rank=rank)
+        self.metrics = MetricLogger(workdir if rank == 0 else None)
         self.state: Optional[TrainState] = None
         self._window_samples = 0
         self._masks: Optional[DropoutMasks] = None
+
+    @property
+    def rows(self):
+        """(data rank, dp): the loaders' ``rows`` argument."""
+        return self.mesh.data_rank, self.mesh.dp
 
     @property
     def model(self):
@@ -133,7 +168,8 @@ class TaskRunner:
                    seed: Optional[int] = None) -> TrainState:
         """A seeded model on the runner's device, the pretrained
         state_dicts (one, or a list merged in order) copied in, and its
-        optimizer."""
+        optimizer, placed on the mesh (:func:`shard_train_state`: world
+        rank 0's tensors, each rank keeping its shards)."""
         tc = self.train_config
         compute = torch.bfloat16 if tc.bf16_compute else torch.float32
         model = self.model_cls(self.config, dtype=torch.float32,
@@ -147,18 +183,23 @@ class TaskRunner:
                 _merge_pretrained(model, tree, self.logger)
         opt = make_optimizer(model, self.config,
                              grad_accum_steps=tc.grad_accum_steps)
-        self.state = TrainState(model=model, optimizer=opt, step=0)
+        self.state = shard_train_state(
+            TrainState(model=model, optimizer=opt, step=0), self.mesh,
+            self.logger)
         return self.state
 
     def masks_for_step(self, offset: int = 0) -> DropoutMasks:
         """The dropout / DropPath masks of the next step: the runner's
-        generator reseeded from ``(seed + offset, state.step)``."""
+        generator reseeded from ``(seed + offset, state.step)`` and, over
+        a data axis, the data rank."""
+        m = self.mesh
         if self._masks is None:
             self._masks = train_rng(self.train_config, self.device, offset,
-                                    self.state.step)
+                                    self.state.step, m.data_rank, m.dp)
         else:
-            self._masks.generator.manual_seed(step_seed(
-                self.train_config.seed + offset, self.state.step))
+            self._masks.generator.manual_seed(mask_seed(
+                self.train_config.seed + offset, self.state.step,
+                m.data_rank, m.dp))
         return self._masks
 
     def maybe_restore(self) -> bool:

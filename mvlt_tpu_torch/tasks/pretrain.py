@@ -15,7 +15,9 @@ the masks of that step (``TaskRunner.masks_for_step``). Every
 The flip's generator is a CPU ``torch.Generator``: the mode is a host bool
 that picks the step's program, as in JAX, and reading it costs no
 synchronisation with the card. Its stream differs from JAX's
-``jax.random.bernoulli`` draw by design (ROADMAP.md C)."""
+``jax.random.bernoulli`` draw by design (ROADMAP.md C). Over a mesh every
+rank flips the same coin, and the loader yields each data rank its rows of
+the global batch."""
 
 from __future__ import annotations
 
@@ -43,12 +45,14 @@ def train_pretrain(runner: TaskRunner, train_ds,
     tc = runner.train_config
     epochs = epochs if epochs is not None else tc.epochs
     step = make_pretrain_step(runner.model, runner.optimizer,
-                              plain=runner.plain)
+                              plain=runner.plain, mesh=runner.mesh)
     loader = DataLoader(train_ds, tc.batch_size, shuffle=True, drop_last=True,
-                        seed=tc.seed, num_workers=tc.num_workers)
+                        seed=tc.seed, num_workers=tc.num_workers,
+                        rows=runner.rows)
     n_seq2seq = 0
     for epoch in range(epochs):
-        for i, b in enumerate(step.prefetch(loader.epoch(epoch))):
+        for i, b in enumerate(step.prefetch(loader.epoch(epoch),
+                                            sliced=True)):
             mode = batch_mode(tc, epoch, i)
             n_seq2seq += int(mode)
             step.masks = runner.masks_for_step()

@@ -46,11 +46,15 @@ def merge_pairs(batch) -> Dict[str, np.ndarray]:
 
 def train_retrieval(runner: TaskRunner, train_ds,
                     epochs: Optional[int] = None) -> None:
-    """trainRetrieval (run_retrieval.py:148-189): batch = cat(pos, neg)."""
+    """trainRetrieval (run_retrieval.py:148-189): batch = cat(pos, neg).
+    Over a mesh ``P('data')`` splits that concatenation, as on JAX: at dp
+    = 2 data rank 0 holds the positives and rank 1 the negatives. So each
+    rank loads the whole pair batch and keeps its block of the merged
+    rows."""
     tc = runner.train_config
     epochs = epochs if epochs is not None else tc.epochs
     step = make_retrieval_step(runner.model, runner.optimizer,
-                               plain=runner.plain)
+                               plain=runner.plain, mesh=runner.mesh)
     loader = DataLoader(train_ds, tc.batch_size, shuffle=True, drop_last=True,
                         seed=tc.seed, num_workers=tc.num_workers)
     for epoch in range(epochs):
@@ -134,9 +138,25 @@ def score_grid(runner: TaskRunner, test_ds, batch_size: int = 64
                ) -> Dict[str, np.ndarray]:
     """testRetrieval (run_retrieval.py:192-217): P(match) for all n x n
     pairs of a test ``RetrievalDataset`` (``{"similarities",
-    "labels"}``), on the runner's model."""
-    return score_images(runner.model, *grid_arrays(test_ds), batch_size,
-                        plain=runner.plain)
+    "labels"}``), on the runner's model. Over a mesh each data rank scores
+    its block of the image rows and the rows are gathered in order."""
+    from mvlt_tpu_torch.parallel import comm
+    from mvlt_tpu_torch.parallel.partition import split_rows
+    images, captions, cap_ids = grid_arrays(test_ds)
+    m = runner.mesh
+    if m.dp == 1:
+        return score_images(runner.model, images, captions, cap_ids,
+                            batch_size, plain=runner.plain)
+    a, b = split_rows(len(images), m.dp, m.data_rank)
+    sims = np.zeros((0, len(captions)), np.float32)   # fewer images than dp
+    if b > a:
+        feats = encode_images(runner.model, images[a:b], batch_size,
+                              runner.plain)
+        sims = score_matrix(runner.model, feats, captions, batch_size,
+                            runner.plain).cpu().numpy()
+    rows = comm.all_gather_objects(sims, m.data_group)
+    return {"similarities": np.concatenate(rows),
+            "labels": grid_labels(cap_ids)}
 
 
 def eval_retrieval(runner: TaskRunner, test_ds,

@@ -11,6 +11,11 @@ every ``checkpoint_every_epochs``). After the last epoch, ``test_final``
 on the last-epoch weights, then the best-valid checkpoint restored and
 ``test``. Eval runs the deterministic forward (the serving kernels) and
 keeps the predictions on the device until the split ends.
+
+Over a mesh the loaders yield each data rank its rows of every global batch
+(``batch_size`` stays the global batch) and decode only those; eval
+gathers the ranks' predictions in order, so every rank returns what one
+device returns.
 """
 
 from __future__ import annotations
@@ -19,11 +24,11 @@ import json
 import os
 from typing import Dict, Optional
 
-import torch
 
 from mvlt_tpu_torch.data.loader import DataLoader, device_prefetch
 from mvlt_tpu_torch.metrics.vqa import vqa_accuracy
-from mvlt_tpu_torch.tasks.common import TaskRunner
+from mvlt_tpu_torch.parallel import comm
+from mvlt_tpu_torch.tasks.common import TaskRunner, gather_batches
 from mvlt_tpu_torch.train.steps import make_vqa_step
 
 
@@ -34,18 +39,24 @@ def eval_vqa(runner: TaskRunner, dataset, batch_size: int = 64,
     predictions as JSON at ``predictions_path``."""
     model = runner.model
     loader = DataLoader(dataset, batch_size, shuffle=False,
-                        num_workers=runner.train_config.num_workers)
+                        num_workers=runner.train_config.num_workers,
+                        rows=runner.rows)
     preds, labels, types = [], [], []
     for batch in device_prefetch(loader.epoch(0), device=runner.device):
-        _, logits = model(batch["image"], batch["question"],
-                          plain=runner.plain)
-        preds.append(logits.argmax(-1))
+        if len(batch["label"]):
+            _, logits = model(batch["image"], batch["question"],
+                              plain=runner.plain)
+            preds.append(logits.argmax(-1))
+        else:                        # this data rank's block of a short tail
+            preds.append(batch["label"])
         labels.append(batch["label"])
-        types.extend(batch["answer_type"])
-    preds = torch.cat(preds).tolist() if preds else []
-    labels = torch.cat(labels).tolist() if labels else []
+        types.append(list(batch["answer_type"]))
+    preds = [p.tolist() for p in preds]
+    labels = [x.tolist() for x in labels]
+    preds, labels, types = (sum(gather_batches(runner, x), [])
+                            for x in (preds, labels, types))
     acc = vqa_accuracy(preds, labels, types)
-    if predictions_path:
+    if predictions_path and comm.global_rank() == 0:
         os.makedirs(os.path.dirname(predictions_path) or ".", exist_ok=True)
         with open(predictions_path, "w") as f:
             json.dump([{"pred": int(p), "label": int(l), "answer_type": t}
@@ -60,12 +71,14 @@ def train_vqa(runner: TaskRunner, train_ds, valid_ds=None, test_ds=None,
     ``test_final`` and ``test`` when there is a test split."""
     tc = runner.train_config
     epochs = epochs if epochs is not None else tc.epochs
-    step = make_vqa_step(runner.model, runner.optimizer, plain=runner.plain)
+    step = make_vqa_step(runner.model, runner.optimizer, plain=runner.plain,
+                         mesh=runner.mesh)
     loader = DataLoader(train_ds, tc.batch_size, shuffle=True, drop_last=True,
-                        seed=tc.seed, num_workers=tc.num_workers)
+                        seed=tc.seed, num_workers=tc.num_workers,
+                        rows=runner.rows)
     best = {"valid_acc": -1.0, "epoch": -1}
     for epoch in range(epochs):
-        for b in step.prefetch(loader.epoch(epoch)):
+        for b in step.prefetch(loader.epoch(epoch), sliced=True):
             step.masks = runner.masks_for_step()
             metrics = step(b)
             runner.state.step += 1

@@ -33,6 +33,11 @@ semantics:
   in k calls.
 
 The last two are :class:`ClipAccumAdamW` around either AdamW.
+
+Over a mesh (``shard_train_state``) each rank's AdamW keeps the moments of
+its own shards (JAX's ``_mirror_opt_shardings``, ``steps.py:192-209``), and
+the clip's global norm sums the squares of the split tensors over the model
+group and counts the replicated ones once: the norm of one device.
 """
 
 from __future__ import annotations
@@ -166,6 +171,25 @@ class ClipAccumAdamW:
         self.mini_step = 0
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if self.k > 1 else None)
+        self.model_group, self.split = None, None
+
+    def set_model_parallel(self, split, group) -> None:
+        """``split``: one bool per parameter, True where the tensor is split
+        over ``group`` (the model group); the accumulation buffers are
+        made again in the parameters' (local) shapes."""
+        self.split, self.model_group = list(split), group
+        if self.acc is not None:
+            self.acc = [torch.zeros_like(p) for p in self.params]
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        sq = [g.float().square().sum() for g in grads]
+        if self.model_group is None:
+            return torch.stack(sq).sum().sqrt()
+        from mvlt_tpu_torch.parallel import comm
+        zero = torch.zeros((), device=sq[0].device)
+        split = sum((q for q, s in zip(sq, self.split) if s), zero)
+        rest = sum((q for q, s in zip(sq, self.split) if not s), zero)
+        return (comm.all_reduce_(split, self.model_group) + rest).sqrt()
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.adamw.zero_grad(set_to_none=set_to_none)
@@ -183,8 +207,7 @@ class ClipAccumAdamW:
                 return
             grads = self.acc
         if self.max_norm is not None:
-            norm = torch.stack([g.float().square().sum()
-                                for g in grads]).sum().sqrt()
+            norm = self._global_norm(grads)
             under = norm < self.max_norm
             grads = [torch.where(under, g, g / norm.to(g.dtype) * self.max_norm)
                      for g in grads]

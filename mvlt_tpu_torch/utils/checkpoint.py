@@ -18,6 +18,12 @@
 
 The JAX package writes Orbax; a JAX export reaches the port through
 :mod:`mvlt_tpu_torch.utils.convert` on numpy arrays.
+
+Over a mesh every rank enters a save (as JAX's sharded Orbax write is a
+collective): the split tensors and their AdamW moments are gathered over
+the model group and world rank 0 writes the file that a one-device run
+writes. A restore reads that file on every rank and cuts it for the mesh it
+restores into, so a checkpoint moves between mp = 2 and mp = 1 bitwise.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from mvlt_tpu_torch.config import MVLTConfig
+from mvlt_tpu_torch.parallel import comm, shard
 
 STATE_FILE = "state.pt"
 
@@ -89,9 +96,13 @@ def save_checkpoint(path: str, state: Any, step: Optional[int] = None,
     global _pending
     step = int(state.step) if step is None else int(step)
     target = os.path.join(os.path.abspath(path), f"step_{step:08d}")
+    payload = _snapshot({
+        "step": step, "model": shard.full_state_dict(state.model),
+        "optimizer": shard.full_optimizer_state(state.optimizer,
+                                                state.model)})
+    if comm.global_rank() != 0:
+        return target
     os.makedirs(path, exist_ok=True)
-    payload = _snapshot({"step": step, "model": state.model.state_dict(),
-                         "optimizer": state.optimizer.state_dict()})
     if not async_save:
         _write(target, payload)
         _prune(path, keep)
@@ -121,6 +132,8 @@ def restore_checkpoint(path: str, state: Any) -> Tuple[Any, bool]:
     """Restore the newest checkpoint under ``path`` (or the ``step_`` dir
     ``path`` itself) into ``state``, in place: the tensors keep their
     devices. Returns ``(state, restored?)``."""
+    wait_for_async_saves()
+    comm.barrier()              # world rank 0's save is on disk
     target = (os.path.abspath(path)
               if os.path.basename(os.path.normpath(path)).startswith("step_")
               else latest_checkpoint(path))
@@ -128,8 +141,10 @@ def restore_checkpoint(path: str, state: Any) -> Tuple[Any, bool]:
         return state, False
     payload = torch.load(os.path.join(target, STATE_FILE), map_location="cpu",
                          weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    state.model.load_state_dict(shard.local_state_dict(state.model,
+                                                       payload["model"]))
+    state.optimizer.load_state_dict(shard.local_optimizer_state(
+        payload["optimizer"], state.model))
     state.step = int(payload["step"])
     return state, True
 
@@ -140,11 +155,15 @@ def restore_checkpoint(path: str, state: Any) -> Tuple[Any, bool]:
 
 def save_pretrained(path: str, config: MVLTConfig, model) -> None:
     """``config.json`` and ``model.pt`` (``model``: a module or a
-    state_dict)."""
+    state_dict). A module on a mesh is gathered (every rank calls) and world
+    rank 0 writes."""
+    sd = (shard.full_state_dict(model) if hasattr(model, "state_dict")
+          else model)
+    if comm.global_rank() != 0:
+        return
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         f.write(config.to_json())
-    sd = model.state_dict() if hasattr(model, "state_dict") else model
     torch.save(_snapshot(dict(sd)), os.path.join(path, "model.pt"))
 
 

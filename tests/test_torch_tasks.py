@@ -235,7 +235,9 @@ def test_runner_and_driver_refuse_what_the_port_lacks(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             run_vqa.main(["--synthetic", "--tiny", "--model_name",
                           str(tmp_path / "x")])
-    with pytest.raises(NotImplementedError, match="Multi-device"):
+    # one process holds no (1, 2) mesh: JAX's build_mesh error (a
+    # multi-device run is one process a device, under torchrun)
+    with pytest.raises(ValueError, match="does not divide device count 1"):
         TaskRunner(VQAModel, cfg, pcfg.TrainConfig(
             mesh=pcfg.MeshConfig(model_parallel=2)), device="cpu")
 
