@@ -316,13 +316,19 @@ which raises on failure:
     (NCCL refuses two ranks on one card), rank 0's weights broadcast: (b)
     DP 2, 16 rows a rank replaying their rows of the masks, and (c) TP 2,
     the fusion split on 6 heads a rank and the MLM decoders vocab-split
-    (``EXPECTED_TP_STEP``): 3 losses to ``LOSS_BAR``, step 1's gradients
-    (gathered) to ``swin_bars``, the replicated parameters bitwise equal on
-    both ranks, each rank's launches (K1-K5 as one device's at b16 / b32);
-    (d) the linear-patch VQA step at DP 2 (S = 221): the BatchNorm buffers
-    after step 1 within ``BN_BUFFER_BAR`` of one process's and equal on
-    both ranks; ms/step of (a)-(c) beside one device's (informative: gloo
-    on one card measures nothing a user runs). ``python3 chip_smoke.py
+    and the Swin backbone split (Swin-S stage 1's attention halves held
+    whole, 3 heads) (``EXPECTED_TP_STEP``): 3 losses to ``LOSS_BAR``, step
+    1's gradients (gathered) to ``swin_bars``, the replicated parameters
+    bitwise equal on both ranks, each rank's launches (K1-K5 as one
+    device's at b16 / b32), the backbone parameters a rank holds and the
+    step's peak memory; (d) the linear-patch VQA step at DP 2 (S = 221):
+    the BatchNorm buffers after step 1 within ``BN_BUFFER_BAR`` of one
+    process's and equal on both ranks; (e) the ViT-B/16 pretrain step at TP
+    2 (its blocks and the fusion split), held to the one-process step as
+    (c) (``vit_bars``; K1 ``VIT_TP_K1_EXTRA`` a block more), its reference
+    built while the ranks run (b)-(d); ms/step of (a)-(c) and (e) beside
+    one device's (informative: gloo on one card measures nothing a user
+    runs). ``python3 chip_smoke.py
     --multi-device`` runs phases 1-2 and this phase only;
 22. print ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}``
     last.
@@ -838,10 +844,20 @@ MULTI_DEVICE_TAG = "multi-device launches: "
 MULTI_DEVICE_TIMED = 2
 MULTI_DEVICE_RANK_DEVICE = "cuda:0"      # both ranks: gloo on one card
 BN_BUFFER_BAR = 1e-4
-# TP 2: the fusion rows 15 / 16 / 17 / 17' split at the all-reduce run each
-# counterpart as often as one device (K2 and K4 on 6 heads); the Swin
-# backbone is held replicated
+# TP 2: the fusion rows 15 / 16 / 17 / 17' and the Swin rows split at the
+# all-reduce run each counterpart as often as one device (K2 and K4 on the
+# rank's heads: 6 of the fusion's 12, 3 / 6 / 12 of Swin-S stages 2-4;
+# stage 1's 3 heads run whole, its MLP split). K1-K5 launch as one device's;
+# a product that writes f32 partials has no epilogue and may take K1's
+# split-K (``gemm_plan`` at the halved shapes), so ``gemm_splitk`` follows
+# the plan and is printed, not held
 EXPECTED_TP_STEP = EXPECTED_SWIN_PRETRAIN
+# (e) ViT-B/16 at TP 2: the fusion rows as one device's; the ViT's `out` and
+# `mlp_fc2` run row-parallel on K1 (f32 partials: its forward and its two
+# backward products, where one device runs F.linear), so K1 launches
+# VIT_TP_K1_EXTRA a block more than one device's, K2-K5 as many
+EXPECTED_VIT_TP_STEP = EXPECTED_VIT_PRETRAIN
+VIT_TP_K1_EXTRA = 6
 TRACE_NAMES = {"annotation": "mvlt swin step", "K1": "gemm_wgmma_kernel",
                "K2": "attention_wgmma_kernel", "K3": "layernorm_kernel",
                "K4": "attention_bwd_dq_kernel", "K5": "ln_bwd_kernel"}
@@ -4491,6 +4507,56 @@ def single_card_phases(dev, card: str) -> dict:
     return out
 
 
+# report sentences beside the synthetic corpora's captions: punctuation,
+# brackets, numbers, special tokens, long words
+NATIVE_SENTENCES = (
+    "The heart is normal in size. The mediastinum is unremarkable.",
+    "No acute cardiopulmonary abnormality (stable since 2019-03-04).",
+    "There's a 2.5 cm nodule... it isn't calcified; see e.g. prior [1].",
+    "is there a nodule in the right lung ? [END]",
+    "findings: 1. clear lungs [SEP] impression: normal [END]",
+    "pneumonoultramicroscopicsilicovolcanoconiosis w/ 5% change -- mild")
+
+
+def native_tokenizer_checks() -> None:
+    """The native tokenizers' host library (``mvlt_tpu_torch/csrc/host``,
+    ``text/native.py``) builds on this machine from the checkout's sources
+    with the host compiler (into the build directory, or into a fresh one
+    where the build directory already holds it), encodes the repo's
+    captions (the synthetic corpora's: ``SyntheticSource``,
+    ``synthetic_pretrain_frames``, and ``NATIVE_SENTENCES``) to the Python
+    path's ids, and tokenizes them for the metrics byte-equal to the Python
+    PTB tokenizer."""
+    import tempfile
+    from mvlt_tpu_torch.data import datasets
+    from mvlt_tpu_torch.metrics import ptb
+    from mvlt_tpu_torch.text import native
+    from mvlt_tpu_torch.text.tokenizer import WordPieceTokenizer
+    (REPO / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as fresh:
+        t0 = time.perf_counter()
+        path = native.build(fresh if native.library_path().exists()
+                            else None)
+        built = time.perf_counter() - t0
+        if path.read_bytes()[:4] != b"\x7fELF":
+            raise AssertionError(f"{path} is not a shared library")
+    tok = WordPieceTokenizer()
+    captions = (datasets.SyntheticSource(n=256).captions
+                + datasets.synthetic_pretrain_frames(256, image_size=4)[1]
+                + list(NATIVE_SENTENCES))
+    ids = 0
+    for c in captions:
+        got = tok._native.encode(c)
+        if got != tok.convert_tokens_to_ids(tok.tokenize(c)):
+            raise AssertionError(f"native ids of {c!r} differ from Python's")
+        if native.ptb_tokenize_native(c) != ptb.ptb_tokenize_py(c):
+            raise AssertionError(f"native PTB tokens of {c!r} differ")
+        ids += len(got)
+    print(f"native tokenizers: {path.name} compiled here in {built:.1f} s; "
+          f"{len(captions)} captions, {ids} ids equal the Python path's, "
+          "PTB output byte-equal", flush=True)
+
+
 def single_card_main() -> int:
     """``python3 chip_smoke.py --single-card``: phases 1-2 and phase 20
     only (its kernel cases and its paths), ending with the rows it touched
@@ -4527,6 +4593,8 @@ def main() -> int:
               "done", flush=True)
 
     start_dumps()           # the reports read them after the checks
+    native_tokenizer_checks()
+    lap("native_tokenizer_checks")
 
     chk = Checker()
     for checks in (kernel_checks, train_kernel_checks, pretrain_kernel_checks,
@@ -7338,11 +7406,20 @@ def _md_model(cls, cfg, dev, init):
     return model
 
 
-def _md_pretrain(rank: int, dev, ref: dict, init, mp: int) -> dict:
-    """Check (b) (mp = 1: DP 2, each rank its 16 rows) or (c) (mp = 2: TP
-    2 on the whole batch) on a world of two gloo ranks: the launches of one
-    step, step 1's gradients and 3 losses against the one-process b32 step
-    on its masks, the replicas after 3 steps, ms/step."""
+def _backbone_params(model) -> int:
+    """Elements of the backbone's parameters this rank holds."""
+    return sum(p.numel() for n, p in model.named_parameters()
+               if n.startswith("conv."))
+
+
+def _md_pretrain(rank: int, dev, ref: dict, init, mp: int,
+                 vit: bool = False) -> dict:
+    """Check (b) (mp = 1: DP 2, each rank its 16 rows), (c) (mp = 2: TP 2
+    on the whole batch) or, with ``vit``, (e) (the ViT-B/16 step at TP 2)
+    on a world of two gloo ranks: the launches of one step, step 1's
+    gradients and 3 losses against the one-process b32 step on its masks,
+    the replicas after 3 steps, ms/step; the backbone's parameters a rank
+    holds and the step's peak memory."""
     from mvlt_tpu_torch import flagship
     from mvlt_tpu_torch.config import MeshConfig
     from mvlt_tpu_torch.models.heads import PretrainModel
@@ -7351,30 +7428,41 @@ def _md_pretrain(rank: int, dev, ref: dict, init, mp: int) -> dict:
     from mvlt_tpu_torch.train.state import TrainState, make_optimizer
     from mvlt_tpu_torch.train.steps import make_pretrain_step, \
         shard_train_state
-    what = "DP 2" if mp == 1 else "TP 2"
-    cfg = flagship.flagship_swin_pretrain_config()
+    what = "DP 2" if mp == 1 else ("ViT-B/16 TP 2" if vit else "TP 2")
+    cfg = (flagship.flagship_vit_pretrain_config() if vit
+           else flagship.flagship_swin_pretrain_config())
     mesh = build_mesh(MeshConfig(model_parallel=mp), device=dev)
     model = _md_model(PretrainModel, cfg, dev, init)
+    whole = _backbone_params(model)
     opt = make_optimizer(model, cfg)
     shard_train_state(TrainState(model, opt), mesh)
+    held = _backbone_params(model)
     step = make_pretrain_step(model, opt, mesh=mesh)
     B = ref["batch"]["image"].shape[0]
     a, b = partition.batch_rows(mesh, B)
     batch = {k: v[a:b].to(dev) for k, v in ref["batch"].items()}
-    losses, counts = [], None
+    losses, counts, peak = [], None, 0
     for i, mode in enumerate(PRETRAIN_MODES):
         step.masks = DropoutMasks.replay(
             _md_rows(ref["masks"][i], mesh.data_rank, B, mesh.dp))
         if i == 0:
             reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         out = step(batch, mode)
         torch.cuda.synchronize()
         if i == 0:
+            peak = torch.cuda.max_memory_allocated()
             counts = launch_counts()
             if mp == 1:
                 want = ref["counts16"]
                 _expect_counts(counts, {k: (want[k], None)
                                         for k in EXPECTED_SWIN_PRETRAIN},
+                               f"{what} rank {rank}", [])
+            elif vit:
+                want = dict(ref["counts32"])
+                want["gemm"] += VIT_TP_K1_EXTRA * cfg.vit.num_layers
+                _expect_counts(counts, EXPECTED_VIT_TP_STEP,
                                f"{what} rank {rank}", [])
             else:
                 want = ref["counts32"]
@@ -7389,7 +7477,7 @@ def _md_pretrain(rank: int, dev, ref: dict, init, mp: int) -> dict:
                 compare_grad_dicts(
                     {n: g.float() for n, g in grads.items()}, ref["grads"],
                     f"{what} step 1 gradients (vs one process, b32)",
-                    swin_bars)
+                    vit_bars if vit else swin_bars)
             del grads
         losses.append(out["loss"].item())
     for i, (x, y) in enumerate(zip(losses, ref["losses"])):
@@ -7406,10 +7494,15 @@ def _md_pretrain(rank: int, dev, ref: dict, init, mp: int) -> dict:
           f"(gemm_splitk {counts.get('gemm_splitk')}); losses {losses} vs "
           f"one process {ref['losses']}; replicas bitwise equal; "
           f"{ms:.1f} ms/step", flush=True)
+    print(f"{what} rank {rank}: backbone parameters held {held} of {whole} "
+          f"({whole - held} fewer than held whole); step 1 peak memory "
+          f"{peak / 2 ** 30:.3f} GiB (max_memory_allocated)", flush=True)
     del step, model, opt
     gc.collect()
     torch.cuda.empty_cache()
-    return {"counts": counts, "ms": ms, "losses": losses, "mesh": mesh}
+    return {"counts": counts, "ms": ms, "losses": losses, "mesh": mesh,
+            "backbone_params": held, "backbone_params_whole": whole,
+            "peak_bytes": peak}
 
 
 def _md_linear_vqa(rank: int, dev, ref: dict, init, mesh) -> dict:
@@ -7510,6 +7603,15 @@ def tp_adrop_checks(dev) -> None:
           f"vs plain {errs[0]:.2e} / {errs[1]:.2e} x max|plain|", flush=True)
 
 
+def _md_wait(path: str) -> None:
+    """Wait for the coordinator's file ``path`` (its references)."""
+    deadline = time.monotonic() + MULTI_DEVICE_TIMEOUT
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise AssertionError("phase 21's references never came")
+        time.sleep(0.1)
+
+
 def _md_rank(rank: int, tmp: str) -> None:
     """One of the two gloo ranks of phase 21, both on ``cuda:0``."""
     import torch.distributed as dist
@@ -7522,12 +7624,7 @@ def _md_rank(rank: int, tmp: str) -> None:
     # the references
     torch.zeros((), device=MULTI_DEVICE_RANK_DEVICE)
     kernels.build()
-    ready = os.path.join(tmp, "ready")
-    deadline = time.monotonic() + MULTI_DEVICE_TIMEOUT
-    while not os.path.exists(ready):
-        if time.monotonic() > deadline:
-            raise AssertionError("phase 21's references never came")
-        time.sleep(0.1)
+    _md_wait(os.path.join(tmp, "ready"))
     dev = initialize_distributed(f"file://{tmp}/store", 2, rank,
                                  device=MULTI_DEVICE_RANK_DEVICE,
                                  backend="gloo",
@@ -7546,10 +7643,57 @@ def _md_rank(rank: int, tmp: str) -> None:
                  if rank == 0 else None)
         lin = _md_linear_vqa(rank, dev, ref, vinit, dp.pop("mesh"))
         tp.pop("mesh")
-        out = {"dp2": dp, "tp2": tp, "dp2_linear_vqa": lin}
+        del ref["grads"]
+        gc.collect()
+        # (e): the ViT-B/16 step at TP 2 on its own references
+        _md_wait(os.path.join(tmp, "vit_ready"))
+        vref = torch.load(os.path.join(tmp, "vit_ref.pt"), weights_only=False)
+        vref["grads"] = (torch.load(os.path.join(tmp, "vit_grads.pt"),
+                                    map_location=dev, weights_only=True)
+                         if rank == 0 else None)
+        vit_init = (torch.load(os.path.join(tmp, "vit_init.pt"),
+                               weights_only=True) if rank == 0 else None)
+        vit = _md_pretrain(rank, dev, vref, vit_init, 2, vit=True)
+        vit.pop("mesh")
+        out = {"dp2": dp, "tp2": tp, "dp2_linear_vqa": lin, "vit_tp2": vit}
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _md_vit_reference(dev, tmp: str, B: int) -> None:
+    """(e)'s reference: the ViT-B/16 pretrain step at b``B`` on recorded
+    masks, 3 steps (losses), step 1's gradients and launch counts; written
+    to ``vit_ref.pt``, ``vit_grads.pt`` and ``vit_init.pt`` under ``tmp``."""
+    from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.ops.layers import DropoutMasks
+    step, batch = flagship.build_pretrain_train_step(
+        batch=B, text_len=PRETRAIN_TEXT, device=dev,
+        config=flagship.flagship_vit_pretrain_config())
+    torch.save({k: v.detach().to("cpu", copy=True)
+                for k, v in step.model.state_dict().items()},
+               os.path.join(tmp, "vit_init.pt"))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    masks, losses = [], []
+    for i, mode in enumerate(PRETRAIN_MODES):
+        step.masks = DropoutMasks(gen, record=True)
+        if i == 0:
+            reset_counts()
+        out = step(batch, mode)
+        torch.cuda.synchronize()
+        if i == 0:
+            counts = launch_counts()
+            torch.save({n: p.grad.detach().float().cpu()
+                        for n, p in step.model.named_parameters()},
+                       os.path.join(tmp, "vit_grads.pt"))
+        masks.append([m.cpu() for m in step.masks.recorded])
+        losses.append(out["loss"].item())
+    torch.save({"batch": {k: v.cpu() for k, v in batch.items()},
+                "masks": masks, "losses": losses, "counts32": counts},
+               os.path.join(tmp, "vit_ref.pt"))
+    del step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def multi_device_run_main() -> int:
@@ -7603,9 +7747,12 @@ def _md_coordinate(dev, card: str, tmp: str, ranks_ctx, t_phase) -> int:
         step.masks = DropoutMasks(gen, record=True)
         if i == 0:
             reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         out = step(batch, mode)
         torch.cuda.synchronize()
         if i == 0:
+            one_peak = torch.cuda.max_memory_allocated()
             counts32 = launch_counts()
             torch.save({n: p.grad.detach().float().cpu()
                         for n, p in step.model.named_parameters()},
@@ -7686,16 +7833,34 @@ def _md_coordinate(dev, card: str, tmp: str, ranks_ctx, t_phase) -> int:
     t0 = time.perf_counter()
     with open(os.path.join(tmp, "ready"), "w"):
         pass
+    # (e)'s reference while the ranks run (b)-(d)
+    _md_vit_reference(dev, tmp, B)
+    with open(os.path.join(tmp, "vit_ready"), "w"):
+        pass
     while not ranks_ctx.join():
         pass
     ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
              for r in range(2)]
-    print(f"(b) DP 2 and (c) TP 2 (gloo, both ranks on cuda:0) and (d) the "
-          f"linear-patch VQA step at DP 2: every check held in "
-          f"{time.perf_counter() - t0:.1f} s; ms/step (rank 0, 1): DP 2 "
-          f"{[r['dp2']['ms'] for r in ranks]}, TP 2 "
-          f"{[r['tp2']['ms'] for r in ranks]}, one device (b32) {one_ms:.1f} "
-          f"on {card} (gloo on one card measures nothing a user runs)",
+    print(f"(b) DP 2 and (c) TP 2 (gloo, both ranks on cuda:0), (d) the "
+          f"linear-patch VQA step at DP 2 and (e) the ViT-B/16 step at TP 2: "
+          f"every check held in {time.perf_counter() - t0:.1f} s; ms/step "
+          f"(rank 0, 1): DP 2 {[r['dp2']['ms'] for r in ranks]}, TP 2 "
+          f"{[r['tp2']['ms'] for r in ranks]}, ViT-B/16 TP 2 "
+          f"{[r['vit_tp2']['ms'] for r in ranks]}, one device (b32) "
+          f"{one_ms:.1f} on {card} (gloo on one card measures nothing a user "
+          "runs)", flush=True)
+    tp = [r["tp2"] for r in ranks]
+    print(f"(c) TP 2 backbone parameters a rank holds: "
+          f"{[t['backbone_params'] for t in tp]} of "
+          f"{tp[0]['backbone_params_whole']} ("
+          f"{tp[0]['backbone_params_whole'] - tp[0]['backbone_params']} "
+          f"fewer); step 1 peak memory a rank (GiB): "
+          f"{[round(t['peak_bytes'] / 2 ** 30, 3) for t in tp]}, DP 2 "
+          f"{[round(r['dp2']['peak_bytes'] / 2 ** 30, 3) for r in ranks]}, "
+          f"one device (b32) {one_peak / 2 ** 30:.3f}; ViT-B/16 TP 2 "
+          f"backbone parameters "
+          f"{[r['vit_tp2']['backbone_params'] for r in ranks]} of "
+          f"{ranks[0]['vit_tp2']['backbone_params_whole']} on {card}",
           flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
     print(f"multi-device phase: {time.perf_counter() - t_phase:.1f} s after "
@@ -7704,7 +7869,8 @@ def _md_coordinate(dev, card: str, tmp: str, ranks_ctx, t_phase) -> int:
         "multi_device_nccl_1x1": counts_a,
         "multi_device_dp2": ranks[0]["dp2"]["counts"],
         "multi_device_tp2": ranks[0]["tp2"]["counts"],
-        "multi_device_dp2_linear_vqa": ranks[0]["dp2_linear_vqa"]["counts"]}),
+        "multi_device_dp2_linear_vqa": ranks[0]["dp2_linear_vqa"]["counts"],
+        "multi_device_vit_tp2": ranks[0]["vit_tp2"]["counts"]}),
         flush=True)
     return 0
 
@@ -7718,10 +7884,11 @@ def multi_device_subprocess() -> dict:
 
 
 def multi_device_main() -> int:
-    """``python3 chip_smoke.py --multi-device``: phases 1-2 and phase 21
-    only, without the kernels line."""
+    """``python3 chip_smoke.py --multi-device``: phases 1-2, the native
+    tokenizers' check and phase 21 only, without the kernels line."""
     if start() is None:
         return 1
+    native_tokenizer_checks()
     multi_device_subprocess()
     return 0
 

@@ -79,6 +79,7 @@ from mvlt_tpu_torch.config import (MVLTConfig, ViTConfig, resnet101,
                                    swin_base, swin_small)
 from mvlt_tpu_torch.models.backbones.resnet import BatchNorm
 from mvlt_tpu_torch.models import generation
+from mvlt_tpu_torch.models.fusion import EncoderLayer
 from mvlt_tpu_torch.models.heads import (CaptionModel, PretrainModel,
                                          RetrievalModel, VQAModel,
                                          check_fusion_fits)
@@ -747,36 +748,44 @@ def lower_flagship_multichip(n_devices: int, seq_len: int = 80, mps=None
     torch: the flagship-geometry pretrain model (Swin-S @224 + BERT-base,
     MLM+ITM) built on the ``meta`` device and split for each model-axis
     size in ``mps`` (default: 1, and 2 when ``n_devices`` is even), every
-    held parameter's local shape checked against its rule (the split
-    dimension divided by mp, a fused qkv by heads). The fusion side only:
-    the backbone is held replicated. Returns ``{mp: tensors split}``."""
+    split parameter's local shape checked against its rule (the split
+    dimension divided by mp, a fused qkv by heads), backbone included, and
+    every tensor the port holds replicated checked to be a block's attention
+    tensor whose heads mp does not divide. Returns ``{mp: tensors split}``."""
     from mvlt_tpu_torch.parallel import partition
     cfg = dataclasses.replace(flagship_swin_pretrain_config(),
                               max_length=seq_len)
     model = PretrainModel(cfg, dtype=torch.float32, device="meta")
     if mps is None:
         mps = sorted({1, 2 if n_devices % 2 == 0 and n_devices > 1 else 1})
-    heads = cfg.fusion.num_attention_heads
+    heads = partition.block_heads(model)
+    heads.update({name: m.num_heads for name, m in model.named_modules()
+                  if isinstance(m, EncoderLayer)})
+    params = dict(model.named_parameters())
     out = {}
     for mp in mps:
         if n_devices % mp:
             raise ValueError(f"model_parallel={mp} does not divide device "
                              f"count {n_devices}")
-        split = 0
-        for name, p in model.named_parameters():
-            shard = partition.shard_for(name, p.shape, mp)
-            if shard.dim is None or not partition.held(name):
-                continue
+        split, kept = (partition.port_shardings(model, mp) if mp > 1
+                       else ({}, []))
+        for name, shard in split.items():
+            p = params[name]
             local = partition.local_shard(p, shard, 0, mp)
             want = list(p.shape)
             want[shard.dim] //= mp
             if list(local.shape) != want:
                 raise AssertionError(f"{name}: local {tuple(local.shape)}, "
                                      f"rule gives {tuple(want)}")
-            if shard.parts == 3 and heads % mp:
-                raise AssertionError(f"{name}: {heads} heads over mp={mp}")
-            split += 1
-        out[mp] = split
+            block = name.rsplit(".", 2)[0]
+            if shard.parts == 3 and heads[block] % mp:
+                raise AssertionError(f"{name}: {heads[block]} heads over "
+                                     f"mp={mp}")
+        for name in kept:
+            if heads[name.rsplit(".", 2)[0]] % mp == 0:
+                raise AssertionError(f"{name}: held though mp={mp} divides "
+                                     "its heads")
+        out[mp] = len(split)
     return out
 
 

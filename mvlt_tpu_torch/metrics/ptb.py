@@ -10,9 +10,10 @@ punctuation splitting, contractions, bracket normalization, quote
 normalization, ellipses.  The post-tokenization punctuation removal list is
 verbatim from the reference (ptbtokenizer.py:21-22).
 
-The port keeps only the pure-Python tokenizer; JAX's package also has a
-C++ one (``csrc/ptb.cc``) that gives the same tokens (ROADMAP.md queue A,
-"The native tokenizer").
+:func:`ptb_tokenize` runs the C++ tokenizer (``csrc/host/ptb.cc``, through
+:mod:`mvlt_tpu_torch.text.native`) where JAX's does, on ASCII captions; the
+Python tokenizer (:func:`ptb_tokenize_py`) takes the rest and gives the same
+tokens.
 """
 
 from __future__ import annotations
@@ -107,7 +108,16 @@ def _ptb_tokenize_line(text: str) -> List[str]:
 
 
 def ptb_tokenize(text: str) -> str:
-    """Tokenize one caption and drop the reference's punctuation list."""
+    """Tokenize one caption and drop the reference's punctuation list: the
+    native tokenizer where it takes the text, else :func:`ptb_tokenize_py`
+    (byte-equal)."""
+    from mvlt_tpu_torch.text.native import ptb_tokenize_native
+    native = ptb_tokenize_native(text)
+    return ptb_tokenize_py(text) if native is None else native
+
+
+def ptb_tokenize_py(text: str) -> str:
+    """The pure-Python tokenizer of :func:`ptb_tokenize`."""
     # NOTE the filter is case-sensitive, exactly like the reference
     # (ptbtokenizer.py:21-22 lists "-LRB-" etc. UPPERCASE but filters the
     # -lowerCase Java output): bracket tokens arrive lowercased and are

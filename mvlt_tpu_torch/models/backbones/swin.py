@@ -75,10 +75,13 @@ import torch
 from torch import nn
 
 from mvlt_tpu_torch.config import SwinConfig
+from mvlt_tpu_torch.ops.blocks import row_parallel_dense
 from mvlt_tpu_torch.ops.layers import (SWIN_LN_EPS, Dense, LayerNorm, Mlp,
                                        drop_path, drop_path_mask,
                                        drop_path_multipliers, dropout,
-                                       records_grad, rematerialized)
+                                       dropout_part, gelu_exact, records_grad,
+                                       rematerialized)
+from mvlt_tpu_torch.parallel import comm
 from mvlt_tpu_torch.utils.env import env_flag
 
 
@@ -206,18 +209,20 @@ def check_attn_impl(attn_impl: str) -> str:
 
 
 def window_attention_xla(q, k, v, bias, scale: float, masks=None,
-                         rate: float = 0.0) -> torch.Tensor:
+                         rate: float = 0.0, tp=None) -> torch.Tensor:
     """``WindowAttention``'s XLA attention (swin.py:216-228) in plain torch:
     q, k, v (BW, nH, N, Dh), bias (P, nH, N, N) f32, window g using
     ``bias[g % P]``. Scores ``(q * scale) k^T`` in f32, softmax in f32
     rounded to q's dtype, the attention dropout on the probabilities
-    (a (BW, nH, N, N) draw from ``masks`` when ``rate`` > 0), then ``p v``.
-    Returns ctx (BW, nH, N, Dh)."""
+    (a (BW, nH, N, N) draw from ``masks`` when ``rate`` > 0; under TP, ``tp``
+    a model group, nH is the rank's heads and the mask its slice of the
+    draw of all heads), then ``p v``. Returns ctx (BW, nH, N, Dh)."""
     BW, nH, N, _ = q.shape
     P = bias.shape[0]
     s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     s = (s.view(BW // P, P, nH, N, N) + bias).view(BW, nH, N, N)
-    p = dropout(torch.softmax(s, dim=-1).to(q.dtype), masks, rate)
+    p = dropout_part(torch.softmax(s, dim=-1).to(q.dtype), masks, rate, tp,
+                     dim=1)
     return torch.matmul(p, v)
 
 
@@ -241,7 +246,23 @@ def stores_p(num_heads: int, N: int, n_windows: int, n_patterns: int,
 class SwinBlock(nn.Module):
     """(S)W-MSA + MLP block, pre-LN, with stochastic depth at rate
     ``drop_path`` and dropout at rates ``drop`` (hidden) and ``attn_drop``
-    (attention probabilities) in training (swin.py:235-366)."""
+    (attention probabilities) in training (swin.py:235-366).
+
+    Tensor parallelism (:meth:`set_tp`, from
+    :func:`mvlt_tpu_torch.parallel.shard.apply_mesh_`; JAX's Megatron rules
+    under GSPMD, ``partition.py:37-47``): the block then holds its rank's
+    heads of ``qkv`` (q, k and v of the same heads), its columns of
+    ``proj``'s input, of ``fc1``'s output and of ``fc2``'s input, and its
+    columns of the relative-position table, and splits every route at
+    Megatron's two points (``ops/blocks.py``: the f32 partials of proj and
+    fc2 summed over the model group, the bias, DropPath and residual added
+    once). Where mp does not divide the heads the attention half is held
+    whole on every rank and only the MLP splits. The route gates read the
+    global geometry (heads, C), so a rank takes the route one device takes;
+    the DropPath draws are the same on every model rank, and a dropout of a
+    split tensor (the attention probabilities, the GELU output) is the
+    rank's slice of the draw of the whole.
+"""
 
     def __init__(self, dim: int, input_resolution: Tuple[int, int],
                  num_heads: int, window_size: int, shift_size: int,
@@ -279,18 +300,49 @@ class SwinBlock(nn.Module):
         self.register_buffer("shift_mask", torch.as_tensor(mask, device=device),
                              persistent=False)
         self._bias_key, self._bias = None, None
+        self.tp_attn = self.tp_mlp = None
+
+    def set_tp(self, attn, mlp) -> None:
+        """Put the block on a model group (``parallel/shard.TP``): ``attn``
+        the group when its attention half is split over the heads (None:
+        held whole), ``mlp`` the group when its MLP is split."""
+        self.tp_attn, self.tp_mlp = attn, mlp
+        self._bias_key = None
+
+    def _tp(self):
+        """The whole-block rows' ``tp=``: {} off a mesh, else the pair."""
+        if self.tp_attn is None and self.tp_mlp is None:
+            return {}
+        return {"tp": (self.tp_attn, self.tp_mlp)}
+
+    def _heads(self) -> int:
+        """The heads this rank computes."""
+        return self.num_heads // (1 if self.tp_attn is None
+                                  else self.tp_attn.size)
+
+    def _table(self) -> torch.Tensor:
+        """The relative-position table's columns of this rank's heads: under
+        TP Megatron's *f* first, so that the table's gradient (each rank's
+        heads) is summed over the model group."""
+        t = self.relative_position_bias_table
+        if self.tp_attn is None:
+            return t
+        n = self._heads()
+        h0 = self.tp_attn.rank * n
+        return comm.copy_to_group(t, self.tp_attn.group)[:, h0:h0 + n]
 
     def _build_bias(self) -> torch.Tensor:
         N = self.window * self.window
-        rel = (self.rel_onehot @ self.relative_position_bias_table).view(
-            N, N, -1).permute(2, 0, 1)
+        rel = (self.rel_onehot @ self._table()).view(N, N, -1).permute(
+            2, 0, 1)
         return (rel[None] + self.shift_mask[:, None]).contiguous()
 
     def attention_bias(self) -> torch.Tensor:
         """(P, nH, N, N) f32: the relative-position bias from its table, plus
-        the -100 shift mask per window when shifted (P = nW, else 1). Where a
-        gradient is needed it is built with its graph; serving recomputes it
-        only when the table changes."""
+        the -100 shift mask per window when shifted (P = nW, else 1); under
+        TP the rank's nH / mp heads. Where a gradient is needed it is built
+        with its graph; serving recomputes it only when the table
+        changes."""
         t = self.relative_position_bias_table
         if torch.is_grad_enabled() and t.requires_grad:
             return self._build_bias()
@@ -326,18 +378,20 @@ class SwinBlock(nn.Module):
             # only through the bias (_fused_half_blocks, swin.py:483-530)
             return self._half_blocks(x, bias, ops)
         windows = window_partition(x.view(B, H, W, C), window)
+        nH, tp = self._heads(), self._tp()
         if train and uses_half_blocks(C):
-            y = ops.swin_half_block(windows, params, bias, self.scale,
-                                    self.num_heads, shift_spec=spec, dp=dp)
+            y = ops.swin_half_block(windows, params, bias, self.scale, nH,
+                                    shift_spec=spec, dp=dp, **tp)
         elif train:
+            # the gate reads the block's global heads, as one device does
             store = stores_p(self.num_heads, window * window,
                              windows.shape[0], bias.shape[0], bool(shift))
-            y = ops.swin_full_block(windows, params, bias, self.scale,
-                                    self.num_heads, shift_spec=spec, dp=dp,
-                                    store_p=store)
+            y = ops.swin_full_block(windows, params, bias, self.scale, nH,
+                                    shift_spec=spec, dp=dp, store_p=store,
+                                    **tp)
         else:
-            y = ops.swin_full_block(windows, params, bias, self.scale,
-                                    self.num_heads, shift_spec=spec)
+            y = ops.swin_full_block(windows, params, bias, self.scale, nH,
+                                    shift_spec=spec, **tp)
         return window_reverse(y, window, H, W).reshape(B, L, C)
 
     def _plain_forward(self, x, ops, masks):
@@ -355,8 +409,19 @@ class SwinBlock(nn.Module):
         rate = self.drop_path
         x = x + drop_path(a.reshape(B, L, C),
                           drop_path_mask(masks, rate, B, x.device), rate)
-        y = self.mlp(self.norm2(x, ops), ops, masks)
+        y = self._mlp(self.norm2(x, ops), ops, masks)
         return x + drop_path(y, drop_path_mask(masks, rate, B, x.device), rate)
+
+    def _mlp(self, x, ops, masks=None):
+        """flax ``Mlp``; under TP fc1 column-parallel (after *f*), the GELU
+        dropout the rank's columns of the whole draw, fc2 row-parallel."""
+        tp, mlp = self.tp_mlp, self.mlp
+        if tp is None:
+            return mlp(x, ops, masks)
+        h = gelu_exact(mlp.fc1(comm.copy_to_group(x, tp.group), ops))
+        h = dropout_part(h, masks, mlp.drop, tp)
+        return dropout(row_parallel_dense(mlp.fc2, h, ops, tp), masks,
+                       mlp.drop)
 
     def _window_attention(self, windows, ops, masks):
         """``WindowAttention`` (swin.py:123-233) on (B*nW, N, C) windows,
@@ -371,23 +436,27 @@ class SwinBlock(nn.Module):
                 f"(attn_drop_rate={self.attn_drop}); use attn_impl='auto' or "
                 "'xla' for training with attention dropout")
         BW, N, C = windows.shape
-        nH, dt = self.num_heads, windows.dtype
+        nH, dt, tp = self._heads(), windows.dtype, self.tp_attn
+        Dh = C // self.num_heads
         bias = self.attention_bias()
         if impl == "pallas_block":
             qkv, proj = self.qkv, self.proj
             out = ops.window_block_attention(
                 windows, qkv.weight.to(dt), _cast(qkv.bias, dt),
                 proj.weight.to(dt), _cast(proj.bias, dt), bias, self.scale,
-                nH)
+                nH, **({} if tp is None else {"tp": tp}))
         else:
-            q, k, v = self.qkv(windows, ops).view(
-                BW, N, 3, nH, C // nH).permute(2, 0, 3, 1, 4).unbind(0)
+            h = self.qkv(windows if tp is None else
+                         comm.copy_to_group(windows, tp.group), ops)
+            q, k, v = h.view(BW, N, 3, nH, Dh).permute(2, 0, 3, 1, 4).unbind(0)
             if impl == "pallas":
                 ctx = ops.window_attention(q, k, v, bias, self.scale)
             else:
                 ctx = window_attention_xla(q, k, v, bias, self.scale, masks,
-                                           self.attn_drop)
-            out = self.proj(ctx.transpose(1, 2).reshape(BW, N, C), ops)
+                                           self.attn_drop, tp)
+            ctx = ctx.transpose(1, 2).reshape(BW, N, nH * Dh)
+            out = self.proj(ctx, ops) if tp is None else \
+                row_parallel_dense(self.proj, ctx, ops, tp)
         return dropout(out, masks, self.drop)
 
     def _half_blocks(self, x, bias, ops):
@@ -414,26 +483,30 @@ class SwinBlock(nn.Module):
         dt = windows.dtype
         qkv = (self.qkv.weight.to(dt), self.qkv.bias.to(dt))
         proj = (self.proj.weight.to(dt), self.proj.bias.to(dt))
+        nH = self._heads()
+        ta = {} if self.tp_attn is None else {"tp": self.tp_attn}
+        tm = {} if self.tp_mlp is None else {"tp": self.tp_mlp}
         if not half_weights_fit(C):
             y = ops.window_block_attention(
-                self.norm1(windows, ops), *qkv, *proj, bias, self.scale,
-                self.num_heads, residual=windows)
-            y = y + self.mlp(self.norm2(y, ops), ops)
+                self.norm1(windows, ops), *qkv, *proj, bias, self.scale, nH,
+                residual=windows, **ta)
+            y = y + self._mlp(self.norm2(y, ops), ops)
         else:
+            # the gate reads the global C, as one device's does
             if attn_half_admits(BW, N, C, bias.shape[0]):
                 y = ops.swin_attn_half(windows, self.norm1.weight,
                                        self.norm1.bias, *qkv, *proj, bias,
-                                       self.scale, self.num_heads)
+                                       self.scale, nH, **ta)
             else:
                 y = ops.window_block_attention(
                     self.norm1(windows, ops), *qkv, *proj, bias, self.scale,
-                    self.num_heads, residual=windows)
+                    nH, residual=windows, **ta)
             mlp = self.mlp
             y = ops.fused_mlp_preln(y, self.norm2.weight, self.norm2.bias,
                                     mlp.fc1.weight.to(dt),
                                     mlp.fc1.bias.to(dt),
                                     mlp.fc2.weight.to(dt),
-                                    mlp.fc2.bias.to(dt))
+                                    mlp.fc2.bias.to(dt), **tm)
         y = window_reverse(y, window, H, W)
         if shift:
             y = torch.roll(y, (shift, shift), (1, 2))

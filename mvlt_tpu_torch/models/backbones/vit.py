@@ -30,6 +30,19 @@ its attention mask (``broadcast_dropout=True``): one (1, 1, N, N) draw for
 every image and head; that attention runs in plain torch with the explicit
 mask (:func:`~mvlt_tpu_torch.ops.attention.dropout_attention`), as JAX
 runs it in XLA, and SDPA serves wherever no attention dropout is on.
+
+Tensor parallelism (:meth:`ViTBlock.set_tp`, from
+:func:`mvlt_tpu_torch.parallel.shard.apply_mesh_`; JAX's Megatron rules,
+``partition.py:37-47``): a block holds its rank's heads of ``qkv`` (q, k
+and v of the same heads), its input columns of ``out`` and ``mlp_fc2`` and
+its output columns of ``mlp_fc1``. ``qkv`` and ``mlp_fc1`` are
+column-parallel after Megatron's *f* (``comm.copy_to_group``); attention
+runs on the rank's heads (the attention dropout's (1, 1, N, N) draw is the
+same for every head, so it needs no slice); ``out`` and ``mlp_fc2`` are
+row-parallel: K1's f32 partial sums, *g* (``comm.reduce_from_group``), the
+bias once, then the dropout and the residual; the GELU output's dropout is
+the rank's columns of the whole draw. Where mp does not divide the heads
+the attention half is held whole and only the MLP splits.
 """
 
 from __future__ import annotations
@@ -40,7 +53,10 @@ from torch import nn
 from mvlt_tpu_torch.config import ViTConfig
 from mvlt_tpu_torch.ops.attention import (dropout_attention,
                                           multi_head_attention)
-from mvlt_tpu_torch.ops.layers import Dense, LayerNorm, dropout, gelu_exact
+from mvlt_tpu_torch.ops.blocks import row_parallel_dense
+from mvlt_tpu_torch.ops.layers import (Dense, LayerNorm, dropout,
+                                       dropout_part, gelu_exact)
+from mvlt_tpu_torch.parallel import comm
 
 VIT_LN_EPS = 1e-6
 
@@ -60,22 +76,38 @@ class ViTBlock(nn.Module):
         self.ln_2 = LayerNorm(hidden, VIT_LN_EPS, device=device)
         self.mlp_fc1 = Dense(hidden, mlp_dim, dtype=dtype, device=device)
         self.mlp_fc2 = Dense(mlp_dim, hidden, dtype=dtype, device=device)
+        self.tp_attn = self.tp_mlp = None
+
+    def set_tp(self, attn, mlp) -> None:
+        """Put the block on a model group (``parallel/shard.TP``): ``attn``
+        the group when its attention half is split over the heads (None:
+        held whole), ``mlp`` the group when its MLP is split."""
+        self.tp_attn, self.tp_mlp = attn, mlp
 
     def forward(self, x: torch.Tensor, ops, masks=None) -> torch.Tensor:
         """``masks`` (a :class:`DropoutMasks`) turns the dropouts on."""
         B, N, C = x.shape
-        nH, rate = self.num_heads, self.dropout
-        q, k, v = self.qkv(self.ln_1(x, ops), ops).view(
-            B, N, 3, nH, C // nH).permute(2, 0, 3, 1, 4).unbind(0)
+        rate, ta, tm = self.dropout, self.tp_attn, self.tp_mlp
+        nH = self.num_heads // (1 if ta is None else ta.size)
+        Dh = C // self.num_heads
+        h = self.ln_1(x, ops)
+        h = self.qkv(h if ta is None else comm.copy_to_group(h, ta.group), ops)
+        q, k, v = h.view(B, N, 3, nH, Dh).permute(2, 0, 3, 1, 4).unbind(0)
         if masks is not None and self.attention_dropout > 0.0:
             ctx = dropout_attention(q, k, v, masks, self.attention_dropout)
         else:
             ctx = multi_head_attention(q, k, v)
-        h = self.out(ctx.transpose(1, 2).reshape(B, N, C), ops)
+        ctx = ctx.transpose(1, 2).reshape(B, N, nH * Dh)
+        h = self.out(ctx, ops) if ta is None else \
+            row_parallel_dense(self.out, ctx, ops, ta)
         x = x + dropout(h, masks, rate)
-        y = dropout(gelu_exact(self.mlp_fc1(self.ln_2(x, ops), ops)), masks,
-                    rate)
-        return x + dropout(self.mlp_fc2(y, ops), masks, rate)
+        h = self.ln_2(x, ops)
+        h = self.mlp_fc1(h if tm is None else comm.copy_to_group(h, tm.group),
+                         ops)
+        y = dropout_part(gelu_exact(h), masks, rate, tm)
+        y = self.mlp_fc2(y, ops) if tm is None else \
+            row_parallel_dense(self.mlp_fc2, y, ops, tm)
+        return x + dropout(y, masks, rate)
 
 
 class ViT(nn.Module):

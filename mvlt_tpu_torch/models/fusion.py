@@ -74,7 +74,7 @@ from torch import nn
 from mvlt_tpu_torch.config import FusionConfig
 from mvlt_tpu_torch.ops import masks as mask_lib
 from mvlt_tpu_torch.ops.attention import multi_head_attention
-from mvlt_tpu_torch.ops.blocks import row_parallel
+from mvlt_tpu_torch.ops.blocks import row_parallel_dense
 from mvlt_tpu_torch.ops.layers import (Dense, LayerNorm, gelu_exact,
                                        records_grad, rematerialized)
 from mvlt_tpu_torch.parallel import comm
@@ -116,13 +116,10 @@ class EncoderLayer(nn.Module):
 
     def _row_parallel(self, dense, x, ops) -> torch.Tensor:
         """``dense`` on x; under TP the product's rows split over the model
-        group (:func:`~mvlt_tpu_torch.ops.blocks.row_parallel`)."""
+        group (:func:`~mvlt_tpu_torch.ops.blocks.row_parallel_dense`)."""
         if self.tp is None:
             return dense(x, ops)
-        shape = x.shape
-        y = row_parallel(ops, x.reshape(-1, shape[-1]).contiguous(),
-                         dense.weight.to(x.dtype), dense.bias, self.tp)
-        return y.to(x.dtype).view(*shape[:-1], y.shape[-1])
+        return row_parallel_dense(dense, x, ops, self.tp)
 
     def forward(self, hidden: torch.Tensor, kbias, ops, qbias=None,
                 masks=None) -> torch.Tensor:

@@ -147,6 +147,27 @@ dropout passes ``(seed, rate, head0)``, the rank's first global head, so a
 rank draws what one device draws for its heads. The counterparts count one
 launch a call either way.
 
+The Swin rows take ``tp=`` too, cut at the same two points. The half rows
+(``window_block_attention``, ``swin_attn_half``, ``fused_mlp_preln`` and
+their VJPs) take one model group; the whole-block rows (``swin_full_block``,
+``swin_half_block``, ``swin_mlp_half_bwd``) a pair, (the attention half's
+group, the MLP's), each None where that half runs whole (a block whose
+heads mp does not divide holds its attention half). Forward: K3 LN1 (+ the
+shift gather) -> K1 qkv on the rank's rows of the fused q / k / v -> K2 on
+its heads, with its heads' slice of the pattern bias (built from the
+rank's columns of the relative-position table: a contiguous tensor of
+nH / mp heads, not a head offset) -> K1 proj on its columns into f32
+partial sums -> all-reduce -> bias, DropPath row scale and residual added
+once in f32 -> K3 LN2 -> K1 fc1 + GELU on its columns -> K1 fc2 into f32
+partials -> all-reduce -> bias, row scale, residual -> cast and the shift
+scatter. Serving takes the same cut points (res1 in f32). Backward: K1 tn
+/ nn on the local shards, K4 on the local heads, and the f32 partial of
+LN2's and LN1's input gradient all-reduced before K5's pre-LN VJP
+(:func:`_grad_sum`); res1 is recomputed through the same all-reduce. The
+table's gradient covers the rank's heads; the model summing it over the
+group (``comm.copy_to_group`` on the table) keeps the replicated table
+equal on every rank. No partial is rounded to bf16 before its sum.
+
 They hold the math of the JAX interpret path (``fast=False``), not the TPU
 fast path. The TPU layout choices are dropped: windows are not merged into
 pairs, rows are not padded to multiples of 8, and no VMEM admission rule
@@ -236,10 +257,12 @@ def _shift_index(n_img: int, H: int, W: int, window: int, shift: int,
 
 
 def _swin_full_block(p, x, params, bias, scale: float, num_heads: int, *,
-                     shift_spec=None, dp=None, store_p: bool = False):
-    if _swin_trains(x, params, bias, dp):
+                     shift_spec=None, dp=None, store_p: bool = False,
+                     tp=None):
+    if _swin_trains(x, params, bias, dp) or tp is not None:
+        # under TP serving takes the training form's f32 cut points too
         return _swin_train(p, x, params, bias, scale, num_heads, shift_spec,
-                           dp, half=False, store_p=store_p)
+                           dp, half=False, store_p=store_p, tp=tp)
     BW, N, C = x.shape
     (ln1s, ln1b, wqkv, bqkv, wproj, bproj,
      ln2s, ln2b, w1, b1, w2, b2) = params
@@ -261,12 +284,15 @@ def _swin_full_block(p, x, params, bias, scale: float, num_heads: int, *,
 
 
 def _block_forward(p, x, wqkv, bqkv, wproj, bproj, bias, scale, num_heads,
-                   residual=None):
+                   residual=None, tp=None):
     BW, N, C = x.shape
     qkv = p.gemm(x.reshape(BW * N, C), wqkv, bqkv)
     ctx = p.attention(qkv, num_heads, N, scale, pattern=bias)
     res = None if residual is None else residual.reshape(BW * N, C)
-    return p.gemm(ctx, wproj, bproj, residual=res).view(BW, N, C)
+    if tp is None:
+        return p.gemm(ctx, wproj, bproj, residual=res).view(BW, N, C)
+    return _proj_sum(p, ctx, wproj, bproj, None, res, tp, x.dtype).view(
+        BW, N, C)
 
 
 class _WindowBlockAttention(torch.autograd.Function):
@@ -276,32 +302,35 @@ class _WindowBlockAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, p, x, wqkv, bqkv, wproj, bproj, bias, residual, scale,
-                num_heads):
+                num_heads, tp):
         ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, bias)
-        ctx.p, ctx.dims = p, (scale, num_heads)
+        ctx.p, ctx.dims, ctx.tp = p, (scale, num_heads), tp
         return _block_forward(p, x, wqkv, bqkv, wproj, bproj, bias, scale,
-                              num_heads, residual)
+                              num_heads, residual, tp)
 
     @staticmethod
     def backward(ctx, g):
         x, wqkv, bqkv, wproj, bproj, bias = ctx.saved_tensors
         dx, dwqkv, dbqkv, dwproj, dbproj, dbias = \
             ctx.p.window_block_attention_bwd(x, wqkv, bqkv, wproj, bias, g,
-                                             *ctx.dims)
+                                             *ctx.dims, **_tp_kw(ctx.tp))
         # the folded residual takes the cotangent as it is
         dres = g if ctx.needs_input_grad[7] else None
         return (None, dx, _cast(dwqkv, wqkv), _cast(dbqkv, bqkv),
                 _cast(dwproj, wproj), _cast(dbproj, bproj),
-                dbias if ctx.needs_input_grad[6] else None, dres, None, None)
+                dbias if ctx.needs_input_grad[6] else None, dres, None, None,
+                None)
 
 
 def _window_block_attention(p, x, wqkv, bqkv, wproj, bproj, bias,
-                            scale: float, num_heads: int, residual=None):
+                            scale: float, num_heads: int, residual=None, *,
+                            tp=None):
     if _needs_grad(x, wqkv, bqkv, wproj, bproj, bias, residual):
         return _WindowBlockAttention.apply(p, x, wqkv, bqkv, wproj, bproj,
-                                           bias, residual, scale, num_heads)
+                                           bias, residual, scale, num_heads,
+                                           tp)
     return _block_forward(p, x, wqkv, bqkv, wproj, bproj, bias, scale,
-                          num_heads, residual)
+                          num_heads, residual, tp)
 
 
 def _proj_bwd(p, ctx2, g2, wproj):
@@ -319,24 +348,34 @@ def _qkv_bwd(p, x2, dqkv2, wqkv):
 
 
 def _window_block_attention_bwd(p, x, wqkv, bqkv, wproj, bias, g,
-                                scale: float, num_heads: int):
+                                scale: float, num_heads: int, *, tp=None):
     BW, N, C = x.shape
     x2 = x.reshape(BW * N, C).contiguous()
     qkv = p.gemm(x2, wqkv, bqkv)                          # recompute (K1)
-    ctx2 = p.attention_core(qkv.view(BW, N, 3 * C), bias, scale,
-                            num_heads).view(BW * N, C)    # and K2
+    Cl = qkv.shape[1] // 3                  # this rank's columns under TP
+    ctx2 = p.attention_core(qkv.view(BW, N, 3 * Cl), bias, scale,
+                            num_heads).view(BW * N, Cl)   # and K2
     g2 = g.reshape(BW * N, C).to(x.dtype).contiguous()
     dwproj, dbproj, dctx = _proj_bwd(p, ctx2, g2, wproj)
     dqkv, dbias = p.attention_core_bwd(qkv, dctx, bias, N, scale, num_heads)
-    dwqkv, dbqkv, dx = _qkv_bwd(p, x2, dqkv, wqkv)
+    if tp is None:
+        dwqkv, dbqkv, dx = _qkv_bwd(p, x2, dqkv, wqkv)
+    else:
+        dwqkv = p.gemm(dqkv, x2, layout="tn", out_dtype=torch.float32)
+        dbqkv = p.column_sum(dqkv)
+        dx = comm.all_reduce_(p.gemm(dqkv, wqkv, layout="nn",
+                                     out_dtype=torch.float32),
+                              tp.group).to(x.dtype)
     return dx.view(BW, N, C), dwqkv, dbqkv, dwproj, dbproj, dbias
 
 
-def _mlp_preln_forward(p, x, ln2s, ln2b, w1, b1, w2, b2):
+def _mlp_preln_forward(p, x, ln2s, ln2b, w1, b1, w2, b2, tp=None):
     rows = x.reshape(-1, x.shape[-1])
     h = p.layernorm(rows, ln2s, ln2b, SWIN_LN_EPS)
     m = p.gemm(h, w1, b1, gelu=True)
-    return p.gemm(m, w2, b2, residual=rows).view(x.shape)
+    if tp is None:
+        return p.gemm(m, w2, b2, residual=rows).view(x.shape)
+    return _proj_sum(p, m, w2, b2, None, rows, tp, x.dtype).view(x.shape)
 
 
 class _MlpPreLN(torch.autograd.Function):
@@ -344,28 +383,28 @@ class _MlpPreLN(torch.autograd.Function):
     (pallas_attn.py:3429), recomputing LN2 and fc1 from the saved x."""
 
     @staticmethod
-    def forward(ctx, p, x, ln2s, ln2b, w1, b1, w2, b2):
+    def forward(ctx, p, x, ln2s, ln2b, w1, b1, w2, b2, tp):
         ctx.save_for_backward(x, ln2s, ln2b, w1, b1, w2, b2)
-        ctx.p = p
-        return _mlp_preln_forward(p, x, ln2s, ln2b, w1, b1, w2, b2)
+        ctx.p, ctx.tp = p, tp
+        return _mlp_preln_forward(p, x, ln2s, ln2b, w1, b1, w2, b2, tp)
 
     @staticmethod
     def backward(ctx, g):
         x, ln2s, ln2b, w1, b1, w2, b2 = ctx.saved_tensors
         dx, dln2s, dln2b, dw1, db1, dw2, db2 = ctx.p.fused_mlp_preln_bwd(
-            x, ln2s, ln2b, w1, b1, w2, g)
+            x, ln2s, ln2b, w1, b1, w2, g, **_tp_kw(ctx.tp))
         return (None, dx, dln2s, dln2b, _cast(dw1, w1), _cast(db1, b1),
-                _cast(dw2, w2), _cast(db2, b2))
+                _cast(dw2, w2), _cast(db2, b2), None)
 
 
-def _fused_mlp_preln(p, x, ln2s, ln2b, w1, b1, w2, b2):
+def _fused_mlp_preln(p, x, ln2s, ln2b, w1, b1, w2, b2, *, tp=None):
     if _needs_grad(x, ln2s, ln2b, w1, b1, w2, b2):
-        return _MlpPreLN.apply(p, x, ln2s, ln2b, w1, b1, w2, b2)
-    return _mlp_preln_forward(p, x, ln2s, ln2b, w1, b1, w2, b2)
+        return _MlpPreLN.apply(p, x, ln2s, ln2b, w1, b1, w2, b2, tp)
+    return _mlp_preln_forward(p, x, ln2s, ln2b, w1, b1, w2, b2, tp)
 
 
 def _fused_mlp_preln_bwd(p, x, ln2s, ln2b, w1, b1, w2, g,
-                         eps: float = SWIN_LN_EPS):
+                         eps: float = SWIN_LN_EPS, *, tp=None):
     f32 = torch.float32
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     g2 = g.reshape(x2.shape).to(x.dtype).contiguous()
@@ -376,11 +415,23 @@ def _fused_mlp_preln_bwd(p, x, ln2s, ln2b, w1, b1, w2, g,
     da1 = p.gemm(g2, w2, layout="nn", gelu_grad=a1)
     db1 = p.column_sum(da1)
     dw1 = p.gemm(da1, h2, layout="tn", out_dtype=f32)
-    dh2 = p.gemm(da1, w1, layout="nn", out_dtype=f32)
+    dh2 = _grad_sum(p.gemm(da1, w1, layout="nn", out_dtype=f32), tp)
     # dx = g + LN2^T(dh2): the residual's cotangent enters as gres
     _, dx, dln2s, dln2b, _ = p.layernorm_bwd(x2, ln2s, dh2, eps, gres=g2,
                                              out_dtype=x.dtype, dres=False)
     return dx.view(x.shape), dln2s, dln2b, dw1, db1, dw2, db2
+
+
+def _tp_kw(tp) -> dict:
+    """``{"tp": tp}``, or no keyword off a mesh."""
+    return {} if tp is None else {"tp": tp}
+
+
+def _grad_sum(dh, tp):
+    """The f32 input gradient of a column-parallel product (its partial
+    over the rank's columns) summed over the model group before the LN VJP
+    that takes it: Megatron's *f* backward. ``tp`` None: dh as it is."""
+    return dh if tp is None else comm.all_reduce_(dh, tp.group)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -404,32 +455,36 @@ def _swin_trains(x, params, bias, dp) -> bool:
 
 
 def _swin_train_forward(p, rows, params, bias, scale, num_heads, N, idx, dp,
-                        half, store_p=False):
+                        half, store_p=False, tp=None):
     """The training forward on (M, C) raw rows; returns (out (M, C) in
     ``rows.dtype``, unshifted; qkv and ctx in the (shifted) window layout;
     with ``store_p`` the softmax (BW, nH, N, N) in that layout, else
-    None)."""
+    None). ``tp`` None, or (the attention half's TP, the MLP's), each None
+    where that half runs whole: a split half's K1 writes f32 partial sums,
+    summed over the model group before the bias, the row scale and the
+    residual are added once."""
     (ln1s, ln1b, wqkv, bqkv, wproj, bproj,
      ln2s, ln2b, w1, b1, w2, b2) = params
     dp1, dp2 = (None, None) if dp is None else dp
-    C = rows.shape[1]
+    tpa, tpm = (None, None) if tp is None else tp
     h = p.layernorm(rows, ln1s, ln1b, SWIN_LN_EPS, row_index=idx)
     qkv = p.gemm(h, wqkv, bqkv)
+    Cl = qkv.shape[1] // 3                  # this rank's columns under TP
     pst = None
     if half:
-        ctx = p.attention_core(qkv.view(-1, N, 3 * C), bias, scale,
-                               num_heads).view(-1, C)
+        ctx = p.attention_core(qkv.view(-1, N, 3 * Cl), bias, scale,
+                               num_heads).view(-1, Cl)
     elif store_p:
         ctx, pst = p.attention(qkv, num_heads, N, scale, pattern=bias,
                                save_p=True)
     else:
         ctx = p.attention(qkv, num_heads, N, scale, pattern=bias)
-    res1 = p.gemm(ctx, wproj, bproj, residual=rows, residual_index=idx,
-                  row_scale=dp1, out_dtype=torch.float32)
+    res1 = _proj_sum(p, ctx, wproj, bproj, None, rows, tpa, torch.float32,
+                     residual_index=idx, row_scale=dp1)
     h2 = p.layernorm(res1, ln2s, ln2b, SWIN_LN_EPS, out_dtype=rows.dtype)
     m = p.gemm(h2, w1, b1, gelu=True)
-    out = p.gemm(m, w2, b2, residual=res1, row_scale=dp2, store_index=idx,
-                 out_dtype=rows.dtype)
+    out = _proj_sum(p, m, w2, b2, None, res1, tpm, rows.dtype,
+                    row_scale=dp2, store_index=idx)
     return out, qkv, ctx, pst
 
 
@@ -442,24 +497,25 @@ class _SwinBlock(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, p, x, bias, dp1, dp2, scale, num_heads, shift_spec, half,
-                store_p, *params):
+                store_p, tp, *params):
         BW, N, C = x.shape
         rows = x.reshape(BW * N, C).contiguous()
         idx = _block_shift_index(BW * N, shift_spec, x.device)
         dp = None if dp1 is None else (dp1, dp2)
         out, qkv, cx, pst = _swin_train_forward(p, rows, params, bias, scale,
                                                 num_heads, N, idx, dp, half,
-                                                store_p)
+                                                store_p, tp)
         # every tensor residual goes through save_for_backward, where the
         # saved-tensor hooks of a rematerialised unit see it
         ctx.save_for_backward(rows, bias, dp1, dp2, qkv, cx, pst, idx,
                               *params)
-        ctx.p, ctx.dims = p, (BW, N, C, scale, num_heads)
+        ctx.p, ctx.dims, ctx.tp = p, (BW, N, C, scale, num_heads), tp
         return out.view(BW, N, C)
 
     @staticmethod
     def backward(ctx, g):
         p, (BW, N, C, scale, num_heads) = ctx.p, ctx.dims
+        tpa = None if ctx.tp is None else ctx.tp[0]
         rows, bias, dp1, dp2, qkv, cx, pst, idx, *params = ctx.saved_tensors
         (ln1s, ln1b, wqkv, bqkv, wproj, bproj,
          ln2s, ln2b, w1, b1, w2, b2) = params
@@ -471,7 +527,7 @@ class _SwinBlock(torch.autograd.Function):
         dp = None if dp1 is None else (dp1, dp2)
         (dres1, da, dbproj, dw1, db1, dw2, db2, dln2s,
          dln2b) = p.swin_mlp_half_bwd(xs, cx, g2, wproj, bproj, ln2s, ln2b,
-                                      w1, b1, w2, dp)
+                                      w1, b1, w2, dp, **_tp_kw(ctx.tp))
         dwproj = p.gemm(da, cx, layout="tn", out_dtype=f32)
         dctx = p.gemm(da, wproj, layout="nn")
         # the kill switch is read again here, as attention_core_bwd_flat
@@ -480,7 +536,7 @@ class _SwinBlock(torch.autograd.Function):
         dqkv, dbias = p.attention_core_bwd(qkv, dctx, bias, N, scale,
                                            num_heads, p2=p2)
         dx, dwqkv, dbqkv, dln1s, dln1b = p.swin_qkv_tail_bwd(
-            xs, dqkv, dres1, wqkv, ln1s, ln1b)
+            xs, dqkv, dres1, wqkv, ln1s, ln1b, **_tp_kw(tpa))
         if idx is not None:                     # back to the unshifted rows
             out = torch.empty_like(dx)
             out[idx.long()] = dx
@@ -489,7 +545,7 @@ class _SwinBlock(torch.autograd.Function):
                  dw1, db1, dw2, db2)
         return (None, dx.view(BW, N, C),
                 dbias if ctx.needs_input_grad[2] else None,
-                None, None, None, None, None, None, None,
+                None, None, None, None, None, None, None, None,
                 *(_cast(d, w) for d, w in zip(grads, params)))
 
 
@@ -501,24 +557,24 @@ def _block_shift_index(M: int, shift_spec, device):
 
 
 def _swin_train(p, x, params, bias, scale, num_heads, shift_spec, dp, half,
-                store_p=False):
+                store_p=False, tp=None):
     """The training form; p is stored only where a backward will read it."""
     dp1, dp2 = (None, None) if dp is None else dp
     if _needs_grad(x, bias, *params):
         return _SwinBlock.apply(p, x, bias, dp1, dp2, scale, num_heads,
-                                shift_spec, half, store_p, *params)
+                                shift_spec, half, store_p, tp, *params)
     BW, N, C = x.shape
     rows = x.reshape(BW * N, C)
     idx = _block_shift_index(BW * N, shift_spec, x.device)
     out, _, _, _ = _swin_train_forward(p, rows, params, bias, scale,
-                                       num_heads, N, idx, dp, half)
+                                       num_heads, N, idx, dp, half, tp=tp)
     return out.view(BW, N, C)
 
 
 def _swin_half_block(p, x, params, bias, scale: float, num_heads: int, *,
-                     shift_spec=None, dp=None):
+                     shift_spec=None, dp=None, tp=None):
     return _swin_train(p, x, params, bias, scale, num_heads, shift_spec, dp,
-                       half=True)
+                       half=True, tp=tp)
 
 
 def _attention_core(p, qkv, bias, scale: float, num_heads: int):
@@ -568,11 +624,12 @@ def _attention_core_bwd(p, qkv2, dctx2, bias, n: int, scale: float,
 
 
 def _swin_mlp_half_bwd(p, x2, ctx2, g2, wproj, bproj, ln2s, ln2b, w1, b1, w2,
-                       dp=None, eps: float = SWIN_LN_EPS):
+                       dp=None, eps: float = SWIN_LN_EPS, *, tp=None):
     f32 = torch.float32
     dp1, dp2 = (None, None) if dp is None else dp
-    res1 = p.gemm(ctx2, wproj, bproj, residual=x2, row_scale=dp1,
-                  out_dtype=f32)                        # res1 recompute
+    tpa, tpm = (None, None) if tp is None else tp
+    res1 = _proj_sum(p, ctx2, wproj, bproj, None, x2, tpa, f32,
+                     row_scale=dp1)                     # res1 recompute
     h2 = p.layernorm(res1, ln2s, ln2b, eps, out_dtype=x2.dtype)
     m, a1 = p.gemm(h2, w1, b1, gelu=True, save_preact=True)
     if dp2 is None:
@@ -583,19 +640,19 @@ def _swin_mlp_half_bwd(p, x2, ctx2, g2, wproj, bproj, ln2s, ln2b, w1, b1, w2,
     da1 = p.gemm(dmlp, w2, layout="nn", gelu_grad=a1)
     db1 = p.column_sum(da1)
     dw1 = p.gemm(da1, h2, layout="tn", out_dtype=f32)
-    dh2 = p.gemm(da1, w1, layout="nn", out_dtype=f32)
+    dh2 = _grad_sum(p.gemm(da1, w1, layout="nn", out_dtype=f32), tpm)
     dres1, da, dln2s, dln2b, dbproj = p.layernorm_bwd(
         res1, ln2s, dh2, eps, gres=g2, row_scale=dp1, out_dtype=x2.dtype)
     return dres1, da, dbproj, dw1, db1, dw2, db2, dln2s, dln2b
 
 
 def _swin_qkv_tail_bwd(p, x2, dqkv2, dres1, wqkv, ln1s, ln1b,
-                       eps: float = SWIN_LN_EPS):
+                       eps: float = SWIN_LN_EPS, *, tp=None):
     f32 = torch.float32
     h1 = p.layernorm(x2, ln1s, ln1b, eps)                # LN1 recompute
     dwqkv = p.gemm(dqkv2, h1, layout="tn", out_dtype=f32)
     dbqkv = p.column_sum(dqkv2)
-    dh1 = p.gemm(dqkv2, wqkv, layout="nn", out_dtype=f32)
+    dh1 = _grad_sum(p.gemm(dqkv2, wqkv, layout="nn", out_dtype=f32), tp)
     # dx is da; the f32 dres would be written for no reader
     _, dx, dln1s, dln1b, _ = p.layernorm_bwd(x2, ln1s, dh1, eps, gres=dres1,
                                              out_dtype=x2.dtype, dres=False)
@@ -697,26 +754,80 @@ def _adrop_arg(seed, rate, num_heads: int, tp):
     return (seed, rate) if tp is None else (seed, rate, tp.rank * num_heads)
 
 
+class _RowParallel(torch.autograd.Function):
+    """The partial sums of :func:`row_parallel` under autograd: K1's f32
+    product on the rank's rows, all-reduced (*g*: the backward takes the
+    whole output's cotangent as it is), then K1 nn for the input's
+    gradient and K1 tn for the weight's (f32, cast to the weight's
+    dtype)."""
+
+    @staticmethod
+    def forward(ctx, p, a, w, tp):
+        ctx.save_for_backward(a, w)
+        ctx.p = p
+        return comm.all_reduce_(p.gemm(a, w, out_dtype=torch.float32),
+                                tp.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g2 = g.to(a.dtype).contiguous()
+        da = ctx.p.gemm(g2, w, layout="nn")
+        dw = ctx.p.gemm(g2, a, layout="tn", out_dtype=torch.float32)
+        return None, da, dw.to(w.dtype), None
+
+
 def row_parallel(p, a, w, bias, tp):
     """Megatron's row-parallel product a @ w.T under TP, f32 (M, N): K1 (or
     its plain version, as ``p`` says) on this rank's rows of the product
     with no epilogue, *g* (the f32 partial sums all-reduced over the model
-    group), then the bias once. No autograd: the training rows' backward is
-    written out in their Functions."""
-    part = comm.all_reduce_(p.gemm(a, w, out_dtype=torch.float32), tp.group)
+    group), then the bias once. Differentiable (:class:`_RowParallel`);
+    the Swin and fusion rows write their backward out in their own
+    Functions."""
+    if _needs_grad(a, w):
+        part = _RowParallel.apply(p, a.contiguous(), w, tp)
+    else:
+        part = comm.all_reduce_(p.gemm(a, w, out_dtype=torch.float32),
+                                tp.group)
     return part if bias is None else part + bias.float()
 
 
-def _proj_sum(p, a, w, bias, hm, rows, tp, out_dtype):
-    """The row-parallel out / fc2 product and its epilogue: on one device
-    K1 with bias, hidden mask and residual in its epilogue; under TP
-    :func:`row_parallel`, then hidden mask and residual in f32."""
+def row_parallel_dense(dense, x, ops, tp):
+    """``dense`` (a :class:`~mvlt_tpu_torch.ops.layers.Dense` holding its
+    rank's input columns) on x (..., in / mp): :func:`row_parallel`, rounded
+    to x's dtype once the bias is added."""
+    shape = x.shape
+    y = row_parallel(ops, x.reshape(-1, shape[-1]).contiguous(),
+                     dense.weight.to(x.dtype), dense.bias, tp)
+    return y.to(x.dtype).view(*shape[:-1], y.shape[-1])
+
+
+def _proj_sum(p, a, w, bias, hm, rows, tp, out_dtype, *, row_scale=None,
+              residual_index=None, store_index=None):
+    """A residual branch's last product and its epilogue, ``rows[index] +
+    row_scale * hm * (a w^T + bias)`` scattered by ``store_index``: on one
+    device K1 with all of it in its epilogue; under TP :func:`row_parallel`
+    (the f32 partial sums all-reduced, the bias added once), then the
+    hidden mask, the row scale (one per image) and the residual in f32, and
+    the scatter."""
     if tp is None:
-        return p.gemm(a, w, bias, residual=rows, emask=hm, out_dtype=out_dtype)
+        return p.gemm(a, w, bias, residual=rows, emask=hm, out_dtype=out_dtype,
+                      row_scale=row_scale, residual_index=residual_index,
+                      store_index=store_index)
     part = row_parallel(p, a, w, bias, tp)
     if hm is not None:
         part = part * hm.float()
-    return (part + rows.float()).to(out_dtype)
+    if row_scale is not None:
+        part = (part.view(row_scale.shape[0], -1, part.shape[1])
+                * row_scale.view(-1, 1, 1)).view(part.shape)
+    if residual_index is not None:
+        rows = rows.index_select(0, residual_index.long())
+    out = (part if rows is None else part + rows.float()).to(out_dtype)
+    if store_index is None:
+        return out
+    scattered = torch.empty_like(out)
+    scattered[store_index.long()] = out
+    return scattered
 
 
 def _input_grad_sum(dx_part, dres, tp, out_dtype):
@@ -817,13 +928,16 @@ def _full_forward_windows(p, x, params, bias, scale: float, num_heads: int):
 
 
 def _attn_half_forward(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias,
-                       scale, num_heads):
+                       scale, num_heads, tp=None):
     BW, N, C = x.shape
     rows = x.reshape(BW * N, C)
     h = p.layernorm(rows, ln1s, ln1b, SWIN_LN_EPS)
     qkv = p.gemm(h, wqkv, bqkv)
     ctx = p.attention(qkv, num_heads, N, scale, pattern=bias)
-    return p.gemm(ctx, wproj, bproj, residual=rows).view(BW, N, C)
+    if tp is None:
+        return p.gemm(ctx, wproj, bproj, residual=rows).view(BW, N, C)
+    return _proj_sum(p, ctx, wproj, bproj, None, rows, tp, x.dtype).view(
+        BW, N, C)
 
 
 class _AttnHalf(torch.autograd.Function):
@@ -833,46 +947,48 @@ class _AttnHalf(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias, scale,
-                num_heads):
+                num_heads, tp):
         ctx.save_for_backward(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias)
-        ctx.p, ctx.dims = p, (scale, num_heads)
+        ctx.p, ctx.dims, ctx.tp = p, (scale, num_heads), tp
         return _attn_half_forward(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj,
-                                  bias, scale, num_heads)
+                                  bias, scale, num_heads, tp)
 
     @staticmethod
     def backward(ctx, g):
         x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias = ctx.saved_tensors
         (dx, dln1s, dln1b, dwqkv, dbqkv, dwproj, dbproj,
          dbias) = ctx.p.swin_attn_half_bwd(x, ln1s, ln1b, wqkv, bqkv, wproj,
-                                           bias, g, *ctx.dims)
+                                           bias, g, *ctx.dims,
+                                           **_tp_kw(ctx.tp))
         return (None, dx, dln1s, dln1b, _cast(dwqkv, wqkv), _cast(dbqkv, bqkv),
                 _cast(dwproj, wproj), _cast(dbproj, bproj),
-                dbias if ctx.needs_input_grad[8] else None, None, None)
+                dbias if ctx.needs_input_grad[8] else None, None, None, None)
 
 
 def _swin_attn_half(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias,
-                    scale: float, num_heads: int):
+                    scale: float, num_heads: int, *, tp=None):
     if _needs_grad(x, ln1s, ln1b, wqkv, bqkv, wproj, bproj, bias):
         return _AttnHalf.apply(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj,
-                               bias, scale, num_heads)
+                               bias, scale, num_heads, tp)
     return _attn_half_forward(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bproj,
-                              bias, scale, num_heads)
+                              bias, scale, num_heads, tp)
 
 
 def _swin_attn_half_bwd(p, x, ln1s, ln1b, wqkv, bqkv, wproj, bias, g,
-                        scale: float, num_heads: int):
+                        scale: float, num_heads: int, *, tp=None):
     BW, N, C = x.shape
     x2 = x.reshape(BW * N, C).contiguous()
     h = p.layernorm(x2, ln1s, ln1b, SWIN_LN_EPS)          # recompute
     qkv = p.gemm(h, wqkv, bqkv)
-    ctx2 = p.attention_core(qkv.view(BW, N, 3 * C), bias, scale,
-                            num_heads).view(BW * N, C)
+    Cl = qkv.shape[1] // 3                  # this rank's columns under TP
+    ctx2 = p.attention_core(qkv.view(BW, N, 3 * Cl), bias, scale,
+                            num_heads).view(BW * N, Cl)
     g2 = g.reshape(BW * N, C).to(x.dtype).contiguous()
     dwproj, dbproj, dctx = _proj_bwd(p, ctx2, g2, wproj)
     dqkv, dbias = p.attention_core_bwd(qkv, dctx, bias, N, scale, num_heads)
     # the residual's cotangent g enters LN1's VJP as its incoming residual
-    dx, dwqkv, dbqkv, dln1s, dln1b = p.swin_qkv_tail_bwd(x2, dqkv, g2, wqkv,
-                                                         ln1s, ln1b)
+    dx, dwqkv, dbqkv, dln1s, dln1b = p.swin_qkv_tail_bwd(
+        x2, dqkv, g2, wqkv, ln1s, ln1b, **_tp_kw(tp))
     return (dx.view(BW, N, C), dln1s, dln1b, dwqkv, dbqkv, dwproj, dbproj,
             dbias)
 

@@ -228,6 +228,22 @@ def dropout(x: torch.Tensor, masks, rate: float) -> torch.Tensor:
     return drop_path(x, masks.draw(1.0 - rate, x.shape, x.device), rate)
 
 
+def dropout_part(x: torch.Tensor, masks, rate: float, tp,
+                 dim: int = -1) -> torch.Tensor:
+    """:func:`dropout` of a TP rank's block of a tensor split over ``tp``'s
+    model group along ``dim`` (its heads, or its columns of a
+    column-parallel product): the mask drawn at the whole tensor's shape,
+    as one device draws it, and the rank's block of it kept. ``tp`` None is
+    :func:`dropout`."""
+    if tp is None or masks is None or rate <= 0.0:
+        return dropout(x, masks, rate)
+    shape = list(x.shape)
+    n = shape[dim]
+    shape[dim] = n * tp.size
+    mask = masks.draw(1.0 - rate, shape, x.device).narrow(dim, tp.rank * n, n)
+    return drop_path(x, mask, rate)
+
+
 def cross_entropy_ignore_index(logits: torch.Tensor, labels: torch.Tensor,
                                ignore_index: int = -100, group=None,
                                vocab_group=None) -> torch.Tensor:

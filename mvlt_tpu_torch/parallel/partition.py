@@ -15,17 +15,23 @@ port's fused q / k / v ``qkv`` (3H, H) stands for three kernels, each
 (``parts = 3``), not a contiguous third of the rows, so that a rank holds
 q, k and v of its own heads.
 
-What the port splits in this slice (:func:`held`): the fusion encoder and
-the heads. The backbone's rule-matched tensors (Swin / ViT ``qkv``,
-``proj``, ``fc1``, ``fc2``) are held replicated: ``param_shardings`` still
-gives JAX's spec for them.
+What the port splits (:func:`port_shardings`): every tensor that JAX's rules
+split, except a Swin or ViT block's attention tensors (``qkv``, ``proj`` /
+``out``) where mp does not divide the block's global head count
+(:func:`held`): that attention half runs whole on every rank, its MLP split.
+At flagship geometry that holds Swin-S stage 1 (3 heads) at mp = 2 and
+stages 1-2 (3, 6 heads) at mp = 4, and no block of Swin-B or ViT-B/16.
+Swin's qkv (3C, C) is one flax kernel (C, 3C), whose contiguous column
+half JAX places on a rank; the port cuts it head-aligned (``parts = 3``),
+as the fused qkv of the fusion encoder and of ViT: the rank holds q, k and
+v of its own heads, as many elements as JAX's shard.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -84,10 +90,11 @@ def partition_spec_for_path(path: str, ndim: int, shape=None,
 # the flax (in, out) kernel transposed: a column split (None, 'model') cuts
 # port dimension 0, a row split ('model', None) dimension 1. The fused q / k
 # / v of the fusion encoder and of ViT stands for three flax kernels, each
-# split alike (parts = 3); Swin's qkv is one flax kernel (parts = 1). ViT's
+# split alike (parts = 3). ViT's
 # flax attention kernels are (H, heads, d) and (heads, d, H), split on heads:
 # the port's fallback tests heads * d, which agrees wherever mp divides the
-# heads (ViT-B/16's 12 at mp = 2 and 4).
+# heads (ViT-B/16's 12 at mp = 2 and 4). Swin's qkv is one flax kernel; the
+# port splits it head-aligned (parts = 3) all the same (module docstring).
 # tests/test_torch_parallel.py holds every leaf's spec to ``_RULES``.
 _COL, _ROW, _VEC = (None, "model"), ("model", None), ("model",)
 _PORT_RULES: Tuple[Tuple[str, tuple, int, int], ...] = (
@@ -106,8 +113,8 @@ _PORT_RULES: Tuple[Tuple[str, tuple, int, int], ...] = (
     (r"conv\.backbone\.blocks\.\d+\.mlp_fc1\.bias", _VEC, 0, 1),
     (r"conv\.backbone\.blocks\.\d+\.mlp_fc2\.weight", _ROW, 1, 1),
     # Swin blocks
-    (r"conv\.backbone\.stages\.\d+\.\d+\.qkv\.weight", _COL, 0, 1),
-    (r"conv\.backbone\.stages\.\d+\.\d+\.qkv\.bias", _VEC, 0, 1),
+    (r"conv\.backbone\.stages\.\d+\.\d+\.qkv\.weight", _COL, 0, 3),
+    (r"conv\.backbone\.stages\.\d+\.\d+\.qkv\.bias", _VEC, 0, 3),
     (r"conv\.backbone\.stages\.\d+\.\d+\.proj\.weight", _ROW, 1, 1),
     (r"conv\.backbone\.stages\.\d+\.\d+\.mlp\.fc1\.weight", _COL, 0, 1),
     (r"conv\.backbone\.stages\.\d+\.\d+\.mlp\.fc1\.bias", _VEC, 0, 1),
@@ -151,10 +158,46 @@ def param_shardings(model: torch.nn.Module, mesh) -> Dict[str, Shard]:
             for name, p in model.named_parameters()}
 
 
-def held(name: str) -> bool:
-    """Whether the port splits ``name`` when its rule says so: the fusion
-    encoder and the heads; the backbone is held replicated in this slice."""
-    return not name.startswith("conv.")
+# a Swin / ViT block's attention tensors: the block's module name, then the
+# tensor
+_BLOCK_ATTENTION = re.compile(
+    r"(conv\.backbone\.(?:stages\.\d+\.\d+|blocks\.\d+))\."
+    r"(?:qkv|proj|out)\.(?:weight|bias)")
+
+
+def held(name: str, num_heads: Optional[int], mp: int) -> bool:
+    """Whether the port holds ``name`` replicated though JAX's rule splits
+    it: a Swin or ViT block's attention tensor (``qkv``, ``proj`` / ``out``)
+    whose block has ``num_heads`` global heads that ``mp`` does not divide,
+    so that its heads cannot be dealt out whole."""
+    return (mp > 1 and num_heads is not None and num_heads % mp != 0
+            and _BLOCK_ATTENTION.fullmatch(name) is not None)
+
+
+def block_heads(model: torch.nn.Module) -> Dict[str, int]:
+    """``{block module name: global heads}`` of the backbone's Swin / ViT
+    blocks (every module under ``conv.`` with an int ``num_heads``)."""
+    return {n: m.num_heads for n, m in model.named_modules()
+            if n.startswith("conv.") and isinstance(
+                getattr(m, "num_heads", None), int)}
+
+
+def port_shardings(model: torch.nn.Module, mp: int
+                   ) -> Tuple[Dict[str, Shard], List[str]]:
+    """(``{name: Shard}`` of the tensors the port splits over ``mp`` model
+    ranks, the names it holds replicated though JAX's rules split them:
+    :func:`held`)."""
+    heads = block_heads(model)
+    split, kept = {}, []
+    for name, shard in param_shardings(model, mp).items():
+        if shard.dim is None:
+            continue
+        m = _BLOCK_ATTENTION.fullmatch(name)
+        if held(name, heads.get(m.group(1)) if m else None, mp):
+            kept.append(name)
+        else:
+            split[name] = shard
+    return split, kept
 
 
 def local_shard(t: torch.Tensor, shard: Shard, rank: int,

@@ -3,14 +3,16 @@ GSPMD's propagation do for JAX (``steps.py:178-209``).
 
 :func:`apply_mesh_` broadcasts world rank 0's parameters and buffers (one
 seeded init, not one per rank), keeps each model rank's slice of the
-tensors that the rules split and the port holds split
-(:func:`~mvlt_tpu_torch.parallel.partition.held`: the fusion encoder and
-the heads), and tells the modules: the fusion layers run their TP form on
-their heads, a split MLM decoder its vocab-parallel loss, a split word
-embedding its masked lookup, and the BatchNorms their global-batch moments
-over the data group. :func:`full_state_dict` and :func:`load_full_state_dict_`
-move between the local shards and the tensors a one-device model holds (the
-checkpoint's form).
+tensors that the rules split and the port splits
+(:func:`~mvlt_tpu_torch.parallel.partition.port_shardings`: all of them but
+the attention halves of backbone blocks whose heads mp does not divide),
+and tells the modules: the fusion layers and the Swin / ViT blocks run
+their TP form on their heads (a block whose attention half is held runs it
+whole and splits its MLP), a split MLM decoder its vocab-parallel loss, a
+split word embedding its masked lookup, and the BatchNorms their
+global-batch moments over the data group. :func:`full_state_dict` and
+:func:`load_full_state_dict_` move between the local shards and the
+tensors a one-device model holds (the checkpoint's form).
 """
 
 from __future__ import annotations
@@ -55,21 +57,16 @@ def apply_mesh_(model: torch.nn.Module, mesh, logger=None) -> torch.nn.Module:
     this rank's slice, the modules told of their groups. A one-device mesh
     only records itself. Every rank calls it."""
     from mvlt_tpu_torch.models.backbones.resnet import BatchNorm
+    from mvlt_tpu_torch.models.backbones.swin import SwinBlock
+    from mvlt_tpu_torch.models.backbones.vit import ViTBlock
     from mvlt_tpu_torch.models.fusion import EncoderLayer, FusionEncoder
     from mvlt_tpu_torch.models.heads import MLMHead
     if getattr(model, "mesh", None) is not None:
         raise ValueError("the model is already on a mesh")
     comm.broadcast_tensors_(list(model.parameters()) + list(model.buffers()))
     split: Dict[str, Shard] = {}
-    unheld = 0
     if mesh.mp > 1:
-        for name, shard in partition.param_shardings(model, mesh).items():
-            if shard.dim is None:
-                continue
-            if not partition.held(name):
-                unheld += 1
-                continue
-            split[name] = shard
+        split, kept = partition.port_shardings(model, mesh.mp)
         params = dict(model.named_parameters())
         with torch.no_grad():
             for name, shard in split.items():
@@ -83,16 +80,22 @@ def apply_mesh_(model: torch.nn.Module, mesh, logger=None) -> torch.nn.Module:
                     raise ValueError(f"{m.num_heads} heads do not split over "
                                      f"model_parallel={mesh.mp}")
                 m.tp = tp
+            elif isinstance(m, (SwinBlock, ViTBlock)):
+                fc1 = "mlp.fc1" if isinstance(m, SwinBlock) else "mlp_fc1"
+                attn = f"{mname}.qkv.weight" in split
+                mlp = f"{mname}.{fc1}.weight" in split
+                if attn or mlp:
+                    m.set_tp(tp if attn else None, tp if mlp else None)
             elif isinstance(m, MLMHead) and f"{mname}.decoder.weight" in split:
                 m.vocab_tp = tp
             elif (isinstance(m, FusionEncoder)
                   and f"{mname}.word_embeddings" in split):
                 m.vocab_tp = tp
-        if unheld:
+        if kept:
             (logger or _log).info(
-                "model_parallel=%d: %d backbone tensors that JAX's rules "
-                "split are held replicated (the backbone's TP is not in "
-                "the port)", mesh.mp, unheld)
+                "model_parallel=%d: %d attention tensors of backbone blocks "
+                "whose heads %d does not divide are held replicated: %s",
+                mesh.mp, len(kept), mesh.mp, ", ".join(kept))
     if mesh.dp > 1:
         for m in model.modules():
             if isinstance(m, BatchNorm):

@@ -7,9 +7,10 @@ It replaces the reference's HF ``BertTokenizer`` over
 ``dataset/bert-base-uncased/vocab.txt`` with the added ``[END]`` eos token
 (reference ``run_vqa.py:205-206``) and reproduces bert-base-uncased:
 lowercasing, accent stripping, punctuation splitting, CJK isolation, greedy
-longest-match WordPiece, and whole special tokens. The JAX package's C++
-fast path is not ported (ROADMAP.md queue A, "Host modules"): JAX falls
-back to this path without its library, and both give the same ids.
+longest-match WordPiece, and whole special tokens. ``encode`` takes the
+C++ fast path (:mod:`mvlt_tpu_torch.text.native`, built at first use) where
+JAX's does: ASCII text whose special tokens stand as whole words, up to
+4,096 ids; elsewhere this pure-Python path, which gives the same ids.
 """
 
 from __future__ import annotations
@@ -233,6 +234,10 @@ class WordPieceTokenizer:
         self.all_special_tokens = [t for t in SPECIAL_TOKENS if t in self.vocab]
         self.basic = BasicTokenizer(do_lower_case, never_split=self.all_special_tokens)
         self.max_input_chars_per_word = 100
+        # the native fast path (csrc/host/tokenizer.cc), ASCII only; a
+        # failed build raises
+        from mvlt_tpu_torch.text.native import NativeWordPiece
+        self._native = NativeWordPiece(vocab_path, do_lower_case, eos_token)
 
     # -- special token ids ------------------------------------------------
     @property
@@ -325,7 +330,32 @@ class WordPieceTokenizer:
             return self.ids_to_tokens.get(ids, self.unk_token)
         return [self.ids_to_tokens.get(int(i), self.unk_token) for i in ids]
 
+    def _native_safe(self, text: str) -> bool:
+        """The C++ fast path only matches special tokens as whole
+        whitespace-delimited words (the Python path splits them
+        anywhere); fall back when one is embedded without boundaries."""
+        if not text.isascii():
+            return False
+        if "[" in text:
+            for sp in self.all_special_tokens:
+                start = text.find(sp)
+                while start != -1:
+                    end = start + len(sp)
+                    left_ok = start == 0 or text[start - 1].isspace()
+                    right_ok = end == len(text) or text[end].isspace()
+                    if not (left_ok and right_ok):
+                        return False
+                    start = text.find(sp, end)
+        return True
+
     def encode(self, text: str) -> List[int]:
+        if self._native_safe(text):
+            try:
+                return self._native.encode(text)
+            except ValueError:
+                # the native output buffer caps at 4,096 ids: the Python
+                # path takes longer text
+                pass
         return self.convert_tokens_to_ids(self.tokenize(text))
 
     def decode_tokens(self, tokens: Iterable[str]) -> str:

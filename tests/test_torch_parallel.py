@@ -6,13 +6,15 @@ devices; for every leaf of the tiny and the flagship-geometry task models
 tensor it stands for equals JAX's ``partition_spec_for_path``; the fused
 qkv's split gives each rank q, k and v of the heads JAX places there; the
 rows a data rank holds are the block ``P('data')`` places on it, retrieval's
-``cat(pos, neg)`` included; what the port holds replicated in this slice;
+``cat(pos, neg)`` included; which backbone tensors the port splits and
+which attention halves it holds whole;
 the loader's per-rank rows; the flagship-geometry lowering; the in-kernel
 dropout draw of a rank's heads; and the new package's imports.
 """
 
 import dataclasses
 import logging
+import re
 import subprocess
 import sys
 import textwrap
@@ -223,33 +225,84 @@ def test_fused_qkv_split_gives_each_rank_jax_heads(mp):
         assert np.array_equal(sb.numpy(), want_b)
 
 
-def test_backbone_held_replicated_under_tp(caplog):
-    """A model placed on a (1, 2) mesh (no process group: the collectives
-    are skipped) splits the fusion encoder and the MLM decoders and holds
-    every backbone tensor whole, though JAX's rules split the Swin blocks'
-    qkv / proj / fc1 / fc2; it logs one line saying so."""
-    cfg = pcfg.MVLTConfig.from_json(jflagship.tiny_pretrain_config().to_json())
-    model = pheads.PretrainModel(cfg, dtype=torch.float32, device="cpu")
+def _held_configs():
+    """(name, port config): the tiny pretrain config and the flagship
+    geometry on Swin-S, Swin-B and ViT-B/16."""
+    tiny = pcfg.MVLTConfig.from_json(jflagship.tiny_pretrain_config().to_json())
+    swin_s = flagship.flagship_swin_pretrain_config()
+    swin_b = dataclasses.replace(flagship.flagship_swin_base_vqa_config(),
+                                 itm_task=True)
+    vit = flagship.flagship_vit_pretrain_config()
+    return {"tiny": tiny, "swin_s": swin_s, "swin_b": swin_b, "vit_b": vit}
+
+
+# the global heads of each stage (Swin) or block (ViT) whose attention half
+# the port holds whole, by config and mp: those mp does not divide
+_HELD_STAGES = {("tiny", 2): (), ("tiny", 4): (0,),
+                ("swin_s", 2): (0,), ("swin_s", 4): (0, 1),
+                ("swin_b", 2): (), ("swin_b", 4): (),
+                ("vit_b", 2): (), ("vit_b", 4): ()}
+
+
+@pytest.mark.parametrize("config,mp", sorted(_HELD_STAGES))
+def test_backbone_held_replicated_under_tp(config, mp, caplog):
+    """A model placed on a (1, mp) mesh (no process group: the collectives
+    are skipped; the flagship geometries on ``meta``) splits every backbone
+    tensor that JAX's rules split, Swin's qkv head-aligned, except the
+    attention halves (qkv, proj / out) of the blocks whose heads mp does
+    not divide: Swin-S stage 1 (3 heads) at mp = 2, stages 1-2 (3, 6) at
+    mp = 4, the tiny config's stage 1 (2 heads) at mp = 4, no block of
+    Swin-B or ViT-B/16. Those are held whole, their MLP split, and the log
+    line names them; the blocks run on mp-th of their heads elsewhere."""
+    cfg = _held_configs()[config]
+    device = "cpu" if config == "tiny" else "meta"
+    model = pheads.PretrainModel(cfg, dtype=torch.float32, device=device)
     full = {n: p.shape for n, p in model.named_parameters()}
-    rules = partition.param_shardings(model, 2)
+    rules = partition.param_shardings(model, mp)
     with caplog.at_level(logging.INFO, logger="mvlt_tpu_torch.parallel"):
-        shard.apply_mesh_(model, pmesh.Mesh((1, 2), 0, 1))
-    backbone = [n for n, s in rules.items()
-                if n.startswith("conv.") and s.dim is not None]
-    assert backbone and any("held replicated" in r.message
-                            for r in caplog.records)
+        shard.apply_mesh_(model, pmesh.Mesh((1, mp), 0, 1))
+    heads = (cfg.vit.num_heads,) * cfg.vit.num_layers if cfg.conv == "vit" \
+        else cfg.swin.num_heads
+    held_stages = _HELD_STAGES[config, mp]
+    assert [i for i, h in enumerate(heads) if h % mp] == list(held_stages)
+    attn = re.compile(r"conv\.backbone\.(stages\.(\d+)\.\d+|blocks\.\d+)\."
+                      r"(qkv|proj|out)\.(weight|bias)")
+    held = []
     for n, p in model.named_parameters():
         s = rules[n]
-        if n.startswith("conv.") or s.dim is None:
+        m = attn.fullmatch(n)
+        whole = s.dim is None or (m is not None and m.group(2) is not None
+                                  and int(m.group(2)) in held_stages)
+        if whole:
             assert p.shape == full[n], n
+            if s.dim is not None:
+                held.append(n)
         else:
             want = list(full[n])
-            want[s.dim] //= 2
+            want[s.dim] //= mp
             assert list(p.shape) == want, n
-    assert all(layer.tp is not None and layer._heads() == 2
-               for layer in model.fusion.layers)
-    assert model.mlm_head_bidir.vocab_tp is not None
-    assert model.fusion.vocab_tp is None        # 513 rows: replicated
+            assert n in shard.split_shardings(model), n
+    backbone = [n for n in shard.split_shardings(model)
+                if n.startswith("conv.")]
+    assert {n.rsplit(".", 1)[0].rsplit(".", 1)[1] for n in backbone} >= (
+        {"qkv", "out", "mlp_fc1", "mlp_fc2"} if cfg.conv == "vit"
+        else {"qkv", "proj", "fc1", "fc2"})
+    logged = [r.message for r in caplog.records if "held replicated" in
+              r.message]
+    if held:
+        assert len(logged) == 1 and all(n in logged[0] for n in held)
+        assert len(held) == 3 * sum(cfg.swin.depths[i] for i in held_stages)
+    else:
+        assert not logged
+    blocks = (model.conv.backbone.blocks if cfg.conv == "vit" else
+              [b for stage in model.conv.backbone.stages for b in stage])
+    depth = [0] * cfg.vit.num_layers if cfg.conv == "vit" else [
+        i for i, d in enumerate(cfg.swin.depths) for _ in range(d)]
+    for i, b in zip(depth, blocks):
+        assert b.tp_mlp is not None
+        assert (b.tp_attn is None) == (cfg.conv != "vit"
+                                       and i in held_stages)
+    assert all(layer.tp is not None for layer in model.fusion.layers)
     assert sum(shard.split_flags(model)) == len(shard.split_shardings(model))
 
 
@@ -350,9 +403,12 @@ def test_loader_gives_an_empty_block_zero_rows(n, dp, num_workers):
 def test_lower_flagship_multichip_checks_every_rule():
     """The flagship-geometry pretrain model on ``meta``: at mp = 2 the 12
     layers' six split tensors and the two MLM decoders' weight and bias
-    (76); at mp = 4 the decoders' 30,522 columns stay replicated (72)."""
-    assert flagship.lower_flagship_multichip(4) == {1: 0, 2: 76}
-    assert flagship.lower_flagship_multichip(4, mps=[4]) == {4: 72}
+    (76), and the Swin-S blocks' six (qkv weight and bias, proj, fc1 weight
+    and bias, fc2) in 24 blocks, less stage 1's three attention tensors in
+    its 2 blocks (138); at mp = 4 the decoders' 30,522 columns stay
+    replicated (72) and stages 1-2 hold their attention (132)."""
+    assert flagship.lower_flagship_multichip(4) == {1: 0, 2: 76 + 138}
+    assert flagship.lower_flagship_multichip(4, mps=[4]) == {4: 72 + 132}
     with pytest.raises(ValueError, match="does not divide"):
         flagship.lower_flagship_multichip(4, mps=[3])
 

@@ -148,8 +148,9 @@ def test_port_imports_nothing_of_mvlt_tpu():
     and caption metrics, tasks, checkpoints, logging, the backbone
     bootstrap), the ViT and linear-patch backbones, the Swin backbone on
     each of its ``attn_impl`` routes with its dropout modules and the
-    backward rules of rows 1, 6 and 7 (``ops/blocks.py``) and ``chip_smoke``
-    leaves no ``mvlt_tpu`` /
+    backward rules of rows 1, 6 and 7 (``ops/blocks.py``), the native
+    tokenizers (built and run), the preprocessing module and its CLI, and
+    ``chip_smoke`` leaves no ``mvlt_tpu`` /
     ``mvlt_tpu.*`` module (and no JAX, flax, optax or orbax) in
     ``sys.modules``: the port keeps its own copies of host modules."""
     code = textwrap.dedent("""
@@ -193,6 +194,12 @@ def test_port_imports_nothing_of_mvlt_tpu():
         run_report_generation.parse_args(["--dataset", "synthetic"])
         run_retrieval.parse_args(["--synthetic"])
         meteor.corpus_meteor({0: ["a b"]}, {0: ["a c"]})
+        from mvlt_tpu_torch.text import native
+        from mvlt_tpu_torch.data import preprocess
+        from mvlt_tpu_torch import preprocess_data
+        preprocess_data.build_parser().parse_args(["u8-cache"])
+        assert ptb.ptb_tokenize("a (b)") == "a -lrb- b -rrb-"
+        assert tokenizer.WordPieceTokenizer()._native is not None
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("mvlt_tpu", "jax", "jaxlib", "flax",
