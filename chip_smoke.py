@@ -10,9 +10,13 @@ step's shapes only; ``--caption`` / ``--retrieval`` / ``--backbones`` /
 / 13 / 14 / 15 / 16 / 17 / 18 / 20 / 21 only; ``--loader-pace``:
 phases 1-2 and
 phases 13-16 with the drivers' loader-pace loops, which the default run
-leaves out; with a driver's flag, that phase alone with its loops). It
-imports nothing of JAX and nothing of the JAX package. Phases, each of
-which raises on failure:
+leaves out; with a driver's flag, that phase alone with its loops;
+``--mid-n``: phases 1-2, ptxas's and the SASS's account of K2 / K4's
+middle form, its plans, the middle-length K2 / K4 cases in every form that
+takes them (``mid_form_kernel_checks``) and the caption and ViT-B/16
+pretrain steps with their K2 / K4 launch lengths). It imports nothing of
+JAX and nothing of the JAX package. Phases, each of which raises on
+failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the port's CUDA kernels from ``mvlt_tpu_torch/csrc`` with
@@ -26,9 +30,10 @@ which raises on failure:
    K5's registers, stack and spill bytes per instance, K5's atomic count
    (0: its sums run in a fixed order) and their wrappers' host time beside
    ``torch.sum``'s and ``F.layer_norm``'s; K3's and K5's plans in C
-   against the Python ones the wrappers allocate from, over a sweep (these
-   reports print after phase 3's checks: their cuobjdump runs start in the
-   background after the build and run beside the checks);
+   against the Python ones the wrappers allocate from, over a sweep (the
+   plans print after phase 3's checks, the reports after phase 21: their
+   cuobjdump runs start in the background after the build and run beside
+   the checks and phases);
 3. kernel checks: hold K1 ``gemm``, K2 ``biased_attention``, K3
    ``layernorm`` and the six forward counterparts of
    ``mvlt_tpu_torch.ops.blocks`` against their plain PyTorch versions on the
@@ -765,6 +770,12 @@ LONG_FORM_N = (1 + 196 + 1 + 100, 1 + 196 + 1 + CAPTION_TEXT,
                1 + 2 * 196 + 1 + IU_XRAY_TEXT)
 # the first N of the long form (K2 / K4's register form stops at 288)
 LONG_FORM_FIRST = 289
+# the fusion lengths of the middle form (161 <= N <= 288): the two-view
+# caption / retrieval steps' 180, the caption step's 201, ViT-B/16 and the
+# linear patch at BERT's 23 and RGC's 80 text tokens (221, 278); the
+# ``--mid-n`` cases time each in every form that takes it
+MID_FORM_N = (1 + 2 * 49 + 1 + IU_XRAY_TEXT, 1 + 49 + 1 + CAPTION_TEXT,
+              1 + 196 + 1 + 23, 1 + 196 + 1 + PRETRAIN_TEXT)
 # CUDA-event calls a long-form case is timed over (its plain version takes
 # up to some hundred ms a call at N = 474 with the Philox mask), and the
 # steps of each timed turn of a long-form path
@@ -919,6 +930,14 @@ KERNEL_SOURCES = {
                                    "mvlt_tpu/ops/pallas_attn.py:2156"),
     "biased_attention_bwd_long_form": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
                                        "mvlt_tpu/ops/pallas_attn.py:2413"),
+    # K2 and K4's middle form at 160 < N <= 288 (`attention_mid_kernel`,
+    # `attention_bwd_dq_mid_kernel` and the long form's second pass): the
+    # fused encoder's attention half and its backward at S = 180 / 201 /
+    # 221 / 278; counted where the wrappers launch it (``mid_launches``)
+    "biased_attention_mid": ("mvlt_tpu_torch/csrc/attention.cu",
+                             "mvlt_tpu/ops/pallas_attn.py:2156"),
+    "biased_attention_bwd_mid": ("mvlt_tpu_torch/csrc/attention_bwd.cu",
+                                 "mvlt_tpu/ops/pallas_attn.py:2413"),
     # K1's split-K weight gradients: the sums that _swin_mlp_bwd_kernel
     # carries across its sequential grid (:1689-1695)
     "gemm_splitk": ("mvlt_tpu_torch/csrc/gemm.cu",
@@ -927,7 +946,8 @@ KERNEL_SOURCES = {
 # the modes' counts on the kernel wrappers (``kernels.MODE_COUNTS``)
 MODE_ROWS = {"splitk_launches": "splitk",
              "adrop_launches": "adrop", "save_p_launches": "save_p",
-             "stored_p_launches": "stored_p", "heads_launches": "heads"}
+             "stored_p_launches": "stored_p", "heads_launches": "heads",
+             "mid_launches": "mid"}
 # the modes' counts on the counterparts (``blocks.COUNTS``)
 COUNTERPART_MODES = {
     "swin_full_block": {"shift_launches": "shift",
@@ -1495,8 +1515,8 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
 
     # the wrappers' shared-memory reckoning is the compiled one: K2's and
-    # K4's tile plans for every N through the register form's cap and well
-    # into the long form, and at the long form's cap and one past it (-1:
+    # K4's tile plans in each form for every N through the register form's
+    # cap and well into the long form, and at the long form's cap and one past it (-1:
     # not taken), at every head dim the plans take and one they refuse, K4
     # in both modes (pattern mode: -1 past N = 288) and with its scratch
     libs = K.build()
@@ -1505,14 +1525,16 @@ def pretrain_kernel_checks(chk: Checker, dev) -> None:
              K.ATTENTION_LONG_MAX_N + 1]
     for Dh in (16, 24, 32, 48, 64):
         for n in sweep:
-            for amask in (False, True):
-                assert K.attention_smem_bytes(n, Dh, amask) == \
-                    libs["attention"].mvlt_attention_smem(n, Dh, amask), \
-                    (n, Dh, amask)
-            for flags in range(4):       # K4: pattern, amask
-                assert K.attention_bwd_smem_bytes(
-                    n, Dh, bool(flags & 1), bool(flags & 2)) == \
-                    bwd.mvlt_attention_bwd_smem(n, Dh, flags), (n, Dh, flags)
+            for i, form in enumerate(K.ATTENTION_FORMS):   # every form
+                for amask in (False, True):
+                    assert K.attention_smem_bytes(n, Dh, amask, form) == \
+                        libs["attention"].mvlt_attention_smem(
+                            n, Dh, amask, i), (n, Dh, amask, form)
+                for flags in range(4):       # K4: pattern, amask
+                    assert K.attention_bwd_smem_bytes(
+                        n, Dh, bool(flags & 1), bool(flags & 2), form) == \
+                        bwd.mvlt_attention_bwd_smem(n, Dh, flags, i), \
+                        (n, Dh, flags, form)
             try:
                 words = K.attention_bwd_plan(n, Dh).scratch_words
             except ValueError:
@@ -2680,6 +2702,16 @@ def _attention_inputs(inp, B: int, S: int, nH: int, C: int, image: int,
     return qkv, ctx, dctx, kb, qb, amask, qkv3, d4
 
 
+def mid_also(S: int, backward: bool, kw: dict) -> tuple:
+    """The middle form's row (``biased_attention_mid`` or ``_bwd_mid``),
+    under which a check also keeps its numbers when the plan runs the call
+    (K4 with ``backward``; ``kw`` its keywords) in the middle form."""
+    from mvlt_tpu_torch.ops import kernels as K
+    form = K.attention_form(S, backward=backward, amask="amask" in kw)
+    name = "biased_attention_bwd_mid" if backward else "biased_attention_mid"
+    return (name,) if form == "middle" else ()
+
+
 def long_attention_checks(chk: Checker, dev) -> None:
     """K2 and K4 at the sequence lengths their tilings opened (ROADMAP A9):
     a 196-token image (ViT-B/16 or the linear patch) with BERT text of 23
@@ -2712,7 +2744,8 @@ def long_attention_checks(chk: Checker, dev) -> None:
                  KERNEL_BAR,
                  library_fn=lambda: lib_attention(
                      qkv, B, S, nH, kb.to(bf)[:, None, None, :], sc),
-                 flops=flops, nbytes=nbytes(qkv, kb, ctx), graph=True)
+                 flops=flops, nbytes=nbytes(qkv, kb, ctx), graph=True,
+                 also=mid_also(S, False, {}))
         chk.case("biased_attention_long_n",
                  lambda: K.biased_attention(qkv, nH, S, sc, qbias=qb,
                                             amask=amask),
@@ -2721,7 +2754,8 @@ def long_attention_checks(chk: Checker, dev) -> None:
                  KERNEL_BAR,
                  library_fn=lambda: lib_masked_attention(
                      qkv, B, S, nH, qb.to(bf)[:, None], amask, sc),
-                 flops=flops, nbytes=nbytes(qkv, qb, amask, ctx), graph=True)
+                 flops=flops, nbytes=nbytes(qkv, qb, amask, ctx), graph=True,
+                 also=mid_also(S, False, {"amask": amask}))
         chk.case("biased_attention_long_n",
                  lambda: K.biased_attention(qkv, nH, S, sc, key_bias=kb,
                                             adrop=(seed, rate)),
@@ -2730,7 +2764,8 @@ def long_attention_checks(chk: Checker, dev) -> None:
                  KERNEL_BAR,
                  library_fn=lambda: lib_dropout_attention(
                      qkv, B, S, nH, kb.to(bf)[:, None, None, :], sc, rate),
-                 flops=flops, nbytes=nbytes(qkv, kb, seed, ctx), graph=True)
+                 flops=flops, nbytes=nbytes(qkv, kb, seed, ctx), graph=True,
+                 also=mid_also(S, False, {}))
         _, mask = K.biased_attention(qkv, nH, S, sc, key_bias=kb,
                                      adrop=(seed, rate), save_mask=True)
         if not torch.equal(mask, K.adrop_mask_plain(seed, B, nH, S, rate)):
@@ -2761,7 +2796,8 @@ def long_attention_checks(chk: Checker, dev) -> None:
                      KERNEL_BAR, floor=1e-6, graph=True,
                      library_fn=library_backward(fwd, qkv3, d4),
                      flops=10.0 * B * nH * S * S * Dh,
-                     nbytes=nbytes(qkv, dctx, *extra, qkv))
+                     nbytes=nbytes(qkv, dctx, *extra, qkv),
+                     also=mid_also(S, True, kw))
         del amask
 
 
@@ -3294,7 +3330,8 @@ def seq2seq_attention_checks(chk: Checker, dev, image_tokens: int,
              library_fn=lambda: lib_masked_attention(
                  qkv, B, S, nH, qb.to(bf)[:, None], amask, sc),
              flops=4.0 * B * nH * S * S * Dh,
-             nbytes=nbytes(qkv, qb, amask, ctx), graph=True)
+             nbytes=nbytes(qkv, qb, amask, ctx), graph=True,
+             also=mid_also(S, False, {"amask": amask}))
     dctx = inp.rnd(B * S, C)
     t = qkv.view(B, S, 3, nH, Dh).permute(2, 0, 3, 1, 4)
     qkv3 = (t[0].contiguous(), t[1].contiguous(), t[2].contiguous())
@@ -3311,7 +3348,8 @@ def seq2seq_attention_checks(chk: Checker, dev, image_tokens: int,
                      torch.matmul(q, k.transpose(-1, -2)) * sc + qbm, dim=-1)
                      * amask, v), qkv3, d4),
              flops=10.0 * B * nH * S * S * Dh,
-             nbytes=nbytes(qkv, dctx, qb, amask, qkv))
+             nbytes=nbytes(qkv, dctx, qb, amask, qkv),
+             also=mid_also(S, True, {"amask": amask}))
     del amask
 
 
@@ -3344,14 +3382,29 @@ def retrieval_kernel_checks(chk: Checker, dev) -> None:
              nbytes=nbytes(qkv, kb, ctx), graph=True)
 
 
+def _middle_inputs(inp, S: int = VIT_VQA_N, B: int = 8):
+    """Fused rows, dctx, a padded key bias, the seq2seq qbias (a 197-row
+    prefix) and a 0.9 dropout mask at a middle-form length (b8, 12 heads,
+    head dim 64) for the repeat checks."""
+    from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
+    C, nH = 768, 12
+    qkv, dctx = inp.rnd(B * S, 3 * C, std=0.5), inp.rnd(B * S, C)
+    kb = inp.key_bias([S - 13 * i for i in range(B)], S)
+    qb = mask_to_bias(seq2seq_fusion_mask(B, 197, S, inp.dev)).contiguous()
+    am = ((torch.rand(B, nH, S, S, generator=inp.gen) < 0.9)
+          .to(torch.bfloat16) / 0.9).to(inp.dev)
+    return qkv, dctx, kb, qb, am
+
+
 def attention_repeat_checks(dev) -> None:
     """Two calls of K2 on the same inputs are bitwise equal in every mode
     (no atomics, one fixed order of sums), at the pretrain step's fusion
-    shapes (b32, S = 131, 12 heads) and Swin-S stage 3 (b32, 128 windows
-    of 49, 12 heads); then K2 refuses what its plan or its 16-byte loader
-    cannot take (N = 46,341, past the long form's cap; N = 289 in pattern
-    mode; head dim 24; a misaligned view) with a ``ValueError`` before any
-    launch."""
+    shapes (b32, S = 131, 12 heads), Swin-S stage 3 (b32, 128 windows of
+    49, 12 heads) and, in the middle form, S = 221 (b8); then K2 refuses
+    what its plan or its 16-byte loader cannot take (N = 46,341, past the
+    long form's cap; N = 289 in pattern mode; head dim 24; a misaligned
+    view; the middle form with a window mode or at N = 160) with a
+    ``ValueError`` before any launch."""
     from mvlt_tpu_torch.ops import kernels as K
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
     inp = Inputs(dev, seed=7)
@@ -3386,6 +3439,16 @@ def attention_repeat_checks(dev) -> None:
         "head-major P = 4": lambda: K.biased_attention_heads(q, k, v, ss,
                                                              pats[4]),
     }
+    mq, _, mkb, mqb, mam = _middle_inputs(inp)
+    S2 = VIT_VQA_N
+    modes.update({
+        f"middle form S = {S2}, {name}": functools.partial(
+            K.biased_attention, mq, nH, S2, sc, form="middle", **kw)
+        for name, kw in (("key bias", dict(key_bias=mkb)),
+                         ("qbias + amask", dict(qbias=mqb, amask=mam)),
+                         ("key bias + amask", dict(key_bias=mkb, amask=mam)),
+                         ("in-kernel dropout, seq2seq", dict(
+                             qbias=mqb, adrop=(seed, 0.1), save_mask=True)))})
     for name, fn in modes.items():
         one, two = _tensors(fn()), _tensors(fn())
         torch.cuda.synchronize()
@@ -3405,7 +3468,12 @@ def attention_repeat_checks(dev) -> None:
             ("head dim 24", lambda: K.biased_attention(
                 inp.rnd(2 * 49, 3 * 72), 3, 49, 0.2)),
             ("a view 2 bytes off 16", lambda: K.biased_attention_heads(
-                *inp.rnd(3, 2, 2, 49, 33)[..., 1:].unbind(0), 0.17))):
+                *inp.rnd(3, 2, 2, 49, 33)[..., 1:].unbind(0), 0.17)),
+            ("the middle form with a pattern", lambda: K.biased_attention(
+                mq, nH, S2, sc, inp.rnd(1, nH, S2, S2, dtype=torch.float32),
+                form="middle")),
+            ("the middle form at N = 160", lambda: K.biased_attention(
+                inp.rnd(2 * 160, 3 * 128), 2, 160, 0.125, form="middle"))):
         try:
             fn()
         except ValueError as e:
@@ -3421,11 +3489,12 @@ def attention_repeat_checks(dev) -> None:
 def attention_bwd_repeat_checks(dev) -> None:
     """Two calls of K4 on the same inputs are bitwise equal in every mode
     (no atomics; the sums over heads, query tiles and groups in one fixed
-    order), at the pretrain step's fusion shapes (b32, S = 131, 12 heads)
-    and Swin-S stage 3 (b32: 128 windows of 49, 12 heads); then K4 refuses
-    what its plan or its 16-byte loader cannot take (N = 46,341; N = 289 in
-    pattern mode; head dim 24; a misaligned view) with a ``ValueError``
-    before any launch."""
+    order), at the pretrain step's fusion shapes (b32, S = 131, 12 heads),
+    Swin-S stage 3 (b32: 128 windows of 49, 12 heads) and, in the middle
+    form, S = 221 (b8); then K4 refuses what its plan or its 16-byte loader
+    cannot take (N = 46,341; N = 289 in pattern mode; head dim 24; a
+    misaligned view; the middle form with a pattern or stored p) with a
+    ``ValueError`` before any launch."""
     from mvlt_tpu_torch.ops import kernels as K
     from mvlt_tpu_torch.ops.masks import mask_to_bias, seq2seq_fusion_mask
     inp = Inputs(dev, seed=8)
@@ -3465,6 +3534,16 @@ def attention_bwd_repeat_checks(dev) -> None:
         "pattern P = 4, stored p": k4(wq, wd, nH, N, ss, pattern=pats[4],
                                       p=p4),
     }
+    mq, md, mkb, mqb, mam = _middle_inputs(inp)
+    S2 = VIT_VQA_N
+    modes.update({
+        f"middle form S = {S2}, {name}": k4(mq, md, nH, S2, sc, form="middle",
+                                            **kw)
+        for name, kw in (("key bias", dict(key_bias=mkb)),
+                         ("qbias + amask", dict(qbias=mqb, amask=mam)),
+                         ("key bias + amask", dict(key_bias=mkb, amask=mam)),
+                         ("regenerated dropout, seq2seq", dict(
+                             qbias=mqb, adrop=(seed, 0.1))))})
     for name, fn in modes.items():
         one, two = _tensors(fn()), _tensors(fn())
         torch.cuda.synchronize()
@@ -3487,7 +3566,13 @@ def attention_bwd_repeat_checks(dev) -> None:
                                3, 49, 0.2)),
             ("a view 2 bytes off 16", k4(
                 inp.rnd(2 * 49 * 3 * 64 + 1)[1:].view(2 * 49, 3 * 64),
-                inp.rnd(2 * 49, 64), 2, 49, 0.17))):
+                inp.rnd(2 * 49, 64), 2, 49, 0.17)),
+            ("the middle form with a pattern", k4(
+                mq, md, nH, S2, sc, form="middle",
+                pattern=inp.rnd(1, nH, S2, S2, dtype=torch.float32))),
+            ("the middle form with stored p", k4(
+                mq, md, nH, S2, sc, form="middle",
+                p=torch.zeros(8, nH, S2, S2, dtype=bf, device=dev)))):
         try:
             fn()
         except ValueError as e:
@@ -3524,14 +3609,19 @@ def k2_report(dev) -> None:
         regs.update({f"long x{cols}": (int(r), int(st)) for cols, r, st in
                      re.findall(r"attention_long_kernelILi(\d+)E\S*"
                                 r"\s+REG:(\d+) STACK:(\d+)", usage)})
+        regs.update({f"mid {nc}x{cols}": (int(r), int(st))
+                     for nc, cols, r, st in re.findall(
+                         r"attention_mid_kernelILi(\d+)ELi(\d+)E\S*"
+                         r"\s+REG:(\d+) STACK:(\d+)", usage)})
     except (OSError, subprocess.SubprocessError) as e:
         ops = regs = f"not read ({e})"
     print(f"K2 SASS ({tool.name} -sass {pathlib.Path(path).name}): {ops}",
           flush=True)
     print(f"K2 registers, stack bytes per (key chunks x head columns) "
           f"({tool.name} -res-usage): {regs}", flush=True)
-    for kernel, lines in K.ptxas_report("attention", "long_kernel").items():
-        print(f"ptxas -v, {kernel}: {' | '.join(lines)}", flush=True)
+    for frag in ("long_kernel", "mid_kernel"):
+        for kernel, lines in K.ptxas_report("attention", frag).items():
+            print(f"ptxas -v, {kernel}: {' | '.join(lines)}", flush=True)
     if isinstance(ops, dict) and ops["HGMMA"] <= 0:
         raise AssertionError("K2 was compiled without wgmma")
     G, N, C, nH = 2, 64, 128, 2
@@ -3587,6 +3677,10 @@ def k4_report(dev) -> None:
                      for what, cols, r, st in re.findall(
                          r"attention_bwd_(dq|dkv)_long_kernelILi(\d+)E\S*"
                          r"\s+REG:(\d+) STACK:(\d+)", usage)})
+        regs.update({f"dq mid {nc}x{cols}": (int(r), int(st))
+                     for nc, cols, r, st in re.findall(
+                         r"attention_bwd_dq_mid_kernelILi(\d+)ELi(\d+)E\S*"
+                         r"\s+REG:(\d+) STACK:(\d+)", usage)})
     except (OSError, subprocess.SubprocessError) as e:
         ops = regs = f"not read ({e})"
     print(f"K4 SASS ({tool.name} -sass {pathlib.Path(path).name}): {ops}",
@@ -3596,9 +3690,9 @@ def k4_report(dev) -> None:
     if isinstance(ops, dict) and not (ops["HGMMA"] > 0 and ops["HMMA"] == 0
                                       and ops["ATOM/RED"] == 0):
         raise AssertionError(f"K4 was not compiled to wgmma alone: {ops}")
-    for kernel, lines in K.ptxas_report("attention_bwd",
-                                        "long_kernel").items():
-        print(f"ptxas -v, {kernel}: {' | '.join(lines)}", flush=True)
+    for frag in ("long_kernel", "mid_kernel"):
+        for kernel, lines in K.ptxas_report("attention_bwd", frag).items():
+            print(f"ptxas -v, {kernel}: {' | '.join(lines)}", flush=True)
     G, C, nH = 2, 128, 2
     us = {}
     for N in (64, 298):
@@ -4189,6 +4283,231 @@ def long_form_main() -> int:
     return 0
 
 
+def sass_regions(lib: str, fragment: str) -> dict:
+    """For each kernel of library ``lib`` whose mangled name holds
+    ``fragment``: its SASS cut at the register hand-over (``USETMAXREG``,
+    the `setmaxnreg` of a warp-specialised block) into regions in address
+    order, each with the highest register it names and its local-memory
+    stores and loads (``STL`` / ``LDL``: spills). ``{kernel: [(marker,
+    highest register, STL, LDL), ...]}``."""
+    import re
+    from mvlt_tpu_torch.ops import kernels as K
+    sass = cuobjdump("-sass", K.build()[lib]._name)
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, _, body = fn.partition("\n")
+        if fragment not in name:
+            continue
+        regions, marker, top, stl, ldl = [], "entry", -1, 0, 0
+        for line in body.splitlines():
+            if "USETMAXREG" in line:
+                regions.append((marker, top, stl, ldl))
+                marker = re.search(r"USETMAXREG\S*\s+\S+", line).group(0)
+                top, stl, ldl = -1, 0, 0
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+            top = max([top, *regs])
+            stl += bool(re.search(r"\bSTL\b", line))
+            ldl += bool(re.search(r"\bLDL\b", line))
+        regions.append((marker, top, stl, ldl))
+        out[name.strip()] = regions
+    return out
+
+
+def k4_pass_ms(fn, reps: int = 5) -> dict:
+    """Device ms a call of each kernel ``fn`` launches (K4: its two passes
+    and the key-bias fold), by ``torch.profiler`` over ``reps`` calls after
+    a warm-up."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        found = re.search(r"(\w+_kernel)", evt.name)
+        name = found.group(1) if found else evt.name[:40]
+        out[name] = out.get(name, 0.0) + evt.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def mid_form_kernel_checks(dev) -> dict:
+    """K2 and K4 at the middle form's fusion lengths (``MID_FORM_N``, b32,
+    12 heads, head dim 64) in every mode the default run checks there (S =
+    221 / 278: a padded key bias, the seq2seq qbias with a dropout mask,
+    in-kernel (K4: regenerated) dropout with the key bias; S = 180 / 201:
+    the seq2seq qbias with a dropout mask), each in every form that takes
+    it (``kernels.ATTENTION_FORMS``): within ``KERNEL_BAR`` of plain, two
+    calls bitwise equal, K2's drawn keep mask bitwise equal to
+    ``adrop_mask_plain``, timed eagerly and as CUDA graphs beside the plain
+    version, SDPA or the bf16 composition (K4: the autograd backward of
+    each) and the bound. Returns ``{case: {form: graphs ms}}`` and prints
+    which form each case is fastest in beside the plan's."""
+    from mvlt_tpu_torch.ops import kernels as K
+    inp = Inputs(dev, seed=26)
+    bf = torch.bfloat16
+    B, C, nH, rate = TRAIN_BATCH, 768, 12, 0.1
+    Dh = C // nH
+    sc = Dh ** -0.5
+    seed = torch.tensor([40503, 2626], dtype=torch.int32, device=dev)
+    out = {}
+    libs = K.build()
+    for S in MID_FORM_N:
+        # the rows before the text: two Swin-S views, one, or a ViT image
+        image = {MID_FORM_N[0]: 2 * 49, MID_FORM_N[1]: 49}.get(S, 196 + 1)
+        qkv, ctx, dctx, kb, qb, amask, qkv3, d4 = _attention_inputs(
+            inp, B, S, nH, C, image, 11)
+        kbm, qbm = kb.to(bf)[:, None, None, :], qb.to(bf)[:, None]
+        # the forms the built libraries take at S (both kernels)
+        forms = [f for i, f in enumerate(K.ATTENTION_FORMS)
+                 if libs["attention"].mvlt_attention_smem(S, Dh, 1, i) > 0
+                 and libs["attention_bwd"].mvlt_attention_bwd_smem(
+                     S, Dh, 2, i) > 0]
+        print(f"mid-n S = {S}: plan {K.attention_form(S)}; forms "
+              + "; ".join(f"{f}: {K.attention_plan(S, Dh, f)} / "
+                          f"{K.attention_bwd_plan(S, Dh, f)}" for f in forms),
+              flush=True)
+
+        def composed(bias, mask):
+            return lambda q, k, v: torch.matmul(torch.softmax(
+                torch.matmul(q, k.transpose(-1, -2)) * sc + bias, dim=-1)
+                * mask, v)
+
+        def sdpa(bias, p=0.0):
+            return lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias, dropout_p=p, scale=sc)
+
+        modes = {"qbias + amask": (dict(qbias=qb, amask=amask),
+                                   composed(qbm, amask), (qb, amask))}
+        if image == 196 + 1:
+            modes = {"key bias": (dict(key_bias=kb), sdpa(kbm), (kb,)),
+                     **modes,
+                     "dropout, key bias": (dict(key_bias=kb,
+                                                adrop=(seed, rate)),
+                                           sdpa(kbm, rate), (kb, seed))}
+        for mode, (kw, fwd, extra) in modes.items():
+            for what, run, plain, lib, flops, nb in (
+                    ("K2", lambda f, kw=kw: K.biased_attention(
+                        qkv, nH, S, sc, **kw, form=f),
+                     lambda kw=kw: K.biased_attention_plain(qkv, nH, S, sc,
+                                                            **kw),
+                     lambda fwd=fwd: fwd(*qkv3), 4.0 * B * nH * S * S * Dh,
+                     nbytes(qkv, *extra, ctx)),
+                    ("K4", lambda f, kw=kw: K.biased_attention_bwd(
+                        qkv, dctx, nH, S, sc, **kw, form=f),
+                     lambda kw=kw: K.biased_attention_bwd_plain(
+                         qkv, dctx, nH, S, sc, **kw),
+                     library_backward(fwd, qkv3, d4),
+                     10.0 * B * nH * S * S * Dh,
+                     nbytes(qkv, dctx, *extra, qkv))):
+                want = _tensors(plain())
+                floor = 1.0 if what == "K2" else 1e-6
+                plain_ms = cuda_ms(plain, 3)
+                lib_ms, lib_g = cuda_ms(lib), graph_ms(lib)
+                b_ms, b_by = bound(flops, nb)
+                case = f"{what} S = {S}, {mode}"
+                times = {}
+                for f in forms:
+                    fn = functools.partial(run, f)
+                    one, two = _tensors(fn()), _tensors(fn())
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(one, two)):
+                        raise AssertionError(f"{case} in the {f} form: two "
+                                             "calls differ")
+                    err = 0.0
+                    for g, w in zip(one, want):
+                        e = (g.float() - w.float()).abs().max().item()
+                        top = max(w.float().abs().max().item(), floor)
+                        if not (torch.isfinite(g).all() and
+                                e <= KERNEL_BAR * top):
+                            raise AssertionError(
+                                f"{case} in the {f} form: max abs err {e} "
+                                f"> {KERNEL_BAR} x {top}")
+                        err = max(err, e)
+                    if f == "register":
+                        reg_out = one
+                    same = ("" if f == "register" or "register" not in forms
+                            else "; bitwise equal to the register form: "
+                            f"{all(torch.equal(a, b) for a, b in zip(one, reg_out))}")
+                    times[f] = (cuda_ms(fn), graph_ms(fn))
+                    passes = ""
+                    if what == "K4":    # each pass on its own
+                        passes = "; by kernel " + ", ".join(
+                            f"{k} {v:.4f}" for k, v in k4_pass_ms(fn).items())
+                    print(f"mid-n {case} [{f}]: max_abs_err {err:.3g} "
+                          f"kernel {times[f][0]:.4f} ms, as graphs "
+                          f"{times[f][1]:.4f} ms{passes}{same}", flush=True)
+                best = min(times, key=lambda f: times[f][1])
+                print(f"mid-n {case}: plain {plain_ms:.4f} ms library "
+                      f"{lib_ms:.4f} ms (graphs {lib_g:.4f}) bound "
+                      f"{b_ms:.4f} ms ({b_by}); fastest as graphs: {best}, "
+                      f"the plan's: {K.attention_form(S)}", flush=True)
+                out[case] = {f: t[1] for f, t in times.items()}
+            if "adrop" in kw:
+                for f in forms:
+                    _, mask = K.biased_attention(qkv, nH, S, sc, **kw,
+                                                 save_mask=True, form=f)
+                    if not torch.equal(mask, K.adrop_mask_plain(
+                            seed, B, nH, S, rate)):
+                        raise AssertionError(f"K2's keep mask at S = {S} in "
+                                             f"the {f} form differs from "
+                                             "adrop_mask_plain")
+                del mask
+                print(f"mid-n S = {S}: K2's keep mask bitwise equal to "
+                      f"adrop_mask_plain in every form ({forms})", flush=True)
+        del amask, qkv3, d4
+    return out
+
+
+def mid_form_main() -> int:
+    """``python3 chip_smoke.py --mid-n``: phases 1-2, ptxas's report of the
+    middle-form kernels, the plans at the fusion lengths from 161 to 288,
+    :func:`mid_form_kernel_checks`, then the caption step (S = 201) and the
+    ViT-B/16 pretrain step (S = 278) against their plain runs with the
+    lengths of their K2 / K4 launches and the middle form's counts (no
+    kernels line)."""
+    started = start()
+    if started is None:
+        return 1
+    dev, card = started
+    from mvlt_tpu_torch import flagship
+    from mvlt_tpu_torch.ops import kernels as K
+    for lib in ("attention", "attention_bwd"):
+        for kernel, lines in K.ptxas_report(lib, "mid_kernel").items():
+            print(f"ptxas -v, {kernel}: {' | '.join(lines)}", flush=True)
+        for frag in ("mid_kernel", "long_kernel"):
+            for kernel, regions in sass_regions(lib, frag).items():
+                print(f"SASS regions (marker, top register, STL, LDL) of "
+                      f"{kernel}: {regions}", flush=True)
+    for n in (K.ATTENTION_MID_MIN_N, *MID_FORM_N, K.ATTENTION_MAX_N):
+        print(f"plan at N = {n}: {K.attention_plan(n, 64)}; "
+              f"{K.attention_bwd_plan(n, 64)}", flush=True)
+    t0 = time.perf_counter()
+    mid_form_kernel_checks(dev)
+    print(f"mid-n kernel checks: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    with switches(False):
+        for what, phase in (
+                ("caption step", lambda: caption_step_phase(dev, card)),
+                ("ViT-B/16 pretrain step", lambda: pretrain_phase(
+                    dev, card, config=flagship.flagship_vit_pretrain_config(),
+                    label="ViT-B/16 pretrain step",
+                    expected=EXPECTED_VIT_PRETRAIN, bars=vit_bars,
+                    seq_n=VIT_PRETRAIN_N))):
+            with attention_lengths() as seen:
+                counts = phase()
+            print(f"mid-n {what}: K2 / K4 launch lengths over the phase "
+                  f"{json.dumps(seen)}; one step's middle-form launches K2 "
+                  f"{counts['biased_attention_mid']}, K4 "
+                  f"{counts['biased_attention_bwd_mid']}", flush=True)
+    return 0
+
+
 def swin_routes_main() -> int:
     """``python3 chip_smoke.py --swin-routes``: phases 1-2 and the swin
     routes phase only (the backward rules of rows 1, 6 and 7 and
@@ -4611,9 +4930,6 @@ def main() -> int:
                    long_form_kernel_checks, single_card_kernel_checks):
         checks(chk, dev)
         lap(checks.__name__)
-    for report in (k1_report, k2_report, k4_report, k5_report):
-        report(dev)
-        lap(report.__name__)
     norm_plan_checks()
     lap("norm_plan_checks")
     with switches(False):
@@ -4666,6 +4982,11 @@ def main() -> int:
         lap("phase 16")
         by_path.update(multi_device_subprocess())
         lap("phase 21")
+    # the compiled kernels' reports last: their cuobjdump runs (K4's SASS
+    # alone takes about two minutes) finish beside the phases
+    for report in (k1_report, k2_report, k4_report, k5_report):
+        report(dev)
+        lap(report.__name__)
 
     def launches(name):
         return {path: c.get(name, 0) for path, c in by_path.items()}
@@ -7981,6 +8302,7 @@ if __name__ == "__main__":
              "--retrieval-driver": retrieval_driver_main,
              "--backbones": backbones_main,
              "--swin-routes": swin_routes_main, "--long-n": long_form_main,
+             "--mid-n": mid_form_main,
              "--single-card": single_card_main,
              "--multi-device": multi_device_main,
              "--multi-device-run": multi_device_run_main}

@@ -102,7 +102,8 @@
 // A key-bias call reads only q, k, v and the key bias, so its bound is bytes;
 // what stands between a block and it is the chain of copies, products,
 // exponentials and reductions of each chunk, and the scalar work itself.
-// The design:
+// The design (it also takes N <= 288 when a caller asks for it by form, so
+// the forms can be timed against each other at one N):
 //   - a block of three warpgroups owns 128 query rows of one (group, head),
 //     one block an SM. Warpgroups 0 and 1 are the consumers, 64 rows each,
 //     and share every chunk: each chunk is copied once for 128 rows.
@@ -136,6 +137,49 @@
 // <= 288, and the wrapper keeps the head-major layout there too (no path
 // runs a window past 144). N is capped at 46,340 so that i * N + j stays a
 // 32-bit index (and a 32-bit Philox counter word).
+//
+// The middle form (`attention_mid_kernel<NC, DP>`, 160 < N <= 288, the
+// sequence modes): the fusion encoder's lengths on the other entry points
+// (the two-view caption and retrieval steps' 180, the caption step's 201,
+// ViT-B/16 and the linear patch's 221 and 278). There the register form,
+// stretched from 131 to 288 keys, loses to one SDPA call by 2.5-3.6x: one
+// warpgroup a block on 64 rows, a register cap of two blocks an SM (eight
+// warps to hide each block's chain), every block copying all N keys of k and
+// v by cp.async before its first product (each (g, h) reads them
+// ceil(N / 64) times), and the key bias read score by score from device
+// memory. The long form would take these N, but sweeps the keys twice
+// because its rows do not fit; here they do: a whole row of scores is at
+// most nine 32-key chunks, 144 f32 registers a consumer thread, and k and v
+// fit shared memory whole (73,728 bytes at N = 288, head dim 64). So the
+// middle form is the long form's block, three warpgroups on 128 query rows,
+// with one sweep:
+//   - the producer thread issues every TMA load at once: q's 128 rows, then
+//     k and v chunk by chunk, each 32-key chunk on an mbarrier of its own,
+//     so the S product of chunk 0 starts while the rest are in flight and
+//     each (g, h) reads k and v ceil(N / 128) times; it asks the block's
+//     qbias and amask rows into L2 (a bulk prefetch). The producer's 128
+//     threads stage the chunks' key-bias and qbias tiles (the bias pass),
+//     then draw the keep words of every chunk (in-kernel dropout; one row a
+//     thread, two chunks' Philox calls interleaved), then stage the amask
+//     tiles (the P V pass), through a ring of MID_STAGES stages that holds
+//     a qbias tile and the key bias or an amask tile, as the long form
+//     stages them, but for an amask at odd N: its rows start 2 bytes off 4,
+//     and where the long form copies them 2 bytes at a time (what held it
+//     back at 201 and 221 with a mask) they are copied 16 bytes at a time
+//     from the boundary at or before each row (`stage_rows16`, each row's
+//     shift taken at the reads);
+//   - each consumer warpgroup issues S = Q K_c^T chunk by chunk as the
+//     chunks land (one commit group each, the next in flight while this one
+//     takes its scale and biases), then the exact row max, the
+//     exponentials and their sum, the exact divide, p (x amask / keep)
+//     rounded to bf16 as the register A operand of P V_c, one commit group
+//     a chunk with no wait until the last;
+//   - 232 registers a consumer thread (`setmaxnreg`; the producer keeps 40)
+//     hold the row's scores, P V's accumulator and p's bf16 pairs (ptxas
+//     spills some 100 bytes at 8-9 chunks of head dim 64); a consumer
+//     warpgroup whose rows all lie past N returns at once.
+// The arithmetic is the register form's, in its order: ctx is the register
+// form's bit for bit (the card's `--mid-n` checks compare them).
 //
 // The loader needs 16-byte aligned q, k, v, ctx and strides that are
 // multiples of 8 elements (checked by the wrapper and here).
@@ -206,8 +250,9 @@ constexpr int QB_LD = 160, AM_LD = 80;
 constexpr int QB_TILE = LONG_ROWS * QB_LD, AM_TILE = LONG_ROWS * AM_LD, KB_TILE = LONG_KEYS * 4;
 // in-kernel dropout: each row's keep word of the chunk (bit j keeps key key0 + j)
 constexpr int KW_TILE = LONG_ROWS * 4;
+// the long form past N = 288, and at any N a caller asks it for by form
 __host__ __device__ constexpr bool long_takes(int N, int Dh) {
-  return N > MAX_N && N <= LONG_MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
+  return N >= 1 && N <= LONG_MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
 }
 // 1024 bytes of slack for the swizzle's alignment, q's 128 rows, the ring's k
 // and v chunks, its bias tiles and keep words, 128 bytes of mbarriers
@@ -215,11 +260,38 @@ __host__ __device__ constexpr int long_bytes(int Dh) {
   return 1024 + (LONG_ROWS + LONG_STAGES * 2 * LONG_KEYS) * head_cols(Dh) * 2 +
          LONG_STAGES * (QB_TILE + AM_TILE + KB_TILE + KW_TILE) + 128;
 }
-// shared memory of one block, or -1 where the kernel does not take (N, Dh)
-__host__ __device__ constexpr long long smem_bytes(int N, int Dh, bool amask) {
-  return takes(N, Dh) ? base_bytes(N, Dh) + (amask ? mask_bytes(N, Dh) : 0)
-         : long_takes(N, Dh) ? long_bytes(Dh)
-                             : -1;
+// the forms of a launch (`form` of `mvlt_attention`; ops/kernels.py
+// ATTENTION_FORMS): the plan in Python picks one for each N and mode
+constexpr int FORM_REGISTER = 0, FORM_MIDDLE = 1, FORM_LONG = 2;
+// the middle form: 6-9 key chunks (161 <= N <= 288), the ring's stages of
+// bias tiles, the registers `setmaxnreg` gives the producer and each
+// consumer (128 x 40 + 256 x 232 = 384 x 168)
+constexpr int MID_MIN_CHUNKS = 6, MID_MIN_N = (MID_MIN_CHUNKS - 1) * KEYS + 1, MID_STAGES = 5;
+constexpr int MID_PRODUCER_REGS = 40, MID_CONSUMER_REGS = 232;
+// a stage of the middle form's ring holds the bias pass's qbias tile and
+// key bias (QB_TILE + KB_TILE bytes) or, later, the P V pass's amask tile
+// in the same bytes (AM_TILE < QB_TILE)
+constexpr int MID_STAGE = QB_TILE + KB_TILE;
+// the 16-byte chunks a staged row of 32 amask bf16 may span (`stage_rows16`,
+// from the boundary at or before its start: AM_LD bytes hold them)
+constexpr int AM_CHUNKS = 5;
+__host__ __device__ constexpr bool mid_takes(int N, int Dh) {
+  return N >= MID_MIN_N && N <= MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
+}
+// 1024 bytes of slack for the swizzle's alignment, q's 128 rows, k and v
+// over whole chunks, the ring's stages, the keep words of every chunk, 256
+// bytes of mbarriers
+__host__ __device__ constexpr int mid_bytes(int N, int Dh) {
+  return 1024 + (LONG_ROWS + 2 * ((N + KEYS - 1) / KEYS) * KEYS) * head_cols(Dh) * 2 + MID_STAGES * MID_STAGE +
+         ((N + KEYS - 1) / KEYS) * KW_TILE + 256;
+}
+// shared memory of one block of the given form, or -1 where that form does
+// not take (N, Dh)
+__host__ __device__ constexpr long long smem_bytes(int N, int Dh, bool amask, int form) {
+  return form == FORM_REGISTER ? (takes(N, Dh) ? base_bytes(N, Dh) + (amask ? mask_bytes(N, Dh) : 0) : -1)
+         : form == FORM_MIDDLE ? (mid_takes(N, Dh) ? mid_bytes(N, Dh) : -1)
+         : form == FORM_LONG   ? (long_takes(N, Dh) ? long_bytes(Dh) : -1)
+                               : -1;
 }
 
 struct Params {
@@ -761,6 +833,329 @@ __global__ void __launch_bounds__(LONG_THREADS, 1)
   }
 }
 
+// The middle form (160 < N <= 288): 128 query rows of one (group, head) on
+// two consumer warpgroups, k and v whole in shared memory (one TMA barrier a
+// chunk), the row's scores in registers, one sweep (see the head of the
+// file). The ring carries the bias pass's key-bias and qbias tiles (steps 0
+// .. na - 1, na = NC when either is given, else 0), then the P V pass's
+// amask tiles (steps na .. na + NC - 1 when an amask is given).
+template <int NC, int DP>
+__global__ void __launch_bounds__(LONG_THREADS, 1)
+    attention_mid_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v, const Params p) {
+  constexpr int ROWB = DP * 2;
+  constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  constexpr uint32_t SBO = 8 * ROWB;
+  constexpr int KR = NC * KEYS;
+  constexpr int KV = KEYS * ROWB;  // one chunk of k or of v
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* Ks = Qs + LONG_ROWS * ROWB;
+  unsigned char* Vs = Ks + KR * ROWB;
+  // stage s at Ring + s * MID_STAGE: a qbias tile and the key bias's 32
+  // f32 after it, or an amask tile
+  unsigned char* Ring = Vs + KR * ROWB;
+  uint32_t* Kw = reinterpret_cast<uint32_t*>(Ring + MID_STAGES * MID_STAGE);  // chunk c's words at Kw + 128 c
+  uint64_t* full = reinterpret_cast<uint64_t*>(Kw + NC * LONG_ROWS);
+  uint64_t* empty = full + MID_STAGES;
+  uint64_t* kbar = empty + MID_STAGES;
+  uint64_t* vbar = kbar + NC;
+  uint64_t* qbar = vbar + NC;
+  uint64_t* kwbar = qbar + 1;
+
+  const int N = p.N;
+  const int tile = blockIdx.x % p.tiles;
+  const int gh = blockIdx.x / p.tiles;
+  const int h = gh % p.nH, g = gh / p.nH;
+  const int row0 = tile * LONG_ROWS;
+  const int live_wgs = row0 + 64 < N ? 2 : 1;  // a consumer warpgroup wholly past N has nothing to do
+  const int na = p.kbias || p.qbias ? NC : 0, steps = na + (p.amask ? NC : 0);
+  const int wg = threadIdx.x / WARPGROUP;  // 0, 1: the consumers; 2: the producer
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < MID_STAGES; ++s) {
+      mbar_init(&full[s], 2 * WARPGROUP);  // two a producer thread
+      mbar_init(&empty[s], 4 * live_wgs);  // lane 0 of each live consumer warp
+    }
+    for (int c = 0; c < NC; ++c) {
+      mbar_init(&kbar[c], 1);
+      mbar_init(&vbar[c], 1);
+    }
+    mbar_init(qbar, 1);
+    mbar_init(kwbar, WARPGROUP);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer
+    regs_dec<MID_PRODUCER_REGS>();
+    const int t = threadIdx.x - 2 * WARPGROUP;
+    if (t == 0) {  // every copy of q, k and v at once: q, then k and v chunk by chunk
+      mbar_expect_tx(qbar, LONG_ROWS * ROWB);
+#pragma unroll 1
+      for (int r = 0; r < LONG_ROWS; r += KEYS) tma_load4(Qs + r * ROWB, &map_q, qbar, 0, h, row0 + r, g);
+#pragma unroll 1
+      for (int c = 0; c < NC; ++c) {
+        mbar_expect_tx(&kbar[c], KV);
+        tma_load4(Ks + c * KV, &map_k, &kbar[c], 0, h, c * KEYS, g);
+      }
+#pragma unroll 1
+      for (int c = 0; c < NC; ++c) {
+        mbar_expect_tx(&vbar[c], KV);
+        tma_load4(Vs + c * KV, &map_v, &vbar[c], 0, h, c * KEYS, g);
+      }
+    }
+    const unsigned char* kb0 = reinterpret_cast<const unsigned char*>(p.kbias + (size_t)g * N);
+    const unsigned char* qb0 = reinterpret_cast<const unsigned char*>(p.qbias + ((size_t)g * N + row0) * N);
+    const unsigned char* am0 = reinterpret_cast<const unsigned char*>(p.amask + ((size_t)gh * N + row0) * N);
+    const int rlim = N - row0;
+    if (t == 0) {  // the block's qbias and amask rows into L2 while its first tiles are staged
+      if (p.qbias) prefetch_l2(qb0, (size_t)min(rlim, LONG_ROWS) * N * 4);
+      if (p.amask) prefetch_l2(am0, (size_t)min(rlim, LONG_ROWS) * N * 2);
+    }
+    // a chunk's amask tile: rows that start 2 bytes off 4 (odd N) by
+    // 16-byte cp.async from the boundary at or before each (shifted), else
+    // as the long form stages it
+    auto stage_amask = [&](unsigned char* dst, const unsigned char* src, int rlim, int clim, int t) {
+      if (p.am_unit == 2)
+        stage_rows16<AM_CHUNKS>(dst, AM_LD, src, 2LL * N, min(KEYS, clim) * 2, LONG_ROWS, rlim, t, WARPGROUP);
+      else
+        stage_tile_any<2>(p.am_unit, dst, AM_LD, src, 2LL * N, LONG_ROWS, KEYS, rlim, clim, t, WARPGROUP);
+    };
+    // ring steps from .. to - 1
+    auto stage = [&](int from, int to) {
+#pragma unroll 1
+      for (int it = from; it < to; ++it) {
+        const int s = it % MID_STAGES;
+        if (it >= MID_STAGES) mbar_wait(&empty[s], ((it / MID_STAGES) - 1) & 1);
+        const bool pv = it >= na;
+        const int key0 = (pv ? it - na : it) * KEYS, clim = N - key0;
+        unsigned char* dst = Ring + s * MID_STAGE;
+        if (!pv && p.kbias)
+          stage_tile_any<4>(p.kb_unit, dst + QB_TILE, 0, kb0 + key0 * 4, 0, 1, KEYS, 1, clim, t, WARPGROUP);
+        if (!pv && p.qbias)
+          stage_tile_any<4>(p.qb_unit, dst, QB_LD, qb0 + key0 * 4, 4LL * N, LONG_ROWS, KEYS, rlim, clim, t,
+                            WARPGROUP);
+        if (pv) stage_amask(dst, am0 + key0 * 2, rlim, clim, t);
+        stage_arrive(&full[s]);
+      }
+    };
+    stage(0, na);  // the bias pass's tiles first: the consumers need them first
+    if (p.seed) {  // row t's keep words of every chunk, two chunks at once (and, asked for, the mask they draw)
+      const int i = row0 + t;
+      const uint32_t key = adrop_key(p.seed), ctr1 = (uint32_t)g * 256u + (uint32_t)(h + p.head0);
+#pragma unroll 1
+      for (int c = 0; c < NC; c += 2) {
+        uint32_t wa = 0u, wb = 0u;
+        if (i < N && c + 1 < NC)
+          keep_word2(i, c * KEYS, (c + 1) * KEYS, N, key, ctr1, p.thresh, wa, wb);
+        else if (i < N)
+          wa = keep_word(i, c * KEYS, N, key, ctr1, p.thresh);
+        Kw[c * LONG_ROWS + t] = wa;
+        if (c + 1 < NC) Kw[(c + 1) * LONG_ROWS + t] = wb;
+      }
+      if (p.mask_out != nullptr && i < N) {
+        float* mo = p.mask_out + ((size_t)gh * N + i) * N;
+        for (int j = 0; j < N; ++j) mo[j] = (Kw[(j / KEYS) * LONG_ROWS + t] >> (j % KEYS)) & 1u ? p.kept : 0.f;
+      }
+      mbar_arrive(kwbar);
+    }
+    stage(na, steps);
+    cp_async_wait<0>();
+    return;
+  }
+
+  // the consumers: warpgroup w owns block rows 64 w .. 64 w + 63. Element x
+  // = 4 b + 2 hh + e of chunk c's fragment sits in block row r0 + 8 hh, key
+  // 32 c + cq + 8 b + e.
+  regs_inc<MID_CONSUMER_REGS>();
+  const int w = wg, tid = threadIdx.x - wg * WARPGROUP;
+  if (w >= live_wgs) return;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = w * 64 + warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const bool live_warp = row0 + w * 64 + warp * 16 < N;
+  const uint32_t q_base = smem_u32(Qs + w * 64 * ROWB), k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+  // the byte shifts of the thread's two rows in the staged amask tiles
+  // (`stage_rows16` at odd N: each row's start mod 16, the same in every
+  // chunk; 0 where the rows are staged as the long form stages them)
+  const int sha[2] = {p.am_unit == 2 ? row_shift(p.amask, ((size_t)gh * N + row0 + r0) * N, 2) : 0,
+                      p.am_unit == 2 ? row_shift(p.amask, ((size_t)gh * N + row0 + r0 + 8) * N, 2) : 0};
+
+  // S = Q K_c^T chunk by chunk as the chunks land, one commit group each;
+  // chunk c takes its scale and biases while chunk c + 1's product runs
+  float s[NC][16];
+  mbar_wait(qbar, 0);
+  mbar_wait(&kbar[0], 0);
+  wgmma_rows32<DP>(s[0], q_base, k_base);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (c + 1 < NC) {
+      mbar_wait(&kbar[c + 1], 0);
+      wgmma_rows32<DP>(s[c + 1], q_base, k_base + (c + 1) * KV);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_acc(s[c]);
+    if (na) mbar_wait(&full[c % MID_STAGES], (c / MID_STAGES) & 1);
+    if (live_warp) {
+      // the register form's order: scale, key bias, then qbias (absent: + 0,
+      // exact); rows past N take whatever their tile rows hold (they feed
+      // only rows that are never stored); keys past N, in the last chunk
+      // alone, are -inf
+      const int st = c % MID_STAGES;
+      const float* kbs = reinterpret_cast<const float*>(Ring + st * MID_STAGE + QB_TILE);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int lc = cq + 8 * b;
+        const float2 kb2 = p.kbias ? *reinterpret_cast<const float2*>(kbs + lc) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 qb2 =
+              p.qbias ? *reinterpret_cast<const float2*>(Ring + st * MID_STAGE + (r0 + 8 * hh) * QB_LD + lc * 4)
+                      : make_float2(0.f, 0.f);
+          s[c][4 * b + 2 * hh] = s[c][4 * b + 2 * hh] * p.scale + kb2.x + qb2.x;
+          s[c][4 * b + 2 * hh + 1] = s[c][4 * b + 2 * hh + 1] * p.scale + kb2.y + qb2.y;
+        }
+      }
+      if (c == NC - 1 && c * KEYS + KEYS > N) {
+#pragma unroll
+        for (int x = 0; x < 16; ++x)
+          if (c * KEYS + cq + (x >> 2) * 8 + (x & 1) >= N) s[c][x] = -INFINITY;
+      }
+#pragma unroll
+      for (int x = 0; x < 16; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[c][x]);
+    }
+    if (na) release_stage(&empty[c % MID_STAGES], lane);
+  }
+
+  // the exact row max over the quad, the exponentials and their sum (the
+  // register form's order: chunk by chunk, then the quad)
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+  }
+  if (live_warp) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int hh = (x >> 1) & 1;
+        s[c][x] = expf(s[c][x] - mx[hh]);
+        sum[hh] += s[c][x];
+      }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+  }
+  // the exact divide v / sum as Markstein's correction of v * RN(1 / sum)
+  const float rcp[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+
+  // P V chunk by chunk: p (x amask / keep) in bf16 pairs as the register A
+  // operand, v MN-major (its head columns contiguous), one commit group a
+  // chunk and no wait until the last (each chunk keeps its own A registers)
+  float o[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) o[x] = 0.f;
+  fence_acc(o);
+  uint32_t a[NC][2][4];
+  if (p.seed) mbar_wait(kwbar, 0);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int it = na + c, st = it % MID_STAGES;
+    if (p.amask) mbar_wait(&full[st], (it / MID_STAGES) & 1);
+    if (live_warp) {
+      // the multipliers: the amask's (staged, each row shifted by sha), the
+      // keep bits' (drawn by the producer) or 1; keys past N (their tiles
+      // are not staged) 0
+      float m[16];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const bf16* ar =
+              reinterpret_cast<const bf16*>(Ring + st * MID_STAGE + (r0 + 8 * hh) * AM_LD + sha[hh] + (cq + 8 * b) * 2);
+          m[4 * b + 2 * hh] = p.amask ? __bfloat162float(ar[0]) : 1.f;
+          m[4 * b + 2 * hh + 1] = p.amask ? __bfloat162float(ar[1]) : 1.f;
+        }
+      if (p.seed) {
+        const uint32_t kw[2] = {Kw[c * LONG_ROWS + r0], Kw[c * LONG_ROWS + r0 + 8]};
+#pragma unroll
+        for (int x = 0; x < 16; ++x) m[x] = (kw[(x >> 1) & 1] >> (cq + (x >> 2) * 8 + (x & 1))) & 1u ? p.kept : 0.f;
+      }
+      if (c == NC - 1 && c * KEYS + KEYS > N) {
+#pragma unroll
+        for (int x = 0; x < 16; ++x)
+          if (c * KEYS + cq + (x >> 2) * 8 + (x & 1) >= N) m[x] = 0.f;
+      }
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float pv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = 4 * b + 2 * hh + e;
+            const float q0 = s[c][x] * rcp[hh];
+            pv[e] = fmaf(fmaf(-q0, sum[hh], s[c][x]), rcp[hh], q0) * m[x];
+          }
+          // x = 4 b + 2 hh .. + 1: k16 step b / 2, register 2 (b % 2) + hh
+          a[c][b >> 1][2 * (b & 1) + hh] = pack_bf16(pv[0], pv[1]);
+        }
+    } else {
+#pragma unroll
+      for (int k16 = 0; k16 < 2; ++k16)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a[c][k16][q] = 0u;
+    }
+    if (p.amask) release_stage(&empty[st], lane);
+    mbar_wait(&vbar[c], 0);
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < 2; ++k16) {
+      // 16 key rows; one column block, so LBO is unused (given SBO's value)
+      const uint64_t dv = make_desc(v_base + c * KV + k16 * 16 * ROWB, SBO, SBO, SW);
+      if constexpr (DP == 64)
+        wgmma_m64n64k16_rs(o, a[c][k16], dv);
+      else
+        wgmma_m64n32k16_rs(o, a[c][k16], dv);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_acc(o);
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int k16 = 0; k16 < 2; ++k16) fence_regs(a[c][k16]);
+
+  // ctx through this warpgroup's q rows (its S products are done), then
+  // 16-byte stores of the rows below N
+  named_sync(1 + w, WARPGROUP);
+#pragma unroll
+  for (int b = 0; b < DP / 8; ++b) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(Qs + swz<ROWB>(r0 + 8 * hh, b) + cq * 2) =
+          pack_bf16(o[4 * b + 2 * hh], o[4 * b + 2 * hh + 1]);
+  }
+  named_sync(1 + w, WARPGROUP);
+  const long long out0 = g * p.out_g + h * p.out_h;
+  const int chunks = p.Dh / 8;
+  for (int e = tid; e < 64 * chunks; e += WARPGROUP) {
+    const int r = w * 64 + e / chunks, cc = e % chunks;
+    const int i = row0 + r;
+    if (i < N)
+      *reinterpret_cast<uint4*>(p.ctx + out0 + i * p.out_n + cc * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<ROWB>(r, cc));
+  }
+}
+
 int smem_optin() {
   static int bytes = -1;  // queried once
   if (bytes < 0) {
@@ -824,15 +1219,52 @@ cudaError_t launch_long(const void* q, const void* k, const void* v, int G, cons
   return cudaGetLastError();
 }
 
+template <int NC, int DP>
+cudaError_t launch_mid(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, const Params& p,
+                       long long blocks, int smem, cudaStream_t stream) {
+  static bool attr_set = false;  // above 48 KB needs the opt-in, once per instance (its largest N)
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(attention_mid_kernel<NC, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         mid_bytes(NC * KEYS, DP));
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  attention_mid_kernel<NC, DP><<<static_cast<unsigned>(blocks), LONG_THREADS, smem, stream>>>(mq, mk, mv, p);
+  return cudaGetLastError();
+}
+
+// the middle form at `chunks` key chunks (6-9)
+template <int DP>
+cudaError_t dispatch_mid(int chunks, const void* q, const void* k, const void* v, int G, const Params& p,
+                         long long blocks, int smem, cudaStream_t stream) {
+  // q's, k's and v's maps, in 32-row boxes, encoded at every launch as the long form's
+  CUtensorMap mq, mk, mv;
+  if (!head_rows_map(&mq, q, p.Dh, p.nH, p.N, G, p.in_h, p.in_n, p.in_g, DP, KEYS) ||
+      !head_rows_map(&mk, k, p.Dh, p.nH, p.N, G, p.in_h, p.in_n, p.in_g, DP, KEYS) ||
+      !head_rows_map(&mv, v, p.Dh, p.nH, p.N, G, p.in_h, p.in_n, p.in_g, DP, KEYS))
+    return cudaErrorInvalidValue;
+  switch (chunks) {
+    case 6: return launch_mid<6, DP>(mq, mk, mv, p, blocks, smem, stream);
+    case 7: return launch_mid<7, DP>(mq, mk, mv, p, blocks, smem, stream);
+    case 8: return launch_mid<8, DP>(mq, mk, mv, p, blocks, smem, stream);
+    case 9: return launch_mid<9, DP>(mq, mk, mv, p, blocks, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+static_assert(MID_MIN_CHUNKS == 6 && MAX_CHUNKS == 9, "dispatch_mid covers every chunk count");
+
 }  // namespace
 
 // The shared memory a block may opt in to on the current device (-1 if the query failed).
 extern "C" int mvlt_smem_optin(void) { return smem_optin(); }
 
-// Shared memory one block needs for (N, Dh), with or without an amask, or -1 where the kernel does not
-// take them (N outside 1 .. 46,340, or a head dim that is not 16, 32, 48 or 64); past N = 288 the long
-// form's, which does not grow with N. The wrapper checks it against the card's opt-in limit.
-extern "C" long long mvlt_attention_smem(int N, int Dh, int amask) { return smem_bytes(N, Dh, amask != 0); }
+// Shared memory one block of `form` (0 register, N <= 288; 1 middle, 161 <= N <= 288; 2 long, N <= 46,340)
+// needs for (N, Dh), with or without an amask, or -1 where that form does not take them (or a head dim
+// that is not 16, 32, 48 or 64); the long form's does not grow with N. The wrapper checks it against the
+// card's opt-in limit.
+extern "C" long long mvlt_attention_smem(int N, int Dh, int amask, int form) {
+  return smem_bytes(N, Dh, amask != 0, form);
+}
 
 // q, k, v: bf16, element (g, h, n, d) at g * in_g + h * in_h + n * in_n + d; ctx: bf16, element
 // (g, h, i, d) at g * out_g + h * out_h + i * out_n + d; all four 16-byte aligned, every stride a
@@ -840,23 +1272,27 @@ extern "C" long long mvlt_attention_smem(int N, int Dh, int amask) { return smem
 // (G, nH, N, N) bf16 may each be null. seed: null, or (2,) int32 16-bit halves for mode (a), which
 // keeps an element iff its Philox word < thresh and then multiplies by kept; amask must be null with
 // it, and head0 + nH <= 256 (head0: the global index of head 0, which keys the draw). p_out (G, nH, N, N) bf16 (mode (b)) and mask_out (G, nH, N, N) f32 (mode (a)
-// only) may be null. Past N = 288 (the long form) pattern and p_out must be null.
+// only) may be null. form: 0 the register form, 1 the middle form, 2 the long form (`mvlt_attention_smem`);
+// in the middle and long forms pattern and p_out must be null.
 extern "C" int mvlt_attention(const void* q, const void* k, const void* v, long long in_g, long long in_h,
                               long long in_n, void* ctx, long long out_g, long long out_h, long long out_n,
                               const void* pattern, const void* kbias, const void* qbias, const void* amask,
                               const void* seed, void* p_out, void* mask_out, int G, int N, int nH, int Dh,
-                              int P, float scale, unsigned int thresh, float kept, int head0, void* stream) {
-  const long long smem = smem_bytes(N, Dh, amask != nullptr);
+                              int P, float scale, unsigned int thresh, float kept, int head0, int form,
+                              void* stream) {
+  const long long smem = smem_bytes(N, Dh, amask != nullptr, form);
   if (smem < 0 || G < 1 || nH < 1 || P < 1) return (int)cudaErrorInvalidValue;
   if (seed != nullptr && (amask != nullptr || head0 < 0 || head0 + nH > 256)) return (int)cudaErrorInvalidValue;
   if (mask_out != nullptr && seed == nullptr) return (int)cudaErrorInvalidValue;
-  const bool long_form = N > MAX_N;
-  if (long_form && (pattern != nullptr || p_out != nullptr)) return (int)cudaErrorInvalidValue;
+  const bool long_form = form == FORM_LONG, staged = form != FORM_REGISTER;  // a TMA block of 128 rows
+  if (staged && (pattern != nullptr || p_out != nullptr)) return (int)cudaErrorInvalidValue;
+  // the middle form stages an amask's rows from the 16-byte boundary at or before each
+  if (form == FORM_MIDDLE && ((uintptr_t)amask & 15)) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)ctx) & 15) return (int)cudaErrorInvalidValue;
   if ((in_g | in_h | in_n | out_g | out_h | out_n) & 7) return (int)cudaErrorInvalidValue;
   const int optin = smem_optin();
   if (optin < 0 || smem > optin) return (int)cudaErrorInvalidValue;
-  const int tiles = long_form ? (N + LONG_ROWS - 1) / LONG_ROWS : (N + ROWS - 1) / ROWS;
+  const int tiles = staged ? (N + LONG_ROWS - 1) / LONG_ROWS : (N + ROWS - 1) / ROWS;
   const long long blocks = (long long)G * nH * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   // the long form's bias-tile copies: the widest unit every row start allows
@@ -866,13 +1302,16 @@ extern "C" int mvlt_attention(const void* q, const void* k, const void* v, long 
                  out_g, out_h, out_n, static_cast<const float*>(pattern), static_cast<const float*>(kbias),
                  static_cast<const float*>(qbias), static_cast<cbf>(amask), static_cast<const int*>(seed),
                  static_cast<bf16*>(ctx), static_cast<bf16*>(p_out), static_cast<float*>(mask_out), N, nH,
-                 Dh, P, tiles, !long_form && amask != nullptr && mask_bytes(N, Dh) > 0, qb_unit, am_unit,
+                 Dh, P, tiles, !staged && amask != nullptr && mask_bytes(N, Dh) > 0, qb_unit, am_unit,
                  kb_unit, scale, thresh, kept, head0};
   const int chunks = (N + KEYS - 1) / KEYS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (long_form)
     return (int)(head_cols(Dh) == 64 ? launch_long<64>(q, k, v, G, p, blocks, s)
                                      : launch_long<32>(q, k, v, G, p, blocks, s));
+  if (staged)
+    return (int)(head_cols(Dh) == 64 ? dispatch_mid<64>(chunks, q, k, v, G, p, blocks, (int)smem, s)
+                                     : dispatch_mid<32>(chunks, q, k, v, G, p, blocks, (int)smem, s));
   return (int)(head_cols(Dh) == 64 ? dispatch<64>(chunks, p, blocks, (int)smem, s)
                                    : dispatch<32>(chunks, p, blocks, (int)smem, s));
 }

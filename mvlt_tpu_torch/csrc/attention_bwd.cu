@@ -109,7 +109,36 @@
 //     form's pass 2.
 // The dkbias column sums run in one fixed order (the queries in order,
 // then the row quad, then `sum_heads_kernel` over heads), with no atomics.
-// N is capped at 46,340 (i * N + j in 32 bits), as in K2.
+// N is capped at 46,340 (i * N + j in 32 bits), as in K2. The long form
+// also takes N <= 288 when a caller asks for it by form (the card's checks
+// time the forms against each other).
+//
+// The middle form (160 < N <= 288, the sequence modes), K2's middle form's
+// counterpart: the fusion encoder's 180 / 201 / 221 / 278. There the
+// register form's pass 1 spills (past six chunks S and dp no longer fit its
+// registers together and dp runs twice), keeps two blocks an SM and copies
+// every key of k and v by cp.async before its first product; the long
+// form's pass 1 computes S and the exponentials twice, and at odd N copies
+// an amask's rows 2 bytes at a time. The design:
+//   - pass 1, `attention_bwd_dq_mid_kernel<NC, DP>`: K2's middle-form block
+//     (a producer and two consumer warpgroups on 128 query rows, 232
+//     registers a consumer thread), q's and dctx's 128 rows and all of k and
+//     v in shared memory by TMA, each key chunk on a barrier of its own, the
+//     bias tiles through a five-stage ring staged as K2's middle form stages
+//     them (an amask at odd N 16 bytes at a time, `stage_rows16`), the
+//     block's qbias and amask rows asked into L2 at the start. S is computed
+//     once and held for the whole row (144 f32 registers at N = 288), the
+//     softmax runs on it in place as in the register form's pass 1, then dp
+//     = dO V_c^T chunk by chunk for rd, then again for ds and dq += ds K_c,
+//     the next chunk's product in flight under this chunk's scalar work (at
+//     8-9 chunks of head dim 64 the next dp of the ds pass is issued only
+//     after this chunk's dq product: two dp chunks and S do not fit the
+//     registers). It writes the statistics and keep words as the other
+//     forms do;
+//   - pass 2 is the long form's; with an amask at odd N its ROWS16 variant
+//     (`attention_bwd_dkv_long_kernel<DP, true>`: the amask rows staged 16
+//     bytes at a time, each row's shift beside them).
+// Every sum and rounding point is the register form's, rd included.
 // The plan (`smem_bytes`, `scratch_words` below) is mirrored by
 // `kernels.attention_bwd_plan` in ops/kernels.py, which admits a call
 // before any launch.
@@ -179,8 +208,9 @@ __host__ __device__ constexpr int pattern_smem(int N) { return ROWS * chunks_of(
 constexpr int LONG_ROWS = 128, LONG_CHUNK = 32, LONG_STAGES = 4, LONG_SWEEPS = 2;
 constexpr int LONG_MAX_N = 46340;
 constexpr int LONG_THREADS = 3 * WARPGROUP, PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+// the long form past N = 288, and at any N a caller asks it for by form
 __host__ __device__ constexpr bool long_takes(int N, int Dh) {
-  return N > MAX_N && N <= LONG_MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
+  return N >= 1 && N <= LONG_MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
 }
 // pass 1's bias tiles of a stage, as K2's long form stages them: qbias 128
 // query rows of 32 keys f32 (rows padded to 160 bytes), amask bf16 (80), the
@@ -196,6 +226,11 @@ constexpr int KW_TILE = LONG_ROWS * 4;
 constexpr int QB2_LD = 528, AM2_LD = 264;
 constexpr int QB2_TILE = LONG_CHUNK * QB2_LD, AM2_TILE = LONG_CHUNK * AM2_LD;
 constexpr int ST2_TILE = 4 * LONG_CHUNK * 4, BT2_TILE = LONG_CHUNK * 16;
+// the middle form's pass 2 at odd N with an amask (the long form's with
+// ROWS16): its amask rows padded to 272 bytes (a row of 128 bf16 staged
+// from the 16-byte boundary at or before its start spans up to 17 chunks),
+// each row's shift (32 bytes)
+constexpr int AM2_LD16 = 272, AM2_CHUNKS = 17, SH2_TILE = LONG_CHUNK;
 // 1024 bytes of slack for the swizzle's alignment, the block's two 128-row
 // operands (q and dctx; k and v), the ring's two chunks a stage and its bias
 // tiles (and pass 1's keep words), 128 bytes of mbarriers
@@ -207,15 +242,44 @@ __host__ __device__ constexpr int long_dkv_smem(int Dh) {
   return 1024 + (2 * LONG_ROWS + LONG_STAGES * 2 * LONG_CHUNK) * head_cols(Dh) * 2 +
          LONG_STAGES * (QB2_TILE + AM2_TILE + ST2_TILE + BT2_TILE) + 128;
 }
-// shared memory of the larger pass, or -1 where K4 does not take (N, Dh)
-// (past N = 288: the long form, in no pattern mode)
-__host__ __device__ constexpr long long smem_bytes(int N, int Dh, bool pattern, bool amask) {
-  return long_takes(N, Dh)
-             ? (pattern ? -1 : long_dq_smem(Dh) > long_dkv_smem(Dh) ? long_dq_smem(Dh) : long_dkv_smem(Dh))
-         : !takes(N, Dh) ? -1
-         : dq_smem(N, Dh) + (amask ? dq_mask_smem(N, Dh) : 0) > dkv_smem(N, Dh) + (pattern ? pattern_smem(N) : 0)
-             ? dq_smem(N, Dh) + (amask ? dq_mask_smem(N, Dh) : 0)
-             : dkv_smem(N, Dh) + (pattern ? pattern_smem(N) : 0);
+// the middle form's pass 2: the long form's with the wider amask rows and the rows' shifts
+__host__ __device__ constexpr int mid_dkv_smem(int Dh) {
+  return long_dkv_smem(Dh) + LONG_STAGES * (LONG_CHUNK * (AM2_LD16 - AM2_LD) + SH2_TILE);
+}
+// the forms of a launch (`form` of `mvlt_attention_bwd`, as K2's)
+constexpr int FORM_REGISTER = 0, FORM_MIDDLE = 1, FORM_LONG = 2;
+// the middle form's first pass: 6-9 key chunks (161 <= N <= 288), the
+// ring's stages of bias tiles, the registers `setmaxnreg` gives the
+// producer and each consumer (128 x 40 + 256 x 232 = 384 x 168)
+constexpr int MID_MIN_CHUNKS = 6, MID_MIN_N = (MID_MIN_CHUNKS - 1) * KEYS + 1, MID_STAGES = 5;
+constexpr int MID_PRODUCER_REGS = 40, MID_CONSUMER_REGS = 232;
+// a stage of the middle form's ring holds the bias pass's qbias tile and
+// key bias (QB_TILE + KB_TILE bytes) or, later, the P V pass's amask tile
+// in the same bytes (AM_TILE < QB_TILE)
+constexpr int MID_STAGE = QB_TILE + KB_TILE;
+// the 16-byte chunks a staged row of 32 amask bf16 may span (`stage_rows16`,
+// from the boundary at or before its start: AM_LD bytes hold them)
+constexpr int AM_CHUNKS = 5;
+__host__ __device__ constexpr bool mid_takes(int N, int Dh) {
+  return N >= MID_MIN_N && N <= MAX_N && Dh >= 16 && Dh <= 64 && Dh % 16 == 0;
+}
+// its first pass: 1024 bytes of slack, q's and dctx's 128 rows, k and v
+// over whole chunks, the ring's stages, the keep words of every chunk, 256
+// bytes of mbarriers; its second pass is the long form's
+__host__ __device__ constexpr int mid_dq_smem(int N, int Dh) {
+  return 1024 + (2 * LONG_ROWS + 2 * chunks_of(N) * KEYS) * head_cols(Dh) * 2 + MID_STAGES * MID_STAGE +
+         chunks_of(N) * KW_TILE + 256;
+}
+__host__ __device__ constexpr int larger(int a, int b) { return a > b ? a : b; }
+// shared memory of the larger pass of the given form, or -1 where that form
+// does not take (N, Dh) (the middle and long forms have no pattern mode)
+__host__ __device__ constexpr long long smem_bytes(int N, int Dh, bool pattern, bool amask, int form) {
+  return form == FORM_LONG     ? (long_takes(N, Dh) && !pattern ? larger(long_dq_smem(Dh), long_dkv_smem(Dh)) : -1)
+         : form == FORM_MIDDLE ? (mid_takes(N, Dh) && !pattern ? larger(mid_dq_smem(N, Dh), mid_dkv_smem(Dh)) : -1)
+         : form != FORM_REGISTER || !takes(N, Dh)
+             ? -1
+             : larger(dq_smem(N, Dh) + (amask ? dq_mask_smem(N, Dh) : 0),
+                      dkv_smem(N, Dh) + (pattern ? pattern_smem(N) : 0));
 }
 // f32 scratch words per (g, h): row max, row sum and rd of every query, then
 // the keep bits, one word per query and 32 keys
@@ -1151,8 +1215,11 @@ __global__ void __launch_bounds__(LONG_THREADS, 1)
 // consumer warpgroups, the queries streamed in 32-query chunks with their
 // statistics, keep words and bias tiles; per chunk the register form's
 // pass-2 body. The head's column sums of ds go to the (G, nH, N) scratch as
-// before.
-template <int DP>
+// before. ROWS16 (the middle form's pass 2 with an amask at odd N) stages
+// the amask rows by 16-byte cp.async from the boundary at or before each row
+// (`stage_rows16`; each row's shift staged beside them), where the long
+// form copies rows that start 2 bytes off 4 two bytes at a time.
+template <int DP, bool ROWS16>
 __global__ void __launch_bounds__(LONG_THREADS, 1)
     attention_bwd_dkv_long_kernel(const __grid_constant__ CUtensorMap map_qkv,
                                   const __grid_constant__ CUtensorMap map_do, const Params p) {
@@ -1164,11 +1231,13 @@ __global__ void __launch_bounds__(LONG_THREADS, 1)
   unsigned char* Ks = align1024(smem_raw);      // the block's k, then dk
   unsigned char* Vs = Ks + LONG_ROWS * ROWB;    // its v, then dv
   unsigned char* Ring = Vs + LONG_ROWS * ROWB;  // stage s: q at Ring + 2 s KV, then dctx
+  constexpr int AML = ROWS16 ? AM2_LD16 : AM2_LD, AMT = LONG_CHUNK * AML;  // the amask tile's rows
   unsigned char* Qb = Ring + LONG_STAGES * 2 * KV;
   unsigned char* Am = Qb + LONG_STAGES * QB2_TILE;
-  unsigned char* Sts = Am + LONG_STAGES * AM2_TILE;
+  unsigned char* Sts = Am + LONG_STAGES * AMT;
   unsigned char* Bt = Sts + LONG_STAGES * ST2_TILE;
-  uint64_t* full = reinterpret_cast<uint64_t*>(Bt + LONG_STAGES * BT2_TILE);
+  unsigned char* Sh = Bt + LONG_STAGES * BT2_TILE;  // ROWS16: the rows' shifts, qbias's then amask's
+  uint64_t* full = reinterpret_cast<uint64_t*>(Sh + (ROWS16 ? LONG_STAGES * SH2_TILE : 0));
   uint64_t* empty = full + LONG_STAGES;
   uint64_t* kvbar = empty + LONG_STAGES;
 
@@ -1226,9 +1295,16 @@ __global__ void __launch_bounds__(LONG_THREADS, 1)
       if (p.qbias)
         stage_tile_any<4>(p.qb_unit, Qb + s * QB2_TILE, QB2_LD, qb0 + (size_t)i0 * N * 4, 4LL * N, LONG_CHUNK,
                           LONG_ROWS, rlim, clim, t, WARPGROUP);
-      if (p.amask)
-        stage_tile_any<2>(p.am_unit, Am + s * AM2_TILE, AM2_LD, am0 + (size_t)i0 * N * 2, 2LL * N, LONG_CHUNK,
-                          LONG_ROWS, rlim, clim, t, WARPGROUP);
+      if (p.amask && ROWS16) {
+        stage_rows16<AM2_CHUNKS>(Am + s * AMT, AML, am0 + (size_t)i0 * N * 2, 2LL * N,
+                                 (clim < LONG_ROWS ? clim : LONG_ROWS) * 2, LONG_CHUNK, rlim, t, WARPGROUP);
+        if (t < LONG_CHUNK && t < rlim)
+          Sh[s * SH2_TILE + t] =
+              static_cast<unsigned char>(reinterpret_cast<uintptr_t>(am0 + (size_t)(i0 + t) * N * 2) & 15);
+      } else if (p.amask) {
+        stage_tile_any<2>(p.am_unit, Am + s * AMT, AML, am0 + (size_t)i0 * N * 2, 2LL * N, LONG_CHUNK, LONG_ROWS,
+                          rlim, clim, t, WARPGROUP);
+      }
       stage_arrive(&full[s]);
     }
     cp_async_wait<0>();
@@ -1303,7 +1379,8 @@ __global__ void __launch_bounds__(LONG_THREADS, 1)
     // are not staged); the mask source and the qbias are a uniform choice
     const float* sm = reinterpret_cast<const float*>(Sts + st * ST2_TILE);  // max, sum, rd, RN(1 / sum)
     const unsigned char* qbs = Qb + st * QB2_TILE;
-    const unsigned char* ams = Am + st * AM2_TILE;
+    const unsigned char* ams = Am + st * AMT;
+    const unsigned char* shs = Sh + st * SH2_TILE;  // ROWS16: row il's amask shift at shs[il]
     const uint32_t* bts = reinterpret_cast<const uint32_t*>(Bt + st * BT2_TILE);
     const int qlim = N - i0;  // queries of the chunk below N
     float m[16], qv[16];      // element x: query column cq + 8 b + e, key row jl[hh]
@@ -1314,9 +1391,11 @@ __global__ void __launch_bounds__(LONG_THREADS, 1)
     }
     if (p.amask) {
 #pragma unroll
-      for (int x = 0; x < 16; ++x)
-        m[x] = __bfloat162float(*reinterpret_cast<const bf16*>(ams + (cq + (x >> 2) * 8 + (x & 1)) * AM2_LD +
-                                                                jl[(x >> 1) & 1] * 2));
+      for (int x = 0; x < 16; ++x) {
+        const int il = cq + (x >> 2) * 8 + (x & 1);
+        m[x] = __bfloat162float(
+            *reinterpret_cast<const bf16*>(ams + il * AML + (ROWS16 ? shs[il] : 0) + jl[(x >> 1) & 1] * 2));
+      }
     } else if (p.seed) {
 #pragma unroll
       for (int x = 0; x < 16; ++x) {
@@ -1429,6 +1508,396 @@ __global__ void __launch_bounds__(LONG_THREADS, 1)
   }
 }
 
+// The middle form's pass 1 (160 < N <= 288): dq of 128 query rows of (g, h)
+// on two consumer warpgroups, the statistics and keep words for pass 2 (the
+// long form's); k and v whole in shared memory (one TMA barrier a chunk), S
+// computed once and held for the whole row, the softmax in registers as the
+// register form's pass 1 runs it, then dp = dO V_c^T chunk by chunk twice
+// (rd, then ds and dq += ds K_c), the next chunk's product in flight while
+// one is read. The ring carries the bias pass's key-bias and qbias tiles
+// (steps 0 .. na - 1, na = NC when either is given, else 0), then the
+// amask tiles of the rd pass and of the ds pass (NC steps each when an
+// amask is given); the keep words of every chunk are drawn by the producer
+// at the start.
+template <int NC, int DP>
+__global__ void __launch_bounds__(LONG_THREADS, 1)
+    attention_bwd_dq_mid_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                                const __grid_constant__ CUtensorMap map_do, const Params p) {
+  constexpr int ROWB = DP * 2;
+  constexpr uint64_t SW = DP == 64 ? SWIZZLE_128B : SWIZZLE_64B;
+  constexpr uint32_t SBO = 8 * ROWB;
+  constexpr int KR = NC * KEYS;
+  constexpr int KV = KEYS * ROWB;  // one chunk of k or of v
+  // the ds pass issues chunk c + 1's dp before reading chunk c's where the
+  // registers allow (S, dq and two dp chunks: 9 x 64 spills), else after
+  // issuing chunk c's dq product
+  constexpr bool DS_AHEAD = NC * 16 + DP / 2 <= 144;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* Ds = Qs + LONG_ROWS * ROWB;  // dctx's rows
+  unsigned char* Ks = Ds + LONG_ROWS * ROWB;
+  unsigned char* Vs = Ks + KR * ROWB;
+  // stage s at Ring + s * MID_STAGE: a qbias tile and the key bias's 32
+  // f32 after it, or an amask tile
+  unsigned char* Ring = Vs + KR * ROWB;
+  uint32_t* Kw = reinterpret_cast<uint32_t*>(Ring + MID_STAGES * MID_STAGE);  // chunk c's words at Kw + 128 c
+  uint64_t* full = reinterpret_cast<uint64_t*>(Kw + NC * LONG_ROWS);
+  uint64_t* empty = full + MID_STAGES;
+  uint64_t* kbar = empty + MID_STAGES;
+  uint64_t* vbar = kbar + NC;
+  uint64_t* qbar = vbar + NC;
+  uint64_t* kwbar = qbar + 1;
+
+  const int N = p.N, C = p.C, Dh = p.Dh, nH = p.nH;
+  const int tile = blockIdx.x % p.tiles;
+  const int gh = blockIdx.x / p.tiles;
+  const int h = gh % nH, g = gh / nH;
+  const int row0 = tile * LONG_ROWS;
+  float* stt = p.scratch + gh * p.words;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(stt + 3 * N);  // one word per query and 32 keys
+  const int live_wgs = row0 + 64 < N ? 2 : 1;  // a consumer warpgroup wholly past N has nothing to do
+  const int na = p.kbias || p.qbias ? NC : 0, nm = p.amask ? NC : 0, steps = na + 2 * nm;
+  const int wg = threadIdx.x / WARPGROUP;  // 0: the producer; 1, 2: the consumers
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < MID_STAGES; ++s) {
+      mbar_init(&full[s], 2 * WARPGROUP);  // two a producer thread
+      mbar_init(&empty[s], 4 * live_wgs);  // lane 0 of each live consumer warp
+    }
+    for (int c = 0; c < NC; ++c) {
+      mbar_init(&kbar[c], 1);
+      mbar_init(&vbar[c], 1);
+    }
+    mbar_init(qbar, 1);
+    mbar_init(kwbar, WARPGROUP);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    regs_dec<MID_PRODUCER_REGS>();
+    const int t = threadIdx.x;
+    if (t == 0) {  // every copy of q, dctx, k and v at once: q and dctx, then k and v chunk by chunk
+      mbar_expect_tx(qbar, 2 * LONG_ROWS * ROWB);
+#pragma unroll 1
+      for (int r = 0; r < LONG_ROWS; r += KEYS) {
+        tma_load4(Qs + r * ROWB, &map_qkv, qbar, 0, h, row0 + r, g);
+        tma_load4(Ds + r * ROWB, &map_do, qbar, 0, h, row0 + r, g);
+      }
+#pragma unroll 1
+      for (int c = 0; c < NC; ++c) {
+        mbar_expect_tx(&kbar[c], KV);
+        tma_load4(Ks + c * KV, &map_qkv, &kbar[c], 0, nH + h, c * KEYS, g);
+      }
+#pragma unroll 1
+      for (int c = 0; c < NC; ++c) {
+        mbar_expect_tx(&vbar[c], KV);
+        tma_load4(Vs + c * KV, &map_qkv, &vbar[c], 0, 2 * nH + h, c * KEYS, g);
+      }
+    }
+    const unsigned char* kb0 = reinterpret_cast<const unsigned char*>(p.kbias + (size_t)g * N);
+    const unsigned char* qb0 = reinterpret_cast<const unsigned char*>(p.qbias + ((size_t)g * N + row0) * N);
+    const unsigned char* am0 = reinterpret_cast<const unsigned char*>(p.amask + ((size_t)gh * N + row0) * N);
+    const int rlim = N - row0;
+    if (t == 0) {  // the block's qbias and amask rows into L2 while its first tiles are staged
+      if (p.qbias) prefetch_l2(qb0, (size_t)min(rlim, LONG_ROWS) * N * 4);
+      if (p.amask) prefetch_l2(am0, (size_t)min(rlim, LONG_ROWS) * N * 2);
+    }
+    // a chunk's amask tile: rows that start 2 bytes off 4 (odd N) by
+    // 16-byte cp.async from the boundary at or before each (shifted), else
+    // as the long form stages it
+    auto stage_amask = [&](unsigned char* dst, const unsigned char* src, int rlim, int clim, int t) {
+      if (p.am_unit == 2)
+        stage_rows16<AM_CHUNKS>(dst, AM_LD, src, 2LL * N, min(KEYS, clim) * 2, LONG_ROWS, rlim, t, WARPGROUP);
+      else
+        stage_tile_any<2>(p.am_unit, dst, AM_LD, src, 2LL * N, LONG_ROWS, KEYS, rlim, clim, t, WARPGROUP);
+    };
+    // ring steps from .. to - 1
+    auto stage = [&](int from, int to) {
+#pragma unroll 1
+      for (int it = from; it < to; ++it) {
+        const int s = it % MID_STAGES;
+        if (it >= MID_STAGES) mbar_wait(&empty[s], ((it / MID_STAGES) - 1) & 1);
+        const bool bias = it < na;
+        const int key0 = (bias ? it : (it - na) % NC) * KEYS, clim = N - key0;
+        unsigned char* dst = Ring + s * MID_STAGE;
+        if (bias && p.kbias)
+          stage_tile_any<4>(p.kb_unit, dst + QB_TILE, 0, kb0 + key0 * 4, 0, 1, KEYS, 1, clim, t, WARPGROUP);
+        if (bias && p.qbias)
+          stage_tile_any<4>(p.qb_unit, dst, QB_LD, qb0 + key0 * 4, 4LL * N, LONG_ROWS, KEYS, rlim, clim, t,
+                            WARPGROUP);
+        if (!bias) stage_amask(dst, am0 + key0 * 2, rlim, clim, t);
+        stage_arrive(&full[s]);
+      }
+    };
+    stage(0, na);  // the bias pass's tiles first: the consumers need them first
+    if (p.seed) {  // row t's keep words of every chunk, two chunks at once, staged and written for pass 2
+      const int i = row0 + t;
+      const uint32_t key = adrop_key(p.seed), ctr1 = (uint32_t)g * 256u + (uint32_t)(h + p.head0);
+#pragma unroll 1
+      for (int c = 0; c < NC; c += 2) {
+        uint32_t wa = 0u, wb = 0u;
+        if (i < N && c + 1 < NC)
+          keep_word2(i, c * KEYS, (c + 1) * KEYS, N, key, ctr1, p.thresh, wa, wb);
+        else if (i < N)
+          wa = keep_word(i, c * KEYS, N, key, ctr1, p.thresh);
+        Kw[c * LONG_ROWS + t] = wa;
+        if (i < N) bits[i * NC + c] = wa;
+        if (c + 1 < NC) {
+          Kw[(c + 1) * LONG_ROWS + t] = wb;
+          if (i < N) bits[i * NC + c + 1] = wb;
+        }
+      }
+      mbar_arrive(kwbar);
+    }
+    stage(na, steps);
+    cp_async_wait<0>();
+    return;
+  }
+
+  // the consumers: warpgroup w owns block rows 64 w .. 64 w + 63. Element x
+  // = 4 b + 2 hh + e of chunk c's fragment sits in block row r0 + 8 hh, key
+  // 32 c + cq + 8 b + e.
+  regs_inc<MID_CONSUMER_REGS>();
+  const int w = wg - 1, tid = threadIdx.x - wg * WARPGROUP;
+  if (w >= live_wgs) return;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int r0 = w * 64 + warp * 16 + (lane >> 2);
+  const int cq = (lane & 3) * 2;
+  const bool live_warp = row0 + w * 64 + warp * 16 < N;
+  const bool live0 = row0 + r0 < N, live1 = row0 + r0 + 8 < N;
+  const uint32_t q_base = smem_u32(Qs + w * 64 * ROWB), d_base = smem_u32(Ds + w * 64 * ROWB);
+  const uint32_t k_base = smem_u32(Ks), v_base = smem_u32(Vs);
+  // the byte shifts of the thread's two rows in the staged amask tiles
+  // (`stage_rows16` at odd N: each row's start mod 16, the same in every
+  // chunk; 0 where the rows are staged as the long form stages them)
+  const int sha[2] = {p.am_unit == 2 ? row_shift(p.amask, ((size_t)gh * N + row0 + r0) * N, 2) : 0,
+                      p.am_unit == 2 ? row_shift(p.amask, ((size_t)gh * N + row0 + r0 + 8) * N, 2) : 0};
+
+  // S = Q K_c^T chunk by chunk as the chunks land, scale and biases, the
+  // row max, as K2's middle form
+  float s[NC][16];
+  mbar_wait(qbar, 0);
+  mbar_wait(&kbar[0], 0);
+  wgmma_rows32<DP>(s[0], q_base, k_base);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (c + 1 < NC) {
+      mbar_wait(&kbar[c + 1], 0);
+      wgmma_rows32<DP>(s[c + 1], q_base, k_base + (c + 1) * KV);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_acc(s[c]);
+    if (na) mbar_wait(&full[c % MID_STAGES], (c / MID_STAGES) & 1);
+    if (live_warp) {
+      const int st = c % MID_STAGES;
+      const float* kbs = reinterpret_cast<const float*>(Ring + st * MID_STAGE + QB_TILE);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int lc = cq + 8 * b;
+        const float2 kb2 = p.kbias ? *reinterpret_cast<const float2*>(kbs + lc) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 qb2 =
+              p.qbias ? *reinterpret_cast<const float2*>(Ring + st * MID_STAGE + (r0 + 8 * hh) * QB_LD + lc * 4)
+                      : make_float2(0.f, 0.f);
+          // the register form's order: scale, key bias, then qbias (absent: + 0, exact)
+          s[c][4 * b + 2 * hh] = s[c][4 * b + 2 * hh] * p.scale + kb2.x + qb2.x;
+          s[c][4 * b + 2 * hh + 1] = s[c][4 * b + 2 * hh + 1] * p.scale + kb2.y + qb2.y;
+        }
+      }
+      if (c == NC - 1 && c * KEYS + KEYS > N) {
+#pragma unroll
+        for (int x = 0; x < 16; ++x)
+          if (c * KEYS + cq + (x >> 2) * 8 + (x & 1) >= N) s[c][x] = -INFINITY;
+      }
+#pragma unroll
+      for (int x = 0; x < 16; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[c][x]);
+    }
+    if (na) release_stage(&empty[c % MID_STAGES], lane);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+  }
+
+  // the dropout multipliers of elements x, x + 1 (x even) of chunk c, from
+  // the ring's stage `st` (amask) or the keep words; keys past N (their
+  // tiles are not staged) get 0
+  if (p.seed) mbar_wait(kwbar, 0);
+  auto mask2 = [&](int c, int st, int x) -> float2 {
+    const int hh = (x >> 1) & 1, j = cq + (x >> 2) * 8;  // the pair's first key in the chunk
+    float2 m = make_float2(1.f, 1.f);
+    if (p.amask) {
+      const bf16* ar =
+          reinterpret_cast<const bf16*>(Ring + st * MID_STAGE + (r0 + 8 * hh) * AM_LD + sha[hh] + j * 2);
+      m = make_float2(__bfloat162float(ar[0]), __bfloat162float(ar[1]));
+    } else if (p.seed) {
+      const uint32_t kw = Kw[c * LONG_ROWS + r0 + 8 * hh] >> j;
+      m = make_float2(kw & 1u ? p.kept : 0.f, kw & 2u ? p.kept : 0.f);
+    }
+    if (c == NC - 1) {
+      if (c * KEYS + j >= N) m.x = 0.f;
+      if (c * KEYS + j + 1 >= N) m.y = 0.f;
+    }
+    return m;
+  };
+
+  // p in place of S: exp(s - max) / sum with the exact divide (Markstein's
+  // correction of v * RN(1 / sum)), in the register form's order
+  float sum[2] = {0.f, 0.f};
+  if (live_warp) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int hh = (x >> 1) & 1;
+        s[c][x] = expf(s[c][x] - mx[hh]);
+        sum[hh] += s[c][x];
+      }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+    sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+  }
+  if (live_warp) {
+    const float rcp[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int x = 0; x < 16; ++x) {
+        const int hh = (x >> 1) & 1;
+        const float q0 = s[c][x] * rcp[hh];
+        s[c][x] = fmaf(fmaf(-q0, sum[hh], s[c][x]), rcp[hh], q0);
+      }
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (hh ? live1 : live0) {
+          const int i = row0 + r0 + 8 * hh;
+          stt[i] = mx[hh];
+          stt[N + i] = sum[hh];
+        }
+    }
+  }
+
+  // rd = rowsum(p * dp * mask) in the register form's order: dp = dO V_c^T
+  // chunk by chunk, the next in flight
+  float dp[2][16], rd[2] = {0.f, 0.f};
+  mbar_wait(&vbar[0], 0);
+  wgmma_rows32<DP>(dp[0], d_base, v_base);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (c + 1 < NC) {
+      mbar_wait(&vbar[c + 1], 0);
+      wgmma_rows32<DP>(dp[(c + 1) & 1], d_base, v_base + (c + 1) * KV);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_acc(dp[c & 1]);
+    const int it = na + c, st = it % MID_STAGES;
+    if (nm) mbar_wait(&full[st], (it / MID_STAGES) & 1);
+    if (live_warp) {
+#pragma unroll
+      for (int x = 0; x < 16; x += 2) {
+        const float2 m = mask2(c, st, x);
+        rd[(x >> 1) & 1] += s[c][x] * (dp[c & 1][x] * m.x);
+        rd[(x >> 1) & 1] += s[c][x + 1] * (dp[c & 1][x + 1] * m.y);
+      }
+    }
+    if (nm) release_stage(&empty[st], lane);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    rd[hh] += __shfl_xor_sync(0xffffffffu, rd[hh], 1);
+    rd[hh] += __shfl_xor_sync(0xffffffffu, rd[hh], 2);
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      if (hh ? live1 : live0) stt[2 * N + row0 + r0 + 8 * hh] = rd[hh];
+  }
+
+  // ds = p * dp * mask - p * rd in bf16 pairs as the register A operand of
+  // dq += ds K_c (k read MN-major); dp again, the next chunk's in flight
+  float dq[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) dq[x] = 0.f;
+  fence_acc(dq);
+  uint32_t a[2][4] = {{0u, 0u, 0u, 0u}, {0u, 0u, 0u, 0u}};
+  wgmma_rows32<DP>(dp[0], d_base, v_base);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    if (DS_AHEAD && c + 1 < NC) {
+      wgmma_rows32<DP>(dp[(c + 1) & 1], d_base, v_base + (c + 1) * KV);
+      wgmma_wait<1>();  // dp of chunk c and the previous dq product are done
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_acc(dp[c & 1]);
+    fence_acc(dq);
+    fence_regs(a[0]);
+    fence_regs(a[1]);
+    const int it = na + nm + c, st = it % MID_STAGES;
+    if (nm) mbar_wait(&full[st], (it / MID_STAGES) & 1);
+#pragma unroll
+    for (int x = 0; x < 16; x += 2) {
+      const int hh = (x >> 1) & 1;
+      float d2[2] = {0.f, 0.f};
+      if (live_warp) {
+        const float2 m = mask2(c, st, x);
+        d2[0] = s[c][x] * (dp[c & 1][x] * m.x) - s[c][x] * rd[hh];
+        d2[1] = s[c][x + 1] * (dp[c & 1][x + 1] * m.y) - s[c][x + 1] * rd[hh];
+      }
+      // x = 4 b + 2 hh .. + 1: k16 step b / 2, register 2 (b % 2) + hh
+      a[x >> 3][((x >> 2) & 1) * 2 + hh] = pack_bf16(d2[0], d2[1]);
+    }
+    if (nm) release_stage(&empty[st], lane);
+    wgmma_fence();
+#pragma unroll
+    for (int k16 = 0; k16 < 2; ++k16) {
+      // 16 key rows of k; one column block, so LBO is unused (given SBO's value)
+      const uint64_t bk = make_desc(k_base + c * KV + k16 * 16 * ROWB, SBO, SBO, SW);
+      if constexpr (DP == 64)
+        wgmma_m64n64k16_rs(dq, a[k16], bk);
+      else
+        wgmma_m64n32k16_rs(dq, a[k16], bk);
+    }
+    wgmma_commit();
+    if (!DS_AHEAD && c + 1 < NC) wgmma_rows32<DP>(dp[(c + 1) & 1], d_base, v_base + (c + 1) * KV);
+  }
+  wgmma_wait<0>();
+  fence_acc(dq);
+  fence_regs(a[0]);
+  fence_regs(a[1]);
+
+  // dq * scale through this warpgroup's q rows (its S products are done),
+  // as the register form writes it
+  named_sync(1 + w, WARPGROUP);
+#pragma unroll
+  for (int b = 0; b < DP / 8; ++b) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<uint32_t*>(Qs + swz<ROWB>(r0 + 8 * hh, b) + cq * 2) =
+          pack_bf16(dq[4 * b + 2 * hh] * p.scale, dq[4 * b + 2 * hh + 1] * p.scale);
+  }
+  named_sync(1 + w, WARPGROUP);
+  const long long ld = 3LL * C, in0 = (long long)g * N * ld;
+  const int chunks = Dh / 8;
+  for (int e = tid; e < 64 * chunks; e += WARPGROUP) {
+    const int rr = w * 64 + e / chunks, cc = e % chunks;
+    const int i = row0 + rr;
+    if (i < N)
+      *reinterpret_cast<uint4*>(p.dqkv + in0 + i * ld + h * Dh + cc * 8) =
+          *reinterpret_cast<const uint4*>(Qs + swz<ROWB>(rr, cc));
+  }
+}
+
 // dpattern[i] = sum over chunks c, in order, of part[c, i]
 __global__ void sum_chunks_kernel(const float* __restrict__ part, float* __restrict__ dpattern, int chunks,
                                   size_t W) {
@@ -1514,8 +1983,41 @@ cudaError_t launch_dkv(const Params& p, unsigned blocks, int smem, cudaStream_t 
   return cudaGetLastError();
 }
 
+template <int NC, int DP>
+cudaError_t launch_dq_mid(const CUtensorMap& mqkv, const CUtensorMap& mdo, const Params& p, unsigned blocks,
+                          cudaStream_t stream) {
+  constexpr int smem = mid_dq_smem(NC * KEYS, DP);  // any N of NC chunks
+  static bool attr_set = false;                      // above 48 KB needs the opt-in, once per instance
+  if (!attr_set) {
+    cudaError_t e =
+        cudaFuncSetAttribute(attention_bwd_dq_mid_kernel<NC, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  attention_bwd_dq_mid_kernel<NC, DP><<<blocks, LONG_THREADS, smem, stream>>>(mqkv, mdo, p);
+  return cudaGetLastError();
+}
+
+// pass 1 of the middle form at `chunks` key chunks (6-9)
 template <int DP>
-cudaError_t launch_long(const void* qkv, const void* dctx, int G, const Params& p, unsigned blocks,
+cudaError_t dispatch_dq_mid(int chunks, const CUtensorMap& mqkv, const CUtensorMap& mdo, const Params& p,
+                            unsigned blocks, cudaStream_t stream) {
+  switch (chunks) {
+    case 6: return launch_dq_mid<6, DP>(mqkv, mdo, p, blocks, stream);
+    case 7: return launch_dq_mid<7, DP>(mqkv, mdo, p, blocks, stream);
+    case 8: return launch_dq_mid<8, DP>(mqkv, mdo, p, blocks, stream);
+    case 9: return launch_dq_mid<9, DP>(mqkv, mdo, p, blocks, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+static_assert(MID_MIN_CHUNKS == 6 && MAX_CHUNKS == 9, "dispatch_dq_mid covers every chunk count");
+
+// both passes of a TMA form on `blocks` blocks of 128 rows: the long form's
+// (mid_chunks 0), or the middle form's first pass at mid_chunks key chunks
+// and the long form's second pass (with an amask at odd N, its rows staged
+// 16 bytes at a time)
+template <int DP>
+cudaError_t launch_long(const void* qkv, const void* dctx, int G, const Params& p, unsigned blocks, int mid_chunks,
                         cudaStream_t stream) {
   // the fused rows as 3 nH heads (q, k, v) and dctx's: their bases are the call's, encoded at every launch
   CUtensorMap mqkv, mdo;
@@ -1528,31 +2030,45 @@ cudaError_t launch_long(const void* qkv, const void* dctx, int G, const Params& 
     cudaError_t e = cudaFuncSetAttribute(attention_bwd_dq_long_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, long_dq_smem(DP));
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(attention_bwd_dkv_long_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               long_dkv_smem(DP));
+      e = cudaFuncSetAttribute(attention_bwd_dkv_long_kernel<DP, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, long_dkv_smem(DP));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(attention_bwd_dkv_long_kernel<DP, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, mid_dkv_smem(DP));
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  attention_bwd_dq_long_kernel<DP><<<blocks, LONG_THREADS, long_dq_smem(DP), stream>>>(mqkv, mdo, p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  attention_bwd_dkv_long_kernel<DP><<<blocks, LONG_THREADS, long_dkv_smem(DP), stream>>>(mqkv, mdo, p);
+  cudaError_t e;
+  if (mid_chunks) {
+    e = dispatch_dq_mid<DP>(mid_chunks, mqkv, mdo, p, blocks, stream);
+    if (e != cudaSuccess) return e;
+    if (p.amask != nullptr && p.am_unit == 2)  // rows of the amask 2 bytes off 4
+      attention_bwd_dkv_long_kernel<DP, true><<<blocks, LONG_THREADS, mid_dkv_smem(DP), stream>>>(mqkv, mdo, p);
+    else
+      attention_bwd_dkv_long_kernel<DP, false><<<blocks, LONG_THREADS, long_dkv_smem(DP), stream>>>(mqkv, mdo, p);
+  } else {
+    attention_bwd_dq_long_kernel<DP><<<blocks, LONG_THREADS, long_dq_smem(DP), stream>>>(mqkv, mdo, p);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    attention_bwd_dkv_long_kernel<DP, false><<<blocks, LONG_THREADS, long_dkv_smem(DP), stream>>>(mqkv, mdo, p);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory of K4's larger pass for (N, Dh), in pattern mode (bit 0 of flags) or not, with an amask
-// (bit 1) or not, or -1 where K4 does not take them (N outside 1 .. 46,340, pattern mode past N = 288, or a
-// head dim that is not 16, 32, 48 or 64); the wrapper checks it against the card's opt-in limit.
-extern "C" long long mvlt_attention_bwd_smem(int N, int Dh, int flags) {
-  return smem_bytes(N, Dh, flags & 1, flags & 2);
+// Shared memory of K4's larger pass of `form` (0 register, N <= 288; 1 middle, 161 <= N <= 288; 2 long,
+// N <= 46,340) for (N, Dh), in pattern mode (bit 0 of flags) or not, with an amask (bit 1) or not, or -1
+// where that form does not take them (pattern mode outside the register form, or a head dim that is not
+// 16, 32, 48 or 64); the wrapper checks it against the card's opt-in limit.
+extern "C" long long mvlt_attention_bwd_smem(int N, int Dh, int flags, int form) {
+  return smem_bytes(N, Dh, flags & 1, flags & 2, form);
 }
 
 // f32 words of the scratch per (group, head) (row statistics and keep bits), or -1 where K4 does not take
 // (N, Dh).
 extern "C" long long mvlt_attention_bwd_scratch(int N, int Dh) {
-  return takes(N, Dh) || long_takes(N, Dh) ? scratch_words(N) : -1;
+  return long_takes(N, Dh) ? scratch_words(N) : -1;
 }
 
 // Chunks of the pattern mode for G groups and P patterns (the wrapper sizes dpat_part with it).
@@ -1569,27 +2085,30 @@ extern "C" int mvlt_attention_bwd_chunks(int G, int P, int nH) {
 // it, and head0 + nH <= 256 (head0 keys the draw as in K2). pstore: null, or (G, nH, N, N) bf16 p for mode (b). dkb_part: (G, nH, N) f32 scratch
 // and dkbias (G, N) f32, both null to skip the key-bias gradient. With a pattern, dpat_part: (chunks, P,
 // nH, N, N) f32 scratch (`mvlt_attention_bwd_chunks`) and dpattern (P, nH, N, N) f32. scratch: (G, nH,
-// `mvlt_attention_bwd_scratch`) f32, the first pass's statistics for the second. Past N = 288 (the long
-// form) pattern and pstore must be null.
+// `mvlt_attention_bwd_scratch`) f32, the first pass's statistics for the second. form: 0 the register
+// form, 1 the middle form, 2 the long form (`mvlt_attention_bwd_smem`); in the middle and long forms
+// pattern and pstore must be null.
 extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void* pattern, const void* kbias,
                                   const void* qbias, const void* amask, const void* seed, const void* pstore,
                                   void* dqkv, void* dkb_part, void* dkbias, void* dpat_part, void* dpattern,
                                   void* scratch, int G, int N, int C, int nH, int P, float scale,
-                                  unsigned int thresh, float kept, int head0, void* stream) {
+                                  unsigned int thresh, float kept, int head0, int form, void* stream) {
   if (G < 1 || nH < 1 || C % nH != 0 || scratch == nullptr) return (int)cudaErrorInvalidValue;
   const int Dh = C / nH;
-  const long long smem = smem_bytes(N, Dh, pattern != nullptr, amask != nullptr);
+  const long long smem = smem_bytes(N, Dh, pattern != nullptr, amask != nullptr, form);
   if (smem < 0) return (int)cudaErrorInvalidValue;
   if (seed != nullptr && (amask != nullptr || head0 < 0 || head0 + nH > 256)) return (int)cudaErrorInvalidValue;
-  const bool long_form = N > MAX_N;
-  if (long_form && (pattern != nullptr || pstore != nullptr)) return (int)cudaErrorInvalidValue;
+  const bool long_form = form == FORM_LONG, staged = form != FORM_REGISTER;  // TMA blocks of 128 rows
+  if (staged && (pattern != nullptr || pstore != nullptr)) return (int)cudaErrorInvalidValue;
+  // the middle form stages an amask's rows from the 16-byte boundary at or before each
+  if (form == FORM_MIDDLE && ((uintptr_t)amask & 15)) return (int)cudaErrorInvalidValue;
   if ((dkb_part == nullptr) != (dkbias == nullptr)) return (int)cudaErrorInvalidValue;
   if (pattern != nullptr && (P < 1 || G % P != 0 || dpat_part == nullptr || dpattern == nullptr))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)qkv | (uintptr_t)dctx | (uintptr_t)dqkv) & 15) return (int)cudaErrorInvalidValue;
   const int optin = smem_optin();
   if (optin < 0 || smem > optin) return (int)cudaErrorInvalidValue;
-  const int tiles = long_form ? (N + LONG_ROWS - 1) / LONG_ROWS : (N + ROWS - 1) / ROWS;
+  const int tiles = staged ? (N + LONG_ROWS - 1) / LONG_ROWS : (N + ROWS - 1) / ROWS;
   int chunks = 1, wpb = 1, stride = G, per = 1;  // without a pattern: one group a block
   if (pattern != nullptr) {
     pattern_split(G, P, nH, &chunks, &wpb);
@@ -1606,14 +2125,14 @@ extern "C" int mvlt_attention_bwd(const void* qkv, const void* dctx, const void*
                  static_cast<const int*>(seed), static_cast<cbf>(pstore), static_cast<bf16*>(dqkv),
                  static_cast<float*>(dkb_part), static_cast<float*>(dpat_part), static_cast<float*>(scratch),
                  scratch_words(N), N, C, nH, Dh, pattern != nullptr ? P : 1, tiles,
-                 !long_form && amask != nullptr && dq_mask_smem(N, Dh) > 0, stride, per, wpb, qb_unit, am_unit,
+                 !staged && amask != nullptr && dq_mask_smem(N, Dh) > 0, stride, per, wpb, qb_unit, am_unit,
                  kb_unit, scale, thresh, kept, head0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nc = chunks_of(N), wide = head_cols(Dh) == 64;
   cudaError_t e;
-  if (long_form) {  // both passes on G * nH * tiles blocks
-    e = wide ? launch_long<64>(qkv, dctx, G, p, (unsigned)dq_blocks, s)
-             : launch_long<32>(qkv, dctx, G, p, (unsigned)dq_blocks, s);
+  if (staged) {  // both passes on G * nH * tiles blocks; the middle form's second pass is the long form's
+    e = wide ? launch_long<64>(qkv, dctx, G, p, (unsigned)dq_blocks, long_form ? 0 : nc, s)
+             : launch_long<32>(qkv, dctx, G, p, (unsigned)dq_blocks, long_form ? 0 : nc, s);
   } else {
     const int q_smem = dq_smem(N, Dh) + (p.mask_staged ? dq_mask_smem(N, Dh) : 0);
     e = wide ? dispatch_dq<64>(nc, p, (unsigned)dq_blocks, q_smem, s)

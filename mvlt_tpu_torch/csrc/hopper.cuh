@@ -262,6 +262,45 @@ __device__ __forceinline__ void stage_tile_any(int unit, unsigned char* dst, int
   else
     stage_tile<E, E>(dst, dld, src, ld, rows, cols, rlim, clim, t, nt);
 }
+// The middle forms' bias tiles: the first `bytes` bytes of each row r <
+// min(rows, rlim) of a row-major matrix (row r at src + r * ld bytes) into
+// dst + r * dld, as the 16-byte chunks that cover them from the 16-byte
+// boundary at or before the row's start, the last cut at the row's end: the
+// row's byte b lands at dst + r * dld + (src + r * ld) % 16 + b. At most CH
+// chunks a row (dld >= 16 CH), by thread t of nt. The matrix starts on a
+// 16-byte boundary, so every chunk lies in it; rows of any length and start
+// take 16-byte cp.async (where 4-byte units, or 2-byte plain copies at an
+// odd N of bf16, are all `stage_tile` can take).
+template <int CH>
+__device__ __forceinline__ void stage_rows16(unsigned char* dst, int dld, const unsigned char* src, long long ld,
+                                             int bytes, int rows, int rlim, int t, int nt) {
+  const int rend = rows < rlim ? rows : rlim;
+  for (int e = t; e < rend * CH; e += nt) {
+    const int r = e / CH, k = e - r * CH;
+    const uintptr_t s = reinterpret_cast<uintptr_t>(src + r * ld), end = s + bytes;
+    const uintptr_t a = (s & ~static_cast<uintptr_t>(15)) + 16 * k;
+    if (a < end)
+      cp_async16(dst + r * dld + 16 * k, reinterpret_cast<const void*>(a),
+                 static_cast<uint32_t>(end - a < 16 ? end - a : 16));
+  }
+}
+// where element e of a matrix of E-byte elements starts, mod 16: the shift
+// of its row in a tile `stage_rows16` staged (0 for an absent matrix)
+template <typename T>
+__device__ __forceinline__ int row_shift(const T* base, size_t e, int E) {
+  return base ? static_cast<int>((reinterpret_cast<uintptr_t>(base) + e * E) & 15) : 0;
+}
+// ask for the 16-byte-aligned bytes inside [lo, lo + bytes) to be brought
+// into L2 ahead of their use (a bulk prefetch: no shared memory, no
+// barrier), in pieces of 16 KB
+__device__ __forceinline__ void prefetch_l2(const void* lo, size_t bytes) {
+  const uintptr_t a = (reinterpret_cast<uintptr_t>(lo) + 15) & ~static_cast<uintptr_t>(15);
+  const uintptr_t end = (reinterpret_cast<uintptr_t>(lo) + bytes) & ~static_cast<uintptr_t>(15);
+  for (uintptr_t x = a; x < end; x += 16384) {
+    const uint32_t n = static_cast<uint32_t>(end - x < 16384 ? end - x : 16384);
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(x), "r"(n) : "memory");
+  }
+}
 // a producer thread's two arrivals on a stage's `full` barrier (counted as
 // two per producer thread): one now, which releases its plain stores, and
 // one once every cp.async it issued has landed

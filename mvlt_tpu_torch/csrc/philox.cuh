@@ -18,8 +18,9 @@
 // ops/kernels.py) give bit-identical masks. The register forms of K2 and
 // K4's first pass share each Philox call between two scores of a row
 // (`draw_chunk` below); the long forms' producers draw a row's keep word of
-// a 32-key chunk (`keep_word`); K4's second pass reads the keep bits that
-// its first pass drew.
+// a 32-key chunk (`keep_word`), the middle forms' two chunks' at once
+// (`keep_word2`); K4's second pass reads the keep bits that its first pass
+// drew.
 
 #pragma once
 
@@ -98,6 +99,29 @@ __device__ __forceinline__ uint32_t keep_word(int i, int key0, int N, uint32_t k
     }
   }
   return wd;
+}
+
+// keep_word of row i for two chunks at once (keys key0a .. and key0b ..),
+// their Philox calls interleaved (two independent chains a step): the same
+// two words as two keep_word calls
+__device__ __forceinline__ void keep_word2(int i, int key0a, int key0b, int N, uint32_t key, uint32_t ctr1,
+                                           uint32_t thresh, uint32_t& wa, uint32_t& wb) {
+  const int ea = i * N + key0a, ja = N - key0a < 32 ? N - key0a : 32;
+  const int eb = i * N + key0b, jb = N - key0b < 32 ? N - key0b : 32;
+  const int ba = ea >> 2, na = ((ea + ja - 1) >> 2) - ba + 1, bb = eb >> 2, nb = ((eb + jb - 1) >> 2) - bb + 1;
+  wa = wb = 0;
+#pragma unroll 1
+  for (int k = 0; k < (na > nb ? na : nb); ++k) {
+    const uint4 ra = philox4x32_10(make_uint4((uint32_t)(ba + k), ctr1, 0u, 0u), make_uint2(key, 0u));
+    const uint4 rb = philox4x32_10(make_uint4((uint32_t)(bb + k), ctr1, 0u, 0u), make_uint2(key, 0u));
+    const uint32_t xa[4] = {ra.x, ra.y, ra.z, ra.w}, xb[4] = {rb.x, rb.y, rb.z, rb.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = 4 * (ba + k) + q - ea, l = 4 * (bb + k) + q - eb;
+      if (k < na && j >= 0 && j < ja && xa[q] < thresh) wa |= 1u << j;
+      if (k < nb && l >= 0 && l < jb && xb[q] < thresh) wb |= 1u << l;
+    }
+  }
 }
 
 }  // namespace mvlt

@@ -12,15 +12,17 @@ kernel on the ported paths is rebuilt from these in
 K1 is a persistent TMA + ``wgmma`` GEMM for the NT, NN and TN layouts with
 a fused epilogue; a product with no epilogue whose output tiles fill at most
 half the card runs as a deterministic split-K, as :func:`gemm_plan` cuts it
-(counted in ``gemm.splitk_launches``). K2 runs one warpgroup per 64 query
-rows of a (group, head) on ``wgmma`` (S = Q K^T and P V, the softmax in
-registers), as :func:`attention_plan` tiles it, up to N = 288; past it a
-long form runs 128 query rows a block on two consumer warpgroups, the keys
-streamed in 32-key chunks by a producer warpgroup (TMA and cp.async into a
-four-stage ring) in two sweeps, up to N = 46,340. K4 runs the same tiles in
-two passes (queries, then keys; every product on ``wgmma``), as
-:func:`attention_bwd_plan` tiles it, over the same N, with a long form of
-both passes past N = 288 on K2's long-form block. K3
+(counted in ``gemm.splitk_launches``). K2 and K4 (its two passes: queries,
+then keys; every product on ``wgmma``) run N in one of three forms, as
+:func:`attention_form` routes it and :func:`attention_plan` /
+:func:`attention_bwd_plan` tile it. The register form, up to N = 160 and in
+every window mode up to 288: one warpgroup per 64 query rows of a (group,
+head), the scores in registers. The middle form, for the sequence modes at
+160 < N <= 288 (the fusion's 180, 201, 221, 278): a producer and two
+consumer warpgroups on 128 query rows, k and v whole in shared memory by
+TMA, a row's scores in registers, one sweep (K4's second pass is the long
+form's). The long form, past N = 288 up to 46,340: the same block, the keys
+streamed in 32-key chunks through a four-stage ring in two sweeps. K3
 and K5 lay a row on a group of lanes sized to C and move it in 16-byte
 words (:func:`row_plan`); K5's column sums run in an order that its plan
 alone fixes (:func:`layernorm_bwd_plan`, :func:`column_sum_plan`), through
@@ -32,8 +34,8 @@ device seed (``adrop=(seed, rate)``; the Philox stream of
 the stored softmax (K2 ``save_p=True`` writes p, K4 ``p=`` reads it). K2
 reads q, k, v through explicit strides, so it also takes separate head-major
 (G, nH, N, Dh) tensors (:func:`biased_attention_heads`, the layout of
-``window_attention``). Each mode has a launch count of its own beside
-``launches`` (``MODE_COUNTS``).
+``window_attention``). Each mode, and the middle form, has a launch count of
+its own beside ``launches`` (``MODE_COUNTS``).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on PyTorch's current
@@ -77,14 +79,15 @@ _i64 = ctypes.c_longlong
 _SIGNATURES = {
     "mvlt_gemm": ([_vp] * 10 + [_int] * 7 + [_vp, _int, _vp], _int),
     "mvlt_attention": ([_vp] * 3 + [_i64] * 3 + [_vp] + [_i64] * 3 + [_vp] * 7
-                       + [_int] * 5 + [_float, _uint, _float, _int, _vp], _int),
-    "mvlt_attention_smem": ([_int] * 3, _i64),
+                       + [_int] * 5 + [_float, _uint, _float, _int, _int, _vp],
+                       _int),
+    "mvlt_attention_smem": ([_int] * 4, _i64),
     "mvlt_smem_optin": ([], _int),
     "mvlt_layernorm": ([_vp] * 5 + [_int, _int, _float, _int, _vp], _int),
     "mvlt_layernorm_plan": ([_int, _int, _vp], _int),
     "mvlt_attention_bwd": ([_vp] * 14 + [_int] * 5
-                           + [_float, _uint, _float, _int, _vp], _int),
-    "mvlt_attention_bwd_smem": ([_int] * 3, _i64),
+                           + [_float, _uint, _float, _int, _int, _vp], _int),
+    "mvlt_attention_bwd_smem": ([_int] * 4, _i64),
     "mvlt_attention_bwd_scratch": ([_int] * 2, _i64),
     "mvlt_attention_bwd_chunks": ([_int] * 3, _int),
     "mvlt_layernorm_bwd": ([_vp] * 10 + [_int, _int, _float] + [_int] * 4
@@ -558,6 +561,20 @@ ATTENTION_MAX_N = ATTENTION_KEYS * ATTENTION_MAX_CHUNKS
 ATTENTION_LONG_ROWS, ATTENTION_LONG_CHUNK, ATTENTION_LONG_STAGES = 128, 32, 4
 ATTENTION_LONG_SWEEPS, ATTENTION_LONG_SM_BLOCKS = 2, 1
 ATTENTION_LONG_MAX_N = 46340
+# between them, the middle form of K2 and of K4's first pass (K4's second
+# pass is the long form's): the long form's block on 128 query rows, with k
+# and v whole in shared memory (each 32-key chunk on a TMA barrier of its
+# own), a row's scores in the consumers' registers and one sweep over the
+# keys; the bias tiles through a ring of ATTENTION_MID_STAGES stages, each
+# holding a qbias tile and the key bias or, later, an amask tile. It takes
+# the sequence modes at 6-9 key chunks (161 <= N <= 288), and the plan moves
+# them off the register form at its first N: at the fusion lengths 180-278
+# it beat the register form in every mode on the card
+# (`chip_smoke.py --mid-n`; PERF.md, Findings)
+ATTENTION_MID_STAGES, ATTENTION_MID_MIN_N = 5, 161
+# the forms, in the order of their codes in csrc (`form` of mvlt_attention
+# and mvlt_attention_bwd)
+ATTENTION_FORMS = ("register", "middle", "long")
 # bias-tile bytes a ring stage holds (csrc's QB_TILE, AM_TILE, KB_TILE and
 # their pass-2 forms): K2 and K4's first pass, 128 rows of 32 qbias f32
 # (rows padded to 160 bytes) and amask bf16 (80), the key bias's 32 f32;
@@ -566,6 +583,11 @@ ATTENTION_LONG_MAX_N = 46340
 _LONG_ROW_TILES = (ATTENTION_LONG_ROWS * (160 + 80 + 4)
                    + ATTENTION_LONG_CHUNK * 4)
 _LONG_COL_TILES = ATTENTION_LONG_CHUNK * (528 + 264 + 4 * 4 + 4 * 4)
+# the middle form's second pass (the long form's; with an amask at odd N its
+# rows staged 16 bytes at a time from the boundary at or before each): amask
+# rows padded to 272 bytes and each query row's shift beside the tiles
+_MID_COL_TILES = ATTENTION_LONG_CHUNK * (528 + 272 + 4 * 4 + 4 * 4 + 1)
+_MID_STAGE = ATTENTION_LONG_ROWS * 160 + ATTENTION_LONG_CHUNK * 4
 
 
 def _long_smem(cols: int, operands: int, tiles: int) -> int:
@@ -576,6 +598,16 @@ def _long_smem(cols: int, operands: int, tiles: int) -> int:
     rows = operands * ATTENTION_LONG_ROWS + ATTENTION_LONG_STAGES * 2 * \
         ATTENTION_LONG_CHUNK
     return 1024 + rows * cols * 2 + ATTENTION_LONG_STAGES * tiles + 128
+
+
+def _mid_smem(cols: int, operands: int, chunks: int) -> int:
+    """Shared memory of a middle-form block (K2, K4's first pass): 1024
+    bytes of slack, ``operands`` bf16 operands of 128 rows, k and v over
+    ``chunks`` whole 32-key chunks, the ring's stages, a keep word per row
+    and chunk, 256 bytes of mbarriers."""
+    rows = operands * ATTENTION_LONG_ROWS + 2 * chunks * ATTENTION_KEYS
+    return (1024 + rows * cols * 2 + ATTENTION_MID_STAGES * _MID_STAGE
+            + chunks * ATTENTION_LONG_ROWS * 4 + 256)
 
 
 # the shared memory an H100 SM gives its blocks, and what it keeps per block
@@ -590,73 +622,122 @@ def attention_min_blocks(chunks: int) -> int:
 
 
 class AttentionPlan(NamedTuple):
-    """How K2 runs one (N, Dh): ``tiles`` blocks per (group, head), each on
-    :attr:`rows` query rows against ``key_chunks`` chunks of 32 keys; rows
-    of ``head_cols`` bf16 columns in shared memory (the head dim
-    zero-padded to one swizzle row); ``smem`` bytes of shared memory a
-    block, and ``mask_smem`` more when an amask is given: its 64 rows are
-    staged there where that keeps :func:`attention_min_blocks` blocks on an
-    SM (0: read from device memory). With ``long_form`` (N > 288) a block of
-    a producer and two consumer warpgroups owns 128 query rows and streams
-    the keys in ``key_chunks`` chunks of ``ATTENTION_LONG_CHUNK`` through a
-    ring of :attr:`stages` stages, twice (the row statistics, then P V):
-    ``smem`` holds q's 128 rows, the ring's k and v chunks and their key
-    bias, qbias and amask tiles whatever N is (``mask_smem`` 0)."""
+    """How K2 runs one (N, Dh) in its :attr:`form`: ``tiles`` blocks per
+    (group, head), each on :attr:`rows` query rows against ``key_chunks``
+    chunks of 32 keys; rows of ``head_cols`` bf16 columns in shared memory
+    (the head dim zero-padded to one swizzle row); ``smem`` bytes of shared
+    memory a block, and ``mask_smem`` more when an amask is given. The
+    register form: one warpgroup on 64 rows, the scores in registers, an
+    amask's 64 rows staged where that keeps :func:`attention_min_blocks`
+    blocks on an SM (else 0: read from device memory). The middle form: a
+    producer and two consumer warpgroups on 128 rows, k and v whole in
+    shared memory, the scores in registers, one sweep; its bias tiles
+    through a ring of :attr:`stages` stages. The long form: the same block,
+    the keys streamed in chunks of ``ATTENTION_LONG_CHUNK`` through a ring
+    of :attr:`stages` stages, twice (the row statistics, then P V); ``smem``
+    the same whatever N is. Neither staged form has ``mask_smem``."""
     tiles: int
     key_chunks: int
     head_cols: int
     smem: int
     mask_smem: int
-    long_form: bool = False
+    form: str = "register"
 
     @property
     def rows(self) -> int:
         """Query rows a block."""
-        return ATTENTION_LONG_ROWS if self.long_form else ATTENTION_ROWS
+        return ATTENTION_ROWS if self.form == "register" else \
+            ATTENTION_LONG_ROWS
 
     @property
     def stages(self) -> int:
-        """Stages of the long form's ring (0: the register form has none)."""
-        return ATTENTION_LONG_STAGES if self.long_form else 0
+        """Stages of the ring (0: the register form has none)."""
+        return {"register": 0, "middle": ATTENTION_MID_STAGES,
+                "long": ATTENTION_LONG_STAGES}[self.form]
 
     @property
     def sm_blocks(self) -> int:
         """Blocks an SM holds (the register form's register cap)."""
-        return (ATTENTION_LONG_SM_BLOCKS if self.long_form
-                else attention_min_blocks(self.key_chunks))
+        return (attention_min_blocks(self.key_chunks)
+                if self.form == "register" else ATTENTION_LONG_SM_BLOCKS)
 
 
 def _head_cols(Dh: int) -> int:
     return 32 if Dh <= 32 else 64
 
 
-def _long_n(N: int, Dh: int, kernel: str) -> bool:
-    """Whether N takes the long form; raises ``ValueError`` for N outside
-    1 .. ``ATTENTION_LONG_MAX_N``."""
+def attention_form(N: int, window: bool = False, *, backward: bool = False,
+                   amask: bool = False) -> str:
+    """The form K2 (K4 with ``backward``) runs N in, with or without an
+    ``amask``, as the forms measured on an H100 (`chip_smoke.py --mid-n`;
+    PERF.md, Findings): the register form up to ``ATTENTION_MID_MIN_N - 1``
+    and in every window mode (pattern, stored p, head-major: N <= 288); up
+    to ``ATTENTION_MAX_N`` K2's middle form, and K4's where an amask's rows
+    start 2 bytes off 4 (odd N; the long form copies them 2 bytes at a
+    time: at 201 and 221 the middle form took 0.342 and 0.368 ms as graphs
+    against its 0.783 and 0.850), else K4's long form (it beat the middle
+    form's pass 1, whose dp round trips a chunk cost more than the long
+    form's second sweep: 0.247 against 0.276 ms at 221 with a key bias,
+    0.416 against 0.497 at 278); the long form past 288 (which no window
+    mode takes: :func:`check_attention_fits` refuses them there)."""
+    if N > ATTENTION_MAX_N:
+        return "long"
+    if window or N < ATTENTION_MID_MIN_N:
+        return "register"
+    return "long" if backward and not (amask and N % 2) else "middle"
+
+
+def _form_of(N: int, Dh: int, kernel: str, form: Optional[str]) -> str:
+    """``form``, or the plan's form for N, after checking that it takes
+    (N, Dh); raises ``ValueError`` for N outside 1 ..
+    ``ATTENTION_LONG_MAX_N`` and for a form that does not take N."""
     if not 0 < N <= ATTENTION_LONG_MAX_N:
         raise ValueError(
             f"{kernel}: N={N}, head dim {Dh} is beyond the kernel's N <= "
             f"{ATTENTION_LONG_MAX_N} (the long form's i * N + j element "
             "indices are 32-bit)")
-    return N > ATTENTION_MAX_N
+    form = form or attention_form(N, backward=kernel.endswith("_bwd"))
+    if form not in ATTENTION_FORMS:
+        raise ValueError(f"{kernel}: no form {form!r} (one of "
+                         f"{ATTENTION_FORMS})")
+    if form == "register" and N > ATTENTION_MAX_N:
+        raise ValueError(f"{kernel}: N={N}, head dim {Dh}: the register "
+                         f"form holds N <= {ATTENTION_MAX_N} keys")
+    if form == "middle" and not ATTENTION_MID_MIN_N <= N <= ATTENTION_MAX_N:
+        raise ValueError(f"{kernel}: N={N}, head dim {Dh}: the middle form "
+                         f"takes {ATTENTION_MID_MIN_N} <= N <= "
+                         f"{ATTENTION_MAX_N}")
+    return form
+
+
+def _check_head_dim(Dh: int, what: str) -> None:
+    if not (Dh > 0 and Dh % 16 == 0 and Dh <= 64):
+        raise ValueError(
+            f"{what}head dim {Dh} is not a multiple of 16 up to 64 (the wgmma "
+            "k16 steps over one swizzle row)")
 
 
 @functools.lru_cache(maxsize=1024)
-def attention_plan(N: int, Dh: int) -> AttentionPlan:
+def attention_plan(N: int, Dh: int, form: Optional[str] = None
+                   ) -> AttentionPlan:
     """K2's tile plan for sequences of N at head dim Dh (``smem_bytes`` in
-    csrc/attention.cu): the register form up to N = ``ATTENTION_MAX_N``,
-    the long form beyond. Raises ``ValueError`` for a head dim that is not
-    16, 32, 48 or 64 and for N outside 1 .. ``ATTENTION_LONG_MAX_N``."""
-    if not (Dh > 0 and Dh % 16 == 0 and Dh <= 64):
-        raise ValueError(
-            f"biased_attention: head dim {Dh} is not a multiple of 16 up to "
-            "64 (the wgmma k16 steps over one swizzle row)")
+    csrc/attention.cu) in ``form``, by default :func:`attention_form`'s for
+    K2's sequence modes: the register form up to N = 160, the middle form up
+    to ``ATTENTION_MAX_N``, the long form beyond (the window modes take the
+    register form: :func:`check_attention_fits`). Raises ``ValueError`` for
+    a head dim that is not 16, 32, 48 or 64, for N outside 1 ..
+    ``ATTENTION_LONG_MAX_N`` and for a form that does not take N."""
+    _check_head_dim(Dh, "biased_attention: ")
     cols = _head_cols(Dh)
-    if _long_n(N, Dh, "biased_attention"):
+    form = _form_of(N, Dh, "biased_attention", form)
+    chunks = -(-N // ATTENTION_KEYS)
+    if form == "long":
         return AttentionPlan(-(-N // ATTENTION_LONG_ROWS),
                              -(-N // ATTENTION_LONG_CHUNK), cols,
-                             _long_smem(cols, 1, _LONG_ROW_TILES), 0, True)
-    chunks = -(-N // ATTENTION_KEYS)
+                             _long_smem(cols, 1, _LONG_ROW_TILES), 0, form)
+    if form == "middle":
+        return AttentionPlan(-(-N // ATTENTION_LONG_ROWS), chunks, cols,
+                             _mid_smem(cols, 1, chunks), 0, form)
     smem = (ATTENTION_ROWS + 2 * chunks * ATTENTION_KEYS) * cols * 2 + 1024
     rows = ATTENTION_ROWS * N * 2 + 16
     budget = H100_SMEM_SM // attention_min_blocks(chunks) - SMEM_BLOCK_RESERVED
@@ -664,14 +745,16 @@ def attention_plan(N: int, Dh: int) -> AttentionPlan:
                          rows if smem + rows <= budget else 0)
 
 
-def attention_smem_bytes(N: int, Dh: int, amask: bool = False) -> int:
-    """Shared memory of one K2 block (``mvlt_attention_smem``): q's 64 rows,
-    k and v padded to whole 32-key chunks, bf16 rows of 32 or 64 columns,
-    1024 bytes of alignment slack, and with ``amask`` the tile's 64 amask
-    rows (+ 16 bytes) where they are staged; -1 where K2 does not take
-    (N, Dh)."""
+def attention_smem_bytes(N: int, Dh: int, amask: bool = False,
+                         form: Optional[str] = None) -> int:
+    """Shared memory of one K2 block of ``form`` (the plan's by default;
+    ``mvlt_attention_smem``): the register form's q's 64 rows, k and v
+    padded to whole 32-key chunks, bf16 rows of 32 or 64 columns, 1024
+    bytes of alignment slack, and with ``amask`` the tile's 64 amask rows
+    (+ 16 bytes) where they are staged; the middle and long forms' blocks
+    (:func:`attention_plan`); -1 where that form does not take (N, Dh)."""
     try:
-        plan = attention_plan(N, Dh)
+        plan = attention_plan(N, Dh, form)
     except ValueError:
         return -1
     return plan.smem + (plan.mask_smem if amask else 0)
@@ -691,26 +774,30 @@ def check_attention_layout(ptrs, strides) -> None:
 
 
 class AttentionBwdPlan(NamedTuple):
-    """How K4 runs one (N, Dh) (csrc/attention_bwd.cu), in two passes: pass
-    1 on :attr:`rows` query rows a block against every key, pass 2 on as
-    many keys against every query, so ``tiles`` blocks of each per (group,
-    head); ``chunks`` 32-wide chunks of the other side (the register form's
-    pass 1 keeps S over all of them in registers); rows of ``head_cols``
-    bf16 columns in shared memory; ``dq_smem`` / ``dkv_smem`` bytes of
-    shared memory a block of pass 1 / pass 2, ``mask_smem`` more in pass 1
-    when an amask is given (its 64 rows are staged there where that keeps
-    :func:`attention_bwd_min_blocks` blocks on an SM; 0: read from device
-    memory), and ``pattern_smem`` more for pass 2's sum of ds over its
-    groups in pattern mode; ``scratch_words`` f32 words of scratch per
-    (group, head): each query's row max, row sum and rowsum(p * dp), then
-    its keep bits of the regenerated dropout, one word per 32 keys. With
-    ``long_form`` (N > 288, no pattern mode) each pass is a block of a
-    producer and two consumer warpgroups on 128 rows, the other side
-    streamed in chunks of ``ATTENTION_LONG_CHUNK`` through a ring of
-    :attr:`stages` stages with its bias tiles (pass 1 sweeps the keys
-    :attr:`sweeps` times: the row statistics with rd folded in, then ds
-    and dq): ``dq_smem`` and ``dkv_smem`` do not grow with N,
-    ``mask_smem`` and ``pattern_smem`` are 0."""
+    """How K4 runs one (N, Dh) in its :attr:`form` (csrc/attention_bwd.cu),
+    in two passes: pass 1 on :attr:`rows` query rows a block against every
+    key, pass 2 on as many keys against every query, so ``tiles`` blocks of
+    each per (group, head); ``chunks`` 32-wide chunks of the other side;
+    rows of ``head_cols`` bf16 columns in shared memory; ``dq_smem`` /
+    ``dkv_smem`` bytes of shared memory a block of pass 1 / pass 2,
+    ``mask_smem`` more in pass 1 when an amask is given, and
+    ``pattern_smem`` more for pass 2's sum of ds over its groups in pattern
+    mode; ``scratch_words`` f32 words of scratch per (group, head): each
+    query's row max, row sum and rowsum(p * dp), then its keep bits of the
+    regenerated dropout, one word per 32 keys. The register form: one
+    warpgroup on 64 rows, pass 1 keeping S over every chunk in registers,
+    an amask's 64 rows staged in pass 1 where that keeps
+    :func:`attention_bwd_min_blocks` blocks on an SM (0: read from device
+    memory). The middle form (no pattern mode): pass 1 on the long form's
+    block of 128 rows with k and v whole in shared memory, S in registers
+    and one sweep of S, its bias tiles through a ring of :attr:`stages`
+    stages; pass 2 the long form's. The long form (no pattern mode): each
+    pass a block of a producer and two consumer warpgroups on 128 rows, the
+    other side streamed in chunks of ``ATTENTION_LONG_CHUNK`` through a
+    ring of :attr:`stages` stages with its bias tiles (pass 1 sweeps the
+    keys :attr:`sweeps` times: the row statistics with rd folded in, then
+    ds and dq), ``dq_smem`` and ``dkv_smem`` the same at every N. Neither
+    staged form has ``mask_smem`` or ``pattern_smem``."""
     tiles: int
     chunks: int
     head_cols: int
@@ -719,29 +806,31 @@ class AttentionBwdPlan(NamedTuple):
     mask_smem: int
     pattern_smem: int
     scratch_words: int
-    long_form: bool = False
+    form: str = "register"
 
     @property
     def rows(self) -> int:
         """Rows a block of either pass (queries in pass 1, keys in pass 2)."""
-        return ATTENTION_LONG_ROWS if self.long_form else ATTENTION_ROWS
+        return ATTENTION_ROWS if self.form == "register" else \
+            ATTENTION_LONG_ROWS
 
     @property
     def stages(self) -> int:
-        """Stages of the long form's ring (0: the register form has none)."""
-        return ATTENTION_LONG_STAGES if self.long_form else 0
+        """Stages of pass 1's ring (0: the register form has none)."""
+        return {"register": 0, "middle": ATTENTION_MID_STAGES,
+                "long": ATTENTION_LONG_STAGES}[self.form]
 
     @property
     def sm_blocks(self) -> int:
         """Blocks of pass 1 an SM holds (the register form's register cap)."""
-        return (ATTENTION_LONG_SM_BLOCKS if self.long_form
-                else attention_bwd_min_blocks(self.chunks))
+        return (attention_bwd_min_blocks(self.chunks)
+                if self.form == "register" else ATTENTION_LONG_SM_BLOCKS)
 
     @property
     def sweeps(self) -> int:
-        """Pass 1's sweeps over the keys (the register form holds every
-        key's scores at once)."""
-        return ATTENTION_LONG_SWEEPS if self.long_form else 1
+        """Pass 1's sweeps of S over the keys (the register and middle
+        forms hold every key's scores at once)."""
+        return ATTENTION_LONG_SWEEPS if self.form == "long" else 1
 
 
 def attention_bwd_min_blocks(chunks: int) -> int:
@@ -751,25 +840,28 @@ def attention_bwd_min_blocks(chunks: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def attention_bwd_plan(N: int, Dh: int) -> AttentionBwdPlan:
+def attention_bwd_plan(N: int, Dh: int, form: Optional[str] = None
+                       ) -> AttentionBwdPlan:
     """K4's tile plan for sequences of N at head dim Dh (``smem_bytes`` and
-    ``scratch_words`` in csrc/attention_bwd.cu): the register form up to N =
-    ``ATTENTION_MAX_N``, the long form beyond. Raises ``ValueError``,
-    naming N and the head dim, for a head dim that is not 16, 32, 48 or 64
-    and for N outside 1 .. ``ATTENTION_LONG_MAX_N``."""
-    if not (Dh > 0 and Dh % 16 == 0 and Dh <= 64):
-        raise ValueError(
-            f"biased_attention_bwd: N={N}, head dim {Dh}: the head dim is not "
-            "a multiple of 16 up to 64 (the wgmma k16 steps over one swizzle "
-            "row)")
-    long_form = _long_n(N, Dh, "biased_attention_bwd")
+    ``scratch_words`` in csrc/attention_bwd.cu) in ``form``, by default
+    :func:`attention_form`'s for K4 without an amask: the register form up
+    to N = 160, the long form beyond (with an amask at odd N up to 288 the
+    middle form; the pattern and stored-p modes take the register form:
+    :func:`check_attention_fits`). Raises ``ValueError``, naming N and the
+    head dim, for a head dim that is not 16, 32, 48 or 64, for N outside 1
+    .. ``ATTENTION_LONG_MAX_N`` and for a form that does not take N."""
+    _check_head_dim(Dh, f"biased_attention_bwd: N={N}, head dim {Dh}: the ")
+    form = _form_of(N, Dh, "biased_attention_bwd", form)
     chunks = -(-N // ATTENTION_KEYS)
     cols = _head_cols(Dh)
-    if long_form:
+    words = 3 * N + N * chunks
+    if form != "register":
+        dkv = _long_smem(cols, 2, _LONG_COL_TILES if form == "long"
+                         else _MID_COL_TILES)
+        dq = (_long_smem(cols, 2, _LONG_ROW_TILES) if form == "long"
+              else _mid_smem(cols, 2, chunks))
         return AttentionBwdPlan(-(-N // ATTENTION_LONG_ROWS), chunks, cols,
-                                _long_smem(cols, 2, _LONG_ROW_TILES),
-                                _long_smem(cols, 2, _LONG_COL_TILES), 0, 0,
-                                3 * N + N * chunks, True)
+                                dq, dkv, 0, 0, words, form)
     rows = chunks * ATTENTION_KEYS
     dq = (2 * ATTENTION_ROWS + 2 * rows) * cols * 2 + 1024
     mask = ATTENTION_ROWS * N * 2 + 16
@@ -778,19 +870,25 @@ def attention_bwd_plan(N: int, Dh: int) -> AttentionBwdPlan:
     return AttentionBwdPlan(-(-N // ATTENTION_ROWS), chunks, cols, dq,
                             dq + 6 * rows * 4,
                             mask if dq + mask <= budget else 0,
-                            ATTENTION_ROWS * rows * 4, 3 * N + N * chunks)
+                            ATTENTION_ROWS * rows * 4, words)
 
 
 def attention_bwd_smem_bytes(N: int, Dh: int, pattern: bool = False,
-                             amask: bool = False) -> int:
-    """Shared memory of K4's larger pass (``mvlt_attention_bwd_smem``), in
-    pattern mode or not, with an amask or not; -1 where K4 does not take
-    (N, Dh), and in pattern mode past N = 288 (the long form has none)."""
+                             amask: bool = False,
+                             form: Optional[str] = None) -> int:
+    """Shared memory of K4's larger pass (``mvlt_attention_bwd_smem``) in
+    ``form`` (by default the one :func:`attention_form` gives the call, and
+    in pattern mode the register form), in pattern mode or not, with an
+    amask or not; -1 where that form does not take (N, Dh), and in pattern
+    mode outside the register form (past N = 288)."""
+    if form is None and 0 < N <= ATTENTION_LONG_MAX_N:
+        form = ("register" if pattern and N <= ATTENTION_MAX_N else
+                attention_form(N, backward=True, amask=amask))
     try:
-        plan = attention_bwd_plan(N, Dh)
+        plan = attention_bwd_plan(N, Dh, form)
     except ValueError:
         return -1
-    if plan.long_form:
+    if plan.form != "register":
         return -1 if pattern else max(plan.dq_smem, plan.dkv_smem)
     return max(plan.dq_smem + (plan.mask_smem if amask else 0),
                plan.dkv_smem + (plan.pattern_smem if pattern else 0))
@@ -802,18 +900,21 @@ def max_attention_n(Dh: int, smem_optin: int = H100_SMEM_OPTIN, *,
     """The largest N such that K2 (with or without an amask; or, with
     ``backward``, K4 in pattern mode; with ``window``, K2 in a window mode)
     admits every N up to it at head dim ``Dh`` on a card whose blocks may
-    opt in to ``smem_optin`` bytes: at most 288 in the window modes (the
-    register form), ``ATTENTION_LONG_MAX_N`` in the sequence modes where
-    the register form and then the long form fit the card."""
-    need = (functools.partial(attention_bwd_smem_bytes, pattern=True,
-                              amask=amask)
-            if backward else
-            functools.partial(attention_smem_bytes, amask=amask))
+    opt in to ``smem_optin`` bytes, each N in the form the plan gives it:
+    at most 288 in the window modes (the register form),
+    ``ATTENTION_LONG_MAX_N`` in the sequence modes where the register, the
+    middle and then the long form fit the card."""
+    def need(n):
+        if backward:
+            return attention_bwd_smem_bytes(n, Dh, pattern=True, amask=amask)
+        return attention_smem_bytes(n, Dh, amask,
+                                    attention_form(n, window) if n <=
+                                    ATTENTION_MAX_N else None)
     n = 0
-    while n < ATTENTION_MAX_N and 0 < need(n + 1, Dh) <= smem_optin:
+    while n < ATTENTION_MAX_N and 0 < need(n + 1) <= smem_optin:
         n += 1
     if n == ATTENTION_MAX_N and not (backward or window) and 0 < need(
-            n + 1, Dh) <= smem_optin:
+            n + 1) <= smem_optin:
         return ATTENTION_LONG_MAX_N
     return n
 
@@ -836,29 +937,33 @@ def smem_optin(device: torch.device) -> int:
 
 def check_attention_fits(N: int, Dh: int, smem_optin: int, *,
                          backward: bool = False, pattern: bool = False,
-                         amask: bool = False, window: str = "") -> None:
+                         amask: bool = False, window: str = "",
+                         form: Optional[str] = None):
     """Raise ``ValueError`` unless K2 (with ``amask`` staging its rows; K4,
     with ``pattern`` in its pattern mode) takes (N, Dh) on a card whose
     blocks may opt in to ``smem_optin`` bytes of shared memory, by its tile
-    plan (:func:`attention_plan`, :func:`attention_bwd_plan`). ``window``
-    names a window-only mode of the call ("pattern", "stored p",
-    "head-major"; ``pattern`` implies it), which the long form does not
-    take: past N = 288 such a call is refused."""
-    if backward:
-        plan = attention_bwd_plan(N, Dh)    # raises for what K4 cannot take
-        kernel = "biased_attention_bwd"
-    else:
-        plan = attention_plan(N, Dh)
-        kernel = "biased_attention"
+    plan (:func:`attention_plan`, :func:`attention_bwd_plan`) in ``form``
+    (by default the plan's); returns that plan. ``window`` names a
+    window-only mode of the call ("pattern", "stored p", "head-major";
+    ``pattern`` implies it), which only the register form takes: such a
+    call runs in the register form, and past N = 288 (or in another form
+    asked for) it is refused."""
     window = window or ("pattern" if pattern else "")
-    if plan.long_form and window:
+    if backward:
+        plan_of, kernel = attention_bwd_plan, "biased_attention_bwd"
+    else:
+        plan_of, kernel = attention_plan, "biased_attention"
+    # raises for what the kernel cannot take
+    plan = plan_of(N, Dh, form or (attention_form(
+        N, bool(window), backward=backward, amask=amask) if N > 0 else None))
+    if window and plan.form != "register":
         raise ValueError(
             f"{kernel}: N={N}, head dim {Dh}: the {window} mode keeps the "
-            f"register-resident tiling, N <= {ATTENTION_MAX_N}; the long "
-            "form past it takes the sequence modes only (key bias, qbias, "
+            f"register-resident tiling, N <= {ATTENTION_MAX_N}; the middle "
+            "and long forms take the sequence modes only (key bias, qbias, "
             "amask, in-kernel dropout)")
-    need = (attention_bwd_smem_bytes(N, Dh, pattern, amask) if backward
-            else plan.smem + (plan.mask_smem if amask else 0))
+    need = (attention_bwd_smem_bytes(N, Dh, pattern, amask, plan.form)
+            if backward else plan.smem + (plan.mask_smem if amask else 0))
     if need > smem_optin:       # formatted only on failure: every call asks
         top = max_attention_n(Dh, smem_optin, backward=backward, amask=amask,
                               window=bool(window))
@@ -866,6 +971,7 @@ def check_attention_fits(N: int, Dh: int, smem_optin: int, *,
             f"{kernel}: N={N}, head dim {Dh} needs {need} bytes of shared "
             f"memory per block, the card allows {smem_optin} (N <= {top} at "
             "this head dim)")
+    return plan
 
 
 def _check_masks(qbias, amask, G: int, num_heads: int, N: int) -> None:
@@ -879,9 +985,10 @@ def _check_masks(qbias, amask, G: int, num_heads: int, N: int) -> None:
 
 def _attention_geometry(qkv, num_heads: int, seq_n: int, backward: bool,
                         pattern: bool = False, amask: bool = False,
-                        window: str = ""):
-    """(G, C, Dh) of fused rows on the card, after the shape and
-    shared-memory checks (``window``: the call's window-only mode)."""
+                        window: str = "", form: Optional[str] = None):
+    """(G, C, Dh, plan) of fused rows on the card, after the shape and
+    shared-memory checks (``window``: the call's window-only mode;
+    ``form``: the form asked for, else the plan's)."""
     rows, C3 = qkv.shape
     N = seq_n
     if not (C3 % 3 == 0 and (C3 // 3) % num_heads == 0):
@@ -890,15 +997,21 @@ def _attention_geometry(qkv, num_heads: int, seq_n: int, backward: bool,
     Dh = C // num_heads
     if N <= 0 or rows % N:
         raise ValueError(f"rows {rows} not groups of N={N}")
-    check_attention_fits(N, Dh, smem_optin(qkv.device), backward=backward,
-                         pattern=pattern, amask=amask, window=window)
-    return rows // N, C, Dh
+    plan = check_attention_fits(N, Dh, smem_optin(qkv.device),
+                                backward=backward, pattern=pattern,
+                                amask=amask, window=window, form=form)
+    return rows // N, C, Dh, plan
 
 
-def _cuda_masks(qbias, amask, G, num_heads, N, dev) -> None:
+def _cuda_masks(qbias, amask, G, num_heads, N, dev, form: str) -> None:
     _cuda_arg(qbias, "qbias", torch.float32, dev, 3)
     _cuda_arg(amask, "amask", torch.bfloat16, dev, 4)
     _check_masks(qbias, amask, G, num_heads, N)
+    # the middle form may stage an amask's rows from the 16-byte boundary
+    # at or before each row's start, which must lie in the tensor
+    if form == "middle" and amask is not None and amask.data_ptr() % 16:
+        raise ValueError("the middle form needs an amask that starts on a "
+                         "16-byte boundary")
 
 
 def _check_adrop(adrop, amask, save_mask: bool = False) -> None:
@@ -986,15 +1099,19 @@ def biased_attention_plain(qkv, num_heads: int, seq_n: int, scale: float,
 def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
                      pattern=None, key_bias=None, qbias=None, amask=None, *,
                      adrop=None, save_p: bool = False,
-                     save_mask: bool = False):
+                     save_mask: bool = False, form: Optional[str] = None):
     """K2 wrapper; same contract as :func:`biased_attention_plain`. On CUDA:
     bf16 qkv and amask, f32 biases, an int32 device seed, a head dim of 16,
-    32, 48 or 64, at most 256 heads with ``adrop``, and N <= 46,340, past
-    N = 288 (the long form) with no pattern and no ``save_p``
-    (:func:`attention_plan`, :func:`check_attention_fits`); anything else
-    raises ``ValueError`` before a launch. Two calls on the same inputs are
-    bitwise equal. ``adrop`` counts in ``adrop_launches``, ``save_p`` in
-    ``save_p_launches``, both also in ``launches``."""
+    32, 48 or 64, at most 256 heads with ``adrop``, and N <= 46,340, in the
+    middle form (160 < N <= 288) and the long form (past N = 288) with no
+    pattern and no ``save_p`` (:func:`attention_plan`,
+    :func:`check_attention_fits`); anything else raises ``ValueError``
+    before a launch. Two calls on the same inputs are bitwise equal.
+    ``form`` ("register", "middle", "long") overrides the plan's form, for
+    the card's checks that time the forms against each other; callers leave
+    it to the plan. ``adrop`` counts in ``adrop_launches``, ``save_p`` in
+    ``save_p_launches``, the middle form in ``mid_launches``, all also in
+    ``launches``."""
     if not qkv.is_cuda:
         return biased_attention_plain(qkv, num_heads, seq_n, scale,
                                       pattern, key_bias, qbias, amask,
@@ -1004,10 +1121,11 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
     _cuda_arg(qkv, "qkv", torch.bfloat16, dev, 2)
     rows = qkv.shape[0]
     N = seq_n
-    G, C, _ = _attention_geometry(
+    window = "pattern" if pattern is not None else "stored p" if save_p else ""
+    G, C, _, plan = _attention_geometry(
         qkv, num_heads, N, backward=False, amask=amask is not None,
-        window="pattern" if pattern is not None else
-        "stored p" if save_p else "")
+        window=window, form=form or attention_form(
+            N, bool(window), amask=amask is not None))
     _cuda_arg(pattern, "pattern", torch.float32, dev, 4)
     P = 1
     if pattern is not None:
@@ -1018,7 +1136,7 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
     _cuda_arg(key_bias, "key_bias", torch.float32, dev, 2)
     if not (key_bias is None or tuple(key_bias.shape) == (G, N)):
         raise ValueError(f"key_bias must be ({G}, {N})")
-    _cuda_masks(qbias, amask, G, num_heads, N, dev)
+    _cuda_masks(qbias, amask, G, num_heads, N, dev, plan.form)
     _check_adrop(adrop, amask, save_mask)
     seed, thresh, kept, head0 = _cuda_adrop(adrop, num_heads, dev)
     ctx = torch.empty((rows, C), dtype=torch.bfloat16, device=dev)
@@ -1032,7 +1150,7 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
     check_attention_layout(ptrs + [ctx.data_ptr()], (N * 3 * C, Dh, 3 * C))
     _launch_attention(ptrs, (N * 3 * C, Dh, 3 * C), ctx, (N * C, Dh, C),
                       pattern, key_bias, qbias, amask, seed, pst, mask, G, N,
-                      num_heads, Dh, P, scale, thresh, kept, head0)
+                      num_heads, Dh, P, scale, thresh, kept, head0, plan.form)
     biased_attention.adrop_launches += adrop is not None
     biased_attention.save_p_launches += save_p
     return _with_extras(ctx, pst, mask)
@@ -1040,22 +1158,26 @@ def biased_attention(qkv, num_heads: int, seq_n: int, scale: float,
 
 def _launch_attention(qkv_ptrs, in_strides, ctx, out_strides, pattern,
                       key_bias, qbias, amask, seed, pst, mask, G, N, num_heads,
-                      Dh, P, scale, thresh, kept, head0=0) -> None:
-    """One K2 launch: q, k, v at the addresses ``qkv_ptrs`` with element
-    strides ``in_strides`` (group, head, row), ctx with ``out_strides``."""
+                      Dh, P, scale, thresh, kept, head0=0,
+                      form: str = "register") -> None:
+    """One K2 launch of ``form``: q, k, v at the addresses ``qkv_ptrs`` with
+    element strides ``in_strides`` (group, head, row), ctx with
+    ``out_strides``."""
     lib = build()["attention"]
     _check(lib.mvlt_attention(*qkv_ptrs, *in_strides, _ptr(ctx), *out_strides,
                               _ptr(pattern), _ptr(key_bias), _ptr(qbias),
                               _ptr(amask), _ptr(seed), _ptr(pst), _ptr(mask),
                               G, N, num_heads, Dh, P, float(scale), thresh,
-                              kept, head0, _stream(ctx.device)),
+                              kept, head0, ATTENTION_FORMS.index(form),
+                              _stream(ctx.device)),
            "biased_attention")
     biased_attention.launches += 1
+    biased_attention.mid_launches += form == "middle"
 
 
 biased_attention.launches = 0
 biased_attention.adrop_launches = biased_attention.save_p_launches = 0
-biased_attention.heads_launches = 0
+biased_attention.heads_launches = biased_attention.mid_launches = 0
 
 
 def _pattern_index(pattern, G: int, device):
@@ -1301,16 +1423,18 @@ def _check_stored_p(p, G: int, num_heads: int, N: int) -> None:
 
 def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
                          key_bias=None, qbias=None, amask=None, pattern=None,
-                         *, adrop=None, p=None):
+                         *, adrop=None, p=None, form: Optional[str] = None):
     """K4 wrapper; same contract as :func:`biased_attention_bwd_plain`. On
     CUDA: bf16 qkv, dctx, amask and p, f32 biases and patterns, an int32
     device seed, at most 256 heads with ``adrop``, 16-byte aligned tensors,
-    and (N, head dim) within :func:`attention_bwd_plan` (N <= 46,340, past
-    N = 288 with no pattern and no stored p; head dims 16, 32, 48, 64);
-    anything else raises ``ValueError`` before a launch. The sums over groups and heads run in a fixed order: two calls
-    on the same inputs give bitwise-equal gradients.
+    and (N, head dim) within :func:`attention_bwd_plan` (N <= 46,340, in the
+    middle form (160 < N <= 288) and past N = 288 with no pattern and no
+    stored p; head dims 16, 32, 48, 64); anything else raises
+    ``ValueError`` before a launch. The sums over groups and heads run in a
+    fixed order: two calls on the same inputs give bitwise-equal gradients.
+    ``form`` overrides the plan's form, as :func:`biased_attention`'s.
     ``adrop`` counts in ``adrop_launches``, ``p`` in ``stored_p_launches``,
-    both also in ``launches``."""
+    the middle form in ``mid_launches``, all also in ``launches``."""
     if not qkv.is_cuda:
         return biased_attention_bwd_plain(qkv, dctx, num_heads, seq_n, scale,
                                           key_bias, qbias, amask, pattern,
@@ -1319,10 +1443,12 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
     _cuda_arg(qkv, "qkv", bf, dev, 2)
     rows, C3 = qkv.shape
     N = seq_n
-    G, C, Dh = _attention_geometry(qkv, num_heads, N, backward=True,
-                                   pattern=pattern is not None,
-                                   amask=amask is not None,
-                                   window="stored p" if p is not None else "")
+    window = ("pattern" if pattern is not None else
+              "stored p" if p is not None else "")
+    G, C, Dh, plan = _attention_geometry(
+        qkv, num_heads, N, backward=True, pattern=pattern is not None,
+        amask=amask is not None, window=window, form=form or attention_form(
+            N, bool(window), backward=True, amask=amask is not None))
     # the messages are formatted only on failure (host time per call)
     _cuda_arg(dctx, "dctx", bf, dev, 2)
     if tuple(dctx.shape) != (rows, C):
@@ -1330,7 +1456,7 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
     _cuda_arg(key_bias, "key_bias", f32, dev, 2)
     if not (key_bias is None or tuple(key_bias.shape) == (G, N)):
         raise ValueError(f"key_bias must be ({G}, {N})")
-    _cuda_masks(qbias, amask, G, num_heads, N, dev)
+    _cuda_masks(qbias, amask, G, num_heads, N, dev, plan.form)
     _check_adrop(adrop, amask)
     seed, thresh, kept, head0 = _cuda_adrop(adrop, num_heads, dev)
     _cuda_arg(p, "p", bf, dev, 4)
@@ -1341,7 +1467,7 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
     dqkv = torch.empty((rows, C3), dtype=bf, device=dev)
     # one f32 buffer: the head partials of dkbias (G, nH, N), then the
     # first pass's statistics for the second (G, nH, scratch_words)
-    words = attention_bwd_plan(N, Dh).scratch_words
+    words = plan.scratch_words
     buf = torch.empty(G * num_heads * (N + words), dtype=f32, device=dev)
     scratch = buf.data_ptr() + 4 * G * num_heads * N
     part = dkb = dpat_part = dpat = None
@@ -1360,9 +1486,11 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
                                   _ptr(dkb), _ptr(dpat_part), _ptr(dpat),
                                   scratch, G, N, C, num_heads, P,
                                   float(scale), thresh, kept, head0,
+                                  ATTENTION_FORMS.index(plan.form),
                                   _stream(dev)),
            "biased_attention_bwd")
     biased_attention_bwd.launches += 1
+    biased_attention_bwd.mid_launches += plan.form == "middle"
     biased_attention_bwd.adrop_launches += adrop is not None
     biased_attention_bwd.stored_p_launches += p is not None
     if pattern is None:
@@ -1370,7 +1498,7 @@ def biased_attention_bwd(qkv, dctx, num_heads: int, seq_n: int, scale: float,
     return dqkv, dkb, dpat
 
 
-biased_attention_bwd.launches = 0
+biased_attention_bwd.launches = biased_attention_bwd.mid_launches = 0
 biased_attention_bwd.adrop_launches = biased_attention_bwd.stored_p_launches = 0
 
 
@@ -1576,5 +1704,6 @@ KERNELS = FORWARD_KERNELS + (biased_attention_bwd, layernorm_bwd, column_sum)
 # the opt-in modes' launch counts, beside each kernel's ``launches``
 MODE_COUNTS = {gemm: ("splitk_launches",),
                biased_attention: ("adrop_launches", "save_p_launches",
-                                   "heads_launches"),
-               biased_attention_bwd: ("adrop_launches", "stored_p_launches")}
+                                   "heads_launches", "mid_launches"),
+               biased_attention_bwd: ("adrop_launches", "stored_p_launches",
+                                      "mid_launches")}

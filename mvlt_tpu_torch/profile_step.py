@@ -106,6 +106,7 @@ FAMILIES = [
     (OURS + "sum_heads_kernel", "K4 biased_attention_bwd"),
     (OURS + "sum_chunks_kernel", "K4 biased_attention_bwd"),
     (OURS + "attention_wgmma_kernel", "K2 biased_attention"),
+    (OURS + "attention_mid_kernel", "K2 biased_attention"),   # 160 < N <= 288
     (OURS + "attention_long_kernel", "K2 biased_attention"),  # N > 288
     (OURS + "ln_bwd_kernel", "K5 layernorm_bwd"),          # <lanes, chunks>
     (OURS + "colsum_kernel", "K5 column_sum"),

@@ -32,18 +32,24 @@ torch.set_num_threads(2)
     (96, 48, 2, 3, 64),        # head dim 48 zero-padded to a 128-byte row
 ])
 def test_attention_bwd_plan_tiles(N, Dh, tiles, chunks, cols):
-    """Two passes of one warpgroup a block, ceil(N / 64) blocks of each per
-    (group, head): pass 1 on 64 query rows against ceil(N / 32) key chunks
-    (q's and dctx's 64 rows, k and v over whole chunks, 1024 bytes of
-    alignment; with an amask its 64 rows of N bf16 + 16 bytes where the
-    register cap's blocks still fit an SM, as K2 stages them), pass 2 on 64
+    """The register form (the plan's up to N = 160 and in the pattern and
+    stored-p modes up to 288; the sequence modes at 221, 278 and 288 take
+    the long form or, with an amask at odd N, the middle form,
+    :func:`test_middle_form_plans`): two passes of one warpgroup a block,
+    ceil(N / 64) blocks of each per (group, head): pass 1 on 64 query rows
+    against ceil(N / 32) key chunks (q's and dctx's 64 rows, k and v over
+    whole chunks, 1024 bytes of alignment; with an amask its 64 rows of N
+    bf16 + 16 bytes where the register cap's blocks still fit an SM, as K2
+    stages them), pass 2 on 64
     keys against every query chunk (the same rows plus each query's row
     max, row sum, its reciprocal, rowsum(p * dp) and two keep words), and
     in pattern mode 64 keys x the queries in f32 more; the scratch holds
     three statistics and one keep word per 32 keys for each query. Shared
     memory grows with N Dh (and N for the mask rows), never N^2, and fits
     the card at every N up to 288."""
-    plan = kernels.attention_bwd_plan(N, Dh)
+    plan = kernels.attention_bwd_plan(N, Dh, "register")
+    assert kernels.attention_bwd_plan(N, Dh).form == \
+        kernels.attention_form(N, backward=True)
     rows = 32 * chunks
     dq = (128 + 2 * rows) * cols * 2 + 1024
     blocks = kernels.attention_bwd_min_blocks(chunks)
@@ -53,18 +59,21 @@ def test_attention_bwd_plan_tiles(N, Dh, tiles, chunks, cols):
         dkv_smem=dq + 24 * rows, mask_smem=(128 * N + 16) * staged,
         pattern_smem=256 * rows, scratch_words=3 * N + N * chunks)
     assert staged == (N <= 221)     # at N = 278, 288: read score by score
-    assert kernels.attention_bwd_smem_bytes(N, Dh, amask=True) == max(
+    assert kernels.attention_bwd_smem_bytes(N, Dh, amask=True,
+                                            form="register") == max(
         dq + plan.mask_smem, plan.dkv_smem)
     assert plan.tiles * 64 >= N > (plan.tiles - 1) * 64
     assert plan.chunks * 32 >= N > (plan.chunks - 1) * 32
-    assert kernels.attention_bwd_smem_bytes(N, Dh) == plan.dkv_smem
+    assert kernels.attention_bwd_smem_bytes(N, Dh, form="register") == \
+        plan.dkv_smem
     assert kernels.attention_bwd_smem_bytes(N, Dh, pattern=True) == \
         plan.dkv_smem + plan.pattern_smem <= kernels.H100_SMEM_OPTIN
     for pattern in (False, True):
         kernels.check_attention_fits(N, Dh, kernels.H100_SMEM_OPTIN,
                                      backward=True, pattern=pattern)
-    # every K4 call follows a K2 forward of the same shape: the same tiles
-    fwd = kernels.attention_plan(N, Dh)
+    # every K4 call follows a K2 forward of the same shape and form: the
+    # same tiles
+    fwd = kernels.attention_plan(N, Dh, "register")
     assert (fwd.tiles, fwd.key_chunks, fwd.head_cols) == (tiles, chunks, cols)
 
 
@@ -72,16 +81,72 @@ def test_attention_bwd_plan_at_the_path_shapes():
     """The shared memory of the shapes the paths run: Swin windows (N 49,
     head dim 32) in pattern mode, 35,328 bytes, room for six blocks an SM;
     BERT at N 74 and 131 (head dim 64), 44,288 and 62,208 bytes; S 221 and
-    278, 80,128 and 98,048 bytes (the scalar K4 needed 509,184 and 767,280
-    there, beyond the card)."""
-    want = {(49, 32, True): 35328, (74, 64, False): 44288,
-            (131, 64, False): 62208, (221, 64, False): 80128,
-            (278, 64, False): 98048}
-    for (N, Dh, pattern), smem in want.items():
-        assert kernels.attention_bwd_smem_bytes(N, Dh, pattern) == smem
+    278 in the register form 80,128 and 98,048 bytes (the scalar K4 needed
+    509,184 and 767,280 there, beyond the card); in the middle form,
+    which the plan gives 221 with an amask, 198,016 and 215,424 (its first
+    pass: q's and dctx's 128 rows, k and v whole, five ring stages); in
+    the long form, which it gives them otherwise, 192,128."""
+    want = {(49, 32, True, None): 35328, (74, 64, False, None): 44288,
+            (131, 64, False, None): 62208,
+            (221, 64, False, "register"): 80128,
+            (278, 64, False, "register"): 98048,
+            (221, 64, False, "middle"): 198016,
+            (278, 64, False, "middle"): 215424,
+            (221, 64, False, None): 192128, (278, 64, False, None): 192128}
+    for (N, Dh, pattern, form), smem in want.items():
+        assert kernels.attention_bwd_smem_bytes(N, Dh, pattern,
+                                                form=form) == smem
+    assert kernels.attention_bwd_smem_bytes(221, 64, amask=True) == 198016
     assert 6 * (35328 + 1024) <= kernels.H100_SMEM_SM
     assert kernels.max_attention_n(64, backward=True) == 288
     assert kernels.max_attention_n(32, backward=True) == 288
+
+
+@pytest.mark.parametrize("N", [161, 180, 192, 201, 221, 256, 278, 288])
+@pytest.mark.parametrize("Dh", [16, 32, 48, 64])
+def test_middle_form_plans(N, Dh):
+    """The middle form (160 < N <= 288, the sequence modes) is the long
+    form's block, 128 rows on two consumer warpgroups and a producer, one
+    block an SM, ceil(N / 128) blocks a (group, head), with k and v whole
+    in shared memory and one sweep of S: a K2 block holds 1024 bytes of
+    alignment slack, q's 128 rows, k and v over whole 32-key chunks, five
+    ring stages of 20,608 bytes (a qbias tile of 128 rows at 160 bytes and
+    32 key-bias f32, or an amask tile), a keep word per row and chunk and
+    256 bytes of mbarriers; K4's first pass the same with dctx's 128 rows
+    beside q's, its second pass the long form's, with 9 bytes more a query
+    row of each of its four stages for an amask at odd N (rows of 272
+    bytes, each row's shift).
+    Every one fits an H100 block, and the window modes refuse it."""
+    cols = 32 if Dh <= 32 else 64
+    chunks = -(-N // 32)
+    ring = 5 * (128 * 160 + 32 * 4)
+    fwd = kernels.attention_plan(N, Dh, "middle")
+    assert fwd == kernels.AttentionPlan(
+        tiles=-(-N // 128), key_chunks=chunks, head_cols=cols,
+        smem=1024 + (128 + 64 * chunks) * cols * 2 + ring + chunks * 512
+        + 256, mask_smem=0, form="middle")
+    bwd = kernels.attention_bwd_plan(N, Dh, "middle")
+    assert bwd == kernels.AttentionBwdPlan(
+        tiles=-(-N // 128), chunks=chunks, head_cols=cols,
+        dq_smem=fwd.smem + 128 * cols * 2,
+        dkv_smem=kernels.attention_bwd_plan(474, Dh).dkv_smem + 4 * 32 * 9,
+        mask_smem=0,
+        pattern_smem=0, scratch_words=3 * N + N * chunks, form="middle")
+    for plan in (fwd, bwd):
+        assert (plan.rows, plan.stages, plan.sm_blocks) == (128, 5, 1)
+    assert bwd.sweeps == 1
+    assert max(fwd.smem, bwd.dq_smem, bwd.dkv_smem) <= kernels.H100_SMEM_OPTIN
+    for amask in (False, True):
+        assert kernels.attention_smem_bytes(N, Dh, amask, "middle") == fwd.smem
+        assert kernels.attention_bwd_smem_bytes(N, Dh, amask=amask,
+                                                form="middle") == \
+            max(bwd.dq_smem, bwd.dkv_smem)
+    assert kernels.attention_bwd_smem_bytes(N, Dh, pattern=True,
+                                            form="middle") == -1
+    with pytest.raises(ValueError, match="the middle form takes 161"):
+        kernels.attention_plan(160, Dh, "middle")
+    with pytest.raises(ValueError, match="the middle form takes 161"):
+        kernels.attention_bwd_plan(289, Dh, "middle")
 
 
 @pytest.mark.parametrize("N,Dh", [(289, 64), (289, 32), (300, 16), (0, 64),
@@ -96,7 +161,8 @@ def test_attention_bwd_plan_refuses(N, Dh):
     refused, naming the mode."""
     if N > kernels.ATTENTION_MAX_N and Dh in (16, 32, 48, 64):
         plan = kernels.attention_bwd_plan(N, Dh)
-        assert plan.long_form and plan.pattern_smem == plan.mask_smem == 0
+        assert plan.form == "long"
+        assert plan.pattern_smem == plan.mask_smem == 0
         smem = 192128 if Dh > 32 else 159360
         assert kernels.attention_bwd_smem_bytes(N, Dh) == smem
         assert kernels.attention_bwd_smem_bytes(N, Dh, amask=True) == smem
@@ -132,15 +198,20 @@ def test_attention_bwd_plan_refuses(N, Dh):
     "(anonymous namespace)::Params)",
     "void (anonymous namespace)::attention_bwd_dkv_long_kernel<32>("
     "(anonymous namespace)::Params)",
+    "void (anonymous namespace)::attention_bwd_dq_mid_kernel<9, 64>("
+    "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Params)",
+    "void (anonymous namespace)::attention_bwd_dq_mid_kernel<6, 32>("
+    "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Params)",
     "(anonymous namespace)::sum_heads_kernel(const float *, float *, int, "
     "int, int)",
     "(anonymous namespace)::sum_chunks_kernel(const float *, float *, int, "
     "unsigned long)",
 ])
 def test_profile_family_names_k4_kernels(symbol):
-    """``profile_step`` files both passes of K4 and its two fixed-order
-    sums under K4 (else their time would fall into "other"), and none of
-    them under K2."""
+    """``profile_step`` files both passes of K4 in each form (the middle
+    form's first pass among them) and its two fixed-order sums under K4
+    (else their time would fall into "other"), and none of them under
+    K2."""
     assert profile_step.family(symbol) == "K4 biased_attention_bwd"
 
 

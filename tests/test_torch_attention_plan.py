@@ -32,13 +32,18 @@ torch.set_num_threads(2)
     (96, 48, 2, 3, 64, False),     # head dim 48 zero-padded to a 128-byte row
 ])
 def test_attention_plan_tiles(N, Dh, tiles, chunks, cols, staged):
-    """One warpgroup a block on 64 query rows, ceil(N / 64) blocks a (group,
-    head), ceil(N / 32) key chunks, rows of one swizzle width; shared memory
-    q's 64 rows + k and v over whole chunks + 1024 bytes of alignment, and
-    with an amask its 64 rows of N bf16 + 16 bytes where that still leaves
-    room for the blocks the register cap puts on an SM (not at N = 278:
-    82,944 + 35,600 bytes > 233,472 / 2 - 1,024)."""
-    plan = kernels.attention_plan(N, Dh)
+    """The register form: one warpgroup a block on 64 query rows, ceil(N /
+    64) blocks a (group, head), ceil(N / 32) key chunks, rows of one swizzle
+    width; shared memory q's 64 rows + k and v over whole chunks + 1024
+    bytes of alignment, and with an amask its 64 rows of N bf16 + 16 bytes
+    where that still leaves room for the blocks the register cap puts on an
+    SM (not at N = 278: 82,944 + 35,600 bytes > 233,472 / 2 - 1,024). The
+    plan gives it every N up to 160 and the window modes up to 288; the
+    sequence modes at 221, 278 and 288 take the middle form (its own
+    test)."""
+    plan = kernels.attention_plan(N, Dh, "register")
+    assert kernels.attention_plan(N, Dh).form == (
+        "middle" if N >= kernels.ATTENTION_MID_MIN_N else "register")
     assert kernels.ATTENTION_ROWS == 64
     assert plan == kernels.AttentionPlan(tiles=tiles, key_chunks=chunks,
                                          head_cols=cols,
@@ -47,8 +52,9 @@ def test_attention_plan_tiles(N, Dh, tiles, chunks, cols, staged):
                                          mask_smem=(128 * N + 16) * staged)
     blocks = kernels.attention_min_blocks(chunks)
     assert (plan.smem + 128 * N + 16 <= 233472 // blocks - 1024) == staged
-    assert kernels.attention_smem_bytes(N, Dh) == plan.smem
-    assert kernels.attention_smem_bytes(N, Dh, amask=True) == \
+    assert kernels.attention_smem_bytes(N, Dh, form="register") == plan.smem
+    assert kernels.attention_smem_bytes(N, Dh, amask=True,
+                                        form="register") == \
         plan.smem + plan.mask_smem
     kernels.check_attention_fits(N, Dh, kernels.H100_SMEM_OPTIN, amask=True)
     assert plan.tiles * 64 >= N > (plan.tiles - 1) * 64
@@ -85,7 +91,7 @@ def test_attention_plan_refuses_n_beyond_the_cap(N):
             assert kernels.attention_smem_bytes(N, Dh) == -1
         else:
             plan = kernels.attention_plan(N, Dh)
-            assert plan.long_form and plan.tiles == -(-N // 128)
+            assert plan.form == "long" and plan.tiles == -(-N // 128)
             assert kernels.attention_smem_bytes(N, Dh) == smem
             assert kernels.attention_smem_bytes(N, Dh, amask=True) == smem
         with pytest.raises(ValueError, match=f"N={cap + 1}, head dim {Dh} "
@@ -183,11 +189,85 @@ def test_plain_attention_at_long_n_matches_jax(N, mode):
     "(anonymous namespace)::Params)",
     "void (anonymous namespace)::attention_long_kernel<64>("
     "(anonymous namespace)::Params)",
+    "void (anonymous namespace)::attention_mid_kernel<9, 64>(CUtensorMap_st, "
+    "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Params)",
+    "void (anonymous namespace)::attention_mid_kernel<6, 32>(CUtensorMap_st, "
+    "CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::Params)",
 ])
 def test_profile_family_names_the_new_kernel(symbol):
-    """``profile_step`` files every instance of the wgmma kernel under K2,
-    and K4's kernels stay K4's."""
+    """``profile_step`` files every instance of the wgmma kernel, the middle
+    form's and the long form's under K2, and K4's kernels stay K4's."""
     assert profile_step.family(symbol) == "K2 biased_attention"
     assert profile_step.family(
         "void (anonymous namespace)::attention_bwd_dq_kernel<5, 64>(...)") \
         == "K4 biased_attention_bwd"
+    assert profile_step.family(
+        "void (anonymous namespace)::attention_bwd_dq_mid_kernel<9, 64>(...)"
+    ) == "K4 biased_attention_bwd"
+
+
+# the forms of each fusion length a path runs, K2's and K4's (with an
+# amask: the paths' training steps with dropout): the VQA question (74) and
+# the pretrain / retrieval text (131) in the register form; the two-view
+# caption / retrieval steps (180), the caption step (201) and ViT-B/16 or
+# the linear patch with 23 / 80 text tokens (221 / 278) in K2's middle
+# form, which beat the register and long forms there on the card in every
+# mode (PERF.md, Findings), and K4's long form, but for the middle form with
+# an amask at odd N (the caption step's 201; 221 with dropout); past 288
+# (298, 348, two views' 474) the long form
+PATH_FORMS = {74: ("register",) * 3, 131: ("register",) * 3,
+              180: ("middle", "long", "long"),
+              201: ("middle", "long", "middle"),
+              221: ("middle", "long", "middle"),
+              278: ("middle", "long", "long"),
+              298: ("long",) * 3, 348: ("long",) * 3, 474: ("long",) * 3}
+WINDOW_MODES = (dict(window="pattern"), dict(window="stored p"),
+                dict(window="head-major"), dict(backward=True, pattern=True),
+                dict(backward=True, window="stored p"))
+
+
+@pytest.mark.parametrize("Dh", [32, 64])
+@pytest.mark.parametrize("N", range(1, 475))
+def test_attention_form_at_every_n(N, Dh):
+    """The forms K2 and K4 take N in, through the fusion's lengths: the
+    register form up to ``ATTENTION_MID_MIN_N - 1``; K2's middle form to
+    288, K4's where an amask's rows start 2 bytes off 4 (odd N) and its long
+    form otherwise; the long form past 288; in both kernels' plans and at
+    each path length as PATH_FORMS says; every form's shared memory within
+    the 232,448 bytes an H100 block may opt in to, with and without an
+    amask; the window modes in the register form up to 288 and refused past
+    it (where the plan would take the long form), never in the middle
+    form."""
+    mid = kernels.ATTENTION_MID_MIN_N <= N <= kernels.ATTENTION_MAX_N
+    reg = N < kernels.ATTENTION_MID_MIN_N
+    forms = (kernels.attention_form(N),
+             kernels.attention_form(N, backward=True),
+             kernels.attention_form(N, backward=True, amask=True))
+    assert forms == ("register" if reg else "middle" if mid else "long",
+                     "register" if reg else "long",
+                     "register" if reg else
+                     "middle" if mid and N % 2 else "long")
+    assert kernels.attention_form(N, amask=True) == forms[0]
+    assert kernels.attention_plan(N, Dh).form == forms[0]
+    assert kernels.attention_bwd_plan(N, Dh).form == forms[1]
+    assert PATH_FORMS.get(N, forms) == forms
+    optin = kernels.H100_SMEM_OPTIN
+    for amask in (False, True):
+        assert 0 < kernels.attention_smem_bytes(N, Dh, amask) <= optin
+        assert 0 < kernels.attention_bwd_smem_bytes(N, Dh, amask=amask) <= \
+            optin
+        assert kernels.check_attention_fits(
+            N, Dh, optin, amask=amask).form == forms[0]
+        assert kernels.check_attention_fits(
+            N, Dh, optin, backward=True, amask=amask).form == forms[1 + amask]
+    assert kernels.attention_form(N, window=True) == (
+        "register" if N <= kernels.ATTENTION_MAX_N else "long")
+    for kw in WINDOW_MODES:
+        if N <= kernels.ATTENTION_MAX_N:
+            assert kernels.check_attention_fits(N, Dh, optin,
+                                                **kw).form == "register"
+        else:
+            with pytest.raises(ValueError, match="register-resident"):
+                kernels.check_attention_fits(N, Dh, optin, **kw)
+        with pytest.raises(ValueError):   # no window mode in the middle form
+            kernels.check_attention_fits(N, Dh, optin, form="middle", **kw)

@@ -403,7 +403,9 @@ def test_attention_shared_memory_fits_every_admitted_n():
     up to 288 fits the 232,448 bytes an H100 block may opt in to, in every
     mode. Up to 288 the bound is the register form's tile plan (nine 32-key
     chunks of scores in registers), not shared memory: K2 needs 82,944
-    bytes at N = 288; K4's two passes need O(N Dh) (58,368 / 62,208 bytes at
+    bytes at N = 288 in the register form (199,040 in the middle form that
+    the sequence modes take there: k and v whole, a five-stage ring);
+    K4's two passes need O(N Dh) (58,368 / 62,208 bytes at
     N = 131, where the scalar K4's N x N f32 tiles took 207,504 and stopped
     at N = 140), and its pattern mode's sum of ds over a block's groups adds
     64 rows of N f32 (171,776 bytes at N = 288). Past 288 the long form's
@@ -425,9 +427,11 @@ def test_attention_shared_memory_fits_every_admitted_n():
     assert kernels.attention_bwd_smem_bytes(131, Dh) == 62208
     assert bwd_pattern(131, Dh) == 62208 + 40960
     assert bwd_pattern(288, Dh) == 171776
-    assert kernels.attention_smem_bytes(288, Dh) == 82944
+    assert kernels.attention_smem_bytes(288, Dh, form="register") == 82944
+    assert kernels.attention_smem_bytes(288, Dh) == 199040
     # an amask's rows are staged only where two blocks still fit an SM
-    assert kernels.attention_smem_bytes(288, Dh, amask=True) == 82944
+    assert kernels.attention_smem_bytes(288, Dh, amask=True,
+                                        form="register") == 82944
     assert kernels.attention_smem_bytes(131, Dh, amask=True) == 50176 + 16784
     # the long form: the same bytes at every N past 288, no pattern mode
     for n in (289, 348, 474, 4096, top):

@@ -98,7 +98,7 @@ def test_long_form_plans_do_not_grow_with_n(N, Dh):
     assert fwd == kernels.AttentionPlan(
         tiles=-(-N // 128), key_chunks=-(-N // 32), head_cols=cols,
         smem=1024 + 128 * cols * 2 + ring + row_tiles + 128, mask_smem=0,
-        long_form=True)
+        form="long")
     bwd = kernels.attention_bwd_plan(N, Dh)
     dq = 1024 + 2 * 128 * cols * 2 + ring + row_tiles + 128
     dkv = 1024 + 2 * 128 * cols * 2 + ring + 4 * 32 * (528 + 264 + 16 + 16) \
@@ -106,7 +106,7 @@ def test_long_form_plans_do_not_grow_with_n(N, Dh):
     assert bwd == kernels.AttentionBwdPlan(
         tiles=-(-N // 128), chunks=-(-N // 32), head_cols=cols, dq_smem=dq,
         dkv_smem=dkv, mask_smem=0, pattern_smem=0,
-        scratch_words=3 * N + N * -(-N // 32), long_form=True)
+        scratch_words=3 * N + N * -(-N // 32), form="long")
     for amask in (False, True):
         assert kernels.attention_smem_bytes(N, Dh, amask) == fwd.smem
         assert kernels.attention_bwd_smem_bytes(N, Dh, amask=amask) == \
@@ -136,9 +136,11 @@ def test_long_form_plans_are_the_hopper_design(N, Dh):
         (first_f.smem, first_b.dq_smem, first_b.dkv_smem)
     assert max(want) <= kernels.H100_SMEM_OPTIN
     for plan in (fwd, bwd):
-        assert plan.long_form and plan.rows == 128 and plan.stages >= 3
+        assert plan.form == "long" and plan.rows == 128 and plan.stages >= 3
         assert plan.sm_blocks == 1 and plan.tiles == -(-N // 128)
-    assert bwd.sweeps == 2 and kernels.attention_bwd_plan(288, Dh).sweeps == 1
+    assert bwd.sweeps == 2
+    for form in ("register", "middle"):   # S held for the whole row
+        assert kernels.attention_bwd_plan(288, Dh, form).sweeps == 1
     for kw in (dict(window="pattern"), dict(window="stored p"),
                dict(window="head-major"), dict(backward=True, pattern=True),
                dict(backward=True, window="stored p")):
